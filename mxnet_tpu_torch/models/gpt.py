@@ -1,0 +1,257 @@
+"""GPT-style decoder-only causal language model (counterpart of
+``mxnet_tpu/models/gpt.py``).
+
+A pre-LN transformer with a fused-QKV projection, learned positions (or
+RoPE), optional GQA and sliding window, and tied embeddings by default.
+The module tree carries the JAX package's parameter names
+(``transformer.word_embed.weight``,
+``transformer.layers.<i>.attention.attn_qkv.weight``, …,
+``transformer.final_norm.gamma``, ``lm_head.weight``), so
+`convert.load_jax_params` fills it name for name.
+
+`generate` decodes through the shared decode core (`serve.decode`) with
+dense per-request caches, token by token, exactly as the JAX
+``_generate_cached`` scan does.  The full-sequence ``forward`` and beam
+search wait for later slices (ROADMAP.md).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..base import MXNetError
+from ..device import resolve_device
+from .layers import (FeedForward, FusedSelfAttention, LayerNorm,
+                     check_max_position)
+
+__all__ = ["GPTConfig", "GPTBlock", "GPTModel", "GPTForCausalLM",
+           "gpt_small", "gpt_medium"]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(name) -> torch.dtype:
+    """The torch dtype of a config dtype name (``"float32"``,
+    ``"bfloat16"``)."""
+    if isinstance(name, torch.dtype):
+        return name
+    try:
+        return _DTYPES[str(name)]
+    except KeyError:
+        raise MXNetError(f"unsupported model dtype {name!r}; use one of "
+                         f"{sorted(_DTYPES)}") from None
+
+
+class GPTConfig:
+    def __init__(self, vocab_size=50257, hidden_size=768, num_layers=12,
+                 num_heads=12, intermediate_size=3072, max_position=1024,
+                 dropout=0.1, layer_norm_eps=1e-5, tie_embeddings=True,
+                 dtype="float32", window=None, rope=False,
+                 rope_theta=10000.0, num_kv_heads=None):
+        self.vocab_size = vocab_size
+        self.hidden_size = hidden_size
+        self.num_layers = num_layers
+        self.num_heads = num_heads
+        self.intermediate_size = intermediate_size
+        self.max_position = max_position
+        self.dropout = dropout
+        self.layer_norm_eps = layer_norm_eps
+        self.tie_embeddings = tie_embeddings
+        self.dtype = dtype
+        # Mistral-style sliding-window attention: each position attends
+        # the last `window` tokens only
+        if window is not None and window < 1:
+            raise ValueError(f"window must be >= 1, got {window}")
+        self.window = window
+        # rotary position embeddings instead of learned absolute positions
+        if rope and (hidden_size // num_heads) % 2:
+            raise ValueError(
+                f"rope requires an even head_dim; hidden_size="
+                f"{hidden_size} / num_heads={num_heads} gives "
+                f"{hidden_size // num_heads}")
+        self.rope = rope
+        self.rope_theta = rope_theta
+        # grouped-query attention: kv carry this many heads (< num_heads)
+        if num_kv_heads is not None and num_heads % num_kv_heads:
+            raise ValueError(f"num_heads ({num_heads}) must be divisible "
+                             f"by num_kv_heads ({num_kv_heads})")
+        self.num_kv_heads = num_kv_heads
+
+
+def gpt_small(**kwargs):
+    """GPT-2 small (HF ``gpt2``): vocab 50257, hidden 768, 12 layers, 12
+    heads, FFN 3072, 1024 positions, tied embeddings."""
+    return GPTConfig(**kwargs)
+
+
+def gpt_medium(**kwargs):
+    cfg = dict(hidden_size=1024, num_layers=24, num_heads=16,
+               intermediate_size=4096)
+    cfg.update(kwargs)
+    return GPTConfig(**cfg)
+
+
+class GPTBlock(nn.Module):
+    """Pre-LN block (GPT-2 style): x + attn(ln(x)); x + ffn(ln(x))."""
+
+    def __init__(self, cfg: GPTConfig):
+        super().__init__()
+        dt = torch_dtype(cfg.dtype)
+        self.attn_norm = LayerNorm(cfg.hidden_size, dt)
+        self.attention = FusedSelfAttention(
+            cfg.hidden_size, cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+            dtype=dt)
+        self.ffn_norm = LayerNorm(cfg.hidden_size, dt)
+        self.ffn = FeedForward(cfg.hidden_size, cfg.intermediate_size,
+                               dtype=dt)
+
+
+class GPTModel(nn.Module):
+    def __init__(self, cfg: GPTConfig):
+        super().__init__()
+        dt = torch_dtype(cfg.dtype)
+        self.cfg = cfg
+        self.word_embed = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
+                                       dtype=dt)
+        if not cfg.rope:
+            self.position_embed = nn.Embedding(cfg.max_position,
+                                               cfg.hidden_size, dtype=dt)
+        self.layers = nn.ModuleList(GPTBlock(cfg)
+                                    for _ in range(cfg.num_layers))
+        self.final_norm = LayerNorm(cfg.hidden_size, dt)
+
+
+def _rank_mask(logits, keep_n, order=None):
+    """Keep exactly the first `keep_n` positions of the stable descending
+    order (lower vocab index wins ties); the rest get -1e30.  Pass a
+    precomputed descending `order` to reuse an existing sort."""
+    if order is None:
+        order = torch.argsort(-logits, dim=-1, stable=True)
+    ranks = torch.argsort(order, dim=-1, stable=True)
+    return torch.where(ranks < keep_n, logits, -1e30)
+
+
+def _filter_logits(logits, top_k=0, top_p=1.0):
+    """Top-k then top-p (nucleus) filtering over the last axis, applied
+    in sequence like HF `TopKLogitsWarper` -> `TopPLogitsWarper`: the
+    nucleus is computed over the renormalised post-top-k softmax.
+    Dropped tokens get -1e30; exact under ties; the argmax always
+    survives."""
+    V = logits.shape[-1]
+    if top_k and 0 < top_k < V:
+        logits = _rank_mask(logits, top_k)
+    if top_p < 1.0:
+        order = torch.argsort(-logits, dim=-1, stable=True)
+        sorted_logits = torch.gather(logits, -1, order)
+        probs = torch.softmax(sorted_logits, dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        # a sorted position is INSIDE the nucleus while the mass BEFORE
+        # it is < p (the first token always stays)
+        inside = (cum - probs) < top_p
+        keep_n = torch.clamp(inside.sum(dim=-1, keepdim=True), min=1)
+        logits = _rank_mask(logits, keep_n, order=order)
+    return logits
+
+
+class GPTForCausalLM(nn.Module):
+    """Next-token LM head; with `tie_embeddings` the decoder reuses the
+    input embedding matrix (GPT-2 parity).
+
+    Built on `device` (the card unless ``device="cpu"``) with weights drawn
+    from `seed`: N(0, 0.02) for matrices and embeddings, zero biases,
+    unit LayerNorm gains — on the CPU generator, so a seed gives the same
+    weights on every device."""
+
+    def __init__(self, cfg: GPTConfig, device=None, seed: int = 0):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        with torch.device("meta"):
+            self.transformer = GPTModel(cfg)
+            if not cfg.tie_embeddings:
+                self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size,
+                                         bias=False,
+                                         dtype=torch_dtype(cfg.dtype))
+        self.to_empty(device="cpu")
+        self.reset_parameters(seed)
+        self.to(dev)
+
+    @property
+    def device(self) -> torch.device:
+        return self.transformer.word_embed.weight.device
+
+    @torch.no_grad()
+    def reset_parameters(self, seed: int = 0) -> None:
+        gen = torch.Generator(device="cpu").manual_seed(int(seed))
+        for name, p in self.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "gamma":
+                p.fill_(1.0)
+            elif leaf in ("beta", "bias"):
+                p.zero_()
+            else:
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+
+    def forward(self, input_ids):
+        raise MXNetError(
+            "GPTForCausalLM.forward (full-sequence logits) is not ported "
+            "to mxnet_tpu_torch yet — it waits for the training slice "
+            "(ROADMAP.md); use generate() or the serving engine")
+
+    @torch.inference_mode()
+    def generate(self, input_ids, max_new_tokens=20, temperature=1.0,
+                 greedy=True, use_cache=True, num_beams=1, top_k=0,
+                 top_p=1.0, generator: Optional[torch.Generator] = None):
+        """Autoregressive decode: prompt (B, L) -> (B, L + max_new_tokens)
+        int32 token ids on the model's device.
+
+        Runs the dense-cache decode core one position at a time, prompt
+        included, exactly as the JAX ``_generate_cached`` scan does (so a
+        greedy stream equals the serving engine's).  Sampling
+        (``greedy=False``) draws from `generator` (default: a fresh CPU-
+        seeded generator on the model's device) after `temperature`,
+        `top_k` and `top_p` filtering.  ``use_cache=False`` and beam
+        search wait for later slices."""
+        if num_beams > 1 or not use_cache:
+            raise MXNetError(
+                "generate: beam search and use_cache=False are not ported "
+                "to mxnet_tpu_torch yet (ROADMAP.md)")
+        from ..serve.decode import (dense_kv_fn, extract_decode_weights,
+                                    lm_logits, transformer_step)
+        cfg = self.cfg
+        dev = self.device
+        prompt = torch.as_tensor(input_ids, device=dev).to(torch.int32)
+        if prompt.dim() == 1:
+            prompt = prompt[None]
+        B, plen = prompt.shape
+        T = plen + max_new_tokens
+        check_max_position(T, cfg.max_position)
+        P = extract_decode_weights(self)
+        H = cfg.num_heads
+        Hkv = cfg.num_kv_heads or H
+        D = cfg.hidden_size // H
+        kc = torch.zeros((cfg.num_layers, B, Hkv, T, D),
+                         dtype=P["embed"].dtype, device=dev)
+        vc = torch.zeros_like(kc)
+        if not greedy and generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        out = torch.empty((B, T), dtype=torch.int32, device=dev)
+        out[:, :plen] = prompt
+        for t in range(T - 1):
+            pos = torch.full((B, 1), t, dtype=torch.int32, device=dev)
+            kv_fn = dense_kv_fn(kc, vc, pos, window=cfg.window)
+            h = transformer_step(P, cfg, out[:, t:t + 1], pos, kv_fn)
+            if t + 1 < plen:
+                continue            # prefill: the prompt token is forced
+            logits = lm_logits(P, h[:, 0])
+            if greedy:
+                nxt = torch.argmax(logits, dim=-1)
+            else:
+                filtered = _filter_logits(logits.float() / temperature,
+                                          top_k, top_p)
+                nxt = torch.multinomial(torch.softmax(filtered, dim=-1), 1,
+                                        generator=generator)[:, 0]
+            out[:, t + 1] = nxt.to(torch.int32)
+        return out

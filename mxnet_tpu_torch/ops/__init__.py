@@ -1,0 +1,20 @@
+"""Operators of the port: each module holds a hand-written CUDA kernel
+(``csrc/``) beside its plain PyTorch version, and a dispatcher that
+launches the kernel on a CUDA tensor and runs the plain version on a CPU
+tensor.  ``ops.quantized_matmul`` names the module; its dispatcher of
+the same name is ``ops.quantized_matmul.quantized_matmul``."""
+from .paged_attention import (  # noqa: F401
+    ragged_paged_attention, paged_attention_reference, gather_pages,
+    MASK_VALUE)
+from .quantized_matmul import (  # noqa: F401
+    QuantizedTensor, quantize_weight, dequantize_weight, pack_int4,
+    unpack_int4, quantized_matmul_reference, matmul_nt,
+    matmul_nt_reference, gather_rows, weight_nbytes)
+from .attention import rope_rotate  # noqa: F401
+
+__all__ = ["ragged_paged_attention", "paged_attention_reference",
+           "gather_pages", "MASK_VALUE", "QuantizedTensor",
+           "quantize_weight", "dequantize_weight", "pack_int4",
+           "unpack_int4", "quantized_matmul_reference",
+           "matmul_nt", "matmul_nt_reference", "gather_rows",
+           "weight_nbytes", "rope_rotate"]

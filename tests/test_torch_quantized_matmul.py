@@ -1,0 +1,121 @@
+"""Port parity: weight-only int8/int4 quantization and the dequant-matmul
+(mxnet_tpu_torch.ops.quantized_matmul) against the JAX package.
+
+Quantization must agree BIT FOR BIT (planes and scales): both sides round
+half to even over the same f32 arithmetic.  The matmul is compared at
+rtol 1e-5 / atol 1e-6 in float32 (same dequantized weight, summation order
+differs).
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from mxnet_tpu.ops.pallas import quantized_matmul as jqm
+
+from mxnet_tpu_torch import kernels
+from mxnet_tpu_torch.base import MXNetError
+from mxnet_tpu_torch.ops import quantized_matmul as tqm
+
+torch.set_num_threads(1)
+
+
+def _weight(seed, n, k):
+    rng = np.random.RandomState(seed)
+    w = (rng.randn(n, k) * 0.3).astype(np.float32)
+    w[1] = 0.0                     # an all-zero channel: scale 0
+    # a row whose scaled values land exactly on .5: amax 127 -> inv 1
+    w[2, :6] = [127.0, 0.5, 1.5, 2.5, -0.5, -2.5]
+    w[2, 6:] = 0.0
+    return w
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("k", [16, 17])
+def test_quantize_weight_bit_identical(bits, k):
+    w = _weight(0, 6, k)
+    ref = jqm.quantize_weight(jnp.asarray(w), bits)
+    out = tqm.quantize_weight(torch.from_numpy(w), bits)
+    assert out.bits == ref.bits and out.in_features == ref.in_features
+    np.testing.assert_array_equal(out.q.numpy(), np.asarray(ref.q))
+    np.testing.assert_array_equal(out.scale.numpy(), np.asarray(ref.scale))
+    np.testing.assert_array_equal(
+        tqm.dequantize_weight(out).numpy(),
+        np.asarray(jqm.dequantize_weight(ref)))
+
+
+def test_round_half_to_even_as_the_code_does():
+    w = _weight(0, 6, 16)
+    q = tqm.quantize_weight(torch.from_numpy(w), 8).q.numpy()
+    # 0.5 -> 0, 1.5 -> 2, 2.5 -> 2 (half to even), signs mirrored
+    assert q[2, :6].tolist() == [127, 0, 2, 2, 0, -2]
+    assert (q[1] == 0).all()
+
+
+@pytest.mark.parametrize("k", [16, 15])
+def test_int4_pack_roundtrip_full_range(k):
+    rng = np.random.RandomState(1)
+    vals = rng.randint(-8, 8, (5, k)).astype(np.int8)
+    vals[0, :2] = [-8, 7]
+    vals[1, -2:] = [7, -8]
+    packed = tqm.pack_int4(torch.from_numpy(vals))
+    assert packed.dtype == torch.int8 and packed.shape == (5, (k + 1) // 2)
+    np.testing.assert_array_equal(packed.numpy(),
+                                  np.asarray(jqm.pack_int4(vals)))
+    np.testing.assert_array_equal(tqm.unpack_int4(packed, k).numpy(), vals)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("k", [32, 33])
+def test_quantized_matmul_matches_jax_reference(bits, k):
+    rng = np.random.RandomState(2)
+    w = _weight(3, 24, k)
+    x = rng.randn(2, 5, k).astype(np.float32)
+    jq = jqm.quantize_weight(jnp.asarray(w), bits)
+    ref = jqm.quantized_matmul_reference(jnp.asarray(x.reshape(10, k)), jq)
+    tq = tqm.quantize_weight(torch.from_numpy(w), bits)
+    kernels.reset_launch_counts()
+    out = tqm.quantized_matmul(torch.from_numpy(x), tq)
+    assert out.shape == (2, 5, 24)
+    assert kernels.launch_counts()["quantized_matmul"] == 0
+    np.testing.assert_allclose(out.reshape(10, 24).numpy(), np.asarray(ref),
+                               rtol=1e-5, atol=1e-6)
+    # matmul_nt routes quantized weights, and the plain route agrees
+    np.testing.assert_array_equal(tqm.matmul_nt(torch.from_numpy(x),
+                                                tq).numpy(), out.numpy())
+    np.testing.assert_array_equal(
+        tqm.matmul_nt_reference(torch.from_numpy(x), tq).numpy(),
+        out.numpy())
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_gather_rows_and_nbytes_match_jax(bits):
+    w = _weight(4, 10, 9)
+    idx = np.array([[3, 0], [9, 3]], np.int32)
+    jq = jqm.quantize_weight(jnp.asarray(w), bits)
+    tq = tqm.quantize_weight(torch.from_numpy(w), bits)
+    np.testing.assert_array_equal(
+        tqm.gather_rows(tq, torch.from_numpy(idx).long()).numpy(),
+        np.asarray(jqm.gather_rows(jq, jnp.asarray(idx))))
+    assert tq.nbytes() == jqm.weight_nbytes(jq)
+    assert tqm.weight_nbytes(torch.from_numpy(w)) == \
+        jqm.weight_nbytes(jnp.asarray(w))
+
+
+def test_guards_raise():
+    tq = tqm.quantize_weight(torch.randn(4, 8), 8)
+    with pytest.raises(MXNetError, match="in_features"):
+        tqm.quantized_matmul(torch.randn(2, 7), tq)
+    with pytest.raises(MXNetError, match="QuantizedTensor"):
+        tqm.quantized_matmul(torch.randn(2, 8), torch.randn(4, 8))
+    with pytest.raises(MXNetError, match="bits"):
+        tqm.quantize_weight(torch.randn(4, 8), 2)
+    with pytest.raises(MXNetError, match="2-D"):
+        tqm.quantize_weight(torch.randn(4), 8)
+
+
+def test_int8_activation_path_raises_until_ported(monkeypatch):
+    monkeypatch.setenv("MXTPU_QUANT_ACT", "1")
+    tq = tqm.quantize_weight(torch.randn(4, 8), 8)
+    with pytest.raises(MXNetError, match="not ported"):
+        tqm.quantized_matmul(torch.randn(2, 8), tq)
