@@ -4,8 +4,9 @@
     python3 chip_smoke.py [--out chiprun_out/chip_smoke.json]
 
 Builds the port's CUDA kernels from ``mxnet_tpu_torch/csrc`` and drives its
-serving main path at full GPT-2-small width and depth (12 layers, hidden
-768, vocab 50257, seeded random weights):
+two main paths: serving at full GPT-2-small width and depth (12 layers,
+hidden 768, vocab 50257, seeded random weights) and the BERT-base
+pretraining step at full width and depth:
 
 1. prints the card (name and power limit from ``nvidia-smi``) and the
    torch / CUDA versions;
@@ -26,7 +27,25 @@ serving main path at full GPT-2-small width and depth (12 layers, hidden
    plain path's top-2 logit gap is below 1e-4;
 4. the same at ``quant_bits=8`` and ``quant_bits=4`` (K2 must launch);
 5. bfloat16 end to end, reporting the share of streams equal to the plain
-   path's.
+   path's;
+6. (k3) flash attention, forward and forward + backward, against its plain
+   version at BERT's attention shape (B 64, H 12, L 128, D 64) in f32 and
+   bf16 with no mask, a key-padding bias from seeded ``valid_length``
+   (0.85 L - L), a per-row bias, causal, and the padding bias with dropout
+   0.1 (one seed on both sides, so the keep masks coincide) — max-abs
+   1e-4 (f32) / 2e-2 (bf16) of the scale of O, dQ, dK and dV; timed
+   against ``scaled_dot_product_attention`` with the same float mask;
+7. (k4) the streaming softmax cross-entropy, forward and backward, against
+   its plain version at (1280, 30522) in f32 and bf16 and at the odd
+   V 50257, timed against ``cross_entropy(x.float(), y)``;
+8. (train) ``bench.py``'s BERT-base pretraining step (batch 64 x 128, 20
+   masked positions, padded by ``valid_length``, dropout 0.1, Adam lr
+   1e-4) through ``TrainStep`` for 20 steps in bf16 and f32 weights: the
+   flash kernels launch 12 times a step each way and the cross-entropy
+   kernels once; the loss trajectory equals that of the same step built
+   on the plain versions from the same seed (relative 1e-4 in f32 and
+   bf16), and the loss falls; prints samples/s, step ms and TFLOP/s
+   (``bench.py``'s count) and the share of the card's dense bf16 peak.
 
 Every count is reset just before a run it reports and read just after.
 The last three stdout lines are the ``nvidia-smi`` card line, the
@@ -39,6 +58,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -51,6 +71,11 @@ GAP = 1e-4            # near-tie threshold on the plain path's top-2 gap
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # max-abs / output scale
 HBM_BPS = 3.35e12     # H100 SXM HBM3
 PEAK = {"float32": 67e12, "bfloat16": 989e12}   # FMA f32 / dense bf16 TC
+TRAIN_STEPS = 20
+# loss, relative, kernel step vs plain step: the sound runs deviate by at
+# most 1.1e-7 (f32) and 1.6e-6 (bf16: its attention and products run in
+# f32 after the first LayerNorm), so one limit serves both
+TRAJ_TOL = {"float32": 1e-4, "bfloat16": 1e-4}
 
 
 def card_line() -> str:
@@ -417,32 +442,349 @@ def run_e2e(dev, results):
 
 
 # ---------------------------------------------------------------------------
+# phases 6-7: the training kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def _scale_err(got, want):
+    """(max-abs error, scale) of `got` against `want`, in f32."""
+    return (float((got.float() - want.float()).abs().max()),
+            float(want.float().abs().max()))
+
+
+def bert_batch(vocab, batch=64, seq=128, n_mask=20, seed=0):
+    """``bench.py``'s batch (bench.py:96-110): ids, valid_length in
+    [0.85 seq, seq], sorted masked positions, MLM labels."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, vocab, (batch, seq)).astype(np.int32)
+    vlen = rng.randint(int(0.85 * seq), seq + 1, (batch,)).astype(np.int32)
+    mpos = np.sort(rng.rand(batch, seq).argsort(axis=1)[:, :n_mask],
+                   axis=1).astype(np.int32)
+    labels = rng.randint(0, vocab, (batch, n_mask)).astype(np.int32)
+    return ids, vlen, mpos, labels
+
+
+FLASH_CASES = ("none", "pad", "row", "causal", "pad_dropout")
+
+
+def k3_cases(dev):
+    """The flash kernels at BERT-base's attention shape, one (b, h) per
+    bh: B 64, H 12, L 128, D 64."""
+    import torch
+    from mxnet_tpu_torch.ops import flash_attention as fa
+
+    B, H, L, D = 64, 12, 128, 64
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    scale = 1.0 / D ** 0.5
+    vlen = torch.from_numpy(bert_batch(30522)[1]).to(dev)
+    g = torch.Generator().manual_seed(3)
+    seed = torch.tensor([20261016], dtype=torch.int32, device=dev)
+    out = []
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        q, k, v, do = (torch.randn(B, H, L, D, generator=g).to(dev, dt)
+                       for _ in range(4))
+        pad = torch.where(torch.arange(L, device=dev)[None] < vlen[:, None],
+                          0.0, fa.MASK_VALUE)                     # (B, L)
+        row = torch.randn(B, L, L, generator=g).to(dev)
+        for name in FLASH_CASES:
+            bias = {"pad": pad, "pad_dropout": pad, "row": row}.get(name)
+            causal = name == "causal"
+            rate = 0.1 if name == "pad_dropout" else 0.0
+            bias3, per_head, per_row = (None, False, False) if bias is None \
+                else fa.normalize_bias(bias, B, H, L, L)
+            a = (q, k, v, bias3, seed, scale, causal, rate, per_head,
+                 per_row)
+            ok_, lk_ = fa._flash_fwd_cuda(*a)
+            op_, lp_ = fa.flash_fwd_reference(*a)
+            gk = fa._flash_bwd_cuda(q, k, v, bias3, seed, ok_, lk_, do,
+                                    scale, causal, rate, per_head, per_row)
+            gp = fa.flash_bwd_reference(q, k, v, bias3, seed, op_, lp_, do,
+                                        scale, causal, rate, per_head,
+                                        per_row)
+            torch.cuda.synchronize()
+            errs = {}
+            for nm, x, y in zip(("out", "dq", "dk", "dv"),
+                                (ok_,) + tuple(gk), (op_,) + tuple(gp)):
+                errs[nm] = _scale_err(x, y)
+            case = dict(dtype=dtype, case=name,
+                        max_abs_err=max(e for e, _ in errs.values()),
+                        errors={nm: {"err": e, "scale": sc}
+                                for nm, (e, sc) in errs.items()},
+                        ok=all(e <= TOL[dtype] * sc
+                               for e, sc in errs.values()))
+            # timings: kernel, plain version, SDPA with the same float mask
+            mask = None if bias is None else (
+                bias[:, None, None, :] if bias.dim() == 2
+                else bias[:, None]).to(dt)
+            qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+
+            def lib_fwd():
+                return sdpa(qs, ks, vs, attn_mask=mask, dropout_p=rate,
+                            is_causal=causal)
+            o_lib = lib_fwd()
+            case["ms"] = time_ms(lambda: fa._flash_fwd_cuda(*a))
+            case["plain_ms"] = time_ms(lambda: fa.flash_fwd_reference(*a))
+            case["library_ms"] = time_ms(lib_fwd)
+            bwd_args = (q, k, v, bias3, seed)
+            tail = (scale, causal, rate, per_head, per_row)
+            case["bwd_ms"] = time_ms(lambda: fa._flash_bwd_cuda(
+                *bwd_args, ok_, lk_, do, *tail))
+            case["bwd_plain_ms"] = time_ms(lambda: fa.flash_bwd_reference(
+                *bwd_args, op_, lp_, do, *tail))
+            case["bwd_library_ms"] = time_ms(lambda: torch.autograd.grad(
+                o_lib, (qs, ks, vs), do, retain_graph=True))
+
+            def kernel_fb():
+                o_, l_ = fa._flash_fwd_cuda(*a)
+                return fa._flash_bwd_cuda(*bwd_args, o_, l_, do, *tail)
+
+            def plain_fb():
+                o_, l_ = fa.flash_fwd_reference(*a)
+                return fa.flash_bwd_reference(*bwd_args, o_, l_, do, *tail)
+            case["fwd_bwd_ms"] = time_ms(kernel_fb)
+            case["fwd_bwd_plain_ms"] = time_ms(plain_fb)
+            case["fwd_bwd_library_ms"] = time_ms(lambda: torch.autograd.grad(
+                lib_fwd(), (qs, ks, vs), do))
+            # the work this data needs: (query, key) pairs not masked
+            if causal:
+                pairs = B * H * L * (L + 1) // 2
+            elif bias is pad:
+                pairs = H * L * int(vlen.sum())
+            else:
+                pairs = B * H * L * L
+            item = q.element_size()
+            tensor = B * H * L * D * item
+            bias_b = 0 if bias3 is None else bias3.numel() * 4
+            case["bound_ms"], case["bound_by"] = bound(
+                4 * tensor + B * H * L * 4 + bias_b, 4.0 * pairs * D, dtype)
+            case["bwd_bound_ms"], case["bwd_bound_by"] = bound(
+                8 * tensor + B * H * L * 4 + bias_b, 10.0 * pairs * D, dtype)
+            out.append(case)
+            del o_lib, qs, ks, vs
+    return out
+
+
+XENT_SHAPES = [("float32", 1280, 30522), ("bfloat16", 1280, 30522),
+               ("float32", 1280, 50257)]
+
+
+def k4_cases(dev):
+    """The cross-entropy kernels at the MLM head's logits (64 x 20 masked
+    rows, vocab 30522) and at an odd vocabulary."""
+    import torch
+    import torch.nn.functional as tF
+    from mxnet_tpu_torch.ops import softmax_xent as sx
+
+    g = torch.Generator().manual_seed(4)
+    out = []
+    for dtype, N, V in XENT_SHAPES:
+        dt = getattr(torch, dtype)
+        x = (2.0 * torch.randn(N, V, generator=g)).to(dev, dt)
+        lab = torch.randint(0, V, (N,), generator=g).to(dev, torch.int32)
+        gr = torch.rand(N, generator=g).to(dev)
+        lk_, sk_ = sx._xent_fwd_cuda(x, lab)
+        lp_, sp_ = sx.xent_fwd_reference(x, lab)
+        dk_ = sx._xent_bwd_cuda(x, lab, sk_, gr)
+        dp_ = sx.xent_bwd_reference(x, lab, sp_, gr)
+        torch.cuda.synchronize()
+        errs = {"loss": _scale_err(lk_, lp_), "dx": _scale_err(dk_, dp_)}
+        case = dict(dtype=dtype, N=N, V=V,
+                    max_abs_err=max(e for e, _ in errs.values()),
+                    errors={nm: {"err": e, "scale": sc}
+                            for nm, (e, sc) in errs.items()},
+                    ok=all(e <= TOL[dtype] * sc for e, sc in errs.values()))
+        x32 = x.float().requires_grad_()
+        y64 = lab.long()
+        lib = tF.cross_entropy(x32, y64, reduction="none")
+        case["ms"] = time_ms(lambda: sx._xent_fwd_cuda(x, lab))
+        case["plain_ms"] = time_ms(lambda: sx.xent_fwd_reference(x, lab))
+        case["library_ms"] = time_ms(lambda: tF.cross_entropy(
+            x.float(), y64, reduction="none"))
+        case["bwd_ms"] = time_ms(lambda: sx._xent_bwd_cuda(x, lab, sk_, gr))
+        case["bwd_plain_ms"] = time_ms(
+            lambda: sx.xent_bwd_reference(x, lab, sp_, gr))
+        case["bwd_library_ms"] = time_ms(lambda: torch.autograd.grad(
+            lib, x32, gr, retain_graph=True))
+        item = x.element_size()
+        case["bound_ms"], case["bound_by"] = bound(
+            N * V * item + 3 * N * 4, 3.0 * N * V, dtype)
+        case["bwd_bound_ms"], case["bwd_bound_by"] = bound(
+            2 * N * V * item + 3 * N * 4, 3.0 * N * V, dtype)
+        out.append(case)
+        del x32, lib
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the BERT-base pretraining step end to end
+# ---------------------------------------------------------------------------
+
+def bench_flops_per_step(cfg, batch, seq, n_mask):
+    """``bench.py``'s train FLOPs (bench.py:184-189): 3x the forward's
+    matmul FLOPs, the MLM head on the masked positions only."""
+    h, l, i, V = (cfg.hidden_size, cfg.num_layers, cfg.intermediate_size,
+                  cfg.vocab_size)
+    fwd_per_token = 2 * l * (4 * h * h + 2 * h * i) + 4 * l * seq * h
+    fwd_per_masked = 2 * (h * h + h * V)
+    return 3 * batch * (fwd_per_token * seq + fwd_per_masked * n_mask)
+
+
+def bert_train_step(dev, dtype, plain=False):
+    """``bench.py``'s pretraining step: full-width BERT-base (seed 0)
+    behind its positional adapter (ids, valid_length, masked_positions),
+    the mean MLM cross-entropy, Adam lr 1e-4, in a `TrainStep`.
+    ``plain=True`` builds the oracle: every attention swaps in
+    `multi_head_attention_reference` and the loss is
+    `softmax_cross_entropy_reference`, so no kernel launches."""
+    import torch
+    from mxnet_tpu_torch.models import BertForPretraining, bert_base
+    from mxnet_tpu_torch.models.layers import FusedSelfAttention
+    from mxnet_tpu_torch.ops.attention import multi_head_attention_reference
+    from mxnet_tpu_torch.ops.softmax_xent import (
+        softmax_cross_entropy, softmax_cross_entropy_reference)
+    from mxnet_tpu_torch.optimizer import Adam
+    from mxnet_tpu_torch.parallel import TrainStep
+
+    class Bench(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.model = BertForPretraining(bert_base(dtype=dtype),
+                                            device=dev, seed=0)
+
+        def forward(self, ids, vl, mp):
+            return self.model(ids, valid_length=vl, masked_positions=mp)
+
+    bench = Bench()
+    xent = softmax_cross_entropy
+    if plain:
+        for m in bench.modules():
+            if isinstance(m, FusedSelfAttention):
+                m.attend = multi_head_attention_reference
+        xent = softmax_cross_entropy_reference
+
+    def loss_fn(out, ids, vl, mp, lab):
+        return xent(out[0], lab).mean()
+
+    return TrainStep(bench, Adam(learning_rate=1e-4), loss_fn,
+                     num_model_args=3)
+
+
+def train_run(dev, dtype, plain, batch):
+    """`TRAIN_STEPS` steps of the pretraining step; returns its stats."""
+    import torch
+    from mxnet_tpu_torch import kernels
+
+    step = bert_train_step(dev, dtype, plain)
+    warm_s = step.warmup(*batch)
+    losses = []
+    kernels.reset_launch_counts()
+    for i in range(TRAIN_STEPS):
+        losses.append(step.dispatch(*batch).loss)
+        if i == 1:        # time the steady steps 3..N
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / (TRAIN_STEPS - 2)
+    launches = kernels.launch_counts()
+    return dict(losses=[float(x) for x in losses], step_ms=step_s * 1e3,
+                warmup_s=warm_s, launches=launches,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9), step_s
+
+
+def run_train(dev, results, card):
+    import torch
+    from mxnet_tpu_torch.models import bert_base
+
+    cfg = bert_base()
+    B, S, M = 64, 128, 20
+    batch = tuple(torch.from_numpy(a).to(dev)
+                  for a in bert_batch(cfg.vocab_size, B, S, M))
+    flops = bench_flops_per_step(cfg, B, S, M)
+    L = cfg.num_layers
+    for dtype in ("bfloat16", "float32"):
+        torch.cuda.reset_peak_memory_stats()
+        st, step_s = train_run(dev, dtype, False, batch)
+        torch.cuda.empty_cache()
+        pst, pstep_s = train_run(dev, dtype, True, batch)
+        torch.cuda.empty_cache()
+        want = {"flash_attention_fwd": L * TRAIN_STEPS,
+                "flash_attention_bwd": L * TRAIN_STEPS,
+                "softmax_xent_fwd": TRAIN_STEPS,
+                "softmax_xent_bwd": TRAIN_STEPS}
+        got = {k: st["launches"][k] for k in want}
+        if got != want:
+            raise AssertionError(f"train {dtype}: kernel launches {got}, "
+                                 f"want {want} over {TRAIN_STEPS} steps")
+        if any(pst["launches"][k] for k in want):
+            raise AssertionError(f"train {dtype}: the plain run launched "
+                                 f"kernels {pst['launches']}")
+        dev_rel = max(abs(a - b) / abs(b)
+                      for a, b in zip(st["losses"], pst["losses"]))
+        ls = st["losses"]
+        if not all(math.isfinite(x) for x in ls):
+            raise AssertionError(f"train {dtype}: non-finite loss {ls}")
+        if dev_rel > TRAJ_TOL[dtype]:
+            raise AssertionError(
+                f"train {dtype}: loss trajectory departs from the plain "
+                f"path's by {dev_rel:.3g} > {TRAJ_TOL[dtype]} "
+                f"({ls} vs {pst['losses']})")
+        if not ls[-1] < ls[0]:
+            raise AssertionError(f"train {dtype}: loss did not fall {ls}")
+        st.update(plain_losses=pst["losses"], plain_step_ms=pst["step_ms"],
+                  trajectory_rel_dev=dev_rel, samples_per_s=B / step_s,
+                  plain_samples_per_s=B / pstep_s,
+                  flops_per_step=flops, tflops=flops / step_s / 1e12,
+                  bf16_peak_share=flops / step_s / PEAK["bfloat16"])
+        results["train"][dtype] = st
+        print(f"[train {dtype}] {json.dumps(st)}", flush=True)
+        print(f"[train {dtype}] {B / step_s:.1f} samples/s, "
+              f"{st['step_ms']:.2f} ms/step, {st['tflops']:.2f} TFLOP/s = "
+              f"{100 * st['bf16_peak_share']:.2f}% of the dense bf16 peak "
+              f"(989 TFLOP/s) of {card}", flush=True)
+
+
+# ---------------------------------------------------------------------------
 
 def kernel_entries(results):
     """One entry per ported kernel for the ``kernels`` line: the
     representative main-path case (K1: f32 decode C=1 MHA, no window; K2:
-    int8 f32 M=8 768->2304) and the largest error over every case."""
-    k1 = results["k1"]
-    k2 = results["k2"]
+    int8 f32 M=8 768->2304; flash: f32 with the padding bias and dropout
+    0.1, as the BERT step calls it; cross-entropy: f32 (1280, 30522)) and
+    the largest error over every case.  Launches are the counts of the
+    main-path runs (serving for K1/K2, the bf16 and f32 training runs for
+    the others)."""
+    k1, k2, k3, k4 = (results[k] for k in ("k1", "k2", "k3", "k4"))
     rep1 = next(c for c in k1 if c["dtype"] == "float32" and c["C"] == 1
                 and c["Hkv"] == 12 and c["window"] is None)
     rep2 = next(c for c in k2 if c["bits"] == 8 and c["dtype"] == "float32"
                 and c["M"] == 8 and c["N"] == 2304)
-    e2e = results["e2e"]
+    rep3 = next(c for c in k3 if c["dtype"] == "float32"
+                and c["case"] == "pad_dropout")
+    rep4 = next(c for c in k4 if c["dtype"] == "float32" and c["V"] == 30522)
+    e2e, train = results["e2e"], results["train"]
     k1_launch = e2e.get("float32", {}).get("launches", {}).get(
         "ragged_paged_attention", 0)
     k2_launch = sum(e2e.get(k, {}).get("launches", {}).get(
         "quantized_matmul", 0) for k in ("int8", "int4"))
 
-    def entry(name, src, replaces, launches, cases, rep):
+    def train_launches(name):
+        return sum(r["launches"][name] for r in train.values())
+
+    def entry(name, src, replaces, launches, cases, rep, pre=""):
         return {"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": max(c["max_abs_err"] for c in cases),
-                "ms": rep["ms"], "kernel_ms": rep["ms"],
-                "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
-                "bound_by": rep["bound_by"],
-                "library_ms": rep["library_ms"]}
+                "ms": rep[pre + "ms"], "kernel_ms": rep[pre + "ms"],
+                "plain_ms": rep[pre + "plain_ms"],
+                "bound_ms": rep[pre + "bound_ms"],
+                "bound_by": rep[pre + "bound_by"],
+                "library_ms": rep[pre + "library_ms"]}
 
+    fa_src = "mxnet_tpu_torch/csrc/flash_attention.cu"
+    fa_py = "mxnet_tpu/ops/pallas/flash_attention.py"
+    sx_src = "mxnet_tpu_torch/csrc/softmax_xent.cu"
+    sx_py = "mxnet_tpu/ops/pallas/softmax_xent.py"
     return [
         entry("ragged_paged_attention",
               "mxnet_tpu_torch/csrc/paged_attention.cu",
@@ -452,6 +794,14 @@ def kernel_entries(results):
               "mxnet_tpu_torch/csrc/quantized_matmul.cu",
               "mxnet_tpu/ops/pallas/quantized_matmul.py:341", k2_launch, k2,
               rep2),
+        entry("flash_attention_fwd", fa_src, f"{fa_py}:284",
+              train_launches("flash_attention_fwd"), k3, rep3),
+        entry("flash_attention_bwd", fa_src, f"{fa_py}:489",
+              train_launches("flash_attention_bwd"), k3, rep3, "bwd_"),
+        entry("softmax_xent_fwd", sx_src, f"{sx_py}:95",
+              train_launches("softmax_xent_fwd"), k4, rep4),
+        entry("softmax_xent_bwd", sx_src, f"{sx_py}:127",
+              train_launches("softmax_xent_bwd"), k4, rep4, "bwd_"),
     ]
 
 
@@ -484,7 +834,7 @@ def main(argv=None) -> int:
 
     results = {"card": card, "device": torch.cuda.get_device_name(0),
                "torch": torch.__version__, "cuda": torch.version.cuda,
-               "e2e": {}}
+               "e2e": {}, "train": {}}
     failed = []
     t0 = time.perf_counter()
     # build from the checkout's sources, never from a leftover library
@@ -499,7 +849,8 @@ def main(argv=None) -> int:
         print("chip_smoke: kernel build failed", file=sys.stderr)
         return 1
 
-    for name, fn in (("k1", k1_cases), ("k2", k2_cases)):
+    for name, fn in (("k1", k1_cases), ("k2", k2_cases), ("k3", k3_cases),
+                     ("k4", k4_cases)):
         try:
             results[name] = fn(dev)
             for c in results[name]:
@@ -516,6 +867,11 @@ def main(argv=None) -> int:
     except Exception:
         traceback.print_exc()
         failed.append("e2e")
+    try:
+        run_train(dev, results, card)
+    except Exception:
+        traceback.print_exc()
+        failed.append("train")
     results["seconds"] = time.perf_counter() - t0
     results["failed"] = failed
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

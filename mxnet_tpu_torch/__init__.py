@@ -10,12 +10,14 @@ passes ``device="cpu"``.
 Ported so far (ROADMAP.md): GPT-2-style serving — `models.GPTForCausalLM`
 with dense-cache `generate`, and `serve.InferenceEngine` (continuous
 batching over a paged KV pool) through the ragged paged-attention kernel
-and the int8/int4 dequant-matmul kernel.
+and the int8/int4 dequant-matmul kernel — and BERT pretraining —
+`models.BertForPretraining` trained by `parallel.TrainStep` with Adam,
+through the flash-attention and streaming cross-entropy kernels.
 """
 from .base import MXNetError  # noqa: F401
 from .device import resolve_device  # noqa: F401
-from . import kernels, ops, models, serve  # noqa: F401
+from . import kernels, ops, models, serve, gluon, optimizer, parallel  # noqa: F401,E501
 from .convert import load_jax_params  # noqa: F401
 
 __all__ = ["MXNetError", "resolve_device", "kernels", "ops", "models",
-           "serve", "load_jax_params"]
+           "serve", "gluon", "optimizer", "parallel", "load_jax_params"]

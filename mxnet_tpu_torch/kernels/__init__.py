@@ -40,7 +40,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: kernel name -> launches since the last `reset_launch_counts()`
 LAUNCHES: Dict[str, int] = {"ragged_paged_attention": 0,
-                            "quantized_matmul": 0}
+                            "quantized_matmul": 0,
+                            "flash_attention_fwd": 0,
+                            "flash_attention_bwd": 0,
+                            "softmax_xent_fwd": 0,
+                            "softmax_xent_bwd": 0}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

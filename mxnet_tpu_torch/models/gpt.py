@@ -11,8 +11,10 @@ The module tree carries the JAX package's parameter names
 
 `generate` decodes through the shared decode core (`serve.decode`) with
 dense per-request caches, token by token, exactly as the JAX
-``_generate_cached`` scan does.  The full-sequence ``forward`` and beam
-search wait for later slices (ROADMAP.md).
+``_generate_cached`` scan does.  The blocks' full-sequence ``forward``
+(`layers`) is ported with BERT; the model's own ``forward`` (causal LM
+logits and loss) and beam search wait for the GPT-training slice
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -197,7 +199,7 @@ class GPTForCausalLM(nn.Module):
     def forward(self, input_ids):
         raise MXNetError(
             "GPTForCausalLM.forward (full-sequence logits) is not ported "
-            "to mxnet_tpu_torch yet — it waits for the training slice "
+            "to mxnet_tpu_torch yet — it waits for the GPT-training slice "
             "(ROADMAP.md); use generate() or the serving engine")
 
     @torch.inference_mode()

@@ -1,8 +1,10 @@
-"""Operators of the port: each module holds a hand-written CUDA kernel
-(``csrc/``) beside its plain PyTorch version, and a dispatcher that
+"""Operators of the port: each kernel module holds a hand-written CUDA
+kernel (``csrc/``) beside its plain PyTorch version, and a dispatcher that
 launches the kernel on a CUDA tensor and runs the plain version on a CPU
 tensor.  ``ops.quantized_matmul`` names the module; its dispatcher of
-the same name is ``ops.quantized_matmul.quantized_matmul``."""
+the same name is ``ops.quantized_matmul.quantized_matmul`` (likewise
+``ops.flash_attention`` and ``ops.softmax_xent``).  ``ops.nn`` holds the
+plain torch ``numpy_extension`` ops of the training path."""
 from .paged_attention import (  # noqa: F401
     ragged_paged_attention, paged_attention_reference, gather_pages,
     MASK_VALUE)
@@ -10,11 +12,17 @@ from .quantized_matmul import (  # noqa: F401
     QuantizedTensor, quantize_weight, dequantize_weight, pack_int4,
     unpack_int4, quantized_matmul_reference, matmul_nt,
     matmul_nt_reference, gather_rows, weight_nbytes)
-from .attention import rope_rotate  # noqa: F401
+from .attention import (  # noqa: F401
+    rope_rotate, multi_head_attention, dot_product_attention,
+    reference_attention, band_bias)
+from .softmax_xent import softmax_cross_entropy  # noqa: F401
+from . import nn  # noqa: F401
 
 __all__ = ["ragged_paged_attention", "paged_attention_reference",
            "gather_pages", "MASK_VALUE", "QuantizedTensor",
            "quantize_weight", "dequantize_weight", "pack_int4",
            "unpack_int4", "quantized_matmul_reference",
            "matmul_nt", "matmul_nt_reference", "gather_rows",
-           "weight_nbytes", "rope_rotate"]
+           "weight_nbytes", "rope_rotate", "multi_head_attention",
+           "dot_product_attention", "reference_attention", "band_bias",
+           "softmax_cross_entropy", "nn"]

@@ -1,0 +1,470 @@
+"""Flash attention, forward and backward: CUDA kernel + plain torch.
+
+Counterpart of ``mxnet_tpu/ops/pallas/flash_attention.py``: blockwise
+online-softmax attention over (B, H, L, D) that never keeps the (L, L)
+probabilities for the backward — it saves the f32 logsumexp per row and
+recomputes.  `flash_attention` is a `torch.autograd.Function`:
+
+- on a CUDA tensor it launches the hand-written kernels of
+  ``csrc/flash_attention.cu`` (forward; dQ then dK/dV backward), or raises
+  `MXNetError` on what they do not take (sliding windows and grouped K/V
+  heads are still to port, see ROADMAP.md);
+- on a CPU tensor it runs `flash_fwd_reference` / `flash_bwd_reference`:
+  the same arithmetic in plain torch, which the CPU tests hold against the
+  JAX package.
+
+`flash_attention_reference` runs those plain versions under the same
+autograd on any device, by name: the oracle a run on the card is held
+against (as `paged_attention_reference` is for the serving kernel).
+
+Semantics kept from the JAX kernels: an additive f32 bias (key padding as
+a compact (B, 1, Lk) row, or per query row), causal masking, fully masked
+rows giving zeros with lse = 0 and zero gradients, and attention-probs
+dropout from the counter hash `keep_mask` — bit for bit the JAX
+`_keep_mask`, keyed on the int32 seed, the flattened batch·head index and
+the absolute row and column, so the forward and both backward kernels
+regenerate one mask without storing it.  The bias gets a zero cotangent.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from ..base import MXNetError
+from .. import kernels as _kernels
+
+__all__ = ["flash_attention", "flash_attention_reference",
+           "flash_fwd_reference", "flash_bwd_reference", "normalize_bias",
+           "keep_mask", "MASK_VALUE"]
+
+MASK_VALUE = -1e30
+_M32 = 0xFFFFFFFF
+MAX_HEAD_DIM = 128      # the kernels' shared-memory tiles hold D <= 128
+
+
+# ---------------------------------------------------------------------------
+# the dropout hash (uint32 arithmetic carried in int64)
+# ---------------------------------------------------------------------------
+
+def _mul32(x, c: int):
+    """``x * c mod 2**32`` for int64 tensors holding uint32 values, split
+    into 16-bit halves of `c` so no product leaves int64's range (torch on
+    the CPU has no uint32 arithmetic for these ops)."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _M32
+
+
+def _splitmix32(x):
+    """32-bit splitmix finalizer (``_splitmix32`` of the JAX kernel)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def keep_mask(seed, bh, row0, col0, shape, rate, device=None):
+    """Dropout keep mask of the JAX kernel's ``_keep_mask``, bit for bit.
+
+    `seed`: int32 scalar (int or tensor); `bh`: flattened batch·head index
+    (int, or an int tensor whose shape leads the result's); rows
+    ``row0 ..`` and columns ``col0 ..`` are absolute positions; `shape` is
+    (rows, cols).  Returns a bool tensor, True = keep."""
+    if device is None:
+        device = seed.device if torch.is_tensor(seed) else "cpu"
+    i64 = dict(dtype=torch.int64, device=device)
+    s = torch.as_tensor(seed, **i64).reshape(()) & _M32
+    b = torch.as_tensor(bh, **i64)
+    base = _splitmix32((s + _mul32(b & _M32, 0x27D4EB2F)) & _M32)
+    base = base.reshape(base.shape + (1, 1))
+    r = (torch.arange(shape[0], **i64) + row0) & _M32
+    c = (torch.arange(shape[1], **i64) + col0) & _M32
+    u = _splitmix32((_mul32(r[:, None], 0x9E3779B1)
+                     + _mul32(c[None, :], 0x85EBCA77) + base) & _M32)
+    return u >= min(2 ** 32 - 1, int(rate * 4294967296.0))
+
+
+# ---------------------------------------------------------------------------
+# bias normalisation and the plain versions
+# ---------------------------------------------------------------------------
+
+def normalize_bias(bias, b, h, lq, lk):
+    """An additive bias as rank-3 (Bb, 1|Lq, Lk) f32 (``_normalize_bias``).
+
+    Accepted shapes: (B, Lk), (B, 1|Lq, Lk), (B, 1|H, 1|Lq, Lk).  Returns
+    (bias3, per_head, per_row)."""
+    bb = torch.as_tensor(bias).to(torch.float32)
+    if bb.dim() == 2:
+        bb = bb[:, None, :]
+    elif bb.dim() == 4:
+        if bb.shape[1] == 1:
+            bb = bb[:, 0]
+        else:
+            bb = bb.expand(b, h, bb.shape[2], bb.shape[3]).reshape(
+                b * h, bb.shape[2], bb.shape[3])
+    if bb.dim() != 3 or bb.shape[-1] != lk:
+        raise ValueError(f"unsupported attention bias shape "
+                         f"{tuple(torch.as_tensor(bias).shape)}")
+    if bb.shape[0] not in (b, b * h):
+        raise ValueError(f"bias batch dim {bb.shape[0]} != {b} or {b * h}")
+    per_head = bb.shape[0] != b
+    if bb.shape[1] == 1:
+        per_row = False
+    elif bb.shape[1] == lq:
+        per_row = True
+    else:
+        raise ValueError(f"bias row dim {bb.shape[1]} != 1 or {lq}")
+    return bb.contiguous(), per_head, per_row
+
+
+def _scores(q, k, bias3, scale, causal, per_head, window, window_symmetric,
+            lq):
+    """Masked f32 scores (B, G, R, Lk) of folded queries q (B, G, R, D)
+    against k (B, G, Lk, D); row r sits at position r % lq."""
+    B, G, R, _ = q.shape
+    lk = k.shape[2]
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if bias3 is not None:
+        bb = bias3.reshape(B, G if per_head else 1, bias3.shape[1], lk)
+        if bb.shape[2] not in (1, R):       # per-row bias under the fold
+            bb = bb.repeat(1, 1, R // bb.shape[2], 1)
+        s = s + bb
+    pos = torch.arange(R, device=q.device) % lq
+    cols = torch.arange(lk, device=q.device)
+    if causal:
+        s = torch.where(cols[None, :] <= pos[:, None], s, MASK_VALUE)
+    if window is not None:
+        keep = cols[None, :] >= pos[:, None] - window
+        if window_symmetric and not causal:
+            keep &= cols[None, :] <= pos[:, None] + window
+        else:
+            keep &= cols[None, :] <= pos[:, None]
+        s = torch.where(keep, s, MASK_VALUE)
+    return s
+
+
+def _probs(s, lse, hard_mask):
+    p = torch.exp(s - lse[..., None])
+    if hard_mask:
+        # hard-masked scores contribute exactly 0, even in a fully masked
+        # row (whose lse is 0)
+        p = torch.where(s > 0.5 * MASK_VALUE, p, 0.0)
+    return p
+
+
+def _dropout_keep(seed, rate, B, G, R, lk, device):
+    keep = keep_mask(seed, torch.arange(B * G, device=device), 0, 0,
+                     (R, lk), rate, device=device)
+    return keep.reshape(B, G, R, lk)
+
+
+def flash_fwd_reference(q, k, v, bias3=None, seed=None, scale=None,
+                        causal=False, rate=0.0, per_head=False,
+                        per_row=False, window=None, window_symmetric=True,
+                        lq=None):
+    """Plain version of the forward kernel: returns (out, lse).
+
+    q (B, G, R, D) with R = rep * lq grouped query rows (R = lq, G = H
+    without GQA), k/v (B, G, Lk, D); bias3 from `normalize_bias`; lse is
+    (B * G, R) f32.  Scores, softmax and the lse in f32; p is rounded to
+    v's type before P·V, as in the kernel."""
+    B, G, R, D = q.shape
+    lk = k.shape[2]
+    lq = R if lq is None else lq
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    s = _scores(q, k, bias3, scale, causal, per_head, window,
+                window_symmetric, lq)
+    m = s.amax(dim=-1)
+    hard = bias3 is not None or window is not None
+    p = _probs(s, m, hard)
+    l = p.sum(dim=-1)
+    l_safe = torch.where(l == 0.0, 1.0, l)
+    lse = torch.where(l == 0.0, 0.0, m + torch.log(l_safe))
+    if rate > 0.0:
+        keep = _dropout_keep(seed, rate, B, G, R, lk, q.device)
+        p = torch.where(keep, p * (1.0 / (1.0 - rate)), 0.0)
+    o = torch.matmul(p.to(v.dtype).float(), v.float()) / l_safe[..., None]
+    return o.to(q.dtype), lse.reshape(B * G, R)
+
+
+def flash_bwd_reference(q, k, v, bias3, seed, o, lse, g, scale=None,
+                        causal=False, rate=0.0, per_head=False,
+                        per_row=False, window=None, window_symmetric=True,
+                        lq=None):
+    """Plain version of the backward kernels: returns (dq, dk, dv) from the
+    forward's `o` and `lse` and the output cotangent `g`, recomputing p
+    from lse (``_dq_kernel`` / ``_dkv_kernel``)."""
+    B, G, R, D = q.shape
+    lk = k.shape[2]
+    lq = R if lq is None else lq
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    s = _scores(q, k, bias3, scale, causal, per_head, window,
+                window_symmetric, lq)
+    hard = bias3 is not None or window is not None
+    p = _probs(s, lse.reshape(B, G, R), hard)
+    gf = g.float()
+    dp = torch.matmul(gf, v.float().transpose(-1, -2))
+    pd = p
+    if rate > 0.0:
+        keep = _dropout_keep(seed, rate, B, G, R, lk, q.device)
+        inv = 1.0 / (1.0 - rate)
+        dp = torch.where(keep, dp * inv, 0.0)
+        pd = torch.where(keep, p * inv, 0.0)
+    di = (gf * o.float()).sum(dim=-1)          # rowsum(dO * O)
+    ds = p * (dp - di[..., None]) * scale
+    dq = torch.matmul(ds.to(k.dtype).float(), k.float())
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), q.float())
+    dv = torch.matmul(pd.to(g.dtype).float().transpose(-1, -2), gf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels (csrc/flash_attention.cu)
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_U = ctypes.c_uint
+_fns = {}
+
+
+def _kernel_fn(direction):
+    f = _fns.get(direction)
+    if f is None:
+        f = getattr(_kernels.load("flash_attention"),
+                    f"mxt_flash_attention_{direction}")
+        ptrs = 7 if direction == "fwd" else 12
+        f.argtypes = [_P] * ptrs + [_I] * 5 + [_F, _I, _I, _I, _F, _F, _U,
+                                               _I, _P]
+        f.restype = _I
+        _fns[direction] = f
+    return f
+
+
+def _check(q, k, v, bias3, seed, rate, per_row):
+    B, H, lq, D = q.shape
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise MXNetError(f"flash_attention kernel takes float32 or bfloat16, "
+                         f"got {q.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise MXNetError(f"flash_attention kernel needs q, k and v in one "
+                         f"dtype; got {q.dtype}/{k.dtype}/{v.dtype}")
+    if k.shape != v.shape or k.shape[:2] != (B, H) or k.shape[3] != D:
+        raise MXNetError(f"k and v must be ({B}, {H}, Lk, {D}); got "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    if not 1 <= D <= MAX_HEAD_DIM:
+        raise MXNetError(f"flash_attention kernel takes head_dim <= "
+                         f"{MAX_HEAD_DIM}, got {D}")
+    named = [("q", q), ("k", k), ("v", v)]
+    if bias3 is not None:
+        named.append(("bias", bias3))
+        if bias3.dtype != torch.float32 or bias3.shape[1] != \
+                (lq if per_row else 1):
+            raise MXNetError(f"bias must be f32 (Bb, {lq if per_row else 1}"
+                             f", Lk); got {bias3.dtype} "
+                             f"{tuple(bias3.shape)}")
+    if rate > 0.0:
+        named.append(("dropout seed", seed))
+        if seed.dtype != torch.int32 or seed.numel() != 1:
+            raise MXNetError("the dropout seed must be one int32")
+    for name, t in named:
+        if t.device != q.device:
+            raise MXNetError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise MXNetError(f"flash_attention kernel needs a contiguous "
+                             f"{name}")
+
+
+def _common_args(q, k, bias3, scale, causal, rate, per_head, per_row):
+    B, H, lq, D = q.shape
+    mode = 0 if bias3 is None else (2 if per_row else 1)
+    thresh = min(2 ** 32 - 1, int(rate * 4294967296.0)) if rate > 0 else 0
+    inv = 1.0 / (1.0 - rate) if rate > 0 else 1.0
+    return [B * H, H, lq, k.shape[2], D, float(scale), int(causal), mode,
+            int(bool(per_head)), float(rate), inv, thresh,
+            int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream]
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _flash_fwd_cuda(q, k, v, bias3, seed, scale, causal, rate, per_head,
+                    per_row):
+    """Check the operands, then launch the forward kernel on the current
+    stream; returns (out, lse (B * H, Lq) f32)."""
+    _check(q, k, v, bias3, seed, rate, per_row)
+    B, H, lq, _ = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((B * H, lq), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out, lse.zero_()
+    err = _kernel_fn("fwd")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias3),
+        _ptr(seed) if rate > 0 else None, out.data_ptr(), lse.data_ptr(),
+        *_common_args(q, k, bias3, scale, causal, rate, per_head, per_row))
+    if err:
+        raise MXNetError(f"flash_attention forward kernel launch failed "
+                         f"(cudaError_t {err})")
+    _kernels.LAUNCHES["flash_attention_fwd"] += 1
+    return out, lse
+
+
+def _flash_bwd_cuda(q, k, v, bias3, seed, o, lse, g, scale, causal, rate,
+                    per_head, per_row):
+    """Check the operands, then launch the dQ and dK/dV kernels on the
+    current stream; returns (dq, dk, dv)."""
+    _check(q, k, v, bias3, seed, rate, per_row)
+    for name, t in (("o", o), ("dout", g)):
+        if t.shape != q.shape or t.dtype != q.dtype or \
+                not t.is_contiguous() or t.device != q.device:
+            raise MXNetError(f"{name} must be a contiguous {q.dtype} "
+                             f"{tuple(q.shape)} on {q.device}")
+    B, H, lq, _ = q.shape
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (B * H, lq) or \
+            not lse.is_contiguous():
+        raise MXNetError(f"lse must be contiguous f32 ({B * H}, {lq})")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    di = torch.empty((B * H, lq), dtype=torch.float32, device=q.device)
+    err = _kernel_fn("bwd")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias3),
+        _ptr(seed) if rate > 0 else None, o.data_ptr(), lse.data_ptr(),
+        g.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(),
+        *_common_args(q, k, bias3, scale, causal, rate, per_head, per_row))
+    if err:
+        raise MXNetError(f"flash_attention backward kernel launch failed "
+                         f"(cudaError_t {err})")
+    _kernels.LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# autograd and the dispatcher
+# ---------------------------------------------------------------------------
+
+class _FlashAttention(torch.autograd.Function):
+    """Saves q, k, v, the output and the f32 lse; the backward recomputes
+    (``_flash`` and its custom VJP in the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias3, seed, scale, causal, rate, per_head,
+                per_row, window, window_symmetric, lq, use_kernel):
+        if use_kernel:
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+            o, lse = _flash_fwd_cuda(q, k, v, bias3, seed, scale, causal,
+                                     rate, per_head, per_row)
+        else:
+            o, lse = flash_fwd_reference(q, k, v, bias3, seed, scale, causal,
+                                         rate, per_head, per_row, window,
+                                         window_symmetric, lq)
+        ctx.save_for_backward(q, k, v, bias3, seed, o, lse)
+        ctx.cfg = (scale, causal, rate, per_head, per_row, window,
+                   window_symmetric, lq, use_kernel)
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias3, seed, o, lse = ctx.saved_tensors
+        (scale, causal, rate, per_head, per_row, window, window_symmetric,
+         lq, use_kernel) = ctx.cfg
+        if use_kernel:
+            dq, dk, dv = _flash_bwd_cuda(q, k, v, bias3, seed, o, lse,
+                                         g.contiguous(), scale, causal, rate,
+                                         per_head, per_row)
+        else:
+            dq, dk, dv = flash_bwd_reference(q, k, v, bias3, seed, o, lse, g,
+                                             scale, causal, rate, per_head,
+                                             per_row, window,
+                                             window_symmetric, lq)
+        # the bias is a constant (masks): zero cotangent, as in JAX
+        dbias = torch.zeros_like(bias3) if ctx.needs_input_grad[3] else None
+        return (dq, dk, dv, dbias) + (None,) * 10
+
+
+def flash_attention(q, k, v, causal=False, scale=None, bias=None,
+                    dropout_rate=0.0, dropout_seed=None, window=None,
+                    window_symmetric=True):
+    """Flash attention over (B, H, L, D) tensors -> (B, H, Lq, D).
+
+    `bias` is an additive f32 logits bias (MASK_VALUE for hard masking) of
+    a shape `normalize_bias` accepts; it gets a zero gradient.
+    `dropout_rate` with an int32 `dropout_seed` (int or one-element tensor)
+    applies attention-probs dropout inside the kernel, deterministic given
+    the seed.  `window=w` keeps keys within w positions of the query
+    ([q-w, q+w] when `window_symmetric` and not causal, else [q-w, q]).
+    k/v may carry g < H heads (grouped-query attention, H % g == 0): the
+    H // g query heads sharing a kv head are folded onto the row axis.
+
+    A CUDA tensor launches the kernels, and raises on a window or grouped
+    K/V, which they do not take yet; a CPU tensor runs the plain
+    versions."""
+    return _attend(q, k, v, causal, scale, bias, dropout_rate, dropout_seed,
+                   window, window_symmetric, q.device.type == "cuda")
+
+
+def flash_attention_reference(q, k, v, causal=False, scale=None, bias=None,
+                              dropout_rate=0.0, dropout_seed=None,
+                              window=None, window_symmetric=True):
+    """`flash_attention` on the plain versions, on any device: the same
+    arithmetic, the same dropout masks and the same autograd, with no
+    kernel launched."""
+    return _attend(q, k, v, causal, scale, bias, dropout_rate, dropout_seed,
+                   window, window_symmetric, False)
+
+
+def _attend(q, k, v, causal, scale, bias, dropout_rate, dropout_seed, window,
+            window_symmetric, use_kernel):
+    d = q.shape[-1]
+    s = scale if scale is not None else 1.0 / math.sqrt(d)
+    b, h, lq = q.shape[0], q.shape[1], q.shape[2]
+    g, lk = k.shape[1], k.shape[2]
+    if v.shape[1] != g:
+        raise ValueError(f"k has {g} heads but v has {v.shape[1]}")
+    if g != h and (g == 0 or h % g):
+        raise ValueError(f"query heads ({h}) must be a multiple of kv "
+                         f"heads ({g})")
+    if q.device.type not in ("cuda", "cpu"):
+        raise MXNetError(f"flash_attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    if use_kernel and (window is not None or g != h):
+        raise MXNetError(
+            "flash_attention: the CUDA kernel does not take "
+            f"{'a sliding window' if window is not None else 'grouped K/V heads'}"
+            " yet; it is still to port (ROADMAP.md)")
+    bias3, per_head, per_row = None, False, False
+    if bias is not None:
+        bias3, per_head, per_row = normalize_bias(bias, b, h, lq, lk)
+        bias3 = bias3.to(q.device)
+    rate = float(dropout_rate)
+    seed = None
+    if rate > 0.0:
+        if dropout_seed is None:
+            raise ValueError("dropout_rate > 0 requires dropout_seed")
+        seed = torch.as_tensor(dropout_seed).to(
+            device=q.device, dtype=torch.int32).reshape(1)
+    win = None if window is None else int(window)
+    if g != h and per_head:
+        # a per-head bias has no per-kv-head row to fold onto: expand K/V
+        # to full heads and run ungrouped, as the JAX package does
+        k = k.repeat_interleave(h // g, dim=1)
+        v = v.repeat_interleave(h // g, dim=1)
+        g = h
+    if g == h:
+        return _FlashAttention.apply(q, k, v, bias3, seed, s, bool(causal),
+                                     rate, per_head, per_row, win,
+                                     bool(window_symmetric), lq, use_kernel)
+    rep = h // g
+    # fold the query heads of a group onto the row axis: (b, h, lq, d) ->
+    # (b, g, rep * lq, d); row r of a group is (head r // lq, pos r % lq)
+    qf = q.reshape(b, g, rep * lq, d)
+    out = _FlashAttention.apply(qf, k, v, bias3, seed, s, bool(causal), rate,
+                                per_head, per_row, win,
+                                bool(window_symmetric), lq, use_kernel)
+    return out.reshape(b, h, lq, d)

@@ -1,8 +1,12 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, on the card:
+ragged paged attention, the dequant-matmul, flash attention (forward and
+backward, with padding or per-row bias, causal, dropout, ragged L and
+D up to 128) and the streaming cross-entropy (any V, unclamped labels).
 
 Marked ``cuda``: each test skips (with its reason) where no card is
-visible, as on the CPU test machine.  Run them on a machine with an H100:
-``python -m pytest tests/test_torch_cuda.py -q``.  Tolerances: f32 max-abs
+visible, as on the CPU test machine.  Run them on a machine with an H100
+(which needs no JAX): ``python -m pytest --noconftest
+tests/test_torch_cuda.py -q``.  Tolerances: f32 max-abs
 <= 1e-4 of the output scale (summation order), bf16 <= 2e-2.
 """
 import numpy as np
@@ -77,3 +81,98 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(card):
     qt = qm.quantize_weight(torch.randn(4, 8), 8).to(card)
     with pytest.raises(MXNetError, match="contiguous"):
         qm._qmm_cuda(torch.randn(8, 2, device=card).T, qt)
+
+
+def _flash_case(card, dtype, B, H, Lq, Lk, D, bias_kind, causal, rate):
+    """The dispatcher's output and gradients (kernels, through autograd)
+    and those of the plain versions called by name on the same inputs."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator().manual_seed(2)
+    q, k, v, do = (torch.randn(*s, generator=g).to(card, dtype)
+                   for s in ((B, H, Lq, D), (B, H, Lk, D), (B, H, Lk, D),
+                             (B, H, Lq, D)))
+    bias = None
+    if bias_kind == "pad":
+        vl = torch.randint(1, Lk + 1, (B,), generator=g)
+        bias = torch.where(torch.arange(Lk)[None] < vl[:, None], 0.0,
+                           fa.MASK_VALUE).to(card)
+    elif bias_kind == "row":
+        bias = torch.randn(B, Lq, Lk, generator=g).to(card)
+        bias[0, :3] = fa.MASK_VALUE                 # fully masked rows
+    seed = torch.tensor([12345], dtype=torch.int32, device=card)
+    qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+    o = fa.flash_attention(qq, kk, vv, causal=causal, bias=bias,
+                           dropout_rate=rate, dropout_seed=seed)
+    o.backward(do)
+    got = [o.detach()] + [t.grad for t in (qq, kk, vv)]
+    bias3, per_head, per_row = (None, False, False) if bias is None \
+        else fa.normalize_bias(bias, B, H, Lq, Lk)
+    tail = (D ** -0.5, causal, rate, per_head, per_row)
+    o_ref, lse = fa.flash_fwd_reference(q, k, v, bias3, seed, *tail)
+    want = [o_ref] + list(fa.flash_bwd_reference(q, k, v, bias3, seed,
+                                                 o_ref, lse, do, *tail))
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("Lq,Lk,D,bias_kind,causal,rate", [
+    (128, 128, 64, "pad", False, 0.1), (77, 77, 64, "none", True, 0.0),
+    (40, 100, 32, "row", False, 0.0), (130, 65, 128, "pad", False, 0.2)])
+def test_flash_attention_kernels_match_plain(card, dtype, tol, Lq, Lk, D,
+                                             bias_kind, causal, rate):
+    kernels.reset_launch_counts()
+    got, want = _flash_case(card, dtype, 2, 3, Lq, Lk, D, bias_kind, causal,
+                            rate)
+    counts = kernels.launch_counts()
+    assert counts["flash_attention_fwd"] == 1
+    assert counts["flash_attention_bwd"] == 1
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= tol * float(b.float().abs().max()), name
+
+
+def test_flash_attention_kernel_raises_on_what_it_does_not_take(card):
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    q = torch.zeros(1, 4, 8, 16, device=card)
+    kv = torch.zeros(1, 2, 8, 16, device=card)
+    with pytest.raises(MXNetError, match="ROADMAP.md"):
+        fa.flash_attention(q, kv, kv)
+    with pytest.raises(MXNetError, match="ROADMAP.md"):
+        fa.flash_attention(q, q, q, window=2)
+    with pytest.raises(MXNetError, match="head_dim"):
+        big = torch.zeros(1, 1, 8, 256, device=card)
+        fa.flash_attention(big, big, big)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("N,V", [(64, 30522), (37, 1001)])
+def test_softmax_xent_kernels_match_plain(card, dtype, tol, N, V):
+    from mxnet_tpu_torch.ops import softmax_xent as sx
+    g = torch.Generator().manual_seed(3)
+    x = 3 * torch.randn(N, V, generator=g)
+    lab = torch.randint(0, V, (N,), generator=g)
+    lab[0] = -1                                   # not clamped
+    # a masked vocabulary: a -inf column, and a row whose first 512 entries
+    # (every thread's first read) are -inf
+    x[:, 7] = float("-inf")
+    x[1, :512] = float("-inf")
+    lab[lab == 7] = 8
+    lab[1] = 600
+    x, lab = x.to(card, dtype), lab.to(card, torch.int32)
+    gr = torch.rand(N, generator=g).to(card)
+    kernels.reset_launch_counts()
+    xx = x.clone().requires_grad_()
+    loss = sx.softmax_cross_entropy(xx, lab)
+    loss.backward(gr)
+    loss_ref, lse = sx.xent_fwd_reference(x, lab)
+    dx_ref = sx.xent_bwd_reference(x, lab, lse, gr)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["softmax_xent_fwd"] == 1
+    assert kernels.launch_counts()["softmax_xent_bwd"] == 1
+    assert bool(torch.isfinite(loss).all())
+    for a, b in ((loss.detach(), loss_ref), (xx.grad, dx_ref)):
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= tol * float(b.float().abs().max())

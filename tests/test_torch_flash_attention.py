@@ -1,0 +1,301 @@
+"""Port parity: flash attention (mxnet_tpu_torch.ops.flash_attention) and the
+attention ops around it (mxnet_tpu_torch.ops.attention) against the JAX
+package.
+
+The same numpy inputs (from a seed) go through both packages.  The JAX
+side runs its Pallas kernels in interpret mode (blocks 8/16, L a multiple
+of 8, so it stays on the kernel path), enabled per test with
+``monkeypatch``; the port runs its CPU dispatch, the plain versions of the
+CUDA kernels.  Tolerance: atol/rtol 1e-5 in float32 (same f32 arithmetic,
+different summation order); dropout keep masks are compared bit for bit.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from mxnet_tpu.ops import attention as jattn
+from mxnet_tpu.ops.pallas import flash_attention as jfa
+
+from mxnet_tpu_torch.base import MXNetError
+from mxnet_tpu_torch.ops import attention as tattn
+from mxnet_tpu_torch.ops import flash_attention as tfa
+
+torch.set_num_threads(1)
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+MASK = -1e30
+
+
+@pytest.fixture
+def interpret(monkeypatch):
+    monkeypatch.setenv("MXTPU_PALLAS_INTERPRET", "1")
+
+
+def _inputs(seed, B=2, H=2, Lq=16, Lk=16, D=16, G=None):
+    rng = np.random.RandomState(seed)
+    G = G or H
+    q = rng.randn(B, H, Lq, D).astype(np.float32)
+    k = rng.randn(B, G, Lk, D).astype(np.float32)
+    v = rng.randn(B, G, Lk, D).astype(np.float32)
+    g = rng.randn(B, H, Lq, D).astype(np.float32)
+    return rng, q, k, v, g
+
+
+def _jax(q, k, v, g, **kw):
+    def f(q, k, v):
+        return jfa.flash_attention(q, k, v, block_q=8, block_k=16, **kw)
+    out, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    return [np.asarray(out)] + [np.asarray(x) for x in vjp(jnp.asarray(g))]
+
+
+def _torch(q, k, v, g, **kw):
+    qt, kt, vt = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
+    out = tfa.flash_attention(qt, kt, vt, **kw)
+    out.backward(torch.from_numpy(g))
+    return [out.detach().numpy()] + [t.grad.numpy() for t in (qt, kt, vt)]
+
+
+def _compare(q, k, v, g, jkw, tkw=None):
+    want = _jax(q, k, v, g, **jkw)
+    got = _torch(q, k, v, g, **(jkw if tkw is None else tkw))
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a, b, err_msg=name, **TOL)
+    return got
+
+
+def _padding_mask(rng, B, Lk):
+    vl = rng.randint(Lk // 2, Lk + 1, B)
+    return np.arange(Lk)[None, :] < vl[:, None]          # (B, Lk) bool
+
+
+def _bias(mask):
+    return np.where(mask, 0.0, MASK).astype(np.float32)
+
+
+CASES = ["none", "pad_B_Lk", "pad_B_1_1_Lk", "per_row", "causal",
+         "causal_bias", "per_head"]
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_flash_matches_jax_kernel(interpret, case):
+    rng, q, k, v, g = _inputs(1)
+    B, H, Lq, _ = q.shape
+    Lk = k.shape[2]
+    kw = {}
+    if case in ("pad_B_Lk", "causal_bias"):
+        kw["bias"] = _bias(_padding_mask(rng, B, Lk))
+    elif case == "pad_B_1_1_Lk":
+        kw["bias"] = _bias(_padding_mask(rng, B, Lk))[:, None, None, :]
+    elif case == "per_row":
+        kw["bias"] = rng.randn(B, Lq, Lk).astype(np.float32)
+    elif case == "per_head":
+        kw["bias"] = rng.randn(B, H, Lq, Lk).astype(np.float32)
+    if case.startswith("causal"):
+        kw["causal"] = True
+    tkw = dict(kw)
+    if "bias" in kw:
+        kw["bias"] = jnp.asarray(kw["bias"])
+        tkw["bias"] = torch.from_numpy(tkw["bias"])
+    _compare(q, k, v, g, kw, tkw)
+
+
+def test_fully_masked_rows_are_zero_with_zero_grads(interpret):
+    rng, q, k, v, g = _inputs(2)
+    B, H, Lq, _ = q.shape
+    Lk = k.shape[2]
+    keep = rng.rand(B, Lq, Lk) < 0.7
+    keep[1, [0, 3, 9]] = False                          # three dead rows
+    bias = _bias(keep)
+    out, dq, dk, dv = _compare(q, k, v, g, dict(bias=jnp.asarray(bias)),
+                               dict(bias=torch.from_numpy(bias)))
+    assert np.all(out[1, :, [0, 3, 9]] == 0.0)
+    assert np.all(dq[1, :, [0, 3, 9]] == 0.0)
+    _, lse = tfa.flash_fwd_reference(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        tfa.normalize_bias(torch.from_numpy(bias), B, H, Lq, Lk)[0])
+    assert torch.all(lse.reshape(B, H, Lq)[1, :, [0, 3, 9]] == 0.0)
+
+
+@pytest.mark.parametrize("seed", [7, -123456789])
+def test_dropout_matches_jax_kernel(interpret, seed):
+    rng, q, k, v, g = _inputs(3)
+    bias = _bias(_padding_mask(rng, q.shape[0], k.shape[2]))
+    jkw = dict(bias=jnp.asarray(bias), dropout_rate=0.3,
+               dropout_seed=jnp.int32(seed))
+    tkw = dict(bias=torch.from_numpy(bias), dropout_rate=0.3,
+               dropout_seed=torch.tensor(seed, dtype=torch.int32))
+    out = _compare(q, k, v, g, jkw, tkw)[0]
+    # dropout really dropped: the undropped output differs
+    plain = _torch(q, k, v, g, bias=torch.from_numpy(bias))[0]
+    assert np.abs(out - plain).max() > 1e-2
+
+
+@pytest.mark.parametrize("seed,bh,row0,col0,rate", [
+    (0, 0, 0, 0, 0.1), (7, 5, 13, 37, 0.1), (-1, 767, 127, 65, 0.5),
+    (2 ** 31 - 1, 3, 8191, 1, 0.9)])
+def test_keep_mask_is_bit_equal(seed, bh, row0, col0, rate):
+    want = np.asarray(jfa._keep_mask(jnp.asarray([[seed]], jnp.int32), bh,
+                                     row0, col0, (24, 40), rate))
+    got = tfa.keep_mask(seed, bh, row0, col0, (24, 40), rate).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert 0.0 < got.mean() < 1.0
+
+
+def test_grouped_kv_and_window_match_jax_kernel(interpret):
+    _, q, k, v, g = _inputs(4, H=4, G=2)
+    for kw in (dict(), dict(window=3), dict(window=5, causal=True),
+               dict(window=4, window_symmetric=False)):
+        _compare(q, k, v, g, kw)
+
+
+def test_plain_version_matches_the_einsum_reference():
+    """The dispatch on CPU is the plain flash version; with a float64
+    einsum-and-softmax oracle it agrees too (no JAX in the loop)."""
+    rng, q, k, v, _ = _inputs(5)
+    bias = _bias(_padding_mask(rng, q.shape[0], k.shape[2]))
+    got = tfa.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                              bias=torch.from_numpy(bias), causal=True)
+    s = np.einsum("bhqd,bhkd->bhqk", q.astype(np.float64), k) / 4.0
+    s = s + bias[:, None, None, :]
+    s = np.where(np.tril(np.ones((16, 16), bool)), s, MASK)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    np.testing.assert_allclose(got.numpy(), np.einsum("bhqk,bhkd->bhqd",
+                                                      p, v), **TOL)
+
+
+MASK_SHAPES = ["B_Lk", "B_1_Lk", "B_Lq_Lk", "B_1_1_Lk", "B_H_Lq_Lk"]
+
+
+def _mask(rng, shape_name, B, H, Lq, Lk):
+    shape = {"B_Lk": (B, Lk), "B_1_Lk": (B, 1, Lk), "B_Lq_Lk": (B, Lq, Lk),
+             "B_1_1_Lk": (B, 1, 1, Lk),
+             "B_H_Lq_Lk": (B, H, Lq, Lk)}[shape_name]
+    m = rng.rand(*shape) < 0.75
+    m[..., 0] = True                    # no fully masked row
+    return m.astype(np.float32)
+
+
+@pytest.mark.parametrize("shape_name", MASK_SHAPES)
+@pytest.mark.parametrize("jax_flash", [True, False])
+def test_dot_product_attention_mask_broadcasting(monkeypatch, shape_name,
+                                                 jax_flash):
+    """B == Lq, so a mask broadcast along the wrong axis would not raise;
+    both the flash route and the reference route must match JAX's."""
+    if jax_flash:
+        monkeypatch.setenv("MXTPU_PALLAS_INTERPRET", "1")
+    else:
+        monkeypatch.delenv("MXTPU_PALLAS_INTERPRET", raising=False)
+    rng, q, k, v, _ = _inputs(6, B=8, H=2, Lq=8, Lk=16)
+    m = _mask(rng, shape_name, 8, 2, 8, 16)
+    want = np.asarray(jattn.dot_product_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), mask=jnp.asarray(m)))
+    args = [torch.from_numpy(a) for a in (q, k, v)]
+    for use_flash in (True, False):
+        got = tattn.dot_product_attention(*args, mask=torch.from_numpy(m),
+                                          use_flash=use_flash)
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_reference_attention_matches_jax(causal):
+    rng, q, k, v, _ = _inputs(7, B=4, Lq=4, Lk=12)
+    bias = _bias(_padding_mask(rng, 4, 12))
+    want = np.asarray(jattn.reference_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        bias=jnp.asarray(bias)))
+    got = tattn.reference_attention(
+        *(torch.from_numpy(a) for a in (q, k, v)), causal=causal,
+        bias=torch.from_numpy(bias))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    np.testing.assert_array_equal(
+        tattn.band_bias(6, 9, 2, causal).numpy(),
+        np.asarray(jattn.band_bias(6, 9, 2, causal)))
+
+
+def test_multi_head_attention_matches_jax(interpret):
+    """Projected (B, L, E) inputs with a (B, 1, 1, L) float mask, as the
+    BERT layer calls it; GQA splits k/v at fewer heads."""
+    import mxnet_tpu as mx
+    rng = np.random.RandomState(8)
+    B, L, E, H = 2, 16, 32, 4
+    q, k, v = (rng.randn(B, L, E).astype(np.float32) for _ in range(3))
+    kv2 = rng.randn(B, L, E // 2).astype(np.float32)
+    m = (np.arange(L)[None, :] < np.array([[11], [16]])).astype(
+        np.float32).reshape(B, 1, 1, L)
+    for kk, vv, g in ((k, v, None), (kv2, kv2, 2)):
+        want = jattn.multi_head_attention(
+            mx.np.array(q), mx.np.array(kk), mx.np.array(vv), H,
+            mask=mx.np.array(m), num_kv_heads=g).asnumpy()
+        got = tattn.multi_head_attention(
+            *(torch.from_numpy(a) for a in (q, kk, vv)), H,
+            mask=torch.from_numpy(m), num_kv_heads=g)
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_attention_dropout_is_seeded_by_the_generator():
+    rng = np.random.RandomState(9)
+    x = torch.from_numpy(rng.randn(2, 16, 32).astype(np.float32))
+
+    def run(seed):
+        gen = torch.Generator().manual_seed(seed)
+        return tattn.multi_head_attention(x, x, x, 4, dropout_p=0.2,
+                                          training=True, generator=gen)
+    assert torch.equal(run(3), run(3))
+    assert not torch.equal(run(3), run(4))
+    eval_out = tattn.multi_head_attention(x, x, x, 4, dropout_p=0.2)
+    assert torch.equal(eval_out, tattn.multi_head_attention(x, x, x, 4))
+
+
+@pytest.mark.parametrize("entry", ["flash", "multi_head", "layer"])
+def test_reference_entries_equal_the_dispatch(entry):
+    """The oracle entries (`flash_attention_reference`,
+    `multi_head_attention_reference`, and a `FusedSelfAttention` whose
+    ``attend`` is swapped for the latter) compute what the CPU dispatch
+    computes, dropout masks and gradients included."""
+    from mxnet_tpu_torch.models.layers import FusedSelfAttention
+    rng, q, k, v, g = _inputs(10)
+    bias = torch.from_numpy(_bias(_padding_mask(rng, 2, 16)))
+    x = torch.from_numpy(rng.randn(2, 16, 32).astype(np.float32))
+    torch.manual_seed(0)
+    layer = FusedSelfAttention(32, 4, dropout=0.2)
+
+    def run(ref):
+        ins = [torch.tensor(a, requires_grad=True) for a in (q, k, v)]
+        if entry == "flash":
+            fn = tfa.flash_attention_reference if ref else tfa.flash_attention
+            out = fn(*ins, bias=bias, dropout_rate=0.3,
+                     dropout_seed=torch.tensor(5, dtype=torch.int32))
+        elif entry == "multi_head":
+            fn = tattn.multi_head_attention_reference if ref \
+                else tattn.multi_head_attention
+            ins = [t.reshape(2, 16, 32).detach().requires_grad_()
+                   for t in ins]
+            out = fn(*ins, 2, mask=bias[:, None, None, :] == 0.0,
+                     dropout_p=0.3, training=True,
+                     generator=torch.Generator().manual_seed(11))
+        else:
+            layer.attend = tattn.multi_head_attention_reference if ref \
+                else tattn.multi_head_attention
+            layer.dropout.generator = torch.Generator().manual_seed(11)
+            ins = [x.clone().requires_grad_()]
+            out = layer(ins[0], (bias == 0.0).float()[:, None, None, :])
+        out.backward(torch.ones_like(out))
+        return [out.detach()] + [t.grad for t in ins]
+    for a, b in zip(run(False), run(True)):
+        assert torch.equal(a, b)
+
+
+def test_flash_rejects_bad_inputs():
+    q = torch.zeros(2, 4, 8, 16)
+    with pytest.raises(ValueError, match="multiple of kv heads"):
+        tfa.flash_attention(q, torch.zeros(2, 3, 8, 16),
+                            torch.zeros(2, 3, 8, 16))
+    with pytest.raises(ValueError, match="requires dropout_seed"):
+        tfa.flash_attention(q, q, q, dropout_rate=0.1)
+    with pytest.raises(ValueError, match="bias row dim"):
+        tfa.flash_attention(q, q, q, bias=torch.zeros(2, 5, 8))
+    with pytest.raises(MXNetError, match="cuda or cpu"):
+        tfa.flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))

@@ -26,13 +26,36 @@ TINY = dict(vocab_size=31, hidden_size=16, num_layers=1, num_heads=2,
 def test_import_leaves_no_jax_and_no_jax_package():
     code = ("import sys, mxnet_tpu_torch, mxnet_tpu_torch.serve, "
             "mxnet_tpu_torch.models, mxnet_tpu_torch.ops, "
-            "mxnet_tpu_torch.convert, mxnet_tpu_torch.kernels\n"
+            "mxnet_tpu_torch.convert, mxnet_tpu_torch.kernels, "
+            "mxnet_tpu_torch.models.bert, mxnet_tpu_torch.ops.nn, "
+            "mxnet_tpu_torch.ops.flash_attention, "
+            "mxnet_tpu_torch.ops.softmax_xent, "
+            "mxnet_tpu_torch.ops.fused_optimizer, "
+            "mxnet_tpu_torch.gluon.loss, mxnet_tpu_torch.optimizer.adam, "
+            "mxnet_tpu_torch.parallel.train\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu')]\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_no_source_file_imports_jax_or_the_jax_package():
+    import re
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|mxnet_tpu)\b",
+                     re.M)
+    files = [os.path.join(REPO, f) for f in ("chip_smoke.py",
+                                             "serve_profile.py",
+                                             "train_profile.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "mxnet_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    bad = []
+    for f in files:
+        with open(f) as fh:
+            bad += [f"{f}: {m.group(0).strip()}"
+                    for m in pat.finditer(fh.read())]
+    assert len(files) > 20 and not bad, bad
 
 
 def test_entry_points_need_the_card_or_an_explicit_cpu(monkeypatch):
@@ -108,8 +131,13 @@ def test_missing_nvcc_raises_with_a_reason(monkeypatch, tmp_path):
 
 def test_kernel_sources_and_counters():
     assert sorted(f for f in os.listdir(kernels.CSRC)
-                  if f.endswith(".cu")) == ["paged_attention.cu",
-                                            "quantized_matmul.cu"]
+                  if f.endswith(".cu")) == ["flash_attention.cu",
+                                            "paged_attention.cu",
+                                            "quantized_matmul.cu",
+                                            "softmax_xent.cu"]
+    assert set(kernels.LAUNCHES) == {
+        "ragged_paged_attention", "quantized_matmul", "flash_attention_fwd",
+        "flash_attention_bwd", "softmax_xent_fwd", "softmax_xent_bwd"}
     kernels.LAUNCHES["quantized_matmul"] += 2
     assert kernels.launch_counts()["quantized_matmul"] >= 2
     kernels.reset_launch_counts()

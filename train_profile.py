@@ -1,0 +1,116 @@
+#!/usr/bin/env python3
+"""Where a BERT-base pretraining step of the PyTorch port spends its time,
+on the card.
+
+    python3 train_profile.py [--out chiprun_out/train_profile.json]
+
+Builds full-width BERT-base (seeded random weights) per weight dtype (bf16,
+f32), wraps it in ``TrainStep`` with Adam exactly as ``chip_smoke.py``'s
+train phase does (``bench.py``'s batch: 64 x 128 tokens, 20 masked
+positions, padded by ``valid_length``, dropout 0.1), runs warmup and three
+steps, and traces five steps with ``torch.profiler``.  It reports the host
+wall per step, the device time per step (the sum of kernel durations), the
+device idle share (1 - device / wall), kernel launches per step, the
+device time per class of kernel (cuBLAS/CUTLASS products, the port's
+flash and cross-entropy kernels, everything else) and the kernels that
+take the most device time.  Needs a CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+CLASSES = (("flash_fwd", ("flash_fwd_kernel",)),
+           ("flash_bwd", ("flash_dq_kernel", "flash_dkv_kernel")),
+           ("xent", ("xent_fwd_kernel", "xent_bwd_kernel")),
+           ("gemm", ("gemm", "sgemm", "cutlass", "cublas", "nvjet")))
+
+
+def _dev_us(evt):
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        v = getattr(evt, name, None)
+        if v is not None:
+            return float(v)
+    return 0.0
+
+
+def _klass(name):
+    low = name.lower()
+    for label, keys in CLASSES:
+        if any(k in low for k in keys):
+            return label
+    return "other"
+
+
+def profile_steps(step, batch, n_steps):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            step.dispatch(*batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) is not None
+            and str(e.device_type).endswith("CUDA") and _dev_us(e) > 0]
+    dev_us = sum(_dev_us(e) for e in kern)
+    by_class = {}
+    for e in kern:
+        k = _klass(e.key)
+        by_class[k] = by_class.get(k, 0.0) + _dev_us(e) / 1e3 / n_steps
+    top = sorted(kern, key=_dev_us, reverse=True)[:15]
+    return {
+        "steps": n_steps,
+        "wall_ms_per_step": wall * 1e3 / n_steps,
+        "device_ms_per_step": dev_us / 1e3 / n_steps,
+        "device_idle_share": 1.0 - dev_us / 1e6 / wall,
+        "kernel_launches_per_step": sum(e.count for e in kern) / n_steps,
+        "device_ms_per_step_by_class": by_class,
+        "top_kernels": [{"name": e.key[:90], "calls_per_step":
+                         e.count / n_steps,
+                         "ms_per_step": _dev_us(e) / 1e3 / n_steps}
+                        for e in top],
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=os.path.join(HERE, "chiprun_out",
+                                                  "train_profile.json"))
+    args = ap.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("train_profile: needs a CUDA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from chip_smoke import bert_batch, bert_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
+
+    dev = torch.device("cuda", 0)
+    batch = tuple(torch.from_numpy(a).to(dev) for a in bert_batch(30522))
+    out = {"card": torch.cuda.get_device_name(0)}
+    for dtype in ("bfloat16", "float32"):
+        step = bert_train_step(dev, dtype)
+        step.warmup(*batch)
+        for _ in range(3):
+            step.dispatch(*batch)
+        res = profile_steps(step, batch, 5)
+        out[dtype] = res
+        print(f"[{dtype}] {json.dumps(res)}", flush=True)
+        del step
+        torch.cuda.empty_cache()
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(out, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
