@@ -38,13 +38,34 @@ pretraining step at full width and depth:
 7. (k4) the streaming softmax cross-entropy, forward and backward, against
    its plain version at (1280, 30522) in f32 and bf16 and at the odd
    V 50257, timed against ``cross_entropy(x.float(), y)``;
-8. (train) ``bench.py``'s BERT-base pretraining step (batch 64 x 128, 20
-   masked positions, padded by ``valid_length``, dropout 0.1, Adam lr
-   1e-4) through ``TrainStep`` for 20 steps in bf16 and f32 weights: the
-   flash kernels launch 12 times a step each way and the cross-entropy
-   kernels once; the loss trajectory equals that of the same step built
-   on the plain versions from the same seed (relative 1e-4 in f32 and
-   bf16), and the loss falls; prints samples/s, step ms and TFLOP/s
+8. (k5) the fused LayerNorm / RMSNorm row kernel, with and without a
+   residual, against its plain version in f32 and bf16 (f32 gamma and
+   beta, as BERT keeps them) at (8192, 768) and (1280, 768) — the step's
+   norms — and (37, 200), within 1e-4 / 2e-2 of the output scale; timed
+   against ``F.layer_norm`` / ``F.rms_norm`` with the parameters cast to
+   x's dtype;
+9. (k6) the optimizer kernels over BERT-base's real parameter list (159
+   tensors, 133.6 M elements; f32 model: one dtype group, bf16 model: bf16
+   weights and f32 LayerNorm parameters) — the multi-tensor chunk for Adam,
+   AdamW and SGD with momentum, LAMB phases A and B — against the per-leaf
+   plain version (atol 2e-6 on f32 tensors, one bf16 step on bf16
+   weights), ``skip=True`` bit-identical on the card; device times from
+   ``torch.profiler``, beside ``torch._fused_adam_`` / ``_fused_adamw_`` /
+   ``_fused_sgd_`` over the same tensors as the nearest library call
+   (torch's Adam puts epsilon after the bias correction, MXNet's before);
+10. (train) ``bench.py``'s BERT-base pretraining step (batch 64 x 128, 20
+   masked positions, padded by ``valid_length``, dropout 0.1) through
+   ``TrainStep`` for 20 steps on the default kernel route
+   (``MXTPU_PALLAS=auto``): bf16 and f32 weights with Adam lr 1e-4 and
+   with LAMB lr 1e-3 — every LayerNorm through the fused norm (26 launches
+   a step), the optimizer through the chunk kernel (once per dtype group a
+   step) or LAMB's phases (once per tensor each) — and slice 2's
+   ``MXTPU_PALLAS=reference`` bf16 Adam step (no norm or optimizer
+   launch).  The flash kernels launch 12 times a step each way and the
+   cross-entropy kernels once.  Each run's loss trajectory equals that of
+   the same step built on the plain versions from the same seed (relative
+   1e-4; 1e-3 for bf16 on the kernel route, see `traj_tol`), and the loss
+   falls; prints samples/s, step ms and TFLOP/s
    (``bench.py``'s count) and the share of the card's dense bf16 peak.
 
 Every count is reset just before a run it reports and read just after.
@@ -57,6 +78,7 @@ that holds this script alone.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -72,10 +94,19 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # max-abs / output scale
 HBM_BPS = 3.35e12     # H100 SXM HBM3
 PEAK = {"float32": 67e12, "bfloat16": 989e12}   # FMA f32 / dense bf16 TC
 TRAIN_STEPS = 20
-# loss, relative, kernel step vs plain step: the sound runs deviate by at
-# most 1.1e-7 (f32) and 1.6e-6 (bf16: its attention and products run in
-# f32 after the first LayerNorm), so one limit serves both
-TRAJ_TOL = {"float32": 1e-4, "bfloat16": 1e-4}
+OPT_ATOL = 2e-6       # optimizer kernels vs plain, f32 tensors
+
+
+def traj_tol(dtype, route):
+    """Loss trajectory limit, relative, kernel step vs its plain oracle.
+    f32 on either route, and bf16 on the reference route (f32 activations
+    after the first LayerNorm): the sound runs deviate by at most 1.1e-7
+    and 1.6e-6, so 1e-4.  bf16 on the kernel route keeps bf16 activations,
+    where one rounding flip avalanches through the layers: swapping only
+    the norms for their plain versions moves the logits 1.1% apart within
+    one forward and the step-1 loss by 2.7e-5 (``train_sensitivity.py``),
+    and 20 steps reach 1.4e-4 — so 1e-3 there."""
+    return 1e-3 if dtype == "bfloat16" and route != "reference" else 1e-4
 
 
 def card_line() -> str:
@@ -616,6 +647,274 @@ def k4_cases(dev):
     return out
 
 
+NORM_SHAPES = [(8192, 768), (1280, 768), (37, 200)]
+NORM_VARIANTS = (("ln", False, False), ("rms", True, False),
+                 ("ln_res", False, True), ("rms_res", True, True))
+
+
+def k5_cases(dev):
+    """The fused norm at the BERT step's shapes (64 x 128 tokens and the
+    1280 masked rows of the MLM head, hidden 768) and a ragged one; f32
+    gamma and beta, as BERT's LayerNorms keep them."""
+    import torch
+    import torch.nn.functional as tF
+    from mxnet_tpu_torch.ops import fused_norm as fn
+
+    g = torch.Generator().manual_seed(7)
+    out = []
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        for rows, h in NORM_SHAPES:
+            x = torch.randn(rows, h, generator=g).to(dev, dt)
+            r = torch.randn(rows, h, generator=g).to(dev, dt)
+            gamma = (torch.rand(h, generator=g) + 0.5).to(dev)
+            beta = torch.randn(h, generator=g).to(dev)
+            g16, b16 = gamma.to(dt), beta.to(dt)
+            for name, rms, res in NORM_VARIANTS:
+                rr = r if res else None
+                bb = None if rms else beta
+                eps = 1e-6 if rms else 1e-12
+                a = (x, rr, gamma, bb, eps, rms)
+                got = fn._norm_cuda(*a)
+                want = fn.norm_plain(*a)
+                torch.cuda.synchronize()
+                pairs = list(zip(got, want)) if res else [(got, want)]
+                errs = [_scale_err(u, v) for u, v in pairs]
+                case = dict(dtype=dtype, rows=rows, h=h, case=name,
+                            max_abs_err=max(e for e, _ in errs),
+                            errors=[{"err": e, "scale": sc}
+                                    for e, sc in errs],
+                            ok=all(e <= TOL[dtype] * sc for e, sc in errs))
+                case["ms"] = time_ms(lambda: fn._norm_cuda(*a))
+                case["plain_ms"] = time_ms(lambda: fn.norm_plain(*a))
+                if res:       # no one library call adds and normalises
+                    case["library_ms"] = None
+                elif rms:
+                    case["library_ms"] = time_ms(lambda: tF.rms_norm(
+                        x, (h,), g16, eps))
+                else:
+                    case["library_ms"] = time_ms(lambda: tF.layer_norm(
+                        x, (h,), g16, b16, eps))
+                item = x.element_size()
+                nbytes = rows * h * item * (2 + 2 * res) + \
+                    h * 4 * (1 + (not rms))
+                case["bound_ms"], case["bound_by"] = bound(
+                    nbytes, (5 if rms else 8) * rows * h, dtype)
+                out.append(case)
+    return out
+
+
+def profile_ms(fn, iters=5):
+    """Device time of one call of `fn`, by kernel name and in total (ms),
+    from ``torch.profiler`` over `iters` calls after one warm call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.key_averages():
+        us = 0.0
+        for attr in ("self_device_time_total", "self_cuda_time_total"):
+            us = float(getattr(e, attr, 0.0) or 0.0)
+            if us:
+                break
+        if us > 0:
+            by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3 / iters
+    return sum(by_name.values()), by_name
+
+
+OPT_RULES = (("adam", "Adam", {}), ("adamw", "AdamW", {}),
+             ("sgd_momentum", "SGD", {"momentum": 0.9}), ("lamb", "LAMB", {}))
+
+
+def bert_leaves(dtype):
+    """(name, shape, dtype) of every parameter of BERT-base for
+    pretraining in `dtype` (LayerNorm parameters stay f32)."""
+    from mxnet_tpu_torch.models import BertForPretraining, bert_base
+    m = BertForPretraining(bert_base(dtype=dtype), device="cpu", seed=0)
+    return [(n, tuple(p.shape), p.dtype) for n, p in m.named_parameters()]
+
+
+def _opt_tree(leaves, opt, dev, seed):
+    """Weights N(0, 0.02), gradients N(0, 1e-3), Adam-like moments."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    params, grads, states = {}, {}, {}
+    for n, shape, dt in leaves:
+        params[n] = (0.02 * torch.randn(shape, generator=g, device=dev)
+                     ).to(dt)
+        grads[n] = (1e-3 * torch.randn(shape, generator=g, device=dev)
+                    ).to(dt)
+        st = opt.create_state(params[n], dtype=torch.float32)
+        states[n] = tuple(
+            (1e-4 * torch.randn(shape, generator=g, device=dev)) if k == 0
+            else 1e-8 * torch.rand(shape, generator=g, device=dev)
+            for k in range(len(st)))
+    return params, grads, states
+
+
+def _opt_err(params, states, want_p, want_s):
+    """(max-abs error, ok): f32 tensors within OPT_ATOL, bf16 weights
+    within one bf16 step of the plain version."""
+    import torch
+    err, ok = 0.0, True
+    for n in params:
+        pairs = [(params[n], want_p[n])] + list(zip(states[n], want_s[n]))
+        for a, b in pairs:
+            d = (a.float() - b.float()).abs()
+            err = max(err, float(d.max()))
+            # one bf16 step is at most 2**-7 of the value
+            lim = OPT_ATOL if a.dtype == torch.float32 else \
+                OPT_ATOL + 2.0 ** -7 * b.float().abs()
+            ok = ok and bool((d <= lim).all())
+    return err, ok
+
+
+def _library_call(rule, opt, params, grads, states, hp_vals):
+    """The nearest one-call PyTorch multi-tensor update on the same
+    tensors, grouped by weight dtype, with its state in the weight's dtype
+    (as torch keeps it); None for LAMB."""
+    import torch
+    if rule == "lamb":
+        return None
+    groups = {}
+    for n, p in params.items():
+        groups.setdefault(p.dtype, []).append(n)
+    lists = []
+    for names in groups.values():
+        ps = [params[n] for n in names]
+        gs = [grads[n] for n in names]
+        ss = [[s.to(params[n].dtype) for s in states[n]] for n in names]
+        steps = [torch.full((), 3.0, device=ps[0].device) for _ in ps]
+        lists.append((ps, gs, ss, steps))
+    lr, wd = hp_vals["lr"], hp_vals["wd"]
+
+    def call():
+        for ps, gs, ss, steps in lists:
+            if rule == "sgd_momentum":
+                torch._fused_sgd_(ps, gs, [s[0] for s in ss],
+                                  weight_decay=wd, momentum=opt.momentum,
+                                  lr=lr, dampening=0.0, nesterov=False,
+                                  maximize=False, is_first_step=False)
+            else:
+                fused = torch._fused_adam_ if rule == "adam" else \
+                    torch._fused_adamw_
+                fused(ps, gs, [s[0] for s in ss], [s[1] for s in ss], [],
+                      steps, lr=lr, beta1=opt.beta1, beta2=opt.beta2,
+                      weight_decay=wd, eps=opt.epsilon, amsgrad=False,
+                      maximize=False)
+    return call
+
+
+# (bytes per element given the weight's itemsize w, f32 operations per
+# element): each input read once and each output written once, state f32
+_OPT_WORK = {
+    "adam": (lambda w: 3 * w + 16, 14),        # w g m v in; w m v out
+    "adamw": (lambda w: 3 * w + 16, 15),
+    "sgd_momentum": (lambda w: 3 * w + 8, 6),  # w g mom in; w mom out
+    "lamb_a": (lambda w: 2 * w + 20, 17),      # w g m v in; m v r out
+    "lamb_b": (lambda w: 2 * w + 4, 3)}        # w r in; w out
+
+
+def _opt_bound(rule, params, phase=None):
+    """`bound` of one update of `params` by `rule` (LAMB: one phase)."""
+    per, ops = _OPT_WORK[f"lamb_{phase}" if rule == "lamb" else rule]
+    n = sum(p.numel() for p in params.values())
+    nbytes = sum(per(p.element_size()) * p.numel() for p in params.values())
+    return bound(nbytes, ops * n, "float32")
+
+
+def k6_cases(dev):
+    """The optimizer kernels over BERT-base's parameter list, f32 and bf16
+    models: each rule's kernel route against its plain version, the
+    device time of each, and the skip flag's bit identity."""
+    import torch
+    from mxnet_tpu_torch import kernels, optimizer as topt
+    from mxnet_tpu_torch.ops import fused_optimizer as fo
+
+    out = []
+    for dtype in ("float32", "bfloat16"):
+        leaves = bert_leaves(dtype)
+        for rule, cls, kw in OPT_RULES:
+            lr = 1e-3 if rule == "lamb" else 1e-4
+            opt = getattr(topt, cls)(learning_rate=lr, **kw)
+            hp_vals = {"lr": lr, "wd": 0.01, "rescale_grad": 1.0, "t": 3.0}
+            hp = {k: torch.full((), v, device=dev)
+                  for k, v in hp_vals.items()}
+            hp["clip_gradient"] = None
+            params, grads, states = _opt_tree(leaves, opt, dev, seed=8)
+            want_p, want_s = fo.apply_updates(opt, params, grads, states, hp)
+            kp = {n: t.clone() for n, t in params.items()}
+            ks = {n: tuple(t.clone() for t in st)
+                  for n, st in states.items()}
+            kernels.reset_launch_counts()
+            fo.apply_updates(opt, kp, grads, ks, hp, use_kernel=True)
+            torch.cuda.synchronize()
+            launches = kernels.launch_counts()
+            err, ok = _opt_err(kp, ks, want_p, want_s)
+            n_groups = len({p.dtype for p in params.values()})
+            want_l = ({"lamb_phase_a": len(params),
+                       "lamb_phase_b": len(params)} if rule == "lamb"
+                      else {"fused_optimizer_chunk": n_groups})
+            ok = ok and all(launches[k] == v for k, v in want_l.items())
+            # skip=True leaves every weight and state bit-identical
+            sp = {n: t.clone() for n, t in params.items()}
+            ss = {n: tuple(t.clone() for t in st)
+                  for n, st in states.items()}
+            fo.apply_updates(opt, sp, grads, ss, hp, use_kernel=True,
+                             skip=torch.ones((), dtype=torch.bool,
+                                             device=dev))
+            skip_ok = all(torch.equal(sp[n], params[n]) and all(
+                torch.equal(a, b) for a, b in zip(ss[n], states[n]))
+                for n in params)
+            del sp, ss, want_p, want_s
+            case = dict(dtype=dtype, rule=rule, tensors=len(params),
+                        elements=sum(p.numel() for p in params.values()),
+                        groups=n_groups, launches=launches,
+                        max_abs_err=err, skip_bit_identical=skip_ok,
+                        ok=ok and skip_ok)
+
+            def kernel_call():
+                fo.apply_updates(opt, kp, grads, ks, hp, use_kernel=True)
+
+            def plain_call():
+                fo.apply_updates(opt, params, grads, states, hp)
+            case["device_ms"], by_name = profile_ms(kernel_call)
+            case["kernel_device_ms"] = {k: v for k, v in by_name.items()
+                                        if "kernel" in k}
+            case["plain_ms"], _ = profile_ms(plain_call)
+            case["call_ms"] = time_ms(kernel_call, iters=10, warm=2)
+            case["plain_call_ms"] = time_ms(plain_call, iters=10, warm=2)
+            lib = _library_call(rule, opt, kp, grads, ks, hp_vals)
+            case["library_ms"] = None if lib is None else \
+                profile_ms(lib)[0]
+            if rule == "lamb":
+                for ph in ("a", "b"):
+                    ms = sum(v for k, v in by_name.items()
+                             if f"lamb_{ph}_kernel" in k)
+                    case[f"phase_{ph}_ms"] = ms
+                    case[f"phase_{ph}_bound_ms"], case[
+                        f"phase_{ph}_bound_by"] = _opt_bound(rule, params,
+                                                             ph)
+                case["ms"] = case["phase_a_ms"] + case["phase_b_ms"]
+                case["bound_ms"] = case["phase_a_bound_ms"] + \
+                    case["phase_b_bound_ms"]
+                case["bound_by"] = "bytes"
+            else:
+                case["ms"] = sum(v for k, v in by_name.items()
+                                 if "chunk_kernel" in k)
+                case["bound_ms"], case["bound_by"] = _opt_bound(rule,
+                                                                params)
+            out.append(case)
+            del kp, ks, params, grads, states, lib
+            torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 8: the BERT-base pretraining step end to end
 # ---------------------------------------------------------------------------
@@ -630,20 +929,43 @@ def bench_flops_per_step(cfg, batch, seq, n_mask):
     return 3 * batch * (fwd_per_token * seq + fwd_per_masked * n_mask)
 
 
-def bert_train_step(dev, dtype, plain=False):
+@contextlib.contextmanager
+def pallas_mode(mode):
+    """``MXTPU_PALLAS=mode`` for the duration of the block."""
+    old = os.environ.get("MXTPU_PALLAS")
+    os.environ["MXTPU_PALLAS"] = mode
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("MXTPU_PALLAS", None)
+        else:
+            os.environ["MXTPU_PALLAS"] = old
+
+
+OPT_LR = {"Adam": 1e-4, "LAMB": 1e-3}
+
+
+def bert_train_step(dev, dtype, plain=False, opt="Adam", route="auto"):
     """``bench.py``'s pretraining step: full-width BERT-base (seed 0)
     behind its positional adapter (ids, valid_length, masked_positions),
-    the mean MLM cross-entropy, Adam lr 1e-4, in a `TrainStep`.
-    ``plain=True`` builds the oracle: every attention swaps in
-    `multi_head_attention_reference` and the loss is
-    `softmax_cross_entropy_reference`, so no kernel launches."""
+    the mean MLM cross-entropy, `opt` (Adam lr 1e-4 or LAMB lr 1e-3) in a
+    `TrainStep`, built under ``MXTPU_PALLAS=route`` (the step resolves its
+    optimizer route once, at construction; the norms read the policy at
+    each call, so run it under the same mode).  ``plain=True`` builds the
+    oracle, which launches no kernel: every attention swaps in
+    `multi_head_attention_reference`, the loss is
+    `softmax_cross_entropy_reference`, on the kernel route every LayerNorm
+    swaps in `fused_layer_norm_reference` (the fused kernel's plain
+    version) and the optimizer takes its per-leaf plain version."""
     import torch
+    from mxnet_tpu_torch import optimizer as topt
     from mxnet_tpu_torch.models import BertForPretraining, bert_base
-    from mxnet_tpu_torch.models.layers import FusedSelfAttention
+    from mxnet_tpu_torch.models.layers import FusedSelfAttention, LayerNorm
     from mxnet_tpu_torch.ops.attention import multi_head_attention_reference
+    from mxnet_tpu_torch.ops.fused_norm import fused_layer_norm_reference
     from mxnet_tpu_torch.ops.softmax_xent import (
         softmax_cross_entropy, softmax_cross_entropy_reference)
-    from mxnet_tpu_torch.optimizer import Adam
     from mxnet_tpu_torch.parallel import TrainStep
 
     class Bench(torch.nn.Module):
@@ -661,35 +983,68 @@ def bert_train_step(dev, dtype, plain=False):
         for m in bench.modules():
             if isinstance(m, FusedSelfAttention):
                 m.attend = multi_head_attention_reference
+            if isinstance(m, LayerNorm) and route != "reference":
+                m.norm = fused_layer_norm_reference
         xent = softmax_cross_entropy_reference
 
     def loss_fn(out, ids, vl, mp, lab):
         return xent(out[0], lab).mean()
 
-    return TrainStep(bench, Adam(learning_rate=1e-4), loss_fn,
-                     num_model_args=3)
+    with pallas_mode("reference" if plain else route):
+        return TrainStep(bench, getattr(topt, opt)(learning_rate=OPT_LR[opt]),
+                         loss_fn, num_model_args=3)
 
 
-def train_run(dev, dtype, plain, batch):
-    """`TRAIN_STEPS` steps of the pretraining step; returns its stats."""
+def train_run(dev, dtype, plain, batch, opt="Adam", route="auto"):
+    """`TRAIN_STEPS` steps of the pretraining step under
+    ``MXTPU_PALLAS=route``; returns its stats, the step time and the
+    step's parameter counts (tensors, dtype groups)."""
     import torch
     from mxnet_tpu_torch import kernels
 
-    step = bert_train_step(dev, dtype, plain)
-    warm_s = step.warmup(*batch)
-    losses = []
-    kernels.reset_launch_counts()
-    for i in range(TRAIN_STEPS):
-        losses.append(step.dispatch(*batch).loss)
-        if i == 1:        # time the steady steps 3..N
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-    torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / (TRAIN_STEPS - 2)
-    launches = kernels.launch_counts()
+    step = bert_train_step(dev, dtype, plain, opt, route)
+    params = [step.params[n] for n in step.diff_names]
+    counts = (len(params), len({p.dtype for p in params}))
+    with pallas_mode(route):
+        warm_s = step.warmup(*batch)
+        losses = []
+        kernels.reset_launch_counts()
+        for i in range(TRAIN_STEPS):
+            losses.append(step.dispatch(*batch).loss)
+            if i == 1:        # time the steady steps 3..N
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / (TRAIN_STEPS - 2)
+        launches = kernels.launch_counts()
     return dict(losses=[float(x) for x in losses], step_ms=step_s * 1e3,
                 warmup_s=warm_s, launches=launches,
-                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9), step_s
+                fused_opt_kernel=step._fused_opt_kernel,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9), \
+        step_s, counts
+
+
+# (weights, optimizer, MXTPU_PALLAS): the default kernel route in bf16 and
+# f32 with each optimizer (f32 holds the kernels to the tight trajectory
+# limit), and slice 2's reference route
+TRAIN_RUNS = (("bfloat16", "Adam", "auto"), ("float32", "Adam", "auto"),
+              ("bfloat16", "LAMB", "auto"), ("float32", "LAMB", "auto"),
+              ("bfloat16", "Adam", "reference"))
+
+
+def want_launches(opt, route, n_tensors, n_groups, layers):
+    """Exact launches over `TRAIN_STEPS` steps: 26 norms a step (embed,
+    2 per layer, the MLM head) and the optimizer on the kernel route only;
+    flash and cross-entropy on both."""
+    kr = route != "reference"
+    lamb = kr and opt == "LAMB"
+    per_step = {"flash_attention_fwd": layers, "flash_attention_bwd": layers,
+                "softmax_xent_fwd": 1, "softmax_xent_bwd": 1,
+                "fused_norm": 2 * layers + 2 if kr else 0,
+                "fused_optimizer_chunk": n_groups if kr and not lamb else 0,
+                "lamb_phase_a": n_tensors if lamb else 0,
+                "lamb_phase_b": n_tensors if lamb else 0}
+    return {k: v * TRAIN_STEPS for k, v in per_step.items()}
 
 
 def run_train(dev, results, card):
@@ -701,47 +1056,48 @@ def run_train(dev, results, card):
     batch = tuple(torch.from_numpy(a).to(dev)
                   for a in bert_batch(cfg.vocab_size, B, S, M))
     flops = bench_flops_per_step(cfg, B, S, M)
-    L = cfg.num_layers
-    for dtype in ("bfloat16", "float32"):
+    for dtype, opt, route in TRAIN_RUNS:
+        key = f"{dtype}_{opt.lower()}_{route}"
         torch.cuda.reset_peak_memory_stats()
-        st, step_s = train_run(dev, dtype, False, batch)
+        st, step_s, (n_t, n_g) = train_run(dev, dtype, False, batch, opt,
+                                           route)
         torch.cuda.empty_cache()
-        pst, pstep_s = train_run(dev, dtype, True, batch)
+        pst, pstep_s, _ = train_run(dev, dtype, True, batch, opt, route)
         torch.cuda.empty_cache()
-        want = {"flash_attention_fwd": L * TRAIN_STEPS,
-                "flash_attention_bwd": L * TRAIN_STEPS,
-                "softmax_xent_fwd": TRAIN_STEPS,
-                "softmax_xent_bwd": TRAIN_STEPS}
+        want = want_launches(opt, route, n_t, n_g, cfg.num_layers)
         got = {k: st["launches"][k] for k in want}
         if got != want:
-            raise AssertionError(f"train {dtype}: kernel launches {got}, "
+            raise AssertionError(f"train {key}: kernel launches {got}, "
                                  f"want {want} over {TRAIN_STEPS} steps")
-        if any(pst["launches"][k] for k in want):
-            raise AssertionError(f"train {dtype}: the plain run launched "
+        if any(pst["launches"].values()):
+            raise AssertionError(f"train {key}: the plain run launched "
                                  f"kernels {pst['launches']}")
         dev_rel = max(abs(a - b) / abs(b)
                       for a, b in zip(st["losses"], pst["losses"]))
         ls = st["losses"]
         if not all(math.isfinite(x) for x in ls):
-            raise AssertionError(f"train {dtype}: non-finite loss {ls}")
-        if dev_rel > TRAJ_TOL[dtype]:
-            raise AssertionError(
-                f"train {dtype}: loss trajectory departs from the plain "
-                f"path's by {dev_rel:.3g} > {TRAJ_TOL[dtype]} "
-                f"({ls} vs {pst['losses']})")
-        if not ls[-1] < ls[0]:
-            raise AssertionError(f"train {dtype}: loss did not fall {ls}")
+            raise AssertionError(f"train {key}: non-finite loss {ls}")
         st.update(plain_losses=pst["losses"], plain_step_ms=pst["step_ms"],
-                  trajectory_rel_dev=dev_rel, samples_per_s=B / step_s,
-                  plain_samples_per_s=B / pstep_s,
-                  flops_per_step=flops, tflops=flops / step_s / 1e12,
+                  trajectory_rel_dev=dev_rel,
+                  trajectory_tol=traj_tol(dtype, route),
+                  samples_per_s=B / step_s,
+                  plain_samples_per_s=B / pstep_s, tensors=n_t,
+                  dtype_groups=n_g, flops_per_step=flops,
+                  tflops=flops / step_s / 1e12,
                   bf16_peak_share=flops / step_s / PEAK["bfloat16"])
-        results["train"][dtype] = st
-        print(f"[train {dtype}] {json.dumps(st)}", flush=True)
-        print(f"[train {dtype}] {B / step_s:.1f} samples/s, "
+        results["train"][key] = st
+        print(f"[train {key}] {json.dumps(st)}", flush=True)
+        print(f"[train {key}] {B / step_s:.1f} samples/s, "
               f"{st['step_ms']:.2f} ms/step, {st['tflops']:.2f} TFLOP/s = "
               f"{100 * st['bf16_peak_share']:.2f}% of the dense bf16 peak "
               f"(989 TFLOP/s) of {card}", flush=True)
+        tol = traj_tol(dtype, route)
+        if dev_rel > tol:
+            raise AssertionError(
+                f"train {key}: loss trajectory departs from the plain "
+                f"path's by {dev_rel:.3g} > {tol} ({ls} vs {pst['losses']})")
+        if not ls[-1] < ls[0]:
+            raise AssertionError(f"train {key}: loss did not fall {ls}")
 
 
 # ---------------------------------------------------------------------------
@@ -750,11 +1106,15 @@ def kernel_entries(results):
     """One entry per ported kernel for the ``kernels`` line: the
     representative main-path case (K1: f32 decode C=1 MHA, no window; K2:
     int8 f32 M=8 768->2304; flash: f32 with the padding bias and dropout
-    0.1, as the BERT step calls it; cross-entropy: f32 (1280, 30522)) and
-    the largest error over every case.  Launches are the counts of the
-    main-path runs (serving for K1/K2, the bf16 and f32 training runs for
-    the others)."""
-    k1, k2, k3, k4 = (results[k] for k in ("k1", "k2", "k3", "k4"))
+    0.1, as the BERT step calls it; cross-entropy: f32 (1280, 30522); the
+    fused norm: bf16 LayerNorm at (8192, 768), the step's own; the chunk:
+    Adam over the f32 BERT-base model; LAMB: the bf16 model, each phase's
+    device time over all tensors, beside the plain LAMB update (both
+    phases) and no library call) and the largest error over every case.
+    Launches are the counts of the main-path runs (serving for K1/K2, the
+    training runs for the others)."""
+    k1, k2, k3, k4, k5, k6 = (results[k] for k in ("k1", "k2", "k3", "k4",
+                                                    "k5", "k6"))
     rep1 = next(c for c in k1 if c["dtype"] == "float32" and c["C"] == 1
                 and c["Hkv"] == 12 and c["window"] is None)
     rep2 = next(c for c in k2 if c["bits"] == 8 and c["dtype"] == "float32"
@@ -762,6 +1122,13 @@ def kernel_entries(results):
     rep3 = next(c for c in k3 if c["dtype"] == "float32"
                 and c["case"] == "pad_dropout")
     rep4 = next(c for c in k4 if c["dtype"] == "float32" and c["V"] == 30522)
+    rep5 = next(c for c in k5 if c["dtype"] == "bfloat16" and
+                c["rows"] == 8192 and c["case"] == "ln")
+    chunk = [c for c in k6 if c["rule"] != "lamb"]
+    lamb = [c for c in k6 if c["rule"] == "lamb"]
+    rep7 = next(c for c in chunk if c["dtype"] == "float32" and
+                c["rule"] == "adam")
+    rep8 = next(c for c in lamb if c["dtype"] == "bfloat16")
     e2e, train = results["e2e"], results["train"]
     k1_launch = e2e.get("float32", {}).get("launches", {}).get(
         "ragged_paged_attention", 0)
@@ -771,20 +1138,23 @@ def kernel_entries(results):
     def train_launches(name):
         return sum(r["launches"][name] for r in train.values())
 
-    def entry(name, src, replaces, launches, cases, rep, pre=""):
-        return {"name": name, "route": "cuda", "source": src,
+    def entry(name, src, replaces, launches, cases, rep, pre="", ms=None):
+        mk = ms or pre + "ms"           # the kernel time's key; its bound's
+        return {"name": name, "route": "cuda", "source": src,   # beside it
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": max(c["max_abs_err"] for c in cases),
-                "ms": rep[pre + "ms"], "kernel_ms": rep[pre + "ms"],
+                "ms": rep[mk], "kernel_ms": rep[mk],
                 "plain_ms": rep[pre + "plain_ms"],
-                "bound_ms": rep[pre + "bound_ms"],
-                "bound_by": rep[pre + "bound_by"],
+                "bound_ms": rep[mk[:-2] + "bound_ms"],
+                "bound_by": rep[mk[:-2] + "bound_by"],
                 "library_ms": rep[pre + "library_ms"]}
 
     fa_src = "mxnet_tpu_torch/csrc/flash_attention.cu"
     fa_py = "mxnet_tpu/ops/pallas/flash_attention.py"
     sx_src = "mxnet_tpu_torch/csrc/softmax_xent.cu"
     sx_py = "mxnet_tpu/ops/pallas/softmax_xent.py"
+    fo_src = "mxnet_tpu_torch/csrc/fused_optimizer.cu"
+    fo_py = "mxnet_tpu/ops/pallas/fused_optimizer.py"
     return [
         entry("ragged_paged_attention",
               "mxnet_tpu_torch/csrc/paged_attention.cu",
@@ -802,6 +1172,17 @@ def kernel_entries(results):
               train_launches("softmax_xent_fwd"), k4, rep4),
         entry("softmax_xent_bwd", sx_src, f"{sx_py}:127",
               train_launches("softmax_xent_bwd"), k4, rep4, "bwd_"),
+        entry("fused_norm", "mxnet_tpu_torch/csrc/fused_norm.cu",
+              "mxnet_tpu/ops/pallas/fused_norm.py:164",
+              train_launches("fused_norm"), k5, rep5),
+        entry("fused_optimizer_chunk", fo_src, f"{fo_py}:220",
+              train_launches("fused_optimizer_chunk"), chunk, rep7),
+        entry("lamb_phase_a", fo_src, f"{fo_py}:307",
+              train_launches("lamb_phase_a"), lamb, rep8,
+              ms="phase_a_ms"),
+        entry("lamb_phase_b", fo_src, f"{fo_py}:333",
+              train_launches("lamb_phase_b"), lamb, rep8,
+              ms="phase_b_ms"),
     ]
 
 
@@ -850,7 +1231,7 @@ def main(argv=None) -> int:
         return 1
 
     for name, fn in (("k1", k1_cases), ("k2", k2_cases), ("k3", k3_cases),
-                     ("k4", k4_cases)):
+                     ("k4", k4_cases), ("k5", k5_cases), ("k6", k6_cases)):
         try:
             results[name] = fn(dev)
             for c in results[name]:

@@ -44,7 +44,11 @@ LAUNCHES: Dict[str, int] = {"ragged_paged_attention": 0,
                             "flash_attention_fwd": 0,
                             "flash_attention_bwd": 0,
                             "softmax_xent_fwd": 0,
-                            "softmax_xent_bwd": 0}
+                            "softmax_xent_bwd": 0,
+                            "fused_norm": 0,
+                            "fused_optimizer_chunk": 0,
+                            "lamb_phase_a": 0,
+                            "lamb_phase_b": 0}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -4,7 +4,7 @@ position-wise FFN as `nn.Module`s with the JAX package's child names
 (``attn_qkv``, ``attn_proj``, ``ffn_intermediate``, ``ffn_output``), so
 parameter names carry across one for one (`convert.load_jax_params`), plus
 the Gluon layers they are built from (`Dense`, `Embedding`, `LayerNorm`,
-`Dropout`).
+`RMSNorm`, `Dropout`).
 
 Their full-sequence ``forward`` is the training path: attention through
 `ops.multi_head_attention` (the flash kernels on the card) and the FFN
@@ -26,8 +26,9 @@ from ..base import MXNetError
 from ..ops import nn as F
 from ..ops.attention import multi_head_attention
 
-__all__ = ["Dense", "Embedding", "LayerNorm", "Dropout", "FusedSelfAttention",
-           "FeedForward", "attach_generator", "check_max_position"]
+__all__ = ["Dense", "Embedding", "LayerNorm", "RMSNorm", "Dropout",
+           "FusedSelfAttention", "FeedForward", "attach_generator",
+           "check_max_position"]
 
 
 def check_max_position(seq_len: int, max_position: int) -> None:
@@ -56,19 +57,48 @@ class Embedding(nn.Embedding):
         return F.embedding(ids, self.weight)
 
 
+def _check_channels(layer, x, c):
+    if x.shape[-1] != c:
+        raise MXNetError(f"{layer}: input last axis has size {x.shape[-1]}, "
+                         f"expected {c}")
+
+
 class LayerNorm(nn.Module):
     """LayerNorm over the last axis under the JAX package's parameter
     names (``gamma``, ``beta``).  Gluon's LayerNorm keeps f32 parameters
-    whatever the model's dtype, so the default `dtype` is f32."""
+    whatever the model's dtype, so the default `dtype` is f32.  The
+    ``norm`` attribute is the function it calls, `ops.nn.layer_norm` (the
+    fused row kernel on the card); an oracle model swaps in
+    `ops.fused_norm.fused_layer_norm_reference`, the kernel route on its
+    plain version."""
 
     def __init__(self, hidden_size: int, dtype=None, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
+        self.norm = F.layer_norm
         self.gamma = nn.Parameter(torch.ones(hidden_size, dtype=dtype))
         self.beta = nn.Parameter(torch.zeros(hidden_size, dtype=dtype))
 
     def forward(self, x):
-        return F.layer_norm(x, self.gamma, self.beta, eps=self.eps)
+        _check_channels("LayerNorm", x, self.gamma.shape[0])
+        return self.norm(x, self.gamma, self.beta, eps=self.eps)
+
+
+class RMSNorm(nn.Module):
+    """Root-mean-square norm over the last axis, ``y = x * rsqrt(mean(x^2)
+    + eps) * gamma`` (Gluon ``nn.RMSNorm``: eps 1e-6, parameter ``gamma``).
+    ``norm`` is `ops.nn.rms_norm`; an oracle swaps in
+    `ops.fused_norm.fused_rms_norm_reference`."""
+
+    def __init__(self, hidden_size: int, dtype=None, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.norm = F.rms_norm
+        self.gamma = nn.Parameter(torch.ones(hidden_size, dtype=dtype))
+
+    def forward(self, x):
+        _check_channels("RMSNorm", x, self.gamma.shape[0])
+        return self.norm(x, self.gamma, eps=self.eps)
 
 
 class Dropout(nn.Module):

@@ -1,10 +1,12 @@
 """Operators of the port: each kernel module holds a hand-written CUDA
 kernel (``csrc/``) beside its plain PyTorch version, and a dispatcher that
 launches the kernel on a CUDA tensor and runs the plain version on a CPU
-tensor.  ``ops.quantized_matmul`` names the module; its dispatcher of
-the same name is ``ops.quantized_matmul.quantized_matmul`` (likewise
-``ops.flash_attention`` and ``ops.softmax_xent``).  ``ops.nn`` holds the
-plain torch ``numpy_extension`` ops of the training path."""
+tensor; `policy` (``MXTPU_PALLAS``) decides the route of the ops whose JAX
+counterparts consult it (the fused norm, the fused optimizer, the
+dequant-matmul).  ``ops.quantized_matmul`` names the module; its
+dispatcher of the same name is ``ops.quantized_matmul.quantized_matmul``
+(likewise ``ops.flash_attention`` and ``ops.softmax_xent``).  ``ops.nn``
+holds the ``numpy_extension`` ops of the training path."""
 from .paged_attention import (  # noqa: F401
     ragged_paged_attention, paged_attention_reference, gather_pages,
     MASK_VALUE)
@@ -16,7 +18,7 @@ from .attention import (  # noqa: F401
     rope_rotate, multi_head_attention, dot_product_attention,
     reference_attention, band_bias)
 from .softmax_xent import softmax_cross_entropy  # noqa: F401
-from . import nn  # noqa: F401
+from . import policy, fused_norm, fused_optimizer, nn  # noqa: F401
 
 __all__ = ["ragged_paged_attention", "paged_attention_reference",
            "gather_pages", "MASK_VALUE", "QuantizedTensor",
@@ -25,4 +27,5 @@ __all__ = ["ragged_paged_attention", "paged_attention_reference",
            "matmul_nt", "matmul_nt_reference", "gather_rows",
            "weight_nbytes", "rope_rotate", "multi_head_attention",
            "dot_product_attention", "reference_attention", "band_bias",
-           "softmax_cross_entropy", "nn"]
+           "softmax_cross_entropy", "policy", "fused_norm",
+           "fused_optimizer", "nn"]

@@ -1,10 +1,14 @@
 """The ``numpy_extension`` ops on the BERT training path, in plain torch
 (counterparts of ``mxnet_tpu/numpy_extension/__init__.py``).
 
-Dtype flow follows JAX's promotion rules, so a module computes what its
-JAX counterpart computes: a bf16 activation meeting an f32 LayerNorm gain
-comes out f32, and `fully_connected` multiplies in the promoted type of
-its operands (``jnp.matmul`` promotes; ``torch.matmul`` would refuse).
+Dtype flow follows the JAX package's, route for route, so a module
+computes what its JAX counterpart computes.  The norms dispatch as
+``npx.layer_norm`` does (`ops.policy`, ``MXTPU_PALLAS``): on the kernel
+route (the default on the card) the fused row kernel returns x's dtype,
+so a bf16 model stays bf16; on the reference route a bf16 activation
+meeting an f32 LayerNorm gain comes out f32.  `fully_connected` multiplies
+in the promoted type of its operands (``jnp.matmul`` promotes;
+``torch.matmul`` would refuse).
 Random ops take an explicit `torch.Generator` where the JAX package draws
 from its global key.
 """
@@ -13,22 +17,49 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from . import fused_norm as _fnorm
 from .softmax_xent import softmax_cross_entropy as _xent
 
-__all__ = ["layer_norm", "gelu", "dropout", "embedding", "fully_connected",
-           "pick", "softmax_cross_entropy"]
+__all__ = ["layer_norm", "layer_norm_residual", "rms_norm",
+           "rms_norm_residual", "gelu", "dropout", "embedding",
+           "fully_connected", "pick", "softmax_cross_entropy"]
 
 
 def layer_norm(x, gamma, beta, axis=-1, eps=1e-5):
-    """LayerNorm with the math of ``npx.layer_norm`` and
-    ``fused_norm.layer_norm_reference``: mean and variance in the input
-    dtype, then ``(x - mean) * rsqrt(var + eps) * gamma + beta``."""
+    """LayerNorm (``npx.layer_norm``): the fused row kernel's route when
+    `fused_norm.kernel_eligible` (last axis, policy), else mean and
+    variance in the input dtype, then ``(x - mean) * rsqrt(var + eps) *
+    gamma + beta``."""
+    if _fnorm.kernel_eligible(x, axis):
+        return _fnorm.fused_layer_norm(x, gamma, beta, eps=eps,
+                                       use_kernel=True)
     mean = x.mean(dim=axis, keepdim=True)
     var = x.var(dim=axis, keepdim=True, correction=0)
     y = (x - mean) * torch.rsqrt(var + eps)
     shape = [1] * x.dim()
     shape[axis % x.dim()] = x.shape[axis % x.dim()]
     return y * gamma.reshape(shape) + beta.reshape(shape)
+
+
+def layer_norm_residual(x, residual, gamma, beta, axis=-1, eps=1e-5):
+    """The pre-LN step ``s = residual + x; y = LN(s)``; returns ``(y, s)``
+    (``npx.layer_norm_residual``).  Last axis only."""
+    _fnorm._last_axis("layer_norm_residual", x, axis)
+    return _fnorm.layer_norm_residual(x, residual, gamma, beta, eps=eps)
+
+
+def rms_norm(x, gamma, axis=-1, eps=1e-6):
+    """RMSNorm over the last axis: ``y = x * rsqrt(mean(x^2) + eps) *
+    gamma`` (``npx.rms_norm``)."""
+    _fnorm._last_axis("rms_norm", x, axis)
+    return _fnorm.fused_rms_norm(x, gamma, eps=eps)
+
+
+def rms_norm_residual(x, residual, gamma, axis=-1, eps=1e-6):
+    """``s = residual + x; y = RMSNorm(s)``; returns ``(y, s)``
+    (``npx.rms_norm_residual``)."""
+    _fnorm._last_axis("rms_norm_residual", x, axis)
+    return _fnorm.rms_norm_residual(x, residual, gamma, eps=eps)
 
 
 def gelu(x, approximation="erf"):

@@ -17,10 +17,11 @@ Layout: a quantized weight stands in for a dense ``(out, in)`` matrix
   itself stays symmetric in ``[-7, 7]``).  Odd ``in`` pads a zero value.
 
 Dispatch: on a CUDA tensor `quantized_matmul` launches the hand-written
-kernel ``csrc/quantized_matmul.cu`` (K2) or raises; on a CPU tensor it runs
-`quantized_matmul_reference` (dequantize, then ``x @ w.T``) — the plain
-version the CPU tests hold against the JAX package and `chip_smoke.py`
-holds the kernel against on the card.
+kernel ``csrc/quantized_matmul.cu`` (K2) or raises, unless ``MXTPU_PALLAS``
+is ``reference`` or ``off`` (`ops.policy`); otherwise, and on a CPU tensor,
+it runs `quantized_matmul_reference` (dequantize, then ``x @ w.T``) — the
+plain version the CPU tests hold against the JAX package and
+`chip_smoke.py` holds the kernel against on the card.
 """
 from __future__ import annotations
 
@@ -29,9 +30,10 @@ import torch
 
 from ..base import MXNetError, getenv_bool
 from .. import kernels as _kernels
+from .policy import kernel_active
 
 __all__ = ["QuantizedTensor", "quantize_weight", "dequantize_weight",
-           "pack_int4", "unpack_int4", "quantized_matmul",
+           "pack_int4", "unpack_int4", "quantized_matmul", "launches_kernel",
            "quantized_matmul_reference", "int8_act_matmul",
            "act_quant_enabled", "matmul_nt", "matmul_nt_reference",
            "gather_rows", "weight_nbytes"]
@@ -230,13 +232,22 @@ def _qmm_cuda(x2, qt: QuantizedTensor):
 # public dispatch
 # ---------------------------------------------------------------------------
 
+def launches_kernel(device) -> bool:
+    """Does `quantized_matmul` on `device` launch K2?  On a card unless
+    the policy says ``reference`` or ``off``; never on the CPU."""
+    return device.type == "cuda" and kernel_active(device)
+
+
 def quantized_matmul(x, qt: QuantizedTensor):
     """``x @ dequantize(qt).T`` with the dequant fused into the matmul.
 
     x: (..., in_features) float; returns (..., out_features) in x's dtype.
-    A CUDA tensor launches K2 (or raises); a CPU tensor runs
-    `quantized_matmul_reference`.  ``MXTPU_QUANT_ACT=1`` raises until the
-    int8-activation path is ported."""
+    Under the kernel policy (`ops.policy.kernel_active`, as the JAX
+    ``kernel_eligible`` consults it) a CUDA tensor launches K2 (or raises);
+    ``MXTPU_PALLAS=reference`` or ``off`` runs `quantized_matmul_reference`
+    even on the card, and a CPU tensor always runs it.
+    ``MXTPU_QUANT_ACT=1`` raises until the int8-activation path is
+    ported."""
     if not isinstance(qt, QuantizedTensor):
         raise MXNetError("quantized_matmul needs a QuantizedTensor "
                          f"weight, got {type(qt).__name__}")
@@ -248,13 +259,13 @@ def quantized_matmul(x, qt: QuantizedTensor):
         return int8_act_matmul(x, qt)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, qt.in_features)
-    if x.device.type == "cuda":
-        out = _qmm_cuda(x2.contiguous(), qt)
-    elif x.device.type == "cpu":
-        out = quantized_matmul_reference(x2, qt)
-    else:
+    if x.device.type not in ("cuda", "cpu"):
         raise MXNetError(f"quantized_matmul runs on cuda or cpu, not "
                          f"{x.device}")
+    if launches_kernel(x.device):
+        out = _qmm_cuda(x2.contiguous(), qt)
+    else:
+        out = quantized_matmul_reference(x2, qt)
     return out.reshape(*lead, qt.out_features)
 
 

@@ -16,6 +16,8 @@ def _sqrt(x):
 
 @register
 class Adam(Optimizer):
+    fused_elementwise = True
+
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, **kwargs):
         super().__init__(learning_rate=learning_rate, **kwargs)
@@ -39,6 +41,7 @@ class Adam(Optimizer):
 @register
 class AdamW(Optimizer):
     """Decoupled weight decay."""
+    fused_elementwise = True
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, correct_bias=True, **kwargs):

@@ -6,7 +6,9 @@ hp) -> (new_weight, new_state)`` over tensors; `ops.fused_optimizer`
 applies it leaf by leaf inside `parallel.TrainStep`.  The base holds the
 hyperparameters: the learning rate (or an ``lr_scheduler`` callable of the
 update count), weight decay, ``rescale_grad``, ``clip_gradient`` and the
-per-index update count ``t``.
+per-index update count ``t``, and the flags (``fused_safe``,
+``fused_elementwise``) that tell `ops.fused_optimizer` which of its routes
+may run the rule.
 """
 from __future__ import annotations
 
@@ -45,7 +47,15 @@ def create(name, **kwargs):
 
 class Optimizer:
     """Base optimizer: hyperparameters and the per-index update count.
-    Subclasses implement `create_state` and the pure `_rule`."""
+    Subclasses implement `create_state` and the pure `_rule`.
+
+    ``fused_safe``: the rule is a pure function of its tensors (no host
+    state, no host random draws), so `ops.fused_optimizer` may apply it;
+    ``fused_elementwise``: the rule is elementwise over (weight, grad,
+    state), so it can run over a packed chunk of many leaves."""
+
+    fused_safe = True
+    fused_elementwise = False
 
     def __init__(self, rescale_grad=1.0, wd=0.0, clip_gradient=None,
                  learning_rate=None, lr_scheduler=None, **kwargs):

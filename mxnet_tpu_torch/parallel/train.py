@@ -3,10 +3,16 @@
 
 `TrainStep` runs forward, ``loss_fn`` and backward through torch autograd,
 then the optimizer's rule over every parameter
-(`ops.fused_optimizer.apply_updates`) and writes the new values into the
-model's parameters in place (no second copy of the weights).  What it
-keeps from the JAX step:
+(`ops.fused_optimizer.apply_updates`), and leaves the new values in the
+model's parameters (no second copy of the weights).  What it keeps from
+the JAX step:
 
+- the optimizer's route is resolved once, at construction
+  (``_fused_opt_kernel``, from `ops.fused_optimizer.kernel_route` on the
+  step's device under ``MXTPU_PALLAS``): the multi-tensor kernels update
+  weights and state in place; the per-leaf reference route returns new
+  values, copied into the parameters.  Changing ``MXTPU_PALLAS`` later
+  never changes a live step;
 - ``loss_fn(out, *batch)`` sees the whole batch; the first
   ``num_model_args`` arguments feed the model;
 - optimizer state in f32 for 16-bit weights, with no f32 master copy of
@@ -36,7 +42,7 @@ import torch
 from .. import kernels
 from ..base import MXNetError
 from ..models.layers import Dropout
-from ..ops.fused_optimizer import apply_updates
+from ..ops.fused_optimizer import apply_updates, kernel_route
 
 __all__ = ["TrainStep", "StepHandle", "make_train_step"]
 
@@ -101,6 +107,9 @@ class TrainStep:
             n: optimizer.create_state(params[n].detach(),
                                       dtype=_master_dtype(params[n]))
             for n in self.diff_names}
+        # the optimizer route, captured once (as the JAX step bakes it into
+        # its traced program)
+        self._fused_opt_kernel = kernel_route(optimizer, self.device)
         self._t = 0
         self._hp_key = None
         self._hp_dev = None
@@ -210,11 +219,13 @@ class TrainStep:
         self._t += 1
         hp = self._hp()
         live = {n: self.params[n].detach() for n in self.diff_names}
-        new_p, self.opt_state = apply_updates(self.optimizer, live, grads,
-                                              self.opt_state, hp)
+        new_p, self.opt_state = apply_updates(
+            self.optimizer, live, grads, self.opt_state, hp,
+            use_kernel=self._fused_opt_kernel)
         with torch.no_grad():
             for n in self.diff_names:
-                live[n].copy_(new_p[n])
+                if new_p[n] is not live[n]:    # the kernels update in place
+                    live[n].copy_(new_p[n])
         done = None
         if self.device.type == "cuda":
             done = torch.cuda.Event()

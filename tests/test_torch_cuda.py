@@ -1,13 +1,18 @@
 """The port's CUDA kernels against their plain versions, on the card:
 ragged paged attention, the dequant-matmul, flash attention (forward and
 backward, with padding or per-row bias, causal, dropout, ragged L and
-D up to 128) and the streaming cross-entropy (any V, unclamped labels).
+D up to 128), the streaming cross-entropy (any V, unclamped labels), the
+fused LayerNorm/RMSNorm (any h, with and without residual and beta) and
+the optimizer kernels (the multi-tensor chunk for Adam, AdamW and SGD,
+LAMB phases A and B; f32 and bf16 weights; the skip flag).
 
 Marked ``cuda``: each test skips (with its reason) where no card is
 visible, as on the CPU test machine.  Run them on a machine with an H100
 (which needs no JAX): ``python -m pytest --noconftest
 tests/test_torch_cuda.py -q``.  Tolerances: f32 max-abs
-<= 1e-4 of the output scale (summation order), bf16 <= 2e-2.
+<= 1e-4 of the output scale (summation order), bf16 <= 2e-2; the optimizer
+kernels at atol 2e-6 on f32 (the JAX kernel test's bound), bf16 weights at
+rtol 2**-7 (one bf16 step at most).
 """
 import numpy as np
 import pytest
@@ -176,3 +181,118 @@ def test_softmax_xent_kernels_match_plain(card, dtype, tol, N, V):
     for a, b in ((loss.detach(), loss_ref), (xx.grad, dx_ref)):
         err = float((a.float() - b.float()).abs().max())
         assert err <= tol * float(b.float().abs().max())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("rows,h", [(37, 200), (64, 768), (3, 4099)])
+@pytest.mark.parametrize("rms,residual", [(False, False), (True, False),
+                                          (False, True), (True, True)])
+def test_fused_norm_kernel_matches_plain(card, dtype, tol, rows, h, rms,
+                                         residual):
+    from mxnet_tpu_torch.ops import fused_norm as fn
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(rows, h, generator=g).to(card, dtype)
+    r = torch.randn(rows, h, generator=g).to(card, dtype) if residual \
+        else None
+    gamma = (torch.rand(h, generator=g) + 0.5).to(card)
+    beta = None if rms else torch.randn(h, generator=g).to(card)
+    kernels.reset_launch_counts()
+    got = fn._norm_cuda(x, r, gamma, beta, 1e-5, rms)
+    want = fn.norm_plain(x, r, gamma, beta, 1e-5, rms)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["fused_norm"] == 1
+    got = got if residual else (got,)
+    want = want if residual else (want,)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= tol * float(b.float().abs().max())
+
+
+def test_fused_norm_dispatch_launches_and_differentiates(card):
+    from mxnet_tpu_torch.ops import nn as tnn
+    x = torch.randn(4, 16, 768, device=card, dtype=torch.bfloat16,
+                    requires_grad=True)
+    gamma = torch.ones(768, device=card, requires_grad=True)
+    beta = torch.zeros(768, device=card, requires_grad=True)
+    kernels.reset_launch_counts()
+    y = tnn.layer_norm(x, gamma, beta)          # MXTPU_PALLAS=auto
+    y.float().sum().backward()
+    assert kernels.launch_counts()["fused_norm"] == 1
+    assert y.dtype == torch.bfloat16 and x.grad.dtype == torch.bfloat16
+    assert gamma.grad.dtype == torch.float32
+
+
+OPT_CASES = {"adam": ("Adam", {}), "adamw": ("AdamW", {}),
+             "sgd": ("SGD", {}), "sgd_momentum": ("SGD", {"momentum": 0.9}),
+             "lamb": ("LAMB", {}),
+             "lamb_bounds": ("LAMB", {"lower_bound": 5.0,
+                                      "upper_bound": 20.0,
+                                      "bias_correction": False})}
+
+
+@pytest.mark.parametrize("name", sorted(OPT_CASES))
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+def test_optimizer_kernels_match_plain(card, name, wdtype):
+    from mxnet_tpu_torch import optimizer as topt
+    from mxnet_tpu_torch.ops import fused_optimizer as fo
+    cls, kw = OPT_CASES[name]
+    opt = getattr(topt, cls)(learning_rate=0.01, **kw)
+    g = torch.Generator().manual_seed(6)
+    sizes = {"a": 70001, "b": 1000, "c": 37, "d": 8}
+    params = {n: torch.randn(k, generator=g).to(card, wdtype)
+              for n, k in sizes.items()}
+    params["d"] = params["d"].float()                  # a second group
+    grads = {n: (3 * torch.randn(p.shape, generator=g)).to(card, p.dtype)
+             for n, p in params.items()}
+    states = {n: tuple(torch.rand(p.shape, generator=g).to(card)
+                       for _ in opt.create_state(p))
+              for n, p in params.items()}
+    hp = {"lr": 0.01, "wd": 0.01, "rescale_grad": 0.5,
+          "clip_gradient": 1.0, "t": 3.0}
+    hp = {k: torch.tensor(v, device=card) for k, v in hp.items()}
+    want = {n: fo._reference_leaf(opt, params[n], grads[n], states[n], hp,
+                                  None) for n in params}
+    kernels.reset_launch_counts()
+    fo.apply_updates(opt, params, grads, states, hp, use_kernel=True)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    if cls == "LAMB":
+        assert counts["lamb_phase_a"] == counts["lamb_phase_b"] == 4
+    else:
+        groups = 2 if wdtype == torch.bfloat16 else 1
+        assert counts["fused_optimizer_chunk"] == groups
+    for n in params:
+        w_want, s_want = want[n]
+        if params[n].dtype == torch.bfloat16:
+            torch.testing.assert_close(params[n].float(), w_want.float(),
+                                       rtol=2 ** -7, atol=2e-6)
+        else:
+            torch.testing.assert_close(params[n], w_want, rtol=0, atol=2e-6)
+        for a, b in zip(states[n], s_want):
+            torch.testing.assert_close(a, b, rtol=0, atol=2e-6)
+
+
+@pytest.mark.parametrize("name", ["adam", "sgd_momentum", "lamb"])
+def test_optimizer_kernels_skip_is_bit_identical(card, name):
+    from mxnet_tpu_torch import optimizer as topt
+    from mxnet_tpu_torch.ops import fused_optimizer as fo
+    cls, kw = OPT_CASES[name]
+    opt = getattr(topt, cls)(learning_rate=0.01, **kw)
+    for skip, same in ((True, True), (False, False)):
+        params = {"w": torch.randn(5000, device=card)}
+        grads = {"w": torch.randn(5000, device=card)}
+        grads["w"][7] = float("nan")
+        states = {"w": tuple(torch.rand(5000, device=card)
+                             for _ in opt.create_state(params["w"]))}
+        before = params["w"].clone(), [s.clone() for s in states["w"]]
+        hp = {"lr": 0.1, "wd": 0.0, "rescale_grad": 1.0,
+              "clip_gradient": None, "t": 1.0}
+        fo.apply_updates(opt, params, grads, states, hp,
+                         skip=torch.tensor(skip, device=card),
+                         use_kernel=True)
+        torch.cuda.synchronize()
+        assert torch.equal(params["w"], before[0]) == same
+        assert all(torch.equal(a, b) == same
+                   for a, b in zip(states["w"], before[1]))

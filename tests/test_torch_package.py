@@ -31,6 +31,8 @@ def test_import_leaves_no_jax_and_no_jax_package():
             "mxnet_tpu_torch.ops.flash_attention, "
             "mxnet_tpu_torch.ops.softmax_xent, "
             "mxnet_tpu_torch.ops.fused_optimizer, "
+            "mxnet_tpu_torch.ops.fused_norm, mxnet_tpu_torch.ops.policy, "
+            "mxnet_tpu_torch.optimizer.sgd, mxnet_tpu_torch.optimizer.lamb, "
             "mxnet_tpu_torch.gluon.loss, mxnet_tpu_torch.optimizer.adam, "
             "mxnet_tpu_torch.parallel.train\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -47,7 +49,8 @@ def test_no_source_file_imports_jax_or_the_jax_package():
                      re.M)
     files = [os.path.join(REPO, f) for f in ("chip_smoke.py",
                                              "serve_profile.py",
-                                             "train_profile.py")]
+                                             "train_profile.py",
+                                             "train_sensitivity.py")]
     for root, _, names in os.walk(os.path.join(REPO, "mxnet_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     bad = []
@@ -132,12 +135,16 @@ def test_missing_nvcc_raises_with_a_reason(monkeypatch, tmp_path):
 def test_kernel_sources_and_counters():
     assert sorted(f for f in os.listdir(kernels.CSRC)
                   if f.endswith(".cu")) == ["flash_attention.cu",
+                                            "fused_norm.cu",
+                                            "fused_optimizer.cu",
                                             "paged_attention.cu",
                                             "quantized_matmul.cu",
                                             "softmax_xent.cu"]
     assert set(kernels.LAUNCHES) == {
         "ragged_paged_attention", "quantized_matmul", "flash_attention_fwd",
-        "flash_attention_bwd", "softmax_xent_fwd", "softmax_xent_bwd"}
+        "flash_attention_bwd", "softmax_xent_fwd", "softmax_xent_bwd",
+        "fused_norm", "fused_optimizer_chunk", "lamb_phase_a",
+        "lamb_phase_b"}
     kernels.LAUNCHES["quantized_matmul"] += 2
     assert kernels.launch_counts()["quantized_matmul"] >= 2
     kernels.reset_launch_counts()

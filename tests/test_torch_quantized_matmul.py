@@ -119,3 +119,22 @@ def test_int8_activation_path_raises_until_ported(monkeypatch):
     tq = tqm.quantize_weight(torch.randn(4, 8), 8)
     with pytest.raises(MXNetError, match="not ported"):
         tqm.quantized_matmul(torch.randn(2, 8), tq)
+
+
+@pytest.mark.parametrize("mode,on_card", [("auto", True), ("kernel", True),
+                                          ("reference", False),
+                                          ("off", False)])
+def test_routing_follows_the_kernel_policy(monkeypatch, mode, on_card):
+    """``MXTPU_PALLAS``: a card launches K2 under auto and kernel, the
+    plain version under reference and off; the CPU always runs the plain
+    version (no launch)."""
+    from mxnet_tpu_torch import kernels
+    monkeypatch.setenv("MXTPU_PALLAS", mode)
+    assert tqm.launches_kernel(torch.device("cuda", 0)) is on_card
+    assert tqm.launches_kernel(torch.device("cpu")) is False
+    tq = tqm.quantize_weight(torch.randn(4, 8), 8)
+    x = torch.randn(3, 8)
+    kernels.reset_launch_counts()
+    assert torch.equal(tqm.quantized_matmul(x, tq),
+                       tqm.quantized_matmul_reference(x, tq))
+    assert kernels.launch_counts()["quantized_matmul"] == 0

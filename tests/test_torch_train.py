@@ -1,14 +1,18 @@
-"""Port parity: the training step (mxnet_tpu_torch.parallel.TrainStep) with
-Adam against the JAX package's ``make_sharded_train_step`` on a one-device
-CPU mesh, and the optimizer rules against JAX's.
+"""Port parity: the training step (mxnet_tpu_torch.parallel.TrainStep)
+against the JAX package's ``make_sharded_train_step`` on a one-device CPU
+mesh, and the optimizer rules against JAX's.
 
 The BERT pretraining step is the one ``bench.py`` measures, at a small
 size (2 layers, hidden 64, sequence 16) with dropout 0, starting from the
 same weights (`load_jax_params`); the JAX side runs its flash and
-cross-entropy kernels in interpret mode, its LayerNorm and optimizer on
-their reference paths (what ``MXTPU_PALLAS=reference`` selects).
-Tolerance: atol/rtol 1e-4 on the losses and on every parameter after the
-steps (f32, summation order); the rules alone at 1e-6.
+cross-entropy kernels in interpret mode.  Two routes: the reference route
+(``MXTPU_PALLAS=reference``: LayerNorm and Adam on their reference paths)
+and the kernel route (``MXTPU_PALLAS=kernel``: every LayerNorm through the
+fused norm and the optimizer through the multi-tensor kernels, Adam and
+LAMB — on the JAX side in the Pallas interpreter, on the port's the CUDA
+kernels' plain versions).  Tolerance: atol/rtol 1e-4 on the losses and on
+every parameter after the steps (f32, summation order); the rules alone at
+1e-6.
 """
 import numpy as np
 import pytest
@@ -42,6 +46,12 @@ SMALL = dict(vocab_size=128, hidden_size=64, num_layers=2, num_heads=4,
 def interpret(monkeypatch):
     monkeypatch.setenv("MXTPU_PALLAS_INTERPRET", "1")
     monkeypatch.setenv("MXTPU_PALLAS", "reference")
+
+
+@pytest.fixture
+def kernel_route(monkeypatch):
+    monkeypatch.setenv("MXTPU_PALLAS_INTERPRET", "1")
+    monkeypatch.setenv("MXTPU_PALLAS", "kernel")
 
 
 class JaxBench(HybridBlock):
@@ -96,24 +106,26 @@ def _pair(dtype="float32"):
     return jm, tm
 
 
-def _run_both(steps, grad_accum=1, lr=1e-3, wd=0.0):
-    """`steps` Adam steps on each side.  epsilon 1e-6: the key part of the
-    QKV bias has an exactly zero gradient (softmax ignores a per-row
-    shift), so both sides see round-off of ~1e-9 there, which Adam with
-    epsilon 1e-8 would blow up into full-size steps of random sign."""
+def _run_both(steps, grad_accum=1, lr=1e-3, wd=0.0, opt="Adam"):
+    """`steps` steps of `opt` (Adam or LAMB) on each side.  epsilon 1e-6
+    (LAMB's default): the key part of the QKV bias has an exactly zero
+    gradient (softmax ignores a per-row shift), so both sides see round-off
+    of ~1e-9 there, which Adam with epsilon 1e-8 would blow up into
+    full-size steps of random sign."""
     jm, tm = _pair()
     mesh = make_mesh({"dp": 1}, jax.devices()[:1])
     kw = dict(learning_rate=lr, wd=wd, epsilon=1e-6)
     jstep = make_sharded_train_step(
-        jm, jopt.Adam(**kw), _jax_loss, mesh, num_model_args=3,
+        jm, getattr(jopt, opt)(**kw), _jax_loss, mesh, num_model_args=3,
         grad_accum=grad_accum)
-    tstep = make_train_step(tm, Adam(**kw), _torch_loss, num_model_args=3,
-                            grad_accum=grad_accum)
+    tstep = make_train_step(tm, create(opt, **kw), _torch_loss,
+                            num_model_args=3, grad_accum=grad_accum)
     batch = _batch(B=4 * grad_accum)
     jl = [float(jstep(*(mx.np.array(a) for a in batch)))
           for _ in range(steps)]
     tl = [float(tstep(*batch)) for _ in range(steps)]
     jstep.sync_params_to_block()
+    assert tstep._fused_opt_kernel == jstep._fused_opt_kernel
     return jm, tm, jl, tl
 
 
@@ -130,6 +142,33 @@ def test_three_adam_steps_match_jax(interpret):
     np.testing.assert_allclose(tl, jl, **TOL)
     assert tl[-1] < tl[0]
     _assert_params_match(jm, tm)
+
+
+@pytest.mark.parametrize("opt", ["Adam", "LAMB"])
+def test_three_kernel_route_steps_match_jax(kernel_route, opt):
+    """Every LayerNorm through the fused norm's route and the optimizer
+    through the chunk kernel (Adam) or LAMB's phases A and B, on both
+    sides."""
+    jm, tm, jl, tl = _run_both(3, wd=0.01, opt=opt)
+    np.testing.assert_allclose(tl, jl, **TOL)
+    assert tl[-1] < tl[0]
+    _assert_params_match(jm, tm)
+
+
+@pytest.mark.parametrize("mode,want", [("kernel", True), ("reference", False),
+                                       ("auto", False), ("off", False)])
+def test_the_optimizer_route_is_resolved_once(monkeypatch, mode, want):
+    """``auto`` on the CPU takes the reference route; a later change of
+    ``MXTPU_PALLAS`` leaves a live step as it was built."""
+    monkeypatch.setenv("MXTPU_PALLAS", mode)
+    tm = TorchBench(tbert.BertConfig(**dict(SMALL, dropout=0.0)),
+                    device="cpu")
+    step = TrainStep(tm, Adam(learning_rate=1e-3), _torch_loss,
+                     num_model_args=3)
+    assert step._fused_opt_kernel is want
+    monkeypatch.setenv("MXTPU_PALLAS", "reference" if want else "kernel")
+    step(*_batch())
+    assert step._fused_opt_kernel is want
 
 
 def test_grad_accum_matches_jax(interpret):

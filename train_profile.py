@@ -4,16 +4,19 @@ on the card.
 
     python3 train_profile.py [--out chiprun_out/train_profile.json]
 
-Builds full-width BERT-base (seeded random weights) per weight dtype (bf16,
-f32), wraps it in ``TrainStep`` with Adam exactly as ``chip_smoke.py``'s
-train phase does (``bench.py``'s batch: 64 x 128 tokens, 20 masked
-positions, padded by ``valid_length``, dropout 0.1), runs warmup and three
-steps, and traces five steps with ``torch.profiler``.  It reports the host
-wall per step, the device time per step (the sum of kernel durations), the
-device idle share (1 - device / wall), kernel launches per step, the
-device time per class of kernel (cuBLAS/CUTLASS products, the port's
-flash and cross-entropy kernels, everything else) and the kernels that
-take the most device time.  Needs a CUDA card.
+Builds full-width BERT-base (seeded random weights) and wraps it in
+``TrainStep`` exactly as ``chip_smoke.py``'s train phase does
+(``bench.py``'s batch: 64 x 128 tokens, 20 masked positions, padded by
+``valid_length``, dropout 0.1), once per run of ``RUNS`` — weight dtype,
+optimizer and ``MXTPU_PALLAS`` route: the default kernel route in bf16 and
+f32 with Adam and in bf16 with LAMB, and the reference route in bf16 —
+runs warmup and three steps, and traces five steps with
+``torch.profiler``.  It reports the host wall per step, the device time per
+step (the sum of kernel durations), the device idle share (1 - device /
+wall), kernel launches per step, the device time per class of kernel
+(cuBLAS/CUTLASS products, the port's flash, cross-entropy, fused-norm and
+optimizer kernels, everything else) and the kernels that take the most
+device time.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -24,9 +27,13 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+RUNS = (("bfloat16", "Adam", "auto"), ("float32", "Adam", "auto"),
+        ("bfloat16", "LAMB", "auto"), ("bfloat16", "Adam", "reference"))
 CLASSES = (("flash_fwd", ("flash_fwd_kernel",)),
            ("flash_bwd", ("flash_dq_kernel", "flash_dkv_kernel")),
            ("xent", ("xent_fwd_kernel", "xent_bwd_kernel")),
+           ("norm", ("norm_kernel",)),
+           ("optimizer", ("chunk_kernel", "lamb_a_kernel", "lamb_b_kernel")),
            ("gemm", ("gemm", "sgemm", "cutlass", "cublas", "nvjet")))
 
 
@@ -90,20 +97,22 @@ def main(argv=None) -> int:
         print("train_profile: needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    from chip_smoke import bert_batch, bert_train_step
+    from chip_smoke import bert_batch, bert_train_step, pallas_mode
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
 
     dev = torch.device("cuda", 0)
     batch = tuple(torch.from_numpy(a).to(dev) for a in bert_batch(30522))
     out = {"card": torch.cuda.get_device_name(0)}
-    for dtype in ("bfloat16", "float32"):
-        step = bert_train_step(dev, dtype)
-        step.warmup(*batch)
-        for _ in range(3):
-            step.dispatch(*batch)
-        res = profile_steps(step, batch, 5)
-        out[dtype] = res
-        print(f"[{dtype}] {json.dumps(res)}", flush=True)
+    for dtype, opt, route in RUNS:
+        key = f"{dtype}_{opt.lower()}_{route}"
+        with pallas_mode(route):
+            step = bert_train_step(dev, dtype, opt=opt, route=route)
+            step.warmup(*batch)
+            for _ in range(3):
+                step.dispatch(*batch)
+            res = profile_steps(step, batch, 5)
+        out[key] = res
+        print(f"[{key}] {json.dumps(res)}", flush=True)
         del step
         torch.cuda.empty_cache()
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
