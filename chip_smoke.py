@@ -48,8 +48,12 @@ pretraining step at full width and depth:
    tensors, 133.6 M elements; f32 model: one dtype group, bf16 model: bf16
    weights and f32 LayerNorm parameters) — the multi-tensor chunk for Adam,
    AdamW and SGD with momentum, LAMB phases A and B — against the per-leaf
-   plain version (atol 2e-6 on f32 tensors, one bf16 step on bf16
-   weights), ``skip=True`` bit-identical on the card; device times from
+   plain version (each state within 1e-5 of its scale; each weight within
+   its rounding plus 1e-5 of its update's scale, and at most 1e-4 of the
+   bf16 weights' elements off the plain value), with planted faults built
+   from the kernel's results (state not stored, weights unchanged) that
+   the comparison must reject, ``skip=True`` bit-identical on the card;
+   device times from
    ``torch.profiler``, beside ``torch._fused_adam_`` / ``_fused_adamw_`` /
    ``_fused_sgd_`` over the same tensors as the nearest library call
    (torch's Adam puts epsilon after the bias correction, MXNet's before);
@@ -67,6 +71,9 @@ pretraining step at full width and depth:
    1e-4; 1e-3 for bf16 on the kernel route, see `traj_tol`), and the loss
    falls; prints samples/s, step ms and TFLOP/s
    (``bench.py``'s count) and the share of the card's dense bf16 peak.
+   Two controls plant a fault in the bf16 Adam kernel-route step (Adam
+   without bias correction; LayerNorm on the norm kernel's RMS branch),
+   and each must depart from that run's oracle by more than the limit.
 
 Every count is reset just before a run it reports and read just after.
 The last three stdout lines are the ``nvidia-smi`` card line, the
@@ -94,19 +101,26 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # max-abs / output scale
 HBM_BPS = 3.35e12     # H100 SXM HBM3
 PEAK = {"float32": 67e12, "bfloat16": 989e12}   # FMA f32 / dense bf16 TC
 TRAIN_STEPS = 20
-OPT_ATOL = 2e-6       # optimizer kernels vs plain, f32 tensors
+OPT_RTOL = 1e-5       # optimizer kernels vs plain, of each tensor's scale
+OPT_MISMATCH = 1e-4   # share of bf16 weight elements off the plain value
 
 
 def traj_tol(dtype, route):
     """Loss trajectory limit, relative, kernel step vs its plain oracle.
     f32 on either route, and bf16 on the reference route (f32 activations
-    after the first LayerNorm): the sound runs deviate by at most 1.1e-7
+    after the first LayerNorm): the sound runs deviate by at most 1.3e-7
     and 1.6e-6, so 1e-4.  bf16 on the kernel route keeps bf16 activations,
-    where one rounding flip avalanches through the layers: swapping only
-    the norms for their plain versions moves the logits 1.1% apart within
-    one forward and the step-1 loss by 2.7e-5 (``train_sensitivity.py``),
-    and 20 steps reach 1.4e-4 — so 1e-3 there."""
+    where a kernel and its plain version round differently and one changed
+    rounding spreads through every later layer: the sound runs reach 1.4e-4
+    in 20 steps, so 1e-3 there.  The train phase's controls (planted
+    faults, `TRAIN_FAULTS`) show every run how far above it a wrong kernel
+    lands."""
     return 1e-3 if dtype == "bfloat16" and route != "reference" else 1e-4
+
+
+def traj_dev(losses, oracle):
+    """Largest relative departure of a loss trajectory from its oracle's."""
+    return max(abs(a - b) / abs(b) for a, b in zip(losses, oracle))
 
 
 def card_line() -> str:
@@ -757,21 +771,49 @@ def _opt_tree(leaves, opt, dev, seed):
     return params, grads, states
 
 
-def _opt_err(params, states, want_p, want_s):
-    """(max-abs error, ok): f32 tensors within OPT_ATOL, bf16 weights
-    within one bf16 step of the plain version."""
+def _opt_err(new_p, new_s, want_p, want_s, old_p):
+    """(max-abs error, share of bf16 weight elements off the plain value,
+    ok) of an update against the plain version's.  Each state tensor is
+    held within OPT_RTOL of its own scale, max |plain|.  A weight is held
+    within its rounding (2 ulps in f32, one step in bf16: at most 2**-22
+    and 2**-7 of the value) plus OPT_RTOL of its update's scale, max
+    |plain - old|.  An update below one bf16 step moves only some of a
+    bf16 weight's elements, so at most OPT_MISMATCH of those elements may
+    differ from the plain value at all."""
     import torch
-    err, ok = 0.0, True
-    for n in params:
-        pairs = [(params[n], want_p[n])] + list(zip(states[n], want_s[n]))
-        for a, b in pairs:
-            d = (a.float() - b.float()).abs()
-            err = max(err, float(d.max()))
-            # one bf16 step is at most 2**-7 of the value
-            lim = OPT_ATOL if a.dtype == torch.float32 else \
-                OPT_ATOL + 2.0 ** -7 * b.float().abs()
-            ok = ok and bool((d <= lim).all())
-    return err, ok
+    err, ok, off, n16 = 0.0, True, 0, 0
+    for n in new_p:
+        a, b = new_p[n].float(), want_p[n].float()
+        d = (a - b).abs()
+        bf16 = new_p[n].dtype == torch.bfloat16
+        lim = (2.0 ** -7 if bf16 else 2.0 ** -22) * b.abs() + \
+            OPT_RTOL * float((b - old_p[n].float()).abs().max())
+        ok = ok and bool((d <= lim).all())
+        err = max(err, float(d.max()))
+        if bf16:
+            off += int((d > 0).sum())
+            n16 += d.numel()
+        for s, w in zip(new_s[n], want_s[n]):
+            d = float((s.float() - w.float()).abs().max())
+            ok = ok and d <= OPT_RTOL * float(w.float().abs().max())
+            err = max(err, d)
+    share = off / n16 if n16 else 0.0
+    return err, share, ok and share <= OPT_MISMATCH
+
+
+def _opt_controls(new_p, new_s, want_p, want_s, old_p, old_s):
+    """Planted faults built from the kernel's own results, no launch: each
+    must fail `_opt_err`.  The last state slot (Adam's v, SGD's momentum)
+    left unstored, and each weight dtype's weights left unchanged.
+    Returns {fault: caught}."""
+    faults = {"last_state_not_stored": (new_p, {
+        n: tuple(new_s[n][:-1]) + (old_s[n][-1],) for n in new_s})}
+    for dt in sorted({str(p.dtype) for p in new_p.values()}):
+        faults[f"{dt[6:]}_weights_unchanged"] = ({
+            n: old_p[n] if str(p.dtype) == dt else p
+            for n, p in new_p.items()}, new_s)
+    return {k: not _opt_err(p, s, want_p, want_s, old_p)[2]
+            for k, (p, s) in faults.items()}
 
 
 def _library_call(rule, opt, params, grads, states, hp_vals):
@@ -855,7 +897,9 @@ def k6_cases(dev):
             fo.apply_updates(opt, kp, grads, ks, hp, use_kernel=True)
             torch.cuda.synchronize()
             launches = kernels.launch_counts()
-            err, ok = _opt_err(kp, ks, want_p, want_s)
+            err, share, ok = _opt_err(kp, ks, want_p, want_s, params)
+            controls = _opt_controls(kp, ks, want_p, want_s, params, states)
+            ok = ok and all(controls.values())
             n_groups = len({p.dtype for p in params.values()})
             want_l = ({"lamb_phase_a": len(params),
                        "lamb_phase_b": len(params)} if rule == "lamb"
@@ -875,8 +919,9 @@ def k6_cases(dev):
             case = dict(dtype=dtype, rule=rule, tensors=len(params),
                         elements=sum(p.numel() for p in params.values()),
                         groups=n_groups, launches=launches,
-                        max_abs_err=err, skip_bit_identical=skip_ok,
-                        ok=ok and skip_ok)
+                        max_abs_err=err, bf16_weight_mismatch_share=share,
+                        controls_caught=controls,
+                        skip_bit_identical=skip_ok, ok=ok and skip_ok)
 
             def kernel_call():
                 fo.apply_updates(opt, kp, grads, ks, hp, use_kernel=True)
@@ -944,9 +989,21 @@ def pallas_mode(mode):
 
 
 OPT_LR = {"Adam": 1e-4, "LAMB": 1e-3}
+# planted faults for the train phase's controls, each one kernel's math
+# gone wrong on the bf16 kernel route: the trajectory check against the
+# sound bf16 Adam run's oracle must reject every one
+TRAIN_FAULTS = ("adam_without_bias_correction", "layernorm_as_rmsnorm")
 
 
-def bert_train_step(dev, dtype, plain=False, opt="Adam", route="auto"):
+def _layernorm_as_rmsnorm(x, gamma, beta, eps):
+    """A LayerNorm whose row kernel takes its RMS branch: no centring."""
+    from mxnet_tpu_torch.ops import fused_norm as fn
+    return fn._kernel_route(x, None, gamma, beta, eps, True,
+                            x.device.type == "cuda")
+
+
+def bert_train_step(dev, dtype, plain=False, opt="Adam", route="auto",
+                    fault=None):
     """``bench.py``'s pretraining step: full-width BERT-base (seed 0)
     behind its positional adapter (ids, valid_length, masked_positions),
     the mean MLM cross-entropy, `opt` (Adam lr 1e-4 or LAMB lr 1e-3) in a
@@ -957,7 +1014,10 @@ def bert_train_step(dev, dtype, plain=False, opt="Adam", route="auto"):
     `multi_head_attention_reference`, the loss is
     `softmax_cross_entropy_reference`, on the kernel route every LayerNorm
     swaps in `fused_layer_norm_reference` (the fused kernel's plain
-    version) and the optimizer takes its per-leaf plain version."""
+    version) and the optimizer takes its per-leaf plain version.  `fault`
+    plants one of `TRAIN_FAULTS` in a kernel-route Adam step: the chunk
+    kernel's AdamW rule with ``correct_bias=False`` and no weight decay,
+    or every LayerNorm on the norm kernel's RMS branch."""
     import torch
     from mxnet_tpu_torch import optimizer as topt
     from mxnet_tpu_torch.models import BertForPretraining, bert_base
@@ -986,23 +1046,30 @@ def bert_train_step(dev, dtype, plain=False, opt="Adam", route="auto"):
             if isinstance(m, LayerNorm) and route != "reference":
                 m.norm = fused_layer_norm_reference
         xent = softmax_cross_entropy_reference
+    optimizer = getattr(topt, opt)(learning_rate=OPT_LR[opt])
+    if fault == "adam_without_bias_correction":
+        optimizer = topt.AdamW(learning_rate=OPT_LR[opt], correct_bias=False)
+    elif fault == "layernorm_as_rmsnorm":
+        for m in bench.modules():
+            if isinstance(m, LayerNorm):
+                m.norm = _layernorm_as_rmsnorm
 
     def loss_fn(out, ids, vl, mp, lab):
         return xent(out[0], lab).mean()
 
     with pallas_mode("reference" if plain else route):
-        return TrainStep(bench, getattr(topt, opt)(learning_rate=OPT_LR[opt]),
-                         loss_fn, num_model_args=3)
+        return TrainStep(bench, optimizer, loss_fn, num_model_args=3)
 
 
-def train_run(dev, dtype, plain, batch, opt="Adam", route="auto"):
+def train_run(dev, dtype, plain, batch, opt="Adam", route="auto",
+              fault=None):
     """`TRAIN_STEPS` steps of the pretraining step under
     ``MXTPU_PALLAS=route``; returns its stats, the step time and the
     step's parameter counts (tensors, dtype groups)."""
     import torch
     from mxnet_tpu_torch import kernels
 
-    step = bert_train_step(dev, dtype, plain, opt, route)
+    step = bert_train_step(dev, dtype, plain, opt, route, fault)
     params = [step.params[n] for n in step.diff_names]
     counts = (len(params), len({p.dtype for p in params}))
     with pallas_mode(route):
@@ -1072,8 +1139,7 @@ def run_train(dev, results, card):
         if any(pst["launches"].values()):
             raise AssertionError(f"train {key}: the plain run launched "
                                  f"kernels {pst['launches']}")
-        dev_rel = max(abs(a - b) / abs(b)
-                      for a, b in zip(st["losses"], pst["losses"]))
+        dev_rel = traj_dev(st["losses"], pst["losses"])
         ls = st["losses"]
         if not all(math.isfinite(x) for x in ls):
             raise AssertionError(f"train {key}: non-finite loss {ls}")
@@ -1098,6 +1164,25 @@ def run_train(dev, results, card):
                 f"path's by {dev_rel:.3g} > {tol} ({ls} vs {pst['losses']})")
         if not ls[-1] < ls[0]:
             raise AssertionError(f"train {key}: loss did not fall {ls}")
+
+    # the controls: how far a wrong kernel moves the trajectory, read
+    # against the limit the sound bf16 run is held to
+    oracle = results["train"]["bfloat16_adam_auto"]["plain_losses"]
+    tol = traj_tol("bfloat16", "auto")
+    for fault in TRAIN_FAULTS:
+        st, _, _ = train_run(dev, "bfloat16", False, batch, "Adam", "auto",
+                             fault)
+        torch.cuda.empty_cache()
+        dev_rel = traj_dev(st["losses"], oracle)
+        results["train_controls"][fault] = c = dict(
+            losses=st["losses"], trajectory_rel_dev=dev_rel,
+            trajectory_tol=tol, over_tol=dev_rel / tol, caught=dev_rel > tol)
+        print(f"[train control {fault}] {json.dumps(c)}", flush=True)
+        if not c["caught"]:
+            raise AssertionError(
+                f"train control {fault}: the planted fault departs from the "
+                f"oracle by only {dev_rel:.3g} <= {tol}; the trajectory "
+                f"check cannot see it")
 
 
 # ---------------------------------------------------------------------------
@@ -1215,7 +1300,7 @@ def main(argv=None) -> int:
 
     results = {"card": card, "device": torch.cuda.get_device_name(0),
                "torch": torch.__version__, "cuda": torch.version.cuda,
-               "e2e": {}, "train": {}}
+               "e2e": {}, "train": {}, "train_controls": {}}
     failed = []
     t0 = time.perf_counter()
     # build from the checkout's sources, never from a leftover library

@@ -26,19 +26,17 @@ __all__ = ["layer_norm", "layer_norm_residual", "rms_norm",
 
 
 def layer_norm(x, gamma, beta, axis=-1, eps=1e-5):
-    """LayerNorm (``npx.layer_norm``): the fused row kernel's route when
-    `fused_norm.kernel_eligible` (last axis, policy), else mean and
-    variance in the input dtype, then ``(x - mean) * rsqrt(var + eps) *
-    gamma + beta``."""
-    if _fnorm.kernel_eligible(x, axis):
-        return _fnorm.fused_layer_norm(x, gamma, beta, eps=eps,
-                                       use_kernel=True)
-    mean = x.mean(dim=axis, keepdim=True)
-    var = x.var(dim=axis, keepdim=True, correction=0)
-    y = (x - mean) * torch.rsqrt(var + eps)
-    shape = [1] * x.dim()
-    shape[axis % x.dim()] = x.shape[axis % x.dim()]
-    return y * gamma.reshape(shape) + beta.reshape(shape)
+    """LayerNorm (``npx.layer_norm``) over `axis`.  The last axis goes
+    through `fused_norm.fused_layer_norm`: the fused row kernel's route
+    when `fused_norm.kernel_eligible` (the policy), else
+    `fused_norm.layer_norm_reference`, mean and variance in the input
+    dtype.  Another axis takes that reference math, moved last."""
+    axis = axis % x.dim()
+    if axis == x.dim() - 1:
+        return _fnorm.fused_layer_norm(x, gamma, beta, eps=eps)
+    y = _fnorm.layer_norm_reference(x.movedim(axis, -1), gamma, beta,
+                                    eps=eps)
+    return y.movedim(-1, axis)
 
 
 def layer_norm_residual(x, residual, gamma, beta, axis=-1, eps=1e-5):

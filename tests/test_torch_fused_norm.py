@@ -189,6 +189,18 @@ def test_nn_entry_points_and_rmsnorm_match_npx():
             fn(*args, axis=0)
 
 
+@pytest.mark.parametrize("axis", [0, 1, -2, -1])
+def test_ops_layer_norm_over_any_axis_matches_npx(axis):
+    rng = np.random.RandomState(11)
+    x = rng.randn(4, 6, 32).astype(np.float32)
+    h = x.shape[axis]
+    g, b = rng.randn(h).astype(np.float32), rng.randn(h).astype(np.float32)
+    got = tnn.layer_norm(*map(torch.from_numpy, (x, g, b)), axis=axis,
+                         eps=1e-12)
+    want = npx.layer_norm(*map(jnp.asarray, (x, g, b)), axis=axis, eps=1e-12)
+    _close(got, want, 1e-5)
+
+
 def test_layers_check_in_channels_and_swap_their_norm():
     ln, rn = LayerNorm(8), RMSNorm(8)
     for m in (ln, rn):

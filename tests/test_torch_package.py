@@ -49,8 +49,7 @@ def test_no_source_file_imports_jax_or_the_jax_package():
                      re.M)
     files = [os.path.join(REPO, f) for f in ("chip_smoke.py",
                                              "serve_profile.py",
-                                             "train_profile.py",
-                                             "train_sensitivity.py")]
+                                             "train_profile.py")]
     for root, _, names in os.walk(os.path.join(REPO, "mxnet_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     bad = []
