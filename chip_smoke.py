@@ -4,9 +4,11 @@
     python3 chip_smoke.py [--out chiprun_out/chip_smoke.json]
 
 Builds the port's CUDA kernels from ``mxnet_tpu_torch/csrc`` and drives its
-two main paths: serving at full GPT-2-small width and depth (12 layers,
-hidden 768, vocab 50257, seeded random weights) and the BERT-base
-pretraining step at full width and depth:
+three main paths: serving at full GPT-2-small width and depth (12 layers,
+hidden 768, vocab 50257, seeded random weights), the BERT-base pretraining
+step at full width and depth, and Switch-MoE training at switch-base-8's
+widths (hidden 768, FFN 3072, 8 experts) through `TrainStep` and the gluon
+`Trainer`:
 
 1. prints the card (name and power limit from ``nvidia-smi``) and the
    torch / CUDA versions;
@@ -48,13 +50,13 @@ pretraining step at full width and depth:
    tensors, 133.6 M elements; f32 model: one dtype group, bf16 model: bf16
    weights and f32 LayerNorm parameters) — the multi-tensor chunk for Adam,
    AdamW and SGD with momentum, LAMB phases A and B — against the per-leaf
-   plain version (each state within 1e-5 of its scale; each weight within
-   its rounding plus 1e-5 of its update's scale, and at most 1e-4 of the
-   bf16 weights' elements off the plain value), with planted faults built
-   from the kernel's results (state not stored, weights unchanged) that
-   the comparison must reject, ``skip=True`` bit-identical on the card;
-   device times from
-   ``torch.profiler``, beside ``torch._fused_adam_`` / ``_fused_adamw_`` /
+   plain version, ``kernel_plain`` (each state within 1e-5 of its scale;
+   each weight within its rounding plus 1e-5 of its update's scale, and at
+   most 1e-4 of the bf16 weights' elements off the plain value), with
+   planted faults built from the kernel's results (state not stored,
+   weights unchanged) that the comparison must reject, ``skip=True``
+   bit-identical on the card; device times from ``torch.profiler``,
+   beside ``torch._fused_adam_`` / ``_fused_adamw_`` /
    ``_fused_sgd_`` over the same tensors as the nearest library call
    (torch's Adam puts epsilon after the bias correction, MXNet's before);
 10. (train) ``bench.py``'s BERT-base pretraining step (batch 64 x 128, 20
@@ -74,6 +76,35 @@ pretraining step at full width and depth:
    Two controls plant a fault in the bf16 Adam kernel-route step (Adam
    without bias correction; LayerNorm on the norm kernel's RMS branch),
    and each must depart from that run's oracle by more than the limit.
+11. (k7) the MoE row gather against its plain version, bit for bit: the
+   slice's dispatch (8192 tokens into 8 x 1280 slots, H 768) and combine
+   (scaled by gate * kept in f32) in f32 and bf16, with routing from a
+   seeded skewed router (tokens overflow, slots stay empty), and an odd
+   case (T 53, E 4, C 6, H 256) through ``moe_dispatch`` / ``moe_combine``
+   with ``use_kernel=True``; dropped tokens and empty slots exactly zero;
+   two planted faults (the scale ignored, ``kept`` ignored) must be
+   rejected; timed beside ``torch.index_select`` (combine: index_select
+   and a multiply, two calls) and the bound;
+12. (tune) the autotuner's trial launches of the chunk kernel (row 10),
+   with ``MXTPU_AUTOTUNE_CACHE`` in a temporary directory: a cold
+   ``tune("fused_optimizer", (n,), "float32")`` for the MoE layer's
+   parameters (37.8 M) and BERT-base's (133.6 M) runs trials that the
+   chunk kernel counts, every candidate block size gives the bits of the
+   static ``CHUNK`` (which k6's tolerances hold to the plain update), a
+   warm call is a hit with 0 trials, and the next ``apply_updates``
+   launches with the tuned chunk;
+13. (moe) ``MoEFeedForward(768, 3072, num_experts=8, capacity_factor=1.25)``
+   trained 20 steps on a seeded (64, 128, 768) batch, loss MSE + 0.01 aux,
+   Adam lr 1e-4, through ``TrainStep`` and through ``gluon.Trainer``
+   (``loss.backward(); trainer.step(8192)`` on the batch's summed loss), in
+   f32 and bf16: the gather launches twice a step (dispatch, combine), the
+   chunk kernel once, nothing else; each loss trajectory is held against
+   the same run on the plain versions (``MXTPU_PALLAS=reference``, per-leaf
+   optimizer) within `moe_tol` and its descent within `moe_descent_tol`,
+   tokens routed apart from the oracle counted per step, the loss falls,
+   and a planted fault (combine without the gate) must depart by more than
+   both limits.  Prints tokens/s, step ms, TFLOP/s
+   of the expert products and the share of the dense peak.
 
 Every count is reset just before a run it reports and read just after.
 The last three stdout lines are the ``nvidia-smi`` card line, the
@@ -889,7 +920,7 @@ def k6_cases(dev):
                   for k, v in hp_vals.items()}
             hp["clip_gradient"] = None
             params, grads, states = _opt_tree(leaves, opt, dev, seed=8)
-            want_p, want_s = fo.apply_updates(opt, params, grads, states, hp)
+            want_p, want_s = fo.kernel_plain(opt, params, grads, states, hp)
             kp = {n: t.clone() for n, t in params.items()}
             ks = {n: tuple(t.clone() for t in st)
                   for n, st in states.items()}
@@ -927,7 +958,7 @@ def k6_cases(dev):
                 fo.apply_updates(opt, kp, grads, ks, hp, use_kernel=True)
 
             def plain_call():
-                fo.apply_updates(opt, params, grads, states, hp)
+                fo.kernel_plain(opt, params, grads, states, hp)
             case["device_ms"], by_name = profile_ms(kernel_call)
             case["kernel_device_ms"] = {k: v for k, v in by_name.items()
                                         if "kernel" in k}
@@ -1002,6 +1033,19 @@ def _layernorm_as_rmsnorm(x, gamma, beta, eps):
                             x.device.type == "cuda")
 
 
+def kernel_math_lamb():
+    """`LAMB` whose per-leaf rule keeps the trust ratio in f32 — the
+    kernels' math, `ops.fused_optimizer.kernel_plain`'s — for the oracle
+    step, which runs the per-leaf route."""
+    from mxnet_tpu_torch import optimizer as topt
+
+    class KernelMathLAMB(topt.LAMB):
+        def _rule(self, w, g, s, hp):
+            return super()._rule(w, g, s, {k: v for k, v in hp.items()
+                                           if k != "stored_dtype"})
+    return KernelMathLAMB
+
+
 def bert_train_step(dev, dtype, plain=False, opt="Adam", route="auto",
                     fault=None):
     """``bench.py``'s pretraining step: full-width BERT-base (seed 0)
@@ -1014,7 +1058,10 @@ def bert_train_step(dev, dtype, plain=False, opt="Adam", route="auto",
     `multi_head_attention_reference`, the loss is
     `softmax_cross_entropy_reference`, on the kernel route every LayerNorm
     swaps in `fused_layer_norm_reference` (the fused kernel's plain
-    version) and the optimizer takes its per-leaf plain version.  `fault`
+    version) and the optimizer takes its per-leaf plain version (for LAMB
+    with the trust ratio in f32, as the kernels keep it: `KernelMathLAMB`;
+    the reference route rounds it to a bf16 weight's dtype, as JAX's
+    does).  `fault`
     plants one of `TRAIN_FAULTS` in a kernel-route Adam step: the chunk
     kernel's AdamW rule with ``correct_bias=False`` and no weight decay,
     or every LayerNorm on the norm kernel's RMS branch."""
@@ -1047,6 +1094,8 @@ def bert_train_step(dev, dtype, plain=False, opt="Adam", route="auto",
                 m.norm = fused_layer_norm_reference
         xent = softmax_cross_entropy_reference
     optimizer = getattr(topt, opt)(learning_rate=OPT_LR[opt])
+    if plain and opt == "LAMB":
+        optimizer = kernel_math_lamb()(learning_rate=OPT_LR[opt])
     if fault == "adam_without_bias_correction":
         optimizer = topt.AdamW(learning_rate=OPT_LR[opt], correct_bias=False)
     elif fault == "layernorm_as_rmsnorm":
@@ -1186,6 +1235,459 @@ def run_train(dev, results, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the MoE row gather against its plain version
+# ---------------------------------------------------------------------------
+
+MOE_H, MOE_I, MOE_E, MOE_CF = 768, 3072, 8, 1.25   # switch-base-8's widths
+MOE_B, MOE_L = 64, 128                             # bench.py's batch
+# (dtype, tokens, experts, hidden, capacity factor): the slice's shapes,
+# and an odd one (capacity int(0.46 * 53 / 4) = 6) through the wrappers
+K7_CASES = (("float32", 8192, 8, 768, 1.25), ("bfloat16", 8192, 8, 768, 1.25),
+            ("float32", 53, 4, 256, 0.46))
+
+
+def skewed_routing(dev, T, E, H, cf, seed):
+    """Seeded tokens (T, H) and a router whose row e is scaled by 1 +
+    0.25 e, routed by the layer's own `route`: later experts draw more
+    tokens than their capacity, earlier ones leave slots empty."""
+    import torch
+    from mxnet_tpu_torch.parallel.moe import route
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(T, H, generator=g)
+    rw = torch.randn(E, H, generator=g) / H ** 0.5
+    rw = rw * (1.0 + 0.25 * torch.arange(E, dtype=torch.float32))[:, None]
+    expert, gate, pos, kept, cap, _ = route(x.to(dev), rw.to(dev), cf)
+    return x, expert, gate, pos, kept, cap
+
+
+def _faults_caught(md, down, expert, pos, kept, gate, E, C, want):
+    """Planted faults of the combine launched on the card, each compared
+    with the plain version as a sound result is: the scale ignored, and
+    ``kept`` ignored (dropped tokens read their expert's slot 0 at their
+    gate).  Returns {fault: rejected}."""
+    import torch
+    slot, _ = md.combine_index(expert, pos, kept, gate, E, C)
+    no_kept = (expert.to(torch.int32) * C + pos).to(torch.int32)
+    bad = {"scale_ignored": md.gather_rows(down, slot, None,
+                                           counter="moe_combine"),
+           "kept_ignored": md.gather_rows(down, no_kept, gate.float(),
+                                          counter="moe_combine")}
+    return {k: not torch.equal(v, want) for k, v in bad.items()}
+
+
+def k7_cases(dev):
+    """The row gather at the slice's shapes and an odd one: bit equality
+    with `gather_rows_plain`, zero rows, planted faults, times."""
+    import torch
+    from mxnet_tpu_torch.ops import moe_dispatch as md
+
+    out = []
+    for dtype, T, E, H, cf in K7_CASES:
+        dt = getattr(torch, dtype)
+        x, expert, gate, pos, kept, C = skewed_routing(dev, T, E, H, cf,
+                                                       seed=11)
+        x = x.to(dev, dt)
+        g = torch.Generator().manual_seed(12)
+        down = torch.randn(E * C, H, generator=g).to(dev, dt)
+        inv = md.dispatch_index(expert, pos, kept, E, C)
+        slot, scale = md.combine_index(expert, pos, kept, gate, E, C)
+        got = {"dispatch": md.gather_rows(x, inv, counter="moe_dispatch"),
+               "combine": md.gather_rows(down, slot, scale,
+                                         counter="moe_combine")}
+        want = {"dispatch": md.gather_rows_plain(x, inv),
+                "combine": md.gather_rows_plain(down, slot, scale)}
+        if T < 1000:      # the odd case through the public wrappers
+            got["dispatch"] = md.moe_dispatch(
+                x, expert, pos, kept, E, C, use_kernel=True).reshape(-1, H)
+            got["combine"] = md.moe_combine(
+                down.reshape(E, C, H), expert, pos, kept, gate,
+                use_kernel=True)
+        torch.cuda.synchronize()
+        empty = inv == T
+        zero = {"dispatch": empty, "combine": ~kept}
+        n_kept = int(kept.sum())
+        controls = _faults_caught(md, down, expert, pos, kept, gate, E, C,
+                                  want["combine"])
+        xz = torch.cat([x, x.new_zeros(1, H)])
+        dz = torch.cat([down, down.new_zeros(1, H)])
+        inv64, slot64, scale_dt = inv.long(), slot.long(), scale.to(dt)
+        item = x.element_size()
+        for op in ("dispatch", "combine"):
+            a, b = got[op], want[op]
+            case = dict(dtype=dtype, op=op, T=T, E=E, C=C, H=H,
+                        kept=n_kept, dropped=T - n_kept,
+                        empty_slots=int(empty.sum()),
+                        bit_equal=bool(torch.equal(a, b)),
+                        zero_rows_exact=not bool(a[zero[op]].any()),
+                        max_abs_err=float((a.float() - b.float()).abs().max()))
+            case["ok"] = case["bit_equal"] and case["zero_rows_exact"]
+            if T > 1000:    # the slice's shapes overflow and leave slots empty
+                case["ok"] = case["ok"] and case["dropped"] > 0 and \
+                    case["empty_slots"] > 0
+            if op == "combine":
+                case["controls_caught"] = controls
+                case["ok"] = case["ok"] and all(controls.values())
+                case["ms"] = time_ms(lambda: md.gather_rows(
+                    down, slot, scale, counter="moe_combine"))
+                case["plain_ms"] = time_ms(lambda: md.gather_rows_plain(
+                    down, slot, scale))
+                # two calls: no one library call gathers and scales
+                case["library_ms"] = time_ms(lambda: torch.index_select(
+                    dz, 0, slot64) * scale_dt[:, None])
+                case["library_calls"] = 2
+                nbytes = n_kept * H * item + T * H * item + 8 * T
+                flops = T * H
+            else:
+                case["ms"] = time_ms(lambda: md.gather_rows(
+                    x, inv, counter="moe_dispatch"))
+                case["plain_ms"] = time_ms(lambda: md.gather_rows_plain(
+                    x, inv))
+                case["library_ms"] = time_ms(lambda: torch.index_select(
+                    xz, 0, inv64))
+                case["library_calls"] = 1
+                nbytes = n_kept * H * item + E * C * H * item + 4 * E * C
+                flops = 0
+            case["bound_ms"], case["bound_by"] = bound(nbytes, flops,
+                                                       "float32")
+            out.append(case)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the autotuner's trial launches of the chunk kernel (row 10)
+# ---------------------------------------------------------------------------
+
+def moe_param_count():
+    return MOE_E * MOE_H + 2 * MOE_E * MOE_I * MOE_H
+
+
+def run_tune(dev, results, card):
+    """Cold and warm ``tune("fused_optimizer", (n,), "float32")`` for the
+    MoE layer's and BERT-base's f32 parameter counts, in a temporary
+    cache; every candidate's bits against ``CHUNK``'s; the next launch's
+    chunk.  The tuned configs stay in this process's memory, so the MoE
+    runs that follow launch with them."""
+    import tempfile
+    import torch
+    from mxnet_tpu_torch import kernels, optimizer as topt
+    from mxnet_tpu_torch.ops import autotune as at
+    from mxnet_tpu_torch.ops import fused_optimizer as fo
+
+    bert_n = sum(math.prod(s) for _, s, _ in bert_leaves("float32"))
+    old = os.environ.get("MXTPU_AUTOTUNE_CACHE")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["MXTPU_AUTOTUNE_CACHE"] = tmp
+        at.clear_memory_cache()
+        try:
+            for label, n in (("moe_f32", moe_param_count()),
+                             ("bert_f32", bert_n)):
+                results["tune"][label] = st = tune_case(dev, n, at, fo, topt,
+                                                        kernels, torch)
+                print(f"[tune {label}] {json.dumps(st)}", flush=True)
+                for c, ms in sorted(st["timings_ms"].items()):
+                    print(f"[tune {label}] chunk {c}: {ms:.4f} ms (host "
+                          f"clock, synchronised), bound {st['bound_ms']:.4f}"
+                          f" ms ({st['bound_by']}) on {card}", flush=True)
+                if not st["ok"]:
+                    raise AssertionError(f"tune {label}: {st}")
+        finally:
+            if old is None:
+                os.environ.pop("MXTPU_AUTOTUNE_CACHE", None)
+            else:
+                os.environ["MXTPU_AUTOTUNE_CACHE"] = old
+
+
+def tune_case(dev, n, at, fo, topt, kernels, torch):
+    kernels.reset_launch_counts()
+    cold = at.tune("fused_optimizer", (n,), "float32")
+    trial_launches = kernels.launch_counts()["fused_optimizer_chunk"]
+    warm = at.tune("fused_optimizer", (n,), "float32")
+    warm_launches = kernels.launch_counts()["fused_optimizer_chunk"] - \
+        trial_launches
+    # bits at every candidate against CHUNK's, CHUNK's against the plain
+    opt = topt.Adam(learning_rate=1e-3)
+    g = torch.Generator(device=dev).manual_seed(13)
+    w0 = {"w": 0.02 * torch.randn(n, generator=g, device=dev)}
+    gr = {"w": 1e-3 * torch.randn(n, generator=g, device=dev)}
+    s0 = {"w": (1e-4 * torch.randn(n, generator=g, device=dev),
+                1e-8 * torch.rand(n, generator=g, device=dev))}
+    hp = {k: torch.full((), v, device=dev) for k, v in (
+        ("lr", 1e-3), ("wd", 0.01), ("rescale_grad", 1.0), ("t", 3.0))}
+    hp["clip_gradient"] = None
+    keep, hptr = fo._device_hp(hp, None, dev)
+
+    def at_chunk(chunk):
+        p = {"w": w0["w"].clone()}
+        s = {"w": tuple(t.clone() for t in s0["w"])}
+        fo._chunk_cuda(opt, 0, ["w"], p, gr, s, hptr, dev, chunk)
+        return p, s
+    ref_p, ref_s = at_chunk(fo.CHUNK)
+    want_p, want_s = fo.kernel_plain(opt, w0, gr, s0, hp)
+    err, _, plain_ok = _opt_err(ref_p, ref_s, want_p, want_s, w0)
+    del want_p, want_s
+    equal = {}
+    for c in fo._candidates((n,), "float32"):
+        p, s = at_chunk(c.chunk)
+        equal[c.chunk] = bool(torch.equal(p["w"], ref_p["w"]) and all(
+            torch.equal(a, b) for a, b in zip(s["w"], ref_s["w"])))
+        del p, s
+    # the next apply_updates launches with the tuned chunk
+    kernels.reset_launch_counts()
+    fo.apply_updates(opt, {"w": ref_p["w"]}, gr, ref_s, hp, use_kernel=True)
+    torch.cuda.synchronize()
+    next_chunk = fo.last_chunk["float32"]
+    next_launches = kernels.launch_counts()["fused_optimizer_chunk"]
+    bound_ms, bound_by = _opt_bound("adam", w0)
+    # the tuned chunk's launch (CUDA events, L2 flushed) beside the plain
+    # version and torch's one-call fused Adam over the same leaf
+    tp, ts = ref_p, ref_s
+    chunk = cold.config.chunk
+    ms = time_ms(lambda: fo._chunk_cuda(opt, 0, ["w"], tp, gr, ts, hptr,
+                                        dev, chunk), iters=10, warm=2)
+    plain_ms = time_ms(lambda: fo.kernel_plain(opt, tp, gr, ts, hp),
+                       iters=5, warm=1)
+    steps = [torch.full((), 3.0, device=dev)]
+    library_ms = time_ms(lambda: torch._fused_adam_(
+        [tp["w"]], [gr["w"]], [ts["w"][0]], [ts["w"][1]], [], steps,
+        lr=1e-3, beta1=0.9, beta2=0.999, weight_decay=0.01, eps=1e-8,
+        amsgrad=False, maximize=False), iters=10, warm=2)
+    del keep, ref_p, ref_s, w0, gr, s0, tp, ts
+    torch.cuda.empty_cache()
+    per_trial = 1 + 5          # time_callable's warmup and runs
+    st = dict(elements=n, bucket=at.shape_bucket((n,))[0],
+              config=dict(cold.config), cold_trials=cold.trials,
+              cold_search_ms=cold.search_ms,
+              trial_launches=trial_launches,
+              timings_ms={str(dict(k)["chunk"]): v
+                          for k, v in cold.timings_ms.items()},
+              warm_hit=warm.cache_hit, warm_trials=warm.trials,
+              warm_launches=warm_launches,
+              candidates_bit_equal_to_chunk=equal,
+              chunk_vs_plain_err=err, chunk_vs_plain_ok=plain_ok,
+              next_launch_chunk=next_chunk,
+              next_launches=next_launches, ms=ms, plain_ms=plain_ms,
+              library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+    st["ok"] = (cold.trials > 0 and trial_launches == per_trial * cold.trials
+                and warm.cache_hit and warm.trials == 0
+                and warm_launches == 0 and all(equal.values()) and plain_ok
+                and next_chunk == cold.config.chunk and next_launches == 1)
+    return st
+
+
+# ---------------------------------------------------------------------------
+# phase 13: Switch-MoE training at full width
+# ---------------------------------------------------------------------------
+
+# (weights, entry point): TrainStep (f32 optimizer state) and the gluon
+# Trainer (state in the weights' dtype: the chunk kernel's bf16/bf16
+# instance for a bf16 layer)
+MOE_RUNS = (("float32", "step"), ("bfloat16", "step"),
+            ("float32", "trainer"), ("bfloat16", "trainer"))
+MOE_FAULTS = ("combine_without_gate",)
+
+
+def moe_tol(dtype):
+    """Loss trajectory limit, relative, kernel route vs its plain oracle.
+    f32: the gathers are copies and one f32 multiply on both routes and
+    the chunk kernel is Adam's math, so the runs differ by f32 rounding of
+    the update alone (fused multiply-adds) and the routing flips only at
+    near ties, each token 1/8192 of the loss: 1e-4, `traj_tol`'s f32 limit.
+    bf16: the kernel's combine multiplies in f32 and casts once, the
+    reference in bf16 (two roundings, as in JAX), so rows differ by a bf16
+    step and the difference spreads through the updates: 1e-3,
+    `traj_tol`'s bf16 kernel-route limit.  The planted fault shows how far
+    above it a wrong kernel lands."""
+    return 1e-3 if dtype == "bfloat16" else 1e-4
+
+
+def descent_dev(losses, oracle):
+    """Largest departure of a run's descent (loss minus its first loss)
+    from the oracle's, over the oracle's whole descent: at lr 1e-4 the MoE
+    loss falls by about 1e-3 of itself in 20 steps, so a relative loss
+    limit alone could not see a wrong update."""
+    span = abs(oracle[0] - oracle[-1])
+    return max(abs((a - losses[0]) - (b - oracle[0]))
+               for a, b in zip(losses, oracle)) / span
+
+
+def moe_descent_tol(dtype):
+    """`descent_dev` limit: f32 1e-2 (the runs differ by f32 rounding of
+    the update alone), bf16 1e-1 (a bf16 step in some combine rows, each
+    step)."""
+    return 1e-1 if dtype == "bfloat16" else 1e-2
+
+
+def moe_batch(dev, dtype, seed=21):
+    """bench.py's 64 x 128 tokens at hidden 768: seeded x and target."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    dt = getattr(torch, dtype)
+    return tuple(torch.randn(MOE_B, MOE_L, MOE_H, generator=g).to(dev, dt)
+                 for _ in range(2))
+
+
+def moe_loss(out, x, y):
+    """MSE to the target plus 0.01 x the load-balance loss, in f32."""
+    return ((out[0].float() - y.float()) ** 2).mean() + 0.01 * out[1]
+
+
+def moe_run(dev, dtype, entry, plain, batch, fault=None):
+    """`TRAIN_STEPS` steps of the MoE layer (seed 0) with Adam lr 1e-4
+    through `entry` under ``MXTPU_PALLAS=auto`` (or ``reference`` for the
+    plain oracle); returns its stats, the step time and the experts the
+    router chose at each step (recorded where `switch_moe` routes)."""
+    import torch
+    from mxnet_tpu_torch import kernels
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.ops import moe_dispatch as md
+    from mxnet_tpu_torch.optimizer import Adam
+    from mxnet_tpu_torch.parallel import MoEFeedForward, TrainStep
+    from mxnet_tpu_torch.parallel import moe as moe_mod
+
+    experts = []
+    route0, combine_index0 = moe_mod.route, md.combine_index
+
+    def recording_route(*a, **k):
+        r = route0(*a, **k)
+        experts.append(r[0])
+        return r
+
+    def gateless(expert, pos, kept, gate, e, c):
+        slot, _ = combine_index0(expert, pos, kept, gate, e, c)
+        return slot, kept.float()
+
+    x, y = batch
+    tokens = x.shape[0] * x.shape[1]
+    mode = "reference" if plain else "auto"
+    moe_mod.route = recording_route
+    if fault == "combine_without_gate":
+        md.combine_index = gateless
+    try:
+        with pallas_mode(mode):
+            layer = MoEFeedForward(MOE_H, MOE_I, num_experts=MOE_E,
+                                   capacity_factor=MOE_CF, dtype=dtype,
+                                   device=dev, seed=0)
+            opt = Adam(learning_rate=1e-4)
+            if entry == "step":
+                step = TrainStep(layer, opt, moe_loss, num_model_args=1)
+                step.warmup(x, y)
+                fused = step._fused_opt_kernel
+            else:
+                trainer = Trainer(dict(layer.named_parameters()), opt)
+                fused = None
+
+            def one():
+                if entry == "step":
+                    return step.dispatch(x, y).loss
+                loss = moe_loss(layer(x), x, y)
+                # MXNet's convention: the batch's summed loss, which
+                # step(batch_size) rescales by 1 / batch_size
+                (loss * tokens).backward()
+                trainer.step(tokens)
+                return loss.detach()
+            experts.clear()
+            kernels.reset_launch_counts()
+            losses = []
+            for i in range(TRAIN_STEPS):
+                losses.append(one())
+                if i == 1:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+            torch.cuda.synchronize()
+            step_s = (time.perf_counter() - t0) / (TRAIN_STEPS - 2)
+            launches = kernels.launch_counts()
+    finally:
+        moe_mod.route, md.combine_index = route0, combine_index0
+    from mxnet_tpu_torch.ops import fused_optimizer as fo
+    return dict(losses=[float(v) for v in losses], step_ms=step_s * 1e3,
+                launches=launches, fused_opt_kernel=fused,
+                chunk=fo.last_chunk.get(dtype),
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9), \
+        step_s, [e.clone() for e in experts]
+
+
+def moe_flops_per_step(tokens):
+    """The expert products: up and down, 2 E C H I operations each
+    forward, three times that a training step."""
+    cap = int(MOE_CF * tokens / MOE_E)
+    return 3 * 2 * 2 * MOE_E * cap * MOE_H * MOE_I
+
+
+def run_moe(dev, results, card):
+    import torch
+    flops = moe_flops_per_step(MOE_B * MOE_L)
+    tokens = MOE_B * MOE_L
+    for dtype, entry in MOE_RUNS:
+        key = f"{dtype}_{entry}"
+        batch = moe_batch(dev, dtype)
+        torch.cuda.reset_peak_memory_stats()
+        st, step_s, ex = moe_run(dev, dtype, entry, False, batch)
+        torch.cuda.empty_cache()
+        pst, pstep_s, pex = moe_run(dev, dtype, entry, True, batch)
+        torch.cuda.empty_cache()
+        want = {k: 0 for k in st["launches"]}
+        want.update(moe_dispatch=TRAIN_STEPS, moe_combine=TRAIN_STEPS,
+                    fused_optimizer_chunk=TRAIN_STEPS)
+        if st["launches"] != want:
+            raise AssertionError(f"moe {key}: kernel launches "
+                                 f"{st['launches']}, want {want}")
+        if any(pst["launches"].values()):
+            raise AssertionError(f"moe {key}: the plain run launched "
+                                 f"kernels {pst['launches']}")
+        ls = st["losses"]
+        if not all(math.isfinite(v) for v in ls):
+            raise AssertionError(f"moe {key}: non-finite loss {ls}")
+        dev_rel = traj_dev(ls, pst["losses"])
+        desc = descent_dev(ls, pst["losses"])
+        peak = PEAK[dtype]
+        st.update(plain_losses=pst["losses"], plain_step_ms=pst["step_ms"],
+                  trajectory_rel_dev=dev_rel, trajectory_tol=moe_tol(dtype),
+                  descent_dev=desc, descent_tol=moe_descent_tol(dtype),
+                  tokens_routed_apart=[int((a != b).sum())
+                                       for a, b in zip(ex, pex)],
+                  tokens_per_s=tokens / step_s,
+                  plain_tokens_per_s=tokens / pstep_s,
+                  flops_per_step=flops, tflops=flops / step_s / 1e12,
+                  peak_share=flops / step_s / peak, peak_flops=peak)
+        results["moe"][key] = st
+        print(f"[moe {key}] {json.dumps(st)}", flush=True)
+        print(f"[moe {key}] {tokens / step_s:.1f} tokens/s, "
+              f"{st['step_ms']:.3f} ms/step, {st['tflops']:.2f} TFLOP/s = "
+              f"{100 * st['peak_share']:.2f}% of the dense {dtype} peak "
+              f"({peak / 1e12:.0f} TFLOP/s) of {card}", flush=True)
+        tol = moe_tol(dtype)
+        if dev_rel > tol or desc > moe_descent_tol(dtype):
+            raise AssertionError(
+                f"moe {key}: loss trajectory departs from the plain path's "
+                f"by {dev_rel:.3g} (limit {tol}), its descent by {desc:.3g} "
+                f"(limit {moe_descent_tol(dtype)}) ({ls} vs "
+                f"{pst['losses']})")
+        if not ls[-1] < ls[0]:
+            raise AssertionError(f"moe {key}: loss did not fall {ls}")
+
+    # the control: a combine that ignores the gate, read against the f32
+    # TrainStep run's oracle and limit
+    oracle = results["moe"]["float32_step"]["plain_losses"]
+    tol = moe_tol("float32")
+    for fault in MOE_FAULTS:
+        st, _, _ = moe_run(dev, "float32", "step", False,
+                           moe_batch(dev, "float32"), fault)
+        torch.cuda.empty_cache()
+        dev_rel = traj_dev(st["losses"], oracle)
+        desc = descent_dev(st["losses"], oracle)
+        results["moe_controls"][fault] = c = dict(
+            losses=st["losses"], trajectory_rel_dev=dev_rel,
+            trajectory_tol=tol, over_tol=dev_rel / tol, descent_dev=desc,
+            descent_tol=moe_descent_tol("float32"),
+            caught=dev_rel > tol and desc > moe_descent_tol("float32"))
+        print(f"[moe control {fault}] {json.dumps(c)}", flush=True)
+        if not c["caught"]:
+            raise AssertionError(
+                f"moe control {fault}: the planted fault departs from the "
+                f"oracle by only {dev_rel:.3g} <= {tol}")
+
+
+# ---------------------------------------------------------------------------
 
 def kernel_entries(results):
     """One entry per ported kernel for the ``kernels`` line: the
@@ -1196,10 +1698,12 @@ def kernel_entries(results):
     Adam over the f32 BERT-base model; LAMB: the bf16 model, each phase's
     device time over all tensors, beside the plain LAMB update (both
     phases) and no library call) and the largest error over every case.
-    Launches are the counts of the main-path runs (serving for K1/K2, the
-    training runs for the others)."""
-    k1, k2, k3, k4, k5, k6 = (results[k] for k in ("k1", "k2", "k3", "k4",
-                                                    "k5", "k6"))
+    The MoE gather: dispatch and combine at the slice's f32 shapes (8192
+    tokens, 8 x 1280 slots, H 768).  Launches are the counts of the
+    main-path runs (serving for K1/K2, the BERT and MoE training runs for
+    the others)."""
+    k1, k2, k3, k4, k5, k6, k7 = (results[k] for k in (
+        "k1", "k2", "k3", "k4", "k5", "k6", "k7"))
     rep1 = next(c for c in k1 if c["dtype"] == "float32" and c["C"] == 1
                 and c["Hkv"] == 12 and c["window"] is None)
     rep2 = next(c for c in k2 if c["bits"] == 8 and c["dtype"] == "float32"
@@ -1214,7 +1718,12 @@ def kernel_entries(results):
     rep7 = next(c for c in chunk if c["dtype"] == "float32" and
                 c["rule"] == "adam")
     rep8 = next(c for c in lamb if c["dtype"] == "bfloat16")
-    e2e, train = results["e2e"], results["train"]
+    rep_d = next(c for c in k7 if c["dtype"] == "float32" and
+                 c["T"] == 8192 and c["op"] == "dispatch")
+    rep_c = next(c for c in k7 if c["dtype"] == "float32" and
+                 c["T"] == 8192 and c["op"] == "combine")
+    e2e = results["e2e"]
+    train = dict(results["train"], **results["moe"])
     k1_launch = e2e.get("float32", {}).get("launches", {}).get(
         "ragged_paged_attention", 0)
     k2_launch = sum(e2e.get(k, {}).get("launches", {}).get(
@@ -1268,6 +1777,14 @@ def kernel_entries(results):
         entry("lamb_phase_b", fo_src, f"{fo_py}:333",
               train_launches("lamb_phase_b"), lamb, rep8,
               ms="phase_b_ms"),
+        entry("moe_dispatch", "mxnet_tpu_torch/csrc/moe_dispatch.cu",
+              "mxnet_tpu/ops/pallas/moe_dispatch.py:139",
+              train_launches("moe_dispatch"),
+              [c for c in k7 if c["op"] == "dispatch"], rep_d),
+        entry("moe_combine", "mxnet_tpu_torch/csrc/moe_dispatch.cu",
+              "mxnet_tpu/ops/pallas/moe_dispatch.py:139",
+              train_launches("moe_combine"),
+              [c for c in k7 if c["op"] == "combine"], rep_c),
     ]
 
 
@@ -1300,7 +1817,8 @@ def main(argv=None) -> int:
 
     results = {"card": card, "device": torch.cuda.get_device_name(0),
                "torch": torch.__version__, "cuda": torch.version.cuda,
-               "e2e": {}, "train": {}, "train_controls": {}}
+               "e2e": {}, "train": {}, "train_controls": {}, "tune": {},
+               "moe": {}, "moe_controls": {}}
     failed = []
     t0 = time.perf_counter()
     # build from the checkout's sources, never from a leftover library
@@ -1316,7 +1834,8 @@ def main(argv=None) -> int:
         return 1
 
     for name, fn in (("k1", k1_cases), ("k2", k2_cases), ("k3", k3_cases),
-                     ("k4", k4_cases), ("k5", k5_cases), ("k6", k6_cases)):
+                     ("k4", k4_cases), ("k5", k5_cases), ("k6", k6_cases),
+                     ("k7", k7_cases)):
         try:
             results[name] = fn(dev)
             for c in results[name]:
@@ -1338,6 +1857,12 @@ def main(argv=None) -> int:
     except Exception:
         traceback.print_exc()
         failed.append("train")
+    for name, fn in (("tune", run_tune), ("moe", run_moe)):
+        try:
+            fn(dev, results, card)
+        except Exception:
+            traceback.print_exc()
+            failed.append(name)
     results["seconds"] = time.perf_counter() - t0
     results["failed"] = failed
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -27,8 +27,12 @@
 //          is 0)
 //   LAMB B w -= lr * ratio * r
 // with the order of operations of the rules in mxnet_tpu/optimizer (adam.py,
-// sgd.py, lamb.py).  lr, wd, rescale_grad, t, clip_gradient and the skip
-// flag are read from device memory — no host sync per step.  With skip
+// sgd.py, lamb.py).  The decay of a stored state (b1*m, b2*v, mu*mom) is a
+// Python float times the state in those rules, a weakly typed scalar that
+// JAX rounds to the state's type before the product, which rounds to it
+// too: a no-op for f32 state, rnd(rnd(b1) * m) for bf16 state.  lr, wd,
+// rescale_grad, t, clip_gradient and the skip flag are read from device
+// memory — no host sync per step.  With skip
 // set, every weight and state element is written back as the bits it was
 // read as (a select, so a NaN gradient never reaches an output).
 //
@@ -64,6 +68,10 @@ template <> __device__ __forceinline__ float from_f<float>(float x) {
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
     float x) {
   return __float2bfloat16(x);  // round to nearest even
+}
+// x rounded to S and widened back (identity for f32)
+template <typename S> __device__ __forceinline__ float rnd(float x) {
+  return to_f(from_f<S>(x));
 }
 
 // Device-resident hyperparameters (f32 scalars; clip and skip may be null).
@@ -140,6 +148,8 @@ chunk_kernel(const long long* __restrict__ leaves,
     const float t = *hy.t;
     lr_t = p.lr * sqrtf(1.f - powf(c.b2, t)) / (1.f - powf(c.b1, t));
   }
+  const float b1s = rnd<S>(c.b1), b2s = rnd<S>(c.b2),
+              mus = rnd<S>(c.momentum);
   const S zero = from_f<S>(0.f);
   for (long long i0 = start + threadIdx.x; i0 < end;
        i0 += (long long)ILP * THREADS) {
@@ -166,13 +176,13 @@ chunk_kernel(const long long* __restrict__ leaves,
       switch (rule) {
         case ADAM:
           gf = gf + p.wd * wf;
-          m = c.b1 * m + c.omb1 * gf;
-          v = c.b2 * v + c.omb2 * gf * gf;
+          m = rnd<S>(b1s * m) + c.omb1 * gf;
+          v = rnd<S>(b2s * v) + c.omb2 * gf * gf;
           nw = wf - lr_t * m / (sqrtf(v) + c.eps);
           break;
         case ADAMW:
-          m = c.b1 * m + c.omb1 * gf;
-          v = c.b2 * v + c.omb2 * gf * gf;
+          m = rnd<S>(b1s * m) + c.omb1 * gf;
+          v = rnd<S>(b2s * v) + c.omb2 * gf * gf;
           nw = wf - lr_t * m / (sqrtf(v) + c.eps) - p.lr * p.wd * wf;
           break;
         case SGD:
@@ -181,7 +191,7 @@ chunk_kernel(const long long* __restrict__ leaves,
           break;
         default:  // SGD_MOM
           gf = gf + p.wd * wf;
-          m = c.momentum * m - p.lr * gf;
+          m = rnd<S>(mus * m) - p.lr * gf;
           nw = wf + m;
       }
       w[i] = p.skip ? wr[k] : from_f<W>(nw);
@@ -211,6 +221,7 @@ lamb_a_kernel(const W* __restrict__ w, const W* __restrict__ g,
     bc1 = 1.f - powf(c.b1, t);
     bc2 = 1.f - powf(c.b2, t);
   }
+  const float b1s = rnd<S>(c.b1), b2s = rnd<S>(c.b2);
   float ww = 0.f, rr = 0.f;
   const long long stride = (long long)gridDim.x * THREADS;
   for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < n;
@@ -218,8 +229,8 @@ lamb_a_kernel(const W* __restrict__ w, const W* __restrict__ g,
     const S mo = m[i], vo = v[i];
     const float wf = to_f(w[i]);
     const float gf = pre(to_f(g[i]), p);
-    const float nm = c.b1 * to_f(mo) + c.omb1 * gf;
-    const float nv = c.b2 * to_f(vo) + c.omb2 * gf * gf;
+    const float nm = rnd<S>(b1s * to_f(mo)) + c.omb1 * gf;
+    const float nv = rnd<S>(b2s * to_f(vo)) + c.omb2 * gf * gf;
     const float mhat = c.flag ? nm / bc1 : nm;
     const float vhat = c.flag ? nv / bc2 : nv;
     const float ri = mhat / (sqrtf(vhat) + c.eps) + p.wd * wf;

@@ -48,7 +48,9 @@ LAUNCHES: Dict[str, int] = {"ragged_paged_attention": 0,
                             "fused_norm": 0,
                             "fused_optimizer_chunk": 0,
                             "lamb_phase_a": 0,
-                            "lamb_phase_b": 0}
+                            "lamb_phase_b": 0,
+                            "moe_dispatch": 0,
+                            "moe_combine": 0}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

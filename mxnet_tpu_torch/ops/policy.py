@@ -4,8 +4,9 @@
 One environment variable, ``MXTPU_PALLAS``, with the JAX package's
 spellings, decides whether the ops whose JAX counterparts consult
 ``kernel_active()`` — the fused LayerNorm/RMSNorm (`ops.fused_norm`), the
-multi-tensor optimizer (`ops.fused_optimizer`) and the dequant-matmul
-(`ops.quantized_matmul`) — take their kernel route:
+multi-tensor optimizer (`ops.fused_optimizer`), the dequant-matmul
+(`ops.quantized_matmul`) and the MoE dispatch and combine
+(`ops.moe_dispatch`) — take their kernel route:
 
 - ``auto`` (default): the kernel route exactly when the tensor is on a
   CUDA card, the plain route on the CPU;

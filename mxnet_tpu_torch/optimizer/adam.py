@@ -6,7 +6,7 @@ import math
 
 import torch
 
-from .optimizer import Optimizer, register
+from .optimizer import Optimizer, register, weak
 
 
 def _sqrt(x):
@@ -31,8 +31,8 @@ class Adam(Optimizer):
         g = self._preprocess_grad(g, hp) + hp["wd"] * w
         m, v = s
         t = hp["t"]
-        m = self.beta1 * m + (1 - self.beta1) * g
-        v = self.beta2 * v + (1 - self.beta2) * g * g
+        m = weak(self.beta1, m) * m + (1 - self.beta1) * g
+        v = weak(self.beta2, v) * v + (1 - self.beta2) * g * g
         lr = hp["lr"] * _sqrt(1 - self.beta2 ** t) / (1 - self.beta1 ** t)
         w = w - lr * m / (torch.sqrt(v) + self.epsilon)
         return w, (m, v)
@@ -57,8 +57,8 @@ class AdamW(Optimizer):
         g = self._preprocess_grad(g, hp)
         m, v = s
         t = hp["t"]
-        m = self.beta1 * m + (1 - self.beta1) * g
-        v = self.beta2 * v + (1 - self.beta2) * g * g
+        m = weak(self.beta1, m) * m + (1 - self.beta1) * g
+        v = weak(self.beta2, v) * v + (1 - self.beta2) * g * g
         lr = hp["lr"]
         if self.correct_bias:
             lr = lr * _sqrt(1 - self.beta2 ** t) / (1 - self.beta1 ** t)

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from .optimizer import Optimizer, register
+from .optimizer import Optimizer, register, weak
 
 
 @register
@@ -27,6 +27,6 @@ class SGD(Optimizer):
         g = self._preprocess_grad(g, hp) + hp["wd"] * w
         if self.momentum != 0.0:
             (mom,) = s
-            mom = self.momentum * mom - hp["lr"] * g
+            mom = weak(self.momentum, mom) * mom - hp["lr"] * g
             return w + mom, (mom,)
         return w - hp["lr"] * g, ()

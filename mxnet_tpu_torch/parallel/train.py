@@ -42,7 +42,7 @@ import torch
 from .. import kernels
 from ..base import MXNetError
 from ..models.layers import Dropout
-from ..ops.fused_optimizer import apply_updates, kernel_route
+from ..ops.fused_optimizer import HpScalarCache, apply_updates, kernel_route
 
 __all__ = ["TrainStep", "StepHandle", "make_train_step"]
 
@@ -111,8 +111,7 @@ class TrainStep:
         # its traced program)
         self._fused_opt_kernel = kernel_route(optimizer, self.device)
         self._t = 0
-        self._hp_key = None
-        self._hp_dev = None
+        self._hp = HpScalarCache(self.device)
         self._inflight = collections.deque()
         self.compile_seconds = None
 
@@ -124,27 +123,6 @@ class TrainStep:
                 b = torch.from_numpy(np.ascontiguousarray(b))
             out.append(torch.as_tensor(b, device=self.device))
         return tuple(out)
-
-    def _hp(self):
-        """f32 device scalars, re-uploaded only when the host-side values
-        change; the step count `t` is filled on the device each step."""
-        opt = self.optimizer
-        cg = opt.clip_gradient
-        key = (float(opt.learning_rate), float(opt.wd),
-               float(opt.rescale_grad), None if cg is None else float(cg))
-        if key != self._hp_key:
-            def dev(x):
-                return torch.full((), x, dtype=torch.float32,
-                                  device=self.device)
-            self._hp_dev = {"lr": dev(key[0]), "wd": dev(key[1]),
-                            "rescale_grad": dev(key[2]),
-                            "clip_gradient": None if key[3] is None
-                            else dev(key[3])}
-            self._hp_key = key
-        hp = dict(self._hp_dev)
-        hp["t"] = torch.full((), float(self._t), dtype=torch.float32,
-                             device=self.device)
-        return hp
 
     # -- forward and backward -------------------------------------------------
     def _loss_and_grads(self, batch):
@@ -217,7 +195,7 @@ class TrainStep:
         batch = self._prepare_batch(batch)
         loss, grads = self._compute(batch)
         self._t += 1
-        hp = self._hp()
+        hp = self._hp.get(self.optimizer, self._t)
         live = {n: self.params[n].detach() for n in self.diff_names}
         new_p, self.opt_state = apply_updates(
             self.optimizer, live, grads, self.opt_state, hp,

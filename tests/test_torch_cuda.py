@@ -4,7 +4,9 @@ backward, with padding or per-row bias, causal, dropout, ragged L and
 D up to 128), the streaming cross-entropy (any V, unclamped labels), the
 fused LayerNorm/RMSNorm (any h, with and without residual and beta) and
 the optimizer kernels (the multi-tensor chunk for Adam, AdamW and SGD,
-LAMB phases A and B; f32 and bf16 weights; the skip flag).
+LAMB phases A and B; f32 and bf16 weights; the skip flag; every tunable
+chunk size), the MoE row gather (dispatch and combine, f32 and bf16, with
+sentinel rows) and a two-step MoE `TrainStep` on the card.
 
 Marked ``cuda``: each test skips (with its reason) where no card is
 visible, as on the CPU test machine.  Run them on a machine with an H100
@@ -12,7 +14,9 @@ visible, as on the CPU test machine.  Run them on a machine with an H100
 tests/test_torch_cuda.py -q``.  Tolerances: f32 max-abs
 <= 1e-4 of the output scale (summation order), bf16 <= 2e-2; the optimizer
 kernels at atol 2e-6 on f32 (the JAX kernel test's bound), bf16 weights at
-rtol 2**-7 (one bf16 step at most).
+rtol 2**-7 (one bf16 step at most); the row gather and the chunk kernel
+at different chunk sizes bit for bit (a copy, or one f32 multiply and a
+cast, on both sides).
 """
 import numpy as np
 import pytest
@@ -252,8 +256,7 @@ def test_optimizer_kernels_match_plain(card, name, wdtype):
     hp = {"lr": 0.01, "wd": 0.01, "rescale_grad": 0.5,
           "clip_gradient": 1.0, "t": 3.0}
     hp = {k: torch.tensor(v, device=card) for k, v in hp.items()}
-    want = {n: fo._reference_leaf(opt, params[n], grads[n], states[n], hp,
-                                  None) for n in params}
+    want_p, want_s = fo.kernel_plain(opt, params, grads, states, hp)
     kernels.reset_launch_counts()
     fo.apply_updates(opt, params, grads, states, hp, use_kernel=True)
     torch.cuda.synchronize()
@@ -264,7 +267,7 @@ def test_optimizer_kernels_match_plain(card, name, wdtype):
         groups = 2 if wdtype == torch.bfloat16 else 1
         assert counts["fused_optimizer_chunk"] == groups
     for n in params:
-        w_want, s_want = want[n]
+        w_want, s_want = want_p[n], want_s[n]
         if params[n].dtype == torch.bfloat16:
             torch.testing.assert_close(params[n].float(), w_want.float(),
                                        rtol=2 ** -7, atol=2e-6)
@@ -296,3 +299,126 @@ def test_optimizer_kernels_skip_is_bit_identical(card, name):
         assert torch.equal(params["w"], before[0]) == same
         assert all(torch.equal(a, b) == same
                    for a, b in zip(states["w"], before[1]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,N,H", [(10240, 8193, 768), (53, 24, 256),
+                                   (31, 17, 100)])
+def test_moe_gather_kernel_matches_plain_bit_for_bit(card, dtype, R, N, H):
+    from mxnet_tpu_torch.ops import moe_dispatch as md
+    g = torch.Generator().manual_seed(9)
+    src = torch.randn(N, H, generator=g).to(card, dtype)
+    idx = torch.randint(0, N + 1, (R,), generator=g)   # N is the sentinel
+    idx[:3] = N
+    idx = idx.to(card, torch.int32)
+    scale = torch.rand(R, generator=g).to(card)
+    kernels.reset_launch_counts()
+    a = md.gather_rows(src, idx)
+    b = md.gather_rows(src, idx, scale, counter="moe_combine")
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["moe_dispatch"] == 1
+    assert kernels.launch_counts()["moe_combine"] == 1
+    assert torch.equal(a, md.gather_rows_plain(src, idx))
+    assert torch.equal(b, md.gather_rows_plain(src, idx, scale))
+    assert not a[:3].any() and not b[:3].any()
+    with pytest.raises(MXNetError, match="int32"):
+        md.gather_rows(src, idx.long())
+
+
+def test_tuned_chunks_give_the_same_bits(card):
+    from mxnet_tpu_torch import optimizer as topt
+    from mxnet_tpu_torch.ops import fused_optimizer as fo
+    opt = topt.Adam(learning_rate=1e-3)
+    g = torch.Generator().manual_seed(4)
+    w0 = torch.randn(300_001, generator=g).to(card)
+    gr = torch.randn(300_001, generator=g).to(card)
+    hp = {"lr": 1e-3, "wd": 0.0, "rescale_grad": 1.0, "clip_gradient": None,
+          "t": 1.0}
+    hp = {k: None if v is None else torch.tensor(v, device=card)
+          for k, v in hp.items()}
+    outs = []
+    for chunk in fo._TUNE_CHUNKS:
+        p = {"w": w0.clone()}
+        st = {"w": opt.create_state(w0)}
+        keep, hptr = fo._device_hp(hp, None, w0.device)
+        fo._chunk_cuda(opt, 0, ["w"], p, {"w": gr}, st, hptr, w0.device,
+                       chunk)
+        torch.cuda.synchronize()
+        outs.append((p["w"], st["w"]))
+    for w, s in outs[1:]:
+        assert torch.equal(w, outs[0][0])
+        assert all(torch.equal(a, b) for a, b in zip(s, outs[0][1]))
+
+
+def test_moe_train_step_on_the_card(card):
+    """Two steps of the MoE layer through `TrainStep` on the kernel route:
+    one dispatch and one combine gather and one chunk launch a step, and
+    the losses equal the plain route's within 1e-4."""
+    import os
+    from mxnet_tpu_torch.optimizer import Adam
+    from mxnet_tpu_torch.parallel import MoEFeedForward, TrainStep
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(4, 64, 256, generator=g).to(card)
+    y = torch.randn(4, 64, 256, generator=g).to(card)
+
+    def loss_fn(out, xx, yy):
+        return torch.mean((out[0] - yy) ** 2) + 0.01 * out[1]
+
+    losses = {}
+    for mode in ("auto", "reference"):
+        old = os.environ.get("MXTPU_PALLAS")
+        os.environ["MXTPU_PALLAS"] = mode
+        try:
+            layer = MoEFeedForward(256, 512, 4, device=card, seed=0)
+            step = TrainStep(layer, Adam(learning_rate=1e-3), loss_fn,
+                             num_model_args=1)
+            kernels.reset_launch_counts()
+            losses[mode] = [float(step(x, y)) for _ in range(2)]
+            counts = kernels.launch_counts()
+        finally:
+            if old is None:
+                os.environ.pop("MXTPU_PALLAS")
+            else:
+                os.environ["MXTPU_PALLAS"] = old
+        if mode == "auto":
+            assert counts["moe_dispatch"] == counts["moe_combine"] == 2
+            assert counts["fused_optimizer_chunk"] == 2
+        else:
+            assert not any(counts.values())
+    np.testing.assert_allclose(losses["auto"], losses["reference"],
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["adam", "adamw", "sgd_momentum", "lamb"])
+def test_optimizer_kernels_with_16bit_state_match_plain(card, name):
+    """bf16 weights with bf16 state (the `Trainer`'s state of a bf16
+    model): the decay of the state rounds the scalar and the product to
+    bf16 in the kernel as in the plain version; state and weights within
+    one bf16 step, and atol 2e-6 (as above): the kernel fuses a
+    multiply-add the plain version rounds twice, which can flip a bf16
+    rounding or leave an f32 residual where the plain sum cancels to 0."""
+    from mxnet_tpu_torch import optimizer as topt
+    from mxnet_tpu_torch.ops import fused_optimizer as fo
+    cls, kw = OPT_CASES[name]
+    opt = getattr(topt, cls)(learning_rate=0.01, **kw)
+    g = torch.Generator().manual_seed(7)
+    params = {n: torch.randn(k, generator=g).to(card, torch.bfloat16)
+              for n, k in (("a", 70001), ("b", 37))}
+    grads = {n: torch.randn(p.shape, generator=g).to(card, torch.bfloat16)
+             for n, p in params.items()}
+    states = {n: tuple((0.1 * torch.rand(p.shape, generator=g)).to(
+        card, torch.bfloat16) for _ in opt.create_state(p))
+        for n, p in params.items()}
+    hp = {k: torch.tensor(v, device=card) for k, v in (
+        ("lr", 0.01), ("wd", 0.01), ("rescale_grad", 0.5), ("t", 3.0))}
+    hp["clip_gradient"] = None
+    want_p, want_s = fo.kernel_plain(opt, params, grads, states, hp)
+    fo.apply_updates(opt, params, grads, states, hp, use_kernel=True)
+    torch.cuda.synchronize()
+    for n in params:
+        torch.testing.assert_close(params[n].float(), want_p[n].float(),
+                                   rtol=2 ** -7, atol=2e-6)
+        for a, b in zip(states[n], want_s[n]):
+            assert a.dtype == torch.bfloat16, n
+            torch.testing.assert_close(a.float(), b.float(), rtol=2 ** -7,
+                                       atol=2e-6)

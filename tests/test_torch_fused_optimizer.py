@@ -206,3 +206,98 @@ def test_policy_spellings_and_kernel_route(monkeypatch):
     monkeypatch.delenv("MXTPU_PALLAS")
     assert policy.pallas_mode() == "auto"
     assert not policy.kernel_active(torch.zeros(1))
+
+
+@pytest.mark.parametrize("name", ["lamb", "lamb_bounds"])
+def test_bf16_lamb_reference_route_rounds_the_ratio_as_jax(name):
+    """LAMB over bf16 weights with f32 state on the reference route, against
+    JAX's ``apply_updates(use_kernel=False)``: JAX's rule rounds the trust
+    ratio to the weight's bf16 (``ratio.astype(w.dtype)``), which moves
+    the update by up to 2**-9 of itself.  With lr 1 the update is as large
+    as the weight, so where the two nearly cancel that is many bf16 steps
+    of the result; the port must land within one bf16 step (2**-8 of the
+    value, rounding of two f32 results) of JAX's on every element, and its
+    f32 state within 2e-6.  The kernel route keeps the ratio in f32, as
+    JAX's kernel does (held above)."""
+    jo, to = _make(name)
+    jo.lr = to.lr = 1.0
+    rng = np.random.RandomState(5)
+    n = 4096
+    w = rng.randn(n).astype(np.float32)
+    w = torch.from_numpy(w).bfloat16().float().numpy()
+    g = torch.from_numpy(rng.randn(n).astype(np.float32)).bfloat16()
+    g = g.float().numpy()
+    m = (0.1 * rng.randn(n)).astype(np.float32)
+    v = rng.rand(n).astype(np.float32)
+    hp = dict(lr=1.0, wd=0.01, rescale_grad=1.0, clip_gradient=None, t=1.0)
+    jp, js = jfo.apply_updates(
+        jo, {"w": jnp.asarray(w, jnp.bfloat16)},
+        {"w": jnp.asarray(g, jnp.bfloat16)},
+        {"w": (jnp.asarray(m), jnp.asarray(v))},
+        {k: None if x is None else jnp.float32(x) for k, x in hp.items()},
+        use_kernel=False)
+    tp, ts = tfo.apply_updates(
+        to, {"w": torch.from_numpy(w).bfloat16()},
+        {"w": torch.from_numpy(g).bfloat16()},
+        {"w": (torch.from_numpy(m), torch.from_numpy(v))}, _torch_hp(hp),
+        use_kernel=False)
+    assert tp["w"].dtype == torch.bfloat16
+    want = np.asarray(jp["w"], np.float32)
+    got = tp["w"].float().numpy()
+    step = 2.0 ** -8 * np.maximum(np.abs(want), np.abs(got))
+    assert np.all(np.abs(got - want) <= step), \
+        float(np.max(np.abs(got - want) / np.maximum(step, 1e-30)))
+    for a, b in zip(ts["w"], js["w"]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
+                                   atol=2e-6)
+
+
+@pytest.mark.parametrize("name", ["adam", "adamw", "sgd_momentum", "lamb"])
+def test_16bit_state_rounds_the_decay_as_jax(name):
+    """bf16 weights with bf16 state (the `Trainer`'s state for a bf16
+    model): JAX's rules multiply the stored state by a Python float, a
+    bf16 product with the scalar rounded to bf16 first (``beta1 * m``),
+    then add the f32 gradient term.  The
+    port's kernel route (the plain version the CUDA kernels are held to)
+    and its reference route both equal JAX's reference route bit for bit,
+    weights and state, but for LAMB's weights on the kernel route, whose
+    trust ratio stays f32 (one bf16 step, plus 2**-8 of the update)."""
+    jo, to = _make(name)
+    zoo = _zoo(to, seed=4)
+    bf = {n: "bfloat16" for n, _ in SIZES}
+    for part in zoo[:2]:
+        for n in bf:
+            part[n] = torch.from_numpy(part[n]).bfloat16().float().numpy()
+    for n in bf:
+        zoo[2][n] = tuple(torch.from_numpy(s).bfloat16().float().numpy()
+                          for s in zoo[2][n])
+    hp = _hp(None)
+    jp, js = jfo.apply_updates(
+        jo, {n: jnp.asarray(a, jnp.bfloat16) for n, a in zoo[0].items()},
+        {n: jnp.asarray(a, jnp.bfloat16) for n, a in zoo[1].items()},
+        {n: tuple(jnp.asarray(s, jnp.bfloat16) for s in st)
+         for n, st in zoo[2].items()},
+        {k: None if v is None else jnp.float32(v) for k, v in hp.items()},
+        use_kernel=False)
+    for use_kernel in (True, False):
+        params, grads, _ = _torch_tensors(zoo, bf)
+        states = {n: tuple(torch.from_numpy(s.copy()).bfloat16() for s in st)
+                  for n, st in zoo[2].items()}
+        tp, ts = tfo.apply_updates(to, params, grads, states, _torch_hp(hp),
+                                   use_kernel=use_kernel)
+        for n in tp:
+            want = np.asarray(jp[n], np.float32)
+            got = tp[n].float().numpy()
+            if name == "lamb" and use_kernel:
+                # the kernels' f32 trust ratio against JAX's bf16 one: the
+                # update moves by up to 2**-9 of itself, then one bf16 step
+                # (at most 2**-7 of the value)
+                upd = np.abs(want - zoo[0][n])
+                assert np.all(np.abs(got - want) <= 2.0 ** -7 * np.abs(want)
+                              + 2.0 ** -8 * upd), n
+            else:
+                np.testing.assert_array_equal(got, want, err_msg=n)
+            for a, b in zip(ts[n], js[n]):
+                assert a.dtype == torch.bfloat16
+                np.testing.assert_array_equal(a.float().numpy(),
+                                              np.asarray(b, np.float32))

@@ -34,7 +34,10 @@ def test_import_leaves_no_jax_and_no_jax_package():
             "mxnet_tpu_torch.ops.fused_norm, mxnet_tpu_torch.ops.policy, "
             "mxnet_tpu_torch.optimizer.sgd, mxnet_tpu_torch.optimizer.lamb, "
             "mxnet_tpu_torch.gluon.loss, mxnet_tpu_torch.optimizer.adam, "
-            "mxnet_tpu_torch.parallel.train\n"
+            "mxnet_tpu_torch.parallel.train, mxnet_tpu_torch.parallel.moe, "
+            "mxnet_tpu_torch.ops.moe_dispatch, mxnet_tpu_torch.ops.autotune, "
+            "mxnet_tpu_torch.gluon.trainer, mxnet_tpu_torch.benchmark, "
+            "mxnet_tpu_torch.optimizer.updater\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu')]\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -136,6 +139,7 @@ def test_kernel_sources_and_counters():
                   if f.endswith(".cu")) == ["flash_attention.cu",
                                             "fused_norm.cu",
                                             "fused_optimizer.cu",
+                                            "moe_dispatch.cu",
                                             "paged_attention.cu",
                                             "quantized_matmul.cu",
                                             "softmax_xent.cu"]
@@ -143,7 +147,7 @@ def test_kernel_sources_and_counters():
         "ragged_paged_attention", "quantized_matmul", "flash_attention_fwd",
         "flash_attention_bwd", "softmax_xent_fwd", "softmax_xent_bwd",
         "fused_norm", "fused_optimizer_chunk", "lamb_phase_a",
-        "lamb_phase_b"}
+        "lamb_phase_b", "moe_dispatch", "moe_combine"}
     kernels.LAUNCHES["quantized_matmul"] += 2
     assert kernels.launch_counts()["quantized_matmul"] >= 2
     kernels.reset_launch_counts()

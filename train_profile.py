@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Where a BERT-base pretraining step of the PyTorch port spends its time,
-on the card.
+"""Where a BERT-base pretraining step — or, with ``--moe``, a Switch-MoE
+training step — of the PyTorch port spends its time, on the card.
 
-    python3 train_profile.py [--out chiprun_out/train_profile.json]
+    python3 train_profile.py [--moe] [--out chiprun_out/train_profile.json]
 
 Builds full-width BERT-base (seeded random weights) and wraps it in
 ``TrainStep`` exactly as ``chip_smoke.py``'s train phase does
@@ -16,7 +16,11 @@ step (the sum of kernel durations), the device idle share (1 - device /
 wall), kernel launches per step, the device time per class of kernel
 (cuBLAS/CUTLASS products, the port's flash, cross-entropy, fused-norm and
 optimizer kernels, everything else) and the kernels that take the most
-device time.  Needs a CUDA card.
+device time.  With ``--moe`` the runs are ``chip_smoke.py``'s moe phase —
+``MoEFeedForward(768, 3072, 8 experts)`` on 64 x 128 tokens, Adam lr 1e-4,
+the default kernel route — through ``TrainStep`` in f32 and bf16 and
+through the gluon ``Trainer`` in bf16, and the row gather is a class of
+its own.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -29,11 +33,14 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 RUNS = (("bfloat16", "Adam", "auto"), ("float32", "Adam", "auto"),
         ("bfloat16", "LAMB", "auto"), ("bfloat16", "Adam", "reference"))
+MOE_RUNS = (("float32", "step"), ("bfloat16", "step"),
+            ("bfloat16", "trainer"))
 CLASSES = (("flash_fwd", ("flash_fwd_kernel",)),
            ("flash_bwd", ("flash_dq_kernel", "flash_dkv_kernel")),
            ("xent", ("xent_fwd_kernel", "xent_bwd_kernel")),
            ("norm", ("norm_kernel",)),
            ("optimizer", ("chunk_kernel", "lamb_a_kernel", "lamb_b_kernel")),
+           ("moe_gather", ("gather_rows_kernel",)),
            ("gemm", ("gemm", "sgemm", "cutlass", "cublas", "nvjet")))
 
 
@@ -87,23 +94,69 @@ def profile_steps(step, batch, n_steps):
     }
 
 
+class TrainerStep:
+    """``loss.backward(); trainer.step(tokens)`` on the batch's summed
+    loss (chip_smoke's moe phase), behind `TrainStep`'s ``dispatch``."""
+
+    def __init__(self, layer, trainer, loss_fn, tokens):
+        self.layer, self.trainer = layer, trainer
+        self.loss_fn, self.tokens = loss_fn, tokens
+
+    def dispatch(self, x, y):
+        loss = self.loss_fn(self.layer(x), x, y)
+        (loss * self.tokens).backward()
+        self.trainer.step(self.tokens)
+        return loss.detach()
+
+
+def moe_step(dev, dtype, entry):
+    """The MoE layer of chip_smoke's moe phase behind `entry`."""
+    from chip_smoke import MOE_CF, MOE_E, MOE_H, MOE_I, moe_loss
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.optimizer import Adam
+    from mxnet_tpu_torch.parallel import MoEFeedForward, TrainStep
+    layer = MoEFeedForward(MOE_H, MOE_I, num_experts=MOE_E,
+                           capacity_factor=MOE_CF, dtype=dtype, device=dev,
+                           seed=0)
+    opt = Adam(learning_rate=1e-4)
+    if entry == "step":
+        return TrainStep(layer, opt, moe_loss, num_model_args=1)
+    return TrainerStep(layer, Trainer(dict(layer.named_parameters()), opt),
+                       moe_loss, 64 * 128)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(HERE, "chiprun_out",
                                                   "train_profile.json"))
+    ap.add_argument("--moe", action="store_true",
+                    help="profile the Switch-MoE step instead of BERT's")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("train_profile: needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    from chip_smoke import bert_batch, bert_train_step, pallas_mode
+    from chip_smoke import (bert_batch, bert_train_step, moe_batch,
+                            pallas_mode)
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
 
     dev = torch.device("cuda", 0)
-    batch = tuple(torch.from_numpy(a).to(dev) for a in bert_batch(30522))
     out = {"card": torch.cuda.get_device_name(0)}
-    for dtype, opt, route in RUNS:
+    if args.moe:
+        for dtype, entry in MOE_RUNS:
+            key = f"moe_{dtype}_{entry}"
+            batch = moe_batch(dev, dtype)
+            with pallas_mode("auto"):
+                step = moe_step(dev, dtype, entry)
+                for _ in range(3):
+                    step.dispatch(*batch)
+                out[key] = res = profile_steps(step, batch, 5)
+            print(f"[{key}] {json.dumps(res)}", flush=True)
+            del step
+            torch.cuda.empty_cache()
+    batch = tuple(torch.from_numpy(a).to(dev) for a in bert_batch(30522))
+    for dtype, opt, route in () if args.moe else RUNS:
         key = f"{dtype}_{opt.lower()}_{route}"
         with pallas_mode(route):
             step = bert_train_step(dev, dtype, opt=opt, route=route)
