@@ -9,9 +9,10 @@ start runs no timed trial.
 
 `tune()` runs timed work: call it from host code (a warmup, a benchmark,
 the chip smoke), never inside a step.  `cached_config()` is a dictionary
-(and, once per key, file) lookup that kernel wrappers consult at each
-launch to pick their block sizes; with nothing tuned it returns None and
-the wrapper keeps its static default.
+(and, once per key, file) lookup that kernel wrappers consult to pick
+their block sizes; with nothing tuned it returns None and the wrapper
+keeps its static default.  A wrapper that memoises its answers keeps them
+while `generation()` stays the same.
 
 Registered so far: ``fused_optimizer`` (the chunk kernel's elements per
 block, `ops.fused_optimizer`) and ``moe_dispatch`` (kernel against the
@@ -34,7 +35,7 @@ from ..base import MXNetError
 __all__ = ["BlockConfig", "TuneResult", "register_tunable", "tunables",
            "tune", "cached_config", "lookup_any", "cache_dir",
            "clear_memory_cache", "shape_bucket", "device_kind",
-           "predict_s", "dtype_name"]
+           "predict_s", "dtype_name", "generation"]
 
 
 class BlockConfig(dict):
@@ -86,6 +87,8 @@ _MEM: Dict[str, BlockConfig] = {}
 # JSON file at every launch; a search in this process clears its key
 _MEM_MISS: set = set()
 _LOCK = threading.Lock()
+# bumped whenever `cached_config` may answer differently in this process
+_GEN = 0
 
 
 def register_tunable(name: str, candidates, build, roofline) -> None:
@@ -217,9 +220,19 @@ def _disk_store(op: str, key: str, config: BlockConfig,
 
 def clear_memory_cache() -> None:
     """Drop the in-process cache (disk entries survive)."""
+    global _GEN
     with _LOCK:
         _MEM.clear()
         _MEM_MISS.clear()
+        _GEN += 1
+
+
+def generation():
+    """A token that changes whenever `cached_config` may answer
+    differently in this process: a search kept a config, `lookup_any`
+    loaded one, the memory cache was cleared, or ``MXTPU_AUTOTUNE`` was
+    switched."""
+    return _GEN, _autotune_enabled()
 
 
 # ---------------------------------------------------------------------------
@@ -275,11 +288,13 @@ def lookup_any(op: str) -> Optional[BlockConfig]:
         for key, cfg in _MEM.items():
             if match(key):
                 return cfg
+    global _GEN
     for key, entry in sorted(_disk_load(op).items()):
         cfg = _config(entry)
         if match(key) and cfg is not None:
             with _LOCK:
                 _MEM[key] = cfg
+                _GEN += 1
             return cfg
     return None
 
@@ -329,9 +344,11 @@ def tune(op: str, shapes: Sequence[int], dtype="float32", warmup: int = 1,
     search_ms = (time.perf_counter() - t0) * 1e3
     if not timings:
         return TuneResult(best, False, "search", 0, search_ms, {})
+    global _GEN
     with _LOCK:
         _MEM[key] = best
         _MEM_MISS.discard(key)
+        _GEN += 1
     _disk_store(op, key, best, extra={"dtype": dtype_name(dtype),
                                       "device_kind": kind,
                                       "median_ms": round(best_ms, 4)})

@@ -59,6 +59,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: weight dtype name -> elements per block of that dtype group's latest
 #: chunk launch (on the CPU: the chunk the launch would have used)
 last_chunk: Dict[str, int] = {}
+# (group elements, weight dtype, device) -> elements per block, valid for
+# the autotuner generation in `_chunk_memo_gen`
+_chunk_memo: Dict[Any, int] = {}
+_chunk_memo_gen = None
 
 
 # ---------------------------------------------------------------------------
@@ -231,11 +235,22 @@ def _check_leaf(name, w, g, states, dev):
 
 def _group_chunk(names, params) -> int:
     """Elements per block for the group's launch: the autotuner's choice
-    for (group elements,) in the weights' dtype, else `CHUNK`."""
+    for (group elements,) in the weights' dtype, else `CHUNK`.  Looked up
+    once per group shape and `autotune.generation()`, not at every step."""
+    global _chunk_memo_gen
     w0 = params[names[0]]
     total = sum(params[n].numel() for n in names)
-    cfg = autotune.cached_config("fused_optimizer", (total,), w0.dtype)
-    chunk = int(cfg.chunk) if cfg is not None and "chunk" in cfg else CHUNK
+    gen = autotune.generation()
+    if gen != _chunk_memo_gen:
+        _chunk_memo.clear()
+        _chunk_memo_gen = gen
+    key = (total, w0.dtype, w0.device)
+    chunk = _chunk_memo.get(key)
+    if chunk is None:
+        cfg = autotune.cached_config("fused_optimizer", (total,), w0.dtype)
+        chunk = int(cfg.chunk) if cfg is not None and "chunk" in cfg \
+            else CHUNK
+        _chunk_memo[key] = chunk
     last_chunk[autotune.dtype_name(w0.dtype)] = chunk
     return chunk
 

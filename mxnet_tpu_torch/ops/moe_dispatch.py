@@ -21,10 +21,13 @@ zero row, so the (T+1, H) zero-padded copy the TPU kernel reads is never
 made.  Gradients run through two `torch.autograd.Function`s whose backward
 is the plain scatter/gather transpose, as in JAX (no backward kernel).
 
-Routes, as in JAX: `moe_dispatch` / `moe_combine` with ``use_kernel=None``
-take the kernel route when `ops.policy.kernel_active` says so and
-`kernel_eligible(h)`; otherwise the reference (`moe_dispatch_reference`,
-`moe_combine_reference`: an index_add scatter and a gather).  In bf16 the
+Routes: `moe_dispatch` / `moe_combine` with ``use_kernel=None`` take the
+kernel route when `ops.policy.kernel_active` says so, otherwise the
+reference (`moe_dispatch_reference`, `moe_combine_reference`: an index_add
+scatter and a gather).  On a CUDA tensor the policy alone decides, so the
+card launches the kernel at any H; on a CPU tensor JAX's
+`kernel_eligible(h)` also applies, so that one ``MXTPU_PALLAS`` setting
+gives the same math as JAX's interpreter.  In bf16 the
 two routes round the combine differently: the kernel multiplies in f32
 and then casts, the reference multiplies in the rows' dtype, as JAX's do.
 ``MXTPU_PALLAS=off`` restores the dense einsums in `parallel.moe`.
@@ -110,10 +113,16 @@ def moe_combine_reference(down, expert, pos, kept, gate):
 
 def kernel_eligible(h: int) -> bool:
     """JAX's rule for the route: H slices (<= 128) or tiles (a multiple of
-    128) into lane vectors.  The CUDA kernel takes any H; the rule is kept
-    so that one ``MXTPU_PALLAS`` setting gives the same math in both
-    packages."""
+    128) into lane vectors.  The CUDA kernel takes any H, so only the CPU
+    route applies it (`_kernel_route`), for parity with JAX's."""
     return h <= LANES or h % LANES == 0
+
+
+def _kernel_route(x, h) -> bool:
+    """``use_kernel=None``'s route: the policy, and on the CPU JAX's
+    `kernel_eligible` too."""
+    return kernel_active(x) and (x.device.type == "cuda" or
+                                 kernel_eligible(h))
 
 
 def gather_rows_plain(src, idx, scale=None):
@@ -255,7 +264,7 @@ def moe_dispatch(x, expert, pos, kept, num_experts, capacity,
                  use_kernel=None):
     """Tokens (T, H) -> the (E, C, H) capacity buffer."""
     if use_kernel is None:
-        use_kernel = kernel_active(x) and kernel_eligible(x.shape[1])
+        use_kernel = _kernel_route(x, x.shape[1])
     if not use_kernel:
         return moe_dispatch_reference(x, expert, pos, kept, num_experts,
                                       capacity)
@@ -265,7 +274,7 @@ def moe_dispatch(x, expert, pos, kept, num_experts, capacity,
 def moe_combine(down, expert, pos, kept, gate, use_kernel=None):
     """(E, C, H) expert outputs -> (T, H) gated token rows."""
     if use_kernel is None:
-        use_kernel = kernel_active(down) and kernel_eligible(down.shape[2])
+        use_kernel = _kernel_route(down, down.shape[2])
     if not use_kernel:
         return moe_combine_reference(down, expert, pos, kept, gate)
     return _Combine.apply(down, expert, pos, kept, gate)

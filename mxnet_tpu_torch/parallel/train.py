@@ -12,7 +12,10 @@ the JAX step:
   step's device under ``MXTPU_PALLAS``): the multi-tensor kernels update
   weights and state in place; the per-leaf reference route returns new
   values, copied into the parameters.  Changing ``MXTPU_PALLAS`` later
-  never changes a live step;
+  never changes a live step.  ``update=`` replaces that route with a
+  whole-tree update of `ops.fused_optimizer.kernel_plain`'s signature: an
+  oracle passes `kernel_plain` itself, the kernels' math leaf by leaf
+  with no launch;
 - ``loss_fn(out, *batch)`` sees the whole batch; the first
   ``num_model_args`` arguments feed the model;
 - optimizer state in f32 for 16-bit weights, with no f32 master copy of
@@ -86,7 +89,8 @@ class TrainStep:
 
     def __init__(self, model: torch.nn.Module, optimizer, loss_fn: Callable,
                  num_model_args: Optional[int] = None, grad_accum: int = 1,
-                 grad_accum_dtype=torch.float32):
+                 grad_accum_dtype=torch.float32,
+                 update: Optional[Callable] = None):
         if grad_accum < 1:
             raise MXNetError(f"grad_accum must be >= 1, got {grad_accum}")
         self.model = model
@@ -109,7 +113,9 @@ class TrainStep:
             for n in self.diff_names}
         # the optimizer route, captured once (as the JAX step bakes it into
         # its traced program)
-        self._fused_opt_kernel = kernel_route(optimizer, self.device)
+        self._update = update
+        self._fused_opt_kernel = update is None and \
+            kernel_route(optimizer, self.device)
         self._t = 0
         self._hp = HpScalarCache(self.device)
         self._inflight = collections.deque()
@@ -197,9 +203,13 @@ class TrainStep:
         self._t += 1
         hp = self._hp.get(self.optimizer, self._t)
         live = {n: self.params[n].detach() for n in self.diff_names}
-        new_p, self.opt_state = apply_updates(
-            self.optimizer, live, grads, self.opt_state, hp,
-            use_kernel=self._fused_opt_kernel)
+        if self._update is not None:
+            new_p, self.opt_state = self._update(
+                self.optimizer, live, grads, self.opt_state, hp)
+        else:
+            new_p, self.opt_state = apply_updates(
+                self.optimizer, live, grads, self.opt_state, hp,
+                use_kernel=self._fused_opt_kernel)
         with torch.no_grad():
             for n in self.diff_names:
                 if new_p[n] is not live[n]:    # the kernels update in place

@@ -161,6 +161,38 @@ def test_apply_updates_uses_the_tuned_chunk_with_the_same_bits(cache):
         assert all(torch.equal(a, b) for a, b in zip(s0[n], s1[n])), n
 
 
+def test_the_chunk_is_looked_up_once_per_tuner_generation(cache,
+                                                         monkeypatch):
+    """The step does not ask the tuner at every update: one lookup per
+    group shape until a search keeps a config, the memory cache is
+    cleared or ``MXTPU_AUTOTUNE`` is switched."""
+    hp = {"lr": torch.tensor(1e-2), "wd": torch.tensor(0.0),
+          "rescale_grad": torch.tensor(1.0), "clip_gradient": None,
+          "t": torch.tensor(1.0)}
+    opt = Adam(learning_rate=1e-2)
+    lookups = []
+    real = at.cached_config
+    monkeypatch.setattr(at, "cached_config",
+                        lambda *a, **k: lookups.append(a) or real(*a, **k))
+    p, g, s = _tree()
+
+    def update():
+        fo.apply_updates(opt, p, g, s, hp, use_kernel=True)
+        return fo.last_chunk["float32"]
+    assert [update() for _ in range(3)] == [fo.CHUNK] * 3
+    assert len(lookups) == 1
+    at.tune("fused_optimizer", (8037,), "float32", runs=1)
+    tuned = real("fused_optimizer", (8037,), "float32").chunk
+    lookups.clear()                 # the search's own lookups
+    assert update() == tuned and len(lookups) == 1
+    monkeypatch.setenv("MXTPU_AUTOTUNE", "0")
+    assert update() == fo.CHUNK and len(lookups) == 2
+    monkeypatch.delenv("MXTPU_AUTOTUNE")
+    at.clear_memory_cache()
+    assert update() == tuned and len(lookups) == 3     # read from disk
+    assert update() == tuned and len(lookups) == 3
+
+
 def test_time_callable_schema_and_moe_tunable(cache):
     calls = []
     t = time_callable(lambda: calls.append(1), warmup=2, runs=3)

@@ -325,6 +325,37 @@ def test_moe_gather_kernel_matches_plain_bit_for_bit(card, dtype, R, N, H):
         md.gather_rows(src, idx.long())
 
 
+@pytest.mark.parametrize("h", [200, 768])
+def test_moe_dispatch_and_combine_launch_the_gather_at_any_width(card, h):
+    """On the card the policy alone picks the route: an H that JAX's
+    lane rule refuses (200) launches the gather as 768 does, one dispatch
+    and one combine, bit-equal to the plain version."""
+    from mxnet_tpu_torch.ops import moe_dispatch as md
+    t, e, c = 53, 4, 6
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(t, h, generator=g).to(card)
+    expert = torch.randint(0, e, (t,), generator=g)
+    pos = torch.zeros(t, dtype=torch.int64)
+    for k in range(e):
+        sel = expert == k
+        pos[sel] = torch.arange(int(sel.sum()))
+    kept = pos < c
+    gate = torch.rand(t, generator=g)
+    expert, pos, kept, gate = (v.to(card) for v in (expert, pos, kept, gate))
+    kernels.reset_launch_counts()
+    buf = md.moe_dispatch(x, expert, pos, kept, e, c)
+    out = md.moe_combine(buf, expert, pos, kept, gate)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["moe_dispatch"] == counts["moe_combine"] == 1
+    inv = md.dispatch_index(expert, pos, kept, e, c)
+    slot, scale = md.combine_index(expert, pos, kept, gate, e, c)
+    assert torch.equal(buf.reshape(e * c, h), md.gather_rows_plain(x, inv))
+    assert torch.equal(out, md.gather_rows_plain(buf.reshape(e * c, h), slot,
+                                                 scale))
+    assert not out[~kept].any()
+
+
 def test_tuned_chunks_give_the_same_bits(card):
     from mxnet_tpu_torch import optimizer as topt
     from mxnet_tpu_torch.ops import fused_optimizer as fo

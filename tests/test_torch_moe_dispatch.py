@@ -169,10 +169,12 @@ def test_gather_plain_version_and_wrapper_checks():
     assert tmd.kernel_eligible(768) == jmd.kernel_eligible(768)
 
 
-def test_policy_picks_the_route(monkeypatch):
-    """``use_kernel=None``: the reference on the CPU under ``auto``, the
-    kernel route under ``kernel`` (and only for an eligible H)."""
-    t, e, c, h = 31, 3, 5, 64
+@pytest.mark.parametrize("h", [64, 200])
+def test_policy_picks_the_route(monkeypatch, h):
+    """``use_kernel=None`` on the CPU: the reference under ``auto``, the
+    kernel route under ``kernel`` only for an H that JAX's rule takes
+    (200 is not a multiple of 128), as JAX's interpreter does."""
+    t, e, c = 31, 3, 5
     x, _, _, (expert, pos, kept) = _inputs(t, e, c, h, "float32")
     args = (torch.from_numpy(x), torch.from_numpy(expert),
             torch.from_numpy(pos), torch.from_numpy(kept), e, c)
@@ -180,8 +182,10 @@ def test_policy_picks_the_route(monkeypatch):
     monkeypatch.setattr(tmd._Dispatch, "apply",
                         lambda *a: calls.append("kernel") or
                         tmd.moe_dispatch_reference(*a))
+    kernel = ["kernel"] if tmd.kernel_eligible(h) else []
+    assert tmd.kernel_eligible(h) == jmd.kernel_eligible(h)
     for mode, want in (("auto", []), ("reference", []), ("off", []),
-                       ("kernel", ["kernel"])):
+                       ("kernel", kernel)):
         monkeypatch.setenv("MXTPU_PALLAS", mode)
         calls.clear()
         tmd.moe_dispatch(*args)

@@ -171,6 +171,41 @@ def test_the_optimizer_route_is_resolved_once(monkeypatch, mode, want):
     assert step._fused_opt_kernel is want
 
 
+def test_update_replaces_the_optimizer_route(monkeypatch):
+    """``update=kernel_plain`` (how an oracle step is built, under
+    ``reference``) launches nothing and gives the kernel route's weights
+    and state bit for bit, here for bf16 LAMB, whose trust ratio the
+    kernels keep in f32."""
+    from mxnet_tpu_torch.ops.fused_optimizer import kernel_plain
+    from mxnet_tpu_torch.optimizer import LAMB
+    rng = np.random.RandomState(3)
+    w0, b0, x, y = (rng.randn(*s).astype(np.float32)
+                    for s in ((6, 12), (6,), (16, 12), (16, 6)))
+    x, y = (torch.from_numpy(a).bfloat16() for a in (x, y))
+
+    def loss_fn(out, xx, yy):
+        return ((out.float() - yy.float()) ** 2).mean()
+
+    def run(mode, update):
+        monkeypatch.setenv("MXTPU_PALLAS", mode)
+        lin = torch.nn.Linear(12, 6, dtype=torch.bfloat16)
+        with torch.no_grad():
+            lin.weight.copy_(torch.from_numpy(w0))
+            lin.bias.copy_(torch.from_numpy(b0))
+        step = TrainStep(lin, LAMB(learning_rate=0.05), loss_fn,
+                         num_model_args=1, update=update)
+        for _ in range(3):
+            step(x, y)
+        return step
+    kern = run("kernel", None)
+    oracle = run("reference", kernel_plain)
+    assert kern._fused_opt_kernel and not oracle._fused_opt_kernel
+    for n in kern.diff_names:
+        assert torch.equal(kern.params[n], oracle.params[n]), n
+        assert all(torch.equal(a, b) for a, b in zip(kern.opt_state[n],
+                                                     oracle.opt_state[n])), n
+
+
 def test_grad_accum_matches_jax(interpret):
     jm, tm, jl, tl = _run_both(2, grad_accum=2)
     np.testing.assert_allclose(tl, jl, **TOL)
