@@ -17,9 +17,12 @@ widths (hidden 768, FFN 3072, 8 experts) through `TrainStep` and the gluon
    C=16, MHA and GQA rep 4, ragged context lengths with an empty slot and
    non-page-aligned lengths, with and without a window) and K2 int8/int4
    dequant-matmul (f32/bf16 activations, M in {8, 128}, the four GPT-2
-   projection shapes) — within max-abs 1e-4 (f32) / 2e-2 (bf16) of the
+   projection shapes, and the tied head (8, 50257, 768) at int8 f32; two
+   calls bit-equal) — within max-abs 1e-4 (f32) / 2e-2 (bf16) of the
    output scale, and times kernel, plain version, a one-call library
-   yardstick (never used by the port) and the card's bound;
+   yardstick (never used by the port, each K2 case's kernel / library
+   ratio printed) and the card's bound; K2's cases and their library
+   calls also give the device-only time and the host µs a call;
 3. serves 16 greedy requests (prompts of 16-256 tokens, 32 new tokens,
    staggered arrivals) through ``InferenceEngine`` with
    ``ServeConfig(max_slots=8, max_len=512, page_size=16, prefill_chunk=16)``
@@ -93,7 +96,10 @@ widths (hidden 768, FFN 3072, 8 experts) through `TrainStep` and the gluon
    static ``CHUNK`` (which k6's tolerances hold to the plain update), a
    warm call is a hit with 0 trials, and the next ``apply_updates``
    launches with the tuned chunk; the tuned configs are dropped after the
-   phase, so the phases that follow launch at ``CHUNK``;
+   phase, so the phases that follow launch at ``CHUNK``; then the same for
+   K2 (``tune("quantized_matmul", (8, 2304, 768), "int8")`` over its whole
+   plan menu: every candidate's launch within 1e-4 of the plain version's
+   scale, the next call on the tuned plan);
 13. (moe) ``MoEFeedForward(768, 3072, num_experts=8, capacity_factor=1.25)``
    trained 20 steps on a seeded (64, 128, 768) batch, loss MSE + 0.01 aux,
    Adam lr 1e-4, through ``TrainStep`` and through ``gluon.Trainer``
@@ -130,7 +136,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 GAP = 1e-4            # near-tie threshold on the plain path's top-2 gap
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # max-abs / output scale
 HBM_BPS = 3.35e12     # H100 SXM HBM3
-PEAK = {"float32": 67e12, "bfloat16": 989e12}   # FMA f32 / dense bf16 TC
+# FMA f32 / dense bf16 tensor cores / two TF32 tensor-core products a
+# multiply-add (f32 x split hi + lo, K2's exact f32 route): half of 495
+PEAK = {"float32": 67e12, "bfloat16": 989e12, "tf32x2": 247.5e12}
 TRAIN_STEPS = 20
 OPT_RTOL = 1e-5       # optimizer kernels vs plain, of each tensor's scale
 OPT_MISMATCH = 1e-4   # share of bf16 weight elements off the plain value
@@ -168,10 +176,18 @@ def card_line() -> str:
 # timing
 # ---------------------------------------------------------------------------
 
-def time_ms(fn, iters=30, warm=3):
-    """Median device time of one call (CUDA events around each call), with
-    the 50 MB L2 flushed before each: the serving loop finds weights and
-    K/V pages cold, so a timing that reuses warm inputs would flatter."""
+SLEEP_CYCLES = 400_000    # ~0.2 ms of device time at the H100's clocks
+
+
+def time_ms(fn, iters=30, warm=3, device_only=False):
+    """Median time of one call (CUDA events around each call), with the
+    50 MB L2 flushed before each: the serving loop finds weights and K/V
+    pages cold, so a timing that reuses warm inputs would flatter.  The
+    start event is recorded on the host after the flush is enqueued, so a
+    call whose host time outlasts the flush (~80 us) shows that excess too.
+    ``device_only`` sleeps the card after the flush, long enough that the
+    host has enqueued the call before the start event runs: the events
+    then time the device's work alone."""
     import torch
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
     for _ in range(warm):
@@ -180,6 +196,8 @@ def time_ms(fn, iters=30, warm=3):
     evs = []
     for _ in range(iters):
         flush.zero_()
+        if device_only:
+            torch.cuda._sleep(SLEEP_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -189,6 +207,24 @@ def time_ms(fn, iters=30, warm=3):
     torch.cuda.synchronize()
     ts = sorted(s.elapsed_time(e) for s, e in evs)
     return ts[len(ts) // 2]
+
+
+def host_us(fn, iters=100, repeats=5):
+    """Host microseconds of one call: the host clock over `iters` calls
+    enqueued behind a device sleep (so no call waits on the card), the
+    least of `repeats` such loops."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(repeats):
+        torch.cuda._sleep(50 * SLEEP_CYCLES)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / iters * 1e6)
+        torch.cuda.synchronize()
+    return best
 
 
 def bound(nbytes, flops, dtype):
@@ -297,42 +333,64 @@ def k1_cases(dev):
 
 
 K2_SHAPES = [(2304, 768), (768, 768), (3072, 768), (768, 3072)]
+K2_HEAD = (8, 50257, 768)     # the tied LM head at decode, int8 f32
 
 
 def k2_cases(dev):
-    """K2 at GPT-2 small's projection shapes (N, K) for M in {8, 128}."""
+    """K2 at GPT-2 small's projection shapes (N, K) for M in {8, 128}, and
+    the tied head's (8, 50257, 768) at int8 f32; each with its launch plan,
+    two calls bit-equal, and kernel time over library time."""
     import torch
     from mxnet_tpu_torch.ops import quantized_matmul as qm
 
     g = torch.Generator().manual_seed(1)
+    grid = [(bits, dtype, M, N, K) for bits in (8, 4)
+            for dtype in ("float32", "bfloat16") for M in (8, 128)
+            for N, K in K2_SHAPES] + [(8, "float32") + K2_HEAD]
     out = []
-    for bits in (8, 4):
-        for dtype in ("float32", "bfloat16"):
-            dt = getattr(torch, dtype)
-            for M in (8, 128):
-                for N, K in K2_SHAPES:
-                    qt = qm.quantize_weight(
-                        torch.randn(N, K, generator=g) * 0.02, bits).to(dev)
-                    x = torch.randn(M, K, generator=g).to(dev, dt)
-                    got = qm.quantized_matmul(x, qt)
-                    ref = qm.quantized_matmul_reference(x, qt)
-                    torch.cuda.synchronize()
-                    err = float((got.float() - ref.float()).abs().max())
-                    scale = float(ref.float().abs().max())
-                    wd = qm.dequantize_weight(qt, dt)
-                    case = dict(bits=bits, dtype=dtype, M=M, N=N, K=K,
-                                max_abs_err=err, out_scale=scale,
-                                tol=TOL[dtype] * scale,
-                                ok=err <= TOL[dtype] * scale)
-                    case["ms"] = time_ms(lambda: qm.quantized_matmul(x, qt))
-                    case["plain_ms"] = time_ms(
-                        lambda: qm.quantized_matmul_reference(x, qt))
-                    case["library_ms"] = time_ms(lambda: x @ wd.T)
-                    nbytes = x.numel() * x.element_size() + qt.nbytes() \
-                        + M * N * x.element_size()
-                    case["bound_ms"], case["bound_by"] = bound(
-                        nbytes, 2.0 * M * N * K, dtype)
-                    out.append(case)
+    for bits, dtype, M, N, K in grid:
+        dt = getattr(torch, dtype)
+        qt = qm.quantize_weight(
+            torch.randn(N, K, generator=g) * 0.02, bits).to(dev)
+        x = torch.randn(M, K, generator=g).to(dev, dt)
+        got = qm.quantized_matmul(x, qt)
+        again = qm.quantized_matmul(x, qt)
+        ref = qm.quantized_matmul_reference(x, qt)
+        torch.cuda.synchronize()
+        err = float((got.float() - ref.float()).abs().max())
+        scale = float(ref.float().abs().max())
+        wd = qm.dequantize_weight(qt, dt)
+        plan = qm._tuned_plan(M, N, K, bits, dt, x.device)
+        case = dict(bits=bits, dtype=dtype, M=M, N=N, K=K,
+                    plan=dict(plan._asdict()), max_abs_err=err,
+                    out_scale=scale, tol=TOL[dtype] * scale,
+                    bit_equal_calls=bool(torch.equal(got, again)))
+        case["ok"] = err <= case["tol"] and case["bit_equal_calls"]
+
+        def kern():
+            return qm.quantized_matmul(x, qt)
+
+        def lib():
+            return x @ wd.T
+
+        case["ms"] = time_ms(kern)
+        case["device_ms"] = time_ms(kern, device_only=True)
+        case["host_us"] = host_us(kern)
+        case["plain_ms"] = time_ms(
+            lambda: qm.quantized_matmul_reference(x, qt))
+        case["library_ms"] = time_ms(lib)
+        case["library_device_ms"] = time_ms(lib, device_only=True)
+        case["library_host_us"] = host_us(lib)
+        case["vs_library"] = case["ms"] / case["library_ms"]
+        nbytes = x.numel() * x.element_size() + qt.nbytes() \
+            + M * N * x.element_size()
+        # f32 x: the weight is exact in TF32, so two TF32 products (x's hi
+        # and lo halves) give the f32 result; that rate bounds it
+        case["bound_ms"], case["bound_by"] = bound(
+            nbytes, 2.0 * M * N * K,
+            "tf32x2" if dtype == "float32" else dtype)
+        out.append(case)
+        del qt, x, wd, got, again, ref
     return out
 
 
@@ -1382,12 +1440,72 @@ def run_tune(dev, results, card):
                           f" ms ({st['bound_by']}) on {card}", flush=True)
                 if not st["ok"]:
                     raise AssertionError(f"tune {label}: {st}")
+            results["tune"]["k2_int8"] = st = k2_tune_case(dev, at, kernels,
+                                                           torch)
+            print(f"[tune k2_int8] {json.dumps(st)}", flush=True)
+            if not st["ok"]:
+                raise AssertionError(f"tune k2_int8: {st}")
         finally:
             at.clear_memory_cache()
             if old is None:
                 os.environ.pop("MXTPU_AUTOTUNE_CACHE", None)
             else:
                 os.environ["MXTPU_AUTOTUNE_CACHE"] = old
+
+
+K2_TUNE = (8, 2304, 768)      # decode's QKV projection, int8 f32
+
+
+def k2_tune_case(dev, at, kernels, torch):
+    """Cold and warm ``tune("quantized_matmul", (8, 2304, 768), "int8")``
+    over K2's whole plan menu; every candidate's launch against the plain
+    version; the next `quantized_matmul` takes the tuned plan."""
+    from mxnet_tpu_torch.ops import quantized_matmul as qm
+    M, N, K = K2_TUNE
+    cands = qm._candidates(K2_TUNE, "int8")
+    kernels.reset_launch_counts()
+    cold = at.tune("quantized_matmul", K2_TUNE, "int8", top_k=len(cands))
+    trial_launches = kernels.launch_counts()["quantized_matmul"]
+    warm = at.tune("quantized_matmul", K2_TUNE, "int8", top_k=len(cands))
+    warm_launches = kernels.launch_counts()["quantized_matmul"] - \
+        trial_launches
+    g = torch.Generator().manual_seed(17)
+    qt = qm.quantize_weight(torch.randn(N, K, generator=g) * 0.02, 8).to(dev)
+    x = torch.randn(M, K, generator=g).to(dev)
+    ref = qm.quantized_matmul_reference(x, qt)
+    scale = float(ref.abs().max())
+    sms = qm._sms(x.device)
+    errs = {}
+    for c in cands:
+        plan = qm._plan(M, N, K, 8, x.dtype, sms, qm.VARIANTS[c.variant],
+                        c.split)
+        got = qm._qmm_cuda(x, qt, plan)
+        torch.cuda.synchronize()
+        errs[f"{plan.variant}/{plan.split}"] = float((got - ref).abs().max())
+    tuned = qm._tuned_plan(M, N, K, 8, x.dtype, x.device)
+    kernels.reset_launch_counts()
+    qm.quantized_matmul(x, qt)
+    next_launches = kernels.launch_counts()["quantized_matmul"]
+    per_trial = 1 + 5          # time_callable's warmup and runs
+    st = dict(shape=list(K2_TUNE), candidates=len(cands),
+              config=dict(cold.config), cold_trials=cold.trials,
+              cold_search_ms=cold.search_ms, trial_launches=trial_launches,
+              timings_ms={f"{qm.VARIANTS[dict(k)['variant']]}/"
+                          f"{dict(k)['split']}": v
+                          for k, v in cold.timings_ms.items()},
+              warm_hit=warm.cache_hit, warm_trials=warm.trials,
+              warm_launches=warm_launches, candidate_errs=errs,
+              tol=TOL["float32"] * scale, tuned_plan=dict(tuned._asdict()),
+              next_launches=next_launches)
+    st["ok"] = (cold.trials == len(cands)
+                and trial_launches == per_trial * cold.trials
+                and warm.cache_hit and warm.trials == 0
+                and warm_launches == 0
+                and all(e <= st["tol"] for e in errs.values())
+                and (qm.VARIANTS.index(tuned.variant), tuned.split)
+                == (cold.config.variant, cold.config.split)
+                and next_launches == 1)
+    return st
 
 
 def tune_case(dev, n, at, fo, topt, kernels, torch):

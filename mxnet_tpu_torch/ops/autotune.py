@@ -15,10 +15,12 @@ keeps its static default.  A wrapper that memoises its answers keeps them
 while `generation()` stays the same.
 
 Registered so far: ``fused_optimizer`` (the chunk kernel's elements per
-block, `ops.fused_optimizer`) and ``moe_dispatch`` (kernel against the
+block, `ops.fused_optimizer`), ``moe_dispatch`` (kernel against the
 plain scatter, `ops.moe_dispatch`; nothing on the path consults it, as in
-JAX).  The telemetry counters and the tracing attribution of JAX's
-``tune()`` wait for the operations-plane slice (ROADMAP.md A14).
+JAX) and ``quantized_matmul`` (K2's variant and split-K factor,
+`ops.quantized_matmul`).  The telemetry counters and the tracing
+attribution of JAX's ``tune()`` wait for the operations-plane slice
+(ROADMAP.md A14).
 """
 from __future__ import annotations
 
@@ -103,7 +105,8 @@ def tunables() -> List[str]:
 
 def _ensure_builtin() -> None:
     """Import the kernel modules that register tunables."""
-    from . import fused_optimizer, moe_dispatch  # noqa: F401
+    from . import (fused_optimizer, moe_dispatch,  # noqa: F401
+                   quantized_matmul)
 
 
 # ---------------------------------------------------------------------------

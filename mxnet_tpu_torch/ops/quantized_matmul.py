@@ -22,14 +22,24 @@ is ``reference`` or ``off`` (`ops.policy`); otherwise, and on a CPU tensor,
 it runs `quantized_matmul_reference` (dequantize, then ``x @ w.T``) — the
 plain version the CPU tests hold against the JAX package and
 `chip_smoke.py` holds the kernel against on the card.
+
+Launch plan: `_plan` (plain Python) picks K2's variant — the split-K
+stream for M <= 16, the tensor-core tile kernel above — and its split-K
+factor from the shape and the card's SM count; the autotuner's
+``quantized_matmul`` tunable (`_candidates`, `_roofline`, `_build`, as in
+the JAX package) can replace it.  The wrapper looks the plan up once per
+(M, N, K, bits, dtype) and `autotune.generation()`.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
 import torch
 
 from ..base import MXNetError, getenv_bool
 from .. import kernels as _kernels
+from . import autotune
 from .policy import kernel_active
 
 __all__ = ["QuantizedTensor", "quantize_weight", "dequantize_weight",
@@ -90,6 +100,7 @@ class QuantizedTensor:
         self.scale = scale      # f32 (out,)
         self.bits = int(bits)
         self.in_features = int(in_features)
+        self._checked = None    # (q, scale) once K2's wrapper checked them
 
     @property
     def out_features(self) -> int:
@@ -175,31 +186,167 @@ def int8_act_matmul(x, qt: QuantizedTensor):
 
 
 # ---------------------------------------------------------------------------
-# K2: the CUDA kernel (csrc/quantized_matmul.cu)
+# K2: the CUDA kernel (csrc/quantized_matmul.cu) and its launch plan
 # ---------------------------------------------------------------------------
+
+SMALL_M = 16            # M up to this takes the streaming variant
+SMALL_ROWS = 8          # output channels a block of the small variant owns
+SMALL_LANES = 16        # lanes that walk one weight row, 16 bytes each
+LARGE_TILE = (64, 64, 32)   # the tile kernel's (BM, BN, BK)
+SMALL_SMEM = 40 * 1024  # bytes of the small variant's staged x chunk
+VARIANTS = ("small", "large")
+
+
+class Plan(NamedTuple):
+    """One K2 launch: the variant, its tile, the split-K factor and the K
+    values each split covers, and what the wrapper allocates for it."""
+    variant: str         # "small" (streaming, M <= 16) or "large" (tiles)
+    tile: Tuple[int, ...]   # small: (channels, lanes a row); large: BM, BN, BK
+    split: int           # blocks along K; partials reduced in split order
+    kc: int              # K values a split covers
+    blocks: int          # the grid's blocks
+    tiles: int           # output tiles: one ticket counter each
+    workspace: int       # f32 partials (split * M * N), 0 with one split
+
+
+def _granule(variant: str, bits: int) -> int:
+    """The K values a split must be a multiple of: one 16-byte load for
+    each of a row's lanes (small), one K step (large)."""
+    if variant == "small":
+        return SMALL_LANES * (16 if bits == 8 else 32)
+    return LARGE_TILE[2]
+
+
+def _plan(M: int, N: int, K: int, bits: int, dtype, sm_count: int,
+          variant: Optional[str] = None, split: Optional[int] = None) -> Plan:
+    """The launch plan of one K2 call, plain Python (no card needed).
+
+    The small variant for M <= 16, else the tile kernel (``variant``
+    overrides, as the autotuner's candidates do).  The split-K factor
+    (``split`` overrides) grows until the grid holds two blocks per SM
+    and no lane loads more than three 16-byte vectors (small), or until
+    the tiles fill one wave and no split runs more than 12 K steps
+    (large; no split where the tiles fill two waves), as far as K's
+    granules allow.  Each split covers a whole number of granules, the
+    last one what is left; the small variant's staged x chunk caps a
+    split at 40 KB.  ``dtype`` (x's) does not change the plan: both
+    dtypes share the tiles."""
+    del dtype
+    variant = variant or ("small" if M <= SMALL_M else "large")
+    if variant not in VARIANTS:
+        raise MXNetError(f"unknown K2 variant {variant!r}")
+    if variant == "small" and M > SMALL_M:
+        raise MXNetError(f"the small K2 variant takes M <= {SMALL_M}, "
+                         f"got {M}")
+    g = _granule(variant, bits)
+    ngran = max(1, -(-K // g))
+    if variant == "small":
+        tile = (SMALL_ROWS, SMALL_LANES)
+        tiles = -(-N // SMALL_ROWS)
+        mt = 8 if M <= 8 else 16
+        kc_max = max(g, SMALL_SMEM // (4 * mt) // g * g)
+        # two blocks an SM, and at most three loads a lane in a split
+        want = max(-(-2 * sm_count // tiles), -(-ngran // 3))
+    else:
+        tile = LARGE_TILE
+        tiles = -(-M // LARGE_TILE[0]) * -(-N // LARGE_TILE[1])
+        kc_max = ngran * g
+        # one wave of tiles, and at most 12 K steps a split, unless the
+        # tiles alone fill two waves
+        want = 1 if tiles >= 2 * sm_count else max(
+            -(-sm_count // tiles), -(-ngran // 12))
+    if split is None:
+        split = want
+    split = max(1, min(int(split), ngran))
+    kc = min(ngran // split * g, kc_max)
+    split = max(1, -(-K // kc))
+    return Plan(variant, tile, split, kc, tiles * split, tiles,
+                split * M * N if split > 1 else 0)
+
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _fn = None
+_sm_count: Dict[Any, int] = {}
+# (device index, raw stream) -> (ticket counters, f32 partials workspace)
+_scratch_of: Dict[Any, Tuple[torch.Tensor, torch.Tensor]] = {}
+# plans already made, keyed by shape, bits, dtype and device, valid for the
+# autotuner generation in `_plan_memo_gen`
+_plan_memo: Dict[Any, Plan] = {}
+_plan_memo_gen = None
 
 
 def _kernel_fn():
     global _fn
     if _fn is None:
         f = _kernels.load("quantized_matmul").mxt_quantized_matmul
-        f.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+        f.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                      _P]
         f.restype = _I
         _fn = f
     return _fn
 
 
-def _qmm_cuda(x2, qt: QuantizedTensor):
-    """Check the operands, then launch K2 on the current stream."""
-    M, K = x2.shape
-    N = qt.out_features
-    if x2.dtype not in (torch.float32, torch.bfloat16):
-        raise MXNetError(f"quantized_matmul kernel takes float32 or "
-                         f"bfloat16 activations, got {x2.dtype}")
+def _sms(device) -> int:
+    """The card's SM count, read once per device."""
+    n = _sm_count.get(device)
+    if n is None:
+        n = _sm_count[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n
+
+
+def _scratch(device, stream: int, plan: Plan):
+    """The split-K scratch of one stream: at least ``plan.tiles`` zeroed
+    uint32 ticket counters (as int32) and ``plan.workspace`` f32 partials.
+    Every launch leaves its counters zeroed, and launches on one stream run
+    in order, so each stream keeps one pair and grows it when a plan needs
+    more; a launch on another stream never shares its tickets."""
+    key = (device.index, stream)
+    got = _scratch_of.get(key)
+    if (got is None or got[0].numel() < plan.tiles
+            or got[1].numel() < plan.workspace):
+        have = (0, 0) if got is None else (got[0].numel(), got[1].numel())
+        got = _scratch_of[key] = (
+            torch.zeros(max(plan.tiles, have[0], 1024), dtype=torch.int32,
+                        device=device),
+            torch.empty(max(plan.workspace, have[1]), dtype=torch.float32,
+                        device=device))
+    return got
+
+
+def _tuned_plan(M, N, K, bits, dtype, device) -> Plan:
+    """`_plan` under the autotuner's choice for (M, N, K), ``int<bits>``
+    and x's dtype, looked up once per key and `autotune.generation()`,
+    not at each of a step's calls."""
+    global _plan_memo_gen
+    gen = autotune.generation()
+    if gen != _plan_memo_gen:
+        _plan_memo.clear()
+        _plan_memo_gen = gen
+    key = (M, N, K, bits, dtype, device)
+    plan = _plan_memo.get(key)
+    if plan is None:
+        cfg = autotune.cached_config("quantized_matmul", (M, N, K),
+                                     _tune_dtype(bits, dtype))
+        variant = split = None
+        if cfg is not None and "variant" in cfg and "split" in cfg:
+            # a bucket holds M <= 16 or M > 16 alone, so a tuned variant
+            # always fits the M it is looked up for
+            variant, split = VARIANTS[cfg.variant], cfg.split
+        plan = _plan_memo[key] = _plan(M, N, K, bits, dtype, _sms(device),
+                                       variant, split)
+    return plan
+
+
+def _check_weight(qt: QuantizedTensor):
+    """The planes' and scales' dtype, shape, device and layout, checked
+    once per pair of tensors: the serving step reuses one weight 48 times
+    a step, and the wrapper's host time is what a host-bound step pays."""
+    if qt._checked is not None and qt._checked[0] is qt.q \
+            and qt._checked[1] is qt.scale:
+        return
+    N, K = qt.out_features, qt.in_features
     kp = (K + 1) // 2 if qt.bits == 4 else K
     if qt.q.dtype != torch.int8 or tuple(qt.q.shape) != (N, kp):
         raise MXNetError(
@@ -208,22 +355,49 @@ def _qmm_cuda(x2, qt: QuantizedTensor):
     if qt.scale.dtype != torch.float32 or tuple(qt.scale.shape) != (N,):
         raise MXNetError(f"scale must be float32 ({N},); got "
                          f"{qt.scale.dtype} {tuple(qt.scale.shape)}")
-    for name, t in (("x", x2), ("q", qt.q), ("scale", qt.scale)):
-        if t.device != x2.device:
-            raise MXNetError(f"{name} is on {t.device}, x on {x2.device}")
+    if qt.scale.device != qt.q.device:
+        raise MXNetError(f"scale is on {qt.scale.device}, q on "
+                         f"{qt.q.device}")
+    for name, t in (("q", qt.q), ("scale", qt.scale)):
         if not t.is_contiguous():
             raise MXNetError(f"quantized_matmul kernel needs a contiguous "
                              f"{name}")
-    out = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
+    qt._checked = (qt.q, qt.scale)
+
+
+def _qmm_cuda(x2, qt: QuantizedTensor, plan: Optional[Plan] = None):
+    """Check the operands, then launch K2 on the current stream with
+    `plan` (default: the tuned or planned one for this shape)."""
+    M, K = x2.shape
+    N = qt.out_features
+    dt = x2.dtype
+    if dt is not torch.float32 and dt is not torch.bfloat16:
+        raise MXNetError(f"quantized_matmul kernel takes float32 or "
+                         f"bfloat16 activations, got {dt}")
+    _check_weight(qt)
+    dev = x2.device
+    if qt.q.device != dev:
+        raise MXNetError(f"q is on {qt.q.device}, x on {dev}")
+    if not x2.is_contiguous():
+        raise MXNetError("quantized_matmul kernel needs a contiguous x")
+    out = torch.empty((M, N), dtype=dt, device=dev)
     if out.numel() == 0:
         return out
+    if plan is None:
+        plan = _tuned_plan(M, N, K, qt.bits, dt, dev)
+    # the raw handle, without building a torch.cuda.Stream each call
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    ws = cnt = None
+    if plan.split > 1:
+        cnt, ws = _scratch(dev, stream, plan)
+        cnt, ws = cnt.data_ptr(), ws.data_ptr()
     err = _kernel_fn()(
         x2.data_ptr(), qt.q.data_ptr(), qt.scale.data_ptr(), out.data_ptr(),
-        M, N, K, qt.bits, int(x2.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x2.device).cuda_stream)
+        M, N, K, qt.bits, dt is torch.bfloat16,
+        plan.variant == "large", plan.kc, ws, cnt, stream)
     if err:
         raise MXNetError(f"quantized_matmul kernel launch failed "
-                         f"(cudaError_t {err})")
+                         f"(cudaError_t {err}, {plan})")
     _kernels.LAUNCHES["quantized_matmul"] += 1
     return out
 
@@ -257,16 +431,16 @@ def quantized_matmul(x, qt: QuantizedTensor):
             f"in_features {qt.in_features}")
     if act_quant_enabled():
         return int8_act_matmul(x, qt)
-    lead = x.shape[:-1]
-    x2 = x.reshape(-1, qt.in_features)
-    if x.device.type not in ("cuda", "cpu"):
-        raise MXNetError(f"quantized_matmul runs on cuda or cpu, not "
-                         f"{x.device}")
-    if launches_kernel(x.device):
+    dev = x.device
+    if dev.type not in ("cuda", "cpu"):
+        raise MXNetError(f"quantized_matmul runs on cuda or cpu, not {dev}")
+    flat = x.dim() != 2
+    x2 = x.reshape(-1, qt.in_features) if flat else x
+    if launches_kernel(dev):
         out = _qmm_cuda(x2.contiguous(), qt)
     else:
         out = quantized_matmul_reference(x2, qt)
-    return out.reshape(*lead, qt.out_features)
+    return out.reshape(*x.shape[:-1], qt.out_features) if flat else out
 
 
 def matmul_nt(x, w):
@@ -297,3 +471,88 @@ def gather_rows(w, idx):
     if w.bits == 4:
         q = unpack_int4(q, w.in_features)
     return q.float() * w.scale[idx][..., None]
+
+
+# ---------------------------------------------------------------------------
+# autotune registration: K2's plan menu (variant x split-K factor)
+# ---------------------------------------------------------------------------
+
+_TUNE_SPLITS = (1, 2, 3, 4, 6, 8, 12, 16)
+
+
+def _tune_dtype(bits: int, dtype) -> str:
+    """The tuner key's dtype: ``int8`` / ``int4`` for f32 activations, as
+    the JAX package keys it, with ``_bfloat16`` appended for bf16 ones
+    (they take other instructions in the tile kernel)."""
+    name = autotune.dtype_name(dtype)
+    return f"int{bits}" if name == "float32" else f"int{bits}_{name}"
+
+
+def _bits_of(dtype) -> int:
+    return 4 if str(dtype).startswith("int4") else 8
+
+
+def _x_dtype(dtype):
+    return torch.bfloat16 if str(dtype).endswith("bfloat16") \
+        else torch.float32
+
+
+def _shape3(shapes):
+    m = shapes[0] if shapes else 256
+    n = shapes[1] if len(shapes) > 1 else 1024
+    k = shapes[2] if len(shapes) > 2 else 1024
+    return int(m), int(n), int(k)
+
+
+def _candidates(shapes, dtype):
+    """Every distinct plan of the menu: the small variant (M <= 16) and the
+    tile kernel, each at the split factors K's granules allow."""
+    m, n, k = _shape3(shapes)
+    bits = _bits_of(dtype)
+    out, seen = [], set()
+    for vi, variant in enumerate(VARIANTS):
+        if variant == "small" and m > SMALL_M:
+            continue
+        for s in _TUNE_SPLITS:
+            p = _plan(m, n, k, bits, None, 132, variant, s)
+            if (vi, p.split) not in seen:
+                seen.add((vi, p.split))
+                out.append(autotune.BlockConfig(variant=vi, split=p.split))
+    return out
+
+
+def _roofline(config, shapes, dtype):
+    """JAX's count (`mxnet_tpu/ops/pallas/quantized_matmul.py` `_roofline`):
+    x read at 4 bytes, the weight at bits / 8 plus f32 scales, the output at
+    4; one step per block of the plan."""
+    m, n, k = _shape3(shapes)
+    bits = _bits_of(dtype)
+    p = _plan(m, n, k, bits, None, 132, VARIANTS[config.variant],
+              config.split)
+    return {"flops": 2.0 * m * n * k,
+            "bytes": m * k * 4.0 + n * k * bits / 8.0 + n * 4.0
+            + m * n * 4.0,
+            "steps": float(p.blocks)}
+
+
+def _build(config, shapes, dtype):
+    """The trial launch: K2 over seeded (M, K) activations and a seeded
+    quantized (N, K) weight at the candidate's plan — the CUDA kernel on
+    the card (it counts in `kernels.LAUNCHES`), the plain version on the
+    CPU.  Returns the thunk."""
+    m, n, k = _shape3(shapes)
+    bits = _bits_of(dtype)
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if torch.cuda.is_available() else torch.device("cpu")
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(m, k, generator=gen).to(dev, _x_dtype(dtype))
+    qt = quantize_weight(torch.randn(n, k, generator=gen) * 0.02,
+                         bits).to(dev)
+    if dev.type == "cpu":
+        return lambda: quantized_matmul_reference(x, qt)
+    plan = _plan(m, n, k, bits, x.dtype, _sms(dev),
+                 VARIANTS[config.variant], config.split)
+    return lambda: _qmm_cuda(x, qt, plan)
+
+
+autotune.register_tunable("quantized_matmul", _candidates, _build, _roofline)

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain versions, on the card:
-ragged paged attention, the dequant-matmul, flash attention (forward and
+ragged paged attention, the dequant-matmul (every plan of its menu, odd
+shapes, the tied head, two calls bit-equal), flash attention (forward and
 backward, with padding or per-row bias, causal, dropout, ragged L and
 D up to 128), the streaming cross-entropy (any V, unclamped labels), the
 fused LayerNorm/RMSNorm (any h, with and without residual and beta) and
@@ -65,20 +66,91 @@ def test_paged_attention_kernel_matches_plain(card, dtype, tol, C, Hkv, ps,
         assert float(err) <= tol * float(ref[b, :, :n].float().abs().max())
 
 
+def _qmm_case(card, dtype, bits, M, N, K, seed=1):
+    g = torch.Generator().manual_seed(seed)
+    qt = qm.quantize_weight(torch.randn(N, K, generator=g), bits).to(card)
+    x = torch.randn(M, K, generator=g).to(card, dtype)
+    return x, qt
+
+
+def _qmm_check(out, ref, tol):
+    err = (out.float() - ref.float()).abs().max()
+    assert float(err) <= tol * float(ref.float().abs().max())
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("bits", [8, 4])
-@pytest.mark.parametrize("M,N,K", [(8, 96, 64), (37, 70, 33)])
+@pytest.mark.parametrize("M,N,K", [(8, 96, 64), (37, 70, 33), (8, 96, 33),
+                                   (3, 50, 1000), (8, 50257, 768)])
 def test_quantized_matmul_kernel_matches_plain(card, dtype, tol, bits, M, N,
                                                K):
-    g = torch.Generator().manual_seed(1)
-    qt = qm.quantize_weight(torch.randn(N, K, generator=g), bits).to(card)
-    x = torch.randn(M, K, generator=g).to(card, dtype)
+    """Odd shapes (unaligned rows take the scalar path), int4 at K = 33,
+    the tied-head shape; one launch a call."""
+    x, qt = _qmm_case(card, dtype, bits, M, N, K)
+    kernels.reset_launch_counts()
     out = qm.quantized_matmul(x, qt)
+    assert kernels.launch_counts()["quantized_matmul"] == 1
     ref = qm.quantized_matmul_reference(x, qt)
     torch.cuda.synchronize()
-    err = (out.float() - ref.float()).abs().max()
-    assert float(err) <= tol * float(ref.float().abs().max())
+    _qmm_check(out, ref, tol)
+
+
+QMM_SHAPES = [(2304, 768), (768, 768), (3072, 768), (768, 3072)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("M", [1, 8, 16, 17, 128])
+def test_quantized_matmul_every_plan_matches_plain(card, dtype, tol, bits,
+                                                   M):
+    """Every variant and split of the tuner's menu at GPT-2 small's four
+    projection shapes, and the default plan, bit-equal across two calls."""
+    for N, K in QMM_SHAPES:
+        x, qt = _qmm_case(card, dtype, bits, M, N, K, seed=N + K)
+        ref = qm.quantized_matmul_reference(x, qt)
+        sms = qm._sms(x.device)
+        plans = [qm._plan(M, N, K, bits, dtype, sms)] + [
+            qm._plan(M, N, K, bits, dtype, sms, qm.VARIANTS[c.variant],
+                     c.split)
+            for c in qm._candidates((M, N, K), qm._tune_dtype(bits, dtype))]
+        for plan in plans:
+            kernels.reset_launch_counts()
+            a = qm._qmm_cuda(x, qt, plan)
+            b = qm._qmm_cuda(x, qt, plan)
+            torch.cuda.synchronize()
+            assert kernels.launch_counts()["quantized_matmul"] == 2
+            assert torch.equal(a, b), plan
+            _qmm_check(a, ref, tol)
+
+
+@pytest.mark.parametrize("variant,M", [("small", 8), ("large", 128)])
+def test_quantized_matmul_split_k_on_two_streams(card, variant, M):
+    """Split-K launches on two streams at once keep their own ticket
+    counters and partials: each stream's results equal the same launch
+    made alone, bit for bit."""
+    N, K = 768, 3072
+    x, qt = _qmm_case(card, torch.float32, 8, M, N, K)
+    plan = qm._plan(M, N, K, 8, torch.float32, qm._sms(x.device), variant,
+                    4)
+    assert plan.split == 4
+    xs = [x, x * -0.5]
+    wants = [qm._qmm_cuda(xi, qt, plan) for xi in xs]
+    streams = [torch.cuda.Stream(card) for _ in xs]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(20):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(qm._qmm_cuda(xs[i], qt, plan))
+    torch.cuda.synchronize()
+    for want, got in zip(wants, outs):
+        assert all(torch.equal(o, want) for o in got)
+    raw = {st.cuda_stream for st in streams}
+    assert len([k for k in qm._scratch_of if k[1] in raw]) == 2
+    # the counters are left zeroed: a later launch is still right
+    assert torch.equal(qm._qmm_cuda(xs[0], qt, plan), wants[0])
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(card):

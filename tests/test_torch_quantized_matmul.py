@@ -138,3 +138,111 @@ def test_routing_follows_the_kernel_policy(monkeypatch, mode, on_card):
     assert torch.equal(tqm.quantized_matmul(x, tq),
                        tqm.quantized_matmul_reference(x, tq))
     assert kernels.launch_counts()["quantized_matmul"] == 0
+
+
+# ---------------------------------------------------------------------------
+# K2's launch plan and its tunable (plain Python: no card needed)
+# ---------------------------------------------------------------------------
+
+GPT2_SHAPES = [(2304, 768), (768, 768), (3072, 768), (768, 3072)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("M", [1, 8, 16, 17, 128])
+@pytest.mark.parametrize("N,K", GPT2_SHAPES)
+def test_plan_at_gpt2_shapes(dtype, bits, M, N, K):
+    p = tqm._plan(M, N, K, bits, dtype, 132)
+    # the variant switch: streaming up to M 16, tiles above
+    assert p.variant == ("small" if M <= 16 else "large")
+    if p.variant == "small":
+        assert p.tile == (8, 16) and p.tiles == -(-N // 8)
+        # the staged x chunk fits 40 KB
+        assert (8 if M <= 8 else 16) * p.kc * 4 <= 40 * 1024
+    else:
+        assert p.tile == (64, 64, 32)
+        assert p.tiles == -(-M // 64) * -(-N // 64)
+    # the grid fills at least one wave of the 132 SMs
+    assert p.blocks == p.tiles * p.split >= 132
+    # the split tiles K: granule-aligned chunks, the last one not empty
+    assert p.kc % tqm._granule(p.variant, bits) == 0
+    assert p.split == -(-K // p.kc) and (p.split - 1) * p.kc < K
+    assert p.workspace == (p.split * M * N if p.split > 1 else 0)
+
+
+def test_plan_fills_the_card_and_overrides():
+    # N = 768 alone gives 96 streaming blocks: split K until several per SM
+    p = tqm._plan(8, 768, 768, 8, torch.float32, 132)
+    assert (p.split, p.kc, p.blocks) == (3, 256, 288)
+    # ... and until no lane loads more than three 16-byte vectors a split
+    p = tqm._plan(8, 768, 3072, 8, torch.float32, 132)
+    assert (p.split, p.kc, p.blocks) == (4, 768, 384)
+    # the tile kernel: one wave, at most 12 K steps of 32 a split
+    p = tqm._plan(128, 768, 3072, 8, torch.float32, 132)
+    assert (p.split, p.kc, p.blocks) == (8, 384, 192)
+    # grids already past two blocks an SM (two waves of tiles) not split
+    for m in (8, 128):
+        head = tqm._plan(m, 50257, 768, 8, torch.float32, 132)
+        assert (head.split, head.workspace) == (1, 0)
+    # overrides (the tuner's candidates) clamp to K's granules
+    one = tqm._plan(8, 2304, 768, 8, torch.float32, 132, "large", 100)
+    assert (one.variant, one.split, one.kc) == ("large", 24, 32)
+    assert tqm._plan(128, 64, 33, 4, torch.float32, 132).split == 2
+    with pytest.raises(MXNetError, match="M <= 16"):
+        tqm._plan(17, 64, 64, 8, torch.float32, 132, "small")
+    with pytest.raises(MXNetError, match="variant"):
+        tqm._plan(8, 64, 64, 8, torch.float32, 132, "huge")
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("shapes", [(8, 2304, 768), (128, 768, 3072),
+                                    (37, 70, 33)])
+def test_tunable_roofline_matches_jax(bits, shapes):
+    from mxnet_tpu.ops.pallas import autotune as jat
+    dt = f"int{bits}"
+    jcfg = jat.BlockConfig(block_m=64, block_n=128, block_k=128)
+    want = jqm._roofline(jcfg, shapes, dt)
+    cands = tqm._candidates(shapes, dt)
+    assert cands
+    for c in cands:
+        got = tqm._roofline(c, shapes, dt)
+        assert got["flops"] == want["flops"]
+        assert got["bytes"] == want["bytes"]
+        plan = tqm._plan(*shapes, bits, None, 132, tqm.VARIANTS[c.variant],
+                         c.split)
+        assert got["steps"] == plan.blocks and plan.split == c.split
+    # the menu: both variants at M <= 16, the tile kernel alone above
+    assert {c.variant for c in cands} == ({0, 1} if shapes[0] <= 16
+                                          else {1})
+    assert len({(c.variant, c.split) for c in cands}) == len(cands)
+
+
+def test_tuned_plan_is_looked_up_once_per_generation(monkeypatch, tmp_path):
+    from mxnet_tpu_torch.ops import autotune as at
+    monkeypatch.setenv("MXTPU_AUTOTUNE_CACHE", str(tmp_path))
+    at.clear_memory_cache()
+    calls = []
+    real = at.cached_config
+    monkeypatch.setattr(tqm, "_sms", lambda device: 132)
+    monkeypatch.setattr(at, "cached_config",
+                        lambda *a, **k: calls.append(a) or real(*a, **k))
+    try:
+        dev = torch.device("cpu")
+        p = tqm._tuned_plan(8, 2304, 768, 8, torch.float32, dev)
+        assert p == tqm._plan(8, 2304, 768, 8, torch.float32, 132)
+        for _ in range(47):
+            tqm._tuned_plan(8, 2304, 768, 8, torch.float32, dev)
+        assert len(calls) == 1
+        assert calls[0][1:] == ((8, 2304, 768), "int8")
+        # a tuned config moves the generation: the next call takes it
+        cold = at.tune("quantized_matmul", (8, 2304, 768), "int8", runs=1,
+                       top_k=2)
+        assert cold.trials == 2
+        p = tqm._tuned_plan(8, 2304, 768, 8, torch.float32, dev)
+        assert len(calls) == 3          # tune's own lookup, then ours
+        assert (tqm.VARIANTS.index(p.variant), p.split) == (
+            cold.config.variant, cold.config.split)
+        tqm._tuned_plan(8, 2304, 768, 4, torch.bfloat16, dev)
+        assert calls[-1][1:] == ((8, 2304, 768), "int4_bfloat16")
+    finally:
+        at.clear_memory_cache()
