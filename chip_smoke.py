@@ -38,8 +38,11 @@ widths (hidden 768, FFN 3072, 8 experts) through `TrainStep` and the gluon
    bf16 with no mask, a key-padding bias from seeded ``valid_length``
    (0.85 L - L), a per-row bias, causal, and the padding bias with dropout
    0.1 (one seed on both sides, so the keep masks coincide) — max-abs
-   1e-4 (f32) / 2e-2 (bf16) of the scale of O, dQ, dK and dV; timed
-   against ``scaled_dot_product_attention`` with the same float mask;
+   1e-4 (f32) / 2e-2 (bf16) of the scale of O, dQ, dK and dV, two
+   backward calls bit-equal; timed against
+   ``scaled_dot_product_attention`` with the same float mask, the backward
+   also device-only and its host µs a call, beside SDPA's; the backward's
+   f32 bound at the 3xTF32 rate (a third of 495 TFLOP/s);
 7. (k4) the streaming softmax cross-entropy, forward and backward, against
    its plain version at (1280, 30522) in f32 and bf16 and at the odd
    V 50257, timed against ``cross_entropy(x.float(), y)``;
@@ -137,8 +140,11 @@ GAP = 1e-4            # near-tie threshold on the plain path's top-2 gap
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # max-abs / output scale
 HBM_BPS = 3.35e12     # H100 SXM HBM3
 # FMA f32 / dense bf16 tensor cores / two TF32 tensor-core products a
-# multiply-add (f32 x split hi + lo, K2's exact f32 route): half of 495
-PEAK = {"float32": 67e12, "bfloat16": 989e12, "tf32x2": 247.5e12}
+# multiply-add (f32 x split hi + lo, K2's exact f32 route): half of 495 /
+# three (both operands split, 3xTF32: the flash backward's f32 route): a
+# third of 495
+PEAK = {"float32": 67e12, "bfloat16": 989e12, "tf32x2": 247.5e12,
+        "tf32x3": 165e12}
 TRAIN_STEPS = 20
 OPT_RTOL = 1e-5       # optimizer kernels vs plain, of each tensor's scale
 OPT_MISMATCH = 1e-4   # share of bf16 weight elements off the plain value
@@ -605,6 +611,7 @@ def k3_cases(dev):
     """The flash kernels at BERT-base's attention shape, one (b, h) per
     bh: B 64, H 12, L 128, D 64."""
     import torch
+    from mxnet_tpu_torch import kernels
     from mxnet_tpu_torch.ops import flash_attention as fa
 
     B, H, L, D = 64, 12, 128, 64
@@ -633,10 +640,16 @@ def k3_cases(dev):
             op_, lp_ = fa.flash_fwd_reference(*a)
             gk = fa._flash_bwd_cuda(q, k, v, bias3, seed, ok_, lk_, do,
                                     scale, causal, rate, per_head, per_row)
+            again = fa._flash_bwd_cuda(q, k, v, bias3, seed, ok_, lk_, do,
+                                       scale, causal, rate, per_head,
+                                       per_row)
             gp = fa.flash_bwd_reference(q, k, v, bias3, seed, op_, lp_, do,
                                         scale, causal, rate, per_head,
                                         per_row)
             torch.cuda.synchronize()
+            bit_equal = all(torch.equal(a_, b_) for a_, b_ in zip(gk, again))
+            plan = fa._bwd_plan(B, H, L, L, D, dt,
+                                kernels.sm_count(dev))._asdict()
             errs = {}
             for nm, x, y in zip(("out", "dq", "dk", "dv"),
                                 (ok_,) + tuple(gk), (op_,) + tuple(gp)):
@@ -645,8 +658,10 @@ def k3_cases(dev):
                         max_abs_err=max(e for e, _ in errs.values()),
                         errors={nm: {"err": e, "scale": sc}
                                 for nm, (e, sc) in errs.items()},
-                        ok=all(e <= TOL[dtype] * sc
-                               for e, sc in errs.values()))
+                        bit_equal_calls=bit_equal,
+                        bwd_plan=plan,
+                        ok=bit_equal and all(e <= TOL[dtype] * sc
+                                             for e, sc in errs.values()))
             # timings: kernel, plain version, SDPA with the same float mask
             mask = None if bias is None else (
                 bias[:, None, None, :] if bias.dim() == 2
@@ -662,12 +677,22 @@ def k3_cases(dev):
             case["library_ms"] = time_ms(lib_fwd)
             bwd_args = (q, k, v, bias3, seed)
             tail = (scale, causal, rate, per_head, per_row)
-            case["bwd_ms"] = time_ms(lambda: fa._flash_bwd_cuda(
-                *bwd_args, ok_, lk_, do, *tail))
+
+            def kern_bwd():
+                return fa._flash_bwd_cuda(*bwd_args, ok_, lk_, do, *tail)
+
+            def lib_bwd():
+                return torch.autograd.grad(o_lib, (qs, ks, vs), do,
+                                           retain_graph=True)
+            case["bwd_ms"] = time_ms(kern_bwd)
+            case["bwd_device_ms"] = time_ms(kern_bwd, device_only=True)
+            case["bwd_host_us"] = host_us(kern_bwd)
             case["bwd_plain_ms"] = time_ms(lambda: fa.flash_bwd_reference(
                 *bwd_args, op_, lp_, do, *tail))
-            case["bwd_library_ms"] = time_ms(lambda: torch.autograd.grad(
-                o_lib, (qs, ks, vs), do, retain_graph=True))
+            case["bwd_library_ms"] = time_ms(lib_bwd)
+            case["bwd_library_device_ms"] = time_ms(lib_bwd,
+                                                    device_only=True)
+            case["bwd_library_host_us"] = host_us(lib_bwd)
 
             def kernel_fb():
                 o_, l_ = fa._flash_fwd_cuda(*a)
@@ -692,8 +717,10 @@ def k3_cases(dev):
             bias_b = 0 if bias3 is None else bias3.numel() * 4
             case["bound_ms"], case["bound_by"] = bound(
                 4 * tensor + B * H * L * 4 + bias_b, 4.0 * pairs * D, dtype)
+            # the backward's f32 products run as 3xTF32 on the tensor cores
             case["bwd_bound_ms"], case["bwd_bound_by"] = bound(
-                8 * tensor + B * H * L * 4 + bias_b, 10.0 * pairs * D, dtype)
+                8 * tensor + B * H * L * 4 + bias_b, 10.0 * pairs * D,
+                "tf32x3" if dtype == "float32" else dtype)
             out.append(case)
             del o_lib, qs, ks, vs
     return out

@@ -1,0 +1,100 @@
+#!/usr/bin/env python3
+"""The flash attention kernels and the BERT step's time in them, beside
+another tree.
+
+    python3 flash_profile.py [--other DIR] [--out chiprun_out/flash_profile.json]
+
+Runs each tree in turns (this, other, other, this with ``--other``, an
+earlier commit unpacked with ``git archive``; this alone without), each
+run in fresh processes of that tree with its own package, kernels and
+`chip_smoke.py`:
+- `chip_smoke.k3_cases`: phase 6's flash cases (B 64, H 12, L 128, D 64;
+  five masks, f32 and bf16), forward and backward timed by the tree's
+  `chip_smoke.time_ms` (the same timer in both trees) beside SDPA;
+- the tree's ``train_profile.py``: the BERT-base step's traced wall,
+  device time and device time by kernel class, per run of its ``RUNS``.
+Prints every run's numbers and, per flash case, each tree's mean backward
+and forward ms.  Needs a CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+_RUN = """
+import json, sys, torch, chip_smoke
+torch.backends.cuda.matmul.allow_tf32 = False
+json.dump(chip_smoke.k3_cases(torch.device("cuda", 0)), open(sys.argv[1], "w"))
+"""
+
+
+def run_tree(tree, out_dir, i):
+    path = os.path.join(out_dir, f"flash_run{i}.json")
+    subprocess.run([sys.executable, "-c", _RUN, path], cwd=tree, check=True)
+    prof = os.path.join(out_dir, f"flash_run{i}_train_profile.json")
+    subprocess.run([sys.executable, "train_profile.py", "--out", prof],
+                   cwd=tree, check=True, stdout=subprocess.DEVNULL)
+    with open(path) as f:
+        k3 = json.load(f)
+    with open(prof) as f:
+        profile = json.load(f)
+    steps = {k: dict(wall_ms=v["wall_ms_per_step"],
+                     device_ms=v["device_ms_per_step"],
+                     idle=v["device_idle_share"],
+                     launches=v["kernel_launches_per_step"],
+                     by_class=v["device_ms_per_step_by_class"])
+             for k, v in profile.items() if isinstance(v, dict)}
+    return dict(k3=k3, steps=steps)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--other", default=None,
+                    help="a second tree to run in the same call")
+    ap.add_argument("--out", default=os.path.join(
+        HERE, "chiprun_out", "flash_profile.json"))
+    args = ap.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("flash_profile: needs a CUDA card", file=sys.stderr)
+        return 2
+    out_dir = os.path.dirname(os.path.abspath(args.out))
+    os.makedirs(out_dir, exist_ok=True)
+    order = ["this", "other", "other", "this"] if args.other else ["this"]
+    trees = {"this": HERE, "other": os.path.abspath(args.other or HERE)}
+    runs = []
+    for i, which in enumerate(order):
+        r = run_tree(trees[which], out_dir, i)
+        r["tree"] = which
+        runs.append(r)
+        for k, v in r["steps"].items():
+            print(f"[run {i} {which}] {k} {json.dumps(v)}", flush=True)
+    rows, ok = [], True
+    for c in runs[0]["k3"]:
+        k = (c["dtype"], c["case"])
+        row = {"dtype": k[0], "case": k[1]}
+        for which in ("this", "other"):
+            got = [d for r in runs if r["tree"] == which for d in r["k3"]
+                   if (d["dtype"], d["case"]) == k]
+            for name in ("bwd_ms", "ms", "bwd_library_ms"):
+                if got:
+                    row[f"{which}_{name}"] = sum(d[name] for d in got) / len(
+                        got)
+        ok = ok and all(d["ok"] for r in runs if r["tree"] == "this"
+                        for d in r["k3"] if (d["dtype"], d["case"]) == k)
+        rows.append(row)
+        print(f"[k3] {json.dumps(row)}", flush=True)
+    with open(args.out, "w") as f:
+        json.dump({"card": torch.cuda.get_device_name(0), "order": order,
+                   "other": args.other, "runs": runs, "cases": rows}, f,
+                  indent=1)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

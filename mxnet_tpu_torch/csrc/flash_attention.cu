@@ -23,22 +23,40 @@
 //     backward applies the same mask to dP and to P (:374-376, :426-439).
 //   * p (and dS) are rounded to the input type before their products, as the
 //     TPU kernels cast them to v's (k's, q's) dtype.
-//   * backward by recompute from lse: di = rowsum(dO * O); dQ walks k tiles
-//     per q tile; dK/dV walk q tiles per k tile.  No atomics, so the result
-//     is deterministic.
+//   * backward by recompute from lse: di = rowsum(dO * O); dQ, dK and dV
+//     without float atomics, so the result is deterministic.
 //
 // What bounds it on the H100: at BERT's shapes (L = 128, D = 64) the work is
 // 4 * BH * Lq * Lk * D flops forward (10x backward) against a few MB of
-// q/k/v/o, so in bf16 the tensor cores' rate, in f32 the FMA rate.  Design,
-// simple first: one block of 256 threads per (bh, 64-row tile); 64-key tiles
-// of K and V are staged in shared memory as f32 (padded stride, no bank
-// conflicts); each thread owns a 4 x 4 tile of scores and a 4 x D/16 tile of
-// the output accumulator in registers, with SIMT FMAs.  Any Lq, Lk (ragged
-// tiles are masked) and D <= 128.  No tensor cores, cp.async or TMA yet.
+// q/k/v/o, so in bf16 the tensor cores' rate, in f32 the FMA rate (forward)
+// or three TF32 products a multiply-add (backward).
+//
+// Forward, simple first: one block of 256 threads per (bh, 64-row tile);
+// 64-key tiles of K and V are staged in shared memory as f32 (padded
+// stride, no bank conflicts); each thread owns a 4 x 4 tile of scores and a
+// 4 x D/16 tile of the output accumulator in registers, with SIMT FMAs.
+//
+// Backward (`flash_bwd_kernel`), one pass per key tile: a block holds a
+// tile of 64 or 128 keys (the host's `_bwd_plan` picks) with K and V in
+// shared memory and its dK, dV accumulators in registers, and walks the q
+// tiles through a two-stage 16-byte cp.async ring of Q, dO, lse and di.
+// Each q tile is five tensor-core products -- S = Q K^T, dP = dO V^T,
+// dV += Pd^T dO, dK += dS^T Q, dQ = dS K -- each operand read once: bf16 as
+// mma.sync m16n8k16 from ldmatrix fragments with f32 accumulation, f32 as
+// 3xTF32 m16n8k8 (hi/lo halves of both operands; plain TF32 keeps three
+// digits).  P and dS feed dV and dK from registers, rounded to the input
+// type; dS goes through shared memory once for dQ.  With one key tile (BERT:
+// L = 128 in a 128-key tile) the block writes dQ; with more, the key tiles'
+// f32 partials are summed in key-tile order by the last block to arrive on
+// an integer ticket per (bh, q tile).  A light row pass computes di first,
+// so a call is two launches.  Any Lq, Lk (ragged tiles are masked) and
+// D <= 128 (tiles padded to 64 or 128 columns).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "mma_sm90.cuh"   // cp.async, ldmatrix, mma.sync, arrive_last
 
 namespace {
 
@@ -170,13 +188,6 @@ __device__ __forceinline__ void tile_dot(float (&s)[NI][NJ], const float* a,
 size_t fwd_smem(int D) {
   return sizeof(float) * (3 * (size_t)BQ * (D + 1) + (size_t)BQ * LDP + 3 * BQ);
 }
-size_t dq_smem(int D) {
-  return sizeof(float) * (4 * (size_t)BQ * (D + 1) + (size_t)BQ * LDP + 2 * BQ);
-}
-size_t dkv_smem(int D) {
-  return sizeof(float) *
-         (4 * (size_t)BQ * (D + 1) + 2 * (size_t)BQ * LDP + 2 * BQ);
-}
 
 // ---------------------------------------------------------------------------
 // forward: one block per (bh, 64-row q tile)
@@ -301,217 +312,596 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// backward 1: di = rowsum(dO * O) and dQ, one block per (bh, 64-row q tile)
+// backward: di = rowsum(dO * O) (a row pass), then one pass per key tile
 // ---------------------------------------------------------------------------
-template <typename T, int NC>
-__global__ void __launch_bounds__(THREADS)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const float* __restrict__ bias,
-                const int* __restrict__ seed, const T* __restrict__ o,
-                const float* __restrict__ lse, const T* __restrict__ dout,
-                float* __restrict__ di, T* __restrict__ dq, Params p) {
-  extern __shared__ float smem[];
-  const int D = p.D, ld = D + 1;
-  float* qs = smem;                  // [BQ][ld]
-  float* dos = qs + BQ * ld;         // [BQ][ld]
-  float* ks = dos + BQ * ld;         // [BK][ld]
-  float* vs = ks + BK * ld;          // [BK][ld]
-  float* dss = vs + BK * ld;         // [BQ][LDP] dS
-  float* row_lse = dss + BQ * LDP;   // [BQ]
-  float* row_di = row_lse + BQ;      // [BQ]
 
-  const int bh = blockIdx.x, q0 = blockIdx.y * BQ;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int lane = tid & 31, warp = tid >> 5;
-  const uint32_t base =
-      p.rate > 0.f ? drop_base((uint32_t)seed[0], (uint32_t)bh) : 0u;
+// the dot product of two 16-byte vectors of T, in f32
+__device__ __forceinline__ float dot16(const float* a, const float* b) {
+  const float4 x = *reinterpret_cast<const float4*>(a);
+  const float4 y = *reinterpret_cast<const float4*>(b);
+  return fmaf(x.w, y.w, fmaf(x.z, y.z, fmaf(x.y, y.y, x.x * y.x)));
+}
+__device__ __forceinline__ float dot16(const __nv_bfloat16* a,
+                                       const __nv_bfloat16* b) {
+  const uint4 x = *reinterpret_cast<const uint4*>(a);
+  const uint4 y = *reinterpret_cast<const uint4*>(b);
+  const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    s = fmaf(__uint_as_float(xs[i] << 16), __uint_as_float(ys[i] << 16), s);
+    s = fmaf(__uint_as_float(xs[i] & 0xffff0000u),
+             __uint_as_float(ys[i] & 0xffff0000u), s);
+  }
+  return s;
+}
 
-  load_tile(qs, q, bh, q0, p.Lq, D, BQ);
-  load_tile(dos, dout, bh, q0, p.Lq, D, BQ);
-  __syncthreads();
-  // di per row (unchanged by dropout, :332-338), kept for the dK/dV kernel
-  for (int rr = 0; rr < BQ / 8; ++rr) {
-    const int r = warp * (BQ / 8) + rr;
-    const bool live = q0 + r < p.Lq;
-    float sum = 0.f;
-    if (live) {
-      const size_t ob = ((size_t)bh * p.Lq + q0 + r) * D;
-      for (int d = lane; d < D; d += 32)
-        sum = fmaf(dos[r * ld + d], to_f(o[ob + d]), sum);
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) {
-      row_di[r] = sum;
-      row_lse[r] = live ? lse[(size_t)bh * p.Lq + q0 + r] : 0.f;
-      if (live) di[(size_t)bh * p.Lq + q0 + r] = sum;
+// di of every row: with vec (rows of whole 16-byte chunks, aligned) 8
+// lanes a row and 16-byte loads, else one warp a row
+template <typename T>
+__global__ void __launch_bounds__(256)
+flash_bwd_di_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                    float* __restrict__ di, int rows, int D, int vec) {
+  const int gt = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lpr = vec ? 8 : 32;  // lanes a row
+  const int row = gt / lpr, l = threadIdx.x & (lpr - 1);
+  float s = 0.f;
+  if (row < rows) {
+    const size_t b = (size_t)row * D;
+    if (vec) {
+      constexpr int EPC = 16 / sizeof(T);
+      for (int d0 = l * EPC; d0 < D; d0 += 8 * EPC)
+        s += dot16(o + b + d0, dout + b + d0);
+    } else {
+      for (int d = l; d < D; d += 32)
+        s = fmaf(to_f(dout[b + d]), to_f(o[b + d]), s);
     }
   }
-  float acc[NI][NC];
-#pragma unroll
-  for (int i = 0; i < NI; ++i)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+  for (int off = lpr / 2; off > 0; off >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (row < rows && l == 0) di[row] = s;
+}
 
-  const int k_end = p.causal ? min(p.Lk, q0 + BQ) : p.Lk;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();
-    load_tile(ks, k, bh, k0, p.Lk, D, BK);
-    load_tile(vs, v, bh, k0, p.Lk, D, BK);
-    __syncthreads();
-    float s[NI][NJ], dp[NI][NJ];
-    tile_dot(s, qs, ks, D, ty, tx);
-    tile_dot(dp, dos, vs, D, ty, tx);
+// 2^x in one MUFU op (relative error about 2^-22; results below 2^-126
+// flush to 0): the backward's exp(s - lse) as 2^((s - lse) log2 e)
+constexpr float LOG2E = 1.4426950408889634f;
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The operand fragments of the backward's tensor-core products, by input
+// type (layouts in mma_sm90.cuh).  X is a tile in shared memory with row
+// stride ld elements; B loads fill the two 8-wide n-tiles at n0, n0 + 8.
+template <typename T> struct Mma;
+
+// bf16: m16n8k16 with f32 accumulation; tiles stay bf16 and ldmatrix
+// loads the fragments (rows padded by 16 bytes: conflict-free)
+template <> struct Mma<__nv_bfloat16> {
+  using T = __nv_bfloat16;
+  static constexpr int KS = 16;  // k of one product
+  static constexpr int PAD = 8;  // row pad, elements
+  struct A { uint32_t r[4]; };
+  struct B { uint32_t r[2]; };
+  // A[m][k] = X[m0 + m][k0 + k]
+  static __device__ __forceinline__ void a_row(A& a, const T* X, int ld,
+                                               int m0, int k0, int lane) {
+    const int mi = lane >> 3, ri = lane & 7;
+    ldsm_x4(a.r, X + (m0 + (mi & 1) * 8 + ri) * ld + k0 + (mi >> 1) * 8);
+  }
+  // A[m][k] = X[k0 + k][m0 + m]
+  static __device__ __forceinline__ void a_trans(A& a, const T* X, int ld,
+                                                 int m0, int k0, int lane) {
+    const int mi = lane >> 3, ri = lane & 7;
+    ldsm_x4_t(a.r, X + (k0 + (mi >> 1) * 8 + ri) * ld + m0 + (mi & 1) * 8);
+  }
+  // B[k][n] = X[n0 + n][k0 + k]
+  static __device__ __forceinline__ void b_nrow(B (&b)[2], const T* X,
+                                                int ld, int n0, int k0,
+                                                int lane) {
+    const int mi = lane >> 3, ri = lane & 7;
+    uint32_t r[4];
+    ldsm_x4(r, X + (n0 + (mi >> 1) * 8 + ri) * ld + k0 + (mi & 1) * 8);
+    b[0].r[0] = r[0];
+    b[0].r[1] = r[1];
+    b[1].r[0] = r[2];
+    b[1].r[1] = r[3];
+  }
+  // B[k][n] = X[k0 + k][n0 + n]
+  static __device__ __forceinline__ void b_krow(B (&b)[2], const T* X,
+                                                int ld, int k0, int n0,
+                                                int lane) {
+    const int mi = lane >> 3, ri = lane & 7;
+    uint32_t r[4];
+    ldsm_x4_t(r, X + (k0 + (mi & 1) * 8 + ri) * ld + n0 + (mi >> 1) * 8);
+    b[0].r[0] = r[0];
+    b[0].r[1] = r[1];
+    b[1].r[0] = r[2];
+    b[1].r[1] = r[3];
+  }
+  // b_krow matching an A from `a_acc` (here the same k order)
+  static __device__ __forceinline__ void b_krow_acc(B (&b)[2], const T* X,
+                                                    int ld, int k0, int n0,
+                                                    int lane) {
+    b_krow(b, X, ld, k0, n0, lane);
+  }
+  // A of k-step j from the accumulators c[n-tile][4] of an earlier product,
+  // rounded to bf16: its 16 k columns are n-tiles 2j and 2j + 1
+  static __device__ __forceinline__ void a_acc(A& a, const float (*c)[4],
+                                               int j) {
+    a.r[0] = pack_bf16(c[2 * j][0], c[2 * j][1]);
+    a.r[1] = pack_bf16(c[2 * j][2], c[2 * j][3]);
+    a.r[2] = pack_bf16(c[2 * j + 1][0], c[2 * j + 1][1]);
+    a.r[3] = pack_bf16(c[2 * j + 1][2], c[2 * j + 1][3]);
+  }
+  static __device__ __forceinline__ void mma(float* c, const A& a,
+                                             const B& b) {
+    mma_bf16(c, a.r, b.r);
+  }
+  static __device__ __forceinline__ void store2(T* p, float x, float y) {
+    *reinterpret_cast<uint32_t*>(p) = pack_bf16(x, y);
+  }
+};
+
+// f32: 3xTF32 -- both operands split into hi + lo TF32 halves, then
+// a.lo b.hi + a.hi b.lo + a.hi b.hi (m16n8k8): about 2^-20 relative error
+// a product, where one TF32 product keeps three digits
+template <> struct Mma<float> {
+  using T = float;
+  static constexpr int KS = 8;
+  static constexpr int PAD = 4;
+  struct A { uint32_t hi[4], lo[4]; };
+  struct B { uint32_t hi[2], lo[2]; };
+  // hi keeps f's top 10 mantissa bits (exact in TF32), lo = f - hi exactly;
+  // the tensor core reads lo's top 10 bits, so a product keeps ~20 bits
+  static __device__ __forceinline__ void split(float f, uint32_t& hi,
+                                               uint32_t& lo) {
+    hi = __float_as_uint(f) & 0xffffe000u;
+    lo = __float_as_uint(f - __uint_as_float(hi));
+  }
+  static __device__ __forceinline__ void set_a(A& a, float f0, float f1,
+                                               float f2, float f3) {
+    split(f0, a.hi[0], a.lo[0]);
+    split(f1, a.hi[1], a.lo[1]);
+    split(f2, a.hi[2], a.lo[2]);
+    split(f3, a.hi[3], a.lo[3]);
+  }
+  static __device__ __forceinline__ void a_row(A& a, const T* X, int ld,
+                                               int m0, int k0, int lane) {
+    const T* r0 = X + (m0 + (lane >> 2)) * ld + k0 + (lane & 3);
+    const T* r8 = r0 + 8 * ld;
+    set_a(a, r0[0], r8[0], r0[4], r8[4]);
+  }
+  static __device__ __forceinline__ void a_trans(A& a, const T* X, int ld,
+                                                 int m0, int k0, int lane) {
+    const T* c0 = X + (k0 + (lane & 3)) * ld + m0 + (lane >> 2);
+    const T* c4 = c0 + 4 * ld;
+    set_a(a, c0[0], c0[8], c4[0], c4[8]);
+  }
+  static __device__ __forceinline__ void b_nrow(B (&b)[2], const T* X,
+                                                int ld, int n0, int k0,
+                                                int lane) {
 #pragma unroll
-    for (int i = 0; i < NI; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int r = ty + 16 * i, c = tx + 16 * j;
-        const float sv = score(s[i][j], bias, p, bh, q0 + r, k0 + c);
-        const float pr = sv > 0.5f * MASK_VALUE ? expf(sv - row_lse[r]) : 0.f;
-        float dpv = dp[i][j];
-        if (p.rate > 0.f)
-          dpv = keep(base, (uint32_t)(q0 + r), (uint32_t)(k0 + c), p.thresh)
-                    ? dpv * p.inv_keep : 0.f;
-        dss[r * LDP + c] = round_t<T>(pr * (dpv - row_di[r]) * p.scale);
-      }
-    __syncthreads();
-    for (int j = 0; j < BK; ++j) {
-      float dsv[NI];
-#pragma unroll
-      for (int i = 0; i < NI; ++i) dsv[i] = dss[(ty + 16 * i) * LDP + j];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int d = tx + 16 * c;
-        if (d < D) {
-          const float kv = ks[j * ld + d];
-#pragma unroll
-          for (int i = 0; i < NI; ++i) acc[i][c] = fmaf(dsv[i], kv, acc[i][c]);
-        }
-      }
+    for (int i = 0; i < 2; ++i) {
+      const T* r = X + (n0 + 8 * i + (lane >> 2)) * ld + k0 + (lane & 3);
+      split(r[0], b[i].hi[0], b[i].lo[0]);
+      split(r[4], b[i].hi[1], b[i].lo[1]);
     }
   }
+  static __device__ __forceinline__ void b_krow(B (&b)[2], const T* X,
+                                                int ld, int k0, int n0,
+                                                int lane) {
 #pragma unroll
-  for (int i = 0; i < NI; ++i) {
-    const int r = ty + 16 * i;
-    if (q0 + r < p.Lq) {
-      const size_t ob = ((size_t)bh * p.Lq + q0 + r) * D;
+    for (int i = 0; i < 2; ++i) {
+      const T* r = X + (k0 + (lane & 3)) * ld + n0 + 8 * i + (lane >> 2);
+      split(r[0], b[i].hi[0], b[i].lo[0]);
+      split(r[4 * ld], b[i].hi[1], b[i].lo[1]);
+    }
+  }
+  // `a_acc` puts k columns 2t and 2t + 1 where the layout has t and t + 4
+  // (a sum's terms may come in any order): B takes its rows in that order
+  static __device__ __forceinline__ void b_krow_acc(B (&b)[2], const T* X,
+                                                    int ld, int k0, int n0,
+                                                    int lane) {
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int d = tx + 16 * c;
-        if (d < D) dq[ob + d] = from_f<T>(acc[i][c]);
-      }
+    for (int i = 0; i < 2; ++i) {
+      const T* r =
+          X + (k0 + 2 * (lane & 3)) * ld + n0 + 8 * i + (lane >> 2);
+      split(r[0], b[i].hi[0], b[i].lo[0]);
+      split(r[ld], b[i].hi[1], b[i].lo[1]);
+    }
+  }
+  // A of k-step j from accumulator n-tile j: c0 (g, 2t), c1 (g, 2t+1),
+  // c2 (g+8, 2t), c3 (g+8, 2t+1) in the slots of (g, t), (g+8, t),
+  // (g, t+4), (g+8, t+4)
+  static __device__ __forceinline__ void a_acc(A& a, const float (*c)[4],
+                                               int j) {
+    set_a(a, c[j][0], c[j][2], c[j][1], c[j][3]);
+  }
+  static __device__ __forceinline__ void mma(float* c, const A& a,
+                                             const B& b) {
+    mma_tf32(c, a.lo, b.hi);  // the small terms first
+    mma_tf32(c, a.hi, b.lo);
+    mma_tf32(c, a.hi, b.hi);
+  }
+  static __device__ __forceinline__ void store2(T* p, float x, float y) {
+    *reinterpret_cast<float2*>(p) = make_float2(x, y);
+  }
+};
+
+// q rows a step of the walk: 64, or 32 for heads over 64 wide (the dK and
+// dV accumulators of a 128-wide head take 128 registers a thread)
+template <int DMAX> struct BwdQ {
+  static constexpr int v = DMAX <= 64 ? 64 : 32;
+};
+
+template <typename T, int DMAX, int BK, int KVB>
+constexpr size_t bwd_smem() {
+  return sizeof(T) * ((size_t)(2 * KVB * BK + 4 * BwdQ<DMAX>::v) *
+                          (DMAX + Mma<T>::PAD) +
+                      (size_t)BK * (BwdQ<DMAX>::v + Mma<T>::PAD)) +
+         sizeof(float) * 4 * BwdQ<DMAX>::v;
+}
+
+// rows [r0, r0 + rows) of one head's (L, D) slab into a [rows][ld] tile of
+// DMAX columns, zero past L and D: 16-byte cp.async where rows are 16-byte
+// multiples on aligned pointers (vec), else plain loads
+template <typename T, int DMAX, int THREADS>
+__device__ __forceinline__ void stage_rows(T* dst, int ld,
+                                           const T* __restrict__ src, int r0,
+                                           int L, int D, int rows, bool vec) {
+  if (vec) {
+    constexpr int EPC = 16 / sizeof(T);
+    constexpr int CPR = DMAX / EPC;
+    for (int i = threadIdx.x; i < rows * CPR; i += THREADS) {
+      const int r = i / CPR, d0 = (i % CPR) * EPC;
+      const bool live = r0 + r < L && d0 < D;
+      cp_async16(dst + r * ld + d0,
+                 live ? src + (size_t)(r0 + r) * D + d0 : src, live ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * DMAX; i += THREADS) {
+      const int r = i / DMAX, d = i % DMAX;
+      dst[r * ld + d] = r0 + r < L && d < D ? src[(size_t)(r0 + r) * D + d]
+                                            : from_f<T>(0.f);
     }
   }
 }
 
-// ---------------------------------------------------------------------------
-// backward 2: dK and dV, one block per (bh, 64-key tile)
-// ---------------------------------------------------------------------------
-// two blocks per SM: with D = 128 (NC = 8) the kernel wants 173 registers
-// and only one block would fit, leaving the walk over q tiles nothing to
-// hide its shared-memory latency behind
-template <typename T, int NC>
-__global__ void __launch_bounds__(THREADS, 2)
-flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+// the inverse of stage_rows: rows [r0, r0 + rows) of a [rows][ld] tile
+// to one head's (L, D) slab, rows past L and columns past D left out
+template <typename T, int DMAX, int THREADS>
+__device__ __forceinline__ void unstage_rows(T* __restrict__ dst,
+                                             const T* src, int ld, int r0,
+                                             int L, int D, int rows,
+                                             bool vec) {
+  if (vec) {
+    constexpr int EPC = 16 / sizeof(T);
+    constexpr int CPR = DMAX / EPC;
+    for (int i = threadIdx.x; i < rows * CPR; i += THREADS) {
+      const int r = i / CPR, d0 = (i % CPR) * EPC;
+      if (r0 + r < L && d0 < D)
+        *reinterpret_cast<uint4*>(dst + (size_t)(r0 + r) * D + d0) =
+            *reinterpret_cast<const uint4*>(src + r * ld + d0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * DMAX; i += THREADS) {
+      const int r = i / DMAX, d = i % DMAX;
+      if (r0 + r < L && d < D) dst[(size_t)(r0 + r) * D + d] = src[r * ld + d];
+    }
+  }
+}
+
+// Blocks walk work items (bh, key tile of BK keys), item w = bh * nk + kt;
+// BK / 16 warps, warp w owning keys 16w .. 16w + 15 of the tile.  K and V
+// stay in shared memory and dK, dV in registers while the block walks the
+// item's q tiles through a two-stage cp.async ring of Q, dO, lse and di.
+// A q tile takes five tensor-core products: S^T = K Q^T and dP^T = V dO^T
+// (each warp its keys), then on the fragments P, its dropped Pd and
+// dS = P (dP - di) scale, then dV += Pd^T dO and dK += dS^T Q with Pd and
+// dS straight from registers, then dS^T through shared memory and
+// dQ = dS K split over the warps by q rows and head columns.  One key tile
+// a head writes dQ; with more, each writes its f32 partial to `ws` and the
+// last of the tile's visitors to arrive on the (bh, q tile) ticket sums
+// them in key-tile order -- no float atomics, the same bits every call --
+// and puts the ticket back to zero.
+// With KVB = 2 (bf16) a block is persistent: it takes items w, w + grid,
+// ... and loads the next item's K, V and first q tile into the other
+// buffers during the current item's last q tile, so one item's loads and
+// stores overlap the other's products (one block an SM: 255 registers a
+// thread).  KVB = 1 (f32, whose tiles fill shared memory) launches a block
+// an item.
+template <typename T, int DMAX, int BK, int KVB>
+__global__ void __launch_bounds__(2 * BK, 1)
+flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ bias,
                  const int* __restrict__ seed, const float* __restrict__ lse,
                  const float* __restrict__ di, const T* __restrict__ dout,
-                 T* __restrict__ dk, T* __restrict__ dv, Params p) {
-  extern __shared__ float smem[];
-  const int D = p.D, ld = D + 1;
-  float* ks = smem;                  // [BK][ld]
-  float* vs = ks + BK * ld;          // [BK][ld]
-  float* qs = vs + BK * ld;          // [BQ][ld]
-  float* dos = qs + BQ * ld;         // [BQ][ld]
-  float* pds = dos + BQ * ld;        // [BQ][LDP] dropped p
-  float* dss = pds + BQ * LDP;       // [BQ][LDP] dS
-  float* row_lse = dss + BQ * LDP;   // [BQ]
-  float* row_di = row_lse + BQ;      // [BQ]
+                 T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
+                 float* __restrict__ ws, unsigned int* __restrict__ tickets,
+                 Params p, int BH, int nk, int vec) {
+  using M = Mma<T>;
+  using A = typename M::A;
+  using B = typename M::B;
+  constexpr int BQ = BwdQ<DMAX>::v;
+  constexpr int WARPS = BK / 16, THREADS = 32 * WARPS;
+  constexpr int LD = DMAX + M::PAD, LDS = BQ + M::PAD;
+  constexpr int NQ = BQ / 8, ND = DMAX / 8;  // 8-wide n-tiles of a row
+  // dQ: the warps in an RG x CG grid of 16 q rows x CW head columns
+  constexpr int RG = BQ / 16, CG = WARPS / RG, CW = DMAX / CG;
+  extern __shared__ __align__(16) unsigned char bwd_smem_raw[];
+  T* kvs = reinterpret_cast<T*>(bwd_smem_raw);  // [KVB][K, V][BK][LD]
+  T* qs = kvs + KVB * 2 * BK * LD;                // [2][BQ][LD]
+  T* dos = qs + 2 * BQ * LD;                      // [2][BQ][LD]
+  T* dst = dos + 2 * BQ * LD;                     // [BK][LDS] dS^T
+  float* lse_s = reinterpret_cast<float*>(dst + BK * LDS);  // [2][BQ]
+  float* di_s = lse_s + 2 * BQ;                              // [2][BQ]
 
-  const int bh = blockIdx.x, k0 = blockIdx.y * BK;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const uint32_t base =
-      p.rate > 0.f ? drop_base((uint32_t)seed[0], (uint32_t)bh) : 0u;
+  const int items = BH * nk, D = p.D;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int kr0 = warp * 16;
 
-  load_tile(ks, k, bh, k0, p.Lk, D, BK);
-  load_tile(vs, v, bh, k0, p.Lk, D, BK);
-  // thread (ty, tx) owns key rows ty + 16 i and head-dim columns tx + 16 c
-  float acck[NI][NC], accv[NI][NC];
-#pragma unroll
-  for (int i = 0; i < NI; ++i)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acck[i][c] = accv[i][c] = 0.f;
-
-  // causal: q tiles whose last row is above this key tile see none of it
-  const int q_start = p.causal ? (k0 / BQ) * BQ : 0;
-  for (int q0 = q_start; q0 < p.Lq; q0 += BQ) {
-    __syncthreads();
-    load_tile(qs, q, bh, q0, p.Lq, D, BQ);
-    load_tile(dos, dout, bh, q0, p.Lq, D, BQ);
-    if (tid < BQ) {
+  // causal: q tiles whose last row is above the key tile see none of it
+  auto q_first = [&](int w) {
+    return p.causal ? ((w % nk) * BK / BQ) * BQ : 0;
+  };
+  auto stage_kv = [&](int w, int kb) {
+    const size_t hk = (size_t)(w / nk) * p.Lk * D;
+    T* kb_s = kvs + kb * 2 * BK * LD;
+    stage_rows<T, DMAX, THREADS>(kb_s, LD, k + hk, (w % nk) * BK, p.Lk, D,
+                                 BK, vec);
+    stage_rows<T, DMAX, THREADS>(kb_s + BK * LD, LD, v + hk, (w % nk) * BK,
+                                 p.Lk, D, BK, vec);
+  };
+  auto stage_q = [&](int w, int q0, int buf) {
+    const size_t hq = (size_t)(w / nk) * p.Lq;
+    stage_rows<T, DMAX, THREADS>(qs + buf * BQ * LD, LD, q + hq * D, q0,
+                                 p.Lq, D, BQ, vec);
+    stage_rows<T, DMAX, THREADS>(dos + buf * BQ * LD, LD, dout + hq * D, q0,
+                                 p.Lq, D, BQ, vec);
+    if (tid < BQ) {  // THREADS >= 128 > BQ
       const bool live = q0 + tid < p.Lq;
-      row_lse[tid] = live ? lse[(size_t)bh * p.Lq + q0 + tid] : 0.f;
-      row_di[tid] = live ? di[(size_t)bh * p.Lq + q0 + tid] : 0.f;
+      cp_async4(lse_s + buf * BQ + tid, lse + hq + (live ? q0 + tid : 0),
+                live ? 4 : 0);
+      cp_async4(di_s + buf * BQ + tid, di + hq + (live ? q0 + tid : 0),
+                live ? 4 : 0);
     }
-    __syncthreads();
-    float s[NI][NJ], dp[NI][NJ];
-    tile_dot(s, qs, ks, D, ty, tx);
-    tile_dot(dp, dos, vs, D, ty, tx);
+  };
+
+  int it = 0;             // q tiles this block has walked: the ring's step
+  bool issued = false;    // this item's loads were issued by the last one
+  for (int w = blockIdx.x, j = 0; w < items; w += gridDim.x, ++j) {
+    const int bh = w / nk, kt = w % nk, k0 = kt * BK;
+    const int q_start = q_first(w);
+    T* ks = kvs + (j % KVB) * 2 * BK * LD;
+    T* vs = ks + BK * LD;
+    if (!issued && q_start < p.Lq) {
+      stage_kv(w, j % KVB);
+      stage_q(w, q_start, it & 1);
+      cp_async_commit();
+    }
+    issued = false;
+    const int key_lo = k0 + kr0 + g;  // this thread's keys: key_lo, +8
+    const size_t hq = (size_t)bh * p.Lq, hk = (size_t)bh * p.Lk;
+    const int bb = p.bias_per_head ? bh : bh / p.H;
+    const uint32_t base =
+        p.rate > 0.f ? drop_base((uint32_t)seed[0], (uint32_t)bh) : 0u;
+    float kbias[2] = {0.f, 0.f};  // the compact padding bias of the keys
+    if (p.bias_mode == 1) {
 #pragma unroll
-    for (int i = 0; i < NI; ++i)
+      for (int h = 0; h < 2; ++h)
+        if (key_lo + 8 * h < p.Lk)
+          kbias[h] = bias[(size_t)bb * p.Lk + key_lo + 8 * h];
+    }
+    float dka[ND][4], dva[ND][4];
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int r = ty + 16 * i, c = tx + 16 * j;
-        const float sv = score(s[i][j], bias, p, bh, q0 + r, k0 + c);
-        const float pr = sv > 0.5f * MASK_VALUE ? expf(sv - row_lse[r]) : 0.f;
-        float pd = pr, dpv = dp[i][j];
-        if (p.rate > 0.f) {
-          const bool kp =
-              keep(base, (uint32_t)(q0 + r), (uint32_t)(k0 + c), p.thresh);
-          pd = kp ? pr * p.inv_keep : 0.f;
-          dpv = kp ? dpv * p.inv_keep : 0.f;
+    for (int i = 0; i < ND; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dka[i][e] = dva[i][e] = 0.f;
+
+    const int nqt = (p.Lq + BQ - 1) / BQ;
+    for (int q0 = q_start; q0 < p.Lq; q0 += BQ, ++it) {
+      const int buf = it & 1;
+      cp_async_wait<0>();  // this tile has landed ...
+      __syncthreads();     // ... for every thread, and the last one is done
+      if (q0 + BQ < p.Lq) {
+        stage_q(w, q0 + BQ, buf ^ 1);
+      } else if (KVB == 2) {  // the next item's K, V and first q tile
+        const int wn = w + gridDim.x;
+        if (wn < items && q_first(wn) < p.Lq) {
+          stage_kv(wn, (j + 1) % KVB);
+          stage_q(wn, q_first(wn), buf ^ 1);
+          issued = true;
         }
-        pds[r * LDP + c] = round_t<T>(pd);
-        dss[r * LDP + c] = round_t<T>(pr * (dpv - row_di[r]) * p.scale);
       }
-    __syncthreads();
-    // dV += Pd^T dO and dK += dS^T Q over this tile's q rows
-    for (int r = 0; r < BQ; ++r) {
-      float pv[NI], dsv[NI];
+      cp_async_commit();
+      const T* qb = qs + buf * BQ * LD;
+      const T* dob = dos + buf * BQ * LD;
+      const float* lb = lse_s + buf * BQ;
+      const float* db = di_s + buf * BQ;
+
+      // S^T = K Q^T and dP^T = V dO^T over this warp's 16 keys
+      float s[NQ][4], dp[NQ][4];
 #pragma unroll
-      for (int i = 0; i < NI; ++i) {
-        pv[i] = pds[r * LDP + ty + 16 * i];
-        dsv[i] = dss[r * LDP + ty + 16 * i];
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < DMAX; kk += M::KS) {
+        A ak, av;
+        M::a_row(ak, ks, LD, kr0, kk, lane);
+        M::a_row(av, vs, LD, kr0, kk, lane);
+#pragma unroll
+        for (int n = 0; n < BQ; n += 16) {
+          B bq[2], bo[2];
+          M::b_nrow(bq, qb, LD, n, kk, lane);
+          M::b_nrow(bo, dob, LD, n, kk, lane);
+          M::mma(s[n / 8], ak, bq[0]);
+          M::mma(s[n / 8 + 1], ak, bq[1]);
+          M::mma(dp[n / 8], av, bo[0]);
+          M::mma(dp[n / 8 + 1], av, bo[1]);
+        }
       }
+
+      // on the fragments: s becomes Pd (p dropped), dp becomes dS.  Element
+      // (n-tile j, e) is key key_lo + 8 (e >> 1), q row 8 j + 2 t + (e & 1)
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int d = tx + 16 * c;
-        if (d < D) {
-          const float dov = dos[r * ld + d], qv = qs[r * ld + d];
+      for (int j = 0; j < NQ; ++j)
 #pragma unroll
-          for (int i = 0; i < NI; ++i) {
-            accv[i][c] = fmaf(pv[i], dov, accv[i][c]);
-            acck[i][c] = fmaf(dsv[i], qv, acck[i][c]);
+        for (int e = 0; e < 4; ++e) {
+          const int rl = 8 * j + 2 * t + (e & 1), r = q0 + rl;
+          const int c = key_lo + 8 * (e >> 1);
+          const bool valid = r < p.Lq && c < p.Lk && (!p.causal || c <= r);
+          float sv = MASK_VALUE;
+          if (valid) {
+            sv = s[j][e] * p.scale;
+            if (p.bias_mode == 1)
+              sv += kbias[e >> 1];
+            else if (p.bias_mode == 2)
+              sv += bias[((size_t)bb * p.Lq + r) * p.Lk + c];
           }
+          const float pr = sv > 0.5f * MASK_VALUE
+                               ? exp2_approx((sv - lb[rl]) * LOG2E)
+                               : 0.f;
+          float pd = pr, dpv = dp[j][e];
+          if (p.rate > 0.f) {
+            const bool kp = keep(base, (uint32_t)r, (uint32_t)c, p.thresh);
+            pd = kp ? pr * p.inv_keep : 0.f;
+            dpv = kp ? dpv * p.inv_keep : 0.f;
+          }
+          s[j][e] = pd;
+          dp[j][e] = pr * (dpv - db[rl]) * p.scale;
+        }
+
+      // dV += Pd^T dO and dK += dS^T Q, the A operands from registers
+#pragma unroll
+      for (int j = 0; j < BQ / M::KS; ++j) {
+        A ap, as;
+        M::a_acc(ap, s, j);
+        M::a_acc(as, dp, j);
+#pragma unroll
+        for (int n = 0; n < DMAX; n += 16) {
+          B bo[2], bq[2];
+          M::b_krow_acc(bo, dob, LD, j * M::KS, n, lane);
+          M::b_krow_acc(bq, qb, LD, j * M::KS, n, lane);
+          M::mma(dva[n / 8], ap, bo[0]);
+          M::mma(dva[n / 8 + 1], ap, bo[1]);
+          M::mma(dka[n / 8], as, bq[0]);
+          M::mma(dka[n / 8 + 1], as, bq[1]);
+        }
+      }
+
+      // dS^T to shared memory in the input type (the rounding dK's A had)
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) {
+        M::store2(dst + (kr0 + g) * LDS + 8 * j + 2 * t, dp[j][0], dp[j][1]);
+        M::store2(dst + (kr0 + g + 8) * LDS + 8 * j + 2 * t, dp[j][2],
+                  dp[j][3]);
+      }
+      __syncthreads();
+
+      // dQ (BQ x DMAX) = dS K over the tile's keys: warp (rg, cg) owns rows
+      // 16 rg.. and columns cg CW..; key steps wholly past Lk are skipped
+      const int rg = warp % RG, cg = warp / RG;
+      float dqa[CW / 8][4];
+#pragma unroll
+      for (int i = 0; i < CW / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dqa[i][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += M::KS) {
+        if (k0 + kk >= p.Lk) break;
+        A a;
+        M::a_trans(a, dst, LDS, 16 * rg, kk, lane);
+#pragma unroll
+        for (int n = 0; n < CW; n += 16) {
+          B b[2];
+          M::b_krow(b, ks, LD, kk, cg * CW + n, lane);
+          M::mma(dqa[n / 8], a, b[0]);
+          M::mma(dqa[n / 8 + 1], a, b[1]);
+        }
+      }
+      // fragment (i, e): q row 16 rg + g + 8 (e >> 1), column
+      // cg CW + 8 i + 2 t + (e & 1)
+      float* part =
+          nk == 1 ? nullptr : ws + ((size_t)kt * BH + bh) * p.Lq * D;
+      if (part) {  // f32 partials, two columns a store
+#pragma unroll
+        for (int i = 0; i < CW / 8; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = q0 + 16 * rg + g + 8 * h;
+            const int d = cg * CW + 8 * i + 2 * t;
+            if (r >= p.Lq || d >= D) continue;
+            float* w = part + (size_t)r * D + d;
+            if (d + 1 < D && !(D & 1)) {
+              *reinterpret_cast<float2*>(w) =
+                  make_float2(dqa[i][2 * h], dqa[i][2 * h + 1]);
+            } else {
+              w[0] = dqa[i][2 * h];
+              if (d + 1 < D) w[1] = dqa[i][2 * h + 1];
+            }
+          }
+      } else {
+        // through this q tile's Q buffer (read by no one now; the next
+        // tile's loads go there only after the loop's first barrier), then
+        // whole rows of dq
+        T* stg = qs + buf * BQ * LD;
+#pragma unroll
+        for (int i = 0; i < CW / 8; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            M::store2(
+                stg + (16 * rg + g + 8 * h) * LD + cg * CW + 8 * i + 2 * t,
+                dqa[i][2 * h], dqa[i][2 * h + 1]);
+        __syncthreads();
+        unstage_rows<T, DMAX, THREADS>(dq + hq * D, stg, LD, q0, p.Lq, D, BQ,
+                                       vec);
+      }
+      if (part) {
+        // the key tiles that visit this q tile are 0 .. arrivals - 1
+        const int arrivals = p.causal ? min(nk, (q0 + BQ - 1) / BK + 1) : nk;
+        unsigned int* ticket = tickets + (size_t)bh * nqt + q0 / BQ;
+        if (arrive_last(ticket, arrivals)) {
+          const int n = min(BQ, p.Lq - q0) * D;
+          const size_t off = (size_t)q0 * D;
+          for (int i = tid; i < n; i += THREADS) {
+            float sum = 0.f;
+            for (int u = 0; u < arrivals; ++u)  // key-tile order
+              sum += __ldcg(ws + ((size_t)u * BH + bh) * p.Lq * D + off + i);
+            dq[hq * D + off + i] = from_f<T>(sum);
+          }
+          if (tid == 0) *ticket = 0u;
         }
       }
     }
-  }
+    __syncthreads();  // every warp is done with this item's K and V
+
+    // dK, dV through the item's K and V tiles, then whole rows: fragment
+    // (i, e) is key kr0 + g + 8 (e >> 1) of the tile, column 8 i + 2 t +
+    // (e & 1); keys no q row saw (causal) get zeros
 #pragma unroll
-  for (int i = 0; i < NI; ++i) {
-    const int j = ty + 16 * i;
-    if (k0 + j < p.Lk) {
-      const size_t ob = ((size_t)bh * p.Lk + k0 + j) * D;
+    for (int i = 0; i < ND; ++i)
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int d = tx + 16 * c;
-        if (d < D) {
-          dk[ob + d] = from_f<T>(acck[i][c]);
-          dv[ob + d] = from_f<T>(accv[i][c]);
-        }
+      for (int h = 0; h < 2; ++h) {
+        const int off = (kr0 + g + 8 * h) * LD + 8 * i + 2 * t;
+        M::store2(ks + off, dka[i][2 * h], dka[i][2 * h + 1]);
+        M::store2(vs + off, dva[i][2 * h], dva[i][2 * h + 1]);
       }
-    }
+    __syncthreads();
+    unstage_rows<T, DMAX, THREADS>(dk + hk * D, ks, LD, k0, p.Lk, D, BK,
+                                   vec);
+    unstage_rows<T, DMAX, THREADS>(dv + hk * D, vs, LD, k0, p.Lk, D, BK,
+                                   vec);
   }
+  cp_async_wait<0>();
 }
 
 Params make_params(int H, int Lq, int Lk, int D, float scale, int causal,
@@ -558,38 +948,54 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T, int NC>
-cudaError_t launch_bwd(const void* q, const void* k, const void* v,
-                       const void* bias, const void* seed, const void* o,
-                       const void* lse, const void* dout, void* di, void* dq,
-                       void* dk, void* dv, int BH, const Params& p,
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+struct BwdArgs {
+  const void *q, *k, *v, *bias, *seed, *o, *lse, *dout;
+  void *di, *dq, *dk, *dv, *ws, *tickets;
+  int BH, nk, grid, vec;
+};
+
+// the di row pass, then the key-tile kernel, on one stream (in order);
+// bf16 keeps two K/V buffers (persistent blocks), f32 one
+template <typename T, int DMAX, int BK>
+cudaError_t launch_bwd(const BwdArgs& a, const Params& p,
                        cudaStream_t stream) {
-  static bool attr_dq = false, attr_dkv = false;
-  cudaError_t e = allow_smem(flash_dq_kernel<T, NC>, dq_smem(MAX_D), attr_dq);
+  constexpr int KVB = sizeof(T) == 2 ? 2 : 1;
+  constexpr size_t smem = bwd_smem<T, DMAX, BK, KVB>();
+  static bool attr = false;
+  cudaError_t e =
+      allow_smem(flash_bwd_kernel<T, DMAX, BK, KVB>, smem, attr);
   if (e != cudaSuccess) return e;
-  e = allow_smem(flash_dkv_kernel<T, NC>, dkv_smem(MAX_D), attr_dkv);
+  const int rows = a.BH * p.Lq;
+  const int rows_a_block = a.vec ? 32 : 8;
+  flash_bwd_di_kernel<T><<<(rows + rows_a_block - 1) / rows_a_block, 256, 0,
+                           stream>>>(
+      static_cast<const T*>(a.o), static_cast<const T*>(a.dout),
+      static_cast<float*>(a.di), rows, p.D, a.vec);
+  e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  if (p.Lq > 0) {
-    dim3 gq(BH, (p.Lq + BQ - 1) / BQ);
-    flash_dq_kernel<T, NC><<<gq, THREADS, dq_smem(p.D), stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const float*>(bias),
-        static_cast<const int*>(seed), static_cast<const T*>(o),
-        static_cast<const float*>(lse), static_cast<const T*>(dout),
-        static_cast<float*>(di), static_cast<T*>(dq), p);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-  }
-  if (p.Lk == 0) return cudaSuccess;
-  // same stream: the dK/dV kernel reads the di the dQ kernel wrote
-  dim3 gk(BH, (p.Lk + BK - 1) / BK);
-  flash_dkv_kernel<T, NC><<<gk, THREADS, dkv_smem(p.D), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(bias),
-      static_cast<const int*>(seed), static_cast<const float*>(lse),
-      static_cast<const float*>(di), static_cast<const T*>(dout),
-      static_cast<T*>(dk), static_cast<T*>(dv), p);
+  flash_bwd_kernel<T, DMAX, BK, KVB><<<a.grid, 2 * BK, smem, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const float*>(a.bias),
+      static_cast<const int*>(a.seed), static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.di), static_cast<const T*>(a.dout),
+      static_cast<T*>(a.dq), static_cast<T*>(a.dk), static_cast<T*>(a.dv),
+      static_cast<float*>(a.ws), static_cast<unsigned int*>(a.tickets), p,
+      a.BH, a.nk, a.vec);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd_d(const BwdArgs& a, const Params& p, int bk,
+                         cudaStream_t s) {
+  if (p.D <= 64)
+    return bk == 64 ? launch_bwd<T, 64, 64>(a, p, s)
+                    : launch_bwd<T, 64, 128>(a, p, s);
+  return bk == 64 ? launch_bwd<T, 128, 64>(a, p, s)
+                  : launch_bwd<T, 128, 128>(a, p, s);
 }
 
 }  // namespace
@@ -623,30 +1029,55 @@ extern "C" int mxt_flash_attention_fwd(
 }
 
 // The backward of the call above: dout, o in the input type, lse from the
-// forward; di (BH, Lq) f32 is scratch; dq/dk/dv like q/k/v.  Launches the
-// dQ kernel, then the dK/dV kernel, on `stream`.
+// forward; di (BH, Lq) f32 is scratch; dq/dk/dv like q/k/v.  bk (64 or
+// 128) is the key tile, so nk = ceil(Lk / bk) key tiles a head and BH * nk
+// work items, walked by `grid` blocks (bf16: persistent blocks, any grid;
+// f32: grid = BH * nk).  With nk > 1, ws holds nk * BH * Lq * D f32 dQ
+// partials and tickets one zeroed uint32 per (bh, q tile) -- q tiles of 64
+// rows for D <= 64, else 32 -- left zeroed.  Launches the di row pass,
+// then the key-tile kernel, on `stream`.  Returns the launches'
+// cudaError_t.
 extern "C" int mxt_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* bias,
     const void* seed, const void* o, const void* lse, const void* dout,
-    void* di, void* dq, void* dk, void* dv, int BH, int H, int Lq, int Lk,
-    int D, float scale, int causal, int bias_mode, int bias_per_head,
-    float rate, float inv_keep, unsigned thresh, int is_bf16, void* stream) {
+    void* di, void* dq, void* dk, void* dv, void* ws, void* tickets, int BH,
+    int H, int Lq, int Lk, int D, float scale, int causal, int bias_mode,
+    int bias_per_head, float rate, float inv_keep, unsigned thresh,
+    int is_bf16, int bk, int grid, void* stream) {
   cudaGetLastError();
-  if (D > MAX_D || D < 1) return (int)cudaErrorInvalidValue;
-  if (BH == 0 || (Lq == 0 && Lk == 0)) return 0;
+  if (D > MAX_D || D < 1 || (bk != 64 && bk != 128) || grid < 1)
+    return (int)cudaErrorInvalidValue;
+  if (BH == 0 || Lq == 0 || Lk == 0) return 0;
+  const int nk = (Lk + bk - 1) / bk;
+  if ((nk > 1 && (ws == nullptr || tickets == nullptr)) ||
+      (!is_bf16 && grid != BH * nk))
+    return (int)cudaErrorInvalidValue;
   const Params p = make_params(H, Lq, Lk, D, scale, causal, bias_mode,
                                bias_per_head, rate, inv_keep, thresh);
+  BwdArgs a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.bias = bias;
+  a.seed = seed;
+  a.o = o;
+  a.lse = lse;
+  a.dout = dout;
+  a.di = di;
+  a.dq = dq;
+  a.dk = dk;
+  a.dv = dv;
+  a.ws = ws;
+  a.tickets = tickets;
+  a.BH = BH;
+  a.nk = nk;
+  a.grid = grid;
+  // 16-byte loads and stores need rows of whole 16-byte chunks on aligned
+  // pointers
+  a.vec = aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o) &&
+          aligned16(dout) && aligned16(dq) && aligned16(dk) &&
+          aligned16(dv) && (D * (is_bf16 ? 2 : 4)) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return (int)(D <= 64
-                     ? launch_bwd<__nv_bfloat16, 4>(q, k, v, bias, seed, o,
-                                                     lse, dout, di, dq, dk,
-                                                     dv, BH, p, s)
-                     : launch_bwd<__nv_bfloat16, 8>(q, k, v, bias, seed, o,
-                                                     lse, dout, di, dq, dk,
-                                                     dv, BH, p, s));
-  return (int)(D <= 64 ? launch_bwd<float, 4>(q, k, v, bias, seed, o, lse,
-                                              dout, di, dq, dk, dv, BH, p, s)
-                       : launch_bwd<float, 8>(q, k, v, bias, seed, o, lse,
-                                              dout, di, dq, dk, dv, BH, p, s));
+  return (int)(is_bf16 ? launch_bwd_d<__nv_bfloat16>(a, p, bk, s)
+                       : launch_bwd_d<float>(a, p, bk, s));
 }

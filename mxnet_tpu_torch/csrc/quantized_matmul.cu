@@ -51,6 +51,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "mma_sm90.cuh"   // cp.async, mma.sync, arrive_last
+
 namespace {
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -83,20 +85,6 @@ __device__ __forceinline__ float byte_of(uint32_t w, int e) {
 }
 __device__ __forceinline__ float nibble_of(uint32_t w, int i) {
   return (float)((int)(w << (28 - 4 * i)) >> 28);
-}
-
-// Called by every thread of the block after it wrote its partials: true in
-// the last block of this output tile to arrive, which then sees them all.
-__device__ __forceinline__ bool arrive_last(unsigned int* counter,
-                                            int splits) {
-  __shared__ bool last;
-  __threadfence();  // this thread's partials are visible before the ticket
-  __syncthreads();
-  if (threadIdx.x == 0)
-    last = atomicAdd(counter, 1u) == (unsigned int)(splits - 1);
-  __syncthreads();
-  if (last) __threadfence();
-  return last;
 }
 
 // ---------------------------------------------------------------------------
@@ -263,43 +251,6 @@ constexpr int LG_BS = 48;    // weight tile row stride, bytes (conflict-free)
 // fragment reads of a warp then hit 32 distinct banks
 template <typename T> struct XStride { static constexpr int v = 36; };
 template <> struct XStride<__nv_bfloat16> { static constexpr int v = 40; };
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ uint32_t to_tf32(float f) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(f));
-  return r;
-}
-
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // weight values k and k+1 of a row of the smem tile (k even), as a bf16 pair
 template <int BITS>

@@ -1,6 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every ``mxnet_tpu_torch/csrc/*.cu`` file is compiled at first use by
+Every ``mxnet_tpu_torch/csrc/*.cu`` file (with the ``*.cuh`` headers it
+includes) is compiled at first use by
 ``nvcc`` for Hopper (``sm_90a``) into a shared library with a plain C
 interface, one library per source, all sources compiled in parallel.  The
 libraries land in ``build/mxnet_tpu_torch/<hash>/`` beside the package
@@ -31,7 +32,7 @@ from typing import Dict
 from ..base import MXNetError
 
 __all__ = ["load", "build_all", "LAUNCHES", "reset_launch_counts",
-           "launch_counts", "NVCC_FLAGS"]
+           "launch_counts", "sm_count", "NVCC_FLAGS"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -54,6 +55,7 @@ LAUNCHES: Dict[str, int] = {"ragged_paged_attention": 0,
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_sm_counts: Dict[object, int] = {}
 
 
 def reset_launch_counts() -> None:
@@ -65,16 +67,31 @@ def launch_counts() -> Dict[str, int]:
     return dict(LAUNCHES)
 
 
+def sm_count(device) -> int:
+    """The card's SM count, read once per device (the launch plans size
+    their grids by it)."""
+    n = _sm_counts.get(device)
+    if n is None:
+        import torch
+        n = _sm_counts[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n
+
+
 def _sources():
     return sorted(f[:-3] for f in os.listdir(CSRC) if f.endswith(".cu"))
 
 
 def _build_dir() -> str:
+    """The libraries' directory, keyed by the flags and every file under
+    ``csrc/`` (sources and the headers they include), so an edited header
+    rebuilds too."""
     root = os.environ.get("MXTPU_TORCH_BUILD_DIR") or os.path.join(
         os.path.dirname(_PKG), "build", "mxnet_tpu_torch")
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in _sources():
-        with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
+    for name in sorted(f for f in os.listdir(CSRC)
+                       if f.endswith((".cu", ".cuh"))):
+        with open(os.path.join(CSRC, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     return os.path.join(root, h.hexdigest()[:16])
 

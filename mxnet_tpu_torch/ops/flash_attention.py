@@ -6,7 +6,9 @@ probabilities for the backward — it saves the f32 logsumexp per row and
 recomputes.  `flash_attention` is a `torch.autograd.Function`:
 
 - on a CUDA tensor it launches the hand-written kernels of
-  ``csrc/flash_attention.cu`` (forward; dQ then dK/dV backward), or raises
+  ``csrc/flash_attention.cu`` (forward; backward: a di row pass, then one
+  tensor-core pass per key tile for dQ, dK and dV, laid out by
+  `_bwd_plan`), or raises
   `MXNetError` on what they do not take (sliding windows and grouped K/V
   heads are still to port, see ROADMAP.md);
 - on a CPU tensor it runs `flash_fwd_reference` / `flash_bwd_reference`:
@@ -22,13 +24,14 @@ a compact (B, 1, Lk) row, or per query row), causal masking, fully masked
 rows giving zeros with lse = 0 and zero gradients, and attention-probs
 dropout from the counter hash `keep_mask` — bit for bit the JAX
 `_keep_mask`, keyed on the int32 seed, the flattened batch·head index and
-the absolute row and column, so the forward and both backward kernels
+the absolute row and column, so the forward and the backward kernel
 regenerate one mask without storing it.  The bias gets a zero cotangent.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -224,11 +227,64 @@ def flash_bwd_reference(q, k, v, bias3, seed, o, lse, g, scale=None,
 # the CUDA kernels (csrc/flash_attention.cu)
 # ---------------------------------------------------------------------------
 
+# the backward's tiles (csrc/flash_attention.cu `flash_bwd_kernel`)
+BWD_KEY_TILES = (64, 128)   # keys a block holds: 4 or 8 warps of 16 keys
+
+
+class BwdPlan(NamedTuple):
+    """One backward launch: the key tile, the head width the tiles are
+    padded to, the q rows a step of the walk, and what the wrapper
+    allocates for it."""
+    bk: int              # keys a block holds (64 or 128)
+    dmax: int            # D padded to 64 or 128
+    bq: int              # q rows a step: 64, or 32 for heads over 64 wide
+    key_tiles: int       # work items a head; dQ partials when more than one
+    q_tiles: int         # q tiles a head: one ticket each
+    blocks: int          # work items (B * H * key_tiles)
+    grid: int            # blocks launched: bf16 one an SM (persistent), f32
+                         # one an item
+    tickets: int         # uint32 tickets (B * H * q_tiles), 0 with one tile
+    workspace: int       # f32 dQ partials (key_tiles * B * H * Lq * D)
+
+
+def _bwd_plan(B: int, H: int, Lq: int, Lk: int, D: int, dtype,
+              sm_count: int, bk: Optional[int] = None) -> BwdPlan:
+    """The launch plan of one backward call, plain Python (no card needed).
+
+    The key tile is 128 keys (8 warps), so a head of up to 128 keys is one
+    tile and the block writes dQ itself with no partials (BERT's L = 128);
+    it is 64 where Lk fits in 64, or where 128-key tiles would leave the
+    grid short of one block per SM.  ``bk`` overrides (the tests run both).
+    bf16 launches at most one block an SM, each walking items with the
+    next one's loads in flight; f32 (whose tiles fill shared memory) one
+    block an item."""
+    if bk is None:
+        bk = 128
+        if Lk <= 64 or B * H * -(-Lk // 128) < sm_count:
+            bk = 64
+    if bk not in BWD_KEY_TILES:
+        raise MXNetError(f"flash backward key tile must be one of "
+                         f"{BWD_KEY_TILES}, got {bk}")
+    dmax = 64 if D <= 64 else 128
+    bq = 64 if dmax == 64 else 32
+    key_tiles = max(1, -(-Lk // bk))
+    q_tiles = -(-Lq // bq)
+    split = key_tiles > 1
+    items = B * H * key_tiles
+    grid = min(items, sm_count) if dtype == torch.bfloat16 else items
+    return BwdPlan(bk, dmax, bq, key_tiles, q_tiles, items, max(1, grid),
+                   B * H * q_tiles if split else 0,
+                   key_tiles * B * H * Lq * D if split else 0)
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _U = ctypes.c_uint
 _fns = {}
+# (device index, raw stream) -> (tickets, dQ partials, di): each stream
+# keeps its own, grown on demand; every launch leaves the tickets zeroed
+_scratch_of: Dict[Any, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = {}
 
 
 def _kernel_fn(direction):
@@ -236,12 +292,36 @@ def _kernel_fn(direction):
     if f is None:
         f = getattr(_kernels.load("flash_attention"),
                     f"mxt_flash_attention_{direction}")
-        ptrs = 7 if direction == "fwd" else 12
-        f.argtypes = [_P] * ptrs + [_I] * 5 + [_F, _I, _I, _I, _F, _F, _U,
-                                               _I, _P]
+        if direction == "fwd":
+            f.argtypes = [_P] * 7 + [_I] * 5 + [_F, _I, _I, _I, _F, _F, _U,
+                                                _I, _P]
+        else:
+            f.argtypes = [_P] * 14 + [_I] * 5 + [_F, _I, _I, _I, _F, _F,
+                                                 _U, _I, _I, _I, _P]
         f.restype = _I
         _fns[direction] = f
     return f
+
+
+def _scratch(device, stream: int, plan: BwdPlan, rows: int):
+    """The backward's scratch on one stream: at least ``plan.tickets``
+    zeroed uint32 tickets (as int32), ``plan.workspace`` f32 dQ partials
+    and ``rows`` f32 di values.  Launches on one stream run in order and
+    each leaves its tickets zeroed, so a stream keeps one set and grows it
+    when a call needs more; another stream never shares it."""
+    key = (device.index, stream)
+    got = _scratch_of.get(key)
+    if (got is None or got[0].numel() < plan.tickets
+            or got[1].numel() < plan.workspace or got[2].numel() < rows):
+        have = (0, 0, 0) if got is None else tuple(t.numel() for t in got)
+        got = _scratch_of[key] = (
+            torch.zeros(max(plan.tickets, have[0], 1024), dtype=torch.int32,
+                        device=device),
+            torch.empty(max(plan.workspace, have[1]), dtype=torch.float32,
+                        device=device),
+            torch.empty(max(rows, have[2]), dtype=torch.float32,
+                        device=device))
+    return got
 
 
 def _check(q, k, v, bias3, seed, rate, per_row):
@@ -285,8 +365,7 @@ def _common_args(q, k, bias3, scale, causal, rate, per_head, per_row):
     inv = 1.0 / (1.0 - rate) if rate > 0 else 1.0
     return [B * H, H, lq, k.shape[2], D, float(scale), int(causal), mode,
             int(bool(per_head)), float(rate), inv, thresh,
-            int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream(q.device).cuda_stream]
+            int(q.dtype == torch.bfloat16)]
 
 
 def _ptr(t):
@@ -306,7 +385,8 @@ def _flash_fwd_cuda(q, k, v, bias3, seed, scale, causal, rate, per_head,
     err = _kernel_fn("fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias3),
         _ptr(seed) if rate > 0 else None, out.data_ptr(), lse.data_ptr(),
-        *_common_args(q, k, bias3, scale, causal, rate, per_head, per_row))
+        *_common_args(q, k, bias3, scale, causal, rate, per_head, per_row),
+        torch._C._cuda_getCurrentRawStream(q.device.index))
     if err:
         raise MXNetError(f"flash_attention forward kernel launch failed "
                          f"(cudaError_t {err})")
@@ -315,32 +395,42 @@ def _flash_fwd_cuda(q, k, v, bias3, seed, scale, causal, rate, per_head,
 
 
 def _flash_bwd_cuda(q, k, v, bias3, seed, o, lse, g, scale, causal, rate,
-                    per_head, per_row):
-    """Check the operands, then launch the dQ and dK/dV kernels on the
-    current stream; returns (dq, dk, dv)."""
+                    per_head, per_row, plan: Optional[BwdPlan] = None):
+    """Check the operands, then launch the backward (the di row pass and
+    the key-tile kernel) on the current stream with `plan` (default:
+    `_bwd_plan` for the shape); returns (dq, dk, dv)."""
     _check(q, k, v, bias3, seed, rate, per_row)
     for name, t in (("o", o), ("dout", g)):
         if t.shape != q.shape or t.dtype != q.dtype or \
                 not t.is_contiguous() or t.device != q.device:
             raise MXNetError(f"{name} must be a contiguous {q.dtype} "
                              f"{tuple(q.shape)} on {q.device}")
-    B, H, lq, _ = q.shape
+    B, H, lq, D = q.shape
+    lk = k.shape[2]
     if lse.dtype != torch.float32 or tuple(lse.shape) != (B * H, lq) or \
             not lse.is_contiguous():
         raise MXNetError(f"lse must be contiguous f32 ({B * H}, {lq})")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    di = torch.empty((B * H, lq), dtype=torch.float32, device=q.device)
+    dev = q.device
+    if plan is None:
+        plan = _bwd_plan(B, H, lq, lk, D, q.dtype, _kernels.sm_count(dev))
+    # the raw handle, without building a torch.cuda.Stream each call
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    tickets, ws, di = _scratch(dev, stream, plan, B * H * lq)
+    split = plan.key_tiles > 1
     err = _kernel_fn("bwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias3),
         _ptr(seed) if rate > 0 else None, o.data_ptr(), lse.data_ptr(),
         g.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(),
-        *_common_args(q, k, bias3, scale, causal, rate, per_head, per_row))
+        dv.data_ptr(), ws.data_ptr() if split else None,
+        tickets.data_ptr() if split else None,
+        *_common_args(q, k, bias3, scale, causal, rate, per_head, per_row),
+        plan.bk, plan.grid, stream)
     if err:
         raise MXNetError(f"flash_attention backward kernel launch failed "
-                         f"(cudaError_t {err})")
+                         f"(cudaError_t {err}, {plan})")
     _kernels.LAUNCHES["flash_attention_bwd"] += 1
     return dq, dk, dv
 

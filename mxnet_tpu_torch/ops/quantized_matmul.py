@@ -267,7 +267,6 @@ def _plan(M: int, N: int, K: int, bits: int, dtype, sm_count: int,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _fn = None
-_sm_count: Dict[Any, int] = {}
 # (device index, raw stream) -> (ticket counters, f32 partials workspace)
 _scratch_of: Dict[Any, Tuple[torch.Tensor, torch.Tensor]] = {}
 # plans already made, keyed by shape, bits, dtype and device, valid for the
@@ -287,13 +286,7 @@ def _kernel_fn():
     return _fn
 
 
-def _sms(device) -> int:
-    """The card's SM count, read once per device."""
-    n = _sm_count.get(device)
-    if n is None:
-        n = _sm_count[device] = torch.cuda.get_device_properties(
-            device).multi_processor_count
-    return n
+_sms = _kernels.sm_count   # the card's SM count, read once per device
 
 
 def _scratch(device, stream: int, plan: Plan):

@@ -2,11 +2,13 @@
 ragged paged attention, the dequant-matmul (every plan of its menu, odd
 shapes, the tied head, two calls bit-equal), flash attention (forward and
 backward, with padding or per-row bias, causal, dropout, ragged L and
-D up to 128), the streaming cross-entropy (any V, unclamped labels), the
-fused LayerNorm/RMSNorm (any h, with and without residual and beta) and
-the optimizer kernels (the multi-tensor chunk for Adam, AdamW and SGD,
-LAMB phases A and B; f32 and bf16 weights; the skip flag; every tunable
-chunk size), the MoE row gather (dispatch and combine, f32 and bf16, with
+D up to 128; the backward at both key tiles, two calls and two streams
+bit-equal, masked rows and keys exactly zero), the streaming
+cross-entropy (any V, unclamped labels), the fused LayerNorm/RMSNorm (any
+h, with and without residual and beta) and the optimizer kernels (the
+multi-tensor chunk for Adam, AdamW and SGD, LAMB phases A and B; f32 and
+bf16 weights; the skip flag; every tunable chunk size), the MoE row
+gather (dispatch and combine, f32 and bf16, with
 sentinel rows) and a two-step MoE `TrainStep` on the card.
 
 Marked ``cuda``: each test skips (with its reason) where no card is
@@ -200,7 +202,9 @@ def _flash_case(card, dtype, B, H, Lq, Lk, D, bias_kind, causal, rate):
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("Lq,Lk,D,bias_kind,causal,rate", [
     (128, 128, 64, "pad", False, 0.1), (77, 77, 64, "none", True, 0.0),
-    (40, 100, 32, "row", False, 0.0), (130, 65, 128, "pad", False, 0.2)])
+    (40, 100, 32, "row", False, 0.0), (130, 65, 128, "pad", False, 0.2),
+    (200, 300, 64, "pad", False, 0.1), (257, 257, 128, "none", True, 0.0),
+    (96, 96, 32, "row", False, 0.1)])
 def test_flash_attention_kernels_match_plain(card, dtype, tol, Lq, Lk, D,
                                              bias_kind, causal, rate):
     kernels.reset_launch_counts()
@@ -212,6 +216,124 @@ def test_flash_attention_kernels_match_plain(card, dtype, tol, Lq, Lk, D,
     for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
         err = float((a.float() - b.float()).abs().max())
         assert err <= tol * float(b.float().abs().max()), name
+
+
+def _flash_bwd_inputs(card, dtype, B, H, Lq, Lk, D, bias_kind, causal, rate,
+                      seed=3):
+    """Seeded operands of one backward call and its plain version's
+    (dq, dk, dv): q, k, v, bias3, seed, o, lse, dout and the flags."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(*s, generator=g).to(card, dtype)
+                   for s in ((B, H, Lq, D), (B, H, Lk, D), (B, H, Lk, D),
+                             (B, H, Lq, D)))
+    bias = None
+    if bias_kind == "pad":
+        vl = torch.randint(1, Lk + 1, (B,), generator=g)
+        bias = torch.where(torch.arange(Lk)[None] < vl[:, None], 0.0,
+                           fa.MASK_VALUE).to(card)
+    elif bias_kind == "row":
+        bias = torch.randn(B, Lq, Lk, generator=g).to(card)
+        bias[0, :3] = fa.MASK_VALUE                 # fully masked rows
+    bias3, per_head, per_row = (None, False, False) if bias is None \
+        else fa.normalize_bias(bias, B, H, Lq, Lk)
+    sd = torch.tensor([777], dtype=torch.int32, device=card)
+    flags = (D ** -0.5, causal, rate, per_head, per_row)
+    o, lse = fa.flash_fwd_reference(q, k, v, bias3, sd, *flags)
+    args = (q, k, v, bias3, sd, o, lse, do) + flags
+    return args, fa.flash_bwd_reference(*args)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("bk", [64, 128])
+@pytest.mark.parametrize("B,H,Lq,Lk,D,bias_kind,causal,rate", [
+    (2, 3, 128, 128, 64, "pad", False, 0.1),
+    (2, 3, 200, 300, 64, "pad", False, 0.1),
+    (1, 2, 257, 257, 128, "none", True, 0.0),
+    (2, 2, 96, 150, 32, "row", False, 0.0),
+    (2, 2, 70, 33, 80, "none", False, 0.0),
+    (1, 2, 45, 70, 33, "pad", True, 0.1)])
+def test_flash_backward_every_key_tile_is_right_and_repeatable(
+        card, dtype, tol, bk, B, H, Lq, Lk, D, bias_kind, causal, rate):
+    """Both key tiles (one tile a head: dQ written by the block; several:
+    partials summed by the last to arrive) against the plain version, two
+    calls bit-equal, and in bf16 a grid of three persistent blocks giving
+    the same bits."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    args, want = _flash_bwd_inputs(card, dtype, B, H, Lq, Lk, D, bias_kind,
+                                   causal, rate)
+    plan = fa._bwd_plan(B, H, Lq, Lk, D, dtype, kernels.sm_count(card),
+                        bk=bk)
+    kernels.reset_launch_counts()
+    got = fa._flash_bwd_cuda(*args, plan=plan)
+    again = fa._flash_bwd_cuda(*args, plan=plan)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention_bwd"] == 2
+    for name, a, a2, b in zip(("dq", "dk", "dv"), got, again, want):
+        assert torch.equal(a, a2), name
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= tol * float(b.float().abs().max()), name
+    if dtype == torch.bfloat16:
+        # three persistent blocks walk every item, the next one's loads in
+        # flight (causal heads wider than Lq have items with no q tile):
+        # the same bits
+        narrow = fa._flash_bwd_cuda(*args, plan=plan._replace(grid=3))
+        assert all(torch.equal(a, b) for a, b in zip(narrow, got))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_on_two_streams(card, dtype):
+    """Backward calls with dQ partials on two streams at once keep their
+    own tickets and partials: each stream's results equal the same call
+    made alone, bit for bit, and the tickets are left zeroed."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    calls = [_flash_bwd_inputs(card, dtype, 2, 3, 150, 260, 64, "pad",
+                               False, 0.1, seed=s)[0] for s in (4, 5)]
+    plan = fa._bwd_plan(2, 3, 150, 260, 64, dtype, kernels.sm_count(card),
+                        bk=64)
+    assert plan.key_tiles == 5
+    wants = [fa._flash_bwd_cuda(*a, plan=plan) for a in calls]
+    streams = [torch.cuda.Stream(card) for _ in calls]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(10):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(fa._flash_bwd_cuda(*calls[i], plan=plan))
+    torch.cuda.synchronize()
+    for want, got in zip(wants, outs):
+        for grads in got:
+            assert all(torch.equal(a, b) for a, b in zip(grads, want))
+    raw = {st.cuda_stream for st in streams}
+    mine = [v for key, v in fa._scratch_of.items() if key[1] in raw]
+    assert len(mine) == 2
+    assert all(int(t[0].abs().sum()) == 0 for t in mine)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bk", [64, 128])
+def test_flash_backward_masked_rows_and_keys_get_zeros(card, dtype, bk):
+    """A query row whose keys are all masked has exactly zero dQ, and a key
+    masked for every row (padding) exactly zero dK and dV."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    B, H, L, D = 2, 2, 140, 64
+    g = torch.Generator().manual_seed(6)
+    q, k, v, do = (torch.randn(B, H, L, D, generator=g).to(card, dtype)
+                   for _ in range(4))
+    bias = torch.randn(B, L, L, generator=g)
+    bias[:, 5:9] = fa.MASK_VALUE             # rows 5-8: every key masked
+    bias[:, :, 100:] = fa.MASK_VALUE         # keys 100-139: every row
+    bias3, per_head, per_row = fa.normalize_bias(bias.to(card), B, H, L, L)
+    flags = (D ** -0.5, False, 0.0, per_head, per_row)
+    o, lse = fa._flash_fwd_cuda(q, k, v, bias3, None, *flags)
+    plan = fa._bwd_plan(B, H, L, L, D, dtype, kernels.sm_count(card), bk=bk)
+    dq, dk, dv = fa._flash_bwd_cuda(q, k, v, bias3, None, o, lse, do,
+                                    *flags, plan=plan)
+    torch.cuda.synchronize()
+    assert not bool(dq[:, :, 5:9].any())
+    assert not bool(dk[:, :, 100:].any()) and not bool(dv[:, :, 100:].any())
+    assert bool(dq[:, :, 9:].any()) and bool(dk[:, :, :100].any())
 
 
 def test_flash_attention_kernel_raises_on_what_it_does_not_take(card):

@@ -299,3 +299,58 @@ def test_flash_rejects_bad_inputs():
         tfa.flash_attention(q, q, q, bias=torch.zeros(2, 5, 8))
     with pytest.raises(MXNetError, match="cuda or cpu"):
         tfa.flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
+
+
+# ---------------------------------------------------------------------------
+# the backward kernel's launch plan (plain Python, no card needed)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_plan_at_bert_shape_is_one_key_tile(dtype):
+    # BERT-base's attention: B 64, H 12, L 128, D 64 -- a 128-key tile holds
+    # the whole head, so the block writes dQ and no partials exist
+    p = tfa._bwd_plan(64, 12, 128, 128, 64, dtype, 132)
+    assert (p.bk, p.dmax, p.bq) == (128, 64, 64)
+    assert (p.key_tiles, p.q_tiles, p.blocks) == (1, 2, 768)
+    assert (p.tickets, p.workspace) == (0, 0)
+    # bf16: one persistent block an SM walks the items; f32: one an item
+    assert p.grid == (132 if dtype == torch.bfloat16 else 768)
+
+
+@pytest.mark.parametrize("D,dmax,bq", [(64, 64, 64), (128, 128, 32)])
+def test_bwd_plan_at_gpt2_shape_splits_keys(D, dmax, bq):
+    # GPT-2 small's training attention: B 8, H 12, L 1024 -- eight 128-key
+    # tiles a head, each writing f32 dQ partials; one ticket a (bh, q tile)
+    B, H, L = 8, 12, 1024
+    p = tfa._bwd_plan(B, H, L, L, D, torch.float32, 132)
+    assert (p.bk, p.dmax, p.bq, p.key_tiles) == (128, dmax, bq, 8)
+    assert p.q_tiles == L // bq and p.blocks == p.grid == B * H * 8
+    assert tfa._bwd_plan(B, H, L, L, D, torch.bfloat16, 132).grid == 132
+    assert p.tickets == B * H * (L // bq)
+    assert p.workspace == 8 * B * H * L * D
+
+
+def test_bwd_plan_small_heads_and_grids_take_64_key_tiles():
+    # Lk within 64: one 64-key tile, no partials
+    for lk in (1, 33, 64):
+        p = tfa._bwd_plan(64, 12, 128, lk, 64, torch.float32, 132)
+        assert (p.bk, p.key_tiles, p.tickets, p.workspace) == (64, 1, 0, 0)
+    # 128-key tiles would leave the grid short of one block an SM
+    p = tfa._bwd_plan(2, 3, 128, 128, 64, torch.float32, 132)
+    assert (p.bk, p.key_tiles, p.blocks) == (64, 2, 12)
+    # a bf16 grid never exceeds the items
+    assert tfa._bwd_plan(2, 3, 128, 128, 64, torch.bfloat16, 132).grid == 12
+    assert (p.tickets, p.workspace) == (2 * 3 * 2, 2 * 2 * 3 * 128 * 64)
+    # ragged shapes round up; D over 64 pads to 128 with 32-row q steps
+    p = tfa._bwd_plan(2, 3, 257, 300, 80, torch.bfloat16, 132)
+    assert (p.bk, p.dmax, p.bq, p.key_tiles, p.q_tiles) == (64, 128, 32, 5,
+                                                            9)
+
+
+def test_bwd_plan_override_and_bad_tile():
+    p = tfa._bwd_plan(2, 3, 200, 300, 64, torch.float32, 132, bk=128)
+    assert (p.bk, p.key_tiles, p.workspace) == (128, 3, 3 * 6 * 200 * 64)
+    p = tfa._bwd_plan(2, 3, 100, 100, 64, torch.float32, 132, bk=128)
+    assert (p.key_tiles, p.tickets, p.workspace) == (1, 0, 0)
+    with pytest.raises(MXNetError, match="key tile"):
+        tfa._bwd_plan(2, 3, 100, 100, 64, torch.float32, 132, bk=32)

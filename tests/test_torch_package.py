@@ -52,7 +52,8 @@ def test_no_source_file_imports_jax_or_the_jax_package():
                      re.M)
     files = [os.path.join(REPO, f) for f in ("chip_smoke.py",
                                              "serve_profile.py",
-                                             "train_profile.py")]
+                                             "train_profile.py",
+                                             "flash_profile.py")]
     for root, _, names in os.walk(os.path.join(REPO, "mxnet_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     bad = []
@@ -160,3 +161,24 @@ def test_dispatch_refuses_other_devices():
     i32 = torch.zeros(1, 1, dtype=torch.int32, device="meta")
     with pytest.raises(MXNetError, match="cuda or cpu"):
         ragged_paged_attention(q, pool, pool, i32, i32[0], i32[0])
+
+
+def test_kernel_build_dir_hash_follows_headers(monkeypatch, tmp_path):
+    """The build directory is keyed by every source AND header under
+    ``csrc/``: an edited ``.cuh`` rebuilds instead of loading a stale
+    library."""
+    import shutil
+    src = tmp_path / "csrc"
+    shutil.copytree(kernels.CSRC, src)
+    assert any(p.suffix == ".cuh" for p in src.iterdir())
+    monkeypatch.setattr(kernels, "CSRC", str(src))
+    monkeypatch.setenv("MXTPU_TORCH_BUILD_DIR", str(tmp_path / "build"))
+    before = kernels._build_dir()
+    assert kernels._build_dir() == before
+    header = next(p for p in src.iterdir() if p.suffix == ".cuh")
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = kernels._build_dir()
+    assert after != before
+    source = next(p for p in src.iterdir() if p.suffix == ".cu")
+    source.write_text(source.read_text() + "\n// edited\n")
+    assert kernels._build_dir() not in (before, after)

@@ -36,7 +36,7 @@ RUNS = (("bfloat16", "Adam", "auto"), ("float32", "Adam", "auto"),
 MOE_RUNS = (("float32", "step"), ("bfloat16", "step"),
             ("bfloat16", "trainer"))
 CLASSES = (("flash_fwd", ("flash_fwd_kernel",)),
-           ("flash_bwd", ("flash_dq_kernel", "flash_dkv_kernel")),
+           ("flash_bwd", ("flash_bwd_kernel", "flash_bwd_di_kernel")),
            ("xent", ("xent_fwd_kernel", "xent_bwd_kernel")),
            ("norm", ("norm_kernel",)),
            ("optimizer", ("chunk_kernel", "lamb_a_kernel", "lamb_b_kernel")),
