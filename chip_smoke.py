@@ -15,14 +15,15 @@ widths (hidden 768, FFN 3072, 8 experts) through `TrainStep` and the gluon
 2. holds each kernel against its plain PyTorch version at the slice's
    shapes — K1 ragged paged attention (f32/bf16, decode C=1 and prefill
    C=16, MHA and GQA rep 4, ragged context lengths with an empty slot and
-   non-page-aligned lengths, with and without a window) and K2 int8/int4
-   dequant-matmul (f32/bf16 activations, M in {8, 128}, the four GPT-2
-   projection shapes, and the tied head (8, 50257, 768) at int8 f32; two
-   calls bit-equal) — within max-abs 1e-4 (f32) / 2e-2 (bf16) of the
-   output scale, and times kernel, plain version, a one-call library
-   yardstick (never used by the port, each K2 case's kernel / library
-   ratio printed) and the card's bound; K2's cases and their library
-   calls also give the device-only time and the host µs a call;
+   non-page-aligned lengths, with and without a window; each with its
+   launch plan) and K2 int8/int4 dequant-matmul (f32/bf16 activations, M
+   in {8, 128}, the four GPT-2 projection shapes, and the tied head (8,
+   50257, 768) at int8 f32) — two calls bit-equal, within max-abs 1e-4
+   (f32) / 2e-2 (bf16) of the output scale, and times kernel, plain
+   version, a one-call library yardstick (never used by the port; each
+   case's kernel / library ratio printed) and the card's bound; the K1
+   and K2 cases and their library calls also give the device-only time
+   and the host µs a call;
 3. serves 16 greedy requests (prompts of 16-256 tokens, 32 new tokens,
    staggered arrivals) through ``InferenceEngine`` with
    ``ServeConfig(max_slots=8, max_len=512, page_size=16, prefill_chunk=16)``
@@ -102,7 +103,12 @@ widths (hidden 768, FFN 3072, 8 experts) through `TrainStep` and the gluon
    phase, so the phases that follow launch at ``CHUNK``; then the same for
    K2 (``tune("quantized_matmul", (8, 2304, 768), "int8")`` over its whole
    plan menu: every candidate's launch within 1e-4 of the plain version's
-   scale, the next call on the tuned plan);
+   scale, the next call on the tuned plan), and for K1's page size
+   (``tune("paged_attention", (8, 12, 12, 64, 512), "float32")``: the
+   trials launch K1, every candidate page size's decode step within 1e-4
+   of the plain version's scale, a warm call a hit with 0 trials, and
+   ``ServeConfig()`` then takes the tuned page size; later phases serve
+   at page 16 as before);
 13. (moe) ``MoEFeedForward(768, 3072, num_experts=8, capacity_factor=1.25)``
    trained 20 steps on a seeded (64, 128, 768) batch, loss MSE + 0.01 aux,
    Adam lr 1e-4, through ``TrainStep`` and through ``gluon.Trainer``
@@ -305,17 +311,35 @@ def k1_cases(dev):
                             qpos[:, :, None] - window
                     mask = mask[:, None]
                     sdpa = torch.nn.functional.scaled_dot_product_attention
+                    again = pa.ragged_paged_attention(*args, window=window)
+                    plan = pa._plan(B, H, Hkv, C, D, ps, maxp, dt,
+                                    pa._kernels.sm_count(q.device))
                     case = dict(dtype=dtype, C=C, Hkv=Hkv, window=window,
-                                max_abs_err=err, out_scale=scale,
-                                tol=TOL[dtype] * scale,
-                                ok=err <= TOL[dtype] * scale)
-                    case["ms"] = time_ms(lambda: pa.ragged_paged_attention(
-                        *args, window=window))
+                                plan=dict(plan._asdict()), max_abs_err=err,
+                                out_scale=scale, tol=TOL[dtype] * scale,
+                                bit_equal_calls=bool(torch.equal(got,
+                                                                 again)))
+                    case["ok"] = err <= case["tol"] and \
+                        case["bit_equal_calls"]
+
+                    def kern():
+                        return pa.ragged_paged_attention(*args,
+                                                         window=window)
+
+                    def lib():
+                        return sdpa(q, kc, vc, attn_mask=mask)
+
+                    case["ms"] = time_ms(kern)
+                    case["device_ms"] = time_ms(kern, device_only=True)
+                    case["host_us"] = host_us(kern)
                     case["plain_ms"] = time_ms(
                         lambda: pa.paged_attention_reference(
                             *args, window=window))
-                    case["library_ms"] = time_ms(lambda: sdpa(
-                        q, kc, vc, attn_mask=mask))
+                    case["library_ms"] = time_ms(lib)
+                    case["library_device_ms"] = time_ms(lib,
+                                                        device_only=True)
+                    case["library_host_us"] = host_us(lib)
+                    case["vs_library"] = case["ms"] / case["library_ms"]
                     # the work this data needs: q + the K/V rows below
                     # ctx (from the window's floor) + out + indices
                     item = q.element_size()
@@ -1472,6 +1496,11 @@ def run_tune(dev, results, card):
             print(f"[tune k2_int8] {json.dumps(st)}", flush=True)
             if not st["ok"]:
                 raise AssertionError(f"tune k2_int8: {st}")
+            results["tune"]["k1_page_size"] = st = k1_tune_case(at, kernels,
+                                                                torch)
+            print(f"[tune k1_page_size] {json.dumps(st)}", flush=True)
+            if not st["ok"]:
+                raise AssertionError(f"tune k1_page_size: {st}")
         finally:
             at.clear_memory_cache()
             if old is None:
@@ -1532,6 +1561,55 @@ def k2_tune_case(dev, at, kernels, torch):
                 and (qm.VARIANTS.index(tuned.variant), tuned.split)
                 == (cold.config.variant, cold.config.split)
                 and next_launches == 1)
+    return st
+
+
+K1_TUNE = (8, 12, 12, 64, 512)   # slots, heads, kv heads, head dim, ctx
+
+
+def k1_tune_case(at, kernels, torch):
+    """Cold and warm ``tune("paged_attention", (8, 12, 12, 64, 512),
+    "float32")`` over the four page sizes; each candidate's decode step
+    against the plain version; `ServeConfig()` then takes the tuned page
+    size (``MXTPU_SERVE_PAGE_SIZE`` unset for the check)."""
+    from mxnet_tpu_torch.ops import paged_attention as pa
+    from mxnet_tpu_torch.serve import ServeConfig
+    cands = pa._at_candidates(K1_TUNE, "float32")
+    kernels.reset_launch_counts()
+    cold = at.tune("paged_attention", K1_TUNE, "float32", top_k=len(cands))
+    trial_launches = kernels.launch_counts()["ragged_paged_attention"]
+    warm = at.tune("paged_attention", K1_TUNE, "float32", top_k=len(cands))
+    warm_launches = kernels.launch_counts()["ragged_paged_attention"] - \
+        trial_launches
+    errs, tols = {}, {}
+    for c in cands:
+        args = pa._at_inputs(c, K1_TUNE, "float32", torch.device("cuda", 0))
+        got = pa.ragged_paged_attention(*args)
+        ref = pa.paged_attention_reference(*args)
+        torch.cuda.synchronize()
+        errs[c.page_size] = float((got - ref).abs().max())
+        tols[c.page_size] = TOL["float32"] * float(ref.abs().max())
+    env = os.environ.pop("MXTPU_SERVE_PAGE_SIZE", None)
+    try:
+        serve_page = ServeConfig().page_size
+    finally:
+        if env is not None:
+            os.environ["MXTPU_SERVE_PAGE_SIZE"] = env
+    per_trial = 1 + 5          # time_callable's warmup and runs
+    st = dict(shape=list(K1_TUNE), candidates=len(cands),
+              config=dict(cold.config), cold_trials=cold.trials,
+              cold_search_ms=cold.search_ms, trial_launches=trial_launches,
+              timings_ms={dict(k)["page_size"]: v
+                          for k, v in cold.timings_ms.items()},
+              warm_hit=warm.cache_hit, warm_trials=warm.trials,
+              warm_launches=warm_launches, candidate_errs=errs,
+              candidate_tols=tols, serve_config_page_size=serve_page)
+    st["ok"] = (cold.trials == len(cands)
+                and trial_launches == per_trial * cold.trials
+                and warm.cache_hit and warm.trials == 0
+                and warm_launches == 0
+                and all(errs[p] <= tols[p] for p in errs)
+                and serve_page == cold.config.page_size)
     return st
 
 

@@ -1,7 +1,8 @@
 // Tensor-core and async-copy helpers shared by the port's CUDA kernels
-// (quantized_matmul.cu, flash_attention.cu): 16- and 4-byte cp.async into
-// shared memory, ldmatrix, and the mma.sync products for bf16 (m16n8k16)
-// and TF32 (m16n8k8), both accumulating in f32.
+// (quantized_matmul.cu, flash_attention.cu, paged_attention.cu): 16- and
+// 4-byte cp.async into shared memory, ldmatrix, the mma.sync products for
+// bf16 (m16n8k16) and TF32 (m16n8k8), both accumulating in f32, and `Mma<T>`,
+// the operand fragments of those products by input type.
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k*"), with
 // g = lane / 4 and t = lane % 4:
@@ -13,6 +14,7 @@
 //                    B (8 x 8): b0 (t, g), b1 (t+4, g)
 #pragma once
 #include <cuda_runtime.h>
+#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
@@ -96,5 +98,169 @@ __device__ __forceinline__ bool arrive_last(unsigned int* counter,
   if (last) __threadfence();
   return last;
 }
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The operand fragments of the tensor-core products, by input type (layouts
+// above).  X is a tile in shared memory with row
+// stride ld elements; B loads fill the two 8-wide n-tiles at n0, n0 + 8.
+template <typename T> struct Mma;
+
+// bf16: m16n8k16 with f32 accumulation; tiles stay bf16 and ldmatrix
+// loads the fragments (rows padded by 16 bytes: conflict-free)
+template <> struct Mma<__nv_bfloat16> {
+  using T = __nv_bfloat16;
+  static constexpr int KS = 16;  // k of one product
+  static constexpr int PAD = 8;  // row pad, elements
+  struct A { uint32_t r[4]; };
+  struct B { uint32_t r[2]; };
+  // A[m][k] = X[m0 + m][k0 + k]
+  static __device__ __forceinline__ void a_row(A& a, const T* X, int ld,
+                                               int m0, int k0, int lane) {
+    const int mi = lane >> 3, ri = lane & 7;
+    ldsm_x4(a.r, X + (m0 + (mi & 1) * 8 + ri) * ld + k0 + (mi >> 1) * 8);
+  }
+  // A[m][k] = X[k0 + k][m0 + m]
+  static __device__ __forceinline__ void a_trans(A& a, const T* X, int ld,
+                                                 int m0, int k0, int lane) {
+    const int mi = lane >> 3, ri = lane & 7;
+    ldsm_x4_t(a.r, X + (k0 + (mi >> 1) * 8 + ri) * ld + m0 + (mi & 1) * 8);
+  }
+  // B[k][n] = X[n0 + n][k0 + k]
+  static __device__ __forceinline__ void b_nrow(B (&b)[2], const T* X,
+                                                int ld, int n0, int k0,
+                                                int lane) {
+    const int mi = lane >> 3, ri = lane & 7;
+    uint32_t r[4];
+    ldsm_x4(r, X + (n0 + (mi >> 1) * 8 + ri) * ld + k0 + (mi & 1) * 8);
+    b[0].r[0] = r[0];
+    b[0].r[1] = r[1];
+    b[1].r[0] = r[2];
+    b[1].r[1] = r[3];
+  }
+  // B[k][n] = X[k0 + k][n0 + n]
+  static __device__ __forceinline__ void b_krow(B (&b)[2], const T* X,
+                                                int ld, int k0, int n0,
+                                                int lane) {
+    const int mi = lane >> 3, ri = lane & 7;
+    uint32_t r[4];
+    ldsm_x4_t(r, X + (k0 + (mi & 1) * 8 + ri) * ld + n0 + (mi >> 1) * 8);
+    b[0].r[0] = r[0];
+    b[0].r[1] = r[1];
+    b[1].r[0] = r[2];
+    b[1].r[1] = r[3];
+  }
+  // b_krow matching an A from `a_acc` (here the same k order)
+  static __device__ __forceinline__ void b_krow_acc(B (&b)[2], const T* X,
+                                                    int ld, int k0, int n0,
+                                                    int lane) {
+    b_krow(b, X, ld, k0, n0, lane);
+  }
+  // A of k-step j from the accumulators c[n-tile][4] of an earlier product,
+  // rounded to bf16: its 16 k columns are n-tiles 2j and 2j + 1
+  static __device__ __forceinline__ void a_acc(A& a, const float (*c)[4],
+                                               int j) {
+    a.r[0] = pack_bf16(c[2 * j][0], c[2 * j][1]);
+    a.r[1] = pack_bf16(c[2 * j][2], c[2 * j][3]);
+    a.r[2] = pack_bf16(c[2 * j + 1][0], c[2 * j + 1][1]);
+    a.r[3] = pack_bf16(c[2 * j + 1][2], c[2 * j + 1][3]);
+  }
+  static __device__ __forceinline__ void mma(float* c, const A& a,
+                                             const B& b) {
+    mma_bf16(c, a.r, b.r);
+  }
+  static __device__ __forceinline__ void store2(T* p, float x, float y) {
+    *reinterpret_cast<uint32_t*>(p) = pack_bf16(x, y);
+  }
+};
+
+// f32: 3xTF32 -- both operands split into hi + lo TF32 halves, then
+// a.lo b.hi + a.hi b.lo + a.hi b.hi (m16n8k8): about 2^-20 relative error
+// a product, where one TF32 product keeps three digits
+template <> struct Mma<float> {
+  using T = float;
+  static constexpr int KS = 8;
+  static constexpr int PAD = 4;
+  struct A { uint32_t hi[4], lo[4]; };
+  struct B { uint32_t hi[2], lo[2]; };
+  // hi keeps f's top 10 mantissa bits (exact in TF32), lo = f - hi exactly;
+  // the tensor core reads lo's top 10 bits, so a product keeps ~20 bits
+  static __device__ __forceinline__ void split(float f, uint32_t& hi,
+                                               uint32_t& lo) {
+    hi = __float_as_uint(f) & 0xffffe000u;
+    lo = __float_as_uint(f - __uint_as_float(hi));
+  }
+  static __device__ __forceinline__ void set_a(A& a, float f0, float f1,
+                                               float f2, float f3) {
+    split(f0, a.hi[0], a.lo[0]);
+    split(f1, a.hi[1], a.lo[1]);
+    split(f2, a.hi[2], a.lo[2]);
+    split(f3, a.hi[3], a.lo[3]);
+  }
+  static __device__ __forceinline__ void a_row(A& a, const T* X, int ld,
+                                               int m0, int k0, int lane) {
+    const T* r0 = X + (m0 + (lane >> 2)) * ld + k0 + (lane & 3);
+    const T* r8 = r0 + 8 * ld;
+    set_a(a, r0[0], r8[0], r0[4], r8[4]);
+  }
+  static __device__ __forceinline__ void a_trans(A& a, const T* X, int ld,
+                                                 int m0, int k0, int lane) {
+    const T* c0 = X + (k0 + (lane & 3)) * ld + m0 + (lane >> 2);
+    const T* c4 = c0 + 4 * ld;
+    set_a(a, c0[0], c0[8], c4[0], c4[8]);
+  }
+  static __device__ __forceinline__ void b_nrow(B (&b)[2], const T* X,
+                                                int ld, int n0, int k0,
+                                                int lane) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const T* r = X + (n0 + 8 * i + (lane >> 2)) * ld + k0 + (lane & 3);
+      split(r[0], b[i].hi[0], b[i].lo[0]);
+      split(r[4], b[i].hi[1], b[i].lo[1]);
+    }
+  }
+  static __device__ __forceinline__ void b_krow(B (&b)[2], const T* X,
+                                                int ld, int k0, int n0,
+                                                int lane) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const T* r = X + (k0 + (lane & 3)) * ld + n0 + 8 * i + (lane >> 2);
+      split(r[0], b[i].hi[0], b[i].lo[0]);
+      split(r[4 * ld], b[i].hi[1], b[i].lo[1]);
+    }
+  }
+  // `a_acc` puts k columns 2t and 2t + 1 where the layout has t and t + 4
+  // (a sum's terms may come in any order): B takes its rows in that order
+  static __device__ __forceinline__ void b_krow_acc(B (&b)[2], const T* X,
+                                                    int ld, int k0, int n0,
+                                                    int lane) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const T* r =
+          X + (k0 + 2 * (lane & 3)) * ld + n0 + 8 * i + (lane >> 2);
+      split(r[0], b[i].hi[0], b[i].lo[0]);
+      split(r[ld], b[i].hi[1], b[i].lo[1]);
+    }
+  }
+  // A of k-step j from accumulator n-tile j: c0 (g, 2t), c1 (g, 2t+1),
+  // c2 (g+8, 2t), c3 (g+8, 2t+1) in the slots of (g, t), (g+8, t),
+  // (g, t+4), (g+8, t+4)
+  static __device__ __forceinline__ void a_acc(A& a, const float (*c)[4],
+                                               int j) {
+    set_a(a, c[j][0], c[j][2], c[j][1], c[j][3]);
+  }
+  static __device__ __forceinline__ void mma(float* c, const A& a,
+                                             const B& b) {
+    mma_tf32(c, a.lo, b.hi);  // the small terms first
+    mma_tf32(c, a.hi, b.lo);
+    mma_tf32(c, a.hi, b.hi);
+  }
+  static __device__ __forceinline__ void store2(T* p, float x, float y) {
+    *reinterpret_cast<float2*>(p) = make_float2(x, y);
+  }
+};
 
 }  // namespace

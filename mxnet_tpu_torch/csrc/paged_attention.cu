@@ -13,38 +13,55 @@
 //     start_pos[b] + r % C.
 //   * Scores in f32 with the caller's float scale; a key at position t is
 //     kept iff t < ctx_lens[b] and t <= qpos (and t >= qpos - window when a
-//     window is given).  Masked scores are MASK_VALUE and their p is forced
-//     to exactly 0, so a padded context adds exact zero terms.
-//   * Online softmax per row in f32 registers; p is rounded to the pool's
-//     type before the P.V product (as the TPU kernel casts p to v's dtype);
-//     a row that saw no key (ctx = 0) has l == 0 and writes zeros, not NaN.
-//   * Keys at t >= ctx are never read: the walk stops at ctx, so pages with
-//     page * page_size >= ctx cost nothing.
+//     window is given); a dropped key's p is exactly 0.
+//   * Online softmax per row in f32; p is rounded to the pool's type before
+//     the P.V product (as the TPU kernel casts p to v's dtype); a row that
+//     saw no key has l == 0 and writes zeros, not NaN.
+//   * Keys at t >= ctx are never read.
 //
-// What bounds it on the H100: the K/V bytes of the keys below ctx (each key
-// row D * itemsize, K and V), read from HBM at 3.35 TB/s; the flops are
-// 4 * rows * keys * D, far below the f32 FMA rate at serving shapes.
-// Design: one thread block per (slot, kv head, tile of 16 rows), so each K/V
-// row is fetched once per kv head and shared by all rep*C query rows of the
-// fold; tiles of 32 keys are gathered row by row through the page table into
-// shared memory (padded stride, no bank conflicts), so any page size works
-// and no contiguous context is ever materialised.  Simple first: no
-// cp.async/TMA pipelining and no tensor cores yet.
+// What bounds it on the H100: the K/V bytes of the keys below ctx, read
+// from HBM at 3.35 TB/s; at serving shapes that is a few MB a call, so
+// what the kernel has to beat is latency: enough blocks, and enough bytes
+// in flight in each, to cover the trip to HBM.
+//
+// Design (flash-decoding).  The grid is (slot * kv head) x (row tile) x
+// (key split): each split covers `span` keys, a whole number of pages, that
+// the host's plan (`_plan` in ops/paged_attention.py) sizes from the table's
+// capacity so that the grid fills the card.  A split wholly at or above ctx,
+// or below the window's floor, exits at once.  Inside a block each warp
+// walks its own 16-key tiles (tile i goes to warp i % warps) through a ring
+// of two stages in shared memory, filled by 16-byte cp.async copies of whole
+// K and V rows, with one page-table read per key row; the next tile's copies
+// fly while this one computes, and warps never wait on each other until the
+// block merges their (m, l, acc) states in warp order.  Two compute variants:
+//   * few rows (rep * C < 16: decode): q is staged once in f32; two lanes
+//     score a key, each over half of D, then the warp's online softmax; in
+//     P.V each lane owns D / 32 columns.  Every live row is a real row.
+//   * tile (rows >= 16: prefill chunks, GQA folds): 16 rows a block, S = Q
+//     K^T and O += P V as mma.sync products -- bf16 m16n8k16, and for f32
+//     3xTF32 m16n8k8 (hi/lo halves of both operands, about 2^-20 relative
+//     error a product) -- with P fed from the score fragments in registers.
+// A (slot, head) whose keys lie in one split writes `out` from that block.
+// With more, each live split writes its f32 partial (m, l, acc per row) to
+// `ws`, and the last block to arrive on the (slot * kv head, row tile)
+// ticket merges them in split order and puts the ticket back to zero: no
+// float atomics, the same bits every call.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_sm90.cuh"   // cp.async, ldmatrix, mma.sync, Mma, arrive_last
+
 namespace {
 
-constexpr float MASK_VALUE = -1e30f;
-constexpr int TR = 16;                    // query rows per block
-constexpr int TK = 32;                    // keys per tile (one per lane)
-constexpr int THREADS = 128;
-constexpr int WARPS = THREADS / 32;
-constexpr int RPW = TR / WARPS;           // rows owned by each warp
+constexpr int TK = 16;           // keys a warp takes a step of its walk
+constexpr int TILE_ROWS = 16;    // rows of the tile variant (one mma M)
+constexpr int MAX_WARPS = 4;
 constexpr int MAX_D = 256;
-constexpr int DPL = MAX_D / 32;           // head-dim values per lane
+constexpr int MAX_SPLITS = 128;  // splits' weights fit the merge area
+constexpr int MAX_DEVICES = 64;
+constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -59,180 +76,604 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
   return __float2bfloat16(x);
 }
 
+// 16 bytes of a row in shared memory as floats
+__device__ __forceinline__ void load16(float (&f)[4], const float* p) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  f[0] = v.x;
+  f[1] = v.y;
+  f[2] = v.z;
+  f[3] = v.w;
+}
+__device__ __forceinline__ void load16(float (&f)[8],
+                                       const __nv_bfloat16* p) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __bfloat1622float2(h[i]);
+    f[2 * i] = x.x;
+    f[2 * i + 1] = x.y;
+  }
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
   return v;
 }
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
   return v;
 }
 
-size_t smem_bytes(int D) {
-  const int ldk = D + 1;
-  return sizeof(float) * ((size_t)TR * ldk + 2 * (size_t)TK * ldk + TR * TK);
+struct Params {
+  const int* pt;          // (B, maxp) page tables
+  const int* ctx;         // (B,) context lengths
+  const int* start;       // (B,) first chunk position
+  float* ws;              // f32 partials: per row acc[D], m, l, 2 pad
+  unsigned int* tickets;  // one per (slot * kv head, row tile), zeroed
+  int Hkv, C, D, ps, maxp, rows, window;
+  float scale;
+  int row_tile, row_tiles, span, nsplit;
+};
+
+// Shared-memory layout of one instantiation: q, then each warp's ring of
+// two stages of K and V rows ([warp][stage][K, V][TK][LD]); the block's
+// merge area ([warp][RT][DMAX] acc, then [warp][RT][m, l]) reuses the rings.
+// Rows are padded so that neither variant's reads conflict on banks: 32
+// bytes where two lanes read a key's halves, 16 where ldmatrix reads rows.
+template <typename T, int DMAX, int RB> struct Cfg {
+  static constexpr bool TILE = RB == TILE_ROWS;
+  static constexpr int LD = DMAX + (TILE ? 16 : 32) / (int)sizeof(T);
+  static constexpr int LDQ = TILE ? DMAX + 16 / (int)sizeof(T) : DMAX;
+  static constexpr size_t QBYTES =
+      TILE ? (size_t)TILE_ROWS * LDQ * sizeof(T) : (size_t)RB * DMAX * 4;
+  static constexpr size_t RING = (size_t)2 * 2 * TK * LD * sizeof(T);
+  static size_t smem(int warps) {
+    const size_t ring = warps * RING;
+    const size_t merge = (size_t)warps * RB * (DMAX + 2) * 4;
+    return QBYTES + (ring > merge ? ring : merge);
+  }
+};
+
+// This lane's key t (row j = lane / 2 of a tile) of kv head g, in page
+// `page`, into one stage: two lanes a key row, 16 bytes a copy.  A key
+// that is not live is zero-filled and not read.
+template <typename T, int LD>
+__device__ __forceinline__ void load_tile(T* ks, T* vs,
+                                          const T* __restrict__ kp,
+                                          const T* __restrict__ vp,
+                                          const Params& p, int g, int t,
+                                          int page, bool live, int lane) {
+  constexpr int EPC = 16 / sizeof(T);
+  const int j = lane >> 1;
+  const size_t row =
+      live ? (((size_t)page * p.ps + t % p.ps) * p.Hkv + g) * p.D : 0;
+  const int n = live ? 16 : 0;
+  for (int c = lane & 1; c * EPC < p.D; c += 2) {
+    cp_async16(ks + j * LD + c * EPC, kp + row + c * EPC, n);
+    cp_async16(vs + j * LD + c * EPC, vp + row + c * EPC, n);
+  }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-rpa_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
-           const T* __restrict__ vpool, const int* __restrict__ page_tables,
-           const int* __restrict__ ctx_lens, const int* __restrict__ start_pos,
-           T* __restrict__ out, int Hkv, int C, int D, int ps, int maxp,
-           int rows, int window, float scale) {
-  extern __shared__ float smem[];
-  const int ldk = D + 1;
-  float* qs = smem;               // [TR][ldk]   query rows (f32)
-  float* ks = qs + TR * ldk;      // [TK][ldk]   key tile
-  float* vs = ks + TK * ldk;      // [TK][ldk]   value tile
-  float* ss = vs + TK * ldk;      // [TR][TK]    scores, then p
+__device__ __forceinline__ bool keep(int t, int ke, int qpos, int window) {
+  return t < ke && t <= qpos && (window < 0 || t >= qpos - window);
+}
 
-  const int bg = blockIdx.x;      // slot * Hkv + kv head
-  const int b = bg / Hkv, g = bg % Hkv;
-  const int r0 = blockIdx.y * TR;
-  const int nr = min(TR, rows - r0);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int ctx = ctx_lens[b];
-  const int start = start_pos[b];
-  const size_t qbase = ((size_t)bg * rows + r0) * D;
-
-  for (int i = tid; i < TR * D; i += THREADS) {
-    const int r = i / D, d = i % D;
-    qs[r * ldk + d] = r < nr ? to_f(q[qbase + (size_t)r * D + d]) : 0.f;
-  }
-
-  float m[RPW], l[RPW], acc[RPW][DPL];
+// One 16-key tile of the few-rows variant: lanes 2j and 2j + 1 score key j
+// over alternate 16-byte chunks of D for each row, the warp's online
+// softmax, then P.V with lane owning columns lane + 32 k.
+template <typename T, int DMAX, int RB>
+__device__ __forceinline__ void few_step(
+    const float* qf, const T* ks, const T* vs, const Params& p, int R,
+    int t0, int ke, const int (&qpos)[RB], float (&m)[RB], float (&l)[RB],
+    float (&acc)[RB][DMAX / 32], int lane) {
+  using C = Cfg<T, DMAX, RB>;
+  constexpr int EPC = 16 / sizeof(T);
+  const int j = lane >> 1, t = t0 + j;
+  const T* kr = ks + j * C::LD;
+  float s[RB];
 #pragma unroll
-  for (int rr = 0; rr < RPW; ++rr) {
-    m[rr] = -INFINITY;
-    l[rr] = 0.f;
+  for (int r = 0; r < RB; ++r) s[r] = 0.f;
+  for (int c = lane & 1; c * EPC < p.D; c += 2) {
+    float kf[EPC];
+    load16(kf, kr + c * EPC);
 #pragma unroll
-    for (int k = 0; k < DPL; ++k) acc[rr][k] = 0.f;
-  }
-
-  // every row of the block sits at >= start, so keys below start - window
-  // are outside every row's window: skip them outright
-  const int t_lo = window >= 0 ? max(0, start - window) : 0;
-  for (int t0 = t_lo; t0 < ctx; t0 += TK) {
-    __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < TK * D; i += THREADS) {
-      const int j = i / D, d = i % D, t = t0 + j;
-      float kv = 0.f, vv = 0.f;
-      if (t < ctx) {
-        const int page = page_tables[(size_t)b * maxp + t / ps];
-        const size_t off = (((size_t)page * ps + t % ps) * Hkv + g) * D + d;
-        kv = to_f(kpool[off]);
-        vv = to_f(vpool[off]);
-      }
-      ks[j * ldk + d] = kv;
-      vs[j * ldk + d] = vv;
-    }
-    __syncthreads();
-    for (int i = tid; i < TR * TK; i += THREADS) {
-      const int r = i / TK, j = i % TK, t = t0 + j;
-      float s = MASK_VALUE;
-      if (r < nr) {
-        const int qpos = start + (r0 + r) % C;
-        if (t < ctx && t <= qpos && (window < 0 || t >= qpos - window)) {
-          float dot = 0.f;
-          for (int d = 0; d < D; ++d)
-            dot = fmaf(qs[r * ldk + d], ks[j * ldk + d], dot);
-          s = dot * scale;
-        }
-      }
-      ss[r * TK + j] = s;
-    }
-    __syncthreads();
+    for (int r = 0; r < RB; ++r) {
+      if (r < R) {
+        const float* qr = qf + r * DMAX + c * EPC;
 #pragma unroll
-    for (int rr = 0; rr < RPW; ++rr) {
-      const int r = warp * RPW + rr;
-      if (r < nr) {  // warp-uniform
-        const float s = ss[r * TK + lane];
-        const float m_next = fmaxf(m[rr], warp_max(s));
-        // fully-masked entries: exp(MASK - m) must be exactly 0, not 1
-        const float p = s > 0.5f * MASK_VALUE ? expf(s - m_next) : 0.f;
-        const float alpha = expf(m[rr] - m_next);
-        l[rr] = alpha * l[rr] + warp_sum(p);
-        m[rr] = m_next;
-        ss[r * TK + lane] = to_f(from_f<T>(p));
-        __syncwarp();
-#pragma unroll
-        for (int k = 0; k < DPL; ++k) {
-          const int d = lane + 32 * k;
-          if (d < D) {
-            float a = acc[rr][k] * alpha;
-            for (int j = 0; j < TK; ++j)
-              a = fmaf(ss[r * TK + j], vs[j * ldk + d], a);
-            acc[rr][k] = a;
-          }
+        for (int e = 0; e < EPC; e += 4) {
+          const float4 qv = *reinterpret_cast<const float4*>(qr + e);
+          s[r] = fmaf(qv.x, kf[e], s[r]);
+          s[r] = fmaf(qv.y, kf[e + 1], s[r]);
+          s[r] = fmaf(qv.z, kf[e + 2], s[r]);
+          s[r] = fmaf(qv.w, kf[e + 3], s[r]);
         }
       }
     }
   }
-
+  float pr[RB];
 #pragma unroll
-  for (int rr = 0; rr < RPW; ++rr) {
-    const int r = warp * RPW + rr;
-    if (r < nr) {
-      const float l_safe = l[rr] == 0.f ? 1.f : l[rr];
-      const size_t ob = qbase + (size_t)r * D;
+  for (int r = 0; r < RB; ++r) {
+    pr[r] = 0.f;
+    if (r >= R) continue;
+    float sv = s[r] + __shfl_xor_sync(FULL, s[r], 1);
+    const bool ok = keep(t, ke, qpos[r], p.window);
+    sv = ok ? sv * p.scale : -INFINITY;
+    float mx = sv;
 #pragma unroll
-      for (int k = 0; k < DPL; ++k) {
-        const int d = lane + 32 * k;
-        if (d < D) out[ob + d] = from_f<T>(acc[rr][k] / l_safe);
+    for (int o = 16; o >= 2; o >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, o));
+    const float mn = fmaxf(m[r], mx);
+    if (mn == -INFINITY) continue;  // warp-uniform: no key of row r yet
+    const float alpha = expf(m[r] - mn);
+    const float pe = ok ? expf(sv - mn) : 0.f;
+    float sum = pe;  // each key once: the lanes of a pair hold the same p
+#pragma unroll
+    for (int o = 16; o >= 2; o >>= 1) sum += __shfl_xor_sync(FULL, sum, o);
+    l[r] = l[r] * alpha + sum;
+    m[r] = mn;
+    pr[r] = to_f(from_f<T>(pe));
+#pragma unroll
+    for (int k = 0; k < DMAX / 32; ++k) acc[r][k] *= alpha;
+  }
+#pragma unroll 4
+  for (int jj = 0; jj < TK; ++jj) {
+    float vv[DMAX / 32];
+    const T* vr = vs + jj * C::LD;
+#pragma unroll
+    for (int k = 0; k < DMAX / 32; ++k) {
+      const int d = lane + 32 * k;
+      vv[k] = d < p.D ? to_f(vr[d]) : 0.f;
+    }
+#pragma unroll
+    for (int r = 0; r < RB; ++r) {
+      if (r < R) {
+        const float pj = __shfl_sync(FULL, pr[r], 2 * jj);
+#pragma unroll
+        for (int k = 0; k < DMAX / 32; ++k)
+          acc[r][k] = fmaf(pj, vv[k], acc[r][k]);
       }
     }
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* kpool, const void* vpool,
-                   const void* page_tables, const void* ctx_lens,
-                   const void* start_pos, void* out, int B, int H, int Hkv,
-                   int C, int D, int ps, int maxp, int window, float scale,
-                   cudaStream_t stream) {
-  const int rows = (H / Hkv) * C;
-  const size_t smem = smem_bytes(D);
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        rpa_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem_bytes(MAX_D));
+// One 16-key tile of the tile variant for the block's 16 rows: S = Q K^T
+// on the tensor cores, the online softmax on the fragments (lane holds rows
+// g and g + 8), then O += P V with P from the score fragments.
+template <typename T, int DMAX>
+__device__ __forceinline__ void tile_step(const T* qt, const T* ks,
+                                          const T* vs, const Params& p,
+                                          int R, int t0, int ke,
+                                          const int (&qpos)[2], float (&m)[2],
+                                          float (&l)[2],
+                                          float (&acc)[DMAX / 8][4],
+                                          int lane) {
+  using M = Mma<T>;
+  using C = Cfg<T, DMAX, TILE_ROWS>;
+  const int g = lane >> 2, t4 = lane & 3;
+  float sc[2][4];
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DMAX / M::KS; ++kk) {
+    if (kk * M::KS < p.D) {
+      typename M::A a;
+      typename M::B b[2];
+      M::a_row(a, qt, C::LDQ, 0, kk * M::KS, lane);
+      M::b_nrow(b, ks, C::LD, 0, kk * M::KS, lane);
+      M::mma(sc[0], a, b[0]);
+      M::mma(sc[1], a, b[1]);
+    }
+  }
+  // element e of n-tile n: row g + 8 (e >> 1), key 8 n + 2 t4 + (e & 1)
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1, t = t0 + 8 * n + 2 * t4 + (e & 1);
+      const bool ok = g + 8 * h < R && keep(t, ke, qpos[h], p.window);
+      sc[n][e] = ok ? sc[n][e] * p.scale : -INFINITY;
+      mx[h] = fmaxf(mx[h], sc[n][e]);
+    }
+  float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(FULL, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(FULL, mx[h], 2));
+    const float mn = fmaxf(m[h], mx[h]);
+    alpha[h] = mn == -INFINITY ? 1.f : expf(m[h] - mn);
+    m[h] = mn;
+  }
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1;
+      const float pe =
+          sc[n][e] == -INFINITY ? 0.f : expf(sc[n][e] - m[h]);
+      rs[h] += pe;
+      sc[n][e] = pe;
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    rs[h] += __shfl_xor_sync(FULL, rs[h], 1);
+    rs[h] += __shfl_xor_sync(FULL, rs[h], 2);
+    l[h] = l[h] * alpha[h] + rs[h];
+  }
+#pragma unroll
+  for (int n = 0; n < DMAX / 8; ++n) {
+    acc[n][0] *= alpha[0];
+    acc[n][1] *= alpha[0];
+    acc[n][2] *= alpha[1];
+    acc[n][3] *= alpha[1];
+  }
+  // P (rounded to T by a_acc for bf16) times V, TK / KS key steps
+#pragma unroll
+  for (int j = 0; j < TK / M::KS; ++j) {
+    typename M::A a;
+    M::a_acc(a, sc, j);
+#pragma unroll
+    for (int n = 0; n < DMAX / 16; ++n) {
+      if (16 * n < p.D) {
+        typename M::B b[2];
+        M::b_krow_acc(b, vs, C::LD, j * M::KS, 16 * n, lane);
+        M::mma(acc[2 * n], a, b[0]);
+        M::mma(acc[2 * n + 1], a, b[1]);
+      }
+    }
+  }
+}
+
+template <typename T, int DMAX, int RB>
+__global__ void __launch_bounds__(32 * MAX_WARPS)
+rpa_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
+                 const T* __restrict__ vp, T* __restrict__ out, Params p) {
+  using C = Cfg<T, DMAX, RB>;
+  constexpr bool TILE = C::TILE;
+  extern __shared__ __align__(16) unsigned char rpa_smem[];
+  const int nw = blockDim.x >> 5;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int bg = blockIdx.x, rt = blockIdx.y, split = blockIdx.z;
+  const int b = bg / p.Hkv, g = bg - b * p.Hkv;
+  const int r0 = rt * p.row_tile;
+  const int R = min(p.row_tile, p.rows - r0);
+  const int D = p.D;
+  const int* ptab = p.pt + (size_t)b * p.maxp;
+  // this lane's first key if the split starts at its first key, and its
+  // page id, read beside ctx and start so the first copies wait on one trip
+  const int t_spec = split * p.span + warp * TK + (lane >> 1);
+  const int pg_spec = t_spec < p.maxp * p.ps ? ptab[t_spec / p.ps] : 0;
+  const int start = p.start[b];
+  // the keys any row of this slot keeps: [lo, kend)
+  const int kend = min(min(p.ctx[b], p.maxp * p.ps), start + p.C);
+  const int lo = p.window >= 0 ? max(0, start - p.window) : 0;
+  const int s_lo = lo / p.span;
+  const int n_live = kend > lo ? (kend - 1) / p.span - s_lo + 1 : 0;
+  const size_t obase = ((size_t)bg * p.rows + r0) * D;
+  if (n_live == 0) {  // no key for any row: split 0 writes zeros
+    if (split == 0)
+      for (int r = warp; r < R; r += nw)
+        for (int d = lane; d < D; d += 32)
+          out[obase + (size_t)r * D + d] = from_f<T>(0.f);
+    return;
+  }
+  if (split < s_lo || split >= s_lo + n_live) return;
+  const int kb = max(split * p.span, lo);
+  const int ke = min((split + 1) * p.span, kend);
+
+  T* ring = reinterpret_cast<T*>(rpa_smem + C::QBYTES) +
+            (size_t)warp * 2 * 2 * TK * C::LD;  // [stage][K, V][TK][LD]
+  const int ntiles = (ke - kb + TK - 1) / TK;
+  const int cnt = warp < ntiles ? (ntiles - 1 - warp) / nw + 1 : 0;
+  if (cnt > 0) {
+    const int t = kb + warp * TK + (lane >> 1);
+    const bool live = t < ke;
+    const int page =
+        !live ? 0 : t == t_spec ? pg_spec : ptab[t / p.ps];
+    load_tile<T, C::LD>(ring, ring + TK * C::LD, kp, vp, p, g, t, page,
+                        live, lane);
+  }
+  cp_async_commit();
+
+  // stage q's rows while the first tile flies
+  const T* qg = q + obase;
+  if constexpr (TILE) {
+    T* qt = reinterpret_cast<T*>(rpa_smem);
+    constexpr int EPC = 16 / sizeof(T);
+    for (int r = warp; r < TILE_ROWS; r += nw)
+      for (int c = lane; c * EPC < DMAX; c += 32) {
+        const bool live = r < R && c * EPC < D;
+        cp_async16(qt + r * C::LDQ + c * EPC,
+                   live ? qg + (size_t)r * D + c * EPC : qg, live ? 16 : 0);
+      }
+    cp_async_commit();
+    cp_async_wait<0>();
+  } else {
+    float* qf = reinterpret_cast<float*>(rpa_smem);
+    for (int r = warp; r < RB; r += nw)
+      for (int d = lane; d < DMAX; d += 32)
+        qf[r * DMAX + d] = r < R && d < D ? to_f(qg[(size_t)r * D + d]) : 0.f;
+  }
+  __syncthreads();
+
+  // each warp's walk: tiles warp, warp + nw, ... through its ring
+  constexpr int NR = TILE ? 2 : RB;          // rows of this lane's state
+  constexpr int NA = TILE ? DMAX / 8 : RB;   // accumulator rows
+  constexpr int NC = TILE ? 4 : DMAX / 32;   // and columns
+  int qpos[NR];
+  float m[NR], l[NR], acc[NA][NC];
+#pragma unroll
+  for (int i = 0; i < NR; ++i) {
+    const int r = TILE ? (lane >> 2) + 8 * i : i;
+    qpos[i] = start + (r0 + r) % p.C;
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < NA; ++i)
+#pragma unroll
+    for (int k = 0; k < NC; ++k) acc[i][k] = 0.f;
+  for (int i = 0; i < cnt; ++i) {
+    T* ks = ring + (i & 1) * 2 * TK * C::LD;
+    if (i + 1 < cnt) {
+      T* nx = ring + ((i + 1) & 1) * 2 * TK * C::LD;
+      const int t = kb + (warp + (i + 1) * nw) * TK + (lane >> 1);
+      const bool live = t < ke;
+      load_tile<T, C::LD>(nx, nx + TK * C::LD, kp, vp, p, g, t,
+                          live ? ptab[t / p.ps] : 0, live, lane);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncwarp();
+    const int t0 = kb + (warp + i * nw) * TK;
+    if constexpr (TILE)
+      tile_step<T, DMAX>(reinterpret_cast<const T*>(rpa_smem), ks,
+                         ks + TK * C::LD, p, R, t0, ke, qpos, m, l, acc,
+                         lane);
+    else
+      few_step<T, DMAX, RB>(reinterpret_cast<const float*>(rpa_smem), ks,
+                            ks + TK * C::LD, p, R, t0, ke, qpos, m, l, acc,
+                            lane);
+    __syncwarp();  // this stage's readers are done before it is refilled
+  }
+  cp_async_wait<0>();
+
+  // the warps' states into the merge area (over the rings)
+  __syncthreads();
+  float* am = reinterpret_cast<float*>(rpa_smem + C::QBYTES);
+  float* ml = am + (size_t)nw * RB * DMAX;
+  if constexpr (TILE) {
+    const int gr = lane >> 2, t4 = lane & 3;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = gr + 8 * h;
+      float* ar = am + ((size_t)warp * RB + r) * DMAX;
+#pragma unroll
+      for (int n = 0; n < DMAX / 8; ++n)
+        if (8 * n < D) {
+          ar[8 * n + 2 * t4] = acc[n][2 * h];
+          ar[8 * n + 2 * t4 + 1] = acc[n][2 * h + 1];
+        }
+      if (t4 == 0) {
+        ml[(warp * RB + r) * 2] = m[h];
+        ml[(warp * RB + r) * 2 + 1] = l[h];
+      }
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < RB; ++r) {
+      if (r < R) {
+        float* ar = am + ((size_t)warp * RB + r) * DMAX;
+#pragma unroll
+        for (int k = 0; k < DMAX / 32; ++k)
+          if (lane + 32 * k < D) ar[lane + 32 * k] = acc[r][k];
+        if (lane == 0) {
+          ml[(warp * RB + r) * 2] = m[r];
+          ml[(warp * RB + r) * 2 + 1] = l[r];
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // the block's rows, warps merged in order: `out` when this is the only
+  // live split, else this split's partial
+  const bool direct = n_live == 1;
+  const int grp = bg * p.row_tiles + rt;
+  const size_t prow = D + 4;  // a partial row: acc[D], m, l, 16-byte pad
+  float* part =
+      p.ws + ((size_t)grp * p.nsplit + split) * p.row_tile * prow;
+  for (int r = warp; r < R; r += nw) {
+    float mm = -INFINITY;
+    for (int w = 0; w < nw; ++w) mm = fmaxf(mm, ml[(w * RB + r) * 2]);
+    float wt[MAX_WARPS], ll = 0.f;
+#pragma unroll
+    for (int w = 0; w < MAX_WARPS; ++w) {
+      wt[w] = 0.f;
+      if (w < nw) {
+        const float mw = ml[(w * RB + r) * 2];
+        wt[w] = mw == -INFINITY ? 0.f : expf(mw - mm);
+        ll = fmaf(wt[w], ml[(w * RB + r) * 2 + 1], ll);
+      }
+    }
+    for (int d = lane; d < D; d += 32) {
+      float a = 0.f;
+#pragma unroll
+      for (int w = 0; w < MAX_WARPS; ++w)
+        if (wt[w] != 0.f)
+          a = fmaf(wt[w], am[((size_t)w * RB + r) * DMAX + d], a);
+      if (direct)
+        out[obase + (size_t)r * D + d] = from_f<T>(ll == 0.f ? 0.f : a / ll);
+      else
+        part[r * prow + d] = a;
+    }
+    if (!direct && lane == 0) {
+      part[r * prow + D] = mm;
+      part[r * prow + D + 1] = ll;
+    }
+  }
+  if (direct || !arrive_last(p.tickets + grp, n_live)) return;
+
+  // the last block to arrive: each row's split weights into shared
+  // memory (over the merge area, which every warp has left), then the
+  // live splits' partials summed in split order, 16 bytes a load
+  const float* p0 =
+      p.ws + ((size_t)grp * p.nsplit + s_lo) * p.row_tile * prow;
+  const size_t sstride = (size_t)p.row_tile * prow;
+  float* wts = reinterpret_cast<float*>(rpa_smem + C::QBYTES);  // [R][n]
+  float* lsum = wts + R * n_live;                                // [R]
+  for (int r = warp; r < R; r += nw) {
+    const float* pr = p0 + r * prow + D;
+    float mm = -INFINITY;
+    for (int s = lane; s < n_live; s += 32)
+      mm = fmaxf(mm, __ldcg(pr + s * sstride));
+    mm = warp_max(mm);
+    float ll = 0.f;
+    for (int s = lane; s < n_live; s += 32) {
+      const float ms = __ldcg(pr + s * sstride);
+      const float w = ms == -INFINITY ? 0.f : expf(ms - mm);
+      wts[r * n_live + s] = w;
+      ll = fmaf(w, __ldcg(pr + s * sstride + 1), ll);
+    }
+    ll = warp_sum(ll);
+    if (lane == 0) lsum[r] = ll;
+  }
+  __syncthreads();
+  const int nv = D / 4;
+  for (int v = threadIdx.x; v < R * nv; v += blockDim.x) {
+    const int r = v / nv, d = (v - r * nv) * 4;
+    const float* pr = p0 + r * prow + d;
+    const float* wr = wts + r * n_live;
+    float a[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+    for (int s = 0; s < n_live; ++s) {
+      const float w = wr[s];
+      const float4 x =
+          __ldcg(reinterpret_cast<const float4*>(pr + s * sstride));
+      a[0] = fmaf(w, x.x, a[0]);
+      a[1] = fmaf(w, x.y, a[1]);
+      a[2] = fmaf(w, x.z, a[2]);
+      a[3] = fmaf(w, x.w, a[3]);
+    }
+    const float ll = lsum[r];
+    T* o = out + obase + (size_t)r * D + d;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[e] = from_f<T>(ll == 0.f ? 0.f : a[e] / ll);
+  }
+  if (threadIdx.x == 0) p.tickets[grp] = 0u;
+}
+
+template <typename T, int DMAX, int RB>
+cudaError_t launch(const void* q, const void* kp, const void* vp, void* out,
+                   const Params& p, int B, int warps, cudaStream_t stream) {
+  using C = Cfg<T, DMAX, RB>;
+  const size_t smem = C::smem(warps);
+  // the last block keeps each row's split weights over the rings
+  if ((size_t)RB * (p.nsplit + 1) * 4 > smem - C::QBYTES)
+    return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    // opt in once per device, to the most this instantiation has asked
+    static size_t opted[MAX_DEVICES] = {};
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return e;
-    attr_set = true;
+    if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+    if (smem > opted[dev]) {
+      e = cudaFuncSetAttribute(rpa_split_kernel<T, DMAX, RB>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+      if (e != cudaSuccess) return e;
+      opted[dev] = smem;
+    }
   }
-  dim3 grid(B * Hkv, (rows + TR - 1) / TR);
-  rpa_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kpool),
-      static_cast<const T*>(vpool), static_cast<const int*>(page_tables),
-      static_cast<const int*>(ctx_lens), static_cast<const int*>(start_pos),
-      static_cast<T*>(out), Hkv, C, D, ps, maxp, rows, window, scale);
+  dim3 grid(B * p.Hkv, p.row_tiles, p.nsplit);
+  rpa_split_kernel<T, DMAX, RB><<<grid, 32 * warps, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kp),
+      static_cast<const T*>(vp), static_cast<T*>(out), p);
   return cudaGetLastError();
+}
+
+template <typename T, int DMAX>
+cudaError_t launch_rows(int rb, const void* q, const void* kp,
+                        const void* vp, void* out, const Params& p, int B,
+                        int warps, cudaStream_t s) {
+  switch (rb) {
+    case 1: return launch<T, DMAX, 1>(q, kp, vp, out, p, B, warps, s);
+    case 4: return launch<T, DMAX, 4>(q, kp, vp, out, p, B, warps, s);
+    case 15: return launch<T, DMAX, 15>(q, kp, vp, out, p, B, warps, s);
+    default:
+      return launch<T, DMAX, TILE_ROWS>(q, kp, vp, out, p, B, warps, s);
+  }
+}
+
+template <typename T>
+cudaError_t launch_type(int D, int rb, const void* q, const void* kp,
+                        const void* vp, void* out, const Params& p, int B,
+                        int warps, cudaStream_t s) {
+  if (D <= 64) return launch_rows<T, 64>(rb, q, kp, vp, out, p, B, warps, s);
+  if (D <= 128)
+    return launch_rows<T, 128>(rb, q, kp, vp, out, p, B, warps, s);
+  return launch_rows<T, 256>(rb, q, kp, vp, out, p, B, warps, s);
 }
 
 }  // namespace
 
 // q (B, H, C, D) and the pools (num_pages, ps, Hkv, D) in one type (f32 or
-// bf16, chosen by is_bf16); page_tables (B, maxp), ctx_lens (B,), start_pos
-// (B,) int32; out (B, H, C, D) in q's type.  window < 0 means no window.
-// All contiguous; the caller checks shapes (H % Hkv == 0, D <= 256).
+// bf16, chosen by is_bf16), 16-byte aligned; page_tables (B, maxp),
+// ctx_lens (B,), start_pos (B,) int32; out (B, H, C, D) in q's type; all
+// contiguous.  window < 0 means no window.  The launch plan: `tile` (the
+// tensor-core variant, row_tile 16) or the few-rows variant (row_tile =
+// rows < 16); `span` keys a split (a multiple of ps), `nsplit` splits,
+// `warps` (1-4) a block; with nsplit (at most 128) > 1, `ws` holds B * Hkv
+// * row tiles * nsplit * row_tile * (D + 4) floats, 16-byte aligned, and
+// `tickets` B * Hkv * row tiles zeroed counters (left zeroed).  D is a
+// multiple of 16, at most 256.
 // Returns the launch's cudaError_t (0 = launched).
 extern "C" int mxt_ragged_paged_attention(
     const void* q, const void* kpool, const void* vpool,
     const void* page_tables, const void* ctx_lens, const void* start_pos,
     void* out, int B, int H, int Hkv, int C, int D, int ps, int maxp,
-    int window, float scale, int is_bf16, void* stream) {
+    int window, float scale, int is_bf16, int tile, int row_tile, int span,
+    int nsplit, int warps, void* ws, void* tickets, void* stream) {
   cudaGetLastError();  // clear any stale error of this runtime
-  if (B == 0 || C == 0 || D > MAX_D) return D > MAX_D ? (int)cudaErrorInvalidValue : 0;
+  if (B == 0 || C == 0) return 0;
+  const int rows = (H / Hkv) * C;
+  if (D > MAX_D || D % 16 || warps < 1 || warps > MAX_WARPS || ps < 1 ||
+      span < 1 || span % ps || nsplit < 1 || nsplit > MAX_SPLITS ||
+      row_tile < 1 ||
+      (tile ? row_tile != TILE_ROWS : row_tile > 15 || row_tile < rows) ||
+      (nsplit > 1 && (ws == nullptr || tickets == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  Params p;
+  p.pt = static_cast<const int*>(page_tables);
+  p.ctx = static_cast<const int*>(ctx_lens);
+  p.start = static_cast<const int*>(start_pos);
+  p.ws = static_cast<float*>(ws);
+  p.tickets = static_cast<unsigned int*>(tickets);
+  p.Hkv = Hkv;
+  p.C = C;
+  p.D = D;
+  p.ps = ps;
+  p.maxp = maxp;
+  p.rows = rows;
+  p.window = window;
+  p.scale = scale;
+  p.row_tile = row_tile;
+  p.row_tiles = (rows + row_tile - 1) / row_tile;
+  p.span = span;
+  p.nsplit = nsplit;
+  const int rb = tile ? TILE_ROWS : row_tile <= 1 ? 1 : row_tile <= 4 ? 4 : 15;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e =
-      is_bf16 ? launch<__nv_bfloat16>(q, kpool, vpool, page_tables, ctx_lens,
-                                       start_pos, out, B, H, Hkv, C, D, ps,
-                                       maxp, window, scale, s)
-              : launch<float>(q, kpool, vpool, page_tables, ctx_lens,
-                              start_pos, out, B, H, Hkv, C, D, ps, maxp,
-                              window, scale, s);
+      is_bf16 ? launch_type<__nv_bfloat16>(D, rb, q, kpool, vpool, out, p,
+                                           B, warps, s)
+              : launch_type<float>(D, rb, q, kpool, vpool, out, p, B, warps,
+                                   s);
   return (int)e;
 }

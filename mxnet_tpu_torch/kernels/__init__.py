@@ -32,7 +32,7 @@ from typing import Dict
 from ..base import MXNetError
 
 __all__ = ["load", "build_all", "LAUNCHES", "reset_launch_counts",
-           "launch_counts", "sm_count", "NVCC_FLAGS"]
+           "launch_counts", "sm_count", "stream_scratch", "NVCC_FLAGS"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -76,6 +76,27 @@ def sm_count(device) -> int:
         n = _sm_counts[device] = torch.cuda.get_device_properties(
             device).multi_processor_count
     return n
+
+
+def stream_scratch(store, device, stream: int, tickets: int, *floats: int):
+    """The split-reduction scratch of one (device, stream), kept in
+    `store`: at least `tickets` zeroed uint32 ticket counters (as int32),
+    then one f32 buffer of at least each of `floats` elements.  Launches on
+    one stream run in order and each leaves its tickets zeroed, so a stream
+    keeps one set, grown when a launch needs more; a launch on another
+    stream never shares its tickets."""
+    import torch
+    key = (device.index, stream)
+    got = store.get(key)
+    want = (tickets,) + floats
+    if got is None or any(t.numel() < n for t, n in zip(got, want)):
+        have = [0] * len(want) if got is None else [t.numel() for t in got]
+        got = store[key] = (
+            torch.zeros(max(tickets, have[0], 1024), dtype=torch.int32,
+                        device=device),
+            *(torch.empty(max(n, h), dtype=torch.float32, device=device)
+              for n, h in zip(floats, have[1:])))
+    return got
 
 
 def _sources():

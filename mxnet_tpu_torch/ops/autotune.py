@@ -17,8 +17,10 @@ while `generation()` stays the same.
 Registered so far: ``fused_optimizer`` (the chunk kernel's elements per
 block, `ops.fused_optimizer`), ``moe_dispatch`` (kernel against the
 plain scatter, `ops.moe_dispatch`; nothing on the path consults it, as in
-JAX) and ``quantized_matmul`` (K2's variant and split-K factor,
-`ops.quantized_matmul`).  The telemetry counters and the tracing
+JAX), ``quantized_matmul`` (K2's variant and split-K factor,
+`ops.quantized_matmul`) and ``paged_attention`` (the KV pool's page size,
+`ops.paged_attention`, which `serve.ServeConfig` takes when
+``MXTPU_SERVE_PAGE_SIZE`` is unset).  The telemetry counters and the tracing
 attribution of JAX's ``tune()`` wait for the operations-plane slice
 (ROADMAP.md A14).
 """
@@ -106,7 +108,7 @@ def tunables() -> List[str]:
 def _ensure_builtin() -> None:
     """Import the kernel modules that register tunables."""
     from . import (fused_optimizer, moe_dispatch,  # noqa: F401
-                   quantized_matmul)
+                   paged_attention, quantized_matmul)
 
 
 # ---------------------------------------------------------------------------

@@ -303,27 +303,6 @@ def _kernel_fn(direction):
     return f
 
 
-def _scratch(device, stream: int, plan: BwdPlan, rows: int):
-    """The backward's scratch on one stream: at least ``plan.tickets``
-    zeroed uint32 tickets (as int32), ``plan.workspace`` f32 dQ partials
-    and ``rows`` f32 di values.  Launches on one stream run in order and
-    each leaves its tickets zeroed, so a stream keeps one set and grows it
-    when a call needs more; another stream never shares it."""
-    key = (device.index, stream)
-    got = _scratch_of.get(key)
-    if (got is None or got[0].numel() < plan.tickets
-            or got[1].numel() < plan.workspace or got[2].numel() < rows):
-        have = (0, 0, 0) if got is None else tuple(t.numel() for t in got)
-        got = _scratch_of[key] = (
-            torch.zeros(max(plan.tickets, have[0], 1024), dtype=torch.int32,
-                        device=device),
-            torch.empty(max(plan.workspace, have[1]), dtype=torch.float32,
-                        device=device),
-            torch.empty(max(rows, have[2]), dtype=torch.float32,
-                        device=device))
-    return got
-
-
 def _check(q, k, v, bias3, seed, rate, per_row):
     B, H, lq, D = q.shape
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -418,7 +397,9 @@ def _flash_bwd_cuda(q, k, v, bias3, seed, o, lse, g, scale, causal, rate,
         plan = _bwd_plan(B, H, lq, lk, D, q.dtype, _kernels.sm_count(dev))
     # the raw handle, without building a torch.cuda.Stream each call
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
-    tickets, ws, di = _scratch(dev, stream, plan, B * H * lq)
+    tickets, ws, di = _kernels.stream_scratch(_scratch_of, dev, stream,
+                                              plan.tickets, plan.workspace,
+                                              B * H * lq)
     split = plan.key_tiles > 1
     err = _kernel_fn("bwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias3),

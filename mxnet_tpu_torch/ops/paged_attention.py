@@ -7,10 +7,15 @@ of C query tokens), others decoding (one query token) — attending over a
 context is the concatenation of the pages its page table names.
 
 - On a CUDA tensor, `ragged_paged_attention` launches the hand-written
-  kernel ``csrc/paged_attention.cu`` (K1).  It walks only the keys below a
-  slot's context length, folds the GQA query heads onto rows so K/V stream
-  once per kv head, and keeps an f32 online softmax per row.  It raises
-  on what the kernel does not take; it never falls back.
+  kernel ``csrc/paged_attention.cu`` (K1) with the launch plan `_plan`
+  makes from the shapes.  It splits each slot's key walk across blocks
+  and merges the splits in order, reads only the keys below a slot's
+  context length, folds the GQA query heads onto rows so K/V stream once
+  per kv head, and keeps an f32 online softmax per row.  It raises on
+  what the kernel does not take; it never falls back.
+- The pool's page size is this kernel's tunable, as in the JAX package:
+  `recommended_page_size` is what `serve.ServeConfig` takes when
+  ``MXTPU_SERVE_PAGE_SIZE`` is unset.
 - On a CPU tensor it runs `paged_attention_reference`: gather the page
   table into a contiguous context and run `_dense_attend` — the plain
   version the CPU tests hold against the JAX package and `chip_smoke.py`
@@ -24,17 +29,20 @@ zero terms and stays bit-identical to the unpadded computation.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from ..base import MXNetError
 from .. import kernels as _kernels
+from . import autotune
 
 MASK_VALUE = -1e30
 
 __all__ = ["ragged_paged_attention", "paged_attention_reference",
-           "gather_pages", "MASK_VALUE"]
+           "gather_pages", "recommended_page_size", "MASK_VALUE"]
 
 
 # ---------------------------------------------------------------------------
@@ -106,12 +114,69 @@ def paged_attention_reference(q, kpool, vpool, page_tables, ctx_lens,
 
 
 # ---------------------------------------------------------------------------
-# K1: the CUDA kernel (csrc/paged_attention.cu)
+# K1: the CUDA kernel (csrc/paged_attention.cu) and its launch plan
 # ---------------------------------------------------------------------------
+
+TILE_ROWS = 16        # rows of the tensor-core variant; fewer take "few"
+KEY_TILE = 16         # keys a warp takes a step of its walk
+MAX_SPAN = 256        # most keys a split covers (rounded down to pages)
+MAX_SPLITS = 128      # most splits (the kernel keeps their weights)
+RING_BYTES = 80 * 1024  # shared memory the warps' K/V rings may fill
+
+
+class Plan(NamedTuple):
+    """One K1 launch: the variant, its rows a block, the key split, the
+    warps a block, and what the wrapper allocates for it."""
+    variant: str     # "few" (rep * C < 16: decode) or "tile" (mma.sync)
+    row_tile: int    # query rows a block: all of them (few) or 16 (tile)
+    span: int        # keys a split covers, a whole number of pages
+    split: int       # blocks along the keys; partials merged in order
+    warps: int       # warps a block, each walking its own key tiles
+    groups: int      # (slot * kv head, row tile) pairs: one ticket each
+    workspace: int   # f32 partials (0 with one split)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(B: int, H: int, Hkv: int, C: int, D: int, ps: int, maxp: int,
+          dtype, sm_count: int) -> Plan:
+    """The launch plan of one K1 call, plain Python (no card needed),
+    memoised per shape.
+
+    The few-rows variant below 16 folded rows (``rep * C``), else the
+    tile variant, 16 rows a block.  Warps a block: as many (up to 4) as
+    fit their two-stage K/V rings in 80 KB.  The key split works from the
+    table's capacity ``maxp * ps``, which the host knows without a sync: it
+    aims at eight blocks an SM over the (slot * kv head, row tile) groups,
+    each split a whole number of pages, at least one 16-key tile a warp
+    and at most 256 keys (a page, where pages are larger), and at most
+    128 splits."""
+    rows = (H // Hkv) * C
+    variant = "few" if rows < TILE_ROWS else "tile"
+    row_tile = rows if variant == "few" else TILE_ROWS
+    item = 2 if dtype in (torch.bfloat16, "bfloat16") else 4
+    dmax = 64 if D <= 64 else 128 if D <= 128 else 256
+    pad = 32 if variant == "few" else 16
+    warps = max(1, min(4, RING_BYTES // (2 * 2 * KEY_TILE
+                                          * (dmax * item + pad))))
+    groups = B * Hkv * -(-rows // row_tile)
+    cap = maxp * ps
+    pages = -(-cap // max(1, -(-8 * sm_count // groups)) // ps)
+    lo = max(-(-warps * KEY_TILE // ps), -(-maxp // MAX_SPLITS))
+    hi = max(lo, MAX_SPAN // ps)
+    span = min(max(pages, lo), hi, maxp) * ps
+    split = -(-cap // span)
+    # a partial row: acc[D], m, l and two floats of pad (16-byte rows)
+    return Plan(variant, row_tile, span, split, warps, groups,
+                groups * split * row_tile * (D + 4) if split > 1 else 0)
+
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _fn = None
+# (device index, raw stream) -> (ticket counters, f32 partials workspace)
+_scratch_of: Dict[Any, Tuple[torch.Tensor, torch.Tensor]] = {}
+# operand shapes, dtypes and devices already checked -> their plan
+_checked: Dict[Any, Plan] = {}
 
 
 def _kernel_fn():
@@ -119,15 +184,17 @@ def _kernel_fn():
     if _fn is None:
         f = _kernels.load("paged_attention").mxt_ragged_paged_attention
         f.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                      _I, _I, ctypes.c_float, _I, _P]
+                      _I, _I, ctypes.c_float, _I, _I, _I, _I, _I, _I, _P,
+                      _P, _P]
         f.restype = _I
         _fn = f
     return _fn
 
 
-def _rpa_cuda(q, kpool, vpool, page_tables, ctx_lens, start_pos, window,
-              scale):
-    """Check the operands, then launch K1 on the current stream."""
+def _check(q, kpool, vpool, page_tables, ctx_lens, start_pos) -> Plan:
+    """The operands' dtypes, shapes and devices, checked once per key of
+    them (a decode step makes one call a layer with the same key); returns
+    the call's plan."""
     B, H, C, D = q.shape
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise MXNetError(f"ragged_paged_attention kernel takes float32 or "
@@ -141,9 +208,9 @@ def _rpa_cuda(q, kpool, vpool, page_tables, ctx_lens, start_pos, window,
         raise MXNetError(
             f"pools must both be (num_pages, page_size, Hkv, {D}); got "
             f"{tuple(kpool.shape)} and {tuple(vpool.shape)}")
-    if D > 256:
-        raise MXNetError(f"ragged_paged_attention kernel takes head_dim "
-                         f"<= 256, got {D}")
+    if D > 256 or D % 16:
+        raise MXNetError(f"ragged_paged_attention kernel takes a head_dim "
+                         f"that is a multiple of 16, at most 256; got {D}")
     if page_tables.dim() != 2 or page_tables.shape[0] != B or \
             tuple(ctx_lens.shape) != (B,) or tuple(start_pos.shape) != (B,):
         raise MXNetError(
@@ -154,30 +221,62 @@ def _rpa_cuda(q, kpool, vpool, page_tables, ctx_lens, start_pos, window,
                     ("start_pos", start_pos)):
         if t.dtype != torch.int32:
             raise MXNetError(f"{name} must be int32, got {t.dtype}")
-    for name, t in (("q", q), ("kpool", kpool), ("vpool", vpool),
+    for name, t in (("kpool", kpool), ("vpool", vpool),
                     ("page_tables", page_tables), ("ctx_lens", ctx_lens),
                     ("start_pos", start_pos)):
         if t.device != q.device:
             raise MXNetError(f"{name} is on {t.device}, q on {q.device}")
-        if not t.is_contiguous():
-            raise MXNetError(f"ragged_paged_attention kernel needs a "
-                             f"contiguous {name}")
+    _, ps, Hkv, _ = kpool.shape
+    return _plan(B, H, Hkv, C, D, ps, page_tables.shape[1], q.dtype,
+                 _kernels.sm_count(q.device))
+
+
+def _rpa_cuda(q, kpool, vpool, page_tables, ctx_lens, start_pos, window,
+              scale, plan: Optional[Plan] = None):
+    """Check the operands, then launch K1 on the current stream with
+    `plan` (default: `_plan`'s for these shapes)."""
+    key = (q.shape, kpool.shape, vpool.shape, page_tables.shape,
+           ctx_lens.shape, start_pos.shape, q.dtype, kpool.dtype,
+           vpool.dtype, page_tables.dtype, ctx_lens.dtype, start_pos.dtype,
+           q.device, kpool.device, vpool.device, page_tables.device,
+           ctx_lens.device, start_pos.device)
+    checked = _checked.get(key)
+    if checked is None:
+        checked = _checked[key] = _check(q, kpool, vpool, page_tables,
+                                         ctx_lens, start_pos)
+    plan = plan or checked
+    tensors = (q, kpool, vpool, page_tables, ctx_lens, start_pos)
+    if not all(t.is_contiguous() for t in tensors):
+        raise MXNetError("ragged_paged_attention kernel needs contiguous "
+                         "q, pools, page_tables, ctx_lens and start_pos")
     if window is not None and int(window) < 0:
         raise MXNetError(f"window must be >= 0, got {window}")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    if (q.data_ptr() | kpool.data_ptr() | vpool.data_ptr()) & 15:
+        raise MXNetError("ragged_paged_attention kernel needs q and the "
+                         "pools on 16-byte boundaries")
+    B, H, C, D = q.shape
     _, ps, Hkv, _ = kpool.shape
+    dev = q.device
+    # the raw handle, without building a torch.cuda.Stream each call
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    ws = cnt = None
+    if plan.split > 1:
+        cnt, ws = _kernels.stream_scratch(_scratch_of, dev, stream,
+                                          plan.groups, plan.workspace)
+        cnt, ws = cnt.data_ptr(), ws.data_ptr()
     err = _kernel_fn()(
         q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
         page_tables.data_ptr(), ctx_lens.data_ptr(), start_pos.data_ptr(),
         out.data_ptr(), B, H, Hkv, C, D, ps, page_tables.shape[1],
         -1 if window is None else int(window), float(scale),
-        int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        q.dtype is torch.bfloat16, plan.variant == "tile", plan.row_tile,
+        plan.span, plan.split, plan.warps, ws, cnt, stream)
     if err:
         raise MXNetError(f"ragged_paged_attention kernel launch failed "
-                         f"(cudaError_t {err})")
+                         f"(cudaError_t {err}, {plan})")
     _kernels.LAUNCHES["ragged_paged_attention"] += 1
     return out
 
@@ -211,3 +310,81 @@ def ragged_paged_attention(q, kpool, vpool, page_tables, ctx_lens,
                          f"not {q.device}")
     return paged_attention_reference(q, kpool, vpool, page_tables, ctx_lens,
                                      start_pos, window=window, scale=scale)
+
+
+# ---------------------------------------------------------------------------
+# autotune registration: K1's plan follows from the shapes, so the tunable
+# knob is the POOL's page size, as in the JAX package —
+# `tune("paged_attention", (slots, heads, kv_heads, head_dim, ctx))` times a
+# serving-shaped decode step per candidate and `serve.ServeConfig` picks the
+# kept winner up when MXTPU_SERVE_PAGE_SIZE is unset.
+# ---------------------------------------------------------------------------
+
+PAGE_SIZES = (16, 32, 64, 128)
+
+
+def recommended_page_size(default: int = 16) -> int:
+    """The tuned page size for this device kind (or `default`): any kept
+    ``tune("paged_attention", ...)`` result applies, whatever serving
+    shape it was searched under."""
+    cfg = autotune.lookup_any("paged_attention")
+    return int(cfg.page_size) if cfg is not None else default
+
+
+def _at_shapes(shapes):
+    return (list(shapes) + [8, 8, 8, 64, 512])[:5]
+
+
+def _at_candidates(shapes, dtype):
+    return [autotune.BlockConfig(page_size=ps) for ps in PAGE_SIZES]
+
+
+def _at_roofline(config, shapes, dtype):
+    """JAX's count (`mxnet_tpu/ops/pallas/paged_attention.py`
+    `_at_roofline`): each slot streams ceil(ctx / ps) pages of K and V at 4
+    bytes; one step per (slot, kv head, page)."""
+    b, h, hkv, d, ctx = _at_shapes(shapes)
+    ps = config.page_size
+    pages = max(1, -(-ctx // ps))
+    return {"flops": 4.0 * b * h * ctx * d,
+            "bytes": b * hkv * pages * ps * d * 2.0 * 4,
+            "steps": float(b * hkv * pages)}
+
+
+def _at_inputs(config, shapes, dtype, device):
+    """A serving-shaped decode step's operands (C = 1, every slot at
+    ``ctx`` keys) over a seeded pool of the candidate's page size, as the
+    JAX package's `_at_build` makes them."""
+    import numpy as np
+    b, h, hkv, d, ctx = _at_shapes(shapes)
+    ps = config.page_size
+    maxp = max(1, -(-ctx // ps))
+    n_pages = b * maxp + 1
+    rng = np.random.RandomState(0)
+    dt = torch.bfloat16 if "16" in str(dtype) else torch.float32
+
+    def seeded(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+            device, dt)
+
+    q = seeded(b, h, 1, d)
+    kpool = seeded(n_pages, ps, hkv, d)
+    vpool = seeded(n_pages, ps, hkv, d)
+    pt = torch.arange(1, b * maxp + 1, dtype=torch.int32,
+                      device=device).reshape(b, maxp)
+    ctx_lens = torch.full((b,), ctx, dtype=torch.int32, device=device)
+    return q, kpool, vpool, pt, ctx_lens, ctx_lens - 1
+
+
+def _at_build(config, shapes, dtype):
+    """The trial launch: `ragged_paged_attention` over `_at_inputs` — K1
+    on the card (it counts in `kernels.LAUNCHES`), the plain version on
+    the CPU.  Returns the thunk."""
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if torch.cuda.is_available() else torch.device("cpu")
+    args = _at_inputs(config, shapes, dtype, dev)
+    return lambda: ragged_paged_attention(*args)
+
+
+autotune.register_tunable("paged_attention", _at_candidates, _at_build,
+                          _at_roofline)

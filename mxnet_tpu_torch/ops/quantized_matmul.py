@@ -289,25 +289,6 @@ def _kernel_fn():
 _sms = _kernels.sm_count   # the card's SM count, read once per device
 
 
-def _scratch(device, stream: int, plan: Plan):
-    """The split-K scratch of one stream: at least ``plan.tiles`` zeroed
-    uint32 ticket counters (as int32) and ``plan.workspace`` f32 partials.
-    Every launch leaves its counters zeroed, and launches on one stream run
-    in order, so each stream keeps one pair and grows it when a plan needs
-    more; a launch on another stream never shares its tickets."""
-    key = (device.index, stream)
-    got = _scratch_of.get(key)
-    if (got is None or got[0].numel() < plan.tiles
-            or got[1].numel() < plan.workspace):
-        have = (0, 0) if got is None else (got[0].numel(), got[1].numel())
-        got = _scratch_of[key] = (
-            torch.zeros(max(plan.tiles, have[0], 1024), dtype=torch.int32,
-                        device=device),
-            torch.empty(max(plan.workspace, have[1]), dtype=torch.float32,
-                        device=device))
-    return got
-
-
 def _tuned_plan(M, N, K, bits, dtype, device) -> Plan:
     """`_plan` under the autotuner's choice for (M, N, K), ``int<bits>``
     and x's dtype, looked up once per key and `autotune.generation()`,
@@ -382,7 +363,8 @@ def _qmm_cuda(x2, qt: QuantizedTensor, plan: Optional[Plan] = None):
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
     ws = cnt = None
     if plan.split > 1:
-        cnt, ws = _scratch(dev, stream, plan)
+        cnt, ws = _kernels.stream_scratch(_scratch_of, dev, stream,
+                                          plan.tiles, plan.workspace)
         cnt, ws = cnt.data_ptr(), ws.data_ptr()
     err = _kernel_fn()(
         x2.data_ptr(), qt.q.data_ptr(), qt.scale.data_ptr(), out.data_ptr(),

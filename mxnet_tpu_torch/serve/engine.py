@@ -40,7 +40,8 @@ from ..base import MXNetError, getenv_int
 from ..device import resolve_device
 from ..models.gpt import _filter_logits, torch_dtype
 from ..ops.paged_attention import (paged_attention_reference,
-                                   ragged_paged_attention)
+                                   ragged_paged_attention,
+                                   recommended_page_size)
 from ..ops.quantized_matmul import matmul_nt, matmul_nt_reference
 from .decode import (decode_weight_bytes, extract_decode_weights,
                      lm_logits, quantize_decode_weights, transformer_step)
@@ -56,6 +57,13 @@ def _not_ported(what: str) -> MXNetError:
         "queue C)")
 
 
+def _default_page_size() -> int:
+    """MXTPU_SERVE_PAGE_SIZE wins; otherwise the paged-attention
+    autotuner's kept recommendation for this device, else 16 (the JAX
+    package's order)."""
+    return getenv_int("MXTPU_SERVE_PAGE_SIZE", 0) or recommended_page_size(16)
+
+
 @dataclass
 class ServeConfig:
     """Serving knobs; every field defaults from its ``MXTPU_SERVE_*``
@@ -63,8 +71,7 @@ class ServeConfig:
 
     max_slots: int = field(
         default_factory=lambda: getenv_int("MXTPU_SERVE_SLOTS", 8))
-    page_size: int = field(
-        default_factory=lambda: getenv_int("MXTPU_SERVE_PAGE_SIZE", 16))
+    page_size: int = field(default_factory=_default_page_size)
     num_pages: int = field(
         default_factory=lambda: getenv_int("MXTPU_SERVE_PAGES", 0))
     prefill_chunk: int = field(

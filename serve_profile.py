@@ -10,9 +10,9 @@ prefill_chunk=16))`` per weight format (f32, int8), fills all 8 slots with
 first prefill steps (C=16, every slot prefilling) and a steady decode
 window (C=1).  For each window it reports the host wall per step, the
 device time per step (the sum of kernel durations), the device idle share
-(1 - device / wall), kernel launches per step, K2's device time and calls
-per step (kernels named ``qmm*``), and the kernels that take the most
-device time.  Needs a CUDA card.
+(1 - device / wall), kernel launches per step, K1's and K2's device time
+and calls per step (kernels named ``rpa*`` and ``qmm*``), and the kernels
+that take the most device time.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -50,6 +50,7 @@ def profile_window(engine, n_steps):
     dev_us = sum(_dev_us(e) for e in kern)
     launches = sum(e.count for e in kern)
     top = sorted(kern, key=_dev_us, reverse=True)[:12]
+    k1 = [e for e in kern if "rpa" in e.key]
     k2 = [e for e in kern if "qmm" in e.key]
     return {
         "steps": n_steps,
@@ -57,6 +58,8 @@ def profile_window(engine, n_steps):
         "device_ms_per_step": dev_us / 1e3 / n_steps,
         "device_idle_share": 1.0 - dev_us / 1e6 / wall,
         "kernel_launches_per_step": launches / n_steps,
+        "k1_ms_per_step": sum(_dev_us(e) for e in k1) / 1e3 / n_steps,
+        "k1_calls_per_step": sum(e.count for e in k1) / n_steps,
         "k2_ms_per_step": sum(_dev_us(e) for e in k2) / 1e3 / n_steps,
         "k2_calls_per_step": sum(e.count for e in k2) / n_steps,
         "top_kernels": [{"name": e.key[:90], "calls_per_step":

@@ -1,5 +1,7 @@
 """The port's CUDA kernels against their plain versions, on the card:
-ragged paged attention, the dequant-matmul (every plan of its menu, odd
+ragged paged attention (both variants at the default plan, one split and
+one page a split, pages 8, 24 and 128, D 64 and 128, empty slots,
+windows, two streams, two calls bit-equal), the dequant-matmul (every plan of its menu, odd
 shapes, the tied head, two calls bit-equal), flash attention (forward and
 backward, with padding or per-row bias, causal, dropout, ragged L and
 D up to 128; the backward at both key tiles, two calls and two streams
@@ -66,6 +68,116 @@ def test_paged_attention_kernel_matches_plain(card, dtype, tol, C, Hkv, ps,
         n = int(nt[b])
         err = (out[b, :, :n].float() - ref[b, :, :n].float()).abs().max()
         assert float(err) <= tol * float(ref[b, :, :n].float().abs().max())
+
+
+def _rpa_inputs(card, dtype, C, H, Hkv, D, ps, maxp, start, nt, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    B = len(start)
+    q = torch.randn(B, H, C, D, generator=g).to(card, dtype)
+    kp = torch.randn(B * maxp + 1, ps, Hkv, D, generator=g).to(card, dtype)
+    vp = torch.randn(B * maxp + 1, ps, Hkv, D, generator=g).to(card, dtype)
+    pt = (torch.randperm(B * maxp, generator=g) + 1).reshape(B, maxp)
+    start, nt = torch.tensor(start), torch.tensor(nt)
+    return [q, kp, vp] + [t.to(card, torch.int32)
+                          for t in (pt, start + nt, start)]
+
+
+def _with_span(plan, span, cap, D):
+    """`plan` with splits of `span` keys over a table of `cap` keys."""
+    split = -(-cap // span)
+    return plan._replace(span=span, split=split, workspace=(
+        plan.groups * split * plan.row_tile * (D + 4) if split > 1 else 0))
+
+
+RPA_SHAPES = [(1, 4, 4), (1, 8, 2), (16, 4, 4), (4, 8, 1)]   # C, H, Hkv
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("C,H,Hkv", RPA_SHAPES)
+@pytest.mark.parametrize("ps,D,maxp", [(8, 64, 40), (24, 128, 14),
+                                       (128, 64, 4)])
+@pytest.mark.parametrize("windowed", [False, True])
+def test_paged_attention_every_split_matches_plain(card, dtype, tol, C, H,
+                                                   Hkv, ps, D, maxp,
+                                                   windowed):
+    """Both variants (rows 1 and 4: few; 16 and 32: tile) at the default
+    plan, one split a slot and one page a split: contexts that end exactly
+    on a split boundary and that cross one, the full table, an empty slot
+    and a slot with no key at all, a window whose floor skips splits; two
+    calls bit-equal, one launch each."""
+    cap = ps * maxp
+    sms = kernels.sm_count(card)
+    plan = pa._plan(6, H, Hkv, C, D, ps, maxp, dtype, sms)
+    assert plan.variant == ("few" if H // Hkv * C < 16 else "tile")
+    S = plan.span
+    ctx = [S, min(S + 5, cap), 0, 0, cap - 1, cap]
+    nt = [min(C, c) for c in ctx]
+    nt[3] = 0
+    start = [c - n for c, n in zip(ctx, nt)]
+    start[3] = 7                  # past the start, yet no key: ctx = 0
+    args = _rpa_inputs(card, dtype, C, H, Hkv, D, ps, maxp, start, nt)
+    args[4][3] = 0
+    window = 2 * ps + 3 if windowed else None
+    scale = D ** -0.5
+    ref = pa.paged_attention_reference(*args, window=window, scale=scale)
+    plans = [plan, _with_span(plan, cap, cap, D),
+             _with_span(plan, ps, cap, D)]
+    assert plans[1].split == 1 and plans[2].split == maxp
+    for pl in plans:
+        kernels.reset_launch_counts()
+        a = pa._rpa_cuda(*args, window, scale, plan=pl)
+        b = pa._rpa_cuda(*args, window, scale, plan=pl)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["ragged_paged_attention"] == 2
+        assert torch.equal(a, b), pl
+        assert torch.isfinite(a.float()).all()
+        for s in (2, 3):          # no key: exactly zero
+            assert not bool(a[s].float().any()), pl
+        for s, n in enumerate(nt):
+            if n:
+                err = (a[s, :, :n].float() - ref[s, :, :n].float()).abs()
+                assert float(err.max()) <= tol * float(
+                    ref[s, :, :n].float().abs().max()), (pl, s)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,H,Hkv", [(1, 12, 12), (16, 12, 3)])
+def test_paged_attention_splits_on_two_streams(card, dtype, C, H, Hkv):
+    """Split launches on two streams at once keep their own tickets and
+    partials: each stream's results equal the same launch made alone, bit
+    for bit, and the tickets are left zeroed."""
+    D, ps, maxp = 64, 16, 32
+    calls = [_rpa_inputs(card, dtype, C, H, Hkv, D, ps, maxp,
+                         [300, 17, 450, 0], [C, 1, C, C], seed=s)
+             for s in (1, 2)]
+    plan = _with_span(pa._plan(4, H, Hkv, C, D, ps, maxp, dtype,
+                               kernels.sm_count(card)), 64, ps * maxp, D)
+    assert plan.split == 8
+    wants = [pa._rpa_cuda(*a, None, 0.125, plan=plan) for a in calls]
+    streams = [torch.cuda.Stream(card) for _ in calls]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(20):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(pa._rpa_cuda(*calls[i], None, 0.125,
+                                            plan=plan))
+    torch.cuda.synchronize()
+    for want, got in zip(wants, outs):
+        assert all(torch.equal(o, want) for o in got)
+    raw = {st.cuda_stream for st in streams}
+    mine = [v for key, v in pa._scratch_of.items() if key[1] in raw]
+    assert len(mine) == 2
+    assert all(int(t[0].abs().sum()) == 0 for t in mine)
+
+
+def test_paged_attention_raises_on_a_head_dim_it_does_not_take(card):
+    q = torch.zeros(1, 2, 1, 24, device=card)
+    pool = torch.zeros(2, 8, 2, 24, device=card)
+    i32 = torch.zeros(1, 1, dtype=torch.int32, device=card)
+    with pytest.raises(MXNetError, match="multiple of 16"):
+        pa.ragged_paged_attention(q, pool, pool, i32, i32[0], i32[0])
 
 
 def _qmm_case(card, dtype, bits, M, N, K, seed=1):

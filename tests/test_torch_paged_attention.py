@@ -131,3 +131,115 @@ def test_head_mismatch_raises():
     q, kp, vp, pt, ctx, st, _ = _inputs(5, 1, 3, 2, 1, 8, 8, 4, 1, [0], [1])
     with pytest.raises(MXNetError, match="multiple of pool kv heads"):
         tpa.ragged_paged_attention(*_torch(q, kp, vp, pt, ctx, st))
+
+
+# ---------------------------------------------------------------------------
+# K1's launch plan and the page-size tunable (no card needed)
+# ---------------------------------------------------------------------------
+
+from mxnet_tpu_torch.ops import autotune as at      # noqa: E402
+
+SMS = 132     # the H100 SXM's SM count
+
+
+@pytest.mark.parametrize("C,H,Hkv,variant,row_tile", [
+    (1, 12, 12, "few", 1),      # MHA decode: one row
+    (1, 12, 3, "few", 4),       # GQA rep 4 decode
+    (16, 12, 12, "tile", 16),   # the prefill chunk
+    (16, 12, 3, "tile", 16)])   # rep 4 x chunk 16: 64 rows, 4 row tiles
+def test_plan_variant_by_rows(C, H, Hkv, variant, row_tile):
+    plan = tpa._plan(8, H, Hkv, C, 64, 16, 32, torch.float32, SMS)
+    rows = H // Hkv * C
+    assert (plan.variant, plan.row_tile) == (variant, row_tile)
+    assert plan.groups == 8 * Hkv * -(-rows // row_tile)
+
+
+@pytest.mark.parametrize("maxp,ps,split", [(1, 16, 1), (32, 16, 8),
+                                           (256, 16, 16)])
+def test_plan_split_counts(maxp, ps, split):
+    """Capacity 16 keys: one split, written straight to `out`; the main
+    path's 512: eight splits of 64 keys (eight blocks an SM over 96
+    groups would ask for less, but a split holds a tile a warp at least);
+    4096: 256-key splits, at most four tiles a warp."""
+    plan = tpa._plan(8, 12, 12, 1, 64, ps, maxp, torch.float32, SMS)
+    cap = maxp * ps
+    assert plan.split == split
+    assert (plan.split - 1) * plan.span < cap <= plan.split * plan.span
+    assert plan.workspace == (0 if split == 1 else
+                              plan.groups * split * plan.row_tile * 68)
+    if split > 1:
+        assert plan.span <= tpa.MAX_SPAN
+        assert plan.span >= plan.warps * tpa.KEY_TILE
+
+
+@pytest.mark.parametrize("ps", [8, 16, 24, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_plan_spans_are_whole_pages(ps, dtype, D):
+    for maxp in (1, 3, 32, 200, 5000):
+        for C, H, Hkv in ((1, 12, 12), (16, 12, 3)):
+            plan = tpa._plan(8, H, Hkv, C, D, ps, maxp, dtype, SMS)
+            assert plan.span % ps == 0 and plan.span <= maxp * ps
+            assert plan.split <= tpa.MAX_SPLITS
+            assert 1 <= plan.warps <= 4
+            assert plan.split == -(-maxp * ps // plan.span)
+
+
+def test_plan_is_memoised():
+    args = (8, 12, 12, 1, 64, 16, 32, torch.float32, SMS)
+    hits = tpa._plan.cache_info().hits
+    assert tpa._plan(*args) is tpa._plan(*args)
+    assert tpa._plan.cache_info().hits >= hits + 1
+
+
+def test_paged_attention_is_a_tunable():
+    assert "paged_attention" in at.tunables()
+    cands = tpa._at_candidates((8, 12, 12, 64, 512), "float32")
+    assert [c.page_size for c in cands] == [16, 32, 64, 128]
+
+
+@pytest.mark.parametrize("shapes", [(8, 12, 12, 64, 512), (4, 8, 2, 128,
+                                                            1000), ()])
+def test_roofline_equals_jax(shapes):
+    for ps in (16, 32, 64, 128):
+        got = tpa._at_roofline(at.BlockConfig(page_size=ps), shapes,
+                               "float32")
+        want = jpa._at_roofline(at.BlockConfig(page_size=ps), shapes,
+                                "float32")
+        assert got == want
+
+
+@pytest.fixture
+def tune_cache(tmp_path, monkeypatch):
+    monkeypatch.setenv("MXTPU_AUTOTUNE_CACHE", str(tmp_path))
+    monkeypatch.delenv("MXTPU_SERVE_PAGE_SIZE", raising=False)
+    monkeypatch.delenv("MXTPU_AUTOTUNE", raising=False)
+    at.clear_memory_cache()
+    yield tmp_path
+    at.clear_memory_cache()
+
+
+def test_recommended_page_size_is_the_tuned_one(tune_cache):
+    assert tpa.recommended_page_size() == 16
+    assert tpa.recommended_page_size(32) == 32
+    kernels.reset_launch_counts()
+    res = at.tune("paged_attention", (2, 2, 2, 16, 64), "float32", runs=1)
+    assert not res.cache_hit and res.trials == 4
+    # the CPU trials run the plain version: no kernel launch is counted
+    assert kernels.launch_counts()["ragged_paged_attention"] == 0
+    assert tpa.recommended_page_size() == res.config.page_size
+    at.clear_memory_cache()       # a fresh process reads it from disk
+    assert tpa.recommended_page_size() == res.config.page_size
+
+
+def test_serve_config_page_size_follows_jax_order(tune_cache, monkeypatch):
+    from mxnet_tpu_torch.serve import ServeConfig
+    assert ServeConfig().page_size == 16
+    key = at._key("paged_attention", (8, 12, 12, 64, 512), "float32",
+                  at.device_kind())
+    at._disk_store("paged_attention", key, at.BlockConfig(page_size=64))
+    at.clear_memory_cache()
+    assert ServeConfig().page_size == 64
+    monkeypatch.setenv("MXTPU_SERVE_PAGE_SIZE", "32")
+    assert ServeConfig().page_size == 32
+    assert ServeConfig(page_size=8).page_size == 8
