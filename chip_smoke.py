@@ -39,11 +39,12 @@ widths (hidden 768, FFN 3072, 8 experts) through `TrainStep` and the gluon
    bf16 with no mask, a key-padding bias from seeded ``valid_length``
    (0.85 L - L), a per-row bias, causal, and the padding bias with dropout
    0.1 (one seed on both sides, so the keep masks coincide) — max-abs
-   1e-4 (f32) / 2e-2 (bf16) of the scale of O, dQ, dK and dV, two
-   backward calls bit-equal; timed against
-   ``scaled_dot_product_attention`` with the same float mask, the backward
-   also device-only and its host µs a call, beside SDPA's; the backward's
-   f32 bound at the 3xTF32 rate (a third of 495 TFLOP/s);
+   1e-4 (f32) / 2e-2 (bf16) of the scale of O, lse, dQ, dK and dV, two
+   forward and two backward calls bit-equal, the forward's plan (blocks
+   and their source) recorded; timed against
+   ``scaled_dot_product_attention`` with the same float mask, each
+   direction also device-only and its host µs a call, beside SDPA's; both
+   directions' f32 bounds at the 3xTF32 rate (a third of 495 TFLOP/s);
 7. (k4) the streaming softmax cross-entropy, forward and backward, against
    its plain version at (1280, 30522) in f32 and bf16 and at the odd
    V 50257, timed against ``cross_entropy(x.float(), y)``;
@@ -108,7 +109,11 @@ widths (hidden 768, FFN 3072, 8 experts) through `TrainStep` and the gluon
    trials launch K1, every candidate page size's decode step within 1e-4
    of the plain version's scale, a warm call a hit with 0 trials, and
    ``ServeConfig()`` then takes the tuned page size; later phases serve
-   at page 16 as before);
+   at page 16 as before), and for the flash forward's blocks
+   (``tune("flash_attention", (64, 12, 128, 128, 64), "bfloat16")``: the
+   trials launch the CUDA forward, every candidate (block_q, block_k)
+   within 2e-2 of the plain version's scale, a warm call a hit with 0
+   trials, the next call's plan on the tuned blocks);
 13. (moe) ``MoEFeedForward(768, 3072, num_experts=8, capacity_factor=1.25)``
    trained 20 steps on a seeded (64, 128, 768) batch, loss MSE + 0.01 aux,
    Adam lr 1e-4, through ``TrainStep`` and through ``gluon.Trainer``
@@ -661,6 +666,7 @@ def k3_cases(dev):
             a = (q, k, v, bias3, seed, scale, causal, rate, per_head,
                  per_row)
             ok_, lk_ = fa._flash_fwd_cuda(*a)
+            ok2, lk2 = fa._flash_fwd_cuda(*a)
             op_, lp_ = fa.flash_fwd_reference(*a)
             gk = fa._flash_bwd_cuda(q, k, v, bias3, seed, ok_, lk_, do,
                                     scale, causal, rate, per_head, per_row)
@@ -672,20 +678,26 @@ def k3_cases(dev):
                                         per_row)
             torch.cuda.synchronize()
             bit_equal = all(torch.equal(a_, b_) for a_, b_ in zip(gk, again))
+            fwd_bit_equal = torch.equal(ok_, ok2) and torch.equal(lk_, lk2)
             plan = fa._bwd_plan(B, H, L, L, D, dt,
                                 kernels.sm_count(dev))._asdict()
+            # the forward's plan as the main path takes it, with its source
+            fwd_plan = fa._planned_fwd(B, H, L, L, D, dt, dev)._asdict()
             errs = {}
-            for nm, x, y in zip(("out", "dq", "dk", "dv"),
-                                (ok_,) + tuple(gk), (op_,) + tuple(gp)):
+            for nm, x, y in zip(("out", "lse", "dq", "dk", "dv"),
+                                (ok_, lk_) + tuple(gk),
+                                (op_, lp_) + tuple(gp)):
                 errs[nm] = _scale_err(x, y)
             case = dict(dtype=dtype, case=name,
                         max_abs_err=max(e for e, _ in errs.values()),
                         errors={nm: {"err": e, "scale": sc}
                                 for nm, (e, sc) in errs.items()},
                         bit_equal_calls=bit_equal,
-                        bwd_plan=plan,
-                        ok=bit_equal and all(e <= TOL[dtype] * sc
-                                             for e, sc in errs.values()))
+                        fwd_bit_equal_calls=fwd_bit_equal,
+                        fwd_plan=fwd_plan, bwd_plan=plan,
+                        ok=bit_equal and fwd_bit_equal
+                        and all(e <= TOL[dtype] * sc
+                                for e, sc in errs.values()))
             # timings: kernel, plain version, SDPA with the same float mask
             mask = None if bias is None else (
                 bias[:, None, None, :] if bias.dim() == 2
@@ -696,9 +708,16 @@ def k3_cases(dev):
                 return sdpa(qs, ks, vs, attn_mask=mask, dropout_p=rate,
                             is_causal=causal)
             o_lib = lib_fwd()
-            case["ms"] = time_ms(lambda: fa._flash_fwd_cuda(*a))
+
+            def kern_fwd():
+                return fa._flash_fwd_cuda(*a)
+            case["ms"] = time_ms(kern_fwd)
+            case["device_ms"] = time_ms(kern_fwd, device_only=True)
+            case["host_us"] = host_us(kern_fwd)
             case["plain_ms"] = time_ms(lambda: fa.flash_fwd_reference(*a))
             case["library_ms"] = time_ms(lib_fwd)
+            case["library_device_ms"] = time_ms(lib_fwd, device_only=True)
+            case["library_host_us"] = host_us(lib_fwd)
             bwd_args = (q, k, v, bias3, seed)
             tail = (scale, causal, rate, per_head, per_row)
 
@@ -739,9 +758,11 @@ def k3_cases(dev):
             item = q.element_size()
             tensor = B * H * L * D * item
             bias_b = 0 if bias3 is None else bias3.numel() * 4
+            # both directions' f32 products run as 3xTF32 on the tensor
+            # cores
             case["bound_ms"], case["bound_by"] = bound(
-                4 * tensor + B * H * L * 4 + bias_b, 4.0 * pairs * D, dtype)
-            # the backward's f32 products run as 3xTF32 on the tensor cores
+                4 * tensor + B * H * L * 4 + bias_b, 4.0 * pairs * D,
+                "tf32x3" if dtype == "float32" else dtype)
             case["bwd_bound_ms"], case["bwd_bound_by"] = bound(
                 8 * tensor + B * H * L * 4 + bias_b, 10.0 * pairs * D,
                 "tf32x3" if dtype == "float32" else dtype)
@@ -1465,8 +1486,9 @@ def run_tune(dev, results, card):
     """Cold and warm ``tune("fused_optimizer", (n,), "float32")`` for the
     MoE layer's and BERT-base's f32 parameter counts, in a temporary
     cache; every candidate's bits against ``CHUNK``'s; the next launch's
-    chunk.  The tuned configs are dropped from this process's memory after
-    the phase, so each later phase launches at ``CHUNK`` whatever ran
+    chunk; then K2's plan, K1's page size and the flash forward's blocks.
+    The tuned configs are dropped from this process's memory after the
+    phase, so each later phase launches at its static default whatever ran
     before it."""
     import tempfile
     import torch
@@ -1501,6 +1523,11 @@ def run_tune(dev, results, card):
             print(f"[tune k1_page_size] {json.dumps(st)}", flush=True)
             if not st["ok"]:
                 raise AssertionError(f"tune k1_page_size: {st}")
+            results["tune"]["flash_fwd_bf16"] = st = flash_tune_case(
+                at, kernels, torch)
+            print(f"[tune flash_fwd_bf16] {json.dumps(st)}", flush=True)
+            if not st["ok"]:
+                raise AssertionError(f"tune flash_fwd_bf16: {st}")
         finally:
             at.clear_memory_cache()
             if old is None:
@@ -1610,6 +1637,64 @@ def k1_tune_case(at, kernels, torch):
                 and warm_launches == 0
                 and all(errs[p] <= tols[p] for p in errs)
                 and serve_page == cold.config.page_size)
+    return st
+
+
+FLASH_TUNE = (64, 12, 128, 128, 64)   # BERT-base's attention: B, H, Lq, Lk, D
+
+
+def flash_tune_case(at, kernels, torch):
+    """Cold and warm ``tune("flash_attention", (64, 12, 128, 128, 64),
+    "bfloat16")`` over the forward's (block_q, block_k) menu: the trials
+    launch the CUDA forward, every candidate's causal forward (the trial's
+    call) is within 2e-2 of the plain version's scale, a warm call is a hit
+    with 0 trials, and the next call's plan takes the tuned blocks."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    dev = torch.device("cuda", 0)
+    B, H, Lq, Lk, D = FLASH_TUNE
+    cands = fa._at_candidates(FLASH_TUNE, "bfloat16")
+    env = {k: os.environ.pop(k, None) for k in ("MXTPU_FLASH_BLOCK_Q",
+                                                "MXTPU_FLASH_BLOCK_K")}
+    try:
+        kernels.reset_launch_counts()
+        cold = at.tune("flash_attention", FLASH_TUNE, "bfloat16",
+                       top_k=len(cands))
+        trial_launches = kernels.launch_counts()["flash_attention_fwd"]
+        warm = at.tune("flash_attention", FLASH_TUNE, "bfloat16",
+                       top_k=len(cands))
+        warm_launches = kernels.launch_counts()["flash_attention_fwd"] - \
+            trial_launches
+        q, k, v = fa._at_inputs(FLASH_TUNE, "bfloat16", dev)
+        ref = fa.flash_attention_reference(q, k, v, causal=True)
+        tol = TOL["bfloat16"] * float(ref.float().abs().max())
+        errs = {}
+        for c in cands:
+            got = fa.flash_attention(q, k, v, causal=True,
+                                     block_q=c.block_q, block_k=c.block_k)
+            torch.cuda.synchronize()
+            errs[f"{c.block_q}x{c.block_k}"] = float(
+                (got.float() - ref.float()).abs().max())
+        plan = fa._planned_fwd(B, H, Lq, Lk, D, torch.bfloat16, dev)
+    finally:
+        for k_, v_ in env.items():
+            if v_ is not None:
+                os.environ[k_] = v_
+    per_trial = 1 + 5          # time_callable's warmup and runs
+    st = dict(shape=list(FLASH_TUNE), candidates=len(cands),
+              config=dict(cold.config), cold_trials=cold.trials,
+              cold_search_ms=cold.search_ms, trial_launches=trial_launches,
+              timings_ms={f"{dict(k_)['block_q']}x{dict(k_)['block_k']}": v_
+                          for k_, v_ in cold.timings_ms.items()},
+              warm_hit=warm.cache_hit, warm_trials=warm.trials,
+              warm_launches=warm_launches, candidate_errs=errs, tol=tol,
+              next_plan=plan._asdict())
+    st["ok"] = (cold.trials == len(cands)
+                and trial_launches == per_trial * cold.trials
+                and warm.cache_hit and warm.trials == 0
+                and warm_launches == 0
+                and all(e <= tol for e in errs.values())
+                and (plan.bq, plan.bk, plan.source)
+                == (cold.config.block_q, cold.config.block_k, "tuned"))
     return st
 
 
@@ -1889,7 +1974,8 @@ def kernel_entries(results):
     fused norm: bf16 LayerNorm at (8192, 768), the step's own; the chunk:
     Adam over the f32 BERT-base model; LAMB: the bf16 model, each phase's
     device time over all tensors, beside the plain LAMB update (both
-    phases) and no library call) and the largest error over every case.
+    phases) and no library call) and the largest error over every case;
+    the flash forward's entry also carries its bf16 case.
     The MoE gather: dispatch and combine at the slice's f32 shapes (8192
     tokens, 8 x 1280 slots, H 768).  Launches are the counts of the
     main-path runs (serving for K1/K2, the BERT and MoE training runs for
@@ -1902,6 +1988,8 @@ def kernel_entries(results):
                 and c["M"] == 8 and c["N"] == 2304)
     rep3 = next(c for c in k3 if c["dtype"] == "float32"
                 and c["case"] == "pad_dropout")
+    rep3b = next(c for c in k3 if c["dtype"] == "bfloat16"
+                 and c["case"] == "pad_dropout")
     rep4 = next(c for c in k4 if c["dtype"] == "float32" and c["V"] == 30522)
     rep5 = next(c for c in k5 if c["dtype"] == "bfloat16" and
                 c["rows"] == 8192 and c["case"] == "ln")
@@ -1941,6 +2029,13 @@ def kernel_entries(results):
     sx_py = "mxnet_tpu/ops/pallas/softmax_xent.py"
     fo_src = "mxnet_tpu_torch/csrc/fused_optimizer.cu"
     fo_py = "mxnet_tpu/ops/pallas/fused_optimizer.py"
+    fwd = entry("flash_attention_fwd", fa_src, f"{fa_py}:284",
+                train_launches("flash_attention_fwd"), k3, rep3)
+    # the forward's bf16 case (the bf16 step's) beside the f32 one
+    fwd.update(device_ms=rep3["device_ms"], bf16_ms=rep3b["ms"],
+               bf16_device_ms=rep3b["device_ms"],
+               bf16_library_ms=rep3b["library_ms"],
+               bf16_bound_ms=rep3b["bound_ms"])
     return [
         entry("ragged_paged_attention",
               "mxnet_tpu_torch/csrc/paged_attention.cu",
@@ -1950,8 +2045,7 @@ def kernel_entries(results):
               "mxnet_tpu_torch/csrc/quantized_matmul.cu",
               "mxnet_tpu/ops/pallas/quantized_matmul.py:341", k2_launch, k2,
               rep2),
-        entry("flash_attention_fwd", fa_src, f"{fa_py}:284",
-              train_launches("flash_attention_fwd"), k3, rep3),
+        fwd,
         entry("flash_attention_bwd", fa_src, f"{fa_py}:489",
               train_launches("flash_attention_bwd"), k3, rep3, "bwd_"),
         entry("softmax_xent_fwd", sx_src, f"{sx_py}:95",

@@ -13,8 +13,9 @@ run in fresh processes of that tree with its own package, kernels and
   `chip_smoke.time_ms` (the same timer in both trees) beside SDPA;
 - the tree's ``train_profile.py``: the BERT-base step's traced wall,
   device time and device time by kernel class, per run of its ``RUNS``.
-Prints every run's numbers and, per flash case, each tree's mean backward
-and forward ms.  Needs a CUDA card.
+Prints every run's numbers and, per flash case, each tree's mean forward
+and backward ms (the forward also device-only and its host µs a call,
+where the tree's phase 6 times them) beside SDPA's.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -81,10 +82,11 @@ def main(argv=None) -> int:
         for which in ("this", "other"):
             got = [d for r in runs if r["tree"] == which for d in r["k3"]
                    if (d["dtype"], d["case"]) == k]
-            for name in ("bwd_ms", "ms", "bwd_library_ms"):
-                if got:
-                    row[f"{which}_{name}"] = sum(d[name] for d in got) / len(
-                        got)
+            for name in ("ms", "device_ms", "host_us", "library_ms",
+                         "library_device_ms", "bwd_ms", "bwd_library_ms"):
+                vals = [d[name] for d in got if name in d]
+                if vals:    # a parent's phase 6 may time fewer of them
+                    row[f"{which}_{name}"] = sum(vals) / len(vals)
         ok = ok and all(d["ok"] for r in runs if r["tree"] == "this"
                         for d in r["k3"] if (d["dtype"], d["case"]) == k)
         rows.append(row)

@@ -26,15 +26,37 @@
 //   * backward by recompute from lse: di = rowsum(dO * O); dQ, dK and dV
 //     without float atomics, so the result is deterministic.
 //
-// What bounds it on the H100: at BERT's shapes (L = 128, D = 64) the work is
-// 4 * BH * Lq * Lk * D flops forward (10x backward) against a few MB of
-// q/k/v/o, so in bf16 the tensor cores' rate, in f32 the FMA rate (forward)
-// or three TF32 products a multiply-add (backward).
+// What bounds it on the H100: at BERT's shapes (B 64, H 12, L = 128,
+// D = 64) the forward does 4 * BH * Lq * Lk * D = 3.2 GFLOP against 50 MB
+// of q/k/v/o in bf16 (100 MB in f32): about 0.015 ms of memory traffic
+// against 0.003 ms of bf16 tensor-core work (0.019 ms of 3xTF32 products
+// in f32), so its floor is bytes.  What holds it above that floor is
+// instruction issue and latency: each score takes a dozen scalar
+// instructions (scale, bias, mask, max, exp, sum, dropout hash) beside its
+// share of two products, in a dependent chain per warp.  So the design
+// reads each operand once and keeps S and P out of memory, keeps each
+// score's passes free of branches, and fits as many warps an SM as the
+// registers allow.  The backward does 10x the forward's products, so in
+// bf16 the tensor cores' rate, in f32 three TF32 products a multiply-add.
 //
-// Forward, simple first: one block of 256 threads per (bh, 64-row tile);
-// 64-key tiles of K and V are staged in shared memory as f32 (padded
-// stride, no bank conflicts); each thread owns a 4 x 4 tile of scores and a
-// 4 x D/16 tile of the output accumulator in registers, with SIMT FMAs.
+// Forward (`flash_fwd_kernel`), FlashAttention-2's shape on mma.sync:
+// work items of 64 or 128 query rows of a head, one warp per 16 rows, the
+// tiles chosen by the host's `_fwd_plan` (the `flash_attention` tunable);
+// persistent blocks, as many as fit on the card, walk the items.  Q is
+// loaded by 16-byte cp.async and kept in registers as A fragments for an
+// item's key walk; K and V stream through a two-stage cp.async ring of 64-
+// or 128-key tiles that runs on across items, so the next item's Q, K and
+// V load while this one computes (at L = 128 a head is one or two key
+// tiles).  S = Q K^T runs on the tensor cores (bf16 m16n8k16, f32 3xTF32
+// m16n8k8, f32 accumulation); scale, bias, mask, the online softmax and
+// dropout act on the accumulator fragments in registers (row max by two
+// quad shuffles), in straight-line passes whose variant (bias mode, a step
+// with nothing to mask, dropout) is chosen once a step; p, rounded to the
+// input type, feeds O += P V as the A operand straight from the
+// accumulators, with V read through ldmatrix.trans.  P never touches
+// shared memory, and the ring's handoff is the only block barrier of the
+// walk.  No atomics: two calls give the same bits.  wgmma and TMA are left
+// out: at these shapes the tensor cores are not the limit.
 //
 // Backward (`flash_bwd_kernel`), one pass per key tile: a block holds a
 // tile of 64 or 128 keys (the host's `_bwd_plan` picks) with K and V in
@@ -61,16 +83,10 @@
 namespace {
 
 constexpr float MASK_VALUE = -1e30f;
-constexpr int BQ = 64;                 // query rows per tile
-constexpr int BK = 64;                 // keys per tile
-constexpr int THREADS = 256;           // 16 x 16
-constexpr int NI = BQ / 16;            // rows per thread
-constexpr int NJ = BK / 16;            // score columns per thread
 constexpr int MAX_D = 128;
-// head-dim columns per thread (NC = 4 for D <= 64, 8 up to MAX_D) is a
-// template parameter: a compile-time width keeps the accumulators of a
-// D = 64 head in half the registers
-constexpr int LDP = BK + 1;            // padded stride of score tiles
+// shared memory a block may use, and an SM holds (H100)
+constexpr size_t SMEM_BLOCK = 232448;
+constexpr size_t SMEM_SM = 233472;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -84,23 +100,6 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
     float x) {
   return __float2bfloat16(x);
 }
-// round through the storage type, as the TPU kernel's astype does
-template <typename T> __device__ __forceinline__ float round_t(float x) {
-  return to_f(from_f<T>(x));
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 __device__ __forceinline__ uint32_t splitmix32(uint32_t x) {
   x ^= x >> 16;
   x *= 0x7FEB352Du;
@@ -128,188 +127,6 @@ struct Params {
   float rate, inv_keep;
   uint32_t thresh;
 };
-
-// additive bias at (absolute row r, key c) of head bh
-__device__ __forceinline__ float bias_at(const float* __restrict__ bias,
-                                         const Params& p, int bh, int r,
-                                         int c) {
-  const int bb = p.bias_per_head ? bh : bh / p.H;
-  if (p.bias_mode == 1) return bias[(size_t)bb * p.Lk + c];
-  return bias[((size_t)bb * p.Lq + r) * p.Lk + c];
-}
-
-// the masked, biased score of (r, c) from the raw dot product
-__device__ __forceinline__ float score(float dot, const float* bias,
-                                       const Params& p, int bh, int r,
-                                       int c) {
-  const bool valid = r < p.Lq && c < p.Lk && (!p.causal || c <= r);
-  if (!valid) return MASK_VALUE;
-  float s = dot * p.scale;
-  if (p.bias_mode) s += bias_at(bias, p, bh, r, c);
-  return s;
-}
-
-// stage rows [r0, r0 + rows) of a (BH, L, D) tensor into a [rows][D + 1]
-// f32 tile, zero past L
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
-                                          int bh, int r0, int L, int D,
-                                          int rows) {
-  const int ld = D + 1;
-  const size_t base = ((size_t)bh * L + r0) * D;
-  for (int i = threadIdx.x; i < rows * D; i += THREADS) {
-    const int r = i / D, d = i - r * D;
-    dst[r * ld + d] = r0 + r < L ? to_f(src[base + (size_t)r * D + d]) : 0.f;
-  }
-}
-
-// s[i][j] = sum_d a[ty + 16 i][d] * b[tx + 16 j][d] over two staged tiles
-__device__ __forceinline__ void tile_dot(float (&s)[NI][NJ], const float* a,
-                                         const float* b, int D, int ty,
-                                         int tx) {
-  const int ld = D + 1;
-#pragma unroll
-  for (int i = 0; i < NI; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) s[i][j] = 0.f;
-  for (int d = 0; d < D; ++d) {
-    float av[NI], bv[NJ];
-#pragma unroll
-    for (int i = 0; i < NI; ++i) av[i] = a[(ty + 16 * i) * ld + d];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) bv[j] = b[(tx + 16 * j) * ld + d];
-#pragma unroll
-    for (int i = 0; i < NI; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-  }
-}
-
-size_t fwd_smem(int D) {
-  return sizeof(float) * (3 * (size_t)BQ * (D + 1) + (size_t)BQ * LDP + 3 * BQ);
-}
-
-// ---------------------------------------------------------------------------
-// forward: one block per (bh, 64-row q tile)
-// ---------------------------------------------------------------------------
-template <typename T, int NC>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const float* __restrict__ bias,
-                 const int* __restrict__ seed, T* __restrict__ out,
-                 float* __restrict__ lse, Params p) {
-  extern __shared__ float smem[];
-  const int D = p.D, ld = D + 1;
-  float* qs = smem;                  // [BQ][ld]
-  float* ks = qs + BQ * ld;          // [BK][ld]
-  float* vs = ks + BK * ld;          // [BK][ld]
-  float* ps = vs + BK * ld;          // [BQ][LDP] scores, then p
-  float* row_m = ps + BQ * LDP;      // [BQ]
-  float* row_l = row_m + BQ;         // [BQ]
-  float* row_a = row_l + BQ;         // [BQ] rescale of this tile
-
-  const int bh = blockIdx.x, q0 = blockIdx.y * BQ;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int lane = tid & 31, warp = tid >> 5;
-  const uint32_t base =
-      p.rate > 0.f ? drop_base((uint32_t)seed[0], (uint32_t)bh) : 0u;
-
-  load_tile(qs, q, bh, q0, p.Lq, D, BQ);
-  if (tid < BQ) {
-    row_m[tid] = -INFINITY;
-    row_l[tid] = 0.f;
-  }
-  float acc[NI][NC];
-#pragma unroll
-  for (int i = 0; i < NI; ++i)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-
-  // causal: keys past the tile's last row are masked for every row
-  const int k_end = p.causal ? min(p.Lk, q0 + BQ) : p.Lk;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile(ks, k, bh, k0, p.Lk, D, BK);
-    load_tile(vs, v, bh, k0, p.Lk, D, BK);
-    __syncthreads();
-    float s[NI][NJ];
-    tile_dot(s, qs, ks, D, ty, tx);
-#pragma unroll
-    for (int i = 0; i < NI; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int r = ty + 16 * i, c = tx + 16 * j;
-        ps[r * LDP + c] = score(s[i][j], bias, p, bh, q0 + r, k0 + c);
-      }
-    __syncthreads();
-    // online softmax: each warp owns 8 rows, a lane two keys of a row
-    for (int rr = 0; rr < BQ / 8; ++rr) {
-      const int r = warp * (BQ / 8) + rr;
-      const float s0 = ps[r * LDP + lane], s1 = ps[r * LDP + lane + 32];
-      const float m_prev = row_m[r];
-      const float m_next = fmaxf(m_prev, warp_max(fmaxf(s0, s1)));
-      float p0 = s0 > 0.5f * MASK_VALUE ? expf(s0 - m_next) : 0.f;
-      float p1 = s1 > 0.5f * MASK_VALUE ? expf(s1 - m_next) : 0.f;
-      const float alpha = expf(m_prev - m_next);
-      const float l_next = alpha * row_l[r] + warp_sum(p0 + p1);
-      if (p.rate > 0.f) {
-        const uint32_t row = (uint32_t)(q0 + r);
-        p0 = keep(base, row, (uint32_t)(k0 + lane), p.thresh)
-                 ? p0 * p.inv_keep : 0.f;
-        p1 = keep(base, row, (uint32_t)(k0 + lane + 32), p.thresh)
-                 ? p1 * p.inv_keep : 0.f;
-      }
-      ps[r * LDP + lane] = round_t<T>(p0);
-      ps[r * LDP + lane + 32] = round_t<T>(p1);
-      if (lane == 0) {
-        row_m[r] = m_next;
-        row_l[r] = l_next;
-        row_a[r] = alpha;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < NI; ++i) {
-      const float a = row_a[ty + 16 * i];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= a;
-    }
-    for (int j = 0; j < BK; ++j) {
-      float pv[NI];
-#pragma unroll
-      for (int i = 0; i < NI; ++i) pv[i] = ps[(ty + 16 * i) * LDP + j];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int d = tx + 16 * c;
-        if (d < D) {
-          const float vv = vs[j * ld + d];
-#pragma unroll
-          for (int i = 0; i < NI; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
-        }
-      }
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < NI; ++i) {
-    const int r = ty + 16 * i;
-    if (q0 + r < p.Lq) {
-      const float l = row_l[r];
-      const float l_safe = l == 0.f ? 1.f : l;
-      const size_t ob = ((size_t)bh * p.Lq + q0 + r) * D;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int d = tx + 16 * c;
-        if (d < D) out[ob + d] = from_f<T>(acc[i][c] / l_safe);
-      }
-    }
-  }
-  if (tid < BQ && q0 + tid < p.Lq) {
-    const float l = row_l[tid];
-    lse[(size_t)bh * p.Lq + q0 + tid] =
-        l == 0.f ? 0.f : row_m[tid] + logf(l);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // backward: di = rowsum(dO * O) (a row pass), then one pass per key tile
@@ -430,6 +247,396 @@ __device__ __forceinline__ void unstage_rows(T* __restrict__ dst,
     for (int i = threadIdx.x; i < rows * DMAX; i += THREADS) {
       const int r = i / DMAX, d = i % DMAX;
       if (r0 + r < L && d < D) dst[(size_t)(r0 + r) * D + d] = src[r * ld + d];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward: one block per (bh, q tile of BQ rows), one warp per 16 rows
+// ---------------------------------------------------------------------------
+
+// A warp's Q tile as A fragments, held in registers for the whole key walk:
+// bf16 as the ldmatrix fragment itself; f32 as the raw values, split into
+// TF32 hi and lo at each use (the split fragment takes twice the registers)
+template <typename T> struct QFrag {
+  typename Mma<T>::A a;
+  __device__ __forceinline__ void load(const T* X, int ld, int m0, int k0,
+                                       int lane) {
+    Mma<T>::a_row(a, X, ld, m0, k0, lane);
+  }
+  __device__ __forceinline__ typename Mma<T>::A get() const { return a; }
+};
+template <> struct QFrag<float> {
+  float f[4];  // the slots (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
+  __device__ __forceinline__ void load(const float* X, int ld, int m0,
+                                       int k0, int lane) {
+    const float* r0 = X + (m0 + (lane >> 2)) * ld + k0 + (lane & 3);
+    const float* r8 = r0 + 8 * ld;
+    f[0] = r0[0];
+    f[1] = r8[0];
+    f[2] = r0[4];
+    f[3] = r8[4];
+  }
+  __device__ __forceinline__ Mma<float>::A get() const {
+    Mma<float>::A a;
+    Mma<float>::set_a(a, f[0], f[1], f[2], f[3]);
+    return a;
+  }
+};
+
+// rows [0, rows) of a warp's [16][LD] staging tile to dst (row stride D),
+// columns past D left out: 16-byte stores with vec, else one element a lane
+template <typename T, int DMAX, int LD>
+__device__ __forceinline__ void store_rows(T* __restrict__ dst, const T* stg,
+                                           int rows, int D, int lane,
+                                           int vec) {
+  if (vec) {
+    constexpr int EPC = 16 / sizeof(T), CPR = DMAX / EPC;
+    for (int i = lane; i < 16 * CPR; i += 32) {
+      const int r = i / CPR, d0 = (i % CPR) * EPC;
+      if (r < rows && d0 < D)
+        *reinterpret_cast<uint4*>(dst + (size_t)r * D + d0) =
+            *reinterpret_cast<const uint4*>(stg + r * LD + d0);
+    }
+  } else {
+    for (int i = lane; i < 16 * DMAX; i += 32) {
+      const int r = i / DMAX, d = i % DMAX;
+      if (r < rows && d < D) dst[(size_t)r * D + d] = stg[r * LD + d];
+    }
+  }
+}
+
+// Scale, bias and mask one step's scores in place (natural-log units) and
+// fold their row maxima into mx.  Element (jj, e) is row r0 + 8 (e >> 1),
+// key kc + 8 jj + 2 t + (e & 1).  MODE is the bias mode (0 none, 1 a key
+// row, 2 a row per query); FULL: the whole step lies inside the item's rows
+// and keys and below the causal diagonal, so nothing is masked.  Straight
+// line: bias loads are clamped into range and masking is a select, so no
+// element branches (the step's variant is chosen once, outside).
+template <int MODE, bool FULL, int NS>
+__device__ __forceinline__ void score_step(float (&s)[NS][4],
+                                           float (&mx)[2], const Params& p,
+                                           const float* __restrict__ bias,
+                                           int bb, int r0, int kc, int t) {
+  const float* brow[2] = {bias, bias};
+  if (MODE == 1) brow[0] = brow[1] = bias + (size_t)bb * p.Lk;
+  if (MODE == 2) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      brow[h] = bias + ((size_t)bb * p.Lq + min(r0 + 8 * h, p.Lq - 1)) * p.Lk;
+  }
+  const bool pairs = FULL && !(p.Lk & 1);  // 8-byte aligned key pairs
+#pragma unroll
+  for (int jj = 0; jj < NS; ++jj) {
+    const int c = kc + 8 * jj + 2 * t;
+    float b[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+    if (MODE != 0) {
+#pragma unroll
+      for (int h = 0; h < (MODE == 1 ? 1 : 2); ++h) {
+        if (pairs) {
+          const float2 x = __ldg(reinterpret_cast<const float2*>(brow[h] + c));
+          b[h][0] = x.x;
+          b[h][1] = x.y;
+        } else {
+          b[h][0] = __ldg(brow[h] + min(c, p.Lk - 1));
+          b[h][1] = __ldg(brow[h] + min(c + 1, p.Lk - 1));
+        }
+      }
+      if (MODE == 1) {
+        b[1][0] = b[0][0];
+        b[1][1] = b[0][1];
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1, r = r0 + 8 * h, cc = c + (e & 1);
+      float sv = s[jj][e] * p.scale + b[h][e & 1];
+      if (!FULL) {
+        const bool valid = (r < p.Lq) & (cc < p.Lk) & (!p.causal | (cc <= r));
+        sv = valid ? sv : MASK_VALUE;
+      }
+      s[jj][e] = sv;
+      mx[h] = fmaxf(mx[h], sv);
+    }
+  }
+}
+
+// p = exp(s - m) in place, exactly 0 where masked, its undropped sum folded
+// into l; with DROP, then the dropped, scaled p (`keep` of the element's
+// absolute row and key: rkey = row C1 + base, ckey = key C2 of the
+// thread's first key)
+template <bool DROP, int NS>
+__device__ __forceinline__ void softmax_step(float (&s)[NS][4],
+                                             float (&l)[2],
+                                             const float (&ml)[2],
+                                             const uint32_t (&rkey)[2],
+                                             uint32_t ckey, const Params& p) {
+#pragma unroll
+  for (int jj = 0; jj < NS; ++jj)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1;
+      const float sv = s[jj][e];
+      float pr = sv > 0.5f * MASK_VALUE
+                     ? exp2_approx(fmaf(sv, LOG2E, -ml[h]))
+                     : 0.f;
+      l[h] += pr;
+      if (DROP) {
+        const uint32_t x =
+            rkey[h] + ckey + (uint32_t)(8 * jj + (e & 1)) * 0x85EBCA77u;
+        pr = splitmix32(x) >= p.thresh ? pr * p.inv_keep : 0.f;
+      }
+      s[jj][e] = pr;
+    }
+}
+
+// The forward's tiles: BQ query rows an item (BQ / 16 warps), two Q
+// buffers (this item's and the next one's), a two-stage ring of BK-key K
+// and V tiles, heads padded to DMAX columns.  As many blocks an SM as the
+// shared memory holds, up to 3 for bf16 64-wide heads in 4 warps and 2
+// otherwise (1 for 8 warps of any other head, whose registers do not fit
+// twice): the kernel is bound by issue and latency, and more warps an SM
+// hide each warp's dependent chain of products (PERF.md, the flash forward).
+template <typename T, int DMAX, int BQ, int BK> struct Fwd {
+  static constexpr int WARPS = BQ / 16, THREADS = 32 * WARPS;
+  static constexpr int LD = DMAX + Mma<T>::PAD;
+  static constexpr size_t SMEM = sizeof(T) * (size_t)(2 * BQ + 4 * BK) * LD;
+  static constexpr bool FITS = SMEM <= SMEM_BLOCK;
+  static constexpr bool NARROW = sizeof(T) == 2 && DMAX == 64;
+  static constexpr int MIN_BLOCKS =
+      NARROW && THREADS == 128 && 3 * (SMEM + 1024) <= SMEM_SM ? 3
+      : 2 * (SMEM + 1024) <= SMEM_SM && (THREADS == 128 || NARROW) ? 2
+                                                                 : 1;
+};
+
+// Persistent blocks walk work items (bh, q tile of BQ rows), item
+// w = bh * nqt + q tile, taking w, w + grid, ...; a warp owns 16 rows of
+// the item.  The walk is one stream of (item, key tile) steps through a
+// two-stage ring of 16-byte cp.async rows: the step after the current one
+// is in flight while it is computed -- the next key tile, or the next
+// item's first K/V tile and its Q (into the other Q buffer) -- so one
+// item's loads overlap the last one's products.  The ring's handoff is the
+// only block barrier.  Each warp walks a key tile in steps of KC = 64
+// keys, all in registers: S = Q K^T on the tensor cores from Q's
+// fragments (loaded once an item) and K's ldmatrix fragments; scale, bias
+// and mask on the accumulator fragment; the online softmax with the row
+// max from two quad shuffles (the row sum stays per thread until the
+// item's end); dropout per element on its absolute (row, key); then p,
+// rounded to T, is the A operand of O += P V straight from the
+// accumulators, with V's fragments from ldmatrix.trans.  Causal warps stop
+// at their last row's key, and rows past Lq skip the walk.  The output
+// leaves through the item's Q buffer in 16-byte rows.
+template <typename T, int DMAX, int BQ, int BK>
+__global__ void __launch_bounds__(Fwd<T, DMAX, BQ, BK>::THREADS,
+                                  Fwd<T, DMAX, BQ, BK>::MIN_BLOCKS)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const float* __restrict__ bias,
+                 const int* __restrict__ seed, T* __restrict__ out,
+                 float* __restrict__ lse, Params p, int nqt, int n_items,
+                 int vec) {
+  using F = Fwd<T, DMAX, BQ, BK>;
+  using M = Mma<T>;
+  using A = typename M::A;
+  using B = typename M::B;
+  constexpr int LD = F::LD, THREADS = F::THREADS;
+  constexpr int KC = 64;          // keys a step of a warp's walk
+  constexpr int NS = KC / 8;      // 8-key n-tiles of a step's scores
+  constexpr int ND = DMAX / 8;    // 8-column n-tiles of the output
+  constexpr int NQ = DMAX / M::KS;
+  extern __shared__ __align__(16) unsigned char fwd_smem_raw[];
+  T* qs = reinterpret_cast<T*>(fwd_smem_raw);  // [2][BQ][LD]
+  T* ks = qs + 2 * BQ * LD;                    // [2][BK][LD]
+  T* vs = ks + 2 * BK * LD;                    // [2][BK][LD]
+
+  const int D = p.D;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  // an item's key tiles: causal items see no key past their last row
+  auto k_end_of = [&](int w) {
+    return p.causal ? min(p.Lk, (w % nqt + 1) * BQ) : p.Lk;
+  };
+
+  // the producer: the next (item, key tile) step to load, its item's
+  // ordinal in this block's walk (the Q buffer's parity) and its position
+  // in the walk (the ring stage's)
+  int lw = blockIdx.x, lkt = 0, lj = 0, lpos = 0;
+  auto issue = [&]() {
+    if (lw >= n_items || p.Lk == 0) return;
+    const int bh = lw / nqt, q0 = (lw % nqt) * BQ;
+    if (lkt == 0)
+      stage_rows<T, DMAX, THREADS>(qs + (lj & 1) * BQ * LD, LD,
+                                   q + (size_t)bh * p.Lq * D, q0, p.Lq, D,
+                                   BQ, vec);
+    T* kb = ks + (lpos & 1) * BK * LD;
+    const T* kh = k + (size_t)bh * p.Lk * D;
+    const T* vh = v + (size_t)bh * p.Lk * D;
+    stage_rows<T, DMAX, THREADS>(kb, LD, kh, lkt * BK, p.Lk, D, BK, vec);
+    stage_rows<T, DMAX, THREADS>(kb + 2 * BK * LD, LD, vh, lkt * BK, p.Lk, D,
+                                 BK, vec);
+    cp_async_commit();
+    ++lpos;
+    if (++lkt * BK >= k_end_of(lw)) {
+      lkt = 0;
+      lw += gridDim.x;
+      ++lj;
+    }
+  };
+  issue();
+  issue();
+
+  int pos = 0;  // the walk's position of the step being computed
+  for (int w = blockIdx.x, j = 0; w < n_items; w += gridDim.x, ++j) {
+    const int bh = w / nqt, q0 = (w % nqt) * BQ;
+    const int wr0 = q0 + 16 * warp;   // the warp's first row
+    const int r0 = wr0 + g;           // this thread's rows: r0, r0 + 8
+    const bool live = wr0 < p.Lq;
+    const size_t hq = (size_t)bh * p.Lq;
+    const int bb = p.bias_per_head ? bh : bh / p.H;
+    const int k_end = k_end_of(w);
+    const int w_end = p.causal ? min(k_end, wr0 + 16) : k_end;
+    const int nkt = (k_end + BK - 1) / BK;
+    // a row's term of the dropout hash, row * C1 + base (wraps at 32 bits)
+    const uint32_t base =
+        p.rate > 0.f ? drop_base((uint32_t)seed[0], (uint32_t)bh) : 0u;
+    const uint32_t rkey[2] = {(uint32_t)r0 * 0x9E3779B1u + base,
+                              (uint32_t)(r0 + 8) * 0x9E3779B1u + base};
+    T* qb = qs + (j & 1) * BQ * LD;
+
+    QFrag<T> qf[NQ];
+    float o[ND][4];
+#pragma unroll
+    for (int i = 0; i < ND; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+    for (int kt = 0; kt < nkt; ++kt, ++pos) {
+      if (lpos > pos + 1)
+        cp_async_wait<1>();  // this step landed; the next may be in flight
+      else
+        cp_async_wait<0>();
+      __syncthreads();
+      if (kt == 0) {
+#pragma unroll
+        for (int kk = 0; kk < NQ; ++kk)
+          qf[kk].load(qb, LD, 16 * warp, kk * M::KS, lane);
+      }
+      const T* kb = ks + (pos & 1) * BK * LD;
+      const T* vb = kb + 2 * BK * LD;
+#pragma unroll
+      for (int c0 = 0; c0 < BK; c0 += KC) {
+        const int kc = kt * BK + c0;
+        if (!live || kc >= w_end) break;
+        // a step wholly inside the item's rows and keys (and below the
+        // causal diagonal) needs no mask
+        const bool full = kc + KC <= p.Lk && wr0 + 16 <= p.Lq &&
+                          (!p.causal || kc + KC <= wr0 + 1);
+
+        // S = Q K^T over the step's 64 keys
+        float s[NS][4];
+#pragma unroll
+        for (int jj = 0; jj < NS; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[jj][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < NQ; ++kk) {
+          const A a = qf[kk].get();
+#pragma unroll
+          for (int n = 0; n < KC; n += 16) {
+            B b[2];
+            M::b_nrow(b, kb, LD, c0 + n, kk * M::KS, lane);
+            M::mma(s[n / 8], a, b[0]);
+            M::mma(s[n / 8 + 1], a, b[1]);
+          }
+        }
+
+        float mx[2] = {m[0], m[1]};
+        switch (p.bias_mode * 2 + (full ? 1 : 0)) {
+          case 0: score_step<0, false>(s, mx, p, bias, bb, r0, kc, t); break;
+          case 1: score_step<0, true>(s, mx, p, bias, bb, r0, kc, t); break;
+          case 2: score_step<1, false>(s, mx, p, bias, bb, r0, kc, t); break;
+          case 3: score_step<1, true>(s, mx, p, bias, bb, r0, kc, t); break;
+          case 4: score_step<2, false>(s, mx, p, bias, bb, r0, kc, t); break;
+          default: score_step<2, true>(s, mx, p, bias, bb, r0, kc, t);
+        }
+
+        // the online softmax: the new row max, then the old sums rescaled
+        float ml[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+          const float alpha = exp2_approx((m[h] - mx[h]) * LOG2E);
+          m[h] = mx[h];
+          ml[h] = mx[h] * LOG2E;
+          l[h] *= alpha;
+#pragma unroll
+          for (int i = 0; i < ND; ++i) {
+            o[i][2 * h] *= alpha;
+            o[i][2 * h + 1] *= alpha;
+          }
+        }
+        const uint32_t ckey = (uint32_t)(kc + 2 * t) * 0x85EBCA77u;
+        if (p.rate > 0.f)
+          softmax_step<true>(s, l, ml, rkey, ckey, p);
+        else
+          softmax_step<false>(s, l, ml, rkey, ckey, p);
+
+        // O += P V, P rounded to T from the accumulators
+#pragma unroll
+        for (int jj = 0; jj < KC / M::KS; ++jj) {
+          A a;
+          M::a_acc(a, s, jj);
+#pragma unroll
+          for (int n = 0; n < DMAX; n += 16) {
+            B b[2];
+            M::b_krow_acc(b, vb, LD, c0 + jj * M::KS, n, lane);
+            M::mma(o[n / 8], a, b[0]);
+            M::mma(o[n / 8 + 1], a, b[1]);
+          }
+        }
+      }
+
+      if (kt == nkt - 1) {
+        // O / l and lse = m + log l (0 and zeros for a row with no
+        // unmasked key), O through the warp's own rows of the item's Q
+        // buffer (read by no other warp, and by this one only at the
+        // item's first step), then whole rows of out
+        float inv[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+          l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+          inv[h] = l[h] == 0.f ? 1.f : 1.f / l[h];
+          const int r = r0 + 8 * h;
+          if (t == 0 && r < p.Lq)
+            lse[hq + r] = l[h] == 0.f ? 0.f : m[h] + logf(l[h]);
+        }
+        if (live) {
+          T* stg = qb + 16 * warp * LD;
+#pragma unroll
+          for (int i = 0; i < ND; ++i)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              M::store2(stg + (g + 8 * h) * LD + 8 * i + 2 * t,
+                        o[i][2 * h] * inv[h], o[i][2 * h + 1] * inv[h]);
+          __syncwarp();
+          store_rows<T, DMAX, LD>(out + (hq + wr0) * D, stg,
+                                  min(16, p.Lq - wr0), D, lane, vec);
+        }
+      }
+      __syncthreads();  // every warp is done with this stage (and Q buffer)
+      issue();          // the step two ahead, into this stage
+    }
+  }
+  if (p.Lk == 0) {  // no keys: every row is zeros with lse 0
+    for (int w = blockIdx.x; w < n_items; w += gridDim.x) {
+      const int bh = w / nqt, wr0 = (w % nqt) * BQ + 16 * warp;
+      for (int i = lane; i < 16 * D; i += 32)
+        if (wr0 + i / D < p.Lq)
+          out[((size_t)bh * p.Lq + wr0) * D + i] = from_f<T>(0.f);
+      if (lane < 16 && wr0 + lane < p.Lq)
+        lse[(size_t)bh * p.Lq + wr0 + lane] = 0.f;
     }
   }
 }
@@ -767,25 +974,82 @@ cudaError_t allow_smem(K kernel, size_t bytes, bool& done) {
   return e;
 }
 
-template <typename T, int NC>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v,
-                       const void* bias, const void* seed, void* out,
-                       void* lse, int BH, const Params& p,
-                       cudaStream_t stream) {
-  static bool attr = false;
-  cudaError_t e = allow_smem(flash_fwd_kernel<T, NC>, fwd_smem(MAX_D), attr);
-  if (e != cudaSuccess) return e;
-  dim3 grid(BH, (p.Lq + BQ - 1) / BQ);
-  flash_fwd_kernel<T, NC><<<grid, THREADS, fwd_smem(p.D), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(bias),
-      static_cast<const int*>(seed), static_cast<T*>(out),
-      static_cast<float*>(lse), p);
-  return cudaGetLastError();
-}
-
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+struct FwdArgs {
+  const void *q, *k, *v, *bias, *seed;
+  void *out, *lse;
+  int BH, grid, vec;
+};
+
+// the card's SM count, read once per device
+int sm_count() {
+  static int counts[64] = {0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) return 132;
+  if (counts[dev] == 0)
+    cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev);
+  return counts[dev] > 0 ? counts[dev] : 132;
+}
+
+// grid <= 0: one block for each that fits on the card at once (the
+// kernel's occupancy times the SMs), at most one an item
+template <typename T, int DMAX, int BQ, int BK>
+cudaError_t launch_fwd(const FwdArgs& a, const Params& p,
+                       cudaStream_t stream) {
+  using F = Fwd<T, DMAX, BQ, BK>;
+  if constexpr (!F::FITS) {
+    return cudaErrorInvalidValue;  // the tiles exceed a block's shared memory
+  } else {
+    static bool attr = false;
+    static int per_sm = 0;
+    cudaError_t e = allow_smem(flash_fwd_kernel<T, DMAX, BQ, BK>, F::SMEM,
+                               attr);
+    if (e != cudaSuccess) return e;
+    if (per_sm == 0) {
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, flash_fwd_kernel<T, DMAX, BQ, BK>, F::THREADS, F::SMEM);
+      if (e != cudaSuccess) return e;
+      per_sm = per_sm > 0 ? per_sm : 1;
+    }
+    const int nqt = (p.Lq + BQ - 1) / BQ;
+    const long items = (long)a.BH * nqt;
+    if (items > 0x7fffffff) return cudaErrorInvalidValue;
+    long grid = a.grid > 0 ? a.grid : (long)per_sm * sm_count();
+    grid = grid < items ? grid : items;
+    flash_fwd_kernel<T, DMAX, BQ, BK>
+        <<<(unsigned)grid, F::THREADS, F::SMEM, stream>>>(
+            static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+            static_cast<const T*>(a.v), static_cast<const float*>(a.bias),
+            static_cast<const int*>(a.seed), static_cast<T*>(a.out),
+            static_cast<float*>(a.lse), p, nqt, (int)items, a.vec);
+    return cudaGetLastError();
+  }
+}
+
+// heads over 64 wide take 64-row items (`_fwd_plan`)
+template <typename T, int DMAX>
+cudaError_t launch_fwd_q(const FwdArgs& a, const Params& p, int bq, int bk,
+                         cudaStream_t s) {
+  if (bq == 64)
+    return bk == 64 ? launch_fwd<T, DMAX, 64, 64>(a, p, s)
+                    : launch_fwd<T, DMAX, 64, 128>(a, p, s);
+  if constexpr (DMAX > 64) {
+    return cudaErrorInvalidValue;
+  } else {
+    return bk == 64 ? launch_fwd<T, DMAX, 128, 64>(a, p, s)
+                    : launch_fwd<T, DMAX, 128, 128>(a, p, s);
+  }
+}
+
+template <typename T>
+cudaError_t launch_fwd_d(const FwdArgs& a, const Params& p, int bq, int bk,
+                         cudaStream_t s) {
+  return p.D <= 64 ? launch_fwd_q<T, 64>(a, p, bq, bk, s)
+                   : launch_fwd_q<T, 128>(a, p, bq, bk, s);
 }
 
 struct BwdArgs {
@@ -839,29 +1103,42 @@ cudaError_t launch_bwd_d(const BwdArgs& a, const Params& p, int bk,
 // q (BH, Lq, D), k/v (BH, Lk, D), out (BH, Lq, D) in one type (f32, or bf16
 // when is_bf16); lse (BH, Lq) f32; bias f32 (Bb, 1|Lq, Lk) or null
 // (bias_mode 0); seed a device int32 (read only when rate > 0).  All
-// contiguous; the caller checks shapes (D <= 128).  Returns the launch's
-// cudaError_t (0 = launched).
+// contiguous; the caller checks shapes (D <= 128).  bq (64 or 128) is the
+// query rows a work item, bk (64 or 128) the keys a stage of the K/V ring
+// (heads over 64 wide take bq = 64, f32 ones also bk = 64); `grid`
+// persistent blocks walk the B * H * ceil(Lq / bq) items (<= 0: as many
+// as fit on the card at once).  Launches on `stream`;
+// returns the launch's cudaError_t (0 = launched).
 extern "C" int mxt_flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* bias,
     const void* seed, void* out, void* lse, int BH, int H, int Lq, int Lk,
     int D, float scale, int causal, int bias_mode, int bias_per_head,
-    float rate, float inv_keep, unsigned thresh, int is_bf16, void* stream) {
+    float rate, float inv_keep, unsigned thresh, int is_bf16, int bq, int bk,
+    int grid, void* stream) {
   cudaGetLastError();  // clear any stale error of this runtime
-  if (D > MAX_D || D < 1) return (int)cudaErrorInvalidValue;
+  if (D > MAX_D || D < 1 || (bq != 64 && bq != 128) ||
+      (bk != 64 && bk != 128))
+    return (int)cudaErrorInvalidValue;
   if (BH == 0 || Lq == 0) return 0;
   const Params p = make_params(H, Lq, Lk, D, scale, causal, bias_mode,
                                bias_per_head, rate, inv_keep, thresh);
+  FwdArgs a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.bias = bias;
+  a.seed = seed;
+  a.out = out;
+  a.lse = lse;
+  a.BH = BH;
+  a.grid = grid;
+  // 16-byte loads and stores need rows of whole 16-byte chunks on aligned
+  // pointers
+  a.vec = aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out) &&
+          (D * (is_bf16 ? 2 : 4)) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return (int)(D <= 64 ? launch_fwd<__nv_bfloat16, 4>(q, k, v, bias, seed,
-                                                         out, lse, BH, p, s)
-                         : launch_fwd<__nv_bfloat16, 8>(q, k, v, bias, seed,
-                                                         out, lse, BH, p, s));
-  return (int)(D <= 64
-                   ? launch_fwd<float, 4>(q, k, v, bias, seed, out, lse, BH,
-                                          p, s)
-                   : launch_fwd<float, 8>(q, k, v, bias, seed, out, lse, BH,
-                                          p, s));
+  return (int)(is_bf16 ? launch_fwd_d<__nv_bfloat16>(a, p, bq, bk, s)
+                       : launch_fwd_d<float>(a, p, bq, bk, s));
 }
 
 // The backward of the call above: dout, o in the input type, lse from the

@@ -18,10 +18,12 @@ Registered so far: ``fused_optimizer`` (the chunk kernel's elements per
 block, `ops.fused_optimizer`), ``moe_dispatch`` (kernel against the
 plain scatter, `ops.moe_dispatch`; nothing on the path consults it, as in
 JAX), ``quantized_matmul`` (K2's variant and split-K factor,
-`ops.quantized_matmul`) and ``paged_attention`` (the KV pool's page size,
+`ops.quantized_matmul`), ``paged_attention`` (the KV pool's page size,
 `ops.paged_attention`, which `serve.ServeConfig` takes when
-``MXTPU_SERVE_PAGE_SIZE`` is unset).  The telemetry counters and the tracing
-attribution of JAX's ``tune()`` wait for the operations-plane slice
+``MXTPU_SERVE_PAGE_SIZE`` is unset) and ``flash_attention`` (the flash
+forward's block_q and block_k, `ops.flash_attention.resolve_blocks`).  The
+telemetry counters and the tracing attribution of JAX's ``tune()`` wait
+for the operations-plane slice
 (ROADMAP.md A14).
 """
 from __future__ import annotations
@@ -107,8 +109,8 @@ def tunables() -> List[str]:
 
 def _ensure_builtin() -> None:
     """Import the kernel modules that register tunables."""
-    from . import (fused_optimizer, moe_dispatch,  # noqa: F401
-                   paged_attention, quantized_matmul)
+    from . import (flash_attention, fused_optimizer,  # noqa: F401
+                   moe_dispatch, paged_attention, quantized_matmul)
 
 
 # ---------------------------------------------------------------------------

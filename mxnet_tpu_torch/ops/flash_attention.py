@@ -6,14 +6,19 @@ probabilities for the backward — it saves the f32 logsumexp per row and
 recomputes.  `flash_attention` is a `torch.autograd.Function`:
 
 - on a CUDA tensor it launches the hand-written kernels of
-  ``csrc/flash_attention.cu`` (forward; backward: a di row pass, then one
-  tensor-core pass per key tile for dQ, dK and dV, laid out by
-  `_bwd_plan`), or raises
-  `MXNetError` on what they do not take (sliding windows and grouped K/V
-  heads are still to port, see ROADMAP.md);
+  ``csrc/flash_attention.cu`` (forward: one tensor-core pass per q tile,
+  its tiles from `resolve_blocks` through `_fwd_plan`; backward: a di row
+  pass, then one tensor-core pass per key tile for dQ, dK and dV, laid out
+  by `_bwd_plan`), or raises `MXNetError` on what they do not take (sliding
+  windows and grouped K/V heads are still to port, see ROADMAP.md);
 - on a CPU tensor it runs `flash_fwd_reference` / `flash_bwd_reference`:
   the same arithmetic in plain torch, which the CPU tests hold against the
-  JAX package.
+  JAX package; the block sizes change nothing there.
+
+The forward's block sizes follow JAX's `resolve_blocks`: explicit
+``block_q`` / ``block_k``, then ``MXTPU_FLASH_BLOCK_Q`` / ``_K``, then the
+autotuner's ``flash_attention`` config for the shape, then the card's
+default plan.  The tunable is registered here, as in JAX.
 
 `flash_attention_reference` runs those plain versions under the same
 autograd on any device, by name: the oracle a run on the card is held
@@ -31,16 +36,18 @@ from __future__ import annotations
 
 import ctypes
 import math
+import os
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from ..base import MXNetError
 from .. import kernels as _kernels
+from . import autotune
 
 __all__ = ["flash_attention", "flash_attention_reference",
            "flash_fwd_reference", "flash_bwd_reference", "normalize_bias",
-           "keep_mask", "MASK_VALUE"]
+           "keep_mask", "resolve_blocks", "MASK_VALUE"]
 
 MASK_VALUE = -1e30
 _M32 = 0xFFFFFFFF
@@ -227,6 +234,130 @@ def flash_bwd_reference(q, k, v, bias3, seed, o, lse, g, scale=None,
 # the CUDA kernels (csrc/flash_attention.cu)
 # ---------------------------------------------------------------------------
 
+# the forward's tiles (csrc/flash_attention.cu `flash_fwd_kernel`): query
+# rows a work item (a block of 4 or 8 warps of 16 rows) and keys a stage of
+# the K/V ring
+FWD_TILES = (64, 128)
+SMEM_BLOCK = 232448     # the shared memory an H100 block may use (227 KB)
+
+
+def _fwd_smem(dtype, dmax: int, bq: int, bk: int) -> int:
+    """Shared memory of one forward block: two Q tiles (an item's and the
+    next one's) and a two-stage ring of K and V tiles, rows padded by 16
+    bytes (bf16) or 4 floats (f32)."""
+    item, pad = (2, 8) if "16" in str(dtype) else (4, 4)
+    return item * (2 * bq + 4 * bk) * (dmax + pad)
+
+
+class FwdPlan(NamedTuple):
+    """One forward launch: the tiles and where they came from."""
+    bq: int              # query rows a work item (a block of bq / 16 warps)
+    bk: int              # keys a stage of the K/V ring
+    dmax: int            # D padded to 64 or 128
+    smem: int            # bytes of shared memory a block
+    items: int           # work items, B * H * ceil(Lq / bq)
+    grid: int            # persistent blocks; 0: as many as fit on the card
+                         # at once (the kernel's occupancy times the SMs)
+    source: str          # "explicit", "env", "tuned" or "default" (q/k
+                         # joined by "/" when they differ)
+
+
+def _fwd_plan(B: int, H: int, Lq: int, Lk: int, D: int, dtype,
+              block_q: int, block_k: int, source: str = "explicit"
+              ) -> FwdPlan:
+    """The forward's launch for the blocks `resolve_blocks` gave, plain
+    Python.  A block size snaps to the card's tiles (128 from 128 up, else
+    64), as JAX fits its blocks to the sequence.  Heads over 64 wide take
+    64-row items (their warps need over 128 registers, so an SM holds one
+    block of 8 warps or two of 4: the smaller items balance better), and
+    where the tiles exceed a block's shared memory (f32 heads over 64 wide
+    at 128 keys) the key tile halves."""
+    dmax = 64 if D <= 64 else 128
+    bq = 128 if int(block_q) >= 128 and dmax == 64 else 64
+    bk = 128 if int(block_k) >= 128 else 64
+    if _fwd_smem(dtype, dmax, bq, bk) > SMEM_BLOCK:
+        bk = 64
+    return FwdPlan(bq, bk, dmax, _fwd_smem(dtype, dmax, bq, bk),
+                   B * H * -(-Lq // bq), 0, source)
+
+
+# the card's plan where nothing else chooses: 64-row items with 64-key
+# stages, the smallest tiles, so the most blocks an SM (three in bf16) --
+# the fastest of the four in both dtypes and all five masks of
+# `chip_smoke.py` phase 6 at BERT's shape on an H100 (PERF.md)
+DEFAULT_BLOCKS = (64, 64)
+
+
+def _env_int(name, default):
+    try:
+        return int(os.environ.get(name, default))
+    except ValueError:
+        return default
+
+
+def _resolve(b, h, lq, lk, d, dtype, block_q, block_k):
+    """`resolve_blocks` with each block's source."""
+    cfg = None
+    if block_q is None or block_k is None:
+        if "MXTPU_FLASH_BLOCK_Q" not in os.environ or \
+                "MXTPU_FLASH_BLOCK_K" not in os.environ:
+            cfg = autotune.cached_config("flash_attention", (b, h, lq, lk, d),
+                                         autotune.dtype_name(dtype))
+
+    def pick(given, env, field, default):
+        if given is not None:
+            return int(given), "explicit"
+        if env in os.environ:
+            return _env_int(env, default), "env"
+        if cfg is not None and field in cfg:
+            return int(cfg[field]), "tuned"
+        return default, "default"
+    return (pick(block_q, "MXTPU_FLASH_BLOCK_Q", "block_q",
+                 DEFAULT_BLOCKS[0]),
+            pick(block_k, "MXTPU_FLASH_BLOCK_K", "block_k",
+                 DEFAULT_BLOCKS[1]))
+
+
+def resolve_blocks(b, h, lq, lk, d, dtype, block_q=None, block_k=None):
+    """Pick (block_q, block_k) for one call, in JAX's order
+    (``mxnet_tpu/ops/pallas/flash_attention.py`` `resolve_blocks`):
+    explicit arguments win, then an explicitly set
+    ``MXTPU_FLASH_BLOCK_Q`` / ``_K``, then the autotuner's kept config for
+    the shape bucket (`tune("flash_attention", (b, h, lq, lk, d), dtype)`),
+    then the card's default plan (`DEFAULT_BLOCKS`, where JAX has 256).
+    Pure lookup."""
+    (bq, _), (bk, _) = _resolve(b, h, lq, lk, d, dtype, block_q, block_k)
+    return bq, bk
+
+
+# plans already made, keyed by shape, dtype, device, the blocks asked for
+# and the env overrides, valid for the autotuner generation in
+# `_fwd_memo_gen`
+_fwd_memo: Dict[Any, FwdPlan] = {}
+_fwd_memo_gen = None
+
+
+def _planned_fwd(B, H, Lq, Lk, D, dtype, device, block_q=None,
+                 block_k=None) -> FwdPlan:
+    """`_fwd_plan` for the blocks `resolve_blocks` picks, looked up once
+    per key and `autotune.generation()`, not at each of a step's calls."""
+    global _fwd_memo_gen
+    gen = autotune.generation()
+    if gen != _fwd_memo_gen:
+        _fwd_memo.clear()
+        _fwd_memo_gen = gen
+    key = (B, H, Lq, Lk, D, dtype, device, block_q, block_k,
+           os.environ.get("MXTPU_FLASH_BLOCK_Q"),
+           os.environ.get("MXTPU_FLASH_BLOCK_K"))
+    plan = _fwd_memo.get(key)
+    if plan is None:
+        (bq, sq), (bk, sk) = _resolve(B, H, Lq, Lk, D, dtype, block_q,
+                                      block_k)
+        plan = _fwd_memo[key] = _fwd_plan(
+            B, H, Lq, Lk, D, dtype, bq, bk, sq if sq == sk else f"{sq}/{sk}")
+    return plan
+
+
 # the backward's tiles (csrc/flash_attention.cu `flash_bwd_kernel`)
 BWD_KEY_TILES = (64, 128)   # keys a block holds: 4 or 8 warps of 16 keys
 
@@ -294,7 +425,7 @@ def _kernel_fn(direction):
                     f"mxt_flash_attention_{direction}")
         if direction == "fwd":
             f.argtypes = [_P] * 7 + [_I] * 5 + [_F, _I, _I, _I, _F, _F, _U,
-                                                _I, _P]
+                                                _I, _I, _I, _I, _P]
         else:
             f.argtypes = [_P] * 14 + [_I] * 5 + [_F, _I, _I, _I, _F, _F,
                                                  _U, _I, _I, _I, _P]
@@ -352,23 +483,27 @@ def _ptr(t):
 
 
 def _flash_fwd_cuda(q, k, v, bias3, seed, scale, causal, rate, per_head,
-                    per_row):
+                    per_row, plan: Optional[FwdPlan] = None):
     """Check the operands, then launch the forward kernel on the current
-    stream; returns (out, lse (B * H, Lq) f32)."""
+    stream with `plan` (default: `_planned_fwd` for the shape); returns
+    (out, lse (B * H, Lq) f32)."""
     _check(q, k, v, bias3, seed, rate, per_row)
-    B, H, lq, _ = q.shape
+    B, H, lq, D = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((B * H, lq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse.zero_()
+    if plan is None:
+        plan = _planned_fwd(B, H, lq, k.shape[2], D, q.dtype, q.device)
     err = _kernel_fn("fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias3),
         _ptr(seed) if rate > 0 else None, out.data_ptr(), lse.data_ptr(),
         *_common_args(q, k, bias3, scale, causal, rate, per_head, per_row),
+        plan.bq, plan.bk, plan.grid,
         torch._C._cuda_getCurrentRawStream(q.device.index))
     if err:
         raise MXNetError(f"flash_attention forward kernel launch failed "
-                         f"(cudaError_t {err})")
+                         f"(cudaError_t {err}, {plan})")
     _kernels.LAUNCHES["flash_attention_fwd"] += 1
     return out, lse
 
@@ -426,11 +561,14 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, bias3, seed, scale, causal, rate, per_head,
-                per_row, window, window_symmetric, lq, use_kernel):
+                per_row, window, window_symmetric, lq, use_kernel, blocks):
         if use_kernel:
             q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+            B, H, Lq, D = q.shape
+            plan = _planned_fwd(B, H, Lq, k.shape[2], D, q.dtype, q.device,
+                                *blocks)
             o, lse = _flash_fwd_cuda(q, k, v, bias3, seed, scale, causal,
-                                     rate, per_head, per_row)
+                                     rate, per_head, per_row, plan)
         else:
             o, lse = flash_fwd_reference(q, k, v, bias3, seed, scale, causal,
                                          rate, per_head, per_row, window,
@@ -456,13 +594,19 @@ class _FlashAttention(torch.autograd.Function):
                                              window_symmetric, lq)
         # the bias is a constant (masks): zero cotangent, as in JAX
         dbias = torch.zeros_like(bias3) if ctx.needs_input_grad[3] else None
-        return (dq, dk, dv, dbias) + (None,) * 10
+        return (dq, dk, dv, dbias) + (None,) * 11
 
 
-def flash_attention(q, k, v, causal=False, scale=None, bias=None,
-                    dropout_rate=0.0, dropout_seed=None, window=None,
-                    window_symmetric=True):
+def flash_attention(q, k, v, causal=False, scale=None, block_q=None,
+                    block_k=None, bias=None, dropout_rate=0.0,
+                    dropout_seed=None, window=None, window_symmetric=True):
     """Flash attention over (B, H, L, D) tensors -> (B, H, Lq, D).
+
+    `block_q` / `block_k` pick the forward kernel's tiles on the card (see
+    `resolve_blocks`: then ``MXTPU_FLASH_BLOCK_Q`` / ``_K``, the tuned
+    config, the card's plan); sizes snap to its 64 / 128 tiles
+    (`_fwd_plan`).  The backward plans its own tiles (`_bwd_plan`), and the
+    plain version ignores both.
 
     `bias` is an additive f32 logits bias (MASK_VALUE for hard masking) of
     a shape `normalize_bias` accepts; it gets a zero gradient.
@@ -477,21 +621,23 @@ def flash_attention(q, k, v, causal=False, scale=None, bias=None,
     K/V, which they do not take yet; a CPU tensor runs the plain
     versions."""
     return _attend(q, k, v, causal, scale, bias, dropout_rate, dropout_seed,
-                   window, window_symmetric, q.device.type == "cuda")
+                   window, window_symmetric, q.device.type == "cuda",
+                   (block_q, block_k))
 
 
-def flash_attention_reference(q, k, v, causal=False, scale=None, bias=None,
+def flash_attention_reference(q, k, v, causal=False, scale=None,
+                              block_q=None, block_k=None, bias=None,
                               dropout_rate=0.0, dropout_seed=None,
                               window=None, window_symmetric=True):
     """`flash_attention` on the plain versions, on any device: the same
     arithmetic, the same dropout masks and the same autograd, with no
-    kernel launched."""
+    kernel launched (the block sizes change nothing)."""
     return _attend(q, k, v, causal, scale, bias, dropout_rate, dropout_seed,
-                   window, window_symmetric, False)
+                   window, window_symmetric, False, (block_q, block_k))
 
 
 def _attend(q, k, v, causal, scale, bias, dropout_rate, dropout_seed, window,
-            window_symmetric, use_kernel):
+            window_symmetric, use_kernel, blocks):
     d = q.shape[-1]
     s = scale if scale is not None else 1.0 / math.sqrt(d)
     b, h, lq = q.shape[0], q.shape[1], q.shape[2]
@@ -530,12 +676,86 @@ def _attend(q, k, v, causal, scale, bias, dropout_rate, dropout_seed, window,
     if g == h:
         return _FlashAttention.apply(q, k, v, bias3, seed, s, bool(causal),
                                      rate, per_head, per_row, win,
-                                     bool(window_symmetric), lq, use_kernel)
+                                     bool(window_symmetric), lq, use_kernel,
+                                     blocks)
     rep = h // g
     # fold the query heads of a group onto the row axis: (b, h, lq, d) ->
     # (b, g, rep * lq, d); row r of a group is (head r // lq, pos r % lq)
     qf = q.reshape(b, g, rep * lq, d)
     out = _FlashAttention.apply(qf, k, v, bias3, seed, s, bool(causal), rate,
                                 per_head, per_row, win,
-                                bool(window_symmetric), lq, use_kernel)
+                                bool(window_symmetric), lq, use_kernel,
+                                blocks)
     return out.reshape(b, h, lq, d)
+
+
+# ---------------------------------------------------------------------------
+# autotune registration: the forward's tiles, as in the JAX package —
+# `tune("flash_attention", (b, h, lq, lk, d), dtype)` times the forward at
+# each candidate (block_q, block_k) and `resolve_blocks` picks the kept one
+# up
+# ---------------------------------------------------------------------------
+
+def _at_shapes(shapes):
+    return (list(shapes) + [1, 1, 256, 256, 64])[:5]
+
+
+def _at_candidates(shapes, dtype):
+    """The card's menu, block_q and block_k each 64 or 128, pruned by JAX's
+    rule on Lq and Lk (a block neither dividing L nor within it), by a
+    block's shared memory and, for heads over 64 wide, to 64 rows (see
+    `_fwd_plan`)."""
+    _, _, lq, lk, d = _at_shapes(shapes)
+    dmax = 64 if d <= 64 else 128
+    out = []
+    for bq in FWD_TILES:
+        if (lq % bq and bq > lq) or (bq > 64 and dmax > 64):
+            continue
+        for bk in FWD_TILES:
+            if lk % bk and bk > lk:
+                continue
+            if _fwd_smem(dtype, dmax, bq, bk) > SMEM_BLOCK:
+                continue
+            out.append(autotune.BlockConfig(block_q=bq, block_k=bk))
+    return out or [autotune.BlockConfig(block_q=64, block_k=64)]
+
+
+def _at_roofline(config, shapes, dtype):
+    """JAX's count (`mxnet_tpu/ops/pallas/flash_attention.py`
+    `_at_roofline`): K and V stream once per q block."""
+    b, h, lq, lk, d = _at_shapes(shapes)
+    itemsize = 2 if "16" in str(dtype) else 4
+    bq, bk = config.block_q, config.block_k
+    n_q = max(1, lq // max(1, bq))
+    return {"flops": 4.0 * b * h * lq * lk * d,
+            "bytes": b * h * itemsize * (2.0 * lq * d
+                                         + n_q * 2.0 * lk * d),
+            "steps": float(b * h * n_q * max(1, lk // max(1, bk)))}
+
+
+def _at_inputs(shapes, dtype, device):
+    """Seeded q, k and v of the shape, as the JAX package's `_at_build`
+    makes them."""
+    import numpy as np
+    b, h, lq, lk, d = _at_shapes(shapes)
+    rng = np.random.RandomState(0)
+    dt = torch.bfloat16 if "16" in str(dtype) else torch.float32
+    return tuple(torch.from_numpy(rng.randn(b, h, n, d).astype(np.float32))
+                 .to(device, dt) for n in (lq, lk, lk))
+
+
+def _at_build(config, shapes, dtype):
+    """The trial launch: the causal `flash_attention` forward at the
+    candidate's blocks — the CUDA kernel on the card (it counts in
+    `kernels.LAUNCHES`), the plain version on the CPU.  Returns the
+    thunk."""
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if torch.cuda.is_available() else torch.device("cpu")
+    q, k, v = _at_inputs(shapes, dtype, dev)
+    return lambda: flash_attention(q, k, v, causal=True,
+                                   block_q=config.block_q,
+                                   block_k=config.block_k)
+
+
+autotune.register_tunable("flash_attention", _at_candidates, _at_build,
+                          _at_roofline)

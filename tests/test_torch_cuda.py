@@ -4,8 +4,11 @@ one page a split, pages 8, 24 and 128, D 64 and 128, empty slots,
 windows, two streams, two calls bit-equal), the dequant-matmul (every plan of its menu, odd
 shapes, the tied head, two calls bit-equal), flash attention (forward and
 backward, with padding or per-row bias, causal, dropout, ragged L and
-D up to 128; the backward at both key tiles, two calls and two streams
-bit-equal, masked rows and keys exactly zero), the streaming
+D up to 128; the forward at every (block_q, block_k) of its tuner's menu,
+unaligned operands, two calls and two streams bit-equal, masked rows
+exactly zero with lse 0, and its tunable's trials; the backward at both
+key tiles, two calls and two streams bit-equal, masked rows and keys
+exactly zero), the streaming
 cross-entropy (any V, unclamped labels), the fused LayerNorm/RMSNorm (any
 h, with and without residual and beta) and the optimizer kernels (the
 multi-tensor chunk for Adam, AdamW and SGD, LAMB phases A and B; f32 and
@@ -446,6 +449,196 @@ def test_flash_backward_masked_rows_and_keys_get_zeros(card, dtype, bk):
     assert not bool(dq[:, :, 5:9].any())
     assert not bool(dk[:, :, 100:].any()) and not bool(dv[:, :, 100:].any())
     assert bool(dq[:, :, 9:].any()) and bool(dk[:, :, :100].any())
+
+
+# the forward at every plan of the tuner's menu: B, H, Lq, Lk, D and the
+# mask (the five of `chip_smoke.py` phase 6), ragged Lq != Lk, D 32-128
+FWD_PLANS = [(64, 64), (64, 128), (128, 64), (128, 128)]
+FWD_CASES = [(2, 3, 128, 128, 64, "none"), (2, 3, 128, 128, 64, "pad"),
+             (2, 3, 100, 77, 32, "row"), (2, 3, 77, 77, 96, "causal"),
+             (2, 3, 130, 200, 128, "pad_dropout"),
+             (1, 2, 200, 65, 64, "causal"), (2, 2, 33, 300, 96, "pad_dropout"),
+             (1, 2, 257, 129, 128, "row")]
+
+
+def _fwd_args(card, dtype, B, H, Lq, Lk, D, mask, seed=8, offset=0):
+    """Seeded operands of one forward call: q, k, v, bias3, seed and the
+    flags.  ``offset`` elements shift q, k and v off 16-byte alignment (each
+    a contiguous view into a larger buffer)."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator().manual_seed(seed)
+
+    def operand(*shape):
+        n = int(np.prod(shape))
+        buf = torch.randn(n + offset, generator=g).to(card, dtype)
+        return buf[offset:].view(*shape)
+    q, k, v = operand(B, H, Lq, D), operand(B, H, Lk, D), operand(B, H, Lk, D)
+    bias = None
+    if mask in ("pad", "pad_dropout"):
+        vl = torch.randint(1, Lk + 1, (B,), generator=g)
+        bias = torch.where(torch.arange(Lk)[None] < vl[:, None], 0.0,
+                           fa.MASK_VALUE).to(card)
+    elif mask == "row":
+        bias = torch.randn(B, Lq, Lk, generator=g)
+        bias[0, :3] = fa.MASK_VALUE                 # fully masked rows
+        bias = bias.to(card)
+    bias3, per_head, per_row = (None, False, False) if bias is None \
+        else fa.normalize_bias(bias, B, H, Lq, Lk)
+    sd = torch.tensor([4242], dtype=torch.int32, device=card)
+    rate = 0.1 if mask == "pad_dropout" else 0.0
+    return (q, k, v, bias3, sd, D ** -0.5, mask == "causal", rate, per_head,
+            per_row)
+
+
+def _close(got, want, tol):
+    err = float((got.float() - want.float()).abs().max())
+    return err <= tol * max(float(want.float().abs().max()), 1e-30)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("bq,bk", FWD_PLANS)
+@pytest.mark.parametrize("B,H,Lq,Lk,D,mask", FWD_CASES)
+def test_flash_forward_every_plan_matches_plain(card, dtype, tol, bq, bk, B,
+                                                H, Lq, Lk, D, mask):
+    """Each (block_q, block_k) against the plain version, output and lse,
+    two calls bit-equal, and three persistent blocks walking every item
+    give the same bits (heads over 64 wide take 64 rows, f32 ones 64
+    keys)."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    args = _fwd_args(card, dtype, B, H, Lq, Lk, D, mask)
+    plan = fa._fwd_plan(B, H, Lq, Lk, D, dtype, bq, bk)
+    want_bk = 64 if dtype == torch.float32 and D > 64 else bk
+    assert (plan.bq, plan.bk) == ((64 if D > 64 else bq), want_bk)
+    assert plan.smem <= fa.SMEM_BLOCK
+    kernels.reset_launch_counts()
+    o, lse = fa._flash_fwd_cuda(*args, plan=plan)
+    o2, lse2 = fa._flash_fwd_cuda(*args, plan=plan)
+    o3, lse3 = fa._flash_fwd_cuda(*args, plan=plan._replace(grid=3))
+    want_o, want_lse = fa.flash_fwd_reference(*args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention_fwd"] == 3
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert torch.equal(o, o3) and torch.equal(lse, lse3)
+    assert _close(o, want_o, tol), "out"
+    assert _close(lse, want_lse, tol), "lse"
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("offset,D", [(1, 64), (0, 33), (3, 40)])
+def test_flash_forward_unaligned_operands(card, dtype, tol, offset, D):
+    """Operands off 16-byte alignment, or rows that are not whole 16-byte
+    chunks, take the kernel's scalar loads and stores: the same results."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    args = _fwd_args(card, dtype, 2, 3, 90, 130, D, "pad_dropout",
+                     offset=offset)
+    assert offset == 0 or args[0].data_ptr() % 16
+    for bq, bk in FWD_PLANS:
+        plan = fa._fwd_plan(2, 3, 90, 130, D, dtype, bq, bk)
+        o, lse = fa._flash_fwd_cuda(*args, plan=plan)
+        want_o, want_lse = fa.flash_fwd_reference(*args)
+        torch.cuda.synchronize()
+        assert _close(o, want_o, tol) and _close(lse, want_lse, tol), plan
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bq,bk", FWD_PLANS)
+def test_flash_forward_masked_rows_give_zeros_and_zero_lse(card, dtype, bq,
+                                                           bk):
+    """A query row whose keys are all masked writes exactly zeros and
+    lse = 0; its neighbours do not."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    B, H, L, D = 2, 2, 140, 64
+    g = torch.Generator().manual_seed(6)
+    q, k, v = (torch.randn(B, H, L, D, generator=g).to(card, dtype)
+               for _ in range(3))
+    bias = torch.randn(B, L, L, generator=g)
+    bias[:, 5:9] = fa.MASK_VALUE             # rows 5-8: every key masked
+    bias[1, 70:] = fa.MASK_VALUE             # rows 70-139 of batch 1 too
+    bias3, per_head, per_row = fa.normalize_bias(bias.to(card), B, H, L, L)
+    plan = fa._fwd_plan(B, H, L, L, D, dtype, bq, bk)
+    o, lse = fa._flash_fwd_cuda(q, k, v, bias3, None, D ** -0.5, False, 0.0,
+                                per_head, per_row, plan=plan)
+    torch.cuda.synchronize()
+    lse = lse.reshape(B, H, L)
+    assert not bool(o[:, :, 5:9].any()) and not bool(o[1, :, 70:].any())
+    assert not bool(lse[:, :, 5:9].any()) and not bool(lse[1, :, 70:].any())
+    assert bool(o[:, :, 9:70].all(dim=-1).any()) and bool(lse[0, :, 9:].all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_forward_on_two_streams(card, dtype):
+    """Forward calls on two streams at once give, each, the bits of the same
+    call made alone."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    calls = [_fwd_args(card, dtype, 2, 3, 150, 260, 64, "pad_dropout",
+                       seed=s) for s in (4, 5)]
+    wants = [fa._flash_fwd_cuda(*a) for a in calls]
+    streams = [torch.cuda.Stream(card) for _ in calls]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(10):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(fa._flash_fwd_cuda(*calls[i]))
+    torch.cuda.synchronize()
+    for want, got in zip(wants, outs):
+        for o, lse in got:
+            assert torch.equal(o, want[0]) and torch.equal(lse, want[1])
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("mask", ["pad_dropout", "causal", "row"])
+def test_flash_backward_on_the_new_forward_matches_plain(card, dtype, tol,
+                                                         mask):
+    """The backward run on the kernel forward's (o, lse) against the plain
+    backward on the plain forward's."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    B, H, L, D = 2, 3, 128, 64
+    args = _fwd_args(card, dtype, B, H, L, L, D, mask, seed=9)
+    q, k, v, bias3, sd, *flags = args
+    do = torch.randn(B, H, L, D, generator=torch.Generator().manual_seed(1)
+                     ).to(card, dtype)
+    o, lse = fa._flash_fwd_cuda(*args)
+    got = fa._flash_bwd_cuda(q, k, v, bias3, sd, o, lse, do, *flags)
+    o_ref, lse_ref = fa.flash_fwd_reference(*args)
+    want = fa.flash_bwd_reference(q, k, v, bias3, sd, o_ref, lse_ref, do,
+                                  *flags)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert _close(a, b, tol), name
+
+
+def test_flash_tune_launches_the_forward_and_warm_hits(card, tmp_path,
+                                                       monkeypatch):
+    """A cold ``tune("flash_attention", ...)`` times every candidate through
+    the CUDA forward; a warm one runs no trial; the next call's plan is the
+    tuned one."""
+    from mxnet_tpu_torch.ops import autotune as at
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    monkeypatch.setenv("MXTPU_AUTOTUNE_CACHE", str(tmp_path))
+    monkeypatch.delenv("MXTPU_FLASH_BLOCK_Q", raising=False)
+    monkeypatch.delenv("MXTPU_FLASH_BLOCK_K", raising=False)
+    shape = (2, 3, 128, 128, 64)
+    at.clear_memory_cache()
+    try:
+        cands = fa._at_candidates(shape, "bfloat16")
+        assert len(cands) == 4
+        kernels.reset_launch_counts()
+        cold = at.tune("flash_attention", shape, "bfloat16",
+                       top_k=len(cands))
+        trials = kernels.launch_counts()["flash_attention_fwd"]
+        warm = at.tune("flash_attention", shape, "bfloat16")
+        assert cold.trials == 4 and trials == 6 * cold.trials
+        assert warm.cache_hit and warm.trials == 0
+        assert kernels.launch_counts()["flash_attention_fwd"] == trials
+        plan = fa._planned_fwd(*shape, torch.bfloat16, card)
+        assert (plan.bq, plan.bk, plan.source) == (
+            cold.config.block_q, cold.config.block_k, "tuned")
+    finally:
+        at.clear_memory_cache()
 
 
 def test_flash_attention_kernel_raises_on_what_it_does_not_take(card):

@@ -354,3 +354,191 @@ def test_bwd_plan_override_and_bad_tile():
     assert (p.key_tiles, p.tickets, p.workspace) == (1, 0, 0)
     with pytest.raises(MXNetError, match="key tile"):
         tfa._bwd_plan(2, 3, 100, 100, 64, torch.float32, 132, bk=32)
+
+
+# ---------------------------------------------------------------------------
+# the forward's block sizes: JAX's `resolve_blocks`, the plan, the tunable
+# ---------------------------------------------------------------------------
+
+from mxnet_tpu.ops.pallas import autotune as jat          # noqa: E402
+from mxnet_tpu_torch.ops import autotune as tat           # noqa: E402
+
+BERT = (64, 12, 128, 128, 64)
+GPT2 = (8, 12, 1024, 1024, 64)
+
+
+@pytest.fixture
+def tuner(monkeypatch, tmp_path):
+    """One autotune cache directory for both packages (their keys agree on
+    the CPU: op, shape bucket, dtype, device kind "cpu"), no block
+    overrides, and both memory caches cleared before and after."""
+    monkeypatch.setenv("MXTPU_AUTOTUNE_CACHE", str(tmp_path))
+    for name in ("MXTPU_FLASH_BLOCK_Q", "MXTPU_FLASH_BLOCK_K",
+                 "MXTPU_AUTOTUNE"):
+        monkeypatch.delenv(name, raising=False)
+    jat.clear_memory_cache()
+    tat.clear_memory_cache()
+    yield tmp_path
+    jat.clear_memory_cache()
+    tat.clear_memory_cache()
+
+
+def _keep_config(path, shapes, dtype, **config):
+    """Write a tuned flash config as both packages persist it."""
+    import json
+    key = jat._key("flash_attention", shapes, dtype, "cpu")
+    assert key == tat._key("flash_attention", shapes, dtype, "cpu")
+    with open(path / "autotune_flash_attention.json", "w") as f:
+        json.dump({key: {"config": config}}, f)
+
+
+# (explicit arguments, env, tuned config): each decided before the default
+RESOLVE_CASES = {
+    "explicit": (dict(block_q=128, block_k=64), {}, None),
+    "explicit_beats_env": (dict(block_q=64, block_k=128),
+                           dict(Q="128", K="64"), None),
+    "explicit_beats_tuned": (dict(block_q=64, block_k=64), {},
+                             dict(block_q=128, block_k=128)),
+    "env": ({}, dict(Q="64", K="128"), None),
+    "env_beats_tuned": ({}, dict(Q="128", K="64"),
+                        dict(block_q=64, block_k=128)),
+    "env_q_tuned_k": ({}, dict(Q="128"), dict(block_q=64, block_k=64)),
+    "explicit_q_env_k": (dict(block_q=64), dict(K="128"), None),
+    "explicit_k_tuned_q": (dict(block_k=64), {},
+                           dict(block_q=128, block_k=128)),
+    "tuned": ({}, {}, dict(block_q=64, block_k=128)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(RESOLVE_CASES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_resolve_blocks_matches_jax(tuner, monkeypatch, case, dtype):
+    args, env, tuned = RESOLVE_CASES[case]
+    for k, v in env.items():
+        monkeypatch.setenv(f"MXTPU_FLASH_BLOCK_{k}", v)
+    if tuned is not None:
+        _keep_config(tuner, BERT, dtype, **tuned)
+    want = jfa.resolve_blocks(*BERT, jnp.zeros((), dtype).dtype, **args)
+    got = tfa.resolve_blocks(*BERT, getattr(torch, dtype), **args)
+    assert got == want
+    sources = [s for _, s in tfa._resolve(*BERT, getattr(torch, dtype),
+                                          args.get("block_q"),
+                                          args.get("block_k"))]
+    assert all(s in ("explicit", "env", "tuned") for s in sources)
+
+
+def test_resolve_blocks_defaults_are_the_cards_plan(tuner, monkeypatch):
+    """Where nothing chooses, JAX falls back to 256 and the port to its own
+    plan (`DEFAULT_BLOCKS`); so does an env value that is not a number,
+    and ``MXTPU_AUTOTUNE=0`` hides a tuned config from both."""
+    dt = jnp.zeros((), "float32").dtype
+    assert tfa.DEFAULT_BLOCKS == (64, 64)
+    assert jfa.resolve_blocks(*BERT, dt) == (256, 256)
+    assert tfa.resolve_blocks(*BERT, torch.float32) == (64, 64)
+    assert tfa.resolve_blocks(*GPT2, torch.bfloat16) == (64, 64)
+    monkeypatch.setenv("MXTPU_FLASH_BLOCK_Q", "many")
+    monkeypatch.setenv("MXTPU_FLASH_BLOCK_K", "128")
+    assert jfa.resolve_blocks(*BERT, dt) == (256, 128)
+    assert tfa.resolve_blocks(*BERT, torch.float32) == (64, 128)
+    monkeypatch.delenv("MXTPU_FLASH_BLOCK_Q")
+    monkeypatch.delenv("MXTPU_FLASH_BLOCK_K")
+    _keep_config(tuner, BERT, "float32", block_q=128, block_k=128)
+    jat.clear_memory_cache()        # both remember the miss above
+    tat.clear_memory_cache()
+    monkeypatch.setenv("MXTPU_AUTOTUNE", "0")
+    assert jfa.resolve_blocks(*BERT, dt) == (256, 256)
+    assert tfa.resolve_blocks(*BERT, torch.float32) == (64, 64)
+    monkeypatch.delenv("MXTPU_AUTOTUNE")
+    assert jfa.resolve_blocks(*BERT, dt) == (128, 128)
+    assert tfa.resolve_blocks(*BERT, torch.float32) == (128, 128)
+
+
+def test_fwd_plan_snaps_and_fits_shared_memory():
+    # BERT-base: 768 heads of one 128-row tile, 8 warps a block
+    p = tfa._fwd_plan(*BERT, torch.bfloat16, 128, 128, "default")
+    assert (p.bq, p.bk, p.dmax, p.items) == (128, 128, 64, 768)
+    assert p.smem == 2 * (2 * 128 + 4 * 128) * 72 and p.source == "default"
+    assert p.grid == 0          # the card's occupancy decides
+    # JAX's block sizes snap to the card's tiles
+    assert tfa._fwd_plan(*BERT, torch.float32, 256, 512)[:2] == (128, 128)
+    assert tfa._fwd_plan(*BERT, torch.float32, 8, 16)[:2] == (64, 64)
+    # ragged rows round up; D over 64 pads to 128 and takes 64-row items
+    p = tfa._fwd_plan(2, 3, 200, 77, 80, torch.bfloat16, 128, 128)
+    assert (p.bq, p.bk, p.dmax, p.items) == (64, 128, 128, 6 * 4)
+    # f32 128-wide heads: only 64 x 64 tiles fit a block's 227 KB
+    for bq in (64, 128):
+        for bk in (64, 128):
+            p = tfa._fwd_plan(2, 3, 256, 256, 128, torch.float32, bq, bk)
+            assert (p.bq, p.bk) == (64, 64) and p.smem <= tfa.SMEM_BLOCK
+    assert tfa._fwd_smem(torch.float32, 128, 64, 128) > tfa.SMEM_BLOCK
+    assert tfa._fwd_smem(torch.float32, 64, 128, 128) <= tfa.SMEM_BLOCK
+
+
+@pytest.mark.parametrize("shapes,dtype,want", [
+    (BERT, "bfloat16", [(64, 64), (64, 128), (128, 64), (128, 128)]),
+    (BERT, "float32", [(64, 64), (64, 128), (128, 64), (128, 128)]),
+    (GPT2, "bfloat16", [(64, 64), (64, 128), (128, 64), (128, 128)]),
+    ((2, 2, 100, 100, 64), "float32", [(64, 64)]),
+    ((2, 2, 100, 300, 64), "float32", [(64, 64), (64, 128)]),
+    ((2, 2, 40, 40, 32), "bfloat16", [(64, 64)]),
+    ((8, 12, 1024, 1024, 128), "float32", [(64, 64)]),
+    ((8, 12, 1024, 1024, 128), "bfloat16", [(64, 64), (64, 128)]),
+])
+def test_flash_tunable_candidates(shapes, dtype, want):
+    """The card's menu pruned by JAX's rule on Lq and Lk, by a block's
+    shared memory (f32 128-wide heads keep 64 x 64 alone) and to 64 rows
+    for heads over 64 wide; a shape no block fits keeps (64, 64)."""
+    got = [(c.block_q, c.block_k) for c in tfa._at_candidates(shapes, dtype)]
+    assert got == want
+
+
+@pytest.mark.parametrize("shapes", [BERT, GPT2, (2, 2, 100, 300, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_tunable_roofline_is_jaxs(shapes, dtype):
+    for c in tfa._at_candidates(shapes, dtype):
+        cfg = jat.BlockConfig(block_q=c.block_q, block_k=c.block_k)
+        assert tfa._at_roofline(c, shapes, dtype) == \
+            jfa._at_roofline(cfg, shapes, dtype)
+
+
+def test_flash_tunable_build_matches_jax_and_tunes_on_cpu(tuner,
+                                                          monkeypatch):
+    """The trial launch runs the causal forward on JAX's seeded inputs (the
+    plain version on the CPU, JAX's kernel in interpret mode); a cold
+    search keeps a config that `resolve_blocks` then returns, and a warm
+    one runs no trial."""
+    monkeypatch.setenv("MXTPU_PALLAS_INTERPRET", "1")
+    shapes = (1, 2, 64, 64, 16)
+    cfg = tat.BlockConfig(block_q=64, block_k=64)
+    got = tfa._at_build(cfg, shapes, "float32")()
+    want = jfa._at_build(jat.BlockConfig(block_q=64, block_k=64), shapes,
+                         "float32")()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    cold = tat.tune("flash_attention", shapes, "float32", warmup=0, runs=1)
+    assert not cold.cache_hit and cold.trials == 1
+    warm = tat.tune("flash_attention", shapes, "float32")
+    assert warm.cache_hit and warm.trials == 0
+    assert tfa.resolve_blocks(*shapes, torch.float32) == (64, 64)
+
+
+@pytest.mark.parametrize("block_q,block_k", [(8, 16), (16, 8), (16, 16)])
+def test_flash_blocks_argument_matches_jax(interpret, block_q, block_k):
+    """`flash_attention(..., block_q=, block_k=)` on the CPU against the JAX
+    kernel at the same blocks (interpret mode): the plain version ignores
+    them, JAX tiles by them, the results agree."""
+    rng, q, k, v, g = _inputs(11)
+    bias = _bias(_padding_mask(rng, q.shape[0], k.shape[2]))
+    want_fn = lambda q_, k_, v_: jfa.flash_attention(      # noqa: E731
+        q_, k_, v_, causal=True, block_q=block_q, block_k=block_k,
+        bias=jnp.asarray(bias))
+    out, vjp = jax.vjp(want_fn, jnp.asarray(q), jnp.asarray(k),
+                       jnp.asarray(v))
+    want = [np.asarray(out)] + [np.asarray(x) for x in vjp(jnp.asarray(g))]
+    got = _torch(q, k, v, g, causal=True, block_q=block_q, block_k=block_k,
+                 bias=torch.from_numpy(bias))
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a, b, err_msg=name, **TOL)
+    ref = tfa.flash_attention_reference(
+        *(torch.from_numpy(a) for a in (q, k, v)), causal=True,
+        block_q=block_q, block_k=block_k, bias=torch.from_numpy(bias))
+    np.testing.assert_allclose(ref.numpy(), want[0], **TOL)
