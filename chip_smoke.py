@@ -51,13 +51,16 @@ widths (hidden 768, FFN 3072, 8 experts) through `TrainStep` and the gluon
 8. (k5) the fused LayerNorm / RMSNorm row kernel, with and without a
    residual, against its plain version in f32 and bf16 (f32 gamma and
    beta, as BERT keeps them) at (8192, 768) and (1280, 768) — the step's
-   norms — and (37, 200), within 1e-4 / 2e-2 of the output scale; timed
-   against ``F.layer_norm`` / ``F.rms_norm`` with the parameters cast to
-   x's dtype;
+   norms — and (37, 200), within 1e-4 / 2e-2 of the output scale, two
+   calls bit-equal, each case's launch plan and its source recorded;
+   timed (also device-only, and the host µs a call) against
+   ``F.layer_norm`` / ``F.rms_norm`` with the parameters cast to x's
+   dtype, and at (8192, 768) LayerNorm at every block_rows of JAX's menu;
 9. (k6) the optimizer kernels over BERT-base's real parameter list (159
    tensors, 133.6 M elements; f32 model: one dtype group, bf16 model: bf16
    weights and f32 LayerNorm parameters) — the multi-tensor chunk for Adam,
-   AdamW and SGD with momentum, LAMB phases A and B — against the per-leaf
+   AdamW and SGD with momentum, LAMB phase A (once per dtype group) and
+   phase B (once per tensor) — against the per-leaf
    plain version, ``kernel_plain`` (each state within 1e-5 of its scale;
    each weight within its rounding plus 1e-5 of its update's scale, and at
    most 1e-4 of the bf16 weights' elements off the plain value), with
@@ -73,7 +76,8 @@ widths (hidden 768, FFN 3072, 8 experts) through `TrainStep` and the gluon
    (``MXTPU_PALLAS=auto``): bf16 and f32 weights with Adam lr 1e-4 and
    with LAMB lr 1e-3 — every LayerNorm through the fused norm (26 launches
    a step), the optimizer through the chunk kernel (once per dtype group a
-   step) or LAMB's phases (once per tensor each) — and slice 2's
+   step) or LAMB's phases (A once per dtype group, B once per tensor) —
+   and slice 2's
    ``MXTPU_PALLAS=reference`` bf16 Adam step (no norm or optimizer
    launch).  The flash kernels launch 12 times a step each way and the
    cross-entropy kernels once.  Each run's loss trajectory equals that of
@@ -113,7 +117,11 @@ widths (hidden 768, FFN 3072, 8 experts) through `TrainStep` and the gluon
    (``tune("flash_attention", (64, 12, 128, 128, 64), "bfloat16")``: the
    trials launch the CUDA forward, every candidate (block_q, block_k)
    within 2e-2 of the plain version's scale, a warm call a hit with 0
-   trials, the next call's plan on the tuned blocks);
+   trials, the next call's plan on the tuned blocks), and for the fused
+   norm's rows a block (``tune("fused_norm", (8192, 768), "bfloat16")``
+   over JAX's whole block_rows menu: the trials launch the CUDA kernel,
+   every candidate within 2e-2 of the plain version's scale, a warm call
+   a hit with 0 trials, the next call's plan on the tuned block_rows);
 13. (moe) ``MoEFeedForward(768, 3072, num_experts=8, capacity_factor=1.25)``
    trained 20 steps on a seeded (64, 128, 768) batch, loss MSE + 0.01 aux,
    Adam lr 1e-4, through ``TrainStep`` and through ``gluon.Trainer``
@@ -830,7 +838,13 @@ NORM_VARIANTS = (("ln", False, False), ("rms", True, False),
 def k5_cases(dev):
     """The fused norm at the BERT step's shapes (64 x 128 tokens and the
     1280 masked rows of the MLM head, hidden 768) and a ragged one; f32
-    gamma and beta, as BERT's LayerNorms keep them."""
+    gamma and beta, as BERT's LayerNorms keep them.  Each case: its plan
+    and the plan's source, two calls bit-equal, the time with the L2
+    flushed, the device-only time and the host µs a call (the library call
+    device-only too); at (8192, 768) LayerNorm the time at each of JAX's
+    block_rows candidates (what set the card's default); and plain
+    copies of the same bytes under the same timer (``copy_ms``), whose L2
+    flush leaves dirty lines that a small call pays to write back."""
     import torch
     import torch.nn.functional as tF
     from mxnet_tpu_torch.ops import fused_norm as fn
@@ -851,25 +865,51 @@ def k5_cases(dev):
                 eps = 1e-6 if rms else 1e-12
                 a = (x, rr, gamma, bb, eps, rms)
                 got = fn._norm_cuda(*a)
+                again = fn._norm_cuda(*a)
                 want = fn.norm_plain(*a)
                 torch.cuda.synchronize()
                 pairs = list(zip(got, want)) if res else [(got, want)]
                 errs = [_scale_err(u, v) for u, v in pairs]
+                bits = all(torch.equal(u, v) for u, v in (
+                    zip(got, again) if res else [(got, again)]))
+                plan = fn._planned(rows, h, dt, gamma.dtype, x.device,
+                                   fn._aligned(x, rr))
                 case = dict(dtype=dtype, rows=rows, h=h, case=name,
+                            plan=plan._asdict(),
                             max_abs_err=max(e for e, _ in errs),
                             errors=[{"err": e, "scale": sc}
                                     for e, sc in errs],
-                            ok=all(e <= TOL[dtype] * sc for e, sc in errs))
-                case["ms"] = time_ms(lambda: fn._norm_cuda(*a))
+                            bit_equal=bits,
+                            ok=bits and all(e <= TOL[dtype] * sc
+                                            for e, sc in errs))
+
+                def kern():
+                    fn._norm_cuda(*a)
+                case["ms"] = time_ms(kern)
+                case["device_ms"] = time_ms(kern, device_only=True)
+                case["host_us"] = host_us(kern)
                 case["plain_ms"] = time_ms(lambda: fn.norm_plain(*a))
-                if res:       # no one library call adds and normalises
-                    case["library_ms"] = None
-                elif rms:
-                    case["library_ms"] = time_ms(lambda: tF.rms_norm(
-                        x, (h,), g16, eps))
-                else:
-                    case["library_ms"] = time_ms(lambda: tF.layer_norm(
-                        x, (h,), g16, b16, eps))
+                # the floor of the card under this timer for the call's
+                # bytes: plain copies of x (and the residual) into fresh
+                # outputs
+                ys = [torch.empty_like(x) for _ in range(1 + res)]
+                case["copy_ms"] = time_ms(lambda: [
+                    yy.copy_(src) for yy, src in zip(ys, (x, r))])
+                lib = None
+                if rms and not res:
+                    def lib():
+                        tF.rms_norm(x, (h,), g16, eps)
+                elif not res:  # no one library call adds and normalises
+                    def lib():
+                        tF.layer_norm(x, (h,), g16, b16, eps)
+                case["library_ms"] = None if lib is None else time_ms(lib)
+                case["library_device_ms"] = None if lib is None else \
+                    time_ms(lib, device_only=True)
+                if rows == 8192 and name == "ln":
+                    case["block_rows_ms"] = {
+                        c.block_rows: time_ms(lambda: fn._norm_cuda(
+                            *a, block_rows=c.block_rows))
+                        for c in fn._candidates((rows, h), dtype)}
                 item = x.element_size()
                 nbytes = rows * h * item * (2 + 2 * res) + \
                     h * 4 * (1 + (not rms))
@@ -1062,7 +1102,9 @@ def k6_cases(dev):
             controls = _opt_controls(kp, ks, want_p, want_s, params, states)
             ok = ok and all(controls.values())
             n_groups = len({p.dtype for p in params.values()})
-            want_l = ({"lamb_phase_a": len(params),
+            # LAMB: phase A once per (weight, state) dtype group, B once
+            # per tensor
+            want_l = ({"lamb_phase_a": n_groups,
                        "lamb_phase_b": len(params)} if rule == "lamb"
                       else {"fused_optimizer_chunk": n_groups})
             ok = ok and all(launches[k] == v for k, v in want_l.items())
@@ -1083,6 +1125,17 @@ def k6_cases(dev):
                         max_abs_err=err, bf16_weight_mismatch_share=share,
                         controls_caught=controls,
                         skip_bit_identical=skip_ok, ok=ok and skip_ok)
+            if rule == "lamb":
+                # phase A's plan: one launch a group over its leaf table,
+                # persistent blocks (occupancy x SMs, at most one an entry)
+                groups = fo._groups(sorted(kp), kp, ks)
+                case["phase_a_plan"] = [dict(
+                    weight_dtype=str(kp[gr[0]].dtype)[6:], tensors=len(gr),
+                    chunk=fo.LAMB_CHUNK,
+                    block_entries=int(fo._lamb_layout(
+                        [kp[n].numel() for n in gr]).codes.size),
+                    sm_count=kernels.sm_count(dev)) for gr in groups]
+                case["phase_a_launches"] = launches["lamb_phase_a"]
 
             def kernel_call():
                 fo.apply_updates(opt, kp, grads, ks, hp, use_kernel=True)
@@ -1271,15 +1324,16 @@ TRAIN_RUNS = (("bfloat16", "Adam", "auto"), ("float32", "Adam", "auto"),
 
 def want_launches(opt, route, n_tensors, n_groups, layers):
     """Exact launches over `TRAIN_STEPS` steps: 26 norms a step (embed,
-    2 per layer, the MLM head) and the optimizer on the kernel route only;
-    flash and cross-entropy on both."""
+    2 per layer, the MLM head) and the optimizer on the kernel route only
+    (the chunk or LAMB's phase A once per dtype group, phase B once per
+    tensor); flash and cross-entropy on both."""
     kr = route != "reference"
     lamb = kr and opt == "LAMB"
     per_step = {"flash_attention_fwd": layers, "flash_attention_bwd": layers,
                 "softmax_xent_fwd": 1, "softmax_xent_bwd": 1,
                 "fused_norm": 2 * layers + 2 if kr else 0,
                 "fused_optimizer_chunk": n_groups if kr and not lamb else 0,
-                "lamb_phase_a": n_tensors if lamb else 0,
+                "lamb_phase_a": n_groups if lamb else 0,
                 "lamb_phase_b": n_tensors if lamb else 0}
     return {k: v * TRAIN_STEPS for k, v in per_step.items()}
 
@@ -1528,6 +1582,11 @@ def run_tune(dev, results, card):
             print(f"[tune flash_fwd_bf16] {json.dumps(st)}", flush=True)
             if not st["ok"]:
                 raise AssertionError(f"tune flash_fwd_bf16: {st}")
+            results["tune"]["norm_bf16"] = st = norm_tune_case(at, kernels,
+                                                               torch)
+            print(f"[tune norm_bf16] {json.dumps(st)}", flush=True)
+            if not st["ok"]:
+                raise AssertionError(f"tune norm_bf16: {st}")
         finally:
             at.clear_memory_cache()
             if old is None:
@@ -1695,6 +1754,56 @@ def flash_tune_case(at, kernels, torch):
                 and all(e <= tol for e in errs.values())
                 and (plan.bq, plan.bk, plan.source)
                 == (cold.config.block_q, cold.config.block_k, "tuned"))
+    return st
+
+
+NORM_TUNE = (8192, 768)       # the BERT step's LayerNorm rows, hidden 768
+
+
+def norm_tune_case(at, kernels, torch):
+    """Cold and warm ``tune("fused_norm", (8192, 768), "bfloat16")`` over
+    JAX's block_rows menu: the trials launch the CUDA kernel, every
+    candidate's LayerNorm (the trial's call) is within 2e-2 of the plain
+    version's scale, a warm call is a hit with 0 trials, and the next
+    call's plan takes the tuned block_rows ("tuned")."""
+    from mxnet_tpu_torch.ops import fused_norm as fn
+    dev = torch.device("cuda", 0)
+    cands = fn._candidates(NORM_TUNE, "bfloat16")
+    kernels.reset_launch_counts()
+    cold = at.tune("fused_norm", NORM_TUNE, "bfloat16", top_k=len(cands))
+    trial_launches = kernels.launch_counts()["fused_norm"]
+    warm = at.tune("fused_norm", NORM_TUNE, "bfloat16", top_k=len(cands))
+    warm_launches = kernels.launch_counts()["fused_norm"] - trial_launches
+    x, g, b = fn._at_inputs(NORM_TUNE, "bfloat16", dev)
+    ref = fn.norm_plain(x, None, g, b, 1e-5, False)
+    tol = TOL["bfloat16"] * float(ref.float().abs().max())
+    errs = {}
+    for c in cands:
+        got = fn._norm_cuda(x, None, g, b, 1e-5, False,
+                            block_rows=c.block_rows)
+        torch.cuda.synchronize()
+        errs[c.block_rows] = float((got.float() - ref.float()).abs().max())
+    kernels.reset_launch_counts()
+    fn.fused_layer_norm(x, g, b, use_kernel=True)
+    torch.cuda.synchronize()
+    next_launches = kernels.launch_counts()["fused_norm"]
+    plan = fn._planned(*NORM_TUNE, x.dtype, g.dtype, dev, fn._aligned(x))
+    per_trial = 1 + 5          # time_callable's warmup and runs
+    st = dict(shape=list(NORM_TUNE), candidates=len(cands),
+              config=dict(cold.config), cold_trials=cold.trials,
+              cold_search_ms=cold.search_ms, trial_launches=trial_launches,
+              timings_ms={dict(k_)["block_rows"]: v_
+                          for k_, v_ in cold.timings_ms.items()},
+              warm_hit=warm.cache_hit, warm_trials=warm.trials,
+              warm_launches=warm_launches, candidate_errs=errs, tol=tol,
+              next_launches=next_launches, next_plan=plan._asdict())
+    st["ok"] = (cold.trials == len(cands)
+                and trial_launches == per_trial * cold.trials
+                and warm.cache_hit and warm.trials == 0
+                and warm_launches == 0 and next_launches == 1
+                and all(e <= tol for e in errs.values())
+                and (plan.block_rows, plan.source)
+                == (cold.config.block_rows, "tuned"))
     return st
 
 
@@ -2036,6 +2145,17 @@ def kernel_entries(results):
                bf16_device_ms=rep3b["device_ms"],
                bf16_library_ms=rep3b["library_ms"],
                bf16_bound_ms=rep3b["bound_ms"])
+    norm = entry("fused_norm", "mxnet_tpu_torch/csrc/fused_norm.cu",
+                 "mxnet_tpu/ops/pallas/fused_norm.py:164",
+                 train_launches("fused_norm"), k5, rep5)
+    # the norm's device-only time, host µs a call and plan beside it
+    norm.update(device_ms=rep5["device_ms"], host_us=rep5["host_us"],
+                library_device_ms=rep5["library_device_ms"],
+                plan=rep5["plan"])
+    lamb_a = entry("lamb_phase_a", fo_src, f"{fo_py}:307",
+                   train_launches("lamb_phase_a"), lamb, rep8,
+                   ms="phase_a_ms")
+    lamb_a.update(plan=rep8["phase_a_plan"])
     return [
         entry("ragged_paged_attention",
               "mxnet_tpu_torch/csrc/paged_attention.cu",
@@ -2052,14 +2172,10 @@ def kernel_entries(results):
               train_launches("softmax_xent_fwd"), k4, rep4),
         entry("softmax_xent_bwd", sx_src, f"{sx_py}:127",
               train_launches("softmax_xent_bwd"), k4, rep4, "bwd_"),
-        entry("fused_norm", "mxnet_tpu_torch/csrc/fused_norm.cu",
-              "mxnet_tpu/ops/pallas/fused_norm.py:164",
-              train_launches("fused_norm"), k5, rep5),
+        norm,
         entry("fused_optimizer_chunk", fo_src, f"{fo_py}:220",
               train_launches("fused_optimizer_chunk"), chunk, rep7),
-        entry("lamb_phase_a", fo_src, f"{fo_py}:307",
-              train_launches("lamb_phase_a"), lamb, rep8,
-              ms="phase_a_ms"),
+        lamb_a,
         entry("lamb_phase_b", fo_src, f"{fo_py}:333",
               train_launches("lamb_phase_b"), lamb, rep8,
               ms="phase_b_ms"),

@@ -1,5 +1,6 @@
 // Fused optimizer updates for Hopper (sm_90a): the multi-tensor chunk
-// kernel and LAMB's two per-tensor phases, CUDA C++ with plain C entries.
+// kernel, LAMB's multi-tensor phase A and its per-tensor phase B, CUDA C++
+// with plain C entries.
 //
 // Replaces the Pallas TPU kernels of mxnet_tpu/ops/pallas/fused_optimizer.py:
 //   chunk    `_elementwise_chunk_kernel` (:159), launched by
@@ -43,10 +44,21 @@
 // chunk without the packing — one launch per dtype group over a device
 // table of per-leaf pointers and sizes, and a block map that gives each
 // block one CHUNK-element range of one leaf, so no torch.cat copy exists.
-// Each thread issues the loads of ILP elements before it computes.  LAMB's
-// norms are reduced without float atomics: an integer ticket picks the last
-// block of phase A, which sums the per-block partials in index order (the
-// result does not depend on which block finished last).
+// Each thread issues the loads of ILP elements before it computes.
+//
+// LAMB phase A is one launch per dtype group too (159 tensors of BERT-base
+// in one or two launches, where a launch per tensor paid a launch and a
+// last-block reduction for each 768-element LayerNorm vector): the same
+// leaf table, each leaf entry also carrying its offset into the group's r
+// scratch and its first partial slot, and the same (leaf, chunk) block map,
+// walked by persistent blocks (as many as fit on the card).  A thread moves
+// 8 elements a step with 16-byte loads of w, g, m and v (two steps' loads
+// in flight) where the leaf's pointers are 16-byte aligned, one element at
+// a time otherwise (and for a leaf's ragged tail).  Each chunk writes its
+// partial sums of w^2 and r^2 to its slot; a per-leaf integer ticket picks
+// the leaf's last chunk to finish, whose block sums the leaf's partials in
+// chunk order and writes the leaf's trust ratio — no float atomics, so the
+// ratio does not depend on which block finished last.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -72,6 +84,42 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
 // x rounded to S and widened back (identity for f32)
 template <typename S> __device__ __forceinline__ float rnd(float x) {
   return to_f(from_f<S>(x));
+}
+
+// 8 consecutive elements of T as raw bits, loaded and stored as 16-byte
+// vectors (two for f32)
+template <typename T> struct Bits;
+template <> struct Bits<float> {
+  using R = unsigned;
+  static __device__ __forceinline__ float f(R r) { return __uint_as_float(r); }
+  static __device__ __forceinline__ R r(float x) { return __float_as_uint(x); }
+};
+template <> struct Bits<__nv_bfloat16> {
+  using R = unsigned short;
+  static __device__ __forceinline__ float f(R r) {
+    return __uint_as_float((unsigned)r << 16);
+  }
+  static __device__ __forceinline__ R r(float x) {
+    return __bfloat16_as_ushort(__float2bfloat16(x));
+  }
+};
+template <typename T> union Pack8 {
+  uint4 q[sizeof(T) / 2];
+  typename Bits<T>::R r[8];
+};
+template <typename T>
+__device__ __forceinline__ Pack8<T> load8(const T* p) {
+  Pack8<T> v;
+#pragma unroll
+  for (int i = 0; i < (int)(sizeof(T) / 2); ++i)
+    v.q[i] = reinterpret_cast<const uint4*>(p)[i];
+  return v;
+}
+template <typename T>
+__device__ __forceinline__ void store8(T* p, const Pack8<T>& v) {
+#pragma unroll
+  for (int i = 0; i < (int)(sizeof(T) / 2); ++i)
+    reinterpret_cast<uint4*>(p)[i] = v.q[i];
 }
 
 // Device-resident hyperparameters (f32 scalars; clip and skip may be null).
@@ -205,15 +253,48 @@ chunk_kernel(const long long* __restrict__ leaves,
 // LAMB
 // ---------------------------------------------------------------------------
 
+// One LAMB phase-A leaf entry of the table (int64 each).
+struct LambLeaf {
+  long long w, g, m, v;  // pointers
+  long long n;           // elements
+  long long r_off;       // its first element in the group's r scratch
+  long long p_off;       // its first partial slot (one a chunk)
+  long long nch;         // its chunks
+};
+
+// The per-element math of phase A, in the order of the rules: new m and v
+// (the decay rounded to S), the update direction r, and the squares.
+template <typename S>
+__device__ __forceinline__ float lamb_elem(float wf, float gf, float mo,
+                                           float vo, float& nm, float& nv,
+                                           const Consts& c, const HP& p,
+                                           float b1s, float b2s, float bc1,
+                                           float bc2) {
+  gf = pre(gf, p);
+  nm = rnd<S>(b1s * mo) + c.omb1 * gf;
+  nv = rnd<S>(b2s * vo) + c.omb2 * gf * gf;
+  const float mhat = c.flag ? nm / bc1 : nm;
+  const float vhat = c.flag ? nv / bc2 : nv;
+  return mhat / (sqrtf(vhat) + c.eps) + p.wd * wf;
+}
+
+constexpr int LAMB_U = 2;  // 8-element steps a thread keeps in flight
+
+// table = n_leaves LambLeaf entries, then n_blocks (leaf << 32 | chunk)
+// codes; persistent blocks walk the codes.  r: the group's f32 scratch;
+// part: 2 floats a partial slot; tickets: one zeroed uint32 a leaf (left
+// zeroed); ratio: one f32 a leaf.
 template <typename W, typename S>
 __global__ void __launch_bounds__(THREADS)
-lamb_a_kernel(const W* __restrict__ w, const W* __restrict__ g,
-              S* __restrict__ m, S* __restrict__ v, float* __restrict__ r,
-              float* __restrict__ part, unsigned int* counter,
-              float* __restrict__ ratio, long long n, Consts c, float lower,
-              float upper, int has_lower, int has_upper, Hyper hy) {
+lamb_a_kernel(const long long* __restrict__ table, int n_leaves,
+              int n_blocks, int chunk, float* __restrict__ r,
+              float* __restrict__ part, unsigned int* tickets,
+              float* __restrict__ ratio, Consts c, float lower, float upper,
+              int has_lower, int has_upper, Hyper hy) {
   __shared__ float red[32];
   __shared__ bool last;
+  const LambLeaf* leaves = reinterpret_cast<const LambLeaf*>(table);
+  const long long* codes = table + 8LL * n_leaves;
   const HP p = read_hp(hy);
   float bc1 = 1.f, bc2 = 1.f;
   if (c.flag) {
@@ -222,51 +303,120 @@ lamb_a_kernel(const W* __restrict__ w, const W* __restrict__ g,
     bc2 = 1.f - powf(c.b2, t);
   }
   const float b1s = rnd<S>(c.b1), b2s = rnd<S>(c.b2);
-  float ww = 0.f, rr = 0.f;
-  const long long stride = (long long)gridDim.x * THREADS;
-  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < n;
-       i += stride) {
-    const S mo = m[i], vo = v[i];
-    const float wf = to_f(w[i]);
-    const float gf = pre(to_f(g[i]), p);
-    const float nm = rnd<S>(b1s * to_f(mo)) + c.omb1 * gf;
-    const float nv = rnd<S>(b2s * to_f(vo)) + c.omb2 * gf * gf;
-    const float mhat = c.flag ? nm / bc1 : nm;
-    const float vhat = c.flag ? nv / bc2 : nv;
-    const float ri = mhat / (sqrtf(vhat) + c.eps) + p.wd * wf;
-    r[i] = ri;
-    m[i] = p.skip ? mo : from_f<S>(nm);
-    v[i] = p.skip ? vo : from_f<S>(nv);
-    ww += wf * wf;
-    rr += ri * ri;
+  const int tid = threadIdx.x;
+  for (int e = blockIdx.x; e < n_blocks; e += gridDim.x) {
+    const long long code = codes[e];
+    const int li = (int)(code >> 32);
+    const long long ck = code & 0xffffffffLL;
+    const LambLeaf L = leaves[li];
+    W* __restrict__ w = reinterpret_cast<W*>(L.w);
+    const W* __restrict__ g = reinterpret_cast<const W*>(L.g);
+    S* __restrict__ m = reinterpret_cast<S*>(L.m);
+    S* __restrict__ v = reinterpret_cast<S*>(L.v);
+    float* __restrict__ rr = r + L.r_off;
+    const long long start = ck * chunk;
+    const long long end = min(L.n, start + chunk);
+    float ww = 0.f, rs = 0.f;
+    long long tail = start;
+    if (((L.w | L.g | L.m | L.v) & 15) == 0) {
+      // 16-byte steps of 8 elements over the chunk's whole eighths
+      const long long vend = start + (end - start) / 8 * 8;
+      for (long long i0 = start + 8LL * tid; i0 < vend;
+           i0 += 8LL * THREADS * LAMB_U) {
+        Pack8<W> wv[LAMB_U], gv[LAMB_U];
+        Pack8<S> mv[LAMB_U], vv[LAMB_U];
+#pragma unroll
+        for (int u = 0; u < LAMB_U; ++u) {
+          const long long i = i0 + 8LL * THREADS * u;
+          if (i < vend) {
+            wv[u] = load8(w + i);
+            gv[u] = load8(g + i);
+            mv[u] = load8(m + i);
+            vv[u] = load8(v + i);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < LAMB_U; ++u) {
+          const long long i = i0 + 8LL * THREADS * u;
+          if (i >= vend) continue;
+          Pack8<S> nmv, nvv;
+          float ro[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float wf = Bits<W>::f(wv[u].r[j]);
+            float nm, nv;
+            ro[j] = lamb_elem<S>(wf, Bits<W>::f(gv[u].r[j]),
+                                 Bits<S>::f(mv[u].r[j]),
+                                 Bits<S>::f(vv[u].r[j]), nm, nv, c, p, b1s,
+                                 b2s, bc1, bc2);
+            nmv.r[j] = p.skip ? mv[u].r[j] : Bits<S>::r(nm);
+            nvv.r[j] = p.skip ? vv[u].r[j] : Bits<S>::r(nv);
+            ww += wf * wf;
+            rs += ro[j] * ro[j];
+          }
+          store8(m + i, nmv);
+          store8(v + i, nvv);
+          reinterpret_cast<float4*>(rr + i)[0] =
+              make_float4(ro[0], ro[1], ro[2], ro[3]);
+          reinterpret_cast<float4*>(rr + i)[1] =
+              make_float4(ro[4], ro[5], ro[6], ro[7]);
+        }
+      }
+      tail = vend;
+    }
+    // one element at a time: an unaligned leaf, and a ragged tail
+    for (long long i = tail + tid; i < end; i += THREADS) {
+      const S mo = m[i], vo = v[i];
+      const float wf = to_f(w[i]);
+      float nm, nv;
+      const float ri = lamb_elem<S>(wf, to_f(g[i]), to_f(mo), to_f(vo), nm,
+                                    nv, c, p, b1s, b2s, bc1, bc2);
+      rr[i] = ri;
+      m[i] = p.skip ? mo : from_f<S>(nm);
+      v[i] = p.skip ? vo : from_f<S>(nv);
+      ww += wf * wf;
+      rs += ri * ri;
+    }
+    ww = block_sum(ww, red);
+    rs = block_sum(rs, red);
+    if (tid == 0) {
+      part[2 * (L.p_off + ck)] = ww;
+      part[2 * (L.p_off + ck) + 1] = rs;
+      __threadfence();  // the partials are visible before the ticket
+      last = atomicAdd(tickets + li, 1u) == (unsigned)(L.nch - 1);
+    }
+    __syncthreads();
+    if (!last) continue;
+    // the leaf's last chunk: every partial is written; sum them in chunk
+    // order
+    __threadfence();
+    float a = 0.f, b = 0.f;
+    for (long long j = tid; j < L.nch; j += THREADS) {
+      a += __ldcg(part + 2 * (L.p_off + j));
+      b += __ldcg(part + 2 * (L.p_off + j) + 1);
+    }
+    a = block_sum(a, red);
+    b = block_sum(b, red);
+    if (tid == 0) {
+      float wn = sqrtf(a);
+      const float rn = sqrtf(b);
+      if (has_lower) wn = wn < lower ? lower : wn;
+      if (has_upper) wn = wn > upper ? upper : wn;
+      ratio[li] = (wn > 0.f && rn > 0.f) ? wn / rn : 1.f;
+      tickets[li] = 0u;  // ready for the next launch
+    }
   }
-  ww = block_sum(ww, red);
-  rr = block_sum(rr, red);
-  if (threadIdx.x == 0) {
-    part[blockIdx.x] = ww;
-    part[gridDim.x + blockIdx.x] = rr;
-    __threadfence();  // the partials are visible before the ticket
-    last = atomicAdd(counter, 1u) == gridDim.x - 1;
-  }
-  __syncthreads();
-  if (!last) return;
-  // the last block: every partial is written; sum them in index order
-  __threadfence();
-  float a = 0.f, b = 0.f;
-  for (int j = threadIdx.x; j < (int)gridDim.x; j += THREADS) {
-    a += __ldcg(part + j);
-    b += __ldcg(part + gridDim.x + j);
-  }
-  a = block_sum(a, red);
-  b = block_sum(b, red);
-  if (threadIdx.x == 0) {
-    float wn = sqrtf(a);
-    const float rn = sqrtf(b);
-    if (has_lower) wn = wn < lower ? lower : wn;
-    if (has_upper) wn = wn > upper ? upper : wn;
-    *ratio = (wn > 0.f && rn > 0.f) ? wn / rn : 1.f;
-    *counter = 0u;  // ready for the next tensor
-  }
+}
+
+// the card's SM count, read once per device
+int sm_count() {
+  static int counts[64] = {0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) return 132;
+  if (counts[dev] == 0)
+    cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev);
+  return counts[dev] > 0 ? counts[dev] : 132;
 }
 
 template <typename W>
@@ -327,31 +477,49 @@ extern "C" int mxt_fused_chunk(const void* table, int n_leaves, int n_blocks,
   return (int)cudaGetLastError();
 }
 
-// LAMB phase A over one tensor of n elements: w, g (w_dtype), m, v
-// (s_dtype) updated in place, r (n,) f32, part (2 * n_blocks,) f32 scratch,
-// counter one zeroed uint32 (left zeroed), ratio one f32.
-extern "C" int mxt_lamb_phase_a(const void* w, const void* g, void* m, void* v,
-                                void* r, void* part, void* counter,
-                                void* ratio, long long n, int n_blocks,
-                                int w_dtype, int s_dtype, float b1, float b2,
-                                float eps, float omb1, float omb2,
-                                int bias_correction, float lower, float upper,
-                                int has_lower, int has_upper, const void* lr,
-                                const void* wd, const void* rg, const void* t,
+// LAMB phase A over one dtype group: table = n_leaves x 8 int64 leaf
+// entries {w, g, m, v, n, r offset, first partial slot, chunks}, then
+// n_blocks int64 codes (leaf << 32 | chunk), chunk elements a chunk (a
+// multiple of 8); w, g (w_dtype), m, v (s_dtype) updated in place; r the
+// group's f32 scratch (each leaf's offset a multiple of 4); part 2 floats a
+// slot; tickets one zeroed uint32 a leaf (left zeroed); ratio one f32 a
+// leaf.  As many blocks as fit on the card at once, at most one an entry.
+extern "C" int mxt_lamb_phase_a(const void* table, int n_leaves, int n_blocks,
+                                int chunk, void* r, void* part,
+                                void* tickets, void* ratio, int w_dtype,
+                                int s_dtype, float b1, float b2, float eps,
+                                float omb1, float omb2, int bias_correction,
+                                float lower, float upper, int has_lower,
+                                int has_upper, const void* lr, const void* wd,
+                                const void* rg, const void* t,
                                 const void* clip, const void* skip,
                                 void* stream) {
   cudaGetLastError();
-  if (n <= 0 || n_blocks < 1) return (int)cudaErrorInvalidValue;
+  if (n_blocks == 0) return 0;
+  if (n_leaves < 1 || n_blocks < 0 || chunk < 8 || chunk % 8 != 0 ||
+      (reinterpret_cast<uintptr_t>(r) & 15) != 0)
+    return (int)cudaErrorInvalidValue;
   const Consts c{b1, b2, eps, omb1, omb2, 0.f, bias_correction};
   const Hyper h = hyper(lr, wd, rg, t, clip, skip);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long* tab = static_cast<const long long*>(table);
 #define MXT_LAMB_A(W, S)                                                     \
-  lamb_a_kernel<W, S><<<n_blocks, THREADS, 0, st>>>(                         \
-      static_cast<const W*>(w), static_cast<const W*>(g),                    \
-      static_cast<S*>(m), static_cast<S*>(v), static_cast<float*>(r),        \
-      static_cast<float*>(part), static_cast<unsigned int*>(counter),        \
-      static_cast<float*>(ratio), n, c, lower, upper, has_lower, has_upper,  \
-      h)
+  do {                                                                       \
+    static int per_sm = 0;                                                   \
+    if (per_sm == 0) {                                                       \
+      cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(         \
+          &per_sm, lamb_a_kernel<W, S>, THREADS, 0);                         \
+      if (e != cudaSuccess) return (int)e;                                   \
+      per_sm = per_sm > 0 ? per_sm : 1;                                      \
+    }                                                                        \
+    long long gr = (long long)per_sm * sm_count();                           \
+    gr = gr < n_blocks ? gr : n_blocks;                                      \
+    lamb_a_kernel<W, S><<<(unsigned)gr, THREADS, 0, st>>>(                   \
+        tab, n_leaves, n_blocks, chunk, static_cast<float*>(r),              \
+        static_cast<float*>(part), static_cast<unsigned int*>(tickets),      \
+        static_cast<float*>(ratio), c, lower, upper, has_lower, has_upper,   \
+        h);                                                                  \
+  } while (0)
   if (w_dtype == 0 && s_dtype == 0) MXT_LAMB_A(float, float);
   else if (w_dtype == 1 && s_dtype == 0) MXT_LAMB_A(__nv_bfloat16, float);
   else if (w_dtype == 1 && s_dtype == 1)

@@ -6,8 +6,9 @@ The user's loop is the reference's: forward, ``loss.backward()``, then
 whole-tree `ops.fused_optimizer.apply_updates` call (`_fused_update`): on
 the kernel route (`kernel_route`, ``MXTPU_PALLAS``; the default on the
 card) the multi-tensor CUDA kernels update weights and state in place —
-one chunk launch per dtype group for Adam, AdamW and SGD, LAMB's two
-phases per tensor — and on the reference route the per-leaf rule runs and
+one chunk launch per dtype group for Adam, AdamW and SGD, for LAMB one
+phase-A launch per dtype group and one phase-B launch per tensor — and on
+the reference route the per-leaf rule runs and
 its results are copied in.  The hyperparameters live on the device,
 uploaded again only when lr, wd, rescale_grad or clip_gradient change; the
 step count ``t`` is filled each step.

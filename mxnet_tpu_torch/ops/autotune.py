@@ -20,8 +20,10 @@ plain scatter, `ops.moe_dispatch`; nothing on the path consults it, as in
 JAX), ``quantized_matmul`` (K2's variant and split-K factor,
 `ops.quantized_matmul`), ``paged_attention`` (the KV pool's page size,
 `ops.paged_attention`, which `serve.ServeConfig` takes when
-``MXTPU_SERVE_PAGE_SIZE`` is unset) and ``flash_attention`` (the flash
-forward's block_q and block_k, `ops.flash_attention.resolve_blocks`).  The
+``MXTPU_SERVE_PAGE_SIZE`` is unset), ``flash_attention`` (the flash
+forward's block_q and block_k, `ops.flash_attention.resolve_blocks`) and
+``fused_norm`` (the norm kernel's rows a block,
+`ops.fused_norm.resolve_block_rows`).  The
 telemetry counters and the tracing attribution of JAX's ``tune()`` wait
 for the operations-plane slice
 (ROADMAP.md A14).
@@ -109,8 +111,9 @@ def tunables() -> List[str]:
 
 def _ensure_builtin() -> None:
     """Import the kernel modules that register tunables."""
-    from . import (flash_attention, fused_optimizer,  # noqa: F401
-                   moe_dispatch, paged_attention, quantized_matmul)
+    from . import (flash_attention, fused_norm,  # noqa: F401
+                   fused_optimizer, moe_dispatch, paged_attention,
+                   quantized_matmul)
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,16 @@ Two routes, as in the JAX package:
   version.  The backward has no kernel, as in JAX: recomputed f32
   statistics in torch (`_norm_grads`).
 
+The launch is planned on the host (`_plan`, plain Python, memoised): the
+"warp" variant for rows of at most 32 elements a lane (a group of lanes
+owns whole rows, held in registers, reduced by shuffles; ``block_rows``
+rows a block), the "block" variant for wider rows, 16-byte loads where
+the row and the pointers allow, else one element.  ``block_rows`` is
+JAX's tunable: `resolve_block_rows` takes the argument, then the tuned
+config (``tune("fused_norm", (rows, h), dtype)``, `ops.autotune`), then
+the card's `default_block_rows`; `_candidates`, `_roofline` and `_build`
+(the trial launch) are registered at import.
+
 `kernel_eligible` applies the policy of `ops.policy` (``MXTPU_PALLAS``)
 and the kernel's shape rules; the public wrappers take it when
 ``use_kernel`` is None.  `fused_layer_norm_reference` and
@@ -30,12 +40,14 @@ any device, by name: the oracle a run on the card is held against.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
 from ..base import MXNetError
 from .. import kernels as _kernels
+from . import autotune
 from .policy import kernel_active
 
 __all__ = ["fused_layer_norm", "fused_rms_norm", "layer_norm_residual",
@@ -100,6 +112,132 @@ def norm_plain(x2, res2, gamma, beta, eps, rms):
 
 
 # ---------------------------------------------------------------------------
+# the launch plan and JAX's block_rows tunable
+# ---------------------------------------------------------------------------
+
+WARP_ELEMS = (8, 16, 24, 32)   # elements a lane may hold ("warp" variant)
+BLOCK_ELEMS = 32               # elements a thread may hold ("block")
+BLOCK_THREADS = 512            # most threads of a "block" block
+MAX_WARPS = 8                  # most warps of a "warp" block
+_SUBLANES = 8                  # JAX's smallest block_rows
+# the card's block_rows where nothing else chooses (JAX's is 128): the
+# largest of these that still gives every SM a block, else the last.  On
+# an H100 (`chip_smoke.py` k5, PERF.md) 32 (bf16) and 8-32 (f32) were the
+# fastest of JAX's menu at (8192, 768), while 1280 rows at 32 (40 blocks)
+# trailed `F.layer_norm` by 1.6x
+DEFAULT_BLOCK_ROWS = (32, 16, 8)
+
+
+def default_block_rows(rows: int, sm_count: int) -> int:
+    """The card's block_rows for `rows` rows on `sm_count` SMs."""
+    for br in DEFAULT_BLOCK_ROWS:
+        if -(-rows // br) >= sm_count:
+            return br
+    return DEFAULT_BLOCK_ROWS[-1]
+
+
+class NormPlan(NamedTuple):
+    """One launch of the row kernel."""
+    variant: str         # "warp": a group of lanes a row; "block": a block
+    vec: int             # elements a load (16 bytes, or 1)
+    lanes: int           # threads a row ("block": the block's threads)
+    nv: int              # vectors a thread holds a tile
+    elems: int           # registers of a thread's slice (the template)
+    tiles: int           # passes over a row's vectors (1: in registers)
+    warps: int           # warps a block
+    block_rows: int      # rows a block ("warp"; "block": 1 a pass)
+    rows_warp: int       # rows a warp takes in a block ("block": 0, it
+                         # shares rows with the block)
+    grid: int            # blocks
+    source: str = "explicit"   # where block_rows came from
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, (int(n) - 1).bit_length())
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(rows: int, h: int, x_dtype, p_dtype, block_rows: int,
+          sm_count: int, aligned: bool) -> NormPlan:
+    """The launch for a (rows, h) call, plain Python: 16-byte loads when
+    ``h * itemsize`` is a multiple of 16 and the pointers are aligned, else
+    one element a load; rows of at most 32 elements a lane take the "warp"
+    variant — the fewest lanes (a power of two) that leave each at most 8
+    elements, up to 32, and ``block_rows`` rows a block of at most
+    `MAX_WARPS` warps — wider rows the "block" variant, one row at a time
+    per block of up to `BLOCK_THREADS` threads holding up to 32 elements
+    each (tiles beyond that), as many persistent blocks as an SM's 2048
+    threads hold.  `p_dtype` (gamma's) does not change the plan."""
+    if isinstance(x_dtype, str):
+        x_dtype = getattr(torch, autotune.dtype_name(x_dtype))
+    item = torch.finfo(x_dtype).bits // 8
+    vec = 16 // item if aligned and (h * item) % 16 == 0 else 1
+    nvec = max(1, h // vec)
+    if -(-nvec // 32) * vec <= WARP_ELEMS[-1]:
+        lanes = min(32, _pow2_at_least(-(-nvec // max(1, 8 // vec))))
+        nv = -(-nvec // lanes)
+        elems = min(e for e in WARP_ELEMS if e >= nv * vec)
+        gpw = 32 // lanes
+        br = max(1, int(block_rows))
+        warps = max(1, min(MAX_WARPS, -(-br // gpw)))
+        return NormPlan("warp", vec, lanes, nv, elems, 1, warps, br,
+                        gpw * -(-br // (warps * gpw)), max(1, -(-rows // br)))
+    nvm = BLOCK_ELEMS // vec
+    threads = min(BLOCK_THREADS, 32 * -(-nvec // (32 * nvm)))
+    nv = min(nvm, -(-nvec // threads))
+    tiles = -(-nvec // (threads * nv))
+    grid = max(1, min(rows, sm_count * max(1, 2048 // threads)))
+    return NormPlan("block", vec, threads, nv, BLOCK_ELEMS, tiles,
+                    threads // 32, 1, 0, grid)
+
+
+def _resolve(rows, h, dtype, block_rows, sm_count):
+    """`resolve_block_rows` with its source."""
+    if block_rows:
+        return int(block_rows), "explicit"
+    cfg = autotune.cached_config("fused_norm", (rows, h),
+                                 autotune.dtype_name(dtype))
+    if cfg is not None and "block_rows" in cfg:
+        return max(_SUBLANES, min(int(cfg.block_rows), 1024)), "tuned"
+    return default_block_rows(rows, sm_count), "default"
+
+
+def resolve_block_rows(rows, h, dtype, block_rows=None,
+                       sm_count: int = 132) -> int:
+    """Rows a block for one call, in JAX's order (``mxnet_tpu/ops/pallas/
+    fused_norm.py`` `_norm_pallas` / `_default_block_rows`): the argument,
+    then the autotuner's kept config for (rows, h) in x's dtype (clamped to
+    [8, 1024], as JAX clamps it), then the card's `default_block_rows`
+    (where JAX has 128).  Pure lookup."""
+    return _resolve(rows, h, dtype, block_rows, sm_count)[0]
+
+
+# plans already made, keyed by shape, dtypes, device, alignment and the
+# block_rows asked for, valid for the autotuner generation in `_memo_gen`
+_memo: Dict[Any, NormPlan] = {}
+_memo_gen = None
+
+
+def _planned(rows, h, x_dtype, p_dtype, device, aligned,
+             block_rows=None) -> NormPlan:
+    """`_plan` for the block_rows `resolve_block_rows` picks, looked up
+    once per key and `autotune.generation()`, not at each call."""
+    global _memo_gen
+    gen = autotune.generation()
+    if gen != _memo_gen:
+        _memo.clear()
+        _memo_gen = gen
+    key = (rows, h, x_dtype, p_dtype, device, aligned, block_rows)
+    plan = _memo.get(key)
+    if plan is None:
+        sms = _kernels.sm_count(device)
+        br, src = _resolve(rows, h, x_dtype, block_rows, sms)
+        plan = _memo[key] = _plan(rows, h, x_dtype, p_dtype, br, sms,
+                                  aligned)._replace(source=src)
+    return plan
+
+
+# ---------------------------------------------------------------------------
 # the CUDA kernel (csrc/fused_norm.cu)
 # ---------------------------------------------------------------------------
 
@@ -113,15 +251,21 @@ def _kernel_fn():
     global _fn
     if _fn is None:
         f = _kernels.load("fused_norm").mxt_fused_norm
-        f.argtypes = [_P] * 6 + [_I] * 5 + [ctypes.c_float, _P]
+        f.argtypes = [_P] * 6 + [ctypes.c_longlong] + [_I] * 4 + \
+            [ctypes.c_float] + [_I] * 9 + [_P]
         f.restype = _I
         _fn = f
     return _fn
 
 
-def _norm_cuda(x2, res2, gamma, beta, eps, rms):
+def _aligned(*ts) -> bool:
+    return all(t is None or t.data_ptr() % 16 == 0 for t in ts)
+
+
+def _norm_cuda(x2, res2, gamma, beta, eps, rms, block_rows=None):
     """Check the operands, then launch the row kernel on the current
-    stream; returns y, or (y, s) when `res2` is given."""
+    stream at the plan for the block_rows `resolve_block_rows` picks;
+    returns y, or (y, s) when `res2` is given."""
     rows, h = x2.shape
     if x2.dtype not in _DTYPES:
         raise MXNetError(f"fused_norm kernel takes float32, bfloat16 or "
@@ -148,15 +292,19 @@ def _norm_cuda(x2, res2, gamma, beta, eps, rms):
     y = torch.empty_like(x2)
     s = None if res2 is None else torch.empty_like(x2)
     if rows and h:
+        plan = _planned(rows, h, x2.dtype, gamma.dtype, x2.device,
+                        _aligned(x2, res2), block_rows)
         err = _kernel_fn()(
             x2.data_ptr(), None if res2 is None else res2.data_ptr(),
             gamma.data_ptr(), None if beta is None else beta.data_ptr(),
             y.data_ptr(), None if s is None else s.data_ptr(), rows, h,
             _DTYPES[x2.dtype], _DTYPES[gamma.dtype], int(rms), float(eps),
-            torch.cuda.current_stream(x2.device).cuda_stream)
+            int(plan.variant == "block"), 32 * plan.warps, plan.lanes,
+            plan.vec, plan.nv, plan.elems, plan.tiles, plan.block_rows,
+            plan.grid, torch.cuda.current_stream(x2.device).cuda_stream)
         if err:
             raise MXNetError(f"fused_norm kernel launch failed (cudaError_t "
-                             f"{err})")
+                             f"{err}, plan {plan})")
         _kernels.LAUNCHES["fused_norm"] += 1
     return y if s is None else (y, s)
 
@@ -324,3 +472,58 @@ def _last_axis(name, x, axis):
     if axis not in (-1, x.dim() - 1):
         raise ValueError(f"{name} normalises the last axis only, got "
                          f"axis={axis}")
+
+
+# ---------------------------------------------------------------------------
+# autotune registration: block_rows, as in the JAX package —
+# `tune("fused_norm", (rows, h), dtype)` times the kernel at each candidate
+# and `resolve_block_rows` picks the kept one up
+# ---------------------------------------------------------------------------
+
+def _candidates(shapes, dtype):
+    """JAX's menu (``fused_norm.py`` `_candidates`): 8 to 1024 rows a
+    block, up to twice the rows."""
+    rows = shapes[0] if shapes else 4096
+    return [autotune.BlockConfig(block_rows=br)
+            for br in (8, 16, 32, 64, 128, 256, 512, 1024)
+            if br <= max(_SUBLANES, rows * 2)]
+
+
+def _roofline(config, shapes, dtype):
+    """JAX's count (`_roofline`): x read and y written, one step a
+    block."""
+    rows = shapes[0] if shapes else 4096
+    h = shapes[1] if len(shapes) > 1 else 1024
+    itemsize = 2 if "16" in str(dtype) else 4
+    return {"flops": 8.0 * rows * h,
+            "bytes": 2.0 * rows * h * itemsize,
+            "steps": max(1.0, rows / config.block_rows)}
+
+
+def _at_inputs(shapes, dtype, device):
+    """JAX's `_build` inputs: x from ``RandomState(0).randn(rows, h)`` in
+    `dtype`, gamma ones, beta zeros."""
+    import numpy as np
+    rows = shapes[0] if shapes else 4096
+    h = shapes[1] if len(shapes) > 1 else 1024
+    dt = getattr(torch, autotune.dtype_name(dtype))
+    x = torch.from_numpy(np.random.RandomState(0).randn(rows, h)
+                         .astype(np.float32)).to(device, dt)
+    return x, torch.ones(h, dtype=dt, device=device), \
+        torch.zeros(h, dtype=dt, device=device)
+
+
+def _build(config, shapes, dtype):
+    """The trial launch: one LayerNorm at ``config.block_rows`` — the CUDA
+    kernel on the card (it counts in `kernels.LAUNCHES`), the plain
+    version on the CPU.  Returns the thunk."""
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if torch.cuda.is_available() else torch.device("cpu")
+    x, g, b = _at_inputs(shapes, dtype, dev)
+    if dev.type == "cpu":
+        return lambda: norm_plain(x, None, g, b, 1e-5, False)
+    br = int(config.block_rows)
+    return lambda: _norm_cuda(x, None, g, b, 1e-5, False, block_rows=br)
+
+
+autotune.register_tunable("fused_norm", _candidates, _build, _roofline)

@@ -19,10 +19,12 @@ kernels and their plain versions (counterpart of
   with the same (weight dtype, state dtypes, state structure), over a
   device table of per-leaf pointers (no packing copy), at the elements per
   block the autotuner chose for the group (`_group_chunk`, ``CHUNK`` when
-  nothing was tuned; `last_chunk` records it); for LAMB two
-  launches per tensor (phase A: moments, the update direction r and the
-  trust ratio from deterministically reduced norms; phase B: the bounded
-  update).  The hyperparameters and the skip flag stay on the device.  On
+  nothing was tuned; `last_chunk` records it); for LAMB phase A once per
+  such group (moments, the update direction r into a per-stream scratch
+  and each tensor's trust ratio from deterministically reduced norms, over
+  the same kind of leaf table, `_lamb_layout`), then phase B once per
+  tensor (the bounded update).  The hyperparameters and the skip flag stay
+  on the device.  On
   a CPU tensor it runs the kernels' plain version, `kernel_plain` (the
   same math, the same order of operations: LAMB's trust ratio stays f32),
   and writes the results in place.
@@ -39,7 +41,7 @@ trial launch) are registered at import.
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -54,7 +56,7 @@ __all__ = ["apply_updates", "supported", "kernel_supported", "kernel_route",
            "kernel_plain", "HpScalarCache", "CHUNK", "last_chunk"]
 
 CHUNK = 8192           # elements of one leaf per block: the static default
-LAMB_BLOCKS = 1024     # most blocks (partials) of a LAMB phase-A launch
+LAMB_CHUNK = 8192      # elements of one leaf per LAMB phase-A chunk
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: weight dtype name -> elements per block of that dtype group's latest
 #: chunk launch (on the CPU: the chunk the launch would have used)
@@ -145,8 +147,8 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGS = {"mxt_fused_chunk": [_P, _I, _I, _I, _I, _I, _I] + [_F] * 6
          + [_I] + [_P] * 7,
-         "mxt_lamb_phase_a": [_P] * 8 + [_L, _I, _I, _I] + [_F] * 5
-         + [_I, _F, _F, _I, _I] + [_P] * 7,
+         "mxt_lamb_phase_a": [_P, _I, _I, _I] + [_P] * 4 + [_I, _I]
+         + [_F] * 5 + [_I, _F, _F, _I, _I] + [_P] * 7,
          "mxt_lamb_phase_b": [_P, _P, _P, _L, _I, _P, _P, _P]}
 _fns = {}
 
@@ -290,42 +292,93 @@ def _chunk_cuda(optimizer, rule, names, params, grads, states, hptr, dev,
     _launched("fused_optimizer chunk", err, "fused_optimizer_chunk")
 
 
+class LambLayout(NamedTuple):
+    """Where one group's leaves go in a LAMB phase-A launch."""
+    r_off: List[int]     # each leaf's first element in the r scratch
+    p_off: List[int]     # each leaf's first partial slot (one a chunk)
+    chunks: List[int]    # each leaf's chunks
+    codes: np.ndarray    # int64 (leaf << 32 | chunk), one a block entry
+    r_total: int         # f32 elements of the r scratch
+    slots: int           # partial slots (each two f32: w^2 and r^2)
+
+
+def _lamb_layout(numels: Sequence[int], chunk: int = LAMB_CHUNK
+                 ) -> LambLayout:
+    """The leaf table's offsets and block map for leaves of `numels`
+    elements, plain numpy: each leaf's r at a multiple of 8 elements
+    (16-byte aligned), its partial slots contiguous and in chunk order,
+    one block entry a (leaf, chunk)."""
+    r_off, p_off, chunks, codes = [], [], [], []
+    r = slots = 0
+    for i, n in enumerate(numels):
+        c = -(-int(n) // chunk)
+        r_off.append(r)
+        p_off.append(slots)
+        chunks.append(c)
+        codes.append((i << 32) | np.arange(c, dtype=np.int64))
+        r += -(-int(n) // 8) * 8
+        slots += c
+    return LambLayout(r_off, p_off, chunks,
+                      np.concatenate(codes) if codes
+                      else np.zeros(0, np.int64), r, slots)
+
+
+# (device index, raw stream) -> (tickets, partials, r, ratios): phase A's
+# scratch, kept per stream (`kernels.stream_scratch`)
+_lamb_scratch: Dict[Any, Tuple[torch.Tensor, ...]] = {}
+
+
 def _lamb_cuda(optimizer, names, params, grads, states, hptr, dev):
-    """Two launches per tensor, in place: phase A, then phase B."""
+    """In place: per dtype group (`_groups`), one phase-A launch over the
+    group's leaf table, then one phase-B launch per tensor."""
     o = optimizer
     for n in names:
         _check_leaf(n, params[n], grads[n], states[n], dev)
         if len(states[n]) != 2:
             raise MXNetError(f"{n}: LAMB state must be (m, v)")
-    numels = [params[n].numel() for n in names]
-    r = torch.empty(max(numels, default=0), dtype=torch.float32, device=dev)
-    part = torch.empty(2 * LAMB_BLOCKS, dtype=torch.float32, device=dev)
-    ratio = torch.empty(len(names), dtype=torch.float32, device=dev)
-    # phase A's ticket counter: zeroed here, reset by each launch's last
-    # block for the next tensor
-    counter = torch.zeros(1, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     lo, hi = o.lower_bound, o.upper_bound
     phase_a, phase_b = (_kernel_fn("mxt_lamb_phase_a"),
                         _kernel_fn("mxt_lamb_phase_b"))
-    for i, n in enumerate(names):
-        w, g, (m, v) = params[n], grads[n], states[n]
-        numel = numels[i]
-        if numel == 0:
+    for group in _groups(names, params, states):
+        numels = [params[n].numel() for n in group]
+        lay = _lamb_layout(numels)
+        if lay.codes.size == 0:
             continue
-        nb = min(LAMB_BLOCKS, -(-numel // 2048))
-        rp = ratio[i:i + 1].data_ptr()
+        # the group's r waits in the scratch for its phase-B launches; a
+        # later group's phase A overwrites it only after them (one stream)
+        tickets, part, r, ratio = _kernels.stream_scratch(
+            _lamb_scratch, dev, stream, len(group), 2 * lay.slots,
+            lay.r_total, len(group))
+        leaves = []
+        for i, n in enumerate(group):
+            w, g, (m, v) = params[n], grads[n], states[n]
+            leaves.append([w.data_ptr(), g.data_ptr(), m.data_ptr(),
+                           v.data_ptr(), numels[i], lay.r_off[i],
+                           lay.p_off[i], lay.chunks[i]])
+        table = np.concatenate([np.asarray(leaves, np.int64).ravel(),
+                                lay.codes])
+        # pinned and asynchronous, as the chunk kernel's table
+        dev_table = torch.from_numpy(table).pin_memory().to(
+            dev, non_blocking=True)
+        w0, (m0, _) = params[group[0]], states[group[0]]
         err = phase_a(
-            w.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
-            r.data_ptr(), part.data_ptr(), counter.data_ptr(), rp, numel, nb,
-            _DTYPES[w.dtype], _DTYPES[m.dtype], o.beta1, o.beta2, o.epsilon,
-            1 - o.beta1, 1 - o.beta2, int(o.bias_correction),
-            0.0 if lo is None else lo, 0.0 if hi is None else hi,
-            int(lo is not None), int(hi is not None), *hptr, stream)
+            dev_table.data_ptr(), len(group), int(lay.codes.size),
+            LAMB_CHUNK, r.data_ptr(), part.data_ptr(),
+            tickets.data_ptr(), ratio.data_ptr(), _DTYPES[w0.dtype],
+            _DTYPES[m0.dtype], o.beta1, o.beta2, o.epsilon, 1 - o.beta1,
+            1 - o.beta2, int(o.bias_correction), 0.0 if lo is None else lo,
+            0.0 if hi is None else hi, int(lo is not None),
+            int(hi is not None), *hptr, stream)
         _launched("LAMB phase A", err, "lamb_phase_a")
-        err = phase_b(w.data_ptr(), r.data_ptr(), rp, numel,
-                      _DTYPES[w.dtype], hptr[0], hptr[5], stream)
-        _launched("LAMB phase B", err, "lamb_phase_b")
+        for i, n in enumerate(group):
+            if numels[i] == 0:
+                continue
+            w = params[n]
+            err = phase_b(w.data_ptr(), r[lay.r_off[i]:].data_ptr(),
+                          ratio[i:i + 1].data_ptr(), numels[i],
+                          _DTYPES[w.dtype], hptr[0], hptr[5], stream)
+            _launched("LAMB phase B", err, "lamb_phase_b")
 
 
 # ---------------------------------------------------------------------------

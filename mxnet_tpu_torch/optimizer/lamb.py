@@ -13,7 +13,9 @@ class LAMB(Optimizer):
     """Adam moments, then the update ``r = mhat / (sqrt(vhat) + eps) + wd *
     w`` scaled per tensor by the trust ratio ``||w|| / ||r||`` (``||w||``
     clipped to [lower_bound, upper_bound] when given; 1 where either norm
-    is 0).  Not elementwise: `ops.fused_optimizer` runs it per tensor.
+    is 0).  Not elementwise: `ops.fused_optimizer` reduces the norms per
+    tensor (phase A, one launch a dtype group) before the update (phase B,
+    one launch a tensor).
 
     The trust ratio is rounded to the weight's stored dtype, as JAX's rule
     rounds it (``ratio.astype(w.dtype)``).  The rule runs on f32 views of a

@@ -77,9 +77,9 @@ def test_chunk_candidates_and_pruning():
     assert ranked[-1].chunk == 2048
     r = fo._roofline(at.BlockConfig(chunk=8192), (10_000,), "bfloat16")
     assert r == {"flops": 180000.0, "bytes": 10_000 * 24.0, "steps": 2.0}
-    assert at.tunables() == ["flash_attention", "fused_optimizer",
-                            "moe_dispatch", "paged_attention",
-                            "quantized_matmul"]
+    assert at.tunables() == ["flash_attention", "fused_norm",
+                            "fused_optimizer", "moe_dispatch",
+                            "paged_attention", "quantized_matmul"]
 
 
 def test_cold_search_persists_and_warm_hit_runs_no_trial(cache):

@@ -10,9 +10,13 @@ exactly zero with lse 0, and its tunable's trials; the backward at both
 key tiles, two calls and two streams bit-equal, masked rows and keys
 exactly zero), the streaming
 cross-entropy (any V, unclamped labels), the fused LayerNorm/RMSNorm (any
-h, with and without residual and beta) and the optimizer kernels (the
-multi-tensor chunk for Adam, AdamW and SGD, LAMB phases A and B; f32 and
-bf16 weights; the skip flag; every tunable chunk size), the MoE row
+h, with and without residual and beta; both plan variants, 16-byte and
+one-element loads, every block_rows of its tuner's menu, two calls
+bit-equal, the public wrappers, its tunable's trials) and the optimizer
+kernels (the multi-tensor chunk for Adam, AdamW and SGD, LAMB phase A once
+per dtype group and phase B per tensor, with 1- and 768-element leaves, an
+unaligned leaf, two streams and the gluon `Trainer`; f32 and bf16 weights;
+the skip flag; every tunable chunk size), the MoE row
 gather (dispatch and combine, f32 and bf16, with
 sentinel rows) and a two-step MoE `TrainStep` on the card.
 
@@ -727,6 +731,106 @@ def test_fused_norm_dispatch_launches_and_differentiates(card):
     assert gamma.grad.dtype == torch.float32
 
 
+NORM_CASES = [(64, 768), (37, 200), (5, 1), (3, 16384), (3, 4099)]
+NORM_BLOCK_ROWS = (8, 16, 32, 64, 128, 256, 512, 1024)
+
+
+@pytest.mark.parametrize("dtype,pdtype", [(torch.float32, torch.float32),
+                                          (torch.bfloat16, torch.bfloat16),
+                                          (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("rows,h", NORM_CASES)
+@pytest.mark.parametrize("rms", [False, True])
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("with_beta", [False, True])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_fused_norm_every_plan_matches_plain(card, dtype, pdtype, rows, h,
+                                             rms, residual, with_beta,
+                                             offset):
+    """Both variants ("warp" to h 1024, "block" above), 16-byte and
+    one-element loads (an operand one element past an aligned address
+    takes the narrow plan), at every block_rows of JAX's menu: within 1e-4
+    (f32) / 2e-2 (bf16) of the output scale, and two calls bit-equal."""
+    from mxnet_tpu_torch.ops import fused_norm as fn
+    g = torch.Generator().manual_seed(9)
+
+    def operand():
+        buf = torch.randn(rows * h + offset, generator=g).to(card, dtype)
+        return buf[offset:].view(rows, h)
+    x = operand()
+    r = operand() if residual else None
+    gamma = (torch.rand(h, generator=g) + 0.5).to(card, pdtype)
+    beta = torch.randn(h, generator=g).to(card, pdtype) if with_beta \
+        else None
+    want = fn.norm_plain(x, r, gamma, beta, 1e-5, rms)
+    want = want if residual else (want,)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for br in NORM_BLOCK_ROWS:
+        plan = fn._planned(rows, h, dtype, pdtype, x.device,
+                           fn._aligned(x, r), br)
+        assert plan.vec == 1 or offset == 0
+        kernels.reset_launch_counts()
+        got = fn._norm_cuda(x, r, gamma, beta, 1e-5, rms, block_rows=br)
+        again = fn._norm_cuda(x, r, gamma, beta, 1e-5, rms, block_rows=br)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["fused_norm"] == 2
+        got = got if residual else (got,)
+        again = again if residual else (again,)
+        for a, a2, b in zip(got, again, want):
+            assert a.dtype == dtype
+            assert torch.equal(a, a2), (br, plan)
+            err = float((a.float() - b.float()).abs().max())
+            assert err <= tol * float(b.float().abs().max()), (br, plan)
+
+
+def test_fused_norm_wrappers_launch_at_any_width(card):
+    """`fused_layer_norm`, `fused_rms_norm`, `layer_norm_residual` and
+    `rms_norm_residual` launch the kernel on a CUDA tensor, including an
+    x at a storage offset (the narrow plan) and h = 16384 ("block")."""
+    from mxnet_tpu_torch.ops import fused_norm as fn
+    for h, off in ((768, 0), (768, 1), (16384, 0), (200, 1)):
+        buf = torch.randn(6 * h + off, device=card, dtype=torch.bfloat16)
+        x = buf[off:].view(2, 3, h)
+        r = torch.randn_like(x)
+        gamma = torch.rand(h, device=card) + 0.5
+        beta = torch.randn(h, device=card)
+        kernels.reset_launch_counts()
+        outs = [fn.fused_layer_norm(x, gamma, beta, use_kernel=True),
+                fn.fused_rms_norm(x, gamma, use_kernel=True),
+                *fn.layer_norm_residual(x, r, gamma, beta, use_kernel=True),
+                *fn.rms_norm_residual(x, r, gamma, use_kernel=True)]
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["fused_norm"] == 4
+        assert all(o.dtype == torch.bfloat16 and o.shape == x.shape
+                   for o in outs)
+        want = fn.norm_plain(x.reshape(-1, h), None, gamma, beta, 1e-5,
+                             False)
+        err = float((outs[0].reshape(-1, h).float() - want.float()).abs()
+                    .max())
+        assert err <= 2e-2 * float(want.float().abs().max())
+
+
+def test_fused_norm_tune_launches_the_kernel_and_warm_hits(card, tmp_path,
+                                                          monkeypatch):
+    from mxnet_tpu_torch.ops import autotune as at
+    from mxnet_tpu_torch.ops import fused_norm as fn
+    monkeypatch.setenv("MXTPU_AUTOTUNE_CACHE", str(tmp_path))
+    monkeypatch.delenv("MXTPU_AUTOTUNE", raising=False)
+    at.clear_memory_cache()
+    try:
+        shape = (1280, 768)
+        n = len(fn._candidates(shape, "bfloat16"))
+        kernels.reset_launch_counts()
+        cold = at.tune("fused_norm", shape, "bfloat16", runs=2, top_k=n)
+        assert cold.trials == n
+        assert kernels.launch_counts()["fused_norm"] == n * (1 + 2)
+        warm = at.tune("fused_norm", shape, "bfloat16")
+        assert warm.cache_hit and warm.trials == 0
+        p = fn._planned(1280, 768, torch.bfloat16, torch.float32, card, True)
+        assert (p.source, p.block_rows) == ("tuned", cold.config.block_rows)
+    finally:
+        at.clear_memory_cache()
+
+
 OPT_CASES = {"adam": ("Adam", {}), "adamw": ("AdamW", {}),
              "sgd": ("SGD", {}), "sgd_momentum": ("SGD", {"momentum": 0.9}),
              "lamb": ("LAMB", {}),
@@ -760,10 +864,12 @@ def test_optimizer_kernels_match_plain(card, name, wdtype):
     fo.apply_updates(opt, params, grads, states, hp, use_kernel=True)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
+    groups = 2 if wdtype == torch.bfloat16 else 1
     if cls == "LAMB":
-        assert counts["lamb_phase_a"] == counts["lamb_phase_b"] == 4
+        # phase A once per (weight, state) dtype group, B once per tensor
+        assert counts["lamb_phase_a"] == groups
+        assert counts["lamb_phase_b"] == 4
     else:
-        groups = 2 if wdtype == torch.bfloat16 else 1
         assert counts["fused_optimizer_chunk"] == groups
     for n in params:
         w_want, s_want = want_p[n], want_s[n]
@@ -952,3 +1058,145 @@ def test_optimizer_kernels_with_16bit_state_match_plain(card, name):
             assert a.dtype == torch.bfloat16, n
             torch.testing.assert_close(a.float(), b.float(), rtol=2 ** -7,
                                        atol=2e-6)
+
+
+def _lamb_tree(card, wdtype, seed):
+    """Leaves of 70001, 768, 1 and 2 * LAMB_CHUNK + 5 elements in
+    `wdtype`, a 768 f32 leaf (a second group for bf16), and a 1001-element
+    leaf whose weight, gradient and state sit one element past an aligned
+    address (the one-element path)."""
+    from mxnet_tpu_torch.ops import fused_optimizer as fo
+    g = torch.Generator().manual_seed(seed)
+    sizes = {"a": 70001, "b": 768, "c": 1, "d": 2 * fo.LAMB_CHUNK + 5,
+             "e": 1001, "f": 768}
+
+    def make(n, dt, off, scale=1.0, pos=False):
+        buf = torch.rand(n + off, generator=g) if pos else \
+            torch.randn(n + off, generator=g)
+        return (scale * buf).to(card, dt)[off:]
+    params, grads, states = {}, {}, {}
+    for k, n in sizes.items():
+        dt = torch.float32 if k == "f" else wdtype
+        off = 1 if k == "e" else 0
+        params[k] = make(n, dt, off)
+        grads[k] = make(n, dt, off, 3.0)
+        states[k] = (make(n, torch.float32, off, 0.1),
+                     make(n, torch.float32, off, 1.0, True))
+    return params, grads, states
+
+
+def _lamb_hp(card):
+    hp = {k: torch.tensor(v, device=card) for k, v in (
+        ("lr", 0.01), ("wd", 0.01), ("rescale_grad", 0.5), ("t", 3.0),
+        ("clip_gradient", 1.0))}
+    return hp
+
+
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kw", [{}, {"lower_bound": 5.0, "upper_bound": 20.0,
+                                     "bias_correction": False}])
+def test_lamb_phase_a_once_per_group_matches_plain(card, wdtype, kw):
+    """One phase-A launch per (weight, state) dtype group over leaves of
+    1, 768 and 70001 elements and one at an unaligned address; B once per
+    tensor; within the tolerances of `test_optimizer_kernels_match_plain`;
+    two updates from the same inputs bit-equal; ``skip`` every bit
+    unchanged."""
+    from mxnet_tpu_torch import optimizer as topt
+    from mxnet_tpu_torch.ops import fused_optimizer as fo
+    opt = topt.LAMB(learning_rate=0.01, **kw)
+    params, grads, states = _lamb_tree(card, wdtype, 11)
+    assert params["e"].data_ptr() % 16 != 0
+    hp = _lamb_hp(card)
+    want_p, want_s = fo.kernel_plain(opt, params, grads, states, hp)
+    runs = []
+    for _ in range(2):
+        p = {n: t.clone() for n, t in params.items()}
+        s = {n: tuple(t.clone() for t in st) for n, st in states.items()}
+        kernels.reset_launch_counts()
+        fo.apply_updates(opt, p, grads, s, hp, use_kernel=True)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        assert counts["lamb_phase_a"] == (2 if wdtype == torch.bfloat16
+                                          else 1)
+        assert counts["lamb_phase_b"] == len(params)
+        runs.append((p, s))
+    (p, s), (p2, s2) = runs
+    for n in params:
+        assert torch.equal(p[n], p2[n]) and all(
+            torch.equal(a, b) for a, b in zip(s[n], s2[n])), n
+        if p[n].dtype == torch.bfloat16:
+            torch.testing.assert_close(p[n].float(), want_p[n].float(),
+                                       rtol=2 ** -7, atol=2e-6)
+        else:
+            torch.testing.assert_close(p[n], want_p[n], rtol=0, atol=2e-6)
+        for a, b in zip(s[n], want_s[n]):
+            torch.testing.assert_close(a, b, rtol=0, atol=2e-6)
+    # skip: every weight and state bit unchanged (a NaN gradient too)
+    grads["a"][5] = float("nan")
+    p = {n: t.clone() for n, t in params.items()}
+    s = {n: tuple(t.clone() for t in st) for n, st in states.items()}
+    fo.apply_updates(opt, p, grads, s, hp, use_kernel=True,
+                     skip=torch.tensor(True, device=card))
+    torch.cuda.synchronize()
+    for n in params:
+        assert torch.equal(p[n], params[n]), n
+        assert all(torch.equal(a, b) for a, b in zip(s[n], states[n])), n
+
+
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+def test_lamb_on_two_streams(card, wdtype):
+    """Two updates of two trees enqueued at once on two streams, each with
+    its own scratch and tickets, give the bits of the same updates run one
+    after the other."""
+    from mxnet_tpu_torch import optimizer as topt
+    from mxnet_tpu_torch.ops import fused_optimizer as fo
+    opt = topt.LAMB(learning_rate=0.01)
+    hp = _lamb_hp(card)
+    trees = [_lamb_tree(card, wdtype, seed) for seed in (12, 13)]
+    solo = []
+    for params, grads, states in trees:
+        p = {n: t.clone() for n, t in params.items()}
+        s = {n: tuple(t.clone() for t in st) for n, st in states.items()}
+        fo.apply_updates(opt, p, grads, s, hp, use_kernel=True)
+        solo.append((p, s))
+    torch.cuda.synchronize()
+    both = []
+    streams = [torch.cuda.Stream(card) for _ in trees]
+    for (params, grads, states), st in zip(trees, streams):
+        p = {n: t.clone() for n, t in params.items()}
+        s = {n: tuple(t.clone() for t in st_) for n, st_ in states.items()}
+        both.append((p, s))
+    torch.cuda.synchronize()
+    for (params, grads, states), (p, s), st in zip(trees, both, streams):
+        with torch.cuda.stream(st):
+            fo.apply_updates(opt, p, grads, s, hp, use_kernel=True)
+    torch.cuda.synchronize()
+    for (p, s), (p1, s1) in zip(both, solo):
+        for n in p:
+            assert torch.equal(p[n], p1[n]), n
+            assert all(torch.equal(a, b) for a, b in zip(s[n], s1[n])), n
+
+
+def test_trainer_lamb_launches_phase_a_once_per_group(card):
+    """The gluon `Trainer` with LAMB on the kernel route: state in each
+    weight's dtype, so bf16 weights and an f32 vector make two groups —
+    two phase-A launches a step, one phase B a tensor."""
+    from mxnet_tpu_torch.gluon import Trainer
+    g = torch.Generator().manual_seed(14)
+    ps = {"w": torch.nn.Parameter(torch.randn(64, 768, generator=g).to(
+              card, torch.bfloat16)),
+          "b": torch.nn.Parameter(torch.randn(768, generator=g).to(
+              card, torch.bfloat16)),
+          "gamma": torch.nn.Parameter(torch.rand(768, generator=g).to(card))}
+    tr = Trainer(ps, "lamb", {"learning_rate": 0.01})
+    before = {n: p.detach().clone() for n, p in ps.items()}
+    for step in range(2):
+        for p in ps.values():
+            p.grad = torch.randn(p.shape, generator=g).to(card, p.dtype)
+        kernels.reset_launch_counts()
+        tr.step(8)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        assert counts["lamb_phase_a"] == 2 and counts["lamb_phase_b"] == 3
+    assert all(not torch.equal(p.detach(), before[n])
+               for n, p in ps.items())

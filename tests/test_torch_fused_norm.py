@@ -223,3 +223,176 @@ def test_kernel_eligible_follows_the_policy(monkeypatch):
     for mode in ("auto", "reference", "off"):
         monkeypatch.setenv("MXTPU_PALLAS", mode)
         assert not tfn.kernel_eligible(x)     # a CPU tensor
+
+
+# ---------------------------------------------------------------------------
+# the kernel's launch plan and JAX's block_rows tunable (no card needed)
+# ---------------------------------------------------------------------------
+
+PLAN_SHAPES = [(8192, 768), (1280, 768), (37, 200), (3, 16384), (1, 1)]
+BLOCK_ROWS = (8, 16, 32, 64, 128, 256, 512, 1024)
+
+
+def _rows_covered(p, rows):
+    """How often each row is normalised, as the kernel walks the grid: a
+    "warp" block takes rows [b * block_rows, ...), its group g (warp w,
+    group k of the warp) rows g, g + groups, ...; a "block" block every
+    grid-th row."""
+    count = np.zeros(rows, np.int64)
+    if p.variant == "block":
+        for b in range(p.grid):
+            count[b::p.grid] += 1
+        return count
+    gpw = 32 // p.lanes
+    groups = p.warps * gpw
+    m = np.arange(groups)[:, None] + groups * np.arange(
+        -(-p.block_rows // groups))[None, :]
+    m = m[m < p.block_rows]
+    r = (np.arange(p.grid)[:, None] * p.block_rows + m[None, :]).ravel()
+    np.add.at(count, r[r < rows], 1)
+    return count
+
+
+def _elements_covered(p, h):
+    """How often each element of a row is held: thread slot s of the row
+    (lane of its group, or the block's thread) holds vectors
+    t * lanes * nv + k * lanes + s, each of `vec` elements."""
+    count = np.zeros(h, np.int64)
+    nvec = h // p.vec
+    for t in range(p.tiles):
+        for k in range(p.nv):
+            q = t * p.lanes * p.nv + k * p.lanes + np.arange(p.lanes)
+            q = q[q < nvec]
+            e = (q[:, None] * p.vec + np.arange(p.vec)[None, :]).ravel()
+            np.add.at(count, e, 1)
+    return count
+
+
+@pytest.mark.parametrize("block_rows", BLOCK_ROWS)
+@pytest.mark.parametrize("rows,h", PLAN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_plan_is_a_legal_launch_covering_each_row_once(block_rows, rows, h,
+                                                       dtype, aligned):
+    p = tfn._plan(rows, h, dtype, torch.float32, block_rows, 132, aligned)
+    item = torch.finfo(dtype).bits // 8
+    threads = 32 * p.warps
+    # what `mxt_fused_norm` accepts (csrc/fused_norm.cu)
+    assert p.vec == 1 or (p.vec * item == 16 and aligned
+                          and (h * item) % 16 == 0)
+    assert h % p.vec == 0 and 1 <= p.nv and p.nv * p.vec <= p.elems
+    assert p.grid >= 1 and p.tiles >= 1
+    if p.variant == "warp":
+        assert p.lanes in (1, 2, 4, 8, 16, 32) and threads <= 256
+        assert p.elems in tfn.WARP_ELEMS and p.tiles == 1
+        assert p.lanes * p.nv * p.vec >= h
+        assert p.block_rows == block_rows
+        assert p.grid * p.block_rows >= rows
+        assert p.rows_warp * p.warps >= block_rows
+    else:
+        assert p.lanes == threads <= tfn.BLOCK_THREADS
+        assert p.elems == tfn.BLOCK_ELEMS and threads % 32 == 0
+        assert p.tiles * threads * p.nv * p.vec >= h
+        assert p.grid <= rows
+    if h * item <= 32 * tfn.WARP_ELEMS[-1] * item and \
+            -(-h // (32 * p.vec)) * p.vec <= 32:
+        assert p.variant == "warp"
+    if (rows, h) == (3, 16384):
+        # the wide row stays in registers: one tile, read once
+        assert p.variant == "block" and p.tiles == 1
+    assert (_rows_covered(p, rows) == 1).all()
+    assert (_elements_covered(p, h) == 1).all()
+
+
+def test_plan_widths_and_memo(monkeypatch):
+    """16-byte loads only where the row and the pointers allow; the plan is
+    memoised per key and tuner generation, with its source."""
+    p = tfn._plan(8192, 768, torch.bfloat16, torch.float32, 32, 132, True)
+    assert (p.variant, p.vec, p.lanes, p.nv) == ("warp", 8, 32, 3)
+    p = tfn._plan(8192, 768, torch.float32, torch.float32, 32, 132, True)
+    assert (p.vec, p.nv) == (4, 6)
+    assert tfn._plan(8, 200, "bfloat16", torch.float32, 8, 132,
+                     False).vec == 1
+    assert tfn._plan(8, 100, torch.bfloat16, torch.float32, 8, 132,
+                     True).vec == 1     # 200 bytes: not a multiple of 16
+    x = torch.zeros(4 * 768 + 1)
+    assert tfn._aligned(x[:768]) and not tfn._aligned(x[1:769])
+    monkeypatch.setattr(tfn._kernels, "sm_count", lambda d: 132)
+    monkeypatch.delenv("MXTPU_AUTOTUNE_CACHE", raising=False)
+    tfn.autotune.clear_memory_cache()
+    a = tfn._planned(8192, 768, torch.bfloat16, torch.float32, "cpu", True)
+    assert a.source == "default" and a.block_rows == 32
+    small = tfn._planned(1280, 768, torch.bfloat16, torch.float32, "cpu",
+                         True)
+    assert (small.block_rows, small.grid) == (8, 160)   # a block an SM
+    assert tfn._planned(8192, 768, torch.bfloat16, torch.float32, "cpu",
+                        True) is a
+    b = tfn._planned(8192, 768, torch.bfloat16, torch.float32, "cpu", True,
+                     block_rows=64)
+    assert (b.source, b.block_rows, b.grid) == ("explicit", 64, 128)
+
+
+def test_default_block_rows_gives_every_sm_a_block():
+    assert [tfn.default_block_rows(r, 132) for r in
+            (8192, 4193, 4192, 2097, 2096, 1280, 37, 1)] == [
+                32, 32, 16, 16, 8, 8, 8, 8]
+    assert tfn.default_block_rows(8192, 300) == 16
+
+
+@pytest.mark.parametrize("shapes", [(8192, 768), (1280, 768), (37, 200),
+                                    (3, 16384), (1, 1), (2, 64), ()])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tunable_matches_jax(shapes, dtype):
+    want = jfn._candidates(shapes, dtype)
+    got = tfn._candidates(shapes, dtype)
+    assert [dict(c) for c in got] == [dict(c) for c in want]
+    for c in got:
+        assert tfn._roofline(c, shapes, dtype) == jfn._roofline(
+            c, shapes, dtype)
+
+
+@pytest.fixture
+def tune_cache(tmp_path, monkeypatch):
+    from mxnet_tpu_torch.ops import autotune as at
+    monkeypatch.setenv("MXTPU_AUTOTUNE_CACHE", str(tmp_path))
+    monkeypatch.delenv("MXTPU_AUTOTUNE", raising=False)
+    at.clear_memory_cache()
+    yield tmp_path
+    at.clear_memory_cache()
+
+
+@pytest.mark.parametrize("kept,want", [(64, 64), (2048, 1024), (4, 8)])
+def test_resolve_block_rows_precedence(tune_cache, monkeypatch, kept, want):
+    """The argument, then the tuned config clamped to [8, 1024] (JAX's
+    `_default_block_rows`), then the card's default."""
+    import json
+    from mxnet_tpu_torch.ops import autotune as at
+    monkeypatch.setattr(tfn._kernels, "sm_count", lambda d: 132)
+    assert tfn.resolve_block_rows(8192, 768, torch.bfloat16) == 32
+    key = at._key("fused_norm", (8192, 768), "bfloat16", "cpu")
+    (tune_cache / "autotune_fused_norm.json").write_text(json.dumps(
+        {key: {"config": {"block_rows": kept}}}))
+    at.clear_memory_cache()
+    assert tfn.resolve_block_rows(8192, 768, torch.bfloat16) == want
+    assert tfn.resolve_block_rows(8000, 700, "bfloat16") == want  # bucket
+    assert tfn.resolve_block_rows(8192, 768, torch.float32) == 32
+    assert tfn.resolve_block_rows(8192, 768, torch.bfloat16, 16) == 16
+    p = tfn._planned(8192, 768, torch.bfloat16, torch.float32, "cpu", True)
+    assert (p.source, p.block_rows) == ("tuned", want)
+
+
+def test_cold_tune_on_the_cpu_times_the_plain_version(tune_cache):
+    """On the CPU the trials run `norm_plain` (no launch counted); a warm
+    call is a hit with 0 trials and the wrappers pick the kept rows up."""
+    from mxnet_tpu_torch import kernels
+    from mxnet_tpu_torch.ops import autotune as at
+    assert "fused_norm" in at.tunables()
+    kernels.reset_launch_counts()
+    n = len(tfn._candidates((64, 32), "float32"))
+    cold = at.tune("fused_norm", (64, 32), "float32", runs=1, top_k=n)
+    assert not cold.cache_hit and cold.trials == n == 5     # 8 to 128
+    assert not any(kernels.launch_counts().values())
+    warm = at.tune("fused_norm", (64, 32), "float32")
+    assert warm.cache_hit and warm.trials == 0
+    assert tfn.resolve_block_rows(64, 32, torch.float32) == \
+        cold.config.block_rows

@@ -301,3 +301,76 @@ def test_16bit_state_rounds_the_decay_as_jax(name):
                 assert a.dtype == torch.bfloat16
                 np.testing.assert_array_equal(a.float().numpy(),
                                               np.asarray(b, np.float32))
+
+
+# ---------------------------------------------------------------------------
+# LAMB phase A's leaf table (no card needed)
+# ---------------------------------------------------------------------------
+
+def _bert_base_leaves(dtype):
+    """(shape, dtype name) of every parameter of `BertForPretraining(
+    bert_base(dtype))`, in its order, from the configuration alone: the
+    LayerNorm parameters stay f32."""
+    from mxnet_tpu_torch.models import bert_base
+    c = bert_base()
+    H, I, V = c.hidden_size, c.intermediate_size, c.vocab_size
+    norm = [((H,), "float32")] * 2
+    out = [((V, H), dtype), ((c.type_vocab_size, H), dtype),
+           ((c.max_position, H), dtype)] + norm
+    for _ in range(c.num_layers):
+        out += [((3 * H, H), dtype), ((3 * H,), dtype), ((H, H), dtype),
+                ((H,), dtype)] + norm + [((I, H), dtype), ((I,), dtype),
+                                         ((H, I), dtype), ((H,), dtype)] \
+            + norm
+    out += [((H, H), dtype), ((H,), dtype), ((H, H), dtype), ((H,), dtype)] \
+        + norm + [((V, H), dtype), ((V,), dtype), ((2, H), dtype),
+                  ((2,), dtype)]
+    return out
+
+
+@pytest.mark.parametrize("dtype,n_groups", [("float32", 1), ("bfloat16", 2)])
+def test_lamb_table_covers_every_element_of_bert_base_once(dtype, n_groups):
+    """`_lamb_layout` over the groups of BERT-base's real leaves: every
+    element of every leaf in exactly one block entry, the r offsets
+    disjoint and 16-byte aligned, each leaf's partial slots contiguous and
+    in chunk order; one phase-A launch per (weight, state) dtype group."""
+    leaves = _bert_base_leaves(dtype)
+    assert len(leaves) == 159
+    assert sum(int(np.prod(s)) for s, _ in leaves) == 133_547_324
+    groups = {}
+    for i, (s, d) in enumerate(leaves):
+        groups.setdefault((d, "float32", "float32"), []).append(i)
+    assert len(groups) == n_groups
+    chunk = tfo.LAMB_CHUNK
+    for members in groups.values():
+        numels = [int(np.prod(leaves[i][0])) for i in members]
+        lay = tfo._lamb_layout(numels)
+        leaf = (lay.codes >> 32).astype(np.int64)
+        ck = lay.codes & 0xffffffff
+        assert lay.codes.dtype == np.int64
+        for j, n in enumerate(numels):
+            mine = np.sort(ck[leaf == j])
+            # each chunk of the leaf once: elements [c * chunk, ...) cover
+            # [0, n) exactly
+            assert (mine == np.arange(-(-n // chunk))).all()
+            assert lay.chunks[j] == mine.size
+            assert lay.r_off[j] % 8 == 0
+            assert lay.r_off[j] + n <= (lay.r_off[j + 1] if j + 1 <
+                                        len(numels) else lay.r_total)
+            # slots p_off .. p_off + chunks - 1, chunk c at p_off + c
+            assert lay.p_off[j] == sum(lay.chunks[:j])
+        assert lay.slots == sum(lay.chunks) == lay.codes.size
+        assert lay.r_total >= sum(numels)
+        # one launch's block map: every code of the group, in leaf order
+        assert (np.diff(leaf) >= 0).all()
+
+
+def test_lamb_layout_edges():
+    lay = tfo._lamb_layout([1, 768, 0, tfo.LAMB_CHUNK + 1],
+                           chunk=tfo.LAMB_CHUNK)
+    assert lay.chunks == [1, 1, 0, 2]
+    assert lay.r_off == [0, 8, 776, 776]
+    assert lay.p_off == [0, 1, 2, 2]
+    assert list(lay.codes) == [0, 1 << 32, 3 << 32, (3 << 32) | 1]
+    empty = tfo._lamb_layout([])
+    assert empty.codes.size == 0 and empty.r_total == 0
