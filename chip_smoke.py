@@ -59,8 +59,9 @@ widths (hidden 768, FFN 3072, 8 experts) through `TrainStep` and the gluon
 9. (k6) the optimizer kernels over BERT-base's real parameter list (159
    tensors, 133.6 M elements; f32 model: one dtype group, bf16 model: bf16
    weights and f32 LayerNorm parameters) — the multi-tensor chunk for Adam,
-   AdamW and SGD with momentum, LAMB phase A (once per dtype group) and
-   phase B (once per tensor) — against the per-leaf
+   AdamW and SGD with momentum, LAMB phases A and B (each once per dtype
+   group; phase B's plan recorded, and its device time with the codes
+   walked last to first and first to last) — against the per-leaf
    plain version, ``kernel_plain`` (each state within 1e-5 of its scale;
    each weight within its rounding plus 1e-5 of its update's scale, and at
    most 1e-4 of the bf16 weights' elements off the plain value), with
@@ -76,7 +77,7 @@ widths (hidden 768, FFN 3072, 8 experts) through `TrainStep` and the gluon
    (``MXTPU_PALLAS=auto``): bf16 and f32 weights with Adam lr 1e-4 and
    with LAMB lr 1e-3 — every LayerNorm through the fused norm (26 launches
    a step), the optimizer through the chunk kernel (once per dtype group a
-   step) or LAMB's phases (A once per dtype group, B once per tensor) —
+   step) or LAMB's phases (A and B each once per dtype group) —
    and slice 2's
    ``MXTPU_PALLAS=reference`` bf16 Adam step (no norm or optimizer
    launch).  The flash kernels launch 12 times a step each way and the
@@ -98,6 +99,8 @@ widths (hidden 768, FFN 3072, 8 experts) through `TrainStep` and the gluon
    rejected; timed beside ``torch.index_select`` (combine: index_select
    and a multiply, two calls) and the bound;
 12. (tune) the autotuner's trial launches of the chunk kernel (row 10),
+   each trial timed by CUDA events after an L2 flush (`time_callable`
+   with the card's device; every trial's ms and the pick printed),
    with ``MXTPU_AUTOTUNE_CACHE`` in a temporary directory: a cold
    ``tune("fused_optimizer", (n,), "float32")`` for the MoE layer's
    parameters (37.8 M) and BERT-base's (133.6 M) runs trials that the
@@ -121,7 +124,8 @@ widths (hidden 768, FFN 3072, 8 experts) through `TrainStep` and the gluon
    norm's rows a block (``tune("fused_norm", (8192, 768), "bfloat16")``
    over JAX's whole block_rows menu: the trials launch the CUDA kernel,
    every candidate within 2e-2 of the plain version's scale, a warm call
-   a hit with 0 trials, the next call's plan on the tuned block_rows);
+   a hit with 0 trials, the next call's plan on the tuned block_rows; a
+   second cold search records whether it picks the same block_rows);
 13. (moe) ``MoEFeedForward(768, 3072, num_experts=8, capacity_factor=1.25)``
    trained 20 steps on a seeded (64, 128, 768) batch, loss MSE + 0.01 aux,
    Adam lr 1e-4, through ``TrainStep`` and through ``gluon.Trainer``
@@ -1102,11 +1106,11 @@ def k6_cases(dev):
             controls = _opt_controls(kp, ks, want_p, want_s, params, states)
             ok = ok and all(controls.values())
             n_groups = len({p.dtype for p in params.values()})
-            # LAMB: phase A once per (weight, state) dtype group, B once
-            # per tensor
+            # LAMB: phases A and B once per (weight, state) dtype group
             want_l = ({"lamb_phase_a": n_groups,
-                       "lamb_phase_b": len(params)} if rule == "lamb"
+                       "lamb_phase_b": n_groups} if rule == "lamb"
                       else {"fused_optimizer_chunk": n_groups})
+            b_plans = [p._asdict() for p in fo.last_lamb_b_plans]
             ok = ok and all(launches[k] == v for k, v in want_l.items())
             # skip=True leaves every weight and state bit-identical
             sp = {n: t.clone() for n, t in params.items()}
@@ -1136,6 +1140,11 @@ def k6_cases(dev):
                         [kp[n].numel() for n in gr]).codes.size),
                     sm_count=kernels.sm_count(dev)) for gr in groups]
                 case["phase_a_launches"] = launches["lamb_phase_a"]
+                # phase B's: one launch a group over phase A's table
+                case["phase_b_plan"] = [dict(
+                    p, weight_dtype=a["weight_dtype"], chunk=fo.LAMB_CHUNK)
+                    for p, a in zip(b_plans, case["phase_a_plan"])]
+                case["phase_b_launches"] = launches["lamb_phase_b"]
 
             def kernel_call():
                 fo.apply_updates(opt, kp, grads, ks, hp, use_kernel=True)
@@ -1152,6 +1161,17 @@ def k6_cases(dev):
             case["library_ms"] = None if lib is None else \
                 profile_ms(lib)[0]
             if rule == "lamb":
+                # phase B's code order: each way after a phase A, as the
+                # step runs it (the default's time is phase_b_ms below)
+                default = fo.LAMB_B_REVERSE
+                for order, rev in (("forward", False), ("reverse", True)):
+                    fo.LAMB_B_REVERSE = rev
+                    try:
+                        _, by = profile_ms(kernel_call)
+                    finally:
+                        fo.LAMB_B_REVERSE = default
+                    case[f"phase_b_{order}_ms"] = sum(
+                        v for k, v in by.items() if "lamb_b_kernel" in k)
                 for ph in ("a", "b"):
                     ms = sum(v for k, v in by_name.items()
                              if f"lamb_{ph}_kernel" in k)
@@ -1322,11 +1342,11 @@ TRAIN_RUNS = (("bfloat16", "Adam", "auto"), ("float32", "Adam", "auto"),
               ("bfloat16", "Adam", "reference"))
 
 
-def want_launches(opt, route, n_tensors, n_groups, layers):
+def want_launches(opt, route, n_groups, layers):
     """Exact launches over `TRAIN_STEPS` steps: 26 norms a step (embed,
     2 per layer, the MLM head) and the optimizer on the kernel route only
-    (the chunk or LAMB's phase A once per dtype group, phase B once per
-    tensor); flash and cross-entropy on both."""
+    (the chunk, or LAMB's phases A and B, once per dtype group); flash
+    and cross-entropy on both."""
     kr = route != "reference"
     lamb = kr and opt == "LAMB"
     per_step = {"flash_attention_fwd": layers, "flash_attention_bwd": layers,
@@ -1334,7 +1354,7 @@ def want_launches(opt, route, n_tensors, n_groups, layers):
                 "fused_norm": 2 * layers + 2 if kr else 0,
                 "fused_optimizer_chunk": n_groups if kr and not lamb else 0,
                 "lamb_phase_a": n_groups if lamb else 0,
-                "lamb_phase_b": n_tensors if lamb else 0}
+                "lamb_phase_b": n_groups if lamb else 0}
     return {k: v * TRAIN_STEPS for k, v in per_step.items()}
 
 
@@ -1355,7 +1375,7 @@ def run_train(dev, results, card):
         torch.cuda.empty_cache()
         pst, pstep_s, _ = train_run(dev, dtype, True, batch, opt, route)
         torch.cuda.empty_cache()
-        want = want_launches(opt, route, n_t, n_g, cfg.num_layers)
+        want = want_launches(opt, route, n_g, cfg.num_layers)
         got = {k: st["launches"][k] for k in want}
         if got != want:
             raise AssertionError(f"train {key}: kernel launches {got}, "
@@ -1556,37 +1576,27 @@ def run_tune(dev, results, card):
         os.environ["MXTPU_AUTOTUNE_CACHE"] = tmp
         at.clear_memory_cache()
         try:
-            for label, n in (("moe_f32", moe_param_count()),
-                             ("bert_f32", bert_n)):
-                results["tune"][label] = st = tune_case(dev, n, at, fo, topt,
-                                                        kernels, torch)
+            cases = [(label, lambda n=n: tune_case(dev, n, at, fo, topt,
+                                                   kernels, torch))
+                     for label, n in (("moe_f32", moe_param_count()),
+                                      ("bert_f32", bert_n))]
+            cases += [("k2_int8", lambda: k2_tune_case(dev, at, kernels,
+                                                       torch)),
+                      ("k1_page_size", lambda: k1_tune_case(at, kernels,
+                                                            torch)),
+                      ("flash_fwd_bf16", lambda: flash_tune_case(
+                          at, kernels, torch)),
+                      ("norm_bf16", lambda: norm_tune_case(at, kernels,
+                                                           torch))]
+            for label, case in cases:
+                results["tune"][label] = st = case()
                 print(f"[tune {label}] {json.dumps(st)}", flush=True)
-                for c, ms in sorted(st["timings_ms"].items()):
-                    print(f"[tune {label}] chunk {c}: {ms:.4f} ms (host "
-                          f"clock, synchronised), bound {st['bound_ms']:.4f}"
-                          f" ms ({st['bound_by']}) on {card}", flush=True)
+                for c, t in st["timings_ms"].items():
+                    print(f"[tune {label}] {c}: {t:.4f} ms (CUDA events, L2 "
+                          f"flushed) on {card}", flush=True)
+                print(f"[tune {label}] pick {st['config']}", flush=True)
                 if not st["ok"]:
                     raise AssertionError(f"tune {label}: {st}")
-            results["tune"]["k2_int8"] = st = k2_tune_case(dev, at, kernels,
-                                                           torch)
-            print(f"[tune k2_int8] {json.dumps(st)}", flush=True)
-            if not st["ok"]:
-                raise AssertionError(f"tune k2_int8: {st}")
-            results["tune"]["k1_page_size"] = st = k1_tune_case(at, kernels,
-                                                                torch)
-            print(f"[tune k1_page_size] {json.dumps(st)}", flush=True)
-            if not st["ok"]:
-                raise AssertionError(f"tune k1_page_size: {st}")
-            results["tune"]["flash_fwd_bf16"] = st = flash_tune_case(
-                at, kernels, torch)
-            print(f"[tune flash_fwd_bf16] {json.dumps(st)}", flush=True)
-            if not st["ok"]:
-                raise AssertionError(f"tune flash_fwd_bf16: {st}")
-            results["tune"]["norm_bf16"] = st = norm_tune_case(at, kernels,
-                                                               torch)
-            print(f"[tune norm_bf16] {json.dumps(st)}", flush=True)
-            if not st["ok"]:
-                raise AssertionError(f"tune norm_bf16: {st}")
         finally:
             at.clear_memory_cache()
             if old is None:
@@ -1596,6 +1606,11 @@ def run_tune(dev, results, card):
 
 
 K2_TUNE = (8, 2304, 768)      # decode's QKV projection, int8 f32
+
+
+def least_pick(res):
+    """Is a cold `tune` result's pick the trial of least time?"""
+    return res.timings_ms[res.config.key()] == min(res.timings_ms.values())
 
 
 def k2_tune_case(dev, at, kernels, torch):
@@ -1639,7 +1654,8 @@ def k2_tune_case(dev, at, kernels, torch):
               warm_launches=warm_launches, candidate_errs=errs,
               tol=TOL["float32"] * scale, tuned_plan=dict(tuned._asdict()),
               next_launches=next_launches)
-    st["ok"] = (cold.trials == len(cands)
+    st["pick_is_least"] = least_pick(cold)
+    st["ok"] = (st["pick_is_least"] and cold.trials == len(cands)
                 and trial_launches == per_trial * cold.trials
                 and warm.cache_hit and warm.trials == 0
                 and warm_launches == 0
@@ -1690,7 +1706,8 @@ def k1_tune_case(at, kernels, torch):
               warm_hit=warm.cache_hit, warm_trials=warm.trials,
               warm_launches=warm_launches, candidate_errs=errs,
               candidate_tols=tols, serve_config_page_size=serve_page)
-    st["ok"] = (cold.trials == len(cands)
+    st["pick_is_least"] = least_pick(cold)
+    st["ok"] = (st["pick_is_least"] and cold.trials == len(cands)
                 and trial_launches == per_trial * cold.trials
                 and warm.cache_hit and warm.trials == 0
                 and warm_launches == 0
@@ -1747,7 +1764,8 @@ def flash_tune_case(at, kernels, torch):
               warm_hit=warm.cache_hit, warm_trials=warm.trials,
               warm_launches=warm_launches, candidate_errs=errs, tol=tol,
               next_plan=plan._asdict())
-    st["ok"] = (cold.trials == len(cands)
+    st["pick_is_least"] = least_pick(cold)
+    st["ok"] = (st["pick_is_least"] and cold.trials == len(cands)
                 and trial_launches == per_trial * cold.trials
                 and warm.cache_hit and warm.trials == 0
                 and warm_launches == 0
@@ -1797,13 +1815,26 @@ def norm_tune_case(at, kernels, torch):
               warm_hit=warm.cache_hit, warm_trials=warm.trials,
               warm_launches=warm_launches, candidate_errs=errs, tol=tol,
               next_launches=next_launches, next_plan=plan._asdict())
-    st["ok"] = (cold.trials == len(cands)
+    st["pick_is_least"] = least_pick(cold)
+    st["ok"] = (st["pick_is_least"] and cold.trials == len(cands)
                 and trial_launches == per_trial * cold.trials
                 and warm.cache_hit and warm.trials == 0
                 and warm_launches == 0 and next_launches == 1
                 and all(e <= tol for e in errs.values())
                 and (plan.block_rows, plan.source)
                 == (cold.config.block_rows, "tuned"))
+    # a second cold search (memory and disk cleared): the same pick, or
+    # how far apart the two picks' times lie in each search
+    at.clear_memory_cache()
+    os.remove(at._disk_path("fused_norm"))
+    again = at.tune("fused_norm", NORM_TUNE, "bfloat16", top_k=len(cands))
+    t1 = st["timings_ms"]
+    t2 = {dict(k_)["block_rows"]: v_ for k_, v_ in again.timings_ms.items()}
+    a, b = cold.config.block_rows, again.config.block_rows
+    st.update(second_config=dict(again.config), second_timings_ms=t2,
+              same_pick=a == b,
+              picks_gap=max(t1[b] / t1[a], t2[a] / t2[b]) - 1.0)
+    st["ok"] = st["ok"] and least_pick(again)
     return st
 
 
@@ -1877,7 +1908,9 @@ def tune_case(dev, n, at, fo, topt, kernels, torch):
               next_launch_chunk=next_chunk,
               next_launches=next_launches, ms=ms, plain_ms=plain_ms,
               library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
-    st["ok"] = (cold.trials > 0 and trial_launches == per_trial * cold.trials
+    st["pick_is_least"] = least_pick(cold)
+    st["ok"] = (st["pick_is_least"] and cold.trials > 0
+                and trial_launches == per_trial * cold.trials
                 and warm.cache_hit and warm.trials == 0
                 and warm_launches == 0 and all(equal.values()) and plain_ok
                 and next_chunk == cold.config.chunk and next_launches == 1)
@@ -2156,6 +2189,12 @@ def kernel_entries(results):
                    train_launches("lamb_phase_a"), lamb, rep8,
                    ms="phase_a_ms")
     lamb_a.update(plan=rep8["phase_a_plan"])
+    lamb_b = entry("lamb_phase_b", fo_src, f"{fo_py}:333",
+                   train_launches("lamb_phase_b"), lamb, rep8,
+                   ms="phase_b_ms")
+    lamb_b.update(plan=rep8["phase_b_plan"],
+                  forward_ms=rep8["phase_b_forward_ms"],
+                  reverse_ms=rep8["phase_b_reverse_ms"])
     return [
         entry("ragged_paged_attention",
               "mxnet_tpu_torch/csrc/paged_attention.cu",
@@ -2176,9 +2215,7 @@ def kernel_entries(results):
         entry("fused_optimizer_chunk", fo_src, f"{fo_py}:220",
               train_launches("fused_optimizer_chunk"), chunk, rep7),
         lamb_a,
-        entry("lamb_phase_b", fo_src, f"{fo_py}:333",
-              train_launches("lamb_phase_b"), lamb, rep8,
-              ms="phase_b_ms"),
+        lamb_b,
         entry("moe_dispatch", "mxnet_tpu_torch/csrc/moe_dispatch.cu",
               "mxnet_tpu/ops/pallas/moe_dispatch.py:139",
               train_launches("moe_dispatch"),

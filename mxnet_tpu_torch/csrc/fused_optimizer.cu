@@ -1,6 +1,6 @@
 // Fused optimizer updates for Hopper (sm_90a): the multi-tensor chunk
-// kernel, LAMB's multi-tensor phase A and its per-tensor phase B, CUDA C++
-// with plain C entries.
+// kernel and LAMB's multi-tensor phases A and B, CUDA C++ with plain C
+// entries.
 //
 // Replaces the Pallas TPU kernels of mxnet_tpu/ops/pallas/fused_optimizer.py:
 //   chunk    `_elementwise_chunk_kernel` (:159), launched by
@@ -59,6 +59,10 @@
 // the leaf's last chunk to finish, whose block sums the leaf's partials in
 // chunk order and writes the leaf's trust ratio — no float atomics, so the
 // ratio does not depend on which block finished last.
+//
+// LAMB phase B is one launch per dtype group as well, over phase A's own
+// device table (no second table, no second copy from the host): persistent
+// blocks walk the same codes with the same 16-byte steps.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -419,17 +423,75 @@ int sm_count() {
   return counts[dev] > 0 ? counts[dev] : 132;
 }
 
+// LAMB phase B over one dtype group: phase A's own table (each leaf
+// entry's w, n and r offset, then the (leaf << 32 | chunk) codes), walked
+// by persistent blocks, the last code first when `reverse` (phase A's
+// blocks finish the group's last codes last, so their r may still be in
+// L2; the H100 times both orders the same).  Per chunk, q = lr * ratio[leaf] once, then each element
+// w' = fmaf(-q, r, w) rounded to W: one rounding, whatever the compiler's
+// contraction.  A thread moves 8 elements a step (one 16-byte load of a
+// bf16 w, two of an f32 one, two float4 loads of r, one 16-byte store; two
+// steps in flight) where w is 16-byte aligned, one element at a time
+// otherwise and for a leaf's ragged tail.  With skip set, the loaded bits
+// go back (a select, so a NaN in r never reaches w).
 template <typename W>
 __global__ void __launch_bounds__(THREADS)
-lamb_b_kernel(W* __restrict__ w, const float* __restrict__ r,
-              const float* __restrict__ ratio, long long n, Hyper hy) {
-  const float q = *hy.lr * *ratio;
+lamb_b_kernel(const long long* __restrict__ table, int n_leaves,
+              int n_blocks, int chunk, int reverse,
+              const float* __restrict__ r, const float* __restrict__ ratio,
+              Hyper hy) {
+  const LambLeaf* leaves = reinterpret_cast<const LambLeaf*>(table);
+  const long long* codes = table + 8LL * n_leaves;
+  const float lr = *hy.lr;
   const bool skip = hy.skip != nullptr && *hy.skip != 0;
-  const long long stride = (long long)gridDim.x * THREADS;
-  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < n;
-       i += stride) {
-    const W wo = w[i];
-    w[i] = skip ? wo : from_f<W>(to_f(wo) - q * r[i]);
+  const int tid = threadIdx.x;
+  for (int e = blockIdx.x; e < n_blocks; e += gridDim.x) {
+    const long long code = codes[reverse ? n_blocks - 1 - e : e];
+    const int li = (int)(code >> 32);
+    const long long ck = code & 0xffffffffLL;
+    const long long wp = leaves[li].w;
+    W* __restrict__ w = reinterpret_cast<W*>(wp);
+    const float* __restrict__ rr = r + leaves[li].r_off;
+    const float q = lr * ratio[li];
+    const long long start = ck * chunk;
+    const long long end = min(leaves[li].n, start + chunk);
+    long long tail = start;
+    if ((wp & 15) == 0) {
+      const long long vend = start + (end - start) / 8 * 8;
+      for (long long i0 = start + 8LL * tid; i0 < vend;
+           i0 += 8LL * THREADS * LAMB_U) {
+        Pack8<W> wv[LAMB_U];
+        float4 ra[LAMB_U], rb[LAMB_U];
+#pragma unroll
+        for (int u = 0; u < LAMB_U; ++u) {
+          const long long i = i0 + 8LL * THREADS * u;
+          if (i < vend) {
+            wv[u] = load8(w + i);
+            ra[u] = reinterpret_cast<const float4*>(rr + i)[0];
+            rb[u] = reinterpret_cast<const float4*>(rr + i)[1];
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < LAMB_U; ++u) {
+          const long long i = i0 + 8LL * THREADS * u;
+          if (i >= vend) continue;
+          const float rv[8] = {ra[u].x, ra[u].y, ra[u].z, ra[u].w,
+                               rb[u].x, rb[u].y, rb[u].z, rb[u].w};
+          Pack8<W> o;
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            o.r[j] = skip ? wv[u].r[j]
+                          : Bits<W>::r(fmaf(-q, rv[j],
+                                            Bits<W>::f(wv[u].r[j])));
+          store8(w + i, o);
+        }
+      }
+      tail = vend;
+    }
+    for (long long i = tail + tid; i < end; i += THREADS) {
+      const W wo = w[i];
+      w[i] = skip ? wo : from_f<W>(fmaf(-q, rr[i], to_f(wo)));
+    }
   }
 }
 
@@ -530,26 +592,51 @@ extern "C" int mxt_lamb_phase_a(const void* table, int n_leaves, int n_blocks,
   return (int)cudaGetLastError();
 }
 
-// LAMB phase B: w (n,) in w_dtype updated in place from r and the ratio of
-// phase A.
-extern "C" int mxt_lamb_phase_b(void* w, const void* r, const void* ratio,
-                                long long n, int w_dtype, const void* lr,
-                                const void* skip, void* stream) {
+// LAMB phase B over one dtype group: table, n_leaves, n_blocks and chunk
+// exactly as given to its phase A (only each leaf's w, n and r offset are
+// read); r and ratio the scratch phase A wrote; w (w_dtype) updated in
+// place; `grid` persistent blocks (at least 1; `mxt_lamb_phase_b_per_sm`
+// times the SMs fill the card); `reverse` walks the codes last to first.
+extern "C" int mxt_lamb_phase_b(const void* table, int n_leaves,
+                                int n_blocks, int chunk, int grid,
+                                int reverse, const void* r,
+                                const void* ratio, int w_dtype,
+                                const void* lr, const void* skip,
+                                void* stream) {
   cudaGetLastError();
-  if (n <= 0) return (int)cudaErrorInvalidValue;
+  if (n_blocks == 0) return 0;
+  if (n_leaves < 1 || n_blocks < 0 || grid < 1 || chunk < 8 ||
+      chunk % 8 != 0 || (reinterpret_cast<uintptr_t>(r) & 15) != 0)
+    return (int)cudaErrorInvalidValue;
   const Hyper h = hyper(lr, nullptr, nullptr, nullptr, nullptr, skip);
-  long long nb = (n + 4LL * THREADS - 1) / (4LL * THREADS);
-  const int blocks = (int)(nb > 8192 ? 8192 : nb);
+  const long long* tab = static_cast<const long long*>(table);
+  const float* rf = static_cast<const float*>(r);
+  const float* ra = static_cast<const float*>(ratio);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (w_dtype == 0)
-    lamb_b_kernel<float><<<blocks, THREADS, 0, st>>>(
-        static_cast<float*>(w), static_cast<const float*>(r),
-        static_cast<const float*>(ratio), n, h);
+    lamb_b_kernel<float><<<grid, THREADS, 0, st>>>(
+        tab, n_leaves, n_blocks, chunk, reverse, rf, ra, h);
   else if (w_dtype == 1)
-    lamb_b_kernel<__nv_bfloat16><<<blocks, THREADS, 0, st>>>(
-        static_cast<__nv_bfloat16*>(w), static_cast<const float*>(r),
-        static_cast<const float*>(ratio), n, h);
+    lamb_b_kernel<__nv_bfloat16><<<grid, THREADS, 0, st>>>(
+        tab, n_leaves, n_blocks, chunk, reverse, rf, ra, h);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+// Blocks of phase B's kernel in w_dtype that fit on one SM at once (> 0),
+// or minus the cudaError_t of the query.
+extern "C" int mxt_lamb_phase_b_per_sm(int w_dtype) {
+  int per_sm = 0;
+  cudaError_t e;
+  if (w_dtype == 0)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, lamb_b_kernel<float>, THREADS, 0);
+  else if (w_dtype == 1)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, lamb_b_kernel<__nv_bfloat16>, THREADS, 0);
+  else
+    return -(int)cudaErrorInvalidValue;
+  if (e != cudaSuccess) return -(int)e;
+  return per_sm > 0 ? per_sm : 1;
 }

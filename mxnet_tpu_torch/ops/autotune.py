@@ -3,7 +3,8 @@
 Search then persist: each tunable op registers a candidate grid of
 `BlockConfig`s, an analytic cost model (`predict_s`: the roofline plus a
 per-block overhead) prunes the grid to ``top_k``, the survivors are timed
-through `benchmark.opperf.time_callable`, and the winner is kept in memory
+through `benchmark.opperf.time_callable` (CUDA events after an L2 flush on
+a card, the host clock on the CPU), and the winner is kept in memory
 and in a JSON file keyed ``op|shape bucket|dtype|device kind``, so a warm
 start runs no timed trial.
 
@@ -136,6 +137,15 @@ def device_kind() -> str:
     if torch.cuda.is_available():
         return torch.cuda.get_device_name()
     return "cpu"
+
+
+def _device_of(kind: str):
+    """The device that `device_kind()` answered `kind` for: the current
+    card, or the CPU."""
+    import torch
+    if kind == "cpu":
+        return torch.device("cpu")
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 def _model_for(kind: str) -> Tuple[float, float, float]:
@@ -316,7 +326,9 @@ def tune(op: str, shapes: Sequence[int], dtype="float32", warmup: int = 1,
 
     Warm: a memory or disk hit returns at once with 0 trials.  Cold: the
     op's candidates are ranked by `predict_s`, the best `top_k` are timed
-    (`time_callable`, median of `runs`), and the fastest is kept.  A
+    (`time_callable` on the device of the key's kind, median of `runs`:
+    CUDA events on a card, the host clock on the CPU), and the fastest is
+    kept.  A
     survivor that fails to build or run loses; when every survivor fails,
     nothing is kept, so a later healthy process searches again."""
     _ensure_builtin()
@@ -340,12 +352,14 @@ def tune(op: str, shapes: Sequence[int], dtype="float32", warmup: int = 1,
     survivors = ranked[:max(1, top_k)]
 
     from ..benchmark.opperf import time_callable
+    dev = _device_of(kind)
     timings: Dict[Tuple[Tuple[str, int], ...], float] = {}
     best, best_ms = survivors[0], math.inf
     for cfg in survivors:
         try:
             thunk = tunable.build(cfg, shapes, dtype)
-            ms = time_callable(thunk, warmup=warmup, runs=runs)["median_ms"]
+            ms = time_callable(thunk, warmup=warmup, runs=runs,
+                               device=dev)["median_ms"]
         except Exception:
             continue    # an unbuildable survivor loses, it does not abort
         timings[cfg.key()] = ms

@@ -22,9 +22,10 @@ kernels and their plain versions (counterpart of
   nothing was tuned; `last_chunk` records it); for LAMB phase A once per
   such group (moments, the update direction r into a per-stream scratch
   and each tensor's trust ratio from deterministically reduced norms, over
-  the same kind of leaf table, `_lamb_layout`), then phase B once per
-  tensor (the bounded update).  The hyperparameters and the skip flag stay
-  on the device.  On
+  the same kind of leaf table, `_lamb_layout`), then phase B (the bounded
+  update) once per group too, over phase A's own device table
+  (`_lamb_b_plan`; `last_lamb_b_plans`).  The hyperparameters and the skip
+  flag stay on the device.  On
   a CPU tensor it runs the kernels' plain version, `kernel_plain` (the
   same math, the same order of operations: LAMB's trust ratio stays f32),
   and writes the results in place.
@@ -41,7 +42,7 @@ trial launch) are registered at import.
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict, List, NamedTuple, Sequence, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -53,10 +54,15 @@ from . import autotune
 from .policy import kernel_active
 
 __all__ = ["apply_updates", "supported", "kernel_supported", "kernel_route",
-           "kernel_plain", "HpScalarCache", "CHUNK", "last_chunk"]
+           "kernel_plain", "HpScalarCache", "CHUNK", "last_chunk",
+           "last_lamb_b_plans"]
 
 CHUNK = 8192           # elements of one leaf per block: the static default
-LAMB_CHUNK = 8192      # elements of one leaf per LAMB phase-A chunk
+LAMB_CHUNK = 8192      # elements of one leaf per LAMB chunk (both phases)
+#: walk phase B's codes last to first (where phase A's last chunks may
+#: have left r in L2)?  On the H100 the two orders time the same within
+#: noise (PERF.md), so phase B keeps phase A's order
+LAMB_B_REVERSE = False
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: weight dtype name -> elements per block of that dtype group's latest
 #: chunk launch (on the CPU: the chunk the launch would have used)
@@ -144,12 +150,13 @@ def _reference_leaf(optimizer, w, g, s_old, hp, skip, kernel_math=False):
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_L = ctypes.c_longlong
 _SIGS = {"mxt_fused_chunk": [_P, _I, _I, _I, _I, _I, _I] + [_F] * 6
          + [_I] + [_P] * 7,
          "mxt_lamb_phase_a": [_P, _I, _I, _I] + [_P] * 4 + [_I, _I]
          + [_F] * 5 + [_I, _F, _F, _I, _I] + [_P] * 7,
-         "mxt_lamb_phase_b": [_P, _P, _P, _L, _I, _P, _P, _P]}
+         "mxt_lamb_phase_b": [_P, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P,
+                              _P],
+         "mxt_lamb_phase_b_per_sm": [_I]}
 _fns = {}
 
 
@@ -323,6 +330,46 @@ def _lamb_layout(numels: Sequence[int], chunk: int = LAMB_CHUNK
                       else np.zeros(0, np.int64), r, slots)
 
 
+class LambBPlan(NamedTuple):
+    """One phase-B launch over a group's leaf table."""
+    grid: int            # persistent blocks: as many as fit, one a code at most
+    block_entries: int   # the group's (leaf, chunk) codes
+    reverse: bool        # codes walked last to first
+    vector_leaves: int   # leaves whose w is 16-byte aligned: 8-element steps
+    element_leaves: int  # the others: one element a step (as every tail)
+
+
+def _lamb_b_plan(block_entries: int, w_ptrs: Sequence[int], per_sm: int,
+                 sm_count: int, reverse: Optional[bool] = None
+                 ) -> LambBPlan:
+    """Phase B's launch over `block_entries` codes of leaves at `w_ptrs`,
+    with `per_sm` blocks fitting on each of `sm_count` SMs; `reverse`
+    defaults to `LAMB_B_REVERSE`."""
+    vec = sum(1 for p in w_ptrs if p % 16 == 0)
+    return LambBPlan(max(1, min(per_sm * sm_count, block_entries)),
+                     block_entries,
+                     LAMB_B_REVERSE if reverse is None else bool(reverse),
+                     vec, len(w_ptrs) - vec)
+
+
+#: phase B's plans of the latest CUDA LAMB update, one a dtype group
+last_lamb_b_plans: List[LambBPlan] = []
+# weight dtype code -> phase B's blocks per SM (the kernel's resources fix
+# it; the build targets one architecture)
+_lamb_b_per_sm: Dict[int, int] = {}
+
+
+def _lamb_b_blocks_per_sm(w_dtype: int) -> int:
+    n = _lamb_b_per_sm.get(w_dtype)
+    if n is None:
+        n = _kernel_fn("mxt_lamb_phase_b_per_sm")(w_dtype)
+        if n <= 0:
+            raise MXNetError(f"LAMB phase B occupancy query failed "
+                             f"(cudaError_t {-n})")
+        _lamb_b_per_sm[w_dtype] = n
+    return n
+
+
 # (device index, raw stream) -> (tickets, partials, r, ratios): phase A's
 # scratch, kept per stream (`kernels.stream_scratch`)
 _lamb_scratch: Dict[Any, Tuple[torch.Tensor, ...]] = {}
@@ -330,7 +377,7 @@ _lamb_scratch: Dict[Any, Tuple[torch.Tensor, ...]] = {}
 
 def _lamb_cuda(optimizer, names, params, grads, states, hptr, dev):
     """In place: per dtype group (`_groups`), one phase-A launch over the
-    group's leaf table, then one phase-B launch per tensor."""
+    group's leaf table, then one phase-B launch over the same table."""
     o = optimizer
     for n in names:
         _check_leaf(n, params[n], grads[n], states[n], dev)
@@ -340,13 +387,14 @@ def _lamb_cuda(optimizer, names, params, grads, states, hptr, dev):
     lo, hi = o.lower_bound, o.upper_bound
     phase_a, phase_b = (_kernel_fn("mxt_lamb_phase_a"),
                         _kernel_fn("mxt_lamb_phase_b"))
+    plans = []
     for group in _groups(names, params, states):
         numels = [params[n].numel() for n in group]
         lay = _lamb_layout(numels)
         if lay.codes.size == 0:
             continue
-        # the group's r waits in the scratch for its phase-B launches; a
-        # later group's phase A overwrites it only after them (one stream)
+        # the group's r waits in the scratch for its phase-B launch; a
+        # later group's phase A overwrites it only after it (one stream)
         tickets, part, r, ratio = _kernels.stream_scratch(
             _lamb_scratch, dev, stream, len(group), 2 * lay.slots,
             lay.r_total, len(group))
@@ -362,23 +410,25 @@ def _lamb_cuda(optimizer, names, params, grads, states, hptr, dev):
         dev_table = torch.from_numpy(table).pin_memory().to(
             dev, non_blocking=True)
         w0, (m0, _) = params[group[0]], states[group[0]]
+        wdt = _DTYPES[w0.dtype]
+        n_codes = int(lay.codes.size)
         err = phase_a(
-            dev_table.data_ptr(), len(group), int(lay.codes.size),
-            LAMB_CHUNK, r.data_ptr(), part.data_ptr(),
-            tickets.data_ptr(), ratio.data_ptr(), _DTYPES[w0.dtype],
-            _DTYPES[m0.dtype], o.beta1, o.beta2, o.epsilon, 1 - o.beta1,
-            1 - o.beta2, int(o.bias_correction), 0.0 if lo is None else lo,
-            0.0 if hi is None else hi, int(lo is not None),
-            int(hi is not None), *hptr, stream)
+            dev_table.data_ptr(), len(group), n_codes, LAMB_CHUNK,
+            r.data_ptr(), part.data_ptr(), tickets.data_ptr(),
+            ratio.data_ptr(), wdt, _DTYPES[m0.dtype], o.beta1, o.beta2,
+            o.epsilon, 1 - o.beta1, 1 - o.beta2, int(o.bias_correction),
+            0.0 if lo is None else lo, 0.0 if hi is None else hi,
+            int(lo is not None), int(hi is not None), *hptr, stream)
         _launched("LAMB phase A", err, "lamb_phase_a")
-        for i, n in enumerate(group):
-            if numels[i] == 0:
-                continue
-            w = params[n]
-            err = phase_b(w.data_ptr(), r[lay.r_off[i]:].data_ptr(),
-                          ratio[i:i + 1].data_ptr(), numels[i],
-                          _DTYPES[w.dtype], hptr[0], hptr[5], stream)
-            _launched("LAMB phase B", err, "lamb_phase_b")
+        plan = _lamb_b_plan(n_codes, [row[0] for row in leaves],
+                            _lamb_b_blocks_per_sm(wdt),
+                            _kernels.sm_count(dev))
+        err = phase_b(dev_table.data_ptr(), len(group), n_codes, LAMB_CHUNK,
+                      plan.grid, int(plan.reverse), r.data_ptr(),
+                      ratio.data_ptr(), wdt, hptr[0], hptr[5], stream)
+        _launched("LAMB phase B", err, "lamb_phase_b")
+        plans.append(plan)
+    last_lamb_b_plans[:] = plans
 
 
 # ---------------------------------------------------------------------------

@@ -205,3 +205,44 @@ def test_time_callable_schema_and_moe_tunable(cache):
     res = at.tune("moe_dispatch", (64, 4, 20, 128), "bfloat16", runs=1)
     assert res.trials == 2 and res.config in (
         at.BlockConfig(use_kernel=1), at.BlockConfig(use_kernel=0))
+
+
+@pytest.mark.parametrize("device", [None, "cpu", torch.device("cpu")])
+def test_time_callable_on_the_cpu_keeps_the_host_clock(device,
+                                                       monkeypatch):
+    """Off the card each sample is the host clock around one call (a fake
+    clock that each call moves by 2 ms gives 2 ms exactly), warmups run
+    first, no CUDA event is made, and the schema is JAX's."""
+    from mxnet_tpu_torch.benchmark import opperf
+    now = [0.0]
+    calls = []
+
+    def fn():
+        calls.append(now[0])
+        now[0] += 0.002
+
+    def no_event(*a, **k):
+        raise AssertionError("a CUDA event on the CPU path")
+    monkeypatch.setattr(opperf.time, "perf_counter", lambda: now[0])
+    monkeypatch.setattr(torch.cuda, "Event", no_event)
+    t = time_callable(fn, warmup=2, runs=4, device=device)
+    assert len(calls) == 6
+    assert t == {"median_ms": pytest.approx(2.0), "mean_ms":
+                 pytest.approx(2.0), "min_ms": pytest.approx(2.0),
+                 "max_ms": pytest.approx(2.0), "runs": 4, "warmup": 2}
+
+
+def test_tune_times_trials_on_the_device_of_its_kind(cache, monkeypatch):
+    """`tune` passes the device of `device_kind()` to the timer: the CPU
+    here, so its trials keep the host clock."""
+    from mxnet_tpu_torch.benchmark import opperf
+    seen = []
+    real = opperf.time_callable
+
+    def spy(fn, warmup=1, runs=5, device=None):
+        seen.append(device)
+        return real(fn, warmup=warmup, runs=runs, device=device)
+    monkeypatch.setattr(opperf, "time_callable", spy)
+    res = at.tune("fused_optimizer", (5000,), "float32", runs=1)
+    assert res.trials == len(seen) > 0
+    assert all(d == torch.device("cpu") for d in seen)

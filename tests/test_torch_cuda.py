@@ -13,10 +13,12 @@ cross-entropy (any V, unclamped labels), the fused LayerNorm/RMSNorm (any
 h, with and without residual and beta; both plan variants, 16-byte and
 one-element loads, every block_rows of its tuner's menu, two calls
 bit-equal, the public wrappers, its tunable's trials) and the optimizer
-kernels (the multi-tensor chunk for Adam, AdamW and SGD, LAMB phase A once
-per dtype group and phase B per tensor, with 1- and 768-element leaves, an
-unaligned leaf, two streams and the gluon `Trainer`; f32 and bf16 weights;
-the skip flag; every tunable chunk size), the MoE row
+kernels (the multi-tensor chunk for Adam, AdamW and SGD, LAMB phases A
+and B once per dtype group, with 1- and 768-element leaves, an unaligned
+leaf, two streams and the gluon `Trainer`; phase B within one unit in the
+last place of the host's float64 update; f32 and bf16 weights; the skip
+flag; every tunable chunk size; a cold norm tune timed by CUDA events,
+twice), the MoE row
 gather (dispatch and combine, f32 and bf16, with
 sentinel rows) and a two-step MoE `TrainStep` on the card.
 
@@ -831,6 +833,38 @@ def test_fused_norm_tune_launches_the_kernel_and_warm_hits(card, tmp_path,
         at.clear_memory_cache()
 
 
+def test_norm_tune_picks_the_least_event_timed_block_rows(card, tmp_path,
+                                                          monkeypatch):
+    """Two cold ``tune("fused_norm", (8192, 768), "bfloat16")`` runs over
+    JAX's whole block_rows menu, timed by CUDA events after an L2 flush:
+    each picks the candidate with the least time among its trials, and the
+    two pick the same block_rows or two whose times lie within 3% of each
+    other in both runs."""
+    from mxnet_tpu_torch.ops import autotune as at
+    from mxnet_tpu_torch.ops import fused_norm as fn
+    monkeypatch.setenv("MXTPU_AUTOTUNE_CACHE", str(tmp_path))
+    monkeypatch.delenv("MXTPU_AUTOTUNE", raising=False)
+    shape = (8192, 768)
+    n = len(fn._candidates(shape, "bfloat16"))
+    picks = []
+    try:
+        for _ in range(2):
+            at.clear_memory_cache()
+            for f in tmp_path.iterdir():
+                f.unlink()                  # cold: nothing on disk either
+            res = at.tune("fused_norm", shape, "bfloat16", top_k=n)
+            assert not res.cache_hit and res.trials == n
+            ms = {dict(k)["block_rows"]: v for k, v in
+                  res.timings_ms.items()}
+            assert ms[res.config.block_rows] == min(ms.values())
+            picks.append((res.config.block_rows, ms))
+    finally:
+        at.clear_memory_cache()
+    (a, ms_a), (b, ms_b) = picks
+    assert a == b or (ms_a[b] <= 1.03 * ms_a[a] and
+                      ms_b[a] <= 1.03 * ms_b[b]), picks
+
+
 OPT_CASES = {"adam": ("Adam", {}), "adamw": ("AdamW", {}),
              "sgd": ("SGD", {}), "sgd_momentum": ("SGD", {"momentum": 0.9}),
              "lamb": ("LAMB", {}),
@@ -866,9 +900,9 @@ def test_optimizer_kernels_match_plain(card, name, wdtype):
     counts = kernels.launch_counts()
     groups = 2 if wdtype == torch.bfloat16 else 1
     if cls == "LAMB":
-        # phase A once per (weight, state) dtype group, B once per tensor
+        # phases A and B once per (weight, state) dtype group
         assert counts["lamb_phase_a"] == groups
-        assert counts["lamb_phase_b"] == 4
+        assert counts["lamb_phase_b"] == groups
     else:
         assert counts["fused_optimizer_chunk"] == groups
     for n in params:
@@ -1085,6 +1119,19 @@ def _lamb_tree(card, wdtype, seed):
     return params, grads, states
 
 
+def _clone(t):
+    """A copy of the 1-D `t` at the same address offset modulo 16 bytes
+    (``clone`` would align it), so an unaligned leaf stays unaligned."""
+    off = t.data_ptr() % 16 // t.element_size()
+    out = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)[off:]
+    return out.copy_(t)
+
+
+def _clones(params, states):
+    return ({n: _clone(t) for n, t in params.items()},
+            {n: tuple(_clone(t) for t in st) for n, st in states.items()})
+
+
 def _lamb_hp(card):
     hp = {k: torch.tensor(v, device=card) for k, v in (
         ("lr", 0.01), ("wd", 0.01), ("rescale_grad", 0.5), ("t", 3.0),
@@ -1098,7 +1145,7 @@ def _lamb_hp(card):
 def test_lamb_phase_a_once_per_group_matches_plain(card, wdtype, kw):
     """One phase-A launch per (weight, state) dtype group over leaves of
     1, 768 and 70001 elements and one at an unaligned address; B once per
-    tensor; within the tolerances of `test_optimizer_kernels_match_plain`;
+    group too; within the tolerances of `test_optimizer_kernels_match_plain`;
     two updates from the same inputs bit-equal; ``skip`` every bit
     unchanged."""
     from mxnet_tpu_torch import optimizer as topt
@@ -1110,15 +1157,13 @@ def test_lamb_phase_a_once_per_group_matches_plain(card, wdtype, kw):
     want_p, want_s = fo.kernel_plain(opt, params, grads, states, hp)
     runs = []
     for _ in range(2):
-        p = {n: t.clone() for n, t in params.items()}
-        s = {n: tuple(t.clone() for t in st) for n, st in states.items()}
+        p, s = _clones(params, states)
         kernels.reset_launch_counts()
         fo.apply_updates(opt, p, grads, s, hp, use_kernel=True)
         torch.cuda.synchronize()
         counts = kernels.launch_counts()
-        assert counts["lamb_phase_a"] == (2 if wdtype == torch.bfloat16
-                                          else 1)
-        assert counts["lamb_phase_b"] == len(params)
+        groups = 2 if wdtype == torch.bfloat16 else 1
+        assert counts["lamb_phase_a"] == counts["lamb_phase_b"] == groups
         runs.append((p, s))
     (p, s), (p2, s2) = runs
     for n in params:
@@ -1133,8 +1178,7 @@ def test_lamb_phase_a_once_per_group_matches_plain(card, wdtype, kw):
             torch.testing.assert_close(a, b, rtol=0, atol=2e-6)
     # skip: every weight and state bit unchanged (a NaN gradient too)
     grads["a"][5] = float("nan")
-    p = {n: t.clone() for n, t in params.items()}
-    s = {n: tuple(t.clone() for t in st) for n, st in states.items()}
+    p, s = _clones(params, states)
     fo.apply_updates(opt, p, grads, s, hp, use_kernel=True,
                      skip=torch.tensor(True, device=card))
     torch.cuda.synchronize()
@@ -1143,11 +1187,117 @@ def test_lamb_phase_a_once_per_group_matches_plain(card, wdtype, kw):
         assert all(torch.equal(a, b) for a, b in zip(s[n], states[n])), n
 
 
+def _ulps(a, b):
+    """Units in the last place between two tensors of one float dtype,
+    element by element (the bit patterns as ordered integers)."""
+    it, mag = {torch.float32: (torch.int32, 0x7fffffff),
+               torch.bfloat16: (torch.int16, 0x7fff)}[a.dtype]
+
+    def ordered(x):
+        i = x.contiguous().view(it).long()
+        return torch.where(i < 0, -(i & mag), i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def _phase_b_tree(card, wdtype, seed):
+    """One dtype group: leaves of 1, 768, LAMB_CHUNK + 1 and 70001
+    elements, and a 1001-element leaf one element past an aligned address
+    (phase B's one-element path), all in `wdtype` with f32 state."""
+    from mxnet_tpu_torch.ops import fused_optimizer as fo
+    g = torch.Generator().manual_seed(seed)
+    sizes = {"a": 1, "b": 768, "c": fo.LAMB_CHUNK + 1, "d": 70001,
+             "e": 1001}
+
+    def make(n, dt, off, scale=1.0, pos=False):
+        buf = torch.rand(n + off, generator=g) if pos else \
+            torch.randn(n + off, generator=g)
+        return (scale * buf).to(card, dt)[off:]
+    params, grads, states = {}, {}, {}
+    for k, n in sizes.items():
+        off = 1 if k == "e" else 0
+        params[k] = make(n, wdtype, off)
+        grads[k] = make(n, wdtype, off, 3.0)
+        states[k] = (make(n, torch.float32, off, 0.1),
+                     make(n, torch.float32, off, 1.0, True))
+    return params, grads, states
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+def test_lamb_phase_b_within_one_ulp_of_float64(card, wdtype, reverse,
+                                                monkeypatch):
+    """Phase B, one launch over the group, its codes walked in either
+    order: each weight within one unit in the last place of W of
+    ``w - q * r`` computed on the host in float64 from the same w, the r
+    phase A left in the scratch and q = lr * ratio (f32, as the kernel
+    forms it once a chunk), rounded to W; two launches on the same inputs
+    bit-equal; the plan's one-element leaf is the unaligned one."""
+    from mxnet_tpu_torch import optimizer as topt
+    from mxnet_tpu_torch.ops import fused_optimizer as fo
+    monkeypatch.setattr(fo, "LAMB_B_REVERSE", reverse)
+    opt = topt.LAMB(learning_rate=0.01)
+    params, grads, states = _phase_b_tree(card, wdtype, 21)
+    assert params["e"].data_ptr() % 16 != 0
+    hp = _lamb_hp(card)
+    names = sorted(params)
+    runs = []
+    for _ in range(2):
+        p, s = _clones(params, states)
+        assert p["e"].data_ptr() % 16 != 0
+        kernels.reset_launch_counts()
+        fo.apply_updates(opt, p, grads, s, hp, use_kernel=True)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["lamb_phase_b"] == 1
+        runs.append(p)
+    (plan,) = fo.last_lamb_b_plans
+    assert (plan.vector_leaves, plan.element_leaves) == (4, 1)
+    assert plan.reverse == reverse
+    # the group's r and ratios, as phase A left them for phase B
+    dev = params["a"].device
+    _, _, r, ratio = fo._lamb_scratch[
+        (dev.index, torch.cuda.current_stream(dev).cuda_stream)]
+    lay = fo._lamb_layout([params[n].numel() for n in names])
+    lr = np.float32(0.01)
+    for i, n in enumerate(names):
+        assert torch.equal(runs[0][n], runs[1][n]), n
+        k = params[n].numel()
+        rr = r[lay.r_off[i]:lay.r_off[i] + k].double().cpu()
+        q = float(lr * np.float32(ratio[i].item()))
+        want = (params[n].double().cpu() - q * rr).to(wdtype)
+        got = runs[0][n].cpu()
+        assert int(_ulps(got, want).max()) <= 1, n
+
+
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+def test_lamb_skip_keeps_every_weight_bit(card, wdtype):
+    """``skip`` with a NaN and an inf in every leaf's gradient (so r holds
+    NaNs on every path of phase B): every weight and state bit is kept,
+    in both dtype groups."""
+    from mxnet_tpu_torch import optimizer as topt
+    from mxnet_tpu_torch.ops import fused_optimizer as fo
+    opt = topt.LAMB(learning_rate=0.01)
+    params, grads, states = _lamb_tree(card, wdtype, 22)
+    for g in grads.values():
+        g[0] = float("nan")
+        g[-1] = float("inf")
+    p, s = _clones(params, states)
+    kernels.reset_launch_counts()
+    fo.apply_updates(opt, p, grads, s, _lamb_hp(card), use_kernel=True,
+                     skip=torch.tensor(True, device=card))
+    torch.cuda.synchronize()
+    groups = 2 if wdtype == torch.bfloat16 else 1
+    assert kernels.launch_counts()["lamb_phase_b"] == groups
+    for n in params:
+        assert int(_ulps(p[n], params[n]).max()) == 0, n
+        for a, b in zip(s[n], states[n]):
+            assert int(_ulps(a, b).max()) == 0, n
+
+
 @pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
 def test_lamb_on_two_streams(card, wdtype):
     """Two updates of two trees enqueued at once on two streams, each with
-    its own scratch and tickets, give the bits of the same updates run one
-    after the other."""
+    its own scratch and tickets (phases A and B once a group each), give
+    the bits of the same updates run one after the other."""
     from mxnet_tpu_torch import optimizer as topt
     from mxnet_tpu_torch.ops import fused_optimizer as fo
     opt = topt.LAMB(learning_rate=0.01)
@@ -1155,17 +1305,14 @@ def test_lamb_on_two_streams(card, wdtype):
     trees = [_lamb_tree(card, wdtype, seed) for seed in (12, 13)]
     solo = []
     for params, grads, states in trees:
-        p = {n: t.clone() for n, t in params.items()}
-        s = {n: tuple(t.clone() for t in st) for n, st in states.items()}
+        p, s = _clones(params, states)
         fo.apply_updates(opt, p, grads, s, hp, use_kernel=True)
         solo.append((p, s))
     torch.cuda.synchronize()
     both = []
     streams = [torch.cuda.Stream(card) for _ in trees]
-    for (params, grads, states), st in zip(trees, streams):
-        p = {n: t.clone() for n, t in params.items()}
-        s = {n: tuple(t.clone() for t in st_) for n, st_ in states.items()}
-        both.append((p, s))
+    for params, grads, states in trees:
+        both.append(_clones(params, states))
     torch.cuda.synchronize()
     for (params, grads, states), (p, s), st in zip(trees, both, streams):
         with torch.cuda.stream(st):
@@ -1180,7 +1327,7 @@ def test_lamb_on_two_streams(card, wdtype):
 def test_trainer_lamb_launches_phase_a_once_per_group(card):
     """The gluon `Trainer` with LAMB on the kernel route: state in each
     weight's dtype, so bf16 weights and an f32 vector make two groups —
-    two phase-A launches a step, one phase B a tensor."""
+    two phase-A and two phase-B launches a step."""
     from mxnet_tpu_torch.gluon import Trainer
     g = torch.Generator().manual_seed(14)
     ps = {"w": torch.nn.Parameter(torch.randn(64, 768, generator=g).to(
@@ -1197,6 +1344,6 @@ def test_trainer_lamb_launches_phase_a_once_per_group(card):
         tr.step(8)
         torch.cuda.synchronize()
         counts = kernels.launch_counts()
-        assert counts["lamb_phase_a"] == 2 and counts["lamb_phase_b"] == 3
+        assert counts["lamb_phase_a"] == 2 and counts["lamb_phase_b"] == 2
     assert all(not torch.equal(p.detach(), before[n])
                for n, p in ps.items())

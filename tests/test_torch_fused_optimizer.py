@@ -374,3 +374,126 @@ def test_lamb_layout_edges():
     assert list(lay.codes) == [0, 1 << 32, 3 << 32, (3 << 32) | 1]
     empty = tfo._lamb_layout([])
     assert empty.codes.size == 0 and empty.r_total == 0
+
+
+# ---------------------------------------------------------------------------
+# LAMB phase B's walk of phase A's table (no card needed)
+# ---------------------------------------------------------------------------
+
+# `csrc/fused_optimizer.cu`: threads a block, 8-element steps a thread
+# keeps in flight
+THREADS, LAMB_U = 256, 2
+
+
+def _chunk_pattern(length, aligned):
+    """Offsets from a chunk's start that `lamb_b_kernel` writes, in the
+    order its threads take them: 16-byte steps of 8 elements over the
+    chunk's whole eighths when w is aligned (thread t at 8 t, then strides
+    of 8 THREADS, LAMB_U steps an iteration), then one element a thread
+    (from t, stride THREADS) over the rest."""
+    vend = length // 8 * 8 if aligned else 0
+    idx = []
+    for t in range(THREADS):
+        for i0 in range(8 * t, vend, 8 * THREADS * LAMB_U):
+            for u in range(LAMB_U):
+                i = i0 + 8 * THREADS * u
+                if i < vend:
+                    idx.extend(range(i, i + 8))
+    for t in range(THREADS):
+        idx.extend(range(vend + t, length, THREADS))
+    return np.asarray(idx, np.int64)
+
+
+def _walk_phase_b(numels, aligned, plan, chunk):
+    """Simulate one phase-B launch: `plan.grid` blocks stride over the
+    codes (last to first under `plan.reverse`), each chunk's threads
+    taking `_chunk_pattern`'s offsets.  Returns the layout, each leaf's
+    written element ranges [start, end) and the r ranges read for them,
+    and how often each code was visited."""
+    lay = tfo._lamb_layout(numels, chunk)
+    n_codes = lay.codes.size
+    writes = [[] for _ in numels]
+    r_reads = []
+    visited = np.zeros(n_codes, np.int64)
+    checked = set()
+    for b in range(plan.grid):
+        for e in range(b, n_codes, plan.grid):
+            k = n_codes - 1 - e if plan.reverse else e
+            visited[k] += 1
+            leaf, ck = int(lay.codes[k] >> 32), int(lay.codes[k] & 0xffffffff)
+            start = ck * chunk
+            end = min(numels[leaf], start + chunk)
+            key = (end - start, aligned[leaf])
+            if key not in checked:
+                # the chunk's threads take each of its offsets once
+                got = np.sort(_chunk_pattern(*key))
+                assert np.array_equal(got, np.arange(key[0])), key
+                checked.add(key)
+            writes[leaf].append((start, end))
+            r0 = lay.r_off[leaf]
+            r_reads.append((r0 + start, r0 + end))   # r read at r_off + i
+    return lay, writes, r_reads, visited
+
+
+def _tiles(ranges, lo, hi):
+    """Do the [start, end) `ranges` cover [lo, hi) exactly once?"""
+    at = lo
+    for start, end in sorted(ranges):
+        if start != at:
+            return False
+        at = end
+    return at == hi
+
+
+def _check_walk(numels, aligned, reverse, per_sm=8, sms=132,
+                chunk=tfo.LAMB_CHUNK):
+    lay = tfo._lamb_layout(numels, chunk)
+    ptrs = [4096 * (i + 1) + (0 if a else 2) for i, a in enumerate(aligned)]
+    plan = tfo._lamb_b_plan(int(lay.codes.size), ptrs, per_sm, sms,
+                            reverse=reverse)
+    assert plan.grid == max(1, min(per_sm * sms, lay.codes.size))
+    assert plan.reverse == reverse
+    assert plan.vector_leaves == sum(aligned)
+    assert plan.element_leaves == len(numels) - sum(aligned)
+    lay, writes, r_reads, visited = _walk_phase_b(numels, aligned, plan,
+                                                  chunk)
+    assert (visited == 1).all()
+    for j, n in enumerate(numels):
+        assert _tiles(writes[j], 0, n), j    # each element written once
+    # element i of leaf j reads r at r_off[j] + i, and nothing else
+    assert sorted(r_reads) == sorted(
+        (lay.r_off[j] + s, lay.r_off[j] + e)
+        for j in range(len(numels)) for s, e in writes[j])
+
+
+@pytest.mark.parametrize("reverse", [True, False])
+@pytest.mark.parametrize("dtype,n_groups", [("float32", 1), ("bfloat16", 2)])
+def test_lamb_phase_b_walk_writes_bert_base_once(dtype, n_groups, reverse):
+    """Phase B's grid-stride walk of each BERT-base group's codes (at the
+    H100's 132 SMs, 8 blocks each): every element of every leaf written
+    exactly once, from r at its leaf's offset plus its index."""
+    leaves = _bert_base_leaves(dtype)
+    groups = {}
+    for s, d in leaves:
+        groups.setdefault(d, []).append(int(np.prod(s)))
+    assert len(groups) == n_groups
+    for numels in groups.values():
+        _check_walk(numels, [True] * len(numels), reverse)
+
+
+@pytest.mark.parametrize("reverse", [True, False])
+@pytest.mark.parametrize("aligned", [(True,) * 4, (False,) * 4,
+                                     (True, False, True, False)])
+@pytest.mark.parametrize("grid", [(8, 132), (1, 1), (1, 3)])
+def test_lamb_phase_b_walk_edges(aligned, reverse, grid):
+    """The edge layout (1, 768, an empty leaf, LAMB_CHUNK + 1), on the
+    16-byte and the one-element paths, with one block, three and a full
+    card."""
+    _check_walk([1, 768, 0, tfo.LAMB_CHUNK + 1], list(aligned), reverse,
+                *grid)
+
+
+def test_lamb_phase_b_plan_defaults():
+    plan = tfo._lamb_b_plan(5, [16, 32, 33], 8, 132)
+    assert plan == tfo.LambBPlan(5, 5, tfo.LAMB_B_REVERSE, 2, 1)
+    assert tfo._lamb_b_plan(0, [], 8, 132).grid == 1
