@@ -60,8 +60,7 @@ widths (hidden 768, FFN 3072, 8 experts) through `TrainStep` and the gluon
    tensors, 133.6 M elements; f32 model: one dtype group, bf16 model: bf16
    weights and f32 LayerNorm parameters) — the multi-tensor chunk for Adam,
    AdamW and SGD with momentum, LAMB phases A and B (each once per dtype
-   group; phase B's plan recorded, and its device time with the codes
-   walked last to first and first to last) — against the per-leaf
+   group; each phase's plan recorded) — against the per-leaf
    plain version, ``kernel_plain`` (each state within 1e-5 of its scale;
    each weight within its rounding plus 1e-5 of its update's scale, and at
    most 1e-4 of the bf16 weights' elements off the plain value), with
@@ -1110,7 +1109,7 @@ def k6_cases(dev):
             want_l = ({"lamb_phase_a": n_groups,
                        "lamb_phase_b": n_groups} if rule == "lamb"
                       else {"fused_optimizer_chunk": n_groups})
-            b_plans = [p._asdict() for p in fo.last_lamb_b_plans]
+            lamb_plans = list(fo.last_lamb_plans)
             ok = ok and all(launches[k] == v for k, v in want_l.items())
             # skip=True leaves every weight and state bit-identical
             sp = {n: t.clone() for n, t in params.items()}
@@ -1130,20 +1129,24 @@ def k6_cases(dev):
                         controls_caught=controls,
                         skip_bit_identical=skip_ok, ok=ok and skip_ok)
             if rule == "lamb":
-                # phase A's plan: one launch a group over its leaf table,
-                # persistent blocks (occupancy x SMs, at most one an entry)
+                # each phase's plan: one launch a group over the group's
+                # leaf table, persistent blocks (occupancy x SMs, at most
+                # one an entry, as each entry chose); phase B walks the
+                # codes in phase A's order, 16-byte steps on aligned leaves
                 groups = fo._groups(sorted(kp), kp, ks)
-                case["phase_a_plan"] = [dict(
-                    weight_dtype=str(kp[gr[0]].dtype)[6:], tensors=len(gr),
-                    chunk=fo.LAMB_CHUNK,
-                    block_entries=int(fo._lamb_layout(
-                        [kp[n].numel() for n in gr]).codes.size),
-                    sm_count=kernels.sm_count(dev)) for gr in groups]
-                case["phase_a_launches"] = launches["lamb_phase_a"]
-                # phase B's: one launch a group over phase A's table
+                base = [dict(weight_dtype=str(kp[gr[0]].dtype)[6:],
+                             tensors=len(gr), chunk=fo.LAMB_CHUNK,
+                             block_entries=p.block_entries,
+                             sm_count=kernels.sm_count(dev))
+                        for gr, p in zip(groups, lamb_plans)]
+                case["phase_a_plan"] = [dict(b, grid=p.grid_a) for b, p in
+                                        zip(base, lamb_plans)]
                 case["phase_b_plan"] = [dict(
-                    p, weight_dtype=a["weight_dtype"], chunk=fo.LAMB_CHUNK)
-                    for p, a in zip(b_plans, case["phase_a_plan"])]
+                    b, grid=p.grid_b, code_order="forward",
+                    vector_leaves=p.vector_leaves,
+                    element_leaves=p.element_leaves)
+                    for b, p in zip(base, lamb_plans)]
+                case["phase_a_launches"] = launches["lamb_phase_a"]
                 case["phase_b_launches"] = launches["lamb_phase_b"]
 
             def kernel_call():
@@ -1161,17 +1164,6 @@ def k6_cases(dev):
             case["library_ms"] = None if lib is None else \
                 profile_ms(lib)[0]
             if rule == "lamb":
-                # phase B's code order: each way after a phase A, as the
-                # step runs it (the default's time is phase_b_ms below)
-                default = fo.LAMB_B_REVERSE
-                for order, rev in (("forward", False), ("reverse", True)):
-                    fo.LAMB_B_REVERSE = rev
-                    try:
-                        _, by = profile_ms(kernel_call)
-                    finally:
-                        fo.LAMB_B_REVERSE = default
-                    case[f"phase_b_{order}_ms"] = sum(
-                        v for k, v in by.items() if "lamb_b_kernel" in k)
                 for ph in ("a", "b"):
                     ms = sum(v for k, v in by_name.items()
                              if f"lamb_{ph}_kernel" in k)
@@ -2192,9 +2184,7 @@ def kernel_entries(results):
     lamb_b = entry("lamb_phase_b", fo_src, f"{fo_py}:333",
                    train_launches("lamb_phase_b"), lamb, rep8,
                    ms="phase_b_ms")
-    lamb_b.update(plan=rep8["phase_b_plan"],
-                  forward_ms=rep8["phase_b_forward_ms"],
-                  reverse_ms=rep8["phase_b_reverse_ms"])
+    lamb_b.update(plan=rep8["phase_b_plan"])
     return [
         entry("ragged_paged_attention",
               "mxnet_tpu_torch/csrc/paged_attention.cu",

@@ -4,7 +4,8 @@ module's per-op benchmark suite waits for a later slice, ROADMAP.md).
 
 `time_callable` is the measurement contract the autotuner
 (`ops.autotune.tune`) consumes.  On a CUDA device each sample is the
-device time of one call: CUDA events around it, after the L2 is flushed.
+device time of one call: CUDA events around it, after the L2 is flushed
+and the card is held long enough for the call to be enqueued.
 Elsewhere it is the host clock between two synchronisations, so a sample
 is one call run to completion, never an asynchronous enqueue.
 """
@@ -21,6 +22,10 @@ __all__ = ["time_callable"]
 #: bytes zeroed before each timed call on a card: over five times the
 #: H100's 50 MB L2, so a trial finds its inputs cold, as a step does
 FLUSH_BYTES = 256 << 20
+#: device cycles the card sleeps after each flush (~1 ms at the H100's
+#: clocks, longer than a trial's host time), so the call is enqueued
+#: before the start event runs and its host time never reaches a sample
+SLEEP_CYCLES = 2_000_000
 
 
 def _sync() -> None:
@@ -44,8 +49,8 @@ def _host_samples(fn, warmup: int, runs: int) -> List[float]:
 
 def _event_samples(fn, warmup: int, runs: int, device) -> List[float]:
     """CUDA events around each call on `device`'s current stream, the
-    start recorded after the flush is enqueued; one synchronise at the
-    end."""
+    start recorded after the flush and a `SLEEP_CYCLES` device sleep are
+    enqueued; one synchronise at the end."""
     with torch.cuda.device(device):
         for _ in range(warmup):
             fn()
@@ -55,6 +60,7 @@ def _event_samples(fn, warmup: int, runs: int, device) -> List[float]:
         evs = []
         for _ in range(runs):
             flush.zero_()
+            torch.cuda._sleep(SLEEP_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -72,7 +78,8 @@ def time_callable(fn: Callable[[], object], warmup: int = 1,
     Every warmup run finishes before the first timed run, so kernel
     builds and lazy initialisation never reach the samples.  On a CUDA
     `device` (a `torch.device` or its string) each timed run is bracketed
-    by CUDA events after a `FLUSH_BYTES` L2 flush; otherwise (the CPU, or
+    by CUDA events after a `FLUSH_BYTES` L2 flush and a device sleep that
+    keeps the wrapper's host time out of it; otherwise (the CPU, or
     no device given) by the host clock between synchronisations.  The
     headline number is the median of the `runs` samples.  Returns
     ``{"median_ms", "mean_ms", "min_ms", "max_ms", "runs", "warmup"}``,

@@ -423,22 +423,38 @@ int sm_count() {
   return counts[dev] > 0 ? counts[dev] : 132;
 }
 
+// Persistent blocks for a launch of `kern` over n_blocks codes: as many as
+// fit on the card at once (the kernel's occupancy, queried once into
+// *per_sm, times the SMs), at most one a code.
+template <typename K>
+cudaError_t persistent_grid(K kern, int* per_sm, int n_blocks,
+                            unsigned* grid) {
+  if (*per_sm == 0) {
+    int n = 0;
+    const cudaError_t e =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, THREADS, 0);
+    if (e != cudaSuccess) return e;
+    *per_sm = n > 0 ? n : 1;
+  }
+  const long long gr = (long long)*per_sm * sm_count();
+  *grid = (unsigned)(gr < n_blocks ? gr : n_blocks);
+  return cudaSuccess;
+}
+
 // LAMB phase B over one dtype group: phase A's own table (each leaf
 // entry's w, n and r offset, then the (leaf << 32 | chunk) codes), walked
-// by persistent blocks, the last code first when `reverse` (phase A's
-// blocks finish the group's last codes last, so their r may still be in
-// L2; the H100 times both orders the same).  Per chunk, q = lr * ratio[leaf] once, then each element
-// w' = fmaf(-q, r, w) rounded to W: one rounding, whatever the compiler's
-// contraction.  A thread moves 8 elements a step (one 16-byte load of a
-// bf16 w, two of an f32 one, two float4 loads of r, one 16-byte store; two
-// steps in flight) where w is 16-byte aligned, one element at a time
-// otherwise and for a leaf's ragged tail.  With skip set, the loaded bits
-// go back (a select, so a NaN in r never reaches w).
+// by persistent blocks in phase A's order.  Per chunk, q = lr *
+// ratio[leaf] once, then each element w' = fmaf(-q, r, w) rounded to W:
+// one rounding, whatever the compiler's contraction.  A thread moves 8
+// elements a step (one 16-byte load of a bf16 w, two of an f32 one, two
+// float4 loads of r, one 16-byte store; two steps in flight) where w is
+// 16-byte aligned, one element at a time otherwise and for a leaf's ragged
+// tail.  With skip set, the loaded bits go back (a select, so a NaN in r
+// never reaches w).
 template <typename W>
 __global__ void __launch_bounds__(THREADS)
 lamb_b_kernel(const long long* __restrict__ table, int n_leaves,
-              int n_blocks, int chunk, int reverse,
-              const float* __restrict__ r, const float* __restrict__ ratio,
+              int n_blocks, int chunk, const float* __restrict__ r, const float* __restrict__ ratio,
               Hyper hy) {
   const LambLeaf* leaves = reinterpret_cast<const LambLeaf*>(table);
   const long long* codes = table + 8LL * n_leaves;
@@ -446,7 +462,7 @@ lamb_b_kernel(const long long* __restrict__ table, int n_leaves,
   const bool skip = hy.skip != nullptr && *hy.skip != 0;
   const int tid = threadIdx.x;
   for (int e = blockIdx.x; e < n_blocks; e += gridDim.x) {
-    const long long code = codes[reverse ? n_blocks - 1 - e : e];
+    const long long code = codes[e];
     const int li = (int)(code >> 32);
     const long long ck = code & 0xffffffffLL;
     const long long wp = leaves[li].w;
@@ -545,7 +561,8 @@ extern "C" int mxt_fused_chunk(const void* table, int n_leaves, int n_blocks,
 // multiple of 8); w, g (w_dtype), m, v (s_dtype) updated in place; r the
 // group's f32 scratch (each leaf's offset a multiple of 4); part 2 floats a
 // slot; tickets one zeroed uint32 a leaf (left zeroed); ratio one f32 a
-// leaf.  As many blocks as fit on the card at once, at most one an entry.
+// leaf.  As many blocks as fit on the card at once, at most one an entry
+// (`persistent_grid`); the number launched goes to *grid_out (if given).
 extern "C" int mxt_lamb_phase_a(const void* table, int n_leaves, int n_blocks,
                                 int chunk, void* r, void* part,
                                 void* tickets, void* ratio, int w_dtype,
@@ -555,8 +572,10 @@ extern "C" int mxt_lamb_phase_a(const void* table, int n_leaves, int n_blocks,
                                 int has_upper, const void* lr, const void* wd,
                                 const void* rg, const void* t,
                                 const void* clip, const void* skip,
-                                void* stream) {
+                                int* grid_out, void* stream) {
   cudaGetLastError();
+  unsigned gr = 0;
+  if (grid_out) *grid_out = 0;
   if (n_blocks == 0) return 0;
   if (n_leaves < 1 || n_blocks < 0 || chunk < 8 || chunk % 8 != 0 ||
       (reinterpret_cast<uintptr_t>(r) & 15) != 0)
@@ -568,15 +587,10 @@ extern "C" int mxt_lamb_phase_a(const void* table, int n_leaves, int n_blocks,
 #define MXT_LAMB_A(W, S)                                                     \
   do {                                                                       \
     static int per_sm = 0;                                                   \
-    if (per_sm == 0) {                                                       \
-      cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(         \
-          &per_sm, lamb_a_kernel<W, S>, THREADS, 0);                         \
-      if (e != cudaSuccess) return (int)e;                                   \
-      per_sm = per_sm > 0 ? per_sm : 1;                                      \
-    }                                                                        \
-    long long gr = (long long)per_sm * sm_count();                           \
-    gr = gr < n_blocks ? gr : n_blocks;                                      \
-    lamb_a_kernel<W, S><<<(unsigned)gr, THREADS, 0, st>>>(                   \
+    const cudaError_t e =                                                    \
+        persistent_grid(lamb_a_kernel<W, S>, &per_sm, n_blocks, &gr);        \
+    if (e != cudaSuccess) return (int)e;                                     \
+    lamb_a_kernel<W, S><<<gr, THREADS, 0, st>>>(                             \
         tab, n_leaves, n_blocks, chunk, static_cast<float*>(r),              \
         static_cast<float*>(part), static_cast<unsigned int*>(tickets),      \
         static_cast<float*>(ratio), c, lower, upper, has_lower, has_upper,   \
@@ -589,54 +603,45 @@ extern "C" int mxt_lamb_phase_a(const void* table, int n_leaves, int n_blocks,
   else if (w_dtype == 0 && s_dtype == 1) MXT_LAMB_A(float, __nv_bfloat16);
   else return (int)cudaErrorInvalidValue;
 #undef MXT_LAMB_A
+  if (grid_out) *grid_out = (int)gr;
   return (int)cudaGetLastError();
 }
 
 // LAMB phase B over one dtype group: table, n_leaves, n_blocks and chunk
 // exactly as given to its phase A (only each leaf's w, n and r offset are
 // read); r and ratio the scratch phase A wrote; w (w_dtype) updated in
-// place; `grid` persistent blocks (at least 1; `mxt_lamb_phase_b_per_sm`
-// times the SMs fill the card); `reverse` walks the codes last to first.
+// place.  Persistent blocks as phase A's (`persistent_grid`); the number
+// launched goes to *grid_out (if given).
 extern "C" int mxt_lamb_phase_b(const void* table, int n_leaves,
-                                int n_blocks, int chunk, int grid,
-                                int reverse, const void* r,
+                                int n_blocks, int chunk, const void* r,
                                 const void* ratio, int w_dtype,
                                 const void* lr, const void* skip,
-                                void* stream) {
+                                int* grid_out, void* stream) {
   cudaGetLastError();
+  unsigned gr = 0;
+  if (grid_out) *grid_out = 0;
   if (n_blocks == 0) return 0;
-  if (n_leaves < 1 || n_blocks < 0 || grid < 1 || chunk < 8 ||
-      chunk % 8 != 0 || (reinterpret_cast<uintptr_t>(r) & 15) != 0)
+  if (n_leaves < 1 || n_blocks < 0 || chunk < 8 || chunk % 8 != 0 ||
+      (reinterpret_cast<uintptr_t>(r) & 15) != 0)
     return (int)cudaErrorInvalidValue;
   const Hyper h = hyper(lr, nullptr, nullptr, nullptr, nullptr, skip);
   const long long* tab = static_cast<const long long*>(table);
   const float* rf = static_cast<const float*>(r);
   const float* ra = static_cast<const float*>(ratio);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (w_dtype == 0)
-    lamb_b_kernel<float><<<grid, THREADS, 0, st>>>(
-        tab, n_leaves, n_blocks, chunk, reverse, rf, ra, h);
-  else if (w_dtype == 1)
-    lamb_b_kernel<__nv_bfloat16><<<grid, THREADS, 0, st>>>(
-        tab, n_leaves, n_blocks, chunk, reverse, rf, ra, h);
-  else
-    return (int)cudaErrorInvalidValue;
+#define MXT_LAMB_B(W)                                                        \
+  do {                                                                       \
+    static int per_sm = 0;                                                   \
+    const cudaError_t e =                                                    \
+        persistent_grid(lamb_b_kernel<W>, &per_sm, n_blocks, &gr);           \
+    if (e != cudaSuccess) return (int)e;                                     \
+    lamb_b_kernel<W><<<gr, THREADS, 0, st>>>(tab, n_leaves, n_blocks, chunk, \
+                                             rf, ra, h);                     \
+  } while (0)
+  if (w_dtype == 0) MXT_LAMB_B(float);
+  else if (w_dtype == 1) MXT_LAMB_B(__nv_bfloat16);
+  else return (int)cudaErrorInvalidValue;
+#undef MXT_LAMB_B
+  if (grid_out) *grid_out = (int)gr;
   return (int)cudaGetLastError();
-}
-
-// Blocks of phase B's kernel in w_dtype that fit on one SM at once (> 0),
-// or minus the cudaError_t of the query.
-extern "C" int mxt_lamb_phase_b_per_sm(int w_dtype) {
-  int per_sm = 0;
-  cudaError_t e;
-  if (w_dtype == 0)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, lamb_b_kernel<float>, THREADS, 0);
-  else if (w_dtype == 1)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, lamb_b_kernel<__nv_bfloat16>, THREADS, 0);
-  else
-    return -(int)cudaErrorInvalidValue;
-  if (e != cudaSuccess) return -(int)e;
-  return per_sm > 0 ? per_sm : 1;
 }

@@ -23,8 +23,8 @@ kernels and their plain versions (counterpart of
   such group (moments, the update direction r into a per-stream scratch
   and each tensor's trust ratio from deterministically reduced norms, over
   the same kind of leaf table, `_lamb_layout`), then phase B (the bounded
-  update) once per group too, over phase A's own device table
-  (`_lamb_b_plan`; `last_lamb_b_plans`).  The hyperparameters and the skip
+  update) once per group too, over phase A's own device table (each
+  launch's grid and path split in `last_lamb_plans`).  The hyperparameters and the skip
   flag stay on the device.  On
   a CPU tensor it runs the kernels' plain version, `kernel_plain` (the
   same math, the same order of operations: LAMB's trust ratio stays f32),
@@ -42,7 +42,7 @@ trial launch) are registered at import.
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Dict, List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -55,14 +55,10 @@ from .policy import kernel_active
 
 __all__ = ["apply_updates", "supported", "kernel_supported", "kernel_route",
            "kernel_plain", "HpScalarCache", "CHUNK", "last_chunk",
-           "last_lamb_b_plans"]
+           "last_lamb_plans"]
 
 CHUNK = 8192           # elements of one leaf per block: the static default
 LAMB_CHUNK = 8192      # elements of one leaf per LAMB chunk (both phases)
-#: walk phase B's codes last to first (where phase A's last chunks may
-#: have left r in L2)?  On the H100 the two orders time the same within
-#: noise (PERF.md), so phase B keeps phase A's order
-LAMB_B_REVERSE = False
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: weight dtype name -> elements per block of that dtype group's latest
 #: chunk launch (on the CPU: the chunk the launch would have used)
@@ -153,10 +149,8 @@ _F = ctypes.c_float
 _SIGS = {"mxt_fused_chunk": [_P, _I, _I, _I, _I, _I, _I] + [_F] * 6
          + [_I] + [_P] * 7,
          "mxt_lamb_phase_a": [_P, _I, _I, _I] + [_P] * 4 + [_I, _I]
-         + [_F] * 5 + [_I, _F, _F, _I, _I] + [_P] * 7,
-         "mxt_lamb_phase_b": [_P, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P,
-                              _P],
-         "mxt_lamb_phase_b_per_sm": [_I]}
+         + [_F] * 5 + [_I, _F, _F, _I, _I] + [_P] * 8,
+         "mxt_lamb_phase_b": [_P, _I, _I, _I, _P, _P, _I] + [_P] * 4}
 _fns = {}
 
 
@@ -330,44 +324,18 @@ def _lamb_layout(numels: Sequence[int], chunk: int = LAMB_CHUNK
                       else np.zeros(0, np.int64), r, slots)
 
 
-class LambBPlan(NamedTuple):
-    """One phase-B launch over a group's leaf table."""
-    grid: int            # persistent blocks: as many as fit, one a code at most
+class LambPlan(NamedTuple):
+    """One dtype group's LAMB launches over its leaf table."""
     block_entries: int   # the group's (leaf, chunk) codes
-    reverse: bool        # codes walked last to first
-    vector_leaves: int   # leaves whose w is 16-byte aligned: 8-element steps
+    grid_a: int          # phase A's persistent blocks, as its entry chose
+    grid_b: int          # phase B's
+    vector_leaves: int   # leaves whose w is 16-byte aligned: phase B's
+    #                      8-element steps
     element_leaves: int  # the others: one element a step (as every tail)
 
 
-def _lamb_b_plan(block_entries: int, w_ptrs: Sequence[int], per_sm: int,
-                 sm_count: int, reverse: Optional[bool] = None
-                 ) -> LambBPlan:
-    """Phase B's launch over `block_entries` codes of leaves at `w_ptrs`,
-    with `per_sm` blocks fitting on each of `sm_count` SMs; `reverse`
-    defaults to `LAMB_B_REVERSE`."""
-    vec = sum(1 for p in w_ptrs if p % 16 == 0)
-    return LambBPlan(max(1, min(per_sm * sm_count, block_entries)),
-                     block_entries,
-                     LAMB_B_REVERSE if reverse is None else bool(reverse),
-                     vec, len(w_ptrs) - vec)
-
-
-#: phase B's plans of the latest CUDA LAMB update, one a dtype group
-last_lamb_b_plans: List[LambBPlan] = []
-# weight dtype code -> phase B's blocks per SM (the kernel's resources fix
-# it; the build targets one architecture)
-_lamb_b_per_sm: Dict[int, int] = {}
-
-
-def _lamb_b_blocks_per_sm(w_dtype: int) -> int:
-    n = _lamb_b_per_sm.get(w_dtype)
-    if n is None:
-        n = _kernel_fn("mxt_lamb_phase_b_per_sm")(w_dtype)
-        if n <= 0:
-            raise MXNetError(f"LAMB phase B occupancy query failed "
-                             f"(cudaError_t {-n})")
-        _lamb_b_per_sm[w_dtype] = n
-    return n
+#: the plans of the latest CUDA LAMB update, one a dtype group
+last_lamb_plans: List[LambPlan] = []
 
 
 # (device index, raw stream) -> (tickets, partials, r, ratios): phase A's
@@ -387,6 +355,7 @@ def _lamb_cuda(optimizer, names, params, grads, states, hptr, dev):
     lo, hi = o.lower_bound, o.upper_bound
     phase_a, phase_b = (_kernel_fn("mxt_lamb_phase_a"),
                         _kernel_fn("mxt_lamb_phase_b"))
+    grid_a, grid_b = ctypes.c_int(0), ctypes.c_int(0)
     plans = []
     for group in _groups(names, params, states):
         numels = [params[n].numel() for n in group]
@@ -418,17 +387,17 @@ def _lamb_cuda(optimizer, names, params, grads, states, hptr, dev):
             ratio.data_ptr(), wdt, _DTYPES[m0.dtype], o.beta1, o.beta2,
             o.epsilon, 1 - o.beta1, 1 - o.beta2, int(o.bias_correction),
             0.0 if lo is None else lo, 0.0 if hi is None else hi,
-            int(lo is not None), int(hi is not None), *hptr, stream)
+            int(lo is not None), int(hi is not None), *hptr,
+            ctypes.addressof(grid_a), stream)
         _launched("LAMB phase A", err, "lamb_phase_a")
-        plan = _lamb_b_plan(n_codes, [row[0] for row in leaves],
-                            _lamb_b_blocks_per_sm(wdt),
-                            _kernels.sm_count(dev))
         err = phase_b(dev_table.data_ptr(), len(group), n_codes, LAMB_CHUNK,
-                      plan.grid, int(plan.reverse), r.data_ptr(),
-                      ratio.data_ptr(), wdt, hptr[0], hptr[5], stream)
+                      r.data_ptr(), ratio.data_ptr(), wdt, hptr[0], hptr[5],
+                      ctypes.addressof(grid_b), stream)
         _launched("LAMB phase B", err, "lamb_phase_b")
-        plans.append(plan)
-    last_lamb_b_plans[:] = plans
+        vec = sum(1 for row in leaves if row[0] % 16 == 0)
+        plans.append(LambPlan(n_codes, grid_a.value, grid_b.value, vec,
+                              len(leaves) - vec))
+    last_lamb_plans[:] = plans
 
 
 # ---------------------------------------------------------------------------

@@ -13,8 +13,7 @@ run in fresh processes of that tree with its own package, kernels and
   (37, 200)) timed by the tree's `chip_smoke.time_ms` beside
   ``F.layer_norm`` / ``F.rms_norm`` and the bound;
 - `chip_smoke.k6_cases` with LAMB alone: phases A and B over BERT-base's
-  159 tensors, f32 and bf16 models, device times from ``torch.profiler``
-  (a tree that records them: phase B with its codes walked each way);
+  159 tensors, f32 and bf16 models, device times from ``torch.profiler``;
 - the tree's ``train_profile.py`` for the bf16 Adam, bf16 LAMB and f32
   LAMB steps on the kernel route: traced wall, device time and device time
   by kernel class.
@@ -52,9 +51,8 @@ sys.exit(train_profile.main(["--out", sys.argv[1]]))
 
 K5_KEYS = ("ms", "device_ms", "host_us", "copy_ms", "library_ms",
            "library_device_ms", "plain_ms", "bound_ms")
-K6_KEYS = ("phase_a_ms", "phase_b_ms", "phase_b_forward_ms",
-           "phase_b_reverse_ms", "device_ms", "call_ms", "phase_a_bound_ms",
-           "phase_b_bound_ms")
+K6_KEYS = ("phase_a_ms", "phase_b_ms", "device_ms", "call_ms",
+           "phase_a_bound_ms", "phase_b_bound_ms")
 
 
 def run_tree(tree, out_dir, i):

@@ -1222,19 +1222,17 @@ def _phase_b_tree(card, wdtype, seed):
     return params, grads, states
 
 
-@pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
-def test_lamb_phase_b_within_one_ulp_of_float64(card, wdtype, reverse,
-                                                monkeypatch):
-    """Phase B, one launch over the group, its codes walked in either
-    order: each weight within one unit in the last place of W of
-    ``w - q * r`` computed on the host in float64 from the same w, the r
-    phase A left in the scratch and q = lr * ratio (f32, as the kernel
-    forms it once a chunk), rounded to W; two launches on the same inputs
-    bit-equal; the plan's one-element leaf is the unaligned one."""
+def test_lamb_phase_b_within_one_ulp_of_float64(card, wdtype):
+    """Phase B, one launch over the group: each weight within one unit in
+    the last place of W of ``w - q * r`` computed on the host in float64
+    from the same w, the r phase A left in the scratch and q = lr * ratio
+    (f32, as the kernel forms it once a chunk), rounded to W; two launches
+    on the same inputs bit-equal; the plan's one-element leaf is the
+    unaligned one, and each phase's grid at least one block and at most
+    one a code."""
     from mxnet_tpu_torch import optimizer as topt
     from mxnet_tpu_torch.ops import fused_optimizer as fo
-    monkeypatch.setattr(fo, "LAMB_B_REVERSE", reverse)
     opt = topt.LAMB(learning_rate=0.01)
     params, grads, states = _phase_b_tree(card, wdtype, 21)
     assert params["e"].data_ptr() % 16 != 0
@@ -1249,9 +1247,11 @@ def test_lamb_phase_b_within_one_ulp_of_float64(card, wdtype, reverse,
         torch.cuda.synchronize()
         assert kernels.launch_counts()["lamb_phase_b"] == 1
         runs.append(p)
-    (plan,) = fo.last_lamb_b_plans
+    (plan,) = fo.last_lamb_plans
     assert (plan.vector_leaves, plan.element_leaves) == (4, 1)
-    assert plan.reverse == reverse
+    n_codes = fo._lamb_layout([params[n].numel() for n in names]).codes.size
+    assert plan.block_entries == n_codes
+    assert 1 <= plan.grid_a <= n_codes and 1 <= plan.grid_b <= n_codes
     # the group's r and ratios, as phase A left them for phase B
     dev = params["a"].device
     _, _, r, ratio = fo._lamb_scratch[

@@ -11,6 +11,9 @@ bound; summation order of LAMB's norms).  bf16 weights may land one bf16
 step apart where the two f32 results straddle a rounding boundary, so they
 are held to rtol 2**-7 (one bf16 step at most).
 """
+import pathlib
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -380,9 +383,26 @@ def test_lamb_layout_edges():
 # LAMB phase B's walk of phase A's table (no card needed)
 # ---------------------------------------------------------------------------
 
-# `csrc/fused_optimizer.cu`: threads a block, 8-element steps a thread
-# keeps in flight
-THREADS, LAMB_U = 256, 2
+# `lamb_b_kernel`'s threads a block and 8-element steps a thread keeps in
+# flight, read from the kernel's source, so the walk below cannot drift
+# from them; the walk mirrors the kernel's indexing (its stepping is held on
+# the card by `tests/test_torch_cuda.py`'s phase-B tests)
+_CU = (pathlib.Path(tfo.__file__).resolve().parents[1] / "csrc"
+       / "fused_optimizer.cu").read_text()
+
+
+def _cu_const(name):
+    (v,) = re.findall(rf"constexpr int {name} = (\d+);", _CU)
+    return int(v)
+
+
+THREADS, LAMB_U = _cu_const("THREADS"), _cu_const("LAMB_U")
+
+
+def test_lamb_phase_b_walk_reads_the_kernel_constants():
+    assert THREADS % 32 == 0 and LAMB_U >= 1
+    # a chunk is a whole number of 8-element steps (the entry requires it)
+    assert tfo.LAMB_CHUNK % 8 == 0
 
 
 def _chunk_pattern(length, aligned):
@@ -404,21 +424,20 @@ def _chunk_pattern(length, aligned):
     return np.asarray(idx, np.int64)
 
 
-def _walk_phase_b(numels, aligned, plan, chunk):
-    """Simulate one phase-B launch: `plan.grid` blocks stride over the
-    codes (last to first under `plan.reverse`), each chunk's threads
-    taking `_chunk_pattern`'s offsets.  Returns the layout, each leaf's
-    written element ranges [start, end) and the r ranges read for them,
-    and how often each code was visited."""
+def _walk_phase_b(numels, aligned, grid, chunk):
+    """Simulate one phase-B launch: `grid` blocks stride over the codes in
+    phase A's order, each chunk's threads taking `_chunk_pattern`'s
+    offsets.  Returns the layout, each leaf's written element ranges
+    [start, end) and the r ranges read for them, and how often each code
+    was visited."""
     lay = tfo._lamb_layout(numels, chunk)
     n_codes = lay.codes.size
     writes = [[] for _ in numels]
     r_reads = []
     visited = np.zeros(n_codes, np.int64)
     checked = set()
-    for b in range(plan.grid):
-        for e in range(b, n_codes, plan.grid):
-            k = n_codes - 1 - e if plan.reverse else e
+    for b in range(grid):
+        for k in range(b, n_codes, grid):
             visited[k] += 1
             leaf, ck = int(lay.codes[k] >> 32), int(lay.codes[k] & 0xffffffff)
             start = ck * chunk
@@ -445,17 +464,12 @@ def _tiles(ranges, lo, hi):
     return at == hi
 
 
-def _check_walk(numels, aligned, reverse, per_sm=8, sms=132,
-                chunk=tfo.LAMB_CHUNK):
+def _check_walk(numels, aligned, per_sm=8, sms=132, chunk=tfo.LAMB_CHUNK):
     lay = tfo._lamb_layout(numels, chunk)
-    ptrs = [4096 * (i + 1) + (0 if a else 2) for i, a in enumerate(aligned)]
-    plan = tfo._lamb_b_plan(int(lay.codes.size), ptrs, per_sm, sms,
-                            reverse=reverse)
-    assert plan.grid == max(1, min(per_sm * sms, lay.codes.size))
-    assert plan.reverse == reverse
-    assert plan.vector_leaves == sum(aligned)
-    assert plan.element_leaves == len(numels) - sum(aligned)
-    lay, writes, r_reads, visited = _walk_phase_b(numels, aligned, plan,
+    # the entry's grid (`persistent_grid`): as many blocks as fit, at most
+    # one a code
+    grid = min(per_sm * sms, int(lay.codes.size))
+    lay, writes, r_reads, visited = _walk_phase_b(numels, aligned, grid,
                                                   chunk)
     assert (visited == 1).all()
     for j, n in enumerate(numels):
@@ -466,34 +480,28 @@ def _check_walk(numels, aligned, reverse, per_sm=8, sms=132,
         for j in range(len(numels)) for s, e in writes[j])
 
 
-@pytest.mark.parametrize("reverse", [True, False])
+@pytest.mark.parametrize("grid", [(8, 132), (5, 132), (1, 7)])
 @pytest.mark.parametrize("dtype,n_groups", [("float32", 1), ("bfloat16", 2)])
-def test_lamb_phase_b_walk_writes_bert_base_once(dtype, n_groups, reverse):
+def test_lamb_phase_b_walk_writes_bert_base_once(dtype, n_groups, grid):
     """Phase B's grid-stride walk of each BERT-base group's codes (at the
-    H100's 132 SMs, 8 blocks each): every element of every leaf written
-    exactly once, from r at its leaf's offset plus its index."""
+    H100's 132 SMs with 8 or 5 blocks each, and at 7 blocks): every element
+    of every leaf written exactly once, from r at its leaf's offset plus
+    its index."""
     leaves = _bert_base_leaves(dtype)
     groups = {}
     for s, d in leaves:
         groups.setdefault(d, []).append(int(np.prod(s)))
     assert len(groups) == n_groups
     for numels in groups.values():
-        _check_walk(numels, [True] * len(numels), reverse)
+        _check_walk(numels, [True] * len(numels), *grid)
 
 
-@pytest.mark.parametrize("reverse", [True, False])
 @pytest.mark.parametrize("aligned", [(True,) * 4, (False,) * 4,
                                      (True, False, True, False)])
-@pytest.mark.parametrize("grid", [(8, 132), (1, 1), (1, 3)])
-def test_lamb_phase_b_walk_edges(aligned, reverse, grid):
+@pytest.mark.parametrize("grid", [(8, 132), (4, 132), (1, 1), (1, 3),
+                                  (2, 2), (16, 1)])
+def test_lamb_phase_b_walk_edges(aligned, grid):
     """The edge layout (1, 768, an empty leaf, LAMB_CHUNK + 1), on the
-    16-byte and the one-element paths, with one block, three and a full
+    16-byte and the one-element paths, with one block up to a full
     card."""
-    _check_walk([1, 768, 0, tfo.LAMB_CHUNK + 1], list(aligned), reverse,
-                *grid)
-
-
-def test_lamb_phase_b_plan_defaults():
-    plan = tfo._lamb_b_plan(5, [16, 32, 33], 8, 132)
-    assert plan == tfo.LambBPlan(5, 5, tfo.LAMB_B_REVERSE, 2, 1)
-    assert tfo._lamb_b_plan(0, [], 8, 132).grid == 1
+    _check_walk([1, 768, 0, tfo.LAMB_CHUNK + 1], list(aligned), *grid)
