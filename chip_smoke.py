@@ -4,19 +4,20 @@
     python3 chip_smoke.py [--out chiprun_out/chip_smoke.json]
 
 Builds the port's CUDA kernels from ``mxnet_tpu_torch/csrc`` and drives its
-three main paths: serving at full GPT-2-small width and depth (12 layers,
+four main paths: serving at full GPT-2-small width and depth (12 layers,
 hidden 768, vocab 50257, seeded random weights), the BERT-base pretraining
-step at full width and depth, and Switch-MoE training at switch-base-8's
+step at full width and depth, Switch-MoE training at switch-base-8's
 widths (hidden 768, FFN 3072, 8 experts) through `TrainStep` and the gluon
-`Trainer`:
+`Trainer`, and GPT-2-small causal-LM training at full width and depth:
 
 1. prints the card (name and power limit from ``nvidia-smi``) and the
    torch / CUDA versions;
 2. holds each kernel against its plain PyTorch version at the slice's
    shapes — K1 ragged paged attention (f32/bf16, decode C=1 and prefill
    C=16, MHA and GQA rep 4, ragged context lengths with an empty slot and
-   non-page-aligned lengths, with and without a window; each with its
-   launch plan) and K2 int8/int4 dequant-matmul (f32/bf16 activations, M
+   non-page-aligned lengths, with and without a window; f32 queries over a
+   bf16 pool at C=1 and C=16, MHA, held to the bf16 tolerance; each with
+   its launch plan) and K2 int8/int4 dequant-matmul (f32/bf16 activations, M
    in {8, 128}, the four GPT-2 projection shapes, and the tied head (8,
    50257, 768) at int8 f32) — two calls bit-equal, within max-abs 1e-4
    (f32) / 2e-2 (bf16) of the output scale, and times kernel, plain
@@ -33,7 +34,8 @@ widths (hidden 768, FFN 3072, 8 experts) through `TrainStep` and the gluon
    plain path's top-2 logit gap is below 1e-4;
 4. the same at ``quant_bits=8`` and ``quant_bits=4`` (K2 must launch);
 5. bfloat16 end to end, reporting the share of streams equal to the plain
-   path's;
+   path's: the decode step computes in f32 after the first LayerNorm's f32
+   gain, as JAX's does, so K1 reads f32 queries over the bf16 pool;
 6. (k3) flash attention, forward and forward + backward, against its plain
    version at BERT's attention shape (B 64, H 12, L 128, D 64) in f32 and
    bf16 with no mask, a key-padding bias from seeded ``valid_length``
@@ -41,13 +43,16 @@ widths (hidden 768, FFN 3072, 8 experts) through `TrainStep` and the gluon
    0.1 (one seed on both sides, so the keep masks coincide) — max-abs
    1e-4 (f32) / 2e-2 (bf16) of the scale of O, lse, dQ, dK and dV, two
    forward and two backward calls bit-equal, the forward's plan (blocks
-   and their source) recorded; timed against
+   and their source) recorded; then GPT-2 small's attention (B 8, H 12, L
+   1024, D 64, causal, dropout 0.1) the same way, beside
+   ``scaled_dot_product_attention(is_causal=True)``; timed against
    ``scaled_dot_product_attention`` with the same float mask, each
    direction also device-only and its host µs a call, beside SDPA's; both
    directions' f32 bounds at the 3xTF32 rate (a third of 495 TFLOP/s);
 7. (k4) the streaming softmax cross-entropy, forward and backward, against
-   its plain version at (1280, 30522) in f32 and bf16 and at the odd
-   V 50257, timed against ``cross_entropy(x.float(), y)``;
+   its plain version at (1280, 30522) in f32 and bf16, at the odd V 50257,
+   and at the gpt phase's logits (8192, 50257) in f32 and bf16, timed
+   against ``cross_entropy(x.float(), y)``;
 8. (k5) the fused LayerNorm / RMSNorm row kernel, with and without a
    residual, against its plain version in f32 and bf16 (f32 gamma and
    beta, as BERT keeps them) at (8192, 768) and (1280, 768) — the step's
@@ -136,6 +141,24 @@ widths (hidden 768, FFN 3072, 8 experts) through `TrainStep` and the gluon
    counted per step, the loss falls, and a planted fault (combine without
    the gate) must depart by more than the limit.  Prints tokens/s, step ms, TFLOP/s
    of the expert products and the share of the dense peak.
+14. (gpt) ``gpt_small()`` (GPT-2 small: vocab 50257, hidden 768, 12
+   layers, 12 heads, FFN 3072, 1024 positions, tied head, 124 M
+   parameters; seed 0, dropout 0.1) on a seeded (8, 1025) token stream
+   (inputs ``[:, :-1]``, labels ``[:, 1:]``), the causal-LM loss
+   (``gluon.loss.SoftmaxCrossEntropyLoss`` over the (8192, 50257) logits),
+   AdamW lr 3e-4 weight decay 0.1, 20 steps on the default kernel route:
+   ``TrainStep`` in bf16 and f32, bf16 under ``remat="full"`` and
+   ``remat="dots_saveable"``, and ``gluon.Trainer`` in bf16.  Launches a
+   step are exact (flash forward 12, 24 under remat; backward 12;
+   cross-entropy 1 + 1; fused norm 25, 49 under remat; the chunk once per
+   dtype group); each trajectory is held against the same run on the plain
+   versions (`traj_tol`), the loss falls, each remat run is within 1e-5 of
+   the bf16 run without remat and lower in peak memory; two planted faults
+   (every attention non-causal; a remat recompute that does not put the
+   dropout generators back) must depart by more than their limits.  Prints
+   tokens/s, step ms, TFLOP/s (``GPTForCausalLM.flops_per_token``: the
+   causal half counted, a mean key span of (L + 1) / 2) and the share of
+   the dense bf16 peak.
 
 Every count is reset just before a run it reports and read just after.
 The last three stdout lines are the ``nvidia-smi`` card line, the
@@ -267,9 +290,17 @@ def bound(nbytes, flops, dtype):
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+# (query dtype, pool dtype): each route, and f32 queries over a bf16 pool
+# (a bf16 model's serving step: f32 activations after the first LayerNorm)
+K1_TYPES = (("float32", "float32"), ("bfloat16", "bfloat16"),
+            ("float32", "bfloat16"))
+
+
 def k1_cases(dev):
     """K1 at the main path's shapes: 8 slots, 12 heads, D 64, page 16, a
-    257-page pool, 32 table entries per slot (max_len 512)."""
+    257-page pool, 32 table entries per slot (max_len 512); f32 queries
+    over a bf16 pool at GPT-2's MHA, no window, held to the bf16
+    tolerance."""
     import numpy as np
     import torch
     from mxnet_tpu_torch.ops import paged_attention as pa
@@ -279,19 +310,20 @@ def k1_cases(dev):
     rng = np.random.RandomState(0)
     start = np.array([0, 37, 100, 255, 300, 0, 470, 16], np.int32)
     out = []
-    for dtype in ("float32", "bfloat16"):
-        dt = getattr(torch, dtype)
+    for dtype, pool in K1_TYPES:
+        dt, pdt = getattr(torch, dtype), getattr(torch, pool)
+        mixed = pool != dtype
         for C in (1, 16):
             nt = np.array([C, C, min(C, 5), C, 1, 0, C, C], np.int32)
             ctx = start + nt
-            for Hkv in (12, 3):
-                for window in (None, 64):
+            for Hkv in (12,) if mixed else (12, 3):
+                for window in (None,) if mixed else (None, 64):
                     q = torch.from_numpy(rng.randn(B, H, C, D).astype(
                         np.float32)).to(dev, dt)
                     kp = torch.from_numpy(rng.randn(npages, ps, Hkv, D)
-                                          .astype(np.float32)).to(dev, dt)
+                                          .astype(np.float32)).to(dev, pdt)
                     vp = torch.from_numpy(rng.randn(npages, ps, Hkv, D)
-                                          .astype(np.float32)).to(dev, dt)
+                                          .astype(np.float32)).to(dev, pdt)
                     pt = torch.from_numpy((rng.permutation(npages - 1)
                                            + 1).reshape(B, maxp)
                                           .astype(np.int32)).to(dev)
@@ -316,8 +348,10 @@ def k1_cases(dev):
                     L = maxp * ps
                     kc = pa.gather_pages(kp, pt).permute(0, 2, 1, 3)
                     vc = pa.gather_pages(vp, pt).permute(0, 2, 1, 3)
-                    kc = kc.repeat_interleave(H // Hkv, 1).contiguous()
-                    vc = vc.repeat_interleave(H // Hkv, 1).contiguous()
+                    kc = kc.repeat_interleave(H // Hkv, 1).to(dt) \
+                        .contiguous()
+                    vc = vc.repeat_interleave(H // Hkv, 1).to(dt) \
+                        .contiguous()
                     t_idx = torch.arange(L, device=dev)
                     qpos = st_t[:, None] + torch.arange(C, device=dev)
                     mask = (t_idx[None, None, :] <= qpos[:, :, None]) & \
@@ -328,11 +362,12 @@ def k1_cases(dev):
                     mask = mask[:, None]
                     sdpa = torch.nn.functional.scaled_dot_product_attention
                     again = pa.ragged_paged_attention(*args, window=window)
-                    plan = pa._plan(B, H, Hkv, C, D, ps, maxp, dt,
+                    plan = pa._plan(B, H, Hkv, C, D, ps, maxp, pdt,
                                     pa._kernels.sm_count(q.device))
-                    case = dict(dtype=dtype, C=C, Hkv=Hkv, window=window,
-                                plan=dict(plan._asdict()), max_abs_err=err,
-                                out_scale=scale, tol=TOL[dtype] * scale,
+                    case = dict(dtype=dtype, pool_dtype=pool, C=C, Hkv=Hkv,
+                                window=window, plan=dict(plan._asdict()),
+                                max_abs_err=err, out_scale=scale,
+                                tol=TOL[pool] * scale,
                                 bit_equal_calls=bool(torch.equal(got,
                                                                  again)))
                     case["ok"] = err <= case["tol"] and \
@@ -358,7 +393,7 @@ def k1_cases(dev):
                     case["vs_library"] = case["ms"] / case["library_ms"]
                     # the work this data needs: q + the K/V rows below
                     # ctx (from the window's floor) + out + indices
-                    item = q.element_size()
+                    item, pitem = q.element_size(), kp.element_size()
                     keys = sum(int(c) - (max(0, int(s) - window)
                                          if window is not None else 0)
                                for s, c in zip(start, ctx))
@@ -370,7 +405,7 @@ def k1_cases(dev):
                                 else 0
                             attended += p - lo + 1
                     nbytes = 2 * q.numel() * item \
-                        + 2 * keys * Hkv * D * item + 4 * (B * maxp + 2 * B)
+                        + 2 * keys * Hkv * D * pitem + 4 * (B * maxp + 2 * B)
                     flops = 4.0 * attended * H * D
                     case["bound_ms"], case["bound_by"] = bound(
                         nbytes, flops, dtype)
@@ -645,21 +680,35 @@ def bert_batch(vocab, batch=64, seq=128, n_mask=20, seed=0):
 
 
 FLASH_CASES = ("none", "pad", "row", "causal", "pad_dropout")
+# (B, H, L, D) and cases: BERT-base's attention, then GPT-2 small's in the
+# gpt phase (causal, dropout 0.1)
+FLASH_GROUPS = (((64, 12, 128, 64), FLASH_CASES),
+                ((8, 12, 1024, 64), ("gpt_causal_dropout",)))
 
 
 def k3_cases(dev):
     """The flash kernels at BERT-base's attention shape, one (b, h) per
-    bh: B 64, H 12, L 128, D 64."""
+    bh: B 64, H 12, L 128, D 64; then at GPT-2 small's: B 8, H 12, L 1024,
+    D 64, causal with dropout 0.1."""
     import torch
     from mxnet_tpu_torch import kernels
     from mxnet_tpu_torch.ops import flash_attention as fa
 
-    B, H, L, D = 64, 12, 128, 64
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    scale = 1.0 / D ** 0.5
-    vlen = torch.from_numpy(bert_batch(30522)[1]).to(dev)
     g = torch.Generator().manual_seed(3)
     seed = torch.tensor([20261016], dtype=torch.int32, device=dev)
+    out = []
+    for (B, H, L, D), names in FLASH_GROUPS:
+        out.extend(_flash_group(dev, fa, kernels, sdpa, g, seed, B, H, L, D,
+                                names))
+    return out
+
+
+def _flash_group(dev, fa, kernels, sdpa, g, seed, B, H, L, D, names):
+    """k3's cases `names` at one (B, H, L, D), f32 then bf16."""
+    import torch
+    scale = 1.0 / D ** 0.5
+    vlen = torch.from_numpy(bert_batch(30522, batch=B, seq=L)[1]).to(dev)
     out = []
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
@@ -667,11 +716,13 @@ def k3_cases(dev):
                        for _ in range(4))
         pad = torch.where(torch.arange(L, device=dev)[None] < vlen[:, None],
                           0.0, fa.MASK_VALUE)                     # (B, L)
-        row = torch.randn(B, L, L, generator=g).to(dev)
-        for name in FLASH_CASES:
+        row = torch.randn(B, L, L, generator=g).to(dev) \
+            if "row" in names else None
+        for name in names:
             bias = {"pad": pad, "pad_dropout": pad, "row": row}.get(name)
-            causal = name == "causal"
-            rate = 0.1 if name == "pad_dropout" else 0.0
+            causal = name in ("causal", "gpt_causal_dropout")
+            rate = 0.1 if name in ("pad_dropout", "gpt_causal_dropout") \
+                else 0.0
             bias3, per_head, per_row = (None, False, False) if bias is None \
                 else fa.normalize_bias(bias, B, H, L, L)
             a = (q, k, v, bias3, seed, scale, causal, rate, per_head,
@@ -699,7 +750,7 @@ def k3_cases(dev):
                                 (ok_, lk_) + tuple(gk),
                                 (op_, lp_) + tuple(gp)):
                 errs[nm] = _scale_err(x, y)
-            case = dict(dtype=dtype, case=name,
+            case = dict(dtype=dtype, case=name, B=B, H=H, L=L, D=D,
                         max_abs_err=max(e for e, _ in errs.values()),
                         errors={nm: {"err": e, "scale": sc}
                                 for nm, (e, sc) in errs.items()},
@@ -783,12 +834,14 @@ def k3_cases(dev):
 
 
 XENT_SHAPES = [("float32", 1280, 30522), ("bfloat16", 1280, 30522),
-               ("float32", 1280, 50257)]
+               ("float32", 1280, 50257), ("float32", 8192, 50257),
+               ("bfloat16", 8192, 50257)]
 
 
 def k4_cases(dev):
     """The cross-entropy kernels at the MLM head's logits (64 x 20 masked
-    rows, vocab 30522) and at an odd vocabulary."""
+    rows, vocab 30522), at an odd vocabulary, and at the GPT phase's
+    logits (8 x 1024 rows, vocab 50257)."""
     import torch
     import torch.nn.functional as tF
     from mxnet_tpu_torch.ops import softmax_xent as sx
@@ -2099,6 +2152,308 @@ def run_moe(dev, results, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: GPT-2-small causal-LM training at full width and depth
+# ---------------------------------------------------------------------------
+
+GPT_B, GPT_L = 8, 1024          # sequences x tokens a step
+GPT_LR, GPT_WD = 3e-4, 0.1      # AdamW
+REMAT_RTOL = 1e-5               # remat vs no remat (JAX's test_models.py:328)
+# (weights, remat, entry point): TrainStep in bf16 and f32 without remat,
+# bf16 under both remat policies, and the gluon Trainer in bf16
+GPT_RUNS = (("bfloat16", False, "step"), ("float32", False, "step"),
+            ("bfloat16", "full", "step"),
+            ("bfloat16", "dots_saveable", "step"),
+            ("bfloat16", False, "trainer"))
+# planted faults: every attention built non-causal (read against the bf16
+# oracle at `traj_tol`), and a remat run whose recompute does not put the
+# dropout generators back (read against the bf16 run without remat at
+# REMAT_RTOL)
+GPT_FAULTS = ("attention_not_causal", "remat_without_generator_restore")
+GPT_FLOOR_X = 10     # a bf16 run's limit: this many one-ulp floors
+
+
+def gpt_tol(dtype, floor):
+    """The gpt phase's trajectory limit, kernel run vs its plain oracle.
+    f32: `traj_tol`'s 1e-4.  bf16: the weights are bf16 with no f32 master
+    copy, so an update that differs in its last bits can round a weight a
+    whole bf16 step (2^-8 of it) apart, and the run is chaotic.  `floor`
+    measures that in the same call: the departure of the bf16 run from
+    itself with one weight element one bf16 ulp away before step 1 (on the
+    H100, 1.2e-3 -- over `traj_tol`'s 1e-3 alone).  A kernel and its plain
+    version differ in many roundings a step, so bf16 runs are held to the
+    larger of `traj_tol` and `GPT_FLOOR_X` floors; the controls show how
+    far above that a wrong kernel lands."""
+    if dtype != "bfloat16":
+        return traj_tol(dtype, "auto")
+    return max(traj_tol(dtype, "auto"), GPT_FLOOR_X * floor)
+
+
+def gpt_batch(dev, vocab, seed=0):
+    """A (8, 1025) token stream from `seed`: inputs ``[:, :-1]``, labels
+    ``[:, 1:]`` (views of one tensor; the logits stay contiguous)."""
+    import numpy as np
+    import torch
+    stream = np.random.RandomState(seed).randint(
+        0, vocab, (GPT_B, GPT_L + 1)).astype(np.int32)
+    t = torch.from_numpy(stream).to(dev)
+    return t[:, :-1], t[:, 1:]
+
+
+class _TrainerStep:
+    """The gluon `Trainer` loop behind `TrainStep`'s ``dispatch``: forward,
+    the mean loss, ``loss.backward()``, ``trainer.step(1)``."""
+
+    def __init__(self, model, trainer, loss_fn):
+        self.model, self.trainer, self.loss_fn = model, trainer, loss_fn
+
+    def dispatch(self, ids, lab):
+        self.model.train()
+        loss = self.loss_fn(self.model(ids), ids, lab)
+        loss.backward()
+        self.trainer.step(1)
+        return loss.detach()
+
+
+def gpt_train_step(dev, dtype, plain=False, remat=False, entry="step",
+                   fault=None, nudge=False):
+    """`gpt_small` (GPT-2 small, seed 0, dropout 0.1) with the causal-LM
+    loss (`gluon.loss.SoftmaxCrossEntropyLoss` over the (8192, V) logits)
+    and AdamW lr 3e-4, weight decay 0.1, through `TrainStep` or the gluon
+    `Trainer`.  ``plain=True`` builds the oracle, which launches no kernel:
+    every attention swaps in `multi_head_attention_reference`, every
+    LayerNorm (and the residual norm) the fused norm's plain version, the
+    loss `softmax_cross_entropy_reference`, and the update the kernels'
+    plain version leaf by leaf (`kernel_plain`; the `Trainer`, run under
+    ``MXTPU_PALLAS=reference``, its per-leaf rule).  `fault` plants one of
+    `GPT_FAULTS`.  `nudge` moves one weight element (layer 0's FFN
+    up-projection, element 0) by one unit in the last place: how far one
+    rounding difference carries over the run."""
+    import torch
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.models import GPTForCausalLM, gpt_small
+    from mxnet_tpu_torch.models.layers import FusedSelfAttention, LayerNorm
+    from mxnet_tpu_torch.ops import fused_norm as fn
+    from mxnet_tpu_torch.ops.attention import multi_head_attention_reference
+    from mxnet_tpu_torch.ops.fused_optimizer import kernel_plain
+    from mxnet_tpu_torch.ops.softmax_xent import \
+        softmax_cross_entropy_reference
+    from mxnet_tpu_torch.optimizer import AdamW
+    from mxnet_tpu_torch.parallel import TrainStep
+
+    cfg = gpt_small(dtype=dtype, remat=remat)
+    model = GPTForCausalLM(cfg, device=dev, seed=0)
+    if nudge:
+        w = model.transformer.layers[0].ffn.ffn_intermediate.weight
+        bits = torch.int16 if w.element_size() == 2 else torch.int32
+        with torch.no_grad():
+            w.view(-1)[:1].view(bits).add_(1)
+    V = cfg.vocab_size
+    ce = SoftmaxCrossEntropyLoss()
+
+    def loss_fn(out, ids, lab):
+        return ce(out.reshape(-1, V), lab.reshape(-1)).mean()
+
+    if plain:
+        for m in model.modules():
+            if isinstance(m, FusedSelfAttention):
+                m.attend = multi_head_attention_reference
+            if isinstance(m, LayerNorm):
+                m.norm = fn.fused_layer_norm_reference
+                m.norm_residual = fn.fused_layer_norm_residual_reference
+
+        def loss_fn(out, ids, lab):     # noqa: F811 - the oracle's loss
+            return softmax_cross_entropy_reference(
+                out.reshape(-1, V), lab.reshape(-1)).mean()
+    if fault == "attention_not_causal":
+        for m in model.modules():
+            if isinstance(m, FusedSelfAttention):
+                m.causal = False
+    opt = AdamW(learning_rate=GPT_LR, wd=GPT_WD)
+    with pallas_mode("reference" if plain else "auto"):
+        if entry == "step":
+            return model, TrainStep(model, opt, loss_fn, num_model_args=1,
+                                    update=kernel_plain if plain else None)
+    return model, _TrainerStep(
+        model, Trainer(dict(model.named_parameters()), opt), loss_fn)
+
+
+def gpt_run(dev, dtype, plain, batch, remat=False, entry="step",
+            fault=None, nudge=False):
+    """`TRAIN_STEPS` steps of `gpt_train_step` under ``MXTPU_PALLAS=auto``
+    (``reference`` for the oracle), counts reset after warmup; returns its
+    stats and the step time."""
+    import torch
+    from mxnet_tpu_torch import kernels
+    from mxnet_tpu_torch.ops import nn as tnn
+
+    gen_contexts = tnn._generator_contexts
+    if fault == "remat_without_generator_restore":
+        tnn._generator_contexts = lambda gens: (contextlib.nullcontext(),
+                                                contextlib.nullcontext())
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model, step = gpt_train_step(dev, dtype, plain, remat, entry, fault,
+                                     nudge)
+        with pallas_mode("reference" if plain else "auto"):
+            before = model.generator.get_state()
+            if entry == "step":
+                warm_s = step.warmup(*batch)
+                if not torch.equal(model.generator.get_state(), before):
+                    raise AssertionError("gpt: warmup moved the dropout "
+                                         "generator")
+            else:
+                warm_s = None
+            kernels.reset_launch_counts()
+            losses = []
+            for i in range(TRAIN_STEPS):
+                losses.append(step.dispatch(*batch) if entry == "trainer"
+                              else step.dispatch(*batch).loss)
+                if i == 1:        # time the steady steps 3..N
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+            torch.cuda.synchronize()
+            step_s = (time.perf_counter() - t0) / (TRAIN_STEPS - 2)
+            launches = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        groups = len({p.dtype for p in model.parameters()})
+    finally:
+        tnn._generator_contexts = gen_contexts
+    del model, step
+    torch.cuda.empty_cache()
+    return dict(losses=[float(x) for x in losses], step_ms=step_s * 1e3,
+                warmup_s=warm_s, launches=launches, dtype_groups=groups,
+                peak_mem_gb=peak), step_s
+
+
+def gpt_want_launches(n_groups, layers, remat):
+    """Exact launches over `TRAIN_STEPS` steps.  A step: the flash forward
+    once a layer and the backward once a layer; the fused norm twice a
+    layer (the first norm, the second fused with the residual) and the
+    final norm; the cross-entropy once each way; the chunk once per dtype
+    group.  Under either remat policy each layer's forward runs again in
+    the backward pass: the kernels are extension calls that no selective
+    policy saves, so the recompute launches the flash forward and both
+    norms of every layer again."""
+    again = 2 if remat else 1
+    per_step = {"flash_attention_fwd": layers * again,
+                "flash_attention_bwd": layers,
+                "softmax_xent_fwd": 1, "softmax_xent_bwd": 1,
+                "fused_norm": 2 * layers * again + 1,
+                "fused_optimizer_chunk": n_groups}
+    return {k: v * TRAIN_STEPS for k, v in per_step.items()}
+
+
+def run_gpt(dev, results, card):
+    import torch
+    from mxnet_tpu_torch.models import GPTForCausalLM, gpt_small
+
+    cfg = gpt_small()
+    batch = gpt_batch(dev, cfg.vocab_size)
+    tokens = GPT_B * GPT_L
+    flops = GPTForCausalLM.flops_per_token(cfg, GPT_L) * tokens
+    runs, floors = results["gpt"], results["gpt_one_ulp"]
+    problems = []        # every run and control is reported before failing
+    for dtype, remat, entry in GPT_RUNS:
+        key = f"{dtype}_{entry}_remat_{remat or 'off'}"
+        st, step_s = gpt_run(dev, dtype, False, batch, remat, entry)
+        if dtype not in floors:
+            # how far one rounding difference carries: the same run with
+            # one weight element one unit in the last place away
+            nst, _ = gpt_run(dev, dtype, False, batch, nudge=True)
+            floors[dtype] = c = dict(
+                losses=nst["losses"],
+                trajectory_rel_dev=traj_dev(nst["losses"], st["losses"]))
+            print(f"[gpt one ulp {dtype}] {json.dumps(c)}", flush=True)
+        pst, pstep_s = gpt_run(dev, dtype, True, batch, remat, entry)
+        want = gpt_want_launches(st["dtype_groups"], cfg.num_layers,
+                                 bool(remat))
+        got = {k: st["launches"][k] for k in want}
+        others = {k: v for k, v in st["launches"].items()
+                  if k not in want and v}
+        if got != want or others:
+            problems.append(f"gpt {key}: kernel launches {got} (and "
+                            f"{others}), want {want} over {TRAIN_STEPS} "
+                            f"steps")
+        if any(pst["launches"].values()):
+            problems.append(f"gpt {key}: the plain run launched kernels "
+                            f"{pst['launches']}")
+        ls = st["losses"]
+        dev_rel = traj_dev(ls, pst["losses"])
+        floor = floors[dtype]["trajectory_rel_dev"]
+        tol = gpt_tol(dtype, floor)
+        st.update(plain_losses=pst["losses"], plain_step_ms=pst["step_ms"],
+                  plain_peak_mem_gb=pst["peak_mem_gb"],
+                  trajectory_rel_dev=dev_rel, trajectory_tol=tol,
+                  one_ulp_floor=floor,
+                  within_traj_tol=dev_rel <= traj_tol(dtype, "auto"),
+                  tokens_per_s=tokens / step_s,
+                  plain_tokens_per_s=tokens / pstep_s,
+                  flops_per_step=flops, tflops=flops / step_s / 1e12,
+                  bf16_peak_share=flops / step_s / PEAK["bfloat16"])
+        if remat:
+            base = runs["bfloat16_step_remat_off"]
+            st["remat_rel_dev"] = traj_dev(ls, base["losses"])
+            st["remat_rtol"] = REMAT_RTOL
+            st["no_remat_peak_mem_gb"] = base["peak_mem_gb"]
+        runs[key] = st
+        print(f"[gpt {key}] {json.dumps(st)}", flush=True)
+        print(f"[gpt {key}] {tokens / step_s:.1f} tokens/s, "
+              f"{st['step_ms']:.2f} ms/step, {st['tflops']:.2f} TFLOP/s = "
+              f"{100 * st['bf16_peak_share']:.2f}% of the dense bf16 peak "
+              f"(989 TFLOP/s) of {card}; peak memory "
+              f"{st['peak_mem_gb']:.2f} GB; trajectory vs plain "
+              f"{dev_rel:.3g} (limit {tol:.3g}: {GPT_FLOOR_X} one-ulp floors "
+              f"of {floor:.3g}, at least traj_tol "
+              f"{traj_tol(dtype, 'auto')})", flush=True)
+        if not all(math.isfinite(x) for x in ls):
+            problems.append(f"gpt {key}: non-finite loss {ls}")
+        if dev_rel > tol:
+            problems.append(
+                f"gpt {key}: loss trajectory departs from the plain path's "
+                f"by {dev_rel:.3g} > {tol} ({ls} vs {pst['losses']})")
+        if not ls[-1] < ls[0]:
+            problems.append(f"gpt {key}: loss did not fall {ls}")
+        if remat:
+            print(f"[gpt {key}] remat vs no remat: {st['remat_rel_dev']:.3g} "
+                  f"(limit {REMAT_RTOL}); peak memory "
+                  f"{st['peak_mem_gb']:.2f} GB vs "
+                  f"{st['no_remat_peak_mem_gb']:.2f} GB", flush=True)
+            if st["remat_rel_dev"] > REMAT_RTOL:
+                problems.append(
+                    f"gpt {key}: remat departs from no remat by "
+                    f"{st['remat_rel_dev']:.3g} > {REMAT_RTOL}")
+            if not st["peak_mem_gb"] < st["no_remat_peak_mem_gb"]:
+                problems.append(f"gpt {key}: remat did not lower the peak "
+                                f"memory")
+
+    # the controls, each read against the limit its sound run is held to
+    for fault in GPT_FAULTS:
+        remat = "full" if fault == "remat_without_generator_restore" \
+            else False
+        st, _ = gpt_run(dev, "bfloat16", False, batch, remat, "step", fault)
+        if remat:
+            ref = runs["bfloat16_step_remat_off"]["losses"]
+            tol = REMAT_RTOL
+        else:
+            ref = runs["bfloat16_step_remat_off"]["plain_losses"]
+            tol = gpt_tol("bfloat16",
+                          floors["bfloat16"]["trajectory_rel_dev"])
+        dev_rel = traj_dev(st["losses"], ref)
+        results["gpt_controls"][fault] = c = dict(
+            losses=st["losses"], trajectory_rel_dev=dev_rel,
+            trajectory_tol=tol, over_tol=dev_rel / tol, caught=dev_rel > tol)
+        print(f"[gpt control {fault}] {json.dumps(c)}", flush=True)
+        if not c["caught"]:
+            problems.append(
+                f"gpt control {fault}: the planted fault departs by only "
+                f"{dev_rel:.3g} <= {tol}; the check cannot see it")
+    if problems:
+        raise AssertionError("; ".join(problems))
+
+
+# ---------------------------------------------------------------------------
 
 def kernel_entries(results):
     """One entry per ported kernel for the ``kernels`` line: the
@@ -2112,12 +2467,15 @@ def kernel_entries(results):
     the flash forward's entry also carries its bf16 case.
     The MoE gather: dispatch and combine at the slice's f32 shapes (8192
     tokens, 8 x 1280 slots, H 768).  Launches are the counts of the
-    main-path runs (serving for K1/K2, the BERT and MoE training runs for
-    the others)."""
+    main-path runs (serving for K1/K2, the BERT, MoE and GPT training runs
+    for the others); ``gpt_launches`` is the GPT phase's share."""
     k1, k2, k3, k4, k5, k6, k7 = (results[k] for k in (
         "k1", "k2", "k3", "k4", "k5", "k6", "k7"))
     rep1 = next(c for c in k1 if c["dtype"] == "float32" and c["C"] == 1
-                and c["Hkv"] == 12 and c["window"] is None)
+                and c["Hkv"] == 12 and c["window"] is None
+                and c["pool_dtype"] == "float32")
+    rep1m = next(c for c in k1 if c["pool_dtype"] != c["dtype"]
+                 and c["C"] == 1)
     rep2 = next(c for c in k2 if c["bits"] == 8 and c["dtype"] == "float32"
                 and c["M"] == 8 and c["N"] == 2304)
     rep3 = next(c for c in k3 if c["dtype"] == "float32"
@@ -2125,6 +2483,10 @@ def kernel_entries(results):
     rep3b = next(c for c in k3 if c["dtype"] == "bfloat16"
                  and c["case"] == "pad_dropout")
     rep4 = next(c for c in k4 if c["dtype"] == "float32" and c["V"] == 30522)
+    # the GPT phase's shapes: causal flash at L 1024, cross-entropy at
+    # (8192, 50257), each dtype
+    gpt3 = {c["dtype"]: c for c in k3 if c["case"] == "gpt_causal_dropout"}
+    gpt4 = {c["dtype"]: c for c in k4 if c["N"] == 8192}
     rep5 = next(c for c in k5 if c["dtype"] == "bfloat16" and
                 c["rows"] == 8192 and c["case"] == "ln")
     chunk = [c for c in k6 if c["rule"] != "lamb"]
@@ -2138,6 +2500,7 @@ def kernel_entries(results):
                  c["T"] == 8192 and c["op"] == "combine")
     e2e = results["e2e"]
     train = dict(results["train"], **results["moe"])
+    train.update({"gpt_" + k: v for k, v in results["gpt"].items()})
     k1_launch = e2e.get("float32", {}).get("launches", {}).get(
         "ragged_paged_attention", 0)
     k2_launch = sum(e2e.get(k, {}).get("launches", {}).get(
@@ -2150,6 +2513,8 @@ def kernel_entries(results):
         mk = ms or pre + "ms"           # the kernel time's key; its bound's
         return {"name": name, "route": "cuda", "source": src,   # beside it
                 "replaces": replaces, "launches": launches,
+                "gpt_launches": sum(r["launches"].get(name, 0)
+                                    for r in results["gpt"].values()),
                 "max_abs_err": max(c["max_abs_err"] for c in cases),
                 "ms": rep[mk], "kernel_ms": rep[mk],
                 "plain_ms": rep[pre + "plain_ms"],
@@ -2170,6 +2535,16 @@ def kernel_entries(results):
                bf16_device_ms=rep3b["device_ms"],
                bf16_library_ms=rep3b["library_ms"],
                bf16_bound_ms=rep3b["bound_ms"])
+
+    def gpt_shape(e, cases, pre=""):
+        for dt, c in cases.items():
+            tag = "gpt_" + ("f32" if dt == "float32" else "bf16")
+            e.update({f"{tag}_ms": c[pre + "ms"],
+                      f"{tag}_plain_ms": c[pre + "plain_ms"],
+                      f"{tag}_library_ms": c[pre + "library_ms"],
+                      f"{tag}_bound_ms": c[pre + "bound_ms"]})
+        return e
+    gpt_shape(fwd, gpt3)
     norm = entry("fused_norm", "mxnet_tpu_torch/csrc/fused_norm.cu",
                  "mxnet_tpu/ops/pallas/fused_norm.py:164",
                  train_launches("fused_norm"), k5, rep5)
@@ -2185,22 +2560,31 @@ def kernel_entries(results):
                    train_launches("lamb_phase_b"), lamb, rep8,
                    ms="phase_b_ms")
     lamb_b.update(plan=rep8["phase_b_plan"])
+    k1e = entry("ragged_paged_attention",
+                "mxnet_tpu_torch/csrc/paged_attention.cu",
+                "mxnet_tpu/ops/pallas/paged_attention.py:285", k1_launch, k1,
+                rep1)
+    # f32 queries over a bf16 pool (bf16 serving), decode C=1, beside it
+    k1e.update(f32q_bf16pool_ms=rep1m["ms"],
+               f32q_bf16pool_device_ms=rep1m["device_ms"],
+               f32q_bf16pool_plain_ms=rep1m["plain_ms"],
+               f32q_bf16pool_bound_ms=rep1m["bound_ms"],
+               f32q_bf16pool_max_abs_err=rep1m["max_abs_err"])
     return [
-        entry("ragged_paged_attention",
-              "mxnet_tpu_torch/csrc/paged_attention.cu",
-              "mxnet_tpu/ops/pallas/paged_attention.py:285", k1_launch, k1,
-              rep1),
+        k1e,
         entry("quantized_matmul",
               "mxnet_tpu_torch/csrc/quantized_matmul.cu",
               "mxnet_tpu/ops/pallas/quantized_matmul.py:341", k2_launch, k2,
               rep2),
         fwd,
-        entry("flash_attention_bwd", fa_src, f"{fa_py}:489",
-              train_launches("flash_attention_bwd"), k3, rep3, "bwd_"),
-        entry("softmax_xent_fwd", sx_src, f"{sx_py}:95",
-              train_launches("softmax_xent_fwd"), k4, rep4),
-        entry("softmax_xent_bwd", sx_src, f"{sx_py}:127",
-              train_launches("softmax_xent_bwd"), k4, rep4, "bwd_"),
+        gpt_shape(entry("flash_attention_bwd", fa_src, f"{fa_py}:489",
+                        train_launches("flash_attention_bwd"), k3, rep3,
+                        "bwd_"), gpt3, "bwd_"),
+        gpt_shape(entry("softmax_xent_fwd", sx_src, f"{sx_py}:95",
+                        train_launches("softmax_xent_fwd"), k4, rep4), gpt4),
+        gpt_shape(entry("softmax_xent_bwd", sx_src, f"{sx_py}:127",
+                        train_launches("softmax_xent_bwd"), k4, rep4,
+                        "bwd_"), gpt4, "bwd_"),
         norm,
         entry("fused_optimizer_chunk", fo_src, f"{fo_py}:220",
               train_launches("fused_optimizer_chunk"), chunk, rep7),
@@ -2247,7 +2631,8 @@ def main(argv=None) -> int:
     results = {"card": card, "device": torch.cuda.get_device_name(0),
                "torch": torch.__version__, "cuda": torch.version.cuda,
                "e2e": {}, "train": {}, "train_controls": {}, "tune": {},
-               "moe": {}, "moe_controls": {}}
+               "moe": {}, "moe_controls": {}, "gpt": {},
+               "gpt_controls": {}, "gpt_one_ulp": {}}
     failed = []
     t0 = time.perf_counter()
     # build from the checkout's sources, never from a leftover library
@@ -2286,7 +2671,8 @@ def main(argv=None) -> int:
     except Exception:
         traceback.print_exc()
         failed.append("train")
-    for name, fn in (("tune", run_tune), ("moe", run_moe)):
+    for name, fn in (("tune", run_tune), ("moe", run_moe),
+                     ("gpt", run_gpt)):
         try:
             fn(dev, results, card)
         except Exception:

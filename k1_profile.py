@@ -11,6 +11,8 @@ run in fresh processes of that tree with its own package, kernels and
   `chip_smoke.time_ms` (the same timer in both trees);
 - phase 3 in float32: `chip_smoke.serve_phase` (16 staggered greedy
   requests, 32 new tokens), its tokens/s and step ms;
+- phase 5 in bfloat16, the same requests: its tokens/s, step ms and the
+  share of streams equal to the plain engine's;
 - the tree's ``serve_profile.py``: the f32 prefill and decode windows'
   traced wall, device time and K1's device time a step (kernels named
   ``rpa*``).
@@ -35,9 +37,17 @@ dev = torch.device("cuda", 0)
 k1 = chip_smoke.k1_cases(dev)
 cfg = gpt_small(dropout=0.0)
 model = GPTForCausalLM(cfg, device=dev, seed=0)
-_, _, _, st = chip_smoke.serve_phase(
-    model, chip_smoke.make_prompts(cfg.vocab_size), 32, 0)
-json.dump({"k1": k1, "serve_f32": st}, open(sys.argv[1], "w"))
+prompts = chip_smoke.make_prompts(cfg.vocab_size)
+_, _, _, st = chip_smoke.serve_phase(model, prompts, 32, 0)
+del model
+torch.cuda.empty_cache()
+model = GPTForCausalLM(gpt_small(dropout=0.0, dtype="bfloat16"), device=dev,
+                       seed=0)
+streams, pstreams, _, st16 = chip_smoke.serve_phase(model, prompts, 32, 0)
+st16["equal_stream_share"] = sum(
+    a == b for a, b in zip(streams, pstreams)) / len(streams)
+json.dump({"k1": k1, "serve_f32": st, "serve_bf16": st16},
+          open(sys.argv[1], "w"))
 """
 
 
@@ -63,7 +73,8 @@ def k1_ms(window):
 
 
 def key(c):
-    return (c["dtype"], c["C"], c["Hkv"], c["window"])
+    return (c["dtype"], c.get("pool_dtype", c["dtype"]), c["C"], c["Hkv"],
+            c["window"])
 
 
 def main(argv=None) -> int:
@@ -84,7 +95,7 @@ def main(argv=None) -> int:
     runs = []
     for i, which in enumerate(order):
         r = run_tree(trees[which], out_dir, i)
-        s = r["serve_f32"]
+        s, s16 = r["serve_f32"], r["serve_bf16"]
         w = {k: dict(wall_ms=v["wall_ms_per_step"],
                      device_ms=v["device_ms_per_step"],
                      idle=v["device_idle_share"], k1_ms=k1_ms(v))
@@ -93,15 +104,22 @@ def main(argv=None) -> int:
                          step_ms_mean=s["step_ms_mean"],
                          plain_tokens_per_s=s["plain_tokens_per_s"],
                          k1_launches=s["launches"]["ragged_paged_attention"],
-                         fused_steps=s["fused_steps"], profile=w, k1=r["k1"]))
+                         fused_steps=s["fused_steps"], profile=w, k1=r["k1"],
+                         bf16_tokens_per_s=s16["tokens_per_s"],
+                         bf16_step_ms_mean=s16["step_ms_mean"],
+                         bf16_plain_tokens_per_s=s16["plain_tokens_per_s"],
+                         bf16_equal_stream_share=s16["equal_stream_share"]))
         print(f"[run {i} {which}] f32 phase 3 {s['tokens_per_s']:.1f} "
               f"tokens/s, step {s['step_ms_mean']:.3f} ms (plain "
-              f"{s['plain_tokens_per_s']:.1f}); profile "
+              f"{s['plain_tokens_per_s']:.1f}); bf16 phase 5 "
+              f"{s16['tokens_per_s']:.1f} tokens/s, step "
+              f"{s16['step_ms_mean']:.3f} ms, equal streams "
+              f"{s16['equal_stream_share']:.4f}; profile "
               f"{json.dumps(w)}", flush=True)
     rows, ok = [], True
     for c in runs[0]["k1"]:
         k = key(c)
-        row = dict(zip(("dtype", "C", "Hkv", "window"), k),
+        row = dict(zip(("dtype", "pool_dtype", "C", "Hkv", "window"), k),
                    bound_ms=c["bound_ms"], library_ms=c["library_ms"])
         for which in ("this", "other"):
             got = [d for r in runs if r["tree"] == which
@@ -112,8 +130,8 @@ def main(argv=None) -> int:
         ok = ok and all(d["ok"] for r in runs if r["tree"] == "this"
                         for d in r["k1"] if key(d) == k)
         rows.append(row)
-        print(f"[k1] {k[0]:8s} C {k[1]:2d} Hkv {k[2]:2d} window "
-              f"{str(k[3]):4s}  this {row['this_ms']:.4f}  other "
+        print(f"[k1] {k[0]:8s} pool {k[1]:8s} C {k[2]:2d} Hkv {k[3]:2d} "
+              f"window {str(k[4]):4s}  this {row['this_ms']:.4f}  other "
               f"{row.get('other_ms', float('nan')):.4f}  SDPA "
               f"{c['library_ms']:.4f}  bound {c['bound_ms']:.4f} ms",
               flush=True)

@@ -186,6 +186,10 @@ template <> struct Mma<float> {
   static constexpr int PAD = 4;
   struct A { uint32_t hi[4], lo[4]; };
   struct B { uint32_t hi[2], lo[2]; };
+  static __device__ __forceinline__ float widen(float f) { return f; }
+  static __device__ __forceinline__ float widen(__nv_bfloat16 f) {
+    return __bfloat162float(f);
+  }
   // hi keeps f's top 10 mantissa bits (exact in TF32), lo = f - hi exactly;
   // the tensor core reads lo's top 10 bits, so a product keeps ~20 bits
   static __device__ __forceinline__ void split(float f, uint32_t& hi,
@@ -212,37 +216,42 @@ template <> struct Mma<float> {
     const T* c4 = c0 + 4 * ld;
     set_a(a, c0[0], c0[8], c4[0], c4[8]);
   }
-  static __device__ __forceinline__ void b_nrow(B (&b)[2], const T* X,
+  // B loads read f32 tiles, or bf16 tiles widened in registers (a bf16
+  // value is exact in TF32: its lo half is zero)
+  template <typename S>
+  static __device__ __forceinline__ void b_nrow(B (&b)[2], const S* X,
                                                 int ld, int n0, int k0,
                                                 int lane) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const T* r = X + (n0 + 8 * i + (lane >> 2)) * ld + k0 + (lane & 3);
-      split(r[0], b[i].hi[0], b[i].lo[0]);
-      split(r[4], b[i].hi[1], b[i].lo[1]);
+      const S* r = X + (n0 + 8 * i + (lane >> 2)) * ld + k0 + (lane & 3);
+      split(widen(r[0]), b[i].hi[0], b[i].lo[0]);
+      split(widen(r[4]), b[i].hi[1], b[i].lo[1]);
     }
   }
-  static __device__ __forceinline__ void b_krow(B (&b)[2], const T* X,
+  template <typename S>
+  static __device__ __forceinline__ void b_krow(B (&b)[2], const S* X,
                                                 int ld, int k0, int n0,
                                                 int lane) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const T* r = X + (k0 + (lane & 3)) * ld + n0 + 8 * i + (lane >> 2);
-      split(r[0], b[i].hi[0], b[i].lo[0]);
-      split(r[4 * ld], b[i].hi[1], b[i].lo[1]);
+      const S* r = X + (k0 + (lane & 3)) * ld + n0 + 8 * i + (lane >> 2);
+      split(widen(r[0]), b[i].hi[0], b[i].lo[0]);
+      split(widen(r[4 * ld]), b[i].hi[1], b[i].lo[1]);
     }
   }
   // `a_acc` puts k columns 2t and 2t + 1 where the layout has t and t + 4
   // (a sum's terms may come in any order): B takes its rows in that order
-  static __device__ __forceinline__ void b_krow_acc(B (&b)[2], const T* X,
+  template <typename S>
+  static __device__ __forceinline__ void b_krow_acc(B (&b)[2], const S* X,
                                                     int ld, int k0, int n0,
                                                     int lane) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const T* r =
+      const S* r =
           X + (k0 + 2 * (lane & 3)) * ld + n0 + 8 * i + (lane >> 2);
-      split(r[0], b[i].hi[0], b[i].lo[0]);
-      split(r[ld], b[i].hi[1], b[i].lo[1]);
+      split(widen(r[0]), b[i].hi[0], b[i].lo[0]);
+      split(widen(r[ld]), b[i].hi[1], b[i].lo[1]);
     }
   }
   // A of k-step j from accumulator n-tile j: c0 (g, 2t), c1 (g, 2t+1),

@@ -14,10 +14,16 @@
 //   * Scores in f32 with the caller's float scale; a key at position t is
 //     kept iff t < ctx_lens[b] and t <= qpos (and t >= qpos - window when a
 //     window is given); a dropped key's p is exactly 0.
-//   * Online softmax per row in f32; p is rounded to the pool's type before
-//     the P.V product (as the TPU kernel casts p to v's dtype); a row that
+//   * Online softmax per row in f32; p is rounded to the query's type before
+//     the P.V product (the pool's type, as the TPU kernel casts p to v's
+//     dtype, except for f32 queries over a bf16 pool below); a row that
 //     saw no key has l == 0 and writes zeros, not NaN.
 //   * Keys at t >= ctx are never read.
+//   * Queries, output and the arithmetic take the query's type; the pool may
+//     be bf16 under f32 queries (a bf16 model's serving step, whose
+//     activations are f32 after the first LayerNorm's f32 gain): K/V rows
+//     load as bf16 and widen to f32 in registers, and everything else is
+//     the f32 route's, as the plain version casts the gathered pool to f32.
 //
 // What bounds it on the H100: the K/V bytes of the keys below ctx, read
 // from HBM at 3.35 TB/s; at serving shapes that is a few MB a call, so
@@ -123,13 +129,14 @@ struct Params {
 // merge area ([warp][RT][DMAX] acc, then [warp][RT][m, l]) reuses the rings.
 // Rows are padded so that neither variant's reads conflict on banks: 32
 // bytes where two lanes read a key's halves, 16 where ldmatrix reads rows.
-template <typename T, int DMAX, int RB> struct Cfg {
+// TQ is the query's type, TP the pool's.
+template <typename TQ, typename TP, int DMAX, int RB> struct Cfg {
   static constexpr bool TILE = RB == TILE_ROWS;
-  static constexpr int LD = DMAX + (TILE ? 16 : 32) / (int)sizeof(T);
-  static constexpr int LDQ = TILE ? DMAX + 16 / (int)sizeof(T) : DMAX;
+  static constexpr int LD = DMAX + (TILE ? 16 : 32) / (int)sizeof(TP);
+  static constexpr int LDQ = TILE ? DMAX + 16 / (int)sizeof(TQ) : DMAX;
   static constexpr size_t QBYTES =
-      TILE ? (size_t)TILE_ROWS * LDQ * sizeof(T) : (size_t)RB * DMAX * 4;
-  static constexpr size_t RING = (size_t)2 * 2 * TK * LD * sizeof(T);
+      TILE ? (size_t)TILE_ROWS * LDQ * sizeof(TQ) : (size_t)RB * DMAX * 4;
+  static constexpr size_t RING = (size_t)2 * 2 * TK * LD * sizeof(TP);
   static size_t smem(int warps) {
     const size_t ring = warps * RING;
     const size_t merge = (size_t)warps * RB * (DMAX + 2) * 4;
@@ -164,15 +171,15 @@ __device__ __forceinline__ bool keep(int t, int ke, int qpos, int window) {
 // One 16-key tile of the few-rows variant: lanes 2j and 2j + 1 score key j
 // over alternate 16-byte chunks of D for each row, the warp's online
 // softmax, then P.V with lane owning columns lane + 32 k.
-template <typename T, int DMAX, int RB>
+template <typename TQ, typename TP, int DMAX, int RB>
 __device__ __forceinline__ void few_step(
-    const float* qf, const T* ks, const T* vs, const Params& p, int R,
+    const float* qf, const TP* ks, const TP* vs, const Params& p, int R,
     int t0, int ke, const int (&qpos)[RB], float (&m)[RB], float (&l)[RB],
     float (&acc)[RB][DMAX / 32], int lane) {
-  using C = Cfg<T, DMAX, RB>;
-  constexpr int EPC = 16 / sizeof(T);
+  using C = Cfg<TQ, TP, DMAX, RB>;
+  constexpr int EPC = 16 / sizeof(TP);
   const int j = lane >> 1, t = t0 + j;
-  const T* kr = ks + j * C::LD;
+  const TP* kr = ks + j * C::LD;
   float s[RB];
 #pragma unroll
   for (int r = 0; r < RB; ++r) s[r] = 0.f;
@@ -215,14 +222,14 @@ __device__ __forceinline__ void few_step(
     for (int o = 16; o >= 2; o >>= 1) sum += __shfl_xor_sync(FULL, sum, o);
     l[r] = l[r] * alpha + sum;
     m[r] = mn;
-    pr[r] = to_f(from_f<T>(pe));
+    pr[r] = to_f(from_f<TQ>(pe));
 #pragma unroll
     for (int k = 0; k < DMAX / 32; ++k) acc[r][k] *= alpha;
   }
 #pragma unroll 4
   for (int jj = 0; jj < TK; ++jj) {
     float vv[DMAX / 32];
-    const T* vr = vs + jj * C::LD;
+    const TP* vr = vs + jj * C::LD;
 #pragma unroll
     for (int k = 0; k < DMAX / 32; ++k) {
       const int d = lane + 32 * k;
@@ -243,16 +250,16 @@ __device__ __forceinline__ void few_step(
 // One 16-key tile of the tile variant for the block's 16 rows: S = Q K^T
 // on the tensor cores, the online softmax on the fragments (lane holds rows
 // g and g + 8), then O += P V with P from the score fragments.
-template <typename T, int DMAX>
-__device__ __forceinline__ void tile_step(const T* qt, const T* ks,
-                                          const T* vs, const Params& p,
+template <typename TQ, typename TP, int DMAX>
+__device__ __forceinline__ void tile_step(const TQ* qt, const TP* ks,
+                                          const TP* vs, const Params& p,
                                           int R, int t0, int ke,
                                           const int (&qpos)[2], float (&m)[2],
                                           float (&l)[2],
                                           float (&acc)[DMAX / 8][4],
                                           int lane) {
-  using M = Mma<T>;
-  using C = Cfg<T, DMAX, TILE_ROWS>;
+  using M = Mma<TQ>;
+  using C = Cfg<TQ, TP, DMAX, TILE_ROWS>;
   const int g = lane >> 2, t4 = lane & 3;
   float sc[2][4];
 #pragma unroll
@@ -313,7 +320,8 @@ __device__ __forceinline__ void tile_step(const T* qt, const T* ks,
     acc[n][2] *= alpha[1];
     acc[n][3] *= alpha[1];
   }
-  // P (rounded to T by a_acc for bf16) times V, TK / KS key steps
+  // P (rounded to bf16 by a_acc for bf16 queries) times V, TK / KS key
+  // steps; a bf16 V under f32 queries widens as it loads
 #pragma unroll
   for (int j = 0; j < TK / M::KS; ++j) {
     typename M::A a;
@@ -330,11 +338,11 @@ __device__ __forceinline__ void tile_step(const T* qt, const T* ks,
   }
 }
 
-template <typename T, int DMAX, int RB>
+template <typename TQ, typename TP, int DMAX, int RB>
 __global__ void __launch_bounds__(32 * MAX_WARPS)
-rpa_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                 const T* __restrict__ vp, T* __restrict__ out, Params p) {
-  using C = Cfg<T, DMAX, RB>;
+rpa_split_kernel(const TQ* __restrict__ q, const TP* __restrict__ kp,
+                 const TP* __restrict__ vp, TQ* __restrict__ out, Params p) {
+  using C = Cfg<TQ, TP, DMAX, RB>;
   constexpr bool TILE = C::TILE;
   extern __shared__ __align__(16) unsigned char rpa_smem[];
   const int nw = blockDim.x >> 5;
@@ -360,15 +368,15 @@ rpa_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     if (split == 0)
       for (int r = warp; r < R; r += nw)
         for (int d = lane; d < D; d += 32)
-          out[obase + (size_t)r * D + d] = from_f<T>(0.f);
+          out[obase + (size_t)r * D + d] = from_f<TQ>(0.f);
     return;
   }
   if (split < s_lo || split >= s_lo + n_live) return;
   const int kb = max(split * p.span, lo);
   const int ke = min((split + 1) * p.span, kend);
 
-  T* ring = reinterpret_cast<T*>(rpa_smem + C::QBYTES) +
-            (size_t)warp * 2 * 2 * TK * C::LD;  // [stage][K, V][TK][LD]
+  TP* ring = reinterpret_cast<TP*>(rpa_smem + C::QBYTES) +
+             (size_t)warp * 2 * 2 * TK * C::LD;  // [stage][K, V][TK][LD]
   const int ntiles = (ke - kb + TK - 1) / TK;
   const int cnt = warp < ntiles ? (ntiles - 1 - warp) / nw + 1 : 0;
   if (cnt > 0) {
@@ -376,16 +384,16 @@ rpa_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     const bool live = t < ke;
     const int page =
         !live ? 0 : t == t_spec ? pg_spec : ptab[t / p.ps];
-    load_tile<T, C::LD>(ring, ring + TK * C::LD, kp, vp, p, g, t, page,
-                        live, lane);
+    load_tile<TP, C::LD>(ring, ring + TK * C::LD, kp, vp, p, g, t, page,
+                         live, lane);
   }
   cp_async_commit();
 
   // stage q's rows while the first tile flies
-  const T* qg = q + obase;
+  const TQ* qg = q + obase;
   if constexpr (TILE) {
-    T* qt = reinterpret_cast<T*>(rpa_smem);
-    constexpr int EPC = 16 / sizeof(T);
+    TQ* qt = reinterpret_cast<TQ*>(rpa_smem);
+    constexpr int EPC = 16 / sizeof(TQ);
     for (int r = warp; r < TILE_ROWS; r += nw)
       for (int c = lane; c * EPC < DMAX; c += 32) {
         const bool live = r < R && c * EPC < D;
@@ -420,26 +428,26 @@ rpa_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 #pragma unroll
     for (int k = 0; k < NC; ++k) acc[i][k] = 0.f;
   for (int i = 0; i < cnt; ++i) {
-    T* ks = ring + (i & 1) * 2 * TK * C::LD;
+    TP* ks = ring + (i & 1) * 2 * TK * C::LD;
     if (i + 1 < cnt) {
-      T* nx = ring + ((i + 1) & 1) * 2 * TK * C::LD;
+      TP* nx = ring + ((i + 1) & 1) * 2 * TK * C::LD;
       const int t = kb + (warp + (i + 1) * nw) * TK + (lane >> 1);
       const bool live = t < ke;
-      load_tile<T, C::LD>(nx, nx + TK * C::LD, kp, vp, p, g, t,
-                          live ? ptab[t / p.ps] : 0, live, lane);
+      load_tile<TP, C::LD>(nx, nx + TK * C::LD, kp, vp, p, g, t,
+                           live ? ptab[t / p.ps] : 0, live, lane);
     }
     cp_async_commit();
     cp_async_wait<1>();
     __syncwarp();
     const int t0 = kb + (warp + i * nw) * TK;
     if constexpr (TILE)
-      tile_step<T, DMAX>(reinterpret_cast<const T*>(rpa_smem), ks,
-                         ks + TK * C::LD, p, R, t0, ke, qpos, m, l, acc,
-                         lane);
+      tile_step<TQ, TP, DMAX>(reinterpret_cast<const TQ*>(rpa_smem), ks,
+                              ks + TK * C::LD, p, R, t0, ke, qpos, m, l, acc,
+                              lane);
     else
-      few_step<T, DMAX, RB>(reinterpret_cast<const float*>(rpa_smem), ks,
-                            ks + TK * C::LD, p, R, t0, ke, qpos, m, l, acc,
-                            lane);
+      few_step<TQ, TP, DMAX, RB>(reinterpret_cast<const float*>(rpa_smem),
+                                 ks, ks + TK * C::LD, p, R, t0, ke, qpos, m,
+                                 l, acc, lane);
     __syncwarp();  // this stage's readers are done before it is refilled
   }
   cp_async_wait<0>();
@@ -509,7 +517,7 @@ rpa_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
         if (wt[w] != 0.f)
           a = fmaf(wt[w], am[((size_t)w * RB + r) * DMAX + d], a);
       if (direct)
-        out[obase + (size_t)r * D + d] = from_f<T>(ll == 0.f ? 0.f : a / ll);
+        out[obase + (size_t)r * D + d] = from_f<TQ>(ll == 0.f ? 0.f : a / ll);
       else
         part[r * prow + d] = a;
     }
@@ -562,17 +570,17 @@ rpa_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       a[3] = fmaf(w, x.w, a[3]);
     }
     const float ll = lsum[r];
-    T* o = out + obase + (size_t)r * D + d;
+    TQ* o = out + obase + (size_t)r * D + d;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) o[e] = from_f<T>(ll == 0.f ? 0.f : a[e] / ll);
+    for (int e = 0; e < 4; ++e) o[e] = from_f<TQ>(ll == 0.f ? 0.f : a[e] / ll);
   }
   if (threadIdx.x == 0) p.tickets[grp] = 0u;
 }
 
-template <typename T, int DMAX, int RB>
+template <typename TQ, typename TP, int DMAX, int RB>
 cudaError_t launch(const void* q, const void* kp, const void* vp, void* out,
                    const Params& p, int B, int warps, cudaStream_t stream) {
-  using C = Cfg<T, DMAX, RB>;
+  using C = Cfg<TQ, TP, DMAX, RB>;
   const size_t smem = C::smem(warps);
   // the last block keeps each row's split weights over the rings
   if ((size_t)RB * (p.nsplit + 1) * 4 > smem - C::QBYTES)
@@ -585,7 +593,7 @@ cudaError_t launch(const void* q, const void* kp, const void* vp, void* out,
     if (e != cudaSuccess) return e;
     if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
     if (smem > opted[dev]) {
-      e = cudaFuncSetAttribute(rpa_split_kernel<T, DMAX, RB>,
+      e = cudaFuncSetAttribute(rpa_split_kernel<TQ, TP, DMAX, RB>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
       if (e != cudaSuccess) return e;
@@ -593,39 +601,41 @@ cudaError_t launch(const void* q, const void* kp, const void* vp, void* out,
     }
   }
   dim3 grid(B * p.Hkv, p.row_tiles, p.nsplit);
-  rpa_split_kernel<T, DMAX, RB><<<grid, 32 * warps, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), static_cast<T*>(out), p);
+  rpa_split_kernel<TQ, TP, DMAX, RB><<<grid, 32 * warps, smem, stream>>>(
+      static_cast<const TQ*>(q), static_cast<const TP*>(kp),
+      static_cast<const TP*>(vp), static_cast<TQ*>(out), p);
   return cudaGetLastError();
 }
 
-template <typename T, int DMAX>
+template <typename TQ, typename TP, int DMAX>
 cudaError_t launch_rows(int rb, const void* q, const void* kp,
                         const void* vp, void* out, const Params& p, int B,
                         int warps, cudaStream_t s) {
   switch (rb) {
-    case 1: return launch<T, DMAX, 1>(q, kp, vp, out, p, B, warps, s);
-    case 4: return launch<T, DMAX, 4>(q, kp, vp, out, p, B, warps, s);
-    case 15: return launch<T, DMAX, 15>(q, kp, vp, out, p, B, warps, s);
+    case 1: return launch<TQ, TP, DMAX, 1>(q, kp, vp, out, p, B, warps, s);
+    case 4: return launch<TQ, TP, DMAX, 4>(q, kp, vp, out, p, B, warps, s);
+    case 15: return launch<TQ, TP, DMAX, 15>(q, kp, vp, out, p, B, warps, s);
     default:
-      return launch<T, DMAX, TILE_ROWS>(q, kp, vp, out, p, B, warps, s);
+      return launch<TQ, TP, DMAX, TILE_ROWS>(q, kp, vp, out, p, B, warps, s);
   }
 }
 
-template <typename T>
+template <typename TQ, typename TP>
 cudaError_t launch_type(int D, int rb, const void* q, const void* kp,
                         const void* vp, void* out, const Params& p, int B,
                         int warps, cudaStream_t s) {
-  if (D <= 64) return launch_rows<T, 64>(rb, q, kp, vp, out, p, B, warps, s);
+  if (D <= 64)
+    return launch_rows<TQ, TP, 64>(rb, q, kp, vp, out, p, B, warps, s);
   if (D <= 128)
-    return launch_rows<T, 128>(rb, q, kp, vp, out, p, B, warps, s);
-  return launch_rows<T, 256>(rb, q, kp, vp, out, p, B, warps, s);
+    return launch_rows<TQ, TP, 128>(rb, q, kp, vp, out, p, B, warps, s);
+  return launch_rows<TQ, TP, 256>(rb, q, kp, vp, out, p, B, warps, s);
 }
 
 }  // namespace
 
-// q (B, H, C, D) and the pools (num_pages, ps, Hkv, D) in one type (f32 or
-// bf16, chosen by is_bf16), 16-byte aligned; page_tables (B, maxp),
+// q (B, H, C, D) and the pools (num_pages, ps, Hkv, D), 16-byte aligned, in
+// the types `types` names: 0 both f32, 1 both bf16, 2 f32 q over bf16
+// pools; page_tables (B, maxp),
 // ctx_lens (B,), start_pos (B,) int32; out (B, H, C, D) in q's type; all
 // contiguous.  window < 0 means no window.  The launch plan: `tile` (the
 // tensor-core variant, row_tile 16) or the few-rows variant (row_tile =
@@ -639,7 +649,7 @@ extern "C" int mxt_ragged_paged_attention(
     const void* q, const void* kpool, const void* vpool,
     const void* page_tables, const void* ctx_lens, const void* start_pos,
     void* out, int B, int H, int Hkv, int C, int D, int ps, int maxp,
-    int window, float scale, int is_bf16, int tile, int row_tile, int span,
+    int window, float scale, int types, int tile, int row_tile, int span,
     int nsplit, int warps, void* ws, void* tickets, void* stream) {
   cudaGetLastError();  // clear any stale error of this runtime
   if (B == 0 || C == 0) return 0;
@@ -648,7 +658,8 @@ extern "C" int mxt_ragged_paged_attention(
       span < 1 || span % ps || nsplit < 1 || nsplit > MAX_SPLITS ||
       row_tile < 1 ||
       (tile ? row_tile != TILE_ROWS : row_tile > 15 || row_tile < rows) ||
-      (nsplit > 1 && (ws == nullptr || tickets == nullptr)))
+      (nsplit > 1 && (ws == nullptr || tickets == nullptr)) || types < 0 ||
+      types > 2)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.pt = static_cast<const int*>(page_tables);
@@ -670,10 +681,15 @@ extern "C" int mxt_ragged_paged_attention(
   p.nsplit = nsplit;
   const int rb = tile ? TILE_ROWS : row_tile <= 1 ? 1 : row_tile <= 4 ? 4 : 15;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e =
-      is_bf16 ? launch_type<__nv_bfloat16>(D, rb, q, kpool, vpool, out, p,
-                                           B, warps, s)
-              : launch_type<float>(D, rb, q, kpool, vpool, out, p, B, warps,
-                                   s);
+  cudaError_t e;
+  if (types == 1)
+    e = launch_type<__nv_bfloat16, __nv_bfloat16>(D, rb, q, kpool, vpool,
+                                                  out, p, B, warps, s);
+  else if (types == 2)
+    e = launch_type<float, __nv_bfloat16>(D, rb, q, kpool, vpool, out, p, B,
+                                          warps, s);
+  else
+    e = launch_type<float, float>(D, rb, q, kpool, vpool, out, p, B, warps,
+                                  s);
   return (int)e;
 }

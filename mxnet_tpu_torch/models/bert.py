@@ -12,8 +12,9 @@ so `convert.load_jax_params` fills it name for name.
 Attention runs through the flash kernels on the card (key padding from
 ``valid_length`` as a compact bias, attention-probs dropout inside the
 kernel); the loss of `gluon.loss` / `ops.softmax_cross_entropy` through the
-streaming cross-entropy kernels.  ``remat`` and ``window`` wait for a later
-slice (ROADMAP.md).
+streaming cross-entropy kernels.  ``remat`` recomputes each layer in the
+backward pass (`ops.nn.remat_call`); ``window`` waits for the flash
+kernels' band mask (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -46,7 +47,9 @@ class BertConfig:
         self.dropout = dropout
         self.layer_norm_eps = layer_norm_eps
         self.dtype = dtype
-        # recompute each layer's activations in backward: not ported yet
+        # recompute each layer's activations in backward: False/True or a
+        # named policy (`ops.nn.resolve_remat_policy`; MXTPU_REMAT_POLICY
+        # overrides)
         self.remat = remat
         # Longformer-style symmetric sliding-window attention: the flash
         # kernel does not take a window yet
@@ -109,9 +112,6 @@ class BertModel(nn.Module):
     def forward(self, input_ids, token_types=None, valid_length=None):
         b, l = input_ids.shape
         check_max_position(l, self.cfg.max_position)
-        if self.cfg.remat:
-            raise MXNetError("BertConfig.remat is not ported to "
-                             "mxnet_tpu_torch yet (ROADMAP.md)")
         if self.cfg.window is not None:
             raise MXNetError("BertConfig.window is not ported to "
                              "mxnet_tpu_torch yet (ROADMAP.md)")
@@ -126,8 +126,10 @@ class BertModel(nn.Module):
             vl = torch.as_tensor(valid_length, device=dev)
             mask = (pos.reshape(1, 1, l) < vl.reshape(b, 1, 1)).to(
                 torch.float32).reshape(b, 1, 1, l)
+        remat_on, policy = F.resolve_remat_policy(self.cfg.remat)
         for layer in self.layers:
-            x = layer(x, mask)
+            x = F.remat_call(layer, x, mask, policy=policy) if remat_on \
+                else layer(x, mask)
         pooled = torch.tanh(self.pooler(x[:, 0]))
         return x, pooled
 

@@ -9,11 +9,18 @@ The module tree carries the JAX package's parameter names
 ``transformer.final_norm.gamma``, ``lm_head.weight``), so
 `convert.load_jax_params` fills it name for name.
 
-`generate` decodes through the shared decode core (`serve.decode`) with
-dense per-request caches, token by token, exactly as the JAX
-``_generate_cached`` scan does.  The blocks' full-sequence ``forward``
-(`layers`) is ported with BERT; the model's own ``forward`` (causal LM
-logits and loss) and beam search wait for the GPT-training slice
+LayerNorm parameters stay f32 in a bf16 model, as Gluon keeps them, and
+every norm takes ``layer_norm_eps``.
+
+``forward`` gives the causal-LM logits over a whole sequence (the training
+path): the embeddings, each pre-LN block — attention through the causal
+flash kernels on the card, the second norm fused with the residual add
+(`ops.nn.layer_norm_residual`) — under `ops.nn.remat_call` when the
+``remat`` knob says so, the final norm and the (tied) head.  `generate`
+decodes through the shared decode core (`serve.decode`) with dense
+per-request caches, token by token, exactly as the JAX
+``_generate_cached`` scan does; ``use_cache=False`` recomputes the full
+context for each new token.  Beam search waits for a later slice
 (ROADMAP.md).
 """
 from __future__ import annotations
@@ -25,7 +32,9 @@ from torch import nn
 
 from ..base import MXNetError
 from ..device import resolve_device
-from .layers import (FeedForward, FusedSelfAttention, LayerNorm,
+from ..ops import nn as F
+from .layers import (Dense, Dropout, Embedding, FeedForward,
+                     FusedSelfAttention, LayerNorm, attach_generator,
                      check_max_position)
 
 __all__ = ["GPTConfig", "GPTBlock", "GPTModel", "GPTForCausalLM",
@@ -50,7 +59,7 @@ class GPTConfig:
     def __init__(self, vocab_size=50257, hidden_size=768, num_layers=12,
                  num_heads=12, intermediate_size=3072, max_position=1024,
                  dropout=0.1, layer_norm_eps=1e-5, tie_embeddings=True,
-                 dtype="float32", window=None, rope=False,
+                 dtype="float32", remat=False, window=None, rope=False,
                  rope_theta=10000.0, num_kv_heads=None):
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
@@ -62,6 +71,10 @@ class GPTConfig:
         self.layer_norm_eps = layer_norm_eps
         self.tie_embeddings = tie_embeddings
         self.dtype = dtype
+        # recompute each layer's activations in backward: False/True or a
+        # named policy (`ops.nn.resolve_remat_policy`; MXTPU_REMAT_POLICY
+        # overrides)
+        self.remat = remat
         # Mistral-style sliding-window attention: each position attends
         # the last `window` tokens only
         if window is not None and window < 1:
@@ -101,13 +114,23 @@ class GPTBlock(nn.Module):
     def __init__(self, cfg: GPTConfig):
         super().__init__()
         dt = torch_dtype(cfg.dtype)
-        self.attn_norm = LayerNorm(cfg.hidden_size, dt)
+        h, eps = cfg.hidden_size, cfg.layer_norm_eps
+        self.attn_norm = LayerNorm(h, eps=eps)
         self.attention = FusedSelfAttention(
-            cfg.hidden_size, cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
-            dtype=dt)
-        self.ffn_norm = LayerNorm(cfg.hidden_size, dt)
-        self.ffn = FeedForward(cfg.hidden_size, cfg.intermediate_size,
-                               dtype=dt)
+            h, cfg.num_heads, dropout=cfg.dropout, causal=True, dtype=dt,
+            window=cfg.window,
+            rope_theta=cfg.rope_theta if cfg.rope else None,
+            num_kv_heads=cfg.num_kv_heads)
+        self.ffn_norm = LayerNorm(h, eps=eps)
+        self.ffn = FeedForward(h, cfg.intermediate_size,
+                               dropout=cfg.dropout, dtype=dt)
+
+    def forward(self, x):
+        # the residual add fused into the second norm: s = x + attn_out
+        # and ffn_norm(s) in one pass
+        att = self.attention(self.attn_norm(x))
+        normed, s = self.ffn_norm.residual(att, x)
+        return s + self.ffn(normed)
 
 
 class GPTModel(nn.Module):
@@ -115,14 +138,29 @@ class GPTModel(nn.Module):
         super().__init__()
         dt = torch_dtype(cfg.dtype)
         self.cfg = cfg
-        self.word_embed = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
-                                       dtype=dt)
+        self.word_embed = Embedding(cfg.vocab_size, cfg.hidden_size,
+                                    dtype=dt)
         if not cfg.rope:
-            self.position_embed = nn.Embedding(cfg.max_position,
-                                               cfg.hidden_size, dtype=dt)
+            self.position_embed = Embedding(cfg.max_position,
+                                            cfg.hidden_size, dtype=dt)
+        self.embed_dropout = Dropout(cfg.dropout)
         self.layers = nn.ModuleList(GPTBlock(cfg)
                                     for _ in range(cfg.num_layers))
-        self.final_norm = LayerNorm(cfg.hidden_size, dt)
+        self.final_norm = LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+
+    def forward(self, input_ids):
+        b, l = input_ids.shape
+        check_max_position(l, self.cfg.max_position)
+        x = self.word_embed(input_ids)
+        if not self.cfg.rope:
+            pos = torch.arange(l, device=x.device)
+            x = x + self.position_embed(pos.reshape(1, l))
+        x = self.embed_dropout(x)
+        remat_on, policy = F.resolve_remat_policy(self.cfg.remat)
+        for layer in self.layers:
+            x = F.remat_call(layer, x, policy=policy) if remat_on \
+                else layer(x)
+        return self.final_norm(x)
 
 
 def _rank_mask(logits, keep_n, order=None):
@@ -164,7 +202,9 @@ class GPTForCausalLM(nn.Module):
     Built on `device` (the card unless ``device="cpu"``) with weights drawn
     from `seed`: N(0, 0.02) for matrices and embeddings, zero biases,
     unit LayerNorm gains — on the CPU generator, so a seed gives the same
-    weights on every device."""
+    weights on every device — and one dropout generator on `device`, also
+    seeded from `seed`, shared by every dropout (embedding, hidden and
+    attention)."""
 
     def __init__(self, cfg: GPTConfig, device=None, seed: int = 0):
         super().__init__()
@@ -173,12 +213,14 @@ class GPTForCausalLM(nn.Module):
         with torch.device("meta"):
             self.transformer = GPTModel(cfg)
             if not cfg.tie_embeddings:
-                self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size,
-                                         bias=False,
-                                         dtype=torch_dtype(cfg.dtype))
+                self.lm_head = Dense(cfg.hidden_size, cfg.vocab_size,
+                                     bias=False,
+                                     dtype=torch_dtype(cfg.dtype))
         self.to_empty(device="cpu")
         self.reset_parameters(seed)
         self.to(dev)
+        self.generator = torch.Generator(device=dev).manual_seed(int(seed))
+        attach_generator(self, self.generator)
 
     @property
     def device(self) -> torch.device:
@@ -197,10 +239,34 @@ class GPTForCausalLM(nn.Module):
                 p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
 
     def forward(self, input_ids):
-        raise MXNetError(
-            "GPTForCausalLM.forward (full-sequence logits) is not ported "
-            "to mxnet_tpu_torch yet — it waits for the GPT-training slice "
-            "(ROADMAP.md); use generate() or the serving engine")
+        """Causal-LM logits (B, L, V) of token ids (B, L); the tied head
+        multiplies in the promoted dtype of the hidden states and the
+        table, as ``np.matmul`` does."""
+        x = self.transformer(input_ids)
+        if self.cfg.tie_embeddings:
+            return F.fully_connected(x, self.transformer.word_embed.weight)
+        return self.lm_head(x)
+
+    @staticmethod
+    def flops_per_token(cfg: GPTConfig, seq_len: int) -> float:
+        """Training FLOPs a token, the JAX package's count: 6x the
+        parameter matmuls (q/k/v/o, FFN, head) plus 12 * layers * hidden
+        * the mean key span a query attends; causal attention counts the
+        keys at or before the query, (L + 1) / 2 on average (a causal
+        window clamps each span at w + 1)."""
+        h, l, i = cfg.hidden_size, cfg.num_layers, cfg.intermediate_size
+        kvh = cfg.num_kv_heads or cfg.num_heads
+        kv_width = h * kvh // cfg.num_heads
+        per_layer = 2 * h * h + 2 * h * kv_width + 2 * h * i
+        head = cfg.vocab_size * h
+        w = cfg.window
+        if w is None:
+            avg_span = (seq_len + 1) / 2
+        else:
+            ww = min(w, seq_len - 1)
+            avg_span = (ww * (ww + 1) / 2
+                        + (seq_len - ww) * (ww + 1)) / seq_len
+        return 6 * (l * per_layer + head) + 12 * l * h * avg_span
 
     @torch.inference_mode()
     def generate(self, input_ids, max_new_tokens=20, temperature=1.0,
@@ -211,22 +277,46 @@ class GPTForCausalLM(nn.Module):
 
         Runs the dense-cache decode core one position at a time, prompt
         included, exactly as the JAX ``_generate_cached`` scan does (so a
-        greedy stream equals the serving engine's).  Sampling
-        (``greedy=False``) draws from `generator` (default: a fresh CPU-
+        greedy stream equals the serving engine's).  ``use_cache=False``
+        recomputes the full context through `forward` (dropout off) for
+        each new token, as JAX's simple path does.  Sampling
+        (``greedy=False``) draws from `generator` (default: a fresh
         seeded generator on the model's device) after `temperature`,
-        `top_k` and `top_p` filtering.  ``use_cache=False`` and beam
-        search wait for later slices."""
-        if num_beams > 1 or not use_cache:
+        `top_k` and `top_p` filtering.  Beam search waits for a later
+        slice."""
+        if num_beams > 1:
             raise MXNetError(
-                "generate: beam search and use_cache=False are not ported "
-                "to mxnet_tpu_torch yet (ROADMAP.md)")
-        from ..serve.decode import (dense_kv_fn, extract_decode_weights,
-                                    lm_logits, transformer_step)
+                "generate: beam search is not ported to mxnet_tpu_torch "
+                "yet (ROADMAP.md)")
         cfg = self.cfg
         dev = self.device
         prompt = torch.as_tensor(input_ids, device=dev).to(torch.int32)
         if prompt.dim() == 1:
             prompt = prompt[None]
+        if not greedy and generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+
+        def pick(logits):
+            if greedy:
+                return torch.argmax(logits, dim=-1)
+            filtered = _filter_logits(logits.float() / temperature, top_k,
+                                      top_p)
+            return torch.multinomial(torch.softmax(filtered, dim=-1), 1,
+                                     generator=generator)[:, 0]
+
+        if not use_cache:
+            was_training = self.training
+            self.eval()
+            try:
+                ids = prompt
+                for _ in range(max_new_tokens):
+                    nxt = pick(self(ids)[:, -1]).to(torch.int32)
+                    ids = torch.cat([ids, nxt[:, None]], dim=1)
+            finally:
+                self.train(was_training)
+            return ids
+        from ..serve.decode import (dense_kv_fn, extract_decode_weights,
+                                    lm_logits, transformer_step)
         B, plen = prompt.shape
         T = plen + max_new_tokens
         check_max_position(T, cfg.max_position)
@@ -237,8 +327,6 @@ class GPTForCausalLM(nn.Module):
         kc = torch.zeros((cfg.num_layers, B, Hkv, T, D),
                          dtype=P["embed"].dtype, device=dev)
         vc = torch.zeros_like(kc)
-        if not greedy and generator is None:
-            generator = torch.Generator(device=dev).manual_seed(0)
         out = torch.empty((B, T), dtype=torch.int32, device=dev)
         out[:, :plen] = prompt
         for t in range(T - 1):
@@ -247,13 +335,5 @@ class GPTForCausalLM(nn.Module):
             h = transformer_step(P, cfg, out[:, t:t + 1], pos, kv_fn)
             if t + 1 < plen:
                 continue            # prefill: the prompt token is forced
-            logits = lm_logits(P, h[:, 0])
-            if greedy:
-                nxt = torch.argmax(logits, dim=-1)
-            else:
-                filtered = _filter_logits(logits.float() / temperature,
-                                          top_k, top_p)
-                nxt = torch.multinomial(torch.softmax(filtered, dim=-1), 1,
-                                        generator=generator)[:, 0]
-            out[:, t + 1] = nxt.to(torch.int32)
+            out[:, t + 1] = pick(lm_logits(P, h[:, 0])).to(torch.int32)
         return out

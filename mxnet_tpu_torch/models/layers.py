@@ -68,20 +68,30 @@ class LayerNorm(nn.Module):
     names (``gamma``, ``beta``).  Gluon's LayerNorm keeps f32 parameters
     whatever the model's dtype, so the default `dtype` is f32.  The
     ``norm`` attribute is the function it calls, `ops.nn.layer_norm` (the
-    fused row kernel on the card); an oracle model swaps in
-    `ops.fused_norm.fused_layer_norm_reference`, the kernel route on its
-    plain version."""
+    fused row kernel on the card), and ``norm_residual`` the pre-LN step
+    `residual` calls, `ops.nn.layer_norm_residual`; an oracle model swaps
+    in `ops.fused_norm.fused_layer_norm_reference` and
+    `fused_layer_norm_residual_reference`, the kernel route on its plain
+    version."""
 
     def __init__(self, hidden_size: int, dtype=None, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
         self.norm = F.layer_norm
+        self.norm_residual = F.layer_norm_residual
         self.gamma = nn.Parameter(torch.ones(hidden_size, dtype=dtype))
         self.beta = nn.Parameter(torch.zeros(hidden_size, dtype=dtype))
 
     def forward(self, x):
         _check_channels("LayerNorm", x, self.gamma.shape[0])
         return self.norm(x, self.gamma, self.beta, eps=self.eps)
+
+    def residual(self, x, residual):
+        """``s = residual + x; y = LN(s)`` in one pass; returns ``(y,
+        s)``."""
+        _check_channels("LayerNorm", x, self.gamma.shape[0])
+        return self.norm_residual(x, residual, self.gamma, self.beta,
+                                  eps=self.eps)
 
 
 class RMSNorm(nn.Module):

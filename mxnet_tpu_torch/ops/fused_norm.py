@@ -462,6 +462,13 @@ def fused_layer_norm_reference(x, gamma, beta, eps=1e-5):
     return _kernel_route(x, None, gamma, beta, eps, False, False)
 
 
+def fused_layer_norm_residual_reference(x, residual, gamma, beta, eps=1e-5):
+    """The kernel route of `layer_norm_residual` on the plain version, on
+    any device, with no kernel launched — an oracle `models.layers.
+    LayerNorm`'s ``norm_residual``.  Returns ``(y, s)``."""
+    return _kernel_route(x, residual, gamma, beta, eps, False, False)
+
+
 def fused_rms_norm_reference(x, gamma, eps=1e-6):
     """The kernel route of `fused_rms_norm` on the plain version, on any
     device (an oracle `models.layers.RMSNorm`'s ``norm``)."""

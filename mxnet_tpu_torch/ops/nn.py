@@ -11,18 +11,32 @@ in the promoted type of its operands (``jnp.matmul`` promotes;
 ``torch.matmul`` would refuse).
 Random ops take an explicit `torch.Generator` where the JAX package draws
 from its global key.
+
+`remat_call` and `resolve_remat_policy` port JAX's remat knob onto
+``torch.utils.checkpoint``: the non-reentrant form (``TrainStep`` takes
+gradients with ``torch.autograd.grad``) with JAX's named policies as
+selective-checkpoint op lists, and the explicit dropout generators put
+back for the recompute.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
+import os
+
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as _ckpt
+
+from ..base import MXNetError
 
 from . import fused_norm as _fnorm
 from .softmax_xent import softmax_cross_entropy as _xent
 
 __all__ = ["layer_norm", "layer_norm_residual", "rms_norm",
            "rms_norm_residual", "gelu", "dropout", "embedding",
-           "fully_connected", "pick", "softmax_cross_entropy"]
+           "fully_connected", "pick", "softmax_cross_entropy",
+           "resolve_remat_policy", "remat_call", "REMAT_POLICIES"]
 
 
 def layer_norm(x, gamma, beta, axis=-1, eps=1e-5):
@@ -117,3 +131,141 @@ def softmax_cross_entropy(logits, labels, reduction="none"):
     if reduction == "sum":
         return loss.sum().reshape(1)
     return loss
+
+
+# ---------------------------------------------------------------------------
+# remat (``npx.resolve_remat_policy`` / ``npx.remat_call``)
+# ---------------------------------------------------------------------------
+
+_DOTS = ("mm", "addmm", "bmm", "baddbmm")
+# JAX's named `jax.checkpoint_policies` the port maps, to what a
+# selective checkpoint saves: the outputs of these aten ops (None: save
+# nothing, the whole call recomputes; "everything": save every residual,
+# which is the call without remat)
+REMAT_POLICIES = {
+    "nothing_saveable": None,
+    "everything_saveable": "everything",
+    "dots_saveable": _DOTS,
+    "checkpoint_dots": _DOTS,
+    "dots_with_no_batch_dims_saveable": ("mm", "addmm"),
+    "checkpoint_dots_with_no_batch_dims": ("mm", "addmm"),
+}
+
+
+def resolve_remat_policy(value, env_override: bool = True):
+    """Resolve a remat knob (``GPTConfig.remat``-style) to ``(enabled,
+    policy)``, as ``npx.resolve_remat_policy`` reads it.
+
+    ``False``/``None``/``"none"``/``"off"``/``"0"``/``"false"``/``"no"``
+    turn remat off; ``True``/``"full"``/``"1"``/``"true"`` recompute the
+    whole call (policy None); a name of `REMAT_POLICIES` (JAX's
+    `jax.checkpoint_policies` names) is returned as the policy.  With
+    `env_override` (the model-knob path) ``MXTPU_REMAT_POLICY`` wins over
+    `value`.  Any other name raises `MXNetError` listing the names the
+    port knows: a typo must not silently train without remat."""
+    if env_override:
+        env = os.environ.get("MXTPU_REMAT_POLICY", "").strip()
+        if env:
+            value = env
+    if value is None or value is False:
+        return False, None
+    if value is True:
+        return True, None
+    name = str(value).strip().lower()
+    if name in ("0", "off", "none", "false", "no"):
+        return False, None
+    if name in ("1", "true", "full"):
+        return True, None
+    if name not in REMAT_POLICIES:
+        raise MXNetError(
+            f"unknown remat policy {value!r}; expected 'none'/'full' or one "
+            f"of the jax.checkpoint_policies names the port maps: "
+            f"{sorted(REMAT_POLICIES)}")
+    return True, name
+
+
+def _generators_of(fn):
+    """The explicit dropout generators a module call draws from."""
+    from ..models.layers import Dropout
+    if not isinstance(fn, torch.nn.Module):
+        return []
+    gens = {id(m.generator): m.generator for m in fn.modules()
+            if isinstance(m, Dropout) and m.generator is not None}
+    return list(gens.values())
+
+
+def _generator_contexts(generators):
+    """(forward, recompute) context managers for a checkpoint: the forward
+    one snapshots each generator at entry; the recompute one puts those
+    states back for the recompute and, on exit, returns each generator to
+    where it was before the recompute (the first forward's end, or later
+    calls' draws)."""
+    snaps = []
+
+    @contextlib.contextmanager
+    def forward():
+        snaps[:] = [g.get_state() for g in generators]
+        yield
+
+    @contextlib.contextmanager
+    def recompute():
+        now = [g.get_state() for g in generators]
+        for g, s in zip(generators, snaps):
+            g.set_state(s)
+        try:
+            yield
+        finally:
+            for g, s in zip(generators, now):
+                g.set_state(s)
+
+    return forward(), recompute()
+
+
+def _context_fn(policy, generators):
+    gen_fwd, gen_rec = _generator_contexts(generators)
+    saved = REMAT_POLICIES[policy] if policy is not None else None
+    if saved is None:
+        return gen_fwd, gen_rec
+    ops = [getattr(torch.ops.aten, n).default for n in saved]
+    sac_fwd, sac_rec = _ckpt.create_selective_checkpoint_contexts(ops)
+    return _both(gen_fwd, sac_fwd), _both(gen_rec, sac_rec)
+
+
+@contextlib.contextmanager
+def _both(outer, inner):
+    """Two context managers as one (the checkpoint takes one forward and
+    one recompute context)."""
+    with outer, inner:
+        yield
+
+
+def remat_call(fn, *args, policy=None):
+    """Run ``fn(*args)`` under activation checkpointing: its activations
+    are recomputed in the backward pass instead of stored
+    (``npx.remat_call``, ``jax.checkpoint``).
+
+    The non-reentrant ``torch.utils.checkpoint.checkpoint``, so gradients
+    taken with ``torch.autograd.grad`` flow through it.  `policy` selects
+    what is saved: None (save nothing), or a name of `REMAT_POLICIES` (an
+    explicit string is taken literally; ``MXTPU_REMAT_POLICY`` applies to
+    the model knob, not here).  ``"dots_saveable"`` saves the outputs of
+    the matmul ops; the hand-written kernels are extension calls no policy
+    saves, so they run again in the recompute.
+
+    Dropout draws from explicit generators, which the checkpoint's own
+    ``preserve_rng_state`` does not cover: when `fn` is a module, the state
+    of each generator of the `Dropout` modules inside it (the attention
+    draws its kernel seed from its output dropout's) is taken at entry and
+    put back for the recompute, so the recompute draws the forward's masks
+    and seeds; each generator is then left where the first forward left
+    it."""
+    if isinstance(policy, str):
+        enabled, policy = resolve_remat_policy(policy, env_override=False)
+        if not enabled:
+            return fn(*args)
+    if policy == "everything_saveable" or not torch.is_grad_enabled():
+        return fn(*args)
+    return _ckpt.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=True,
+        context_fn=functools.partial(_context_fn, policy,
+                                     _generators_of(fn)))

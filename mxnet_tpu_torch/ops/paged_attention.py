@@ -11,8 +11,11 @@ context is the concatenation of the pages its page table names.
   makes from the shapes.  It splits each slot's key walk across blocks
   and merges the splits in order, reads only the keys below a slot's
   context length, folds the GQA query heads onto rows so K/V stream once
-  per kv head, and keeps an f32 online softmax per row.  It raises on
-  what the kernel does not take; it never falls back.
+  per kv head, and keeps an f32 online softmax per row.  Queries and the
+  pool share a dtype, or f32 queries read a bf16 pool (a bf16 model's
+  serving step, whose activations are f32 after the first LayerNorm):
+  K/V then widen to f32 as they load and the rest is the f32 route's.  It
+  raises on what the kernel does not take; it never falls back.
 - The pool's page size is this kernel's tunable, as in the JAX package:
   `recommended_page_size` is what `serve.ServeConfig` takes when
   ``MXTPU_SERVE_PAGE_SIZE`` is unset.
@@ -60,7 +63,8 @@ def _dense_attend(q, kc, vc, q_pos, ctx_len=None, window=None, scale=None):
     Scores in the activation dtype scaled by 1/sqrt(D) (the scale itself
     cast to that dtype), softmax in f32 and cast back, GQA scored per
     kv-head group without expanding the cache — the JAX function's dtype
-    flow, step for step.
+    flow, step for step; the products promote as ``jnp.einsum`` does
+    (f32 queries over a bf16 cache compute in f32).
     """
     B, H, C, D = q.shape
     Hkv, T = kc.shape[1], kc.shape[2]
@@ -68,8 +72,9 @@ def _dense_attend(q, kc, vc, q_pos, ctx_len=None, window=None, scale=None):
         scale = 1.0 / torch.sqrt(torch.tensor(
             float(D), dtype=torch.float32, device=q.device)).to(q.dtype)
     rep = H // Hkv
-    qg = q.reshape(B, Hkv, rep * C, D)
-    s = (qg @ kc.transpose(-1, -2)).reshape(B, H, C, T) * scale
+    dt = torch.promote_types(q.dtype, kc.dtype)
+    qg = q.reshape(B, Hkv, rep * C, D).to(dt)
+    s = (qg @ kc.to(dt).transpose(-1, -2)).reshape(B, H, C, T) * scale
     t_idx = torch.arange(T, device=q.device)[None, None, None, :]
     pos = q_pos[:, None, :, None]
     mask = t_idx <= pos
@@ -79,7 +84,8 @@ def _dense_attend(q, kc, vc, q_pos, ctx_len=None, window=None, scale=None):
         mask &= t_idx >= pos - window
     s = torch.where(mask, s, MASK_VALUE)
     p = torch.softmax(s.float(), dim=-1).to(q.dtype)
-    ctx = p.reshape(B, Hkv, rep * C, T) @ vc
+    dt = torch.promote_types(p.dtype, vc.dtype)
+    ctx = p.reshape(B, Hkv, rep * C, T).to(dt) @ vc.to(dt)
     return ctx.reshape(B, H, C, D)
 
 
@@ -140,7 +146,7 @@ class Plan(NamedTuple):
 def _plan(B: int, H: int, Hkv: int, C: int, D: int, ps: int, maxp: int,
           dtype, sm_count: int) -> Plan:
     """The launch plan of one K1 call, plain Python (no card needed),
-    memoised per shape.
+    memoised per shape; `dtype` is the pool's, whose rows fill the rings.
 
     The few-rows variant below 16 folded rows (``rep * C``), else the
     tile variant, 16 rows a block.  Warps a block: as many (up to 4) as
@@ -173,6 +179,10 @@ def _plan(B: int, H: int, Hkv: int, C: int, D: int, ps: int, maxp: int,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _fn = None
+# (pool dtype, query dtype) -> the C entry's `types` code
+_TYPES = {(torch.float32, torch.float32): 0,
+          (torch.bfloat16, torch.bfloat16): 1,
+          (torch.bfloat16, torch.float32): 2}
 # (device index, raw stream) -> (ticket counters, f32 partials workspace)
 _scratch_of: Dict[Any, Tuple[torch.Tensor, torch.Tensor]] = {}
 # operand shapes, dtypes and devices already checked -> their plan
@@ -199,10 +209,11 @@ def _check(q, kpool, vpool, page_tables, ctx_lens, start_pos) -> Plan:
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise MXNetError(f"ragged_paged_attention kernel takes float32 or "
                          f"bfloat16 queries, got {q.dtype}")
-    if kpool.dtype != q.dtype or vpool.dtype != q.dtype:
+    if kpool.dtype != vpool.dtype or (kpool.dtype, q.dtype) not in _TYPES:
         raise MXNetError(
-            f"ragged_paged_attention kernel needs pools in the query dtype "
-            f"({q.dtype}); got {kpool.dtype}/{vpool.dtype}")
+            f"ragged_paged_attention kernel needs pools in the query dtype, "
+            f"or a bfloat16 pool under float32 queries; got "
+            f"{kpool.dtype}/{vpool.dtype} under {q.dtype}")
     if kpool.dim() != 4 or kpool.shape != vpool.shape or \
             kpool.shape[3] != D:
         raise MXNetError(
@@ -227,7 +238,7 @@ def _check(q, kpool, vpool, page_tables, ctx_lens, start_pos) -> Plan:
         if t.device != q.device:
             raise MXNetError(f"{name} is on {t.device}, q on {q.device}")
     _, ps, Hkv, _ = kpool.shape
-    return _plan(B, H, Hkv, C, D, ps, page_tables.shape[1], q.dtype,
+    return _plan(B, H, Hkv, C, D, ps, page_tables.shape[1], kpool.dtype,
                  _kernels.sm_count(q.device))
 
 
@@ -272,7 +283,7 @@ def _rpa_cuda(q, kpool, vpool, page_tables, ctx_lens, start_pos, window,
         page_tables.data_ptr(), ctx_lens.data_ptr(), start_pos.data_ptr(),
         out.data_ptr(), B, H, Hkv, C, D, ps, page_tables.shape[1],
         -1 if window is None else int(window), float(scale),
-        q.dtype is torch.bfloat16, plan.variant == "tile", plan.row_tile,
+        _TYPES[kpool.dtype, q.dtype], plan.variant == "tile", plan.row_tile,
         plan.span, plan.split, plan.warps, ws, cnt, stream)
     if err:
         raise MXNetError(f"ragged_paged_attention kernel launch failed "

@@ -418,13 +418,21 @@ def quantized_matmul(x, qt: QuantizedTensor):
     return out.reshape(*x.shape[:-1], qt.out_features) if flat else out
 
 
+def _dense_nt(x, w):
+    """``x @ w.T`` in the promoted dtype of the operands, as ``jnp.matmul``
+    promotes (f32 activations after an f32 LayerNorm gain meet bf16
+    weights in a bf16 model's decode step)."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt).T
+
+
 def matmul_nt(x, w):
     """``x @ w.T`` for a dense tensor OR a `QuantizedTensor` — the one
     routing point of the decode core.  Dense products stay
-    ``torch.matmul``."""
+    ``torch.matmul``, in the promoted dtype."""
     if isinstance(w, QuantizedTensor):
         return quantized_matmul(x, w)
-    return x @ w.T
+    return _dense_nt(x, w)
 
 
 def matmul_nt_reference(x, w):
@@ -434,7 +442,7 @@ def matmul_nt_reference(x, w):
         lead = x.shape[:-1]
         out = quantized_matmul_reference(x.reshape(-1, w.in_features), w)
         return out.reshape(*lead, w.out_features)
-    return x @ w.T
+    return _dense_nt(x, w)
 
 
 def gather_rows(w, idx):

@@ -1347,3 +1347,142 @@ def test_trainer_lamb_launches_phase_a_once_per_group(card):
         assert counts["lamb_phase_a"] == 2 and counts["lamb_phase_b"] == 2
     assert all(not torch.equal(p.detach(), before[n])
                for n, p in ps.items())
+
+
+# ---------------------------------------------------------------------------
+# the GPT training slice: causal flash at GPT's length, K1 with f32 queries
+# over a bf16 pool, a small GPT step kernel against plain
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_causal_flash_at_gpt_length_matches_plain(card, dtype, tol, rate):
+    """GPT-2's attention length, L 1024, causal, with and without dropout:
+    forward and backward within tolerance of the plain versions, two
+    calls bit-equal."""
+    kernels.reset_launch_counts()
+    got, want = _flash_case(card, dtype, 1, 2, 1024, 1024, 64, "none", True,
+                            rate)
+    again, _ = _flash_case(card, dtype, 1, 2, 1024, 1024, 64, "none", True,
+                           rate)
+    counts = kernels.launch_counts()
+    assert counts["flash_attention_fwd"] == counts["flash_attention_bwd"] == 2
+    for name, a, b, c in zip(("out", "dq", "dk", "dv"), got, want, again):
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= tol * float(b.float().abs().max()), name
+        assert torch.equal(a, c), name
+
+
+@pytest.mark.parametrize("C,H,Hkv", [(1, 12, 12), (16, 12, 12), (1, 8, 2),
+                                     (4, 8, 1)])
+@pytest.mark.parametrize("ps,D,maxp", [(16, 64, 8), (24, 128, 14)])
+@pytest.mark.parametrize("one_page_a_split", [False, True])
+def test_paged_attention_f32_queries_over_a_bf16_pool(card, C, H, Hkv, ps, D,
+                                                      maxp, one_page_a_split):
+    """A bf16 model's serving step: f32 queries over a bf16 pool.  K/V
+    widen to f32 as they load and the arithmetic is the f32 route's, so the
+    kernel stays within the f32 tolerance (1e-4 of the output scale) of the
+    plain version, which casts the gathered pool to f32; a query cast to
+    bf16 would land ~1e-2 off."""
+    q, kp, vp, pt, ctx, start = _rpa_inputs(
+        card, torch.float32, C, H, Hkv, D, ps, maxp, [0, 3 * ps + 5, 0],
+        [C, C, 0])
+    kp, vp = kp.bfloat16(), vp.bfloat16()
+    plan = pa._plan(3, H, Hkv, C, D, ps, maxp, torch.bfloat16,
+                    kernels.sm_count(card))
+    if one_page_a_split:
+        plan = _with_span(plan, ps, maxp * ps, D)
+    kernels.reset_launch_counts()
+    out = pa._rpa_cuda(q, kp, vp, pt, ctx, start, None, D ** -0.5,
+                       plan=plan)
+    again = pa._rpa_cuda(q, kp, vp, pt, ctx, start, None, D ** -0.5,
+                         plan=plan)
+    ref = pa.paged_attention_reference(q, kp, vp, pt, ctx, start)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["ragged_paged_attention"] == 2
+    assert out.dtype == torch.float32 and torch.equal(out, again)
+    for b in range(2):                              # slot 2 is empty
+        err = float((out[b] - ref[b]).abs().max())
+        assert err <= 1e-4 * float(ref[b].abs().max())
+    assert not out[2].any()
+    with pytest.raises(MXNetError, match="bfloat16 pool under float32"):
+        pa.ragged_paged_attention(q.bfloat16(), kp.float(), vp.float(), pt,
+                                  ctx, start)
+
+
+def _gpt_step(card, remat, plain, seed=0):
+    """A 2-layer GPT (hidden 128, D 64, L 256, vocab 1000, dropout 0.1) in
+    bf16 through `TrainStep` with AdamW on the kernel route; ``plain``
+    builds the oracle on the plain versions (no launch)."""
+    import os
+    from mxnet_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    from mxnet_tpu_torch.models.layers import FusedSelfAttention, LayerNorm
+    from mxnet_tpu_torch.ops import fused_norm as fn
+    from mxnet_tpu_torch.ops.attention import multi_head_attention_reference
+    from mxnet_tpu_torch.ops.fused_optimizer import kernel_plain
+    from mxnet_tpu_torch.ops.softmax_xent import (
+        softmax_cross_entropy, softmax_cross_entropy_reference)
+    from mxnet_tpu_torch.optimizer import AdamW
+    from mxnet_tpu_torch.parallel import TrainStep
+    cfg = GPTConfig(vocab_size=1000, hidden_size=128, num_layers=2,
+                    num_heads=2, intermediate_size=256, max_position=256,
+                    dropout=0.1, dtype="bfloat16", remat=remat)
+    model = GPTForCausalLM(cfg, device=card, seed=seed)
+    xent = softmax_cross_entropy
+    if plain:
+        for m in model.modules():
+            if isinstance(m, FusedSelfAttention):
+                m.attend = multi_head_attention_reference
+            if isinstance(m, LayerNorm):
+                m.norm = fn.fused_layer_norm_reference
+                m.norm_residual = fn.fused_layer_norm_residual_reference
+        xent = softmax_cross_entropy_reference
+
+    def loss_fn(out, ids, lab):
+        return xent(out.reshape(-1, cfg.vocab_size), lab.reshape(-1)).mean()
+    old = os.environ.get("MXTPU_PALLAS")
+    os.environ["MXTPU_PALLAS"] = "reference" if plain else "auto"
+    try:
+        step = TrainStep(model, AdamW(learning_rate=1e-3, wd=0.1), loss_fn,
+                         num_model_args=1,
+                         update=kernel_plain if plain else None)
+    finally:
+        if old is None:
+            os.environ.pop("MXTPU_PALLAS")
+        else:
+            os.environ["MXTPU_PALLAS"] = old
+    return model, step
+
+
+def test_gpt_train_step_on_the_card(card):
+    """Three bf16 steps of a small GPT on the kernel route: the launches a
+    step (flash 2 + 2, twice the forward under remat; norms 5, and 4 more
+    under remat; cross-entropy 1 + 1; the chunk once per dtype group),
+    the trajectory within 1e-3 of the plain oracle's, remat within 1e-5 of
+    no remat, and `warmup` leaving the dropout generator where it was."""
+    g = torch.Generator().manual_seed(0)
+    stream = torch.randint(0, 1000, (2, 257), generator=g).to(card)
+    batch = (stream[:, :-1], stream[:, 1:])
+    runs = {}
+    for key, remat, plain in (("kernel", False, False), ("plain", False, True),
+                              ("remat", "full", False)):
+        model, step = _gpt_step(card, remat, plain)
+        before = model.generator.get_state()
+        step.warmup(*batch)
+        assert torch.equal(model.generator.get_state(), before)
+        kernels.reset_launch_counts()
+        runs[key] = [float(step(*batch)) for _ in range(3)]
+        counts = kernels.launch_counts()
+        if plain:
+            assert not any(counts.values())
+            continue
+        per = 2 if remat else 1
+        assert counts["flash_attention_fwd"] == 3 * 2 * per
+        assert counts["flash_attention_bwd"] == 3 * 2
+        assert counts["fused_norm"] == 3 * (5 + 4 * (per - 1))
+        assert counts["softmax_xent_fwd"] == counts["softmax_xent_bwd"] == 3
+        assert counts["fused_optimizer_chunk"] == 3 * 2
+    np.testing.assert_allclose(runs["kernel"], runs["plain"], rtol=1e-3)
+    np.testing.assert_allclose(runs["remat"], runs["kernel"], rtol=1e-5)
+    assert runs["kernel"][-1] < runs["kernel"][0]

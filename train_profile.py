@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Where a BERT-base pretraining step — or, with ``--moe``, a Switch-MoE
-training step — of the PyTorch port spends its time, on the card.
+training step, or with ``--gpt`` a GPT-2-small causal-LM step — of the
+PyTorch port spends its time, on the card.
 
-    python3 train_profile.py [--moe] [--out chiprun_out/train_profile.json]
+    python3 train_profile.py [--moe | --gpt]
+                             [--out chiprun_out/train_profile.json]
 
 Builds full-width BERT-base (seeded random weights) and wraps it in
 ``TrainStep`` exactly as ``chip_smoke.py``'s train phase does
@@ -20,7 +22,10 @@ device time.  With ``--moe`` the runs are ``chip_smoke.py``'s moe phase —
 ``MoEFeedForward(768, 3072, 8 experts)`` on 64 x 128 tokens, Adam lr 1e-4,
 the default kernel route — through ``TrainStep`` in f32 and bf16 and
 through the gluon ``Trainer`` in bf16, and the row gather is a class of
-its own.  Needs a CUDA card.
+its own.  With ``--gpt`` the runs are ``chip_smoke.py``'s gpt phase —
+``gpt_small()`` at full width and depth on 8 x 1024 tokens, dropout 0.1,
+AdamW lr 3e-4, the default kernel route — through ``TrainStep`` in bf16
+and f32 without remat.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ RUNS = (("bfloat16", "Adam", "auto"), ("float32", "Adam", "auto"),
         ("bfloat16", "LAMB", "auto"), ("bfloat16", "Adam", "reference"))
 MOE_RUNS = (("float32", "step"), ("bfloat16", "step"),
             ("bfloat16", "trainer"))
+GPT_RUNS = ("bfloat16", "float32")
 CLASSES = (("flash_fwd", ("flash_fwd_kernel",)),
            ("flash_bwd", ("flash_bwd_kernel", "flash_bwd_di_kernel")),
            ("xent", ("xent_fwd_kernel", "xent_bwd_kernel")),
@@ -131,14 +137,16 @@ def main(argv=None) -> int:
                                                   "train_profile.json"))
     ap.add_argument("--moe", action="store_true",
                     help="profile the Switch-MoE step instead of BERT's")
+    ap.add_argument("--gpt", action="store_true",
+                    help="profile the GPT-2-small step instead of BERT's")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("train_profile: needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    from chip_smoke import (bert_batch, bert_train_step, moe_batch,
-                            pallas_mode)
+    from chip_smoke import (bert_batch, bert_train_step, gpt_batch,
+                            gpt_train_step, moe_batch, pallas_mode)
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
 
     dev = torch.device("cuda", 0)
@@ -155,8 +163,20 @@ def main(argv=None) -> int:
             print(f"[{key}] {json.dumps(res)}", flush=True)
             del step
             torch.cuda.empty_cache()
+    for dtype in GPT_RUNS if args.gpt else ():
+        key = f"gpt_{dtype}_step"
+        batch = gpt_batch(dev, 50257)
+        with pallas_mode("auto"):
+            _, step = gpt_train_step(dev, dtype)
+            step.warmup(*batch)
+            for _ in range(3):
+                step.dispatch(*batch)
+            out[key] = res = profile_steps(step, batch, 5)
+        print(f"[{key}] {json.dumps(res)}", flush=True)
+        del step
+        torch.cuda.empty_cache()
     batch = tuple(torch.from_numpy(a).to(dev) for a in bert_batch(30522))
-    for dtype, opt, route in () if args.moe else RUNS:
+    for dtype, opt, route in () if args.moe or args.gpt else RUNS:
         key = f"{dtype}_{opt.lower()}_{route}"
         with pallas_mode(route):
             step = bert_train_step(dev, dtype, opt=opt, route=route)
