@@ -4,11 +4,12 @@
     python3 chip_smoke.py [--out chiprun_out/chip_smoke.json]
 
 Builds the port's CUDA kernels from ``mxnet_tpu_torch/csrc`` and drives its
-four main paths: serving at full GPT-2-small width and depth (12 layers,
+five main paths: serving at full GPT-2-small width and depth (12 layers,
 hidden 768, vocab 50257, seeded random weights), the BERT-base pretraining
 step at full width and depth, Switch-MoE training at switch-base-8's
 widths (hidden 768, FFN 3072, 8 experts) through `TrainStep` and the gluon
-`Trainer`, and GPT-2-small causal-LM training at full width and depth:
+`Trainer`, GPT-2-small causal-LM training at full width and depth, and the
+same with Mistral 7B's attention (RoPE, grouped K/V, a sliding window):
 
 1. prints the card (name and power limit from ``nvidia-smi``) and the
    torch / CUDA versions;
@@ -49,6 +50,15 @@ widths (hidden 768, FFN 3072, 8 experts) through `TrainStep` and the gluon
    ``scaled_dot_product_attention`` with the same float mask, each
    direction also device-only and its host µs a call, beside SDPA's; both
    directions' f32 bounds at the 3xTF32 rate (a third of 495 TFLOP/s);
+   then the band and the fold (`FLASH_BAND_CASES`), f32 and bf16: the
+   gpt_gqa phase's attention (B 8, 12 heads over 3 kv heads folded onto
+   the rows, L 1024, causal window 256, dropout 0.1), the same over one kv
+   head (MQA), BERT's with a symmetric window of 32 beside its padding and
+   dropout, and an odd fold (lq 150, lk 260, rep 3, window 40, padding)
+   whose q tiles straddle two heads -- each through the kernels' wrappers
+   against the plain versions, two calls bit-equal, the launches counted,
+   timed beside SDPA (``enable_gqa``, the band and padding as a float mask)
+   and beside the bound of the pairs the band keeps;
 7. (k4) the streaming softmax cross-entropy, forward and backward, against
    its plain version at (1280, 30522) in f32 and bf16, at the odd V 50257,
    and at the gpt phase's logits (8192, 50257) in f32 and bf16, timed
@@ -159,6 +169,20 @@ widths (hidden 768, FFN 3072, 8 experts) through `TrainStep` and the gluon
    tokens/s, step ms, TFLOP/s (``GPTForCausalLM.flops_per_token``: the
    causal half counted, a mean key span of (L + 1) / 2) and the share of
    the dense bf16 peak.
+15. (gpt_gqa) the gpt phase's model, batch and optimizer with Mistral 7B's
+   attention (Jiang et al. 2023, Table 1: grouped K/V, a one-sided
+   sliding window, RoPE) at GPT-2 small's widths, ``GQA_ARCH``: RoPE, 3 kv
+   heads for the 12 query heads, window 256; 20 steps through
+   ``TrainStep`` in bf16 and f32 and ``gluon.Trainer`` in bf16, flash 12 +
+   12 launches a step (the band and the fold inside the kernels), each
+   trajectory held to its plain oracle (`gpt_tol`, the bf16 floor measured
+   for this model), two planted faults in f32 (the kernels without the
+   window; their masks reading the folded row instead of its position)
+   that must depart from the f32 oracle by more than 1e-4; then the model
+   in f32 served as phase 3
+   serves (streams equal to the plain engine's) and four prompts through
+   ``generate(use_cache=False)`` (the folded windowed flash forward over
+   the whole context) equal to the cached stream.
 
 Every count is reset just before a run it reports and read just after.
 The last three stdout lines are the ``nvidia-smi`` card line, the
@@ -686,10 +710,23 @@ FLASH_GROUPS = (((64, 12, 128, 64), FLASH_CASES),
                 ((8, 12, 1024, 64), ("gpt_causal_dropout",)))
 
 
+# the band and the fold: (case, B, H, kv heads, Lq, Lk, causal, window,
+# symmetric, pad bias, dropout) -- the gpt_gqa phase's attention (12 heads
+# over 3 kv heads, causal window 256 at L 1024), the same as MQA (one kv
+# head), BERT-base's with a symmetric window of 32 beside its padding, and
+# an odd fold whose q tiles straddle two heads (lq 150, rep 3)
+FLASH_BAND_CASES = (
+    ("gqa_window", 8, 12, 3, 1024, 1024, True, 256, False, False, 0.1),
+    ("mqa_window", 8, 12, 1, 1024, 1024, True, 256, False, False, 0.1),
+    ("bert_pad_dropout_window", 64, 12, 12, 128, 128, False, 32, True, True,
+     0.1),
+    ("odd_fold", 2, 12, 4, 150, 260, False, 40, True, True, 0.0))
+
+
 def k3_cases(dev):
     """The flash kernels at BERT-base's attention shape, one (b, h) per
     bh: B 64, H 12, L 128, D 64; then at GPT-2 small's: B 8, H 12, L 1024,
-    D 64, causal with dropout 0.1."""
+    D 64, causal with dropout 0.1; then `FLASH_BAND_CASES`."""
     import torch
     from mxnet_tpu_torch import kernels
     from mxnet_tpu_torch.ops import flash_attention as fa
@@ -701,7 +738,117 @@ def k3_cases(dev):
     for (B, H, L, D), names in FLASH_GROUPS:
         out.extend(_flash_group(dev, fa, kernels, sdpa, g, seed, B, H, L, D,
                                 names))
+    for case in FLASH_BAND_CASES:
+        for dtype in ("float32", "bfloat16"):
+            out.append(_flash_band_case(dev, fa, kernels, sdpa, g, seed,
+                                        dtype, *case))
     return out
+
+
+def _flash_band_case(dev, fa, kernels, sdpa, g, seed, dtype, name, B, H, G,
+                     Lq, Lk, causal, window, symmetric, pad, rate, D=64):
+    """One case of `FLASH_BAND_CASES`: q (B, H, Lq, D) folded onto G kv
+    heads, K/V (B, G, Lk, D), through the kernels' wrappers against the
+    plain versions on the same inputs, two calls of each bit-equal, and
+    timed beside SDPA computing the same function (``enable_gqa``, the band
+    and the padding as a float mask, or ``is_causal`` where the band is the
+    whole causal triangle) and beside the bound of the pairs the band
+    keeps."""
+    import torch
+    dt = getattr(torch, dtype)
+    rep, scale = H // G, 1.0 / D ** 0.5
+    q, do = (torch.randn(B, H, Lq, D, generator=g).to(dev, dt)
+             for _ in range(2))
+    k, v = (torch.randn(B, G, Lk, D, generator=g).to(dev, dt)
+            for _ in range(2))
+    qf, dof = (t.reshape(B, G, rep * Lq, D) for t in (q, do))
+    bias = bias3 = None
+    vlen = torch.full((B,), Lk, dtype=torch.int64)
+    if pad:
+        vlen = torch.randint(int(0.85 * Lk), Lk + 1, (B,), generator=g)
+        bias = torch.where(torch.arange(Lk)[None] < vlen[:, None], 0.0,
+                           fa.MASK_VALUE).to(dev)
+        bias3 = fa.normalize_bias(bias, B, H, Lq, Lk)[0]
+    flags = (scale, causal, rate, False, False)
+    kw = dict(window=window, window_symmetric=symmetric, lq=Lq)
+    a = (qf, k, v, bias3, seed) + flags
+    kernels.reset_launch_counts()
+    o1, l1 = fa._flash_fwd_cuda(*a, **kw)
+    o2, l2 = fa._flash_fwd_cuda(*a, **kw)
+    g1 = fa._flash_bwd_cuda(qf, k, v, bias3, seed, o1, l1, dof, *flags, **kw)
+    g2 = fa._flash_bwd_cuda(qf, k, v, bias3, seed, o1, l1, dof, *flags, **kw)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    op, lp = fa.flash_fwd_reference(*a, **kw)
+    gp = fa.flash_bwd_reference(qf, k, v, bias3, seed, op, lp, dof, *flags,
+                                **kw)
+    errs = {nm: _scale_err(x, y) for nm, x, y in zip(
+        ("out", "lse", "dq", "dk", "dv"), (o1, l1) + tuple(g1),
+        (op, lp) + tuple(gp))}
+    bit_equal = torch.equal(o1, o2) and torch.equal(l1, l2) and all(
+        torch.equal(x, y) for x, y in zip(g1, g2))
+    want_launches = {"flash_attention_fwd": 2, "flash_attention_bwd": 2}
+    got_launches = {n: launches[n] for n in want_launches}
+    case = dict(dtype=dtype, case=name, B=B, H=H, kv_heads=G, Lq=Lq, Lk=Lk,
+                D=D, causal=causal, window=window, symmetric=symmetric,
+                pad=pad, rate=rate,
+                max_abs_err=max(e for e, _ in errs.values()),
+                errors={nm: {"err": e, "scale": sc}
+                        for nm, (e, sc) in errs.items()},
+                bit_equal_calls=bit_equal, launches=got_launches,
+                fwd_plan=fa._planned_fwd(B, H, Lq, Lk, D, dt, dev,
+                                         kv_heads=G)._asdict(),
+                bwd_plan=fa._bwd_plan(B, H, Lq, Lk, D, dt,
+                                      kernels.sm_count(dev),
+                                      kv_heads=G)._asdict(),
+                ok=bit_equal and got_launches == want_launches
+                and all(e <= TOL[dtype] * sc for e, sc in errs.values()))
+    del op, lp, gp, o2, l2, g2
+    # the band as the plain version masks it, (Lq, Lk): the pairs the work
+    # needs, and SDPA's mask
+    live = fa._scores(torch.zeros(1, 1, Lq, 1, device=dev),
+                      torch.zeros(1, 1, Lk, 1, device=dev), None, 1.0,
+                      causal, False, window, symmetric, Lq)[0, 0] \
+        > 0.5 * fa.MASK_VALUE
+    keys = (torch.arange(Lk)[None] < vlen[:, None]).to(dev)       # (B, Lk)
+    pairs = H * int((live[None] & keys[:, None]).sum())
+    whole_causal = causal and not pad and bool(
+        live.equal(torch.ones_like(live).tril()))
+    mask = None
+    if not whole_causal:
+        mask = torch.where(live[None, None] & keys[:, None, None],
+                           0.0, fa.MASK_VALUE).to(dt)
+    qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+
+    def lib_fwd():
+        return sdpa(qs, ks, vs, attn_mask=mask, dropout_p=rate,
+                    is_causal=whole_causal, enable_gqa=True)
+    o_lib = lib_fwd()
+    bwd_in = (qf, k, v, bias3, seed, o1, l1, dof) + flags
+    case["library"] = "sdpa is_causal" if whole_causal else "sdpa mask"
+    case["ms"] = time_ms(lambda: fa._flash_fwd_cuda(*a, **kw))
+    case["plain_ms"] = time_ms(lambda: fa.flash_fwd_reference(*a, **kw),
+                               iters=5, warm=1)
+    case["library_ms"] = time_ms(lib_fwd)
+    case["bwd_ms"] = time_ms(lambda: fa._flash_bwd_cuda(*bwd_in, **kw))
+    case["bwd_plain_ms"] = time_ms(
+        lambda: fa.flash_bwd_reference(*bwd_in, **kw), iters=5, warm=1)
+    case["bwd_library_ms"] = time_ms(lambda: torch.autograd.grad(
+        o_lib, (qs, ks, vs), do, retain_graph=True))
+    item = q.element_size()
+    qb, kvb = B * H * Lq * D * item, B * G * Lk * D * item
+    lse_b = B * H * Lq * 4
+    bias_b = 0 if bias3 is None else bias3.numel() * 4
+    prod = "tf32x3" if dtype == "float32" else dtype
+    # each input read once, each output written once: q, K, V in, O and
+    # lse out; the backward q, K, V, O, dO, lse in, dQ, dK, dV out
+    case["pairs"] = pairs
+    case["bound_ms"], case["bound_by"] = bound(
+        2 * qb + 2 * kvb + lse_b + bias_b, 4.0 * pairs * D, prod)
+    case["bwd_bound_ms"], case["bwd_bound_by"] = bound(
+        4 * qb + 4 * kvb + lse_b + bias_b, 10.0 * pairs * D, prod)
+    del o_lib, qs, ks, vs
+    return case
 
 
 def _flash_group(dev, fa, kernels, sdpa, g, seed, B, H, L, D, names):
@@ -1010,6 +1157,21 @@ def bert_leaves(dtype):
     return [(n, tuple(p.shape), p.dtype) for n, p in m.named_parameters()]
 
 
+def gpt_leaves(dtype):
+    """(name, shape, dtype) of every parameter of `gpt_small` in `dtype`
+    (124 M elements, the head tied to the embedding; LayerNorm parameters
+    stay f32)."""
+    from mxnet_tpu_torch.models import GPTForCausalLM, gpt_small
+    m = GPTForCausalLM(gpt_small(dtype=dtype), device="cpu", seed=0)
+    return [(n, tuple(p.shape), p.dtype) for n, p in m.named_parameters()]
+
+
+# k6's parameter lists and the rules over each: BERT-base under every rule,
+# GPT-2 small under the gpt phases' AdamW
+OPT_MODELS = (("bert_base", bert_leaves, None),
+              ("gpt_small", gpt_leaves, ("adamw",)))
+
+
 def _opt_tree(leaves, opt, dev, seed):
     """Weights N(0, 0.02), gradients N(0, 1e-3), Adam-like moments."""
     import torch
@@ -1130,15 +1292,19 @@ def _opt_bound(rule, params, phase=None):
 def k6_cases(dev):
     """The optimizer kernels over BERT-base's parameter list, f32 and bf16
     models: each rule's kernel route against its plain version, the
-    device time of each, and the skip flag's bit identity."""
+    device time of each, and the skip flag's bit identity; then AdamW
+    over GPT-2 small's (`OPT_MODELS`)."""
     import torch
     from mxnet_tpu_torch import kernels, optimizer as topt
     from mxnet_tpu_torch.ops import fused_optimizer as fo
 
     out = []
-    for dtype in ("float32", "bfloat16"):
-        leaves = bert_leaves(dtype)
+    for (model, leaves_of, rules), dtype in (
+            (m, d) for m in OPT_MODELS for d in ("float32", "bfloat16")):
+        leaves = leaves_of(dtype)
         for rule, cls, kw in OPT_RULES:
+            if rules is not None and rule not in rules:
+                continue
             lr = 1e-3 if rule == "lamb" else 1e-4
             opt = getattr(topt, cls)(learning_rate=lr, **kw)
             hp_vals = {"lr": lr, "wd": 0.01, "rescale_grad": 1.0, "t": 3.0}
@@ -1175,7 +1341,8 @@ def k6_cases(dev):
                 torch.equal(a, b) for a, b in zip(ss[n], states[n]))
                 for n in params)
             del sp, ss, want_p, want_s
-            case = dict(dtype=dtype, rule=rule, tensors=len(params),
+            case = dict(model=model, dtype=dtype, rule=rule,
+                        tensors=len(params),
                         elements=sum(p.numel() for p in params.values()),
                         groups=n_groups, launches=launches,
                         max_abs_err=err, bf16_weight_mismatch_share=share,
@@ -2215,7 +2382,7 @@ class _TrainerStep:
 
 
 def gpt_train_step(dev, dtype, plain=False, remat=False, entry="step",
-                   fault=None, nudge=False):
+                   fault=None, nudge=False, arch=None):
     """`gpt_small` (GPT-2 small, seed 0, dropout 0.1) with the causal-LM
     loss (`gluon.loss.SoftmaxCrossEntropyLoss` over the (8192, V) logits)
     and AdamW lr 3e-4, weight decay 0.1, through `TrainStep` or the gluon
@@ -2227,7 +2394,8 @@ def gpt_train_step(dev, dtype, plain=False, remat=False, entry="step",
     ``MXTPU_PALLAS=reference``, its per-leaf rule).  `fault` plants one of
     `GPT_FAULTS`.  `nudge` moves one weight element (layer 0's FFN
     up-projection, element 0) by one unit in the last place: how far one
-    rounding difference carries over the run."""
+    rounding difference carries over the run.  `arch` adds `gpt_small`
+    arguments (the gpt_gqa phase's RoPE, grouped K/V and window)."""
     import torch
     from mxnet_tpu_torch.gluon import Trainer
     from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
@@ -2241,7 +2409,7 @@ def gpt_train_step(dev, dtype, plain=False, remat=False, entry="step",
     from mxnet_tpu_torch.optimizer import AdamW
     from mxnet_tpu_torch.parallel import TrainStep
 
-    cfg = gpt_small(dtype=dtype, remat=remat)
+    cfg = gpt_small(dtype=dtype, remat=remat, **(arch or {}))
     model = GPTForCausalLM(cfg, device=dev, seed=0)
     if nudge:
         w = model.transformer.layers[0].ffn.ffn_intermediate.weight
@@ -2265,10 +2433,13 @@ def gpt_train_step(dev, dtype, plain=False, remat=False, entry="step",
         def loss_fn(out, ids, lab):     # noqa: F811 - the oracle's loss
             return softmax_cross_entropy_reference(
                 out.reshape(-1, V), lab.reshape(-1)).mean()
-    if fault == "attention_not_causal":
+    if fault in ("attention_not_causal", "window_ignored"):
         for m in model.modules():
             if isinstance(m, FusedSelfAttention):
-                m.causal = False
+                if fault == "window_ignored":
+                    m.window = None
+                else:
+                    m.causal = False
     opt = AdamW(learning_rate=GPT_LR, wd=GPT_WD)
     with pallas_mode("reference" if plain else "auto"):
         if entry == "step":
@@ -2279,23 +2450,30 @@ def gpt_train_step(dev, dtype, plain=False, remat=False, entry="step",
 
 
 def gpt_run(dev, dtype, plain, batch, remat=False, entry="step",
-            fault=None, nudge=False):
+            fault=None, nudge=False, arch=None):
     """`TRAIN_STEPS` steps of `gpt_train_step` under ``MXTPU_PALLAS=auto``
     (``reference`` for the oracle), counts reset after warmup; returns its
     stats and the step time."""
     import torch
     from mxnet_tpu_torch import kernels
+    from mxnet_tpu_torch.ops import flash_attention as fa
     from mxnet_tpu_torch.ops import nn as tnn
 
-    gen_contexts = tnn._generator_contexts
+    gen_contexts, common_args = tnn._generator_contexts, fa._common_args
     if fault == "remat_without_generator_restore":
         tnn._generator_contexts = lambda gens: (contextlib.nullcontext(),
                                                 contextlib.nullcontext())
+    if fault == "fold_positions_unwrapped":
+        # the kernels' masks read the folded row, not its position: the
+        # segment length they are given is the folded rows'
+        def unwrapped(q, *args):
+            return common_args(q, *args[:-1], q.shape[2])
+        fa._common_args = unwrapped
     try:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         model, step = gpt_train_step(dev, dtype, plain, remat, entry, fault,
-                                     nudge)
+                                     nudge, arch)
         with pallas_mode("reference" if plain else "auto"):
             before = model.generator.get_state()
             if entry == "step":
@@ -2319,7 +2497,7 @@ def gpt_run(dev, dtype, plain, batch, remat=False, entry="step",
         peak = torch.cuda.max_memory_allocated() / 1e9
         groups = len({p.dtype for p in model.parameters()})
     finally:
-        tnn._generator_contexts = gen_contexts
+        tnn._generator_contexts, fa._common_args = gen_contexts, common_args
     del model, step
     torch.cuda.empty_cache()
     return dict(losses=[float(x) for x in losses], step_ms=step_s * 1e3,
@@ -2454,6 +2632,167 @@ def run_gpt(dev, results, card):
 
 
 # ---------------------------------------------------------------------------
+# gpt_gqa: GPT-2 small's widths with Mistral 7B's attention scheme
+# ---------------------------------------------------------------------------
+
+# Mistral 7B (Jiang et al. 2023, arXiv 2310.06825, Table 1): 32 heads over
+# 8 kv heads, a one-sided sliding window, RoPE.  At GPT-2 small's 12 heads,
+# 3 kv heads keep its 4 query heads a kv head; a window of 256 keeps a
+# query's band at a quarter of L = 1024
+GQA_ARCH = dict(rope=True, rope_theta=10000.0, num_kv_heads=3, window=256)
+# (weights, entry point): TrainStep in bf16 and f32, the gluon Trainer in
+# bf16
+GQA_RUNS = (("bfloat16", "step"), ("float32", "step"),
+            ("bfloat16", "trainer"))
+# planted faults, each run in f32 and read against the f32 oracle at
+# `gpt_tol`'s 1e-4 (a bf16 run's chaos, ten one-ulp floors, would leave
+# the ignored window under 2x its limit): the kernels run without the
+# window, and the kernels' masks read the folded row instead of its
+# position (r, not r % Lq)
+GQA_FAULTS = ("window_ignored", "fold_positions_unwrapped")
+GQA_GENERATE = 4      # prompts generated again with use_cache=False
+
+
+def run_gpt_gqa(dev, results, card):
+    import torch
+    from mxnet_tpu_torch.models import GPTForCausalLM, gpt_small
+
+    cfg = gpt_small(**GQA_ARCH)
+    batch = gpt_batch(dev, cfg.vocab_size)
+    tokens = GPT_B * GPT_L
+    # the window clamps each query's span at w + 1 keys; the K/V
+    # projections are a quarter as wide
+    flops = GPTForCausalLM.flops_per_token(cfg, GPT_L) * tokens
+    runs, floors = results["gpt_gqa"], results["gpt_gqa_one_ulp"]
+    problems = []        # every run and control is reported before failing
+    for dtype, entry in GQA_RUNS:
+        key = f"{dtype}_{entry}"
+        st, step_s = gpt_run(dev, dtype, False, batch, entry=entry,
+                             arch=GQA_ARCH)
+        if dtype == "bfloat16" and dtype not in floors:
+            # the chaos of this bf16 run, as in the gpt phase
+            nst, _ = gpt_run(dev, dtype, False, batch, nudge=True,
+                             arch=GQA_ARCH)
+            floors[dtype] = c = dict(
+                losses=nst["losses"],
+                trajectory_rel_dev=traj_dev(nst["losses"], st["losses"]))
+            print(f"[gpt_gqa one ulp {dtype}] {json.dumps(c)}", flush=True)
+        pst, pstep_s = gpt_run(dev, dtype, True, batch, entry=entry,
+                               arch=GQA_ARCH)
+        want = gpt_want_launches(st["dtype_groups"], cfg.num_layers, False)
+        got = {k: st["launches"][k] for k in want}
+        others = {k: v for k, v in st["launches"].items()
+                  if k not in want and v}
+        if got != want or others:
+            problems.append(f"gpt_gqa {key}: kernel launches {got} (and "
+                            f"{others}), want {want} over {TRAIN_STEPS} "
+                            f"steps")
+        if any(pst["launches"].values()):
+            problems.append(f"gpt_gqa {key}: the plain run launched "
+                            f"kernels {pst['launches']}")
+        ls = st["losses"]
+        dev_rel = traj_dev(ls, pst["losses"])
+        floor = floors.get(dtype, {}).get("trajectory_rel_dev", 0.0)
+        tol = gpt_tol(dtype, floor)
+        st.update(plain_losses=pst["losses"], plain_step_ms=pst["step_ms"],
+                  plain_peak_mem_gb=pst["peak_mem_gb"],
+                  trajectory_rel_dev=dev_rel, trajectory_tol=tol,
+                  one_ulp_floor=floor,
+                  within_traj_tol=dev_rel <= traj_tol(dtype, "auto"),
+                  tokens_per_s=tokens / step_s,
+                  plain_tokens_per_s=tokens / pstep_s,
+                  flops_per_step=flops, tflops=flops / step_s / 1e12,
+                  bf16_peak_share=flops / step_s / PEAK["bfloat16"])
+        runs[key] = st
+        print(f"[gpt_gqa {key}] {json.dumps(st)}", flush=True)
+        print(f"[gpt_gqa {key}] {tokens / step_s:.1f} tokens/s, "
+              f"{st['step_ms']:.2f} ms/step, {st['tflops']:.2f} TFLOP/s = "
+              f"{100 * st['bf16_peak_share']:.2f}% of the dense bf16 peak "
+              f"(989 TFLOP/s) of {card}; peak memory "
+              f"{st['peak_mem_gb']:.2f} GB; trajectory vs plain "
+              f"{dev_rel:.3g} (limit {tol:.3g})", flush=True)
+        if not all(math.isfinite(x) for x in ls):
+            problems.append(f"gpt_gqa {key}: non-finite loss {ls}")
+        if dev_rel > tol:
+            problems.append(
+                f"gpt_gqa {key}: loss trajectory departs from the plain "
+                f"path's by {dev_rel:.3g} > {tol} ({ls} vs {pst['losses']})")
+        if not ls[-1] < ls[0]:
+            problems.append(f"gpt_gqa {key}: loss did not fall {ls}")
+
+    ref = runs["float32_step"]["plain_losses"]
+    tol = gpt_tol("float32", 0.0)
+    for fault in GQA_FAULTS:
+        st, _ = gpt_run(dev, "float32", False, batch, fault=fault,
+                        arch=GQA_ARCH)
+        dev_rel = traj_dev(st["losses"], ref)
+        results["gpt_gqa_controls"][fault] = c = dict(
+            losses=st["losses"], trajectory_rel_dev=dev_rel,
+            trajectory_tol=tol, over_tol=dev_rel / tol, caught=dev_rel > tol)
+        print(f"[gpt_gqa control {fault}] {json.dumps(c)}", flush=True)
+        if not c["caught"]:
+            problems.append(
+                f"gpt_gqa control {fault}: the planted fault departs by "
+                f"only {dev_rel:.3g} <= {tol}; the check cannot see it")
+    try:
+        gqa_serve(dev, results)
+    except Exception as e:          # reported with the training problems
+        traceback.print_exc()
+        problems.append(f"gpt_gqa serving: {e}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+
+
+def gqa_serve(dev, results):
+    """The gpt_gqa model in f32 (dropout 0) served as phase 3 serves GPT-2
+    small: streams equal to the plain engine's; then `GQA_GENERATE` prompts
+    through ``generate(use_cache=False)`` -- the folded windowed flash
+    forward over the whole context, once a layer a new token -- equal to
+    the cached ``generate``."""
+    import torch
+    from mxnet_tpu_torch import kernels
+    from mxnet_tpu_torch.models import GPTForCausalLM, gpt_small
+
+    cfg = gpt_small(dropout=0.0, **GQA_ARCH)
+    model = GPTForCausalLM(cfg, device=dev, seed=0)
+    prompts = make_prompts(cfg.vocab_size)
+    max_new = 32
+    L = cfg.num_layers
+    streams, pstreams, plain, st = serve_phase(model, prompts, max_new, 0)
+    if st["launches"]["ragged_paged_attention"] != L * st["fused_steps"]:
+        raise AssertionError(
+            f"K1 launched {st['launches']['ragged_paged_attention']} times "
+            f"over {st['fused_steps']} fused steps (want {L} per step)")
+    st["near_ties_vs_plain"] = compare_streams(
+        streams, pstreams, plain.P, cfg, "gpt_gqa f32 kernel vs plain")
+    for s_, p in zip(streams, prompts):
+        if len(s_) != len(p) + max_new or not all(
+                0 <= t < cfg.vocab_size for t in s_):
+            raise AssertionError("gpt_gqa: malformed stream")
+    gen = prompts[:GQA_GENERATE]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    slow = [model.generate(torch.tensor([p]), max_new_tokens=max_new,
+                           use_cache=False)[0].tolist() for p in gen]
+    torch.cuda.synchronize()
+    st["uncached_generate_s"] = time.perf_counter() - t0
+    st["uncached_launches"] = kernels.launch_counts()
+    fast = [model.generate(torch.tensor([p]), max_new_tokens=max_new)[0]
+            .tolist() for p in gen]
+    want = L * max_new * len(gen)
+    if st["uncached_launches"]["flash_attention_fwd"] != want:
+        raise AssertionError(
+            f"gpt_gqa: uncached generate launched the flash forward "
+            f"{st['uncached_launches']['flash_attention_fwd']} times, want "
+            f"{want}")
+    st["near_ties_uncached_vs_cached"] = compare_streams(
+        slow, fast, plain.P, cfg, "gpt_gqa generate(use_cache=False) vs "
+        "cached")
+    results["gpt_gqa_serve"] = st
+    print(f"[gpt_gqa serve] {json.dumps(st)}", flush=True)
+
+
+# ---------------------------------------------------------------------------
 
 def kernel_entries(results):
     """One entry per ported kernel for the ``kernels`` line: the
@@ -2468,7 +2807,9 @@ def kernel_entries(results):
     The MoE gather: dispatch and combine at the slice's f32 shapes (8192
     tokens, 8 x 1280 slots, H 768).  Launches are the counts of the
     main-path runs (serving for K1/K2, the BERT, MoE and GPT training runs
-    for the others); ``gpt_launches`` is the GPT phase's share."""
+    for the others); ``gpt_launches`` is the GPT phase's share,
+    ``gpt_gqa_launches`` the gpt_gqa phase's.  The flash entries also carry
+    k3's band and fold cases, the chunk's GPT-2 small's AdamW."""
     k1, k2, k3, k4, k5, k6, k7 = (results[k] for k in (
         "k1", "k2", "k3", "k4", "k5", "k6", "k7"))
     rep1 = next(c for c in k1 if c["dtype"] == "float32" and c["C"] == 1
@@ -2501,6 +2842,7 @@ def kernel_entries(results):
     e2e = results["e2e"]
     train = dict(results["train"], **results["moe"])
     train.update({"gpt_" + k: v for k, v in results["gpt"].items()})
+    train.update({"gpt_gqa_" + k: v for k, v in results["gpt_gqa"].items()})
     k1_launch = e2e.get("float32", {}).get("launches", {}).get(
         "ragged_paged_attention", 0)
     k2_launch = sum(e2e.get(k, {}).get("launches", {}).get(
@@ -2515,6 +2857,8 @@ def kernel_entries(results):
                 "replaces": replaces, "launches": launches,
                 "gpt_launches": sum(r["launches"].get(name, 0)
                                     for r in results["gpt"].values()),
+                "gpt_gqa_launches": sum(r["launches"].get(name, 0)
+                                        for r in results["gpt_gqa"].values()),
                 "max_abs_err": max(c["max_abs_err"] for c in cases),
                 "ms": rep[mk], "kernel_ms": rep[mk],
                 "plain_ms": rep[pre + "plain_ms"],
@@ -2545,6 +2889,16 @@ def kernel_entries(results):
                       f"{tag}_bound_ms": c[pre + "bound_ms"]})
         return e
     gpt_shape(fwd, gpt3)
+    # k3's band and fold cases (`FLASH_BAND_CASES`), each dtype
+    band = [c for c in k3 if "kv_heads" in c]
+
+    def band_shape(e, pre=""):
+        for c in band:
+            tag = c["case"] + ("_f32" if c["dtype"] == "float32" else "_bf16")
+            e.update({f"{tag}_{n}": c[pre + n] for n in (
+                "ms", "plain_ms", "library_ms", "bound_ms")})
+        return e
+    band_shape(fwd)
     norm = entry("fused_norm", "mxnet_tpu_torch/csrc/fused_norm.cu",
                  "mxnet_tpu/ops/pallas/fused_norm.py:164",
                  train_launches("fused_norm"), k5, rep5)
@@ -2577,17 +2931,21 @@ def kernel_entries(results):
               "mxnet_tpu/ops/pallas/quantized_matmul.py:341", k2_launch, k2,
               rep2),
         fwd,
-        gpt_shape(entry("flash_attention_bwd", fa_src, f"{fa_py}:489",
-                        train_launches("flash_attention_bwd"), k3, rep3,
-                        "bwd_"), gpt3, "bwd_"),
+        band_shape(gpt_shape(entry("flash_attention_bwd", fa_src,
+                                   f"{fa_py}:489",
+                                   train_launches("flash_attention_bwd"), k3,
+                                   rep3, "bwd_"), gpt3, "bwd_"), "bwd_"),
         gpt_shape(entry("softmax_xent_fwd", sx_src, f"{sx_py}:95",
                         train_launches("softmax_xent_fwd"), k4, rep4), gpt4),
         gpt_shape(entry("softmax_xent_bwd", sx_src, f"{sx_py}:127",
                         train_launches("softmax_xent_bwd"), k4, rep4,
                         "bwd_"), gpt4, "bwd_"),
         norm,
-        entry("fused_optimizer_chunk", fo_src, f"{fo_py}:220",
-              train_launches("fused_optimizer_chunk"), chunk, rep7),
+        gpt_shape(entry("fused_optimizer_chunk", fo_src, f"{fo_py}:220",
+                        train_launches("fused_optimizer_chunk"), chunk,
+                        rep7),
+                  {c["dtype"]: c for c in chunk
+                   if c.get("model") == "gpt_small"}),
         lamb_a,
         lamb_b,
         entry("moe_dispatch", "mxnet_tpu_torch/csrc/moe_dispatch.cu",
@@ -2632,7 +2990,8 @@ def main(argv=None) -> int:
                "torch": torch.__version__, "cuda": torch.version.cuda,
                "e2e": {}, "train": {}, "train_controls": {}, "tune": {},
                "moe": {}, "moe_controls": {}, "gpt": {},
-               "gpt_controls": {}, "gpt_one_ulp": {}}
+               "gpt_controls": {}, "gpt_one_ulp": {}, "gpt_gqa": {},
+               "gpt_gqa_controls": {}, "gpt_gqa_one_ulp": {}}
     failed = []
     t0 = time.perf_counter()
     # build from the checkout's sources, never from a leftover library
@@ -2672,7 +3031,7 @@ def main(argv=None) -> int:
         traceback.print_exc()
         failed.append("train")
     for name, fn in (("tune", run_tune), ("moe", run_moe),
-                     ("gpt", run_gpt)):
+                     ("gpt", run_gpt), ("gpt_gqa", run_gpt_gqa)):
         try:
             fn(dev, results, card)
         except Exception:

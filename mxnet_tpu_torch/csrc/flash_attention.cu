@@ -9,11 +9,16 @@
 // What it computes (the TPU kernels' semantics, not their grid), over
 // q (BH, Lq, D), k/v (BH, Lk, D), BH = batch * heads, in f32 or bf16:
 //   * s = (q . k) * scale in f32 (bf16 products accumulate in f32), plus an
-//     optional f32 additive bias (Bb, 1|Lq, Lk) with Bb = B (shared by the H
-//     heads of a batch row) or B * H; causal keeps key c for row r iff c <= r.
-//     A masked or padded score is MASK_VALUE and its p is forced to exactly 0,
-//     so a row whose keys are all masked writes zeros with lse = 0 and gets
-//     zero gradients (:221-229).
+//     optional f32 additive bias (Bb, 1|seg, Lk) with Bb = B (shared by the
+//     H heads of a batch row) or B * H.  Row r sits at position r % seg:
+//     seg = Lq, or, with grouped K/V (the `rep` query heads sharing a kv
+//     head folded onto the row axis, `_eff_qi` :81), the unfolded length.
+//     A row at position q sees the keys [q - lo_w, q + hi_w]: causal and a
+//     sliding window (`_band_mask` :91) both narrow that band.  A masked or
+//     padded score is MASK_VALUE and its p is forced to exactly 0, so a row
+//     whose keys are all masked writes zeros with lse = 0 and gets zero
+//     gradients (:221-229).  Key tiles outside a q tile's band are never
+//     loaded or computed (`_band_block_live` :106): a window costs O(L w).
 //   * online softmax per row in f32; lse = m + log(l) is written as (BH, Lq)
 //     f32, one value per row.
 //   * attention-probs dropout from the counter hash `_splitmix32` /
@@ -83,6 +88,8 @@
 namespace {
 
 constexpr float MASK_VALUE = -1e30f;
+// a band edge that never binds (positions stay below 2^30)
+constexpr int NO_EDGE = 1 << 30;
 constexpr int MAX_D = 128;
 // shared memory a block may use, and an SM holds (H100)
 constexpr size_t SMEM_BLOCK = 232448;
@@ -121,12 +128,52 @@ __device__ __forceinline__ bool keep(uint32_t base, uint32_t row,
 struct Params {
   int H, Lq, Lk, D;
   float scale;
-  int causal;
-  int bias_mode;      // 0 none, 1 one row (Bb, 1, Lk), 2 per row (Bb, Lq, Lk)
+  int seg;            // row r sits at position r % seg
+  uint32_t seg_m;     // ceil(2^32 / seg) (2^32 - 1 for seg 1): `pos_of`
+  int lo_w, hi_w;     // a row at position q sees keys [q - lo_w, q + hi_w]
+  int bias_mode;      // 0 none, 1 one row (Bb, 1, Lk), 2 per row (Bb, seg, Lk)
   int bias_per_head;  // Bb == B * H (else B)
   float rate, inv_keep;
   uint32_t thresh;
 };
+
+// row r's position, r % seg, for 0 <= r < 2^31 without a branch: seg_m
+// exceeds 2^32 / seg by under 1, so the high half of r * seg_m is the
+// quotient or one over (one under for seg 1, whose seg_m is 2^32 - 1), and
+// one correction each way fixes the remainder
+__device__ __forceinline__ int pos_of(const Params& p, int r) {
+  int x = r - p.seg * (int)__umulhi((uint32_t)r, p.seg_m);
+  x += x < 0 ? p.seg : 0;
+  return x >= p.seg ? x - p.seg : x;
+}
+
+// row r's position: pos_of under BAND (a window or the fold), else the
+// row itself -- the backward takes BAND as a template argument, so a call
+// without either runs none of the band's code
+template <bool BAND>
+__device__ __forceinline__ int pos_at(const Params& p, int r) {
+  if constexpr (BAND)
+    return pos_of(p, r);
+  else
+    return r;
+}
+
+// the positions of rows [r0, r0 + n), n >= 1 and r0 < Lq, as a range: the
+// rows' own when they stay in one head segment, else every position (a
+// range of rows that wraps holds position seg - 1 and position 0)
+template <bool BAND>
+__device__ __forceinline__ int2 pos_span(const Params& p, int r0, int n) {
+  const int p0 = pos_at<BAND>(p, r0);
+  const int pe = p0 + min(n, p.Lq - r0) - 1;
+  return pe < p.seg ? make_int2(p0, pe) : make_int2(0, p.seg - 1);
+}
+
+// the keys [first, last] within [0, Lk) that rows at positions ps may see
+// (first > last: none); the bands of consecutive positions overlap, so
+// every key tile between first's and last's holds a live key
+__device__ __forceinline__ int2 key_span(const Params& p, int2 ps) {
+  return make_int2(max(0, ps.x - p.lo_w), min(p.Lk - 1, ps.y + p.hi_w));
+}
 
 // ---------------------------------------------------------------------------
 // backward: di = rowsum(dO * O) (a row pass), then one pass per key tile
@@ -199,7 +246,7 @@ constexpr size_t bwd_smem() {
   return sizeof(T) * ((size_t)(2 * KVB * BK + 4 * BwdQ<DMAX>::v) *
                           (DMAX + Mma<T>::PAD) +
                       (size_t)BK * (BwdQ<DMAX>::v + Mma<T>::PAD)) +
-         sizeof(float) * 4 * BwdQ<DMAX>::v;
+         sizeof(float) * 6 * BwdQ<DMAX>::v;
 }
 
 // rows [r0, r0 + rows) of one head's (L, D) slab into a [rows][ld] tile of
@@ -308,22 +355,34 @@ __device__ __forceinline__ void store_rows(T* __restrict__ dst, const T* stg,
 
 // Scale, bias and mask one step's scores in place (natural-log units) and
 // fold their row maxima into mx.  Element (jj, e) is row r0 + 8 (e >> 1),
-// key kc + 8 jj + 2 t + (e & 1).  MODE is the bias mode (0 none, 1 a key
-// row, 2 a row per query); FULL: the whole step lies inside the item's rows
-// and keys and below the causal diagonal, so nothing is masked.  Straight
-// line: bias loads are clamped into range and masking is a select, so no
-// element branches (the step's variant is chosen once, outside).
+// key kc + 8 jj + 2 t + (e & 1).  The rows' positions are found here, in
+// the steps that need them, not kept across the walk.  MODE is the bias
+// mode (0 none, 1 a key row, 2 a row per query position); FULL: the whole
+// step lies inside the item's rows and keys and inside every row's band,
+// so nothing is masked.  Straight line: bias loads are clamped into range
+// and masking is two compares with the row's key range, so no element
+// branches (the step's variant is chosen once, outside).
 template <int MODE, bool FULL, int NS>
 __device__ __forceinline__ void score_step(float (&s)[NS][4],
                                            float (&mx)[2], const Params& p,
                                            const float* __restrict__ bias,
                                            int bb, int r0, int kc, int t) {
+  // the rows' positions (a row past Lq: any in range) and each row's keys
+  // [klo, khi], its band within [0, Lk), none past Lq
+  const int pr[2] = {pos_of(p, min(r0, p.Lq - 1)),
+                     pos_of(p, min(r0 + 8, p.Lq - 1))};
+  int klo[2], khi[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    klo[h] = pr[h] - p.lo_w;
+    khi[h] = r0 + 8 * h < p.Lq ? min(p.Lk - 1, pr[h] + p.hi_w) : -1;
+  }
   const float* brow[2] = {bias, bias};
   if (MODE == 1) brow[0] = brow[1] = bias + (size_t)bb * p.Lk;
   if (MODE == 2) {
 #pragma unroll
     for (int h = 0; h < 2; ++h)
-      brow[h] = bias + ((size_t)bb * p.Lq + min(r0 + 8 * h, p.Lq - 1)) * p.Lk;
+      brow[h] = bias + ((size_t)bb * p.seg + pr[h]) * p.Lk;
   }
   const bool pairs = FULL && !(p.Lk & 1);  // 8-byte aligned key pairs
 #pragma unroll
@@ -349,12 +408,9 @@ __device__ __forceinline__ void score_step(float (&s)[NS][4],
     }
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int h = e >> 1, r = r0 + 8 * h, cc = c + (e & 1);
+      const int h = e >> 1, cc = c + (e & 1);
       float sv = s[jj][e] * p.scale + b[h][e & 1];
-      if (!FULL) {
-        const bool valid = (r < p.Lq) & (cc < p.Lk) & (!p.causal | (cc <= r));
-        sv = valid ? sv : MASK_VALUE;
-      }
+      if (!FULL) sv = (cc >= klo[h]) & (cc <= khi[h]) ? sv : MASK_VALUE;
       s[jj][e] = sv;
       mx[h] = fmaxf(mx[h], sv);
     }
@@ -423,9 +479,12 @@ template <typename T, int DMAX, int BQ, int BK> struct Fwd {
 // max from two quad shuffles (the row sum stays per thread until the
 // item's end); dropout per element on its absolute (row, key); then p,
 // rounded to T, is the A operand of O += P V straight from the
-// accumulators, with V's fragments from ldmatrix.trans.  Causal warps stop
-// at their last row's key, and rows past Lq skip the walk.  The output
-// leaves through the item's Q buffer in 16-byte rows.
+// accumulators, with V's fragments from ldmatrix.trans.  An item walks
+// only the key tiles its rows' bands reach, a warp only the steps its own
+// rows' band reaches, and rows past Lq skip the walk.  The output leaves
+// through the item's Q buffer in 16-byte rows.  (Unlike the backward's,
+// this kernel is one instantiation for banded and unbanded calls: a
+// second, unbanded one spilled more and ran slower on the H100, PERF.md.)
 template <typename T, int DMAX, int BQ, int BK>
 __global__ void __launch_bounds__(Fwd<T, DMAX, BQ, BK>::THREADS,
                                   Fwd<T, DMAX, BQ, BK>::MIN_BLOCKS)
@@ -451,19 +510,24 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int D = p.D;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  // an item's key tiles: causal items see no key past their last row
-  auto k_end_of = [&](int w) {
-    return p.causal ? min(p.Lk, (w % nqt + 1) * BQ) : p.Lk;
+  // an item's key tiles [first, last]: those its rows' bands reach (an item
+  // whose rows see no key walks tile 0 and masks it all)
+  auto tiles_of = [&](int w) {
+    const int2 span = key_span(p, pos_span<true>(p, (w % nqt) * BQ, BQ));
+    return span.x <= span.y ? make_int2(span.x / BK, span.y / BK)
+                            : make_int2(0, 0);
   };
 
-  // the producer: the next (item, key tile) step to load, its item's
-  // ordinal in this block's walk (the Q buffer's parity) and its position
-  // in the walk (the ring stage's)
-  int lw = blockIdx.x, lkt = 0, lj = 0, lpos = 0;
+  // the producer: the next (item, key tile) step to load, its item's key
+  // tiles, its item's ordinal in this block's walk (the Q buffer's parity)
+  // and its position in the walk (the ring stage's)
+  int lw = blockIdx.x, lj = 0, lpos = 0;
+  int2 lt = lw < n_items ? tiles_of(lw) : make_int2(0, 0);
+  int lkt = lt.x;
   auto issue = [&]() {
     if (lw >= n_items || p.Lk == 0) return;
     const int bh = lw / nqt, q0 = (lw % nqt) * BQ;
-    if (lkt == 0)
+    if (lkt == lt.x)
       stage_rows<T, DMAX, THREADS>(qs + (lj & 1) * BQ * LD, LD,
                                    q + (size_t)bh * p.Lq * D, q0, p.Lq, D,
                                    BQ, vec);
@@ -475,10 +539,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                  BK, vec);
     cp_async_commit();
     ++lpos;
-    if (++lkt * BK >= k_end_of(lw)) {
-      lkt = 0;
+    if (++lkt > lt.y) {
       lw += gridDim.x;
       ++lj;
+      if (lw < n_items) lt = tiles_of(lw);
+      lkt = lt.x;
     }
   };
   issue();
@@ -492,9 +557,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const bool live = wr0 < p.Lq;
     const size_t hq = (size_t)bh * p.Lq;
     const int bb = p.bias_per_head ? bh : bh / p.H;
-    const int k_end = k_end_of(w);
-    const int w_end = p.causal ? min(k_end, wr0 + 16) : k_end;
-    const int nkt = (k_end + BK - 1) / BK;
+    const int2 kt_span = tiles_of(w);
+    const int kt_last = kt_span.y;
+    // the warp's rows' positions: their bands reach keys wps.x - lo_w ..
+    // wps.y + hi_w
+    const int2 wps = live ? pos_span<true>(p, wr0, 16) : make_int2(0, 0);
     // a row's term of the dropout hash, row * C1 + base (wraps at 32 bits)
     const uint32_t base =
         p.rate > 0.f ? drop_base((uint32_t)seed[0], (uint32_t)bh) : 0u;
@@ -510,13 +577,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
-    for (int kt = 0; kt < nkt; ++kt, ++pos) {
+    bool first = true;  // the item's first step: load Q's fragments
+    for (int kt = kt_span.x; kt <= kt_last; ++kt, ++pos) {
       if (lpos > pos + 1)
         cp_async_wait<1>();  // this step landed; the next may be in flight
       else
         cp_async_wait<0>();
       __syncthreads();
-      if (kt == 0) {
+      if (first) {
+        first = false;
 #pragma unroll
         for (int kk = 0; kk < NQ; ++kk)
           qf[kk].load(qb, LD, 16 * warp, kk * M::KS, lane);
@@ -526,11 +595,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int c0 = 0; c0 < BK; c0 += KC) {
         const int kc = kt * BK + c0;
-        if (!live || kc >= w_end) break;
-        // a step wholly inside the item's rows and keys (and below the
-        // causal diagonal) needs no mask
+        if (!live || kc >= p.Lk || kc > wps.y + p.hi_w) break;
+        if (kc + KC <= wps.x - p.lo_w) continue;  // below every row's band
+        // a step wholly inside the item's rows and keys and inside every
+        // row's band needs no mask
         const bool full = kc + KC <= p.Lk && wr0 + 16 <= p.Lq &&
-                          (!p.causal || kc + KC <= wr0 + 1);
+                          kc >= wps.y - p.lo_w &&
+                          kc + KC - 1 <= wps.x + p.hi_w;
 
         // S = Q K^T over the step's 64 keys
         float s[NS][4];
@@ -552,12 +623,23 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
         float mx[2] = {m[0], m[1]};
         switch (p.bias_mode * 2 + (full ? 1 : 0)) {
-          case 0: score_step<0, false>(s, mx, p, bias, bb, r0, kc, t); break;
-          case 1: score_step<0, true>(s, mx, p, bias, bb, r0, kc, t); break;
-          case 2: score_step<1, false>(s, mx, p, bias, bb, r0, kc, t); break;
-          case 3: score_step<1, true>(s, mx, p, bias, bb, r0, kc, t); break;
-          case 4: score_step<2, false>(s, mx, p, bias, bb, r0, kc, t); break;
-          default: score_step<2, true>(s, mx, p, bias, bb, r0, kc, t);
+          case 0:
+            score_step<0, false>(s, mx, p, bias, bb, r0, kc, t);
+            break;
+          case 1:
+            score_step<0, true>(s, mx, p, bias, bb, r0, kc, t);
+            break;
+          case 2:
+            score_step<1, false>(s, mx, p, bias, bb, r0, kc, t);
+            break;
+          case 3:
+            score_step<1, true>(s, mx, p, bias, bb, r0, kc, t);
+            break;
+          case 4:
+            score_step<2, false>(s, mx, p, bias, bb, r0, kc, t);
+            break;
+          default:
+            score_step<2, true>(s, mx, p, bias, bb, r0, kc, t);
         }
 
         // the online softmax: the new row max, then the old sums rescaled
@@ -597,7 +679,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
 
-      if (kt == nkt - 1) {
+      if (kt == kt_last) {
         // O / l and lse = m + log l (0 and zeros for a row with no
         // unmasked key), O through the warp's own rows of the item's Q
         // buffer (read by no other warp, and by this one only at the
@@ -641,6 +723,55 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// One q tile's element pass of the backward: s (S^T) becomes Pd, p
+// dropped, and dp (dP^T) becomes dS = P (dP - di) scale.  Element (n-tile
+// j, e) is key key_lo + 8 (e >> 1), q row q0 + 8 j + 2 t + (e & 1).  BAND
+// (a window, the fold) reads each row's position from pb, where a row past
+// Lq holds one no key's band reaches; without it a row's position is the
+// row, and the band is causal's or none: the unbanded call pays nothing
+// for the band.
+template <bool BAND, int NQ>
+__device__ __forceinline__ void bwd_probs(
+    float (&s)[NQ][4], float (&dp)[NQ][4], const Params& p,
+    const float* __restrict__ bias, const float (&kbias)[2], int bb,
+    uint32_t base, int q0, int key_lo, int t, const float* lb,
+    const float* db, const int* pb) {
+#pragma unroll
+  for (int j = 0; j < NQ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int rl = 8 * j + 2 * t + (e & 1), r = q0 + rl;
+      const int c = key_lo + 8 * (e >> 1);
+      int pos = r;
+      bool valid;
+      if constexpr (BAND) {
+        pos = pb[rl];
+        valid = c < p.Lk && pos >= c - p.hi_w && pos <= c + p.lo_w;
+      } else {
+        valid = r < p.Lq && c < p.Lk && c <= r + p.hi_w;
+      }
+      float sv = MASK_VALUE;
+      if (valid) {
+        sv = s[j][e] * p.scale;
+        if (p.bias_mode == 1)
+          sv += kbias[e >> 1];
+        else if (p.bias_mode == 2)
+          sv += bias[((size_t)bb * p.seg + pos) * p.Lk + c];
+      }
+      const float pr = sv > 0.5f * MASK_VALUE
+                           ? exp2_approx((sv - lb[rl]) * LOG2E)
+                           : 0.f;
+      float pd = pr, dpv = dp[j][e];
+      if (p.rate > 0.f) {
+        const bool kp = keep(base, (uint32_t)r, (uint32_t)c, p.thresh);
+        pd = kp ? pr * p.inv_keep : 0.f;
+        dpv = kp ? dpv * p.inv_keep : 0.f;
+      }
+      s[j][e] = pd;
+      dp[j][e] = pr * (dpv - db[rl]) * p.scale;
+    }
+}
+
 // Blocks walk work items (bh, key tile of BK keys), item w = bh * nk + kt;
 // BK / 16 warps, warp w owning keys 16w .. 16w + 15 of the tile.  K and V
 // stay in shared memory and dK, dV in registers while the block walks the
@@ -653,14 +784,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // a head writes dQ; with more, each writes its f32 partial to `ws` and the
 // last of the tile's visitors to arrive on the (bh, q tile) ticket sums
 // them in key-tile order -- no float atomics, the same bits every call --
-// and puts the ticket back to zero.
+// and puts the ticket back to zero.  A block walks only the q tiles whose
+// rows' bands reach its key tile (under the fold, one range a head
+// segment), so a q tile's visitors are a range of key tiles, the same
+// range its ticket counts and its sum runs over.
 // With KVB = 2 (bf16) a block is persistent: it takes items w, w + grid,
 // ... and loads the next item's K, V and first q tile into the other
 // buffers during the current item's last q tile, so one item's loads and
 // stores overlap the other's products (one block an SM: 255 registers a
 // thread).  KVB = 1 (f32, whose tiles fill shared memory) launches a block
-// an item.
-template <typename T, int DMAX, int BK, int KVB>
+// an item.  BAND (a window or the fold) is a template argument, so a call
+// without them runs no code of theirs.
+template <typename T, int DMAX, int BK, int KVB, bool BAND>
 __global__ void __launch_bounds__(2 * BK, 1)
 flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ bias,
@@ -685,16 +820,32 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* dst = dos + 2 * BQ * LD;                     // [BK][LDS] dS^T
   float* lse_s = reinterpret_cast<float*>(dst + BK * LDS);  // [2][BQ]
   float* di_s = lse_s + 2 * BQ;                              // [2][BQ]
+  int* pos_s = reinterpret_cast<int*>(di_s + 2 * BQ);        // [2][BQ]
 
   const int items = BH * nk, D = p.D;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int kr0 = warp * 16;
+  const int nqt = (p.Lq + BQ - 1) / BQ;
 
-  // causal: q tiles whose last row is above the key tile see none of it
-  auto q_first = [&](int w) {
-    return p.causal ? ((w % nk) * BK / BQ) * BQ : 0;
+  // the key tiles [first, last] that visit q tile qt: those its rows'
+  // bands reach (first > last: none).  The walk below and the dQ merge
+  // both read it, so a ticket's count is exactly its visitors
+  auto visitors = [&](int qt) {
+    const int2 span = key_span(p, pos_span<BAND>(p, qt * BQ, BQ));
+    return span.x <= span.y ? make_int2(span.x / BK, span.y / BK)
+                            : make_int2(1, 0);
   };
+  // the first q tile from qt on that key tile kt visits (nqt: none); under
+  // the fold these are `rep` ranges, one a head segment
+  auto next_q = [&](int kt, int qt) {
+    for (; qt < nqt; ++qt) {
+      const int2 v = visitors(qt);
+      if (v.x <= kt && kt <= v.y) break;
+    }
+    return qt;
+  };
+  auto q_first = [&](int w) { return next_q(w % nk, 0); };
   auto stage_kv = [&](int w, int kb) {
     const size_t hk = (size_t)(w / nk) * p.Lk * D;
     T* kb_s = kvs + kb * 2 * BK * LD;
@@ -715,6 +866,9 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 live ? 4 : 0);
       cp_async4(di_s + buf * BQ + tid, di + hq + (live ? q0 + tid : 0),
                 live ? 4 : 0);
+      // the row's position; past Lq one that no key's band holds
+      if (BAND)
+        pos_s[buf * BQ + tid] = live ? pos_of(p, q0 + tid) : -NO_EDGE - 1;
     }
   };
 
@@ -722,12 +876,12 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   bool issued = false;    // this item's loads were issued by the last one
   for (int w = blockIdx.x, j = 0; w < items; w += gridDim.x, ++j) {
     const int bh = w / nk, kt = w % nk, k0 = kt * BK;
-    const int q_start = q_first(w);
+    const int qt_start = q_first(w);
     T* ks = kvs + (j % KVB) * 2 * BK * LD;
     T* vs = ks + BK * LD;
-    if (!issued && q_start < p.Lq) {
+    if (!issued && qt_start < nqt) {
       stage_kv(w, j % KVB);
-      stage_q(w, q_start, it & 1);
+      stage_q(w, qt_start * BQ, it & 1);
       cp_async_commit();
     }
     issued = false;
@@ -749,18 +903,19 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) dka[i][e] = dva[i][e] = 0.f;
 
-    const int nqt = (p.Lq + BQ - 1) / BQ;
-    for (int q0 = q_start; q0 < p.Lq; q0 += BQ, ++it) {
-      const int buf = it & 1;
+    for (int qt = qt_start; qt < nqt; ++it) {
+      const int q0 = qt * BQ, buf = it & 1;
+      const int qt_next = next_q(kt, qt + 1);
       cp_async_wait<0>();  // this tile has landed ...
       __syncthreads();     // ... for every thread, and the last one is done
-      if (q0 + BQ < p.Lq) {
-        stage_q(w, q0 + BQ, buf ^ 1);
+      if (qt_next < nqt) {
+        stage_q(w, qt_next * BQ, buf ^ 1);
       } else if (KVB == 2) {  // the next item's K, V and first q tile
         const int wn = w + gridDim.x;
-        if (wn < items && q_first(wn) < p.Lq) {
+        const int qn = wn < items ? q_first(wn) : nqt;
+        if (qn < nqt) {
           stage_kv(wn, (j + 1) % KVB);
-          stage_q(wn, q_first(wn), buf ^ 1);
+          stage_q(wn, qn * BQ, buf ^ 1);
           issued = true;
         }
       }
@@ -793,35 +948,9 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
 
-      // on the fragments: s becomes Pd (p dropped), dp becomes dS.  Element
-      // (n-tile j, e) is key key_lo + 8 (e >> 1), q row 8 j + 2 t + (e & 1)
-#pragma unroll
-      for (int j = 0; j < NQ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int rl = 8 * j + 2 * t + (e & 1), r = q0 + rl;
-          const int c = key_lo + 8 * (e >> 1);
-          const bool valid = r < p.Lq && c < p.Lk && (!p.causal || c <= r);
-          float sv = MASK_VALUE;
-          if (valid) {
-            sv = s[j][e] * p.scale;
-            if (p.bias_mode == 1)
-              sv += kbias[e >> 1];
-            else if (p.bias_mode == 2)
-              sv += bias[((size_t)bb * p.Lq + r) * p.Lk + c];
-          }
-          const float pr = sv > 0.5f * MASK_VALUE
-                               ? exp2_approx((sv - lb[rl]) * LOG2E)
-                               : 0.f;
-          float pd = pr, dpv = dp[j][e];
-          if (p.rate > 0.f) {
-            const bool kp = keep(base, (uint32_t)r, (uint32_t)c, p.thresh);
-            pd = kp ? pr * p.inv_keep : 0.f;
-            dpv = kp ? dpv * p.inv_keep : 0.f;
-          }
-          s[j][e] = pd;
-          dp[j][e] = pr * (dpv - db[rl]) * p.scale;
-        }
+      // on the fragments: s becomes Pd (p dropped), dp becomes dS
+      bwd_probs<BAND>(s, dp, p, bias, kbias, bb, base, q0, key_lo, t, lb,
+                      db, pos_s + buf * BQ);
 
       // dV += Pd^T dO and dK += dS^T Q, the A operands from registers
 #pragma unroll
@@ -909,27 +1038,28 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                        vec);
       }
       if (part) {
-        // the key tiles that visit this q tile are 0 .. arrivals - 1
-        const int arrivals = p.causal ? min(nk, (q0 + BQ - 1) / BK + 1) : nk;
-        unsigned int* ticket = tickets + (size_t)bh * nqt + q0 / BQ;
-        if (arrive_last(ticket, arrivals)) {
+        // the key tiles that visit this q tile, in order: vis.x .. vis.y
+        const int2 vis = visitors(qt);
+        unsigned int* ticket = tickets + (size_t)bh * nqt + qt;
+        if (arrive_last(ticket, vis.y - vis.x + 1)) {
           const int n = min(BQ, p.Lq - q0) * D;
           const size_t off = (size_t)q0 * D;
           for (int i = tid; i < n; i += THREADS) {
             float sum = 0.f;
-            for (int u = 0; u < arrivals; ++u)  // key-tile order
+            for (int u = vis.x; u <= vis.y; ++u)  // key-tile order
               sum += __ldcg(ws + ((size_t)u * BH + bh) * p.Lq * D + off + i);
             dq[hq * D + off + i] = from_f<T>(sum);
           }
           if (tid == 0) *ticket = 0u;
         }
       }
+      qt = qt_next;
     }
     __syncthreads();  // every warp is done with this item's K and V
 
     // dK, dV through the item's K and V tiles, then whole rows: fragment
     // (i, e) is key kr0 + g + 8 (e >> 1) of the tile, column 8 i + 2 t +
-    // (e & 1); keys no q row saw (causal) get zeros
+    // (e & 1); keys no q row saw (causal, a window) get zeros
 #pragma unroll
     for (int i = 0; i < ND; ++i)
 #pragma unroll
@@ -947,16 +1077,25 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   cp_async_wait<0>();
 }
 
+// causal keeps keys up to the row's position; a window of w keys
+// [q - w, q], or [q - w, q + w] when symmetric and not causal (JAX's
+// `_band_mask`); window < 0: none
 Params make_params(int H, int Lq, int Lk, int D, float scale, int causal,
-                   int bias_mode, int bias_per_head, float rate,
-                   float inv_keep, unsigned thresh) {
+                   int window, int window_symmetric, int seg, int bias_mode,
+                   int bias_per_head, float rate, float inv_keep,
+                   unsigned thresh) {
   Params p;
   p.H = H;
   p.Lq = Lq;
   p.Lk = Lk;
   p.D = D;
   p.scale = scale;
-  p.causal = causal;
+  p.seg = seg;
+  p.seg_m = seg == 1 ? 0xFFFFFFFFu
+                     : (uint32_t)(((1ull << 32) + seg - 1) / (unsigned)seg);
+  const int w = window >= 0 && window < NO_EDGE ? window : NO_EDGE;
+  p.lo_w = w;
+  p.hi_w = causal || (window >= 0 && !window_symmetric) ? 0 : w;
   p.bias_mode = bias_mode;
   p.bias_per_head = bias_per_head;
   p.rate = rate;
@@ -1060,14 +1199,14 @@ struct BwdArgs {
 
 // the di row pass, then the key-tile kernel, on one stream (in order);
 // bf16 keeps two K/V buffers (persistent blocks), f32 one
-template <typename T, int DMAX, int BK>
+template <typename T, int DMAX, int BK, bool BAND>
 cudaError_t launch_bwd(const BwdArgs& a, const Params& p,
                        cudaStream_t stream) {
   constexpr int KVB = sizeof(T) == 2 ? 2 : 1;
   constexpr size_t smem = bwd_smem<T, DMAX, BK, KVB>();
   static bool attr = false;
   cudaError_t e =
-      allow_smem(flash_bwd_kernel<T, DMAX, BK, KVB>, smem, attr);
+      allow_smem(flash_bwd_kernel<T, DMAX, BK, KVB, BAND>, smem, attr);
   if (e != cudaSuccess) return e;
   const int rows = a.BH * p.Lq;
   const int rows_a_block = a.vec ? 32 : 8;
@@ -1077,7 +1216,8 @@ cudaError_t launch_bwd(const BwdArgs& a, const Params& p,
       static_cast<float*>(a.di), rows, p.D, a.vec);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  flash_bwd_kernel<T, DMAX, BK, KVB><<<a.grid, 2 * BK, smem, stream>>>(
+  flash_bwd_kernel<T, DMAX, BK, KVB, BAND>
+      <<<a.grid, 2 * BK, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const float*>(a.bias),
       static_cast<const int*>(a.seed), static_cast<const float*>(a.lse),
@@ -1088,21 +1228,32 @@ cudaError_t launch_bwd(const BwdArgs& a, const Params& p,
   return cudaGetLastError();
 }
 
+template <typename T, bool BAND>
+cudaError_t launch_bwd_b(const BwdArgs& a, const Params& p, int bk,
+                         cudaStream_t s) {
+  if (p.D <= 64)
+    return bk == 64 ? launch_bwd<T, 64, 64, BAND>(a, p, s)
+                    : launch_bwd<T, 64, 128, BAND>(a, p, s);
+  return bk == 64 ? launch_bwd<T, 128, 64, BAND>(a, p, s)
+                  : launch_bwd<T, 128, 128, BAND>(a, p, s);
+}
+
+// a window or the fold: the band's instantiation
 template <typename T>
 cudaError_t launch_bwd_d(const BwdArgs& a, const Params& p, int bk,
                          cudaStream_t s) {
-  if (p.D <= 64)
-    return bk == 64 ? launch_bwd<T, 64, 64>(a, p, s)
-                    : launch_bwd<T, 64, 128>(a, p, s);
-  return bk == 64 ? launch_bwd<T, 128, 64>(a, p, s)
-                  : launch_bwd<T, 128, 128>(a, p, s);
+  return p.seg != p.Lq || p.lo_w < NO_EDGE
+             ? launch_bwd_b<T, true>(a, p, bk, s)
+             : launch_bwd_b<T, false>(a, p, bk, s);
 }
 
 }  // namespace
 
 // q (BH, Lq, D), k/v (BH, Lk, D), out (BH, Lq, D) in one type (f32, or bf16
-// when is_bf16); lse (BH, Lq) f32; bias f32 (Bb, 1|Lq, Lk) or null
-// (bias_mode 0); seed a device int32 (read only when rate > 0).  All
+// when is_bf16); lse (BH, Lq) f32; bias f32 (Bb, 1|seg, Lk) or null
+// (bias_mode 0); seed a device int32 (read only when rate > 0).  Row r sits
+// at position r % seg (seg divides Lq: the unfolded length under grouped
+// K/V, else Lq); window >= 0 keeps the band `make_params` describes.  All
 // contiguous; the caller checks shapes (D <= 128).  bq (64 or 128) is the
 // query rows a work item, bk (64 or 128) the keys a stage of the K/V ring
 // (heads over 64 wide take bq = 64, f32 ones also bk = 64); `grid`
@@ -1112,16 +1263,17 @@ cudaError_t launch_bwd_d(const BwdArgs& a, const Params& p, int bk,
 extern "C" int mxt_flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* bias,
     const void* seed, void* out, void* lse, int BH, int H, int Lq, int Lk,
-    int D, float scale, int causal, int bias_mode, int bias_per_head,
-    float rate, float inv_keep, unsigned thresh, int is_bf16, int bq, int bk,
-    int grid, void* stream) {
+    int D, float scale, int causal, int window, int window_symmetric,
+    int seg, int bias_mode, int bias_per_head, float rate, float inv_keep,
+    unsigned thresh, int is_bf16, int bq, int bk, int grid, void* stream) {
   cudaGetLastError();  // clear any stale error of this runtime
   if (D > MAX_D || D < 1 || (bq != 64 && bq != 128) ||
-      (bk != 64 && bk != 128))
+      (bk != 64 && bk != 128) || seg < 1 || Lq % seg || Lq >= NO_EDGE)
     return (int)cudaErrorInvalidValue;
   if (BH == 0 || Lq == 0) return 0;
-  const Params p = make_params(H, Lq, Lk, D, scale, causal, bias_mode,
-                               bias_per_head, rate, inv_keep, thresh);
+  const Params p =
+      make_params(H, Lq, Lk, D, scale, causal, window, window_symmetric, seg,
+                  bias_mode, bias_per_head, rate, inv_keep, thresh);
   FwdArgs a;
   a.q = q;
   a.k = k;
@@ -1142,10 +1294,13 @@ extern "C" int mxt_flash_attention_fwd(
 }
 
 // The backward of the call above: dout, o in the input type, lse from the
-// forward; di (BH, Lq) f32 is scratch; dq/dk/dv like q/k/v.  bk (64 or
-// 128) is the key tile, so nk = ceil(Lk / bk) key tiles a head and BH * nk
-// work items, walked by `grid` blocks (bf16: persistent blocks, any grid;
-// f32: grid = BH * nk).  With nk > 1, ws holds nk * BH * Lq * D f32 dQ
+// forward; di (BH, Lq) f32 is scratch; dq/dk/dv like q/k/v (rows of dq
+// that no key tile visits -- positions past Lk - 1 + window -- are left
+// as they were: the caller zeroes dq where a window leaves such rows).
+// bk (64 or 128) is the key tile, so nk = ceil(Lk / bk) key tiles a head
+// and BH * nk work items, walked by `grid` blocks (bf16: persistent blocks,
+// any grid; f32: grid = BH * nk).  With nk > 1, ws holds nk * BH * Lq * D
+// f32 dQ
 // partials and tickets one zeroed uint32 per (bh, q tile) -- q tiles of 64
 // rows for D <= 64, else 32 -- left zeroed.  Launches the di row pass,
 // then the key-tile kernel, on `stream`.  Returns the launches'
@@ -1154,19 +1309,22 @@ extern "C" int mxt_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* bias,
     const void* seed, const void* o, const void* lse, const void* dout,
     void* di, void* dq, void* dk, void* dv, void* ws, void* tickets, int BH,
-    int H, int Lq, int Lk, int D, float scale, int causal, int bias_mode,
-    int bias_per_head, float rate, float inv_keep, unsigned thresh,
-    int is_bf16, int bk, int grid, void* stream) {
+    int H, int Lq, int Lk, int D, float scale, int causal, int window,
+    int window_symmetric, int seg, int bias_mode, int bias_per_head,
+    float rate, float inv_keep, unsigned thresh, int is_bf16, int bk,
+    int grid, void* stream) {
   cudaGetLastError();
-  if (D > MAX_D || D < 1 || (bk != 64 && bk != 128) || grid < 1)
+  if (D > MAX_D || D < 1 || (bk != 64 && bk != 128) || grid < 1 ||
+      seg < 1 || Lq % seg || Lq >= NO_EDGE)
     return (int)cudaErrorInvalidValue;
   if (BH == 0 || Lq == 0 || Lk == 0) return 0;
   const int nk = (Lk + bk - 1) / bk;
   if ((nk > 1 && (ws == nullptr || tickets == nullptr)) ||
       (!is_bf16 && grid != BH * nk))
     return (int)cudaErrorInvalidValue;
-  const Params p = make_params(H, Lq, Lk, D, scale, causal, bias_mode,
-                               bias_per_head, rate, inv_keep, thresh);
+  const Params p =
+      make_params(H, Lq, Lk, D, scale, causal, window, window_symmetric, seg,
+                  bias_mode, bias_per_head, rate, inv_keep, thresh);
   BwdArgs a;
   a.q = q;
   a.k = k;

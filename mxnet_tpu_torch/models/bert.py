@@ -11,17 +11,16 @@ so `convert.load_jax_params` fills it name for name.
 
 Attention runs through the flash kernels on the card (key padding from
 ``valid_length`` as a compact bias, attention-probs dropout inside the
-kernel); the loss of `gluon.loss` / `ops.softmax_cross_entropy` through the
-streaming cross-entropy kernels.  ``remat`` recomputes each layer in the
-backward pass (`ops.nn.remat_call`); ``window`` waits for the flash
-kernels' band mask (ROADMAP.md).
+kernel, and ``window``'s symmetric band [q - w, q + w] with the tiles
+outside it skipped); the loss of `gluon.loss` / `ops.softmax_cross_entropy`
+through the streaming cross-entropy kernels.  ``remat`` recomputes each
+layer in the backward pass (`ops.nn.remat_call`).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from ..base import MXNetError
 from ..device import resolve_device
 from ..ops import nn as F
 from .gpt import torch_dtype
@@ -51,8 +50,7 @@ class BertConfig:
         # named policy (`ops.nn.resolve_remat_policy`; MXTPU_REMAT_POLICY
         # overrides)
         self.remat = remat
-        # Longformer-style symmetric sliding-window attention: the flash
-        # kernel does not take a window yet
+        # Longformer-style symmetric sliding-window attention, [q - w, q + w]
         if window is not None and window < 1:
             raise ValueError(f"window must be >= 1, got {window}")
         self.window = window
@@ -112,9 +110,6 @@ class BertModel(nn.Module):
     def forward(self, input_ids, token_types=None, valid_length=None):
         b, l = input_ids.shape
         check_max_position(l, self.cfg.max_position)
-        if self.cfg.window is not None:
-            raise MXNetError("BertConfig.window is not ported to "
-                             "mxnet_tpu_torch yet (ROADMAP.md)")
         dev = self.word_embed.weight.device
         pos = torch.arange(l, device=dev)
         x = self.word_embed(input_ids) + self.position_embed(pos.reshape(1, l))

@@ -9,8 +9,9 @@ recomputes.  `flash_attention` is a `torch.autograd.Function`:
   ``csrc/flash_attention.cu`` (forward: one tensor-core pass per q tile,
   its tiles from `resolve_blocks` through `_fwd_plan`; backward: a di row
   pass, then one tensor-core pass per key tile for dQ, dK and dV, laid out
-  by `_bwd_plan`), or raises `MXNetError` on what they do not take (sliding
-  windows and grouped K/V heads are still to port, see ROADMAP.md);
+  by `_bwd_plan`; both skip the tiles outside a sliding window's band and
+  take grouped K/V folded onto the row axis), or raises `MXNetError` on
+  what they do not take (heads over 128 wide);
 - on a CPU tensor it runs `flash_fwd_reference` / `flash_bwd_reference`:
   the same arithmetic in plain torch, which the CPU tests hold against the
   JAX package; the block sizes change nothing there.
@@ -25,7 +26,9 @@ autograd on any device, by name: the oracle a run on the card is held
 against (as `paged_attention_reference` is for the serving kernel).
 
 Semantics kept from the JAX kernels: an additive f32 bias (key padding as
-a compact (B, 1, Lk) row, or per query row), causal masking, fully masked
+a compact (B, 1, Lk) row, or per query row), causal masking, a sliding
+window, grouped K/V heads (the query heads of a group folded onto the row
+axis, row r at position r % Lq, K/V never expanded), fully masked
 rows giving zeros with lse = 0 and zero gradients, and attention-probs
 dropout from the counter hash `keep_mask` — bit for bit the JAX
 `_keep_mask`, keyed on the int32 seed, the flattened batch·head index and
@@ -263,22 +266,25 @@ class FwdPlan(NamedTuple):
 
 
 def _fwd_plan(B: int, H: int, Lq: int, Lk: int, D: int, dtype,
-              block_q: int, block_k: int, source: str = "explicit"
-              ) -> FwdPlan:
+              block_q: int, block_k: int, source: str = "explicit",
+              kv_heads: Optional[int] = None) -> FwdPlan:
     """The forward's launch for the blocks `resolve_blocks` gave, plain
     Python.  A block size snaps to the card's tiles (128 from 128 up, else
     64), as JAX fits its blocks to the sequence.  Heads over 64 wide take
     64-row items (their warps need over 128 registers, so an SM holds one
     block of 8 warps or two of 4: the smaller items balance better), and
     where the tiles exceed a block's shared memory (f32 heads over 64 wide
-    at 128 keys) the key tile halves."""
+    at 128 keys) the key tile halves.  With ``kv_heads`` g < H the H // g
+    query heads of a group are folded onto the row axis: B * g heads of
+    H // g * Lq rows."""
     dmax = 64 if D <= 64 else 128
     bq = 128 if int(block_q) >= 128 and dmax == 64 else 64
     bk = 128 if int(block_k) >= 128 else 64
     if _fwd_smem(dtype, dmax, bq, bk) > SMEM_BLOCK:
         bk = 64
+    g = kv_heads or H
     return FwdPlan(bq, bk, dmax, _fwd_smem(dtype, dmax, bq, bk),
-                   B * H * -(-Lq // bq), 0, source)
+                   B * g * -(-(H // g) * Lq // bq), 0, source)
 
 
 # the card's plan where nothing else chooses: 64-row items with 64-key
@@ -338,15 +344,17 @@ _fwd_memo_gen = None
 
 
 def _planned_fwd(B, H, Lq, Lk, D, dtype, device, block_q=None,
-                 block_k=None) -> FwdPlan:
+                 block_k=None, kv_heads=None) -> FwdPlan:
     """`_fwd_plan` for the blocks `resolve_blocks` picks, looked up once
-    per key and `autotune.generation()`, not at each of a step's calls."""
+    per key and `autotune.generation()`, not at each of a step's calls.
+    The blocks resolve on the unfolded (B, H, Lq, Lk, D), JAX's key, also
+    under grouped K/V (``kv_heads``)."""
     global _fwd_memo_gen
     gen = autotune.generation()
     if gen != _fwd_memo_gen:
         _fwd_memo.clear()
         _fwd_memo_gen = gen
-    key = (B, H, Lq, Lk, D, dtype, device, block_q, block_k,
+    key = (B, H, Lq, Lk, D, dtype, device, block_q, block_k, kv_heads,
            os.environ.get("MXTPU_FLASH_BLOCK_Q"),
            os.environ.get("MXTPU_FLASH_BLOCK_K"))
     plan = _fwd_memo.get(key)
@@ -354,7 +362,8 @@ def _planned_fwd(B, H, Lq, Lk, D, dtype, device, block_q=None,
         (bq, sq), (bk, sk) = _resolve(B, H, Lq, Lk, D, dtype, block_q,
                                       block_k)
         plan = _fwd_memo[key] = _fwd_plan(
-            B, H, Lq, Lk, D, dtype, bq, bk, sq if sq == sk else f"{sq}/{sk}")
+            B, H, Lq, Lk, D, dtype, bq, bk, sq if sq == sk else f"{sq}/{sk}",
+            kv_heads)
     return plan
 
 
@@ -371,27 +380,35 @@ class BwdPlan(NamedTuple):
     bq: int              # q rows a step: 64, or 32 for heads over 64 wide
     key_tiles: int       # work items a head; dQ partials when more than one
     q_tiles: int         # q tiles a head: one ticket each
-    blocks: int          # work items (B * H * key_tiles)
-    grid: int            # blocks launched: bf16 one an SM (persistent), f32
-                         # one an item
-    tickets: int         # uint32 tickets (B * H * q_tiles), 0 with one tile
+    blocks: int          # work items (B * g * key_tiles)
+    grid: int            # blocks launched: one an item, or (bf16 with one
+                         # key tile a head) one an SM, persistent
+    tickets: int         # uint32 tickets (B * g * q_tiles), 0 with one tile
     workspace: int       # f32 dQ partials (key_tiles * B * H * Lq * D)
 
 
 def _bwd_plan(B: int, H: int, Lq: int, Lk: int, D: int, dtype,
-              sm_count: int, bk: Optional[int] = None) -> BwdPlan:
+              sm_count: int, bk: Optional[int] = None,
+              kv_heads: Optional[int] = None) -> BwdPlan:
     """The launch plan of one backward call, plain Python (no card needed).
 
     The key tile is 128 keys (8 warps), so a head of up to 128 keys is one
     tile and the block writes dQ itself with no partials (BERT's L = 128);
     it is 64 where Lk fits in 64, or where 128-key tiles would leave the
     grid short of one block per SM.  ``bk`` overrides (the tests run both).
-    bf16 launches at most one block an SM, each walking items with the
-    next one's loads in flight; f32 (whose tiles fill shared memory) one
-    block an item."""
+    bf16 with one key tile a head launches at most one block an SM, each
+    walking items with the next one's loads in flight; otherwise one block
+    an item (f32, whose tiles fill shared memory, always): with several key
+    tiles a head the items differ in size (causal, a window) and blocks
+    taken as they free up balance them, where a static walk does not --
+    at GPT-2 small's L 1024 in bf16, 0.72 ms against 1.64 (PERF.md, the
+    flash backward).  With ``kv_heads`` g < H a head is one of the B * g
+    folded heads, of H // g * Lq rows (q tiles)."""
+    g = kv_heads or H
+    heads, rows = B * g, H // g * Lq
     if bk is None:
         bk = 128
-        if Lk <= 64 or B * H * -(-Lk // 128) < sm_count:
+        if Lk <= 64 or heads * -(-Lk // 128) < sm_count:
             bk = 64
     if bk not in BWD_KEY_TILES:
         raise MXNetError(f"flash backward key tile must be one of "
@@ -399,13 +416,14 @@ def _bwd_plan(B: int, H: int, Lq: int, Lk: int, D: int, dtype,
     dmax = 64 if D <= 64 else 128
     bq = 64 if dmax == 64 else 32
     key_tiles = max(1, -(-Lk // bk))
-    q_tiles = -(-Lq // bq)
+    q_tiles = -(-rows // bq)
     split = key_tiles > 1
-    items = B * H * key_tiles
-    grid = min(items, sm_count) if dtype == torch.bfloat16 else items
+    items = heads * key_tiles
+    persistent = dtype == torch.bfloat16 and not split
+    grid = min(items, sm_count) if persistent else items
     return BwdPlan(bk, dmax, bq, key_tiles, q_tiles, items, max(1, grid),
-                   B * H * q_tiles if split else 0,
-                   key_tiles * B * H * Lq * D if split else 0)
+                   heads * q_tiles if split else 0,
+                   key_tiles * heads * rows * D if split else 0)
 
 
 _P = ctypes.c_void_p
@@ -423,19 +441,20 @@ def _kernel_fn(direction):
     if f is None:
         f = getattr(_kernels.load("flash_attention"),
                     f"mxt_flash_attention_{direction}")
+        common = [_I] * 5 + [_F] + [_I] * 6 + [_F, _F, _U, _I]
         if direction == "fwd":
-            f.argtypes = [_P] * 7 + [_I] * 5 + [_F, _I, _I, _I, _F, _F, _U,
-                                                _I, _I, _I, _I, _P]
+            f.argtypes = [_P] * 7 + common + [_I, _I, _I, _P]
         else:
-            f.argtypes = [_P] * 14 + [_I] * 5 + [_F, _I, _I, _I, _F, _F,
-                                                 _U, _I, _I, _I, _P]
+            f.argtypes = [_P] * 14 + common + [_I, _I, _P]
         f.restype = _I
         _fns[direction] = f
     return f
 
 
-def _check(q, k, v, bias3, seed, rate, per_row):
-    B, H, lq, D = q.shape
+def _check(q, k, v, bias3, seed, rate, per_row, lq):
+    """The kernels' operands: q (B, G, R, D) with R = rep * lq rows (the
+    fold; R = lq without it), k/v (B, G, Lk, D), a bias of lq rows."""
+    B, H, R, D = q.shape
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise MXNetError(f"flash_attention kernel takes float32 or bfloat16, "
                          f"got {q.dtype}")
@@ -445,6 +464,8 @@ def _check(q, k, v, bias3, seed, rate, per_row):
     if k.shape != v.shape or k.shape[:2] != (B, H) or k.shape[3] != D:
         raise MXNetError(f"k and v must be ({B}, {H}, Lk, {D}); got "
                          f"{tuple(k.shape)} and {tuple(v.shape)}")
+    if lq < 1 or R % lq:
+        raise MXNetError(f"{R} query rows are not a fold of length {lq}")
     if not 1 <= D <= MAX_HEAD_DIM:
         raise MXNetError(f"flash_attention kernel takes head_dim <= "
                          f"{MAX_HEAD_DIM}, got {D}")
@@ -468,14 +489,20 @@ def _check(q, k, v, bias3, seed, rate, per_row):
                              f"{name}")
 
 
-def _common_args(q, k, bias3, scale, causal, rate, per_head, per_row):
-    B, H, lq, D = q.shape
+# a window past this reaches every key (the kernels' `NO_EDGE`)
+_NO_EDGE = 1 << 30
+
+
+def _common_args(q, k, bias3, scale, causal, rate, per_head, per_row,
+                 window, window_symmetric, lq):
+    B, H, R, D = q.shape
     mode = 0 if bias3 is None else (2 if per_row else 1)
     thresh = min(2 ** 32 - 1, int(rate * 4294967296.0)) if rate > 0 else 0
     inv = 1.0 / (1.0 - rate) if rate > 0 else 1.0
-    return [B * H, H, lq, k.shape[2], D, float(scale), int(causal), mode,
-            int(bool(per_head)), float(rate), inv, thresh,
-            int(q.dtype == torch.bfloat16)]
+    win = -1 if window is None else min(int(window), _NO_EDGE)
+    return [B * H, H, R, k.shape[2], D, float(scale), int(causal), win,
+            int(bool(window_symmetric)), lq, mode, int(bool(per_head)),
+            float(rate), inv, thresh, int(q.dtype == torch.bfloat16)]
 
 
 def _ptr(t):
@@ -483,22 +510,28 @@ def _ptr(t):
 
 
 def _flash_fwd_cuda(q, k, v, bias3, seed, scale, causal, rate, per_head,
-                    per_row, plan: Optional[FwdPlan] = None):
+                    per_row, plan: Optional[FwdPlan] = None, window=None,
+                    window_symmetric=True, lq=None):
     """Check the operands, then launch the forward kernel on the current
     stream with `plan` (default: `_planned_fwd` for the shape); returns
-    (out, lse (B * H, Lq) f32)."""
-    _check(q, k, v, bias3, seed, rate, per_row)
-    B, H, lq, D = q.shape
+    (out, lse (B * G, R) f32).  q is (B, G, R, D), its rows folded from
+    R // lq query heads a kv head when `lq` < R (`flash_fwd_reference`'s
+    layout)."""
+    B, G, R, D = q.shape
+    lq = R if lq is None else lq
+    _check(q, k, v, bias3, seed, rate, per_row, lq)
     out = torch.empty_like(q)
-    lse = torch.empty((B * H, lq), dtype=torch.float32, device=q.device)
+    lse = torch.empty((B * G, R), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse.zero_()
     if plan is None:
-        plan = _planned_fwd(B, H, lq, k.shape[2], D, q.dtype, q.device)
+        plan = _planned_fwd(B, G * (R // lq), lq, k.shape[2], D, q.dtype,
+                            q.device, kv_heads=G)
     err = _kernel_fn("fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias3),
         _ptr(seed) if rate > 0 else None, out.data_ptr(), lse.data_ptr(),
-        *_common_args(q, k, bias3, scale, causal, rate, per_head, per_row),
+        *_common_args(q, k, bias3, scale, causal, rate, per_head, per_row,
+                      window, window_symmetric, lq),
         plan.bq, plan.bk, plan.grid,
         torch._C._cuda_getCurrentRawStream(q.device.index))
     if err:
@@ -509,32 +542,40 @@ def _flash_fwd_cuda(q, k, v, bias3, seed, scale, causal, rate, per_head,
 
 
 def _flash_bwd_cuda(q, k, v, bias3, seed, o, lse, g, scale, causal, rate,
-                    per_head, per_row, plan: Optional[BwdPlan] = None):
+                    per_head, per_row, plan: Optional[BwdPlan] = None,
+                    window=None, window_symmetric=True, lq=None):
     """Check the operands, then launch the backward (the di row pass and
     the key-tile kernel) on the current stream with `plan` (default:
-    `_bwd_plan` for the shape); returns (dq, dk, dv)."""
-    _check(q, k, v, bias3, seed, rate, per_row)
+    `_bwd_plan` for the shape); returns (dq, dk, dv).  The layout is
+    `_flash_fwd_cuda`'s."""
+    B, G, R, D = q.shape
+    lq = R if lq is None else lq
+    _check(q, k, v, bias3, seed, rate, per_row, lq)
     for name, t in (("o", o), ("dout", g)):
         if t.shape != q.shape or t.dtype != q.dtype or \
                 not t.is_contiguous() or t.device != q.device:
             raise MXNetError(f"{name} must be a contiguous {q.dtype} "
                              f"{tuple(q.shape)} on {q.device}")
-    B, H, lq, D = q.shape
     lk = k.shape[2]
-    if lse.dtype != torch.float32 or tuple(lse.shape) != (B * H, lq) or \
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (B * G, R) or \
             not lse.is_contiguous():
-        raise MXNetError(f"lse must be contiguous f32 ({B * H}, {lq})")
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        raise MXNetError(f"lse must be contiguous f32 ({B * G}, {R})")
+    # rows whose band holds no key (positions past lk - 1 + window) are
+    # visited by no key tile: their dQ is zero, written here
+    unseen = window is not None and lq - 1 - window > lk - 1
+    dq = torch.zeros_like(q) if unseen else torch.empty_like(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     dev = q.device
     if plan is None:
-        plan = _bwd_plan(B, H, lq, lk, D, q.dtype, _kernels.sm_count(dev))
+        plan = _bwd_plan(B, G * (R // lq), lq, lk, D, q.dtype,
+                         _kernels.sm_count(dev), kv_heads=G)
     # the raw handle, without building a torch.cuda.Stream each call
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
     tickets, ws, di = _kernels.stream_scratch(_scratch_of, dev, stream,
                                               plan.tickets, plan.workspace,
-                                              B * H * lq)
+                                              B * G * R)
     split = plan.key_tiles > 1
     err = _kernel_fn("bwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias3),
@@ -542,7 +583,8 @@ def _flash_bwd_cuda(q, k, v, bias3, seed, o, lse, g, scale, causal, rate,
         g.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), ws.data_ptr() if split else None,
         tickets.data_ptr() if split else None,
-        *_common_args(q, k, bias3, scale, causal, rate, per_head, per_row),
+        *_common_args(q, k, bias3, scale, causal, rate, per_head, per_row,
+                      window, window_symmetric, lq),
         plan.bk, plan.grid, stream)
     if err:
         raise MXNetError(f"flash_attention backward kernel launch failed "
@@ -564,11 +606,13 @@ class _FlashAttention(torch.autograd.Function):
                 per_row, window, window_symmetric, lq, use_kernel, blocks):
         if use_kernel:
             q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-            B, H, Lq, D = q.shape
-            plan = _planned_fwd(B, H, Lq, k.shape[2], D, q.dtype, q.device,
-                                *blocks)
+            B, G, R, D = q.shape
+            # the blocks resolve on the unfolded shape, as in JAX
+            plan = _planned_fwd(B, G * (R // lq), lq, k.shape[2], D,
+                                q.dtype, q.device, *blocks, kv_heads=G)
             o, lse = _flash_fwd_cuda(q, k, v, bias3, seed, scale, causal,
-                                     rate, per_head, per_row, plan)
+                                     rate, per_head, per_row, plan, window,
+                                     window_symmetric, lq)
         else:
             o, lse = flash_fwd_reference(q, k, v, bias3, seed, scale, causal,
                                          rate, per_head, per_row, window,
@@ -586,7 +630,8 @@ class _FlashAttention(torch.autograd.Function):
         if use_kernel:
             dq, dk, dv = _flash_bwd_cuda(q, k, v, bias3, seed, o, lse,
                                          g.contiguous(), scale, causal, rate,
-                                         per_head, per_row)
+                                         per_head, per_row, None, window,
+                                         window_symmetric, lq)
         else:
             dq, dk, dv = flash_bwd_reference(q, k, v, bias3, seed, o, lse, g,
                                              scale, causal, rate, per_head,
@@ -615,11 +660,11 @@ def flash_attention(q, k, v, causal=False, scale=None, block_q=None,
     the seed.  `window=w` keeps keys within w positions of the query
     ([q-w, q+w] when `window_symmetric` and not causal, else [q-w, q]).
     k/v may carry g < H heads (grouped-query attention, H % g == 0): the
-    H // g query heads sharing a kv head are folded onto the row axis.
+    H // g query heads sharing a kv head are folded onto the row axis, and
+    K/V stay at g heads (a per-head bias expands them, as in JAX).
 
-    A CUDA tensor launches the kernels, and raises on a window or grouped
-    K/V, which they do not take yet; a CPU tensor runs the plain
-    versions."""
+    A CUDA tensor launches the kernels (they skip the key tiles outside
+    the window's band); a CPU tensor runs the plain versions."""
     return _attend(q, k, v, causal, scale, bias, dropout_rate, dropout_seed,
                    window, window_symmetric, q.device.type == "cuda",
                    (block_q, block_k))
@@ -650,11 +695,8 @@ def _attend(q, k, v, causal, scale, bias, dropout_rate, dropout_seed, window,
     if q.device.type not in ("cuda", "cpu"):
         raise MXNetError(f"flash_attention runs on cuda or cpu, not "
                          f"{q.device}")
-    if use_kernel and (window is not None or g != h):
-        raise MXNetError(
-            "flash_attention: the CUDA kernel does not take "
-            f"{'a sliding window' if window is not None else 'grouped K/V heads'}"
-            " yet; it is still to port (ROADMAP.md)")
+    if window is not None and int(window) < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
     bias3, per_head, per_row = None, False, False
     if bias is not None:
         bias3, per_head, per_row = normalize_bias(bias, b, h, lq, lk)

@@ -43,15 +43,15 @@ def _jax_params(block):
     return {k: p.data().asnumpy() for k, p in block.collect_params().items()}
 
 
-def _pair(dtype="float32"):
+def _pair(dtype="float32", **kw):
     mx.random.seed(0)
-    jm = jbert.BertForPretraining(jbert.BertConfig(dtype=dtype, **SMALL))
+    cfg = dict(SMALL, dtype=dtype, **kw)
+    jm = jbert.BertForPretraining(jbert.BertConfig(**cfg))
     jm.initialize(mx.init.Normal(0.2))
     ids, vl, mp, types, _ = _batch()
     jm(mx.np.array(ids), valid_length=mx.np.array(vl),
        masked_positions=mx.np.array(mp))                 # deferred shapes
-    tm = tbert.BertForPretraining(tbert.BertConfig(dtype=dtype, **SMALL),
-                                  device="cpu")
+    tm = tbert.BertForPretraining(tbert.BertConfig(**cfg), device="cpu")
     load_jax_params(tm, _jax_params(jm), device="cpu")
     tm.eval()
     return jm, tm
@@ -84,7 +84,34 @@ def test_logits_match(interpret):
 
 
 def test_every_gradient_of_the_mlm_loss_matches(interpret):
-    jm, tm = _pair()
+    _check_mlm_gradients(*_pair())
+
+
+def test_windowed_bert_logits_and_gradients_match(interpret):
+    """``BertConfig(window=2)``: the symmetric band [q - 2, q + 2] beside
+    the padding of ``valid_length``, through the flash kernel's plain
+    version, against JAX's windowed BERT (its Pallas kernel, interpreted)."""
+    jm, tm = _pair(window=2)
+    ids, vl, mp, types, _ = _batch()
+    jmlm, jnsp = jm(mx.np.array(ids), valid_length=mx.np.array(vl),
+                    token_types=mx.np.array(types))
+    with torch.no_grad():
+        tmlm, tnsp = tm(torch.from_numpy(ids),
+                        valid_length=torch.from_numpy(vl),
+                        token_types=torch.from_numpy(types))
+    np.testing.assert_allclose(tmlm.numpy(), jmlm.asnumpy(), **TOL)
+    np.testing.assert_allclose(tnsp.numpy(), jnsp.asnumpy(), **TOL)
+    # the band changes the answer: full attention lands elsewhere
+    _, full = _pair()
+    with torch.no_grad():
+        fmlm, _ = full(torch.from_numpy(ids),
+                       valid_length=torch.from_numpy(vl),
+                       token_types=torch.from_numpy(types))
+    assert not np.allclose(fmlm.numpy(), tmlm.numpy(), atol=1e-3)
+    _check_mlm_gradients(jm, tm)
+
+
+def _check_mlm_gradients(jm, tm):
     ids, vl, mp, _, lab = _batch()
     with mx.autograd.record():
         jmlm, _ = jm(mx.np.array(ids), valid_length=mx.np.array(vl),
@@ -198,11 +225,12 @@ def test_flops_per_token_matches_jax():
 
 
 def test_unported_options_raise():
+    # a window runs now (the flash kernels take the band); a sequence past
+    # max_position still raises
     ids = torch.zeros(1, 8, dtype=torch.int64)
     m = tbert.BertForPretraining(tbert.BertConfig(**dict(SMALL, window=4)),
                                  device="cpu")
-    with pytest.raises(MXNetError, match="not ported"):
-        m(ids)
+    assert m(ids)[0].shape == (1, 8, SMALL["vocab_size"])
     m = tbert.BertForPretraining(tbert.BertConfig(**SMALL), device="cpu")
     with pytest.raises(MXNetError, match="max_position"):
         m(torch.zeros(1, 33, dtype=torch.int64))

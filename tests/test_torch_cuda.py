@@ -4,8 +4,11 @@ one page a split, pages 8, 24 and 128, D 64 and 128, empty slots,
 windows, two streams, two calls bit-equal), the dequant-matmul (every plan of its menu, odd
 shapes, the tied head, two calls bit-equal), flash attention (forward and
 backward, with padding or per-row bias, causal, dropout, ragged L and
-D up to 128; the forward at every (block_q, block_k) of its tuner's menu,
-unaligned operands, two calls and two streams bit-equal, masked rows
+D up to 128, under windows of 3 and 64 keys each way and with 1, 3 or 4
+query heads folded onto each kv head's rows, a dQ ticket over a middle
+range of key tiles, rows past every key's band, a windowed BERT against
+its plain attention; the forward at every (block_q, block_k) of its
+tuner's menu, unaligned operands, two calls and two streams bit-equal, masked rows
 exactly zero with lse 0, and its tunable's trials; the backward at both
 key tiles, two calls and two streams bit-equal, masked rows and keys
 exactly zero), the streaming
@@ -287,13 +290,16 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(card):
         qm._qmm_cuda(torch.randn(8, 2, device=card).T, qt)
 
 
-def _flash_case(card, dtype, B, H, Lq, Lk, D, bias_kind, causal, rate):
+def _flash_case(card, dtype, B, H, Lq, Lk, D, bias_kind, causal, rate,
+                window=None, symmetric=True, rep=1):
     """The dispatcher's output and gradients (kernels, through autograd)
-    and those of the plain versions called by name on the same inputs."""
+    and those of the plain versions (`flash_attention_reference`) on the
+    same inputs; ``rep`` query heads share each of H // rep kv heads."""
     from mxnet_tpu_torch.ops import flash_attention as fa
     g = torch.Generator().manual_seed(2)
+    G = H // rep
     q, k, v, do = (torch.randn(*s, generator=g).to(card, dtype)
-                   for s in ((B, H, Lq, D), (B, H, Lk, D), (B, H, Lk, D),
+                   for s in ((B, H, Lq, D), (B, G, Lk, D), (B, G, Lk, D),
                              (B, H, Lq, D)))
     bias = None
     if bias_kind == "pad":
@@ -304,19 +310,22 @@ def _flash_case(card, dtype, B, H, Lq, Lk, D, bias_kind, causal, rate):
         bias = torch.randn(B, Lq, Lk, generator=g).to(card)
         bias[0, :3] = fa.MASK_VALUE                 # fully masked rows
     seed = torch.tensor([12345], dtype=torch.int32, device=card)
-    qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
-    o = fa.flash_attention(qq, kk, vv, causal=causal, bias=bias,
-                           dropout_rate=rate, dropout_seed=seed)
-    o.backward(do)
-    got = [o.detach()] + [t.grad for t in (qq, kk, vv)]
-    bias3, per_head, per_row = (None, False, False) if bias is None \
-        else fa.normalize_bias(bias, B, H, Lq, Lk)
-    tail = (D ** -0.5, causal, rate, per_head, per_row)
-    o_ref, lse = fa.flash_fwd_reference(q, k, v, bias3, seed, *tail)
-    want = [o_ref] + list(fa.flash_bwd_reference(q, k, v, bias3, seed,
-                                                 o_ref, lse, do, *tail))
+    out = []
+    for flash in (fa.flash_attention, fa.flash_attention_reference):
+        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+        o = flash(qq, kk, vv, causal=causal, bias=bias, dropout_rate=rate,
+                  dropout_seed=seed, window=window,
+                  window_symmetric=symmetric)
+        o.backward(do)
+        out.append([o.detach()] + [t.grad for t in (qq, kk, vv)])
     torch.cuda.synchronize()
-    return got, want
+    return out
+
+
+# (window, symmetric): none, and windows of 3 and 64 keys each way (the
+# symmetric band [q - w, q + w] only without causal)
+FLASH_WINDOWS = [(None, True), (3, True), (3, False), (64, True),
+                 (64, False)]
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
@@ -326,11 +335,17 @@ def _flash_case(card, dtype, B, H, Lq, Lk, D, bias_kind, causal, rate):
     (40, 100, 32, "row", False, 0.0), (130, 65, 128, "pad", False, 0.2),
     (200, 300, 64, "pad", False, 0.1), (257, 257, 128, "none", True, 0.0),
     (96, 96, 32, "row", False, 0.1)])
+@pytest.mark.parametrize("window,symmetric", FLASH_WINDOWS)
+@pytest.mark.parametrize("rep", [1, 3, 4])
 def test_flash_attention_kernels_match_plain(card, dtype, tol, Lq, Lk, D,
-                                             bias_kind, causal, rate):
+                                             bias_kind, causal, rate, window,
+                                             symmetric, rep):
+    """Through the dispatcher and autograd, against the plain versions:
+    3 kv heads shared by ``rep`` query heads each (folded rows that
+    straddle two heads in a q tile where Lq is not a multiple of it)."""
     kernels.reset_launch_counts()
-    got, want = _flash_case(card, dtype, 2, 3, Lq, Lk, D, bias_kind, causal,
-                            rate)
+    got, want = _flash_case(card, dtype, 2, 3 * rep, Lq, Lk, D, bias_kind,
+                            causal, rate, window, symmetric, rep)
     counts = kernels.launch_counts()
     assert counts["flash_attention_fwd"] == 1
     assert counts["flash_attention_bwd"] == 1
@@ -340,14 +355,16 @@ def test_flash_attention_kernels_match_plain(card, dtype, tol, Lq, Lk, D,
 
 
 def _flash_bwd_inputs(card, dtype, B, H, Lq, Lk, D, bias_kind, causal, rate,
-                      seed=3):
+                      seed=3, window=None, symmetric=True, rep=1):
     """Seeded operands of one backward call and its plain version's
-    (dq, dk, dv): q, k, v, bias3, seed, o, lse, dout and the flags."""
+    (dq, dk, dv): q, k, v, bias3, seed, o, lse, dout and the flags, then
+    the keywords (window, its symmetry, lq).  H kv heads, each shared by
+    ``rep`` query heads folded onto its rows (q is (B, H, rep * Lq, D))."""
     from mxnet_tpu_torch.ops import flash_attention as fa
     g = torch.Generator().manual_seed(seed)
     q, k, v, do = (torch.randn(*s, generator=g).to(card, dtype)
-                   for s in ((B, H, Lq, D), (B, H, Lk, D), (B, H, Lk, D),
-                             (B, H, Lq, D)))
+                   for s in ((B, H, rep * Lq, D), (B, H, Lk, D),
+                             (B, H, Lk, D), (B, H, rep * Lq, D)))
     bias = None
     if bias_kind == "pad":
         vl = torch.randint(1, Lk + 1, (B,), generator=g)
@@ -357,12 +374,13 @@ def _flash_bwd_inputs(card, dtype, B, H, Lq, Lk, D, bias_kind, causal, rate,
         bias = torch.randn(B, Lq, Lk, generator=g).to(card)
         bias[0, :3] = fa.MASK_VALUE                 # fully masked rows
     bias3, per_head, per_row = (None, False, False) if bias is None \
-        else fa.normalize_bias(bias, B, H, Lq, Lk)
+        else fa.normalize_bias(bias, B, H * rep, Lq, Lk)
     sd = torch.tensor([777], dtype=torch.int32, device=card)
     flags = (D ** -0.5, causal, rate, per_head, per_row)
-    o, lse = fa.flash_fwd_reference(q, k, v, bias3, sd, *flags)
+    kw = dict(window=window, window_symmetric=symmetric, lq=Lq)
+    o, lse = fa.flash_fwd_reference(q, k, v, bias3, sd, *flags, **kw)
     args = (q, k, v, bias3, sd, o, lse, do) + flags
-    return args, fa.flash_bwd_reference(*args)
+    return args, kw, fa.flash_bwd_reference(*args, **kw)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
@@ -375,20 +393,26 @@ def _flash_bwd_inputs(card, dtype, B, H, Lq, Lk, D, bias_kind, causal, rate,
     (2, 2, 96, 150, 32, "row", False, 0.0),
     (2, 2, 70, 33, 80, "none", False, 0.0),
     (1, 2, 45, 70, 33, "pad", True, 0.1)])
+@pytest.mark.parametrize("window,symmetric", FLASH_WINDOWS)
+@pytest.mark.parametrize("rep", [1, 3, 4])
 def test_flash_backward_every_key_tile_is_right_and_repeatable(
-        card, dtype, tol, bk, B, H, Lq, Lk, D, bias_kind, causal, rate):
+        card, dtype, tol, bk, B, H, Lq, Lk, D, bias_kind, causal, rate,
+        window, symmetric, rep):
     """Both key tiles (one tile a head: dQ written by the block; several:
     partials summed by the last to arrive) against the plain version, two
     calls bit-equal, and in bf16 a grid of three persistent blocks giving
-    the same bits."""
+    the same bits; under a window and with ``rep`` query heads folded onto
+    each of the H kv heads' rows."""
     from mxnet_tpu_torch.ops import flash_attention as fa
-    args, want = _flash_bwd_inputs(card, dtype, B, H, Lq, Lk, D, bias_kind,
-                                   causal, rate)
-    plan = fa._bwd_plan(B, H, Lq, Lk, D, dtype, kernels.sm_count(card),
-                        bk=bk)
+    args, kw, want = _flash_bwd_inputs(card, dtype, B, H, Lq, Lk, D,
+                                       bias_kind, causal, rate,
+                                       window=window, symmetric=symmetric,
+                                       rep=rep)
+    plan = fa._bwd_plan(B, H * rep, Lq, Lk, D, dtype,
+                        kernels.sm_count(card), bk=bk, kv_heads=H)
     kernels.reset_launch_counts()
-    got = fa._flash_bwd_cuda(*args, plan=plan)
-    again = fa._flash_bwd_cuda(*args, plan=plan)
+    got = fa._flash_bwd_cuda(*args, plan=plan, **kw)
+    again = fa._flash_bwd_cuda(*args, plan=plan, **kw)
     torch.cuda.synchronize()
     assert kernels.launch_counts()["flash_attention_bwd"] == 2
     for name, a, a2, b in zip(("dq", "dk", "dv"), got, again, want):
@@ -399,7 +423,7 @@ def test_flash_backward_every_key_tile_is_right_and_repeatable(
         # three persistent blocks walk every item, the next one's loads in
         # flight (causal heads wider than Lq have items with no q tile):
         # the same bits
-        narrow = fa._flash_bwd_cuda(*args, plan=plan._replace(grid=3))
+        narrow = fa._flash_bwd_cuda(*args, plan=plan._replace(grid=3), **kw)
         assert all(torch.equal(a, b) for a, b in zip(narrow, got))
 
 
@@ -648,16 +672,108 @@ def test_flash_tune_launches_the_forward_and_warm_hits(card, tmp_path,
 
 
 def test_flash_attention_kernel_raises_on_what_it_does_not_take(card):
+    """Grouped K/V and a window launch the kernels (they raised before the
+    band and the fold were ported); a head over 128 wide still raises."""
     from mxnet_tpu_torch.ops import flash_attention as fa
     q = torch.zeros(1, 4, 8, 16, device=card)
     kv = torch.zeros(1, 2, 8, 16, device=card)
-    with pytest.raises(MXNetError, match="ROADMAP.md"):
-        fa.flash_attention(q, kv, kv)
-    with pytest.raises(MXNetError, match="ROADMAP.md"):
-        fa.flash_attention(q, q, q, window=2)
+    kernels.reset_launch_counts()
+    fa.flash_attention(q, kv, kv)
+    fa.flash_attention(q, q, q, window=2)
+    fa.flash_attention(q, kv, kv, causal=True, window=2)
+    assert kernels.launch_counts()["flash_attention_fwd"] == 3
     with pytest.raises(MXNetError, match="head_dim"):
         big = torch.zeros(1, 1, 8, 256, device=card)
         fa.flash_attention(big, big, big)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_flash_backward_middle_visitor_ranges_and_tickets_reset(card, dtype,
+                                                                 tol):
+    """Causal with a window of 100 over 512 rows and 1024 keys, 64-key
+    tiles: q tiles 3-7 are each visited by a strict middle range of key
+    tiles (neither tile 0 nor the last), so their dQ tickets count and sum
+    a range that starts past 0; keys 512-1023 are seen by no row.  Two
+    calls give the same bits and leave every ticket zeroed; within
+    tolerance of the plain version; unseen keys get exact zeros."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    args, kw, want = _flash_bwd_inputs(card, dtype, 2, 3, 512, 1024, 64,
+                                       "none", True, 0.1, window=100)
+    plan = fa._bwd_plan(2, 3, 512, 1024, 64, dtype, kernels.sm_count(card),
+                        bk=64)
+    assert (plan.key_tiles, plan.q_tiles) == (16, 8) and plan.tickets
+    firsts = [max(0, 64 * qt - 100) // 64 for qt in range(8)]
+    lasts = [(64 * qt + 63) // 64 for qt in range(8)]
+    assert all(0 < f and last < 15 for f, last in zip(firsts[3:], lasts[3:]))
+    got = fa._flash_bwd_cuda(*args, plan=plan, **kw)
+    again = fa._flash_bwd_cuda(*args, plan=plan, **kw)
+    torch.cuda.synchronize()
+    for name, a, a2, b in zip(("dq", "dk", "dv"), got, again, want):
+        assert torch.equal(a, a2), name
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= tol * float(b.float().abs().max()), name
+    assert not got[1][:, :, 512:].any() and not got[2][:, :, 512:].any()
+    stream = torch.cuda.current_stream(card).cuda_stream
+    tickets = fa._scratch_of[(card.index or 0, stream)][0]
+    assert int(tickets.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_windowed_rows_past_every_key_get_zero_dq(card, causal):
+    """Lq 300 over Lk 100 with a window of 20: rows past position 119 see
+    no key, so no key tile visits their q tiles; the wrapper zeroes their
+    dQ, the forward writes zeros with lse 0."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    args, kw, want = _flash_bwd_inputs(card, torch.float32, 1, 2, 300, 100,
+                                       64, "pad", causal, 0.0, window=20,
+                                       symmetric=True)
+    q, k, v, bias3, sd = args[:5]
+    o, lse = fa._flash_fwd_cuda(q, k, v, bias3, sd, *args[8:], window=20,
+                                window_symmetric=True, lq=300)
+    dq, dk, dv = fa._flash_bwd_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    assert not o[:, :, 120:].any() and not lse[:, 120:].any()
+    assert not dq[:, :, 120:].any() and dq[:, :, :100].any()
+    for a, b in zip((dq, dk, dv), want):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+def test_windowed_bert_on_the_card_matches_the_plain_attention(card):
+    """`BertForPretraining(window=32)` (2 layers, hidden 256, 4 heads, L 128
+    padded by ``valid_length``, dropout 0.1) forward and backward on the
+    card, against the same model whose attention runs the plain versions
+    (`multi_head_attention_reference`, i.e. `flash_attention_reference`)
+    from the same seed: the band and the padding inside one kernel."""
+    from mxnet_tpu_torch.models import bert as tbert
+    from mxnet_tpu_torch.models.layers import FusedSelfAttention
+    from mxnet_tpu_torch.ops.attention import multi_head_attention_reference
+    cfg = tbert.BertConfig(vocab_size=1000, hidden_size=256, num_layers=2,
+                           num_heads=4, intermediate_size=512,
+                           max_position=128, dropout=0.1, window=32)
+    g = torch.Generator().manual_seed(1)
+    ids = torch.randint(0, 1000, (4, 128), generator=g).to(card)
+    vl = torch.tensor([128, 90, 37, 113], device=card)
+    runs = []
+    for plain in (False, True):
+        m = tbert.BertForPretraining(cfg, device=card, seed=3)
+        if plain:
+            for mod in m.modules():
+                if isinstance(mod, FusedSelfAttention):
+                    mod.attend = multi_head_attention_reference
+        m.train()
+        kernels.reset_launch_counts()
+        mlm, nsp = m(ids, valid_length=vl)
+        (mlm.float().square().mean() + nsp.float().sum()).backward()
+        counts = kernels.launch_counts()
+        assert counts["flash_attention_fwd"] == (0 if plain else 2)
+        assert counts["flash_attention_bwd"] == (0 if plain else 2)
+        runs.append([mlm.detach()] + [p.grad for p in m.parameters()])
+    for a, b in zip(*runs):
+        if b is None:
+            continue
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= 1e-4 * max(float(b.float().abs().max()), 1e-30)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),

@@ -8,7 +8,15 @@ of 8, so it stays on the kernel path), enabled per test with
 ``monkeypatch``; the port runs its CPU dispatch, the plain versions of the
 CUDA kernels.  Tolerance: atol/rtol 1e-5 in float32 (same f32 arithmetic,
 different summation order); dropout keep masks are compared bit for bit.
+The CUDA kernels' tile walk under a window and the GQA fold is mirrored in
+plain Python (`_Walk`, its constants read from the ``.cu`` source) and
+held against the plain version's mask on cases drawn by hypothesis.
 """
+import pathlib
+import re
+
+import hypothesis as hyp
+import hypothesis.strategies as st
 import numpy as np
 import pytest
 import torch
@@ -320,12 +328,16 @@ def test_bwd_plan_at_bert_shape_is_one_key_tile(dtype):
 @pytest.mark.parametrize("D,dmax,bq", [(64, 64, 64), (128, 128, 32)])
 def test_bwd_plan_at_gpt2_shape_splits_keys(D, dmax, bq):
     # GPT-2 small's training attention: B 8, H 12, L 1024 -- eight 128-key
-    # tiles a head, each writing f32 dQ partials; one ticket a (bh, q tile)
+    # tiles a head, each writing f32 dQ partials; one ticket a (bh, q tile);
+    # one block an item in both dtypes (in bf16 the persistent walk of one
+    # block an SM balances the causal items' sizes worse: 1.64 ms against
+    # 0.72 on an H100)
     B, H, L = 8, 12, 1024
     p = tfa._bwd_plan(B, H, L, L, D, torch.float32, 132)
     assert (p.bk, p.dmax, p.bq, p.key_tiles) == (128, dmax, bq, 8)
     assert p.q_tiles == L // bq and p.blocks == p.grid == B * H * 8
-    assert tfa._bwd_plan(B, H, L, L, D, torch.bfloat16, 132).grid == 132
+    assert tfa._bwd_plan(B, H, L, L, D, torch.bfloat16, 132).grid == \
+        B * H * 8
     assert p.tickets == B * H * (L // bq)
     assert p.workspace == 8 * B * H * L * D
 
@@ -354,6 +366,216 @@ def test_bwd_plan_override_and_bad_tile():
     assert (p.key_tiles, p.tickets, p.workspace) == (1, 0, 0)
     with pytest.raises(MXNetError, match="key tile"):
         tfa._bwd_plan(2, 3, 100, 100, 64, torch.float32, 132, bk=32)
+
+
+def test_plans_count_items_under_the_fold():
+    # the slice's GPT: 12 query heads over 3 kv heads, L 1024 -- 8 x 3
+    # folded heads of 4 x 1024 rows; K/V tiles a folded head as unfolded
+    fwd = tfa._fwd_plan(8, 12, 1024, 1024, 64, torch.bfloat16, 64, 64,
+                        kv_heads=3)
+    assert fwd.items == 8 * 3 * (4 * 1024 // 64)
+    assert tfa._fwd_plan(8, 12, 1024, 1024, 64, torch.bfloat16, 64, 64
+                         ).items == 8 * 12 * 1024 // 64
+    bwd = tfa._bwd_plan(8, 12, 1024, 1024, 64, torch.bfloat16, 132,
+                        kv_heads=3)
+    assert (bwd.bk, bwd.key_tiles, bwd.q_tiles) == (128, 8, 4 * 1024 // 64)
+    assert bwd.blocks == bwd.grid == 8 * 3 * 8
+    assert bwd.tickets == 8 * 3 * 64
+    assert bwd.workspace == 8 * 8 * 12 * 1024 * 64     # as unfolded
+    # MQA: one folded head a batch row; a ragged fold rounds up its rows
+    p = tfa._bwd_plan(2, 12, 150, 260, 64, torch.bfloat16, 132, kv_heads=1)
+    assert (p.bk, p.key_tiles, p.q_tiles, p.blocks) == (64, 5, 29, 10)
+    assert p.grid == 10 and p.tickets == 2 * 29
+    # bf16 with one key tile a head keeps one persistent block an SM
+    assert tfa._bwd_plan(64, 12, 128, 128, 64, torch.bfloat16, 132,
+                         kv_heads=3).grid == 132
+    assert tfa._fwd_plan(2, 3, 150, 260, 64, torch.float32, 64, 64,
+                         kv_heads=1).items == 2 * -(-450 // 64)
+    # without the fold, kv_heads = H changes nothing
+    assert tfa._bwd_plan(8, 12, 1024, 1024, 64, torch.float32, 132,
+                         kv_heads=12) == tfa._bwd_plan(
+        8, 12, 1024, 1024, 64, torch.float32, 132)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' tile walk under a window and the fold, mirrored in Python:
+# which key tiles a forward item and warp step compute (and which steps
+# need no mask), which q tiles a backward key tile visits, and which key
+# tiles a dQ ticket waits for -- against the brute-force mask of `_scores`
+# ---------------------------------------------------------------------------
+
+_FA_CU = (pathlib.Path(tfa.__file__).resolve().parents[1] / "csrc"
+          / "flash_attention.cu").read_text()
+
+
+def _fa_const(pattern):
+    (v,) = re.findall(pattern, _FA_CU)
+    return v
+
+
+# a band edge that never binds, the forward warp's step of keys, and the
+# backward's q tile (64 rows for heads up to 64 wide, else 32)
+NO_EDGE = 1 << int(_fa_const(r"constexpr int NO_EDGE = 1 << (\d+);"))
+KC = int(_fa_const(r"constexpr int KC = (\d+);"))
+BWD_Q = tuple(int(x) for x in _fa_const(
+    r"static constexpr int v = DMAX <= 64 \? (\d+) : (\d+);"))
+
+
+class _Walk:
+    """`make_params`' band and the kernels' `pos_span` / `key_span`, the
+    forward's `tiles_of` and warp steps, the backward's `visitors` and
+    `next_q`, over R = rep * seg rows against Lk keys."""
+
+    def __init__(self, R, seg, Lk, causal, window, symmetric):
+        win = window is not None and window >= 0
+        self.R, self.seg, self.Lk = R, seg, Lk
+        self.lo = min(window, NO_EDGE) if win else NO_EDGE
+        self.hi = 0 if causal or (win and not symmetric) else (
+            min(window, NO_EDGE) if win else NO_EDGE)
+
+    def pos_span(self, r0, n):
+        p0 = r0 % self.seg
+        pe = p0 + min(n, self.R - r0) - 1
+        return (p0, pe) if pe < self.seg else (0, self.seg - 1)
+
+    def key_span(self, ps):
+        return max(0, ps[0] - self.lo), min(self.Lk - 1, ps[1] + self.hi)
+
+    def tiles(self, r0, n, bk):
+        first, last = self.key_span(self.pos_span(r0, n))
+        return (first // bk, last // bk) if first <= last else None
+
+    def fwd_steps(self, q0, bq, bk, warp):
+        """(kc, full) of every 64-key step warp `warp` of item q0 runs."""
+        tiles = self.tiles(q0, bq, bk) or (0, 0)
+        wr0 = q0 + 16 * warp
+        if wr0 >= self.R:
+            return []
+        wps = self.pos_span(wr0, 16)
+        steps = []
+        for kt in range(tiles[0], tiles[1] + 1):
+            for c0 in range(0, bk, KC):
+                kc = kt * bk + c0
+                if kc >= self.Lk or kc > wps[1] + self.hi:
+                    break
+                if kc + KC <= wps[0] - self.lo:
+                    continue
+                full = (kc + KC <= self.Lk and wr0 + 16 <= self.R
+                        and kc >= wps[1] - self.lo
+                        and kc + KC - 1 <= wps[0] + self.hi)
+                steps.append((kc, full))
+        return steps
+
+    def visitors(self, qt, bq, bk):
+        return self.tiles(qt * bq, bq, bk)
+
+    def bwd_walk(self, kt, bq, bk):
+        nqt = -(-self.R // bq)
+        out = []
+        for qt in range(nqt):           # `next_q`, one tile at a time
+            v = self.visitors(qt, bq, bk)
+            if v is not None and v[0] <= kt <= v[1]:
+                out.append(qt)
+        return out
+
+
+def _live(R, lq, Lk, causal, window, symmetric):
+    """The plain version's mask: True where row r may attend key c."""
+    s = tfa._scores(torch.zeros(1, 1, R, 1), torch.zeros(1, 1, Lk, 1), None,
+                    1.0, causal, False, window, symmetric, lq)
+    return (s[0, 0] > 0.5 * tfa.MASK_VALUE).numpy()
+
+
+def _runs(xs):
+    return sum(1 for i, x in enumerate(xs) if i == 0 or xs[i - 1] != x - 1)
+
+
+def _pos_of(r, seg):
+    """The kernels' `pos_of`: r % seg from the high half of r * seg_m,
+    corrected once each way (`make_params`' seg_m)."""
+    m = 0xFFFFFFFF if seg == 1 else ((1 << 32) + seg - 1) // seg
+    x = r - seg * ((r * m) >> 32)
+    x += seg if x < 0 else 0
+    return x - seg if x >= seg else x
+
+
+@pytest.mark.parametrize("seg", [1, 2, 3, 7, 64, 150, 1024, 4097, 65535,
+                                 1 << 20, (1 << 30) - 1])
+def test_kernel_position_division_is_the_remainder(seg):
+    rng = np.random.RandomState(seg % 1000)
+    rows = list(range(0, 300)) + [seg - 1, seg, seg + 1, 2 * seg - 1,
+                                  (1 << 31) - 1] + \
+        rng.randint(0, 1 << 31, 500).tolist()
+    assert all(_pos_of(r, seg) == r % seg for r in rows if r < 1 << 31)
+
+
+def test_walk_mirror_reads_the_kernel_constants():
+    assert NO_EDGE == tfa._NO_EDGE and KC == 64 and BWD_Q == (64, 32)
+
+
+@hyp.settings(max_examples=60, deadline=None, derandomize=True)
+@hyp.given(lq=st.integers(1, 300), lk=st.integers(1, 300),
+           window=st.one_of(st.none(), st.integers(0, 40)),
+           causal=st.booleans(), symmetric=st.booleans(),
+           rep=st.integers(1, 4),
+           fwd_tiles=st.sampled_from([(64, 64), (64, 128), (128, 64),
+                                      (128, 128)]),
+           bwd_tiles=st.sampled_from([(bq, bk) for bq in BWD_Q
+                                      for bk in tfa.BWD_KEY_TILES]))
+def test_kernel_tile_walk_covers_the_band_exactly(lq, lk, window, causal,
+                                                  symmetric, rep, fwd_tiles,
+                                                  bwd_tiles):
+    R = rep * lq
+    live = _live(R, lq, lk, causal, window, symmetric)
+    walk = _Walk(R, lq, lk, causal, window, symmetric)
+    # the forward: an item's key tiles span its live tiles, tight at both
+    # ends unless its rows straddle two head segments (then the span of
+    # every position's band, a superset); each warp's steps hold every live
+    # key of its rows, and a step run unmasked is live throughout
+    bq, bk = fwd_tiles
+    for q0 in range(0, R, bq):
+        cols = np.flatnonzero(live[q0:q0 + bq].any(0))
+        tiles = walk.tiles(q0, bq, bk)
+        if q0 % lq + min(bq, R - q0) > lq:
+            assert cols.size == 0 or (
+                tiles[0] <= cols[0] // bk and cols[-1] // bk <= tiles[1])
+        elif cols.size:
+            assert tiles == (cols[0] // bk, cols[-1] // bk)
+        else:
+            assert tiles is None
+        for warp in range(bq // 16):
+            rows = live[q0 + 16 * warp:q0 + 16 * warp + 16]
+            steps = walk.fwd_steps(q0, bq, bk, warp)
+            ran = np.zeros(lk, bool)
+            for kc, full in steps:
+                ran[kc:kc + KC] = True
+                if full:
+                    assert rows.shape == (16, lk) and kc + KC <= lk
+                    assert rows[:, kc:kc + KC].all()
+            assert not (rows.any(0) & ~ran).any()
+    # the backward: each key tile visits every q tile it has a live pair
+    # with; a q tile's ticket waits for exactly the key tiles that visit
+    # it, a range; a q tile no key tile visits has no live row, and the
+    # wrapper zeroes its dQ
+    bq, bk = bwd_tiles
+    nqt, nk = -(-R // bq), -(-lk // bk)
+    walks = [walk.bwd_walk(kt, bq, bk) for kt in range(nk)]
+    straddles = lq % bq and rep > 1        # a q tile may hold two segments
+    for qt in range(nqt):
+        v = walk.visitors(qt, bq, bk)
+        visiting = [kt for kt in range(nk) if qt in walks[kt]]
+        assert visiting == ([] if v is None else list(range(v[0], v[1] + 1)))
+        block = live[qt * bq:(qt + 1) * bq]
+        for kt in range(nk):
+            pair = block[:, kt * bk:(kt + 1) * bk].any()
+            assert qt in walks[kt] or not pair
+            if not straddles:
+                assert pair == (qt in walks[kt])
+        if v is None:
+            assert not block.any()
+            assert window is not None and lq - 1 - window > lk - 1
+    if not straddles:                      # one q-tile range a segment
+        assert all(_runs(w) <= rep for w in walks)
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,9 @@ the norms' reference math) and ``kernel`` (the fused norm and the
 multi-tensor optimizer; on the port's side the CUDA kernels' plain
 versions).
 
+The modern GPT (RoPE, 2 or 1 kv heads, a window of 4; hidden 64) runs the
+same checks through the flash kernels' folded, banded plain version.
+
 Tolerances: f32 logits, every gradient of the causal-LM loss, losses and
 weights after three `TrainStep` / five `Trainer` steps at atol/rtol 1e-4
 (a dozen products deep, summation order differs); remat against no remat
@@ -553,3 +556,79 @@ def test_bert_reads_the_remat_override(monkeypatch):
                                        atol=1e-7)
     assert jbert.BertConfig(remat="full").remat == \
         tbert.BertConfig(remat="full").remat
+
+
+# ---------------------------------------------------------------------------
+# the modern GPT: RoPE, grouped K/V and a sliding window (Mistral's scheme)
+# ---------------------------------------------------------------------------
+
+# hidden 64 over 4 heads of 16; a window of 4 keys inside the 12 positions
+MODERN = dict(hidden_size=64, rope=True, rope_theta=10000.0, window=4)
+
+
+@pytest.mark.parametrize("kv_heads", [2, 1])
+def test_modern_gpt_logits_and_every_gradient_match(route, kv_heads):
+    """GQA (2 kv heads) and MQA (1) with RoPE and a window of 4: the
+    folded, banded flash path's logits and every gradient of the causal-LM
+    loss against JAX's (its Pallas kernel, interpreted)."""
+    jm, tm = _pair(num_kv_heads=kv_heads, **MODERN)
+    ids, lab = _stream()
+    want = jm(mx.np.array(ids)).asnumpy()
+    with torch.no_grad():
+        got = tm(torch.from_numpy(ids))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    # the window binds: the same weights unwindowed answer otherwise
+    _, full = _pair(num_kv_heads=kv_heads, **dict(MODERN, window=None))
+    with torch.no_grad():
+        assert not np.allclose(full(torch.from_numpy(ids)).numpy(), want,
+                               atol=1e-3)
+    with autograd.record():
+        logits = jm(mx.np.array(ids))
+        jloss = jgluon.loss.SoftmaxCrossEntropyLoss()(
+            logits.reshape(-1, V), mx.np.array(lab).reshape(-1)).mean()
+    jloss.backward()
+    tloss = SoftmaxCrossEntropyLoss()(
+        tm(torch.from_numpy(ids)).reshape(-1, V),
+        torch.from_numpy(lab).reshape(-1)).mean()
+    tloss.backward()
+    np.testing.assert_allclose(tloss.item(), float(jloss.asnumpy()), **TOL)
+    jp = jm.collect_params()
+    assert tm.transformer.layers[0].attention.attn_qkv.weight.shape[0] == \
+        64 + 2 * 16 * kv_heads                # K/V at kv_heads heads
+    for name, p in tm.named_parameters():
+        want = jp[name].grad().asnumpy()
+        np.testing.assert_allclose(p.grad.numpy(), want, err_msg=name, **TOL)
+
+
+@pytest.mark.parametrize("kv_heads", [2, 1])
+def test_modern_gpt_three_adamw_train_steps_match_jax(route, kv_heads):
+    jm, tm = _pair(num_kv_heads=kv_heads, **MODERN)
+    kw = dict(learning_rate=3e-3, wd=0.1, epsilon=1e-6)
+    mesh = make_mesh({"dp": 1}, jax.devices()[:1])
+    jstep = make_sharded_train_step(jm, jopt.AdamW(**kw), _jax_loss, mesh,
+                                    num_model_args=1)
+    tstep = TrainStep(tm, AdamW(**kw), _torch_loss, num_model_args=1)
+    ids, lab = _stream()
+    jl = [float(jstep(mx.np.array(ids), mx.np.array(lab)))
+          for _ in range(3)]
+    tl = [float(tstep(ids, lab)) for _ in range(3)]
+    jstep.sync_params_to_block()
+    assert tstep._fused_opt_kernel == jstep._fused_opt_kernel == \
+        (route == "kernel")
+    np.testing.assert_allclose(tl, jl, **TOL)
+    assert tl[-1] < tl[0]
+    _assert_params_match(jm, tm)
+
+
+@pytest.mark.parametrize("kv_heads", [2, 1])
+def test_modern_gpt_generate_without_cache_equals_cached_and_jax(kv_heads):
+    """The uncached path runs the folded, windowed flash forward over the
+    whole context; the cached path the decode core's window; JAX's greedy
+    stream the same, token for token (prompts past the window)."""
+    jm, tm = _pair(num_kv_heads=kv_heads, **MODERN)
+    for prompt in PROMPTS:
+        p = np.array([prompt], np.int32)
+        slow = tm.generate(torch.from_numpy(p), 8, use_cache=False)
+        fast = tm.generate(torch.from_numpy(p), 8)
+        want = jm.generate(mx.np.array(p), max_new_tokens=8).asnumpy()
+        assert slow.tolist() == fast.tolist() == want.tolist()

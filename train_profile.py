@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Where a BERT-base pretraining step — or, with ``--moe``, a Switch-MoE
-training step, or with ``--gpt`` a GPT-2-small causal-LM step — of the
-PyTorch port spends its time, on the card.
+training step, or with ``--gpt`` a GPT-2-small causal-LM step, or with
+``--gpt-gqa`` the gpt_gqa phase's step — of the PyTorch port spends its
+time, on the card.
 
-    python3 train_profile.py [--moe | --gpt]
+    python3 train_profile.py [--moe | --gpt | --gpt-gqa]
                              [--out chiprun_out/train_profile.json]
 
 Builds full-width BERT-base (seeded random weights) and wraps it in
@@ -25,7 +26,8 @@ through the gluon ``Trainer`` in bf16, and the row gather is a class of
 its own.  With ``--gpt`` the runs are ``chip_smoke.py``'s gpt phase —
 ``gpt_small()`` at full width and depth on 8 x 1024 tokens, dropout 0.1,
 AdamW lr 3e-4, the default kernel route — through ``TrainStep`` in bf16
-and f32 without remat.  Needs a CUDA card.
+and f32 without remat; ``--gpt-gqa`` the same with ``chip_smoke.py``'s
+``GQA_ARCH`` (RoPE, 3 kv heads, window 256).  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -139,14 +141,17 @@ def main(argv=None) -> int:
                     help="profile the Switch-MoE step instead of BERT's")
     ap.add_argument("--gpt", action="store_true",
                     help="profile the GPT-2-small step instead of BERT's")
+    ap.add_argument("--gpt-gqa", action="store_true",
+                    help="profile the gpt_gqa phase's step instead")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("train_profile: needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    from chip_smoke import (bert_batch, bert_train_step, gpt_batch,
-                            gpt_train_step, moe_batch, pallas_mode)
+    from chip_smoke import (GQA_ARCH, bert_batch, bert_train_step,
+                            gpt_batch, gpt_train_step, moe_batch,
+                            pallas_mode)
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
 
     dev = torch.device("cuda", 0)
@@ -163,11 +168,13 @@ def main(argv=None) -> int:
             print(f"[{key}] {json.dumps(res)}", flush=True)
             del step
             torch.cuda.empty_cache()
-    for dtype in GPT_RUNS if args.gpt else ():
-        key = f"gpt_{dtype}_step"
+    gpt = args.gpt or args.gpt_gqa
+    for dtype in GPT_RUNS if gpt else ():
+        key = f"gpt{'_gqa' if args.gpt_gqa else ''}_{dtype}_step"
         batch = gpt_batch(dev, 50257)
         with pallas_mode("auto"):
-            _, step = gpt_train_step(dev, dtype)
+            _, step = gpt_train_step(
+                dev, dtype, arch=GQA_ARCH if args.gpt_gqa else None)
             step.warmup(*batch)
             for _ in range(3):
                 step.dispatch(*batch)
@@ -176,7 +183,7 @@ def main(argv=None) -> int:
         del step
         torch.cuda.empty_cache()
     batch = tuple(torch.from_numpy(a).to(dev) for a in bert_batch(30522))
-    for dtype, opt, route in () if args.moe or args.gpt else RUNS:
+    for dtype, opt, route in () if args.moe or gpt else RUNS:
         key = f"{dtype}_{opt.lower()}_{route}"
         with pallas_mode(route):
             step = bert_train_step(dev, dtype, opt=opt, route=route)
