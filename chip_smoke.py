@@ -4,12 +4,14 @@
     python3 chip_smoke.py [--out chiprun_out/chip_smoke.json]
 
 Builds the port's CUDA kernels from ``mxnet_tpu_torch/csrc`` and drives its
-five main paths: serving at full GPT-2-small width and depth (12 layers,
+main paths: serving at full GPT-2-small width and depth (12 layers,
 hidden 768, vocab 50257, seeded random weights), the BERT-base pretraining
 step at full width and depth, Switch-MoE training at switch-base-8's
 widths (hidden 768, FFN 3072, 8 experts) through `TrainStep` and the gluon
-`Trainer`, GPT-2-small causal-LM training at full width and depth, and the
-same with Mistral 7B's attention (RoPE, grouped K/V, a sliding window):
+`Trainer`, GPT-2-small causal-LM training at full width and depth, the
+same with Mistral 7B's attention (RoPE, grouped K/V, a sliding window),
+serving with speculative decoding and the prefix cache plus beam search,
+and the Transformer translation model (``transformer_base``):
 
 1. prints the card (name and power limit from ``nvidia-smi``) and the
    torch / CUDA versions;
@@ -17,8 +19,9 @@ same with Mistral 7B's attention (RoPE, grouped K/V, a sliding window):
    shapes — K1 ragged paged attention (f32/bf16, decode C=1 and prefill
    C=16, MHA and GQA rep 4, ragged context lengths with an empty slot and
    non-page-aligned lengths, with and without a window; f32 queries over a
-   bf16 pool at C=1 and C=16, MHA, held to the bf16 tolerance; each with
-   its launch plan) and K2 int8/int4 dequant-matmul (f32/bf16 activations, M
+   bf16 pool at C=1 and C=16, MHA, held to the bf16 tolerance; the
+   speculative verification width C=5, MHA and GQA, with two slots'
+   tables sharing a 7-page prefix; each with its launch plan) and K2 int8/int4 dequant-matmul (f32/bf16 activations, M
    in {8, 128}, the four GPT-2 projection shapes, and the tied head (8,
    50257, 768) at int8 f32) — two calls bit-equal, within max-abs 1e-4
    (f32) / 2e-2 (bf16) of the output scale, and times kernel, plain
@@ -58,15 +61,18 @@ same with Mistral 7B's attention (RoPE, grouped K/V, a sliding window):
    whose q tiles straddle two heads -- each through the kernels' wrappers
    against the plain versions, two calls bit-equal, the launches counted,
    timed beside SDPA (``enable_gqa``, the band and padding as a float mask)
-   and beside the bound of the pairs the band keeps;
+   and beside the bound of the pairs the band keeps; then the nmt phase's
+   three attentions (`FLASH_NMT_CASES`: the encoder's padded
+   self-attention with dropout, the decoder's causal one, cross-attention
+   with Lq 96 over Lk 128) the same way;
 7. (k4) the streaming softmax cross-entropy, forward and backward, against
    its plain version at (1280, 30522) in f32 and bf16, at the odd V 50257,
-   and at the gpt phase's logits (8192, 50257) in f32 and bf16, timed
-   against ``cross_entropy(x.float(), y)``;
+   at the gpt phase's logits (8192, 50257) and the nmt phase's (3072,
+   32000) in f32 and bf16, timed against ``cross_entropy(x.float(), y)``;
 8. (k5) the fused LayerNorm / RMSNorm row kernel, with and without a
    residual, against its plain version in f32 and bf16 (f32 gamma and
    beta, as BERT keeps them) at (8192, 768) and (1280, 768) — the step's
-   norms — and (37, 200), within 1e-4 / 2e-2 of the output scale, two
+   norms — (37, 200) and the nmt phase's (4096, 512), within 1e-4 / 2e-2 of the output scale, two
    calls bit-equal, each case's launch plan and its source recorded;
    timed (also device-only, and the host µs a call) against
    ``F.layer_norm`` / ``F.rms_norm`` with the parameters cast to x's
@@ -85,6 +91,8 @@ same with Mistral 7B's attention (RoPE, grouped K/V, a sliding window):
    beside ``torch._fused_adam_`` / ``_fused_adamw_`` /
    ``_fused_sgd_`` over the same tensors as the nearest library call
    (torch's Adam puts epsilon after the bias correction, MXNet's before);
+   then AdamW over GPT-2 small's parameters and Adam over
+   ``transformer_base``'s;
 10. (train) ``bench.py``'s BERT-base pretraining step (batch 64 x 128, 20
    masked positions, padded by ``valid_length``, dropout 0.1) through
    ``TrainStep`` for 20 steps on the default kernel route
@@ -183,6 +191,38 @@ same with Mistral 7B's attention (RoPE, grouped K/V, a sliding window):
    serves (streams equal to the plain engine's) and four prompts through
    ``generate(use_cache=False)`` (the folded windowed flash forward over
    the whole context) equal to the cached stream.
+16. (spec_prefix) ``gpt_small(dropout=0.0)`` in f32 served through
+   ``ServeConfig(max_slots=8, max_len=512, page_size=16, prefill_chunk=16,
+   spec_tokens=4, prefix_cache=True)``: one primer request (a 100-token
+   prefix) run to idle, then 16 greedy requests extending it with
+   distinct periodic suffixes of 8-64 tokens and 2 sampled ones
+   (temperature 1.0), 32 new tokens each, arriving as in phase 3.  K1
+   launches 12 times a fused step, verify-width (C=5) steps among them;
+   the accept rate, prefix hits and COW forks are above 0; the sampled
+   slots draft nothing; after ``drain()`` and ``prefix_index.clear()``
+   every page is free.  The greedy streams are held, near ties aside, to
+   the same engine with neither feature and to the plain engine with
+   both; a planted fault (``copy_page`` a no-op) must change a stream.
+   The same drive with speculation alone, the cache alone and neither
+   gives tokens/s with speculation on and off and TTFT with the cache on
+   and off.  Then ``generate(num_beams=4, eos_token_id=...)`` on two
+   32-token prompts, 16 new tokens, equal to the same call on a CPU copy
+   of the model, or apart only where the two winners' length-normalised
+   scores (one ``forward``) are within 1e-4.
+17. (nmt) ``transformer_base()`` (Vaswani et al. 2017, Table 3 "base":
+   d_model 512, 6 + 6 layers, 8 heads, d_ff 2048, vocabularies 32000;
+   pre-LN; seed 0, dropout 0.1) on a seeded batch of 32 sources of 128
+   tokens padded by ``src_valid_length`` (64-128) and 96 target tokens:
+   20 Adam steps (lr 1e-4) through ``TrainStep`` in f32 and bf16, each
+   trajectory held to the plain route's within `nmt_tol` (the larger of
+   `traj_tol` and ten one-ulp floors measured in the same call: the run
+   is chaotic even in f32), a planted fault (the decoder's self-attention
+   non-causal) departing by more; flash 18 + 18 launches a
+   step (encoder, decoder causal, cross-attention), the norm 32, the
+   cross-entropy 1 + 1, the chunk once per dtype group; then
+   ``greedy_translate(max_len=32)`` of 8 sources against the plain route,
+   near ties aside.  Prints step ms, target tokens/s and TFLOP/s from
+   `nmt_flops_per_step`.
 
 Every count is reset just before a run it reports and read just after.
 The last three stdout lines are the ``nvidia-smi`` card line, the
@@ -318,13 +358,17 @@ def bound(nbytes, flops, dtype):
 # (a bf16 model's serving step: f32 activations after the first LayerNorm)
 K1_TYPES = (("float32", "float32"), ("bfloat16", "bfloat16"),
             ("float32", "bfloat16"))
+K1_VERIFY_C = 5       # spec_prefix's verification width, spec_tokens 4 + 1
 
 
 def k1_cases(dev):
     """K1 at the main path's shapes: 8 slots, 12 heads, D 64, page 16, a
     257-page pool, 32 table entries per slot (max_len 512); f32 queries
     over a bf16 pool at GPT-2's MHA, no window, held to the bf16
-    tolerance."""
+    tolerance; and the spec_prefix phase's verification width C = 5
+    (`K1_VERIFY_C`), f32 and bf16, MHA and GQA rep 4, where slot 4's table
+    shares its first 7 pages with slot 2's (a cached prefix attached to
+    two sequences), so the bound counts each shared K/V row once."""
     import numpy as np
     import torch
     from mxnet_tpu_torch.ops import paged_attention as pa
@@ -337,20 +381,23 @@ def k1_cases(dev):
     for dtype, pool in K1_TYPES:
         dt, pdt = getattr(torch, dtype), getattr(torch, pool)
         mixed = pool != dtype
-        for C in (1, 16):
+        for C in (1, 16) if mixed else (1, K1_VERIFY_C, 16):
             nt = np.array([C, C, min(C, 5), C, 1, 0, C, C], np.int32)
             ctx = start + nt
+            verify = C == K1_VERIFY_C
             for Hkv in (12,) if mixed else (12, 3):
-                for window in (None,) if mixed else (None, 64):
+                for window in (None,) if mixed or verify else (None, 64):
                     q = torch.from_numpy(rng.randn(B, H, C, D).astype(
                         np.float32)).to(dev, dt)
                     kp = torch.from_numpy(rng.randn(npages, ps, Hkv, D)
                                           .astype(np.float32)).to(dev, pdt)
                     vp = torch.from_numpy(rng.randn(npages, ps, Hkv, D)
                                           .astype(np.float32)).to(dev, pdt)
-                    pt = torch.from_numpy((rng.permutation(npages - 1)
-                                           + 1).reshape(B, maxp)
-                                          .astype(np.int32)).to(dev)
+                    pt_np = (rng.permutation(npages - 1) + 1).reshape(
+                        B, maxp).astype(np.int32)
+                    if verify:
+                        pt_np[4, :7] = pt_np[2, :7]    # a shared prefix
+                    pt = torch.from_numpy(pt_np).to(dev)
                     ctx_t = torch.from_numpy(ctx).to(dev)
                     st_t = torch.from_numpy(start).to(dev)
                     args = (q, kp, vp, pt, ctx_t, st_t)
@@ -389,7 +436,8 @@ def k1_cases(dev):
                     plan = pa._plan(B, H, Hkv, C, D, ps, maxp, pdt,
                                     pa._kernels.sm_count(q.device))
                     case = dict(dtype=dtype, pool_dtype=pool, C=C, Hkv=Hkv,
-                                window=window, plan=dict(plan._asdict()),
+                                window=window, shared_pages=7 if verify
+                                else 0, plan=dict(plan._asdict()),
                                 max_abs_err=err, out_scale=scale,
                                 tol=TOL[pool] * scale,
                                 bit_equal_calls=bool(torch.equal(got,
@@ -415,12 +463,15 @@ def k1_cases(dev):
                                                         device_only=True)
                     case["library_host_us"] = host_us(lib)
                     case["vs_library"] = case["ms"] / case["library_ms"]
-                    # the work this data needs: q + the K/V rows below
-                    # ctx (from the window's floor) + out + indices
+                    # the work this data needs: q + the distinct K/V rows
+                    # below ctx (from the window's floor; a shared page's
+                    # rows once) + out + indices
                     item, pitem = q.element_size(), kp.element_size()
-                    keys = sum(int(c) - (max(0, int(s) - window)
-                                         if window is not None else 0)
-                               for s, c in zip(start, ctx))
+                    keys = len({(int(pt_np[b, p // ps]), p % ps)
+                                for b, (s, c) in enumerate(zip(start, ctx))
+                                for p in range(
+                                    max(0, int(s) - window)
+                                    if window is not None else 0, int(c))})
                     attended = 0
                     for s, n in zip(start, nt):
                         for c in range(int(n)):
@@ -511,16 +562,21 @@ def make_prompts(vocab, n=16, lo=16, hi=256, seed=0):
     return [rng.randint(0, vocab, int(k)).tolist() for k in lens]
 
 
-def drive(engine, prompts, max_new):
+def drive(engine, prompts, max_new, sampled=()):
     """Serve `prompts` with staggered arrivals (a burst of 8, then one
-    every other step) so prefill and decode mix and slots churn.  Returns
-    (streams, stats)."""
+    every other step) so prefill and decode mix and slots churn; the
+    prompts whose index is in `sampled` sample at temperature 1.0.
+    Returns (streams, stats)."""
     import torch
     handles, step_ms = [], []
     t0 = time.perf_counter()
-    for p in prompts[:8]:
-        handles.append(engine.submit(p, max_new_tokens=max_new))
-    arrivals = iter(prompts[8:])
+
+    def submit(i, p):
+        handles.append(engine.submit(p, max_new_tokens=max_new,
+                                     greedy=i not in sampled))
+    for i, p in enumerate(prompts[:8]):
+        submit(i, p)
+    arrivals = iter(enumerate(prompts[8:], 8))
     polls = 0
     while True:
         ts = time.perf_counter()
@@ -531,7 +587,7 @@ def drive(engine, prompts, max_new):
         if polls % 2 == 0:
             nxt = next(arrivals, None)
             if nxt is not None:
-                handles.append(engine.submit(nxt, max_new_tokens=max_new))
+                submit(*nxt)
         if not progressed and len(handles) == len(prompts) and \
                 engine.scheduler.queue_depth == 0:
             break
@@ -721,12 +777,21 @@ FLASH_BAND_CASES = (
     ("bert_pad_dropout_window", 64, 12, 12, 128, 128, False, 32, True, True,
      0.1),
     ("odd_fold", 2, 12, 4, 150, 260, False, 40, True, True, 0.0))
+# the nmt phase's three attentions (B 32, 8 heads, D 64): the encoder's
+# self-attention over 128 padded source keys with dropout, the decoder's
+# causal self-attention at 96 with dropout, and cross-attention of the 96
+# target rows over the 128 padded source keys; no window, no fold
+FLASH_NMT_CASES = (
+    ("nmt_encoder", 32, 8, 8, 128, 128, False, None, True, True, 0.1),
+    ("nmt_decoder", 32, 8, 8, 96, 96, True, None, True, False, 0.1),
+    ("nmt_cross", 32, 8, 8, 96, 128, False, None, True, True, 0.0))
 
 
 def k3_cases(dev):
     """The flash kernels at BERT-base's attention shape, one (b, h) per
     bh: B 64, H 12, L 128, D 64; then at GPT-2 small's: B 8, H 12, L 1024,
-    D 64, causal with dropout 0.1; then `FLASH_BAND_CASES`."""
+    D 64, causal with dropout 0.1; then `FLASH_BAND_CASES` and
+    `FLASH_NMT_CASES` (source lengths as the nmt phase draws them)."""
     import torch
     from mxnet_tpu_torch import kernels
     from mxnet_tpu_torch.ops import flash_attention as fa
@@ -742,11 +807,17 @@ def k3_cases(dev):
         for dtype in ("float32", "bfloat16"):
             out.append(_flash_band_case(dev, fa, kernels, sdpa, g, seed,
                                         dtype, *case))
+    for case in FLASH_NMT_CASES:
+        for dtype in ("float32", "bfloat16"):
+            out.append(_flash_band_case(dev, fa, kernels, sdpa, g, seed,
+                                        dtype, *case,
+                                        pad_lo=NMT_VL[0] / NMT_VL[1]))
     return out
 
 
 def _flash_band_case(dev, fa, kernels, sdpa, g, seed, dtype, name, B, H, G,
-                     Lq, Lk, causal, window, symmetric, pad, rate, D=64):
+                     Lq, Lk, causal, window, symmetric, pad, rate, D=64,
+                     pad_lo=0.85):
     """One case of `FLASH_BAND_CASES`: q (B, H, Lq, D) folded onto G kv
     heads, K/V (B, G, Lk, D), through the kernels' wrappers against the
     plain versions on the same inputs, two calls of each bit-equal, and
@@ -765,7 +836,7 @@ def _flash_band_case(dev, fa, kernels, sdpa, g, seed, dtype, name, B, H, G,
     bias = bias3 = None
     vlen = torch.full((B,), Lk, dtype=torch.int64)
     if pad:
-        vlen = torch.randint(int(0.85 * Lk), Lk + 1, (B,), generator=g)
+        vlen = torch.randint(int(pad_lo * Lk), Lk + 1, (B,), generator=g)
         bias = torch.where(torch.arange(Lk)[None] < vlen[:, None], 0.0,
                            fa.MASK_VALUE).to(dev)
         bias3 = fa.normalize_bias(bias, B, H, Lq, Lk)[0]
@@ -982,13 +1053,15 @@ def _flash_group(dev, fa, kernels, sdpa, g, seed, B, H, L, D, names):
 
 XENT_SHAPES = [("float32", 1280, 30522), ("bfloat16", 1280, 30522),
                ("float32", 1280, 50257), ("float32", 8192, 50257),
-               ("bfloat16", 8192, 50257)]
+               ("bfloat16", 8192, 50257), ("float32", 3072, 32000),
+               ("bfloat16", 3072, 32000)]
 
 
 def k4_cases(dev):
     """The cross-entropy kernels at the MLM head's logits (64 x 20 masked
-    rows, vocab 30522), at an odd vocabulary, and at the GPT phase's
-    logits (8 x 1024 rows, vocab 50257)."""
+    rows, vocab 30522), at an odd vocabulary, at the GPT phase's logits
+    (8 x 1024 rows, vocab 50257) and at the nmt phase's (32 x 96 target
+    rows, vocab 32000)."""
     import torch
     import torch.nn.functional as tF
     from mxnet_tpu_torch.ops import softmax_xent as sx
@@ -1033,7 +1106,9 @@ def k4_cases(dev):
     return out
 
 
-NORM_SHAPES = [(8192, 768), (1280, 768), (37, 200)]
+# BERT's step rows, its MLM head's, a ragged one, and the nmt phase's
+# encoder rows (32 x 128 at hidden 512)
+NORM_SHAPES = [(8192, 768), (1280, 768), (37, 200), (4096, 512)]
 NORM_VARIANTS = (("ln", False, False), ("rms", True, False),
                  ("ln_res", False, True), ("rms_res", True, True))
 
@@ -1157,6 +1232,14 @@ def bert_leaves(dtype):
     return [(n, tuple(p.shape), p.dtype) for n, p in m.named_parameters()]
 
 
+def nmt_leaves(dtype):
+    """(name, shape, dtype) of every parameter of `transformer_base` in
+    `dtype` (94.3 M elements; LayerNorm parameters stay f32)."""
+    from mxnet_tpu_torch.models import TransformerNMT, transformer_base
+    m = TransformerNMT(transformer_base(dtype=dtype), device="cpu", seed=0)
+    return [(n, tuple(p.shape), p.dtype) for n, p in m.named_parameters()]
+
+
 def gpt_leaves(dtype):
     """(name, shape, dtype) of every parameter of `gpt_small` in `dtype`
     (124 M elements, the head tied to the embedding; LayerNorm parameters
@@ -1167,9 +1250,11 @@ def gpt_leaves(dtype):
 
 
 # k6's parameter lists and the rules over each: BERT-base under every rule,
-# GPT-2 small under the gpt phases' AdamW
+# GPT-2 small under the gpt phases' AdamW, transformer_base under the nmt
+# phase's Adam
 OPT_MODELS = (("bert_base", bert_leaves, None),
-              ("gpt_small", gpt_leaves, ("adamw",)))
+              ("gpt_small", gpt_leaves, ("adamw",)),
+              ("transformer_base", nmt_leaves, ("adam",)))
 
 
 def _opt_tree(leaves, opt, dev, seed):
@@ -2793,6 +2878,511 @@ def gqa_serve(dev, results):
 
 
 # ---------------------------------------------------------------------------
+# spec_prefix: speculative decoding, the prefix cache, beam search
+# ---------------------------------------------------------------------------
+
+SPEC_SC = dict(max_slots=8, max_len=512, page_size=16, prefill_chunk=16)
+SPEC_K = 4            # drafted tokens a greedy slot: verify width 5
+SPEC_PREFIX = 100     # shared prompt tokens (not page-aligned: a fork)
+SPEC_SAMPLED = (3, 11)   # arrival indices of the sampled requests
+# (spec_tokens, prefix_cache): the phase's engine, then speculation and
+# the cache each on their own and neither
+SPEC_RUNS = ((SPEC_K, True), (0, False), (SPEC_K, False), (0, True))
+BEAM_K, BEAM_NEW, BEAM_TOL = 4, 16, 1e-4
+
+
+def spec_prompts(vocab, seed=0):
+    """One `SPEC_PREFIX`-token prefix (the primer's prompt) and 18 prompts
+    that extend it: 16 greedy ones with a distinct periodic suffix of 8-64
+    tokens (a period of 2-8 tokens repeated) and, at `SPEC_SAMPLED`, 2
+    sampled ones with a random suffix."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    prefix = rng.randint(0, vocab, SPEC_PREFIX).tolist()
+    prompts = []
+    for i in range(18):
+        n = int(rng.randint(8, 65))
+        if i in SPEC_SAMPLED:
+            prompts.append(prefix + rng.randint(0, vocab, n).tolist())
+            continue
+        period = rng.randint(0, vocab, rng.randint(2, 9)).tolist()
+        prompts.append(prefix + (period * (n // len(period) + 1))[:n])
+    return prefix, prompts
+
+
+class _RecordingDrafter:
+    """`NGramDrafter` that keeps every sequence it drafted for."""
+
+    def __init__(self):
+        from mxnet_tpu_torch.serve.spec import NGramDrafter
+        self.inner = NGramDrafter()
+        self.seen = []
+
+    def propose(self, tokens, k):
+        self.seen.append(list(tokens))
+        return self.inner.propose(tokens, k)
+
+    def note_result(self, proposed, accepted):
+        self.inner.note_result(proposed, accepted)
+
+
+def spec_serve(model, spec, prefix_cache, plain=False, fault=None):
+    """The primer to idle, then `drive` over the 18 prompts, on an engine
+    built with ``spec_tokens=spec`` and ``prefix_cache``.  Counts reset
+    just before the primer, read after the drive; each fused step's width
+    recorded.  ``fault="copy_page_noop"`` makes the COW copy a no-op."""
+    from mxnet_tpu_torch import kernels
+    from mxnet_tpu_torch.serve import InferenceEngine, ServeConfig
+
+    prefix, prompts = spec_prompts(model.cfg.vocab_size)
+    sc = ServeConfig(spec_tokens=spec, prefix_cache=prefix_cache, **SPEC_SC)
+    rec = _RecordingDrafter() if spec else None
+    eng = InferenceEngine(model, sc, device=model.device, seed=0,
+                          plain_ops=plain, drafter=rec)
+    eng.warmup()
+    if fault == "copy_page_noop":
+        eng.copy_page = lambda src, dst: None
+    widths = {}
+    execute = eng._execute
+
+    def counted(*a):
+        widths[a[-1]] = widths.get(a[-1], 0) + 1
+        return execute(*a)
+    eng._execute = counted
+    kernels.reset_launch_counts()
+    eng.generate(prefix, max_new_tokens=32)
+    streams, st = drive(eng, prompts, 32, sampled=SPEC_SAMPLED)
+    st.update(launches=kernels.launch_counts(),
+              fused_steps=eng.stats()["steps_executed"],
+              widths={str(k): v for k, v in sorted(widths.items())},
+              spec=eng.scheduler.spec_stats(), spec_tokens=spec,
+              prefix_cache=prefix_cache, plain_ops=plain)
+    if rec is not None:
+        st["sampled_drafts"] = sum(
+            seq[:len(prompts[i])] == prompts[i]
+            for seq in rec.seen for i in SPEC_SAMPLED)
+    eng.drain()
+    if eng.prefix_index is not None:
+        eng.prefix_index.clear()
+    st["pages_free_after_drain"] = eng.allocator.free_pages
+    st["pages_total"] = eng.allocator.total_pages
+    return streams, prompts, st, eng
+
+
+def beam_score(model, seq, plen, eos):
+    """The winner's length-normalised score, recomputed by one `forward`:
+    the summed log-probabilities of its generated tokens up to its first
+    eos, over that length (JAX's ``length_penalty`` 1.0)."""
+    import torch
+    with torch.no_grad():
+        ids = torch.tensor([seq], device=model.device)
+        lp = torch.log_softmax(model(ids).float(), dim=-1)[0]
+    gen = seq[plen:]
+    n = gen.index(eos) + 1 if eos in gen else len(gen)
+    return float(sum(lp[plen - 1 + j, gen[j]] for j in range(n))) / n
+
+
+def run_spec_prefix(dev, results, card):
+    import torch
+    from mxnet_tpu_torch import kernels
+    from mxnet_tpu_torch.models import GPTForCausalLM, gpt_small
+
+    cfg = gpt_small(dropout=0.0)
+    model = GPTForCausalLM(cfg, device=dev, seed=0)
+    L = cfg.num_layers
+    out = results["spec_prefix"]
+    problems = []
+    runs = {}
+    for spec, pc in SPEC_RUNS:
+        key = f"spec{spec}_prefix{int(pc)}"
+        streams, prompts, st, eng = spec_serve(model, spec, pc)
+        runs[key] = streams
+        out[key] = st
+        print(f"[spec_prefix {key}] {json.dumps(st)}", flush=True)
+        if st["launches"]["ragged_paged_attention"] != L * st["fused_steps"]:
+            problems.append(
+                f"{key}: K1 launched {st['launches']['ragged_paged_attention']}"
+                f" times over {st['fused_steps']} fused steps (want {L} a "
+                f"step)")
+        if st["pages_free_after_drain"] != st["pages_total"]:
+            problems.append(f"{key}: {st['pages_free_after_drain']} pages "
+                            f"free after drain, of {st['pages_total']}")
+        for s_, p in zip(streams, prompts):
+            if len(s_) != len(p) + 32 or not all(
+                    0 <= t < cfg.vocab_size for t in s_):
+                problems.append(f"{key}: malformed stream")
+        del eng
+    main = out[f"spec{SPEC_K}_prefix1"]
+    sp = main["spec"]
+    if not (sp["accept_rate"] or 0) > 0:
+        problems.append(f"accept rate {sp['accept_rate']}, want > 0")
+    if not sp["prefix_hit_tokens"] > 0 or not sp["cow_forks"] >= 1:
+        problems.append(f"prefix hits {sp['prefix_hit_tokens']}, COW forks "
+                        f"{sp['cow_forks']}: want both")
+    if not main["widths"].get(str(SPEC_K + 1)):
+        problems.append(f"no verify-width step: widths {main['widths']}")
+    if main["sampled_drafts"]:
+        problems.append(f"{main['sampled_drafts']} drafts for sampled slots")
+    greedy = [i for i in range(18) if i not in SPEC_SAMPLED]
+
+    def pick(ss):
+        return [ss[i] for i in greedy]
+    # the plain engine (both features on) and the plain versions' gap for
+    # the near-tie rule
+    pstreams, _, pst, plain = spec_serve(model, SPEC_K, True, plain=True)
+    out["plain"] = pst
+    if any(pst["launches"].values()):
+        problems.append(f"the plain engine launched {pst['launches']}")
+    main_streams = runs[f"spec{SPEC_K}_prefix1"]
+    try:
+        main["near_ties_vs_off"] = compare_streams(
+            pick(main_streams), pick(runs["spec0_prefix0"]), plain.P, cfg,
+            "spec_prefix vs neither feature")
+        main["near_ties_vs_plain"] = compare_streams(
+            pick(main_streams), pick(pstreams), plain.P, cfg,
+            "spec_prefix kernel vs plain")
+    except AssertionError as e:
+        problems.append(str(e))
+    # the planted control: the COW copy a no-op must change a stream
+    cstreams, _, cst, _ = spec_serve(model, SPEC_K, True,
+                                     fault="copy_page_noop")
+    changed = sum(a != b for a, b in zip(pick(cstreams), pick(main_streams)))
+    out["control_copy_page_noop"] = c = dict(
+        cow_forks=cst["spec"]["cow_forks"], streams_changed=changed,
+        caught=changed > 0)
+    print(f"[spec_prefix control copy_page_noop] {json.dumps(c)}",
+          flush=True)
+    if not c["caught"]:
+        problems.append("control copy_page_noop: no stream changed")
+    off = out["spec0_prefix0"]
+    out["summary"] = summary = dict(
+        card=card, accept_rate=sp["accept_rate"],
+        steps_per_token=sp["steps_per_token"],
+        steps_per_token_off=off["spec"]["steps_per_token"],
+        tokens_per_s_spec_on=out[f"spec{SPEC_K}_prefix0"]["tokens_per_s"],
+        tokens_per_s_spec_off=off["tokens_per_s"],
+        tokens_per_s_both=main["tokens_per_s"],
+        ttft_p50_ms_prefix_on=out["spec0_prefix1"]["ttft_p50_ms"],
+        ttft_p99_ms_prefix_on=out["spec0_prefix1"]["ttft_p99_ms"],
+        ttft_p50_ms_prefix_off=off["ttft_p50_ms"],
+        ttft_p99_ms_prefix_off=off["ttft_p99_ms"],
+        prefix_hit_tokens=sp["prefix_hit_tokens"], cow_forks=sp["cow_forks"],
+        verify_steps=main["widths"].get(str(SPEC_K + 1), 0),
+        k1_launches=main["launches"]["ragged_paged_attention"])
+    print(f"[spec_prefix summary] {json.dumps(summary)}", flush=True)
+    del plain
+
+    # beam search: the card against a CPU copy of the model
+    prompts = [p[:32] for p in make_prompts(cfg.vocab_size, n=2, lo=32,
+                                            hi=32, seed=5)]
+    ids = torch.tensor(prompts, dtype=torch.int32)
+    free = model.generate(ids.to(dev), BEAM_NEW, num_beams=BEAM_K)
+    eos = int(free[0, 32])      # the first token the free search emits
+    cpu = GPTForCausalLM(cfg, device="cpu", seed=0)   # the same weights
+    kernels.reset_launch_counts()
+    got = model.generate(ids.to(dev), BEAM_NEW, num_beams=BEAM_K,
+                         eos_token_id=eos).cpu().tolist()
+    beam_launches = kernels.launch_counts()
+    want = cpu.generate(ids, BEAM_NEW, num_beams=BEAM_K,
+                        eos_token_id=eos).tolist()
+    rows = []
+    for g_, w_ in zip(got, want):
+        row = dict(equal=g_ == w_)
+        if g_ != w_:
+            sg, sw = (beam_score(cpu, x, 32, eos) for x in (g_, w_))
+            row.update(score_card=sg, score_cpu=sw, gap=abs(sg - sw))
+            if abs(sg - sw) >= BEAM_TOL:
+                problems.append(f"beam: the card's winner scores {sg:.6g}, "
+                                f"the CPU's {sw:.6g} (gap >= {BEAM_TOL})")
+        rows.append(row)
+    out["beam"] = dict(num_beams=BEAM_K, eos=eos, rows=rows,
+                       launches=beam_launches,
+                       eos_hit=[eos in g_[32:] for g_ in got])
+    print(f"[spec_prefix beam] {json.dumps(out['beam'])}", flush=True)
+    del cpu, model
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("; ".join(problems))
+
+
+# ---------------------------------------------------------------------------
+# nmt: the Transformer encoder-decoder (Vaswani et al. 2017, "base")
+# ---------------------------------------------------------------------------
+
+NMT_B, NMT_LS, NMT_LT = 32, 128, 96    # sources x tokens, target tokens
+NMT_VL = (64, 128)                     # source valid lengths, inclusive
+NMT_LR = 1e-4                          # Adam
+NMT_TRANSLATE = 8                      # sources through greedy_translate
+# planted fault, read against the f32 oracle at `nmt_tol`: the decoder's
+# self-attention built non-causal (each target position sees its label)
+NMT_FAULTS = ("decoder_not_causal",)
+
+
+def nmt_tol(dtype, floor):
+    """The nmt phase's trajectory limit, kernel run vs its plain oracle:
+    the larger of `traj_tol` and `GPT_FLOOR_X` one-ulp floors of the same
+    call, in either dtype.  Adam at lr 1e-4 fitting a fixed batch is
+    chaotic at this size even in f32: on the H100 one f32 ulp in one
+    weight element moves the kernel run 2.3e-4 (the plain run 8.0e-5;
+    without dropout 1.1e-3 and 1.8e-3; with epsilon 1e-6 3.1e-4), over
+    `traj_tol`'s 1e-4, while each route repeats itself bit for bit.  The
+    control shows how far above the limit a wrong attention lands."""
+    return max(traj_tol(dtype, "auto"), GPT_FLOOR_X * floor)
+
+
+def nmt_batch(dev, cfg, seed=0):
+    """Sources (32, 128) padded by ``src_valid_length`` (64-128), target
+    inputs (32, 96) and labels (32, 96), from `seed`."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    src = rng.randint(0, cfg.src_vocab_size, (NMT_B, NMT_LS))
+    vl = rng.randint(NMT_VL[0], NMT_VL[1] + 1, NMT_B)
+    tgt = rng.randint(0, cfg.tgt_vocab_size, (NMT_B, NMT_LT + 1))
+    t = [torch.from_numpy(a.astype(np.int32)).to(dev) for a in (src, vl, tgt)]
+    return t[0], t[2][:, :-1], t[1], t[2][:, 1:]
+
+
+def nmt_flops_per_step(cfg, vl):
+    """Training FLOPs of one step (3x the forward's multiply-adds, x2):
+    every position through the projections (encoder q/k/v/o and FFN at
+    all 128 source positions; decoder q/k/v/o, cross q/o, FFN and the
+    vocabulary projection at the 96 target positions; cross k/v at the
+    source positions) plus attention's two products over the (query, key)
+    pairs the masks keep: the encoder's and cross-attention's keys up to
+    each source's valid length, the decoder's causal half."""
+    h, ff, n = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    src_tok, tgt_tok = NMT_B * NMT_LS, NMT_B * NMT_LT
+    params = src_tok * n * (4 * h * h + 2 * h * ff) \
+        + tgt_tok * n * (6 * h * h + 2 * h * ff) \
+        + src_tok * n * 2 * h * h + tgt_tok * h * cfg.tgt_vocab_size
+    keys = sum(int(v) for v in vl)
+    pairs = n * (NMT_LS * keys + NMT_B * NMT_LT * (NMT_LT + 1) // 2
+                 + NMT_LT * keys)
+    return 6.0 * params + 12.0 * h * pairs
+
+
+def nmt_model(dev, dtype, plain=False, fault=None):
+    """`transformer_base` (seed 0, dropout 0.1) on `dev`; ``plain=True``
+    swaps in the plain versions (attention, norms) so the model launches
+    no kernel; `fault` plants one of `NMT_FAULTS`."""
+    from mxnet_tpu_torch.models import TransformerNMT, transformer_base
+    from mxnet_tpu_torch.models.layers import FusedSelfAttention, LayerNorm
+    from mxnet_tpu_torch.models.transformer import _CrossAttention
+    from mxnet_tpu_torch.ops import fused_norm as fn
+    from mxnet_tpu_torch.ops.attention import multi_head_attention_reference
+
+    model = TransformerNMT(transformer_base(dtype=dtype), device=dev,
+                           seed=0)
+    if fault == "decoder_not_causal":
+        for layer in model.decoder.layers:
+            layer.attention.causal = False
+    if plain:
+        for m in model.modules():
+            if isinstance(m, (FusedSelfAttention, _CrossAttention)):
+                m.attend = multi_head_attention_reference
+            if isinstance(m, LayerNorm):
+                m.norm = fn.fused_layer_norm_reference
+    return model
+
+
+def nmt_run(dev, dtype, plain, batch, nudge=False, fault=None):
+    """`TRAIN_STEPS` Adam steps of `nmt_model` through `TrainStep` (the
+    cross-entropy over the (3072, 32000) logits), counts reset after
+    warmup; the oracle updates leaf by leaf (`kernel_plain`) with the
+    plain loss.  `nudge` moves one weight element one unit in the last
+    place (how far one rounding carries).  Returns its stats and the step
+    time."""
+    import torch
+    from mxnet_tpu_torch import kernels
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.ops.fused_optimizer import kernel_plain
+    from mxnet_tpu_torch.ops.softmax_xent import \
+        softmax_cross_entropy_reference
+    from mxnet_tpu_torch.optimizer import Adam
+    from mxnet_tpu_torch.parallel import TrainStep
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = nmt_model(dev, dtype, plain, fault)
+    if nudge:
+        w = model.encoder.layers[0].ffn.ffn_intermediate.weight
+        bits = torch.int16 if w.element_size() == 2 else torch.int32
+        with torch.no_grad():
+            w.view(-1)[:1].view(bits).add_(1)
+    V = model.cfg.tgt_vocab_size
+    ce = SoftmaxCrossEntropyLoss()
+
+    def loss_fn(out, src, tin, vl, lab):
+        if plain:
+            return softmax_cross_entropy_reference(
+                out.reshape(-1, V), lab.reshape(-1)).mean()
+        return ce(out.reshape(-1, V), lab.reshape(-1)).mean()
+
+    with pallas_mode("reference" if plain else "auto"):
+        step = TrainStep(model, Adam(learning_rate=NMT_LR), loss_fn,
+                         num_model_args=3,
+                         update=kernel_plain if plain else None)
+        warm_s = step.warmup(*batch)
+        kernels.reset_launch_counts()
+        losses = []
+        for i in range(TRAIN_STEPS):
+            losses.append(step.dispatch(*batch).loss)
+            if i == 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / (TRAIN_STEPS - 2)
+        launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    groups = len({p.dtype for p in model.parameters()})
+    del model, step
+    torch.cuda.empty_cache()
+    return dict(losses=[float(x) for x in losses], step_ms=step_s * 1e3,
+                warmup_s=warm_s, launches=launches, dtype_groups=groups,
+                peak_mem_gb=peak), step_s
+
+
+def nmt_want_launches(n_groups, layers):
+    """Exact launches over `TRAIN_STEPS` steps.  A step: the flash forward
+    and backward three times a decoder layer (self, causal; cross, Lq !=
+    Lk) and once an encoder layer; the fused norm twice an encoder layer,
+    three times a decoder layer, and each stack's final norm; the
+    cross-entropy once each way; the chunk once per dtype group."""
+    per_step = {"flash_attention_fwd": 3 * layers,
+                "flash_attention_bwd": 3 * layers,
+                "softmax_xent_fwd": 1, "softmax_xent_bwd": 1,
+                "fused_norm": 5 * layers + 2,
+                "fused_optimizer_chunk": n_groups}
+    return {k: v * TRAIN_STEPS for k, v in per_step.items()}
+
+
+def nmt_compare(got, want, plain, src, vl):
+    """Every translation in `got` equals `want`, except where the plain
+    model's top-2 gap at the first differing token is below GAP; returns
+    the number of such near ties, raises on any other difference."""
+    import torch
+    near = 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g == w:
+            continue
+        k = next(j for j, (a, b) in enumerate(zip(g, w)) if a != b)
+        with torch.no_grad():
+            logits = plain(src[i:i + 1], torch.tensor([w[:k]], device=src
+                                                      .device,
+                                                      dtype=torch.int32),
+                           vl[i:i + 1])[0, -1].float()
+        top = torch.topk(logits, 2).values
+        gap = float(top[0] - top[1])
+        if gap >= GAP:
+            raise AssertionError(
+                f"nmt translation {i} diverges at token {k} ({g[k]} vs "
+                f"{w[k]}) where the plain model's top-2 gap is {gap:.3g}")
+        near += 1
+    return near
+
+
+def run_nmt(dev, results, card):
+    import torch
+    from mxnet_tpu_torch import kernels
+    from mxnet_tpu_torch.models import transformer_base
+
+    cfg = transformer_base()
+    batch = nmt_batch(dev, cfg)
+    flops = nmt_flops_per_step(cfg, batch[2].tolist())
+    tgt_tokens = NMT_B * NMT_LT
+    out = results["nmt"]
+    out["flops_per_step"] = flops
+    problems = []
+    for dtype in ("float32", "bfloat16"):
+        st, step_s = nmt_run(dev, dtype, False, batch)
+        pst, pstep_s = nmt_run(dev, dtype, True, batch)
+        nst, _ = nmt_run(dev, dtype, False, batch, nudge=True)
+        want = nmt_want_launches(st["dtype_groups"], cfg.num_layers)
+        got = {k: st["launches"][k] for k in want}
+        others = {k: v for k, v in st["launches"].items()
+                  if k not in want and v}
+        if got != want or others:
+            problems.append(f"nmt {dtype}: kernel launches {got} (and "
+                            f"{others}), want {want} over {TRAIN_STEPS} "
+                            f"steps")
+        if any(pst["launches"].values()):
+            problems.append(f"nmt {dtype}: the plain run launched kernels "
+                            f"{pst['launches']}")
+        ls = st["losses"]
+        dev_rel = traj_dev(ls, pst["losses"])
+        floor = traj_dev(nst["losses"], ls)
+        tol = nmt_tol(dtype, floor)
+        st.update(plain_losses=pst["losses"], plain_step_ms=pst["step_ms"],
+                  trajectory_rel_dev=dev_rel, trajectory_tol=tol,
+                  one_ulp_floor=floor,
+                  within_traj_tol=dev_rel <= traj_tol(dtype, "auto"),
+                  target_tokens_per_s=tgt_tokens / step_s,
+                  tokens_per_s=(NMT_B * (NMT_LS + NMT_LT)) / step_s,
+                  plain_target_tokens_per_s=tgt_tokens / pstep_s,
+                  flops_per_step=flops, tflops=flops / step_s / 1e12,
+                  peak_share=flops / step_s / PEAK[dtype])
+        out[dtype] = st
+        print(f"[nmt {dtype}] {json.dumps(st)}", flush=True)
+        print(f"[nmt {dtype}] {st['step_ms']:.2f} ms/step, "
+              f"{st['target_tokens_per_s']:.1f} target tokens/s, "
+              f"{st['tflops']:.2f} TFLOP/s ({flops / 1e12:.4f} TFLOP a "
+              f"step) = {100 * st['peak_share']:.2f}% of the {dtype} peak "
+              f"of {card}; trajectory vs plain {dev_rel:.3g} (limit "
+              f"{tol:.3g}: {GPT_FLOOR_X} one-ulp floors of {floor:.3g}, at "
+              f"least traj_tol {traj_tol(dtype, 'auto')})", flush=True)
+        if not all(math.isfinite(x) for x in ls):
+            problems.append(f"nmt {dtype}: non-finite loss {ls}")
+        if dev_rel > tol:
+            problems.append(f"nmt {dtype}: loss trajectory departs from the "
+                            f"plain path's by {dev_rel:.3g} > {tol}")
+        if not ls[-1] < ls[0]:
+            problems.append(f"nmt {dtype}: loss did not fall {ls}")
+    for fault in NMT_FAULTS:
+        st, _ = nmt_run(dev, "float32", False, batch, fault=fault)
+        ref = out["float32"]
+        dev_rel = traj_dev(st["losses"], ref["plain_losses"])
+        tol = ref["trajectory_tol"]
+        out[f"control_{fault}"] = c = dict(
+            losses=st["losses"], trajectory_rel_dev=dev_rel,
+            trajectory_tol=tol, over_tol=dev_rel / tol, caught=dev_rel > tol)
+        print(f"[nmt control {fault}] {json.dumps(c)}", flush=True)
+        if not c["caught"]:
+            problems.append(f"nmt control {fault}: the planted fault departs "
+                            f"by only {dev_rel:.3g} <= {tol:.3g}")
+
+    # greedy translation, kernel route against the plain one (f32)
+    src, _, vl, _ = batch
+    src, vl = src[:NMT_TRANSLATE], vl[:NMT_TRANSLATE]
+    model = nmt_model(dev, "float32")
+    plain = nmt_model(dev, "float32", plain=True).eval()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = model.greedy_translate(src, max_len=32, src_valid_length=vl)
+    torch.cuda.synchronize()
+    tr = dict(seconds=time.perf_counter() - t0,
+              launches=kernels.launch_counts(), shape=list(got.shape))
+    want = plain.greedy_translate(src, max_len=32, src_valid_length=vl)
+    steps = got.shape[1] - 1
+    need = cfg.num_layers * (1 + 2 * steps)
+    if tr["launches"]["flash_attention_fwd"] != need:
+        problems.append(f"nmt translate: flash forward launched "
+                        f"{tr['launches']['flash_attention_fwd']} times, "
+                        f"want {need}")
+    try:
+        tr["near_ties_vs_plain"] = nmt_compare(got.tolist(), want.tolist(),
+                                               plain, src, vl)
+    except AssertionError as e:
+        problems.append(str(e))
+    out["translate"] = tr
+    print(f"[nmt translate] {json.dumps(tr)}", flush=True)
+    del model, plain
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("; ".join(problems))
+
+
+# ---------------------------------------------------------------------------
 
 def kernel_entries(results):
     """One entry per ported kernel for the ``kernels`` line: the
@@ -2808,8 +3398,13 @@ def kernel_entries(results):
     tokens, 8 x 1280 slots, H 768).  Launches are the counts of the
     main-path runs (serving for K1/K2, the BERT, MoE and GPT training runs
     for the others); ``gpt_launches`` is the GPT phase's share,
-    ``gpt_gqa_launches`` the gpt_gqa phase's.  The flash entries also carry
-    k3's band and fold cases, the chunk's GPT-2 small's AdamW."""
+    ``gpt_gqa_launches`` the gpt_gqa phase's, ``nmt_launches`` the nmt
+    phase's training runs', and K1's ``spec_prefix_launches`` the
+    spec_prefix phase's engine's.  The flash entries also carry k3's band
+    and fold cases and the nmt phase's three attentions, the chunk GPT-2
+    small's AdamW and transformer_base's Adam, cross-entropy and the norm
+    their GPT and nmt shapes, K1 its verification width (C 5, MHA and GQA
+    rep 4, a shared prefix)."""
     k1, k2, k3, k4, k5, k6, k7 = (results[k] for k in (
         "k1", "k2", "k3", "k4", "k5", "k6", "k7"))
     rep1 = next(c for c in k1 if c["dtype"] == "float32" and c["C"] == 1
@@ -2828,6 +3423,9 @@ def kernel_entries(results):
     # (8192, 50257), each dtype
     gpt3 = {c["dtype"]: c for c in k3 if c["case"] == "gpt_causal_dropout"}
     gpt4 = {c["dtype"]: c for c in k4 if c["N"] == 8192}
+    nmt4 = {c["dtype"]: c for c in k4 if c["N"] == 3072}
+    nmt5 = {c["dtype"]: c for c in k5 if c["rows"] == 4096
+            and c["case"] == "ln"}
     rep5 = next(c for c in k5 if c["dtype"] == "bfloat16" and
                 c["rows"] == 8192 and c["case"] == "ln")
     chunk = [c for c in k6 if c["rule"] != "lamb"]
@@ -2843,6 +3441,9 @@ def kernel_entries(results):
     train = dict(results["train"], **results["moe"])
     train.update({"gpt_" + k: v for k, v in results["gpt"].items()})
     train.update({"gpt_gqa_" + k: v for k, v in results["gpt_gqa"].items()})
+    nmt_runs = [results["nmt"][dt] for dt in ("float32", "bfloat16")
+                if dt in results["nmt"]]
+    train.update({f"nmt_{i}": r for i, r in enumerate(nmt_runs)})
     k1_launch = e2e.get("float32", {}).get("launches", {}).get(
         "ragged_paged_attention", 0)
     k2_launch = sum(e2e.get(k, {}).get("launches", {}).get(
@@ -2859,6 +3460,8 @@ def kernel_entries(results):
                                     for r in results["gpt"].values()),
                 "gpt_gqa_launches": sum(r["launches"].get(name, 0)
                                         for r in results["gpt_gqa"].values()),
+                "nmt_launches": sum(r["launches"].get(name, 0)
+                                    for r in nmt_runs),
                 "max_abs_err": max(c["max_abs_err"] for c in cases),
                 "ms": rep[mk], "kernel_ms": rep[mk],
                 "plain_ms": rep[pre + "plain_ms"],
@@ -2880,9 +3483,9 @@ def kernel_entries(results):
                bf16_library_ms=rep3b["library_ms"],
                bf16_bound_ms=rep3b["bound_ms"])
 
-    def gpt_shape(e, cases, pre=""):
+    def gpt_shape(e, cases, pre="", model="gpt_"):
         for dt, c in cases.items():
-            tag = "gpt_" + ("f32" if dt == "float32" else "bf16")
+            tag = model + ("f32" if dt == "float32" else "bf16")
             e.update({f"{tag}_ms": c[pre + "ms"],
                       f"{tag}_plain_ms": c[pre + "plain_ms"],
                       f"{tag}_library_ms": c[pre + "library_ms"],
@@ -2906,6 +3509,7 @@ def kernel_entries(results):
     norm.update(device_ms=rep5["device_ms"], host_us=rep5["host_us"],
                 library_device_ms=rep5["library_device_ms"],
                 plan=rep5["plan"])
+    gpt_shape(norm, nmt5, model="nmt_")
     lamb_a = entry("lamb_phase_a", fo_src, f"{fo_py}:307",
                    train_launches("lamb_phase_a"), lamb, rep8,
                    ms="phase_a_ms")
@@ -2924,6 +3528,17 @@ def kernel_entries(results):
                f32q_bf16pool_plain_ms=rep1m["plain_ms"],
                f32q_bf16pool_bound_ms=rep1m["bound_ms"],
                f32q_bf16pool_max_abs_err=rep1m["max_abs_err"])
+    # the verification width over a shared prefix, each dtype and kv heads
+    for c in k1:
+        if c["C"] == K1_VERIFY_C:
+            tag = (f"verify_c{c['C']}_hkv{c['Hkv']}_"
+                   + ("f32" if c["dtype"] == "float32" else "bf16"))
+            k1e.update({f"{tag}_{n}": c[n] for n in (
+                "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+                "max_abs_err")})
+    k1e["spec_prefix_launches"] = results["spec_prefix"].get(
+        f"spec{SPEC_K}_prefix1", {}).get("launches", {}).get(
+        "ragged_paged_attention", 0)
     return [
         k1e,
         entry("quantized_matmul",
@@ -2935,17 +3550,22 @@ def kernel_entries(results):
                                    f"{fa_py}:489",
                                    train_launches("flash_attention_bwd"), k3,
                                    rep3, "bwd_"), gpt3, "bwd_"), "bwd_"),
-        gpt_shape(entry("softmax_xent_fwd", sx_src, f"{sx_py}:95",
-                        train_launches("softmax_xent_fwd"), k4, rep4), gpt4),
-        gpt_shape(entry("softmax_xent_bwd", sx_src, f"{sx_py}:127",
-                        train_launches("softmax_xent_bwd"), k4, rep4,
-                        "bwd_"), gpt4, "bwd_"),
+        gpt_shape(gpt_shape(entry("softmax_xent_fwd", sx_src, f"{sx_py}:95",
+                                  train_launches("softmax_xent_fwd"), k4,
+                                  rep4), gpt4), nmt4, model="nmt_"),
+        gpt_shape(gpt_shape(entry("softmax_xent_bwd", sx_src, f"{sx_py}:127",
+                                  train_launches("softmax_xent_bwd"), k4,
+                                  rep4, "bwd_"), gpt4, "bwd_"),
+                  nmt4, "bwd_", model="nmt_"),
         norm,
-        gpt_shape(entry("fused_optimizer_chunk", fo_src, f"{fo_py}:220",
-                        train_launches("fused_optimizer_chunk"), chunk,
-                        rep7),
+        gpt_shape(gpt_shape(entry("fused_optimizer_chunk", fo_src,
+                                  f"{fo_py}:220",
+                                  train_launches("fused_optimizer_chunk"),
+                                  chunk, rep7),
+                            {c["dtype"]: c for c in chunk
+                             if c.get("model") == "gpt_small"}),
                   {c["dtype"]: c for c in chunk
-                   if c.get("model") == "gpt_small"}),
+                   if c.get("model") == "transformer_base"}, model="nmt_"),
         lamb_a,
         lamb_b,
         entry("moe_dispatch", "mxnet_tpu_torch/csrc/moe_dispatch.cu",
@@ -2991,7 +3611,8 @@ def main(argv=None) -> int:
                "e2e": {}, "train": {}, "train_controls": {}, "tune": {},
                "moe": {}, "moe_controls": {}, "gpt": {},
                "gpt_controls": {}, "gpt_one_ulp": {}, "gpt_gqa": {},
-               "gpt_gqa_controls": {}, "gpt_gqa_one_ulp": {}}
+               "gpt_gqa_controls": {}, "gpt_gqa_one_ulp": {},
+               "spec_prefix": {}, "nmt": {}}
     failed = []
     t0 = time.perf_counter()
     # build from the checkout's sources, never from a leftover library
@@ -3031,7 +3652,8 @@ def main(argv=None) -> int:
         traceback.print_exc()
         failed.append("train")
     for name, fn in (("tune", run_tune), ("moe", run_moe),
-                     ("gpt", run_gpt), ("gpt_gqa", run_gpt_gqa)):
+                     ("gpt", run_gpt), ("gpt_gqa", run_gpt_gqa),
+                     ("spec_prefix", run_spec_prefix), ("nmt", run_nmt)):
         try:
             fn(dev, results, card)
         except Exception:

@@ -6,9 +6,11 @@ jax_model.collect_params().items()}`` — and fills the port's module, whose
 parameter tree uses the same names.  Nothing of the JAX package is
 imported here: the dict is the interface.
 
-It carries `GPTForCausalLM` and `BertForPretraining` alike, in f32 or
-bf16.  A bf16 BERT keeps its LayerNorm gains and biases in f32, as Gluon
-does, so the dtype check passes leaf by leaf.  Build the port's model on
+It carries `GPTForCausalLM`, `BertForPretraining` and `TransformerNMT`
+alike, in f32 or bf16, unchanged: each port module's tree carries the
+Gluon names of its JAX counterpart.  A bf16 model keeps its LayerNorm
+gains and biases in f32, as Gluon does, so the dtype check passes leaf by
+leaf.  Build the port's model on
 the device it will run on: the dropout generator of a `BertForPretraining`
 stays on the device it was built for.
 """

@@ -20,8 +20,8 @@ flash kernels on the card, the second norm fused with the residual add
 decodes through the shared decode core (`serve.decode`) with dense
 per-request caches, token by token, exactly as the JAX
 ``_generate_cached`` scan does; ``use_cache=False`` recomputes the full
-context for each new token.  Beam search waits for a later slice
-(ROADMAP.md).
+context for each new token; ``num_beams > 1`` runs JAX's length-normalised
+beam search over the same dense-cache core (`_generate_beam`).
 """
 from __future__ import annotations
 
@@ -270,10 +270,12 @@ class GPTForCausalLM(nn.Module):
 
     @torch.inference_mode()
     def generate(self, input_ids, max_new_tokens=20, temperature=1.0,
-                 greedy=True, use_cache=True, num_beams=1, top_k=0,
-                 top_p=1.0, generator: Optional[torch.Generator] = None):
+                 greedy=True, use_cache=True, num_beams=1,
+                 eos_token_id=None, top_k=0, top_p=1.0,
+                 generator: Optional[torch.Generator] = None):
         """Autoregressive decode: prompt (B, L) -> (B, L + max_new_tokens)
-        int32 token ids on the model's device.
+        int32 token ids on the model's device; the parameters are JAX's,
+        in JAX's order, and `generator` last.
 
         Runs the dense-cache decode core one position at a time, prompt
         included, exactly as the JAX ``_generate_cached`` scan does (so a
@@ -282,12 +284,21 @@ class GPTForCausalLM(nn.Module):
         each new token, as JAX's simple path does.  Sampling
         (``greedy=False``) draws from `generator` (default: a fresh
         seeded generator on the model's device) after `temperature`,
-        `top_k` and `top_p` filtering.  Beam search waits for a later
-        slice."""
+        `top_k` and `top_p` filtering.
+
+        ``num_beams > 1``: length-normalised beam search on the same
+        cached core (`_generate_beam`; finished beams freeze on
+        `eos_token_id`); returns the best beam per batch row.  Beam search
+        is deterministic — combining it with the sampling knobs raises
+        ValueError, as in JAX."""
         if num_beams > 1:
-            raise MXNetError(
-                "generate: beam search is not ported to mxnet_tpu_torch "
-                "yet (ROADMAP.md)")
+            if not greedy or top_k or top_p < 1.0 or temperature != 1.0:
+                raise ValueError(
+                    "num_beams > 1 runs deterministic beam search; the "
+                    "sampling knobs (greedy=False, temperature, top_k, "
+                    "top_p) are not supported with it")
+            return self._generate_beam(input_ids, max_new_tokens,
+                                       num_beams, eos_token_id)
         cfg = self.cfg
         dev = self.device
         prompt = torch.as_tensor(input_ids, device=dev).to(torch.int32)
@@ -337,3 +348,85 @@ class GPTForCausalLM(nn.Module):
                 continue            # prefill: the prompt token is forced
             out[:, t + 1] = pick(lm_logits(P, h[:, 0])).to(torch.int32)
         return out
+
+    @torch.inference_mode()
+    def _generate_beam(self, input_ids, max_new_tokens, num_beams,
+                       eos_token_id, length_penalty=1.0):
+        """Batched beam search on the dense-cache decode core, as JAX's
+        ``_generate_beam`` does it.
+
+        Prefill runs at batch B (beams are identical until they diverge),
+        then the caches tile to B*K and each step takes the top K over
+        (beams x vocab) — ties to the lower index, as ``lax.top_k`` —
+        regathering caches and token histories by source beam.  A
+        finished beam (it emitted `eos_token_id`) contributes one 0-logp
+        continuation, so its score freezes; the winner maximises score /
+        length**length_penalty."""
+        from ..serve.decode import (dense_kv_fn, extract_decode_weights,
+                                    lm_logits, transformer_step)
+        cfg = self.cfg
+        dev = self.device
+        prompt = torch.as_tensor(input_ids, device=dev).to(torch.int32)
+        if prompt.dim() == 1:
+            prompt = prompt[None]
+        K = int(num_beams)
+        B, plen = prompt.shape
+        T = plen + max_new_tokens
+        check_max_position(T, cfg.max_position)
+        P = extract_decode_weights(self)
+        H = cfg.num_heads
+        Hkv = cfg.num_kv_heads or H
+        D = cfg.hidden_size // H
+        eos = -1 if eos_token_id is None else int(eos_token_id)
+        NEG = -1e9
+
+        def token_step(tok, t, kc, vc):
+            pos = torch.full((tok.shape[0], 1), t, dtype=torch.int32,
+                             device=dev)
+            kv_fn = dense_kv_fn(kc, vc, pos, window=cfg.window)
+            h = transformer_step(P, cfg, tok[:, None], pos, kv_fn)
+            return lm_logits(P, h[:, 0])
+
+        # phase 1: prefill at batch B — the beams are identical here
+        kc = torch.zeros((cfg.num_layers, B, Hkv, T, D),
+                         dtype=P["embed"].dtype, device=dev)
+        vc = torch.zeros_like(kc)
+        for t in range(plen - 1):
+            token_step(prompt[:, t], t, kc, vc)
+        kc = kc.repeat_interleave(K, dim=1)
+        vc = vc.repeat_interleave(K, dim=1)
+        scores = torch.full((B, K), NEG, dtype=torch.float32, device=dev)
+        scores[:, 0] = 0.0
+        hist = torch.zeros((B, K, T), dtype=torch.int32, device=dev)
+        hist[:, :, :plen] = prompt[:, None]
+        prev = prompt[:, plen - 1].repeat_interleave(K)
+        finished = torch.zeros((B, K), dtype=torch.bool, device=dev)
+        fin_len = torch.zeros((B, K), dtype=torch.int32, device=dev)
+        base = torch.arange(B, device=dev)[:, None] * K
+        for t in range(plen - 1, T - 1):
+            logits = token_step(prev, t, kc, vc)
+            logp = torch.log_softmax(logits.float(), dim=-1).reshape(B, K, -1)
+            V = logp.shape[-1]
+            frozen = torch.full((V,), NEG, dtype=torch.float32, device=dev)
+            frozen[max(eos, 0)] = 0.0
+            cand = scores[:, :, None] + torch.where(
+                finished[:, :, None], frozen, logp)
+            order = torch.sort(cand.reshape(B, K * V), dim=1,
+                               descending=True, stable=True)
+            top, idx = order.values[:, :K], order.indices[:, :K]
+            src = idx // V
+            tok = (idx % V).to(torch.int32)
+            was_fin = torch.gather(finished, 1, src)
+            fin_len = torch.gather(fin_len, 1, src)
+            now_fin = was_fin | (tok == eos)
+            gen_len = t + 2 - plen        # tokens generated incl. this one
+            fin_len = torch.where(now_fin & ~was_fin, gen_len, fin_len)
+            rows = (base + src).reshape(B * K)
+            kc, vc = kc[:, rows], vc[:, rows]
+            hist = torch.gather(hist, 1, src[:, :, None].expand(-1, -1, T))
+            hist[:, :, t + 1] = tok
+            prev, scores, finished = tok.reshape(B * K), top, now_fin
+        lengths = torch.where(finished, fin_len, max_new_tokens).float()
+        norm = scores / torch.clamp(lengths, min=1.0) ** float(length_penalty)
+        best = torch.argmax(norm, dim=1)
+        return hist[torch.arange(B, device=dev), best]

@@ -21,9 +21,17 @@ Typical use::
 
 or one-shot: ``eng.generate([1, 2, 3], max_new_tokens=16)``.
 
-Features still raising `MXNetError` until their slice (ROADMAP.md queue C):
-``kv_dtype="int8"``, ``tp > 1``, ``spec_tokens > 0``, ``prefix_cache``,
-``role != "both"``, export and `adopt_executables`.
+The decode fast path: ``spec_tokens=k`` lets a drafter (`serve.spec`,
+default `NGramDrafter`) propose k tokens a greedy slot, verified by one
+fused step at width k+1 whose per-position argmax the scheduler accepts
+as a run; ``prefix_cache=True`` keeps finished prompts' KV pages in a
+`PrefixIndex`, attached by reference to later requests with the same
+prefix and forked (`copy_page`) before a write.
+
+Features still raising `MXNetError` until their slice (ROADMAP.md queue
+A): ``kv_dtype="int8"`` (with A9's ``quantize_kv``), ``tp > 1`` and
+``role != "both"`` (A12, A15), export and `adopt_executables` (A16).
+QoS, tracing and telemetry (A14, A15) are not ported.
 """
 from __future__ import annotations
 
@@ -45,8 +53,9 @@ from ..ops.paged_attention import (paged_attention_reference,
 from ..ops.quantized_matmul import matmul_nt, matmul_nt_reference
 from .decode import (decode_weight_bytes, extract_decode_weights,
                      lm_logits, quantize_decode_weights, transformer_step)
-from .kv_cache import KVPools, PageAllocator, make_paged_kv_fn
+from .kv_cache import KVPools, PageAllocator, PrefixIndex, make_paged_kv_fn
 from .scheduler import ContinuousBatchingScheduler, ServeRequest
+from .spec import Drafter, NGramDrafter
 
 __all__ = ["ServeConfig", "InferenceEngine"]
 
@@ -131,10 +140,16 @@ class InferenceEngine:
     the sampling generator.  ``plain_ops=True`` builds the oracle engine:
     every step calls the plain versions (`paged_attention_reference`,
     `matmul_nt_reference`) by name, on any device — what `chip_smoke.py`
-    holds the kernel engine against."""
+    holds the kernel engine against.
+
+    ``drafter``: the token-proposal hook used when
+    ``ServeConfig.spec_tokens`` > 0; defaults to the model-free
+    :class:`~mxnet_tpu_torch.serve.spec.NGramDrafter` over each request's
+    own context."""
 
     def __init__(self, model, config: Optional[ServeConfig] = None,
-                 device=None, seed: int = 0, plain_ops: bool = False):
+                 device=None, seed: int = 0, plain_ops: bool = False,
+                 drafter: Optional[Drafter] = None):
         self.model = model
         self.cfg = model.cfg
         self.serve_config = config or ServeConfig()
@@ -144,10 +159,6 @@ class InferenceEngine:
             raise _not_ported("the int8 KV pool (kv_dtype='int8')")
         if sc.tp > 1:
             raise _not_ported(f"tensor-parallel serving (tp={sc.tp})")
-        if sc.spec_tokens > 0:
-            raise _not_ported("speculative decoding (spec_tokens > 0)")
-        if sc.prefix_cache:
-            raise _not_ported("the prefix cache (prefix_cache)")
         if sc.role != "both":
             raise _not_ported(f"disaggregated serving (role={sc.role!r})")
 
@@ -190,6 +201,13 @@ class InferenceEngine:
                              self.n_kv_heads, self.head_dim, self._kv_dtype,
                              self.device)
         self.allocator = PageAllocator(num_pages, sc.page_size)
+        #: cross-request prompt-prefix cache (MXTPU_PREFIX_CACHE): shared
+        #: read-only page runs with COW forks; None when off
+        self.prefix_index = (PrefixIndex(self.allocator, sc.page_size)
+                             if sc.prefix_cache else None)
+        #: speculative-decoding proposal hook (MXTPU_SPEC_TOKENS)
+        self.drafter = drafter if drafter is not None else (
+            NGramDrafter() if sc.spec_tokens > 0 else None)
         self.scheduler = ContinuousBatchingScheduler(self)
         dev = self.device if self.device.type == "cuda" else "cpu"
         self._gen = torch.Generator(device=dev).manual_seed(int(seed))
@@ -223,6 +241,9 @@ class InferenceEngine:
         self.P, info = quantize_decode_weights(self.P, bits)
         self.quant_bits = int(bits)
         self.quant_info = info
+        if getattr(self, "prefix_index", None) is not None:
+            # cached prompt KV was computed with the dense weights
+            self.prefix_index.clear()
         return info
 
     def weight_bytes(self) -> int:
@@ -253,10 +274,28 @@ class InferenceEngine:
         h = transformer_step(self.P, cfg, tok, pos, kv_fn,
                              matmul=self._matmul)
         B = tok.shape[0]
-        last = h[torch.arange(B, device=dev),
-                 torch.clamp(num_tokens.long() - 1, min=0)]
+        rows = torch.arange(B, device=dev)
+        last = h[rows, torch.clamp(num_tokens.long() - 1, min=0)]
         logits = lm_logits(self.P, last, matmul=self._matmul)   # (B, V)
         nxt = torch.argmax(logits, dim=-1)
+        spec_k = self.serve_config.spec_tokens
+        all_tok = None
+        if spec_k > 0:
+            # speculative verification: the greedy argmax at the TAIL fed
+            # positions (B, T), T = min(C, k+1); column t is fed position
+            # num_tokens - T + t (t = T-1 is the `last` row).  Tail
+            # position t's argmax is the greedy continuation of the fed
+            # prefix before it (causal attention), so the scheduler can
+            # accept a run of matching drafts.  Each row goes through the
+            # SAME (B, E) 2-D head product as `last`: a 3-D (B, C, E)
+            # product could tile differently and flip a near-tie argmax.
+            T = min(C, spec_k + 1)
+            all_tok = torch.stack(
+                [torch.argmax(lm_logits(
+                    self.P, h[rows, torch.clamp(
+                        num_tokens.long() - T + j, min=0)],
+                    matmul=self._matmul), dim=-1)
+                 for j in range(T)], dim=1).to(torch.int32).cpu().numpy()
         if sample:
             temps_t = torch.from_numpy(temps).to(dev)
             filtered = _filter_logits(
@@ -266,28 +305,45 @@ class InferenceEngine:
                                         generator=self._gen)[:, 0]
             nxt = torch.where(torch.from_numpy(greedy_mask).to(dev), nxt,
                               sampled)
-        return nxt.to(torch.int32).cpu().numpy()
+        return nxt.to(torch.int32).cpu().numpy(), all_tok
 
     def _execute(self, tok, num_tokens, start_pos, tables, ctx_lens, temps,
                  greedy_mask, C: int):
-        """Run one fused step (called by the scheduler); returns the next
-        token of every slot as a host array (B,).  The sampler draws only
-        when some active slot samples, so greedy traffic leaves the
-        generator untouched."""
+        """Run one fused step (called by the scheduler); returns
+        ``(next_token[B], all_tok)`` as host arrays — `all_tok` is the
+        (B, min(C, k+1)) verification argmax when speculation is on, else
+        None.  The sampler draws only when some active slot samples, so
+        greedy traffic leaves the generator untouched."""
         self._steps_executed += 1
         sample = bool((~greedy_mask & (num_tokens > 0)).any())
         return self._step(tok, num_tokens, start_pos, tables, ctx_lens,
                           temps, greedy_mask, C, sample)
 
+    def copy_page(self, src: int, dst: int) -> None:
+        """Copy ONE physical page (every layer, K and V) — the data half
+        of a copy-on-write fork, after `PageAllocator.fork` moved a
+        reference onto the fresh page.  In place, on the step's stream, so
+        the next step's writes and K1's reads are ordered after it."""
+        for pool in (self.pools.k, self.pools.v):
+            pool[:, dst].copy_(pool[:, src])
+
+    def _step_widths(self):
+        """Chunk widths the engine steps at: the prefill chunk, the
+        pure-decode C=1 step, and (speculation on) the k+1-wide
+        verification row."""
+        ws = {self.serve_config.prefill_chunk, 1}
+        if self.serve_config.spec_tokens > 0:
+            ws.add(self.serve_config.spec_tokens + 1)
+        return sorted(ws)
+
     def warmup(self) -> float:
-        """Build the kernels and run both chunk widths (the prefill chunk
-        and the C=1 decode step) once over empty slots: every write goes
-        to the null page and the pool's live pages are untouched.  Returns
-        the seconds it took."""
+        """Build the kernels and run every chunk width (`_step_widths`)
+        once over empty slots: every write goes to the null page and the
+        pool's live pages are untouched.  Returns the seconds it took."""
         t0 = time.perf_counter()
         B = self.serve_config.max_slots
         z = np.zeros(B, np.int32)
-        for C in sorted({self.serve_config.prefill_chunk, 1}):
+        for C in self._step_widths():
             self._step(np.zeros((B, C), np.int32), z, z,
                        np.zeros((B, self.max_pages_per_seq), np.int32), z,
                        np.ones(B, np.float32), np.ones(B, bool), C, False)
@@ -361,6 +417,10 @@ class InferenceEngine:
             "role": self.role,
             "device": str(self.device),
             "plain_ops": self.plain_ops,
+            "spec_tokens": self.serve_config.spec_tokens,
+            "spec": self.scheduler.spec_stats(),
+            "prefix_cache": (None if self.prefix_index is None
+                             else self.prefix_index.stats()),
         }
 
 

@@ -13,12 +13,22 @@ through its compiled step for the same effect).
 Page 0 is the **null page**: masked writes (padded chunk rows, inactive
 slots) land there and no allocation ever returns it.
 
-The int8 pool (``kv_dtype="int8"``) and the cross-request `PrefixIndex`
-wait for a later slice (ROADMAP.md queue C); the allocator's reference
-counts and `fork` are already here.
+**Shared pages and copy-on-write**: every allocated page carries a
+reference count.  A page with refcount > 1 is read-only — `PageAllocator.
+share` adds owners (the cross-request `PrefixIndex` attaching cached
+prompt blocks to a new sequence), and a writer must `fork` first: the fork
+moves one reference onto a fresh physical page, the caller copies the
+contents on the device (`InferenceEngine.copy_page`), and only then writes
+into it.  `free` is a decref; a page returns to the free list when its
+last owner lets go, so N concurrent requests attend over ONE copy of a
+shared prompt prefix while each owns its divergent suffix.
+
+The int8 pool (``kv_dtype="int8"``) waits for a later slice (ROADMAP.md
+queue A, beside A9's ``quantize_kv``).
 """
 from __future__ import annotations
 
+import itertools
 import math
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -28,7 +38,8 @@ import torch
 from ..base import MXNetError
 from ..ops.paged_attention import ragged_paged_attention
 
-__all__ = ["PageAllocator", "KVPools", "make_paged_kv_fn", "NULL_PAGE"]
+__all__ = ["PageAllocator", "PrefixIndex", "KVPools", "make_paged_kv_fn",
+           "NULL_PAGE"]
 
 NULL_PAGE = 0
 
@@ -140,6 +151,226 @@ class PageAllocator:
             self._ref[new] = 1
             self._ref[page] = ref - 1
         return new, True
+
+
+class _PrefixEntry:
+    """One cached token block: a single shared read-only page holding
+    ``n_tokens`` (< page_size for a terminal partial block) of KV."""
+
+    __slots__ = ("key", "page", "tokens", "n_tokens", "parent", "stamp")
+
+    def __init__(self, key, page: int, tokens: tuple, n_tokens: int,
+                 parent, stamp: int):
+        self.key = key
+        self.page = page
+        self.tokens = tokens
+        self.n_tokens = n_tokens
+        self.parent = parent
+        self.stamp = stamp
+
+
+class PrefixIndex:
+    """Cross-request prompt-prefix cache: token-block prefixes -> shared
+    read-only KV page runs.
+
+    Entries are chained per page-sized block and keyed by EXACT token
+    content — ``key = (parent_key, block_tokens)`` — so a hit guarantees
+    the cached KV was computed from the same tokens (no hash-collision
+    risk).  Each entry owns one allocator reference on its page;
+    `lookup` walks the chain for a new prompt and adds a reference per
+    matched page for the requesting sequence (the scheduler then skips
+    those prefill chunks entirely).  A prompt's trailing partial block
+    is cached too (at most one per parent): attaching it means the new
+    sequence's first write lands INSIDE a shared page, which is exactly
+    the copy-on-write fork case.
+
+    Under pool pressure `evict_pages` drops least-recently-used entries
+    whose page has refcount 1 (sole owner = this index) — a page any
+    live sequence still reads is never reclaimed.  Thread-safe:
+    `longest_match` may be probed from submit threads while the step
+    loop inserts and attaches."""
+
+    _ROOT = ()
+
+    def __init__(self, allocator: PageAllocator, page_size: int):
+        self.allocator = allocator
+        self.page_size = int(page_size)
+        self._entries: Dict[tuple, _PrefixEntry] = {}
+        # parent key -> the single terminal partial-block entry
+        self._partials: Dict[tuple, _PrefixEntry] = {}
+        # parent key -> number of child entries (full blocks + partial);
+        # only childless entries are evictable (an orphaned child would
+        # be unreachable but still pin its page)
+        self._children: Dict[tuple, int] = {}
+        self._stamp = itertools.count()
+        self._lock = threading.Lock()
+        self.hits = 0
+        self.hit_tokens = 0
+        self.insertions = 0
+        self.evictions = 0
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries) + len(self._partials)
+
+    # ------------------------------------------------------------------
+    def _walk(self, tokens: Sequence[int]):
+        """Longest cached chain for `tokens`: yields matched entries in
+        order (full blocks, then at most one terminal partial).  Caller
+        holds the lock."""
+        ps = self.page_size
+        parent = self._ROOT
+        n = 0
+        out = []
+        while n + ps <= len(tokens):
+            block = tuple(int(t) for t in tokens[n:n + ps])
+            e = self._entries.get((parent, block))
+            if e is None:
+                break
+            out.append(e)
+            parent = e.key
+            n += ps
+        part = self._partials.get(parent)
+        if part is not None and part.n_tokens <= len(tokens) - n and \
+                tuple(int(t) for t in tokens[n:n + part.n_tokens]) \
+                == part.tokens:
+            out.append(part)
+        return out
+
+    def lookup(self, tokens: Sequence[int]) -> Tuple[List[int], int]:
+        """Longest cached prefix of `tokens`: returns ``(pages,
+        n_tokens)`` with one allocator reference added per returned page
+        FOR THE CALLER (released through the normal `free` path when the
+        sequence lets go).  ``([], 0)`` on miss."""
+        with self._lock:
+            matched = self._walk(tokens)
+            if not matched:
+                return [], 0
+            pages = [e.page for e in matched]
+            n = sum(e.n_tokens for e in matched)
+            self.allocator.share(pages)
+            for e in matched:
+                e.stamp = next(self._stamp)
+            self.hits += 1
+            self.hit_tokens += n
+        return pages, n
+
+    def longest_match(self, tokens: Sequence[int]) -> int:
+        """Tokens a `lookup` would attach — read-only (no references
+        taken, no LRU refresh)."""
+        with self._lock:
+            return sum(e.n_tokens for e in self._walk(tokens))
+
+    # ------------------------------------------------------------------
+    def insert(self, tokens: Sequence[int], pages: Sequence[int]) -> int:
+        """Register a just-prefilled prompt: ``pages[i]`` holds tokens
+        ``[i*ps, (i+1)*ps)`` of `tokens` (the owning slot's page table
+        prefix).  Creates entries for blocks not yet cached (one shared
+        reference each); existing entries are LRU-refreshed, never
+        replaced (first writer wins — both pages hold identical KV by
+        construction).  Returns the number of NEW entries."""
+        tokens = [int(t) for t in tokens]
+        ps = self.page_size
+        need = math.ceil(len(tokens) / ps) if tokens else 0
+        if len(pages) < need:
+            raise MXNetError(
+                f"prefix insert: {len(tokens)} tokens span {need} pages "
+                f"but only {len(pages)} supplied")
+        created = 0
+        with self._lock:
+            parent = self._ROOT
+            for bi in range(len(tokens) // ps):
+                block = tuple(tokens[bi * ps:(bi + 1) * ps])
+                key = (parent, block)
+                e = self._entries.get(key)
+                if e is None:
+                    self.allocator.share([pages[bi]])
+                    e = _PrefixEntry(key, pages[bi], block, ps, parent,
+                                     next(self._stamp))
+                    self._entries[key] = e
+                    self._children[parent] = \
+                        self._children.get(parent, 0) + 1
+                    self.insertions += 1
+                    created += 1
+                else:
+                    e.stamp = next(self._stamp)
+                parent = key
+            r = len(tokens) % ps
+            if r:
+                blk = tuple(tokens[-r:])
+                part = self._partials.get(parent)
+                if part is not None and part.tokens == blk:
+                    part.stamp = next(self._stamp)
+                elif part is None or (len(part.tokens) < r
+                                      and blk[:len(part.tokens)]
+                                      == part.tokens):
+                    # no partial yet, or the new one strictly extends it
+                    if part is not None:
+                        self._drop(part)
+                    self.allocator.share([pages[len(tokens) // ps]])
+                    self._partials[parent] = _PrefixEntry(
+                        ("partial", parent), pages[len(tokens) // ps],
+                        blk, r, parent, next(self._stamp))
+                    self._children[parent] = \
+                        self._children.get(parent, 0) + 1
+                    self.insertions += 1
+                    created += 1
+        return created
+
+    # ------------------------------------------------------------------
+    def _drop(self, e: _PrefixEntry) -> None:
+        """Remove one entry and release its page reference (lock held)."""
+        if e.key[0] == "partial":
+            self._partials.pop(e.parent, None)
+        else:
+            self._entries.pop(e.key, None)
+        left = self._children.get(e.parent, 0) - 1
+        if left > 0:
+            self._children[e.parent] = left
+        else:
+            self._children.pop(e.parent, None)
+        self.allocator.free([e.page])
+        self.evictions += 1
+
+    def evict_pages(self, n: int) -> int:
+        """Pool pressure: reclaim up to `n` pages by dropping LRU
+        childless entries whose page refcount is 1 (sole owner = this
+        index).  A page a live sequence still shares is NEVER evicted.
+        Returns pages actually freed."""
+        freed = 0
+        with self._lock:
+            while freed < n:
+                cands = [
+                    e for e in list(self._entries.values())
+                    + list(self._partials.values())
+                    if self._children.get(e.key, 0) == 0
+                    and self.allocator.refcount(e.page) == 1]
+                if not cands:
+                    break
+                victim = min(cands, key=lambda e: e.stamp)
+                self._drop(victim)
+                freed += 1
+        return freed
+
+    def clear(self) -> int:
+        """Drop every entry (engine teardown / tests); returns entries
+        released.  Shared pages simply lose the index's reference."""
+        with self._lock:
+            all_e = list(self._entries.values()) \
+                + list(self._partials.values())
+            for e in all_e:
+                self.allocator.free([e.page])
+            self._entries.clear()
+            self._partials.clear()
+            self._children.clear()
+            return len(all_e)
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {"entries": len(self._entries) + len(self._partials),
+                    "hits": self.hits, "hit_tokens": self.hit_tokens,
+                    "insertions": self.insertions,
+                    "evictions": self.evictions}
 
 
 class KVPools:

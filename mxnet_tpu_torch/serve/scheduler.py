@@ -16,9 +16,17 @@ On re-admission it re-prefills that prefix and continues; streamed tokens
 are never re-emitted, and greedy streams stay identical to an
 uninterrupted run.
 
-QoS, the traffic journal, tracing, telemetry, speculative drafts, the
-prefix cache with copy-on-write, disaggregated handoff and fleet salvage
-wait for later slices (ROADMAP.md queue C).
+The decode fast path: with ``ServeConfig.prefix_cache`` admission
+attaches a cached prompt prefix by reference (`PrefixIndex.lookup`) and
+skips its prefill; a page still shared when a step would write into it is
+forked first (`_cow_guard`).  With ``spec_tokens=k`` every greedy slot
+whose feed reaches the end of its sequence carries up to k drafted tokens;
+the step's per-position argmax accepts the run of drafts that match it,
+and the write cursor rolls back past the rest (`_trim_pages`).  Greedy
+streams stay those of one-token decode.
+
+QoS, the traffic journal, tracing, telemetry, disaggregated handoff and
+fleet salvage wait for later slices (ROADMAP.md queue A: A14, A15).
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ from typing import Callable, List, Optional
 import numpy as np
 
 from ..base import MXNetError
+from .kv_cache import NULL_PAGE
 
 __all__ = ["ServeRequest", "ContinuousBatchingScheduler",
            "terminate_request", "expire_request", "deliver_token",
@@ -62,6 +71,9 @@ class ServeRequest:
         self.tokens: List[int] = []          # generated so far (streamed)
         self.state = "queued"                # queued|running|finished|failed
         self.evictions = 0
+        #: prompt tokens served from the prefix cache (summed across
+        #: re-admissions)
+        self.prefix_hits = 0
         # serializes terminal transitions across threads
         self._terminate_lock = threading.Lock()
         self.submitted_ts = time.perf_counter()
@@ -170,6 +182,9 @@ class _Slot:
         self.table = np.zeros(max_pages, np.int32)   # NULL_PAGE fill
         self.ctx = 0          # tokens already written to the pool
         self.admit_seq = admit_seq    # admission order (eviction priority)
+        # prompt blocks registered in the engine's PrefixIndex (once, when
+        # the prompt's prefill completes)
+        self.prefix_inserted = False
 
 
 class ContinuousBatchingScheduler:
@@ -196,6 +211,13 @@ class ContinuousBatchingScheduler:
         #: drain mode: submit/enqueue refuse new work; evicted actives
         #: still re-admit so every active stream runs to completion
         self.draining = False
+        self._steps = 0
+        # decode-fast-path accounting (`spec_stats`)
+        self.spec_proposed = 0       # draft tokens fed for verification
+        self.spec_accepted = 0       # draft tokens that matched greedy
+        self.tokens_emitted = 0      # tokens streamed (all requests)
+        self.prefix_hit_tokens = 0   # prompt tokens attached from cache
+        self.cow_forks = 0           # shared pages forked before a write
 
     # ------------------------------------------------------------------
     def validate_request(self, prompt, max_new_tokens: int) -> List[int]:
@@ -263,11 +285,34 @@ class ContinuousBatchingScheduler:
                 return i
         return None
 
+    def _alloc_pages(self, n: int) -> Optional[List[int]]:
+        """`PageAllocator.alloc` with prefix-cache pressure relief: on a
+        shortfall, LRU-evict unreferenced prefix-cache entries to cover
+        it, then retry once.  Cached-but-unused prefixes always yield to
+        live sequences."""
+        if n <= 0:
+            return []
+        pages = self.allocator.alloc(n)
+        if pages is not None:
+            return pages
+        index = self.engine.prefix_index
+        if index is None:
+            return None
+        index.evict_pages(n - self.allocator.free_pages)
+        return self.allocator.alloc(n)
+
     def _admit(self) -> None:
         """FIFO admission under memory backpressure: a request enters a
         slot only when its CURRENT sequence (prompt + already-generated,
         for re-admits) plus one decode page fits the free list — partial
-        admission would deadlock against other growing sequences."""
+        admission would deadlock against other growing sequences.
+
+        With the prefix cache on, admission first consults the
+        `PrefixIndex`: cached prompt-prefix pages are ATTACHED by
+        reference and the matching prefill chunks are skipped — the
+        slot's write cursor starts past them.  The match is capped at
+        ``len(sequence) - 1`` so the last token is always re-fed (its
+        forward pass gives the next token's logits)."""
         while True:
             with self._lock:
                 if not self._queue:
@@ -276,17 +321,30 @@ class ContinuousBatchingScheduler:
                 if idx is None:
                     return
                 req = self._queue[0]
-                need = self.allocator.pages_for(len(req._sequence()) + 1)
-                pages = self.allocator.alloc(need)
+                seq = req._sequence()
+                index = self.engine.prefix_index
+                attached, hit = ([], 0)
+                if index is not None:
+                    attached, hit = index.lookup(seq[:-1])
+                need = self.allocator.pages_for(len(seq) + 1)
+                pages = self._alloc_pages(need - len(attached))
                 if pages is None:
-                    return           # OOM backpressure: wait for frees
+                    # OOM backpressure: wait for frees (the attached pages
+                    # go back; the index keeps its own reference, so the
+                    # next attempt re-attaches)
+                    if attached:
+                        self.allocator.free(attached)
+                    return
                 self._queue.popleft()
                 slot = _Slot(req, idx, self.max_pages_per_seq,
                              next(self._admit_seq))
-                slot.pages = pages
-                slot.table[:len(pages)] = pages
+                slot.pages = attached + pages
+                slot.table[:len(slot.pages)] = slot.pages
+                slot.ctx = hit
                 self._slots[idx] = slot
             req.state = "running"
+            req.prefix_hits += hit
+            self.prefix_hit_tokens += hit
 
     def _release_slot(self, slot: _Slot) -> None:
         """Recycle a slot's KV pages and vacate it — the one way any
@@ -311,7 +369,7 @@ class ContinuousBatchingScheduler:
         even eviction cannot help (the slot itself must yield)."""
         need_total = self.allocator.pages_for(upto_tokens)
         while len(slot.pages) < need_total:
-            got = self.allocator.alloc(1)
+            got = self._alloc_pages(1)
             if got is not None:
                 slot.table[len(slot.pages)] = got[0]
                 slot.pages.extend(got)
@@ -323,6 +381,49 @@ class ContinuousBatchingScheduler:
             victims.sort(key=lambda s: s.admit_seq)
             self._evict(victims[-1])
         return True
+
+    def _cow_guard(self, slot: _Slot, first: int, last: int) -> bool:
+        """Copy-on-write before the fused step writes token positions
+        ``[first, last]``: any page in that range still SHARED (attached
+        from the prefix cache, or registered in it by this slot's own
+        prompt) is forked — a fresh page allocated, its contents copied on
+        the device (`InferenceEngine.copy_page`), the table repointed and
+        the shared original left to its other owners — so a write never
+        reaches KV another sequence (or the cache) reads.  False when the
+        pool cannot supply a fork page even after prefix-cache eviction
+        (the caller evicts this slot)."""
+        ps = self.page_size
+        for pg in range(first // ps, last // ps + 1):
+            page = int(slot.table[pg])
+            if self.allocator.refcount(page) <= 1:
+                continue
+            got = self.allocator.fork(page)
+            if got is None:
+                index = self.engine.prefix_index
+                if index is not None and index.evict_pages(1):
+                    got = self.allocator.fork(page)
+                if got is None:
+                    return False
+            new, copied = got
+            if copied:
+                self.engine.copy_page(page, new)
+                slot.table[pg] = new
+                slot.pages[pg] = new
+                self.cow_forks += 1
+        return True
+
+    def _trim_pages(self, slot: _Slot) -> None:
+        """Roll back pages past the slot's write cursor (after rejected
+        drafts), keeping the page the next decode token lands in.  They
+        were freshly allocated (attached prefix pages always sit below the
+        cursor), so they go straight back to the free list."""
+        keep = max(1, self.allocator.pages_for(slot.ctx + 1))
+        if len(slot.pages) <= keep:
+            return
+        extra = slot.pages[keep:]
+        del slot.pages[keep:]
+        slot.table[keep:keep + len(extra)] = NULL_PAGE
+        self.allocator.free(extra)
 
     def _expire_deadlines(self) -> None:
         """Fail every queued/active request past its per-request deadline
@@ -351,20 +452,56 @@ class ContinuousBatchingScheduler:
         if not actives:
             return False
 
-        # any slot with >1 pending token prefills, so the step runs at the
-        # prefill chunk width; a pure-decode round runs the C=1 step
+        # plan the chunk width: any slot with >1 pending token prefills, so
+        # the step runs at the prefill chunk width; a pure-decode round
+        # runs the C=1 step — unless the drafter proposed tokens, and then
+        # the k+1 verification width
         pending = {s.slot_idx: len(s.req._sequence()) - s.ctx
                    for s in actives}
-        C = self.prefill_chunk if any(p > 1 for p in pending.values()) \
-            else 1
+        any_prefill = any(p > 1 for p in pending.values())
 
-        # capacity: every slot must hold its chunk's tokens; slots that
-        # cannot (even after evicting younger actives) yield this round
+        # speculative drafts: any GREEDY slot whose feed reaches the end of
+        # its sequence this round (pure decode, or the last prefill chunk
+        # with spare width) carries up to k proposed tokens after its real
+        # feed, verified by the same launch
+        spec_k = self.engine.serve_config.spec_tokens
+        drafter = self.engine.drafter
+        proposals = {}
+        if spec_k > 0 and drafter is not None:
+            cmax = self.prefill_chunk if any_prefill else spec_k + 1
+            for s in actives:
+                req = s.req
+                p = pending[s.slot_idx]
+                if not req.greedy or not 1 <= p <= cmax - 1:
+                    continue
+                seq = req._sequence()
+                k_eff = min(spec_k, cmax - p,
+                            req.max_new_tokens - len(req.tokens) - 1,
+                            self.max_len - len(seq))
+                if k_eff <= 0:
+                    continue
+                d = drafter.propose(seq, k_eff)
+                if d:
+                    proposals[s.slot_idx] = [int(t) for t in d[:k_eff]]
+        if any_prefill:
+            C = self.prefill_chunk
+        elif proposals:
+            C = spec_k + 1
+        else:
+            C = 1
+
+        # capacity: every slot must hold its chunk's tokens (drafts
+        # included — rejected ones roll back after verification); slots
+        # that cannot (even after evicting younger actives) are evicted
+        # themselves this round.  The COW guard then forks any still-shared
+        # page in the write range before the step writes into it.
         for s in sorted(actives, key=lambda s: s.admit_seq):
             if self._slots[s.slot_idx] is not s:
                 continue      # already evicted by a victim search
-            if not self._ensure_capacity(
-                    s, s.ctx + min(pending[s.slot_idx], C)):
+            nt = min(pending[s.slot_idx], C) \
+                + len(proposals.get(s.slot_idx, ()))
+            if not self._ensure_capacity(s, s.ctx + nt) or \
+                    not self._cow_guard(s, s.ctx, s.ctx + nt - 1):
                 self._evict(s)
         actives = [s for s in self._slots if s is not None]
         if not actives:
@@ -378,12 +515,16 @@ class ContinuousBatchingScheduler:
         ctx_lens = np.zeros(B, np.int32)
         temps = np.ones(B, np.float32)
         greedy = np.ones(B, bool)
-        consume = {}
+        plan = {}
         for s in actives:
             seq = s.req._sequence()
-            nt = min(len(seq) - s.ctx, C)
+            nt_seq = min(len(seq) - s.ctx, C)
+            draft = proposals.get(s.slot_idx, []) \
+                if s.ctx + nt_seq == len(seq) else []
+            feed = seq[s.ctx:s.ctx + nt_seq] + draft
+            nt = len(feed)
             i = s.slot_idx
-            tok[i, :nt] = seq[s.ctx:s.ctx + nt]
+            tok[i, :nt] = feed
             num_tokens[i] = nt
             start_pos[i] = s.ctx
             tables[i] = s.table
@@ -392,11 +533,13 @@ class ContinuousBatchingScheduler:
             greedy[i] = s.req.greedy
             # the step's logits are a new token only when the feed
             # reaches the end of the sequence (mid-prefill: discarded)
-            consume[i] = s.ctx + nt == len(seq)
+            plan[i] = {"feed": feed, "nt": nt, "nt_seq": nt_seq,
+                       "ctx0": s.ctx, "draft": len(draft),
+                       "consume": s.ctx + nt_seq == len(seq)}
             s.ctx += nt
 
         try:
-            next_tokens = self.engine._execute(
+            next_tokens, all_tok = self.engine._execute(
                 tok, num_tokens, start_pos, tables, ctx_lens, temps,
                 greedy, C)
         except Exception as exc:
@@ -404,13 +547,57 @@ class ContinuousBatchingScheduler:
             # sequence: fail them all (waiters unblock with the error)
             self._fail_all(exc)
             raise
+        self._steps += 1
 
-        # distribute tokens in admission order (stable streaming)
+        # register just-prefilled prompts in the prefix cache BEFORE
+        # emitting (an emit can finish a request and release its pages):
+        # the slot's pages hold the complete prompt KV once the write
+        # cursor passed the prompt
+        index = self.engine.prefix_index
+        if index is not None:
+            for s in actives:
+                if s.prefix_inserted or self._slots[s.slot_idx] is not s:
+                    continue
+                if s.ctx >= len(s.req.prompt):
+                    index.insert(s.req.prompt, s.pages)
+                    s.prefix_inserted = True
+
+        # distribute tokens in admission order (stable streaming).  A
+        # speculating slot emits its whole accepted run — the fed
+        # position's greedy token, then each draft that matched it — and
+        # rolls its write cursor back past the rejected rest.
         for s in sorted(actives, key=lambda s: s.admit_seq):
             i = s.slot_idx
-            if not consume[i] or self._slots[i] is not s:
+            pl = plan[i]
+            if not pl["consume"] or self._slots[i] is not s:
                 continue
-            self._emit(s, int(next_tokens[i]))
+            if all_tok is None or not s.req.greedy:
+                self._emit(s, int(next_tokens[i]))
+                self.tokens_emitted += 1
+                continue
+            feed, nt = pl["feed"], pl["nt"]
+            # all_tok column t holds fed position nt - T + t
+            T = all_tok.shape[1]
+            emitted = 0
+            for j in range(pl["nt_seq"] - 1, nt):
+                tokj = int(all_tok[i, j - nt + T])
+                self._emit(s, tokj)
+                emitted += 1
+                if self._slots[i] is not s or s.req.done():
+                    break      # finished (max_new / eos)
+                if j + 1 < nt and feed[j + 1] != tokj:
+                    break      # draft rejected: stop the run
+            self.tokens_emitted += emitted
+            self.spec_proposed += pl["draft"]
+            self.spec_accepted += emitted - 1
+            if pl["draft"] and drafter is not None:
+                drafter.note_result(pl["draft"], emitted - 1)
+            if self._slots[i] is s:
+                # roll back past rejected drafts: the cursor returns to the
+                # last ACCEPTED token's position and the pages holding
+                # only rejected KV go back to the free list
+                s.ctx = pl["ctx0"] + pl["nt_seq"] + emitted - 1
+                self._trim_pages(s)
         return True
 
     def _emit(self, slot: _Slot, token: int) -> None:
@@ -454,3 +641,24 @@ class ContinuousBatchingScheduler:
     @property
     def active_count(self) -> int:
         return sum(1 for s in self._slots if s is not None)
+
+    def spec_stats(self) -> dict:
+        """Decode-fast-path accounting: speculation accept rate, tokens a
+        fused step, prefix-cache hits, COW forks."""
+        steps = max(1, self._steps)
+        return {
+            "proposed": self.spec_proposed,
+            "accepted": self.spec_accepted,
+            "accept_rate": (round(self.spec_accepted
+                                  / self.spec_proposed, 4)
+                            if self.spec_proposed else None),
+            "steps": self._steps,
+            "tokens": self.tokens_emitted,
+            "tokens_per_step": round(self.tokens_emitted / steps, 4),
+            "steps_per_token": (round(self._steps
+                                      / self.tokens_emitted, 4)
+                                if self.tokens_emitted else None),
+            "prefix_hit_tokens": self.prefix_hit_tokens,
+            "cow_forks": self.cow_forks,
+            "kv_pages_shared": self.allocator.shared_pages(),
+        }

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the card:
 ragged paged attention (both variants at the default plan, one split and
 one page a split, pages 8, 24 and 128, D 64 and 128, empty slots,
-windows, two streams, two calls bit-equal), the dequant-matmul (every plan of its menu, odd
+windows, two streams, two calls bit-equal; the speculative verification
+widths 2-8 over page tables that share and fork pages), the dequant-matmul (every plan of its menu, odd
 shapes, the tied head, two calls bit-equal), flash attention (forward and
 backward, with padding or per-row bias, causal, dropout, ragged L and
 D up to 128, under windows of 3 and 64 keys each way and with 1, 3 or 4
@@ -182,6 +183,53 @@ def test_paged_attention_splits_on_two_streams(card, dtype, C, H, Hkv):
     mine = [v for key, v in pa._scratch_of.items() if key[1] in raw]
     assert len(mine) == 2
     assert all(int(t[0].abs().sum()) == 0 for t in mine)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("C", [2, 3, 5, 8])
+@pytest.mark.parametrize("H,Hkv", [(12, 12), (12, 3)])
+def test_paged_attention_verify_widths_over_shared_and_forked_pages(
+        card, dtype, tol, C, H, Hkv):
+    """K1 at speculative verification widths (rep 1: 2-8 causal rows in
+    the chunk, the few-rows variant; rep 4: 8-32 rows) over the page
+    tables the prefix cache makes: slots 0, 2 and 3 read one physical run
+    of 6 full pages and a partial 7th (shared), slot 1 reads the same
+    prefix through a forked copy of the partial page; slot 4 feeds fewer
+    rows than C, slot 5 none.  Against the plain version, two calls
+    bit-equal, and slot 1 (same queries and K/V as slot 0 through another
+    table) bit-equal to slot 0."""
+    D, ps, maxp = 64, 16, 32
+    B = 6
+    start = [100, 100, 100, 240, 37, 0]
+    nt = [C, C, C, C, max(1, C - 2), 0]
+    args = _rpa_inputs(card, dtype, C, H, Hkv, D, ps, maxp, start, nt)
+    q, kp, vp, pt = args[:4]
+    npages = kp.shape[0]
+    ids = torch.randperm(npages - 1, generator=torch.Generator()
+                         .manual_seed(3)) + 1
+    shared, fork, rest = ids[:7], ids[7], ids[8:]
+    table = torch.zeros(B, maxp, dtype=torch.int32)
+    table[:, :7] = shared
+    table[:, 7:] = rest[:B * (maxp - 7)].view(B, maxp - 7)
+    table[1, 6] = fork
+    kp[fork].copy_(kp[shared[6]])        # the fork's copy, as copy_page
+    vp[fork].copy_(vp[shared[6]])
+    q[1].copy_(q[0])
+    args[3] = table.to(card)
+    kernels.reset_launch_counts()
+    out = pa.ragged_paged_attention(*args)
+    again = pa.ragged_paged_attention(*args)
+    ref = pa.paged_attention_reference(*args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["ragged_paged_attention"] == 2
+    assert torch.equal(out, again)
+    assert torch.equal(out[1], out[0])
+    for b, n in enumerate(nt):
+        if n:
+            err = (out[b, :, :n].float() - ref[b, :, :n].float()).abs()
+            assert float(err.max()) <= tol * float(
+                ref[b, :, :n].float().abs().max()), b
 
 
 def test_paged_attention_raises_on_a_head_dim_it_does_not_take(card):

@@ -296,10 +296,14 @@ def test_serve_config_env_defaults_and_unported_features(monkeypatch):
     with pytest.raises(MXNetError, match="quant_bits"):
         ServeConfig(quant_bits=3)
     _, tm = _pair("mha")
-    for kw in ({"kv_dtype": "int8"}, {"tp": 2}, {"spec_tokens": 2},
-               {"prefix_cache": True}, {"role": "prefill"}):
+    for kw in ({"kv_dtype": "int8"}, {"tp": 2}, {"role": "prefill"}):
         with pytest.raises(MXNetError, match="ROADMAP"):
             InferenceEngine(tm, ServeConfig(**kw), device="cpu")
+    # speculation and the prefix cache are ported
+    eng = InferenceEngine(tm, ServeConfig(max_slots=1, max_len=32,
+                                          spec_tokens=2, prefix_cache=True),
+                          device="cpu")
+    assert eng.drafter is not None and eng.prefix_index is not None
     eng = InferenceEngine(tm, ServeConfig(max_slots=1, max_len=32),
                           device="cpu")
     for call in (lambda: eng.export("x"), lambda: eng.load_export("x"),
