@@ -9,8 +9,9 @@ hidden 768, vocab 50257, seeded random weights), the BERT-base pretraining
 step at full width and depth, Switch-MoE training at switch-base-8's
 widths (hidden 768, FFN 3072, 8 experts) through `TrainStep` and the gluon
 `Trainer`, GPT-2-small causal-LM training at full width and depth, the
-same with Mistral 7B's attention (RoPE, grouped K/V, a sliding window),
-serving with speculative decoding and the prefix cache plus beam search,
+same with Mistral 7B's attention (RoPE, grouped K/V, a sliding window)
+and with Gemma 2B's (heads of 256 over one kv head, RoPE), serving with
+speculative decoding and the prefix cache plus beam search,
 and the Transformer translation model (``transformer_base``):
 
 1. prints the card (name and power limit from ``nvidia-smi``) and the
@@ -21,7 +22,9 @@ and the Transformer translation model (``transformer_base``):
    non-page-aligned lengths, with and without a window; f32 queries over a
    bf16 pool at C=1 and C=16, MHA, held to the bf16 tolerance; the
    speculative verification width C=5, MHA and GQA, with two slots'
-   tables sharing a 7-page prefix; each with its launch plan) and K2 int8/int4 dequant-matmul (f32/bf16 activations, M
+   tables sharing a 7-page prefix; the wide heads of `K1_WIDE`: D 256 at
+   3 heads over one kv head, C=1 and 16, Gemma 2B's 8 over one at C=1,
+   and D 72 and 24 at C=1, f32 and bf16; each with its launch plan) and K2 int8/int4 dequant-matmul (f32/bf16 activations, M
    in {8, 128}, the four GPT-2 projection shapes, and the tied head (8,
    50257, 768) at int8 f32) — two calls bit-equal, within max-abs 1e-4
    (f32) / 2e-2 (bf16) of the output scale, and times kernel, plain
@@ -64,7 +67,11 @@ and the Transformer translation model (``transformer_base``):
    and beside the bound of the pairs the band keeps; then the nmt phase's
    three attentions (`FLASH_NMT_CASES`: the encoder's padded
    self-attention with dropout, the decoder's causal one, cross-attention
-   with Lq 96 over Lk 128) the same way;
+   with Lq 96 over Lk 128) the same way; then the wide heads
+   (`FLASH_WIDE_CASES`: the gpt_d256 phase's (8, 3 over 1 kv head, 1024,
+   256) causal with dropout, Gemma 2B's (2, 8 over 1, 2048, 256) causal,
+   BERT's padded batch at (64, 3, 128, 256) with dropout, and (4, 4 over
+   2, 512, 192) under a causal window of 128) the same way;
 7. (k4) the streaming softmax cross-entropy, forward and backward, against
    its plain version at (1280, 30522) in f32 and bf16, at the odd V 50257,
    at the gpt phase's logits (8192, 50257) and the nmt phase's (3072,
@@ -191,7 +198,22 @@ and the Transformer translation model (``transformer_base``):
    serves (streams equal to the plain engine's) and four prompts through
    ``generate(use_cache=False)`` (the folded windowed flash forward over
    the whole context) equal to the cached stream.
-16. (spec_prefix) ``gpt_small(dropout=0.0)`` in f32 served through
+16. (gpt_d256) the gpt phase's model, batch and optimizer with Gemma 2B's
+   attention (Gemma Team 2024, arXiv 2403.08295, Table 1: head size 256,
+   one kv head, RoPE) at GPT-2 small's widths, ``D256_ARCH``: 3 query
+   heads of 256 over one kv head, RoPE; 20 steps through ``TrainStep`` in
+   bf16 and f32, ``gluon.Trainer`` in bf16 and ``TrainStep`` in bf16 under
+   ``remat="full"``, flash 12 + 12 launches a step (24 + 12 under remat),
+   each trajectory held to its plain oracle (`gpt_tol`, the bf16 floor
+   measured for this model), remat within 1e-5 of no remat, two planted
+   faults in f32 (the kernels see only the first 128 columns of q, k and
+   v; the kernels get a softmax scale of 1 / sqrt(128)) that must depart
+   from the f32 oracle by more than 1e-4; then the model in f32 served as
+   phase 3 serves (K1 at D 256 over one kv head; streams equal to the
+   plain engine's) and four prompts through ``generate(use_cache=False)``
+   equal to the cached stream and to the plain engine's.  Prints its
+   seconds.
+17. (spec_prefix) ``gpt_small(dropout=0.0)`` in f32 served through
    ``ServeConfig(max_slots=8, max_len=512, page_size=16, prefill_chunk=16,
    spec_tokens=4, prefix_cache=True)``: one primer request (a 100-token
    prefix) run to idle, then 16 greedy requests extending it with
@@ -209,7 +231,7 @@ and the Transformer translation model (``transformer_base``):
    32-token prompts, 16 new tokens, equal to the same call on a CPU copy
    of the model, or apart only where the two winners' length-normalised
    scores (one ``forward``) are within 1e-4.
-17. (nmt) ``transformer_base()`` (Vaswani et al. 2017, Table 3 "base":
+18. (nmt) ``transformer_base()`` (Vaswani et al. 2017, Table 3 "base":
    d_model 512, 6 + 6 layers, 8 heads, d_ff 2048, vocabularies 32000;
    pre-LN; seed 0, dropout 0.1) on a seeded batch of 32 sources of 128
    tokens padded by ``src_valid_length`` (64-128) and 96 target tokens:
@@ -361,6 +383,16 @@ K1_TYPES = (("float32", "float32"), ("bfloat16", "bfloat16"),
 K1_VERIFY_C = 5       # spec_prefix's verification width, spec_tokens 4 + 1
 
 
+K1_B, K1_PS, K1_MAXP = 8, 16, 32   # slots, page size, table entries
+K1_START = (0, 37, 100, 255, 300, 0, 470, 16)
+# the wide heads: (D, H, kv heads, C) -- gpt_d256's serving (3 heads
+# of 256 over one kv head) at decode and at the prefill chunk, Gemma 2B's
+# 8 query heads over one kv head at decode, and two widths that are not a
+# multiple of 16 (72, 24) at decode; each f32 and bf16, no window
+K1_WIDE = ((256, 3, 1, 1), (256, 3, 1, 16), (256, 8, 1, 1), (72, 12, 12, 1),
+           (24, 12, 12, 1))
+
+
 def k1_cases(dev):
     """K1 at the main path's shapes: 8 slots, 12 heads, D 64, page 16, a
     257-page pool, 32 table entries per slot (max_len 512); f32 queries
@@ -368,124 +400,124 @@ def k1_cases(dev):
     tolerance; and the spec_prefix phase's verification width C = 5
     (`K1_VERIFY_C`), f32 and bf16, MHA and GQA rep 4, where slot 4's table
     shares its first 7 pages with slot 2's (a cached prefix attached to
-    two sequences), so the bound counts each shared K/V row once."""
+    two sequences), so the bound counts each shared K/V row once; then
+    the wide heads of `K1_WIDE`."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    out = []
+    for dtype, pool in K1_TYPES:
+        mixed = pool != dtype
+        for C in (1, 16) if mixed else (1, K1_VERIFY_C, 16):
+            verify = C == K1_VERIFY_C
+            for Hkv in (12,) if mixed else (12, 3):
+                for window in (None,) if mixed or verify else (None, 64):
+                    out.append(_k1_case(dev, rng, dtype, pool, C, 12, Hkv,
+                                        64, window, verify))
+    for D, H, Hkv, C in K1_WIDE:
+        for dtype in ("float32", "bfloat16"):
+            out.append(_k1_case(dev, rng, dtype, dtype, C, H, Hkv, D, None,
+                                False))
+    return out
+
+
+def _k1_case(dev, rng, dtype, pool, C, H, Hkv, D, window, verify):
+    """One K1 case: seeded queries and pools from `rng`, the kernel against
+    its plain version over the valid rows, two calls bit-equal, timed
+    beside SDPA over a pre-gathered, head-expanded context, with the
+    bound of the bytes and products this data needs."""
     import numpy as np
     import torch
     from mxnet_tpu_torch.ops import paged_attention as pa
 
-    B, H, D, ps, maxp = 8, 12, 64, 16, 32
+    B, ps, maxp = K1_B, K1_PS, K1_MAXP
     npages = B * maxp + 1
-    rng = np.random.RandomState(0)
-    start = np.array([0, 37, 100, 255, 300, 0, 470, 16], np.int32)
-    out = []
-    for dtype, pool in K1_TYPES:
-        dt, pdt = getattr(torch, dtype), getattr(torch, pool)
-        mixed = pool != dtype
-        for C in (1, 16) if mixed else (1, K1_VERIFY_C, 16):
-            nt = np.array([C, C, min(C, 5), C, 1, 0, C, C], np.int32)
-            ctx = start + nt
-            verify = C == K1_VERIFY_C
-            for Hkv in (12,) if mixed else (12, 3):
-                for window in (None,) if mixed or verify else (None, 64):
-                    q = torch.from_numpy(rng.randn(B, H, C, D).astype(
-                        np.float32)).to(dev, dt)
-                    kp = torch.from_numpy(rng.randn(npages, ps, Hkv, D)
-                                          .astype(np.float32)).to(dev, pdt)
-                    vp = torch.from_numpy(rng.randn(npages, ps, Hkv, D)
-                                          .astype(np.float32)).to(dev, pdt)
-                    pt_np = (rng.permutation(npages - 1) + 1).reshape(
-                        B, maxp).astype(np.int32)
-                    if verify:
-                        pt_np[4, :7] = pt_np[2, :7]    # a shared prefix
-                    pt = torch.from_numpy(pt_np).to(dev)
-                    ctx_t = torch.from_numpy(ctx).to(dev)
-                    st_t = torch.from_numpy(start).to(dev)
-                    args = (q, kp, vp, pt, ctx_t, st_t)
-                    got = pa.ragged_paged_attention(*args, window=window)
-                    ref = pa.paged_attention_reference(*args,
-                                                       window=window)
-                    torch.cuda.synchronize()
-                    err = scale = 0.0
-                    for b in range(B):
-                        n = int(nt[b])
-                        if n == 0:
-                            continue
-                        d = (got[b, :, :n].float() - ref[b, :, :n].float())
-                        err = max(err, float(d.abs().max()))
-                        scale = max(scale,
-                                    float(ref[b, :, :n].float().abs().max()))
-                    # library yardstick: SDPA over a pre-gathered,
-                    # head-expanded context with the same boolean mask
-                    L = maxp * ps
-                    kc = pa.gather_pages(kp, pt).permute(0, 2, 1, 3)
-                    vc = pa.gather_pages(vp, pt).permute(0, 2, 1, 3)
-                    kc = kc.repeat_interleave(H // Hkv, 1).to(dt) \
-                        .contiguous()
-                    vc = vc.repeat_interleave(H // Hkv, 1).to(dt) \
-                        .contiguous()
-                    t_idx = torch.arange(L, device=dev)
-                    qpos = st_t[:, None] + torch.arange(C, device=dev)
-                    mask = (t_idx[None, None, :] <= qpos[:, :, None]) & \
-                        (t_idx[None, None, :] < ctx_t[:, None, None])
-                    if window is not None:
-                        mask &= t_idx[None, None, :] >= \
-                            qpos[:, :, None] - window
-                    mask = mask[:, None]
-                    sdpa = torch.nn.functional.scaled_dot_product_attention
-                    again = pa.ragged_paged_attention(*args, window=window)
-                    plan = pa._plan(B, H, Hkv, C, D, ps, maxp, pdt,
-                                    pa._kernels.sm_count(q.device))
-                    case = dict(dtype=dtype, pool_dtype=pool, C=C, Hkv=Hkv,
-                                window=window, shared_pages=7 if verify
-                                else 0, plan=dict(plan._asdict()),
-                                max_abs_err=err, out_scale=scale,
-                                tol=TOL[pool] * scale,
-                                bit_equal_calls=bool(torch.equal(got,
-                                                                 again)))
-                    case["ok"] = err <= case["tol"] and \
-                        case["bit_equal_calls"]
+    start = np.array(K1_START, np.int32)
+    dt, pdt = getattr(torch, dtype), getattr(torch, pool)
+    nt = np.array([C, C, min(C, 5), C, 1, 0, C, C], np.int32)
+    ctx = start + nt
+    q = torch.from_numpy(rng.randn(B, H, C, D).astype(
+        np.float32)).to(dev, dt)
+    kp = torch.from_numpy(rng.randn(npages, ps, Hkv, D)
+                          .astype(np.float32)).to(dev, pdt)
+    vp = torch.from_numpy(rng.randn(npages, ps, Hkv, D)
+                          .astype(np.float32)).to(dev, pdt)
+    pt_np = (rng.permutation(npages - 1) + 1).reshape(
+        B, maxp).astype(np.int32)
+    if verify:
+        pt_np[4, :7] = pt_np[2, :7]    # a shared prefix
+    pt = torch.from_numpy(pt_np).to(dev)
+    ctx_t = torch.from_numpy(ctx).to(dev)
+    st_t = torch.from_numpy(start).to(dev)
+    args = (q, kp, vp, pt, ctx_t, st_t)
+    got = pa.ragged_paged_attention(*args, window=window)
+    ref = pa.paged_attention_reference(*args, window=window)
+    torch.cuda.synchronize()
+    err = scale = 0.0
+    for b in range(B):
+        n = int(nt[b])
+        if n == 0:
+            continue
+        d = (got[b, :, :n].float() - ref[b, :, :n].float())
+        err = max(err, float(d.abs().max()))
+        scale = max(scale, float(ref[b, :, :n].float().abs().max()))
+    # library yardstick: SDPA over a pre-gathered, head-expanded context
+    # with the same boolean mask
+    L = maxp * ps
+    kc = pa.gather_pages(kp, pt).permute(0, 2, 1, 3)
+    vc = pa.gather_pages(vp, pt).permute(0, 2, 1, 3)
+    kc = kc.repeat_interleave(H // Hkv, 1).to(dt).contiguous()
+    vc = vc.repeat_interleave(H // Hkv, 1).to(dt).contiguous()
+    t_idx = torch.arange(L, device=dev)
+    qpos = st_t[:, None] + torch.arange(C, device=dev)
+    mask = (t_idx[None, None, :] <= qpos[:, :, None]) & \
+        (t_idx[None, None, :] < ctx_t[:, None, None])
+    if window is not None:
+        mask &= t_idx[None, None, :] >= qpos[:, :, None] - window
+    mask = mask[:, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    again = pa.ragged_paged_attention(*args, window=window)
+    plan = pa._plan(B, H, Hkv, C, D, ps, maxp, pdt,
+                    pa._kernels.sm_count(q.device))
+    case = dict(dtype=dtype, pool_dtype=pool, C=C, H=H, Hkv=Hkv, D=D,
+                window=window, shared_pages=7 if verify else 0,
+                plan=dict(plan._asdict()), max_abs_err=err,
+                out_scale=scale, tol=TOL[pool] * scale,
+                bit_equal_calls=bool(torch.equal(got, again)))
+    case["ok"] = err <= case["tol"] and case["bit_equal_calls"]
 
-                    def kern():
-                        return pa.ragged_paged_attention(*args,
-                                                         window=window)
+    def kern():
+        return pa.ragged_paged_attention(*args, window=window)
 
-                    def lib():
-                        return sdpa(q, kc, vc, attn_mask=mask)
+    def lib():
+        return sdpa(q, kc, vc, attn_mask=mask)
 
-                    case["ms"] = time_ms(kern)
-                    case["device_ms"] = time_ms(kern, device_only=True)
-                    case["host_us"] = host_us(kern)
-                    case["plain_ms"] = time_ms(
-                        lambda: pa.paged_attention_reference(
-                            *args, window=window))
-                    case["library_ms"] = time_ms(lib)
-                    case["library_device_ms"] = time_ms(lib,
-                                                        device_only=True)
-                    case["library_host_us"] = host_us(lib)
-                    case["vs_library"] = case["ms"] / case["library_ms"]
-                    # the work this data needs: q + the distinct K/V rows
-                    # below ctx (from the window's floor; a shared page's
-                    # rows once) + out + indices
-                    item, pitem = q.element_size(), kp.element_size()
-                    keys = len({(int(pt_np[b, p // ps]), p % ps)
-                                for b, (s, c) in enumerate(zip(start, ctx))
-                                for p in range(
-                                    max(0, int(s) - window)
-                                    if window is not None else 0, int(c))})
-                    attended = 0
-                    for s, n in zip(start, nt):
-                        for c in range(int(n)):
-                            p = int(s) + c
-                            lo = max(0, p - window) if window is not None \
-                                else 0
-                            attended += p - lo + 1
-                    nbytes = 2 * q.numel() * item \
-                        + 2 * keys * Hkv * D * pitem + 4 * (B * maxp + 2 * B)
-                    flops = 4.0 * attended * H * D
-                    case["bound_ms"], case["bound_by"] = bound(
-                        nbytes, flops, dtype)
-                    out.append(case)
-    return out
+    case["ms"] = time_ms(kern)
+    case["device_ms"] = time_ms(kern, device_only=True)
+    case["host_us"] = host_us(kern)
+    case["plain_ms"] = time_ms(
+        lambda: pa.paged_attention_reference(*args, window=window))
+    case["library_ms"] = time_ms(lib)
+    case["library_device_ms"] = time_ms(lib, device_only=True)
+    case["library_host_us"] = host_us(lib)
+    case["vs_library"] = case["ms"] / case["library_ms"]
+    # the work this data needs: q + the distinct K/V rows below ctx (from
+    # the window's floor; a shared page's rows once) + out + indices
+    item, pitem = q.element_size(), kp.element_size()
+    keys = len({(int(pt_np[b, p // ps]), p % ps)
+                for b, (s, c) in enumerate(zip(start, ctx))
+                for p in range(max(0, int(s) - window)
+                               if window is not None else 0, int(c))})
+    attended = 0
+    for s, n in zip(start, nt):
+        for c in range(int(n)):
+            p = int(s) + c
+            lo = max(0, p - window) if window is not None else 0
+            attended += p - lo + 1
+    nbytes = 2 * q.numel() * item + 2 * keys * Hkv * D * pitem \
+        + 4 * (B * maxp + 2 * B)
+    flops = 4.0 * attended * H * D
+    case["bound_ms"], case["bound_by"] = bound(nbytes, flops, dtype)
+    return case
 
 
 K2_SHAPES = [(2304, 768), (768, 768), (3072, 768), (768, 3072)]
@@ -785,13 +817,25 @@ FLASH_NMT_CASES = (
     ("nmt_encoder", 32, 8, 8, 128, 128, False, None, True, True, 0.1),
     ("nmt_decoder", 32, 8, 8, 96, 96, True, None, True, False, 0.1),
     ("nmt_cross", 32, 8, 8, 96, 128, False, None, True, True, 0.0))
+# the wide heads, the band cases' fields then D: the gpt_d256
+# phase's attention (3 heads of 256 over one kv head at L 1024, causal,
+# dropout 0.1), Gemma 2B's own (8 heads of 256 over one kv head at L 2048,
+# causal), BERT's batch at 3 heads of 256 with its padding and dropout
+# (MHA, not causal), and a width JAX's kernel does not take (192: 4 heads
+# over 2 kv heads at L 512, causal window 128)
+FLASH_WIDE_CASES = (
+    ("d256_mqa", 8, 3, 1, 1024, 1024, True, None, False, False, 0.1, 256),
+    ("gemma2b", 2, 8, 1, 2048, 2048, True, None, False, False, 0.0, 256),
+    ("d256_pad", 64, 3, 3, 128, 128, False, None, True, True, 0.1, 256),
+    ("d192_window", 4, 4, 2, 512, 512, True, 128, False, False, 0.0, 192))
 
 
 def k3_cases(dev):
     """The flash kernels at BERT-base's attention shape, one (b, h) per
     bh: B 64, H 12, L 128, D 64; then at GPT-2 small's: B 8, H 12, L 1024,
-    D 64, causal with dropout 0.1; then `FLASH_BAND_CASES` and
-    `FLASH_NMT_CASES` (source lengths as the nmt phase draws them)."""
+    D 64, causal with dropout 0.1; then `FLASH_BAND_CASES`,
+    `FLASH_NMT_CASES` (source lengths as the nmt phase draws them) and
+    the wide heads, `FLASH_WIDE_CASES`."""
     import torch
     from mxnet_tpu_torch import kernels
     from mxnet_tpu_torch.ops import flash_attention as fa
@@ -812,6 +856,10 @@ def k3_cases(dev):
             out.append(_flash_band_case(dev, fa, kernels, sdpa, g, seed,
                                         dtype, *case,
                                         pad_lo=NMT_VL[0] / NMT_VL[1]))
+    for case in FLASH_WIDE_CASES:
+        for dtype in ("float32", "bfloat16"):
+            out.append(_flash_band_case(dev, fa, kernels, sdpa, g, seed,
+                                        dtype, *case))
     return out
 
 
@@ -2545,6 +2593,35 @@ def gpt_run(dev, dtype, plain, batch, remat=False, entry="step",
     from mxnet_tpu_torch.ops import nn as tnn
 
     gen_contexts, common_args = tnn._generator_contexts, fa._common_args
+    fwd_cuda, bwd_cuda = fa._flash_fwd_cuda, fa._flash_bwd_cuda
+    if fault == "columns_past_128_dropped":
+        # the kernels see q, k, v cut to their first 128 columns; the
+        # output and the gradients are zero-padded back to D
+        def cut(t):
+            return t[..., :128].contiguous()
+
+        def pad(t, d):
+            return torch.nn.functional.pad(t, (0, d - t.shape[-1]))
+
+        # (the wrappers' arguments; the plan, made for D, is left out)
+        def cut_fwd(q, k, v, bias3, seed, scale, causal, rate, per_head,
+                    per_row, plan=None, *band):
+            o, lse = fwd_cuda(cut(q), cut(k), cut(v), bias3, seed, scale,
+                              causal, rate, per_head, per_row, None, *band)
+            return pad(o, q.shape[-1]), lse
+
+        def cut_bwd(q, k, v, bias3, seed, o, lse, g, scale, causal, rate,
+                    per_head, per_row, plan=None, *band):
+            grads = bwd_cuda(cut(q), cut(k), cut(v), bias3, seed, cut(o),
+                             lse, cut(g), scale, causal, rate, per_head,
+                             per_row, None, *band)
+            return tuple(pad(x, q.shape[-1]) for x in grads)
+        fa._flash_fwd_cuda, fa._flash_bwd_cuda = cut_fwd, cut_bwd
+    if fault == "scale_of_128":
+        # the kernels are given a softmax scale of 1 / sqrt(128)
+        def scale_128(q, k, bias3, scale, *args):
+            return common_args(q, k, bias3, 128 ** -0.5, *args)
+        fa._common_args = scale_128
     if fault == "remat_without_generator_restore":
         tnn._generator_contexts = lambda gens: (contextlib.nullcontext(),
                                                 contextlib.nullcontext())
@@ -2583,6 +2660,7 @@ def gpt_run(dev, dtype, plain, batch, remat=False, entry="step",
         groups = len({p.dtype for p in model.parameters()})
     finally:
         tnn._generator_contexts, fa._common_args = gen_contexts, common_args
+        fa._flash_fwd_cuda, fa._flash_bwd_cuda = fwd_cuda, bwd_cuda
     del model, step
     torch.cuda.empty_cache()
     return dict(losses=[float(x) for x in losses], step_ms=step_s * 1e3,
@@ -2820,7 +2898,7 @@ def run_gpt_gqa(dev, results, card):
                 f"gpt_gqa control {fault}: the planted fault departs by "
                 f"only {dev_rel:.3g} <= {tol}; the check cannot see it")
     try:
-        gqa_serve(dev, results)
+        arch_serve(dev, results, GQA_ARCH, "gpt_gqa")
     except Exception as e:          # reported with the training problems
         traceback.print_exc()
         problems.append(f"gpt_gqa serving: {e}")
@@ -2828,17 +2906,19 @@ def run_gpt_gqa(dev, results, card):
         raise AssertionError("; ".join(problems))
 
 
-def gqa_serve(dev, results):
-    """The gpt_gqa model in f32 (dropout 0) served as phase 3 serves GPT-2
-    small: streams equal to the plain engine's; then `GQA_GENERATE` prompts
-    through ``generate(use_cache=False)`` -- the folded windowed flash
-    forward over the whole context, once a layer a new token -- equal to
-    the cached ``generate``."""
+def arch_serve(dev, results, arch, name, against_plain=False):
+    """`gpt_small(dropout=0.0, **arch)` in f32 served through
+    `serve_phase`: K1 launched once a layer a fused step, streams equal to
+    the plain engine's (near ties aside); then `GQA_GENERATE` prompts
+    through ``generate(use_cache=False)`` (the flash forward over the
+    whole context, once a layer a new token), equal to the cached
+    ``generate`` and, with `against_plain`, to the plain engine's streams.
+    Stored as ``results[name + "_serve"]``."""
     import torch
     from mxnet_tpu_torch import kernels
     from mxnet_tpu_torch.models import GPTForCausalLM, gpt_small
 
-    cfg = gpt_small(dropout=0.0, **GQA_ARCH)
+    cfg = gpt_small(dropout=0.0, **arch)
     model = GPTForCausalLM(cfg, device=dev, seed=0)
     prompts = make_prompts(cfg.vocab_size)
     max_new = 32
@@ -2849,11 +2929,11 @@ def gqa_serve(dev, results):
             f"K1 launched {st['launches']['ragged_paged_attention']} times "
             f"over {st['fused_steps']} fused steps (want {L} per step)")
     st["near_ties_vs_plain"] = compare_streams(
-        streams, pstreams, plain.P, cfg, "gpt_gqa f32 kernel vs plain")
+        streams, pstreams, plain.P, cfg, f"{name} f32 kernel vs plain")
     for s_, p in zip(streams, prompts):
         if len(s_) != len(p) + max_new or not all(
                 0 <= t < cfg.vocab_size for t in s_):
-            raise AssertionError("gpt_gqa: malformed stream")
+            raise AssertionError(f"{name}: malformed stream")
     gen = prompts[:GQA_GENERATE]
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -2867,14 +2947,139 @@ def gqa_serve(dev, results):
     want = L * max_new * len(gen)
     if st["uncached_launches"]["flash_attention_fwd"] != want:
         raise AssertionError(
-            f"gpt_gqa: uncached generate launched the flash forward "
+            f"{name}: uncached generate launched the flash forward "
             f"{st['uncached_launches']['flash_attention_fwd']} times, want "
             f"{want}")
     st["near_ties_uncached_vs_cached"] = compare_streams(
-        slow, fast, plain.P, cfg, "gpt_gqa generate(use_cache=False) vs "
+        slow, fast, plain.P, cfg, f"{name} generate(use_cache=False) vs "
         "cached")
-    results["gpt_gqa_serve"] = st
-    print(f"[gpt_gqa serve] {json.dumps(st)}", flush=True)
+    if against_plain:
+        st["near_ties_uncached_vs_plain"] = compare_streams(
+            slow, pstreams[:len(gen)], plain.P, cfg,
+            f"{name} generate(use_cache=False) vs the plain engine")
+    results[name + "_serve"] = st
+    print(f"[{name} serve] {json.dumps(st)}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# gpt_d256: GPT-2 small's widths with Gemma 2B's attention
+# ---------------------------------------------------------------------------
+
+# Gemma 2B (Gemma Team 2024, arXiv 2403.08295, Table 1): head size 256, one
+# kv head (multi-query), RoPE.  At GPT-2 small's hidden 768 that is 3
+# query heads of 256 over one kv head; depth, FFN, vocabulary and context
+# stay GPT-2 small's
+D256_ARCH = dict(num_heads=3, num_kv_heads=1, rope=True, rope_theta=10000.0)
+# (weights, remat, entry point): TrainStep in bf16 and f32, the gluon
+# Trainer in bf16, and TrainStep in bf16 under remat="full"
+D256_RUNS = (("bfloat16", False, "step"), ("float32", False, "step"),
+             ("bfloat16", False, "trainer"), ("bfloat16", "full", "step"))
+# planted faults, each run in f32 and read against the f32 oracle at
+# `gpt_tol`'s 1e-4: the kernels see q, k and v cut to their first 128
+# columns (the output and gradients zero-padded back), and the kernels are
+# given a softmax scale of 1 / sqrt(128)
+D256_FAULTS = ("columns_past_128_dropped", "scale_of_128")
+
+
+def run_gpt_d256(dev, results, card):
+    import torch
+    from mxnet_tpu_torch.models import GPTForCausalLM, gpt_small
+
+    t_phase = time.perf_counter()
+    cfg = gpt_small(**D256_ARCH)
+    batch = gpt_batch(dev, cfg.vocab_size)
+    tokens = GPT_B * GPT_L
+    flops = GPTForCausalLM.flops_per_token(cfg, GPT_L) * tokens
+    runs, floors = results["gpt_d256"], results["gpt_d256_one_ulp"]
+    problems = []        # every run and control is reported before failing
+    for dtype, remat, entry in D256_RUNS:
+        key = f"{dtype}_{entry}_remat_{remat or 'off'}"
+        st, step_s = gpt_run(dev, dtype, False, batch, remat, entry,
+                             arch=D256_ARCH)
+        if dtype == "bfloat16" and dtype not in floors:
+            # the chaos of this bf16 run, as in the gpt phase
+            nst, _ = gpt_run(dev, dtype, False, batch, nudge=True,
+                             arch=D256_ARCH)
+            floors[dtype] = c = dict(
+                losses=nst["losses"],
+                trajectory_rel_dev=traj_dev(nst["losses"], st["losses"]))
+            print(f"[gpt_d256 one ulp {dtype}] {json.dumps(c)}", flush=True)
+        pst, pstep_s = gpt_run(dev, dtype, True, batch, remat, entry,
+                               arch=D256_ARCH)
+        want = gpt_want_launches(st["dtype_groups"], cfg.num_layers,
+                                 bool(remat))
+        got = {k: st["launches"][k] for k in want}
+        others = {k: v for k, v in st["launches"].items()
+                  if k not in want and v}
+        if got != want or others:
+            problems.append(f"gpt_d256 {key}: kernel launches {got} (and "
+                            f"{others}), want {want} over {TRAIN_STEPS} "
+                            f"steps")
+        if any(pst["launches"].values()):
+            problems.append(f"gpt_d256 {key}: the plain run launched "
+                            f"kernels {pst['launches']}")
+        ls = st["losses"]
+        dev_rel = traj_dev(ls, pst["losses"])
+        floor = floors.get(dtype, {}).get("trajectory_rel_dev", 0.0)
+        tol = gpt_tol(dtype, floor)
+        st.update(plain_losses=pst["losses"], plain_step_ms=pst["step_ms"],
+                  plain_peak_mem_gb=pst["peak_mem_gb"],
+                  trajectory_rel_dev=dev_rel, trajectory_tol=tol,
+                  one_ulp_floor=floor,
+                  within_traj_tol=dev_rel <= traj_tol(dtype, "auto"),
+                  tokens_per_s=tokens / step_s,
+                  plain_tokens_per_s=tokens / pstep_s,
+                  flops_per_step=flops, tflops=flops / step_s / 1e12,
+                  bf16_peak_share=flops / step_s / PEAK["bfloat16"])
+        if remat:
+            base = runs["bfloat16_step_remat_off"]
+            st["remat_rel_dev"] = traj_dev(ls, base["losses"])
+            st["remat_rtol"] = REMAT_RTOL
+            st["no_remat_peak_mem_gb"] = base["peak_mem_gb"]
+        runs[key] = st
+        print(f"[gpt_d256 {key}] {json.dumps(st)}", flush=True)
+        print(f"[gpt_d256 {key}] {tokens / step_s:.1f} tokens/s, "
+              f"{st['step_ms']:.2f} ms/step, {st['tflops']:.2f} TFLOP/s = "
+              f"{100 * st['bf16_peak_share']:.2f}% of the dense bf16 peak "
+              f"(989 TFLOP/s) of {card}; peak memory "
+              f"{st['peak_mem_gb']:.2f} GB; trajectory vs plain "
+              f"{dev_rel:.3g} (limit {tol:.3g})", flush=True)
+        if not all(math.isfinite(x) for x in ls):
+            problems.append(f"gpt_d256 {key}: non-finite loss {ls}")
+        if dev_rel > tol:
+            problems.append(
+                f"gpt_d256 {key}: loss trajectory departs from the plain "
+                f"path's by {dev_rel:.3g} > {tol} ({ls} vs {pst['losses']})")
+        if not ls[-1] < ls[0]:
+            problems.append(f"gpt_d256 {key}: loss did not fall {ls}")
+        if remat and st["remat_rel_dev"] > REMAT_RTOL:
+            problems.append(
+                f"gpt_d256 {key}: remat departs from no remat by "
+                f"{st['remat_rel_dev']:.3g} > {REMAT_RTOL}")
+
+    ref = runs["float32_step_remat_off"]["plain_losses"]
+    tol = gpt_tol("float32", 0.0)
+    for fault in D256_FAULTS:
+        st, _ = gpt_run(dev, "float32", False, batch, fault=fault,
+                        arch=D256_ARCH)
+        dev_rel = traj_dev(st["losses"], ref)
+        results["gpt_d256_controls"][fault] = c = dict(
+            losses=st["losses"], trajectory_rel_dev=dev_rel,
+            trajectory_tol=tol, over_tol=dev_rel / tol, caught=dev_rel > tol)
+        print(f"[gpt_d256 control {fault}] {json.dumps(c)}", flush=True)
+        if not c["caught"]:
+            problems.append(
+                f"gpt_d256 control {fault}: the planted fault departs by "
+                f"only {dev_rel:.3g} <= {tol}; the check cannot see it")
+    try:
+        arch_serve(dev, results, D256_ARCH, "gpt_d256", against_plain=True)
+    except Exception as e:          # reported with the training problems
+        traceback.print_exc()
+        problems.append(f"gpt_d256 serving: {e}")
+    results["gpt_d256_s"] = time.perf_counter() - t_phase
+    print(f"[gpt_d256] phase {results['gpt_d256_s']:.1f} s", flush=True)
+    if problems:
+        raise AssertionError("; ".join(problems))
 
 
 # ---------------------------------------------------------------------------
@@ -3408,7 +3613,7 @@ def kernel_entries(results):
     k1, k2, k3, k4, k5, k6, k7 = (results[k] for k in (
         "k1", "k2", "k3", "k4", "k5", "k6", "k7"))
     rep1 = next(c for c in k1 if c["dtype"] == "float32" and c["C"] == 1
-                and c["Hkv"] == 12 and c["window"] is None
+                and c["Hkv"] == 12 and c["window"] is None and c["D"] == 64
                 and c["pool_dtype"] == "float32")
     rep1m = next(c for c in k1 if c["pool_dtype"] != c["dtype"]
                  and c["C"] == 1)
@@ -3441,6 +3646,8 @@ def kernel_entries(results):
     train = dict(results["train"], **results["moe"])
     train.update({"gpt_" + k: v for k, v in results["gpt"].items()})
     train.update({"gpt_gqa_" + k: v for k, v in results["gpt_gqa"].items()})
+    train.update({"gpt_d256_" + k: v
+                  for k, v in results["gpt_d256"].items()})
     nmt_runs = [results["nmt"][dt] for dt in ("float32", "bfloat16")
                 if dt in results["nmt"]]
     train.update({f"nmt_{i}": r for i, r in enumerate(nmt_runs)})
@@ -3460,6 +3667,9 @@ def kernel_entries(results):
                                     for r in results["gpt"].values()),
                 "gpt_gqa_launches": sum(r["launches"].get(name, 0)
                                         for r in results["gpt_gqa"].values()),
+                "gpt_d256_launches": sum(
+                    r["launches"].get(name, 0)
+                    for r in results["gpt_d256"].values()),
                 "nmt_launches": sum(r["launches"].get(name, 0)
                                     for r in nmt_runs),
                 "max_abs_err": max(c["max_abs_err"] for c in cases),
@@ -3529,13 +3739,20 @@ def kernel_entries(results):
                f32q_bf16pool_bound_ms=rep1m["bound_ms"],
                f32q_bf16pool_max_abs_err=rep1m["max_abs_err"])
     # the verification width over a shared prefix, each dtype and kv heads
+    # and the wide heads (`K1_WIDE`)
     for c in k1:
+        dt = "f32" if c["dtype"] == "float32" else "bf16"
         if c["C"] == K1_VERIFY_C:
-            tag = (f"verify_c{c['C']}_hkv{c['Hkv']}_"
-                   + ("f32" if c["dtype"] == "float32" else "bf16"))
-            k1e.update({f"{tag}_{n}": c[n] for n in (
-                "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
-                "max_abs_err")})
+            tag = f"verify_c{c['C']}_hkv{c['Hkv']}_{dt}"
+        elif c["D"] != 64:
+            tag = f"d{c['D']}_h{c['H']}_hkv{c['Hkv']}_c{c['C']}_{dt}"
+        else:
+            continue
+        k1e.update({f"{tag}_{n}": c[n] for n in (
+            "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+            "max_abs_err")})
+    k1e["gpt_d256_serve_launches"] = results.get("gpt_d256_serve", {}).get(
+        "launches", {}).get("ragged_paged_attention", 0)
     k1e["spec_prefix_launches"] = results["spec_prefix"].get(
         f"spec{SPEC_K}_prefix1", {}).get("launches", {}).get(
         "ragged_paged_attention", 0)
@@ -3612,6 +3829,8 @@ def main(argv=None) -> int:
                "moe": {}, "moe_controls": {}, "gpt": {},
                "gpt_controls": {}, "gpt_one_ulp": {}, "gpt_gqa": {},
                "gpt_gqa_controls": {}, "gpt_gqa_one_ulp": {},
+               "gpt_d256": {}, "gpt_d256_controls": {},
+               "gpt_d256_one_ulp": {},
                "spec_prefix": {}, "nmt": {}}
     failed = []
     t0 = time.perf_counter()
@@ -3653,6 +3872,7 @@ def main(argv=None) -> int:
         failed.append("train")
     for name, fn in (("tune", run_tune), ("moe", run_moe),
                      ("gpt", run_gpt), ("gpt_gqa", run_gpt_gqa),
+                     ("gpt_d256", run_gpt_d256),
                      ("spec_prefix", run_spec_prefix), ("nmt", run_nmt)):
         try:
             fn(dev, results, card)

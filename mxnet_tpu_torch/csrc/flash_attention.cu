@@ -45,12 +45,14 @@
 // bf16 the tensor cores' rate, in f32 three TF32 products a multiply-add.
 //
 // Forward (`flash_fwd_kernel`), FlashAttention-2's shape on mma.sync:
-// work items of 64 or 128 query rows of a head, one warp per 16 rows, the
-// tiles chosen by the host's `_fwd_plan` (the `flash_attention` tunable);
-// persistent blocks, as many as fit on the card, walk the items.  Q is
-// loaded by 16-byte cp.async and kept in registers as A fragments for an
-// item's key walk; K and V stream through a two-stage cp.async ring of 64-
-// or 128-key tiles that runs on across items, so the next item's Q, K and
+// work items of 32, 64 or 128 query rows of a head, one warp per 16 rows,
+// the tiles chosen by the host's `_fwd_plan` (the `flash_attention`
+// tunable); persistent blocks, as many as fit on the card, walk the items.
+// Q is loaded by 16-byte cp.async and, for heads up to 128 wide, kept in
+// registers as A fragments for an item's key walk (wider heads read them
+// from shared memory at each step: their O alone takes 128 registers a
+// lane); K and V stream through a two-stage cp.async ring of 32-, 64- or
+// 128-key tiles that runs on across items, so the next item's Q, K and
 // V load while this one computes (at L = 128 a head is one or two key
 // tiles).  S = Q K^T runs on the tensor cores (bf16 m16n8k16, f32 3xTF32
 // m16n8k8, f32 accumulation); scale, bias, mask, the online softmax and
@@ -76,8 +78,15 @@
 // L = 128 in a 128-key tile) the block writes dQ; with more, the key tiles'
 // f32 partials are summed in key-tile order by the last block to arrive on
 // an integer ticket per (bh, q tile).  A light row pass computes di first,
-// so a call is two launches.  Any Lq, Lk (ragged tiles are masked) and
-// D <= 128 (tiles padded to 64 or 128 columns).
+// so a call is two launches.  A key tile's dK and dV sum over its q
+// tiles in the tensor cores' f32 accumulators, whose additions drift by
+// about 2^-24 of the sum each (over 8192 rows of Gemma 2B's folded
+// heads, 1.4e-4): the host caps the rows a block sums (`_bwd_plan`'s
+// q splits) and the splits' partials are summed in order in f32.  Heads
+// over 128 wide give each 16 keys two warps, each accumulating dK and dV
+// over half the columns (both compute the keys' S and dP).  Any Lq, Lk
+// (ragged tiles are masked) and D <= 256 (tiles padded to 64, 128 or 256
+// columns).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -90,7 +99,7 @@ namespace {
 constexpr float MASK_VALUE = -1e30f;
 // a band edge that never binds (positions stay below 2^30)
 constexpr int NO_EDGE = 1 << 30;
-constexpr int MAX_D = 128;
+constexpr int MAX_D = 256;
 // shared memory a block may use, and an SM holds (H100)
 constexpr size_t SMEM_BLOCK = 232448;
 constexpr size_t SMEM_SM = 233472;
@@ -239,6 +248,17 @@ __device__ __forceinline__ float exp2_approx(float x) {
 // dV accumulators of a 128-wide head take 128 registers a thread)
 template <int DMAX> struct BwdQ {
   static constexpr int v = DMAX <= 64 ? 64 : 32;
+};
+
+// The backward's block: BK keys, 16 a warp, with CS warps sharing each 16
+// keys -- 2 for heads over 128 wide, each warp accumulating dK and dV over
+// DMAX / CS columns (a 256-wide head's would take 256 registers a thread)
+// -- and KVB K/V buffers: 2 for bf16 (persistent blocks load the next
+// item's during this one), 1 for f32, whose tiles fill shared memory.
+template <typename T, int DMAX, int BK> struct Bwd {
+  static constexpr int CS = DMAX > 128 ? 2 : 1;
+  static constexpr int KW = BK / 16, WARPS = KW * CS, THREADS = 32 * WARPS;
+  static constexpr int KVB = sizeof(T) == 2 ? 2 : 1;
 };
 
 template <typename T, int DMAX, int BK, int KVB>
@@ -453,8 +473,13 @@ __device__ __forceinline__ void softmax_step(float (&s)[NS][4],
 // otherwise (1 for 8 warps of any other head, whose registers do not fit
 // twice): the kernel is bound by issue and latency, and more warps an SM
 // hide each warp's dependent chain of products (PERF.md, the flash forward).
+// Heads over 128 wide (QSMEM) read Q's fragments from shared memory at
+// each step, as a 16 x 256 O accumulator takes 128 registers a lane, and
+// walk 32 keys a step (KC) to keep the scores' registers down.
 template <typename T, int DMAX, int BQ, int BK> struct Fwd {
   static constexpr int WARPS = BQ / 16, THREADS = 32 * WARPS;
+  static constexpr bool QSMEM = DMAX > 128;
+  static constexpr int KC = QSMEM ? 32 : 64;   // keys a step of a walk
   static constexpr int LD = DMAX + Mma<T>::PAD;
   static constexpr size_t SMEM = sizeof(T) * (size_t)(2 * BQ + 4 * BK) * LD;
   static constexpr bool FITS = SMEM <= SMEM_BLOCK;
@@ -473,8 +498,9 @@ template <typename T, int DMAX, int BQ, int BK> struct Fwd {
 // item's first K/V tile and its Q (into the other Q buffer) -- so one
 // item's loads overlap the last one's products.  The ring's handoff is the
 // only block barrier.  Each warp walks a key tile in steps of KC = 64
-// keys, all in registers: S = Q K^T on the tensor cores from Q's
-// fragments (loaded once an item) and K's ldmatrix fragments; scale, bias
+// keys (32 for heads over 128 wide), all in registers: S = Q K^T on the
+// tensor cores from Q's fragments (loaded once an item, or each step from
+// the Q buffer for heads over 128 wide) and K's fragments; scale, bias
 // and mask on the accumulator fragment; the online softmax with the row
 // max from two quad shuffles (the row sum stays per thread until the
 // item's end); dropout per element on its absolute (row, key); then p,
@@ -498,7 +524,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   using A = typename M::A;
   using B = typename M::B;
   constexpr int LD = F::LD, THREADS = F::THREADS;
-  constexpr int KC = 64;          // keys a step of a warp's walk
+  constexpr int KC = F::KC;       // keys a step of a warp's walk
+  static_assert(BK % KC == 0, "a key tile is whole steps");
   constexpr int NS = KC / 8;      // 8-key n-tiles of a step's scores
   constexpr int ND = DMAX / 8;    // 8-column n-tiles of the output
   constexpr int NQ = DMAX / M::KS;
@@ -569,7 +596,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               (uint32_t)(r0 + 8) * 0x9E3779B1u + base};
     T* qb = qs + (j & 1) * BQ * LD;
 
-    QFrag<T> qf[NQ];
+    QFrag<T> qf[F::QSMEM ? 1 : NQ];  // unused when Q stays in shared memory
     float o[ND][4];
 #pragma unroll
     for (int i = 0; i < ND; ++i)
@@ -584,11 +611,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       else
         cp_async_wait<0>();
       __syncthreads();
-      if (first) {
-        first = false;
+      if constexpr (!F::QSMEM) {
+        if (first) {
+          first = false;
 #pragma unroll
-        for (int kk = 0; kk < NQ; ++kk)
-          qf[kk].load(qb, LD, 16 * warp, kk * M::KS, lane);
+          for (int kk = 0; kk < NQ; ++kk)
+            qf[kk].load(qb, LD, 16 * warp, kk * M::KS, lane);
+        }
       }
       const T* kb = ks + (pos & 1) * BK * LD;
       const T* vb = kb + 2 * BK * LD;
@@ -611,7 +640,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           for (int e = 0; e < 4; ++e) s[jj][e] = 0.f;
 #pragma unroll
         for (int kk = 0; kk < NQ; ++kk) {
-          const A a = qf[kk].get();
+          A a;
+          if constexpr (F::QSMEM)
+            M::a_row(a, qb, LD, 16 * warp, kk * M::KS, lane);
+          else
+            a = qf[kk].get();
 #pragma unroll
           for (int n = 0; n < KC; n += 16) {
             B b[2];
@@ -696,6 +729,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
         if (live) {
           T* stg = qb + 16 * warp * LD;
+          if constexpr (F::QSMEM)
+            __syncwarp();  // every lane has read its Q rows for this step
 #pragma unroll
           for (int i = 0; i < ND; ++i)
 #pragma unroll
@@ -772,8 +807,13 @@ __device__ __forceinline__ void bwd_probs(
     }
 }
 
-// Blocks walk work items (bh, key tile of BK keys), item w = bh * nk + kt;
-// BK / 16 warps, warp w owning keys 16w .. 16w + 15 of the tile.  K and V
+// Blocks walk work items (bh, key tile of BK keys, q split), item
+// w = (bh * nk + kt) * nsp + split: a split walks one range of the q tiles
+// (all of them for nsp = 1), and with nsp > 1 each writes f32 dK / dV
+// partials that the key tile's last split to arrive sums in split order.
+// BK / 16 warps, warp w owning keys 16w .. 16w + 15 of the tile (for heads
+// over 128 wide twice as many, warp w and w + BK / 16 owning the same keys
+// and half the dK and dV columns each).  K and V
 // stay in shared memory and dK, dV in registers while the block walks the
 // item's q tiles through a two-stage cp.async ring of Q, dO, lse and di.
 // A q tile takes five tensor-core products: S^T = K Q^T and dP^T = V dO^T
@@ -796,23 +836,28 @@ __device__ __forceinline__ void bwd_probs(
 // an item.  BAND (a window or the fold) is a template argument, so a call
 // without them runs no code of theirs.
 template <typename T, int DMAX, int BK, int KVB, bool BAND>
-__global__ void __launch_bounds__(2 * BK, 1)
+__global__ void __launch_bounds__(Bwd<T, DMAX, BK>::THREADS, 1)
 flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ bias,
                  const int* __restrict__ seed, const float* __restrict__ lse,
                  const float* __restrict__ di, const T* __restrict__ dout,
                  T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
                  float* __restrict__ ws, unsigned int* __restrict__ tickets,
-                 Params p, int BH, int nk, int vec) {
+                 float* __restrict__ kvws, unsigned int* __restrict__ kvtickets,
+                 Params p, int BH, int nk, int nsp, int vec) {
   using M = Mma<T>;
   using A = typename M::A;
   using B = typename M::B;
+  using C = Bwd<T, DMAX, BK>;
   constexpr int BQ = BwdQ<DMAX>::v;
-  constexpr int WARPS = BK / 16, THREADS = 32 * WARPS;
+  constexpr int KW = C::KW, WARPS = C::WARPS, THREADS = C::THREADS;
   constexpr int LD = DMAX + M::PAD, LDS = BQ + M::PAD;
-  constexpr int NQ = BQ / 8, ND = DMAX / 8;  // 8-wide n-tiles of a row
-  // dQ: the warps in an RG x CG grid of 16 q rows x CW head columns
+  // 8-wide n-tiles of a q tile's row, and of a warp's dK / dV columns
+  constexpr int NQ = BQ / 8, DC = DMAX / C::CS, ND = DC / 8;
+  // dQ: the warps in an RG x CG grid of 16 q rows x CW head columns,
+  // accumulated CWC columns at a time
   constexpr int RG = BQ / 16, CG = WARPS / RG, CW = DMAX / CG;
+  constexpr int CWC = CW < 64 ? CW : 64;
   extern __shared__ __align__(16) unsigned char bwd_smem_raw[];
   T* kvs = reinterpret_cast<T*>(bwd_smem_raw);  // [KVB][K, V][BK][LD]
   T* qs = kvs + KVB * 2 * BK * LD;                // [2][BQ][LD]
@@ -822,11 +867,18 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* di_s = lse_s + 2 * BQ;                              // [2][BQ]
   int* pos_s = reinterpret_cast<int*>(di_s + 2 * BQ);        // [2][BQ]
 
-  const int items = BH * nk, D = p.D;
+  const int items = BH * nk * nsp, D = p.D;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int kr0 = warp * 16;
+  // this warp's 16 keys of the tile and its first dK / dV column
+  const int kr0 = (warp % KW) * 16, cb = (warp / KW) * DC;
   const int nqt = (p.Lq + BQ - 1) / BQ;
+  // item w is (bh, key tile, q split); split s walks q tiles
+  // [s qper, (s + 1) qper)
+  const int qper = (nqt + nsp - 1) / nsp;
+  auto bh_of = [&](int w) { return w / (nk * nsp); };
+  auto kt_of = [&](int w) { return w / nsp % nk; };
+  auto q_end = [&](int w) { return min(nqt, (w % nsp + 1) * qper); };
 
   // the key tiles [first, last] that visit q tile qt: those its rows'
   // bands reach (first > last: none).  The walk below and the dQ merge
@@ -836,26 +888,28 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     return span.x <= span.y ? make_int2(span.x / BK, span.y / BK)
                             : make_int2(1, 0);
   };
-  // the first q tile from qt on that key tile kt visits (nqt: none); under
-  // the fold these are `rep` ranges, one a head segment
-  auto next_q = [&](int kt, int qt) {
-    for (; qt < nqt; ++qt) {
+  // the first q tile in [qt, end) that key tile kt visits (end: none);
+  // under the fold these are `rep` ranges, one a head segment
+  auto next_q = [&](int kt, int qt, int end) {
+    for (; qt < end; ++qt) {
       const int2 v = visitors(qt);
       if (v.x <= kt && kt <= v.y) break;
     }
     return qt;
   };
-  auto q_first = [&](int w) { return next_q(w % nk, 0); };
+  auto q_first = [&](int w) {
+    return next_q(kt_of(w), w % nsp * qper, q_end(w));
+  };
   auto stage_kv = [&](int w, int kb) {
-    const size_t hk = (size_t)(w / nk) * p.Lk * D;
+    const size_t hk = (size_t)bh_of(w) * p.Lk * D;
     T* kb_s = kvs + kb * 2 * BK * LD;
-    stage_rows<T, DMAX, THREADS>(kb_s, LD, k + hk, (w % nk) * BK, p.Lk, D,
+    stage_rows<T, DMAX, THREADS>(kb_s, LD, k + hk, kt_of(w) * BK, p.Lk, D,
                                  BK, vec);
-    stage_rows<T, DMAX, THREADS>(kb_s + BK * LD, LD, v + hk, (w % nk) * BK,
+    stage_rows<T, DMAX, THREADS>(kb_s + BK * LD, LD, v + hk, kt_of(w) * BK,
                                  p.Lk, D, BK, vec);
   };
   auto stage_q = [&](int w, int q0, int buf) {
-    const size_t hq = (size_t)(w / nk) * p.Lq;
+    const size_t hq = (size_t)bh_of(w) * p.Lq;
     stage_rows<T, DMAX, THREADS>(qs + buf * BQ * LD, LD, q + hq * D, q0,
                                  p.Lq, D, BQ, vec);
     stage_rows<T, DMAX, THREADS>(dos + buf * BQ * LD, LD, dout + hq * D, q0,
@@ -875,11 +929,11 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   int it = 0;             // q tiles this block has walked: the ring's step
   bool issued = false;    // this item's loads were issued by the last one
   for (int w = blockIdx.x, j = 0; w < items; w += gridDim.x, ++j) {
-    const int bh = w / nk, kt = w % nk, k0 = kt * BK;
+    const int bh = bh_of(w), kt = kt_of(w), k0 = kt * BK, qend = q_end(w);
     const int qt_start = q_first(w);
     T* ks = kvs + (j % KVB) * 2 * BK * LD;
     T* vs = ks + BK * LD;
-    if (!issued && qt_start < nqt) {
+    if (!issued && qt_start < qend) {
       stage_kv(w, j % KVB);
       stage_q(w, qt_start * BQ, it & 1);
       cp_async_commit();
@@ -903,17 +957,17 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) dka[i][e] = dva[i][e] = 0.f;
 
-    for (int qt = qt_start; qt < nqt; ++it) {
+    for (int qt = qt_start; qt < qend; ++it) {
       const int q0 = qt * BQ, buf = it & 1;
-      const int qt_next = next_q(kt, qt + 1);
+      const int qt_next = next_q(kt, qt + 1, qend);
       cp_async_wait<0>();  // this tile has landed ...
       __syncthreads();     // ... for every thread, and the last one is done
-      if (qt_next < nqt) {
+      if (qt_next < qend) {
         stage_q(w, qt_next * BQ, buf ^ 1);
       } else if (KVB == 2) {  // the next item's K, V and first q tile
         const int wn = w + gridDim.x;
-        const int qn = wn < items ? q_first(wn) : nqt;
-        if (qn < nqt) {
+        if (wn < items && q_first(wn) < q_end(wn)) {
+          const int qn = q_first(wn);
           stage_kv(wn, (j + 1) % KVB);
           stage_q(wn, qn * BQ, buf ^ 1);
           issued = true;
@@ -959,10 +1013,10 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         M::a_acc(ap, s, j);
         M::a_acc(as, dp, j);
 #pragma unroll
-        for (int n = 0; n < DMAX; n += 16) {
+        for (int n = 0; n < DC; n += 16) {
           B bo[2], bq[2];
-          M::b_krow_acc(bo, dob, LD, j * M::KS, n, lane);
-          M::b_krow_acc(bq, qb, LD, j * M::KS, n, lane);
+          M::b_krow_acc(bo, dob, LD, j * M::KS, cb + n, lane);
+          M::b_krow_acc(bq, qb, LD, j * M::KS, cb + n, lane);
           M::mma(dva[n / 8], ap, bo[0]);
           M::mma(dva[n / 8 + 1], ap, bo[1]);
           M::mma(dka[n / 8], as, bq[0]);
@@ -970,74 +1024,81 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
 
-      // dS^T to shared memory in the input type (the rounding dK's A had)
+      // dS^T to shared memory in the input type (the rounding dK's A had),
+      // by one warp of the keys' CS
+      if (warp < KW) {
 #pragma unroll
-      for (int j = 0; j < NQ; ++j) {
-        M::store2(dst + (kr0 + g) * LDS + 8 * j + 2 * t, dp[j][0], dp[j][1]);
-        M::store2(dst + (kr0 + g + 8) * LDS + 8 * j + 2 * t, dp[j][2],
-                  dp[j][3]);
+        for (int j = 0; j < NQ; ++j) {
+          M::store2(dst + (kr0 + g) * LDS + 8 * j + 2 * t, dp[j][0],
+                    dp[j][1]);
+          M::store2(dst + (kr0 + g + 8) * LDS + 8 * j + 2 * t, dp[j][2],
+                    dp[j][3]);
+        }
       }
       __syncthreads();
 
       // dQ (BQ x DMAX) = dS K over the tile's keys: warp (rg, cg) owns rows
-      // 16 rg.. and columns cg CW..; key steps wholly past Lk are skipped
+      // 16 rg.. and columns cg CW.., CWC of them at a time; key steps wholly
+      // past Lk are skipped.  Fragment (i, e): q row 16 rg + g + 8 (e >> 1),
+      // column c0 + 8 i + 2 t + (e & 1).  With one key tile the rows go
+      // through this q tile's Q buffer (read by no one now; the next tile's
+      // loads go there only after the loop's first barrier), then to dq
       const int rg = warp % RG, cg = warp / RG;
-      float dqa[CW / 8][4];
-#pragma unroll
-      for (int i = 0; i < CW / 8; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dqa[i][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += M::KS) {
-        if (k0 + kk >= p.Lk) break;
-        A a;
-        M::a_trans(a, dst, LDS, 16 * rg, kk, lane);
-#pragma unroll
-        for (int n = 0; n < CW; n += 16) {
-          B b[2];
-          M::b_krow(b, ks, LD, kk, cg * CW + n, lane);
-          M::mma(dqa[n / 8], a, b[0]);
-          M::mma(dqa[n / 8 + 1], a, b[1]);
-        }
-      }
-      // fragment (i, e): q row 16 rg + g + 8 (e >> 1), column
-      // cg CW + 8 i + 2 t + (e & 1)
       float* part =
           nk == 1 ? nullptr : ws + ((size_t)kt * BH + bh) * p.Lq * D;
-      if (part) {  // f32 partials, two columns a store
+      T* stg = qs + buf * BQ * LD;
 #pragma unroll
-        for (int i = 0; i < CW / 8; ++i)
+      for (int cc = 0; cc < CW; cc += CWC) {
+        const int c0 = cg * CW + cc;
+        float dqa[CWC / 8][4];
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int r = q0 + 16 * rg + g + 8 * h;
-            const int d = cg * CW + 8 * i + 2 * t;
-            if (r >= p.Lq || d >= D) continue;
-            float* w = part + (size_t)r * D + d;
-            if (d + 1 < D && !(D & 1)) {
-              *reinterpret_cast<float2*>(w) =
-                  make_float2(dqa[i][2 * h], dqa[i][2 * h + 1]);
-            } else {
-              w[0] = dqa[i][2 * h];
-              if (d + 1 < D) w[1] = dqa[i][2 * h + 1];
-            }
+        for (int i = 0; i < CWC / 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dqa[i][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < BK; kk += M::KS) {
+          if (k0 + kk >= p.Lk) break;
+          A a;
+          M::a_trans(a, dst, LDS, 16 * rg, kk, lane);
+#pragma unroll
+          for (int n = 0; n < CWC; n += 16) {
+            B b[2];
+            M::b_krow(b, ks, LD, kk, c0 + n, lane);
+            M::mma(dqa[n / 8], a, b[0]);
+            M::mma(dqa[n / 8 + 1], a, b[1]);
           }
-      } else {
-        // through this q tile's Q buffer (read by no one now; the next
-        // tile's loads go there only after the loop's first barrier), then
-        // whole rows of dq
-        T* stg = qs + buf * BQ * LD;
+        }
+        if (part) {  // f32 partials, two columns a store
 #pragma unroll
-        for (int i = 0; i < CW / 8; ++i)
+          for (int i = 0; i < CWC / 8; ++i)
 #pragma unroll
-          for (int h = 0; h < 2; ++h)
-            M::store2(
-                stg + (16 * rg + g + 8 * h) * LD + cg * CW + 8 * i + 2 * t,
-                dqa[i][2 * h], dqa[i][2 * h + 1]);
+            for (int h = 0; h < 2; ++h) {
+              const int r = q0 + 16 * rg + g + 8 * h;
+              const int d = c0 + 8 * i + 2 * t;
+              if (r >= p.Lq || d >= D) continue;
+              float* w = part + (size_t)r * D + d;
+              if (d + 1 < D && !(D & 1)) {
+                *reinterpret_cast<float2*>(w) =
+                    make_float2(dqa[i][2 * h], dqa[i][2 * h + 1]);
+              } else {
+                w[0] = dqa[i][2 * h];
+                if (d + 1 < D) w[1] = dqa[i][2 * h + 1];
+              }
+            }
+        } else {
+#pragma unroll
+          for (int i = 0; i < CWC / 8; ++i)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              M::store2(stg + (16 * rg + g + 8 * h) * LD + c0 + 8 * i + 2 * t,
+                        dqa[i][2 * h], dqa[i][2 * h + 1]);
+        }
+      }
+      if (!part) {
         __syncthreads();
         unstage_rows<T, DMAX, THREADS>(dq + hq * D, stg, LD, q0, p.Lq, D, BQ,
                                        vec);
-      }
-      if (part) {
+      } else {
         // the key tiles that visit this q tile, in order: vis.x .. vis.y
         const int2 vis = visitors(qt);
         unsigned int* ticket = tickets + (size_t)bh * nqt + qt;
@@ -1057,22 +1118,70 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();  // every warp is done with this item's K and V
 
-    // dK, dV through the item's K and V tiles, then whole rows: fragment
-    // (i, e) is key kr0 + g + 8 (e >> 1) of the tile, column 8 i + 2 t +
-    // (e & 1); keys no q row saw (causal, a window) get zeros
+    // fragment (i, e) of dK and dV is key kr0 + g + 8 (e >> 1) of the
+    // tile, column cb + 8 i + 2 t + (e & 1); keys no q row saw (causal, a
+    // window) get zeros
+    if (nsp == 1) {
+      // through the item's K and V tiles, then whole rows
 #pragma unroll
-    for (int i = 0; i < ND; ++i)
+      for (int i = 0; i < ND; ++i)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int off = (kr0 + g + 8 * h) * LD + 8 * i + 2 * t;
-        M::store2(ks + off, dka[i][2 * h], dka[i][2 * h + 1]);
-        M::store2(vs + off, dva[i][2 * h], dva[i][2 * h + 1]);
+        for (int h = 0; h < 2; ++h) {
+          const int off = (kr0 + g + 8 * h) * LD + cb + 8 * i + 2 * t;
+          M::store2(ks + off, dka[i][2 * h], dka[i][2 * h + 1]);
+          M::store2(vs + off, dva[i][2 * h], dva[i][2 * h + 1]);
+        }
+      __syncthreads();
+      unstage_rows<T, DMAX, THREADS>(dk + hk * D, ks, LD, k0, p.Lk, D, BK,
+                                     vec);
+      unstage_rows<T, DMAX, THREADS>(dv + hk * D, vs, LD, k0, p.Lk, D, BK,
+                                     vec);
+    } else {
+      // this split's f32 partials ([BK][D] of dK, then of dV); the last
+      // of the key tile's nsp splits to arrive sums them in split order
+      // -- no float atomics, the same bits every call -- and puts the
+      // ticket back to zero
+      const size_t pitch = (size_t)2 * BK * D;
+      float* const tile_ws = kvws + (size_t)(bh * nk + kt) * nsp * pitch;
+      float* const pk = tile_ws + (w % nsp) * pitch;
+#pragma unroll
+      for (int i = 0; i < ND; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = kr0 + g + 8 * h, d = cb + 8 * i + 2 * t;
+          if (k0 + r >= p.Lk || d >= D) continue;
+          float* wk = pk + (size_t)r * D + d;
+          float* wv = wk + BK * D;
+          if (d + 1 < D && !(D & 1)) {
+            *reinterpret_cast<float2*>(wk) =
+                make_float2(dka[i][2 * h], dka[i][2 * h + 1]);
+            *reinterpret_cast<float2*>(wv) =
+                make_float2(dva[i][2 * h], dva[i][2 * h + 1]);
+          } else {
+            wk[0] = dka[i][2 * h];
+            wv[0] = dva[i][2 * h];
+            if (d + 1 < D) {
+              wk[1] = dka[i][2 * h + 1];
+              wv[1] = dva[i][2 * h + 1];
+            }
+          }
+        }
+      unsigned int* ticket = kvtickets + (size_t)bh * nk + kt;
+      if (arrive_last(ticket, nsp)) {
+        const int n = min(BK, p.Lk - k0) * D;
+        const size_t off = (hk + k0) * D;
+        for (int i = tid; i < n; i += THREADS) {
+          float sk = 0.f, sv = 0.f;
+          for (int u = 0; u < nsp; ++u) {  // split order
+            sk += __ldcg(tile_ws + u * pitch + i);
+            sv += __ldcg(tile_ws + u * pitch + BK * D + i);
+          }
+          dk[off + i] = from_f<T>(sk);
+          dv[off + i] = from_f<T>(sv);
+        }
+        if (tid == 0) *ticket = 0u;
       }
-    __syncthreads();
-    unstage_rows<T, DMAX, THREADS>(dk + hk * D, ks, LD, k0, p.Lk, D, BK,
-                                   vec);
-    unstage_rows<T, DMAX, THREADS>(dv + hk * D, vs, LD, k0, p.Lk, D, BK,
-                                   vec);
+    }
   }
   cp_async_wait<0>();
 }
@@ -1169,32 +1278,45 @@ cudaError_t launch_fwd(const FwdArgs& a, const Params& p,
   }
 }
 
-// heads over 64 wide take 64-row items (`_fwd_plan`)
+// heads over 64 wide take 64-row items; over 128 wide, the one pair of
+// tiles that fits a block's shared memory: 64 x 64 in bf16, 32 x 32 in
+// f32 (`_fwd_plan`)
 template <typename T, int DMAX>
 cudaError_t launch_fwd_q(const FwdArgs& a, const Params& p, int bq, int bk,
                          cudaStream_t s) {
-  if (bq == 64)
-    return bk == 64 ? launch_fwd<T, DMAX, 64, 64>(a, p, s)
-                    : launch_fwd<T, DMAX, 64, 128>(a, p, s);
-  if constexpr (DMAX > 64) {
-    return cudaErrorInvalidValue;
+  if constexpr (DMAX > 128) {
+    if constexpr (sizeof(T) == 2)
+      return bq == 64 && bk == 64 ? launch_fwd<T, DMAX, 64, 64>(a, p, s)
+                                  : cudaErrorInvalidValue;
+    else
+      return bq == 32 && bk == 32 ? launch_fwd<T, DMAX, 32, 32>(a, p, s)
+                                  : cudaErrorInvalidValue;
   } else {
-    return bk == 64 ? launch_fwd<T, DMAX, 128, 64>(a, p, s)
-                    : launch_fwd<T, DMAX, 128, 128>(a, p, s);
+    if (bq == 32 || bk == 32) return cudaErrorInvalidValue;
+    if (bq == 64)
+      return bk == 64 ? launch_fwd<T, DMAX, 64, 64>(a, p, s)
+                      : launch_fwd<T, DMAX, 64, 128>(a, p, s);
+    if constexpr (DMAX > 64) {
+      return cudaErrorInvalidValue;
+    } else {
+      return bk == 64 ? launch_fwd<T, DMAX, 128, 64>(a, p, s)
+                      : launch_fwd<T, DMAX, 128, 128>(a, p, s);
+    }
   }
 }
 
 template <typename T>
 cudaError_t launch_fwd_d(const FwdArgs& a, const Params& p, int bq, int bk,
                          cudaStream_t s) {
-  return p.D <= 64 ? launch_fwd_q<T, 64>(a, p, bq, bk, s)
-                   : launch_fwd_q<T, 128>(a, p, bq, bk, s);
+  return p.D <= 64    ? launch_fwd_q<T, 64>(a, p, bq, bk, s)
+         : p.D <= 128 ? launch_fwd_q<T, 128>(a, p, bq, bk, s)
+                      : launch_fwd_q<T, 256>(a, p, bq, bk, s);
 }
 
 struct BwdArgs {
   const void *q, *k, *v, *bias, *seed, *o, *lse, *dout;
-  void *di, *dq, *dk, *dv, *ws, *tickets;
-  int BH, nk, grid, vec;
+  void *di, *dq, *dk, *dv, *ws, *tickets, *kvws, *kvtickets;
+  int BH, nk, nsp, grid, vec;
 };
 
 // the di row pass, then the key-tile kernel, on one stream (in order);
@@ -1202,8 +1324,10 @@ struct BwdArgs {
 template <typename T, int DMAX, int BK, bool BAND>
 cudaError_t launch_bwd(const BwdArgs& a, const Params& p,
                        cudaStream_t stream) {
-  constexpr int KVB = sizeof(T) == 2 ? 2 : 1;
+  using C = Bwd<T, DMAX, BK>;
+  constexpr int KVB = C::KVB;
   constexpr size_t smem = bwd_smem<T, DMAX, BK, KVB>();
+  static_assert(smem <= SMEM_BLOCK, "the tiles fit a block");
   static bool attr = false;
   cudaError_t e =
       allow_smem(flash_bwd_kernel<T, DMAX, BK, KVB, BAND>, smem, attr);
@@ -1217,25 +1341,36 @@ cudaError_t launch_bwd(const BwdArgs& a, const Params& p,
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   flash_bwd_kernel<T, DMAX, BK, KVB, BAND>
-      <<<a.grid, 2 * BK, smem, stream>>>(
+      <<<a.grid, C::THREADS, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const float*>(a.bias),
       static_cast<const int*>(a.seed), static_cast<const float*>(a.lse),
       static_cast<const float*>(a.di), static_cast<const T*>(a.dout),
       static_cast<T*>(a.dq), static_cast<T*>(a.dk), static_cast<T*>(a.dv),
-      static_cast<float*>(a.ws), static_cast<unsigned int*>(a.tickets), p,
-      a.BH, a.nk, a.vec);
+      static_cast<float*>(a.ws), static_cast<unsigned int*>(a.tickets),
+      static_cast<float*>(a.kvws), static_cast<unsigned int*>(a.kvtickets),
+      p, a.BH, a.nk, a.nsp, a.vec);
   return cudaGetLastError();
 }
 
 template <typename T, bool BAND>
 cudaError_t launch_bwd_b(const BwdArgs& a, const Params& p, int bk,
                          cudaStream_t s) {
+  if (bk == 32 && p.D <= 128) return cudaErrorInvalidValue;
   if (p.D <= 64)
     return bk == 64 ? launch_bwd<T, 64, 64, BAND>(a, p, s)
                     : launch_bwd<T, 64, 128, BAND>(a, p, s);
-  return bk == 64 ? launch_bwd<T, 128, 64, BAND>(a, p, s)
-                  : launch_bwd<T, 128, 128, BAND>(a, p, s);
+  if (p.D <= 128)
+    return bk == 64 ? launch_bwd<T, 128, 64, BAND>(a, p, s)
+                    : launch_bwd<T, 128, 128, BAND>(a, p, s);
+  // over 128 wide, the key tile that fits a block's shared memory: 64 keys
+  // in bf16, 32 in f32
+  if constexpr (sizeof(T) == 2)
+    return bk == 64 ? launch_bwd<T, 256, 64, BAND>(a, p, s)
+                    : cudaErrorInvalidValue;
+  else
+    return bk == 32 ? launch_bwd<T, 256, 32, BAND>(a, p, s)
+                    : cudaErrorInvalidValue;
 }
 
 // a window or the fold: the band's instantiation
@@ -1254,9 +1389,10 @@ cudaError_t launch_bwd_d(const BwdArgs& a, const Params& p, int bk,
 // (bias_mode 0); seed a device int32 (read only when rate > 0).  Row r sits
 // at position r % seg (seg divides Lq: the unfolded length under grouped
 // K/V, else Lq); window >= 0 keeps the band `make_params` describes.  All
-// contiguous; the caller checks shapes (D <= 128).  bq (64 or 128) is the
-// query rows a work item, bk (64 or 128) the keys a stage of the K/V ring
-// (heads over 64 wide take bq = 64, f32 ones also bk = 64); `grid`
+// contiguous; the caller checks shapes (D <= 256).  bq (32, 64 or 128) is
+// the query rows a work item, bk (32, 64 or 128) the keys a stage of the
+// K/V ring (heads over 64 wide take bq = 64, f32 ones also bk = 64; over
+// 128 wide bf16 takes 64 x 64, f32 32 x 32); `grid`
 // persistent blocks walk the B * H * ceil(Lq / bq) items (<= 0: as many
 // as fit on the card at once).  Launches on `stream`;
 // returns the launch's cudaError_t (0 = launched).
@@ -1267,8 +1403,9 @@ extern "C" int mxt_flash_attention_fwd(
     int seg, int bias_mode, int bias_per_head, float rate, float inv_keep,
     unsigned thresh, int is_bf16, int bq, int bk, int grid, void* stream) {
   cudaGetLastError();  // clear any stale error of this runtime
-  if (D > MAX_D || D < 1 || (bq != 64 && bq != 128) ||
-      (bk != 64 && bk != 128) || seg < 1 || Lq % seg || Lq >= NO_EDGE)
+  if (D > MAX_D || D < 1 || (bq != 32 && bq != 64 && bq != 128) ||
+      (bk != 32 && bk != 64 && bk != 128) || seg < 1 || Lq % seg ||
+      Lq >= NO_EDGE)
     return (int)cudaErrorInvalidValue;
   if (BH == 0 || Lq == 0) return 0;
   const Params p =
@@ -1297,30 +1434,37 @@ extern "C" int mxt_flash_attention_fwd(
 // forward; di (BH, Lq) f32 is scratch; dq/dk/dv like q/k/v (rows of dq
 // that no key tile visits -- positions past Lk - 1 + window -- are left
 // as they were: the caller zeroes dq where a window leaves such rows).
-// bk (64 or 128) is the key tile, so nk = ceil(Lk / bk) key tiles a head
-// and BH * nk work items, walked by `grid` blocks (bf16: persistent blocks,
-// any grid; f32: grid = BH * nk).  With nk > 1, ws holds nk * BH * Lq * D
-// f32 dQ
-// partials and tickets one zeroed uint32 per (bh, q tile) -- q tiles of 64
-// rows for D <= 64, else 32 -- left zeroed.  Launches the di row pass,
-// then the key-tile kernel, on `stream`.  Returns the launches'
-// cudaError_t.
+// bk is the key tile (64 or 128; over 128 wide 64 in bf16, 32 in f32),
+// so nk = ceil(Lk / bk) key tiles a head; each key tile's q tiles are cut
+// into nsp splits of ceil(q tiles / nsp) (the host keeps a split's rows
+// few enough that the tensor cores' f32 accumulation of dK and dV stays
+// within 1e-4), so BH * nk * nsp work items, walked by `grid` blocks
+// (bf16: persistent blocks, any grid; f32: grid = BH * nk * nsp).  With
+// nk > 1, ws holds nk * BH * Lq * D f32 dQ partials and tickets one zeroed
+// uint32 per (bh, q tile) -- q tiles of 64 rows for D <= 64, else 32; with
+// nsp > 1, kvws holds BH * nk * nsp * 2 * bk * D f32 dK / dV partials and
+// kvtickets one zeroed uint32 per (bh, key tile); all tickets are left
+// zeroed.  Launches the di row pass, then the key-tile kernel, on
+// `stream`.  Returns the launches' cudaError_t.
 extern "C" int mxt_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* bias,
     const void* seed, const void* o, const void* lse, const void* dout,
-    void* di, void* dq, void* dk, void* dv, void* ws, void* tickets, int BH,
+    void* di, void* dq, void* dk, void* dv, void* ws, void* tickets,
+    void* kvws, void* kvtickets, int nsp, int BH,
     int H, int Lq, int Lk, int D, float scale, int causal, int window,
     int window_symmetric, int seg, int bias_mode, int bias_per_head,
     float rate, float inv_keep, unsigned thresh, int is_bf16, int bk,
     int grid, void* stream) {
   cudaGetLastError();
-  if (D > MAX_D || D < 1 || (bk != 64 && bk != 128) || grid < 1 ||
-      seg < 1 || Lq % seg || Lq >= NO_EDGE)
+  if (D > MAX_D || D < 1 || (bk != 32 && bk != 64 && bk != 128) ||
+      grid < 1 || seg < 1 || Lq % seg || Lq >= NO_EDGE)
     return (int)cudaErrorInvalidValue;
   if (BH == 0 || Lq == 0 || Lk == 0) return 0;
   const int nk = (Lk + bk - 1) / bk;
-  if ((nk > 1 && (ws == nullptr || tickets == nullptr)) ||
-      (!is_bf16 && grid != BH * nk))
+  if (nsp < 1 || (nk > 1 && (ws == nullptr || tickets == nullptr)) ||
+      (nsp > 1 && (kvws == nullptr || kvtickets == nullptr)) ||
+      (long)BH * nk * nsp > 0x7fffffff ||
+      (!is_bf16 && grid != BH * nk * nsp))
     return (int)cudaErrorInvalidValue;
   const Params p =
       make_params(H, Lq, Lk, D, scale, causal, window, window_symmetric, seg,
@@ -1340,6 +1484,9 @@ extern "C" int mxt_flash_attention_bwd(
   a.dv = dv;
   a.ws = ws;
   a.tickets = tickets;
+  a.kvws = kvws;
+  a.kvtickets = kvtickets;
+  a.nsp = nsp;
   a.BH = BH;
   a.nk = nk;
   a.grid = grid;

@@ -1,6 +1,6 @@
 // Tensor-core and async-copy helpers shared by the port's CUDA kernels
-// (quantized_matmul.cu, flash_attention.cu, paged_attention.cu): 16- and
-// 4-byte cp.async into shared memory, ldmatrix, the mma.sync products for
+// (quantized_matmul.cu, flash_attention.cu, paged_attention.cu): 16-, 8-
+// and 4-byte cp.async into shared memory, ldmatrix, the mma.sync products for
 // bf16 (m16n8k16) and TF32 (m16n8k8), both accumulating in f32, and `Mma<T>`,
 // the operand fragments of those products by input type.
 //
@@ -27,6 +27,13 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(smem)),
+               "l"(gmem), "r"(src_bytes));
+}
+// 8 bytes global -> shared (src_bytes 0 zero-fills)
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
                    smem_addr(smem)),
                "l"(gmem), "r"(src_bytes));
 }

@@ -36,8 +36,11 @@
 // capacity so that the grid fills the card.  A split wholly at or above ctx,
 // or below the window's floor, exits at once.  Inside a block each warp
 // walks its own 16-key tiles (tile i goes to warp i % warps) through a ring
-// of two stages in shared memory, filled by 16-byte cp.async copies of whole
-// K and V rows, with one page-table read per key row; the next tile's copies
+// of two stages in shared memory, filled by cp.async copies of whole K and
+// V rows (16-byte pieces, or 8, 4 or 2 where a row's bytes are not a
+// multiple of 16: bf16 D = 100, f32 D = 18), each row zero-filled past D
+// to a multiple of 16 columns, with one page-table read per key row; the
+// next tile's copies
 // fly while this one computes, and warps never wait on each other until the
 // block merges their (m, l, acc) states in warp order.  Two compute variants:
 //   * few rows (rep * C < 16: decode): q is staged once in f32; two lanes
@@ -120,6 +123,7 @@ struct Params {
   float* ws;              // f32 partials: per row acc[D], m, l, 2 pad
   unsigned int* tickets;  // one per (slot * kv head, row tile), zeroed
   int Hkv, C, D, ps, maxp, rows, window;
+  int kpiece, qpiece;     // bytes a copy of a pool row / a query row
   float scale;
   int row_tile, row_tiles, span, nsplit;
 };
@@ -144,24 +148,47 @@ template <typename TQ, typename TP, int DMAX, int RB> struct Cfg {
   }
 };
 
+// The first `bytes` bytes of a row at src into dst, then zeros up to
+// `padded` bytes (D rounded up to 16 elements), in pieces of `piece` bytes
+// -- 16, 8 or 4 by cp.async, 2 (a bf16 row of odd D) by plain copies --
+// pieces i0, i0 + step, ...; the row's bytes are a multiple of the piece,
+// so a piece is wholly in the row or wholly past it.  bytes 0: all zeros,
+// src not read.
+__device__ __forceinline__ void copy_row(void* dst, const void* src,
+                                         int bytes, int padded, int piece,
+                                         int i0, int step) {
+  char* d = static_cast<char*>(dst);
+  const char* s = static_cast<const char*>(src);
+  for (int off = i0 * piece; off < padded; off += step * piece) {
+    const bool live = off < bytes;
+    const char* from = live ? s + off : s;
+    switch (piece) {
+      case 16: cp_async16(d + off, from, live ? 16 : 0); break;
+      case 8: cp_async8(d + off, from, live ? 8 : 0); break;
+      case 4: cp_async4(d + off, from, live ? 4 : 0); break;
+      default:
+        *reinterpret_cast<uint16_t*>(d + off) =
+            live ? *reinterpret_cast<const uint16_t*>(from) : uint16_t(0);
+    }
+  }
+}
+
 // This lane's key t (row j = lane / 2 of a tile) of kv head g, in page
-// `page`, into one stage: two lanes a key row, 16 bytes a copy.  A key
-// that is not live is zero-filled and not read.
+// `page`, into one stage: two lanes a key row, zero past D to a multiple
+// of 16 columns.  A key that is not live is zero-filled and not read.
 template <typename T, int LD>
 __device__ __forceinline__ void load_tile(T* ks, T* vs,
                                           const T* __restrict__ kp,
                                           const T* __restrict__ vp,
                                           const Params& p, int g, int t,
                                           int page, bool live, int lane) {
-  constexpr int EPC = 16 / sizeof(T);
   const int j = lane >> 1;
   const size_t row =
       live ? (((size_t)page * p.ps + t % p.ps) * p.Hkv + g) * p.D : 0;
-  const int n = live ? 16 : 0;
-  for (int c = lane & 1; c * EPC < p.D; c += 2) {
-    cp_async16(ks + j * LD + c * EPC, kp + row + c * EPC, n);
-    cp_async16(vs + j * LD + c * EPC, vp + row + c * EPC, n);
-  }
+  const int bytes = live ? p.D * (int)sizeof(T) : 0;
+  const int padded = ((p.D + 15) & ~15) * (int)sizeof(T);
+  copy_row(ks + j * LD, kp + row, bytes, padded, p.kpiece, lane & 1, 2);
+  copy_row(vs + j * LD, vp + row, bytes, padded, p.kpiece, lane & 1, 2);
 }
 
 __device__ __forceinline__ bool keep(int t, int ke, int qpos, int window) {
@@ -393,13 +420,10 @@ rpa_split_kernel(const TQ* __restrict__ q, const TP* __restrict__ kp,
   const TQ* qg = q + obase;
   if constexpr (TILE) {
     TQ* qt = reinterpret_cast<TQ*>(rpa_smem);
-    constexpr int EPC = 16 / sizeof(TQ);
+    const int padded = ((D + 15) & ~15) * (int)sizeof(TQ);
     for (int r = warp; r < TILE_ROWS; r += nw)
-      for (int c = lane; c * EPC < DMAX; c += 32) {
-        const bool live = r < R && c * EPC < D;
-        cp_async16(qt + r * C::LDQ + c * EPC,
-                   live ? qg + (size_t)r * D + c * EPC : qg, live ? 16 : 0);
-      }
+      copy_row(qt + r * C::LDQ, qg + (size_t)(r < R ? r : 0) * D,
+               r < R ? D * (int)sizeof(TQ) : 0, padded, p.qpiece, lane, 32);
     cp_async_commit();
     cp_async_wait<0>();
   } else {
@@ -494,7 +518,9 @@ rpa_split_kernel(const TQ* __restrict__ q, const TP* __restrict__ kp,
   // live split, else this split's partial
   const bool direct = n_live == 1;
   const int grp = bg * p.row_tiles + rt;
-  const size_t prow = D + 4;  // a partial row: acc[D], m, l, 16-byte pad
+  // a partial row: acc[D4], m, l, two floats of pad (16-byte rows)
+  const int D4 = (D + 3) & ~3;
+  const size_t prow = D4 + 4;
   float* part =
       p.ws + ((size_t)grp * p.nsplit + split) * p.row_tile * prow;
   for (int r = warp; r < R; r += nw) {
@@ -522,8 +548,8 @@ rpa_split_kernel(const TQ* __restrict__ q, const TP* __restrict__ kp,
         part[r * prow + d] = a;
     }
     if (!direct && lane == 0) {
-      part[r * prow + D] = mm;
-      part[r * prow + D + 1] = ll;
+      part[r * prow + D4] = mm;
+      part[r * prow + D4 + 1] = ll;
     }
   }
   if (direct || !arrive_last(p.tickets + grp, n_live)) return;
@@ -537,7 +563,7 @@ rpa_split_kernel(const TQ* __restrict__ q, const TP* __restrict__ kp,
   float* wts = reinterpret_cast<float*>(rpa_smem + C::QBYTES);  // [R][n]
   float* lsum = wts + R * n_live;                                // [R]
   for (int r = warp; r < R; r += nw) {
-    const float* pr = p0 + r * prow + D;
+    const float* pr = p0 + r * prow + D4;
     float mm = -INFINITY;
     for (int s = lane; s < n_live; s += 32)
       mm = fmaxf(mm, __ldcg(pr + s * sstride));
@@ -553,7 +579,7 @@ rpa_split_kernel(const TQ* __restrict__ q, const TP* __restrict__ kp,
     if (lane == 0) lsum[r] = ll;
   }
   __syncthreads();
-  const int nv = D / 4;
+  const int nv = D4 / 4;
   for (int v = threadIdx.x; v < R * nv; v += blockDim.x) {
     const int r = v / nv, d = (v - r * nv) * 4;
     const float* pr = p0 + r * prow + d;
@@ -572,7 +598,8 @@ rpa_split_kernel(const TQ* __restrict__ q, const TP* __restrict__ kp,
     const float ll = lsum[r];
     TQ* o = out + obase + (size_t)r * D + d;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) o[e] = from_f<TQ>(ll == 0.f ? 0.f : a[e] / ll);
+    for (int e = 0; e < 4; ++e)
+      if (d + e < D) o[e] = from_f<TQ>(ll == 0.f ? 0.f : a[e] / ll);
   }
   if (threadIdx.x == 0) p.tickets[grp] = 0u;
 }
@@ -641,9 +668,9 @@ cudaError_t launch_type(int D, int rb, const void* q, const void* kp,
 // tensor-core variant, row_tile 16) or the few-rows variant (row_tile =
 // rows < 16); `span` keys a split (a multiple of ps), `nsplit` splits,
 // `warps` (1-4) a block; with nsplit (at most 128) > 1, `ws` holds B * Hkv
-// * row tiles * nsplit * row_tile * (D + 4) floats, 16-byte aligned, and
-// `tickets` B * Hkv * row tiles zeroed counters (left zeroed).  D is a
-// multiple of 16, at most 256.
+// * row tiles * nsplit * row_tile * (D4 + 4) floats (D4: D rounded up to
+// 4), 16-byte aligned, and `tickets` B * Hkv * row tiles zeroed counters
+// (left zeroed).  Any D up to 256.
 // Returns the launch's cudaError_t (0 = launched).
 extern "C" int mxt_ragged_paged_attention(
     const void* q, const void* kpool, const void* vpool,
@@ -654,7 +681,7 @@ extern "C" int mxt_ragged_paged_attention(
   cudaGetLastError();  // clear any stale error of this runtime
   if (B == 0 || C == 0) return 0;
   const int rows = (H / Hkv) * C;
-  if (D > MAX_D || D % 16 || warps < 1 || warps > MAX_WARPS || ps < 1 ||
+  if (D > MAX_D || D < 1 || warps < 1 || warps > MAX_WARPS || ps < 1 ||
       span < 1 || span % ps || nsplit < 1 || nsplit > MAX_SPLITS ||
       row_tile < 1 ||
       (tile ? row_tile != TILE_ROWS : row_tile > 15 || row_tile < rows) ||
@@ -674,6 +701,13 @@ extern "C" int mxt_ragged_paged_attention(
   p.maxp = maxp;
   p.rows = rows;
   p.window = window;
+  // the largest copy that divides a row's bytes (the pointers are 16-byte
+  // aligned, so every row starts on such a boundary)
+  auto piece = [](int bytes) {
+    return bytes % 16 == 0 ? 16 : bytes % 8 == 0 ? 8 : bytes % 4 == 0 ? 4 : 2;
+  };
+  p.kpiece = piece(D * (types == 0 ? 4 : 2));
+  p.qpiece = piece(D * (types == 1 ? 2 : 4));
   p.scale = scale;
   p.row_tile = row_tile;
   p.row_tiles = (rows + row_tile - 1) / row_tile;

@@ -11,7 +11,7 @@ recomputes.  `flash_attention` is a `torch.autograd.Function`:
   pass, then one tensor-core pass per key tile for dQ, dK and dV, laid out
   by `_bwd_plan`; both skip the tiles outside a sliding window's band and
   take grouped K/V folded onto the row axis), or raises `MXNetError` on
-  what they do not take (heads over 128 wide);
+  what they do not take (heads over 256 wide);
 - on a CPU tensor it runs `flash_fwd_reference` / `flash_bwd_reference`:
   the same arithmetic in plain torch, which the CPU tests hold against the
   JAX package; the block sizes change nothing there.
@@ -54,7 +54,7 @@ __all__ = ["flash_attention", "flash_attention_reference",
 
 MASK_VALUE = -1e30
 _M32 = 0xFFFFFFFF
-MAX_HEAD_DIM = 128      # the kernels' shared-memory tiles hold D <= 128
+MAX_HEAD_DIM = 256      # the kernels' shared-memory tiles hold D <= 256
 
 
 # ---------------------------------------------------------------------------
@@ -244,11 +244,20 @@ FWD_TILES = (64, 128)
 SMEM_BLOCK = 232448     # the shared memory an H100 block may use (227 KB)
 
 
+def _is_bf16(dtype) -> bool:
+    return "16" in str(dtype)
+
+
+def _dmax(D: int) -> int:
+    """The width the kernels' tiles pad a head of D columns to."""
+    return 64 if D <= 64 else 128 if D <= 128 else 256
+
+
 def _fwd_smem(dtype, dmax: int, bq: int, bk: int) -> int:
     """Shared memory of one forward block: two Q tiles (an item's and the
     next one's) and a two-stage ring of K and V tiles, rows padded by 16
     bytes (bf16) or 4 floats (f32)."""
-    item, pad = (2, 8) if "16" in str(dtype) else (4, 4)
+    item, pad = (2, 8) if _is_bf16(dtype) else (4, 4)
     return item * (2 * bq + 4 * bk) * (dmax + pad)
 
 
@@ -256,7 +265,7 @@ class FwdPlan(NamedTuple):
     """One forward launch: the tiles and where they came from."""
     bq: int              # query rows a work item (a block of bq / 16 warps)
     bk: int              # keys a stage of the K/V ring
-    dmax: int            # D padded to 64 or 128
+    dmax: int            # D padded to 64, 128 or 256
     smem: int            # bytes of shared memory a block
     items: int           # work items, B * H * ceil(Lq / bq)
     grid: int            # persistent blocks; 0: as many as fit on the card
@@ -274,14 +283,18 @@ def _fwd_plan(B: int, H: int, Lq: int, Lk: int, D: int, dtype,
     64-row items (their warps need over 128 registers, so an SM holds one
     block of 8 warps or two of 4: the smaller items balance better), and
     where the tiles exceed a block's shared memory (f32 heads over 64 wide
-    at 128 keys) the key tile halves.  With ``kv_heads`` g < H the H // g
-    query heads of a group are folded onto the row axis: B * g heads of
-    H // g * Lq rows."""
-    dmax = 64 if D <= 64 else 128
-    bq = 128 if int(block_q) >= 128 and dmax == 64 else 64
-    bk = 128 if int(block_k) >= 128 else 64
-    if _fwd_smem(dtype, dmax, bq, bk) > SMEM_BLOCK:
-        bk = 64
+    at 128 keys) the key tile halves.  Heads over 128 wide take the one
+    pair that fits: 64 x 64 in bf16, 32 x 32 in f32 (whatever the blocks
+    asked).  With ``kv_heads`` g < H the H // g query heads of a group are
+    folded onto the row axis: B * g heads of H // g * Lq rows."""
+    dmax = _dmax(D)
+    if dmax == 256:
+        bq = bk = 64 if _is_bf16(dtype) else 32
+    else:
+        bq = 128 if int(block_q) >= 128 and dmax == 64 else 64
+        bk = 128 if int(block_k) >= 128 else 64
+        if _fwd_smem(dtype, dmax, bq, bk) > SMEM_BLOCK:
+            bk = 64
     g = kv_heads or H
     return FwdPlan(bq, bk, dmax, _fwd_smem(dtype, dmax, bq, bk),
                    B * g * -(-(H // g) * Lq // bq), 0, source)
@@ -369,22 +382,54 @@ def _planned_fwd(B, H, Lq, Lk, D, dtype, device, block_q=None,
 
 # the backward's tiles (csrc/flash_attention.cu `flash_bwd_kernel`)
 BWD_KEY_TILES = (64, 128)   # keys a block holds: 4 or 8 warps of 16 keys
+# the most q rows a backward block sums a key tile's dK and dV over: the
+# tensor cores' f32 accumulation drifts by about 2^-24 of the sum an
+# addition, 1.4e-4 of dK over the 8192 rows Gemma 2B's folded heads give a
+# key on average; past this many rows a key tile's q tiles are split
+# across blocks, whose f32 partials are summed in order
+BWD_SPLIT_ROWS = 1024
+
+
+def _bwd_key_tiles(dmax: int, dtype) -> Tuple[int, ...]:
+    """The key tiles a backward block may hold at a padded width: both up
+    to 128 columns; over that the one that fits a block's shared memory,
+    64 keys in bf16 and 32 in f32, with two warps a 16 keys (each
+    accumulating dK and dV over half the columns)."""
+    if dmax <= 128:
+        return BWD_KEY_TILES
+    return (64,) if _is_bf16(dtype) else (32,)
+
+
+def _bwd_smem(dtype, dmax: int, bk: int) -> int:
+    """Shared memory of one backward block (csrc `bwd_smem`): KVB K/V
+    buffers (2 for bf16, 1 for f32) of bk rows, a two-stage ring of Q and
+    dO tiles of bq rows, dS^T (bk x bq) and lse, di and positions for two
+    q tiles."""
+    item, pad = (2, 8) if _is_bf16(dtype) else (4, 4)
+    kvb = 2 if _is_bf16(dtype) else 1
+    bq = 64 if dmax == 64 else 32
+    return item * ((2 * kvb * bk + 4 * bq) * (dmax + pad)
+                   + bk * (bq + pad)) + 4 * 6 * bq
 
 
 class BwdPlan(NamedTuple):
     """One backward launch: the key tile, the head width the tiles are
     padded to, the q rows a step of the walk, and what the wrapper
     allocates for it."""
-    bk: int              # keys a block holds (64 or 128)
-    dmax: int            # D padded to 64 or 128
+    bk: int              # keys a block holds (64 or 128; 64 or 32 for
+                         # heads over 128 wide)
+    dmax: int            # D padded to 64, 128 or 256
     bq: int              # q rows a step: 64, or 32 for heads over 64 wide
     key_tiles: int       # work items a head; dQ partials when more than one
     q_tiles: int         # q tiles a head: one ticket each
-    blocks: int          # work items (B * g * key_tiles)
+    blocks: int          # work items (B * g * key_tiles * q_splits)
     grid: int            # blocks launched: one an item, or (bf16 with one
                          # key tile a head) one an SM, persistent
     tickets: int         # uint32 tickets (B * g * q_tiles), 0 with one tile
     workspace: int       # f32 dQ partials (key_tiles * B * H * Lq * D)
+    q_splits: int        # blocks a key tile's q tiles are split across
+    kv_tickets: int      # uint32 tickets (B * g * key_tiles), 0 unsplit
+    kv_workspace: int    # f32 dK / dV partials (2 * bk * D a split)
 
 
 def _bwd_plan(B: int, H: int, Lq: int, Lk: int, D: int, dtype,
@@ -403,27 +448,39 @@ def _bwd_plan(B: int, H: int, Lq: int, Lk: int, D: int, dtype,
     taken as they free up balance them, where a static walk does not --
     at GPT-2 small's L 1024 in bf16, 0.72 ms against 1.64 (PERF.md, the
     flash backward).  With ``kv_heads`` g < H a head is one of the B * g
-    folded heads, of H // g * Lq rows (q tiles)."""
+    folded heads, of H // g * Lq rows (q tiles).  Heads over 128 wide
+    take the one key tile that fits a block (`_bwd_key_tiles`).  A head
+    of more than `BWD_SPLIT_ROWS` rows cuts each key tile's q tiles into
+    that many rows a split or fewer, one block each, for the precision of
+    dK and dV."""
     g = kv_heads or H
     heads, rows = B * g, H // g * Lq
+    dmax = _dmax(D)
+    tiles = _bwd_key_tiles(dmax, dtype)
     if bk is None:
         bk = 128
         if Lk <= 64 or heads * -(-Lk // 128) < sm_count:
             bk = 64
-    if bk not in BWD_KEY_TILES:
+        if bk not in tiles:
+            bk = tiles[0]
+    if bk not in tiles:
         raise MXNetError(f"flash backward key tile must be one of "
-                         f"{BWD_KEY_TILES}, got {bk}")
-    dmax = 64 if D <= 64 else 128
+                         f"{tiles} at head_dim {D}, got {bk}")
     bq = 64 if dmax == 64 else 32
     key_tiles = max(1, -(-Lk // bk))
     q_tiles = -(-rows // bq)
+    per = -(-q_tiles // -(-rows // BWD_SPLIT_ROWS))   # q tiles a split
+    q_splits = max(1, -(-q_tiles // per))
     split = key_tiles > 1
-    items = heads * key_tiles
-    persistent = dtype == torch.bfloat16 and not split
+    items = heads * key_tiles * q_splits
+    persistent = _is_bf16(dtype) and not split
     grid = min(items, sm_count) if persistent else items
+    cut = q_splits > 1
     return BwdPlan(bk, dmax, bq, key_tiles, q_tiles, items, max(1, grid),
                    heads * q_tiles if split else 0,
-                   key_tiles * heads * rows * D if split else 0)
+                   key_tiles * heads * rows * D if split else 0, q_splits,
+                   heads * key_tiles if cut else 0,
+                   items * 2 * bk * D if cut else 0)
 
 
 _P = ctypes.c_void_p
@@ -431,8 +488,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _U = ctypes.c_uint
 _fns = {}
-# (device index, raw stream) -> (tickets, dQ partials, di): each stream
-# keeps its own, grown on demand; every launch leaves the tickets zeroed
+# (device index, raw stream) -> (tickets, dQ partials, di, dK / dV
+# partials): each stream keeps its own, grown on demand; every launch
+# leaves the tickets zeroed
 _scratch_of: Dict[Any, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = {}
 
 
@@ -445,7 +503,7 @@ def _kernel_fn(direction):
         if direction == "fwd":
             f.argtypes = [_P] * 7 + common + [_I, _I, _I, _P]
         else:
-            f.argtypes = [_P] * 14 + common + [_I, _I, _P]
+            f.argtypes = [_P] * 16 + [_I] + common + [_I, _I, _P]
         f.restype = _I
         _fns[direction] = f
     return f
@@ -468,7 +526,8 @@ def _check(q, k, v, bias3, seed, rate, per_row, lq):
         raise MXNetError(f"{R} query rows are not a fold of length {lq}")
     if not 1 <= D <= MAX_HEAD_DIM:
         raise MXNetError(f"flash_attention kernel takes head_dim <= "
-                         f"{MAX_HEAD_DIM}, got {D}")
+                         f"{MAX_HEAD_DIM}, got {D} (wider heads are "
+                         f"ROADMAP B4 part 2)")
     named = [("q", q), ("k", k), ("v", v)]
     if bias3 is not None:
         named.append(("bias", bias3))
@@ -573,16 +632,20 @@ def _flash_bwd_cuda(q, k, v, bias3, seed, o, lse, g, scale, causal, rate,
                          _kernels.sm_count(dev), kv_heads=G)
     # the raw handle, without building a torch.cuda.Stream each call
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
-    tickets, ws, di = _kernels.stream_scratch(_scratch_of, dev, stream,
-                                              plan.tickets, plan.workspace,
-                                              B * G * R)
-    split = plan.key_tiles > 1
+    # the dQ tickets, then the dK / dV ones, in one zeroed buffer
+    tickets, ws, di, kvws = _kernels.stream_scratch(
+        _scratch_of, dev, stream, plan.tickets + plan.kv_tickets,
+        plan.workspace, B * G * R, plan.kv_workspace)
+    split, cut = plan.key_tiles > 1, plan.q_splits > 1
     err = _kernel_fn("bwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias3),
         _ptr(seed) if rate > 0 else None, o.data_ptr(), lse.data_ptr(),
         g.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), ws.data_ptr() if split else None,
         tickets.data_ptr() if split else None,
+        kvws.data_ptr() if cut else None,
+        tickets.data_ptr() + 4 * plan.tickets if cut else None,
+        plan.q_splits,
         *_common_args(q, k, bias3, scale, causal, rate, per_head, per_row,
                       window, window_symmetric, lq),
         plan.bk, plan.grid, stream)
@@ -746,9 +809,12 @@ def _at_candidates(shapes, dtype):
     """The card's menu, block_q and block_k each 64 or 128, pruned by JAX's
     rule on Lq and Lk (a block neither dividing L nor within it), by a
     block's shared memory and, for heads over 64 wide, to 64 rows (see
-    `_fwd_plan`)."""
+    `_fwd_plan`); heads over 128 wide have one plan, so one candidate."""
     _, _, lq, lk, d = _at_shapes(shapes)
-    dmax = 64 if d <= 64 else 128
+    dmax = _dmax(d)
+    if dmax == 256:
+        plan = _fwd_plan(1, 1, lq, lk, d, dtype, 64, 64)
+        return [autotune.BlockConfig(block_q=plan.bq, block_k=plan.bk)]
     out = []
     for bq in FWD_TILES:
         if (lq % bq and bq > lq) or (bq > 64 and dmax > 64):
@@ -766,7 +832,7 @@ def _at_roofline(config, shapes, dtype):
     """JAX's count (`mxnet_tpu/ops/pallas/flash_attention.py`
     `_at_roofline`): K and V stream once per q block."""
     b, h, lq, lk, d = _at_shapes(shapes)
-    itemsize = 2 if "16" in str(dtype) else 4
+    itemsize = 2 if _is_bf16(dtype) else 4
     bq, bk = config.block_q, config.block_k
     n_q = max(1, lq // max(1, bq))
     return {"flops": 4.0 * b * h * lq * lk * d,

@@ -128,6 +128,7 @@ KEY_TILE = 16         # keys a warp takes a step of its walk
 MAX_SPAN = 256        # most keys a split covers (rounded down to pages)
 MAX_SPLITS = 128      # most splits (the kernel keeps their weights)
 RING_BYTES = 80 * 1024  # shared memory the warps' K/V rings may fill
+MAX_HEAD_DIM = 256    # the widest row the kernel's tiles hold
 
 
 class Plan(NamedTuple):
@@ -171,9 +172,11 @@ def _plan(B: int, H: int, Hkv: int, C: int, D: int, ps: int, maxp: int,
     hi = max(lo, MAX_SPAN // ps)
     span = min(max(pages, lo), hi, maxp) * ps
     split = -(-cap // span)
-    # a partial row: acc[D], m, l and two floats of pad (16-byte rows)
+    # a partial row: acc[D] (D rounded up to 4), m, l and two floats of
+    # pad (16-byte rows)
     return Plan(variant, row_tile, span, split, warps, groups,
-                groups * split * row_tile * (D + 4) if split > 1 else 0)
+                groups * split * row_tile * (-(-D // 4) * 4 + 4)
+                if split > 1 else 0)
 
 
 _P = ctypes.c_void_p
@@ -219,9 +222,10 @@ def _check(q, kpool, vpool, page_tables, ctx_lens, start_pos) -> Plan:
         raise MXNetError(
             f"pools must both be (num_pages, page_size, Hkv, {D}); got "
             f"{tuple(kpool.shape)} and {tuple(vpool.shape)}")
-    if D > 256 or D % 16:
+    if not 1 <= D <= MAX_HEAD_DIM:
         raise MXNetError(f"ragged_paged_attention kernel takes a head_dim "
-                         f"that is a multiple of 16, at most 256; got {D}")
+                         f"of at most {MAX_HEAD_DIM}; got {D} (wider heads "
+                         f"are ROADMAP B4 part 2)")
     if page_tables.dim() != 2 or page_tables.shape[0] != B or \
             tuple(ctx_lens.shape) != (B,) or tuple(start_pos.shape) != (B,):
         raise MXNetError(

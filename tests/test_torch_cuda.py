@@ -1,18 +1,21 @@
 """The port's CUDA kernels against their plain versions, on the card:
 ragged paged attention (both variants at the default plan, one split and
-one page a split, pages 8, 24 and 128, D 64 and 128, empty slots,
+one page a split, pages 8, 24 and 128, D 64 and 128, any D up to 256 --
+rows that are not a multiple of 16 columns or 16 bytes --, empty slots,
 windows, two streams, two calls bit-equal; the speculative verification
 widths 2-8 over page tables that share and fork pages), the dequant-matmul (every plan of its menu, odd
 shapes, the tied head, two calls bit-equal), flash attention (forward and
 backward, with padding or per-row bias, causal, dropout, ragged L and
-D up to 128, under windows of 3 and 64 keys each way and with 1, 3 or 4
+D up to 256, under windows of 3 and 64 keys each way and with 1, 3 or 4
 query heads folded onto each kv head's rows, a dQ ticket over a middle
 range of key tiles, rows past every key's band, a windowed BERT against
 its plain attention; the forward at every (block_q, block_k) of its
 tuner's menu, unaligned operands, two calls and two streams bit-equal, masked rows
 exactly zero with lse 0, and its tunable's trials; the backward at both
 key tiles, two calls and two streams bit-equal, masked rows and keys
-exactly zero), the streaming
+exactly zero, heads over 128 wide with their own tiles, and Gemma 2B's
+fold of 16384 rows a head with the q walk split across blocks), the
+streaming
 cross-entropy (any V, unclamped labels), the fused LayerNorm/RMSNorm (any
 h, with and without residual and beta; both plan variants, 16-byte and
 one-element loads, every block_rows of its tuner's menu, two calls
@@ -99,7 +102,8 @@ def _with_span(plan, span, cap, D):
     """`plan` with splits of `span` keys over a table of `cap` keys."""
     split = -(-cap // span)
     return plan._replace(span=span, split=split, workspace=(
-        plan.groups * split * plan.row_tile * (D + 4) if split > 1 else 0))
+        plan.groups * split * plan.row_tile * (-(-D // 4) * 4 + 4)
+        if split > 1 else 0))
 
 
 RPA_SHAPES = [(1, 4, 4), (1, 8, 2), (16, 4, 4), (4, 8, 1)]   # C, H, Hkv
@@ -233,11 +237,62 @@ def test_paged_attention_verify_widths_over_shared_and_forked_pages(
 
 
 def test_paged_attention_raises_on_a_head_dim_it_does_not_take(card):
-    q = torch.zeros(1, 2, 1, 24, device=card)
-    pool = torch.zeros(2, 8, 2, 24, device=card)
+    """D = 24 (not a multiple of 16: the kernel refused it before its rows
+    were padded in shared memory) launches and matches the plain version;
+    a head over 256 wide still raises by name."""
+    args = _rpa_inputs(card, torch.float32, 1, 2, 2, 24, 8, 2, [3], [1])
+    kernels.reset_launch_counts()
+    out = pa.ragged_paged_attention(*args)
+    ref = pa.paged_attention_reference(*args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["ragged_paged_attention"] == 1
+    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    q = torch.zeros(1, 2, 1, 384, device=card)
+    pool = torch.zeros(2, 8, 2, 384, device=card)
     i32 = torch.zeros(1, 1, dtype=torch.int32, device=card)
-    with pytest.raises(MXNetError, match="multiple of 16"):
+    with pytest.raises(MXNetError, match="B4 part 2"):
         pa.ragged_paged_attention(q, pool, pool, i32, i32[0], i32[0])
+
+
+# (query dtype, pool dtype, tolerance): each route and f32 queries over a
+# bf16 pool (held to the bf16 tolerance)
+RPA_TYPES = [(torch.float32, torch.float32, 1e-4),
+             (torch.bfloat16, torch.bfloat16, 2e-2),
+             (torch.float32, torch.bfloat16, 2e-2)]
+
+
+@pytest.mark.parametrize("qdt,pdt,tol", RPA_TYPES)
+@pytest.mark.parametrize("D", [7, 18, 24, 72, 100, 200, 256])
+@pytest.mark.parametrize("C,H,Hkv,windowed", [(1, 3, 1, False),
+                                               (16, 3, 1, False),
+                                               (1, 8, 1, True),
+                                               (4, 8, 2, True)])
+def test_paged_attention_any_head_width_matches_plain(card, qdt, pdt, tol,
+                                                      D, C, H, Hkv,
+                                                      windowed):
+    """Rows of any width up to 256: whole 16-byte pieces (24, 72, 256),
+    8-byte (bf16 100, f32 18), 4-byte (bf16 18) and 2-byte ones (bf16 7),
+    each zero-filled past D to 16 columns; the default plan (a split
+    merge at these tables) and one split, two calls bit-equal."""
+    start, nt = [0, 37, 100, 5], [C, C, min(C, 3), 0]
+    args = _rpa_inputs(card, qdt, C, H, Hkv, D, 16, 12, start, nt, seed=D)
+    args[1], args[2] = args[1].to(pdt), args[2].to(pdt)
+    window = 30 if windowed else None
+    ref = pa.paged_attention_reference(*args, window=window,
+                                       scale=D ** -0.5)
+    plan = pa._plan(4, H, Hkv, C, D, 16, 12, pdt, kernels.sm_count(card))
+    for p in (plan, _with_span(plan, 16 * 12, 16 * 12, D)):
+        kernels.reset_launch_counts()
+        out = pa._rpa_cuda(*args, window, D ** -0.5, plan=p)
+        again = pa._rpa_cuda(*args, window, D ** -0.5, plan=p)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["ragged_paged_attention"] == 2
+        assert torch.equal(out, again)
+        for b, n in enumerate(nt):
+            if n:
+                err = (out[b, :, :n].float() - ref[b, :, :n].float()).abs()
+                assert float(err.max()) <= tol * float(
+                    ref[b, :, :n].float().abs().max()), (b, p)
 
 
 def _qmm_case(card, dtype, bits, M, N, K, seed=1):
@@ -382,7 +437,8 @@ FLASH_WINDOWS = [(None, True), (3, True), (3, False), (64, True),
     (128, 128, 64, "pad", False, 0.1), (77, 77, 64, "none", True, 0.0),
     (40, 100, 32, "row", False, 0.0), (130, 65, 128, "pad", False, 0.2),
     (200, 300, 64, "pad", False, 0.1), (257, 257, 128, "none", True, 0.0),
-    (96, 96, 32, "row", False, 0.1)])
+    (96, 96, 32, "row", False, 0.1), (130, 65, 256, "pad", False, 0.2),
+    (77, 77, 192, "none", True, 0.0), (40, 100, 160, "row", False, 0.1)])
 @pytest.mark.parametrize("window,symmetric", FLASH_WINDOWS)
 @pytest.mark.parametrize("rep", [1, 3, 4])
 def test_flash_attention_kernels_match_plain(card, dtype, tol, Lq, Lk, D,
@@ -473,6 +529,75 @@ def test_flash_backward_every_key_tile_is_right_and_repeatable(
         # the same bits
         narrow = fa._flash_bwd_cuda(*args, plan=plan._replace(grid=3), **kw)
         assert all(torch.equal(a, b) for a, b in zip(narrow, got))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,H,Lq,Lk,D,bias_kind,causal,rate", [
+    (2, 3, 128, 128, 256, "pad", False, 0.1),
+    (2, 2, 200, 300, 256, "pad", False, 0.1),
+    (1, 2, 257, 257, 192, "none", True, 0.0),
+    (2, 2, 70, 33, 160, "row", False, 0.0),
+    (1, 2, 45, 70, 129, "pad", True, 0.1)])
+@pytest.mark.parametrize("window,symmetric", FLASH_WINDOWS)
+@pytest.mark.parametrize("rep", [1, 3, 4])
+def test_flash_backward_wide_heads_right_and_repeatable(
+        card, dtype, tol, B, H, Lq, Lk, D, bias_kind, causal, rate, window,
+        symmetric, rep):
+    """Heads over 128 wide (two warps a 16 keys, each with half the dK and
+    dV columns; the one key tile that fits: 64 keys in bf16, 32 in f32)
+    against the plain version, two calls bit-equal, in bf16 a grid of
+    three persistent blocks giving the same bits; the forward's wide plan
+    (64 x 64 bf16, 32 x 32 f32) against its plain version too."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    args, kw, want = _flash_bwd_inputs(card, dtype, B, H, Lq, Lk, D,
+                                       bias_kind, causal, rate,
+                                       window=window, symmetric=symmetric,
+                                       rep=rep)
+    plan = fa._bwd_plan(B, H * rep, Lq, Lk, D, dtype,
+                        kernels.sm_count(card), kv_heads=H)
+    assert plan.dmax == 256
+    kernels.reset_launch_counts()
+    got = fa._flash_bwd_cuda(*args, plan=plan, **kw)
+    again = fa._flash_bwd_cuda(*args, plan=plan, **kw)
+    o, lse = fa._flash_fwd_cuda(*args[:5], *args[8:], **kw)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["flash_attention_bwd"] == 2
+    assert counts["flash_attention_fwd"] == 1
+    for name, a, a2, b in zip(("dq", "dk", "dv"), got, again, want):
+        assert torch.equal(a, a2), name
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= tol * float(b.float().abs().max()), name
+    for name, a, b in (("out", o, args[5]), ("lse", lse, args[6])):
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= tol * float(b.float().abs().max()), name
+    if dtype == torch.bfloat16:
+        narrow = fa._flash_bwd_cuda(*args, plan=plan._replace(grid=3), **kw)
+        assert all(torch.equal(a, b) for a, b in zip(narrow, got))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("D", [64, 256])
+def test_flash_backward_long_folds_split_the_q_walk(card, dtype, tol, D):
+    """Gemma 2B's fold, 8 query heads over one kv head at L 2048: 16384
+    rows a head, so each key tile's q walk is cut into 16 splits whose f32
+    dK / dV partials are summed in order (one block summing every row
+    drifted 1.4e-4 from the plain version in f32); two calls bit-equal."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    args, kw, want = _flash_bwd_inputs(card, dtype, 1, 1, 2048, 2048, D,
+                                       "none", True, 0.1, rep=8)
+    plan = fa._bwd_plan(1, 8, 2048, 2048, D, dtype, kernels.sm_count(card),
+                        kv_heads=1)
+    assert plan.q_splits == 16
+    got = fa._flash_bwd_cuda(*args, plan=plan, **kw)
+    again = fa._flash_bwd_cuda(*args, plan=plan, **kw)
+    torch.cuda.synchronize()
+    for name, a, a2, b in zip(("dq", "dk", "dv"), got, again, want):
+        assert torch.equal(a, a2), name
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= tol * float(b.float().abs().max()), name
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -721,7 +846,8 @@ def test_flash_tune_launches_the_forward_and_warm_hits(card, tmp_path,
 
 def test_flash_attention_kernel_raises_on_what_it_does_not_take(card):
     """Grouped K/V and a window launch the kernels (they raised before the
-    band and the fold were ported); a head over 128 wide still raises."""
+    band and the fold were ported), and so does a 256-wide head (it raised
+    before the wide tiles); a head over 256 wide still raises by name."""
     from mxnet_tpu_torch.ops import flash_attention as fa
     q = torch.zeros(1, 4, 8, 16, device=card)
     kv = torch.zeros(1, 2, 8, 16, device=card)
@@ -729,9 +855,11 @@ def test_flash_attention_kernel_raises_on_what_it_does_not_take(card):
     fa.flash_attention(q, kv, kv)
     fa.flash_attention(q, q, q, window=2)
     fa.flash_attention(q, kv, kv, causal=True, window=2)
-    assert kernels.launch_counts()["flash_attention_fwd"] == 3
-    with pytest.raises(MXNetError, match="head_dim"):
-        big = torch.zeros(1, 1, 8, 256, device=card)
+    wide = torch.zeros(1, 1, 8, 256, device=card)
+    fa.flash_attention(wide, wide, wide)
+    assert kernels.launch_counts()["flash_attention_fwd"] == 4
+    with pytest.raises(MXNetError, match="B4 part 2"):
+        big = torch.zeros(1, 1, 8, 257, device=card)
         fa.flash_attention(big, big, big)
 
 

@@ -158,6 +158,55 @@ def test_grouped_kv_and_window_match_jax_kernel(interpret):
         _compare(q, k, v, g, kw)
 
 
+# heads wider than 128: JAX runs D = 256 in its kernel (a multiple of 128)
+# and D = 160 / 192 through `reference_attention`; the port's kernels take
+# them all (padded to 256 columns).  MHA and a fold of 2 or 4 query heads
+# onto each of 2 kv heads; causal, a causal window and padding (dropout
+# only at 256, where both sides hash one mask: JAX's reference route
+# draws its own)
+WIDE = [(256, 1), (256, 2), (256, 4), (192, 1), (192, 2), (160, 4)]
+
+
+def _wide_kwargs(rng, mask, B, Lk, D):
+    if mask == "causal":
+        return dict(causal=True), {}
+    if mask == "window":
+        return dict(causal=True, window=5), {}
+    bias = _bias(_padding_mask(rng, B, Lk))
+    drop = {} if D % 128 else dict(dropout_rate=0.2)
+    return (dict(bias=jnp.asarray(bias), **drop,
+                 **({"dropout_seed": jnp.int32(11)} if drop else {})),
+            dict(bias=torch.from_numpy(bias), **drop,
+                 **({"dropout_seed": torch.tensor(11, dtype=torch.int32)}
+                    if drop else {})))
+
+
+@pytest.mark.parametrize("D,rep", WIDE)
+@pytest.mark.parametrize("mask", ["causal", "window", "pad"])
+def test_wide_heads_match_jax(interpret, D, rep, mask):
+    rng, q, k, v, g = _inputs(21, B=2, H=2 * rep, G=2, D=D)
+    jkw, tkw = _wide_kwargs(rng, mask, 2, 16, D)
+    _compare(q, k, v, g, jkw, tkw or jkw)
+
+
+def test_wide_heads_match_jax_in_bf16(interpret):
+    """bf16 q, k, v at D = 256 over one kv head, causal: both sides
+    round p to bf16 before P V; held to 2e-2 of the output's scale, as
+    the card's bf16 kernel cases are."""
+    _, q, k, v, g = _inputs(22, B=2, H=2, G=1, D=256)
+    bf = [x.astype(jnp.bfloat16) for x in (q, k, v, g)]
+    want = _jax(*bf, causal=True)
+    qt, kt, vt = (torch.tensor(np.asarray(x, np.float32)).to(torch.bfloat16)
+                  .requires_grad_() for x in bf[:3])
+    out = tfa.flash_attention(qt, kt, vt, causal=True)
+    out.backward(torch.tensor(np.asarray(bf[3], np.float32))
+                 .to(torch.bfloat16))
+    got = [out.detach()] + [t.grad for t in (qt, kt, vt)]
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        a, b = a.float().numpy(), np.asarray(b, np.float32)
+        assert np.abs(a - b).max() <= 2e-2 * np.abs(b).max(), name
+
+
 def test_plain_version_matches_the_einsum_reference():
     """The dispatch on CPU is the plain flash version; with a float64
     einsum-and-softmax oracle it agrees too (no JAX in the loop)."""
@@ -338,6 +387,8 @@ def test_bwd_plan_at_gpt2_shape_splits_keys(D, dmax, bq):
     assert p.q_tiles == L // bq and p.blocks == p.grid == B * H * 8
     assert tfa._bwd_plan(B, H, L, L, D, torch.bfloat16, 132).grid == \
         B * H * 8
+    # 1024 rows a head: no q split
+    assert (p.q_splits, p.kv_tickets, p.kv_workspace) == (1, 0, 0)
     assert p.tickets == B * H * (L // bq)
     assert p.workspace == 8 * B * H * L * D
 
@@ -379,13 +430,19 @@ def test_plans_count_items_under_the_fold():
     bwd = tfa._bwd_plan(8, 12, 1024, 1024, 64, torch.bfloat16, 132,
                         kv_heads=3)
     assert (bwd.bk, bwd.key_tiles, bwd.q_tiles) == (128, 8, 4 * 1024 // 64)
-    assert bwd.blocks == bwd.grid == 8 * 3 * 8
+    # 4096 folded rows: each key tile's q tiles in 4 splits of 1024 rows,
+    # with f32 dK / dV partials and one ticket a (folded head, key tile)
+    assert bwd.q_splits == 4
+    assert bwd.blocks == bwd.grid == 8 * 3 * 8 * 4
     assert bwd.tickets == 8 * 3 * 64
     assert bwd.workspace == 8 * 8 * 12 * 1024 * 64     # as unfolded
+    assert bwd.kv_tickets == 8 * 3 * 8
+    assert bwd.kv_workspace == bwd.blocks * 2 * 128 * 64
     # MQA: one folded head a batch row; a ragged fold rounds up its rows
+    # (1800 rows: two splits of 15 and 14 q tiles)
     p = tfa._bwd_plan(2, 12, 150, 260, 64, torch.bfloat16, 132, kv_heads=1)
-    assert (p.bk, p.key_tiles, p.q_tiles, p.blocks) == (64, 5, 29, 10)
-    assert p.grid == 10 and p.tickets == 2 * 29
+    assert (p.bk, p.key_tiles, p.q_tiles, p.q_splits) == (64, 5, 29, 2)
+    assert p.blocks == p.grid == 20 and p.tickets == 2 * 29
     # bf16 with one key tile a head keeps one persistent block an SM
     assert tfa._bwd_plan(64, 12, 128, 128, 64, torch.bfloat16, 132,
                          kv_heads=3).grid == 132
@@ -395,6 +452,77 @@ def test_plans_count_items_under_the_fold():
     assert tfa._bwd_plan(8, 12, 1024, 1024, 64, torch.float32, 132,
                          kv_heads=12) == tfa._bwd_plan(
         8, 12, 1024, 1024, 64, torch.float32, 132)
+
+
+_SMEM_CU = int(re.search(r"constexpr size_t SMEM_BLOCK = (\d+);",
+                         (pathlib.Path(tfa.__file__).resolve().parents[1]
+                          / "csrc" / "flash_attention.cu").read_text())[1])
+_BQ_BK = {(64, 64), (64, 128), (128, 64), (128, 128), (32, 32)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_every_plan_fits_a_blocks_shared_memory(dtype):
+    """Every plan `_fwd_plan` and `_bwd_plan` return for D 1..256, at Lq,
+    Lk in {1, 64, 1024} and any blocks asked for, fits the 227 KB a block
+    may take (the .cu's `FITS` and its backward's static_assert), in
+    tiles the C entry takes; heads over 128 wide pad to 256 columns."""
+    assert tfa.SMEM_BLOCK == _SMEM_CU
+    for D in range(1, 257):
+        dmax = 64 if D <= 64 else 128 if D <= 128 else 256
+        for lq in (1, 64, 1024):
+            for lk in (1, 64, 1024):
+                for bq in (8, 64, 128, 256):
+                    for bk in (8, 64, 128, 256):
+                        p = tfa._fwd_plan(2, 3, lq, lk, D, dtype, bq, bk)
+                        assert p.dmax == dmax and (p.bq, p.bk) in _BQ_BK
+                        assert p.smem == tfa._fwd_smem(dtype, dmax, p.bq,
+                                                       p.bk)
+                        assert p.smem <= tfa.SMEM_BLOCK, (D, p)
+                b = tfa._bwd_plan(2, 3, lq, lk, D, dtype, 132)
+                assert b.dmax == dmax and b.bk in tfa._bwd_key_tiles(
+                    dmax, dtype)
+                for bk in tfa._bwd_key_tiles(dmax, dtype):
+                    assert tfa._bwd_smem(dtype, dmax, bk) <= \
+                        tfa.SMEM_BLOCK, (D, bk)
+
+
+@pytest.mark.parametrize("rows", [1, 64, 1024, 1025, 2048, 3072, 16384,
+                                  16385])
+def test_bwd_q_splits_cap_the_rows_a_block_sums(rows):
+    """A key tile's q tiles are cut into the fewest splits of at most
+    `BWD_SPLIT_ROWS` rows each (whole q tiles, none empty), as the kernel
+    walks them: split s takes q tiles [s qper, (s + 1) qper) with qper =
+    ceil(q tiles / q_splits)."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for D in (64, 128, 256):
+            p = tfa._bwd_plan(2, 1, rows, 300, D, dtype, 132)
+            qper = -(-p.q_tiles // p.q_splits)
+            assert qper * p.bq <= max(tfa.BWD_SPLIT_ROWS, p.bq)
+            assert (p.q_splits - 1) * qper < p.q_tiles <= p.q_splits * qper
+            assert p.q_splits == max(1, -(-rows // tfa.BWD_SPLIT_ROWS))
+            assert p.blocks == 2 * p.key_tiles * p.q_splits
+            cut = p.q_splits > 1
+            assert p.kv_tickets == (2 * p.key_tiles if cut else 0)
+            assert p.kv_workspace == (p.blocks * 2 * p.bk * D if cut else 0)
+
+
+def test_wide_head_plans_take_the_tiles_that_fit():
+    """Over 128 wide: forward 64 x 64 in bf16 and 32 x 32 in f32 whatever
+    the blocks asked; backward 64-key tiles in bf16 and 32 in f32, any
+    other raising; the tunable offers that one plan."""
+    for dt, fwd, bk in ((torch.bfloat16, (64, 64), 64),
+                        (torch.float32, (32, 32), 32)):
+        p = tfa._fwd_plan(8, 3, 1024, 1024, 256, dt, 128, 128, kv_heads=1)
+        assert (p.bq, p.bk, p.dmax) == fwd + (256,)
+        assert p.items == 8 * 3 * 1024 // fwd[0]
+        b = tfa._bwd_plan(8, 3, 1024, 1024, 256, dt, 132, kv_heads=1)
+        assert (b.bk, b.dmax, b.bq) == (bk, 256, 32)
+        assert b.key_tiles == 1024 // bk
+        assert b.workspace == b.key_tiles * 8 * 3 * 1024 * 256
+        with pytest.raises(MXNetError, match="key tile"):
+            tfa._bwd_plan(8, 3, 1024, 1024, 256, dt, 132, bk=128)
+        cands = tfa._at_candidates((8, 3, 1024, 1024, 256), str(dt)[6:])
+        assert [(c.block_q, c.block_k) for c in cands] == [fwd]
 
 
 # ---------------------------------------------------------------------------
@@ -413,10 +541,12 @@ def _fa_const(pattern):
     return v
 
 
-# a band edge that never binds, the forward warp's step of keys, and the
-# backward's q tile (64 rows for heads up to 64 wide, else 32)
+# a band edge that never binds, the forward warp's step of keys (for
+# heads over 128 wide, then the rest), and the backward's q tile (64 rows
+# for heads up to 64 wide, else 32)
 NO_EDGE = 1 << int(_fa_const(r"constexpr int NO_EDGE = 1 << (\d+);"))
-KC = int(_fa_const(r"constexpr int KC = (\d+);"))
+KC_WIDE, KC = (int(x) for x in _fa_const(
+    r"static constexpr int KC = QSMEM \? (\d+) : (\d+);"))
 BWD_Q = tuple(int(x) for x in _fa_const(
     r"static constexpr int v = DMAX <= 64 \? (\d+) : (\d+);"))
 
@@ -445,8 +575,9 @@ class _Walk:
         first, last = self.key_span(self.pos_span(r0, n))
         return (first // bk, last // bk) if first <= last else None
 
-    def fwd_steps(self, q0, bq, bk, warp):
-        """(kc, full) of every 64-key step warp `warp` of item q0 runs."""
+    def fwd_steps(self, q0, bq, bk, warp, step=KC):
+        """(kc, full) of every `step`-key step warp `warp` of item q0
+        runs."""
         tiles = self.tiles(q0, bq, bk) or (0, 0)
         wr0 = q0 + 16 * warp
         if wr0 >= self.R:
@@ -454,15 +585,15 @@ class _Walk:
         wps = self.pos_span(wr0, 16)
         steps = []
         for kt in range(tiles[0], tiles[1] + 1):
-            for c0 in range(0, bk, KC):
+            for c0 in range(0, bk, step):
                 kc = kt * bk + c0
                 if kc >= self.Lk or kc > wps[1] + self.hi:
                     break
-                if kc + KC <= wps[0] - self.lo:
+                if kc + step <= wps[0] - self.lo:
                     continue
-                full = (kc + KC <= self.Lk and wr0 + 16 <= self.R
+                full = (kc + step <= self.Lk and wr0 + 16 <= self.R
                         and kc >= wps[1] - self.lo
-                        and kc + KC - 1 <= wps[0] + self.hi)
+                        and kc + step - 1 <= wps[0] + self.hi)
                 steps.append((kc, full))
         return steps
 
@@ -510,7 +641,8 @@ def test_kernel_position_division_is_the_remainder(seg):
 
 
 def test_walk_mirror_reads_the_kernel_constants():
-    assert NO_EDGE == tfa._NO_EDGE and KC == 64 and BWD_Q == (64, 32)
+    assert NO_EDGE == tfa._NO_EDGE and (KC, KC_WIDE) == (64, 32)
+    assert BWD_Q == (64, 32)
 
 
 @hyp.settings(max_examples=60, deadline=None, derandomize=True)
@@ -518,10 +650,13 @@ def test_walk_mirror_reads_the_kernel_constants():
            window=st.one_of(st.none(), st.integers(0, 40)),
            causal=st.booleans(), symmetric=st.booleans(),
            rep=st.integers(1, 4),
-           fwd_tiles=st.sampled_from([(64, 64), (64, 128), (128, 64),
-                                      (128, 128)]),
+           fwd_tiles=st.sampled_from([(64, 64, KC), (64, 128, KC),
+                                      (128, 64, KC), (128, 128, KC),
+                                      (64, 64, KC_WIDE),
+                                      (32, 32, KC_WIDE)]),
            bwd_tiles=st.sampled_from([(bq, bk) for bq in BWD_Q
-                                      for bk in tfa.BWD_KEY_TILES]))
+                                      for bk in tfa.BWD_KEY_TILES]
+                                     + [(BWD_Q[1], 32)]))
 def test_kernel_tile_walk_covers_the_band_exactly(lq, lk, window, causal,
                                                   symmetric, rep, fwd_tiles,
                                                   bwd_tiles):
@@ -532,7 +667,7 @@ def test_kernel_tile_walk_covers_the_band_exactly(lq, lk, window, causal,
     # ends unless its rows straddle two head segments (then the span of
     # every position's band, a superset); each warp's steps hold every live
     # key of its rows, and a step run unmasked is live throughout
-    bq, bk = fwd_tiles
+    bq, bk, kc_step = fwd_tiles
     for q0 in range(0, R, bq):
         cols = np.flatnonzero(live[q0:q0 + bq].any(0))
         tiles = walk.tiles(q0, bq, bk)
@@ -545,13 +680,13 @@ def test_kernel_tile_walk_covers_the_band_exactly(lq, lk, window, causal,
             assert tiles is None
         for warp in range(bq // 16):
             rows = live[q0 + 16 * warp:q0 + 16 * warp + 16]
-            steps = walk.fwd_steps(q0, bq, bk, warp)
+            steps = walk.fwd_steps(q0, bq, bk, warp, kc_step)
             ran = np.zeros(lk, bool)
             for kc, full in steps:
-                ran[kc:kc + KC] = True
+                ran[kc:kc + kc_step] = True
                 if full:
-                    assert rows.shape == (16, lk) and kc + KC <= lk
-                    assert rows[:, kc:kc + KC].all()
+                    assert rows.shape == (16, lk) and kc + kc_step <= lk
+                    assert rows[:, kc:kc + kc_step].all()
             assert not (rows.any(0) & ~ran).any()
     # the backward: each key tile visits every q tile it has a live pair
     # with; a q tile's ticket waits for exactly the key tiles that visit

@@ -633,3 +633,84 @@ def test_modern_gpt_generate_without_cache_equals_cached_and_jax(kv_heads):
         fast = tm.generate(torch.from_numpy(p), 8)
         want = jm.generate(mx.np.array(p), max_new_tokens=8).asnumpy()
         assert slow.tolist() == fast.tolist() == want.tolist()
+
+
+# ---------------------------------------------------------------------------
+# Gemma 2B's attention (256-wide heads over one kv head, RoPE) at a small
+# width: hidden 512 over 2 query heads of 256, one kv head
+# ---------------------------------------------------------------------------
+
+D256 = dict(hidden_size=512, num_heads=2, num_kv_heads=1, rope=True,
+            rope_theta=10000.0)
+D256_SC = dict(max_slots=3, page_size=4, num_pages=12, prefill_chunk=4,
+               max_len=16)
+
+
+def test_d256_gpt_logits_and_every_gradient_match(route):
+    """The folded flash path at D = 256 (JAX's Pallas kernel, interpreted:
+    256 is a multiple of 128): logits and every gradient of the causal-LM
+    loss, with the parameters carried over by `load_jax_params` (the QKV
+    projection at 512 + 2 x 256 rows)."""
+    jm, tm = _pair(**D256)
+    assert tm.transformer.layers[0].attention.attn_qkv.weight.shape[0] == \
+        512 + 2 * 256
+    ids, lab = _stream()
+    want = jm(mx.np.array(ids)).asnumpy()
+    with torch.no_grad():
+        got = tm(torch.from_numpy(ids))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    with autograd.record():
+        logits = jm(mx.np.array(ids))
+        jloss = jgluon.loss.SoftmaxCrossEntropyLoss()(
+            logits.reshape(-1, V), mx.np.array(lab).reshape(-1)).mean()
+    jloss.backward()
+    tloss = SoftmaxCrossEntropyLoss()(
+        tm(torch.from_numpy(ids)).reshape(-1, V),
+        torch.from_numpy(lab).reshape(-1)).mean()
+    tloss.backward()
+    np.testing.assert_allclose(tloss.item(), float(jloss.asnumpy()), **TOL)
+    jp = jm.collect_params()
+    for name, p in tm.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), jp[name].grad().asnumpy(),
+                                   err_msg=name, **TOL)
+
+
+def test_d256_gpt_adamw_train_step_matches_jax(route):
+    """epsilon 1e-4: at hidden 512 the smallest gradients of the QKV
+    weight are near 1e-7 against a median of 3e-2, and Adam's step
+    g / (sqrt(v) + eps) turns their round-off (summation order) into
+    steps 2e-4 apart at epsilon 1e-6; the gradients themselves are held
+    at 1e-4 above."""
+    jm, tm = _pair(**D256)
+    kw = dict(learning_rate=3e-3, wd=0.1, epsilon=1e-4)
+    mesh = make_mesh({"dp": 1}, jax.devices()[:1])
+    jstep = make_sharded_train_step(jm, jopt.AdamW(**kw), _jax_loss, mesh,
+                                    num_model_args=1)
+    tstep = TrainStep(tm, AdamW(**kw), _torch_loss, num_model_args=1)
+    ids, lab = _stream()
+    jl = float(jstep(mx.np.array(ids), mx.np.array(lab)))
+    tl = float(tstep(ids, lab))
+    jstep.sync_params_to_block()
+    np.testing.assert_allclose(tl, jl, **TOL)
+    _assert_params_match(jm, tm)
+
+
+def test_d256_gpt_serving_and_uncached_generate_match_jax():
+    """Greedy streams of the port's engine (K1's plain version at D = 256
+    over one kv head) equal JAX's engine's; `generate` with and without
+    the cache equals both."""
+    jm, tm = _pair(**D256)
+    prompts = [[3, 9, 1, 7, 2], [5], [10, 20, 30, 40, 50, 60, 70]]
+    jeng = JEngine(jm, JServeConfig(**D256_SC))
+    teng = InferenceEngine(tm, ServeConfig(**D256_SC), device="cpu")
+
+    def serve(engine):
+        hs = [engine.submit(p, max_new_tokens=6) for p in prompts]
+        engine.run_until_idle()
+        return [h.result(timeout=0) for h in hs]
+    jout, tout = serve(jeng), serve(teng)
+    assert tout == jout
+    for prompt, got in zip(prompts, tout):
+        p = torch.tensor([prompt])
+        assert tm.generate(p, 6, use_cache=False)[0].tolist() == got
+        assert tm.generate(p, 6)[0].tolist() == got

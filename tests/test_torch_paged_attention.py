@@ -90,6 +90,28 @@ def test_dispatcher_matches_pallas_kernel_interpret(C, H, Hkv, window,
     _assert_valid_rows(out, ref, nt)
 
 
+# head widths the card's kernel takes since it pads rows to 16 columns in
+# shared memory: 24 and 72 (JAX's kernel takes any D <= 128) and Gemma 2B's
+# 256 (JAX's kernel takes multiples of 128); MQA decode as Gemma 2B serves
+# it (8 heads over 1), GPT-2-d256's 3 over 1, and a GQA prefill chunk
+@pytest.mark.parametrize("D", [24, 72, 256])
+@pytest.mark.parametrize("C,H,Hkv,window", [(1, 8, 1, None),
+                                             (8, 3, 1, None), (8, 4, 2, 3)])
+def test_dispatcher_at_any_head_width_matches_pallas_kernel_interpret(
+        D, C, H, Hkv, window, monkeypatch):
+    monkeypatch.setenv("MXTPU_PALLAS_INTERPRET", "1")
+    B, ps, npages, maxp = 4, 8, 24, 5
+    start = [0, 13, 29, 0]
+    nt = [C, max(1, C - 3), 1, 0]
+    q, kp, vp, pt, ctx, st, nt = _inputs(5, B, H, Hkv, C, D, ps, npages,
+                                         maxp, start, nt)
+    ref = jpa.ragged_paged_attention(*_jax(q, kp, vp, pt, ctx, st),
+                                     window=window, use_kernel=True)
+    out = tpa.ragged_paged_attention(*_torch(q, kp, vp, pt, ctx, st),
+                                     window=window)
+    _assert_valid_rows(out, ref, nt)
+
+
 @pytest.mark.parametrize("C,window", [(1, None), (4, None), (4, 2)])
 def test_dense_attend_matches_jax(C, window):
     """The dense-cache attention `generate` uses (no ctx_len)."""
@@ -183,6 +205,16 @@ def test_plan_spans_are_whole_pages(ps, dtype, D):
             assert plan.split <= tpa.MAX_SPLITS
             assert 1 <= plan.warps <= 4
             assert plan.split == -(-maxp * ps // plan.span)
+
+
+@pytest.mark.parametrize("D,row", [(18, 24), (24, 28), (72, 76), (100, 104),
+                                   (256, 260)])
+def test_plan_workspace_rows_are_whole_16_byte_units(D, row):
+    """A split's partial row is D floats rounded up to 4, then m, l and
+    two floats of pad (csrc `prow`): 16-byte rows at any D."""
+    plan = tpa._plan(8, 12, 12, 1, D, 16, 32, torch.float32, SMS)
+    assert plan.split > 1
+    assert plan.workspace == plan.groups * plan.split * plan.row_tile * row
 
 
 def test_plan_is_memoised():

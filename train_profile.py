@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Where a BERT-base pretraining step — or, with ``--moe``, a Switch-MoE
 training step, or with ``--gpt`` a GPT-2-small causal-LM step, or with
-``--gpt-gqa`` the gpt_gqa phase's step — of the PyTorch port spends its
-time, on the card.
+``--gpt-gqa`` the gpt_gqa phase's step, or with ``--gpt-d256`` the
+gpt_d256 phase's — of the PyTorch port spends its time, on the card.
 
-    python3 train_profile.py [--moe | --gpt | --gpt-gqa]
+    python3 train_profile.py [--moe | --gpt | --gpt-gqa | --gpt-d256]
                              [--out chiprun_out/train_profile.json]
 
 Builds full-width BERT-base (seeded random weights) and wraps it in
@@ -27,7 +27,9 @@ its own.  With ``--gpt`` the runs are ``chip_smoke.py``'s gpt phase —
 ``gpt_small()`` at full width and depth on 8 x 1024 tokens, dropout 0.1,
 AdamW lr 3e-4, the default kernel route — through ``TrainStep`` in bf16
 and f32 without remat; ``--gpt-gqa`` the same with ``chip_smoke.py``'s
-``GQA_ARCH`` (RoPE, 3 kv heads, window 256).  Needs a CUDA card.
+``GQA_ARCH`` (RoPE, 3 kv heads, window 256), ``--gpt-d256`` with its
+``D256_ARCH`` (RoPE, 3 heads of 256 over one kv head).  Needs a CUDA
+card.
 """
 from __future__ import annotations
 
@@ -143,13 +145,16 @@ def main(argv=None) -> int:
                     help="profile the GPT-2-small step instead of BERT's")
     ap.add_argument("--gpt-gqa", action="store_true",
                     help="profile the gpt_gqa phase's step instead")
+    ap.add_argument("--gpt-d256", action="store_true",
+                    help="profile the gpt_d256 phase's step instead")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("train_profile: needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    from chip_smoke import (GQA_ARCH, bert_batch, bert_train_step,
+    from chip_smoke import (D256_ARCH, GQA_ARCH, bert_batch,
+                            bert_train_step,
                             gpt_batch, gpt_train_step, moe_batch,
                             pallas_mode)
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
@@ -168,13 +173,14 @@ def main(argv=None) -> int:
             print(f"[{key}] {json.dumps(res)}", flush=True)
             del step
             torch.cuda.empty_cache()
-    gpt = args.gpt or args.gpt_gqa
+    gpt = args.gpt or args.gpt_gqa or args.gpt_d256
+    tag, arch = (("_gqa", GQA_ARCH) if args.gpt_gqa else
+                 ("_d256", D256_ARCH) if args.gpt_d256 else ("", None))
     for dtype in GPT_RUNS if gpt else ():
-        key = f"gpt{'_gqa' if args.gpt_gqa else ''}_{dtype}_step"
+        key = f"gpt{tag}_{dtype}_step"
         batch = gpt_batch(dev, 50257)
         with pallas_mode("auto"):
-            _, step = gpt_train_step(
-                dev, dtype, arch=GQA_ARCH if args.gpt_gqa else None)
+            _, step = gpt_train_step(dev, dtype, arch=arch)
             step.warmup(*batch)
             for _ in range(3):
                 step.dispatch(*batch)
