@@ -12,7 +12,8 @@ widths (hidden 768, FFN 3072, 8 experts) through `TrainStep` and the gluon
 same with Mistral 7B's attention (RoPE, grouped K/V, a sliding window)
 and with Gemma 2B's (heads of 256 over one kv head, RoPE), serving with
 speculative decoding and the prefix cache plus beam search,
-and the Transformer translation model (``transformer_base``):
+the Transformer translation model (``transformer_base``), and the BERT-base
+step again under the rest of the optimizer family and its schedulers:
 
 1. prints the card (name and power limit from ``nvidia-smi``) and the
    torch / CUDA versions;
@@ -87,8 +88,10 @@ and the Transformer translation model (``transformer_base``):
 9. (k6) the optimizer kernels over BERT-base's real parameter list (159
    tensors, 133.6 M elements; f32 model: one dtype group, bf16 model: bf16
    weights and f32 LayerNorm parameters) — the multi-tensor chunk for Adam,
-   AdamW and SGD with momentum, LAMB phases A and B (each once per dtype
-   group; each phase's plan recorded) — against the per-leaf
+   AdamW, SGD with momentum, NAG, Signum with and without momentum,
+   AdaBelief, Adamax, AdaDelta and FTML (its three state slots), LAMB
+   phases A and B (each once per dtype group; each phase's plan
+   recorded) — against the per-leaf
    plain version, ``kernel_plain`` (each state within 1e-5 of its scale;
    each weight within its rounding plus 1e-5 of its update's scale, and at
    most 1e-4 of the bf16 weights' elements off the plain value), with
@@ -97,7 +100,9 @@ and the Transformer translation model (``transformer_base``):
    bit-identical on the card; device times from ``torch.profiler``,
    beside ``torch._fused_adam_`` / ``_fused_adamw_`` /
    ``_fused_sgd_`` over the same tensors as the nearest library call
-   (torch's Adam puts epsilon after the bias correction, MXNet's before);
+   (torch's Adam puts epsilon after the bias correction, MXNet's before;
+   none for LAMB and the six rules after SGD, each with its reason,
+   `NO_LIBRARY`);
    then AdamW over GPT-2 small's parameters and Adam over
    ``transformer_base``'s;
 10. (train) ``bench.py``'s BERT-base pretraining step (batch 64 x 128, 20
@@ -245,6 +250,27 @@ and the Transformer translation model (``transformer_base``):
    ``greedy_translate(max_len=32)`` of 8 sources against the plain route,
    near ties aside.  Prints step ms, target tokens/s and TFLOP/s from
    `nmt_flops_per_step`.
+19. (optim) the train phase's BERT-base step (full width and depth, the
+   default route) under the chunk kernel's six new rules (`OPTIM_RULES`:
+   NAG, Signum with and without momentum, AdaBelief, Adamax, AdaDelta,
+   FTML), 20 steps each through ``TrainStep`` in bf16 and f32, and NAG and
+   AdaDelta through the gluon ``Trainer`` (bf16 model, bf16 state) under a
+   ``CosineScheduler`` with linear warmup, the rate each step used
+   recorded beside the scheduler's.  Each run is held to its oracle, the
+   same step with only the optimizer kernel replaced by its plain version
+   (``update=kernel_plain``; the `Trainer`'s update the same way): the
+   weights and state after the first step (the same gradients on both
+   sides) within `_opt_err`'s limits, the loss trajectory within
+   `traj_tol`; launches exact (the chunk once per dtype group a step, none
+   in the oracle), the loss falls.  The per-leaf rules (`OPTIM_PER_LEAF`:
+   LARS, AdaGrad, GroupAdaGrad, RMSProp, Ftrl, LANS through ``TrainStep``;
+   Nadam, SGLD, DCASGD, which it refuses by name, through the ``Trainer``)
+   run 3 steps each: finite losses, no optimizer kernel, state in the
+   declared dtypes.  Two planted faults (`OPTIM_FAULTS`), each a copy of
+   the kernel's source with one mutation built beside the kernels —
+   AdaDelta without the 16-bit rounding of ``acc_delta + eps`` (through the
+   ``Trainer``'s bf16 state) and FTML with its v and z slots exchanged —
+   must each fail the first-step check or the trajectory.
 
 Every count is reset just before a run it reports and read just after.
 The last three stdout lines are the ``nvidia-smi`` card line, the
@@ -295,8 +321,10 @@ def traj_tol(dtype, route):
 
 
 def traj_dev(losses, oracle):
-    """Largest relative departure of a loss trajectory from its oracle's."""
-    return max(abs(a - b) / abs(b) for a, b in zip(losses, oracle))
+    """Largest relative departure of a loss trajectory from its oracle's
+    (infinite where a loss is not finite)."""
+    return max(abs(a - b) / abs(b) if math.isfinite(a - b) else math.inf
+               for a, b in zip(losses, oracle))
 
 
 def card_line() -> str:
@@ -1269,7 +1297,14 @@ def profile_ms(fn, iters=5):
 
 
 OPT_RULES = (("adam", "Adam", {}), ("adamw", "AdamW", {}),
-             ("sgd_momentum", "SGD", {"momentum": 0.9}), ("lamb", "LAMB", {}))
+             ("sgd_momentum", "SGD", {"momentum": 0.9}), ("lamb", "LAMB", {}),
+             ("nag", "NAG", {}), ("signum_momentum", "Signum", {}),
+             ("signum", "Signum", {"momentum": 0.0}),
+             ("adabelief", "AdaBelief", {}), ("adamax", "Adamax", {}),
+             ("adadelta", "AdaDelta", {}), ("ftml", "FTML", {}))
+# the chunk kernel's nine rules (JAX's `fused_elementwise` optimizers)
+CHUNK_RULE_NAMES = ("Adam", "AdamW", "SGD", "NAG", "Signum", "AdaBelief",
+                    "Adamax", "AdaDelta", "FTML")
 
 
 def bert_leaves(dtype):
@@ -1306,9 +1341,12 @@ OPT_MODELS = (("bert_base", bert_leaves, None),
 
 
 def _opt_tree(leaves, opt, dev, seed):
-    """Weights N(0, 0.02), gradients N(0, 1e-3), Adam-like moments."""
+    """Weights N(0, 0.02), gradients N(0, 1e-3), Adam-like state: slot 0
+    N(0, 1e-4) (U(0, 1e-4) for AdaDelta, whose acc_g takes a root), the
+    others U(0, 1e-8)."""
     import torch
     g = torch.Generator(device=dev).manual_seed(seed)
+    pos0 = type(opt).__name__ == "AdaDelta"
     params, grads, states = {}, {}, {}
     for n, shape, dt in leaves:
         params[n] = (0.02 * torch.randn(shape, generator=g, device=dev)
@@ -1317,20 +1355,23 @@ def _opt_tree(leaves, opt, dev, seed):
                     ).to(dt)
         st = opt.create_state(params[n], dtype=torch.float32)
         states[n] = tuple(
-            (1e-4 * torch.randn(shape, generator=g, device=dev)) if k == 0
+            (1e-4 * (torch.rand if pos0 else torch.randn)(
+                shape, generator=g, device=dev)) if k == 0
             else 1e-8 * torch.rand(shape, generator=g, device=dev)
             for k in range(len(st)))
     return params, grads, states
 
 
 def _opt_err(new_p, new_s, want_p, want_s, old_p):
-    """(max-abs error, share of bf16 weight elements off the plain value,
-    ok) of an update against the plain version's.  Each state tensor is
-    held within OPT_RTOL of its own scale, max |plain|.  A weight is held
+    """(max-abs error, share of bf16 elements off the plain value, ok) of
+    an update against the plain version's.  An f32 state tensor is held
+    within OPT_RTOL of its own scale, max |plain|.  A weight is held
     within its rounding (2 ulps in f32, one step in bf16: at most 2**-22
     and 2**-7 of the value) plus OPT_RTOL of its update's scale, max
-    |plain - old|.  An update below one bf16 step moves only some of a
-    bf16 weight's elements, so at most OPT_MISMATCH of those elements may
+    |plain - old|; a bf16 state tensor (the `Trainer`'s state of a bf16
+    model) within one step plus OPT_RTOL of its scale.  An update below
+    one bf16 step moves only some of a bf16 tensor's elements, so at most
+    OPT_MISMATCH of the bf16 elements, weights and state together, may
     differ from the plain value at all."""
     import torch
     err, ok, off, n16 = 0.0, True, 0, 0
@@ -1346,20 +1387,29 @@ def _opt_err(new_p, new_s, want_p, want_s, old_p):
             off += int((d > 0).sum())
             n16 += d.numel()
         for s, w in zip(new_s[n], want_s[n]):
-            d = float((s.float() - w.float()).abs().max())
-            ok = ok and d <= OPT_RTOL * float(w.float().abs().max())
-            err = max(err, d)
+            sd = (s.float() - w.float()).abs()
+            scale = float(w.float().abs().max())
+            if s.dtype == torch.bfloat16:
+                ok = ok and bool((sd <= 2.0 ** -7 * w.float().abs()
+                                  + OPT_RTOL * scale).all())
+                off += int((sd > 0).sum())
+                n16 += sd.numel()
+            else:
+                ok = ok and float(sd.max()) <= OPT_RTOL * scale
+            err = max(err, float(sd.max()))
     share = off / n16 if n16 else 0.0
     return err, share, ok and share <= OPT_MISMATCH
 
 
 def _opt_controls(new_p, new_s, want_p, want_s, old_p, old_s):
     """Planted faults built from the kernel's own results, no launch: each
-    must fail `_opt_err`.  The last state slot (Adam's v, SGD's momentum)
-    left unstored, and each weight dtype's weights left unchanged.
-    Returns {fault: caught}."""
-    faults = {"last_state_not_stored": (new_p, {
-        n: tuple(new_s[n][:-1]) + (old_s[n][-1],) for n in new_s})}
+    must fail `_opt_err`.  The last state slot (Adam's v, SGD's momentum,
+    FTML's z) left unstored, where the rule keeps state, and each weight
+    dtype's weights left unchanged.  Returns {fault: caught}."""
+    faults = {}
+    if any(new_s.values()):
+        faults["last_state_not_stored"] = (new_p, {
+            n: tuple(new_s[n][:-1]) + (old_s[n][-1],) for n in new_s})
     for dt in sorted({str(p.dtype) for p in new_p.values()}):
         faults[f"{dt[6:]}_weights_unchanged"] = ({
             n: old_p[n] if str(p.dtype) == dt else p
@@ -1368,12 +1418,29 @@ def _opt_controls(new_p, new_s, want_p, want_s, old_p, old_s):
             for k, (p, s) in faults.items()}
 
 
+# the rules that no one PyTorch call computes, and why (k6 records
+# ``library_ms`` None with the reason)
+NO_LIBRARY = {
+    "lamb": "no fused LAMB in PyTorch",
+    "nag": "torch._fused_sgd_(nesterov=True) keeps its buffer in other "
+           "units than NAG's mom (g-sums, not lr-scaled steps) and steps "
+           "with lr * (g + mu * buf): another state, not the same function",
+    "signum": "no signSGD in PyTorch",
+    "signum_momentum": "no signSGD in PyTorch",
+    "adabelief": "no AdaBelief in PyTorch",
+    "adamax": "torch.optim.Adamax has no fused kernel: its foreach path is "
+              "several calls",
+    "adadelta": "torch.optim.Adadelta has no fused kernel: its foreach path "
+                "is several calls",
+    "ftml": "no FTML in PyTorch"}
+
+
 def _library_call(rule, opt, params, grads, states, hp_vals):
     """The nearest one-call PyTorch multi-tensor update on the same
     tensors, grouped by weight dtype, with its state in the weight's dtype
-    (as torch keeps it); None for LAMB."""
+    (as torch keeps it); None for the rules of `NO_LIBRARY`."""
     import torch
-    if rule == "lamb":
+    if rule in NO_LIBRARY:
         return None
     groups = {}
     for n, p in params.items():
@@ -1410,6 +1477,13 @@ _OPT_WORK = {
     "adam": (lambda w: 3 * w + 16, 14),        # w g m v in; w m v out
     "adamw": (lambda w: 3 * w + 16, 15),
     "sgd_momentum": (lambda w: 3 * w + 8, 6),  # w g mom in; w mom out
+    "nag": (lambda w: 3 * w + 8, 10),
+    "signum_momentum": (lambda w: 3 * w + 8, 10),
+    "signum": (lambda w: 3 * w, 5),            # w g in; w out
+    "adabelief": (lambda w: 3 * w + 16, 17),
+    "adamax": (lambda w: 3 * w + 16, 13),
+    "adadelta": (lambda w: 3 * w + 16, 19),
+    "ftml": (lambda w: 3 * w + 24, 20),        # w g d v z in; w d v z out
     "lamb_a": (lambda w: 2 * w + 20, 17),      # w g m v in; m v r out
     "lamb_b": (lambda w: 2 * w + 4, 3)}        # w r in; w out
 
@@ -1516,6 +1590,8 @@ def k6_cases(dev):
             lib = _library_call(rule, opt, kp, grads, ks, hp_vals)
             case["library_ms"] = None if lib is None else \
                 profile_ms(lib)[0]
+            if lib is None:
+                case["library_none_reason"] = NO_LIBRARY[rule]
             if rule == "lamb":
                 for ph in ("a", "b"):
                     ms = sum(v for k, v in by_name.items()
@@ -1581,6 +1657,25 @@ def _layernorm_as_rmsnorm(x, gamma, beta, eps):
                             x.device.type == "cuda")
 
 
+def bert_bench(dev, dtype):
+    """Full-width BERT-base for pretraining (seed 0, dropout 0.1) behind
+    ``bench.py``'s positional adapter (ids, valid_length,
+    masked_positions)."""
+    import torch
+    from mxnet_tpu_torch.models import BertForPretraining, bert_base
+
+    class Bench(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.model = BertForPretraining(bert_base(dtype=dtype),
+                                            device=dev, seed=0)
+
+        def forward(self, ids, vl, mp):
+            return self.model(ids, valid_length=vl, masked_positions=mp)
+
+    return Bench()
+
+
 def bert_train_step(dev, dtype, plain=False, opt="Adam", route="auto",
                     fault=None):
     """``bench.py``'s pretraining step: full-width BERT-base (seed 0)
@@ -1603,7 +1698,6 @@ def bert_train_step(dev, dtype, plain=False, opt="Adam", route="auto",
     or every LayerNorm on the norm kernel's RMS branch."""
     import torch
     from mxnet_tpu_torch import optimizer as topt
-    from mxnet_tpu_torch.models import BertForPretraining, bert_base
     from mxnet_tpu_torch.models.layers import FusedSelfAttention, LayerNorm
     from mxnet_tpu_torch.ops.attention import multi_head_attention_reference
     from mxnet_tpu_torch.ops.fused_norm import fused_layer_norm_reference
@@ -1612,16 +1706,7 @@ def bert_train_step(dev, dtype, plain=False, opt="Adam", route="auto",
         softmax_cross_entropy, softmax_cross_entropy_reference)
     from mxnet_tpu_torch.parallel import TrainStep
 
-    class Bench(torch.nn.Module):
-        def __init__(self):
-            super().__init__()
-            self.model = BertForPretraining(bert_base(dtype=dtype),
-                                            device=dev, seed=0)
-
-        def forward(self, ids, vl, mp):
-            return self.model(ids, valid_length=vl, masked_positions=mp)
-
-    bench = Bench()
+    bench = bert_bench(dev, dtype)
     xent = softmax_cross_entropy
     if plain:
         for m in bench.modules():
@@ -1772,6 +1857,368 @@ def run_train(dev, results, card):
                 f"train control {fault}: the planted fault departs from the "
                 f"oracle by only {dev_rel:.3g} <= {tol}; the trajectory "
                 f"check cannot see it")
+
+
+# ---------------------------------------------------------------------------
+# phase optim: the rest of the optimizer family on the BERT-base step
+# ---------------------------------------------------------------------------
+
+# (key, class, kwargs, lr): the chunk kernel's six new rules (Signum with
+# and without momentum), each at a rate its first steps train at
+OPTIM_RULES = (("nag", "NAG", {}, 1e-2),
+               ("signum_momentum", "Signum", {}, 1e-4),
+               ("signum", "Signum", {"momentum": 0.0}, 1e-4),
+               ("adabelief", "AdaBelief", {}, 1e-4),
+               ("adamax", "Adamax", {}, 1e-4),
+               ("adadelta", "AdaDelta", {}, 1e-2),
+               ("ftml", "FTML", {}, 1e-4))
+# the rules that also run through the gluon Trainer (bf16 model, state in
+# bf16), under a cosine schedule with linear warmup
+OPTIM_TRAINER = ("nag", "adadelta")
+OPTIM_WARMUP = 5
+# the per-leaf rules: (key, class, kwargs, lr, entry); the three that
+# JAX's step cannot run go through the Trainer, per parameter
+OPTIM_PER_LEAF = (("nadam", "Nadam", {}, 1e-4, "trainer"),
+                  ("sgld", "SGLD", {}, 1e-6, "trainer"),
+                  ("dcasgd", "DCASGD", {}, 1e-3, "trainer"),
+                  ("lars", "LARS", {"momentum": 0.9}, 0.1, "step"),
+                  ("adagrad", "AdaGrad", {}, 1e-3, "step"),
+                  ("groupadagrad", "GroupAdaGrad", {}, 1e-3, "step"),
+                  ("rmsprop", "RMSProp", {}, 1e-4, "step"),
+                  ("ftrl", "Ftrl", {}, 1e-2, "step"),
+                  ("lans", "LANS", {}, 1e-3, "step"))
+OPTIM_PER_LEAF_STEPS = 3
+# planted faults in the chunk kernel's math, each a mutation of the
+# kernel's own source built into a library of its own: (rule, entry,
+# dtype, [(text, replacement)]).  AdaDelta's fault shows only over 16-bit
+# state, so it runs through the Trainer of a bf16 model.
+OPTIM_FAULTS = {
+    "adadelta_eps_sum_not_rounded": (
+        "adadelta", "trainer", "bfloat16",
+        [("rnd<S>(sqrtf(rnd<S>(v + epss)))", "sqrtf(v + c.eps)")]),
+    "ftml_v_and_z_swapped": (
+        "ftml", "step", "float32",
+        [("if (s1) s1[i] = p.skip ? vr[k] : from_f<S>(v);",
+          "if (s1) s1[i] = p.skip ? vr[k] : from_f<S>(z);"),
+         ("if (s2) s2[i] = p.skip ? zr[k] : from_f<S>(z);",
+          "if (s2) s2[i] = p.skip ? zr[k] : from_f<S>(v);")])}
+
+
+def start_fault_builds():
+    """Start one ``nvcc`` a fault of `OPTIM_FAULTS`, each on a copy of
+    ``csrc/fused_optimizer.cu`` with the fault's replacements (each text
+    must occur exactly once), with the kernels' own flags; returns {fault:
+    (library path, process)}.  Started before the phases, read by the
+    optim phase."""
+    from mxnet_tpu_torch import kernels
+    src = open(os.path.join(kernels.CSRC, "fused_optimizer.cu")).read()
+    out_dir = os.path.join(HERE, "build", "mxnet_tpu_torch", "faults")
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    for fault, (_, _, _, edits) in OPTIM_FAULTS.items():
+        text = src
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise AssertionError(f"fault {fault}: {old!r} occurs "
+                                     f"{text.count(old)} times in the kernel")
+            text = text.replace(old, new)
+        cu = os.path.join(out_dir, f"{fault}.cu")
+        with open(cu, "w") as f:
+            f.write(text)
+        lib = os.path.join(out_dir, f"lib{fault}.so")
+        # the mutated copy includes nothing from csrc/ but CUDA's headers
+        procs[fault] = (lib, subprocess.Popen(
+            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", lib, cu],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+@contextlib.contextmanager
+def chunk_library(path):
+    """The chunk kernel's entry from the library at `path` (a fault's) for
+    the duration of the block."""
+    import ctypes
+    from mxnet_tpu_torch.ops import fused_optimizer as fo
+    fn = ctypes.CDLL(path).mxt_fused_chunk
+    fn.argtypes = fo._SIGS["mxt_fused_chunk"]
+    fn.restype = ctypes.c_int
+    old = fo._fns.get("mxt_fused_chunk")
+    fo._fns["mxt_fused_chunk"] = fn
+    try:
+        yield
+    finally:
+        if old is None:
+            fo._fns.pop("mxt_fused_chunk", None)
+        else:
+            fo._fns["mxt_fused_chunk"] = old
+
+
+@contextlib.contextmanager
+def plain_trainer_update():
+    """The gluon `Trainer`'s whole-tree update replaced by the kernels'
+    plain version, `kernel_plain` (what ``update=kernel_plain`` does for
+    `TrainStep`): a Trainer run's optimizer oracle, with every other
+    kernel on the step as it is."""
+    from mxnet_tpu_torch.ops import fused_optimizer as fo
+    real = fo.apply_updates
+
+    def plain(optimizer, params, grads, states, hp, skip=None,
+              use_kernel=False):
+        return fo.kernel_plain(optimizer, params, grads, states, hp, skip)
+    fo.apply_updates = plain
+    try:
+        yield
+    finally:
+        fo.apply_updates = real
+
+
+def optim_sched(lr):
+    """The Trainer runs' schedule: cosine from `lr` to lr / 10 over
+    `TRAIN_STEPS` updates, after `OPTIM_WARMUP` of linear warmup from
+    lr / 10."""
+    from mxnet_tpu_torch.optimizer import CosineScheduler
+    return CosineScheduler(max_update=TRAIN_STEPS, base_lr=lr,
+                           final_lr=lr / 10, warmup_steps=OPTIM_WARMUP,
+                           warmup_begin_lr=lr / 10)
+
+
+def optim_run(dev, dtype, rule, batch, entry="step", plain=False,
+              steps=TRAIN_STEPS, lib=None, sched=False):
+    """`steps` steps of the BERT-base pretraining step (`bert_bench`, the
+    mean MLM cross-entropy) with `rule` (a ``(class, kwargs, lr)``)
+    through `TrainStep` or the gluon `Trainer` on the default route.
+    ``plain`` replaces the optimizer kernel by its plain version
+    (`kernel_plain`; every other kernel stays), `lib` is a fault's chunk
+    library, `sched` the Trainer's `optim_sched`.  Returns the stats, the
+    weights before the first step, and the weights and state after it."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import kernels, optimizer as topt
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.ops.fused_optimizer import kernel_plain
+    from mxnet_tpu_torch.ops.softmax_xent import softmax_cross_entropy
+    from mxnet_tpu_torch.parallel import TrainStep
+
+    cls, kw, lr = rule
+    kw = dict(kw, learning_rate=lr)
+    if sched:
+        kw["lr_scheduler"] = optim_sched(lr)
+    opt = getattr(topt, cls)(**kw)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    bench = bert_bench(dev, dtype)
+    params = {n: p for n, p in bench.named_parameters()}
+
+    def loss_fn(out, ids, vl, mp, lab):
+        return softmax_cross_entropy(out[0], lab).mean()
+
+    with pallas_mode("auto"), contextlib.ExitStack() as ctx:
+        if entry == "step":
+            step = TrainStep(bench, opt, loss_fn, num_model_args=3,
+                             update=kernel_plain if plain else None)
+            step.warmup(*batch)
+            states = lambda: step.opt_state            # noqa: E731
+        else:
+            trainer = Trainer(params, opt)
+            step = _TrainerStep(bench, trainer, loss_fn, num_model_args=3)
+            states = lambda: trainer._states            # noqa: E731
+            if plain:
+                ctx.enter_context(plain_trainer_update())
+        if lib is not None:
+            ctx.enter_context(chunk_library(lib))
+        before = {n: p.detach().clone() for n, p in params.items()}
+        kernels.reset_launch_counts()
+        losses, lrs = [], []
+        for i in range(steps):
+            out = step.dispatch(*batch)
+            losses.append(out.loss if entry == "step" else out)
+            if sched:       # the device scalar the update read
+                lrs.append(trainer._hp._dev["lr"])
+            if i == 0:
+                torch.cuda.synchronize()
+                after = ({n: p.detach().clone() for n, p in params.items()},
+                         {n: tuple(t.clone() for t in st)
+                          for n, st in states().items()})
+            if i == 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / max(1, steps - 2)
+        launches = kernels.launch_counts()
+    st = dict(losses=[float(x) for x in losses], step_ms=step_s * 1e3,
+              launches=launches, dtype_groups=len(
+                  {(p.dtype, tuple(t.dtype for t in states()[n]))
+                   for n, p in params.items()}),
+              state_dtypes=sorted({str(t.dtype)[6:] for st in
+                                   states().values() for t in st}),
+              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if lrs:
+        st["lr_used"] = [float(x) for x in lrs]
+        st["lr_scheduler"] = [float(np.float32(opt.lr_scheduler(k)))
+                              for k in range(1, steps + 1)]
+    del bench, step, params
+    return st, step_s, before, after
+
+
+def _optim_compare(st, pst, before, after, pafter, tol):
+    """The kernel run `st` against its oracle `pst`: the first step's
+    weights and state (`_opt_err`: the same gradients on both sides, the
+    optimizer alone apart) and the loss trajectory (`tol`).  Updates `st`
+    and returns whether both hold."""
+    err, share, ok = _opt_err(after[0], after[1], pafter[0], pafter[1],
+                              before)
+    dev_rel = traj_dev(st["losses"], pst["losses"])
+    st.update(plain_losses=pst["losses"], plain_step_ms=pst["step_ms"],
+              step1_max_abs_err=err, step1_bf16_mismatch_share=share,
+              step1_ok=ok, trajectory_rel_dev=dev_rel, trajectory_tol=tol)
+    return ok and dev_rel <= tol
+
+
+def optim_want(n_groups, layers, steps=TRAIN_STEPS, chunk=True):
+    """Exact launches of `steps` kernel-route BERT steps: the train
+    phase's counts, the chunk once per dtype group (none for the plain
+    oracle)."""
+    want = want_launches("Adam", "auto", n_groups, layers)
+    want = {k: v // TRAIN_STEPS * steps for k, v in want.items()}
+    if not chunk:
+        want["fused_optimizer_chunk"] = 0
+    return want
+
+
+def run_optim(dev, results, card, fault_builds):
+    """The chunk kernel's six new rules through the BERT-base step, the
+    Trainer runs under a schedule, the per-leaf rules and the planted
+    faults (module docstring, phase 19)."""
+    import torch
+    from mxnet_tpu_torch import optimizer as topt
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.models import bert_base
+    from mxnet_tpu_torch.parallel import TrainStep
+
+    t_phase = time.perf_counter()
+    cfg = bert_base()
+    B, S, M = 64, 128, 20
+    batch = tuple(torch.from_numpy(a).to(dev)
+                  for a in bert_batch(cfg.vocab_size, B, S, M))
+    out = results["optim"]
+    problems = []
+    libs = {}
+    for fault, (lib, proc) in fault_builds.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            problems.append(f"optim: the {fault} library did not build:\n"
+                            f"{log}")
+        libs[fault] = lib
+    faults_of = {(r, e, d): f for f, (r, e, d, _) in OPTIM_FAULTS.items()}
+
+    def check(key, st, pst, before, after, pafter, want, tol):
+        got = {k: st["launches"][k] for k in want}
+        pwant = dict(want, fused_optimizer_chunk=0)
+        pgot = {k: pst["launches"][k] for k in pwant}
+        if got != want or pgot != pwant:
+            problems.append(f"optim {key}: launches {got} (oracle {pgot}), "
+                            f"want {want} (oracle {pwant})")
+        ok = _optim_compare(st, pst, before, after, pafter, tol)
+        ls = st["losses"]
+        if not all(math.isfinite(x) for x in ls):
+            problems.append(f"optim {key}: non-finite loss {ls}")
+        elif not ok:
+            problems.append(
+                f"optim {key}: step 1 {st['step1_ok']} (max-abs "
+                f"{st['step1_max_abs_err']:.3g}, bf16 share "
+                f"{st['step1_bf16_mismatch_share']:.3g}), trajectory "
+                f"{st['trajectory_rel_dev']:.3g} > {tol}")
+        elif not ls[-1] < ls[0]:
+            problems.append(f"optim {key}: loss did not fall {ls}")
+        st["samples_per_s"] = B / (st["step_ms"] / 1e3)
+        out[key] = st
+        print(f"[optim {key}] {json.dumps(st)}", flush=True)
+
+    def control(fault, rule, entry, dtype, pst, before, pafter, sched):
+        st, _, _, after = optim_run(dev, dtype, rule, batch, entry,
+                                    lib=libs[fault], sched=sched)
+        tol = traj_tol(dtype, "auto")
+        _optim_compare(st, pst, before, after, pafter, tol)
+        c = dict(losses=st["losses"], step1_ok=st["step1_ok"],
+                 step1_max_abs_err=st["step1_max_abs_err"],
+                 step1_bf16_mismatch_share=st["step1_bf16_mismatch_share"],
+                 trajectory_rel_dev=st["trajectory_rel_dev"],
+                 trajectory_tol=tol, launches=st["launches"],
+                 caught=not st["step1_ok"] or
+                 st["trajectory_rel_dev"] > tol)
+        out[f"control_{fault}"] = c
+        print(f"[optim control {fault}] {json.dumps(c)}", flush=True)
+        if not c["caught"]:
+            problems.append(f"optim control {fault}: the planted fault "
+                            f"passes both checks")
+
+    runs = [(key, cls, kw, lr, "step", dtype, False)
+            for key, cls, kw, lr in OPTIM_RULES
+            for dtype in ("bfloat16", "float32")]
+    runs += [(key, cls, kw, lr, "trainer", "bfloat16", True)
+             for key, cls, kw, lr in OPTIM_RULES if key in OPTIM_TRAINER]
+    for key, cls, kw, lr, entry, dtype, sched in runs:
+        name = f"{key}_{entry}_{dtype}"
+        rule = (cls, kw, lr)
+        st, _, before, after = optim_run(dev, dtype, rule, batch, entry,
+                                         sched=sched)
+        pst, _, _, pafter = optim_run(dev, dtype, rule, batch, entry,
+                                      plain=True, sched=sched)
+        want = optim_want(st["dtype_groups"], cfg.num_layers)
+        check(name, st, pst, before, after, pafter, want,
+              traj_tol(dtype, "auto"))
+        if sched:
+            st["lr_matches_scheduler"] = st["lr_used"] == st["lr_scheduler"]
+            if not st["lr_matches_scheduler"]:
+                problems.append(f"optim {name}: the steps ran at "
+                                f"{st['lr_used']}, the schedule says "
+                                f"{st['lr_scheduler']}")
+        fault = faults_of.get((key, entry, dtype))
+        if fault is not None and fault in libs:
+            control(fault, rule, entry, dtype, pst, before, pafter, sched)
+        del before, after, pafter
+        torch.cuda.empty_cache()
+
+    # the per-leaf rules: a few steps each, finite, no optimizer kernel,
+    # the state in the dtypes the entry declares
+    for key, cls, kw, lr, entry in OPTIM_PER_LEAF:
+        st, _, _, _ = optim_run(dev, "bfloat16", (cls, kw, lr), batch,
+                                entry, steps=OPTIM_PER_LEAF_STEPS)
+        want_dt = ["bfloat16", "float32"] if entry == "trainer" \
+            else ["float32"]
+        opt_launch = sum(st["launches"][k] for k in (
+            "fused_optimizer_chunk", "lamb_phase_a", "lamb_phase_b"))
+        st.update(entry=entry, optimizer_launches=opt_launch,
+                  want_state_dtypes=want_dt)
+        name = f"{key}_{entry}_bfloat16"
+        out[name] = st
+        print(f"[optim {name}] {json.dumps(st)}", flush=True)
+        if not all(math.isfinite(x) for x in st["losses"]):
+            problems.append(f"optim {name}: non-finite loss "
+                            f"{st['losses']}")
+        if opt_launch:
+            problems.append(f"optim {name}: a per-leaf rule launched the "
+                            f"optimizer kernels {st['launches']}")
+        if st["state_dtypes"] and st["state_dtypes"] != want_dt:
+            problems.append(f"optim {name}: state in {st['state_dtypes']}, "
+                            f"want {want_dt}")
+    # the rules JAX's step cannot run are refused by name on the card too
+    refused = {}
+    lin = torch.nn.Linear(4, 4, device=dev)
+    for cls in ("Nadam", "SGLD", "DCASGD"):
+        try:
+            TrainStep(lin, getattr(topt, cls)(), lambda o, x: o.sum(),
+                      num_model_args=1)
+            refused[cls] = None
+        except MXNetError as e:
+            refused[cls] = str(e)
+    out["train_step_refuses"] = refused
+    if not all(v and cls in v for cls, v in refused.items()):
+        problems.append(f"optim: TrainStep did not refuse {refused}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[optim] {out['seconds']:.1f} s on {card}", flush=True)
+    if problems:
+        raise AssertionError("; ".join(problems))
 
 
 # ---------------------------------------------------------------------------
@@ -2500,15 +2947,18 @@ def gpt_batch(dev, vocab, seed=0):
 
 
 class _TrainerStep:
-    """The gluon `Trainer` loop behind `TrainStep`'s ``dispatch``: forward,
-    the mean loss, ``loss.backward()``, ``trainer.step(1)``."""
+    """The gluon `Trainer` loop behind `TrainStep`'s ``dispatch``: forward
+    on the first `num_model_args` batch arguments, the mean loss,
+    ``loss.backward()``, ``trainer.step(1)``."""
 
-    def __init__(self, model, trainer, loss_fn):
+    def __init__(self, model, trainer, loss_fn, num_model_args=1):
         self.model, self.trainer, self.loss_fn = model, trainer, loss_fn
+        self.num_model_args = num_model_args
 
-    def dispatch(self, ids, lab):
+    def dispatch(self, *batch):
         self.model.train()
-        loss = self.loss_fn(self.model(ids), ids, lab)
+        out = self.model(*batch[:self.num_model_args])
+        loss = self.loss_fn(out, *batch)
         loss.backward()
         self.trainer.step(1)
         return loss.detach()
@@ -3651,6 +4101,9 @@ def kernel_entries(results):
     nmt_runs = [results["nmt"][dt] for dt in ("float32", "bfloat16")
                 if dt in results["nmt"]]
     train.update({f"nmt_{i}": r for i, r in enumerate(nmt_runs)})
+    train.update({"optim_" + k: v for k, v in results["optim"].items()
+                  if isinstance(v, dict) and "launches" in v
+                  and not k.startswith("control_")})
     k1_launch = e2e.get("float32", {}).get("launches", {}).get(
         "ragged_paged_attention", 0)
     k2_launch = sum(e2e.get(k, {}).get("launches", {}).get(
@@ -3720,6 +4173,23 @@ def kernel_entries(results):
                 library_device_ms=rep5["library_device_ms"],
                 plan=rep5["plan"])
     gpt_shape(norm, nmt5, model="nmt_")
+    chunk_entry = gpt_shape(gpt_shape(
+        entry("fused_optimizer_chunk", fo_src, f"{fo_py}:220",
+              train_launches("fused_optimizer_chunk"), chunk, rep7),
+        {c["dtype"]: c for c in chunk if c.get("model") == "gpt_small"}),
+        {c["dtype"]: c for c in chunk
+         if c.get("model") == "transformer_base"}, model="nmt_")
+    # the nine rules, and each rule's BERT-base cases beyond Adam's
+    chunk_entry["rules"] = list(CHUNK_RULE_NAMES)
+    chunk_entry["optim_launches"] = sum(
+        v["launches"]["fused_optimizer_chunk"]
+        for k, v in train.items() if k.startswith("optim_"))
+    for c in chunk:
+        if c.get("model") != "bert_base" or c["rule"] == "adam":
+            continue
+        tag = c["rule"] + ("_f32" if c["dtype"] == "float32" else "_bf16")
+        chunk_entry.update({f"{tag}_{n}": c[n] for n in (
+            "ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")})
     lamb_a = entry("lamb_phase_a", fo_src, f"{fo_py}:307",
                    train_launches("lamb_phase_a"), lamb, rep8,
                    ms="phase_a_ms")
@@ -3775,14 +4245,7 @@ def kernel_entries(results):
                                   rep4, "bwd_"), gpt4, "bwd_"),
                   nmt4, "bwd_", model="nmt_"),
         norm,
-        gpt_shape(gpt_shape(entry("fused_optimizer_chunk", fo_src,
-                                  f"{fo_py}:220",
-                                  train_launches("fused_optimizer_chunk"),
-                                  chunk, rep7),
-                            {c["dtype"]: c for c in chunk
-                             if c.get("model") == "gpt_small"}),
-                  {c["dtype"]: c for c in chunk
-                   if c.get("model") == "transformer_base"}, model="nmt_"),
+        chunk_entry,
         lamb_a,
         lamb_b,
         entry("moe_dispatch", "mxnet_tpu_torch/csrc/moe_dispatch.cu",
@@ -3794,6 +4257,22 @@ def kernel_entries(results):
               train_launches("moe_combine"),
               [c for c in k7 if c["op"] == "combine"], rep_c),
     ]
+
+
+def phase_done(results, name, t0):
+    """Record and print a phase's seconds (``phase_seconds``): where the
+    smoke's time limit goes."""
+    sec = results.setdefault("phase_seconds", {})[name] = \
+        time.perf_counter() - t0
+    print(f"[phase {name}] {sec:.1f} s", flush=True)
+
+
+def _stop(builds):
+    """Wait for (or end) every fault build still running."""
+    for _, proc in builds.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
 
 
 def main(argv=None) -> int:
@@ -3831,24 +4310,29 @@ def main(argv=None) -> int:
                "gpt_gqa_controls": {}, "gpt_gqa_one_ulp": {},
                "gpt_d256": {}, "gpt_d256_controls": {},
                "gpt_d256_one_ulp": {},
-               "spec_prefix": {}, "nmt": {}}
+               "spec_prefix": {}, "nmt": {}, "optim": {}}
     failed = []
     t0 = time.perf_counter()
     # build from the checkout's sources, never from a leftover library
     shutil.rmtree(os.path.join(HERE, "build", "mxnet_tpu_torch"),
                   ignore_errors=True)
+    fault_builds = {}
     try:
+        # the optim phase's planted faults build beside the kernels
+        fault_builds = start_fault_builds()
         kernels.build_all(verbose=True)
         results["build_s"] = time.perf_counter() - t0
         print(f"[build] {results['build_s']:.1f} s", flush=True)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: kernel build failed", file=sys.stderr)
+        _stop(fault_builds)
         return 1
 
     for name, fn in (("k1", k1_cases), ("k2", k2_cases), ("k3", k3_cases),
                      ("k4", k4_cases), ("k5", k5_cases), ("k6", k6_cases),
                      ("k7", k7_cases)):
+        t_phase = time.perf_counter()
         try:
             results[name] = fn(dev)
             for c in results[name]:
@@ -3860,25 +4344,23 @@ def main(argv=None) -> int:
         except Exception:
             traceback.print_exc()
             failed.append(name)
-    try:
-        run_e2e(dev, results)
-    except Exception:
-        traceback.print_exc()
-        failed.append("e2e")
-    try:
-        run_train(dev, results, card)
-    except Exception:
-        traceback.print_exc()
-        failed.append("train")
-    for name, fn in (("tune", run_tune), ("moe", run_moe),
+        phase_done(results, name, t_phase)
+    for name, fn in (("e2e", lambda d, r, c: run_e2e(d, r)),
+                     ("train", run_train), ("tune", run_tune),
+                     ("moe", run_moe),
                      ("gpt", run_gpt), ("gpt_gqa", run_gpt_gqa),
                      ("gpt_d256", run_gpt_d256),
-                     ("spec_prefix", run_spec_prefix), ("nmt", run_nmt)):
+                     ("spec_prefix", run_spec_prefix), ("nmt", run_nmt),
+                     ("optim", lambda d, r, c: run_optim(d, r, c,
+                                                         fault_builds))):
+        t_phase = time.perf_counter()
         try:
             fn(dev, results, card)
         except Exception:
             traceback.print_exc()
             failed.append(name)
+        phase_done(results, name, t_phase)
+    _stop(fault_builds)
     results["seconds"] = time.perf_counter() - t0
     results["failed"] = failed
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

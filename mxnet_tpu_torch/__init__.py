@@ -7,23 +7,43 @@ written by hand for Hopper under ``csrc/`` (built at first use by
 own copy of what it needs.  Entry points run on the card unless the caller
 passes ``device="cpu"``.
 
-Ported so far (ROADMAP.md): GPT-2-style serving — `models.GPTForCausalLM`
-with dense-cache `generate`, and `serve.InferenceEngine` (continuous
-batching over a paged KV pool) through the ragged paged-attention kernel
-and the int8/int4 dequant-matmul kernel — BERT pretraining —
-`models.BertForPretraining` trained by `parallel.TrainStep` with Adam or
-LAMB, through the flash-attention, streaming cross-entropy, fused-norm and
-multi-tensor optimizer kernels — and Switch-MoE training —
-`parallel.MoEFeedForward` trained by `TrainStep` or `gluon.Trainer`,
-through the MoE row-gather kernel, with `ops.autotune` choosing the
-optimizer kernel's block size.
+Ported so far (ROADMAP.md), slice by slice:
+
+1. GPT-2-style serving — `models.GPTForCausalLM` with dense-cache
+   `generate`, and `serve.InferenceEngine` (continuous batching over a
+   paged KV pool) through the ragged paged-attention kernel and the
+   int8/int4 dequant-matmul kernel;
+2. BERT pretraining — `models.BertForPretraining` trained by
+   `parallel.TrainStep` through the flash-attention and streaming
+   cross-entropy kernels;
+3. the same step on the default kernel route (`ops.policy`,
+   ``MXTPU_PALLAS``): the fused-norm kernel and the multi-tensor
+   optimizer kernels (the chunk kernel, LAMB's phases A and B);
+4. Switch-MoE training — `parallel.MoEFeedForward` trained by
+   `TrainStep` or `gluon.Trainer` through the MoE row-gather kernel, with
+   `ops.autotune` choosing kernel blocks;
+5. GPT-2-small causal-LM training (`TrainStep`, `gluon.Trainer`), remat
+   (`ops.nn.remat_call`) and `generate(use_cache=False)`;
+6. sliding windows and grouped K/V (GQA, MQA) inside the flash kernels,
+   with RoPE: Mistral-style attention;
+7. speculative decoding (`serve.spec`), the cross-request prefix cache,
+   beam search and the Transformer translation model
+   (`models.TransformerNMT`);
+8. attention heads up to 256 wide (Gemma-style) in the flash kernels and
+   the paged-attention kernel;
+9. the rest of MXNet's optimizer family (`optimizer`: SGD, NAG, Signum,
+   SGLD, DCASGD, LARS, Adam, AdamW, AdaBelief, Adamax, Nadam, AdaDelta,
+   FTML, AdaGrad, GroupAdaGrad, RMSProp, Ftrl, LAMB, LANS) and its
+   learning-rate schedulers, the chunk kernel taking all nine of JAX's
+   chunked rules, and JAX optimizer state carried over
+   (`load_jax_optimizer_states`).
 """
 from .base import MXNetError  # noqa: F401
 from .device import resolve_device  # noqa: F401
 from . import kernels, ops, models, serve, gluon, optimizer, parallel  # noqa: F401,E501
 from . import benchmark  # noqa: F401
-from .convert import load_jax_params  # noqa: F401
+from .convert import load_jax_optimizer_states, load_jax_params  # noqa: F401
 
 __all__ = ["MXNetError", "resolve_device", "kernels", "ops", "models",
            "serve", "gluon", "optimizer", "parallel", "benchmark",
-           "load_jax_params"]
+           "load_jax_params", "load_jax_optimizer_states"]

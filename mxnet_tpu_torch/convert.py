@@ -1,4 +1,4 @@
-"""Carry weights from the JAX package into the port.
+"""Carry weights and optimizer state from the JAX package into the port.
 
 `load_jax_params` takes the JAX model's parameters as a plain dict of
 numpy arrays — ``{name: p.data().asnumpy() for name, p in
@@ -13,10 +13,15 @@ gains and biases in f32, as Gluon does, so the dtype check passes leaf by
 leaf.  Build the port's model on
 the device it will run on: the dropout generator of a `BertForPretraining`
 stays on the device it was built for.
+
+`load_jax_optimizer_states` does the same for a JAX `gluon.Trainer`'s
+optimizer state (``{name: tuple of numpy arrays}``, as its ``_states``
+holds them or its `Updater` pickles them) and its update counts, into the
+port's `gluon.Trainer`, so a run started in JAX continues in the port.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -24,7 +29,16 @@ import torch
 from .base import MXNetError
 from .device import resolve_device
 
-__all__ = ["load_jax_params"]
+__all__ = ["load_jax_params", "load_jax_optimizer_states"]
+
+
+def _tensor(arr) -> torch.Tensor:
+    src = np.asarray(arr)
+    if src.dtype.name == "bfloat16":
+        # numpy has no bfloat16: go through float32, which holds every
+        # bfloat16 value exactly
+        return torch.from_numpy(src.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(src))
 
 
 def load_jax_params(model: torch.nn.Module, params: Dict[str, np.ndarray],
@@ -53,13 +67,57 @@ def load_jax_params(model: torch.nn.Module, params: Dict[str, np.ndarray],
                 f"source, {p.dtype} in the model")
     with torch.no_grad():
         for name, arr in params.items():
-            src = np.asarray(arr)
-            if src.dtype.name == "bfloat16":
-                # numpy has no bfloat16: go through float32, which holds
-                # every bfloat16 value exactly
-                t = torch.from_numpy(src.astype(np.float32)).to(
-                    torch.bfloat16)
-            else:
-                t = torch.from_numpy(np.ascontiguousarray(src))
-            own[name].copy_(t)
+            own[name].copy_(_tensor(arr))
     return model.to(dev)
+
+
+def load_jax_optimizer_states(trainer, states: Dict[str, Any],
+                              num_update: int,
+                              index_update_count: Optional[Dict] = None):
+    """Give the port's `gluon.Trainer` a JAX `Trainer`'s optimizer state:
+    `states` maps each parameter name to its state tuple (numpy arrays; an
+    empty tuple or None for a rule without state, such as Signum or LARS
+    without momentum), `num_update` is JAX's ``optimizer.num_update`` and
+    `index_update_count` its per-name counts (each `num_update` when not
+    given).  Each slot must have the shape of the slot the port's rule
+    creates -- or the weight's, where JAX's rule has made it so (DCASGD's
+    0-d momentum after a step) -- and the weight's dtype (the `Trainer`
+    keeps its state there).  Nothing is changed unless every entry checks
+    out.  The states go to the weights' device."""
+    opt = trainer.optimizer
+    params = dict(zip(trainer._param_names, trainer._params))
+    missing = sorted(set(params) - set(states))
+    extra = sorted(set(states) - set(params))
+    if missing or extra:
+        raise MXNetError(
+            f"load_jax_optimizer_states: parameter names differ — missing "
+            f"{missing or 'none'}, extra {extra or 'none'}")
+    out = {}
+    for name, st in states.items():
+        p = params[name].detach()
+        want = opt.create_state(p, dtype=p.dtype)
+        st = tuple(st or ())
+        if len(st) != len(want):
+            raise MXNetError(
+                f"load_jax_optimizer_states: {name} has {len(st)} state "
+                f"tensors, {type(opt).__name__} keeps {len(want)}")
+        slots = []
+        for k, (arr, ref) in enumerate(zip(st, want)):
+            shape = tuple(np.shape(arr))
+            if shape not in (tuple(ref.shape), tuple(p.shape)):
+                raise MXNetError(
+                    f"load_jax_optimizer_states: {name} state {k} is "
+                    f"{shape}, the port's {tuple(ref.shape)}")
+            t = _tensor(arr)
+            if t.dtype != ref.dtype:
+                raise MXNetError(
+                    f"load_jax_optimizer_states: {name} state {k} is "
+                    f"{t.dtype}, the port keeps {ref.dtype}")
+            slots.append(t.to(p.device))
+        out[name] = tuple(slots)
+    trainer._states = out
+    opt.num_update = int(num_update)
+    opt._index_update_count = dict(index_update_count) if \
+        index_update_count is not None else \
+        {n: int(num_update) for n in params}
+    return trainer

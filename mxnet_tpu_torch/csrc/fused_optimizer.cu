@@ -20,6 +20,23 @@
 //          correct_bias); w = w - lr_t*m/(sqrt(v)+eps) - lr*wd*w
 //   SGD    g += wd*w; w -= lr*g, or with momentum mom = mu*mom - lr*g;
 //          w += mom
+//   NAG    g += wd*w; mom = mu*mom - lr*g; w = w + mu*mom - lr*g (the new
+//          mom)
+//   Signum with momentum: mom = mu*mom - (1-mu)*(g + wd*w);
+//          w = (1 - lr*wd_lh)*w + lr*sign(mom); without:
+//          w = (1 - lr*(wd_lh + wd))*w - lr*sign(g)  (sign 0 at 0, NaN at
+//          NaN, as jnp.sign)
+//   AdaBelief  g += wd*w; m as Adam; v = b2*v + (1-b2)*(g-m)^2 + eps (the
+//          new m); w -= lr*sqrt(1-b2^t)/(1-b1^t) * m / (sqrt(v) + eps)
+//   Adamax g += wd*w; m as Adam; u = max(b2*u, |g|) (NaN wins, as
+//          jnp.maximum); w -= lr/(1-b1^t) * m / (u + 1e-8)
+//   AdaDelta (rho in b1) g += wd*w; acc_g = rho*acc_g + (1-rho)*g*g;
+//          delta = sqrt(acc_delta + eps) / sqrt(acc_g + eps) * g (the old
+//          acc_delta, the new acc_g); acc_delta = rho*acc_delta +
+//          (1-rho)*delta^2; w -= lr*delta
+//   FTML   state (d, v, z); g += wd*w; v = b2*v + (1-b2)*g*g;
+//          d' = (1-b1^t)/lr * (sqrt(v/(1-b2^t)) + eps); sigma = d' - b1*d;
+//          z = b1*z + (1-b1)*g - sigma*w; w = -z/d'; d = d'
 //   LAMB A m, v as Adam without wd; r = mhat/(sqrt(vhat)+eps) + wd*w
 //          (mhat, vhat bias-corrected when asked), r written in f32, plus
 //          per-block partial sums of w^2 and r^2; the last block to finish
@@ -31,14 +48,19 @@
 // sgd.py, lamb.py).  The decay of a stored state (b1*m, b2*v, mu*mom) is a
 // Python float times the state in those rules, a weakly typed scalar that
 // JAX rounds to the state's type before the product, which rounds to it
-// too: a no-op for f32 state, rnd(rnd(b1) * m) for bf16 state.  lr, wd,
+// too: a no-op for f32 state, rnd(rnd(b1) * m) for bf16 state.  Where a
+// rule adds a Python float to a stored state, or takes the square root of
+// one (AdaDelta's sqrt(acc_delta + eps)), that is a 16-bit sum and a 16-bit
+// root in JAX, so the kernel rounds both to S as well.  lr, wd,
 // rescale_grad, t, clip_gradient and the skip flag are read from device
 // memory — no host sync per step.  With skip
 // set, every weight and state element is written back as the bits it was
 // read as (a select, so a NaN gradient never reaches an output).
 //
 // What bounds them on the H100: bytes at 3.35 TB/s — Adam reads w, g, m, v
-// and writes w, m, v (28 B an f32 element, 22 B a bf16 one); LAMB moves 40
+// and writes w, m, v (28 B an f32 element, 22 B a bf16 one; FTML, with a
+// third state, 36 and 30; SGD and Signum without momentum 12 and 6); LAMB
+// moves 40
 // B an f32 element over its two phases (r goes out and back).  Design,
 // simple first: the chunk kernel is the CUDA form of the TPU's packed
 // chunk without the packing — one launch per dtype group over a device
@@ -131,9 +153,11 @@ struct Hyper {
   const float *lr, *wd, *rg, *t, *clip;
   const unsigned char* skip;  // a torch.bool
 };
-// Host constants of the rule.
+// Host constants of the rule (AdaDelta's rho rides in b1, 1 - rho in
+// omb1).
 struct Consts {
   float b1, b2, eps, omb1, omb2, momentum;  // omb = 1 - b, rounded once
+  float ommom, wd_lh;  // Signum: 1 - momentum (rounded once), wd_lh
   int flag;  // Adam family: correct_bias; LAMB: bias_correction
 };
 
@@ -151,6 +175,13 @@ __device__ __forceinline__ HP read_hp(const Hyper& h) {
   p.clip = p.has_clip ? *h.clip : 0.f;
   p.skip = h.skip != nullptr && *h.skip != 0;
   return p;
+}
+
+// g + wd * w rounded as written, no fused multiply-add: where the two
+// cancel, a rule that divides by a root of the sum (Adamax's u) would turn
+// the fused form's other residual into a different step
+__device__ __forceinline__ float add_wd(float g, const HP& p, float w) {
+  return __fadd_rn(g, __fmul_rn(p.wd, w));
 }
 
 // rescale, then clip (NaN passes through, as jnp.clip and torch.clamp)
@@ -173,49 +204,72 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return t;
 }
 
-enum Rule { ADAM = 0, ADAMW = 1, SGD = 2, SGD_MOM = 3 };
+enum Rule {
+  ADAM = 0, ADAMW = 1, SGD = 2, SGD_MOM = 3, NAG = 4, SIGNUM = 5,
+  SIGNUM_MOM = 6, ADABELIEF = 7, ADAMAX = 8, ADADELTA = 9, FTML = 10
+};
+constexpr int N_RULES = 11;
+
+// jnp.sign: -1 or 1, and x itself at +-0 and NaN
+__device__ __forceinline__ float sgn(float x) {
+  return x > 0.f ? 1.f : (x < 0.f ? -1.f : x);
+}
+// jnp.maximum: NaN if either is NaN
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a != a || b != b) ? a + b : fmaxf(a, b);
+}
 
 // ---------------------------------------------------------------------------
 // the multi-tensor chunk kernel
 // ---------------------------------------------------------------------------
 
-// leaves: n_leaves x {w, g, s0, s1, n} (pointers as int64; s0/s1 0 when the
-// rule keeps less state); blocks: per block (leaf << 32) | chunk index.
+// leaves: n_leaves x {w, g, s0, s1, s2, n} (pointers as int64; a state
+// pointer is 0 where the rule keeps less state); blocks: per block
+// (leaf << 32) | chunk index.
 template <typename W, typename S>
 __global__ void __launch_bounds__(THREADS)
 chunk_kernel(const long long* __restrict__ leaves,
              const long long* __restrict__ blocks, int chunk, int rule,
              Consts c, Hyper hy) {
   const long long code = blocks[blockIdx.x];
-  const long long* L = leaves + 5 * (code >> 32);
+  const long long* L = leaves + 6 * (code >> 32);
   W* __restrict__ w = reinterpret_cast<W*>(L[0]);
   const W* __restrict__ g = reinterpret_cast<const W*>(L[1]);
   S* __restrict__ s0 = reinterpret_cast<S*>(L[2]);
   S* __restrict__ s1 = reinterpret_cast<S*>(L[3]);
+  S* __restrict__ s2 = reinterpret_cast<S*>(L[4]);
   const long long start = (code & 0xffffffffLL) * chunk;
-  const long long end = min(L[4], start + chunk);
+  const long long end = min(L[5], start + chunk);
   const HP p = read_hp(hy);
-  float lr_t = p.lr;
-  if (rule == ADAM || (rule == ADAMW && c.flag)) {
+  // the step's scalars, f32 on the device step t, as the rules take them
+  float lr_t = p.lr, bc2 = 1.f;
+  if (rule == ADAM || rule == ADABELIEF || (rule == ADAMW && c.flag)) {
     const float t = *hy.t;
     lr_t = p.lr * sqrtf(1.f - powf(c.b2, t)) / (1.f - powf(c.b1, t));
+  } else if (rule == ADAMAX) {
+    lr_t = p.lr / (1.f - powf(c.b1, *hy.t));
+  } else if (rule == FTML) {
+    const float t = *hy.t;
+    lr_t = (1.f - powf(c.b1, t)) / p.lr;  // d' = lr_t * (sqrt(v/bc2) + eps)
+    bc2 = 1.f - powf(c.b2, t);
   }
   const float b1s = rnd<S>(c.b1), b2s = rnd<S>(c.b2),
-              mus = rnd<S>(c.momentum);
+              mus = rnd<S>(c.momentum), epss = rnd<S>(c.eps);
   const S zero = from_f<S>(0.f);
   for (long long i0 = start + threadIdx.x; i0 < end;
        i0 += (long long)ILP * THREADS) {
     W wr[ILP], gr[ILP];
-    S mr[ILP], vr[ILP];
+    S mr[ILP], vr[ILP], zr[ILP];
 #pragma unroll
     for (int k = 0; k < ILP; ++k) {
       const long long i = i0 + (long long)k * THREADS;
-      mr[k] = vr[k] = zero;
+      mr[k] = vr[k] = zr[k] = zero;
       if (i < end) {
         wr[k] = w[i];
         gr[k] = g[i];
         if (s0) mr[k] = s0[i];
         if (s1) vr[k] = s1[i];
+        if (s2) zr[k] = s2[i];
       }
     }
 #pragma unroll
@@ -224,10 +278,11 @@ chunk_kernel(const long long* __restrict__ leaves,
       if (i >= end) continue;
       const float wf = to_f(wr[k]);
       float gf = pre(to_f(gr[k]), p);
-      float m = to_f(mr[k]), v = to_f(vr[k]), nw;
+      // m, v, z: the new values of state slots 0, 1 and 2
+      float m = to_f(mr[k]), v = to_f(vr[k]), z = to_f(zr[k]), nw;
       switch (rule) {
         case ADAM:
-          gf = gf + p.wd * wf;
+          gf = add_wd(gf, p, wf);
           m = rnd<S>(b1s * m) + c.omb1 * gf;
           v = rnd<S>(b2s * v) + c.omb2 * gf * gf;
           nw = wf - lr_t * m / (sqrtf(v) + c.eps);
@@ -238,17 +293,68 @@ chunk_kernel(const long long* __restrict__ leaves,
           nw = wf - lr_t * m / (sqrtf(v) + c.eps) - p.lr * p.wd * wf;
           break;
         case SGD:
-          gf = gf + p.wd * wf;
+          gf = add_wd(gf, p, wf);
           nw = wf - p.lr * gf;
           break;
-        default:  // SGD_MOM
-          gf = gf + p.wd * wf;
+        case SGD_MOM:
+          gf = add_wd(gf, p, wf);
           m = rnd<S>(mus * m) - p.lr * gf;
           nw = wf + m;
+          break;
+        case NAG:
+          gf = add_wd(gf, p, wf);
+          m = rnd<S>(mus * m) - p.lr * gf;
+          nw = wf + c.momentum * m - p.lr * gf;
+          break;
+        case SIGNUM:
+          nw = (1.f - p.lr * (c.wd_lh + p.wd)) * wf - p.lr * sgn(gf);
+          break;
+        case SIGNUM_MOM:
+          // rounded as written, no fused multiply-add: the sign of a
+          // momentum near 0 must be the plain version's
+          m = __fsub_rn(rnd<S>(mus * m), __fmul_rn(c.ommom,
+                                                   add_wd(gf, p, wf)));
+          nw = (1.f - p.lr * c.wd_lh) * wf + p.lr * sgn(m);
+          break;
+        case ADABELIEF: {
+          gf = add_wd(gf, p, wf);
+          m = rnd<S>(b1s * m) + c.omb1 * gf;
+          const float d = gf - m;
+          v = rnd<S>(b2s * v) + c.omb2 * (d * d) + c.eps;
+          nw = wf - lr_t * m / (sqrtf(v) + c.eps);
+          break;
+        }
+        case ADAMAX:
+          gf = add_wd(gf, p, wf);
+          m = rnd<S>(b1s * m) + c.omb1 * gf;
+          v = nan_max(rnd<S>(b2s * v), fabsf(gf));
+          nw = wf - lr_t * m / (v + 1e-8f);
+          break;
+        case ADADELTA: {
+          // m: acc_g, v: acc_delta; the old acc_delta + eps and its root
+          // are 16-bit operations on a 16-bit state
+          gf = add_wd(gf, p, wf);
+          m = rnd<S>(b1s * m) + c.omb1 * gf * gf;
+          const float delta =
+              rnd<S>(sqrtf(rnd<S>(v + epss))) / sqrtf(m + c.eps) * gf;
+          v = rnd<S>(b1s * v) + c.omb1 * delta * delta;
+          nw = wf - p.lr * delta;
+          break;
+        }
+        default: {  // FTML: m is d, v is v, z is z
+          gf = add_wd(gf, p, wf);
+          v = rnd<S>(b2s * v) + c.omb2 * gf * gf;
+          const float d = lr_t * (sqrtf(v / bc2) + c.eps);
+          const float sigma = d - rnd<S>(b1s * m);
+          z = rnd<S>(b1s * z) + c.omb1 * gf - sigma * wf;
+          m = d;
+          nw = -z / d;
+        }
       }
       w[i] = p.skip ? wr[k] : from_f<W>(nw);
       if (s0) s0[i] = p.skip ? mr[k] : from_f<S>(m);
       if (s1) s1[i] = p.skip ? vr[k] : from_f<S>(v);
+      if (s2) s2[i] = p.skip ? zr[k] : from_f<S>(z);
     }
   }
 }
@@ -524,22 +630,27 @@ Hyper hyper(const void* lr, const void* wd, const void* rg, const void* t,
 // dtype codes: 0 f32, 1 bf16.  Every entry returns the launch's cudaError_t
 // (0 = launched).
 
-// One launch over a dtype group: table = n_leaves x 5 int64 leaf entries,
-// then n_blocks int64 block entries; rule 0 Adam, 1 AdamW, 2 SGD, 3 SGD
-// with momentum.
+// One launch over a dtype group: table = n_leaves x 6 int64 leaf entries
+// {w, g, s0, s1, s2, n}, then n_blocks int64 block entries; rule: the
+// `Rule` codes (0 Adam, 1 AdamW, 2 SGD, 3 SGD with momentum, 4 NAG, 5
+// Signum, 6 Signum with momentum, 7 AdaBelief, 8 Adamax, 9 AdaDelta, 10
+// FTML).
 extern "C" int mxt_fused_chunk(const void* table, int n_leaves, int n_blocks,
                                int chunk, int rule, int w_dtype, int s_dtype,
                                float b1, float b2, float eps, float omb1,
-                               float omb2, float momentum, int correct_bias,
-                               const void* lr, const void* wd, const void* rg,
-                               const void* t, const void* clip,
-                               const void* skip, void* stream) {
+                               float omb2, float momentum, float ommom,
+                               float wd_lh, int correct_bias, const void* lr,
+                               const void* wd, const void* rg, const void* t,
+                               const void* clip, const void* skip,
+                               void* stream) {
   cudaGetLastError();  // clear any stale error of this runtime
   if (n_blocks == 0) return 0;
-  if (rule < 0 || rule > 3 || chunk < 1) return (int)cudaErrorInvalidValue;
+  if (rule < 0 || rule >= N_RULES || chunk < 1)
+    return (int)cudaErrorInvalidValue;
   const long long* leaves = static_cast<const long long*>(table);
-  const long long* blocks = leaves + 5LL * n_leaves;
-  const Consts c{b1, b2, eps, omb1, omb2, momentum, correct_bias};
+  const long long* blocks = leaves + 6LL * n_leaves;
+  const Consts c{b1, b2, eps, omb1, omb2, momentum, ommom, wd_lh,
+                 correct_bias};
   const Hyper h = hyper(lr, wd, rg, t, clip, skip);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define MXT_CHUNK(W, S) \
@@ -580,7 +691,7 @@ extern "C" int mxt_lamb_phase_a(const void* table, int n_leaves, int n_blocks,
   if (n_leaves < 1 || n_blocks < 0 || chunk < 8 || chunk % 8 != 0 ||
       (reinterpret_cast<uintptr_t>(r) & 15) != 0)
     return (int)cudaErrorInvalidValue;
-  const Consts c{b1, b2, eps, omb1, omb2, 0.f, bias_correction};
+  const Consts c{b1, b2, eps, omb1, omb2, 0.f, 0.f, 0.f, bias_correction};
   const Hyper h = hyper(lr, wd, rg, t, clip, skip);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long* tab = static_cast<const long long*>(table);

@@ -6,16 +6,20 @@ The user's loop is the reference's: forward, ``loss.backward()``, then
 whole-tree `ops.fused_optimizer.apply_updates` call (`_fused_update`): on
 the kernel route (`kernel_route`, ``MXTPU_PALLAS``; the default on the
 card) the multi-tensor CUDA kernels update weights and state in place —
-one chunk launch per dtype group for Adam, AdamW and SGD, for LAMB one
-phase-A launch per dtype group and one phase-B launch per tensor — and on
-the reference route the per-leaf rule runs and
-its results are copied in.  The hyperparameters live on the device,
-uploaded again only when lr, wd, rescale_grad or clip_gradient change; the
-step count ``t`` is filled each step.
+one chunk launch per dtype group for the nine chunk rules (Adam, AdamW,
+SGD, NAG, Signum, AdaBelief, Adamax, AdaDelta, FTML), for LAMB one
+phase-A and one phase-B launch per dtype group — and on the reference
+route (and for every other fused-safe rule: LARS, DCASGD, LANS and the
+AdaGrad family) the per-leaf rule runs and its results are copied in.
+The hyperparameters live on the device, uploaded again only when lr, wd,
+rescale_grad or clip_gradient change; the step count ``t`` is filled each
+step.  ``num_update`` advances before the rate is read, so with an
+``lr_scheduler`` step k runs at ``lr_scheduler(k)``, as JAX's does.
 
-Rules that are not fused-safe, and per-name rate multipliers (``lr_mult``
-/ ``wd_mult`` on the optimizer, or ``lr_mult`` / ``wd_mult`` attributes on
-a parameter), take the per-leaf route, `Optimizer.update`.
+Rules that are not fused-safe (SGLD, Nadam), and per-name rate
+multipliers (``lr_mult`` / ``wd_mult`` on the optimizer, or ``lr_mult`` /
+``wd_mult`` attributes on a parameter), take the per-parameter route,
+`Optimizer.update` (JAX's ``update_multi_precision`` loop).
 
 The optimizer state is kept in each weight's dtype (bf16 moments for a
 bf16 weight, JAX's ``multi_precision=False``); `parallel.TrainStep` keeps
@@ -150,8 +154,8 @@ class Trainer:
             self._fused_update(grads)
         else:
             for n, p in zip(self._param_names, self._params):
-                self._optimizer.update(n, p.detach(), grads[n],
-                                       self._states[n])
+                self._states[n] = self._optimizer.update(
+                    n, p.detach(), grads[n], self._states[n])
         for p in self._params:
             p.grad = None
 

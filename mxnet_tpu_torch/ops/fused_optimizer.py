@@ -15,7 +15,9 @@ kernels and their plain versions (counterpart of
   tensors — the port updates in place where JAX returns new arrays, which
   saves a second copy of the weights and the optimizer state and the
   copy back.  On a CUDA tensor it launches ``csrc/fused_optimizer.cu``:
-  for Adam, AdamW and SGD one chunk-kernel launch per group of leaves
+  for the nine elementwise rules the JAX package chunks (Adam, AdamW,
+  SGD, NAG, Signum, AdaBelief, Adamax, AdaDelta and FTML; `_chunk_rule`)
+  one chunk-kernel launch per group of leaves
   with the same (weight dtype, state dtypes, state structure), over a
   device table of per-leaf pointers (no packing copy), at the elements per
   block the autotuner chose for the group (`_group_chunk`, ``CHUNK`` when
@@ -30,9 +32,13 @@ kernels and their plain versions (counterpart of
   same math, the same order of operations: LAMB's trust ratio stays f32),
   and writes the results in place.
 
-`kernel_route` applies the policy of `ops.policy` (``MXTPU_PALLAS``).  Any
-other fused-safe rule takes the per-leaf reference route on either
-setting (ROADMAP.md lists them).
+`kernel_route` applies the policy of `ops.policy` (``MXTPU_PALLAS``).  Every
+other fused-safe rule (LARS, DCASGD, LANS, AdaGrad, GroupAdaGrad,
+RMSProp, Ftrl, ``Test``, and any subclass of a kernel rule) takes the
+per-leaf reference route on either setting: that is the port of JAX's
+own per-leaf (XLA) update for them, not a fallback.  Rules that are not
+fused-safe (SGLD, Nadam) run per parameter through `Optimizer.update`
+(the `Trainer`) and are refused by `parallel.TrainStep`.
 
 The chunk kernel's block size is tunable (``tune("fused_optimizer",
 (group elements,), dtype)``, `ops.autotune`): `_candidates`, `_roofline`
@@ -49,7 +55,8 @@ import torch
 
 from ..base import MXNetError
 from .. import kernels as _kernels
-from ..optimizer import LAMB, SGD, Adam, AdamW
+from ..optimizer import (FTML, LAMB, NAG, SGD, AdaBelief, AdaDelta, Adam,
+                         Adamax, AdamW, Signum)
 from . import autotune
 from .policy import kernel_active
 
@@ -73,16 +80,36 @@ _chunk_memo_gen = None
 # support predicates
 # ---------------------------------------------------------------------------
 
+# the chunk kernel's rule codes (``enum Rule`` in csrc/fused_optimizer.cu)
+# and the state slots each takes
+_RULES = {Adam: 0, AdamW: 1, NAG: 4, AdaBelief: 7, Adamax: 8, AdaDelta: 9,
+          FTML: 10}
+_SLOTS = {0: 2, 1: 2, 2: 0, 3: 1, 4: 1, 5: 0, 6: 1, 7: 2, 8: 2, 9: 2, 10: 3}
+
+
 def _chunk_rule(optimizer) -> int:
-    """The chunk kernel's rule code for `optimizer`, or -1."""
+    """The chunk kernel's rule code for `optimizer` (its exact class: a
+    subclass may change the rule), or -1.  SGD and Signum split on
+    momentum."""
     kind = type(optimizer)
-    if kind is Adam:
-        return 0
-    if kind is AdamW:
-        return 1
     if kind is SGD:
         return 3 if optimizer.momentum != 0.0 else 2
-    return -1
+    if kind is Signum:
+        return 6 if optimizer.momentum != 0.0 else 5
+    return _RULES.get(kind, -1)
+
+
+def _chunk_consts(optimizer) -> Tuple:
+    """The rule's host constants as the kernel takes them: b1, b2, eps,
+    1 - b1, 1 - b2, momentum, 1 - momentum, wd_lh, correct_bias (each
+    ``1 - x`` in Python's double, as JAX's weak scalars, rounded to f32
+    once); AdaDelta's rho rides in b1."""
+    o = optimizer
+    b1 = getattr(o, "rho", getattr(o, "beta1", 0.0))
+    b2 = getattr(o, "beta2", 0.0)
+    mu = getattr(o, "momentum", 0.0)
+    return (b1, b2, getattr(o, "epsilon", 0.0), 1 - b1, 1 - b2, mu, 1 - mu,
+            getattr(o, "wd_lh", 0.0), int(getattr(o, "correct_bias", True)))
 
 
 def _is_lamb(optimizer) -> bool:
@@ -95,8 +122,11 @@ def supported(optimizer) -> bool:
 
 
 def kernel_supported(optimizer) -> bool:
-    """Do the CUDA kernels write this optimizer's math out?  Adam, AdamW
-    and SGD (the chunk kernel) and LAMB (phases A and B)."""
+    """Do the CUDA kernels write this optimizer's math out?  The chunk
+    kernel takes the nine rules JAX chunks (every ``fused_elementwise``
+    rule: Adam, AdamW, SGD, NAG, Signum, AdaBelief, Adamax, AdaDelta,
+    FTML, each by its exact class) and LAMB's phases A and B take LAMB.
+    Every other rule runs per leaf (JAX's own per-leaf update for it)."""
     if not supported(optimizer):
         return False
     return (_chunk_rule(optimizer) >= 0 and
@@ -146,7 +176,7 @@ def _reference_leaf(optimizer, w, g, s_old, hp, skip, kernel_math=False):
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_SIGS = {"mxt_fused_chunk": [_P, _I, _I, _I, _I, _I, _I] + [_F] * 6
+_SIGS = {"mxt_fused_chunk": [_P, _I, _I, _I, _I, _I, _I] + [_F] * 8
          + [_I] + [_P] * 7,
          "mxt_lamb_phase_a": [_P, _I, _I, _I] + [_P] * 4 + [_I, _I]
          + [_F] * 5 + [_I, _F, _F, _I, _I] + [_P] * 8,
@@ -261,18 +291,24 @@ def _group_chunk(names, params) -> int:
 def _chunk_cuda(optimizer, rule, names, params, grads, states, hptr, dev,
                 chunk):
     """One chunk-kernel launch over `names` (one dtype group), in place,
-    `chunk` elements of one leaf per block."""
+    `chunk` elements of one leaf per block.  The leaf table holds six
+    int64 a leaf: weight, gradient, three state pointers (0 past the
+    rule's slots; FTML fills all three) and the element count."""
     n_state = len(states[names[0]])
+    if n_state != _SLOTS[rule]:
+        raise MXNetError(f"{type(optimizer).__name__}: the chunk kernel's "
+                         f"rule keeps {_SLOTS[rule]} state tensors, got "
+                         f"{n_state}")
     leaves, blocks = [], []
     for i, n in enumerate(names):
         w, g, st = params[n], grads[n], states[n]
         _check_leaf(n, w, g, st, dev)
-        ptr = [s.data_ptr() for s in st] + [0] * (2 - n_state)
+        ptr = [s.data_ptr() for s in st] + [0] * (3 - n_state)
         leaves.append([w.data_ptr(), g.data_ptr(), *ptr, w.numel()])
         nchunk = -(-w.numel() // chunk)
         blocks.append((i << 32) | np.arange(nchunk, dtype=np.int64))
     table = np.concatenate([np.asarray(leaves, np.int64).ravel()] + blocks)
-    n_blocks = table.size - 5 * len(names)
+    n_blocks = table.size - 6 * len(names)
     if n_blocks == 0:
         return
     # pinned and asynchronous: no host sync; the caching host allocator
@@ -282,14 +318,11 @@ def _chunk_cuda(optimizer, rule, names, params, grads, states, hptr, dev,
     dev_table = torch.from_numpy(table).pin_memory().to(dev,
                                                         non_blocking=True)
     w0, s = params[names[0]], states[names[0]]
-    o = optimizer
-    b1, b2 = getattr(o, "beta1", 0.0), getattr(o, "beta2", 0.0)
     err = _kernel_fn("mxt_fused_chunk")(
         dev_table.data_ptr(), len(names), n_blocks, chunk, rule,
-        _DTYPES[w0.dtype], _DTYPES[s[0].dtype] if s else 0, b1, b2,
-        getattr(o, "epsilon", 0.0), 1 - b1, 1 - b2,
-        getattr(o, "momentum", 0.0), int(getattr(o, "correct_bias", True)),
-        *hptr, torch.cuda.current_stream(dev).cuda_stream)
+        _DTYPES[w0.dtype], _DTYPES[s[0].dtype] if s else 0,
+        *_chunk_consts(optimizer), *hptr,
+        torch.cuda.current_stream(dev).cuda_stream)
     _launched("fused_optimizer chunk", err, "fused_optimizer_chunk")
 
 

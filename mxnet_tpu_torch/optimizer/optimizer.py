@@ -1,11 +1,14 @@
 """Optimizer base class and registry (counterpart of
 ``mxnet_tpu/optimizer/optimizer.py``).
 
-Each optimizer defines a pure elementwise rule ``_rule(weight, grad, state,
-hp) -> (new_weight, new_state)`` over tensors; `ops.fused_optimizer`
+Each optimizer defines a rule ``_rule(weight, grad, state, hp) ->
+(new_weight, new_state)`` over one parameter's tensors (elementwise for
+most; per-tensor norms for LARS, LAMB and LANS); `ops.fused_optimizer`
 applies it over a whole tree inside `parallel.TrainStep` and
 `gluon.Trainer`, and `Optimizer.update` applies it to one parameter (the
-`Trainer`'s per-leaf route).  The base holds the hyperparameters: the
+`Trainer`'s per-parameter route).  `weak`, `sqrt` and `sign` give the
+rules JAX's rounding: weakly typed scalars, correctly rounded roots and
+``jnp.sign``.  The base holds the hyperparameters: the
 learning rate (or an ``lr_scheduler`` callable of the update count), weight
 decay, ``rescale_grad``, ``clip_gradient``, the per-name rate multipliers
 (``lr_mult``, ``wd_mult``) and the per-index update count ``t``, and the
@@ -20,19 +23,37 @@ import torch
 
 from ..base import MXNetError
 
-__all__ = ["Optimizer", "register", "create", "weak"]
+__all__ = ["Optimizer", "register", "create", "weak", "sqrt", "sign"]
 
 _registry: Dict[str, type] = {}
 
 
-def weak(c: float, like: torch.Tensor) -> float:
+def weak(c, like: torch.Tensor):
     """The Python number `c` as JAX uses it beside `like`: a weakly typed
     scalar takes the array's dtype, so next to a 16-bit tensor it is first
     rounded to 16 bits (``0.9 * bf16_m`` is ``bf16(bf16(0.9) * m)`` in JAX,
-    ``bf16(0.9 * m)`` in torch).  f32 and wider: `c` itself."""
-    if like.dtype.itemsize >= 4:
+    ``bf16(0.9 * m)`` in torch).  f32 and wider: `c` itself; a tensor `c`
+    (a device hyperparameter, strongly typed f32 in JAX) passes as it is."""
+    if torch.is_tensor(c) or like.dtype.itemsize >= 4:
         return c
     return float(torch.tensor(c, dtype=like.dtype))
+
+
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.sqrt``: the correctly rounded root, as XLA's and CUDA's
+    ``sqrtf`` give it.  torch's vectorised CPU kernel can be one ulp off,
+    which a rule that cancels large terms (Ftrl's z) would amplify, so on
+    the CPU the root is taken in f64 and rounded once (exact for f32 and
+    16-bit inputs)."""
+    if x.device.type == "cpu" and x.dtype != torch.float64:
+        return torch.sqrt(x.double()).to(x.dtype)
+    return torch.sqrt(x)
+
+
+def sign(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.sign``: -1, 1, and `x` itself at +-0 and NaN (``torch.sign``
+    gives 0 at NaN)."""
+    return torch.where(x > 0, 1.0, torch.where(x < 0, -1.0, x)).to(x.dtype)
 
 
 def register(cls):
@@ -135,7 +156,7 @@ class Optimizer:
 
     @staticmethod
     def _preprocess_grad(grad, hp):
-        g = grad * hp["rescale_grad"]
+        g = grad * weak(hp["rescale_grad"], grad)
         if hp.get("clip_gradient") is not None:
             g = torch.clamp(g, -hp["clip_gradient"], hp["clip_gradient"])
         return g
@@ -144,16 +165,25 @@ class Optimizer:
         raise NotImplementedError
 
     @torch.no_grad()
-    def update(self, index, weight, grad, state):
-        """One step of parameter `index` in place: the rule on the stored
-        dtypes with Python-number hyperparameters (``hparams``), as JAX's
+    def update(self, index, weight, grad, state) -> tuple:
+        """One step of parameter `index`: the rule on the stored dtypes
+        with Python-number hyperparameters (``hparams``), as JAX's
         ``Optimizer.update`` runs it, the results cast back to the stored
-        dtypes."""
+        dtypes.  The weight and each state tensor are updated in place;
+        returns the state tuple, in which a slot whose shape the rule
+        changes is the rule's new tensor (DCASGD's 0-d momentum becomes
+        the weight's shape, as JAX rebinds it)."""
         self._update_count(index)
         nw, ns = self._rule(weight, grad, tuple(state), self.hparams(index))
-        weight.copy_(nw)
+        out = []
         for old, new in zip(state, ns):
-            old.copy_(new)
+            if old.shape == new.shape:
+                old.copy_(new)
+                out.append(old)
+            else:
+                out.append(new.to(old.dtype))
+        weight.copy_(nw)
+        return tuple(out)
 
     def __repr__(self):
         return f"{type(self).__name__}(lr={self.lr})"

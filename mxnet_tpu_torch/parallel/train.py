@@ -20,6 +20,14 @@ the JAX step:
   ``num_model_args`` arguments feed the model;
 - optimizer state in f32 for 16-bit weights, with no f32 master copy of
   the weights (``_master_dtype``);
+- the rules JAX's step cannot run are refused by name at construction
+  (`_refusal`): SGLD and Nadam (not fused-safe: host random draws or a
+  host-side running product at every call of the rule) and DCASGD (its
+  state holds the previous weight, which JAX's donated step refuses).
+  The gluon `Trainer` runs all three, per parameter;
+- the learning rate is ``optimizer.learning_rate``, read at the
+  optimizer's ``num_update``, which the step does not advance (nor does
+  JAX's): an ``lr_scheduler`` is read at the count the caller sets;
 - ``grad_accum=k`` splits every batch argument on its leading dim and
   averages the k gradients (mean of means) at ``grad_accum_dtype``;
 - `warmup` builds the kernels and runs one forward and backward without
@@ -45,7 +53,9 @@ import torch
 from .. import kernels
 from ..base import MXNetError
 from ..models.layers import Dropout
-from ..ops.fused_optimizer import HpScalarCache, apply_updates, kernel_route
+from ..ops.fused_optimizer import (HpScalarCache, apply_updates,
+                                   kernel_route, supported)
+from ..optimizer import DCASGD
 
 __all__ = ["TrainStep", "StepHandle", "make_train_step"]
 
@@ -82,6 +92,21 @@ class StepHandle:
                 f"dispatch_ms={self.dispatch_s * 1e3:.3f})")
 
 
+def _refusal(optimizer) -> Optional[str]:
+    """Why `TrainStep` cannot run `optimizer` (None when it can): the rules
+    JAX's jitted step fails on."""
+    name = type(optimizer).__name__
+    if not supported(optimizer):
+        return (f"{name} is not fused-safe: its rule draws host random "
+                f"numbers or advances host-side state at every call, "
+                f"which one whole-tree step cannot carry (JAX's jitted "
+                f"step traces it once)")
+    if isinstance(optimizer, DCASGD):
+        return (f"{name} keeps the previous weight as its state, which "
+                f"JAX's step (donating its weights) refuses")
+    return None
+
+
 class TrainStep:
     """One training step of `model` with `optimizer` on the model's
     device: ``loss_fn(out, *batch) -> scalar tensor`` where ``out =
@@ -93,6 +118,11 @@ class TrainStep:
                  update: Optional[Callable] = None):
         if grad_accum < 1:
             raise MXNetError(f"grad_accum must be >= 1, got {grad_accum}")
+        why = _refusal(optimizer)
+        if why:
+            raise MXNetError(f"TrainStep: {why}; train it through "
+                             f"gluon.Trainer, which updates it per "
+                             f"parameter")
         self.model = model
         self.optimizer = optimizer
         self.loss_fn = loss_fn

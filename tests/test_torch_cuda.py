@@ -20,7 +20,9 @@ cross-entropy (any V, unclamped labels), the fused LayerNorm/RMSNorm (any
 h, with and without residual and beta; both plan variants, 16-byte and
 one-element loads, every block_rows of its tuner's menu, two calls
 bit-equal, the public wrappers, its tunable's trials) and the optimizer
-kernels (the multi-tensor chunk for Adam, AdamW and SGD, LAMB phases A
+kernels (the multi-tensor chunk for Adam, AdamW and SGD, and for NAG,
+Signum, AdaBelief, Adamax, AdaDelta and FTML with f32 and bf16 weights
+and state and the skip flag; LAMB phases A
 and B once per dtype group, with 1- and 768-element leaves, an unaligned
 leaf, two streams and the gluon `Trainer`; phase B within one unit in the
 last place of the host's float64 update; f32 and bf16 weights; the skip
@@ -1384,6 +1386,95 @@ def test_optimizer_kernels_with_16bit_state_match_plain(card, name):
             assert a.dtype == torch.bfloat16, n
             torch.testing.assert_close(a.float(), b.float(), rtol=2 ** -7,
                                        atol=2e-6)
+
+
+# the chunk rules after Adam, AdamW and SGD: (class, kwargs, state slots
+# drawn positive -- the rules take their roots)
+CHUNK_RULES = {"nag": ("NAG", {}, ()),
+               "signum": ("Signum", {"momentum": 0.0, "wd_lh": 0.01}, ()),
+               "signum_momentum": ("Signum", {"wd_lh": 0.01}, ()),
+               "adabelief": ("AdaBelief", {}, (1,)),
+               "adamax": ("Adamax", {}, (1,)),
+               "adadelta": ("AdaDelta", {}, (0, 1)),
+               "ftml": ("FTML", {}, (0, 1))}
+
+
+def _chunk_tree(card, name, wdtype, sdtype, seed):
+    """Leaves of 70001, 1000, 37 and 8 elements (the last f32: a second
+    dtype group for bf16 weights), weights N(0, 1), gradients N(0, 9), the
+    rule's state in `sdtype` (positive where it takes a root, else
+    N(0, 0.01))."""
+    from mxnet_tpu_torch import optimizer as topt
+    cls, kw, pos = CHUNK_RULES[name]
+    opt = getattr(topt, cls)(learning_rate=0.01, **kw)
+    g = torch.Generator().manual_seed(seed)
+    sizes = {"a": 70001, "b": 1000, "c": 37, "d": 8}
+    params = {n: torch.randn(k, generator=g).to(card, wdtype)
+              for n, k in sizes.items()}
+    params["d"] = params["d"].float()
+    grads = {n: (3 * torch.randn(p.shape, generator=g)).to(card, p.dtype)
+             for n, p in params.items()}
+    states = {n: tuple(
+        (torch.rand(p.shape, generator=g) + 0.5 if k in pos
+         else 0.1 * torch.randn(p.shape, generator=g)).to(card, sdtype)
+        for k, _ in enumerate(opt.create_state(p)))
+        for n, p in params.items()}
+    hp = {k: torch.tensor(v, device=card) for k, v in (
+        ("lr", 0.01), ("wd", 0.01), ("rescale_grad", 0.5),
+        ("clip_gradient", 1.0), ("t", 3.0))}
+    return opt, params, grads, states, hp
+
+
+@pytest.mark.parametrize("sdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(CHUNK_RULES))
+def test_chunk_rules_match_plain(card, name, wdtype, sdtype):
+    """NAG, Signum (with and without momentum), AdaBelief, Adamax,
+    AdaDelta and FTML through the chunk kernel against `kernel_plain`:
+    one launch per dtype group, FTML's three state slots written.  f32
+    within atol 2e-6 and rtol 1e-6 (the kernel fuses multiply-adds the
+    plain version rounds twice; FTML's d reaches ~1e3), 16-bit values
+    within one bf16 step."""
+    from mxnet_tpu_torch.ops import fused_optimizer as fo
+    opt, params, grads, states, hp = _chunk_tree(card, name, wdtype,
+                                                 sdtype, seed=11)
+    want_p, want_s = fo.kernel_plain(opt, params, grads, states, hp)
+    kernels.reset_launch_counts()
+    fo.apply_updates(opt, params, grads, states, hp, use_kernel=True)
+    torch.cuda.synchronize()
+    groups = len({(p.dtype, tuple(s.dtype for s in states[n]))
+                  for n, p in params.items()})
+    assert kernels.launch_counts()["fused_optimizer_chunk"] == groups
+    for n in params:
+        got = [params[n]] + list(states[n])
+        want = [want_p[n]] + list(want_s[n])
+        assert len(got) == 1 + fo._SLOTS[fo._chunk_rule(opt)]
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype, n
+            if a.dtype == torch.bfloat16:
+                torch.testing.assert_close(a.float(), b.float(),
+                                           rtol=2 ** -7, atol=2e-6)
+            else:
+                torch.testing.assert_close(a, b, rtol=1e-6, atol=2e-6)
+
+
+@pytest.mark.parametrize("name", sorted(CHUNK_RULES))
+def test_chunk_rules_skip_is_bit_identical(card, name):
+    from mxnet_tpu_torch.ops import fused_optimizer as fo
+    for skip, same in ((True, True), (False, False)):
+        opt, params, grads, states, hp = _chunk_tree(
+            card, name, torch.bfloat16, torch.float32, seed=12)
+        grads["b"][7] = float("nan")
+        before = ({n: p.clone() for n, p in params.items()},
+                  {n: [t.clone() for t in st] for n, st in states.items()})
+        fo.apply_updates(opt, params, grads, states, hp,
+                         skip=torch.tensor(skip, device=card),
+                         use_kernel=True)
+        torch.cuda.synchronize()
+        for n in params:
+            assert torch.equal(params[n], before[0][n]) == same, n
+            assert all(torch.equal(a, b) == same
+                       for a, b in zip(states[n], before[1][n])), n
 
 
 def _lamb_tree(card, wdtype, seed):

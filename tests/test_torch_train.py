@@ -12,7 +12,10 @@ fused norm and the optimizer through the multi-tensor kernels, Adam and
 LAMB — on the JAX side in the Pallas interpreter, on the port's the CUDA
 kernels' plain versions).  Tolerance: atol/rtol 1e-4 on the losses and on
 every parameter after the steps (f32, summation order); the rules alone at
-1e-6.
+1e-6.  The other rules: NAG, AdaBelief and FTML through the chunk kernel's
+route, LARS through the per-leaf route, AdaBelief under a schedule (which
+both steps read at ``num_update`` 0: neither advances it); Nadam, SGLD and
+DCASGD, which JAX's step cannot run, are refused by name.
 """
 import numpy as np
 import pytest
@@ -23,7 +26,9 @@ import jax.numpy as jnp
 import mxnet_tpu as mx
 from mxnet_tpu import optimizer as jopt
 from mxnet_tpu.gluon.block import HybridBlock
+from mxnet_tpu.gluon import nn as jnn
 from mxnet_tpu.models import bert as jbert
+from mxnet_tpu.optimizer import lr_scheduler as jsched
 from mxnet_tpu.ops.pallas.softmax_xent import softmax_cross_entropy as jxent
 from mxnet_tpu.parallel import make_mesh, make_sharded_train_step
 
@@ -33,6 +38,7 @@ from mxnet_tpu_torch.models import bert as tbert
 from mxnet_tpu_torch.ops import softmax_cross_entropy
 from mxnet_tpu_torch.ops.fused_optimizer import apply_updates
 from mxnet_tpu_torch.optimizer import Adam, AdamW, create
+from mxnet_tpu_torch.optimizer import lr_scheduler as tsched
 from mxnet_tpu_torch.parallel import TrainStep, make_train_step
 
 torch.set_num_threads(1)
@@ -106,7 +112,8 @@ def _pair(dtype="float32"):
     return jm, tm
 
 
-def _run_both(steps, grad_accum=1, lr=1e-3, wd=0.0, opt="Adam"):
+def _run_both(steps, grad_accum=1, lr=1e-3, wd=0.0, opt="Adam",
+              sched=None, eps=1e-6):
     """`steps` steps of `opt` (Adam or LAMB) on each side.  epsilon 1e-6
     (LAMB's default): the key part of the QKV bias has an exactly zero
     gradient (softmax ignores a per-row shift), so both sides see round-off
@@ -114,11 +121,15 @@ def _run_both(steps, grad_accum=1, lr=1e-3, wd=0.0, opt="Adam"):
     full-size steps of random sign."""
     jm, tm = _pair()
     mesh = make_mesh({"dp": 1}, jax.devices()[:1])
-    kw = dict(learning_rate=lr, wd=wd, epsilon=1e-6)
+    kw = dict(learning_rate=lr, wd=wd, epsilon=eps)
+    jkw, tkw = dict(kw), dict(kw)
+    if sched is not None:       # (class name, kwargs): one for each side
+        jkw["lr_scheduler"] = getattr(jsched, sched[0])(**sched[1])
+        tkw["lr_scheduler"] = getattr(tsched, sched[0])(**sched[1])
     jstep = make_sharded_train_step(
-        jm, getattr(jopt, opt)(**kw), _jax_loss, mesh, num_model_args=3,
+        jm, getattr(jopt, opt)(**jkw), _jax_loss, mesh, num_model_args=3,
         grad_accum=grad_accum)
-    tstep = make_train_step(tm, create(opt, **kw), _torch_loss,
+    tstep = make_train_step(tm, create(opt, **tkw), _torch_loss,
                             num_model_args=3, grad_accum=grad_accum)
     batch = _batch(B=4 * grad_accum)
     jl = [float(jstep(*(mx.np.array(a) for a in batch)))
@@ -153,6 +164,68 @@ def test_three_kernel_route_steps_match_jax(kernel_route, opt):
     np.testing.assert_allclose(tl, jl, **TOL)
     assert tl[-1] < tl[0]
     _assert_params_match(jm, tm)
+
+
+# (rule, MXTPU_PALLAS, lr, scheduler[, epsilon]): the chunk kernel's new
+# rules on the kernel route, LARS per leaf, AdaBelief under a schedule.
+# FTML's first step is lr * g / (|g| + epsilon): on the QKV key bias's
+# round-off gradients (see `_run_both`) it needs epsilon 1e-4, not 1e-6,
+# or round-off becomes steps of lr with random sign
+OTHER_RULES = {
+    "nag": ("NAG", "kernel", 1e-3, None),
+    "adabelief": ("AdaBelief", "kernel", 1e-3, None),
+    "ftml": ("FTML", "kernel", 2.5e-3, None, 1e-4),
+    "lars": ("LARS", "reference", 1.0, None),
+    "adabelief_poly": ("AdaBelief", "kernel", 1e-3, (
+        "PolyScheduler", dict(max_update=40, pwr=2, final_lr=1e-5)))}
+
+
+@pytest.mark.parametrize("name", sorted(OTHER_RULES))
+def test_three_steps_of_the_other_rules_match_jax(monkeypatch, name):
+    """Three BERT steps of each rule on both sides.  With a scheduler both
+    steps read the rate at the optimizer's ``num_update``, which neither
+    advances: the scheduler's rate at 0, where the optimizer's
+    ``learning_rate`` became its ``base_lr``."""
+    opt, route, lr, sched, *eps = OTHER_RULES[name]
+    monkeypatch.setenv("MXTPU_PALLAS_INTERPRET", "1")
+    monkeypatch.setenv("MXTPU_PALLAS", route)
+    jm, tm, jl, tl = _run_both(3, lr=lr, wd=0.01, opt=opt, sched=sched,
+                               eps=eps[0] if eps else 1e-6)
+    np.testing.assert_allclose(tl, jl, **TOL)
+    assert tl[-1] < tl[0]
+    _assert_params_match(jm, tm)
+
+
+def test_rules_the_jax_step_cannot_run_are_refused_by_name():
+    """JAX's jitted step fails on SGLD (its host random key leaks out of
+    the trace), on DCASGD (its state is the weight itself, donated twice)
+    and runs Nadam only by tracing its host-side ``m_schedule`` product
+    once, leaving a tracer on the optimizer; the port's `TrainStep`
+    refuses all three by name and points at the `Trainer`."""
+    mesh = make_mesh({"dp": 1}, jax.devices()[:1])
+    x, y = np.ones((2, 3), np.float32), np.ones((2, 4), np.float32)
+
+    def jax_step(o):
+        mx.random.seed(0)
+        net = jnn.Dense(4, in_units=3)
+        net.initialize(mx.init.Normal(0.2))
+        net(mx.np.array(x))
+        st = make_sharded_train_step(
+            net, o, lambda out, a, b: jnp.mean((out - b) ** 2), mesh,
+            num_model_args=1)
+        for _ in range(2):
+            float(st(mx.np.array(x), mx.np.array(y)))
+    nadam = jopt.Nadam(learning_rate=0.01)
+    jax_step(nadam)
+    assert isinstance(nadam.m_schedule, jax.core.Tracer)
+    for name in ("SGLD", "DCASGD"):
+        with pytest.raises(Exception):
+            jax_step(getattr(jopt, name)(learning_rate=0.01))
+    lin = torch.nn.Linear(3, 4)
+    for name in ("Nadam", "SGLD", "DCASGD"):
+        with pytest.raises(MXNetError, match=f"{name} .*gluon.Trainer"):
+            TrainStep(lin, create(name), lambda out, a, b: out.sum(),
+                      num_model_args=1)
 
 
 @pytest.mark.parametrize("mode,want", [("kernel", True), ("reference", False),
