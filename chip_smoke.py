@@ -76,7 +76,13 @@ step again under the rest of the optimizer family and its schedulers:
 7. (k4) the streaming softmax cross-entropy, forward and backward, against
    its plain version at (1280, 30522) in f32 and bf16, at the odd V 50257,
    at the gpt phase's logits (8192, 50257) and the nmt phase's (3072,
-   32000) in f32 and bf16, timed against ``cross_entropy(x.float(), y)``;
+   32000) in f32 and bf16, timed against ``cross_entropy(x.float(), y)``,
+   the forward's host µs a call and launch plan recorded; the forward's
+   loss and lse within 1e-4 of their scale in either dtype (f32 on both
+   sides), dx within its dtype's limit; then `XENT_EDGES` (V 1 and 9, and
+   V 50257 in 16 rows that start at every 16-byte phase), labels outside
+   [0, V) at both ends, a masked column and a row that is -inf over every
+   thread's first reads, checked only;
 8. (k5) the fused LayerNorm / RMSNorm row kernel, with and without a
    residual, against its plain version in f32 and bf16 (f32 gamma and
    beta, as BERT keeps them) at (8192, 768) and (1280, 768) — the step's
@@ -125,13 +131,15 @@ step again under the rest of the optimizer family and its schedulers:
    and each must depart from that run's oracle by more than the limit.
 11. (k7) the MoE row gather against its plain version, bit for bit: the
    slice's dispatch (8192 tokens into 8 x 1280 slots, H 768) and combine
-   (scaled by gate * kept in f32) in f32 and bf16, with routing from a
+   (scaled by gate * kept in f32) in f32, bf16 and f16, and at H 100 in
+   bf16 (rows of 200 bytes: 8-byte pieces), with routing from a
    seeded skewed router (tokens overflow, slots stay empty), and an odd
    case (T 53, E 4, C 6, H 256) through ``moe_dispatch`` / ``moe_combine``
    with ``use_kernel=True``; dropped tokens and empty slots exactly zero;
    two planted faults (the scale ignored, ``kept`` ignored) must be
    rejected; timed beside ``torch.index_select`` (combine: index_select
-   and a multiply, two calls) and the bound;
+   and a multiply, two calls) and the bound, with the host µs a call and
+   the launch plan;
 12. (tune) the autotuner's trial launches of the chunk kernel (row 10),
    each trial timed by CUDA events after an L2 flush (`time_callable`
    with the card's device; every trial's ms and the pick printed),
@@ -191,10 +199,11 @@ step again under the rest of the optimizer family and its schedulers:
    the dense bf16 peak.
 15. (gpt_gqa) the gpt phase's model, batch and optimizer with Mistral 7B's
    attention (Jiang et al. 2023, Table 1: grouped K/V, a one-sided
-   sliding window, RoPE) at GPT-2 small's widths, ``GQA_ARCH``: RoPE, 3 kv
-   heads for the 12 query heads, window 256; 20 steps through
-   ``TrainStep`` in bf16 and f32 and ``gluon.Trainer`` in bf16, flash 12 +
-   12 launches a step (the band and the fold inside the kernels), each
+   sliding window, RoPE) at GPT-2 small's widths and 6 of its 12 layers
+   (`ARCH_LAYERS`), ``GQA_ARCH``: RoPE, 3 kv heads for the 12 query
+   heads, window 256; 20 steps through ``TrainStep`` in bf16 and f32 and
+   ``gluon.Trainer`` in bf16, flash one launch a layer each way a step
+   (the band and the fold inside the kernels), each
    trajectory held to its plain oracle (`gpt_tol`, the bf16 floor measured
    for this model), two planted faults in f32 (the kernels without the
    window; their masks reading the folded row instead of its position)
@@ -205,10 +214,11 @@ step again under the rest of the optimizer family and its schedulers:
    the whole context) equal to the cached stream.
 16. (gpt_d256) the gpt phase's model, batch and optimizer with Gemma 2B's
    attention (Gemma Team 2024, arXiv 2403.08295, Table 1: head size 256,
-   one kv head, RoPE) at GPT-2 small's widths, ``D256_ARCH``: 3 query
-   heads of 256 over one kv head, RoPE; 20 steps through ``TrainStep`` in
-   bf16 and f32, ``gluon.Trainer`` in bf16 and ``TrainStep`` in bf16 under
-   ``remat="full"``, flash 12 + 12 launches a step (24 + 12 under remat),
+   one kv head, RoPE) at GPT-2 small's widths and 6 of its 12 layers
+   (`ARCH_LAYERS`), ``D256_ARCH``: 3 query heads of 256 over one kv head,
+   RoPE; 20 steps through ``TrainStep`` in bf16 and f32, ``gluon.Trainer``
+   in bf16 and ``TrainStep`` in bf16 under ``remat="full"``, flash one
+   launch a layer each way a step (the forward twice under remat),
    each trajectory held to its plain oracle (`gpt_tol`, the bf16 floor
    measured for this model), remat within 1e-5 of no remat, two planted
    faults in f32 (the kernels see only the first 128 columns of q, k and
@@ -250,27 +260,28 @@ step again under the rest of the optimizer family and its schedulers:
    ``greedy_translate(max_len=32)`` of 8 sources against the plain route,
    near ties aside.  Prints step ms, target tokens/s and TFLOP/s from
    `nmt_flops_per_step`.
-19. (optim) the train phase's BERT-base step (full width and depth, the
-   default route) under the chunk kernel's six new rules (`OPTIM_RULES`:
-   NAG, Signum with and without momentum, AdaBelief, Adamax, AdaDelta,
-   FTML), 20 steps each through ``TrainStep`` in bf16 and f32, and NAG and
-   AdaDelta through the gluon ``Trainer`` (bf16 model, bf16 state) under a
-   ``CosineScheduler`` with linear warmup, the rate each step used
-   recorded beside the scheduler's.  Each run is held to its oracle, the
-   same step with only the optimizer kernel replaced by its plain version
-   (``update=kernel_plain``; the `Trainer`'s update the same way): the
-   weights and state after the first step (the same gradients on both
-   sides) within `_opt_err`'s limits, the loss trajectory within
-   `traj_tol`; launches exact (the chunk once per dtype group a step, none
-   in the oracle), the loss falls.  The per-leaf rules (`OPTIM_PER_LEAF`:
-   LARS, AdaGrad, GroupAdaGrad, RMSProp, Ftrl, LANS through ``TrainStep``;
-   Nadam, SGLD, DCASGD, which it refuses by name, through the ``Trainer``)
-   run 3 steps each: finite losses, no optimizer kernel, state in the
-   declared dtypes.  Two planted faults (`OPTIM_FAULTS`), each a copy of
-   the kernel's source with one mutation built beside the kernels —
-   AdaDelta without the 16-bit rounding of ``acc_delta + eps`` (through the
-   ``Trainer``'s bf16 state) and FTML with its v and z slots exchanged —
-   must each fail the first-step check or the trajectory.
+19. (optim) the train phase's BERT-base step (full width, 4 of its 12
+   layers, `OPTIM_LAYERS`; the default route) under the chunk kernel's six
+   new rules (`OPTIM_RULES`: NAG, Signum with and without momentum,
+   AdaBelief, Adamax, AdaDelta, FTML), 20 steps each through ``TrainStep``
+   in bf16 and f32, and NAG and AdaDelta through the gluon ``Trainer``
+   (bf16 model, bf16 state) under a ``CosineScheduler`` with linear warmup,
+   the rate each step used recorded beside the scheduler's. Each run is
+   held to its oracle, the same step with only the optimizer kernel
+   replaced by its plain version (``update=kernel_plain``; the `Trainer`'s
+   update the same way): the weights and state after the first step (the
+   same gradients on both sides) within `_opt_err`'s limits, the loss
+   trajectory within `traj_tol`; launches exact (the chunk once per dtype
+   group a step, none in the oracle), the loss falls. The per-leaf rules
+   (`OPTIM_PER_LEAF`: LARS, AdaGrad, GroupAdaGrad, RMSProp, Ftrl, LANS
+   through ``TrainStep``; Nadam, SGLD, DCASGD, which it refuses by name,
+   through the ``Trainer``) run 3 steps each: finite losses, no optimizer
+   kernel, state in the declared dtypes. Two planted faults
+   (`OPTIM_FAULTS`), each a copy of the kernel's source with one mutation
+   built beside the kernels — AdaDelta without the 16-bit rounding of
+   ``acc_delta + eps`` (through the ``Trainer``'s bf16 state) and FTML with
+   its v and z slots exchanged — must each fail the first-step check or the
+   trajectory.
 
 Every count is reset just before a run it reports and read just after.
 The last three stdout lines are the ``nvidia-smi`` card line, the
@@ -1131,15 +1142,67 @@ XENT_SHAPES = [("float32", 1280, 30522), ("bfloat16", 1280, 30522),
                ("float32", 1280, 50257), ("float32", 8192, 50257),
                ("bfloat16", 8192, 50257), ("float32", 3072, 32000),
                ("bfloat16", 3072, 32000)]
+# (dtype, rows, V): edges checked, not timed -- one column, a vocabulary
+# shorter than two vectors, and an odd bf16 vocabulary whose rows start at
+# every 16-byte phase; each with labels outside [0, V) at both ends and,
+# where V > 8, a masked column and a row whose first reads are all -inf
+XENT_EDGES = [("float32", 37, 1), ("bfloat16", 37, 1), ("float32", 37, 9),
+              ("bfloat16", 37, 9), ("bfloat16", 16, 50257),
+              ("float32", 16, 50257)]
+
+
+def xent_edge_inputs(dtype, N, V, g):
+    """`XENT_EDGES`' logits and labels: row 1 is -inf over every thread's
+    first reads (its head or tail scalar and its first batch of vectors),
+    all but the last column, which row 1's label takes."""
+    import torch
+    from mxnet_tpu_torch.ops import softmax_xent as sx
+    x = 3 * torch.randn(N, V, generator=g)
+    lab = torch.randint(0, V, (N,), generator=g)
+    lab[0], lab[2] = -1, V
+    if V > 8:
+        per = 16 // (torch.finfo(getattr(torch, dtype)).bits // 8)
+        x[:, 7] = float("-inf")
+        x[1, :min(V - 1, per + sx.FWD_UNROLL * sx.FWD_THREADS * per)] = \
+            float("-inf")
+        lab[lab == 7] = 8
+        lab[1] = V - 1
+    return x, lab
+
+
+def _xent_errs(sx, x, lab, gr):
+    """Forward and backward against the plain versions: {name: (max-abs
+    error, scale, limit)} -- loss and lse, f32 on both sides from the same
+    values, at the f32 limit in either dtype; dx at its dtype's."""
+    import torch
+    dtype = str(x.dtype)[6:]
+    lk_, sk_ = sx._xent_fwd_cuda(x, lab)
+    lp_, sp_ = sx.xent_fwd_reference(x, lab)
+    dk_ = sx._xent_bwd_cuda(x, lab, sk_, gr)
+    dp_ = sx.xent_bwd_reference(x, lab, sp_, gr)
+    torch.cuda.synchronize()
+    return {"loss": (*_scale_err(lk_, lp_), TOL["float32"]),
+            "lse": (*_scale_err(sk_, sp_), TOL["float32"]),
+            "dx": (*_scale_err(dk_, dp_), TOL[dtype])}, sk_, sp_
+
+
+def _xent_case(dtype, N, V, errs):
+    return dict(dtype=dtype, N=N, V=V,
+                max_abs_err=max(e for e, _, _ in errs.values()),
+                errors={nm: {"err": e, "scale": sc, "limit": lim}
+                        for nm, (e, sc, lim) in errs.items()},
+                ok=all(e <= lim * sc for e, sc, lim in errs.values()))
 
 
 def k4_cases(dev):
     """The cross-entropy kernels at the MLM head's logits (64 x 20 masked
     rows, vocab 30522), at an odd vocabulary, at the GPT phase's logits
     (8 x 1024 rows, vocab 50257) and at the nmt phase's (32 x 96 target
-    rows, vocab 32000)."""
+    rows, vocab 32000), timed, with the forward's host µs a call and plan;
+    then `XENT_EDGES`, checked only."""
     import torch
     import torch.nn.functional as tF
+    from mxnet_tpu_torch import kernels
     from mxnet_tpu_torch.ops import softmax_xent as sx
 
     g = torch.Generator().manual_seed(4)
@@ -1149,21 +1212,14 @@ def k4_cases(dev):
         x = (2.0 * torch.randn(N, V, generator=g)).to(dev, dt)
         lab = torch.randint(0, V, (N,), generator=g).to(dev, torch.int32)
         gr = torch.rand(N, generator=g).to(dev)
-        lk_, sk_ = sx._xent_fwd_cuda(x, lab)
-        lp_, sp_ = sx.xent_fwd_reference(x, lab)
-        dk_ = sx._xent_bwd_cuda(x, lab, sk_, gr)
-        dp_ = sx.xent_bwd_reference(x, lab, sp_, gr)
-        torch.cuda.synchronize()
-        errs = {"loss": _scale_err(lk_, lp_), "dx": _scale_err(dk_, dp_)}
-        case = dict(dtype=dtype, N=N, V=V,
-                    max_abs_err=max(e for e, _ in errs.values()),
-                    errors={nm: {"err": e, "scale": sc}
-                            for nm, (e, sc) in errs.items()},
-                    ok=all(e <= TOL[dtype] * sc for e, sc in errs.values()))
+        errs, sk_, sp_ = _xent_errs(sx, x, lab, gr)
+        case = _xent_case(dtype, N, V, errs)
+        case["plan"] = sx._fwd_plan(N, kernels.sm_count(x.device))._asdict()
         x32 = x.float().requires_grad_()
         y64 = lab.long()
         lib = tF.cross_entropy(x32, y64, reduction="none")
         case["ms"] = time_ms(lambda: sx._xent_fwd_cuda(x, lab))
+        case["host_us"] = host_us(lambda: sx._xent_fwd_cuda(x, lab))
         case["plain_ms"] = time_ms(lambda: sx.xent_fwd_reference(x, lab))
         case["library_ms"] = time_ms(lambda: tF.cross_entropy(
             x.float(), y64, reduction="none"))
@@ -1179,6 +1235,16 @@ def k4_cases(dev):
             2 * N * V * item + 3 * N * 4, 3.0 * N * V, dtype)
         out.append(case)
         del x32, lib
+    for dtype, N, V in XENT_EDGES:
+        x, lab = xent_edge_inputs(dtype, N, V, g)
+        x = x.to(dev, getattr(torch, dtype))
+        lab = lab.to(dev, torch.int32)
+        gr = torch.rand(N, generator=g).to(dev)
+        errs, sk_, _ = _xent_errs(sx, x, lab, gr)
+        case = dict(_xent_case(dtype, N, V, errs), edge=True)
+        case["finite"] = bool(torch.isfinite(sk_).all())
+        case["ok"] = case["ok"] and case["finite"]
+        out.append(case)
     return out
 
 
@@ -1657,18 +1723,19 @@ def _layernorm_as_rmsnorm(x, gamma, beta, eps):
                             x.device.type == "cuda")
 
 
-def bert_bench(dev, dtype):
-    """Full-width BERT-base for pretraining (seed 0, dropout 0.1) behind
-    ``bench.py``'s positional adapter (ids, valid_length,
-    masked_positions)."""
+def bert_bench(dev, dtype, layers=None):
+    """Full-width BERT-base for pretraining (seed 0, dropout 0.1; `layers`
+    of its 12 where given) behind ``bench.py``'s positional adapter (ids,
+    valid_length, masked_positions)."""
     import torch
     from mxnet_tpu_torch.models import BertForPretraining, bert_base
+    cfg = bert_base(dtype=dtype) if layers is None else \
+        bert_base(dtype=dtype, num_layers=layers)
 
     class Bench(torch.nn.Module):
         def __init__(self):
             super().__init__()
-            self.model = BertForPretraining(bert_base(dtype=dtype),
-                                            device=dev, seed=0)
+            self.model = BertForPretraining(cfg, device=dev, seed=0)
 
         def forward(self, ids, vl, mp):
             return self.model(ids, valid_length=vl, masked_positions=mp)
@@ -1888,6 +1955,10 @@ OPTIM_PER_LEAF = (("nadam", "Nadam", {}, 1e-4, "trainer"),
                   ("ftrl", "Ftrl", {}, 1e-2, "step"),
                   ("lans", "LANS", {}, 1e-3, "step"))
 OPTIM_PER_LEAF_STEPS = 3
+# the phase's BERT-base runs keep its widths and cut its depth to 4 of 12
+# layers, for the smoke's time limit; k6 holds every rule over the
+# 12-layer model's 133.6 M elements
+OPTIM_LAYERS = 4
 # planted faults in the chunk kernel's math, each a mutation of the
 # kernel's own source built into a library of its own: (rule, entry,
 # dtype, [(text, replacement)]).  AdaDelta's fault shows only over 16-bit
@@ -1984,9 +2055,10 @@ def optim_sched(lr):
 
 def optim_run(dev, dtype, rule, batch, entry="step", plain=False,
               steps=TRAIN_STEPS, lib=None, sched=False):
-    """`steps` steps of the BERT-base pretraining step (`bert_bench`, the
-    mean MLM cross-entropy) with `rule` (a ``(class, kwargs, lr)``)
-    through `TrainStep` or the gluon `Trainer` on the default route.
+    """`steps` steps of the BERT-base pretraining step (`bert_bench` at
+    `OPTIM_LAYERS` layers, the mean MLM cross-entropy) with `rule` (a
+    ``(class, kwargs, lr)``) through `TrainStep` or the gluon `Trainer` on
+    the default route.
     ``plain`` replaces the optimizer kernel by its plain version
     (`kernel_plain`; every other kernel stays), `lib` is a fault's chunk
     library, `sched` the Trainer's `optim_sched`.  Returns the stats, the
@@ -2006,7 +2078,7 @@ def optim_run(dev, dtype, rule, batch, entry="step", plain=False,
     opt = getattr(topt, cls)(**kw)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    bench = bert_bench(dev, dtype)
+    bench = bert_bench(dev, dtype, OPTIM_LAYERS)
     params = {n: p for n, p in bench.named_parameters()}
 
     def loss_fn(out, ids, vl, mp, lab):
@@ -2096,11 +2168,12 @@ def run_optim(dev, results, card, fault_builds):
     from mxnet_tpu_torch.parallel import TrainStep
 
     t_phase = time.perf_counter()
-    cfg = bert_base()
+    cfg = bert_base(num_layers=OPTIM_LAYERS)
     B, S, M = 64, 128, 20
     batch = tuple(torch.from_numpy(a).to(dev)
                   for a in bert_batch(cfg.vocab_size, B, S, M))
     out = results["optim"]
+    out["layers"] = cfg.num_layers
     problems = []
     libs = {}
     for fault, (lib, proc) in fault_builds.items():
@@ -2227,9 +2300,12 @@ def run_optim(dev, results, card, fault_builds):
 
 MOE_H, MOE_I, MOE_E, MOE_CF = 768, 3072, 8, 1.25   # switch-base-8's widths
 MOE_B, MOE_L = 64, 128                             # bench.py's batch
-# (dtype, tokens, experts, hidden, capacity factor): the slice's shapes,
-# and an odd one (capacity int(0.46 * 53 / 4) = 6) through the wrappers
+# (dtype, tokens, experts, hidden, capacity factor): the slice's shapes
+# in each dtype, the slice's 10240 rows at a width whose rows take 8-byte
+# pieces (h 100 in bf16: 200 bytes), and an odd one (capacity
+# int(0.46 * 53 / 4) = 6) through the wrappers
 K7_CASES = (("float32", 8192, 8, 768, 1.25), ("bfloat16", 8192, 8, 768, 1.25),
+            ("float16", 8192, 8, 768, 1.25), ("bfloat16", 8192, 8, 100, 1.25),
             ("float32", 53, 4, 256, 0.46))
 
 
@@ -2264,8 +2340,10 @@ def _faults_caught(md, down, expert, pos, kept, gate, E, C, want):
 
 def k7_cases(dev):
     """The row gather at the slice's shapes and an odd one: bit equality
-    with `gather_rows_plain`, zero rows, planted faults, times."""
+    with `gather_rows_plain`, zero rows, planted faults, times, host µs a
+    call and the launch plan."""
     import torch
+    from mxnet_tpu_torch import kernels
     from mxnet_tpu_torch.ops import moe_dispatch as md
 
     out = []
@@ -2311,10 +2389,17 @@ def k7_cases(dev):
             if T > 1000:    # the slice's shapes overflow and leave slots empty
                 case["ok"] = case["ok"] and case["dropped"] > 0 and \
                     case["empty_slots"] > 0
+            src = down if op == "combine" else x
+            case["plan"] = md._plan(
+                a.shape[0], H, item,
+                md._piece(H, item, src.data_ptr(), a.data_ptr()),
+                kernels.sm_count(a.device))._asdict()
             if op == "combine":
                 case["controls_caught"] = controls
                 case["ok"] = case["ok"] and all(controls.values())
                 case["ms"] = time_ms(lambda: md.gather_rows(
+                    down, slot, scale, counter="moe_combine"))
+                case["host_us"] = host_us(lambda: md.gather_rows(
                     down, slot, scale, counter="moe_combine"))
                 case["plain_ms"] = time_ms(lambda: md.gather_rows_plain(
                     down, slot, scale))
@@ -2326,6 +2411,8 @@ def k7_cases(dev):
                 flops = T * H
             else:
                 case["ms"] = time_ms(lambda: md.gather_rows(
+                    x, inv, counter="moe_dispatch"))
+                case["host_us"] = host_us(lambda: md.gather_rows(
                     x, inv, counter="moe_dispatch"))
                 case["plain_ms"] = time_ms(lambda: md.gather_rows_plain(
                     x, inv))
@@ -3253,6 +3340,11 @@ def run_gpt(dev, results, card):
 # 3 kv heads keep its 4 query heads a kv head; a window of 256 keeps a
 # query's band at a quarter of L = 1024
 GQA_ARCH = dict(rope=True, rope_theta=10000.0, num_kv_heads=3, window=256)
+# the gpt_gqa and gpt_d256 phases keep GPT-2 small's widths and cut its
+# depth to 6 of 12 layers, for the smoke's time limit (launch counts,
+# oracles, one-ulp floors and faults follow the model's depth;
+# train_profile.py profiles the 12-layer models)
+ARCH_LAYERS = 6
 # (weights, entry point): TrainStep in bf16 and f32, the gluon Trainer in
 # bf16
 GQA_RUNS = (("bfloat16", "step"), ("float32", "step"),
@@ -3270,7 +3362,8 @@ def run_gpt_gqa(dev, results, card):
     import torch
     from mxnet_tpu_torch.models import GPTForCausalLM, gpt_small
 
-    cfg = gpt_small(**GQA_ARCH)
+    arch = dict(GQA_ARCH, num_layers=ARCH_LAYERS)
+    cfg = gpt_small(**arch)
     batch = gpt_batch(dev, cfg.vocab_size)
     tokens = GPT_B * GPT_L
     # the window clamps each query's span at w + 1 keys; the K/V
@@ -3281,17 +3374,17 @@ def run_gpt_gqa(dev, results, card):
     for dtype, entry in GQA_RUNS:
         key = f"{dtype}_{entry}"
         st, step_s = gpt_run(dev, dtype, False, batch, entry=entry,
-                             arch=GQA_ARCH)
+                             arch=arch)
         if dtype == "bfloat16" and dtype not in floors:
             # the chaos of this bf16 run, as in the gpt phase
             nst, _ = gpt_run(dev, dtype, False, batch, nudge=True,
-                             arch=GQA_ARCH)
+                             arch=arch)
             floors[dtype] = c = dict(
                 losses=nst["losses"],
                 trajectory_rel_dev=traj_dev(nst["losses"], st["losses"]))
             print(f"[gpt_gqa one ulp {dtype}] {json.dumps(c)}", flush=True)
         pst, pstep_s = gpt_run(dev, dtype, True, batch, entry=entry,
-                               arch=GQA_ARCH)
+                               arch=arch)
         want = gpt_want_launches(st["dtype_groups"], cfg.num_layers, False)
         got = {k: st["launches"][k] for k in want}
         others = {k: v for k, v in st["launches"].items()
@@ -3337,7 +3430,7 @@ def run_gpt_gqa(dev, results, card):
     tol = gpt_tol("float32", 0.0)
     for fault in GQA_FAULTS:
         st, _ = gpt_run(dev, "float32", False, batch, fault=fault,
-                        arch=GQA_ARCH)
+                        arch=arch)
         dev_rel = traj_dev(st["losses"], ref)
         results["gpt_gqa_controls"][fault] = c = dict(
             losses=st["losses"], trajectory_rel_dev=dev_rel,
@@ -3348,7 +3441,7 @@ def run_gpt_gqa(dev, results, card):
                 f"gpt_gqa control {fault}: the planted fault departs by "
                 f"only {dev_rel:.3g} <= {tol}; the check cannot see it")
     try:
-        arch_serve(dev, results, GQA_ARCH, "gpt_gqa")
+        arch_serve(dev, results, arch, "gpt_gqa")
     except Exception as e:          # reported with the training problems
         traceback.print_exc()
         problems.append(f"gpt_gqa serving: {e}")
@@ -3417,8 +3510,8 @@ def arch_serve(dev, results, arch, name, against_plain=False):
 
 # Gemma 2B (Gemma Team 2024, arXiv 2403.08295, Table 1): head size 256, one
 # kv head (multi-query), RoPE.  At GPT-2 small's hidden 768 that is 3
-# query heads of 256 over one kv head; depth, FFN, vocabulary and context
-# stay GPT-2 small's
+# query heads of 256 over one kv head; FFN, vocabulary and context stay
+# GPT-2 small's (the phase cuts the depth, `ARCH_LAYERS`)
 D256_ARCH = dict(num_heads=3, num_kv_heads=1, rope=True, rope_theta=10000.0)
 # (weights, remat, entry point): TrainStep in bf16 and f32, the gluon
 # Trainer in bf16, and TrainStep in bf16 under remat="full"
@@ -3436,7 +3529,8 @@ def run_gpt_d256(dev, results, card):
     from mxnet_tpu_torch.models import GPTForCausalLM, gpt_small
 
     t_phase = time.perf_counter()
-    cfg = gpt_small(**D256_ARCH)
+    arch = dict(D256_ARCH, num_layers=ARCH_LAYERS)
+    cfg = gpt_small(**arch)
     batch = gpt_batch(dev, cfg.vocab_size)
     tokens = GPT_B * GPT_L
     flops = GPTForCausalLM.flops_per_token(cfg, GPT_L) * tokens
@@ -3445,17 +3539,17 @@ def run_gpt_d256(dev, results, card):
     for dtype, remat, entry in D256_RUNS:
         key = f"{dtype}_{entry}_remat_{remat or 'off'}"
         st, step_s = gpt_run(dev, dtype, False, batch, remat, entry,
-                             arch=D256_ARCH)
+                             arch=arch)
         if dtype == "bfloat16" and dtype not in floors:
             # the chaos of this bf16 run, as in the gpt phase
             nst, _ = gpt_run(dev, dtype, False, batch, nudge=True,
-                             arch=D256_ARCH)
+                             arch=arch)
             floors[dtype] = c = dict(
                 losses=nst["losses"],
                 trajectory_rel_dev=traj_dev(nst["losses"], st["losses"]))
             print(f"[gpt_d256 one ulp {dtype}] {json.dumps(c)}", flush=True)
         pst, pstep_s = gpt_run(dev, dtype, True, batch, remat, entry,
-                               arch=D256_ARCH)
+                               arch=arch)
         want = gpt_want_launches(st["dtype_groups"], cfg.num_layers,
                                  bool(remat))
         got = {k: st["launches"][k] for k in want}
@@ -3511,7 +3605,7 @@ def run_gpt_d256(dev, results, card):
     tol = gpt_tol("float32", 0.0)
     for fault in D256_FAULTS:
         st, _ = gpt_run(dev, "float32", False, batch, fault=fault,
-                        arch=D256_ARCH)
+                        arch=arch)
         dev_rel = traj_dev(st["losses"], ref)
         results["gpt_d256_controls"][fault] = c = dict(
             losses=st["losses"], trajectory_rel_dev=dev_rel,
@@ -3522,7 +3616,7 @@ def run_gpt_d256(dev, results, card):
                 f"gpt_d256 control {fault}: the planted fault departs by "
                 f"only {dev_rel:.3g} <= {tol}; the check cannot see it")
     try:
-        arch_serve(dev, results, D256_ARCH, "gpt_d256", against_plain=True)
+        arch_serve(dev, results, arch, "gpt_d256", against_plain=True)
     except Exception as e:          # reported with the training problems
         traceback.print_exc()
         problems.append(f"gpt_d256 serving: {e}")
@@ -4050,7 +4144,9 @@ def kernel_entries(results):
     phases) and no library call) and the largest error over every case;
     the flash forward's entry also carries its bf16 case.
     The MoE gather: dispatch and combine at the slice's f32 shapes (8192
-    tokens, 8 x 1280 slots, H 768).  Launches are the counts of the
+    tokens, 8 x 1280 slots, H 768), bf16 and f16 beside them; the gather
+    and the cross-entropy forward also carry their host µs a call and
+    launch plan.  Launches are the counts of the
     main-path runs (serving for K1/K2, the BERT, MoE and GPT training runs
     for the others); ``gpt_launches`` is the GPT phase's share,
     ``gpt_gqa_launches`` the gpt_gqa phase's, ``nmt_launches`` the nmt
@@ -4226,6 +4322,27 @@ def kernel_entries(results):
     k1e["spec_prefix_launches"] = results["spec_prefix"].get(
         f"spec{SPEC_K}_prefix1", {}).get("launches", {}).get(
         "ragged_paged_attention", 0)
+    xent_fwd = gpt_shape(gpt_shape(entry(
+        "softmax_xent_fwd", sx_src, f"{sx_py}:95",
+        train_launches("softmax_xent_fwd"), k4, rep4), gpt4), nmt4,
+        model="nmt_")
+    xent_fwd.update(host_us=rep4["host_us"], plan=rep4["plan"])
+    # the gather: f32 as the representative, each other dtype at the
+    # slice's H 768 beside it, host µs a call and the plan
+    gathers = []
+    for op, rep in (("dispatch", rep_d), ("combine", rep_c)):
+        e = entry(f"moe_{op}", "mxnet_tpu_torch/csrc/moe_dispatch.cu",
+                  "mxnet_tpu/ops/pallas/moe_dispatch.py:139",
+                  train_launches(f"moe_{op}"),
+                  [c for c in k7 if c["op"] == op], rep)
+        e.update(host_us=rep["host_us"], plan=rep["plan"])
+        for c in k7:
+            if c["op"] == op and c["T"] == 8192 and c["H"] == 768 and \
+                    c["dtype"] != "float32":
+                tag = "bf16" if c["dtype"] == "bfloat16" else "f16"
+                e.update({f"{tag}_{n}": c[n] for n in (
+                    "ms", "plain_ms", "library_ms", "bound_ms", "host_us")})
+        gathers.append(e)
     return [
         k1e,
         entry("quantized_matmul",
@@ -4237,9 +4354,7 @@ def kernel_entries(results):
                                    f"{fa_py}:489",
                                    train_launches("flash_attention_bwd"), k3,
                                    rep3, "bwd_"), gpt3, "bwd_"), "bwd_"),
-        gpt_shape(gpt_shape(entry("softmax_xent_fwd", sx_src, f"{sx_py}:95",
-                                  train_launches("softmax_xent_fwd"), k4,
-                                  rep4), gpt4), nmt4, model="nmt_"),
+        xent_fwd,
         gpt_shape(gpt_shape(entry("softmax_xent_bwd", sx_src, f"{sx_py}:127",
                                   train_launches("softmax_xent_bwd"), k4,
                                   rep4, "bwd_"), gpt4, "bwd_"),
@@ -4248,14 +4363,7 @@ def kernel_entries(results):
         chunk_entry,
         lamb_a,
         lamb_b,
-        entry("moe_dispatch", "mxnet_tpu_torch/csrc/moe_dispatch.cu",
-              "mxnet_tpu/ops/pallas/moe_dispatch.py:139",
-              train_launches("moe_dispatch"),
-              [c for c in k7 if c["op"] == "dispatch"], rep_d),
-        entry("moe_combine", "mxnet_tpu_torch/csrc/moe_dispatch.cu",
-              "mxnet_tpu/ops/pallas/moe_dispatch.py:139",
-              train_launches("moe_combine"),
-              [c for c in k7 if c["op"] == "combine"], rep_c),
+        *gathers,
     ]
 
 

@@ -18,8 +18,11 @@ Both are one gather, `gather_rows`: on a CUDA tensor it launches
 `gather_rows_plain`, the kernel's plain version.  The kernel takes an
 out-of-range index (the sentinel T for dispatch, E·C for combine) as a
 zero row, so the (T+1, H) zero-padded copy the TPU kernel reads is never
-made.  Gradients run through two `torch.autograd.Function`s whose backward
-is the plain scatter/gather transpose, as in JAX (no backward kernel).
+made.  `_plan` is the kernel's launch plan in plain Python, memoised per
+shape, piece and SM count: the load width, the rows a warp keeps in
+flight, and a grid of at most one resident wave.  Gradients run through
+two `torch.autograd.Function`s whose backward is the plain scatter/gather
+transpose, as in JAX (no backward kernel).
 
 Routes: `moe_dispatch` / `moe_combine` with ``use_kernel=None`` take the
 kernel route when `ops.policy.kernel_active` says so, otherwise the
@@ -35,6 +38,8 @@ and then casts, the reference multiplies in the rows' dtype, as JAX's do.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -139,6 +144,54 @@ def gather_rows_plain(src, idx, scale=None):
                                                        device=src.device))
 
 
+# the kernel's constants (csrc/moe_dispatch.cu), which the plan sizes by
+WARPS = 8            # warps a block
+MIN_BLOCKS = 4       # resident blocks an SM (__launch_bounds__)
+UNITS = 8            # pieces a lane holds at once
+MAX_DEPTH = 4        # rows a warp keeps in flight
+MAX_PER_LANE = 4     # pieces a lane takes of a row a pass
+
+
+class GatherPlan(NamedTuple):
+    """One launch of the row gather."""
+    piece: int           # bytes a load and a store (16, 8, 4 or 2)
+    per_lane: int        # pieces a lane takes of a row a pass (1, 2, 4)
+    depth: int           # rows a warp keeps in flight
+    rows_per_block: int  # a block's contiguous run of rows
+    grid: int            # blocks: at most one resident wave
+
+
+def _piece(h: int, itemsize: int, *ptrs: int) -> int:
+    """The widest piece (16, 8, 4 or 2 bytes; an element at least, as the
+    row's bytes and every pointer are whole elements) that divides a row's
+    bytes and every base pointer: the lowest set bit of their OR."""
+    a = h * itemsize
+    for q in ptrs:
+        a |= q
+    return min(16, a & -a)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(rows: int, h: int, itemsize: int, piece: int,
+          sm_count: int) -> GatherPlan:
+    """The launch for a (rows, h) gather, plain Python: a lane takes the
+    fewest pieces a pass (1, 2 or 4) that cover a row in one pass; a row
+    too wide for one pass of `MAX_PER_LANE` takes 2 a pass, so that 4 rows
+    are in flight (f32 at H 768 gathered 4% faster so than with 4, bf16 no
+    slower: `k47_profile.py --plans`).  A warp keeps ``min(MAX_DEPTH,
+    UNITS // per_lane)`` rows in flight; each block takes a contiguous run
+    of rows, and the grid is at most one resident wave (`MIN_BLOCKS`
+    blocks an SM)."""
+    nv = h * itemsize // piece
+    need = -(-nv // 32)
+    per_lane = 1 << max(0, (need - 1).bit_length()) \
+        if need <= MAX_PER_LANE else 2
+    depth = min(MAX_DEPTH, UNITS // per_lane)
+    per_block = max(1, -(-rows // (sm_count * MIN_BLOCKS)))
+    return GatherPlan(piece, per_lane, depth, per_block,
+                      max(1, -(-rows // per_block)))
+
+
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -149,14 +202,14 @@ def _kernel_fn():
     global _fn
     if _fn is None:
         f = _kernels.load("moe_dispatch").mxt_gather_rows
-        f.argtypes = [_P] * 4 + [ctypes.c_longlong, _I, _I, _I, _P]
+        f.argtypes = [_P] * 4 + [ctypes.c_longlong] + [_I] * 7 + [_P]
         f.restype = _I
         _fn = f
     return _fn
 
 
-def _gather_cuda(src, idx, scale, counter):
-    n, h = src.shape
+def _check_operands(src, idx, scale):
+    """Raise on the first operand the kernel does not take."""
     if src.dtype not in _DTYPES:
         raise MXNetError(f"moe gather kernel takes float32, bfloat16 or "
                          f"float16 rows, got {src.dtype}")
@@ -172,19 +225,38 @@ def _gather_cuda(src, idx, scale, counter):
                              f"{src.device}")
         if not t.is_contiguous():
             raise MXNetError(f"moe gather kernel needs a contiguous {name}")
+
+
+def _gather_cuda(src, idx, scale, counter, plan=None):
+    """Check the operands, then launch the gather on the current stream
+    (`plan`, else `_plan` for this call)."""
+    n, h = src.shape
+    dev = src.device
+    # one test for the common case; `_check_operands` names what is wrong
+    if not (src.dtype in _DTYPES and idx.dtype == torch.int32 and
+            idx.device == dev and src.is_contiguous() and
+            idx.is_contiguous() and (scale is None or (
+                scale.dtype == torch.float32 and scale.device == dev and
+                scale.is_contiguous()))):
+        _check_operands(src, idx, scale)
     rows = idx.shape[0]
     if idx.dim() != 1 or (scale is not None and scale.shape != (rows,)):
         raise MXNetError("moe gather: idx (rows,) and scale (rows,) expected")
     if rows >= 2 ** 31 or h >= 2 ** 31:
         raise MXNetError(f"moe gather kernel takes rows, h < 2**31; got "
                          f"{(rows, h)}")
-    out = torch.empty((rows, h), dtype=src.dtype, device=src.device)
+    out = torch.empty((rows, h), dtype=src.dtype, device=dev)
     if rows and h:
+        sp, op = src.data_ptr(), out.data_ptr()
+        if plan is None:
+            item = src.element_size()
+            plan = _plan(rows, h, item, _piece(h, item, sp, op),
+                         _kernels.sm_count(dev))
         err = _kernel_fn()(
-            src.data_ptr(), idx.data_ptr(),
-            None if scale is None else scale.data_ptr(), out.data_ptr(), n,
-            rows, h, _DTYPES[src.dtype],
-            torch.cuda.current_stream(src.device).cuda_stream)
+            sp, idx.data_ptr(), None if scale is None else scale.data_ptr(),
+            op, n, rows, h, _DTYPES[src.dtype], plan.piece, plan.per_lane,
+            plan.rows_per_block, plan.grid,
+            torch.cuda.current_stream(dev).cuda_stream)
         if err:
             raise MXNetError(f"moe gather kernel launch failed (cudaError_t "
                              f"{err})")
@@ -281,9 +353,10 @@ def moe_combine(down, expert, pos, kept, gate, use_kernel=None):
 
 
 # ---------------------------------------------------------------------------
-# autotune registration: no free block parameter (one warp per row); the
-# candidates are the kernel and the reference, so `tune()` can compare
-# them and the cache records which won per shape bucket.  As in JAX,
+# autotune registration: no free block parameter (the plan follows from
+# the shape and the card); the candidates are the kernel and the
+# reference, so `tune()` can compare them and the cache records which won
+# per shape bucket.  As in JAX,
 # nothing on the path consults it.
 # ---------------------------------------------------------------------------
 

@@ -18,10 +18,19 @@ exist; the backward recomputes softmax from the saved f32 lse.
 
 Labels are not clamped, as in JAX: a label outside [0, V) matches no
 column, so its loss is the row's lse and its one-hot row is zero.
+
+The forward kernel's launch is planned here in plain Python and checked on
+the CPU: `_fwd_plan` (persistent blocks over the rows, at most one
+resident wave) and `_row_split` (a row's scalar head, 16-byte body and
+scalar tail at its start address's phase), which the kernel's
+``row_split`` mirrors.  JAX's ``MXTPU_XENT_BLOCK_N`` / ``_V`` tile knobs
+are not read: the card's plan has no tile to choose.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -62,8 +71,42 @@ def xent_bwd_reference(x, labels, lse, g):
 # the CUDA kernels (csrc/softmax_xent.cu)
 # ---------------------------------------------------------------------------
 
+# the forward kernel's constants (csrc/softmax_xent.cu)
+FWD_THREADS = 256     # threads a block
+FWD_MIN_BLOCKS = 4    # resident blocks an SM (__launch_bounds__)
+FWD_UNROLL = 4        # 16-byte vectors a thread a batch
+
+
+class FwdPlan(NamedTuple):
+    """One launch of the forward kernel."""
+    grid: int           # persistent blocks; block b takes rows b, b + grid..
+    rounds: int         # rows a block takes, at most
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_plan(N: int, sm_count: int) -> FwdPlan:
+    """The forward's launch for N rows, plain Python: the fewest rounds of
+    rows one resident wave (`FWD_MIN_BLOCKS` blocks an SM) allows, and as
+    many blocks as spread the rows evenly over them, so each block takes
+    `rounds` rows or one fewer."""
+    rounds = max(1, -(-N // (sm_count * FWD_MIN_BLOCKS)))
+    return FwdPlan(max(1, -(-N // rounds)), rounds)
+
+
+def _row_split(V: int, itemsize: int, phase: int):
+    """(head, vectors, tail) of a row of V elements that starts `phase`
+    bytes past a 16-byte boundary: scalars up to the boundary (at most V),
+    whole 16-byte vectors, then the scalars left (the kernel's
+    ``row_split``)."""
+    per = 16 // itemsize
+    head = min(V, ((16 - phase) % 16) // itemsize)
+    nvec = (V - head) // per
+    return head, nvec, V - head - nvec * per
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_XDTYPES = (torch.float32, torch.bfloat16)
 _fns = {}
 
 
@@ -72,15 +115,21 @@ def _kernel_fn(direction):
     if f is None:
         f = getattr(_kernels.load("softmax_xent"),
                     f"mxt_softmax_xent_{direction}")
-        f.argtypes = [_P] * (4 if direction == "fwd" else 5) + \
-            [_I, _I, _I, _P]
+        f.argtypes = [_P] * 4 + [_I] * 4 + [_P] if direction == "fwd" \
+            else [_P] * 5 + [_I] * 3 + [_P]
         f.restype = _I
         _fns[direction] = f
     return f
 
 
 def _check(x, labels):
-    if x.dtype not in (torch.float32, torch.bfloat16):
+    # one test for the common case; the tests below name what is wrong
+    if (x.dtype in _XDTYPES and labels.dtype == torch.int32 and
+            labels.shape == x.shape[:1] and x.shape[0] < 2 ** 31 and
+            x.shape[1] < 2 ** 31 and labels.device == x.device and
+            x.is_contiguous() and labels.is_contiguous()):
+        return
+    if x.dtype not in _XDTYPES:
         raise MXNetError(f"softmax_cross_entropy kernel takes float32 or "
                          f"bfloat16 logits, got {x.dtype}")
     if labels.dtype != torch.int32 or tuple(labels.shape) != (x.shape[0],):
@@ -106,13 +155,16 @@ def _xent_fwd_cuda(x, labels):
     stream; returns (loss, lse), both (N,) f32."""
     _check(x, labels)
     N, V = x.shape
-    loss = torch.empty(N, dtype=torch.float32, device=x.device)
-    lse = torch.empty(N, dtype=torch.float32, device=x.device)
+    dev = x.device
+    loss = torch.empty(N, dtype=torch.float32, device=dev)
+    lse = torch.empty(N, dtype=torch.float32, device=dev)
     if N == 0:
         return loss, lse
+    plan = _fwd_plan(N, _kernels.sm_count(dev))
     err = _kernel_fn("fwd")(x.data_ptr(), labels.data_ptr(), loss.data_ptr(),
                             lse.data_ptr(), N, V,
-                            int(x.dtype == torch.bfloat16), _stream(x))
+                            int(x.dtype == torch.bfloat16), plan.grid,
+                            torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise MXNetError(f"softmax_cross_entropy forward kernel launch "
                          f"failed (cudaError_t {err})")

@@ -15,21 +15,22 @@ exactly zero with lse 0, and its tunable's trials; the backward at both
 key tiles, two calls and two streams bit-equal, masked rows and keys
 exactly zero, heads over 128 wide with their own tiles, and Gemma 2B's
 fold of 16384 rows a head with the q walk split across blocks), the
-streaming
-cross-entropy (any V, unclamped labels), the fused LayerNorm/RMSNorm (any
-h, with and without residual and beta; both plan variants, 16-byte and
-one-element loads, every block_rows of its tuner's menu, two calls
-bit-equal, the public wrappers, its tunable's trials) and the optimizer
-kernels (the multi-tensor chunk for Adam, AdamW and SGD, and for NAG,
-Signum, AdaBelief, Adamax, AdaDelta and FTML with f32 and bf16 weights
-and state and the skip flag; LAMB phases A
-and B once per dtype group, with 1- and 768-element leaves, an unaligned
-leaf, two streams and the gluon `Trainer`; phase B within one unit in the
-last place of the host's float64 update; f32 and bf16 weights; the skip
-flag; every tunable chunk size; a cold norm tune timed by CUDA events,
-twice), the MoE row
-gather (dispatch and combine, f32 and bf16, with
-sentinel rows) and a two-step MoE `TrainStep` on the card.
+streaming cross-entropy (any V from 1, every 16-byte phase of a row's
+start, unclamped labels at both ends, -inf over a row's first reads; the
+forward's loss and lse within 1e-4 in bf16 too), the fused
+LayerNorm/RMSNorm (any h, with and without residual and beta; both plan
+variants, 16-byte and one-element loads, every block_rows of its tuner's
+menu, two calls bit-equal, the public wrappers, its tunable's trials)
+and the optimizer kernels (the multi-tensor chunk for Adam, AdamW and
+SGD, and for NAG, Signum, AdaBelief, Adamax, AdaDelta and FTML with f32
+and bf16 weights and state and the skip flag; LAMB phases A and B once
+per dtype group, with 1- and 768-element leaves, an unaligned leaf, two
+streams and the gluon `Trainer`; phase B within one unit in the last
+place of the host's float64 update; f32 and bf16 weights; the skip flag;
+every tunable chunk size; a cold norm tune timed by CUDA events, twice),
+the MoE row gather (dispatch and combine, f32, bf16 and f16, with
+sentinel rows, 16-byte and narrower rows, an unaligned source) and a
+two-step MoE `TrainStep` on the card.
 
 Marked ``cuda``: each test skips (with its reason) where no card is
 visible, as on the CPU test machine.  Run them on a machine with an H100
@@ -956,34 +957,47 @@ def test_windowed_bert_on_the_card_matches_the_plain_attention(card):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("N,V", [(64, 30522), (37, 1001)])
+@pytest.mark.parametrize("N,V", [(64, 30522), (37, 1001), (37, 1), (37, 9),
+                                 (16, 50257)])
 def test_softmax_xent_kernels_match_plain(card, dtype, tol, N, V):
+    """Both kernels against their plain versions.  The forward's loss and
+    lse are f32 computed from the same values on both sides, so they are
+    held to 1e-4 of their scale in bf16 too; dx, written in x's type, to
+    `tol`.  Rows start at every 16-byte phase (V 50257 in bf16 moves the
+    start 2 bytes a row), labels fall outside [0, V) at both ends, and a
+    row's first reads -- each thread's head or tail scalar and its first
+    batch of vectors -- are all -inf."""
     from mxnet_tpu_torch.ops import softmax_xent as sx
     g = torch.Generator().manual_seed(3)
     x = 3 * torch.randn(N, V, generator=g)
     lab = torch.randint(0, V, (N,), generator=g)
     lab[0] = -1                                   # not clamped
-    # a masked vocabulary: a -inf column, and a row whose first 512 entries
-    # (every thread's first read) are -inf
-    x[:, 7] = float("-inf")
-    x[1, :512] = float("-inf")
-    lab[lab == 7] = 8
-    lab[1] = 600
+    lab[2] = V                                    # past the last column
+    if V > 8:
+        per = 16 // (torch.finfo(dtype).bits // 8)
+        first = per + sx.FWD_UNROLL * sx.FWD_THREADS * per
+        x[:, 7] = float("-inf")                   # a masked column
+        x[1, :min(V - 1, first)] = float("-inf")
+        lab[lab == 7] = 8
+        lab[1] = V - 1
     x, lab = x.to(card, dtype), lab.to(card, torch.int32)
     gr = torch.rand(N, generator=g).to(card)
     kernels.reset_launch_counts()
     xx = x.clone().requires_grad_()
     loss = sx.softmax_cross_entropy(xx, lab)
     loss.backward(gr)
+    loss_k, lse_k = sx._xent_fwd_cuda(x, lab)
     loss_ref, lse = sx.xent_fwd_reference(x, lab)
     dx_ref = sx.xent_bwd_reference(x, lab, lse, gr)
     torch.cuda.synchronize()
-    assert kernels.launch_counts()["softmax_xent_fwd"] == 1
+    assert kernels.launch_counts()["softmax_xent_fwd"] == 2
     assert kernels.launch_counts()["softmax_xent_bwd"] == 1
     assert bool(torch.isfinite(loss).all())
-    for a, b in ((loss.detach(), loss_ref), (xx.grad, dx_ref)):
+    assert torch.equal(loss.detach(), loss_k)
+    for a, b, t in ((loss_k, loss_ref, 1e-4), (lse_k, lse, 1e-4),
+                    (xx.grad, dx_ref, tol)):
         err = float((a.float() - b.float()).abs().max())
-        assert err <= tol * float(b.float().abs().max())
+        assert err <= t * float(b.float().abs().max())
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
@@ -1234,9 +1248,10 @@ def test_optimizer_kernels_skip_is_bit_identical(card, name):
                    for a, b in zip(states["w"], before[1]))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("R,N,H", [(10240, 8193, 768), (53, 24, 256),
-                                   (31, 17, 100)])
+                                   (31, 17, 100), (10240, 8193, 100)])
 def test_moe_gather_kernel_matches_plain_bit_for_bit(card, dtype, R, N, H):
     from mxnet_tpu_torch.ops import moe_dispatch as md
     g = torch.Generator().manual_seed(9)
@@ -1256,6 +1271,26 @@ def test_moe_gather_kernel_matches_plain_bit_for_bit(card, dtype, R, N, H):
     assert not a[:3].any() and not b[:3].any()
     with pytest.raises(MXNetError, match="int32"):
         md.gather_rows(src, idx.long())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_moe_gather_kernel_takes_unaligned_rows(card, dtype):
+    """A source one element past a 16-byte boundary moves in one-element
+    pieces, bit-equal to the plain version, scale or none."""
+    from mxnet_tpu_torch.ops import moe_dispatch as md
+    N, H, R = 700, 768, 1500
+    g = torch.Generator().manual_seed(10)
+    src = torch.randn(N * H + 1, generator=g).to(card, dtype)[1:].view(N, H)
+    assert md._piece(H, src.element_size(), src.data_ptr(), 0) == \
+        src.element_size()
+    idx = torch.randint(-2, N + 2, (R,), generator=g).to(card, torch.int32)
+    scale = (torch.rand(R, generator=g) - 0.25).to(card)
+    a = md.gather_rows(src, idx)
+    b = md.gather_rows(src, idx, scale, counter="moe_combine")
+    torch.cuda.synchronize()
+    assert torch.equal(a, md.gather_rows_plain(src, idx))
+    assert torch.equal(b, md.gather_rows_plain(src, idx, scale))
 
 
 @pytest.mark.parametrize("h", [200, 768])

@@ -14,6 +14,9 @@ dropped tokens and empty slots exactly zero.  Gradients of x and the gate
 against ``jax.grad`` of the same composite as JAX's kernel test: atol
 1e-5 (f32 summation order of the gate's row dot).
 """
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -190,3 +193,89 @@ def test_policy_picks_the_route(monkeypatch, h):
         calls.clear()
         tmd.moe_dispatch(*args)
         assert calls == want, mode
+
+
+# ---------------------------------------------------------------------------
+# the CUDA gather's launch plan (`_plan`), walked in plain Python
+# ---------------------------------------------------------------------------
+
+_CU = open(os.path.join(os.path.dirname(tmd.__file__), os.pardir, "csrc",
+                        "moe_dispatch.cu")).read()
+
+
+def _cu_const(name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", _CU).group(1))
+
+
+def test_gather_plan_constants_are_the_kernels():
+    assert _cu_const("WARPS") == tmd.WARPS
+    assert _cu_const("MIN_BLOCKS") == tmd.MIN_BLOCKS
+    assert _cu_const("UNITS") == tmd.UNITS
+    assert _cu_const("MAX_DEPTH") == tmd.MAX_DEPTH
+    assert "constexpr int CHUNK = THREADS;" in _CU
+    assert "__launch_bounds__(THREADS, MIN_BLOCKS)" in _CU
+
+
+def _walk(plan, rows, nv):
+    """How often the kernel's loops store each (row, piece): the rows its
+    blocks, staged chunks and warps' groups of `depth` visit, times the
+    pieces a lane's passes visit in each (the kernel's own loop bounds)."""
+    warps, chunk = tmd.WARPS, 32 * tmd.WARPS
+    d, p = plan.depth, plan.per_lane
+    row_seen = np.zeros(rows, np.int64)
+    for b in range(plan.grid):
+        r0 = b * plan.rows_per_block
+        r1 = min(rows, r0 + plan.rows_per_block)
+        for c0 in range(r0, r1, chunk):
+            cn = min(chunk, r1 - c0)
+            for w in range(warps):
+                for g in range(w * d, cn, warps * d):
+                    for dd in range(d):
+                        if g + dd < cn:
+                            row_seen[c0 + g + dd] += 1
+    piece_seen = np.zeros(nv, np.int64)
+    for lane in range(32):
+        for t in range(lane, nv, 32 * p):
+            for k in range(p):
+                if t + 32 * k < nv:
+                    piece_seen[t + 32 * k] += 1
+    return np.outer(row_seen, piece_seen)
+
+
+@pytest.mark.parametrize("sms", [132, 8])
+@pytest.mark.parametrize("rows", [1, 53, 8192, 10240])
+@pytest.mark.parametrize("h,itemsize,ptr", [(768, 2, 0), (768, 4, 0),
+                                            (100, 2, 0), (100, 2, 200),
+                                            (256, 4, 4), (3, 2, 2)])
+def test_gather_plan_covers_every_row_once_in_one_wave(rows, sms, h,
+                                                       itemsize, ptr):
+    """The grid is at most one resident wave, and the kernel's walk stores
+    every piece of every row exactly once, at widths that take 16-byte
+    pieces (768) and widths or base pointers that take 8, 4 or 2."""
+    piece = tmd._piece(h, itemsize, 0, ptr)
+    assert (h * itemsize) % piece == 0 and ptr % piece == 0
+    assert piece >= itemsize
+    plan = tmd._plan(rows, h, itemsize, piece, sms)
+    assert plan.piece == piece
+    assert plan.grid <= sms * tmd.MIN_BLOCKS
+    assert (plan.grid - 1) * plan.rows_per_block < rows <= \
+        plan.grid * plan.rows_per_block
+    assert plan.per_lane in (1, 2, 4)
+    assert plan.depth >= 2 and plan.depth * plan.per_lane <= tmd.UNITS
+    nv = h * itemsize // piece
+    if nv <= 32 * tmd.MAX_PER_LANE:
+        assert 32 * plan.per_lane >= nv     # a row in one pass
+    else:
+        assert plan.per_lane == 2           # wider: 4 rows in flight
+    seen = _walk(plan, rows, nv)
+    assert (seen == 1).all()
+
+
+def test_gather_plan_pieces():
+    """The widest piece the row bytes and both pointers allow."""
+    assert tmd._piece(768, 2, 0, 256) == 16
+    assert tmd._piece(768, 2, 8, 256) == 8
+    assert tmd._piece(100, 2, 0, 0) == 8       # 200-byte rows
+    assert tmd._piece(101, 2, 0, 0) == 2
+    assert tmd._piece(3, 4, 0, 0) == 4
+    assert tmd._piece(6, 4, 0, 0) == 8

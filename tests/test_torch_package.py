@@ -53,7 +53,11 @@ def test_no_source_file_imports_jax_or_the_jax_package():
     files = [os.path.join(REPO, f) for f in ("chip_smoke.py",
                                              "serve_profile.py",
                                              "train_profile.py",
-                                             "flash_profile.py")]
+                                             "flash_profile.py",
+                                             "norm_profile.py",
+                                             "k1_profile.py",
+                                             "k2_profile.py",
+                                             "k47_profile.py")]
     for root, _, names in os.walk(os.path.join(REPO, "mxnet_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     bad = []

@@ -9,6 +9,9 @@ plain versions of the CUDA kernels).  Tolerance: atol/rtol 1e-5 in f32
 (summation order); bf16 logits at 2e-2 (the cotangent is rounded to
 bf16 on both sides, at different points).
 """
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -173,3 +176,70 @@ def test_dispatch_refuses_other_devices():
     with pytest.raises(MXNetError, match="cuda or cpu"):
         tsx.softmax_cross_entropy(torch.zeros(2, 5, device="meta"),
                                   torch.zeros(2, dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# the CUDA forward's launch plan (`_fwd_plan`, `_row_split`) in plain Python
+# ---------------------------------------------------------------------------
+
+_CU = open(os.path.join(os.path.dirname(tsx.__file__), os.pardir, "csrc",
+                        "softmax_xent.cu")).read()
+
+
+def _cu_const(name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", _CU).group(1))
+
+
+def test_forward_plan_constants_are_the_kernels():
+    assert _cu_const("FWD_THREADS") == tsx.FWD_THREADS
+    assert _cu_const("FWD_MIN_BLOCKS") == tsx.FWD_MIN_BLOCKS
+    assert _cu_const("FWD_UNROLL") == tsx.FWD_UNROLL
+    assert "__launch_bounds__(FWD_THREADS, FWD_MIN_BLOCKS)" in _CU
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("V", [1, 7, 8, 9, 30522, 32000, 50257])
+def test_row_split_covers_the_row_once_at_every_phase(V, itemsize):
+    """At every 16-byte phase of the row's start: the head ends on a
+    16-byte boundary (or at V), the body is whole vectors, and the
+    kernel's reads -- threads 0..E-1 the head, E..2E-1 the tail, thread
+    tid the body's vectors (b * unroll + k) * threads + tid -- take every
+    element once."""
+    per, T, U = 16 // itemsize, tsx.FWD_THREADS, tsx.FWD_UNROLL
+    for phase in range(0, 16, itemsize):
+        head, nvec, tail = tsx._row_split(V, itemsize, phase)
+        assert head + nvec * per + tail == V
+        assert 0 <= head < per and 0 <= tail < per
+        if nvec:
+            assert (phase + head * itemsize) % 16 == 0
+        seen = np.zeros(V, np.int64)
+        tail0 = head + nvec * per
+        for tid in range(T):
+            c = tid if tid < per else tail0 + tid - per
+            if (tid < per and tid < head) or \
+                    (per <= tid < 2 * per and c < V):
+                seen[c] += 1
+        nb = -(-nvec // (U * T))
+        vec = ((np.arange(nb)[:, None, None] * U +
+                np.arange(U)[None, :, None]) * T +
+               np.arange(T)[None, None, :]).ravel()
+        vec = vec[vec < nvec]
+        assert len(np.unique(vec)) == len(vec) == nvec
+        body = head + vec[:, None] * per + np.arange(per)[None, :]
+        np.add.at(seen, body.ravel(), 1)
+        assert (seen == 1).all(), (phase, head, nvec, tail)
+
+
+@pytest.mark.parametrize("sms", [132, 8])
+@pytest.mark.parametrize("N", [1, 7, 64, 1280, 3072, 8192, 100000])
+def test_forward_plan_takes_every_row_once_in_one_wave(N, sms):
+    """Persistent blocks: at most one resident wave, block b takes rows b,
+    b + grid, ..., each row once, and no block takes more than one row
+    beyond another."""
+    plan = tsx._fwd_plan(N, sms)
+    assert 1 <= plan.grid <= min(N, sms * tsx.FWD_MIN_BLOCKS)
+    per_block = [len(range(b, N, plan.grid)) for b in range(plan.grid)]
+    assert sum(per_block) == N
+    assert max(per_block) == plan.rounds
+    assert max(per_block) - min(per_block) <= 1
+    assert plan.rounds == -(-N // (sms * tsx.FWD_MIN_BLOCKS))
