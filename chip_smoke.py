@@ -25,7 +25,14 @@ step again under the rest of the optimizer family and its schedulers:
    speculative verification width C=5, MHA and GQA, with two slots'
    tables sharing a 7-page prefix; the wide heads of `K1_WIDE`: D 256 at
    3 heads over one kv head, C=1 and 16, Gemma 2B's 8 over one at C=1,
-   and D 72 and 24 at C=1, f32 and bf16; each with its launch plan) and K2 int8/int4 dequant-matmul (f32/bf16 activations, M
+   and D 72 and 24 at C=1, f32 and bf16; a 4096-token context, 8 slots
+   decoding, f32; each with its launch plan), K1's int8 variant (k1_int8:
+   an int8 pool with one f32 scale a stored vector under f32 and bf16
+   queries, C=1, 5 and 16, MHA and GQA rep 4, with and without a window;
+   D 256 at 3 and 8 heads over one kv head, D 72 and 24, at C=1; the
+   4096-token context; held to the plain version with the scales at the
+   query dtype's tolerance, SDPA over a dequantized copy beside it) and
+   K2 int8/int4 dequant-matmul (f32/bf16 activations, M
    in {8, 128}, the four GPT-2 projection shapes, and the tied head (8,
    50257, 768) at int8 f32) — two calls bit-equal, within max-abs 1e-4
    (f32) / 2e-2 (bf16) of the output scale, and times kernel, plain
@@ -41,6 +48,17 @@ step again under the rest of the optimizer family and its schedulers:
    ``GPTForCausalLM.generate`` — a divergence is accepted only where the
    plain path's top-2 logit gap is below 1e-4;
 4. the same at ``quant_bits=8`` and ``quant_bits=4`` (K2 must launch);
+   then over an int8 KV pool (``kv_dtype="int8"``), alone and with
+   ``quant_bits=8`` under ``MXTPU_QUANT_ACT=1`` at thresholds a
+   `LayerCalibrator` took over 4 held-out prompts (int8 activations: K2
+   must not launch): K1's int8 variant 12 times a fused step and the float
+   K1 never; the int8 pool's streams held to the plain engine over the
+   same pool (the near-tie gap taken over int8 K/V); under int8
+   activations the streams are reported and the plain engine's first 4
+   fed back teacher-forced, the kernel path's logits within 10 one-ulp
+   floors of the plain path's and a planted fault (V read at the K scales)
+   outside (`forced_check`); the pool's bytes and pages, and the share of
+   generated tokens equal to the f32-pool streams (reported);
 5. bfloat16 end to end, reporting the share of streams equal to the plain
    path's: the decode step computes in f32 after the first LayerNorm's f32
    gain, as JAX's does, so K1 reads f32 queries over the bf16 pool;
@@ -242,7 +260,10 @@ step again under the rest of the optimizer family and its schedulers:
    both; a planted fault (``copy_page`` a no-op) must change a stream.
    The same drive with speculation alone, the cache alone and neither
    gives tokens/s with speculation on and off and TTFT with the cache on
-   and off.  Then ``generate(num_beams=4, eos_token_id=...)`` on two
+   and off.  Then both features over an int8 KV pool: K1's int8 variant
+   12 times a fused step, a COW fork (the scale planes copied with the
+   rows), streams held to the plain int8 engine's, near ties aside.
+   Then ``generate(num_beams=4, eos_token_id=...)`` on two
    32-token prompts, 16 new tokens, equal to the same call on a CPU copy
    of the model, or apart only where the two winners' length-normalised
    scores (one ``forward``) are within 1e-4.
@@ -430,6 +451,13 @@ K1_START = (0, 37, 100, 255, 300, 0, 470, 16)
 # multiple of 16 (72, 24) at decode; each f32 and bf16, no window
 K1_WIDE = ((256, 3, 1, 1), (256, 3, 1, 16), (256, 8, 1, 1), (72, 12, 12, 1),
            (24, 12, 12, 1))
+# a long context: 8 slots decoding at position 4095 of 4096-token tables
+# (GPT-2 small's heads), where the f32 pool moves ~201 MB a call and the
+# int8 one ~53 MB
+K1_LONG_MAXP = 256
+K1_LONG_START = (4095,) * 8
+# the int8 pool's query dtypes: f32 (a f32 model's step) and bf16
+K1_INT8_Q = ("float32", "bfloat16")
 
 
 def k1_cases(dev):
@@ -456,23 +484,64 @@ def k1_cases(dev):
         for dtype in ("float32", "bfloat16"):
             out.append(_k1_case(dev, rng, dtype, dtype, C, H, Hkv, D, None,
                                 False))
+    # the long context, f32 pool: the int8 variant's yardstick (k1_int8)
+    out.append(_k1_case(dev, rng, "float32", "float32", 1, 12, 12, 64, None,
+                        False, long=True))
     return out
 
 
-def _k1_case(dev, rng, dtype, pool, C, H, Hkv, D, window, verify):
+def k1_int8_cases(dev):
+    """K1's int8 variant (an int8 pool with one f32 scale a stored
+    vector, `quantize_kv` of seeded f32 pools) at the main path's shapes:
+    f32 and bf16 queries (`K1_INT8_Q`) at decode C = 1, the verification
+    width C = 5 and the prefill chunk C = 16, MHA and GQA rep 4, with and
+    without a window of 64; the wide heads of `K1_WIDE` at decode (D 256
+    at 3 and 8 heads over one kv head, D 72 and 24); and the long context
+    (`K1_LONG_MAXP`).  Each held to the plain version with scales at the
+    query dtype's tolerance, timed beside SDPA over a dequantized copy of
+    the context in the query dtype."""
+    import numpy as np
+    rng = np.random.RandomState(8)
+    out = []
+    for dtype in K1_INT8_Q:
+        for C in (1, K1_VERIFY_C, 16):
+            for Hkv in (12, 3):
+                for window in (None, 64):
+                    out.append(_k1_case(dev, rng, dtype, "int8", C, 12, Hkv,
+                                        64, window, C == K1_VERIFY_C))
+        for D, H, Hkv, C in K1_WIDE:
+            if C == 1:
+                out.append(_k1_case(dev, rng, dtype, "int8", C, H, Hkv, D,
+                                    None, False))
+        out.append(_k1_case(dev, rng, dtype, "int8", 1, 12, 12, 64, None,
+                            False, long=True))
+    return out
+
+
+def _k1_case(dev, rng, dtype, pool, C, H, Hkv, D, window, verify,
+             long=False):
     """One K1 case: seeded queries and pools from `rng`, the kernel against
     its plain version over the valid rows, two calls bit-equal, timed
     beside SDPA over a pre-gathered, head-expanded context, with the
-    bound of the bytes and products this data needs."""
+    bound of the bytes and products this data needs.  ``pool="int8"``
+    quantizes seeded f32 pools (`quantize_kv`) and passes the scale planes
+    (K1's int8 variant, held to the query dtype's tolerance; the context
+    SDPA reads is dequantized); ``long`` takes `K1_LONG_MAXP` pages a slot,
+    every slot decoding at `K1_LONG_START`."""
     import numpy as np
     import torch
+    from mxnet_tpu_torch.contrib.quantization import quantize_kv
     from mxnet_tpu_torch.ops import paged_attention as pa
 
-    B, ps, maxp = K1_B, K1_PS, K1_MAXP
+    B, ps = K1_B, K1_PS
+    maxp = K1_LONG_MAXP if long else K1_MAXP
     npages = B * maxp + 1
-    start = np.array(K1_START, np.int32)
-    dt, pdt = getattr(torch, dtype), getattr(torch, pool)
-    nt = np.array([C, C, min(C, 5), C, 1, 0, C, C], np.int32)
+    start = np.array(K1_LONG_START if long else K1_START, np.int32)
+    quantized = pool == "int8"
+    dt = getattr(torch, dtype)
+    pdt = torch.float32 if quantized else getattr(torch, pool)
+    nt = np.ones(B, np.int32) if long else \
+        np.array([C, C, min(C, 5), C, 1, 0, C, C], np.int32)
     ctx = start + nt
     q = torch.from_numpy(rng.randn(B, H, C, D).astype(
         np.float32)).to(dev, dt)
@@ -480,6 +549,10 @@ def _k1_case(dev, rng, dtype, pool, C, H, Hkv, D, window, verify):
                           .astype(np.float32)).to(dev, pdt)
     vp = torch.from_numpy(rng.randn(npages, ps, Hkv, D)
                           .astype(np.float32)).to(dev, pdt)
+    sc = {}
+    if quantized:
+        (kp, ks), (vp, vs) = quantize_kv(kp), quantize_kv(vp)
+        sc = dict(k_scales=ks, v_scales=vs)
     pt_np = (rng.permutation(npages - 1) + 1).reshape(
         B, maxp).astype(np.int32)
     if verify:
@@ -488,8 +561,8 @@ def _k1_case(dev, rng, dtype, pool, C, H, Hkv, D, window, verify):
     ctx_t = torch.from_numpy(ctx).to(dev)
     st_t = torch.from_numpy(start).to(dev)
     args = (q, kp, vp, pt, ctx_t, st_t)
-    got = pa.ragged_paged_attention(*args, window=window)
-    ref = pa.paged_attention_reference(*args, window=window)
+    got = pa.ragged_paged_attention(*args, window=window, **sc)
+    ref = pa.paged_attention_reference(*args, window=window, **sc)
     torch.cuda.synchronize()
     err = scale = 0.0
     for b in range(B):
@@ -499,11 +572,11 @@ def _k1_case(dev, rng, dtype, pool, C, H, Hkv, D, window, verify):
         d = (got[b, :, :n].float() - ref[b, :, :n].float())
         err = max(err, float(d.abs().max()))
         scale = max(scale, float(ref[b, :, :n].float().abs().max()))
-    # library yardstick: SDPA over a pre-gathered, head-expanded context
-    # with the same boolean mask
+    # library yardstick: SDPA over a pre-gathered, head-expanded (and
+    # dequantized) context with the same boolean mask
     L = maxp * ps
-    kc = pa.gather_pages(kp, pt).permute(0, 2, 1, 3)
-    vc = pa.gather_pages(vp, pt).permute(0, 2, 1, 3)
+    kc = pa.gather_pages(kp, pt, sc.get("k_scales")).permute(0, 2, 1, 3)
+    vc = pa.gather_pages(vp, pt, sc.get("v_scales")).permute(0, 2, 1, 3)
     kc = kc.repeat_interleave(H // Hkv, 1).to(dt).contiguous()
     vc = vc.repeat_interleave(H // Hkv, 1).to(dt).contiguous()
     t_idx = torch.arange(L, device=dev)
@@ -514,18 +587,19 @@ def _k1_case(dev, rng, dtype, pool, C, H, Hkv, D, window, verify):
         mask &= t_idx[None, None, :] >= qpos[:, :, None] - window
     mask = mask[:, None]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    again = pa.ragged_paged_attention(*args, window=window)
-    plan = pa._plan(B, H, Hkv, C, D, ps, maxp, pdt,
+    again = pa.ragged_paged_attention(*args, window=window, **sc)
+    plan = pa._plan(B, H, Hkv, C, D, ps, maxp, kp.dtype,
                     pa._kernels.sm_count(q.device))
     case = dict(dtype=dtype, pool_dtype=pool, C=C, H=H, Hkv=Hkv, D=D,
                 window=window, shared_pages=7 if verify else 0,
-                plan=dict(plan._asdict()), max_abs_err=err,
-                out_scale=scale, tol=TOL[pool] * scale,
+                context=maxp * ps, plan=dict(plan._asdict()),
+                max_abs_err=err, out_scale=scale,
+                tol=TOL[dtype if quantized else pool] * scale,
                 bit_equal_calls=bool(torch.equal(got, again)))
     case["ok"] = err <= case["tol"] and case["bit_equal_calls"]
 
     def kern():
-        return pa.ragged_paged_attention(*args, window=window)
+        return pa.ragged_paged_attention(*args, window=window, **sc)
 
     def lib():
         return sdpa(q, kc, vc, attn_mask=mask)
@@ -534,14 +608,16 @@ def _k1_case(dev, rng, dtype, pool, C, H, Hkv, D, window, verify):
     case["device_ms"] = time_ms(kern, device_only=True)
     case["host_us"] = host_us(kern)
     case["plain_ms"] = time_ms(
-        lambda: pa.paged_attention_reference(*args, window=window))
+        lambda: pa.paged_attention_reference(*args, window=window, **sc))
     case["library_ms"] = time_ms(lib)
     case["library_device_ms"] = time_ms(lib, device_only=True)
     case["library_host_us"] = host_us(lib)
     case["vs_library"] = case["ms"] / case["library_ms"]
     # the work this data needs: q + the distinct K/V rows below ctx (from
-    # the window's floor; a shared page's rows once) + out + indices
-    item, pitem = q.element_size(), kp.element_size()
+    # the window's floor; a shared page's rows once; an int8 row with its
+    # f32 scale) + out + indices
+    item = q.element_size()
+    pitem = kp.element_size() + (4 / D if quantized else 0)
     keys = len({(int(pt_np[b, p // ps]), p % ps)
                 for b, (s, c) in enumerate(zip(start, ctx))
                 for p in range(max(0, int(s) - window)
@@ -680,9 +756,13 @@ def drive(engine, prompts, max_new, sampled=()):
     return [h.result(timeout=0) for h in handles], stats
 
 
-def top2_gap(P, cfg, prefix):
-    """Top-2 logit gap of the plain path for the token after `prefix`."""
+def top2_gap(P, cfg, prefix, kv_int8=False):
+    """Top-2 logit gap of the plain path for the token after `prefix`;
+    ``kv_int8`` rounds each new K/V row through `quantize_kv`, as an int8
+    pool stores it."""
     import torch
+    from mxnet_tpu_torch.contrib.quantization import (dequantize_kv,
+                                                      quantize_kv)
     from mxnet_tpu_torch.ops.quantized_matmul import matmul_nt_reference
     from mxnet_tpu_torch.serve.decode import (dense_kv_fn, lm_logits,
                                               transformer_step)
@@ -696,6 +776,13 @@ def top2_gap(P, cfg, prefix):
         kc = torch.zeros((cfg.num_layers, 1, Hkv, T, D),
                          dtype=P["embed"].dtype, device=dev)
         kv = dense_kv_fn(kc, torch.zeros_like(kc), pos, cfg.window)
+        if kv_int8:
+            dense = kv
+
+            def kv(li, q, k, v):
+                k, v = (dequantize_kv(*quantize_kv(x), dtype=x.dtype)
+                        for x in (k, v))
+                return dense(li, q, k, v)
         h = transformer_step(P, cfg, tok, pos, kv,
                              matmul=matmul_nt_reference)
         logits = lm_logits(P, h[:, -1], matmul=matmul_nt_reference)[0]
@@ -703,16 +790,96 @@ def top2_gap(P, cfg, prefix):
     return float(top[0] - top[1])
 
 
-def compare_streams(got, want, P, cfg, what):
+ACT_FLOOR_X = 10    # an int8-activation run's logit limit, in floors
+ACT_FORCED = 4      # streams the teacher-forced check reads
+
+
+def forced_logits(P, cfg, seq, plain, attend=None, nudge=False):
+    """The logits at every position of `seq`, fed as one chunk through
+    the decode core over a fresh int8 pool: K1's int8 variant and the
+    engine's products, or (`plain`) their plain versions.  `attend`
+    replaces the attention (a planted fault); ``nudge`` moves every
+    layer's attention output one f32 ulp up."""
+    import torch
+    from mxnet_tpu_torch.ops.paged_attention import (
+        paged_attention_reference, ragged_paged_attention)
+    from mxnet_tpu_torch.ops.quantized_matmul import (matmul_nt,
+                                                      matmul_nt_reference)
+    from mxnet_tpu_torch.serve.decode import lm_logits, transformer_step
+    from mxnet_tpu_torch.serve.kv_cache import KVPools, make_paged_kv_fn
+    dev = P["embed"].device
+    T, ps = len(seq), 16
+    pages = -(-T // ps)
+    pools = KVPools(cfg.num_layers, pages + 1, ps,
+                    cfg.num_kv_heads or cfg.num_heads,
+                    cfg.hidden_size // cfg.num_heads, torch.int8, dev)
+
+    def i32(v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+    attend = attend or (paged_attention_reference if plain
+                        else ragged_paged_attention)
+    if nudge:
+        inner = attend
+
+        def attend(*a, **kw):
+            c = inner(*a, **kw)
+            return torch.nextafter(c, c.new_tensor(math.inf))
+    kv = make_paged_kv_fn(pools, i32([list(range(1, pages + 1))]), i32([0]),
+                          i32([T]), i32([T]), window=cfg.window,
+                          attend=attend)
+    mm = matmul_nt_reference if plain else matmul_nt
+    with torch.inference_mode():
+        h = transformer_step(P, cfg, i32([seq]), i32([list(range(T))]), kv,
+                             matmul=mm)
+        return lm_logits(P, h[0], matmul=mm).float()
+
+
+def forced_check(P, cfg, seqs):
+    """The gate of an int8-activation run.  Rounding activations to int8
+    makes the decode chaotic: one f32 ulp in an attention output can flip
+    a rounding, a whole int8 step, and free-running greedy streams part
+    at gaps no near-tie rule separates from a wrong kernel.  So the plain
+    engine's streams are fed back teacher-forced: the kernel path's logits
+    at every position must stay within `ACT_FLOOR_X` floors of the plain
+    path's, a floor being how far the plain path's logits move when every
+    attention output moves one ulp; a planted fault (V read at the K
+    scales) must land outside."""
+    from mxnet_tpu_torch.ops.paged_attention import ragged_paged_attention
+
+    def swapped(*a, k_scales=None, v_scales=None, **kw):
+        return ragged_paged_attention(*a, k_scales=k_scales,
+                                      v_scales=k_scales, **kw)
+    floor = dev = ctl = 0.0
+    agree = total = 0
+    for seq in seqs:
+        want = forced_logits(P, cfg, seq, True)
+        floor = max(floor, float((forced_logits(P, cfg, seq, True,
+                                                nudge=True)
+                                  - want).abs().max()))
+        got = forced_logits(P, cfg, seq, False)
+        dev = max(dev, float((got - want).abs().max()))
+        agree += int((got.argmax(-1) == want.argmax(-1)).sum())
+        total += len(seq)
+        ctl = max(ctl, float((forced_logits(P, cfg, seq, False,
+                                            attend=swapped)
+                              - want).abs().max()))
+    limit = max(GAP, ACT_FLOOR_X * floor)
+    return dict(act_floor=floor, limit=limit, max_logit_dev=dev,
+                argmax_agree=agree / total, control_v_scales_from_k=ctl,
+                ok=dev <= limit, control_caught=ctl > limit)
+
+
+def compare_streams(got, want, P, cfg, what, kv_int8=False):
     """Every stream in `got` equals `want`, except where the plain path's
-    top-2 gap at the first differing token is below GAP.  Returns the
-    number of such accepted near-tie divergences; raises on any other."""
+    top-2 gap at the first differing token is below GAP (over int8 K/V
+    for an int8 pool's streams).  Returns the number of such accepted
+    near-tie divergences; raises on any other."""
     near = 0
     for i, (g, w) in enumerate(zip(got, want)):
         if g == w:
             continue
         k = next(j for j, (a, b) in enumerate(zip(g, w)) if a != b)
-        gap = top2_gap(P, cfg, w[:k])
+        gap = top2_gap(P, cfg, w[:k], kv_int8)
         if gap >= GAP:
             raise AssertionError(
                 f"{what}: stream {i} diverges at token {k} ({g[k]} vs "
@@ -722,15 +889,20 @@ def compare_streams(got, want, P, cfg, what):
     return near
 
 
-def serve_phase(model, prompts, max_new, quant_bits, check_generate=False):
-    """Kernel engine vs plain-version engine on the same weights."""
+def serve_phase(model, prompts, max_new, quant_bits, check_generate=False,
+                kv_dtype="", act_thresholds=None):
+    """Kernel engine vs plain-version engine on the same weights; the
+    pool's dtype is the model's unless `kv_dtype` says ``"int8"``;
+    `act_thresholds` go to both engines."""
     from mxnet_tpu_torch import kernels
     from mxnet_tpu_torch.serve import InferenceEngine, ServeConfig
 
     def engine(plain):
         sc = ServeConfig(max_slots=8, max_len=512, page_size=16,
-                         prefill_chunk=16, quant_bits=quant_bits)
+                         prefill_chunk=16, quant_bits=quant_bits,
+                         kv_dtype=kv_dtype)
         eng = InferenceEngine(model, sc, device=model.device, seed=0,
+                              act_thresholds=act_thresholds,
                               plain_ops=plain)
         eng.warmup()
         return eng
@@ -742,13 +914,83 @@ def serve_phase(model, prompts, max_new, quant_bits, check_generate=False):
     fused = eng.stats()["steps_executed"]
     stats.update(launches=launches, fused_steps=fused,
                  weight_bytes=eng.weight_bytes(), quant_bits=quant_bits,
-                 bonus_pages=eng.bonus_pages)
+                 bonus_pages=eng.bonus_pages,
+                 kv_dtype=eng.stats()["kv_dtype"],
+                 pool_bytes=eng.pools.nbytes(),
+                 pool_pages=eng.allocator.num_pages,
+                 page_bytes=eng._page_nbytes(),
+                 kv_bytes_per_token=eng._page_nbytes()
+                 // eng.serve_config.page_size,
+                 act_quant=bool(os.environ.get("MXTPU_QUANT_ACT")))
     del eng
     plain = engine(True)
     pstreams, pstats = drive(plain, prompts, max_new)
     stats["plain_tokens_per_s"] = pstats["tokens_per_s"]
     stats["plain_step_ms_mean"] = pstats["step_ms_mean"]
     return streams, pstreams, plain, stats
+
+
+# phase 4b's runs: (results key, quant_bits, MXTPU_QUANT_ACT at
+# calibrated thresholds)
+INT8_SERVE_RUNS = (("int8_kv", 0, False), ("int8_kv_act8", 8, True))
+INT8_SERVE = tuple(k for k, _, _ in INT8_SERVE_RUNS)
+CALIB_PROMPTS = dict(n=4, seed=7)    # held-out prompts for the calibrator
+
+
+def calibrate(model, prompts):
+    """Activation thresholds of every projection, as a user calibrates
+    for ``MXTPU_QUANT_ACT``: a naive `LayerCalibrator` over the input
+    each projection sees in the plain decode core (a dense cache) over
+    `prompts`, keyed ``layers.<i>.<name>``."""
+    import torch
+    from mxnet_tpu_torch.contrib.quantization import LayerCalibrator
+    from mxnet_tpu_torch.serve.decode import (dense_kv_fn,
+                                              extract_decode_weights,
+                                              transformer_step)
+    cfg = model.cfg
+    P = extract_decode_weights(model)
+    Hkv = cfg.num_kv_heads or cfg.num_heads
+    cal = LayerCalibrator()
+
+    def observing(names):
+        def mm(x, w):
+            cal.observe(next(names), x)
+            return x @ w.T
+        return mm
+
+    for p in prompts:
+        T = len(p)
+        tok = torch.tensor([p], device=model.device)
+        pos = torch.arange(T, device=model.device)[None]
+        kc = torch.zeros((cfg.num_layers, 1, Hkv, T,
+                          cfg.hidden_size // cfg.num_heads),
+                         device=model.device)
+        names = iter(f"layers.{i}.{k}" for i in range(cfg.num_layers)
+                     for k in ("wqkv", "wo", "w1", "w2"))
+        with torch.inference_mode():
+            transformer_step(P, cfg, tok, pos, dense_kv_fn(
+                kc, torch.zeros_like(kc), pos, cfg.window),
+                matmul=observing(names))
+    return cal.thresholds()
+
+
+@contextlib.contextmanager
+def env(**kw):
+    """Set (a value) or unset (None) environment variables for a block."""
+    old = {k: os.environ.get(k) for k in kw}
+    try:
+        for k, v in kw.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def run_e2e(dev, results):
@@ -763,6 +1005,7 @@ def run_e2e(dev, results):
 
     # phase 3: dense f32
     streams, pstreams, plain, st = serve_phase(model, prompts, max_new, 0)
+    f32_streams = streams
     if st["launches"]["ragged_paged_attention"] != L * st["fused_steps"]:
         raise AssertionError(
             f"K1 launched {st['launches']['ragged_paged_attention']} times "
@@ -793,6 +1036,60 @@ def run_e2e(dev, results):
             streams, pstreams, plain.P, cfg, f"int{bits} kernel vs plain")
         results["e2e"][f"int{bits}"] = st
         print(f"[e2e int{bits}] {json.dumps(st)}", flush=True)
+        del plain
+
+    # phase 4b: the int8 KV pool (K1's int8 variant), alone and with int8
+    # weights under int8 activations at calibrated thresholds (no K2).  A
+    # dynamic amax a call is taken over every row of the batch, padded
+    # rows too, where K1 writes zeros for a row with no key and the plain
+    # version an average: the two engines would round real rows at
+    # different scales.
+    thresholds = calibrate(model, make_prompts(cfg.vocab_size,
+                                               **CALIB_PROMPTS))
+    for key, bits, act in INT8_SERVE_RUNS:
+        with env(MXTPU_QUANT_ACT="1" if act else None):
+            streams, pstreams, plain, st = serve_phase(
+                model, prompts, max_new, bits, kv_dtype="int8",
+                act_thresholds=thresholds if act else None)
+            st["calibrated_thresholds"] = len(thresholds) if act else 0
+            n = st["launches"]
+            if n["ragged_paged_attention_int8"] != L * st["fused_steps"] \
+                    or n["ragged_paged_attention"]:
+                raise AssertionError(
+                    f"{key}: K1's int8 variant launched "
+                    f"{n['ragged_paged_attention_int8']} times (float K1 "
+                    f"{n['ragged_paged_attention']}) over "
+                    f"{st['fused_steps']} fused steps (want {L} a step)")
+            if act and n["quantized_matmul"]:
+                raise AssertionError(f"{key}: K2 launched "
+                                     f"{n['quantized_matmul']} times under "
+                                     f"MXTPU_QUANT_ACT")
+            st["equal_streams_vs_plain"] = sum(
+                a == b for a, b in zip(streams, pstreams))
+            if act:
+                st["forced"] = f = forced_check(plain.P, cfg,
+                                                pstreams[:ACT_FORCED])
+                if not (f["ok"] and f["control_caught"]):
+                    raise AssertionError(f"{key}: teacher-forced logits "
+                                         f"{json.dumps(f)}")
+            else:
+                st["near_ties_vs_plain"] = compare_streams(
+                    streams, pstreams, plain.P, cfg,
+                    f"{key} kernel vs plain", kv_int8=True)
+        for s_, p in zip(streams, prompts):
+            if len(s_) != len(p) + max_new or not all(
+                    0 <= t < cfg.vocab_size for t in s_):
+                raise AssertionError(f"{key}: malformed stream")
+        # reported, not gated: how far int8 storage moves the f32 streams
+        gen = [(a[len(p):], b[len(p):])
+               for a, b, p in zip(streams, f32_streams, prompts)]
+        st["equal_token_share_vs_f32"] = sum(
+            x == y for a, b in gen for x, y in zip(a, b)) / sum(
+            len(a) for a, _ in gen)
+        st["f32_pool_bytes"] = results["e2e"]["float32"]["pool_bytes"]
+        st["f32_tokens_per_s"] = results["e2e"]["float32"]["tokens_per_s"]
+        results["e2e"][key] = st
+        print(f"[e2e {key}] {json.dumps(st)}", flush=True)
         del plain
     del model
     torch.cuda.empty_cache()
@@ -1695,18 +1992,9 @@ def bench_flops_per_step(cfg, batch, seq, n_mask):
     return 3 * batch * (fwd_per_token * seq + fwd_per_masked * n_mask)
 
 
-@contextlib.contextmanager
 def pallas_mode(mode):
     """``MXTPU_PALLAS=mode`` for the duration of the block."""
-    old = os.environ.get("MXTPU_PALLAS")
-    os.environ["MXTPU_PALLAS"] = mode
-    try:
-        yield
-    finally:
-        if old is None:
-            os.environ.pop("MXTPU_PALLAS", None)
-        else:
-            os.environ["MXTPU_PALLAS"] = old
+    return env(MXTPU_PALLAS=mode)
 
 
 OPT_LR = {"Adam": 1e-4, "LAMB": 1e-3}
@@ -3675,16 +3963,19 @@ class _RecordingDrafter:
         self.inner.note_result(proposed, accepted)
 
 
-def spec_serve(model, spec, prefix_cache, plain=False, fault=None):
+def spec_serve(model, spec, prefix_cache, plain=False, fault=None,
+               kv_dtype=""):
     """The primer to idle, then `drive` over the 18 prompts, on an engine
-    built with ``spec_tokens=spec`` and ``prefix_cache``.  Counts reset
-    just before the primer, read after the drive; each fused step's width
-    recorded.  ``fault="copy_page_noop"`` makes the COW copy a no-op."""
+    built with ``spec_tokens=spec``, ``prefix_cache`` and `kv_dtype`.
+    Counts reset just before the primer, read after the drive; each fused
+    step's width recorded.  ``fault="copy_page_noop"`` makes the COW copy
+    a no-op."""
     from mxnet_tpu_torch import kernels
     from mxnet_tpu_torch.serve import InferenceEngine, ServeConfig
 
     prefix, prompts = spec_prompts(model.cfg.vocab_size)
-    sc = ServeConfig(spec_tokens=spec, prefix_cache=prefix_cache, **SPEC_SC)
+    sc = ServeConfig(spec_tokens=spec, prefix_cache=prefix_cache,
+                     kv_dtype=kv_dtype, **SPEC_SC)
     rec = _RecordingDrafter() if spec else None
     eng = InferenceEngine(model, sc, device=model.device, seed=0,
                           plain_ops=plain, drafter=rec)
@@ -3803,6 +4094,37 @@ def run_spec_prefix(dev, results, card):
           flush=True)
     if not c["caught"]:
         problems.append("control copy_page_noop: no stream changed")
+    # the int8 pool under both features: K1's int8 variant a layer a fused
+    # step, its forks copying the scale planes; held to the plain engine
+    qstreams, _, qst, _ = spec_serve(model, SPEC_K, True, kv_dtype="int8")
+    pq, _, pqst, pqeng = spec_serve(model, SPEC_K, True, plain=True,
+                                    kv_dtype="int8")
+    out["int8"] = qst
+    n = qst["launches"]
+    if n["ragged_paged_attention_int8"] != L * qst["fused_steps"] or \
+            n["ragged_paged_attention"]:
+        problems.append(
+            f"int8: K1's int8 variant launched "
+            f"{n['ragged_paged_attention_int8']} times (float K1 "
+            f"{n['ragged_paged_attention']}) over {qst['fused_steps']} "
+            f"fused steps (want {L} a step)")
+    if any(pqst["launches"].values()):
+        problems.append(f"the plain int8 engine launched {pqst['launches']}")
+    if not qst["spec"]["cow_forks"] >= 1:
+        problems.append("int8: no COW fork")
+    try:
+        qst["near_ties_vs_plain"] = compare_streams(
+            pick(qstreams), pick(pq), pqeng.P, cfg,
+            "spec_prefix int8 kernel vs plain", kv_int8=True)
+    except AssertionError as e:
+        problems.append(str(e))
+    gen = [(a[len(p):], b[len(p):]) for a, b, p in zip(
+        pick(qstreams), pick(main_streams), pick(prompts))]
+    qst["equal_token_share_vs_f32"] = sum(
+        x == y for a, b in gen for x, y in zip(a, b)) / sum(
+        len(a) for a, _ in gen)
+    print(f"[spec_prefix int8] {json.dumps(qst)}", flush=True)
+    del pqeng
     off = out["spec0_prefix0"]
     out["summary"] = summary = dict(
         card=card, accept_rate=sp["accept_rate"],
@@ -3817,7 +4139,9 @@ def run_spec_prefix(dev, results, card):
         ttft_p99_ms_prefix_off=off["ttft_p99_ms"],
         prefix_hit_tokens=sp["prefix_hit_tokens"], cow_forks=sp["cow_forks"],
         verify_steps=main["widths"].get(str(SPEC_K + 1), 0),
-        k1_launches=main["launches"]["ragged_paged_attention"])
+        k1_launches=main["launches"]["ragged_paged_attention"],
+        int8_tokens_per_s=qst["tokens_per_s"],
+        int8_k1_launches=qst["launches"]["ragged_paged_attention_int8"])
     print(f"[spec_prefix summary] {json.dumps(summary)}", flush=True)
     del plain
 
@@ -4156,8 +4480,8 @@ def kernel_entries(results):
     small's AdamW and transformer_base's Adam, cross-entropy and the norm
     their GPT and nmt shapes, K1 its verification width (C 5, MHA and GQA
     rep 4, a shared prefix)."""
-    k1, k2, k3, k4, k5, k6, k7 = (results[k] for k in (
-        "k1", "k2", "k3", "k4", "k5", "k6", "k7"))
+    k1, k2, k3, k4, k5, k6, k7, k1q = (results[k] for k in (
+        "k1", "k2", "k3", "k4", "k5", "k6", "k7", "k1_int8"))
     rep1 = next(c for c in k1 if c["dtype"] == "float32" and c["C"] == 1
                 and c["Hkv"] == 12 and c["window"] is None and c["D"] == 64
                 and c["pool_dtype"] == "float32")
@@ -4310,6 +4634,8 @@ def kernel_entries(results):
         dt = "f32" if c["dtype"] == "float32" else "bf16"
         if c["C"] == K1_VERIFY_C:
             tag = f"verify_c{c['C']}_hkv{c['Hkv']}_{dt}"
+        elif c["context"] > K1_MAXP * K1_PS:
+            tag = f"long{c['context']}_{dt}"
         elif c["D"] != 64:
             tag = f"d{c['D']}_h{c['H']}_hkv{c['Hkv']}_c{c['C']}_{dt}"
         else:
@@ -4322,6 +4648,30 @@ def kernel_entries(results):
     k1e["spec_prefix_launches"] = results["spec_prefix"].get(
         f"spec{SPEC_K}_prefix1", {}).get("launches", {}).get(
         "ragged_paged_attention", 0)
+    # the int8 variant: f32 queries, decode C=1, MHA, no window, as the
+    # int8-pool serving run calls it; every other case beside it
+    rep1q = next(c for c in k1q if c["dtype"] == "float32" and c["C"] == 1
+                 and c["Hkv"] == 12 and c["window"] is None
+                 and c["D"] == 64 and c["context"] == K1_MAXP * K1_PS)
+    k1q_e = entry("ragged_paged_attention_int8",
+                  "mxnet_tpu_torch/csrc/paged_attention.cu",
+                  "mxnet_tpu/ops/pallas/paged_attention.py:285",
+                  sum(e2e.get(k, {}).get("launches", {}).get(
+                      "ragged_paged_attention_int8", 0)
+                      for k in INT8_SERVE), k1q, rep1q)
+    k1q_e.update(device_ms=rep1q["device_ms"], plan=rep1q["plan"],
+                 spec_prefix_launches=results["spec_prefix"].get(
+                     "int8", {}).get("launches", {}).get(
+                     "ragged_paged_attention_int8", 0))
+    for c in k1q:
+        if c is rep1q:
+            continue
+        dt = "f32" if c["dtype"] == "float32" else "bf16"
+        tag = (f"long{c['context']}" if c["context"] > K1_MAXP * K1_PS
+               else f"c{c['C']}_h{c['H']}_hkv{c['Hkv']}_d{c['D']}"
+               f"_w{c['window'] or 0}") + f"_{dt}"
+        k1q_e.update({f"{tag}_{n}": c[n] for n in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")})
     xent_fwd = gpt_shape(gpt_shape(entry(
         "softmax_xent_fwd", sx_src, f"{sx_py}:95",
         train_launches("softmax_xent_fwd"), k4, rep4), gpt4), nmt4,
@@ -4345,6 +4695,7 @@ def kernel_entries(results):
         gathers.append(e)
     return [
         k1e,
+        k1q_e,
         entry("quantized_matmul",
               "mxnet_tpu_torch/csrc/quantized_matmul.cu",
               "mxnet_tpu/ops/pallas/quantized_matmul.py:341", k2_launch, k2,
@@ -4437,7 +4788,8 @@ def main(argv=None) -> int:
         _stop(fault_builds)
         return 1
 
-    for name, fn in (("k1", k1_cases), ("k2", k2_cases), ("k3", k3_cases),
+    for name, fn in (("k1", k1_cases), ("k1_int8", k1_int8_cases),
+                     ("k2", k2_cases), ("k3", k3_cases),
                      ("k4", k4_cases), ("k5", k5_cases), ("k6", k6_cases),
                      ("k7", k7_cases)):
         t_phase = time.perf_counter()

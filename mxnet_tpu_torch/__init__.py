@@ -36,14 +36,17 @@ Ported so far (ROADMAP.md), slice by slice:
    FTML, AdaGrad, GroupAdaGrad, RMSProp, Ftrl, LAMB, LANS) and its
    learning-rate schedulers, the chunk kernel taking all nine of JAX's
    chunked rules, and JAX optimizer state carried over
-   (`load_jax_optimizer_states`).
+   (`load_jax_optimizer_states`);
+10. quantized serving: the int8 KV pool read by the paged-attention
+    kernel's int8 variant, int8 activations (``MXTPU_QUANT_ACT``) and
+    MXNet's int8 workflow with calibration (`contrib.quantization`).
 """
 from .base import MXNetError  # noqa: F401
 from .device import resolve_device  # noqa: F401
 from . import kernels, ops, models, serve, gluon, optimizer, parallel  # noqa: F401,E501
-from . import benchmark  # noqa: F401
+from . import benchmark, contrib  # noqa: F401
 from .convert import load_jax_optimizer_states, load_jax_params  # noqa: F401
 
 __all__ = ["MXNetError", "resolve_device", "kernels", "ops", "models",
-           "serve", "gluon", "optimizer", "parallel", "benchmark",
+           "serve", "gluon", "optimizer", "parallel", "benchmark", "contrib",
            "load_jax_params", "load_jax_optimizer_states"]

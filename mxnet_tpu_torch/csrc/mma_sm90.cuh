@@ -166,6 +166,31 @@ template <> struct Mma<__nv_bfloat16> {
                                                     int lane) {
     b_krow(b, X, ld, k0, n0, lane);
   }
+  // the same fragments from an int8 tile (an int8 KV page), each value
+  // converted to bf16 in registers: values in [-127, 127] are exact there
+  static __device__ __forceinline__ void b_nrow(B (&b)[2], const int8_t* X,
+                                                int ld, int n0, int k0,
+                                                int lane) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int8_t* r = X + (n0 + 8 * i + (lane >> 2)) * ld + k0 +
+                        2 * (lane & 3);
+      b[i].r[0] = pack_bf16(r[0], r[1]);
+      b[i].r[1] = pack_bf16(r[8], r[9]);
+    }
+  }
+  static __device__ __forceinline__ void b_krow_acc(B (&b)[2],
+                                                    const int8_t* X, int ld,
+                                                    int k0, int n0,
+                                                    int lane) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int8_t* c = X + (k0 + 2 * (lane & 3)) * ld + n0 + 8 * i +
+                        (lane >> 2);
+      b[i].r[0] = pack_bf16(c[0], c[ld]);
+      b[i].r[1] = pack_bf16(c[8 * ld], c[9 * ld]);
+    }
+  }
   // A of k-step j from the accumulators c[n-tile][4] of an earlier product,
   // rounded to bf16: its 16 k columns are n-tiles 2j and 2j + 1
   static __device__ __forceinline__ void a_acc(A& a, const float (*c)[4],
@@ -197,6 +222,9 @@ template <> struct Mma<float> {
   static __device__ __forceinline__ float widen(__nv_bfloat16 f) {
     return __bfloat162float(f);
   }
+  static __device__ __forceinline__ float widen(int8_t f) {
+    return static_cast<float>(f);
+  }
   // hi keeps f's top 10 mantissa bits (exact in TF32), lo = f - hi exactly;
   // the tensor core reads lo's top 10 bits, so a product keeps ~20 bits
   static __device__ __forceinline__ void split(float f, uint32_t& hi,
@@ -223,8 +251,9 @@ template <> struct Mma<float> {
     const T* c4 = c0 + 4 * ld;
     set_a(a, c0[0], c0[8], c4[0], c4[8]);
   }
-  // B loads read f32 tiles, or bf16 tiles widened in registers (a bf16
-  // value is exact in TF32: its lo half is zero)
+  // B loads read f32 tiles, or bf16 or int8 tiles widened in registers
+  // (a bf16 value, or an integer in [-127, 127], is exact in TF32: its lo
+  // half is zero)
   template <typename S>
   static __device__ __forceinline__ void b_nrow(B (&b)[2], const S* X,
                                                 int ld, int n0, int k0,

@@ -24,9 +24,21 @@
 //     activations are f32 after the first LayerNorm's f32 gain): K/V rows
 //     load as bf16 and widen to f32 in registers, and everything else is
 //     the f32 route's, as the plain version casts the gathered pool to f32.
+//   * The int8 variant (an int8 pool, `ServeConfig(kv_dtype="int8")`, under
+//     f32 or bf16 queries): each stored vector t of kv head g is k_t =
+//     sk_t * kq_t (and v_t = sv_t * vq_t), int8 rows with one f32 scale a
+//     row in scale planes (num_pages, ps, Hkv).  The scales factor out of
+//     both products: s_t = (q . kq_t) * sk_t * scale, and
+//     out = sum_t (p_t sv_t) vq_t / sum_t p_t.  So the rows stay int8 from
+//     HBM to the products (D bytes a row, not 4D) and no dequantized row is
+//     written anywhere; int8 values are exact in bf16 and in TF32, so the
+//     products are the float variants' with an int8 tile widened as its
+//     fragments load.  The TPU kernel refuses such pools (the JAX package
+//     dequantizes the gathered context in its reference instead).
 //
 // What bounds it on the H100: the K/V bytes of the keys below ctx, read
-// from HBM at 3.35 TB/s; at serving shapes that is a few MB a call, so
+// from HBM at 3.35 TB/s (int8: D + 4 bytes a row with its scale, against
+// 4D in f32); at serving shapes that is a few MB a call, so
 // what the kernel has to beat is latency: enough blocks, and enough bytes
 // in flight in each, to cover the trip to HBM.
 //
@@ -37,9 +49,10 @@
 // or below the window's floor, exits at once.  Inside a block each warp
 // walks its own 16-key tiles (tile i goes to warp i % warps) through a ring
 // of two stages in shared memory, filled by cp.async copies of whole K and
-// V rows (16-byte pieces, or 8, 4 or 2 where a row's bytes are not a
-// multiple of 16: bf16 D = 100, f32 D = 18), each row zero-filled past D
-// to a multiple of 16 columns, with one page-table read per key row; the
+// V rows (16-byte pieces, or 8, 4, 2 or 1 where a row's bytes are not a
+// multiple of 16: bf16 D = 100, f32 D = 18, int8 D = 72 or 25), each row
+// zero-filled past D to a multiple of 16 columns, an int8 row's two scales
+// copied beside it, with one page-table read per key row; the
 // next tile's copies
 // fly while this one computes, and warps never wait on each other until the
 // block merges their (m, l, acc) states in warp order.  Two compute variants:
@@ -76,6 +89,9 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(int8_t x) {
+  return static_cast<float>(x);
+}
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
@@ -104,6 +120,13 @@ __device__ __forceinline__ void load16(float (&f)[8],
     f[2 * i + 1] = x.y;
   }
 }
+__device__ __forceinline__ void load16(float (&f)[16], const int8_t* p) {
+  const int4 v = *reinterpret_cast<const int4*>(p);
+  const int w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    f[i] = static_cast<float>(static_cast<int8_t>(w[i >> 2] >> (8 * (i & 3))));
+}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -117,6 +140,8 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 struct Params {
+  const float* ksc;       // int8 pools: (num_pages, ps, Hkv) f32 scales
+  const float* vsc;
   const int* pt;          // (B, maxp) page tables
   const int* ctx;         // (B,) context lengths
   const int* start;       // (B,) first chunk position
@@ -129,18 +154,21 @@ struct Params {
 };
 
 // Shared-memory layout of one instantiation: q, then each warp's ring of
-// two stages of K and V rows ([warp][stage][K, V][TK][LD]); the block's
-// merge area ([warp][RT][DMAX] acc, then [warp][RT][m, l]) reuses the rings.
+// two stages of K and V rows ([warp][stage][K, V][TK][LD]), followed for an
+// int8 pool by the rows' scales ([stage][K, V][TK] f32); the block's merge
+// area ([warp][RT][DMAX] acc, then [warp][RT][m, l]) reuses the rings.
 // Rows are padded so that neither variant's reads conflict on banks: 32
 // bytes where two lanes read a key's halves, 16 where ldmatrix reads rows.
 // TQ is the query's type, TP the pool's.
 template <typename TQ, typename TP, int DMAX, int RB> struct Cfg {
   static constexpr bool TILE = RB == TILE_ROWS;
+  static constexpr bool Q8 = sizeof(TP) == 1;
   static constexpr int LD = DMAX + (TILE ? 16 : 32) / (int)sizeof(TP);
   static constexpr int LDQ = TILE ? DMAX + 16 / (int)sizeof(TQ) : DMAX;
   static constexpr size_t QBYTES =
       TILE ? (size_t)TILE_ROWS * LDQ * sizeof(TQ) : (size_t)RB * DMAX * 4;
-  static constexpr size_t RING = (size_t)2 * 2 * TK * LD * sizeof(TP);
+  static constexpr size_t KV = (size_t)2 * 2 * TK * LD * sizeof(TP);
+  static constexpr size_t RING = KV + (Q8 ? (size_t)2 * 2 * TK * 4 : 0);
   static size_t smem(int warps) {
     const size_t ring = warps * RING;
     const size_t merge = (size_t)warps * RB * (DMAX + 2) * 4;
@@ -150,7 +178,8 @@ template <typename TQ, typename TP, int DMAX, int RB> struct Cfg {
 
 // The first `bytes` bytes of a row at src into dst, then zeros up to
 // `padded` bytes (D rounded up to 16 elements), in pieces of `piece` bytes
-// -- 16, 8 or 4 by cp.async, 2 (a bf16 row of odd D) by plain copies --
+// -- 16, 8 or 4 by cp.async, 2 (a bf16 row of odd D) or 1 (an int8 row of
+// odd D) by plain copies --
 // pieces i0, i0 + step, ...; the row's bytes are a multiple of the piece,
 // so a piece is wholly in the row or wholly past it.  bytes 0: all zeros,
 // src not read.
@@ -166,29 +195,36 @@ __device__ __forceinline__ void copy_row(void* dst, const void* src,
       case 16: cp_async16(d + off, from, live ? 16 : 0); break;
       case 8: cp_async8(d + off, from, live ? 8 : 0); break;
       case 4: cp_async4(d + off, from, live ? 4 : 0); break;
-      default:
+      case 2:
         *reinterpret_cast<uint16_t*>(d + off) =
             live ? *reinterpret_cast<const uint16_t*>(from) : uint16_t(0);
+        break;
+      default: d[off] = live ? *from : 0;
     }
   }
 }
 
 // This lane's key t (row j = lane / 2 of a tile) of kv head g, in page
 // `page`, into one stage: two lanes a key row, zero past D to a multiple
-// of 16 columns.  A key that is not live is zero-filled and not read.
+// of 16 columns; for an int8 pool the even lane also copies the row's K
+// scale and the odd lane its V scale into `scl` ([K, V][TK]).  A key that
+// is not live is zero-filled and not read.
 template <typename T, int LD>
-__device__ __forceinline__ void load_tile(T* ks, T* vs,
+__device__ __forceinline__ void load_tile(T* ks, T* vs, float* scl,
                                           const T* __restrict__ kp,
                                           const T* __restrict__ vp,
                                           const Params& p, int g, int t,
                                           int page, bool live, int lane) {
   const int j = lane >> 1;
-  const size_t row =
-      live ? (((size_t)page * p.ps + t % p.ps) * p.Hkv + g) * p.D : 0;
+  const size_t vec = live ? ((size_t)page * p.ps + t % p.ps) * p.Hkv + g : 0;
+  const size_t row = vec * p.D;
   const int bytes = live ? p.D * (int)sizeof(T) : 0;
   const int padded = ((p.D + 15) & ~15) * (int)sizeof(T);
   copy_row(ks + j * LD, kp + row, bytes, padded, p.kpiece, lane & 1, 2);
   copy_row(vs + j * LD, vp + row, bytes, padded, p.kpiece, lane & 1, 2);
+  if constexpr (sizeof(T) == 1)
+    cp_async4(scl + (lane & 1) * TK + j, ((lane & 1) ? p.vsc : p.ksc) + vec,
+              live ? 4 : 0);
 }
 
 __device__ __forceinline__ bool keep(int t, int ke, int qpos, int window) {
@@ -200,9 +236,9 @@ __device__ __forceinline__ bool keep(int t, int ke, int qpos, int window) {
 // softmax, then P.V with lane owning columns lane + 32 k.
 template <typename TQ, typename TP, int DMAX, int RB>
 __device__ __forceinline__ void few_step(
-    const float* qf, const TP* ks, const TP* vs, const Params& p, int R,
-    int t0, int ke, const int (&qpos)[RB], float (&m)[RB], float (&l)[RB],
-    float (&acc)[RB][DMAX / 32], int lane) {
+    const float* qf, const TP* ks, const TP* vs, const float* scl,
+    const Params& p, int R, int t0, int ke, const int (&qpos)[RB],
+    float (&m)[RB], float (&l)[RB], float (&acc)[RB][DMAX / 32], int lane) {
   using C = Cfg<TQ, TP, DMAX, RB>;
   constexpr int EPC = 16 / sizeof(TP);
   const int j = lane >> 1, t = t0 + j;
@@ -235,6 +271,7 @@ __device__ __forceinline__ void few_step(
     if (r >= R) continue;
     float sv = s[r] + __shfl_xor_sync(FULL, s[r], 1);
     const bool ok = keep(t, ke, qpos[r], p.window);
+    if constexpr (C::Q8) sv *= scl[j];  // the key's scale
     sv = ok ? sv * p.scale : -INFINITY;
     float mx = sv;
 #pragma unroll
@@ -250,6 +287,7 @@ __device__ __forceinline__ void few_step(
     l[r] = l[r] * alpha + sum;
     m[r] = mn;
     pr[r] = to_f(from_f<TQ>(pe));
+    if constexpr (C::Q8) pr[r] *= scl[TK + j];  // the value's scale
 #pragma unroll
     for (int k = 0; k < DMAX / 32; ++k) acc[r][k] *= alpha;
   }
@@ -276,10 +314,12 @@ __device__ __forceinline__ void few_step(
 
 // One 16-key tile of the tile variant for the block's 16 rows: S = Q K^T
 // on the tensor cores, the online softmax on the fragments (lane holds rows
-// g and g + 8), then O += P V with P from the score fragments.
+// g and g + 8), then O += P V with P from the score fragments (times each
+// key's V scale for an int8 pool, after the row sums took P alone).
 template <typename TQ, typename TP, int DMAX>
 __device__ __forceinline__ void tile_step(const TQ* qt, const TP* ks,
-                                          const TP* vs, const Params& p,
+                                          const TP* vs, const float* scl,
+                                          const Params& p,
                                           int R, int t0, int ke,
                                           const int (&qpos)[2], float (&m)[2],
                                           float (&l)[2],
@@ -310,8 +350,9 @@ __device__ __forceinline__ void tile_step(const TQ* qt, const TP* ks,
   for (int n = 0; n < 2; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int h = e >> 1, t = t0 + 8 * n + 2 * t4 + (e & 1);
+      const int h = e >> 1, j = 8 * n + 2 * t4 + (e & 1), t = t0 + j;
       const bool ok = g + 8 * h < R && keep(t, ke, qpos[h], p.window);
+      if constexpr (C::Q8) sc[n][e] *= scl[j];  // the key's scale
       sc[n][e] = ok ? sc[n][e] * p.scale : -INFINITY;
       mx[h] = fmaxf(mx[h], sc[n][e]);
     }
@@ -333,6 +374,7 @@ __device__ __forceinline__ void tile_step(const TQ* qt, const TP* ks,
           sc[n][e] == -INFINITY ? 0.f : expf(sc[n][e] - m[h]);
       rs[h] += pe;
       sc[n][e] = pe;
+      if constexpr (C::Q8) sc[n][e] *= scl[TK + 8 * n + 2 * t4 + (e & 1)];
     }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -402,8 +444,10 @@ rpa_split_kernel(const TQ* __restrict__ q, const TP* __restrict__ kp,
   const int kb = max(split * p.span, lo);
   const int ke = min((split + 1) * p.span, kend);
 
-  TP* ring = reinterpret_cast<TP*>(rpa_smem + C::QBYTES) +
-             (size_t)warp * 2 * 2 * TK * C::LD;  // [stage][K, V][TK][LD]
+  // [stage][K, V][TK][LD], then (int8) the scales [stage][K, V][TK]
+  unsigned char* wring = rpa_smem + C::QBYTES + (size_t)warp * C::RING;
+  TP* ring = reinterpret_cast<TP*>(wring);
+  float* sring = reinterpret_cast<float*>(wring + C::KV);
   const int ntiles = (ke - kb + TK - 1) / TK;
   const int cnt = warp < ntiles ? (ntiles - 1 - warp) / nw + 1 : 0;
   if (cnt > 0) {
@@ -411,8 +455,8 @@ rpa_split_kernel(const TQ* __restrict__ q, const TP* __restrict__ kp,
     const bool live = t < ke;
     const int page =
         !live ? 0 : t == t_spec ? pg_spec : ptab[t / p.ps];
-    load_tile<TP, C::LD>(ring, ring + TK * C::LD, kp, vp, p, g, t, page,
-                         live, lane);
+    load_tile<TP, C::LD>(ring, ring + TK * C::LD, sring, kp, vp, p, g, t,
+                         page, live, lane);
   }
   cp_async_commit();
 
@@ -453,12 +497,15 @@ rpa_split_kernel(const TQ* __restrict__ q, const TP* __restrict__ kp,
     for (int k = 0; k < NC; ++k) acc[i][k] = 0.f;
   for (int i = 0; i < cnt; ++i) {
     TP* ks = ring + (i & 1) * 2 * TK * C::LD;
+    const float* scl = sring + (i & 1) * 2 * TK;
     if (i + 1 < cnt) {
-      TP* nx = ring + ((i + 1) & 1) * 2 * TK * C::LD;
+      const int nxs = (i + 1) & 1;
+      TP* nx = ring + nxs * 2 * TK * C::LD;
       const int t = kb + (warp + (i + 1) * nw) * TK + (lane >> 1);
       const bool live = t < ke;
-      load_tile<TP, C::LD>(nx, nx + TK * C::LD, kp, vp, p, g, t,
-                           live ? ptab[t / p.ps] : 0, live, lane);
+      load_tile<TP, C::LD>(nx, nx + TK * C::LD, sring + nxs * 2 * TK, kp,
+                           vp, p, g, t, live ? ptab[t / p.ps] : 0, live,
+                           lane);
     }
     cp_async_commit();
     cp_async_wait<1>();
@@ -466,12 +513,12 @@ rpa_split_kernel(const TQ* __restrict__ q, const TP* __restrict__ kp,
     const int t0 = kb + (warp + i * nw) * TK;
     if constexpr (TILE)
       tile_step<TQ, TP, DMAX>(reinterpret_cast<const TQ*>(rpa_smem), ks,
-                              ks + TK * C::LD, p, R, t0, ke, qpos, m, l, acc,
-                              lane);
+                              ks + TK * C::LD, scl, p, R, t0, ke, qpos, m, l,
+                              acc, lane);
     else
       few_step<TQ, TP, DMAX, RB>(reinterpret_cast<const float*>(rpa_smem),
-                                 ks, ks + TK * C::LD, p, R, t0, ke, qpos, m,
-                                 l, acc, lane);
+                                 ks, ks + TK * C::LD, scl, p, R, t0, ke, qpos,
+                                 m, l, acc, lane);
     __syncwarp();  // this stage's readers are done before it is refilled
   }
   cp_async_wait<0>();
@@ -662,7 +709,9 @@ cudaError_t launch_type(int D, int rb, const void* q, const void* kp,
 
 // q (B, H, C, D) and the pools (num_pages, ps, Hkv, D), 16-byte aligned, in
 // the types `types` names: 0 both f32, 1 both bf16, 2 f32 q over bf16
-// pools; page_tables (B, maxp),
+// pools, 3 f32 q over int8 pools, 4 bf16 q over int8 pools, whose f32
+// scale planes k_scales / v_scales (num_pages, ps, Hkv) are given (null
+// otherwise); page_tables (B, maxp),
 // ctx_lens (B,), start_pos (B,) int32; out (B, H, C, D) in q's type; all
 // contiguous.  window < 0 means no window.  The launch plan: `tile` (the
 // tensor-core variant, row_tile 16) or the few-rows variant (row_tile =
@@ -673,8 +722,9 @@ cudaError_t launch_type(int D, int rb, const void* q, const void* kp,
 // (left zeroed).  Any D up to 256.
 // Returns the launch's cudaError_t (0 = launched).
 extern "C" int mxt_ragged_paged_attention(
-    const void* q, const void* kpool, const void* vpool,
-    const void* page_tables, const void* ctx_lens, const void* start_pos,
+    const void* q, const void* kpool, const void* vpool, const void* k_scales,
+    const void* v_scales, const void* page_tables, const void* ctx_lens,
+    const void* start_pos,
     void* out, int B, int H, int Hkv, int C, int D, int ps, int maxp,
     int window, float scale, int types, int tile, int row_tile, int span,
     int nsplit, int warps, void* ws, void* tickets, void* stream) {
@@ -686,9 +736,12 @@ extern "C" int mxt_ragged_paged_attention(
       row_tile < 1 ||
       (tile ? row_tile != TILE_ROWS : row_tile > 15 || row_tile < rows) ||
       (nsplit > 1 && (ws == nullptr || tickets == nullptr)) || types < 0 ||
-      types > 2)
+      types > 4 ||
+      (types >= 3 && (k_scales == nullptr || v_scales == nullptr)))
     return (int)cudaErrorInvalidValue;
   Params p;
+  p.ksc = static_cast<const float*>(k_scales);
+  p.vsc = static_cast<const float*>(v_scales);
   p.pt = static_cast<const int*>(page_tables);
   p.ctx = static_cast<const int*>(ctx_lens);
   p.start = static_cast<const int*>(start_pos);
@@ -704,10 +757,11 @@ extern "C" int mxt_ragged_paged_attention(
   // the largest copy that divides a row's bytes (the pointers are 16-byte
   // aligned, so every row starts on such a boundary)
   auto piece = [](int bytes) {
-    return bytes % 16 == 0 ? 16 : bytes % 8 == 0 ? 8 : bytes % 4 == 0 ? 4 : 2;
+    return bytes % 16 == 0 ? 16 : bytes % 8 == 0 ? 8 : bytes % 4 == 0 ? 4
+           : bytes % 2 == 0 ? 2 : 1;
   };
-  p.kpiece = piece(D * (types == 0 ? 4 : 2));
-  p.qpiece = piece(D * (types == 1 ? 2 : 4));
+  p.kpiece = piece(D * (types == 0 ? 4 : types >= 3 ? 1 : 2));
+  p.qpiece = piece(D * (types == 1 || types == 4 ? 2 : 4));
   p.scale = scale;
   p.row_tile = row_tile;
   p.row_tiles = (rows + row_tile - 1) / row_tile;
@@ -722,6 +776,12 @@ extern "C" int mxt_ragged_paged_attention(
   else if (types == 2)
     e = launch_type<float, __nv_bfloat16>(D, rb, q, kpool, vpool, out, p, B,
                                           warps, s);
+  else if (types == 3)
+    e = launch_type<float, int8_t>(D, rb, q, kpool, vpool, out, p, B, warps,
+                                   s);
+  else if (types == 4)
+    e = launch_type<__nv_bfloat16, int8_t>(D, rb, q, kpool, vpool, out, p, B,
+                                           warps, s);
   else
     e = launch_type<float, float>(D, rb, q, kpool, vpool, out, p, B, warps,
                                   s);

@@ -41,6 +41,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: kernel name -> launches since the last `reset_launch_counts()`
 LAUNCHES: Dict[str, int] = {"ragged_paged_attention": 0,
+                            "ragged_paged_attention_int8": 0,
                             "quantized_matmul": 0,
                             "flash_attention_fwd": 0,
                             "flash_attention_bwd": 0,

@@ -14,7 +14,8 @@ from .paged_attention import (  # noqa: F401
 from .quantized_matmul import (  # noqa: F401
     QuantizedTensor, quantize_weight, dequantize_weight, pack_int4,
     unpack_int4, quantized_matmul_reference, matmul_nt,
-    matmul_nt_reference, gather_rows, weight_nbytes)
+    matmul_nt_reference, gather_rows, weight_nbytes, int8_act_matmul,
+    act_quant_enabled)
 from .attention import (  # noqa: F401
     rope_rotate, multi_head_attention, dot_product_attention,
     reference_attention, band_bias)
@@ -27,7 +28,8 @@ __all__ = ["ragged_paged_attention", "paged_attention_reference",
            "quantize_weight", "dequantize_weight", "pack_int4",
            "unpack_int4", "quantized_matmul_reference",
            "matmul_nt", "matmul_nt_reference", "gather_rows",
-           "weight_nbytes", "rope_rotate", "multi_head_attention",
+           "weight_nbytes", "int8_act_matmul", "act_quant_enabled",
+           "rope_rotate", "multi_head_attention",
            "dot_product_attention", "reference_attention", "band_bias",
            "softmax_cross_entropy", "policy", "autotune", "fused_norm",
            "fused_optimizer", "moe_dispatch", "nn"]

@@ -14,8 +14,13 @@ context is the concatenation of the pages its page table names.
   per kv head, and keeps an f32 online softmax per row.  Queries and the
   pool share a dtype, or f32 queries read a bf16 pool (a bf16 model's
   serving step, whose activations are f32 after the first LayerNorm):
-  K/V then widen to f32 as they load and the rest is the f32 route's.  It
-  raises on what the kernel does not take; it never falls back.
+  K/V then widen to f32 as they load and the rest is the f32 route's.  An
+  int8 pool (``k_scales`` / ``v_scales``: one f32 scale a stored vector,
+  ``ServeConfig(kv_dtype="int8")``) launches the kernel's int8 variant
+  under f32 or bf16 queries: it reads int8 rows and their scales and
+  never writes a dequantized row (the JAX package sends such pools
+  through its gather reference).  It raises on what the kernel does not
+  take; it never falls back.
 - The pool's page size is this kernel's tunable, as in the JAX package:
   `recommended_page_size` is what `serve.ServeConfig` takes when
   ``MXTPU_SERVE_PAGE_SIZE`` is unset.
@@ -93,28 +98,38 @@ def _dense_attend(q, kc, vc, q_pos, ctx_len=None, window=None, scale=None):
 # page gathering + the plain version of K1
 # ---------------------------------------------------------------------------
 
-def gather_pages(pool, page_tables):
+def gather_pages(pool, page_tables, scales=None):
     """Materialise each slot's logical context from the paged pool.
 
     pool: (num_pages, page_size, Hkv, D); page_tables: (B, max_pages)
     int32 (unallocated entries may point anywhere — callers mask by
-    ctx_len).  Returns (B, max_pages * page_size, Hkv, D)."""
-    g = pool[page_tables.long()]                  # (B, maxp, ps, Hkv, D)
+    ctx_len).  Returns (B, max_pages * page_size, Hkv, D).  `scales`
+    (num_pages, page_size, Hkv) dequantizes an int8 pool to f32 on the
+    way: only the gathered context, never the whole pool."""
+    tables = page_tables.long()
+    g = pool[tables]                              # (B, maxp, ps, Hkv, D)
     B, maxp, ps, Hkv, D = g.shape
-    return g.reshape(B, maxp * ps, Hkv, D)
+    g = g.reshape(B, maxp * ps, Hkv, D)
+    if scales is not None:
+        g = g.float() * scales[tables].reshape(B, maxp * ps, Hkv, 1)
+    return g
 
 
 def paged_attention_reference(q, kpool, vpool, page_tables, ctx_lens,
                               start_pos, window=None, scale=None,
-                              out_dtype=None):
+                              k_scales=None, v_scales=None, out_dtype=None):
     """Plain version of K1: gather the page table to a contiguous context
-    and run `_dense_attend`.  The CPU path and the kernel's oracle."""
+    (dequantized in f32 for an int8 pool), cast it to ``out_dtype`` or
+    q's dtype, and run `_dense_attend`.  The CPU path and the kernel's
+    oracle."""
     B, H, C, D = q.shape
     q_pos = start_pos[:, None] + torch.arange(C, device=q.device)[None, :]
     dt = out_dtype or q.dtype
     # (B, L, Hkv, D) -> (B, Hkv, L, D)
-    kc = gather_pages(kpool, page_tables).to(dt).permute(0, 2, 1, 3)
-    vc = gather_pages(vpool, page_tables).to(dt).permute(0, 2, 1, 3)
+    kc = gather_pages(kpool, page_tables, k_scales).to(dt).permute(
+        0, 2, 1, 3)
+    vc = gather_pages(vpool, page_tables, v_scales).to(dt).permute(
+        0, 2, 1, 3)
     return _dense_attend(q.to(dt), kc, vc, q_pos, ctx_len=ctx_lens,
                          window=window, scale=scale)
 
@@ -147,7 +162,8 @@ class Plan(NamedTuple):
 def _plan(B: int, H: int, Hkv: int, C: int, D: int, ps: int, maxp: int,
           dtype, sm_count: int) -> Plan:
     """The launch plan of one K1 call, plain Python (no card needed),
-    memoised per shape; `dtype` is the pool's, whose rows fill the rings.
+    memoised per shape; `dtype` is the pool's, whose rows fill the rings
+    (int8 rows a quarter of f32's: the int8 variant always fits 4 warps).
 
     The few-rows variant below 16 folded rows (``rep * C``), else the
     tile variant, 16 rows a block.  Warps a block: as many (up to 4) as
@@ -160,7 +176,8 @@ def _plan(B: int, H: int, Hkv: int, C: int, D: int, ps: int, maxp: int,
     rows = (H // Hkv) * C
     variant = "few" if rows < TILE_ROWS else "tile"
     row_tile = rows if variant == "few" else TILE_ROWS
-    item = 2 if dtype in (torch.bfloat16, "bfloat16") else 4
+    item = 2 if dtype in (torch.bfloat16, "bfloat16") else \
+        1 if dtype in (torch.int8, "int8") else 4
     dmax = 64 if D <= 64 else 128 if D <= 128 else 256
     pad = 32 if variant == "few" else 16
     warps = max(1, min(4, RING_BYTES // (2 * 2 * KEY_TILE
@@ -182,10 +199,13 @@ def _plan(B: int, H: int, Hkv: int, C: int, D: int, ps: int, maxp: int,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _fn = None
-# (pool dtype, query dtype) -> the C entry's `types` code
+# (pool dtype, query dtype) -> the C entry's `types` code; 3 and 4 are the
+# int8 variant, whose pools carry f32 scale planes
 _TYPES = {(torch.float32, torch.float32): 0,
           (torch.bfloat16, torch.bfloat16): 1,
-          (torch.bfloat16, torch.float32): 2}
+          (torch.bfloat16, torch.float32): 2,
+          (torch.int8, torch.float32): 3,
+          (torch.int8, torch.bfloat16): 4}
 # (device index, raw stream) -> (ticket counters, f32 partials workspace)
 _scratch_of: Dict[Any, Tuple[torch.Tensor, torch.Tensor]] = {}
 # operand shapes, dtypes and devices already checked -> their plan
@@ -196,15 +216,16 @@ def _kernel_fn():
     global _fn
     if _fn is None:
         f = _kernels.load("paged_attention").mxt_ragged_paged_attention
-        f.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                      _I, _I, ctypes.c_float, _I, _I, _I, _I, _I, _I, _P,
-                      _P, _P]
+        f.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                      _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _I, _I,
+                      _I, _P, _P, _P]
         f.restype = _I
         _fn = f
     return _fn
 
 
-def _check(q, kpool, vpool, page_tables, ctx_lens, start_pos) -> Plan:
+def _check(q, kpool, vpool, page_tables, ctx_lens, start_pos,
+           k_scales=None, v_scales=None) -> Plan:
     """The operands' dtypes, shapes and devices, checked once per key of
     them (a decode step makes one call a layer with the same key); returns
     the call's plan."""
@@ -215,13 +236,27 @@ def _check(q, kpool, vpool, page_tables, ctx_lens, start_pos) -> Plan:
     if kpool.dtype != vpool.dtype or (kpool.dtype, q.dtype) not in _TYPES:
         raise MXNetError(
             f"ragged_paged_attention kernel needs pools in the query dtype, "
-            f"or a bfloat16 pool under float32 queries; got "
+            f"a bfloat16 pool under float32 queries, or an int8 pool; got "
             f"{kpool.dtype}/{vpool.dtype} under {q.dtype}")
     if kpool.dim() != 4 or kpool.shape != vpool.shape or \
             kpool.shape[3] != D:
         raise MXNetError(
             f"pools must both be (num_pages, page_size, Hkv, {D}); got "
             f"{tuple(kpool.shape)} and {tuple(vpool.shape)}")
+    quantized = kpool.dtype == torch.int8
+    if quantized != (k_scales is not None) or \
+            quantized != (v_scales is not None):
+        raise MXNetError(
+            "ragged_paged_attention kernel: an int8 pool needs k_scales and "
+            "v_scales, a float pool takes neither")
+    if quantized:
+        for name, t in (("k_scales", k_scales), ("v_scales", v_scales)):
+            if t.dtype != torch.float32 or t.shape != kpool.shape[:3] or \
+                    t.device != q.device:
+                raise MXNetError(
+                    f"{name} must be float32 {tuple(kpool.shape[:3])} on "
+                    f"{q.device}; got {t.dtype} {tuple(t.shape)} on "
+                    f"{t.device}")
     if not 1 <= D <= MAX_HEAD_DIM:
         raise MXNetError(f"ragged_paged_attention kernel takes a head_dim "
                          f"of at most {MAX_HEAD_DIM}; got {D} (wider heads "
@@ -247,23 +282,31 @@ def _check(q, kpool, vpool, page_tables, ctx_lens, start_pos) -> Plan:
 
 
 def _rpa_cuda(q, kpool, vpool, page_tables, ctx_lens, start_pos, window,
-              scale, plan: Optional[Plan] = None):
+              scale, plan: Optional[Plan] = None, k_scales=None,
+              v_scales=None):
     """Check the operands, then launch K1 on the current stream with
-    `plan` (default: `_plan`'s for these shapes)."""
+    `plan` (default: `_plan`'s for these shapes); an int8 pool with its
+    scale planes launches the int8 variant."""
     key = (q.shape, kpool.shape, vpool.shape, page_tables.shape,
            ctx_lens.shape, start_pos.shape, q.dtype, kpool.dtype,
            vpool.dtype, page_tables.dtype, ctx_lens.dtype, start_pos.dtype,
            q.device, kpool.device, vpool.device, page_tables.device,
-           ctx_lens.device, start_pos.device)
+           ctx_lens.device, start_pos.device,
+           *(None if t is None else (t.shape, t.dtype, t.device)
+             for t in (k_scales, v_scales)))
     checked = _checked.get(key)
     if checked is None:
         checked = _checked[key] = _check(q, kpool, vpool, page_tables,
-                                         ctx_lens, start_pos)
+                                         ctx_lens, start_pos, k_scales,
+                                         v_scales)
     plan = plan or checked
     tensors = (q, kpool, vpool, page_tables, ctx_lens, start_pos)
+    if k_scales is not None:
+        tensors += (k_scales, v_scales)
     if not all(t.is_contiguous() for t in tensors):
         raise MXNetError("ragged_paged_attention kernel needs contiguous "
-                         "q, pools, page_tables, ctx_lens and start_pos")
+                         "q, pools, scales, page_tables, ctx_lens and "
+                         "start_pos")
     if window is not None and int(window) < 0:
         raise MXNetError(f"window must be >= 0, got {window}")
     out = torch.empty_like(q)
@@ -282,8 +325,11 @@ def _rpa_cuda(q, kpool, vpool, page_tables, ctx_lens, start_pos, window,
         cnt, ws = _kernels.stream_scratch(_scratch_of, dev, stream,
                                           plan.groups, plan.workspace)
         cnt, ws = cnt.data_ptr(), ws.data_ptr()
+    quantized = k_scales is not None
     err = _kernel_fn()(
         q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
+        k_scales.data_ptr() if quantized else None,
+        v_scales.data_ptr() if quantized else None,
         page_tables.data_ptr(), ctx_lens.data_ptr(), start_pos.data_ptr(),
         out.data_ptr(), B, H, Hkv, C, D, ps, page_tables.shape[1],
         -1 if window is None else int(window), float(scale),
@@ -292,12 +338,14 @@ def _rpa_cuda(q, kpool, vpool, page_tables, ctx_lens, start_pos, window,
     if err:
         raise MXNetError(f"ragged_paged_attention kernel launch failed "
                          f"(cudaError_t {err}, {plan})")
-    _kernels.LAUNCHES["ragged_paged_attention"] += 1
+    _kernels.LAUNCHES["ragged_paged_attention_int8" if quantized
+                      else "ragged_paged_attention"] += 1
     return out
 
 
 def ragged_paged_attention(q, kpool, vpool, page_tables, ctx_lens,
-                           start_pos, window=None, scale=None):
+                           start_pos, window=None, scale=None,
+                           k_scales=None, v_scales=None):
     """Mixed prefill/decode attention over a paged KV pool — one launch.
 
     q: (B, H, C, D) chunk queries (C = 1 for a pure-decode step);
@@ -306,10 +354,11 @@ def ragged_paged_attention(q, kpool, vpool, page_tables, ctx_lens,
     (B,) valid context length INCLUDING this chunk's tokens (already
     written to the pool); start_pos: (B,) absolute position of each
     slot's first chunk token.  Rows past a slot's real token count
-    produce causally-valid garbage the caller must ignore.
+    produce causally-valid garbage the caller must ignore.  k_scales /
+    v_scales: (num_pages, page_size, Hkv) f32 for an int8 pool.
 
-    A CUDA tensor launches K1 (or raises); a CPU tensor runs
-    `paged_attention_reference`.
+    A CUDA tensor launches K1 — its int8 variant for an int8 pool — or
+    raises; a CPU tensor runs `paged_attention_reference`.
     """
     H, D = q.shape[1], q.shape[3]
     Hkv = kpool.shape[2]
@@ -319,12 +368,14 @@ def ragged_paged_attention(q, kpool, vpool, page_tables, ctx_lens,
     if q.device.type == "cuda":
         return _rpa_cuda(q, kpool, vpool, page_tables, ctx_lens, start_pos,
                          window,
-                         scale if scale is not None else 1.0 / math.sqrt(D))
+                         scale if scale is not None else 1.0 / math.sqrt(D),
+                         k_scales=k_scales, v_scales=v_scales)
     if q.device.type != "cpu":
         raise MXNetError(f"ragged_paged_attention runs on cuda or cpu, "
                          f"not {q.device}")
     return paged_attention_reference(q, kpool, vpool, page_tables, ctx_lens,
-                                     start_pos, window=window, scale=scale)
+                                     start_pos, window=window, scale=scale,
+                                     k_scales=k_scales, v_scales=v_scales)
 
 
 # ---------------------------------------------------------------------------

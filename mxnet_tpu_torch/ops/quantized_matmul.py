@@ -23,6 +23,14 @@ it runs `quantized_matmul_reference` (dequantize, then ``x @ w.T``) — the
 plain version the CPU tests hold against the JAX package and
 `chip_smoke.py` holds the kernel against on the card.
 
+``MXTPU_QUANT_ACT=1`` (or ``act_quant=True``) quantizes the activations
+too: `int8_act_matmul` rounds x to int8 at one symmetric scale a call (the
+calibrated ``act_amax`` when the weight or the caller carries one, else
+x's abs-max) and forms the exact int32 product of the int8 planes
+(`int8_mm_nt`: ``torch._int_mm``, cuBLASLt's int8 path on the card — a
+library product, as JAX leaves its ``lax.dot_general`` to XLA), then
+scales in f32.  K2 is not launched on that route, as in JAX.
+
 Launch plan: `_plan` (plain Python) picks K2's variant — the split-K
 stream for M <= 16, the tensor-core tile kernel above — and its split-K
 factor from the shape and the card's SM count; the autotuner's
@@ -35,7 +43,9 @@ from __future__ import annotations
 import ctypes
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..base import MXNetError, getenv_bool
 from .. import kernels as _kernels
@@ -46,7 +56,7 @@ __all__ = ["QuantizedTensor", "quantize_weight", "dequantize_weight",
            "pack_int4", "unpack_int4", "quantized_matmul", "launches_kernel",
            "quantized_matmul_reference", "int8_act_matmul",
            "act_quant_enabled", "matmul_nt", "matmul_nt_reference",
-           "gather_rows", "weight_nbytes"]
+           "gather_rows", "weight_nbytes", "int8_mm_nt"]
 
 
 def act_quant_enabled() -> bool:
@@ -93,14 +103,19 @@ def unpack_int4(packed, k: int):
 class QuantizedTensor:
     """A per-channel symmetrically quantized ``(out, in)`` weight: int8
     planes ``q`` (packed for int4) and f32 ``scale`` (out,).  ``bits`` and
-    ``in_features`` describe the planes."""
+    ``in_features`` describe the planes; ``act_amax`` is an optional
+    calibrated activation threshold (a float) that the int8-activation
+    path uses instead of a dynamic abs-max a call."""
 
-    def __init__(self, q, scale, bits: int, in_features: int):
+    def __init__(self, q, scale, bits: int, in_features: int,
+                 act_amax: Optional[float] = None):
         self.q = q              # int8 (out, in) or packed (out, ceil(in/2))
         self.scale = scale      # f32 (out,)
         self.bits = int(bits)
         self.in_features = int(in_features)
+        self.act_amax = act_amax
         self._checked = None    # (q, scale) once K2's wrapper checked them
+        self._rhs = None        # (q, int8 planes for `int8_mm_nt`)
 
     @property
     def out_features(self) -> int:
@@ -113,7 +128,7 @@ class QuantizedTensor:
 
     def to(self, device) -> "QuantizedTensor":
         return QuantizedTensor(self.q.to(device), self.scale.to(device),
-                               self.bits, self.in_features)
+                               self.bits, self.in_features, self.act_amax)
 
     def nbytes(self) -> int:
         return weight_nbytes(self)
@@ -132,7 +147,8 @@ def weight_nbytes(w) -> int:
     return w.numel() * w.element_size()
 
 
-def quantize_weight(w, bits: int = 8) -> QuantizedTensor:
+def quantize_weight(w, bits: int = 8,
+                    act_amax: Optional[float] = None) -> QuantizedTensor:
     """Per-channel symmetric quantization of a dense ``(out, in)`` weight.
     ``scale[n] = amax(w[n, :]) / qmax`` with qmax 127 (int8) or 7 (int4);
     an all-zero channel gets scale 0 and dequantizes to exact zeros.
@@ -155,7 +171,8 @@ def quantize_weight(w, bits: int = 8) -> QuantizedTensor:
         torch.int8)
     if bits == 4:
         q = pack_int4(q)
-    return QuantizedTensor(q, scale, bits, int(w.shape[1]))
+    return QuantizedTensor(q, scale, bits, int(w.shape[1]),
+                           act_amax=act_amax)
 
 
 def dequantize_weight(qt: QuantizedTensor, dtype=torch.float32):
@@ -177,12 +194,109 @@ def quantized_matmul_reference(x, qt: QuantizedTensor):
     return (x.float() @ w.T).to(x.dtype)
 
 
-def int8_act_matmul(x, qt: QuantizedTensor):
-    """int8 activations x int8 weights (``MXTPU_QUANT_ACT``) — not ported
-    yet; see ROADMAP.md queue C."""
-    raise MXNetError(
-        "int8_act_matmul (MXTPU_QUANT_ACT=1) is not ported to "
-        "mxnet_tpu_torch yet (ROADMAP.md queue C); unset MXTPU_QUANT_ACT")
+def _pad_to(t, rows: int, cols: int):
+    r, c = t.shape
+    return t if (r, c) == (rows, cols) else F.pad(t, (0, cols - c,
+                                                      0, rows - r))
+
+
+def int8_mm_nt(a, b):
+    """``a @ b.T`` -> int32 for int8 ``a`` (M, K) and ``b`` (N, K), exact.
+
+    ``torch._int_mm``: on the card cuBLASLt's int8 product, which refuses
+    M <= 16 and a K or N that is not a multiple of 8 (8 decode slots; a
+    tied head of 50257 rows), so there the operands are padded with zeros
+    to shapes it takes and the product sliced back — zeros add nothing to
+    an integer sum, so the card's and the CPU's sums are bit-equal.  ``b``
+    may already carry such zero rows and columns (`_rhs_planes`); the
+    result then has them too, sliced by the caller."""
+    if a.device.type != "cuda":
+        return torch._int_mm(a, b.t())
+    return _int_mm_padded(a, b)
+
+
+def _int_mm_padded(a, b):
+    """`int8_mm_nt` over operands zero-padded to what the card's
+    ``torch._int_mm`` takes: more than 16 rows, K and N multiples of 8."""
+    M, K = a.shape
+    N, Kb = b.shape
+    Kp = -(-max(K, Kb) // 8) * 8
+    Mp = 32 if M <= 16 else M
+    return torch._int_mm(_pad_to(a, Mp, Kp), _pad_to(b, -(-N // 8) * 8,
+                                                     Kp).t())[:M, :N]
+
+
+def _rhs_planes(qt: QuantizedTensor):
+    """qt's int8 values (N, K) — int4 planes unpacked — as `int8_mm_nt`'s
+    right operand, zero-padded on the card to multiples of 8; kept on `qt`
+    (a serving step uses each weight once a layer, every step)."""
+    got = qt._rhs
+    if got is not None and got[0] is qt.q:
+        return got[1]
+    q = qt.q if qt.bits == 8 else unpack_int4(qt.q, qt.in_features)
+    if q.device.type == "cuda":
+        q = _pad_to(q, -(-q.shape[0] // 8) * 8,
+                    -(-q.shape[1] // 8) * 8).contiguous()
+    qt._rhs = (qt.q, q)
+    return q
+
+
+def int8_act_matmul(x, qt: QuantizedTensor, act_amax=None):
+    """int8 activations x int8 weights -> int32, with an f32 dequant
+    epilogue (``MXTPU_QUANT_ACT``; `contrib.quantization` parity widened
+    to per-channel weight scales), in the JAX package's order: x's scale
+    ``amax / 127`` from ``act_amax``, else the threshold riding on `qt`,
+    else x's abs-max this call; ``xq = clip(round(x / scale))`` (half to
+    even); the exact int32 product (`int8_mm_nt`); then ``acc * x_scale *
+    qt.scale`` in f32, cast to x's dtype.  A calibrated threshold is
+    taken in f32 on the host (numpy's float32 rounds as JAX's does), so a
+    step makes no host-to-device copy for it."""
+    xq, x_scale = _quantize_act(x, qt, act_amax)
+    N = qt.out_features
+    acc = int8_mm_nt(xq.reshape(-1, qt.in_features), _rhs_planes(qt))[:, :N]
+    out = acc.float() * x_scale * qt.scale
+    return out.to(x.dtype).reshape(*x.shape[:-1], N)
+
+
+def _quantize_act(x, qt: QuantizedTensor, act_amax=None):
+    """`int8_act_matmul`'s first half: ``(xq int8, x_scale)``, the scale a
+    0-d tensor (dynamic) or a float (calibrated)."""
+    xf = x.float()
+    if act_amax is None:
+        act_amax = qt.act_amax
+    if act_amax is None:
+        x_scale = xf.abs().amax() / 127.0
+        inv = torch.where(x_scale > 0.0,
+                          1.0 / torch.clamp(x_scale, min=1e-30), 0.0)
+    else:
+        s32 = np.float32(act_amax) / np.float32(127.0)
+        x_scale = float(s32)
+        inv = float(np.float32(1.0) / max(s32, np.float32(1e-30))) \
+            if s32 > 0 else 0.0
+    return torch.clamp(torch.round(xf * inv), -127, 127).to(torch.int8), \
+        x_scale
+
+
+class _ActQuant(torch.autograd.Function):
+    """`int8_act_matmul` forward; the backward is dx against the
+    dequantized weight, as the JAX package's ``custom_vjp`` gives it (the
+    rounding has no useful derivative, the weight is frozen)."""
+
+    @staticmethod
+    def forward(ctx, x, qt, act_amax):
+        ctx.qt = qt
+        return int8_act_matmul(x, qt, act_amax)
+
+    @staticmethod
+    def backward(ctx, dy):
+        w = dequantize_weight(ctx.qt, torch.float32)
+        return (dy.float() @ w).to(dy.dtype), None, None
+
+
+def _act_quant_matmul(x, qt: QuantizedTensor, act_amax=None):
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _ActQuant.apply(x, qt, act_amax)
+    return int8_act_matmul(x, qt, act_amax)
 
 
 # ---------------------------------------------------------------------------
@@ -387,16 +501,20 @@ def launches_kernel(device) -> bool:
     return device.type == "cuda" and kernel_active(device)
 
 
-def quantized_matmul(x, qt: QuantizedTensor):
+def quantized_matmul(x, qt: QuantizedTensor, act_amax=None,
+                     act_quant: Optional[bool] = None):
     """``x @ dequantize(qt).T`` with the dequant fused into the matmul.
 
     x: (..., in_features) float; returns (..., out_features) in x's dtype.
     Under the kernel policy (`ops.policy.kernel_active`, as the JAX
     ``kernel_eligible`` consults it) a CUDA tensor launches K2 (or raises);
     ``MXTPU_PALLAS=reference`` or ``off`` runs `quantized_matmul_reference`
-    even on the card, and a CPU tensor always runs it.
-    ``MXTPU_QUANT_ACT=1`` raises until the int8-activation path is
-    ported."""
+    even on the card, and a CPU tensor always runs it.  ``act_quant``
+    (default: ``MXTPU_QUANT_ACT``, read each call) takes the int8-activation
+    route instead, `int8_act_matmul` at ``act_amax`` (or the weight's
+    threshold, or a dynamic abs-max), and launches no K2, as the JAX
+    package's ``use_kernel = kernel_eligible(x) and not act_quant`` has it;
+    its backward is dx against the dequantized weight."""
     if not isinstance(qt, QuantizedTensor):
         raise MXNetError("quantized_matmul needs a QuantizedTensor "
                          f"weight, got {type(qt).__name__}")
@@ -404,8 +522,10 @@ def quantized_matmul(x, qt: QuantizedTensor):
         raise MXNetError(
             f"quantized_matmul: x last dim {x.shape[-1]} != weight "
             f"in_features {qt.in_features}")
-    if act_quant_enabled():
-        return int8_act_matmul(x, qt)
+    if act_quant is None:
+        act_quant = act_quant_enabled()
+    if act_quant:
+        return _act_quant_matmul(x, qt, act_amax)
     dev = x.device
     if dev.type not in ("cuda", "cpu"):
         raise MXNetError(f"quantized_matmul runs on cuda or cpu, not {dev}")
@@ -426,19 +546,23 @@ def _dense_nt(x, w):
     return x.to(dt) @ w.to(dt).T
 
 
-def matmul_nt(x, w):
+def matmul_nt(x, w, act_amax=None):
     """``x @ w.T`` for a dense tensor OR a `QuantizedTensor` — the one
     routing point of the decode core.  Dense products stay
     ``torch.matmul``, in the promoted dtype."""
     if isinstance(w, QuantizedTensor):
-        return quantized_matmul(x, w)
+        return quantized_matmul(x, w, act_amax=act_amax)
     return _dense_nt(x, w)
 
 
-def matmul_nt_reference(x, w):
+def matmul_nt_reference(x, w, act_amax=None):
     """`matmul_nt` through the plain version on any device — the oracle
-    engine `chip_smoke.py` compares the kernel engine with."""
+    engine `chip_smoke.py` compares the kernel engine with.  Under
+    ``MXTPU_QUANT_ACT`` both take `int8_act_matmul`, which launches no
+    kernel of the port."""
     if isinstance(w, QuantizedTensor):
+        if act_quant_enabled():
+            return _act_quant_matmul(x, w, act_amax)
         lead = x.shape[:-1]
         out = quantized_matmul_reference(x.reshape(-1, w.in_features), w)
         return out.reshape(*lead, w.out_features)

@@ -21,7 +21,7 @@ biases stay dense.  Only ``tp=1`` is ported.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -72,15 +72,22 @@ def extract_decode_weights(model) -> dict:
 QUANT_DEFAULT_TARGETS = ("wqkv", "wo", "w1", "w2", "head")
 
 
-def quantize_decode_weights(P: dict, bits: int = 8, include=()):
+def quantize_decode_weights(P: dict, bits: int = 8, include=(),
+                            thresholds: Optional[Dict[str, float]] = None):
     """Rewrite an `extract_decode_weights` dict to int8/int4 planes;
     ``include`` opts more leaves in (``"embed"``: the table is then
     dequantized per gathered row and the tied head runs K2).
+    ``thresholds`` maps ``"layers.<i>.<name>"`` or top-level names (a
+    `contrib.quantization.LayerCalibrator.thresholds()` dict) to
+    calibrated activation amax values; each rides on its leaf as
+    ``act_amax`` for the ``MXTPU_QUANT_ACT=1`` int8-activation path, the
+    leaf's own name first, then its kind (``"wqkv"``).
 
     Returns ``(newP, info)``; info records bits, the dense and quantized
     bytes of the rewritten leaves, and the skipped names — the same dict
     the JAX package returns."""
     targets = set(QUANT_DEFAULT_TARGETS) | set(include)
+    thresholds = thresholds or {}
     skipped, quantized = [], []
     dense_bytes = q_bytes = 0
 
@@ -91,7 +98,8 @@ def quantize_decode_weights(P: dict, bits: int = 8, include=()):
         if key not in targets or w.dim() != 2:
             skipped.append(name)
             return w
-        qt = quantize_weight(w, bits)
+        qt = quantize_weight(w, bits, act_amax=thresholds.get(
+            name, thresholds.get(key)))
         dense_bytes += weight_nbytes(w)
         q_bytes += qt.nbytes()
         quantized.append(name)

@@ -28,10 +28,18 @@ as a run; ``prefix_cache=True`` keeps finished prompts' KV pages in a
 `PrefixIndex`, attached by reference to later requests with the same
 prefix and forked (`copy_page`) before a write.
 
+Quantized serving: ``kv_dtype="int8"`` keeps the KV pool in int8 with one
+f32 scale a stored vector (3.76x fewer bytes than f32 at GPT-2 small's
+D 64), read by K1's int8 variant; ``quant_bits`` 8/4 stores the
+projections as int8/int4 planes for K2; ``MXTPU_QUANT_ACT=1`` rounds the
+activations of those projections to int8 too (`int8_act_matmul`, no K2),
+at the thresholds of ``act_thresholds`` (a
+`contrib.quantization.LayerCalibrator.thresholds()` dict) where given.
+
 Features still raising `MXNetError` until their slice (ROADMAP.md queue
-A): ``kv_dtype="int8"`` (with A9's ``quantize_kv``), ``tp > 1`` and
-``role != "both"`` (A12, A15), export and `adopt_executables` (A16).
-QoS, tracing and telemetry (A14, A15) are not ported.
+A): ``tp > 1`` and ``role != "both"`` (A12, A15), export and
+`adopt_executables` (A16).  QoS, tracing and telemetry (A14, A15) are not
+ported.
 """
 from __future__ import annotations
 
@@ -137,7 +145,9 @@ class InferenceEngine:
     """Continuous-batching inference over a ``GPTForCausalLM``.
 
     Runs on `device` (the card unless ``device="cpu"``).  ``seed`` seeds
-    the sampling generator.  ``plain_ops=True`` builds the oracle engine:
+    the sampling generator.  ``act_thresholds`` (with ``quant_bits``)
+    attaches calibrated activation thresholds to the quantized weights
+    (`quantize_weights`).  ``plain_ops=True`` builds the oracle engine:
     every step calls the plain versions (`paged_attention_reference`,
     `matmul_nt_reference`) by name, on any device — what `chip_smoke.py`
     holds the kernel engine against.
@@ -148,15 +158,14 @@ class InferenceEngine:
     own context."""
 
     def __init__(self, model, config: Optional[ServeConfig] = None,
-                 device=None, seed: int = 0, plain_ops: bool = False,
+                 device=None, seed: int = 0, act_thresholds=None,
+                 plain_ops: bool = False,
                  drafter: Optional[Drafter] = None):
         self.model = model
         self.cfg = model.cfg
         self.serve_config = config or ServeConfig()
         sc = self.serve_config
         self.device = resolve_device(device)
-        if sc.kv_dtype == "int8":
-            raise _not_ported("the int8 KV pool (kv_dtype='int8')")
         if sc.tp > 1:
             raise _not_ported(f"tensor-parallel serving (tp={sc.tp})")
         if sc.role != "both":
@@ -173,7 +182,10 @@ class InferenceEngine:
                 f"max_position={cfg.max_position}")
         self.max_pages_per_seq = max(
             1, math.ceil(self.max_len / sc.page_size))
-        self._kv_dtype = torch_dtype(sc.kv_dtype or cfg.dtype)
+        kv_dtype = sc.kv_dtype or cfg.dtype
+        self.quantized = str(kv_dtype) == "int8"
+        self._kv_dtype = torch.int8 if self.quantized else \
+            torch_dtype(kv_dtype)
         self.tp = 1
         self.role = "both"
         self.plain_ops = bool(plain_ops)
@@ -186,7 +198,7 @@ class InferenceEngine:
         self.quant_bits = 0
         self.quant_info = None
         if sc.quant_bits:
-            self.quantize_weights(sc.quant_bits)
+            self.quantize_weights(sc.quant_bits, thresholds=act_thresholds)
         # auto pool size: every slot can hold a full-length sequence, plus
         # the reserved null page — PLUS the pages the quantized weights
         # just paid for.  An explicit num_pages wins.
@@ -218,16 +230,20 @@ class InferenceEngine:
     # weight-only quantization
     # ------------------------------------------------------------------
     def _page_nbytes(self) -> int:
-        """Device bytes of ONE physical KV page across all layers (K+V)."""
+        """Device bytes of ONE physical KV page across all layers (K + V,
+        plus the scale planes of an int8 pool: D + 4 bytes a vector)."""
         itemsize = torch.empty((), dtype=self._kv_dtype).element_size()
+        per_vec = self.head_dim * itemsize + (4 if self.quantized else 0)
         return 2 * self.cfg.num_layers * self.serve_config.page_size \
-            * self.n_kv_heads * self.head_dim * itemsize
+            * self.n_kv_heads * per_vec
 
-    def quantize_weights(self, bits: int) -> dict:
+    def quantize_weights(self, bits: int, include=(),
+                         thresholds=None) -> dict:
         """Rewrite the decode weights to int8/int4 planes (per-channel
-        symmetric).  Called at construction for
-        ``ServeConfig.quant_bits``; needs an idle engine.  Returns the
-        quantization info dict."""
+        symmetric; `serve.decode.quantize_decode_weights`, with
+        ``include`` and the calibrated activation ``thresholds``).  Called
+        at construction for ``ServeConfig.quant_bits``; needs an idle
+        engine.  Returns the quantization info dict."""
         if self.quant_bits:
             raise MXNetError(
                 f"engine weights are already int{self.quant_bits}-"
@@ -238,7 +254,9 @@ class InferenceEngine:
             raise MXNetError(
                 "quantize_weights needs an idle engine (in-flight "
                 "streams hold dense-weight KV state); drain() first")
-        self.P, info = quantize_decode_weights(self.P, bits)
+        self.P, info = quantize_decode_weights(self.P, bits,
+                                               include=include,
+                                               thresholds=thresholds)
         self.quant_bits = int(bits)
         self.quant_info = info
         if getattr(self, "prefix_index", None) is not None:
@@ -320,11 +338,12 @@ class InferenceEngine:
                           temps, greedy_mask, C, sample)
 
     def copy_page(self, src: int, dst: int) -> None:
-        """Copy ONE physical page (every layer, K and V) — the data half
-        of a copy-on-write fork, after `PageAllocator.fork` moved a
-        reference onto the fresh page.  In place, on the step's stream, so
-        the next step's writes and K1's reads are ordered after it."""
-        for pool in (self.pools.k, self.pools.v):
+        """Copy ONE physical page (every layer, K and V, and the scale
+        planes of an int8 pool) — the data half of a copy-on-write fork,
+        after `PageAllocator.fork` moved a reference onto the fresh page.
+        In place, on the step's stream, so the next step's writes and K1's
+        reads are ordered after it."""
+        for pool in self.pools.planes():
             pool[:, dst].copy_(pool[:, src])
 
     def _step_widths(self):
@@ -411,6 +430,8 @@ class InferenceEngine:
             "pool_bytes": self.pools.nbytes(),
             "weight_bytes": self.weight_bytes(),
             "quant_bits": self.quant_bits,
+            "kv_dtype": "int8" if self.quantized else str(
+                self._kv_dtype).replace("torch.", ""),
             "bonus_pages": self.bonus_pages,
             "compile_seconds": self.compile_seconds,
             "tp": self.tp,

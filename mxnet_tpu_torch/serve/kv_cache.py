@@ -23,8 +23,11 @@ into it.  `free` is a decref; a page returns to the free list when its
 last owner lets go, so N concurrent requests attend over ONE copy of a
 shared prompt prefix while each owns its divergent suffix.
 
-The int8 pool (``kv_dtype="int8"``) waits for a later slice (ROADMAP.md
-queue A, beside A9's ``quantize_kv``).
+The int8 pool (``kv_dtype="int8"``) stores int8 K/V rows with one f32
+scale a stored vector (``k_scale`` / ``v_scale``, `contrib.quantization.
+quantize_kv`): D + 4 bytes a vector against 4D in f32.  Its writes
+quantize each new row and write row and scale through the same flat index;
+attention reads the rows and scales as they are (K1's int8 variant).
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..base import MXNetError
+from ..contrib.quantization import quantize_kv
 from ..ops.paged_attention import ragged_paged_attention
 
 __all__ = ["PageAllocator", "PrefixIndex", "KVPools", "make_paged_kv_fn",
@@ -374,32 +378,51 @@ class PrefixIndex:
 
 
 class KVPools:
-    """Device-side paged K/V storage for every layer: ``k`` and ``v``,
-    each (n_layers, num_pages, page_size, Hkv, D) of `dtype`."""
+    """Device-side paged K/V storage for every layer:
+
+    - ``k`` / ``v``: (n_layers, num_pages, page_size, Hkv, D) of `dtype`;
+    - ``k_scale`` / ``v_scale``: (n_layers, num_pages, page_size, Hkv)
+      float32 for an int8 pool (one symmetric scale a stored vector), else
+      None."""
 
     def __init__(self, n_layers: int, num_pages: int, page_size: int,
                  n_kv_heads: int, head_dim: int, dtype: torch.dtype,
                  device: torch.device):
         shape = (n_layers, num_pages, page_size, n_kv_heads, head_dim)
+        self.quantized = dtype == torch.int8
         self.k = torch.zeros(shape, dtype=dtype, device=device)
         self.v = torch.zeros(shape, dtype=dtype, device=device)
+        self.k_scale = self.v_scale = None
+        if self.quantized:
+            self.k_scale = torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=device)
+            self.v_scale = torch.zeros_like(self.k_scale)
         self.n_layers = n_layers
         self.num_pages = num_pages
         self.page_size = page_size
         self.n_kv_heads = n_kv_heads
         self.head_dim = head_dim
 
+    def planes(self):
+        """Every stored tensor: K, V, then the scale planes of an int8
+        pool (what a page copy must move)."""
+        return tuple(t for t in (self.k, self.v, self.k_scale, self.v_scale)
+                     if t is not None)
+
     def nbytes(self) -> int:
-        return 2 * self.k.numel() * self.k.element_size()
+        return sum(t.numel() * t.element_size() for t in self.planes())
 
 
 def make_paged_kv_fn(pools: KVPools, page_tables, start_pos, num_tokens,
                      ctx_lens, window=None, attend=ragged_paged_attention):
     """Build the `kv_fn` `transformer_step` calls per layer: write the
     chunk's new K/V into the paged pool in place (``index_copy_`` into a
-    flat per-layer view), then attend over each slot's pages with
-    `attend` (`ragged_paged_attention`; the plain
-    `paged_attention_reference` for an oracle run).
+    flat per-layer view; an int8 pool quantizes each row with
+    `quantize_kv` and writes the row and its scale through the same index,
+    as the JAX package does outside its kernel), then attend over each
+    slot's pages with `attend` (`ragged_paged_attention`; the plain
+    `paged_attention_reference` for an oracle run), given the scale planes
+    of an int8 pool.
 
     page_tables: (B, max_pages) int32; start_pos/num_tokens/ctx_lens: (B,)
     int32, all on the pool's device.  Chunk token c of slot b sits at
@@ -420,11 +443,20 @@ def make_paged_kv_fn(pools: KVPools, page_tables, start_pos, num_tokens,
         flat = phys * ps + pos % ps
         active = ar[None, :] < num_tokens[:, None]
         idx = torch.where(active, flat, NULL_PAGE * ps).reshape(B * C)
-        for pool, new in ((pools.k, k_new), (pools.v, v_new)):
+        for pool, sp, new in ((pools.k, pools.k_scale, k_new),
+                              (pools.v, pools.v_scale, v_new)):
             # (B, Hkv, C, D) -> per-token rows (B*C, Hkv, D)
             rows = new.transpose(1, 2).reshape(B * C, Hkv, D)
+            if sp is not None:
+                rows, scales = quantize_kv(rows)
+                sp[li].view(-1, Hkv).index_copy_(0, idx, scales)
             pool[li].view(-1, Hkv, D).index_copy_(0, idx,
                                                   rows.to(pool.dtype))
+        if pools.quantized:
+            return attend(q.contiguous(), pools.k[li], pools.v[li],
+                          page_tables, ctx_lens, start_pos, window=window,
+                          k_scales=pools.k_scale[li],
+                          v_scales=pools.v_scale[li])
         return attend(q.contiguous(), pools.k[li], pools.v[li], page_tables,
                       ctx_lens, start_pos, window=window)
 

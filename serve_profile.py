@@ -5,7 +5,9 @@
 
 Builds full-width GPT-2 small (seeded random weights) and an
 ``InferenceEngine(ServeConfig(max_slots=8, max_len=512, page_size=16,
-prefill_chunk=16))`` per weight format (f32, int8), fills all 8 slots with
+prefill_chunk=16))`` per weight format (f32, int8), then over an int8 KV
+pool (``kv_dtype="int8"``) with f32 weights and with int8 weights under
+``MXTPU_QUANT_ACT=1``, fills all 8 slots with
 128-token prompts, and traces two windows with ``torch.profiler``: the
 first prefill steps (C=16, every slot prefilling) and a steady decode
 window (C=1).  For each window it reports the host wall per step, the
@@ -89,10 +91,17 @@ def main(argv=None) -> int:
     prompts = [rng.randint(0, cfg.vocab_size, 128).tolist()
                for _ in range(8)]
     out = {"card": torch.cuda.get_device_name(0)}
-    for label, bits in (("float32", 0), ("int8", 8)):
+    for label, bits, kv, act in (("float32", 0, "", None),
+                                 ("int8", 8, "", None),
+                                 ("int8_kv", 0, "int8", None),
+                                 ("int8_kv_act8", 8, "int8", "1")):
+        if act:
+            os.environ["MXTPU_QUANT_ACT"] = act
+        else:
+            os.environ.pop("MXTPU_QUANT_ACT", None)
         eng = InferenceEngine(model, ServeConfig(
             max_slots=8, max_len=512, page_size=16, prefill_chunk=16,
-            quant_bits=bits), seed=0)
+            quant_bits=bits, kv_dtype=kv), seed=0)
         eng.warmup()
         for p in prompts:
             eng.submit(p, max_new_tokens=64)

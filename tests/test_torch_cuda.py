@@ -30,7 +30,10 @@ place of the host's float64 update; f32 and bf16 weights; the skip flag;
 every tunable chunk size; a cold norm tune timed by CUDA events, twice),
 the MoE row gather (dispatch and combine, f32, bf16 and f16, with
 sentinel rows, 16-byte and narrower rows, an unaligned source) and a
-two-step MoE `TrainStep` on the card.
+two-step MoE `TrainStep` on the card; and the int8 KV pool: K1's int8
+variant under f32 and bf16 queries (both variants, D 24-256, windows,
+every split), the int8-activation product padded to the shapes
+``torch._int_mm`` takes, and a small GPT served over an int8 pool.
 
 Marked ``cuda``: each test skips (with its reason) where no card is
 visible, as on the CPU test machine.  Run them on a machine with an H100
@@ -1904,3 +1907,137 @@ def test_gpt_train_step_on_the_card(card):
     np.testing.assert_allclose(runs["kernel"], runs["plain"], rtol=1e-3)
     np.testing.assert_allclose(runs["remat"], runs["kernel"], rtol=1e-5)
     assert runs["kernel"][-1] < runs["kernel"][0]
+
+
+# ---------------------------------------------------------------------------
+# the int8 KV pool: K1's int8 variant, int8 activations, quantized serving
+# ---------------------------------------------------------------------------
+
+def _int8_pools(args):
+    """`_rpa_inputs` with its f32 pools turned into int8 planes and scales
+    (`quantize_kv`), as the serving engine writes them."""
+    from mxnet_tpu_torch.contrib.quantization import quantize_kv
+    q, kp, vp, *rest = args
+    kq, ks = quantize_kv(kp)
+    vq, vs = quantize_kv(vp)
+    return [q, kq, vq] + rest, dict(k_scales=ks, v_scales=vs)
+
+
+@pytest.mark.parametrize("qdt,tol", [(torch.float32, 1e-4),
+                                     (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("C,H,Hkv", [(1, 12, 12), (1, 12, 3), (5, 12, 12),
+                                     (5, 12, 3), (16, 12, 12), (16, 12, 3)])
+@pytest.mark.parametrize("D", [24, 64, 72, 256])
+@pytest.mark.parametrize("windowed", [False, True])
+def test_paged_attention_int8_pool_matches_plain(card, qdt, tol, C, H, Hkv,
+                                                 D, windowed):
+    """The int8 variant under f32 and bf16 queries: few rows (C 1, the
+    verification width 5 over MHA) and tiles (GQA folds, C 16), rows of
+    16-byte and 8-byte pieces (D 72, 24), D 256, with and without a window,
+    an empty slot and a slot with no key; the default plan, one split and
+    one page a split, two calls bit-equal, the int8 counter alone."""
+    ps, maxp = 16, 12
+    cap = ps * maxp
+    start, nt = [0, 37, 100, 150, 7], [C, C, min(C, 3), C, 0]
+    args, sc = _int8_pools(_rpa_inputs(card, torch.float32, C, H, Hkv, D,
+                                       ps, maxp, start, nt, seed=D + C))
+    args[0] = args[0].to(qdt)
+    args[4][4] = 0
+    window = 30 if windowed else None
+    scale = D ** -0.5
+    ref = pa.paged_attention_reference(*args, window=window, scale=scale,
+                                       **sc)
+    plan = pa._plan(5, H, Hkv, C, D, ps, maxp, torch.int8,
+                    kernels.sm_count(card))
+    assert plan.variant == ("few" if H // Hkv * C < 16 else "tile")
+    for p in (plan, _with_span(plan, cap, cap, D),
+              _with_span(plan, ps, cap, D)):
+        kernels.reset_launch_counts()
+        out = pa._rpa_cuda(*args, window, scale, plan=p, **sc)
+        again = pa._rpa_cuda(*args, window, scale, plan=p, **sc)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        assert counts["ragged_paged_attention_int8"] == 2
+        assert counts["ragged_paged_attention"] == 0
+        assert torch.equal(out, again)
+        assert not bool(out[4].float().any())
+        for b, n in enumerate(nt):
+            if n:
+                err = (out[b, :, :n].float() - ref[b, :, :n].float()).abs()
+                assert float(err.max()) <= tol * float(
+                    ref[b, :, :n].float().abs().max()), (b, p)
+
+
+def test_paged_attention_int8_pool_raises_by_name(card):
+    """An int8 pool launches its variant through the dispatcher; without
+    its scale planes it raises, and it never runs the plain version."""
+    args, sc = _int8_pools(_rpa_inputs(card, torch.float32, 1, 4, 4, 64, 16,
+                                       4, [10, 3], [1, 1]))
+    kernels.reset_launch_counts()
+    pa.ragged_paged_attention(*args, **sc)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["ragged_paged_attention_int8"] == 1
+    with pytest.raises(MXNetError, match="k_scales and v_scales"):
+        pa.ragged_paged_attention(*args)
+    with pytest.raises(MXNetError, match="v_scales must be float32"):
+        pa.ragged_paged_attention(*args, k_scales=sc["k_scales"],
+                                  v_scales=sc["v_scales"].half())
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("M,N,K", [(8, 2304, 768), (128, 768, 3072),
+                                   (5, 50257, 768), (17, 70, 33)])
+def test_int8_act_matmul_sums_equal_the_cpu(card, bits, M, N, K):
+    """`torch._int_mm` on the card, padded where it refuses a shape (M <=
+    16, K or N off a multiple of 8): the int32 sums equal the CPU's bit for
+    bit, and the outputs agree to f32 rounding; K2 is not launched."""
+    g = torch.Generator().manual_seed(M + N)
+    x = torch.randn(M, K, generator=g)
+    qt = qm.quantize_weight(torch.randn(N, K, generator=g) * 0.05, bits)
+    xq, _ = qm._quantize_act(x, qt)
+    want = qm.int8_mm_nt(xq, qm._rhs_planes(qt))
+    qc = qt.to(card)
+    got = qm.int8_mm_nt(xq.to(card), qm._rhs_planes(qc))[:, :N]
+    assert torch.equal(got.cpu(), want)
+    kernels.reset_launch_counts()
+    out = qm.quantized_matmul(x.to(card), qc, act_quant=True)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["quantized_matmul"] == 0
+    ref = qm.int8_act_matmul(x, qt)
+    assert float((out.cpu() - ref).abs().max()) <= 1e-6 * float(
+        ref.abs().max())
+
+
+@pytest.mark.parametrize("bits,act", [(0, False), (8, True)])
+def test_int8_pool_engine_on_the_card(card, monkeypatch, bits, act):
+    """A small GPT served over an int8 pool on the card (K1's int8 variant
+    once a layer a fused step; under ``MXTPU_QUANT_ACT`` no K2) gives the
+    plain engine's greedy streams."""
+    from mxnet_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    from mxnet_tpu_torch.serve import InferenceEngine, ServeConfig
+    if act:
+        monkeypatch.setenv("MXTPU_QUANT_ACT", "1")
+    cfg = GPTConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                    num_heads=4, intermediate_size=256, max_position=128,
+                    dropout=0.0)
+    model = GPTForCausalLM(cfg, device=card, seed=0)
+    sc = ServeConfig(max_slots=4, page_size=16, prefill_chunk=16,
+                     max_len=96, kv_dtype="int8", quant_bits=bits)
+    prompts = [list(range(3, 3 + n)) for n in (5, 40, 17, 64, 1)]
+    outs = {}
+    for plain in (False, True):
+        eng = InferenceEngine(model, sc, device=card, plain_ops=plain)
+        kernels.reset_launch_counts()
+        hs = [eng.submit(p, max_new_tokens=12) for p in prompts]
+        eng.run_until_idle()
+        outs[plain] = [h.result(timeout=0) for h in hs]
+        counts = kernels.launch_counts()
+        steps = eng.stats()["steps_executed"]
+        if plain:
+            assert not any(counts.values())
+        else:
+            assert counts["ragged_paged_attention_int8"] == 2 * steps
+            assert counts["ragged_paged_attention"] == 0
+            assert counts["quantized_matmul"] == 0 if act or not bits \
+                else counts["quantized_matmul"] > 0
+    assert outs[False] == outs[True]

@@ -149,7 +149,8 @@ def test_kernel_sources_and_counters():
                                             "quantized_matmul.cu",
                                             "softmax_xent.cu"]
     assert set(kernels.LAUNCHES) == {
-        "ragged_paged_attention", "quantized_matmul", "flash_attention_fwd",
+        "ragged_paged_attention", "ragged_paged_attention_int8",
+        "quantized_matmul", "flash_attention_fwd",
         "flash_attention_bwd", "softmax_xent_fwd", "softmax_xent_bwd",
         "fused_norm", "fused_optimizer_chunk", "lamb_phase_a",
         "lamb_phase_b", "moe_dispatch", "moe_combine"}

@@ -4,7 +4,9 @@ against the JAX package's reference and its Pallas kernel in interpret mode.
 The same numpy inputs (from a seed) go through both packages.  Tolerance:
 atol/rtol 1e-5 in float32 — both sides compute the same f32 arithmetic and
 differ only in summation order.  Only valid rows (chunk rows below a slot's
-token count) are compared: padded rows are garbage by contract.
+token count) are compared: padded rows are garbage by contract.  Over an
+int8 pool (the JAX package's `quantize_kv` planes and scales handed to
+both) the references agree within 1e-5 of the output's scale.
 """
 import numpy as np
 import pytest
@@ -148,6 +150,111 @@ def test_empty_slot_and_padded_context_are_exact():
     assert torch.isfinite(a).all()
 
 
+def _int8_pools(kp, vp):
+    """JAX's int8 planes and scales of two f32 pools (numpy)."""
+    from mxnet_tpu.contrib.quantization import quantize_kv
+    out = []
+    for pool in (kp, vp):
+        q, sc = quantize_kv(jnp.asarray(pool))
+        out += [np.asarray(q), np.asarray(sc)]
+    return out
+
+
+# C 1 (decode), 5 (the verification width), 16 (the prefill chunk); MHA
+# and GQA; with and without a window; D 24, 64 and Gemma 2B's 256
+INT8_CASES = [pytest.param(C, H, Hkv, window, D,
+                           id=f"C{C}-H{H}kv{Hkv}-w{window}-D{D}")
+              for C in (1, 5, 16) for (H, Hkv) in ((4, 4), (8, 2))
+              for window in (None, 3) for D in (24, 64, 256)]
+
+
+@pytest.mark.parametrize("C,H,Hkv,window,D", INT8_CASES)
+def test_int8_pool_reference_matches_jax_reference(C, H, Hkv, window, D):
+    B, ps, npages, maxp = 4, 8, 24, 5
+    start = [0, 13, 22, 0]
+    nt = [C, max(1, C - 3), 1, 0]
+    q, kp, vp, pt, ctx, st, nt = _inputs(7, B, H, Hkv, C, D, ps, npages,
+                                         maxp, start, nt)
+    kq, ks, vq, vs = _int8_pools(kp, vp)
+    ref = np.asarray(jpa.paged_attention_reference(
+        *_jax(q, kq, vq, pt, ctx, st), window=window,
+        k_scales=jnp.asarray(ks), v_scales=jnp.asarray(vs)))
+    tq_, tk, tv, tpt, tctx, tst, tks, tvs = _torch(q, kq, vq, pt, ctx, st,
+                                                   ks, vs)
+    out = tpa.paged_attention_reference(tq_, tk, tv, tpt, tctx, tst,
+                                        window=window, k_scales=tks,
+                                        v_scales=tvs)
+    # the dispatcher on a CPU tensor: the same plain version, no launch
+    kernels.reset_launch_counts()
+    disp = tpa.ragged_paged_attention(tq_, tk, tv, tpt, tctx, tst,
+                                      window=window, k_scales=tks,
+                                      v_scales=tvs)
+    assert set(kernels.launch_counts().values()) == {0}
+    assert torch.equal(disp, out)
+    scale = max(float(np.abs(ref[b, :, :n]).max())
+                for b, n in enumerate(nt) if n)
+    for b, n in enumerate(nt):
+        err = np.abs(out.numpy()[b, :, :n] - ref[b, :, :n])
+        assert err.size == 0 or float(err.max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("out_dtype", [None, "bfloat16"])
+def test_int8_pool_reference_dtypes_match_jax(out_dtype):
+    """bf16 queries over an int8 pool: the gathered context is
+    dequantized in f32, then cast to ``out_dtype`` or q's dtype, as in
+    JAX."""
+    B, H, Hkv, C, D, ps = 2, 4, 2, 3, 16, 8
+    q, kp, vp, pt, ctx, st, nt = _inputs(8, B, H, Hkv, C, D, ps, 9, 3,
+                                         [5, 11], [3, 2])
+    kq, ks, vq, vs = _int8_pools(kp, vp)
+    jq_ = jnp.asarray(q).astype(jnp.bfloat16)
+    ref = jpa.paged_attention_reference(
+        jq_, *_jax(kq, vq, pt, ctx, st), k_scales=jnp.asarray(ks),
+        v_scales=jnp.asarray(vs), out_dtype=out_dtype and jnp.bfloat16)
+    tq_, tk, tv, tpt, tctx, tst, tks, tvs = _torch(q, kq, vq, pt, ctx, st,
+                                                   ks, vs)
+    out = tpa.paged_attention_reference(
+        tq_.bfloat16(), tk, tv, tpt, tctx, tst, k_scales=tks, v_scales=tvs,
+        out_dtype=out_dtype and torch.bfloat16)
+    assert out.dtype == torch.bfloat16
+    ref = np.asarray(ref.astype(jnp.float32))
+    for b, n in enumerate(nt):
+        np.testing.assert_allclose(out.float().numpy()[b, :, :n],
+                                   ref[b, :, :n], rtol=2e-2, atol=2e-2)
+
+
+def test_gather_pages_dequantizes_like_jax():
+    rng = np.random.RandomState(9)
+    pool = rng.randint(-127, 128, (9, 4, 2, 8)).astype(np.int8)
+    scales = rng.rand(9, 4, 2).astype(np.float32)
+    pt = rng.randint(0, 9, (3, 2)).astype(np.int32)
+    ref = jpa.gather_pages(jnp.asarray(pool), jnp.asarray(pt),
+                           jnp.asarray(scales))
+    out = tpa.gather_pages(*_torch(pool, pt, scales))
+    assert out.dtype == torch.float32
+    np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
+
+
+def test_int8_pool_checks_raise_by_name():
+    """The kernel's checks (run before any launch): an int8 pool needs
+    both scale planes, a float pool takes none, the planes are f32 of the
+    pool's (pages, page size, kv heads)."""
+    from mxnet_tpu_torch.base import MXNetError
+    q, kp, vp, pt, ctx, st, _ = _inputs(6, 1, 2, 2, 1, 8, 8, 4, 1, [0], [1])
+    kq, ks, vq, vs = _torch(*_int8_pools(kp, vp))
+    tq_, tpt, tctx, tst = _torch(q, pt, ctx, st)
+    with pytest.raises(MXNetError, match="needs k_scales and v_scales"):
+        tpa._check(tq_, kq, vq, tpt, tctx, tst)
+    with pytest.raises(MXNetError, match="needs k_scales and v_scales"):
+        tpa._check(tq_, *_torch(kp, vp), tpt, tctx, tst, ks, vs)
+    with pytest.raises(MXNetError, match="k_scales must be float32"):
+        tpa._check(tq_, kq, vq, tpt, tctx, tst, ks.double(), vs)
+    with pytest.raises(MXNetError, match="v_scales must be float32"):
+        tpa._check(tq_, kq, vq, tpt, tctx, tst, ks, vs[:, :4])
+    with pytest.raises(MXNetError, match="an int8 pool"):
+        tpa._check(tq_, kq, vq.bfloat16(), tpt, tctx, tst, ks, vs)
+
+
 def test_head_mismatch_raises():
     from mxnet_tpu_torch.base import MXNetError
     q, kp, vp, pt, ctx, st, _ = _inputs(5, 1, 3, 2, 1, 8, 8, 4, 1, [0], [1])
@@ -215,6 +322,23 @@ def test_plan_workspace_rows_are_whole_16_byte_units(D, row):
     plan = tpa._plan(8, 12, 12, 1, D, 16, 32, torch.float32, SMS)
     assert plan.split > 1
     assert plan.workspace == plan.groups * plan.split * plan.row_tile * row
+
+
+@pytest.mark.parametrize("D", [24, 64, 72, 256])
+@pytest.mark.parametrize("C,H,Hkv", [(1, 12, 12), (5, 12, 12), (1, 12, 3),
+                                     (16, 12, 3)])
+def test_plan_of_an_int8_pool(C, H, Hkv, D):
+    """An int8 pool's rows are a quarter of f32's: its rings always fit
+    four warps; the split and rows follow the same rules as the float
+    pools' (the variant by folded rows, whole-page spans)."""
+    for maxp in (1, 32, 256):
+        p8 = tpa._plan(8, H, Hkv, C, D, 16, maxp, torch.int8, SMS)
+        pf = tpa._plan(8, H, Hkv, C, D, 16, maxp, torch.float32, SMS)
+        assert p8.warps == 4 and p8.warps >= pf.warps
+        assert (p8.variant, p8.row_tile, p8.groups) == (
+            pf.variant, pf.row_tile, pf.groups)
+        assert p8.span % 16 == 0 and p8.split == -(-maxp * 16 // p8.span)
+        assert p8.span >= p8.warps * tpa.KEY_TILE or p8.split == 1
 
 
 def test_plan_is_memoised():

@@ -4,7 +4,9 @@
 Quantization must agree BIT FOR BIT (planes and scales): both sides round
 half to even over the same f32 arithmetic.  The matmul is compared at
 rtol 1e-5 / atol 1e-6 in float32 (same dequantized weight, summation order
-differs).
+differs).  The int8-activation path (``MXTPU_QUANT_ACT``) must give JAX's
+int8 activations and int32 sums bit for bit, and its outputs within 1e-6
+of their scale.
 """
 import numpy as np
 import pytest
@@ -115,10 +117,17 @@ def test_guards_raise():
 
 
 def test_int8_activation_path_raises_until_ported(monkeypatch):
+    """The int8-activation path is ported: ``MXTPU_QUANT_ACT=1`` no longer
+    raises, takes `int8_act_matmul` and launches no kernel."""
     monkeypatch.setenv("MXTPU_QUANT_ACT", "1")
     tq = tqm.quantize_weight(torch.randn(4, 8), 8)
-    with pytest.raises(MXNetError, match="not ported"):
-        tqm.quantized_matmul(torch.randn(2, 8), tq)
+    x = torch.randn(2, 8)
+    kernels.reset_launch_counts()
+    assert torch.equal(tqm.quantized_matmul(x, tq),
+                       tqm.int8_act_matmul(x, tq))
+    assert torch.equal(tqm.matmul_nt_reference(x, tq),
+                       tqm.int8_act_matmul(x, tq))
+    assert set(kernels.launch_counts().values()) == {0}
 
 
 @pytest.mark.parametrize("mode,on_card", [("auto", True), ("kernel", True),
@@ -246,3 +255,160 @@ def test_tuned_plan_is_looked_up_once_per_generation(monkeypatch, tmp_path):
         assert calls[-1][1:] == ((8, 2304, 768), "int4_bfloat16")
     finally:
         at.clear_memory_cache()
+
+
+# ---------------------------------------------------------------------------
+# int8 activations (MXTPU_QUANT_ACT) against JAX's int8_act_matmul
+# ---------------------------------------------------------------------------
+
+def _jax_act_quant(x, jq, act_amax):
+    """JAX's `int8_act_matmul` up to its int32 sums (xq, x_scale, acc), in
+    its own expressions: the function returns only the scaled output."""
+    import jax
+    xf = x.astype(jnp.float32)
+    if act_amax is None:
+        act_amax = jq.act_amax
+    amax = jnp.max(jnp.abs(xf)) if act_amax is None else \
+        jnp.asarray(act_amax, jnp.float32)
+    x_scale = amax / 127.0
+    inv = jnp.where(x_scale > 0.0, 1.0 / jnp.maximum(x_scale, 1e-30), 0.0)
+    xq = jnp.clip(jnp.round(xf * inv), -127, 127).astype(jnp.int8)
+    q = jq.q if jq.bits == 8 else jqm.unpack_int4(jq.q, jq.in_features)
+    acc = jax.lax.dot_general(xq, q, (((xf.ndim - 1,), (1,)), ((), ())),
+                              preferred_element_type=jnp.int32)
+    return xq, x_scale, acc
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("calib", ["dynamic", "argument", "on_weight",
+                                   "clipping"])
+def test_int8_act_matmul_matches_jax(bits, dtype, calib):
+    rng = np.random.RandomState(11)
+    w = _weight(3, 24, 40)
+    x = (rng.randn(3, 5, 40) * 1.7).astype(np.float32)
+    x[0, 0] = 0.0
+    thr = {"dynamic": None, "argument": 3.5, "on_weight": 4.25,
+           "clipping": 0.75}[calib]
+    on_w = calib == "on_weight"
+    arg = None if on_w else thr
+    jq = jqm.quantize_weight(jnp.asarray(w), bits,
+                             act_amax=thr if on_w else None)
+    tq = tqm.quantize_weight(torch.from_numpy(w), bits,
+                             act_amax=thr if on_w else None)
+    assert tq.act_amax == jq.act_amax
+    jx = jnp.asarray(x).astype(dtype)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    jxq, jscale, jacc = _jax_act_quant(jx, jq, arg)
+    txq, tscale = tqm._quantize_act(tx, tq, arg)
+    np.testing.assert_array_equal(txq.numpy(), np.asarray(jxq))
+    assert np.float32(float(tscale)) == np.asarray(jscale)
+    tacc = tqm.int8_mm_nt(txq.reshape(-1, 40), tqm._rhs_planes(tq))
+    np.testing.assert_array_equal(tacc.numpy(),
+                                  np.asarray(jacc).reshape(-1, 24))
+    jout = np.asarray(jqm.int8_act_matmul(jx, jq, act_amax=arg)
+                      .astype(jnp.float32))
+    tout = tqm.int8_act_matmul(tx, tq, act_amax=arg)
+    assert tout.dtype == tx.dtype and tout.shape == (3, 5, 24)
+    scale = float(np.abs(jout).max())
+    assert float(np.abs(tout.float().numpy() - jout).max()) <= 1e-6 * scale
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 768, 2304), (1, 33, 50), (5, 40, 7),
+                                   (17, 16, 24), (64, 100, 50257 % 64)])
+def test_int_mm_padding_keeps_the_sums(M, K, N):
+    """The card's ``torch._int_mm`` refuses M <= 16 and K or N off a
+    multiple of 8: `_int_mm_padded` pads with zeros and slices back, which
+    must give the unpadded sums exactly (here through the CPU's
+    ``_int_mm``, which takes every shape), also over planes `_rhs_planes`
+    already padded."""
+    g = torch.Generator().manual_seed(M * 7 + K)
+    a = torch.randint(-127, 128, (M, K), generator=g, dtype=torch.int8)
+    b = torch.randint(-127, 128, (N, K), generator=g, dtype=torch.int8)
+    want = a.int() @ b.int().T
+    assert torch.equal(tqm.int8_mm_nt(a, b), want)
+    assert torch.equal(tqm._int_mm_padded(a, b), want)
+    bp = tqm._pad_to(b, -(-N // 8) * 8, -(-K // 8) * 8)
+    assert torch.equal(tqm._int_mm_padded(a, bp)[:, :N], want)
+
+
+def test_act_quant_env_routes(monkeypatch):
+    """JAX's `test_act_quant_env_routes`: the env flag equals an explicit
+    ``act_quant=True``, and ``act_quant=False`` is the weight-only path."""
+    monkeypatch.setenv("MXTPU_QUANT_ACT", "1")
+    rng = np.random.RandomState(7)
+    x = torch.from_numpy(rng.randn(4, 16).astype(np.float32))
+    tq = tqm.quantize_weight(
+        torch.from_numpy(rng.randn(6, 16).astype(np.float32)), 8)
+    env_routed = tqm.quantized_matmul(x, tq)
+    explicit = tqm.quantized_matmul(x, tq, act_quant=True)
+    assert torch.equal(env_routed, explicit)
+    weight_only = tqm.quantized_matmul(x, tq, act_quant=False)
+    assert torch.equal(weight_only, tqm.quantized_matmul_reference(x, tq))
+    monkeypatch.delenv("MXTPU_QUANT_ACT")
+    assert not tqm.act_quant_enabled()
+    assert torch.equal(tqm.quantized_matmul(x, tq), weight_only)
+    assert torch.equal(tqm.matmul_nt(x, tq, act_amax=2.0),
+                       weight_only)
+    monkeypatch.setenv("MXTPU_QUANT_ACT", "1")
+    assert torch.equal(tqm.matmul_nt(x, tq, act_amax=2.0),
+                       tqm.int8_act_matmul(x, tq, act_amax=2.0))
+
+
+def test_act_quant_backward_is_dx_against_the_dequantized_weight():
+    """JAX's ``custom_vjp``: under act quant the cotangent of x is dy times
+    the dequantized weight; the rounding passes no gradient of its own."""
+    import jax
+    rng = np.random.RandomState(8)
+    w = _weight(4, 12, 16)
+    x = rng.randn(3, 16).astype(np.float32)
+    dy = rng.randn(3, 12).astype(np.float32)
+    jq = jqm.quantize_weight(jnp.asarray(w), 8)
+    jdx = jax.grad(lambda v: jnp.sum(jqm.quantized_matmul(
+        v, jq, act_quant=True) * dy))(jnp.asarray(x))
+    tq = tqm.quantize_weight(torch.from_numpy(w), 8)
+    tx = torch.from_numpy(x).requires_grad_()
+    (tqm.quantized_matmul(tx, tq, act_quant=True)
+     * torch.from_numpy(dy)).sum().backward()
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jdx), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_quantize_decode_weights_thresholds_match_jax():
+    """`quantize_decode_weights(thresholds=)` puts the same ``act_amax`` on
+    every leaf as JAX's: a leaf's own name first, then its kind."""
+    from mxnet_tpu.serve import decode as jdecode
+    from mxnet_tpu_torch.serve import decode as tdecode
+    rng = np.random.RandomState(9)
+    shapes = dict(wqkv=(48, 16), wo=(16, 16), w1=(32, 16), w2=(16, 32))
+    layers = [{k: rng.randn(*s).astype(np.float32)
+               for k, s in shapes.items()} for _ in range(2)]
+    for L in layers:
+        L["bqkv"] = rng.randn(48).astype(np.float32)
+    embed = rng.randn(40, 16).astype(np.float32)
+    thr = {"layers.0.wqkv": 2.0, "layers.1.w2": 7.5, "wo": 3.0,
+           "embed": 1.5}
+
+    def tree(conv):
+        return dict(embed=conv(embed), pos=None, head=None,
+                    lnf_g=conv(np.ones(16, np.float32)),
+                    lnf_b=conv(np.zeros(16, np.float32)),
+                    layers=[{k: conv(v) for k, v in L.items()}
+                            for L in layers])
+    for include in ((), ("embed",)):
+        jP, jinfo = jdecode.quantize_decode_weights(
+            tree(jnp.asarray), 8, include=include, thresholds=thr)
+        tP, tinfo = tdecode.quantize_decode_weights(
+            tree(torch.from_numpy), 8, include=include, thresholds=thr)
+        assert tinfo == jinfo
+        for li in range(2):
+            for k in shapes:
+                assert tP["layers"][li][k].act_amax == \
+                    jP["layers"][li][k].act_amax, (li, k)
+        assert getattr(tP["embed"], "act_amax", None) == \
+            getattr(jP["embed"], "act_amax", None)
+    assert tP["layers"][0]["wqkv"].act_amax == 2.0
+    assert tP["layers"][1]["wqkv"].act_amax is None
+    assert tP["layers"][1]["wo"].act_amax == 3.0
+    # a quantized weight carries its threshold to another device
+    assert tP["layers"][1]["w2"].to("cpu").act_amax == 7.5

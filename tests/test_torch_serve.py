@@ -7,7 +7,14 @@ is initialised from a seed, its parameters are carried into the port with
 - greedy streams token for token: `GPTForCausalLM.generate` against JAX
   `generate`, and the port's `InferenceEngine(device="cpu")` against JAX's
   `InferenceEngine` with 6 concurrent requests over a pool small enough to
-  force an eviction, for MHA, GQA, RoPE and int8/int4 weights.
+  force an eviction, for MHA, GQA, RoPE and int8/int4 weights;
+- the int8 KV pool (``kv_dtype="int8"``) against JAX's int8 engine, alone,
+  under int8/int4 weights and under ``MXTPU_QUANT_ACT=1`` with calibrated
+  thresholds: greedy streams token for token except where JAX's top-2
+  logit gap (over int8 K/V) is below 1e-4; the int8 planes after a prefill
+  step equal JAX's in at least 99.9% of entries and never off by more than
+  one, the scales within 1e-6 relative; pool bytes, page bytes and the auto
+  pool's bonus pages equal.
 
 Sampled streams cannot match JAX's PRNG: they are held to determinism from
 the engine seed and to the top-k/top-p support.
@@ -284,6 +291,143 @@ def test_submit_validation_matches_jax_messages():
         eng.submit([1, 2], max_new_tokens=0)
 
 
+# ---------------------------------------------------------------------------
+# the int8 KV pool and int8 activations against JAX's engine
+# ---------------------------------------------------------------------------
+
+GAP = 1e-4
+
+
+def _jax_gap(jeng, cfg, prefix):
+    """JAX's top-2 logit gap for the token after `prefix`, through its
+    decode core with the engine's weights and K/V rounded through
+    `quantize_kv` as its int8 pool stores them."""
+    from mxnet_tpu.contrib.quantization import dequantize_kv, quantize_kv
+    T = len(prefix)
+    Hkv = cfg.num_kv_heads or cfg.num_heads
+    D = cfg.hidden_size // cfg.num_heads
+    pos = jnp.arange(T, dtype=jnp.int32)[None]
+    shape = (cfg.num_layers, 1, Hkv, T, D)
+    kv, _ = jdecode.dense_kv_fn(jnp.zeros(shape), jnp.zeros(shape), pos)
+
+    def int8_kv(li, q, k, v):
+        k, v = (dequantize_kv(*quantize_kv(x)) for x in (k, v))
+        return kv(li, q, k, v)
+    h = jdecode.transformer_step(jeng.P, cfg, jnp.asarray([prefix],
+                                                          jnp.int32),
+                                 pos, int8_kv)
+    top = np.sort(np.asarray(jdecode.lm_logits(jeng.P, h[:, -1])[0]))
+    return float(top[-1] - top[-2])
+
+
+def _assert_streams_match(tout, jout, jeng, cfg):
+    for t, j in zip(tout, jout):
+        if t != j:
+            k = next(i for i, (a, b) in enumerate(zip(t, j)) if a != b)
+            assert _jax_gap(jeng, cfg, j[:k]) < GAP, (t, j)
+
+
+def _thresholds(tm):
+    """Calibrated activation thresholds of every quantized projection: a
+    `LayerCalibrator` over the inputs each one sees in a forward of the
+    six prompts (layers.<i>.<name>, as the JAX package keys them)."""
+    from mxnet_tpu_torch.contrib.quantization import LayerCalibrator
+    cal = LayerCalibrator()
+    P = decode.extract_decode_weights(tm)
+
+    def observing(x, w, name):
+        cal.observe(name, x)
+        return x @ w.T
+
+    for prompt in PROMPTS:
+        tok = torch.tensor([prompt])
+        pos = torch.arange(len(prompt))[None]
+        T, cfg = len(prompt), tm.cfg
+        Hkv = cfg.num_kv_heads or cfg.num_heads
+        shape = (cfg.num_layers, 1, Hkv, T, cfg.hidden_size // cfg.num_heads)
+        kv = decode.dense_kv_fn(torch.zeros(shape), torch.zeros(shape), pos)
+        names = iter(f"layers.{li}.{k}" for li in range(cfg.num_layers)
+                     for k in ("wqkv", "wo", "w1", "w2"))
+        with torch.inference_mode():
+            decode.transformer_step(P, cfg, tok, pos, kv,
+                                    matmul=lambda x, w: observing(
+                                        x, w, next(names)))
+    return cal.thresholds()
+
+
+@pytest.mark.parametrize("variant,bits,act", [
+    ("mha", 0, False), ("gqa", 0, False), ("rope", 0, False),
+    ("mha", 8, False), ("mha", 4, False), ("mha", 8, True),
+    ("gqa", 4, True), ("mha", 8, "calibrated")])
+def test_int8_pool_streams_match_jax_engine(monkeypatch, variant, bits,
+                                            act):
+    if act:
+        monkeypatch.setenv("MXTPU_QUANT_ACT", "1")
+    jm, tm = _pair(variant)
+    thr = _thresholds(tm) if act == "calibrated" else None
+    sc = dict(_SC, kv_dtype="int8", quant_bits=bits)
+    jeng = JEngine(jm, JServeConfig(**sc), act_thresholds=thr)
+    teng = InferenceEngine(tm, ServeConfig(**sc), device="cpu",
+                           act_thresholds=thr)
+    assert teng.quantized and jeng.quantized
+    assert teng.pools.k.dtype == torch.int8
+    if thr:
+        assert teng.P["layers"][1]["w1"].act_amax == \
+            jeng.P["layers"][1]["w1"].act_amax == thr["layers.1.w1"]
+    assert teng.pools.nbytes() == jeng.pools.nbytes()
+    assert teng._page_nbytes() == jeng._page_nbytes(jeng._kv_dtype)
+    jout, jev = _serve_six(jeng)
+    tout, tev = _serve_six(teng)
+    assert jev >= 1 and tev >= 1
+    _assert_streams_match(tout, jout, jeng, jm.cfg)
+
+
+@pytest.mark.parametrize("variant", ["mha", "gqa"])
+def test_int8_pool_planes_after_prefill_match_jax(variant):
+    jm, tm = _pair(variant)
+    sc = dict(max_slots=3, page_size=4, prefill_chunk=8, max_len=40,
+              kv_dtype="int8")
+    jeng = JEngine(jm, JServeConfig(**sc))
+    teng = InferenceEngine(tm, ServeConfig(**sc), device="cpu")
+    for eng in (jeng, teng):
+        for p in PROMPTS[:3]:
+            eng.submit(p, max_new_tokens=4)
+        eng.step()
+    arrs = jeng.pools.arrays
+    # page 0 is the null page: padded rows land there in either order
+    for name in ("k", "v"):
+        got = getattr(teng.pools, name)[:, 1:].numpy().astype(np.int32)
+        want = np.asarray(arrs[name])[:, 1:].astype(np.int32)
+        off = np.abs(got - want)
+        assert off.max() <= 1
+        assert (off == 0).mean() >= 0.999
+        gs = getattr(teng.pools, name + "_scale")[:, 1:].numpy()
+        ws = np.asarray(arrs[name + "_scale"])[:, 1:]
+        assert np.any(ws > 0)
+        np.testing.assert_allclose(gs, ws, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("bits", [0, 8, 4])
+def test_int8_pool_bytes_and_auto_bonus_pages_match_jax(bits):
+    jm, tm = _pair("gqa")
+    sc = dict(max_slots=2, page_size=4, prefill_chunk=4, max_len=32,
+              kv_dtype="int8", quant_bits=bits)
+    jeng = JEngine(jm, JServeConfig(**sc))
+    teng = InferenceEngine(tm, ServeConfig(**sc), device="cpu")
+    assert teng.bonus_pages == jeng.bonus_pages
+    assert (teng.bonus_pages > 0) == (bits > 0)
+    assert teng.allocator.num_pages == jeng.allocator.num_pages
+    assert teng.pools.nbytes() == jeng.pools.nbytes()
+    assert teng._page_nbytes() == jeng._page_nbytes(jeng._kv_dtype)
+    # D + 4 bytes a stored vector (K and V, every layer)
+    cfg = tm.cfg
+    D = cfg.hidden_size // cfg.num_heads
+    assert teng._page_nbytes() == 2 * cfg.num_layers * 4 * 2 * (D + 4)
+    assert tuple(teng.pools.k_scale.shape) == \
+        tuple(jeng.pools.arrays["k_scale"].shape)
+    assert teng.stats()["kv_dtype"] == "int8"
+
+
 def test_serve_config_env_defaults_and_unported_features(monkeypatch):
     monkeypatch.setenv("MXTPU_SERVE_SLOTS", "3")
     monkeypatch.setenv("MXTPU_SERVE_PAGE_SIZE", "32")
@@ -296,9 +440,15 @@ def test_serve_config_env_defaults_and_unported_features(monkeypatch):
     with pytest.raises(MXNetError, match="quant_bits"):
         ServeConfig(quant_bits=3)
     _, tm = _pair("mha")
-    for kw in ({"kv_dtype": "int8"}, {"tp": 2}, {"role": "prefill"}):
+    for kw in ({"tp": 2}, {"role": "prefill"}):
         with pytest.raises(MXNetError, match="ROADMAP"):
             InferenceEngine(tm, ServeConfig(**kw), device="cpu")
+    # the int8 KV pool is ported (and MXTPU_SERVE_KV_DTYPE reaches it)
+    monkeypatch.setenv("MXTPU_SERVE_KV_DTYPE", "int8")
+    eng = InferenceEngine(tm, ServeConfig(max_slots=1, max_len=32),
+                          device="cpu")
+    assert eng.quantized and eng.pools.k_scale is not None
+    monkeypatch.delenv("MXTPU_SERVE_KV_DTYPE")
     # speculation and the prefix cache are ported
     eng = InferenceEngine(tm, ServeConfig(max_slots=1, max_len=32,
                                           spec_tokens=2, prefix_cache=True),

@@ -9,7 +9,10 @@ and reference counts of `PageAllocator` + `PrefixIndex` over one seeded op
 sequence; streams, `spec_stats()` counts, prefix hits and COW forks of
 JAX's `InferenceEngine` with the same `ServeConfig`, token for token.  The
 port's engine with speculation off is held to the same streams.  The
-property tests mirror ``tests/unittest/test_spec_prefix.py``.
+property tests mirror ``tests/unittest/test_spec_prefix.py``.  An int8 KV
+pool (``kv_dtype="int8"``) under speculation and the prefix cache is held
+to JAX's int8 engine the same way: its copy-on-write forks must carry the
+scale planes with the rows.
 """
 import numpy as np
 import pytest
@@ -362,6 +365,44 @@ def test_spec_and_prefix_cache_together_match_jax_and_release_every_page():
     want, _ = _serve(InferenceEngine(tm, ServeConfig(**_SC), device="cpu"),
                      prompts, 12)
     assert tout == want
+
+
+@pytest.mark.parametrize("variant", ["mha", "gqa"])
+def test_int8_pool_spec_and_prefix_cache_match_jax(variant):
+    """The int8 pool under speculation and the prefix cache: a fork is
+    certain (a non-page-aligned shared prefix), so a copy that left the
+    scale planes behind would read stale scales and change streams."""
+    prefix, prompts = _periodic_prompts(1, 6)
+    sc = dict(_SC, spec_tokens=4, prefix_cache=True, kv_dtype="int8")
+    jeng, teng = _engines(variant, **sc)
+    jout, jh = _serve(jeng, prompts, 12, primer=prefix)
+    tout, th = _serve(teng, prompts, 12, primer=prefix)
+    assert tout == jout
+    tst = teng.scheduler.spec_stats()
+    assert tst == jeng.scheduler.spec_stats()
+    assert tst["prefix_hit_tokens"] > 0 and tst["cow_forks"] >= 1
+    assert tst["accepted"] > 0
+    assert teng.allocator.free_pages == jeng.allocator.free_pages
+    # without the scale planes in the copy, the forked pages read zeros
+    _, tm = _pair(variant)
+    broken = InferenceEngine(tm, ServeConfig(**sc), device="cpu")
+    broken.copy_page = lambda src, dst: [
+        p[:, dst].copy_(p[:, src]) for p in (broken.pools.k, broken.pools.v)]
+    bout, _ = _serve(broken, prompts, 12, primer=prefix)
+    assert bout != tout
+
+
+def test_copy_page_copies_the_int8_scale_planes():
+    _, tm = _pair()
+    eng = InferenceEngine(tm, ServeConfig(prefix_cache=True,
+                                          kv_dtype="int8", **_SC),
+                          device="cpu")
+    for t in eng.pools.planes():
+        t[:, 3] = torch.randint(1, 100, t[:, 3].shape).to(t.dtype)
+    eng.copy_page(3, 5)
+    assert len(eng.pools.planes()) == 4
+    for t in eng.pools.planes():
+        assert torch.equal(t[:, 5], t[:, 3]) and not t[:, 4].any()
 
 
 def test_step_widths_and_warmup_cover_the_verify_width():
