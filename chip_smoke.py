@@ -303,6 +303,29 @@ step again under the rest of the optimizer family and its schedulers:
    ``acc_delta + eps`` (through the ``Trainer``'s bf16 state) and FTML with
    its v and z slots exchanged — must each fail the first-step check or the
    trajectory.
+20. (amp) the train phase's BERT-base configuration (full width and depth,
+   seed 0, 64 x 128, 20 masked, dropout 0.1, Adam lr 1e-4, 20 steps) under
+   mixed precision (`AMP_RUNS`): fp16 AMP over f32 weights through the
+   gluon ``Trainer`` with ``amp.init_trainer`` and the user's loop (``with
+   amp.scale_loss(loss, trainer) as s: s.backward()``, then
+   ``trainer.step(1)``); the same with the weights cast to f16
+   (``amp.convert_hybrid_block``) and ``multi_precision=True``; bf16 AMP
+   over f32 weights through ``TrainStep``.  The fp16 runs' loss is
+   multiplied by inf at step `AMP_POISON_STEP` (JAX's overflow drill).
+   Launches exact by kernel and input dtype (`amp_want_launches`: flash
+   and cross-entropy in the AMP dtype, the norm in f32, the chunk once an
+   applied step, none under ``multi_precision``); each run against its
+   oracle (the plain versions behind the same casts, no launch): the loss
+   trajectory within the larger of 1e-3 and ten one-ulp floors measured
+   in the same call (one weight element one AMP-dtype ulp away), the same
+   skipped steps (the poisoned one among them), the weights in their
+   declared dtypes with f32 masters under ``multi_precision``, the loss
+   falls; a planted fault (the ``Trainer`` applying an overflowed step)
+   must fail the gate.  Prints samples/s, step ms, peak memory, the loss
+   scales and the skipped steps.  k3 and k4 hold the f16 kernels at
+   BERT's and GPT-2's shapes and at D 256 (`FLASH_F16`, f16 `XENT_SHAPES`)
+   within 5e-3 of the output scale, beside SDPA and ``cross_entropy`` on
+   the f16 inputs.
 
 Every count is reset just before a run it reports and read just after.
 The last three stdout lines are the ``nvidia-smi`` card line, the
@@ -326,14 +349,15 @@ import traceback
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GAP = 1e-4            # near-tie threshold on the plain path's top-2 gap
-TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # max-abs / output scale
+# max-abs / output scale; f16 keeps 3 more mantissa bits than bf16
+TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 5e-3}
 HBM_BPS = 3.35e12     # H100 SXM HBM3
 # FMA f32 / dense bf16 tensor cores / two TF32 tensor-core products a
 # multiply-add (f32 x split hi + lo, K2's exact f32 route): half of 495 /
 # three (both operands split, 3xTF32: the flash backward's f32 route): a
 # third of 495
-PEAK = {"float32": 67e12, "bfloat16": 989e12, "tf32x2": 247.5e12,
-        "tf32x3": 165e12}
+PEAK = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12,
+        "tf32x2": 247.5e12, "tf32x3": 165e12}
 TRAIN_STEPS = 20
 OPT_RTOL = 1e-5       # optimizer kernels vs plain, of each tensor's scale
 OPT_MISMATCH = 1e-4   # share of bf16 weight elements off the plain value
@@ -1132,6 +1156,10 @@ FLASH_CASES = ("none", "pad", "row", "causal", "pad_dropout")
 # gpt phase (causal, dropout 0.1)
 FLASH_GROUPS = (((64, 12, 128, 64), FLASH_CASES),
                 ((8, 12, 1024, 64), ("gpt_causal_dropout",)))
+# the cases k3 also runs in f16 (fp16 AMP's attention): BERT's padding with
+# and without dropout (the amp phase's), GPT-2 small's, and two wide heads
+FLASH_F16 = ("pad", "pad_dropout", "gpt_causal_dropout", "d256_mqa",
+             "d256_pad")
 
 
 # the band and the fold: (case, B, H, kv heads, Lq, Lk, causal, window,
@@ -1193,7 +1221,8 @@ def k3_cases(dev):
                                         dtype, *case,
                                         pad_lo=NMT_VL[0] / NMT_VL[1]))
     for case in FLASH_WIDE_CASES:
-        for dtype in ("float32", "bfloat16"):
+        for dtype in ("float32", "bfloat16") + (
+                ("float16",) if case[0] in FLASH_F16 else ()):
             out.append(_flash_band_case(dev, fa, kernels, sdpa, g, seed,
                                         dtype, *case))
     return out
@@ -1307,12 +1336,17 @@ def _flash_band_case(dev, fa, kernels, sdpa, g, seed, dtype, name, B, H, G,
 
 
 def _flash_group(dev, fa, kernels, sdpa, g, seed, B, H, L, D, names):
-    """k3's cases `names` at one (B, H, L, D), f32 then bf16."""
+    """k3's cases `names` at one (B, H, L, D), f32 then bf16, then those of
+    `FLASH_F16` in f16."""
     import torch
     scale = 1.0 / D ** 0.5
     vlen = torch.from_numpy(bert_batch(30522, batch=B, seq=L)[1]).to(dev)
     out = []
-    for dtype in ("float32", "bfloat16"):
+    every = names
+    for dtype in ("float32", "bfloat16", "float16"):
+        names = [n for n in every if dtype != "float16" or n in FLASH_F16]
+        if not names:
+            continue
         dt = getattr(torch, dtype)
         q, k, v, do = (torch.randn(B, H, L, D, generator=g).to(dev, dt)
                        for _ in range(4))
@@ -1438,14 +1472,16 @@ def _flash_group(dev, fa, kernels, sdpa, g, seed, B, H, L, D, names):
 XENT_SHAPES = [("float32", 1280, 30522), ("bfloat16", 1280, 30522),
                ("float32", 1280, 50257), ("float32", 8192, 50257),
                ("bfloat16", 8192, 50257), ("float32", 3072, 32000),
-               ("bfloat16", 3072, 32000)]
+               ("bfloat16", 3072, 32000), ("float16", 1280, 30522),
+               ("float16", 8192, 50257)]
 # (dtype, rows, V): edges checked, not timed -- one column, a vocabulary
 # shorter than two vectors, and an odd bf16 vocabulary whose rows start at
 # every 16-byte phase; each with labels outside [0, V) at both ends and,
 # where V > 8, a masked column and a row whose first reads are all -inf
 XENT_EDGES = [("float32", 37, 1), ("bfloat16", 37, 1), ("float32", 37, 9),
               ("bfloat16", 37, 9), ("bfloat16", 16, 50257),
-              ("float32", 16, 50257)]
+              ("float32", 16, 50257), ("float16", 37, 9),
+              ("float16", 16, 50257)]
 
 
 def xent_edge_inputs(dtype, N, V, g):
@@ -1496,7 +1532,9 @@ def k4_cases(dev):
     rows, vocab 30522), at an odd vocabulary, at the GPT phase's logits
     (8 x 1024 rows, vocab 50257) and at the nmt phase's (32 x 96 target
     rows, vocab 32000), timed, with the forward's host µs a call and plan;
-    then `XENT_EDGES`, checked only."""
+    the MLM head's and GPT's also in f16 (fp16 AMP's logits; the library
+    call then takes the f16 logits as they are); then `XENT_EDGES`,
+    checked only."""
     import torch
     import torch.nn.functional as tF
     from mxnet_tpu_torch import kernels
@@ -1512,14 +1550,17 @@ def k4_cases(dev):
         errs, sk_, sp_ = _xent_errs(sx, x, lab, gr)
         case = _xent_case(dtype, N, V, errs)
         case["plan"] = sx._fwd_plan(N, kernels.sm_count(x.device))._asdict()
-        x32 = x.float().requires_grad_()
+        x32 = x.clone().requires_grad_() if dtype == "float16" \
+            else x.float().requires_grad_()
         y64 = lab.long()
         lib = tF.cross_entropy(x32, y64, reduction="none")
         case["ms"] = time_ms(lambda: sx._xent_fwd_cuda(x, lab))
         case["host_us"] = host_us(lambda: sx._xent_fwd_cuda(x, lab))
         case["plain_ms"] = time_ms(lambda: sx.xent_fwd_reference(x, lab))
+        # f16 logits go to the library as they are (it sums in f32)
+        xl = x if dtype == "float16" else x.float()
         case["library_ms"] = time_ms(lambda: tF.cross_entropy(
-            x.float(), y64, reduction="none"))
+            xl, y64, reduction="none"))
         case["bwd_ms"] = time_ms(lambda: sx._xent_bwd_cuda(x, lab, sk_, gr))
         case["bwd_plain_ms"] = time_ms(
             lambda: sx.xent_bwd_reference(x, lab, sp_, gr))
@@ -2212,6 +2253,256 @@ def run_train(dev, results, card):
                 f"train control {fault}: the planted fault departs from the "
                 f"oracle by only {dev_rel:.3g} <= {tol}; the trajectory "
                 f"check cannot see it")
+
+
+# ---------------------------------------------------------------------------
+# phase amp: BERT-base under mixed precision
+# ---------------------------------------------------------------------------
+
+# (key, AMP dtype, weights, entry): fp16 AMP over f32 weights through the
+# gluon `Trainer` with the dynamic loss scaler; the same with the weights
+# cast to f16 (`convert_hybrid_block`) and f32 master copies
+# (``multi_precision``); bf16 AMP through `TrainStep`, no scaler
+AMP_RUNS = (("fp16_amp", "float16", "float32", "trainer"),
+            ("fp16_weights", "float16", "float16", "trainer_mp"),
+            ("bf16_amp", "bfloat16", "float32", "step"))
+# the fp16 runs' loss is multiplied by inf at this step (JAX's overflow
+# drill, tests/unittest/test_amp.py): its gradients overflow, so every
+# fp16 run and its oracle must skip it, whatever the data overflows
+AMP_POISON_STEP = 3
+# planted fault: the Trainer applies an overflowed step (its scaler's
+# check always says the gradients are finite)
+AMP_FAULTS = ("overflowed_step_applied",)
+AMP_LR = 1e-4           # bench.py's Adam rate, as the train phase
+
+
+def _amp_norm_reference(x, gamma, beta, eps=1e-5):
+    """The oracle's LayerNorm: the fused kernel's plain version behind the
+    AMP hook, as `ops.nn.layer_norm` calls the kernel (f32 under AMP)."""
+    from mxnet_tpu_torch import amp
+    from mxnet_tpu_torch.ops.fused_norm import fused_layer_norm_reference
+    x, gamma, beta = amp.cast_inputs("layer_norm", x, gamma, beta)
+    return fused_layer_norm_reference(x, gamma, beta, eps=eps)
+
+
+def amp_run(dev, run, plain, batch, nudge=False, fault=None):
+    """`TRAIN_STEPS` steps of BERT-base (`bert_bench`, seed 0) under
+    ``amp.init(AMP dtype)``: the gluon `Trainer` loop a user writes --
+    ``with amp.scale_loss(loss, trainer) as s: s.backward()``, then
+    ``trainer.step(1)`` (the loss is already a mean) -- or `TrainStep`.
+    ``plain=True`` is the oracle: the attention, LayerNorm and
+    cross-entropy on their plain versions behind the same casts, the
+    update on the kernels' plain version, no kernel launched.  `nudge`
+    moves layer 0's FFN up-projection element 0 by one unit in the last
+    place of the AMP dtype (the one-ulp floor); `fault` plants
+    `AMP_FAULTS`.  Returns the run's stats and its step time."""
+    import torch
+    from mxnet_tpu_torch import amp, kernels
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.models.layers import FusedSelfAttention, LayerNorm
+    from mxnet_tpu_torch.ops.attention import multi_head_attention_reference
+    from mxnet_tpu_torch.ops.fused_optimizer import kernel_plain
+    from mxnet_tpu_torch.ops.softmax_xent import (
+        softmax_cross_entropy, softmax_cross_entropy_reference)
+    from mxnet_tpu_torch.optimizer import Adam
+    from mxnet_tpu_torch.parallel import TrainStep
+
+    key, amp_dt, w_dt, entry = run
+    ids, vl, mp, lab = batch
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    amp.init(amp_dt)
+    try:
+        bench = bert_bench(dev, "float32")
+        if w_dt == "float16":
+            amp.convert_hybrid_block(bench, "float16")
+        if nudge:
+            w = bench.model.bert.layers[0].ffn_intermediate.weight
+            with torch.no_grad():
+                x = w.view(-1)[:1]
+                h = x.to(getattr(torch, amp_dt))
+                h.view(torch.int16).add_(1)
+                x.copy_(h)
+        xent = softmax_cross_entropy
+        if plain:
+            for m in bench.modules():
+                if isinstance(m, FusedSelfAttention):
+                    m.attend = multi_head_attention_reference
+                if isinstance(m, LayerNorm):
+                    m.norm = _amp_norm_reference
+            xent = softmax_cross_entropy_reference
+        losses, scales, skipped = [], [], []
+        if entry == "step":
+            def loss_fn(out, ids, vl, mp, lab):
+                return xent(out[0], lab).mean()
+            with pallas_mode("reference" if plain else "auto"):
+                step = TrainStep(bench, Adam(learning_rate=AMP_LR), loss_fn,
+                                 num_model_args=3,
+                                 update=kernel_plain if plain else None)
+            step.warmup(*batch)
+            trainer = None
+        else:
+            trainer = Trainer(dict(bench.named_parameters()), "adam",
+                              {"learning_rate": AMP_LR,
+                               "multi_precision": entry == "trainer_mp"})
+            amp.init_trainer(trainer)
+            scaler = trainer._amp_loss_scaler
+            if fault == "overflowed_step_applied":
+                scaler.has_overflow = lambda params: False
+        kernels.reset_launch_counts()
+        with (plain_trainer_update() if plain and trainer is not None
+              else contextlib.nullcontext()), pallas_mode("auto"):
+            for i in range(TRAIN_STEPS):
+                if trainer is None:
+                    losses.append(step.dispatch(*batch).loss)
+                else:
+                    loss = xent(bench(ids, vl, mp)[0], lab).mean()
+                    losses.append(loss.detach())
+                    if i == AMP_POISON_STEP:
+                        loss = loss * math.inf
+                    with amp.scale_loss(loss, trainer) as scaled:
+                        scaled.backward()
+                    trainer.step(1)
+                    scales.append(scaler.loss_scale)
+                    if scaler._last_overflow_iter == scaler._iter - 1:
+                        skipped.append(i)
+                if i == 1:        # time the steady steps 3..N
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+            torch.cuda.synchronize()
+            step_s = (time.perf_counter() - t0) / (TRAIN_STEPS - 2)
+        launches = kernels.launch_counts()
+        by_dtype = {f"{n}:{d}": v
+                    for (n, d), v in sorted(kernels.DTYPE_LAUNCHES.items())}
+        params = dict(bench.named_parameters())
+        dtypes = sorted({str(p.dtype)[6:] for p in params.values()})
+        masters = None
+        if trainer is not None and entry == "trainer_mp":
+            st = trainer._states
+            masters = sorted({str(st[n][0].dtype)[6:] if
+                              trainer._optimizer._is_mp_state(p, st[n])
+                              else "none" for n, p in params.items()})
+        peak = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        amp.disable()
+    return dict(losses=[float(x) for x in losses], step_ms=step_s * 1e3,
+                launches=launches, dtype_launches=by_dtype,
+                loss_scales=scales, skipped_steps=skipped,
+                weight_dtypes=dtypes, master_dtypes=masters,
+                peak_mem_gb=peak), step_s
+
+
+def amp_want_launches(run, layers, applied):
+    """Exact launches over `TRAIN_STEPS` steps, by kernel and input dtype
+    (`kernels.DTYPE_LAUNCHES`, as ``name:dtype``): the flash kernels once a
+    layer each way and the cross-entropy once each way, in the AMP dtype
+    (attention and the MLM head's product are TARGET ops); the fused norm
+    2 a layer + 2 (embeddings, MLM head) in f32 (``layer_norm`` is an FP32
+    op); and the chunk kernel (`kernels.LAUNCHES`) once a step it applied
+    (f32 weights: one group), none under ``multi_precision`` (the
+    per-parameter route).  No other kernel."""
+    _, amp_dt, _, entry = run
+    want = {f"flash_attention_fwd:{amp_dt}": layers * TRAIN_STEPS,
+            f"flash_attention_bwd:{amp_dt}": layers * TRAIN_STEPS,
+            f"softmax_xent_fwd:{amp_dt}": TRAIN_STEPS,
+            f"softmax_xent_bwd:{amp_dt}": TRAIN_STEPS,
+            "fused_norm:float32": (2 * layers + 2) * TRAIN_STEPS,
+            "fused_optimizer_chunk": 0 if entry == "trainer_mp" else applied}
+    return {k: v for k, v in want.items() if v}
+
+
+def run_amp(dev, results, card):
+    """fp16 AMP with its loss scaler (the Trainer), f16 weights with f32
+    masters, and bf16 AMP (`TrainStep`), each against its oracle, plus
+    the one-ulp floors and the planted fault."""
+    import torch
+    from mxnet_tpu_torch.models import bert_base
+
+    cfg = bert_base()
+    B, S, M = 64, 128, 20
+    batch = tuple(torch.from_numpy(a).to(dev)
+                  for a in bert_batch(cfg.vocab_size, B, S, M))
+    flops = bench_flops_per_step(cfg, B, S, M)
+    runs, floors = results["amp"], results["amp_one_ulp"]
+    problems = []
+    for run in AMP_RUNS:
+        key, amp_dt, w_dt, entry = run
+        st, step_s = amp_run(dev, run, False, batch)
+        nst, _ = amp_run(dev, run, False, batch, nudge=True)
+        floors[key] = c = dict(
+            losses=nst["losses"],
+            trajectory_rel_dev=traj_dev(nst["losses"], st["losses"]))
+        print(f"[amp one ulp {key}] {json.dumps(c)}", flush=True)
+        pst, pstep_s = amp_run(dev, run, True, batch)
+        applied = TRAIN_STEPS - len(st["skipped_steps"])
+        want = amp_want_launches(run, cfg.num_layers, applied)
+        got = dict(st["dtype_launches"])
+        got.update({k: v for k, v in st["launches"].items() if v and k not in
+                    ("flash_attention_fwd", "flash_attention_bwd",
+                     "softmax_xent_fwd", "softmax_xent_bwd", "fused_norm")})
+        if got != want:
+            problems.append(f"amp {key}: kernel launches {got}, want {want}")
+        if any(pst["launches"].values()):
+            problems.append(f"amp {key}: the plain run launched kernels "
+                            f"{pst['launches']}")
+        ls = st["losses"]
+        dev_rel = traj_dev(ls, pst["losses"])
+        floor = c["trajectory_rel_dev"]
+        tol = max(1e-3, GPT_FLOOR_X * floor)
+        st.update(amp_dtype=amp_dt, weights=w_dt, entry=entry,
+                  plain_losses=pst["losses"], plain_step_ms=pst["step_ms"],
+                  plain_skipped_steps=pst["skipped_steps"],
+                  plain_loss_scales=pst["loss_scales"],
+                  trajectory_rel_dev=dev_rel, trajectory_tol=tol,
+                  one_ulp_floor=floor, samples_per_s=B / step_s,
+                  plain_samples_per_s=B / pstep_s, flops_per_step=flops,
+                  tflops=flops / step_s / 1e12,
+                  peak_share=flops / step_s / PEAK[amp_dt])
+        runs[key] = st
+        print(f"[amp {key}] {json.dumps(st)}", flush=True)
+        print(f"[amp {key}] {B / step_s:.1f} samples/s, "
+              f"{st['step_ms']:.2f} ms/step, {st['tflops']:.2f} TFLOP/s, "
+              f"peak memory {st['peak_mem_gb']:.2f} GB on {card}; skipped "
+              f"{st['skipped_steps']} (oracle {pst['skipped_steps']}); "
+              f"trajectory vs plain {dev_rel:.3g} (limit {tol:.3g})",
+              flush=True)
+        if not all(math.isfinite(x) for x in ls):
+            problems.append(f"amp {key}: non-finite loss {ls}")
+        if dev_rel > tol:
+            problems.append(f"amp {key}: loss trajectory departs from the "
+                            f"plain path's by {dev_rel:.3g} > {tol:.3g}")
+        if st["skipped_steps"] != pst["skipped_steps"]:
+            problems.append(f"amp {key}: skipped {st['skipped_steps']}, "
+                            f"the oracle {pst['skipped_steps']}")
+        if amp_dt == "float16" and AMP_POISON_STEP not in \
+                st["skipped_steps"]:
+            problems.append(f"amp {key}: the poisoned step "
+                            f"{AMP_POISON_STEP} was applied")
+        want_masters = ["float32"] if entry == "trainer_mp" else None
+        if st["weight_dtypes"] != [w_dt] or \
+                st["master_dtypes"] != want_masters:
+            problems.append(f"amp {key}: weights {st['weight_dtypes']}, "
+                            f"masters {st['master_dtypes']}; want [{w_dt}], "
+                            f"{want_masters}")
+        if not ls[-1] < ls[0]:
+            problems.append(f"amp {key}: loss did not fall {ls}")
+    # the control, read against the sound fp16 run's oracle and limit
+    ref = runs["fp16_amp"]
+    for fault in AMP_FAULTS:
+        st, _ = amp_run(dev, AMP_RUNS[0], False, batch, fault=fault)
+        dev_rel = traj_dev(st["losses"], ref["plain_losses"])
+        tol = ref["trajectory_tol"]
+        results["amp_controls"][fault] = c = dict(
+            losses=st["losses"], skipped_steps=st["skipped_steps"],
+            trajectory_rel_dev=dev_rel, trajectory_tol=tol,
+            caught=dev_rel > tol or
+            st["skipped_steps"] != ref["plain_skipped_steps"])
+        print(f"[amp control {fault}] {json.dumps(c)}", flush=True)
+        if not c["caught"]:
+            problems.append(f"amp control {fault}: the planted fault "
+                            f"passes the gate")
+    if problems:
+        raise AssertionError("; ".join(problems))
 
 
 # ---------------------------------------------------------------------------
@@ -4479,7 +4770,11 @@ def kernel_entries(results):
     and fold cases and the nmt phase's three attentions, the chunk GPT-2
     small's AdamW and transformer_base's Adam, cross-entropy and the norm
     their GPT and nmt shapes, K1 its verification width (C 5, MHA and GQA
-    rep 4, a shared prefix)."""
+    rep 4, a shared prefix).  The f16 instantiations of the flash and
+    cross-entropy kernels have entries of their own (``..._f16``): BERT's
+    padding with dropout and the MLM head's logits as representatives,
+    GPT-2's shapes and the wide heads beside them, launches from the amp
+    phase's fp16 runs (`kernels.DTYPE_LAUNCHES`)."""
     k1, k2, k3, k4, k5, k6, k7, k1q = (results[k] for k in (
         "k1", "k2", "k3", "k4", "k5", "k6", "k7", "k1_int8"))
     rep1 = next(c for c in k1 if c["dtype"] == "float32" and c["C"] == 1
@@ -4496,8 +4791,19 @@ def kernel_entries(results):
     rep4 = next(c for c in k4 if c["dtype"] == "float32" and c["V"] == 30522)
     # the GPT phase's shapes: causal flash at L 1024, cross-entropy at
     # (8192, 50257), each dtype
-    gpt3 = {c["dtype"]: c for c in k3 if c["case"] == "gpt_causal_dropout"}
-    gpt4 = {c["dtype"]: c for c in k4 if c["N"] == 8192}
+    gpt3 = {c["dtype"]: c for c in k3 if c["case"] == "gpt_causal_dropout"
+            and c["dtype"] != "float16"}
+    gpt4 = {c["dtype"]: c for c in k4 if c["N"] == 8192
+            and c["dtype"] != "float16"}
+    # the f16 cases (fp16 AMP's): BERT's padding with dropout and the MLM
+    # head's logits as the representatives, GPT-2's shapes and the wide
+    # heads beside them
+    k3h = [c for c in k3 if c["dtype"] == "float16"]
+    k4h = [c for c in k4 if c["dtype"] == "float16"]
+    rep3h = next(c for c in k3h if c["case"] == "pad_dropout")
+    rep4h = next(c for c in k4h if c["N"] == 1280)
+    gpt3h = {c["dtype"]: c for c in k3h if c["case"] == "gpt_causal_dropout"}
+    gpt4h = {c["dtype"]: c for c in k4h if c["N"] == 8192}
     nmt4 = {c["dtype"]: c for c in k4 if c["N"] == 3072}
     nmt5 = {c["dtype"]: c for c in k5 if c["rows"] == 4096
             and c["case"] == "ln"}
@@ -4566,9 +4872,11 @@ def kernel_entries(results):
                bf16_library_ms=rep3b["library_ms"],
                bf16_bound_ms=rep3b["bound_ms"])
 
+    tags = {"float32": "f32", "bfloat16": "bf16", "float16": "f16"}
+
     def gpt_shape(e, cases, pre="", model="gpt_"):
         for dt, c in cases.items():
-            tag = model + ("f32" if dt == "float32" else "bf16")
+            tag = model + tags[dt]
             e.update({f"{tag}_ms": c[pre + "ms"],
                       f"{tag}_plain_ms": c[pre + "plain_ms"],
                       f"{tag}_library_ms": c[pre + "library_ms"],
@@ -4576,11 +4884,11 @@ def kernel_entries(results):
         return e
     gpt_shape(fwd, gpt3)
     # k3's band and fold cases (`FLASH_BAND_CASES`), each dtype
-    band = [c for c in k3 if "kv_heads" in c]
+    band = [c for c in k3 if "kv_heads" in c and c["dtype"] != "float16"]
 
-    def band_shape(e, pre=""):
-        for c in band:
-            tag = c["case"] + ("_f32" if c["dtype"] == "float32" else "_bf16")
+    def band_shape(e, pre="", cases=band):
+        for c in cases:
+            tag = c["case"] + "_" + tags[c["dtype"]]
             e.update({f"{tag}_{n}": c[pre + n] for n in (
                 "ms", "plain_ms", "library_ms", "bound_ms")})
         return e
@@ -4693,6 +5001,29 @@ def kernel_entries(results):
                 e.update({f"{tag}_{n}": c[n] for n in (
                     "ms", "plain_ms", "library_ms", "bound_ms", "host_us")})
         gathers.append(e)
+    # the f16 entries: launches from the amp phase's fp16 runs
+    def amp_launches(name):
+        return sum(r["dtype_launches"].get(f"{name}:float16", 0)
+                   for r in results["amp"].values())
+
+    def f16_entry(name, src, replaces, cases, rep, pre="", shapes=(),
+                  wide=()):
+        e = entry(name + "_f16", src, replaces, amp_launches(name), cases,
+                  rep, pre)
+        e["dtype"] = "float16"
+        for c in shapes:
+            gpt_shape(e, c, pre)
+        return band_shape(e, pre, list(wide))
+    wide_h = [c for c in k3h if "kv_heads" in c]
+    f16_entries = [
+        f16_entry("flash_attention_fwd", fa_src, f"{fa_py}:284", k3h, rep3h,
+                  shapes=(gpt3h,), wide=wide_h),
+        f16_entry("flash_attention_bwd", fa_src, f"{fa_py}:489", k3h, rep3h,
+                  "bwd_", shapes=(gpt3h,), wide=wide_h),
+        f16_entry("softmax_xent_fwd", sx_src, f"{sx_py}:95", k4h, rep4h,
+                  shapes=(gpt4h,)),
+        f16_entry("softmax_xent_bwd", sx_src, f"{sx_py}:127", k4h, rep4h,
+                  "bwd_", shapes=(gpt4h,))]
     return [
         k1e,
         k1q_e,
@@ -4715,6 +5046,7 @@ def kernel_entries(results):
         lamb_a,
         lamb_b,
         *gathers,
+        *f16_entries,
     ]
 
 
@@ -4755,6 +5087,8 @@ def main(argv=None) -> int:
         return 3
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
     torch.backends.cudnn.allow_tf32 = False
+    # f16 products sum in f32, on the kernel route and its oracle alike
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
     dev = torch.device("cuda", 0)
     card = card_line()
     print(f"[card] {card}", flush=True)
@@ -4769,7 +5103,8 @@ def main(argv=None) -> int:
                "gpt_gqa_controls": {}, "gpt_gqa_one_ulp": {},
                "gpt_d256": {}, "gpt_d256_controls": {},
                "gpt_d256_one_ulp": {},
-               "spec_prefix": {}, "nmt": {}, "optim": {}}
+               "spec_prefix": {}, "nmt": {}, "optim": {}, "amp": {},
+               "amp_controls": {}, "amp_one_ulp": {}}
     failed = []
     t0 = time.perf_counter()
     # build from the checkout's sources, never from a leftover library
@@ -4781,7 +5116,9 @@ def main(argv=None) -> int:
         fault_builds = start_fault_builds()
         kernels.build_all(verbose=True)
         results["build_s"] = time.perf_counter() - t0
-        print(f"[build] {results['build_s']:.1f} s", flush=True)
+        results["build_seconds"] = dict(kernels.BUILD_SECONDS)
+        print(f"[build] {results['build_s']:.1f} s "
+              f"{json.dumps(results['build_seconds'])}", flush=True)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: kernel build failed", file=sys.stderr)
@@ -4812,7 +5149,8 @@ def main(argv=None) -> int:
                      ("gpt_d256", run_gpt_d256),
                      ("spec_prefix", run_spec_prefix), ("nmt", run_nmt),
                      ("optim", lambda d, r, c: run_optim(d, r, c,
-                                                         fault_builds))):
+                                                         fault_builds)),
+                     ("amp", run_amp)):
         t_phase = time.perf_counter()
         try:
             fn(dev, results, card)

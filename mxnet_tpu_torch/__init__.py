@@ -39,14 +39,18 @@ Ported so far (ROADMAP.md), slice by slice:
    (`load_jax_optimizer_states`);
 10. quantized serving: the int8 KV pool read by the paged-attention
     kernel's int8 variant, int8 activations (``MXTPU_QUANT_ACT``) and
-    MXNet's int8 workflow with calibration (`contrib.quantization`).
+    MXNet's int8 workflow with calibration (`contrib.quantization`);
+11. mixed precision (`amp`): float16 AMP with its dynamic loss scaler,
+    bfloat16 AMP, the `Trainer`'s ``multi_precision`` f32 master copies,
+    and float16 inside the flash-attention and cross-entropy kernels.
 """
 from .base import MXNetError  # noqa: F401
 from .device import resolve_device  # noqa: F401
 from . import kernels, ops, models, serve, gluon, optimizer, parallel  # noqa: F401,E501
-from . import benchmark, contrib  # noqa: F401
+from . import amp, benchmark, contrib  # noqa: F401
 from .convert import load_jax_optimizer_states, load_jax_params  # noqa: F401
 
 __all__ = ["MXNetError", "resolve_device", "kernels", "ops", "models",
-           "serve", "gluon", "optimizer", "parallel", "benchmark", "contrib",
+           "serve", "gluon", "optimizer", "parallel", "amp", "benchmark",
+           "contrib",
            "load_jax_params", "load_jax_optimizer_states"]

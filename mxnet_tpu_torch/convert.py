@@ -71,6 +71,30 @@ def load_jax_params(model: torch.nn.Module, params: Dict[str, np.ndarray],
     return model.to(dev)
 
 
+def _state_slots(opt, name, st, want, p) -> tuple:
+    """JAX's state tuple `st` (numpy arrays) as tensors on `p`'s device,
+    checked slot by slot against the port's `want`."""
+    st = tuple(st or ())
+    if len(st) != len(want):
+        raise MXNetError(
+            f"load_jax_optimizer_states: {name} has {len(st)} state "
+            f"tensors, {type(opt).__name__} keeps {len(want)}")
+    slots = []
+    for k, (arr, ref) in enumerate(zip(st, want)):
+        shape = tuple(np.shape(arr))
+        if shape not in (tuple(ref.shape), tuple(p.shape)):
+            raise MXNetError(
+                f"load_jax_optimizer_states: {name} state {k} is "
+                f"{shape}, the port's {tuple(ref.shape)}")
+        t = _tensor(arr)
+        if t.dtype != ref.dtype:
+            raise MXNetError(
+                f"load_jax_optimizer_states: {name} state {k} is "
+                f"{t.dtype}, the port keeps {ref.dtype}")
+        slots.append(t.to(p.device))
+    return tuple(slots)
+
+
 def load_jax_optimizer_states(trainer, states: Dict[str, Any],
                               num_update: int,
                               index_update_count: Optional[Dict] = None):
@@ -82,8 +106,11 @@ def load_jax_optimizer_states(trainer, states: Dict[str, Any],
     given).  Each slot must have the shape of the slot the port's rule
     creates -- or the weight's, where JAX's rule has made it so (DCASGD's
     0-d momentum after a step) -- and the weight's dtype (the `Trainer`
-    keeps its state there).  Nothing is changed unless every entry checks
-    out.  The states go to the weights' device."""
+    keeps its state there).  Under ``multi_precision=True`` a 16-bit
+    weight's state is JAX's pair ``(w32, inner)``: the f32 master copy, of
+    the weight's shape, and the rule's state tuple on it, in f32.  Nothing
+    is changed unless every entry checks out.  The states go to the
+    weights' device."""
     opt = trainer.optimizer
     params = dict(zip(trainer._param_names, trainer._params))
     missing = sorted(set(params) - set(states))
@@ -95,26 +122,17 @@ def load_jax_optimizer_states(trainer, states: Dict[str, Any],
     out = {}
     for name, st in states.items():
         p = params[name].detach()
-        want = opt.create_state(p, dtype=p.dtype)
-        st = tuple(st or ())
-        if len(st) != len(want):
-            raise MXNetError(
-                f"load_jax_optimizer_states: {name} has {len(st)} state "
-                f"tensors, {type(opt).__name__} keeps {len(want)}")
-        slots = []
-        for k, (arr, ref) in enumerate(zip(st, want)):
-            shape = tuple(np.shape(arr))
-            if shape not in (tuple(ref.shape), tuple(p.shape)):
+        want = opt.create_state_multi_precision(name, p)
+        if opt._is_mp_state(p, want):
+            if not (isinstance(st, (tuple, list)) and len(st) == 2 and
+                    isinstance(st[1], (tuple, list))):
                 raise MXNetError(
-                    f"load_jax_optimizer_states: {name} state {k} is "
-                    f"{shape}, the port's {tuple(ref.shape)}")
-            t = _tensor(arr)
-            if t.dtype != ref.dtype:
-                raise MXNetError(
-                    f"load_jax_optimizer_states: {name} state {k} is "
-                    f"{t.dtype}, the port keeps {ref.dtype}")
-            slots.append(t.to(p.device))
-        out[name] = tuple(slots)
+                    f"load_jax_optimizer_states: {name} is a "
+                    f"multi-precision weight; its state is (w32, inner)")
+            w32 = _state_slots(opt, name, (st[0],), (want[0],), p)
+            out[name] = w32 + (_state_slots(opt, name, st[1], want[1], p),)
+        else:
+            out[name] = _state_slots(opt, name, st, want, p)
     trainer._states = out
     opt.num_update = int(num_update)
     opt._index_update_count = dict(index_update_count) if \

@@ -7,8 +7,8 @@
 //             `_flash_bwd` (:489, :517).
 //
 // What it computes (the TPU kernels' semantics, not their grid), over
-// q (BH, Lq, D), k/v (BH, Lk, D), BH = batch * heads, in f32 or bf16:
-//   * s = (q . k) * scale in f32 (bf16 products accumulate in f32), plus an
+// q (BH, Lq, D), k/v (BH, Lk, D), BH = batch * heads, in f32, bf16 or f16:
+//   * s = (q . k) * scale in f32 (16-bit products accumulate in f32), plus an
 //     optional f32 additive bias (Bb, 1|seg, Lk) with Bb = B (shared by the
 //     H heads of a batch row) or B * H.  Row r sits at position r % seg:
 //     seg = Lq, or, with grouped K/V (the `rep` query heads sharing a kv
@@ -27,7 +27,9 @@
 //     undropped p, the kept p is scaled by 1 / (1 - rate) (:202-208), and the
 //     backward applies the same mask to dP and to P (:374-376, :426-439).
 //   * p (and dS) are rounded to the input type before their products, as the
-//     TPU kernels cast them to v's (k's, q's) dtype.
+//     TPU kernels cast them to v's (k's, q's) dtype.  In f16 a value past
+//     its range rounds to +-inf (dS, dQ, dK, dV, O), as JAX's casts do: a
+//     loss scaler must see the same overflow, so nothing saturates.
 //   * backward by recompute from lse: di = rowsum(dO * O); dQ, dK and dV
 //     without float atomics, so the result is deterministic.
 //
@@ -35,14 +37,15 @@
 // D = 64) the forward does 4 * BH * Lq * Lk * D = 3.2 GFLOP against 50 MB
 // of q/k/v/o in bf16 (100 MB in f32): about 0.015 ms of memory traffic
 // against 0.003 ms of bf16 tensor-core work (0.019 ms of 3xTF32 products
-// in f32), so its floor is bytes.  What holds it above that floor is
-// instruction issue and latency: each score takes a dozen scalar
-// instructions (scale, bias, mask, max, exp, sum, dropout hash) beside its
-// share of two products, in a dependent chain per warp.  So the design
-// reads each operand once and keeps S and P out of memory, keeps each
-// score's passes free of branches, and fits as many warps an SM as the
-// registers allow.  The backward does 10x the forward's products, so in
-// bf16 the tensor cores' rate, in f32 three TF32 products a multiply-add.
+// in f32), so its floor is bytes (f16 moves bf16's).  What holds it above
+// that floor is instruction issue and latency: each score takes a dozen
+// scalar instructions (scale, bias, mask, max, exp, sum, dropout hash)
+// beside its share of two products, in a dependent chain per warp.  So the
+// design reads each operand once and keeps S and P out of memory, keeps
+// each score's passes free of branches, and fits as many warps an SM as
+// the registers allow.  The backward does 10x the forward's products, so
+// in bf16 and f16 the tensor cores' rate, in f32 three TF32 products a
+// multiply-add.
 //
 // Forward (`flash_fwd_kernel`), FlashAttention-2's shape on mma.sync:
 // work items of 32, 64 or 128 query rows of a head, one warp per 16 rows,
@@ -54,8 +57,8 @@
 // lane); K and V stream through a two-stage cp.async ring of 32-, 64- or
 // 128-key tiles that runs on across items, so the next item's Q, K and
 // V load while this one computes (at L = 128 a head is one or two key
-// tiles).  S = Q K^T runs on the tensor cores (bf16 m16n8k16, f32 3xTF32
-// m16n8k8, f32 accumulation); scale, bias, mask, the online softmax and
+// tiles).  S = Q K^T runs on the tensor cores (bf16 and f16 m16n8k16, f32
+// 3xTF32 m16n8k8, f32 accumulation); scale, bias, mask, the online softmax and
 // dropout act on the accumulator fragments in registers (row max by two
 // quad shuffles), in straight-line passes whose variant (bias mode, a step
 // with nothing to mask, dropout) is chosen once a step; p, rounded to the
@@ -70,11 +73,12 @@
 // shared memory and its dK, dV accumulators in registers, and walks the q
 // tiles through a two-stage 16-byte cp.async ring of Q, dO, lse and di.
 // Each q tile is five tensor-core products -- S = Q K^T, dP = dO V^T,
-// dV += Pd^T dO, dK += dS^T Q, dQ = dS K -- each operand read once: bf16 as
-// mma.sync m16n8k16 from ldmatrix fragments with f32 accumulation, f32 as
-// 3xTF32 m16n8k8 (hi/lo halves of both operands; plain TF32 keeps three
-// digits).  P and dS feed dV and dK from registers, rounded to the input
-// type; dS goes through shared memory once for dQ.  With one key tile (BERT:
+// dV += Pd^T dO, dK += dS^T Q, dQ = dS K -- each operand read once: bf16
+// and f16 as mma.sync m16n8k16 from ldmatrix fragments with f32
+// accumulation, f32 as 3xTF32 m16n8k8 (hi/lo halves of both operands;
+// plain TF32 keeps three digits).  P and dS feed dV and dK from
+// registers, rounded to the input type; dS goes through shared memory once
+// for dQ.  With one key tile (BERT:
 // L = 128 in a 128-key tile) the block writes dQ; with more, the key tiles'
 // f32 partials are summed in key-tile order by the last block to arrive on
 // an integer ticket per (bh, q tile).  A light row pass computes di first,
@@ -89,10 +93,20 @@
 // columns).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "mma_sm90.cuh"   // cp.async, ldmatrix, mma.sync, arrive_last
+
+// The input types this library instantiates, a bit per dtype code (1 f32,
+// 2 bf16, 4 f16).  The build (mxnet_tpu_torch/kernels `_SPLITS`) compiles
+// this source once per type, in parallel, with -DMXT_FLASH_TYPES; an entry
+// point given a type its library lacks returns cudaErrorInvalidValue.
+#ifndef MXT_FLASH_TYPES
+#define MXT_FLASH_TYPES 7
+#endif
 
 namespace {
 
@@ -108,6 +122,7 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
@@ -115,6 +130,10 @@ template <> __device__ __forceinline__ float from_f<float>(float x) {
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
     float x) {
   return __float2bfloat16(x);
+}
+// round to nearest even, +-inf past the range (no saturation)
+template <> __device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);
 }
 __device__ __forceinline__ uint32_t splitmix32(uint32_t x) {
   x ^= x >> 16;
@@ -208,6 +227,22 @@ __device__ __forceinline__ float dot16(const __nv_bfloat16* a,
   }
   return s;
 }
+__device__ __forceinline__ float dot16(const __half* a, const __half* b) {
+  const uint4 x = *reinterpret_cast<const uint4*>(a);
+  const uint4 y = *reinterpret_cast<const uint4*>(b);
+  const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    __half2 xh, yh;
+    memcpy(&xh, &xs[i], 4);
+    memcpy(&yh, &ys[i], 4);
+    const float2 xf = __half22float2(xh), yf = __half22float2(yh);
+    s = fmaf(xf.x, yf.x, s);
+    s = fmaf(xf.y, yf.y, s);
+  }
+  return s;
+}
 
 // di of every row: with vec (rows of whole 16-byte chunks, aligned) 8
 // lanes a row and 16-byte loads, else one warp a row
@@ -253,7 +288,7 @@ template <int DMAX> struct BwdQ {
 // The backward's block: BK keys, 16 a warp, with CS warps sharing each 16
 // keys -- 2 for heads over 128 wide, each warp accumulating dK and dV over
 // DMAX / CS columns (a 256-wide head's would take 256 registers a thread)
-// -- and KVB K/V buffers: 2 for bf16 (persistent blocks load the next
+// -- and KVB K/V buffers: 2 for 16-bit types (persistent blocks load the next
 // item's during this one), 1 for f32, whose tiles fill shared memory.
 template <typename T, int DMAX, int BK> struct Bwd {
   static constexpr int CS = DMAX > 128 ? 2 : 1;
@@ -323,7 +358,7 @@ __device__ __forceinline__ void unstage_rows(T* __restrict__ dst,
 // ---------------------------------------------------------------------------
 
 // A warp's Q tile as A fragments, held in registers for the whole key walk:
-// bf16 as the ldmatrix fragment itself; f32 as the raw values, split into
+// 16-bit as the ldmatrix fragment itself; f32 as the raw values, split into
 // TF32 hi and lo at each use (the split fragment takes twice the registers)
 template <typename T> struct QFrag {
   typename Mma<T>::A a;
@@ -469,7 +504,7 @@ __device__ __forceinline__ void softmax_step(float (&s)[NS][4],
 // The forward's tiles: BQ query rows an item (BQ / 16 warps), two Q
 // buffers (this item's and the next one's), a two-stage ring of BK-key K
 // and V tiles, heads padded to DMAX columns.  As many blocks an SM as the
-// shared memory holds, up to 3 for bf16 64-wide heads in 4 warps and 2
+// shared memory holds, up to 3 for 16-bit 64-wide heads in 4 warps and 2
 // otherwise (1 for 8 warps of any other head, whose registers do not fit
 // twice): the kernel is bound by issue and latency, and more warps an SM
 // hide each warp's dependent chain of products (PERF.md, the flash forward).
@@ -828,7 +863,7 @@ __device__ __forceinline__ void bwd_probs(
 // rows' bands reach its key tile (under the fold, one range a head
 // segment), so a q tile's visitors are a range of key tiles, the same
 // range its ticket counts and its sum runs over.
-// With KVB = 2 (bf16) a block is persistent: it takes items w, w + grid,
+// With KVB = 2 (16-bit) a block is persistent: it takes items w, w + grid,
 // ... and loads the next item's K, V and first q tile into the other
 // buffers during the current item's last q tile, so one item's loads and
 // stores overlap the other's products (one block an SM: 255 registers a
@@ -1279,8 +1314,8 @@ cudaError_t launch_fwd(const FwdArgs& a, const Params& p,
 }
 
 // heads over 64 wide take 64-row items; over 128 wide, the one pair of
-// tiles that fits a block's shared memory: 64 x 64 in bf16, 32 x 32 in
-// f32 (`_fwd_plan`)
+// tiles that fits a block's shared memory: 64 x 64 in 16 bits, 32 x 32
+// in f32 (`_fwd_plan`)
 template <typename T, int DMAX>
 cudaError_t launch_fwd_q(const FwdArgs& a, const Params& p, int bq, int bk,
                          cudaStream_t s) {
@@ -1320,7 +1355,7 @@ struct BwdArgs {
 };
 
 // the di row pass, then the key-tile kernel, on one stream (in order);
-// bf16 keeps two K/V buffers (persistent blocks), f32 one
+// 16-bit types keep two K/V buffers (persistent blocks), f32 one
 template <typename T, int DMAX, int BK, bool BAND>
 cudaError_t launch_bwd(const BwdArgs& a, const Params& p,
                        cudaStream_t stream) {
@@ -1364,7 +1399,7 @@ cudaError_t launch_bwd_b(const BwdArgs& a, const Params& p, int bk,
     return bk == 64 ? launch_bwd<T, 128, 64, BAND>(a, p, s)
                     : launch_bwd<T, 128, 128, BAND>(a, p, s);
   // over 128 wide, the key tile that fits a block's shared memory: 64 keys
-  // in bf16, 32 in f32
+  // in 16 bits, 32 in f32
   if constexpr (sizeof(T) == 2)
     return bk == 64 ? launch_bwd<T, 256, 64, BAND>(a, p, s)
                     : cudaErrorInvalidValue;
@@ -1384,15 +1419,15 @@ cudaError_t launch_bwd_d(const BwdArgs& a, const Params& p, int bk,
 
 }  // namespace
 
-// q (BH, Lq, D), k/v (BH, Lk, D), out (BH, Lq, D) in one type (f32, or bf16
-// when is_bf16); lse (BH, Lq) f32; bias f32 (Bb, 1|seg, Lk) or null
+// q (BH, Lq, D), k/v (BH, Lk, D), out (BH, Lq, D) in one type, `dtype`
+// (0 f32, 1 bf16, 2 f16); lse (BH, Lq) f32; bias f32 (Bb, 1|seg, Lk) or null
 // (bias_mode 0); seed a device int32 (read only when rate > 0).  Row r sits
 // at position r % seg (seg divides Lq: the unfolded length under grouped
 // K/V, else Lq); window >= 0 keeps the band `make_params` describes.  All
 // contiguous; the caller checks shapes (D <= 256).  bq (32, 64 or 128) is
 // the query rows a work item, bk (32, 64 or 128) the keys a stage of the
 // K/V ring (heads over 64 wide take bq = 64, f32 ones also bk = 64; over
-// 128 wide bf16 takes 64 x 64, f32 32 x 32); `grid`
+// 128 wide bf16 and f16 take 64 x 64, f32 32 x 32); `grid`
 // persistent blocks walk the B * H * ceil(Lq / bq) items (<= 0: as many
 // as fit on the card at once).  Launches on `stream`;
 // returns the launch's cudaError_t (0 = launched).
@@ -1401,11 +1436,12 @@ extern "C" int mxt_flash_attention_fwd(
     const void* seed, void* out, void* lse, int BH, int H, int Lq, int Lk,
     int D, float scale, int causal, int window, int window_symmetric,
     int seg, int bias_mode, int bias_per_head, float rate, float inv_keep,
-    unsigned thresh, int is_bf16, int bq, int bk, int grid, void* stream) {
+    unsigned thresh, int dtype, int bq, int bk, int grid, void* stream) {
   cudaGetLastError();  // clear any stale error of this runtime
   if (D > MAX_D || D < 1 || (bq != 32 && bq != 64 && bq != 128) ||
       (bk != 32 && bk != 64 && bk != 128) || seg < 1 || Lq % seg ||
-      Lq >= NO_EDGE)
+      Lq >= NO_EDGE || dtype < 0 || dtype > 2 ||
+      !((MXT_FLASH_TYPES >> dtype) & 1))
     return (int)cudaErrorInvalidValue;
   if (BH == 0 || Lq == 0) return 0;
   const Params p =
@@ -1424,22 +1460,36 @@ extern "C" int mxt_flash_attention_fwd(
   // 16-byte loads and stores need rows of whole 16-byte chunks on aligned
   // pointers
   a.vec = aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out) &&
-          (D * (is_bf16 ? 2 : 4)) % 16 == 0;
+          (D * (dtype ? 2 : 4)) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(is_bf16 ? launch_fwd_d<__nv_bfloat16>(a, p, bq, bk, s)
-                       : launch_fwd_d<float>(a, p, bq, bk, s));
+  switch (dtype) {
+#if MXT_FLASH_TYPES & 1
+    case 0:
+      return (int)launch_fwd_d<float>(a, p, bq, bk, s);
+#endif
+#if MXT_FLASH_TYPES & 2
+    case 1:
+      return (int)launch_fwd_d<__nv_bfloat16>(a, p, bq, bk, s);
+#endif
+#if MXT_FLASH_TYPES & 4
+    case 2:
+      return (int)launch_fwd_d<__half>(a, p, bq, bk, s);
+#endif
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The backward of the call above: dout, o in the input type, lse from the
 // forward; di (BH, Lq) f32 is scratch; dq/dk/dv like q/k/v (rows of dq
 // that no key tile visits -- positions past Lk - 1 + window -- are left
 // as they were: the caller zeroes dq where a window leaves such rows).
-// bk is the key tile (64 or 128; over 128 wide 64 in bf16, 32 in f32),
-// so nk = ceil(Lk / bk) key tiles a head; each key tile's q tiles are cut
+// bk is the key tile (64 or 128; over 128 wide 64 in bf16 and f16, 32 in
+// f32), so nk = ceil(Lk / bk) key tiles a head; each key tile's q tiles are cut
 // into nsp splits of ceil(q tiles / nsp) (the host keeps a split's rows
 // few enough that the tensor cores' f32 accumulation of dK and dV stays
 // within 1e-4), so BH * nk * nsp work items, walked by `grid` blocks
-// (bf16: persistent blocks, any grid; f32: grid = BH * nk * nsp).  With
+// (16-bit: persistent blocks, any grid; f32: grid = BH * nk * nsp).  With
 // nk > 1, ws holds nk * BH * Lq * D f32 dQ partials and tickets one zeroed
 // uint32 per (bh, q tile) -- q tiles of 64 rows for D <= 64, else 32; with
 // nsp > 1, kvws holds BH * nk * nsp * 2 * bk * D f32 dK / dV partials and
@@ -1453,18 +1503,19 @@ extern "C" int mxt_flash_attention_bwd(
     void* kvws, void* kvtickets, int nsp, int BH,
     int H, int Lq, int Lk, int D, float scale, int causal, int window,
     int window_symmetric, int seg, int bias_mode, int bias_per_head,
-    float rate, float inv_keep, unsigned thresh, int is_bf16, int bk,
+    float rate, float inv_keep, unsigned thresh, int dtype, int bk,
     int grid, void* stream) {
   cudaGetLastError();
   if (D > MAX_D || D < 1 || (bk != 32 && bk != 64 && bk != 128) ||
-      grid < 1 || seg < 1 || Lq % seg || Lq >= NO_EDGE)
+      grid < 1 || seg < 1 || Lq % seg || Lq >= NO_EDGE || dtype < 0 ||
+      dtype > 2 || !((MXT_FLASH_TYPES >> dtype) & 1))
     return (int)cudaErrorInvalidValue;
   if (BH == 0 || Lq == 0 || Lk == 0) return 0;
   const int nk = (Lk + bk - 1) / bk;
   if (nsp < 1 || (nk > 1 && (ws == nullptr || tickets == nullptr)) ||
       (nsp > 1 && (kvws == nullptr || kvtickets == nullptr)) ||
       (long)BH * nk * nsp > 0x7fffffff ||
-      (!is_bf16 && grid != BH * nk * nsp))
+      (dtype == 0 && grid != BH * nk * nsp))
     return (int)cudaErrorInvalidValue;
   const Params p =
       make_params(H, Lq, Lk, D, scale, causal, window, window_symmetric, seg,
@@ -1494,8 +1545,22 @@ extern "C" int mxt_flash_attention_bwd(
   // pointers
   a.vec = aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o) &&
           aligned16(dout) && aligned16(dq) && aligned16(dk) &&
-          aligned16(dv) && (D * (is_bf16 ? 2 : 4)) % 16 == 0;
+          aligned16(dv) && (D * (dtype ? 2 : 4)) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(is_bf16 ? launch_bwd_d<__nv_bfloat16>(a, p, bk, s)
-                       : launch_bwd_d<float>(a, p, bk, s));
+  switch (dtype) {
+#if MXT_FLASH_TYPES & 1
+    case 0:
+      return (int)launch_bwd_d<float>(a, p, bk, s);
+#endif
+#if MXT_FLASH_TYPES & 2
+    case 1:
+      return (int)launch_bwd_d<__nv_bfloat16>(a, p, bk, s);
+#endif
+#if MXT_FLASH_TYPES & 4
+    case 2:
+      return (int)launch_bwd_d<__half>(a, p, bk, s);
+#endif
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -1,13 +1,13 @@
 // Tensor-core and async-copy helpers shared by the port's CUDA kernels
 // (quantized_matmul.cu, flash_attention.cu, paged_attention.cu): 16-, 8-
 // and 4-byte cp.async into shared memory, ldmatrix, the mma.sync products for
-// bf16 (m16n8k16) and TF32 (m16n8k8), both accumulating in f32, and `Mma<T>`,
-// the operand fragments of those products by input type.
+// bf16 and f16 (m16n8k16) and TF32 (m16n8k8), all accumulating in f32, and
+// `Mma<T>`, the operand fragments of those products by input type.
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k*"), with
 // g = lane / 4 and t = lane % 4:
 //   C (16 x 8, f32): c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1)
-//   bf16 A (16 x 16): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
+//   bf16 and f16 A (16 x 16): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
 //                     a3 (g+8, 2t+8..); B (16 x 8): b0 (2t..2t+1, g),
 //                     b1 (2t+8.., g); the lower k in the low half
 //   TF32 A (16 x 8): a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4);
@@ -15,6 +15,7 @@
 #pragma once
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace {
@@ -91,6 +92,15 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+__device__ __forceinline__ void mma_f16(float* c, const uint32_t* a,
+                                        const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
 // Called by every thread of the block after it wrote its partials: true in
 // the last of `arrivals` blocks to arrive on `counter`, which then sees
 // every partial written before the others arrived.
@@ -110,16 +120,46 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
   return *reinterpret_cast<uint32_t*>(&v);
 }
+// round to nearest even; past f16's range a value becomes +-inf, as a
+// float16 cast does (no saturation)
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// two floats as a pair of T, and the m16n8k16 product of T operands
+template <typename T> __device__ __forceinline__ uint32_t pack2(float lo,
+                                                                float hi);
+template <> __device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(
+    float lo, float hi) {
+  return pack_bf16(lo, hi);
+}
+template <> __device__ __forceinline__ uint32_t pack2<__half>(float lo,
+                                                              float hi) {
+  return pack_f16(lo, hi);
+}
+template <typename T> __device__ __forceinline__ void mma16(
+    float* c, const uint32_t* a, const uint32_t* b);
+template <> __device__ __forceinline__ void mma16<__nv_bfloat16>(
+    float* c, const uint32_t* a, const uint32_t* b) {
+  mma_bf16(c, a, b);
+}
+template <> __device__ __forceinline__ void mma16<__half>(
+    float* c, const uint32_t* a, const uint32_t* b) {
+  mma_f16(c, a, b);
+}
 
 // The operand fragments of the tensor-core products, by input type (layouts
 // above).  X is a tile in shared memory with row
 // stride ld elements; B loads fill the two 8-wide n-tiles at n0, n0 + 8.
 template <typename T> struct Mma;
 
-// bf16: m16n8k16 with f32 accumulation; tiles stay bf16 and ldmatrix
-// loads the fragments (rows padded by 16 bytes: conflict-free)
-template <> struct Mma<__nv_bfloat16> {
-  using T = __nv_bfloat16;
+// bf16 and f16 (`Mma16<T>`): m16n8k16 with f32 accumulation; tiles stay
+// 16-bit and ldmatrix loads the fragments (rows padded by 16 bytes:
+// conflict-free).  The two types share the fragment layout; they differ
+// only in the product instruction and the rounding of `a_acc` / `store2`.
+template <typename T_> struct Mma16 {
+  using T = T_;
   static constexpr int KS = 16;  // k of one product
   static constexpr int PAD = 8;  // row pad, elements
   struct A { uint32_t r[4]; };
@@ -167,7 +207,7 @@ template <> struct Mma<__nv_bfloat16> {
     b_krow(b, X, ld, k0, n0, lane);
   }
   // the same fragments from an int8 tile (an int8 KV page), each value
-  // converted to bf16 in registers: values in [-127, 127] are exact there
+  // converted to T in registers: values in [-127, 127] are exact there
   static __device__ __forceinline__ void b_nrow(B (&b)[2], const int8_t* X,
                                                 int ld, int n0, int k0,
                                                 int lane) {
@@ -175,8 +215,8 @@ template <> struct Mma<__nv_bfloat16> {
     for (int i = 0; i < 2; ++i) {
       const int8_t* r = X + (n0 + 8 * i + (lane >> 2)) * ld + k0 +
                         2 * (lane & 3);
-      b[i].r[0] = pack_bf16(r[0], r[1]);
-      b[i].r[1] = pack_bf16(r[8], r[9]);
+      b[i].r[0] = pack2<T>(r[0], r[1]);
+      b[i].r[1] = pack2<T>(r[8], r[9]);
     }
   }
   static __device__ __forceinline__ void b_krow_acc(B (&b)[2],
@@ -187,27 +227,29 @@ template <> struct Mma<__nv_bfloat16> {
     for (int i = 0; i < 2; ++i) {
       const int8_t* c = X + (k0 + 2 * (lane & 3)) * ld + n0 + 8 * i +
                         (lane >> 2);
-      b[i].r[0] = pack_bf16(c[0], c[ld]);
-      b[i].r[1] = pack_bf16(c[8 * ld], c[9 * ld]);
+      b[i].r[0] = pack2<T>(c[0], c[ld]);
+      b[i].r[1] = pack2<T>(c[8 * ld], c[9 * ld]);
     }
   }
   // A of k-step j from the accumulators c[n-tile][4] of an earlier product,
-  // rounded to bf16: its 16 k columns are n-tiles 2j and 2j + 1
+  // rounded to T: its 16 k columns are n-tiles 2j and 2j + 1
   static __device__ __forceinline__ void a_acc(A& a, const float (*c)[4],
                                                int j) {
-    a.r[0] = pack_bf16(c[2 * j][0], c[2 * j][1]);
-    a.r[1] = pack_bf16(c[2 * j][2], c[2 * j][3]);
-    a.r[2] = pack_bf16(c[2 * j + 1][0], c[2 * j + 1][1]);
-    a.r[3] = pack_bf16(c[2 * j + 1][2], c[2 * j + 1][3]);
+    a.r[0] = pack2<T>(c[2 * j][0], c[2 * j][1]);
+    a.r[1] = pack2<T>(c[2 * j][2], c[2 * j][3]);
+    a.r[2] = pack2<T>(c[2 * j + 1][0], c[2 * j + 1][1]);
+    a.r[3] = pack2<T>(c[2 * j + 1][2], c[2 * j + 1][3]);
   }
   static __device__ __forceinline__ void mma(float* c, const A& a,
                                              const B& b) {
-    mma_bf16(c, a.r, b.r);
+    mma16<T>(c, a.r, b.r);
   }
   static __device__ __forceinline__ void store2(T* p, float x, float y) {
-    *reinterpret_cast<uint32_t*>(p) = pack_bf16(x, y);
+    *reinterpret_cast<uint32_t*>(p) = pack2<T>(x, y);
   }
 };
+template <> struct Mma<__nv_bfloat16> : Mma16<__nv_bfloat16> {};
+template <> struct Mma<__half> : Mma16<__half> {};
 
 // f32: 3xTF32 -- both operands split into hi + lo TF32 halves, then
 // a.lo b.hi + a.hi b.lo + a.hi b.hi (m16n8k8): about 2^-20 relative error

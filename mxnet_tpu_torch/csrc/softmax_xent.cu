@@ -5,12 +5,14 @@
 //   forward   `_fwd_kernel` (:38), launched by `_xent_fwd` (:95);
 //   backward  `_bwd_kernel` (:75), launched by `_xent_bwd` (:127).
 //
-// What it computes, over logits x (N, V) in f32 or bf16 and int32 labels:
+// What it computes, over logits x (N, V) in f32, bf16 or f16 and int32
+// labels:
 //   forward   lse_i = log sum_v exp(x_iv) and loss_i = lse_i - x_i,label_i,
 //             both f32; a label outside [0, V) hits no column, so its loss
 //             is lse_i (labels are not clamped, as in the TPU kernel);
 //   backward  dx_iv = (exp(x_iv - lse_i) - [v == label_i]) * g_i, written in
-//             x's type.
+//             x's type (in f16 +-inf past its range, as JAX's cast: a loss
+//             scaler must see the overflow).
 // No f32 (N, V) tensor ever exists: the forward keeps only per-row (max,
 // sum-exp) statistics, the backward recomputes softmax from the saved lse.
 //
@@ -18,7 +20,7 @@
 // forward; read once and dx written once backward) at 3.35 TB/s; the few
 // flops per element are far below the ridge, though the forward's one
 // exponential an element runs on the SFUs (16 an SM a clock) at about 45%
-// of the byte time in bf16.
+// of the byte time in bf16 (f16 moves the same bytes).
 //
 // Forward design (redesigned for this card; the TPU kernel walks (block_n,
 // block_v) tiles with the running max and sum in VMEM scratch across the
@@ -49,6 +51,7 @@
 // (the ragged tail needs no padding).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <math.h>
 #include <stdint.h>
 #include <string.h>
@@ -67,6 +70,7 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
@@ -74,6 +78,10 @@ template <> __device__ __forceinline__ float from_f<float>(float x) {
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
     float x) {
   return __float2bfloat16(x);
+}
+// round to nearest even, +-inf past the range (no saturation)
+template <> __device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -98,8 +106,9 @@ __device__ __forceinline__ void merge(float& m, float& s, float m2,
 
 // 16 bytes of logits: element i as a float, the max over a batch of
 // vectors (NaN ignored, as fmaxf does), and the bits of a vector of -inf
-// (the fill past the row's body, which adds exactly 0).  bf16 takes the
-// batch max on packed pairs, so no unpacked copy of the batch stays live.
+// (the fill past the row's body, which adds exactly 0).  bf16 and f16 take
+// the batch max on packed pairs, so no unpacked copy of the batch stays
+// live.
 template <typename T> struct Vec;
 template <> struct Vec<float> {
   static constexpr int N = 4;
@@ -136,6 +145,33 @@ template <> struct Vec<__nv_bfloat16> {
       for (int i = 0; i < 4; ++i) {
         const unsigned w = word(a[k], i);
         __nv_bfloat162 h;
+        memcpy(&h, &w, 4);
+        m = __hmax2(m, h);
+      }
+    return fmaxf(__low2float(m), __high2float(m));
+  }
+};
+template <> struct Vec<__half> {
+  static constexpr int N = 8;
+  static constexpr unsigned NEG_INF = 0xfc00fc00u;
+  __device__ static unsigned word(const uint4& v, int i) {
+    return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+  }
+  __device__ static float elem(const uint4& v, int i) {  // 2j: low half
+    const unsigned w = word(v, i >> 1);
+    return __half2float(__ushort_as_half(
+        (unsigned short)((i & 1) ? (w >> 16) : (w & 0xffffu))));
+  }
+  __device__ static float max(const uint4 (&a)[FWD_UNROLL]) {
+    __half2 m;
+    const unsigned w0 = a[0].x;
+    memcpy(&m, &w0, 4);
+#pragma unroll
+    for (int k = 0; k < FWD_UNROLL; ++k)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const unsigned w = word(a[k], i);
+        __half2 h;
         memcpy(&h, &w, 4);
         m = __hmax2(m, h);
       }
@@ -300,25 +336,31 @@ xent_bwd_kernel(const T* __restrict__ x, const int* __restrict__ labels,
 
 }  // namespace
 
-// x (N, V) f32 or bf16 (is_bf16), labels (N,) int32, loss and lse (N,) f32.
+// x (N, V) in the type `dtype` names (0 f32, 1 bf16, 2 f16), labels (N,)
+// int32, loss and lse (N,) f32.
 // All contiguous.  `grid` is the launch plan's (ops/softmax_xent.py
 // `_fwd_plan`): persistent blocks, each taking rows b, b + grid, ...
 // Returns the launch's cudaError_t (0 = launched).
 extern "C" int mxt_softmax_xent_fwd(const void* x, const void* labels,
                                     void* loss, void* lse, int N, int V,
-                                    int is_bf16, int grid, void* stream) {
+                                    int dtype, int grid, void* stream) {
   cudaGetLastError();  // clear any stale error of this runtime
   if (N == 0) return 0;
-  if (V < 1 || grid < 1 || grid > N) return (int)cudaErrorInvalidValue;
+  if (V < 1 || grid < 1 || grid > N || dtype < 0 || dtype > 2)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
+  const int* lab = static_cast<const int*>(labels);
+  float* lo = static_cast<float*>(loss);
+  float* ls = static_cast<float*>(lse);
+  if (dtype == 1)
     xent_fwd_kernel<__nv_bfloat16><<<grid, FWD_THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const int*>(labels),
-        static_cast<float*>(loss), static_cast<float*>(lse), N, V);
+        static_cast<const __nv_bfloat16*>(x), lab, lo, ls, N, V);
+  else if (dtype == 2)
+    xent_fwd_kernel<__half><<<grid, FWD_THREADS, 0, s>>>(
+        static_cast<const __half*>(x), lab, lo, ls, N, V);
   else
     xent_fwd_kernel<float><<<grid, FWD_THREADS, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const int*>(labels),
-        static_cast<float*>(loss), static_cast<float*>(lse), N, V);
+        static_cast<const float*>(x), lab, lo, ls, N, V);
   return (int)cudaGetLastError();
 }
 
@@ -326,20 +368,26 @@ extern "C" int mxt_softmax_xent_fwd(const void* x, const void* labels,
 // (N, V) in x's type.
 extern "C" int mxt_softmax_xent_bwd(const void* x, const void* labels,
                                     const void* lse, const void* g, void* dx,
-                                    int N, int V, int is_bf16, void* stream) {
+                                    int N, int V, int dtype, void* stream) {
   cudaGetLastError();
   if (N == 0 || V == 0) return 0;
+  if (dtype < 0 || dtype > 2) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   dim3 grid(N, (V + BWD_THREADS * BWD_ITEMS - 1) / (BWD_THREADS * BWD_ITEMS));
-  if (is_bf16)
+  const int* lab = static_cast<const int*>(labels);
+  const float* ls = static_cast<const float*>(lse);
+  const float* gr = static_cast<const float*>(g);
+  if (dtype == 1)
     xent_bwd_kernel<__nv_bfloat16><<<grid, BWD_THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const int*>(labels),
-        static_cast<const float*>(lse), static_cast<const float*>(g),
+        static_cast<const __nv_bfloat16*>(x), lab, ls, gr,
         static_cast<__nv_bfloat16*>(dx), V);
+  else if (dtype == 2)
+    xent_bwd_kernel<__half><<<grid, BWD_THREADS, 0, s>>>(
+        static_cast<const __half*>(x), lab, ls, gr,
+        static_cast<__half*>(dx), V);
   else
     xent_bwd_kernel<float><<<grid, BWD_THREADS, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const int*>(labels),
-        static_cast<const float*>(lse), static_cast<const float*>(g),
-        static_cast<float*>(dx), V);
+        static_cast<const float*>(x), lab, ls, gr, static_cast<float*>(dx),
+        V);
   return (int)cudaGetLastError();
 }

@@ -16,14 +16,25 @@ rescale_grad or clip_gradient change; the step count ``t`` is filled each
 step.  ``num_update`` advances before the rate is read, so with an
 ``lr_scheduler`` step k runs at ``lr_scheduler(k)``, as JAX's does.
 
-Rules that are not fused-safe (SGLD, Nadam), and per-name rate
-multipliers (``lr_mult`` / ``wd_mult`` on the optimizer, or ``lr_mult`` /
-``wd_mult`` attributes on a parameter), take the per-parameter route,
-`Optimizer.update` (JAX's ``update_multi_precision`` loop).
+Rules that are not fused-safe (SGLD, Nadam), per-name rate multipliers
+(``lr_mult`` / ``wd_mult`` on the optimizer, or ``lr_mult`` /
+``wd_mult`` attributes on a parameter) and ``multi_precision=True``
+take the per-parameter route, `Optimizer.update_multi_precision` (JAX's
+loop), never the chunk kernel.
 
 The optimizer state is kept in each weight's dtype (bf16 moments for a
-bf16 weight, JAX's ``multi_precision=False``); `parallel.TrainStep` keeps
-f32 state instead.
+bf16 weight, JAX's ``multi_precision=False``); with
+``multi_precision=True`` a 16-bit weight's state is an f32 master copy
+and the rule's f32 state on it (`Optimizer.create_state_multi_precision`),
+and the weight is the master rounded after each step.
+`parallel.TrainStep` keeps f32 state.
+
+AMP's dynamic loss scaler (`amp.init("float16")`, then
+`amp.init_trainer(trainer)`): `step` first checks every gradient for inf
+and NaN (`LossScaler.has_overflow`, one device reduction and one
+readback) and updates the scale; an overflowed step changes no weight
+and no state, and a clean one divides the scale it used back out through
+``rescale_grad``, as JAX's `step` does.
 
 Gradients: torch's ``backward`` accumulates where MXNet's
 ``grad_req="write"`` overwrites, so after each update the `Trainer` clears
@@ -35,8 +46,7 @@ as in JAX, changes nothing.
 
 Not ported yet (each raises `MXNetError`; ROADMAP.md lists them): a
 kvstore (``kvstore`` other than None/False, ``update_on_kvstore``,
-``compression_params``), ``multi_precision=True``, AMP's loss scaler and
-row-sparse (sparse-layout) gradients.
+``compression_params``) and row-sparse (sparse-layout) gradients.
 """
 from __future__ import annotations
 
@@ -55,6 +65,13 @@ __all__ = ["Trainer"]
 def _unported(what: str) -> MXNetError:
     return MXNetError(f"Trainer: {what} is not ported yet (see ROADMAP.md, "
                       f"queue A, items 7 and 12)")
+
+
+def _to_device(state, device):
+    """A state (tensors, nested in tuples) on `device`."""
+    if torch.is_tensor(state):
+        return state.to(device)
+    return tuple(_to_device(s, device) for s in state)
 
 
 class Trainer:
@@ -96,8 +113,6 @@ class Trainer:
         self._optimizer = opt.create(optimizer, param_idx2name={
             i: n for i, n in enumerate(self._param_names)},
             **(optimizer_params or {}))
-        if self._optimizer.multi_precision:
-            raise _unported("multi_precision=True (an f32 master copy)")
         self._states: Dict[str, tuple] = {}
         self._scale = 1.0
         self._hp = _fopt.HpScalarCache(self._device)
@@ -118,23 +133,42 @@ class Trainer:
     def _ensure_states(self):
         for n, p in zip(self._param_names, self._params):
             if n not in self._states:
-                self._states[n] = tuple(self._optimizer.create_state(
-                    p.detach(), dtype=p.dtype))
+                self._states[n] = \
+                    self._optimizer.create_state_multi_precision(n, p)
 
     def _check_unported(self):
-        if getattr(self, "_amp_loss_scaler", None) is not None:
-            raise _unported("AMP's loss scaler")
         for n, p in zip(self._param_names, self._params):
             if p.grad is not None and p.grad.layout != torch.strided:
                 raise _unported(f"a sparse gradient (parameter {n})")
 
     def step(self, batch_size, ignore_stale_grad=False):
         """Gradient reduction (none without a kvstore), then one optimizer
-        update with ``rescale_grad = 1 / batch_size``."""
-        self._optimizer.rescale_grad = self._scale / batch_size
-        self.allreduce_grads()
-        self.update(batch_size, ignore_stale_grad=ignore_stale_grad,
-                    _already_reduced=True)
+        update with ``rescale_grad = 1 / batch_size``.
+
+        With AMP's scaler attached (`amp.init_trainer`) the gradients are
+        checked for inf and NaN first: an overflowed step is skipped whole
+        -- no weight or state changes -- and the scale shrinks; a clean
+        step divides out the scale its loss was multiplied by.  Either
+        way the gradients are then dropped, as after every step (MXNet's
+        next backward overwrites them; torch's would add to them)."""
+        self._check_unported()
+        scaler = getattr(self, "_amp_loss_scaler", None)
+        divisor = 1.0
+        if scaler is not None and scaler.active:
+            divisor = scaler.loss_scale      # the scale this loss used
+            overflow = scaler.has_overflow(self._params)
+            scaler.update_scale(overflow)
+            if overflow:
+                for p in self._params:
+                    p.grad = None
+                return
+        self._optimizer.rescale_grad = self._scale / batch_size / divisor
+        try:
+            self.allreduce_grads()
+            self.update(batch_size, ignore_stale_grad=ignore_stale_grad,
+                        _already_reduced=True)
+        finally:
+            self._optimizer.rescale_grad = self._scale / batch_size
 
     def allreduce_grads(self):
         """A no-op: there is no kvstore (one card)."""
@@ -150,11 +184,12 @@ class Trainer:
         grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
                  for n, p in zip(self._param_names, self._params)}
         if getattr(self._optimizer, "fused_safe", True) and \
+                not self._optimizer.multi_precision and \
                 self._uniform_mults():
             self._fused_update(grads)
         else:
             for n, p in zip(self._param_names, self._params):
-                self._states[n] = self._optimizer.update(
+                self._states[n] = self._optimizer.update_multi_precision(
                     n, p.detach(), grads[n], self._states[n])
         for p in self._params:
             p.grad = None
@@ -201,9 +236,8 @@ class Trainer:
         with open(fname, "rb") as f:
             u.set_states(f.read())
         params = dict(zip(self._param_names, self._params))
-        self._states = {
-            n: tuple(s.to(params[n].device) for s in st)
-            for n, st in u.states.items()}
+        self._states = {n: _to_device(st, params[n].device)
+                        for n, st in u.states.items()}
         if u.optimizer is not self._optimizer:
             self._optimizer.num_update = u.optimizer.num_update
             self._optimizer._index_update_count = \

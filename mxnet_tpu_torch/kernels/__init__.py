@@ -3,7 +3,10 @@
 Every ``mxnet_tpu_torch/csrc/*.cu`` file (with the ``*.cuh`` headers it
 includes) is compiled at first use by
 ``nvcc`` for Hopper (``sm_90a``) into a shared library with a plain C
-interface, one library per source, all sources compiled in parallel.  The
+interface, one library per source, all sources compiled in parallel.  A
+source listed in `SPLITS` is compiled once per part instead, each part a
+library of its own built beside the others (the flash kernels, one part
+an input type: their instantiations are the longest build).  The
 libraries land in ``build/mxnet_tpu_torch/<hash>/`` beside the package
 (``MXTPU_TORCH_BUILD_DIR`` overrides the root), keyed by a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one is
@@ -27,12 +30,14 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from typing import Dict
 
 from ..base import MXNetError
 
 __all__ = ["load", "build_all", "LAUNCHES", "reset_launch_counts",
-           "launch_counts", "sm_count", "stream_scratch", "NVCC_FLAGS"]
+           "launch_counts", "sm_count", "stream_scratch", "NVCC_FLAGS",
+           "SPLITS", "BUILD_SECONDS", "count_launch", "DTYPE_LAUNCHES"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -54,6 +59,21 @@ LAUNCHES: Dict[str, int] = {"ragged_paged_attention": 0,
                             "moe_dispatch": 0,
                             "moe_combine": 0}
 
+#: (kernel name, input dtype) -> launches since the last
+#: `reset_launch_counts()`, beside `LAUNCHES` for the kernels whose input
+#: type matters to a run (which of them ran in f16, say)
+DTYPE_LAUNCHES: Dict[tuple, int] = {}
+
+#: source -> {part: extra nvcc flags}: the source is built once per part,
+#: into the library ``<source>_<part>``
+SPLITS = {"flash_attention": {"f32": ("-DMXT_FLASH_TYPES=1",),
+                              "bf16": ("-DMXT_FLASH_TYPES=2",),
+                              "f16": ("-DMXT_FLASH_TYPES=4",)}}
+
+#: library -> seconds its last build took (the compiler's start to its
+#: output file's last write)
+BUILD_SECONDS: Dict[str, float] = {}
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _sm_counts: Dict[object, int] = {}
@@ -62,6 +82,15 @@ _sm_counts: Dict[object, int] = {}
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    DTYPE_LAUNCHES.clear()
+
+
+def count_launch(name: str, dtype) -> None:
+    """One launch of kernel `name` on inputs of `dtype` (a wrapper calls
+    it where it launches, and nowhere else)."""
+    LAUNCHES[name] += 1
+    key = (name, str(dtype).replace("torch.", ""))
+    DTYPE_LAUNCHES[key] = DTYPE_LAUNCHES.get(key, 0) + 1
 
 
 def launch_counts() -> Dict[str, int]:
@@ -104,13 +133,23 @@ def _sources():
     return sorted(f[:-3] for f in os.listdir(CSRC) if f.endswith(".cu"))
 
 
+def _libraries() -> Dict[str, tuple]:
+    """library -> (source, extra nvcc flags): one a source, or one a part
+    of a source in `SPLITS`."""
+    out = {}
+    for n in _sources():
+        for part, flags in SPLITS.get(n, {None: ()}).items():
+            out[n if part is None else f"{n}_{part}"] = (n, flags)
+    return out
+
+
 def _build_dir() -> str:
     """The libraries' directory, keyed by the flags and every file under
     ``csrc/`` (sources and the headers they include), so an edited header
     rebuilds too."""
     root = os.environ.get("MXTPU_TORCH_BUILD_DIR") or os.path.join(
         os.path.dirname(_PKG), "build", "mxnet_tpu_torch")
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256((" ".join(NVCC_FLAGS) + repr(SPLITS)).encode())
     for name in sorted(f for f in os.listdir(CSRC)
                        if f.endswith((".cu", ".cuh"))):
         with open(os.path.join(CSRC, name), "rb") as f:
@@ -136,27 +175,31 @@ def build_all(verbose: bool = False) -> Dict[str, str]:
     and prints each kernel's register and shared-memory report."""
     out_dir = _build_dir()
     os.makedirs(out_dir, exist_ok=True)
-    paths = {n: os.path.join(out_dir, f"lib{n}.so") for n in _sources()}
+    libs = _libraries()
+    paths = {n: os.path.join(out_dir, f"lib{n}.so") for n in libs}
     todo = [n for n, p in paths.items() if not os.path.isfile(p)]
     if not todo:
         return paths
     nvcc = _nvcc()
     procs = {}
     for n in todo:
+        src, flags = libs[n]
         tmp = f"{paths[n]}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", tmp, os.path.join(CSRC, n + ".cu")]
-        procs[n] = (tmp, subprocess.Popen(
+        cmd = [nvcc, *NVCC_FLAGS, *flags,
+               *(["-Xptxas", "-v"] if verbose else []),
+               "-o", tmp, os.path.join(CSRC, src + ".cu")]
+        procs[n] = (tmp, time.time(), subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
     failed = []
-    for n, (tmp, p) in procs.items():
+    for n, (tmp, t0, p) in procs.items():
         log, _ = p.communicate()
         if verbose and log:
             print(f"[nvcc {n}]\n{log}", flush=True)
         if p.returncode != 0:
-            failed.append(f"--- nvcc {n}.cu (exit {p.returncode}) ---\n{log}")
+            failed.append(f"--- nvcc {n} (exit {p.returncode}) ---\n{log}")
         else:
+            BUILD_SECONDS[n] = os.path.getmtime(tmp) - t0
             os.replace(tmp, paths[n])
     if failed:
         raise MXNetError("CUDA kernel build failed:\n" + "\n".join(failed))
@@ -164,8 +207,9 @@ def build_all(verbose: bool = False) -> Dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library built from ``csrc/<name>.cu`` (built on first
-    use, every source at once)."""
+    """The loaded library `name`, built from ``csrc/<name>.cu`` or from a
+    part of a `SPLITS` source (built on first use, every library at
+    once)."""
     lib = _libs.get(name)
     if lib is not None:
         return lib
@@ -173,6 +217,7 @@ def load(name: str) -> ctypes.CDLL:
         if name not in _libs:
             paths = build_all()
             if name not in paths:
-                raise MXNetError(f"no kernel source csrc/{name}.cu")
+                raise MXNetError(f"no kernel library {name!r}: built are "
+                                 f"{sorted(paths)}")
             _libs[name] = ctypes.CDLL(paths[name])
         return _libs[name]

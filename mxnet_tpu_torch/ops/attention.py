@@ -13,11 +13,17 @@ held against.  `reference_attention` is the einsum-and-softmax path
 Attention dropout takes a `torch.Generator` where the JAX package takes a
 PRNG key: the flash path draws its int32 hash seed from it, the reference
 path draws a Bernoulli mask.
+
+Under `amp.init` the multi-head entry points cast query, key, value and a
+float mask to the AMP dtype (``multi_head_attention`` is a TARGET op, as
+in JAX), so the flash kernels run in f16 or bf16; the mask is 0/1, exact
+in either, and becomes the kernels' f32 bias.
 """
 from __future__ import annotations
 
 import torch
 
+from .. import amp as _amp
 from ..base import MXNetError
 from .flash_attention import (MASK_VALUE, flash_attention,
                               flash_attention_reference)
@@ -224,6 +230,8 @@ def _multi_head_attention(flash, query, key, value, num_heads, mask,
                           dropout_p, causal, use_flash, window,
                           window_symmetric, rope_theta, num_kv_heads,
                           training, generator):
+    query, key, value, mask = _amp.cast_inputs(
+        "multi_head_attention", query, key, value, mask)
     b, lq, e = query.shape
     lk = key.shape[1]
     hd = e // num_heads

@@ -10,8 +10,9 @@ recomputes.  `flash_attention` is a `torch.autograd.Function`:
   its tiles from `resolve_blocks` through `_fwd_plan`; backward: a di row
   pass, then one tensor-core pass per key tile for dQ, dK and dV, laid out
   by `_bwd_plan`; both skip the tiles outside a sliding window's band and
-  take grouped K/V folded onto the row axis), or raises `MXNetError` on
-  what they do not take (heads over 256 wide);
+  take grouped K/V folded onto the row axis), in f32, bf16 or f16 (each
+  type its own library, `kernels.SPLITS`), or raises `MXNetError` on what
+  they do not take (heads over 256 wide, another dtype);
 - on a CPU tensor it runs `flash_fwd_reference` / `flash_bwd_reference`:
   the same arithmetic in plain torch, which the CPU tests hold against the
   JAX package; the block sizes change nothing there.
@@ -244,8 +245,27 @@ FWD_TILES = (64, 128)
 SMEM_BLOCK = 232448     # the shared memory an H100 block may use (227 KB)
 
 
-def _is_bf16(dtype) -> bool:
+def _is_16bit(dtype) -> bool:
+    """bf16 or f16 (the plans treat both alike: same bytes, same tiles)."""
     return "16" in str(dtype)
+
+
+# the kernels' input type codes (the C entry points' `dtype`, numbered as
+# `ops.fused_norm` numbers them) and the library each type is built into
+# (`kernels.SPLITS`)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_LIBRARY = {torch.float32: "flash_attention_f32",
+            torch.bfloat16: "flash_attention_bf16",
+            torch.float16: "flash_attention_f16"}
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    """A dtype or its name (a tuning key's "bfloat16", "float16", ...)
+    as the torch dtype; any other name is f32."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return {"bfloat16": torch.bfloat16, "float16": torch.float16}.get(
+        str(dtype).replace("torch.", ""), torch.float32)
 
 
 def _dmax(D: int) -> int:
@@ -256,8 +276,8 @@ def _dmax(D: int) -> int:
 def _fwd_smem(dtype, dmax: int, bq: int, bk: int) -> int:
     """Shared memory of one forward block: two Q tiles (an item's and the
     next one's) and a two-stage ring of K and V tiles, rows padded by 16
-    bytes (bf16) or 4 floats (f32)."""
-    item, pad = (2, 8) if _is_bf16(dtype) else (4, 4)
+    bytes (bf16, f16) or 4 floats (f32)."""
+    item, pad = (2, 8) if _is_16bit(dtype) else (4, 4)
     return item * (2 * bq + 4 * bk) * (dmax + pad)
 
 
@@ -284,12 +304,12 @@ def _fwd_plan(B: int, H: int, Lq: int, Lk: int, D: int, dtype,
     block of 8 warps or two of 4: the smaller items balance better), and
     where the tiles exceed a block's shared memory (f32 heads over 64 wide
     at 128 keys) the key tile halves.  Heads over 128 wide take the one
-    pair that fits: 64 x 64 in bf16, 32 x 32 in f32 (whatever the blocks
+    pair that fits: 64 x 64 in 16 bits, 32 x 32 in f32 (whatever the blocks
     asked).  With ``kv_heads`` g < H the H // g query heads of a group are
     folded onto the row axis: B * g heads of H // g * Lq rows."""
     dmax = _dmax(D)
     if dmax == 256:
-        bq = bk = 64 if _is_bf16(dtype) else 32
+        bq = bk = 64 if _is_16bit(dtype) else 32
     else:
         bq = 128 if int(block_q) >= 128 and dmax == 64 else 64
         bk = 128 if int(block_k) >= 128 else 64
@@ -301,7 +321,7 @@ def _fwd_plan(B: int, H: int, Lq: int, Lk: int, D: int, dtype,
 
 
 # the card's plan where nothing else chooses: 64-row items with 64-key
-# stages, the smallest tiles, so the most blocks an SM (three in bf16) --
+# stages, the smallest tiles, so the most blocks an SM (three in 16 bits) --
 # the fastest of the four in both dtypes and all five masks of
 # `chip_smoke.py` phase 6 at BERT's shape on an H100 (PERF.md)
 DEFAULT_BLOCKS = (64, 64)
@@ -393,20 +413,20 @@ BWD_SPLIT_ROWS = 1024
 def _bwd_key_tiles(dmax: int, dtype) -> Tuple[int, ...]:
     """The key tiles a backward block may hold at a padded width: both up
     to 128 columns; over that the one that fits a block's shared memory,
-    64 keys in bf16 and 32 in f32, with two warps a 16 keys (each
+    64 keys in 16 bits and 32 in f32, with two warps a 16 keys (each
     accumulating dK and dV over half the columns)."""
     if dmax <= 128:
         return BWD_KEY_TILES
-    return (64,) if _is_bf16(dtype) else (32,)
+    return (64,) if _is_16bit(dtype) else (32,)
 
 
 def _bwd_smem(dtype, dmax: int, bk: int) -> int:
     """Shared memory of one backward block (csrc `bwd_smem`): KVB K/V
-    buffers (2 for bf16, 1 for f32) of bk rows, a two-stage ring of Q and
+    buffers (2 for 16 bits, 1 for f32) of bk rows, a two-stage ring of Q and
     dO tiles of bq rows, dS^T (bk x bq) and lse, di and positions for two
     q tiles."""
-    item, pad = (2, 8) if _is_bf16(dtype) else (4, 4)
-    kvb = 2 if _is_bf16(dtype) else 1
+    item, pad = (2, 8) if _is_16bit(dtype) else (4, 4)
+    kvb = 2 if _is_16bit(dtype) else 1
     bq = 64 if dmax == 64 else 32
     return item * ((2 * kvb * bk + 4 * bq) * (dmax + pad)
                    + bk * (bq + pad)) + 4 * 6 * bq
@@ -423,7 +443,7 @@ class BwdPlan(NamedTuple):
     key_tiles: int       # work items a head; dQ partials when more than one
     q_tiles: int         # q tiles a head: one ticket each
     blocks: int          # work items (B * g * key_tiles * q_splits)
-    grid: int            # blocks launched: one an item, or (bf16 with one
+    grid: int            # blocks launched: one an item, or (16-bit with one
                          # key tile a head) one an SM, persistent
     tickets: int         # uint32 tickets (B * g * q_tiles), 0 with one tile
     workspace: int       # f32 dQ partials (key_tiles * B * H * Lq * D)
@@ -441,7 +461,7 @@ def _bwd_plan(B: int, H: int, Lq: int, Lk: int, D: int, dtype,
     tile and the block writes dQ itself with no partials (BERT's L = 128);
     it is 64 where Lk fits in 64, or where 128-key tiles would leave the
     grid short of one block per SM.  ``bk`` overrides (the tests run both).
-    bf16 with one key tile a head launches at most one block an SM, each
+    16-bit with one key tile a head launches at most one block an SM, each
     walking items with the next one's loads in flight; otherwise one block
     an item (f32, whose tiles fill shared memory, always): with several key
     tiles a head the items differ in size (causal, a window) and blocks
@@ -473,7 +493,7 @@ def _bwd_plan(B: int, H: int, Lq: int, Lk: int, D: int, dtype,
     q_splits = max(1, -(-q_tiles // per))
     split = key_tiles > 1
     items = heads * key_tiles * q_splits
-    persistent = _is_bf16(dtype) and not split
+    persistent = _is_16bit(dtype) and not split
     grid = min(items, sm_count) if persistent else items
     cut = q_splits > 1
     return BwdPlan(bk, dmax, bq, key_tiles, q_tiles, items, max(1, grid),
@@ -494,10 +514,10 @@ _fns = {}
 _scratch_of: Dict[Any, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = {}
 
 
-def _kernel_fn(direction):
-    f = _fns.get(direction)
+def _kernel_fn(direction, dtype):
+    f = _fns.get((direction, dtype))
     if f is None:
-        f = getattr(_kernels.load("flash_attention"),
+        f = getattr(_kernels.load(_LIBRARY[dtype]),
                     f"mxt_flash_attention_{direction}")
         common = [_I] * 5 + [_F] + [_I] * 6 + [_F, _F, _U, _I]
         if direction == "fwd":
@@ -505,7 +525,7 @@ def _kernel_fn(direction):
         else:
             f.argtypes = [_P] * 16 + [_I] + common + [_I, _I, _P]
         f.restype = _I
-        _fns[direction] = f
+        _fns[direction, dtype] = f
     return f
 
 
@@ -513,9 +533,9 @@ def _check(q, k, v, bias3, seed, rate, per_row, lq):
     """The kernels' operands: q (B, G, R, D) with R = rep * lq rows (the
     fold; R = lq without it), k/v (B, G, Lk, D), a bias of lq rows."""
     B, H, R, D = q.shape
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise MXNetError(f"flash_attention kernel takes float32 or bfloat16, "
-                         f"got {q.dtype}")
+    if q.dtype not in _DTYPE_CODE:
+        raise MXNetError(f"flash_attention kernel takes float32, bfloat16 "
+                         f"or float16, got {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise MXNetError(f"flash_attention kernel needs q, k and v in one "
                          f"dtype; got {q.dtype}/{k.dtype}/{v.dtype}")
@@ -561,7 +581,7 @@ def _common_args(q, k, bias3, scale, causal, rate, per_head, per_row,
     win = -1 if window is None else min(int(window), _NO_EDGE)
     return [B * H, H, R, k.shape[2], D, float(scale), int(causal), win,
             int(bool(window_symmetric)), lq, mode, int(bool(per_head)),
-            float(rate), inv, thresh, int(q.dtype == torch.bfloat16)]
+            float(rate), inv, thresh, _DTYPE_CODE[q.dtype]]
 
 
 def _ptr(t):
@@ -586,7 +606,7 @@ def _flash_fwd_cuda(q, k, v, bias3, seed, scale, causal, rate, per_head,
     if plan is None:
         plan = _planned_fwd(B, G * (R // lq), lq, k.shape[2], D, q.dtype,
                             q.device, kv_heads=G)
-    err = _kernel_fn("fwd")(
+    err = _kernel_fn("fwd", q.dtype)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias3),
         _ptr(seed) if rate > 0 else None, out.data_ptr(), lse.data_ptr(),
         *_common_args(q, k, bias3, scale, causal, rate, per_head, per_row,
@@ -596,7 +616,7 @@ def _flash_fwd_cuda(q, k, v, bias3, seed, scale, causal, rate, per_head,
     if err:
         raise MXNetError(f"flash_attention forward kernel launch failed "
                          f"(cudaError_t {err}, {plan})")
-    _kernels.LAUNCHES["flash_attention_fwd"] += 1
+    _kernels.count_launch("flash_attention_fwd", q.dtype)
     return out, lse
 
 
@@ -637,7 +657,7 @@ def _flash_bwd_cuda(q, k, v, bias3, seed, o, lse, g, scale, causal, rate,
         _scratch_of, dev, stream, plan.tickets + plan.kv_tickets,
         plan.workspace, B * G * R, plan.kv_workspace)
     split, cut = plan.key_tiles > 1, plan.q_splits > 1
-    err = _kernel_fn("bwd")(
+    err = _kernel_fn("bwd", q.dtype)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias3),
         _ptr(seed) if rate > 0 else None, o.data_ptr(), lse.data_ptr(),
         g.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
@@ -652,7 +672,7 @@ def _flash_bwd_cuda(q, k, v, bias3, seed, o, lse, g, scale, causal, rate,
     if err:
         raise MXNetError(f"flash_attention backward kernel launch failed "
                          f"(cudaError_t {err}, {plan})")
-    _kernels.LAUNCHES["flash_attention_bwd"] += 1
+    _kernels.count_launch("flash_attention_bwd", q.dtype)
     return dq, dk, dv
 
 
@@ -832,7 +852,7 @@ def _at_roofline(config, shapes, dtype):
     """JAX's count (`mxnet_tpu/ops/pallas/flash_attention.py`
     `_at_roofline`): K and V stream once per q block."""
     b, h, lq, lk, d = _at_shapes(shapes)
-    itemsize = 2 if _is_bf16(dtype) else 4
+    itemsize = 2 if _is_16bit(dtype) else 4
     bq, bk = config.block_q, config.block_k
     n_q = max(1, lq // max(1, bq))
     return {"flops": 4.0 * b * h * lq * lk * d,
@@ -847,7 +867,7 @@ def _at_inputs(shapes, dtype, device):
     import numpy as np
     b, h, lq, lk, d = _at_shapes(shapes)
     rng = np.random.RandomState(0)
-    dt = torch.bfloat16 if "16" in str(dtype) else torch.float32
+    dt = _torch_dtype(dtype)
     return tuple(torch.from_numpy(rng.randn(b, h, n, d).astype(np.float32))
                  .to(device, dt) for n in (lq, lk, lk))
 

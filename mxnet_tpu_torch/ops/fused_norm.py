@@ -305,7 +305,7 @@ def _norm_cuda(x2, res2, gamma, beta, eps, rms, block_rows=None):
         if err:
             raise MXNetError(f"fused_norm kernel launch failed (cudaError_t "
                              f"{err}, plan {plan})")
-        _kernels.LAUNCHES["fused_norm"] += 1
+        _kernels.count_launch("fused_norm", x2.dtype)
     return y if s is None else (y, s)
 
 

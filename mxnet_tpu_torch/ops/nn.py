@@ -12,6 +12,12 @@ in the promoted type of its operands (``jnp.matmul`` promotes;
 Random ops take an explicit `torch.Generator` where the JAX package draws
 from its global key.
 
+Each op first passes its tensors through the AMP hook
+(`amp.cast_inputs`) under the name JAX's ``apply_op`` gives it: with
+`amp.init` on, ``fully_connected`` runs in the AMP dtype, ``layer_norm``
+in f32 and the others keep what arrives; with AMP off the hook changes
+nothing.
+
 `remat_call` and `resolve_remat_policy` port JAX's remat knob onto
 ``torch.utils.checkpoint``: the non-reentrant form (``TrainStep`` takes
 gradients with ``torch.autograd.grad``) with JAX's named policies as
@@ -28,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint as _ckpt
 
+from .. import amp as _amp
 from ..base import MXNetError
 
 from . import fused_norm as _fnorm
@@ -45,6 +52,7 @@ def layer_norm(x, gamma, beta, axis=-1, eps=1e-5):
     when `fused_norm.kernel_eligible` (the policy), else
     `fused_norm.layer_norm_reference`, mean and variance in the input
     dtype.  Another axis takes that reference math, moved last."""
+    x, gamma, beta = _amp.cast_inputs("layer_norm", x, gamma, beta)
     axis = axis % x.dim()
     if axis == x.dim() - 1:
         return _fnorm.fused_layer_norm(x, gamma, beta, eps=eps)
@@ -56,6 +64,8 @@ def layer_norm(x, gamma, beta, axis=-1, eps=1e-5):
 def layer_norm_residual(x, residual, gamma, beta, axis=-1, eps=1e-5):
     """The pre-LN step ``s = residual + x; y = LN(s)``; returns ``(y, s)``
     (``npx.layer_norm_residual``).  Last axis only."""
+    x, residual, gamma, beta = _amp.cast_inputs(
+        "layer_norm_residual", x, residual, gamma, beta)
     _fnorm._last_axis("layer_norm_residual", x, axis)
     return _fnorm.layer_norm_residual(x, residual, gamma, beta, eps=eps)
 
@@ -63,6 +73,7 @@ def layer_norm_residual(x, residual, gamma, beta, axis=-1, eps=1e-5):
 def rms_norm(x, gamma, axis=-1, eps=1e-6):
     """RMSNorm over the last axis: ``y = x * rsqrt(mean(x^2) + eps) *
     gamma`` (``npx.rms_norm``)."""
+    x, gamma = _amp.cast_inputs("rms_norm", x, gamma)
     _fnorm._last_axis("rms_norm", x, axis)
     return _fnorm.fused_rms_norm(x, gamma, eps=eps)
 
@@ -70,6 +81,8 @@ def rms_norm(x, gamma, axis=-1, eps=1e-6):
 def rms_norm_residual(x, residual, gamma, axis=-1, eps=1e-6):
     """``s = residual + x; y = RMSNorm(s)``; returns ``(y, s)``
     (``npx.rms_norm_residual``)."""
+    x, residual, gamma = _amp.cast_inputs("rms_norm_residual", x, residual,
+                                          gamma)
     _fnorm._last_axis("rms_norm_residual", x, axis)
     return _fnorm.rms_norm_residual(x, residual, gamma, eps=eps)
 
@@ -77,6 +90,7 @@ def rms_norm_residual(x, residual, gamma, axis=-1, eps=1e-6):
 def gelu(x, approximation="erf"):
     """GELU; the erf form by default, as ``npx.gelu``.  ``"tanh"`` (or
     ``"fast"``) selects the tanh approximation."""
+    (x,) = _amp.cast_inputs("gelu", x)
     if approximation in ("tanh", "fast"):
         return F.gelu(x, approximate="tanh")
     return F.gelu(x)
@@ -88,6 +102,7 @@ def dropout(x, p=0.5, generator=None, training=True):
     by ``1 / (1 - p)``.  Identity unless `training` and ``p > 0``."""
     if not training or p <= 0.0:
         return x
+    (x,) = _amp.cast_inputs("dropout", x)
     keep = torch.rand(x.shape, generator=generator, device=x.device) \
         < 1.0 - p
     return torch.where(keep, x / (1.0 - p), 0.0).to(x.dtype)
@@ -96,6 +111,7 @@ def dropout(x, p=0.5, generator=None, training=True):
 def embedding(ids, weight):
     """Row lookup; out-of-range ids clip to the table, as
     ``npx.embedding``'s ``mode="clip"`` does."""
+    ids, weight = _amp.cast_inputs("embedding", ids, weight)
     idx = torch.as_tensor(ids, device=weight.device).long().clamp(
         0, weight.shape[0] - 1)
     return F.embedding(idx, weight)
@@ -105,6 +121,7 @@ def fully_connected(x, weight, bias=None):
     """``x @ weight.T + bias`` (``npx.fully_connected`` with
     ``flatten=False``; weight (units, in_units)) in the promoted dtype of
     the operands."""
+    x, weight, bias = _amp.cast_inputs("fully_connected", x, weight, bias)
     dt = torch.promote_types(x.dtype, weight.dtype)
     if bias is not None:
         dt = torch.promote_types(dt, bias.dtype)
@@ -115,6 +132,7 @@ def fully_connected(x, weight, bias=None):
 def pick(x, index, axis=-1, keepdims=False):
     """``x`` at `index` along `axis`, indices clipped into range
     (``npx.pick``, mode "clip")."""
+    x, index = _amp.cast_inputs("pick", x, index)
     axis = axis % x.dim()
     idx = torch.as_tensor(index, device=x.device).long().clamp(
         0, x.shape[axis] - 1).unsqueeze(axis)
@@ -127,6 +145,8 @@ def softmax_cross_entropy(logits, labels, reduction="none"):
     (``npx.softmax_cross_entropy``): the streaming kernel on the card
     (`ops.softmax_xent`).  ``reduction="sum"`` gives the summed (1,)
     output of the reference op."""
+    logits, labels = _amp.cast_inputs("softmax_cross_entropy", logits,
+                                      labels)
     loss = _xent(logits, labels)
     if reduction == "sum":
         return loss.sum().reshape(1)

@@ -2,7 +2,8 @@
 
 Counterpart of ``mxnet_tpu/ops/pallas/softmax_xent.py``: the per-row loss
 ``lse_i - x_i,label_i`` over (…, V) logits, whose backward is
-``dx = (softmax(x) - onehot(label)) * g`` in x's dtype.  The kernel streams
+``dx = (softmax(x) - onehot(label)) * g`` in x's dtype (f32, bf16 or
+f16; in f16 a gradient past the range is +-inf, as JAX's cast gives it).  The kernel streams
 the logits once and keeps only per-row (max, sum-exp) statistics, so the
 f32 (N, V) log-probabilities a ``log_softmax`` route would write never
 exist; the backward recomputes softmax from the saved f32 lse.
@@ -106,7 +107,8 @@ def _row_split(V: int, itemsize: int, phase: int):
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_XDTYPES = (torch.float32, torch.bfloat16)
+# the logits' types and their codes (the C entry points' `dtype`)
+_XDTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _fns = {}
 
 
@@ -130,8 +132,8 @@ def _check(x, labels):
             x.is_contiguous() and labels.is_contiguous()):
         return
     if x.dtype not in _XDTYPES:
-        raise MXNetError(f"softmax_cross_entropy kernel takes float32 or "
-                         f"bfloat16 logits, got {x.dtype}")
+        raise MXNetError(f"softmax_cross_entropy kernel takes float32, "
+                         f"bfloat16 or float16 logits, got {x.dtype}")
     if labels.dtype != torch.int32 or tuple(labels.shape) != (x.shape[0],):
         raise MXNetError(f"labels must be int32 ({x.shape[0]},); got "
                          f"{labels.dtype} {tuple(labels.shape)}")
@@ -162,13 +164,13 @@ def _xent_fwd_cuda(x, labels):
         return loss, lse
     plan = _fwd_plan(N, _kernels.sm_count(dev))
     err = _kernel_fn("fwd")(x.data_ptr(), labels.data_ptr(), loss.data_ptr(),
-                            lse.data_ptr(), N, V,
-                            int(x.dtype == torch.bfloat16), plan.grid,
+                            lse.data_ptr(), N, V, _XDTYPES[x.dtype],
+                            plan.grid,
                             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise MXNetError(f"softmax_cross_entropy forward kernel launch "
                          f"failed (cudaError_t {err})")
-    _kernels.LAUNCHES["softmax_xent_fwd"] += 1
+    _kernels.count_launch("softmax_xent_fwd", x.dtype)
     return loss, lse
 
 
@@ -186,11 +188,11 @@ def _xent_bwd_cuda(x, labels, lse, g):
         return dx
     err = _kernel_fn("bwd")(x.data_ptr(), labels.data_ptr(), lse.data_ptr(),
                             g.data_ptr(), dx.data_ptr(), N, V,
-                            int(x.dtype == torch.bfloat16), _stream(x))
+                            _XDTYPES[x.dtype], _stream(x))
     if err:
         raise MXNetError(f"softmax_cross_entropy backward kernel launch "
                          f"failed (cudaError_t {err})")
-    _kernels.LAUNCHES["softmax_xent_bwd"] += 1
+    _kernels.count_launch("softmax_xent_bwd", x.dtype)
     return dx
 
 

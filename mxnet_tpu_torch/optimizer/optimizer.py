@@ -14,6 +14,13 @@ decay, ``rescale_grad``, ``clip_gradient``, the per-name rate multipliers
 (``lr_mult``, ``wd_mult``) and the per-index update count ``t``, and the
 flags (``fused_safe``, ``fused_elementwise``) that tell
 `ops.fused_optimizer` which of its routes may run the rule.
+
+``multi_precision=True`` gives a 16-bit (f16 or bf16) weight an f32
+master copy: `create_state_multi_precision` makes the state ``(w32,
+inner)``, the master and the rule's state on it, and
+`update_multi_precision` runs the rule on the master with the gradient
+cast to f32, then rounds the master into the weight (JAX's
+``update_multi_precision``).
 """
 from __future__ import annotations
 
@@ -154,6 +161,27 @@ class Optimizer:
         weight's)."""
         return ()
 
+    def create_state_multi_precision(self, index, weight) -> tuple:
+        """The state of parameter `index`: with ``multi_precision`` and a
+        16-bit `weight`, ``(w32, inner)`` -- an f32 copy of the weight and
+        the rule's state on it, in f32; otherwise the rule's state in the
+        weight's dtype."""
+        weight = weight.detach()
+        if self.multi_precision and weight.dtype in (torch.float16,
+                                                     torch.bfloat16):
+            w32 = weight.to(torch.float32)
+            return (w32, tuple(self.create_state(w32, dtype=torch.float32)))
+        return tuple(self.create_state(weight, dtype=weight.dtype))
+
+    def _is_mp_state(self, weight, state) -> bool:
+        """`state` is `create_state_multi_precision`'s ``(w32, inner)``
+        for a weight that is not f32."""
+        return (self.multi_precision and isinstance(state, tuple)
+                and len(state) == 2 and torch.is_tensor(state[0])
+                and state[0].dtype == torch.float32
+                and weight.dtype != torch.float32
+                and isinstance(state[1], tuple))
+
     @staticmethod
     def _preprocess_grad(grad, hp):
         g = grad * weak(hp["rescale_grad"], grad)
@@ -175,15 +203,42 @@ class Optimizer:
         the weight's shape, as JAX rebinds it)."""
         self._update_count(index)
         nw, ns = self._rule(weight, grad, tuple(state), self.hparams(index))
-        out = []
-        for old, new in zip(state, ns):
-            if old.shape == new.shape:
-                old.copy_(new)
-                out.append(old)
-            else:
-                out.append(new.to(old.dtype))
+        out = _write_back(state, ns)
         weight.copy_(nw)
-        return tuple(out)
+        return out
+
+    @torch.no_grad()
+    def update_multi_precision(self, index, weight, grad, state) -> tuple:
+        """One step of parameter `index` (the `Trainer`'s per-parameter
+        route).  With a ``(w32, inner)`` state (`_is_mp_state`) the rule
+        runs on the f32 master with the gradient cast to f32, the master
+        and `inner` are updated in place and the weight becomes the master
+        rounded to its dtype; otherwise `update`.  Returns the state."""
+        if not self._is_mp_state(weight, state):
+            return self.update(index, weight, grad, state)
+        w32, inner = state
+        self._update_count(index)
+        nw, ns = self._rule(w32, grad.to(torch.float32), tuple(inner),
+                            self.hparams(index))
+        inner = _write_back(inner, ns)
+        w32.copy_(nw)
+        weight.copy_(nw)
+        return (w32, inner)
 
     def __repr__(self):
         return f"{type(self).__name__}(lr={self.lr})"
+
+
+def _write_back(state, new) -> tuple:
+    """The rule's new state tensors written into `state`'s in place (cast
+    to their dtypes); a slot whose shape the rule changed is the rule's
+    new tensor instead (DCASGD's 0-d momentum becomes the weight's shape,
+    as JAX rebinds it)."""
+    out = []
+    for old, nw in zip(state, new):
+        if old.shape == nw.shape:
+            old.copy_(nw)
+            out.append(old)
+        else:
+            out.append(nw.to(old.dtype))
+    return tuple(out)

@@ -22,9 +22,10 @@ def _to_cpu(s):
 
 
 class Updater:
-    """An optimizer and its per-key states (``states``).  Stepping keys
-    through the updater (the kvstore's server-side update) waits for the
-    kvstore (ROADMAP.md)."""
+    """An optimizer and its per-key states (``states``; a multi-precision
+    weight's is the nested ``(w32, inner)`` pair, kept nested).  Stepping
+    keys through the updater (the kvstore's server-side update) waits for
+    the kvstore (ROADMAP.md)."""
 
     def __init__(self, optimizer: Optimizer):
         self.optimizer = optimizer

@@ -33,13 +33,19 @@ sentinel rows, 16-byte and narrower rows, an unaligned source) and a
 two-step MoE `TrainStep` on the card; and the int8 KV pool: K1's int8
 variant under f32 and bf16 queries (both variants, D 24-256, windows,
 every split), the int8-activation product padded to the shapes
-``torch._int_mm`` takes, and a small GPT served over an int8 pool.
+``torch._int_mm`` takes, and a small GPT served over an int8 pool; and
+float16: the flash and cross-entropy cases above in f16 too, gradients
+past f16's range stored as inf where the plain versions' casts put them,
+a dtype neither kernel takes refused by name, the loss scaler's check on
+CUDA gradients, and a small BERT's fp16 AMP steps through the `Trainer`
+(f32 and f16 weights) against the plain versions.
 
 Marked ``cuda``: each test skips (with its reason) where no card is
 visible, as on the CPU test machine.  Run them on a machine with an H100
 (which needs no JAX): ``python -m pytest --noconftest
 tests/test_torch_cuda.py -q``.  Tolerances: f32 max-abs
-<= 1e-4 of the output scale (summation order), bf16 <= 2e-2; the optimizer
+<= 1e-4 of the output scale (summation order), bf16 <= 2e-2, f16 <= 5e-3
+(three more mantissa bits than bf16); the optimizer
 kernels at atol 2e-6 on f32 (the JAX kernel test's bound), bf16 weights at
 rtol 2**-7 (one bf16 step at most); the row gather and the chunk kernel
 at different chunk sizes bit for bit (a copy, or one f32 multiply and a
@@ -438,7 +444,8 @@ FLASH_WINDOWS = [(None, True), (3, True), (3, False), (64, True),
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2e-2)])
+                                       (torch.bfloat16, 2e-2),
+                                       (torch.float16, 5e-3)])
 @pytest.mark.parametrize("Lq,Lk,D,bias_kind,causal,rate", [
     (128, 128, 64, "pad", False, 0.1), (77, 77, 64, "none", True, 0.0),
     (40, 100, 32, "row", False, 0.0), (130, 65, 128, "pad", False, 0.2),
@@ -494,7 +501,8 @@ def _flash_bwd_inputs(card, dtype, B, H, Lq, Lk, D, bias_kind, causal, rate,
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2e-2)])
+                                       (torch.bfloat16, 2e-2),
+                                       (torch.float16, 5e-3)])
 @pytest.mark.parametrize("bk", [64, 128])
 @pytest.mark.parametrize("B,H,Lq,Lk,D,bias_kind,causal,rate", [
     (2, 3, 128, 128, 64, "pad", False, 0.1),
@@ -510,7 +518,7 @@ def test_flash_backward_every_key_tile_is_right_and_repeatable(
         window, symmetric, rep):
     """Both key tiles (one tile a head: dQ written by the block; several:
     partials summed by the last to arrive) against the plain version, two
-    calls bit-equal, and in bf16 a grid of three persistent blocks giving
+    calls bit-equal, and in 16 bits a grid of three persistent blocks giving
     the same bits; under a window and with ``rep`` query heads folded onto
     each of the H kv heads' rows."""
     from mxnet_tpu_torch.ops import flash_attention as fa
@@ -529,7 +537,7 @@ def test_flash_backward_every_key_tile_is_right_and_repeatable(
         assert torch.equal(a, a2), name
         err = float((a.float() - b.float()).abs().max())
         assert err <= tol * float(b.float().abs().max()), name
-    if dtype == torch.bfloat16:
+    if dtype != torch.float32:
         # three persistent blocks walk every item, the next one's loads in
         # flight (causal heads wider than Lq have items with no q tile):
         # the same bits
@@ -538,7 +546,8 @@ def test_flash_backward_every_key_tile_is_right_and_repeatable(
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2e-2)])
+                                       (torch.bfloat16, 2e-2),
+                                       (torch.float16, 5e-3)])
 @pytest.mark.parametrize("B,H,Lq,Lk,D,bias_kind,causal,rate", [
     (2, 3, 128, 128, 256, "pad", False, 0.1),
     (2, 2, 200, 300, 256, "pad", False, 0.1),
@@ -578,13 +587,14 @@ def test_flash_backward_wide_heads_right_and_repeatable(
     for name, a, b in (("out", o, args[5]), ("lse", lse, args[6])):
         err = float((a.float() - b.float()).abs().max())
         assert err <= tol * float(b.float().abs().max()), name
-    if dtype == torch.bfloat16:
+    if dtype != torch.float32:
         narrow = fa._flash_bwd_cuda(*args, plan=plan._replace(grid=3), **kw)
         assert all(torch.equal(a, b) for a, b in zip(narrow, got))
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2e-2)])
+                                       (torch.bfloat16, 2e-2),
+                                       (torch.float16, 5e-3)])
 @pytest.mark.parametrize("D", [64, 256])
 def test_flash_backward_long_folds_split_the_q_walk(card, dtype, tol, D):
     """Gemma 2B's fold, 8 query heads over one kv head at L 2048: 16384
@@ -606,7 +616,8 @@ def test_flash_backward_long_folds_split_the_q_walk(card, dtype, tol, D):
         assert err <= tol * float(b.float().abs().max()), name
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_flash_backward_on_two_streams(card, dtype):
     """Backward calls with dQ partials on two streams at once keep their
     own tickets and partials: each stream's results equal the same call
@@ -635,7 +646,8 @@ def test_flash_backward_on_two_streams(card, dtype):
     assert all(int(t[0].abs().sum()) == 0 for t in mine)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("bk", [64, 128])
 def test_flash_backward_masked_rows_and_keys_get_zeros(card, dtype, bk):
     """A query row whose keys are all masked has exactly zero dQ, and a key
@@ -705,7 +717,8 @@ def _close(got, want, tol):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2e-2)])
+                                       (torch.bfloat16, 2e-2),
+                                       (torch.float16, 5e-3)])
 @pytest.mark.parametrize("bq,bk", FWD_PLANS)
 @pytest.mark.parametrize("B,H,Lq,Lk,D,mask", FWD_CASES)
 def test_flash_forward_every_plan_matches_plain(card, dtype, tol, bq, bk, B,
@@ -734,7 +747,8 @@ def test_flash_forward_every_plan_matches_plain(card, dtype, tol, bq, bk, B,
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2e-2)])
+                                       (torch.bfloat16, 2e-2),
+                                       (torch.float16, 5e-3)])
 @pytest.mark.parametrize("offset,D", [(1, 64), (0, 33), (3, 40)])
 def test_flash_forward_unaligned_operands(card, dtype, tol, offset, D):
     """Operands off 16-byte alignment, or rows that are not whole 16-byte
@@ -751,7 +765,8 @@ def test_flash_forward_unaligned_operands(card, dtype, tol, offset, D):
         assert _close(o, want_o, tol) and _close(lse, want_lse, tol), plan
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("bq,bk", FWD_PLANS)
 def test_flash_forward_masked_rows_give_zeros_and_zero_lse(card, dtype, bq,
                                                            bk):
@@ -776,7 +791,8 @@ def test_flash_forward_masked_rows_give_zeros_and_zero_lse(card, dtype, bq,
     assert bool(o[:, :, 9:70].all(dim=-1).any()) and bool(lse[0, :, 9:].all())
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_flash_forward_on_two_streams(card, dtype):
     """Forward calls on two streams at once give, each, the bits of the same
     call made alone."""
@@ -798,7 +814,8 @@ def test_flash_forward_on_two_streams(card, dtype):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2e-2)])
+                                       (torch.bfloat16, 2e-2),
+                                       (torch.float16, 5e-3)])
 @pytest.mark.parametrize("mask", ["pad_dropout", "causal", "row"])
 def test_flash_backward_on_the_new_forward_matches_plain(card, dtype, tol,
                                                          mask):
@@ -870,7 +887,8 @@ def test_flash_attention_kernel_raises_on_what_it_does_not_take(card):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2e-2)])
+                                       (torch.bfloat16, 2e-2),
+                                       (torch.float16, 5e-3)])
 def test_flash_backward_middle_visitor_ranges_and_tickets_reset(card, dtype,
                                                                  tol):
     """Causal with a window of 100 over 512 rows and 1024 keys, 64-key
@@ -959,7 +977,8 @@ def test_windowed_bert_on_the_card_matches_the_plain_attention(card):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2e-2)])
+                                       (torch.bfloat16, 2e-2),
+                                       (torch.float16, 5e-3)])
 @pytest.mark.parametrize("N,V", [(64, 30522), (37, 1001), (37, 1), (37, 9),
                                  (16, 50257)])
 def test_softmax_xent_kernels_match_plain(card, dtype, tol, N, V):
@@ -1001,6 +1020,58 @@ def test_softmax_xent_kernels_match_plain(card, dtype, tol, N, V):
                     (xx.grad, dx_ref, tol)):
         err = float((a.float() - b.float()).abs().max())
         assert err <= t * float(b.float().abs().max())
+
+
+def test_f16_kernels_store_inf_past_the_range_as_the_casts_do(card):
+    """In f16 a gradient past the range is +-inf in the kernels' outputs,
+    exactly where the plain versions' casts put it (nothing saturates at
+    65504): a loss scaler must see the same overflow.  Uniform attention
+    (q = k = 0) over twice as many rows as keys gives dV = 2 * dO = 1.2e5
+    in every element, dQ and dK exactly 0; cross-entropy over equal logits
+    with g = 1e9 gives dx = +-1e6 everywhere."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.ops import softmax_xent as sx
+    g = torch.Generator().manual_seed(5)
+    q = torch.zeros(2, 3, 128, 64, device=card, dtype=torch.float16)
+    k = torch.zeros(2, 3, 64, 64, device=card, dtype=torch.float16)
+    v = torch.randn(2, 3, 64, 64, generator=g).to(card, torch.float16)
+    do = torch.full_like(q, 6e4)
+    kernels.reset_launch_counts()
+    for flash in (fa.flash_attention, fa.flash_attention_reference):
+        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+        o = flash(qq, kk, vv)
+        o.backward(do)
+        assert bool(torch.isfinite(o).all())
+        assert bool(torch.isposinf(vv.grad).all())
+        assert not bool(qq.grad.abs().any()) and \
+            not bool(kk.grad.abs().any())
+    x = torch.zeros(8, 1000, device=card, dtype=torch.float16)
+    lab = torch.arange(8, device=card, dtype=torch.int32)
+    gr = torch.full((8,), 1e9, device=card)
+    loss, lse = sx._xent_fwd_cuda(x, lab)
+    dx = sx._xent_bwd_cuda(x, lab, lse, gr)
+    want = sx.xent_bwd_reference(x, lab, lse, gr)
+    torch.cuda.synchronize()
+    assert kernels.DTYPE_LAUNCHES[("flash_attention_bwd", "float16")] == 1
+    assert bool(torch.isfinite(loss).all())
+    assert torch.equal(torch.isposinf(dx), torch.isposinf(want))
+    assert torch.equal(torch.isneginf(dx), torch.isneginf(want))
+    assert not bool(torch.isfinite(dx).any())
+
+
+def test_kernels_raise_on_a_dtype_they_do_not_take(card):
+    """float64 reaches neither kernel: the dispatchers raise by name (no
+    plain version, SDPA or `F.cross_entropy` in their place)."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.ops import softmax_xent as sx
+    q = torch.zeros(1, 2, 8, 16, device=card, dtype=torch.float64)
+    with pytest.raises(MXNetError, match="float32, bfloat16 or float16"):
+        fa.flash_attention(q, q, q)
+    with pytest.raises(MXNetError, match="float32, bfloat16 or float16"):
+        sx.softmax_cross_entropy(torch.zeros(4, 9, device=card,
+                                             dtype=torch.float64),
+                                 torch.zeros(4, dtype=torch.int32,
+                                             device=card))
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
@@ -1776,7 +1847,8 @@ def test_trainer_lamb_launches_phase_a_once_per_group(card):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2e-2)])
+                                       (torch.bfloat16, 2e-2),
+                                       (torch.float16, 5e-3)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_causal_flash_at_gpt_length_matches_plain(card, dtype, tol, rate):
     """GPT-2's attention length, L 1024, causal, with and without dropout:
@@ -2041,3 +2113,96 @@ def test_int8_pool_engine_on_the_card(card, monkeypatch, bits, act):
             assert counts["quantized_matmul"] == 0 if act or not bits \
                 else counts["quantized_matmul"] > 0
     assert outs[False] == outs[True]
+
+
+def test_loss_scaler_sees_inf_and_nan_on_the_card(card):
+    """`LossScaler.has_overflow` on CUDA gradients of each float type: its
+    one reduction (`torch._foreach_norm` at order inf) keeps an inf or a
+    NaN anywhere in any gradient."""
+    from mxnet_tpu_torch import amp
+    ps = [torch.nn.Parameter(torch.zeros(n, dtype=dt, device=card))
+          for n, dt in ((3, torch.float32), (70000, torch.float16),
+                        (5, torch.bfloat16))]
+    s = amp.LossScaler()
+    for p in ps:
+        p.grad = torch.full_like(p, 6e4)
+    assert not s.has_overflow(ps)
+    for bad in (float("inf"), float("-inf"), float("nan")):
+        for p in ps:
+            p.grad[-1] = bad
+            assert s.has_overflow(ps), (p.dtype, bad)
+            p.grad[-1] = 0.0
+
+
+@pytest.mark.parametrize("weights", ["float32", "float16"])
+def test_fp16_amp_bert_steps_on_the_card(card, weights):
+    """Three fp16 AMP steps of a small BERT through the gluon `Trainer`
+    and its loss scaler (``multi_precision`` with f16 weights): the flash
+    and cross-entropy kernels launch in f16 only, the losses are those of
+    the same loop on the plain versions within 1e-3, a poisoned step is
+    skipped on both, and the weights keep their dtype."""
+    import math
+    from mxnet_tpu_torch import amp
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.models import bert as tb
+    from mxnet_tpu_torch.models.layers import FusedSelfAttention, LayerNorm
+    from mxnet_tpu_torch.ops import softmax_xent as sx
+    from mxnet_tpu_torch.ops.attention import multi_head_attention_reference
+    from mxnet_tpu_torch.ops.fused_norm import fused_layer_norm_reference
+    cfg = tb.BertConfig(vocab_size=1000, hidden_size=128, num_layers=2,
+                        num_heads=2, intermediate_size=256, max_position=64,
+                        dropout=0.1)
+    g = torch.Generator().manual_seed(0)
+    ids = torch.randint(0, 1000, (4, 64), generator=g).to(card)
+    vl = torch.tensor([64, 50, 33, 61], device=card)
+    mp = torch.arange(0, 40, 5, device=card).repeat(4, 1)
+    lab = torch.randint(0, 1000, (4, 8), generator=g).to(card)
+
+    def norm_ref(x, gamma, beta, eps=1e-5):
+        x, gamma, beta = amp.cast_inputs("layer_norm", x, gamma, beta)
+        return fused_layer_norm_reference(x, gamma, beta, eps=eps)
+
+    runs = {}
+    for plain in (False, True):
+        amp.init("float16")
+        model = tb.BertForPretraining(cfg, device=card, seed=0)
+        if weights == "float16":
+            amp.convert_hybrid_block(model, "float16")
+        xent = sx.softmax_cross_entropy
+        if plain:
+            xent = sx.softmax_cross_entropy_reference
+            for m in model.modules():
+                if isinstance(m, FusedSelfAttention):
+                    m.attend = multi_head_attention_reference
+                if isinstance(m, LayerNorm):
+                    m.norm = norm_ref
+        tr = Trainer(dict(model.named_parameters()), "adam",
+                     {"learning_rate": 1e-3,
+                      "multi_precision": weights == "float16"})
+        amp.init_trainer(tr)
+        kernels.reset_launch_counts()
+        losses = []
+        for i in range(3):
+            loss = xent(model(ids, None, vl, mp)[0], lab).mean()
+            losses.append(float(loss))
+            with amp.scale_loss(loss * math.inf if i == 1 else loss,
+                                tr) as scaled:
+                scaled.backward()
+            tr.step(1)
+        torch.cuda.synchronize()
+        runs[plain] = (losses, tr._amp_loss_scaler.loss_scale,
+                       dict(kernels.DTYPE_LAUNCHES))
+        assert all(p.dtype == getattr(torch, weights)
+                   for p in model.parameters())
+        amp.disable()
+    (got, scale, launches), (want, pscale, plaunches) = runs[False], \
+        runs[True]
+    assert scale == pscale == 2.0 ** 15
+    assert launches[("flash_attention_fwd", "float16")] == 6
+    assert launches[("flash_attention_bwd", "float16")] == 6
+    assert launches[("softmax_xent_fwd", "float16")] == 3
+    assert launches[("softmax_xent_bwd", "float16")] == 3
+    assert not any(k[0].startswith(("flash", "softmax")) and
+                   k[1] != "float16" for k in launches)
+    assert not any(n.startswith(("flash", "softmax")) for n, _ in plaunches)
+    assert max(abs(a - b) / abs(b) for a, b in zip(got, want)) <= 1e-3

@@ -207,6 +207,46 @@ def test_wide_heads_match_jax_in_bf16(interpret):
         assert np.abs(a - b).max() <= 2e-2 * np.abs(b).max(), name
 
 
+F16_CASES = {"pad_dropout": (64, 2, 2, "pad", False, 0.1),
+             "causal": (64, 2, 2, "none", True, 0.0),
+             "fold_causal": (64, 4, 2, "none", True, 0.0),
+             "fold_pad_dropout": (64, 4, 1, "pad", False, 0.2),
+             "d256_pad_dropout": (256, 2, 2, "pad", False, 0.1),
+             "d256_fold_causal": (256, 4, 1, "none", True, 0.0)}
+
+
+@pytest.mark.parametrize("case", sorted(F16_CASES))
+def test_f16_flash_matches_jax_kernel(interpret, case):
+    """f16 q, k, v (fp16 AMP's attention): JAX's kernels compute in the
+    inputs' dtype with f32 products and round p and dS to f16 before their
+    products, as the port's plain versions (the kernels' arithmetic) do.
+    Padding with dropout, causal, H query heads folded onto G kv heads, D
+    64 and 256; held to 5e-3 of each output's scale (a few f16 steps, as
+    the card's f16 kernel cases are)."""
+    D, H, G, mask, causal, rate = F16_CASES[case]
+    rng, q, k, v, g = _inputs(23, B=2, H=H, G=G, D=D)
+    hs = [x.astype(jnp.float16) for x in (q, k, v, g)]
+    jkw, tkw = dict(causal=causal), dict(causal=causal)
+    if mask == "pad":
+        bias = _bias(_padding_mask(rng, 2, 16))
+        jkw["bias"], tkw["bias"] = jnp.asarray(bias), torch.from_numpy(bias)
+    if rate:
+        jkw.update(dropout_rate=rate, dropout_seed=jnp.int32(5))
+        tkw.update(dropout_rate=rate,
+                   dropout_seed=torch.tensor(5, dtype=torch.int32))
+    want = _jax(*hs, **jkw)
+    qt, kt, vt, gt = (torch.tensor(np.asarray(x, np.float32)).to(
+        torch.float16) for x in hs)
+    qt, kt, vt = (t.requires_grad_() for t in (qt, kt, vt))
+    out = tfa.flash_attention(qt, kt, vt, **tkw)
+    out.backward(gt)
+    got = [out.detach()] + [t.grad for t in (qt, kt, vt)]
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.float16 and b.dtype == jnp.float16, name
+        a, b = a.float().numpy(), np.asarray(b, np.float32)
+        assert np.abs(a - b).max() <= 5e-3 * np.abs(b).max(), name
+
+
 def test_plain_version_matches_the_einsum_reference():
     """The dispatch on CPU is the plain flash version; with a float64
     einsum-and-softmax oracle it agrees too (no JAX in the loop)."""

@@ -7,7 +7,8 @@ kernels in interpret mode (enabled per test with ``monkeypatch``) and its
 ``_reference`` (log_softmax + take), against the port's CPU dispatch (the
 plain versions of the CUDA kernels).  Tolerance: atol/rtol 1e-5 in f32
 (summation order); bf16 logits at 2e-2 (the cotangent is rounded to
-bf16 on both sides, at different points).
+bf16 on both sides, at different points); f16 logits' dx within one f16
+step.
 """
 import os
 import re
@@ -94,6 +95,30 @@ def test_bf16_logits(interpret):
     np.testing.assert_allclose(xt.grad.float().numpy(),
                                np.asarray(dx.astype(jnp.float32)),
                                rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("N,V", [(8, 30522), (16, 1001)])
+def test_f16_logits_match_jax_kernel(interpret, N, V):
+    """f16 logits (fp16 AMP's MLM head) through JAX's kernel and the port's
+    plain versions: the loss is f32 from the same f16 values on both
+    sides (1e-5), dx is written in f16 (within one f16 step, 2**-10 of
+    its value, of JAX's)."""
+    x, lab, g = _inputs(3, (N,), V)
+    xh = jnp.asarray(x, jnp.float16)
+    loss, vjp = jax.vjp(lambda a: jsx.softmax_cross_entropy(
+        a, jnp.asarray(lab), block_n=8, block_v=512), xh)
+    dx = vjp(jnp.asarray(g))[0]
+    assert dx.dtype == jnp.float16
+    xt = torch.from_numpy(np.array(xh.astype(jnp.float32))).to(
+        torch.float16).requires_grad_()
+    lt = tnn.softmax_cross_entropy(xt, torch.from_numpy(lab))
+    lt.backward(torch.from_numpy(g))
+    assert lt.dtype == torch.float32 and xt.grad.dtype == torch.float16
+    np.testing.assert_allclose(lt.detach().numpy(), np.asarray(loss),
+                               rtol=1e-5, atol=1e-5)
+    want = np.asarray(dx.astype(jnp.float32))
+    np.testing.assert_allclose(xt.grad.float().numpy(), want,
+                               rtol=2 ** -10, atol=1e-7)
 
 
 @pytest.mark.parametrize("V", [1000, 600])

@@ -32,6 +32,7 @@ from mxnet_tpu.optimizer import lr_scheduler as jsched
 from mxnet_tpu.parallel import MoEFeedForward as JMoE
 
 from mxnet_tpu_torch import load_jax_optimizer_states, load_jax_params
+from mxnet_tpu_torch.amp import LossScaler
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.gluon import Trainer
 from mxnet_tpu_torch.models.layers import Dense
@@ -321,13 +322,17 @@ def test_unported_options_raise():
                {"compression_params": {"type": "2bit"}}):
         with pytest.raises(MXNetError, match="ROADMAP"):
             Trainer(params, "adam", {}, **kw)
-    with pytest.raises(MXNetError, match="ROADMAP"):
-        Trainer(params, "adam", {"multi_precision": True})
+    # multi_precision and AMP's loss scaler are ported: both construct and
+    # step (tests/test_torch_amp.py holds them to JAX)
+    assert Trainer(params, "adam", {"multi_precision": True}) \
+        .optimizer.multi_precision
     assert Trainer(params, "adam", {}, kvstore=None).allreduce_grads() is None
     tr = Trainer(params, Adam(learning_rate=0.1))
-    tr._amp_loss_scaler = object()
-    with pytest.raises(MXNetError, match="ROADMAP"):
-        tr.step(1)
+    tr._amp_loss_scaler = LossScaler(init_scale=4.0)
+    for p in params.values():
+        p.grad = torch.ones_like(p)
+    tr.step(1)
+    assert tr._amp_loss_scaler.loss_scale == 4.0
     tr = Trainer(params, "adam", {})
     w0 = m.get_submodule("0").weight
     w0.grad = torch.zeros_like(w0).to_sparse()
