@@ -31,8 +31,12 @@ step again under the rest of the optimizer family and its schedulers:
    queries, C=1, 5 and 16, MHA and GQA rep 4, with and without a window;
    D 256 at 3 and 8 heads over one kv head, D 72 and 24, at C=1; the
    4096-token context; held to the plain version with the scales at the
-   query dtype's tolerance, SDPA over a dequantized copy beside it) and
-   K2 int8/int4 dequant-matmul (f32/bf16 activations, M
+   query dtype's tolerance, SDPA over a dequantized copy beside it), K1
+   over an f16 pool (k1_f16: f32 queries, an f16 model's serving step,
+   and f16 queries, at C=1, 5 and 16, MHA and GQA rep 4, with and
+   without a window, and D 256 at 3 heads over one; f32 queries at the
+   f32 tolerance, f16 ones at f16's) and
+   K2 int8/int4 dequant-matmul (f32/bf16/f16 activations, M
    in {8, 128}, the four GPT-2 projection shapes, and the tied head (8,
    50257, 768) at int8 f32) — two calls bit-equal, within max-abs 1e-4
    (f32) / 2e-2 (bf16) of the output scale, and times kernel, plain
@@ -61,7 +65,12 @@ step again under the rest of the optimizer family and its schedulers:
    generated tokens equal to the f32-pool streams (reported);
 5. bfloat16 end to end, reporting the share of streams equal to the plain
    path's: the decode step computes in f32 after the first LayerNorm's f32
-   gain, as JAX's does, so K1 reads f32 queries over the bf16 pool;
+   gain, as JAX's does, so K1 reads f32 queries over the bf16 pool; then
+   (5b) ``gpt_small(dropout=0.0, dtype="float16")`` over an f16 pool: K1
+   with f32 queries over the f16 pool 12 times a fused step (counted
+   under float16), the streams held to the plain engine's as phase 3
+   holds them, tokens/s, TTFT, step ms and the pool's bytes beside the
+   f32 and bf16 runs';
 6. (k3) flash attention, forward and forward + backward, against its plain
    version at BERT's attention shape (B 64, H 12, L 128, D 64) in f32 and
    bf16 with no mask, a key-padding bias from seeded ``valid_length``
@@ -128,7 +137,9 @@ step again under the rest of the optimizer family and its schedulers:
    none for LAMB and the six rules after SGD, each with its reason,
    `NO_LIBRARY`);
    then AdamW over GPT-2 small's parameters and Adam over
-   ``transformer_base``'s;
+   ``transformer_base``'s; then f16 (`OPT_F16`): AdamW over GPT-2 small's
+   f16 leaves with f32 state and with f16 state, LAMB over BERT-base's
+   f16 leaves, each 16-bit value within one step of its type;
 10. (train) ``bench.py``'s BERT-base pretraining step (batch 64 x 128, 20
    masked positions, padded by ``valid_length``, dropout 0.1) through
    ``TrainStep`` for 20 steps on the default kernel route
@@ -185,7 +196,11 @@ step again under the rest of the optimizer family and its schedulers:
    over JAX's whole block_rows menu: the trials launch the CUDA kernel,
    every candidate within 2e-2 of the plain version's scale, a warm call
    a hit with 0 trials, the next call's plan on the tuned block_rows; a
-   second cold search records whether it picks the same block_rows);
+   second cold search records whether it picks the same block_rows); and
+   under float16 keys: the chunk over GPT-2 small's f16 leaves (f32
+   moments), K2's ``int8_float16`` (f16 activations) and K1's page size
+   over an f16 pool (in a cache of its own), each trial counted under
+   float16;
 13. (moe) ``MoEFeedForward(768, 3072, num_experts=8, capacity_factor=1.25)``
    trained 20 steps on a seeded (64, 128, 768) batch, loss MSE + 0.01 aux,
    Adam lr 1e-4, through ``TrainStep`` and through ``gluon.Trainer``
@@ -204,12 +219,20 @@ step again under the rest of the optimizer family and its schedulers:
    (``gluon.loss.SoftmaxCrossEntropyLoss`` over the (8192, 50257) logits),
    AdamW lr 3e-4 weight decay 0.1, 20 steps on the default kernel route:
    ``TrainStep`` in bf16 and f32, bf16 under ``remat="full"`` and
-   ``remat="dots_saveable"``, and ``gluon.Trainer`` in bf16.  Launches a
+   ``remat="dots_saveable"``, ``gluon.Trainer`` in bf16, and
+   ``TrainStep`` over ``gpt_small(dtype="float16")`` (f16 weights, f32
+   LayerNorm parameters and optimizer state; held to `gpt_tol` with f16's
+   own one-ulp floor; flash, cross-entropy and the norm counted under
+   float16, the chunk once under float16 and once under float32 a step;
+   the share of f16 gradient elements that are zero after step 1's
+   backward reported for the run and its oracle).  Launches a
    step are exact (flash forward 12, 24 under remat; backward 12;
    cross-entropy 1 + 1; fused norm 25, 49 under remat; the chunk once per
    dtype group); each trajectory is held against the same run on the plain
-   versions (`traj_tol`), the loss falls, each remat run is within 1e-5 of
-   the bf16 run without remat and lower in peak memory; two planted faults
+   versions (`traj_tol`; a remat run shares the bf16 run's oracle, the
+   plain math being the same with or without remat), the loss falls,
+   each remat run is within 1e-5 of the bf16 run without remat and lower
+   in peak memory; two planted faults
    (every attention non-causal; a remat recompute that does not put the
    dropout generators back) must depart by more than their limits.  Prints
    tokens/s, step ms, TFLOP/s (``GPTForCausalLM.flops_per_token``: the
@@ -302,7 +325,10 @@ step again under the rest of the optimizer family and its schedulers:
    built beside the kernels — AdaDelta without the 16-bit rounding of
    ``acc_delta + eps`` (through the ``Trainer``'s bf16 state) and FTML with
    its v and z slots exchanged — must each fail the first-step check or the
-   trajectory.
+   trajectory.  Then LAMB over BERT-base in f16 (`OPTIM_F16`, f32 state)
+   through ``TrainStep``: phases A and B once under float16 and once under
+   float32 a step, held to its oracle as the rules above (`traj_tol`
+   1e-3).
 20. (amp) the train phase's BERT-base configuration (full width and depth,
    seed 0, 64 x 128, 20 masked, dropout 0.1, Adam lr 1e-4, 20 steps) under
    mixed precision (`AMP_RUNS`): fp16 AMP over f32 weights through the
@@ -370,10 +396,12 @@ def traj_tol(dtype, route):
     and 1.6e-6, so 1e-4.  bf16 on the kernel route keeps bf16 activations,
     where a kernel and its plain version round differently and one changed
     rounding spreads through every later layer: the sound runs reach 1.4e-4
-    in 20 steps, so 1e-3 there.  The train phase's controls (planted
-    faults, `TRAIN_FAULTS`) show every run how far above it a wrong kernel
-    lands."""
-    return 1e-3 if dtype == "bfloat16" and route != "reference" else 1e-4
+    in 20 steps, so 1e-3 there; f16 weights and activations (the optim
+    phase's f16 LAMB run) are held to the same 1e-3.  The train phase's
+    controls (planted faults, `TRAIN_FAULTS`) show every run how far above
+    it a wrong kernel lands."""
+    return 1e-3 if dtype in ("bfloat16", "float16") and \
+        route != "reference" else 1e-4
 
 
 def traj_dev(losses, oracle):
@@ -482,6 +510,10 @@ K1_LONG_MAXP = 256
 K1_LONG_START = (4095,) * 8
 # the int8 pool's query dtypes: f32 (a f32 model's step) and bf16
 K1_INT8_Q = ("float32", "bfloat16")
+# (query dtype, pool dtype) over an f16 pool: f32 queries (type 5, an f16
+# model's serving step) and f16 queries (type 6, JAX's kernel on f16
+# inputs)
+K1_F16_TYPES = (("float32", "float16"), ("float16", "float16"))
 
 
 def k1_cases(dev):
@@ -539,6 +571,29 @@ def k1_int8_cases(dev):
                                     None, False))
         out.append(_k1_case(dev, rng, dtype, "int8", 1, 12, 12, 64, None,
                             False, long=True))
+    return out
+
+
+def k1_f16_cases(dev):
+    """K1 over an f16 pool (`K1_F16_TYPES`) at the main path's shapes:
+    decode C = 1, the verification width C = 5 over a shared prefix and
+    the prefill chunk C = 16, MHA and GQA rep 4, with and without a window
+    of 64; then D 256 at 3 heads over one kv head, C = 1 and 16.  f32
+    queries are held to the f32 tolerance (f16 K/V widen exactly into the
+    f32 route's arithmetic), f16 queries to f16's; SDPA over the pages
+    gathered in the query's dtype beside each."""
+    import numpy as np
+    rng = np.random.RandomState(16)
+    out = []
+    for dtype, pool in K1_F16_TYPES:
+        for C in (1, K1_VERIFY_C, 16):
+            for Hkv in (12, 3):
+                for window in (None, 64):
+                    out.append(_k1_case(dev, rng, dtype, pool, C, 12, Hkv,
+                                        64, window, C == K1_VERIFY_C))
+        for C in (1, 16):
+            out.append(_k1_case(dev, rng, dtype, pool, C, 3, 1, 256, None,
+                                False))
     return out
 
 
@@ -614,11 +669,14 @@ def _k1_case(dev, rng, dtype, pool, C, H, Hkv, D, window, verify,
     again = pa.ragged_paged_attention(*args, window=window, **sc)
     plan = pa._plan(B, H, Hkv, C, D, ps, maxp, kp.dtype,
                     pa._kernels.sm_count(q.device))
+    # an int8 or an f16 pool takes the query's tolerance (f16 K/V widen
+    # exactly into f32 queries' arithmetic), a bf16 pool bf16's
     case = dict(dtype=dtype, pool_dtype=pool, C=C, H=H, Hkv=Hkv, D=D,
                 window=window, shared_pages=7 if verify else 0,
                 context=maxp * ps, plan=dict(plan._asdict()),
                 max_abs_err=err, out_scale=scale,
-                tol=TOL[dtype if quantized else pool] * scale,
+                tol=TOL[dtype if quantized or pool == "float16"
+                        else pool] * scale,
                 bit_equal_calls=bool(torch.equal(got, again)))
     case["ok"] = err <= case["tol"] and case["bit_equal_calls"]
 
@@ -664,15 +722,18 @@ K2_HEAD = (8, 50257, 768)     # the tied LM head at decode, int8 f32
 
 
 def k2_cases(dev):
-    """K2 at GPT-2 small's projection shapes (N, K) for M in {8, 128}, and
-    the tied head's (8, 50257, 768) at int8 f32; each with its launch plan,
-    two calls bit-equal, and kernel time over library time."""
+    """K2 at GPT-2 small's projection shapes (N, K) for M in {8, 128}, f32,
+    bf16 and f16 activations (f16: no serving path sends them, JAX's
+    `quantized_matmul` takes them on a direct call), and the tied head's
+    (8, 50257, 768) at int8 f32; each with its launch plan, two calls
+    bit-equal, and kernel time over library time (cuBLAS in x's dtype over
+    a dequantized copy)."""
     import torch
     from mxnet_tpu_torch.ops import quantized_matmul as qm
 
     g = torch.Generator().manual_seed(1)
     grid = [(bits, dtype, M, N, K) for bits in (8, 4)
-            for dtype in ("float32", "bfloat16") for M in (8, 128)
+            for dtype in ("float32", "bfloat16", "float16") for M in (8, 128)
             for N, K in K2_SHAPES] + [(8, "float32") + K2_HEAD]
     out = []
     for bits, dtype, M, N, K in grid:
@@ -935,8 +996,11 @@ def serve_phase(model, prompts, max_new, quant_bits, check_generate=False,
     kernels.reset_launch_counts()
     streams, stats = drive(eng, prompts, max_new)
     launches = kernels.launch_counts()
+    by_dtype = {f"{n}:{d}": v
+                for (n, d), v in sorted(kernels.DTYPE_LAUNCHES.items())}
     fused = eng.stats()["steps_executed"]
-    stats.update(launches=launches, fused_steps=fused,
+    stats.update(launches=launches, dtype_launches=by_dtype,
+                 fused_steps=fused,
                  weight_bytes=eng.weight_bytes(), quant_bits=quant_bits,
                  bonus_pages=eng.bonus_pages,
                  kv_dtype=eng.stats()["kv_dtype"],
@@ -1126,6 +1190,35 @@ def run_e2e(dev, results):
         streams, pstreams)) / len(streams)
     results["e2e"]["bfloat16"] = st
     print(f"[e2e bf16] {json.dumps(st)}", flush=True)
+    del model16, plain
+    torch.cuda.empty_cache()
+
+    # phase 5b: float16 over an f16 pool.  The kernel engine and its plain
+    # twin write the same f16 pages (K/V rounded into the pool as JAX's
+    # .astype rounds), so only K1's f32 sum order parts them: the streams
+    # are held to the plain engine's, near ties aside, as in phase 3
+    cfgh = gpt_small(dropout=0.0, dtype="float16")
+    modelh = GPTForCausalLM(cfgh, device=dev, seed=0)
+    streams, pstreams, plain, st = serve_phase(modelh, prompts, max_new, 0)
+    want = {"ragged_paged_attention:float16": L * st["fused_steps"]}
+    if st["dtype_launches"] != want:
+        raise AssertionError(f"f16 serving: launches {st['dtype_launches']},"
+                             f" want {want} (K1 over the f16 pool, {L} a "
+                             f"fused step)")
+    st["near_ties_vs_plain"] = compare_streams(streams, pstreams, plain.P,
+                                               cfgh, "f16 kernel vs plain")
+    st["equal_stream_share"] = sum(a == b for a, b in zip(
+        streams, pstreams)) / len(streams)
+    for s_, p in zip(streams, prompts):
+        if len(s_) != len(p) + max_new or not all(
+                0 <= t < cfgh.vocab_size for t in s_):
+            raise AssertionError("f16 serving: malformed stream")
+    for k in ("float32", "bfloat16"):
+        for m in ("tokens_per_s", "ttft_p50_ms", "ttft_p99_ms",
+                  "step_ms_mean", "kv_bytes_per_token", "pool_bytes"):
+            st[f"{k}_{m}"] = results["e2e"][k][m]
+    results["e2e"]["float16"] = st
+    print(f"[e2e f16] {json.dumps(st)}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1742,12 +1835,22 @@ def gpt_leaves(dtype):
 OPT_MODELS = (("bert_base", bert_leaves, None),
               ("gpt_small", gpt_leaves, ("adamw",)),
               ("transformer_base", nmt_leaves, ("adam",)))
+# k6's f16 cases, (model, leaves, rule, state dtype): GPT-2 small's f16
+# leaves under AdamW with f32 state (the f16 gpt run's `TrainStep`) and
+# with f16 state (a `Trainer` of the f16 model), BERT-base's f16 leaves
+# under LAMB (the optim phase's f16 run)
+OPT_F16 = (("gpt_small", gpt_leaves, "adamw", "float32"),
+           ("gpt_small", gpt_leaves, "adamw", "float16"),
+           ("bert_base", bert_leaves, "lamb", "float32"))
+# one step of each 16-bit type, relative to the value
+STEP16 = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
 
 
-def _opt_tree(leaves, opt, dev, seed):
+def _opt_tree(leaves, opt, dev, seed, state_dtype="float32"):
     """Weights N(0, 0.02), gradients N(0, 1e-3), Adam-like state: slot 0
     N(0, 1e-4) (U(0, 1e-4) for AdaDelta, whose acc_g takes a root), the
-    others U(0, 1e-8)."""
+    others U(0, 1e-8); the state in `state_dtype` for the 16-bit leaves
+    (an f32 LayerNorm leaf keeps f32 state)."""
     import torch
     g = torch.Generator(device=dev).manual_seed(seed)
     pos0 = type(opt).__name__ == "AdaDelta"
@@ -1758,43 +1861,46 @@ def _opt_tree(leaves, opt, dev, seed):
         grads[n] = (1e-3 * torch.randn(shape, generator=g, device=dev)
                     ).to(dt)
         st = opt.create_state(params[n], dtype=torch.float32)
+        sdt = getattr(torch, state_dtype) if dt != torch.float32 \
+            else torch.float32
         states[n] = tuple(
             (1e-4 * (torch.rand if pos0 else torch.randn)(
-                shape, generator=g, device=dev)) if k == 0
-            else 1e-8 * torch.rand(shape, generator=g, device=dev)
+                shape, generator=g, device=dev)).to(sdt) if k == 0
+            else (1e-8 * torch.rand(shape, generator=g, device=dev)).to(sdt)
             for k in range(len(st)))
     return params, grads, states
 
 
 def _opt_err(new_p, new_s, want_p, want_s, old_p):
-    """(max-abs error, share of bf16 elements off the plain value, ok) of
-    an update against the plain version's.  An f32 state tensor is held
+    """(max-abs error, share of 16-bit elements off the plain value, ok)
+    of an update against the plain version's.  An f32 state tensor is held
     within OPT_RTOL of its own scale, max |plain|.  A weight is held
-    within its rounding (2 ulps in f32, one step in bf16: at most 2**-22
-    and 2**-7 of the value) plus OPT_RTOL of its update's scale, max
-    |plain - old|; a bf16 state tensor (the `Trainer`'s state of a bf16
-    model) within one step plus OPT_RTOL of its scale.  An update below
-    one bf16 step moves only some of a bf16 tensor's elements, so at most
-    OPT_MISMATCH of the bf16 elements, weights and state together, may
-    differ from the plain value at all."""
-    import torch
+    within its rounding (2 ulps in f32, one step in bf16 or f16: at most
+    2**-22, 2**-7 and 2**-10 of the value, or f16's subnormal step 2**-24)
+    plus OPT_RTOL of its update's scale, max |plain - old|; a 16-bit state
+    tensor (the `Trainer`'s state of a 16-bit model) within one step plus
+    OPT_RTOL of its scale.  An update below one 16-bit step moves only
+    some of a 16-bit tensor's elements, so at most OPT_MISMATCH of the
+    16-bit elements, weights and state together, may differ from the plain
+    value at all."""
     err, ok, off, n16 = 0.0, True, 0, 0
     for n in new_p:
         a, b = new_p[n].float(), want_p[n].float()
         d = (a - b).abs()
-        bf16 = new_p[n].dtype == torch.bfloat16
-        lim = (2.0 ** -7 if bf16 else 2.0 ** -22) * b.abs() + \
-            OPT_RTOL * float((b - old_p[n].float()).abs().max())
+        step = STEP16.get(str(new_p[n].dtype)[6:])
+        lim = (step or 2.0 ** -22) * b.abs() + (2.0 ** -24 if step else 0.0) \
+            + OPT_RTOL * float((b - old_p[n].float()).abs().max())
         ok = ok and bool((d <= lim).all())
         err = max(err, float(d.max()))
-        if bf16:
+        if step:
             off += int((d > 0).sum())
             n16 += d.numel()
         for s, w in zip(new_s[n], want_s[n]):
             sd = (s.float() - w.float()).abs()
             scale = float(w.float().abs().max())
-            if s.dtype == torch.bfloat16:
-                ok = ok and bool((sd <= 2.0 ** -7 * w.float().abs()
+            sstep = STEP16.get(str(s.dtype)[6:])
+            if sstep:
+                ok = ok and bool((sd <= sstep * w.float().abs() + 2.0 ** -24
                                   + OPT_RTOL * scale).all())
                 off += int((sd > 0).sum())
                 n16 += sd.numel()
@@ -1875,28 +1981,32 @@ def _library_call(rule, opt, params, grads, states, hp_vals):
     return call
 
 
-# (bytes per element given the weight's itemsize w, f32 operations per
-# element): each input read once and each output written once, state f32
+# (bytes per element given the weight's itemsize w and the state's s, f32
+# operations per element): each input read once and each output written
+# once
 _OPT_WORK = {
-    "adam": (lambda w: 3 * w + 16, 14),        # w g m v in; w m v out
-    "adamw": (lambda w: 3 * w + 16, 15),
-    "sgd_momentum": (lambda w: 3 * w + 8, 6),  # w g mom in; w mom out
-    "nag": (lambda w: 3 * w + 8, 10),
-    "signum_momentum": (lambda w: 3 * w + 8, 10),
-    "signum": (lambda w: 3 * w, 5),            # w g in; w out
-    "adabelief": (lambda w: 3 * w + 16, 17),
-    "adamax": (lambda w: 3 * w + 16, 13),
-    "adadelta": (lambda w: 3 * w + 16, 19),
-    "ftml": (lambda w: 3 * w + 24, 20),        # w g d v z in; w d v z out
-    "lamb_a": (lambda w: 2 * w + 20, 17),      # w g m v in; m v r out
-    "lamb_b": (lambda w: 2 * w + 4, 3)}        # w r in; w out
+    "adam": (lambda w, s: 3 * w + 4 * s, 14),     # w g m v in; w m v out
+    "adamw": (lambda w, s: 3 * w + 4 * s, 15),
+    "sgd_momentum": (lambda w, s: 3 * w + 2 * s, 6),  # w g mom; w mom
+    "nag": (lambda w, s: 3 * w + 2 * s, 10),
+    "signum_momentum": (lambda w, s: 3 * w + 2 * s, 10),
+    "signum": (lambda w, s: 3 * w, 5),            # w g in; w out
+    "adabelief": (lambda w, s: 3 * w + 4 * s, 17),
+    "adamax": (lambda w, s: 3 * w + 4 * s, 13),
+    "adadelta": (lambda w, s: 3 * w + 4 * s, 19),
+    "ftml": (lambda w, s: 3 * w + 6 * s, 20),     # w g d v z; w d v z
+    "lamb_a": (lambda w, s: 2 * w + 4 * s + 4, 17),   # w g m v; m v r
+    "lamb_b": (lambda w, s: 2 * w + 4, 3)}        # w r in; w out
 
 
-def _opt_bound(rule, params, phase=None):
-    """`bound` of one update of `params` by `rule` (LAMB: one phase)."""
+def _opt_bound(rule, params, phase=None, states=None):
+    """`bound` of one update of `params` by `rule` (LAMB: one phase), the
+    state f32 unless `states` says otherwise."""
     per, ops = _OPT_WORK[f"lamb_{phase}" if rule == "lamb" else rule]
     n = sum(p.numel() for p in params.values())
-    nbytes = sum(per(p.element_size()) * p.numel() for p in params.values())
+    nbytes = sum(per(p.element_size(),
+                     states[k][0].element_size() if states and states[k]
+                     else 4) * p.numel() for k, p in params.items())
     return bound(nbytes, ops * n, "float32")
 
 
@@ -1904,10 +2014,8 @@ def k6_cases(dev):
     """The optimizer kernels over BERT-base's parameter list, f32 and bf16
     models: each rule's kernel route against its plain version, the
     device time of each, and the skip flag's bit identity; then AdamW
-    over GPT-2 small's (`OPT_MODELS`)."""
-    import torch
-    from mxnet_tpu_torch import kernels, optimizer as topt
-    from mxnet_tpu_torch.ops import fused_optimizer as fo
+    over GPT-2 small's (`OPT_MODELS`); then the f16 cases (`OPT_F16`)."""
+    from mxnet_tpu_torch import optimizer as topt
 
     out = []
     for (model, leaves_of, rules), dtype in (
@@ -1916,107 +2024,134 @@ def k6_cases(dev):
         for rule, cls, kw in OPT_RULES:
             if rules is not None and rule not in rules:
                 continue
-            lr = 1e-3 if rule == "lamb" else 1e-4
-            opt = getattr(topt, cls)(learning_rate=lr, **kw)
-            hp_vals = {"lr": lr, "wd": 0.01, "rescale_grad": 1.0, "t": 3.0}
-            hp = {k: torch.full((), v, device=dev)
-                  for k, v in hp_vals.items()}
-            hp["clip_gradient"] = None
-            params, grads, states = _opt_tree(leaves, opt, dev, seed=8)
-            want_p, want_s = fo.kernel_plain(opt, params, grads, states, hp)
-            kp = {n: t.clone() for n, t in params.items()}
-            ks = {n: tuple(t.clone() for t in st)
-                  for n, st in states.items()}
-            kernels.reset_launch_counts()
-            fo.apply_updates(opt, kp, grads, ks, hp, use_kernel=True)
-            torch.cuda.synchronize()
-            launches = kernels.launch_counts()
-            err, share, ok = _opt_err(kp, ks, want_p, want_s, params)
-            controls = _opt_controls(kp, ks, want_p, want_s, params, states)
-            ok = ok and all(controls.values())
-            n_groups = len({p.dtype for p in params.values()})
-            # LAMB: phases A and B once per (weight, state) dtype group
-            want_l = ({"lamb_phase_a": n_groups,
-                       "lamb_phase_b": n_groups} if rule == "lamb"
-                      else {"fused_optimizer_chunk": n_groups})
-            lamb_plans = list(fo.last_lamb_plans)
-            ok = ok and all(launches[k] == v for k, v in want_l.items())
-            # skip=True leaves every weight and state bit-identical
-            sp = {n: t.clone() for n, t in params.items()}
-            ss = {n: tuple(t.clone() for t in st)
-                  for n, st in states.items()}
-            fo.apply_updates(opt, sp, grads, ss, hp, use_kernel=True,
-                             skip=torch.ones((), dtype=torch.bool,
-                                             device=dev))
-            skip_ok = all(torch.equal(sp[n], params[n]) and all(
-                torch.equal(a, b) for a, b in zip(ss[n], states[n]))
-                for n in params)
-            del sp, ss, want_p, want_s
-            case = dict(model=model, dtype=dtype, rule=rule,
-                        tensors=len(params),
-                        elements=sum(p.numel() for p in params.values()),
-                        groups=n_groups, launches=launches,
-                        max_abs_err=err, bf16_weight_mismatch_share=share,
-                        controls_caught=controls,
-                        skip_bit_identical=skip_ok, ok=ok and skip_ok)
-            if rule == "lamb":
-                # each phase's plan: one launch a group over the group's
-                # leaf table, persistent blocks (occupancy x SMs, at most
-                # one an entry, as each entry chose); phase B walks the
-                # codes in phase A's order, 16-byte steps on aligned leaves
-                groups = fo._groups(sorted(kp), kp, ks)
-                base = [dict(weight_dtype=str(kp[gr[0]].dtype)[6:],
-                             tensors=len(gr), chunk=fo.LAMB_CHUNK,
-                             block_entries=p.block_entries,
-                             sm_count=kernels.sm_count(dev))
-                        for gr, p in zip(groups, lamb_plans)]
-                case["phase_a_plan"] = [dict(b, grid=p.grid_a) for b, p in
-                                        zip(base, lamb_plans)]
-                case["phase_b_plan"] = [dict(
-                    b, grid=p.grid_b, code_order="forward",
-                    vector_leaves=p.vector_leaves,
-                    element_leaves=p.element_leaves)
-                    for b, p in zip(base, lamb_plans)]
-                case["phase_a_launches"] = launches["lamb_phase_a"]
-                case["phase_b_launches"] = launches["lamb_phase_b"]
-
-            def kernel_call():
-                fo.apply_updates(opt, kp, grads, ks, hp, use_kernel=True)
-
-            def plain_call():
-                fo.kernel_plain(opt, params, grads, states, hp)
-            case["device_ms"], by_name = profile_ms(kernel_call)
-            case["kernel_device_ms"] = {k: v for k, v in by_name.items()
-                                        if "kernel" in k}
-            case["plain_ms"], _ = profile_ms(plain_call)
-            case["call_ms"] = time_ms(kernel_call, iters=10, warm=2)
-            case["plain_call_ms"] = time_ms(plain_call, iters=10, warm=2)
-            lib = _library_call(rule, opt, kp, grads, ks, hp_vals)
-            case["library_ms"] = None if lib is None else \
-                profile_ms(lib)[0]
-            if lib is None:
-                case["library_none_reason"] = NO_LIBRARY[rule]
-            if rule == "lamb":
-                for ph in ("a", "b"):
-                    ms = sum(v for k, v in by_name.items()
-                             if f"lamb_{ph}_kernel" in k)
-                    case[f"phase_{ph}_ms"] = ms
-                    case[f"phase_{ph}_bound_ms"], case[
-                        f"phase_{ph}_bound_by"] = _opt_bound(rule, params,
-                                                             ph)
-                case["ms"] = case["phase_a_ms"] + case["phase_b_ms"]
-                case["bound_ms"] = case["phase_a_bound_ms"] + \
-                    case["phase_b_bound_ms"]
-                case["bound_by"] = "bytes"
-            else:
-                case["ms"] = sum(v for k, v in by_name.items()
-                                 if "chunk_kernel" in k)
-                case["bound_ms"], case["bound_by"] = _opt_bound(rule,
-                                                                params)
-            out.append(case)
-            del kp, ks, params, grads, states, lib
-            torch.cuda.empty_cache()
+            out.append(_k6_case(dev, model, leaves, dtype, rule,
+                                getattr(topt, cls), kw))
+    rules = {r: (cls, kw) for r, cls, kw in OPT_RULES}
+    for model, leaves_of, rule, sdt in OPT_F16:
+        cls, kw = rules[rule]
+        out.append(_k6_case(dev, model, leaves_of("float16"), "float16",
+                            rule, getattr(topt, cls), kw, sdt))
     return out
+
+
+def _k6_case(dev, model, leaves, dtype, rule, cls, kw,
+             state_dtype="float32"):
+    """One k6 case: `rule` over `leaves` (`state_dtype` state for the
+    16-bit leaves) through the kernel route against `kernel_plain`, the
+    planted faults, the skip flag, device times beside the plain version
+    and the nearest library call."""
+    import torch
+    from mxnet_tpu_torch import kernels
+    from mxnet_tpu_torch.ops import fused_optimizer as fo
+
+    lr = 1e-3 if rule == "lamb" else 1e-4
+    opt = cls(learning_rate=lr, **kw)
+    hp_vals = {"lr": lr, "wd": 0.01, "rescale_grad": 1.0, "t": 3.0}
+    hp = {k: torch.full((), v, device=dev) for k, v in hp_vals.items()}
+    hp["clip_gradient"] = None
+    params, grads, states = _opt_tree(leaves, opt, dev, seed=8,
+                                      state_dtype=state_dtype)
+    want_p, want_s = fo.kernel_plain(opt, params, grads, states, hp)
+    kp = {n: t.clone() for n, t in params.items()}
+    ks = {n: tuple(t.clone() for t in st) for n, st in states.items()}
+    kernels.reset_launch_counts()
+    fo.apply_updates(opt, kp, grads, ks, hp, use_kernel=True)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    by_dtype = {f"{n}:{d}": v
+                for (n, d), v in sorted(kernels.DTYPE_LAUNCHES.items())}
+    err, share, ok = _opt_err(kp, ks, want_p, want_s, params)
+    controls = _opt_controls(kp, ks, want_p, want_s, params, states)
+    ok = ok and all(controls.values())
+    n_groups = len({p.dtype for p in params.values()})
+    # LAMB: phases A and B once per (weight, state) dtype group, each
+    # counted under its group's weight dtype
+    names = ("lamb_phase_a", "lamb_phase_b") if rule == "lamb" \
+        else ("fused_optimizer_chunk",)
+    want_l = {k: n_groups for k in names}
+    want_d = {f"{k}:{str(p.dtype)[6:]}": 1 for k in names
+              for p in params.values()}
+    lamb_plans = list(fo.last_lamb_plans)
+    ok = ok and all(launches[k] == v for k, v in want_l.items()) and \
+        by_dtype == want_d
+    # skip=True leaves every weight and state bit-identical
+    sp = {n: t.clone() for n, t in params.items()}
+    ss = {n: tuple(t.clone() for t in st) for n, st in states.items()}
+    fo.apply_updates(opt, sp, grads, ss, hp, use_kernel=True,
+                     skip=torch.ones((), dtype=torch.bool, device=dev))
+    skip_ok = all(torch.equal(sp[n], params[n]) and all(
+        torch.equal(a, b) for a, b in zip(ss[n], states[n]))
+        for n in params)
+    del sp, ss, want_p, want_s
+    case = dict(model=model, dtype=dtype, state_dtype=state_dtype,
+                rule=rule, tensors=len(params),
+                elements=sum(p.numel() for p in params.values()),
+                groups=n_groups, launches=launches, dtype_launches=by_dtype,
+                max_abs_err=err, bf16_weight_mismatch_share=share,
+                controls_caught=controls,
+                skip_bit_identical=skip_ok, ok=ok and skip_ok)
+    if rule == "lamb":
+        # each phase's plan: one launch a group over the group's leaf
+        # table, persistent blocks (occupancy x SMs, at most one an entry,
+        # as each entry chose); phase B walks the codes in phase A's
+        # order, 16-byte steps on aligned leaves
+        groups = fo._groups(sorted(kp), kp, ks)
+        base = [dict(weight_dtype=str(kp[gr[0]].dtype)[6:],
+                     tensors=len(gr), chunk=fo.LAMB_CHUNK,
+                     block_entries=p.block_entries,
+                     sm_count=kernels.sm_count(dev))
+                for gr, p in zip(groups, lamb_plans)]
+        case["phase_a_plan"] = [dict(b, grid=p.grid_a) for b, p in
+                                zip(base, lamb_plans)]
+        case["phase_b_plan"] = [dict(
+            b, grid=p.grid_b, code_order="forward",
+            vector_leaves=p.vector_leaves, element_leaves=p.element_leaves)
+            for b, p in zip(base, lamb_plans)]
+        case["phase_a_launches"] = launches["lamb_phase_a"]
+        case["phase_b_launches"] = launches["lamb_phase_b"]
+
+    def kernel_call():
+        fo.apply_updates(opt, kp, grads, ks, hp, use_kernel=True)
+
+    def plain_call():
+        fo.kernel_plain(opt, params, grads, states, hp)
+    case["device_ms"], by_name = profile_ms(kernel_call)
+    case["kernel_device_ms"] = {k: v for k, v in by_name.items()
+                                if "kernel" in k}
+    # one profiled call: the plain version's ~10 ms of device time needs no
+    # average, and its thousands of launches a call make the profiler's
+    # own work most of the phase
+    case["plain_ms"], _ = profile_ms(plain_call, iters=1)
+    case["call_ms"] = time_ms(kernel_call, iters=10, warm=2)
+    case["plain_call_ms"] = time_ms(plain_call, iters=10, warm=2)
+    lib = _library_call(rule, opt, kp, grads, ks, hp_vals)
+    case["library_ms"] = None if lib is None else profile_ms(lib)[0]
+    if lib is None:
+        case["library_none_reason"] = NO_LIBRARY[rule]
+    elif any(s.dtype != p.dtype for n, p in kp.items() for s in ks[n]):
+        case["library_note"] = (
+            "torch's fused call keeps its state in the weight's dtype "
+            "(f16 or bf16 moments), the kernel in f32 here: not the same "
+            "function")
+    if rule == "lamb":
+        for ph in ("a", "b"):
+            ms = sum(v for k, v in by_name.items()
+                     if f"lamb_{ph}_kernel" in k)
+            case[f"phase_{ph}_ms"] = ms
+            case[f"phase_{ph}_bound_ms"], case[f"phase_{ph}_bound_by"] = \
+                _opt_bound(rule, params, ph, states)
+        case["ms"] = case["phase_a_ms"] + case["phase_b_ms"]
+        case["bound_ms"] = case["phase_a_bound_ms"] + \
+            case["phase_b_bound_ms"]
+        case["bound_by"] = "bytes"
+    else:
+        case["ms"] = sum(v for k, v in by_name.items()
+                         if "chunk_kernel" in k)
+        case["bound_ms"], case["bound_by"] = _opt_bound(rule, params,
+                                                        states=states)
+    del kp, ks, params, grads, states, lib
+    torch.cuda.empty_cache()
+    return case
 
 
 # ---------------------------------------------------------------------------
@@ -2398,8 +2533,8 @@ def amp_want_launches(run, layers, applied):
     layer each way and the cross-entropy once each way, in the AMP dtype
     (attention and the MLM head's product are TARGET ops); the fused norm
     2 a layer + 2 (embeddings, MLM head) in f32 (``layer_norm`` is an FP32
-    op); and the chunk kernel (`kernels.LAUNCHES`) once a step it applied
-    (f32 weights: one group), none under ``multi_precision`` (the
+    op); and the chunk kernel once a step it applied (f32 weights: one
+    group, counted under float32), none under ``multi_precision`` (the
     per-parameter route).  No other kernel."""
     _, amp_dt, _, entry = run
     want = {f"flash_attention_fwd:{amp_dt}": layers * TRAIN_STEPS,
@@ -2407,7 +2542,8 @@ def amp_want_launches(run, layers, applied):
             f"softmax_xent_fwd:{amp_dt}": TRAIN_STEPS,
             f"softmax_xent_bwd:{amp_dt}": TRAIN_STEPS,
             "fused_norm:float32": (2 * layers + 2) * TRAIN_STEPS,
-            "fused_optimizer_chunk": 0 if entry == "trainer_mp" else applied}
+            "fused_optimizer_chunk:float32":
+                0 if entry == "trainer_mp" else applied}
     return {k: v for k, v in want.items() if v}
 
 
@@ -2436,10 +2572,12 @@ def run_amp(dev, results, card):
         pst, pstep_s = amp_run(dev, run, True, batch)
         applied = TRAIN_STEPS - len(st["skipped_steps"])
         want = amp_want_launches(run, cfg.num_layers, applied)
+        # every kernel by input dtype, and any launch counted by name
+        # alone beside them
         got = dict(st["dtype_launches"])
-        got.update({k: v for k, v in st["launches"].items() if v and k not in
-                    ("flash_attention_fwd", "flash_attention_bwd",
-                     "softmax_xent_fwd", "softmax_xent_bwd", "fused_norm")})
+        by_name = {k.split(":")[0] for k in got}
+        got.update({k: v for k, v in st["launches"].items()
+                    if v and k not in by_name})
         if got != want:
             problems.append(f"amp {key}: kernel launches {got}, want {want}")
         if any(pst["launches"].values()):
@@ -2534,6 +2672,9 @@ OPTIM_PER_LEAF = (("nadam", "Nadam", {}, 1e-4, "trainer"),
                   ("ftrl", "Ftrl", {}, 1e-2, "step"),
                   ("lans", "LANS", {}, 1e-3, "step"))
 OPTIM_PER_LEAF_STEPS = 3
+# LAMB over an f16 BERT-base (f16 weights, f32 LayerNorm parameters, f32
+# state: `TrainStep`'s `_master_dtype`): phases A and B over (f16, f32)
+OPTIM_F16 = ("lamb", "LAMB", {}, 1e-3)
 # the phase's BERT-base runs keep its widths and cut its depth to 4 of 12
 # layers, for the smoke's time limit; k6 holds every rule over the
 # 12-layer model's 133.6 M elements
@@ -2696,8 +2837,12 @@ def optim_run(dev, dtype, rule, batch, entry="step", plain=False,
         torch.cuda.synchronize()
         step_s = (time.perf_counter() - t0) / max(1, steps - 2)
         launches = kernels.launch_counts()
+        by_dtype = {f"{n}:{d}": v for (n, d), v in
+                    sorted(kernels.DTYPE_LAUNCHES.items())
+                    if n in ("fused_optimizer_chunk", "lamb_phase_a",
+                             "lamb_phase_b")}
     st = dict(losses=[float(x) for x in losses], step_ms=step_s * 1e3,
-              launches=launches, dtype_groups=len(
+              launches=launches, dtype_launches=by_dtype, dtype_groups=len(
                   {(p.dtype, tuple(t.dtype for t in states()[n]))
                    for n, p in params.items()}),
               state_dtypes=sorted({str(t.dtype)[6:] for st in
@@ -2725,11 +2870,12 @@ def _optim_compare(st, pst, before, after, pafter, tol):
     return ok and dev_rel <= tol
 
 
-def optim_want(n_groups, layers, steps=TRAIN_STEPS, chunk=True):
+def optim_want(n_groups, layers, steps=TRAIN_STEPS, chunk=True,
+               opt="Adam"):
     """Exact launches of `steps` kernel-route BERT steps: the train
-    phase's counts, the chunk once per dtype group (none for the plain
-    oracle)."""
-    want = want_launches("Adam", "auto", n_groups, layers)
+    phase's counts, the chunk (LAMB: phases A and B) once per dtype group
+    (none for the plain oracle)."""
+    want = want_launches(opt, "auto", n_groups, layers)
     want = {k: v // TRAIN_STEPS * steps for k, v in want.items()}
     if not chunk:
         want["fused_optimizer_chunk"] = 0
@@ -2765,7 +2911,8 @@ def run_optim(dev, results, card, fault_builds):
 
     def check(key, st, pst, before, after, pafter, want, tol):
         got = {k: st["launches"][k] for k in want}
-        pwant = dict(want, fused_optimizer_chunk=0)
+        pwant = dict(want, fused_optimizer_chunk=0, lamb_phase_a=0,
+                     lamb_phase_b=0)
         pgot = {k: pst["launches"][k] for k in pwant}
         if got != want or pgot != pwant:
             problems.append(f"optim {key}: launches {got} (oracle {pgot}), "
@@ -2777,7 +2924,7 @@ def run_optim(dev, results, card, fault_builds):
         elif not ok:
             problems.append(
                 f"optim {key}: step 1 {st['step1_ok']} (max-abs "
-                f"{st['step1_max_abs_err']:.3g}, bf16 share "
+                f"{st['step1_max_abs_err']:.3g}, 16-bit share "
                 f"{st['step1_bf16_mismatch_share']:.3g}), trajectory "
                 f"{st['trajectory_rel_dev']:.3g} > {tol}")
         elif not ls[-1] < ls[0]:
@@ -2830,6 +2977,25 @@ def run_optim(dev, results, card, fault_builds):
             control(fault, rule, entry, dtype, pst, before, pafter, sched)
         del before, after, pafter
         torch.cuda.empty_cache()
+
+    # LAMB over the f16 model: phases A and B once a dtype group a step,
+    # each counted under its group's weight dtype
+    key, cls, kw, lr = OPTIM_F16
+    name = f"{key}_step_float16"
+    st, _, before, after = optim_run(dev, "float16", (cls, kw, lr), batch)
+    pst, _, _, pafter = optim_run(dev, "float16", (cls, kw, lr), batch,
+                                  plain=True)
+    want_d = {f"lamb_phase_{p}:{d}": TRAIN_STEPS for p in "ab"
+              for d in ("float16", "float32")}
+    if st["dtype_launches"] != want_d or st["state_dtypes"] != ["float32"]:
+        problems.append(f"optim {name}: launches by dtype "
+                        f"{st['dtype_launches']} (want {want_d}), state "
+                        f"{st['state_dtypes']}")
+    check(name, st, pst, before, after, pafter,
+          optim_want(st["dtype_groups"], cfg.num_layers, opt="LAMB"),
+          traj_tol("float16", "auto"))
+    del before, after, pafter
+    torch.cuda.empty_cache()
 
     # the per-leaf rules: a few steps each, finite, no optimizer kernel,
     # the state in the dtypes the entry declares
@@ -3018,7 +3184,9 @@ def run_tune(dev, results, card):
     """Cold and warm ``tune("fused_optimizer", (n,), "float32")`` for the
     MoE layer's and BERT-base's f32 parameter counts, in a temporary
     cache; every candidate's bits against ``CHUNK``'s; the next launch's
-    chunk; then K2's plan, K1's page size and the flash forward's blocks.
+    chunk; the same under "float16" for GPT-2 small's f16 leaves; then
+    K2's plan (f32 and f16 activations), K1's page size (f32 and an f16
+    pool) and the flash forward's blocks.
     The tuned configs are dropped from this process's memory after the
     phase, so each later phase launches at its static default whatever ran
     before it."""
@@ -3038,10 +3206,19 @@ def run_tune(dev, results, card):
                                                    kernels, torch))
                      for label, n in (("moe_f32", moe_param_count()),
                                       ("bert_f32", bert_n))]
-            cases += [("k2_int8", lambda: k2_tune_case(dev, at, kernels,
+            gpt_n = sum(math.prod(s) for _, s, _ in gpt_leaves("float16"))
+            cases += [("gpt_f16", lambda: tune_case(
+                          dev, gpt_n, at, fo, topt, kernels, torch,
+                          "float16")),
+                      ("k2_int8", lambda: k2_tune_case(dev, at, kernels,
                                                        torch)),
+                      ("k2_int8_float16", lambda: k2_tune_case(
+                          dev, at, kernels, torch, "float16")),
                       ("k1_page_size", lambda: k1_tune_case(at, kernels,
                                                             torch)),
+                      ("k1_page_size_float16", lambda: fresh_cache(
+                          at, tmp, "f16", lambda: k1_tune_case(
+                              at, kernels, torch, "float16"))),
                       ("flash_fwd_bf16", lambda: flash_tune_case(
                           at, kernels, torch)),
                       ("norm_bf16", lambda: norm_tune_case(at, kernels,
@@ -3066,27 +3243,49 @@ def run_tune(dev, results, card):
 K2_TUNE = (8, 2304, 768)      # decode's QKV projection, int8 f32
 
 
+def fresh_cache(at, root, name, fn):
+    """`fn()` with the tuner's cache in a fresh directory under `root` and
+    its memory cache cleared before and after: `ServeConfig()` takes any
+    tuned page size of the device kind, so a second K1 search is read
+    alone."""
+    old = os.environ.get("MXTPU_AUTOTUNE_CACHE")
+    os.environ["MXTPU_AUTOTUNE_CACHE"] = os.path.join(root, name)
+    os.makedirs(os.environ["MXTPU_AUTOTUNE_CACHE"], exist_ok=True)
+    at.clear_memory_cache()
+    try:
+        return fn()
+    finally:
+        at.clear_memory_cache()
+        os.environ["MXTPU_AUTOTUNE_CACHE"] = old
+
+
 def least_pick(res):
     """Is a cold `tune` result's pick the trial of least time?"""
     return res.timings_ms[res.config.key()] == min(res.timings_ms.values())
 
 
-def k2_tune_case(dev, at, kernels, torch):
-    """Cold and warm ``tune("quantized_matmul", (8, 2304, 768), "int8")``
-    over K2's whole plan menu; every candidate's launch against the plain
-    version; the next `quantized_matmul` takes the tuned plan."""
+def k2_tune_case(dev, at, kernels, torch, dtype="float32"):
+    """Cold and warm ``tune("quantized_matmul", (8, 2304, 768), key)`` over
+    K2's whole plan menu, the key ``int8`` for f32 activations and
+    ``int8_float16`` for f16 ones (the trials launch K2 on x of that
+    dtype); every candidate's launch against the plain version; the next
+    `quantized_matmul` takes the tuned plan."""
     from mxnet_tpu_torch.ops import quantized_matmul as qm
     M, N, K = K2_TUNE
-    cands = qm._candidates(K2_TUNE, "int8")
+    xdt = getattr(torch, dtype)
+    key = qm._tune_dtype(8, xdt)
+    cands = qm._candidates(K2_TUNE, key)
     kernels.reset_launch_counts()
-    cold = at.tune("quantized_matmul", K2_TUNE, "int8", top_k=len(cands))
+    cold = at.tune("quantized_matmul", K2_TUNE, key, top_k=len(cands))
     trial_launches = kernels.launch_counts()["quantized_matmul"]
-    warm = at.tune("quantized_matmul", K2_TUNE, "int8", top_k=len(cands))
+    trial_dtypes = {f"{k}:{d}": v for (k, d), v in
+                    kernels.DTYPE_LAUNCHES.items()}
+    warm = at.tune("quantized_matmul", K2_TUNE, key, top_k=len(cands))
     warm_launches = kernels.launch_counts()["quantized_matmul"] - \
         trial_launches
     g = torch.Generator().manual_seed(17)
     qt = qm.quantize_weight(torch.randn(N, K, generator=g) * 0.02, 8).to(dev)
-    x = torch.randn(M, K, generator=g).to(dev)
+    x = torch.randn(M, K, generator=g).to(dev, xdt)
     ref = qm.quantized_matmul_reference(x, qt)
     scale = float(ref.abs().max())
     sms = qm._sms(x.device)
@@ -3096,13 +3295,15 @@ def k2_tune_case(dev, at, kernels, torch):
                         c.split)
         got = qm._qmm_cuda(x, qt, plan)
         torch.cuda.synchronize()
-        errs[f"{plan.variant}/{plan.split}"] = float((got - ref).abs().max())
+        errs[f"{plan.variant}/{plan.split}"] = float(
+            (got.float() - ref.float()).abs().max())
     tuned = qm._tuned_plan(M, N, K, 8, x.dtype, x.device)
     kernels.reset_launch_counts()
     qm.quantized_matmul(x, qt)
     next_launches = kernels.launch_counts()["quantized_matmul"]
     per_trial = 1 + 5          # time_callable's warmup and runs
-    st = dict(shape=list(K2_TUNE), candidates=len(cands),
+    st = dict(shape=list(K2_TUNE), key=key, candidates=len(cands),
+              trial_launches_by_dtype=trial_dtypes,
               config=dict(cold.config), cold_trials=cold.trials,
               cold_search_ms=cold.search_ms, trial_launches=trial_launches,
               timings_ms={f"{qm.VARIANTS[dict(k)['variant']]}/"
@@ -3110,11 +3311,13 @@ def k2_tune_case(dev, at, kernels, torch):
                           for k, v in cold.timings_ms.items()},
               warm_hit=warm.cache_hit, warm_trials=warm.trials,
               warm_launches=warm_launches, candidate_errs=errs,
-              tol=TOL["float32"] * scale, tuned_plan=dict(tuned._asdict()),
+              tol=TOL[dtype] * scale, tuned_plan=dict(tuned._asdict()),
               next_launches=next_launches)
     st["pick_is_least"] = least_pick(cold)
     st["ok"] = (st["pick_is_least"] and cold.trials == len(cands)
                 and trial_launches == per_trial * cold.trials
+                and trial_dtypes == {f"quantized_matmul:{dtype}":
+                                     trial_launches}
                 and warm.cache_hit and warm.trials == 0
                 and warm_launches == 0
                 and all(e <= st["tol"] for e in errs.values())
@@ -3127,28 +3330,31 @@ def k2_tune_case(dev, at, kernels, torch):
 K1_TUNE = (8, 12, 12, 64, 512)   # slots, heads, kv heads, head dim, ctx
 
 
-def k1_tune_case(at, kernels, torch):
+def k1_tune_case(at, kernels, torch, dtype="float32"):
     """Cold and warm ``tune("paged_attention", (8, 12, 12, 64, 512),
-    "float32")`` over the four page sizes; each candidate's decode step
-    against the plain version; `ServeConfig()` then takes the tuned page
-    size (``MXTPU_SERVE_PAGE_SIZE`` unset for the check)."""
+    dtype)`` over the four page sizes (an f16 key times K1 over f16
+    queries and an f16 pool, counted under float16); each candidate's
+    decode step against the plain version; `ServeConfig()` then takes the
+    tuned page size (``MXTPU_SERVE_PAGE_SIZE`` unset for the check)."""
     from mxnet_tpu_torch.ops import paged_attention as pa
     from mxnet_tpu_torch.serve import ServeConfig
-    cands = pa._at_candidates(K1_TUNE, "float32")
+    cands = pa._at_candidates(K1_TUNE, dtype)
     kernels.reset_launch_counts()
-    cold = at.tune("paged_attention", K1_TUNE, "float32", top_k=len(cands))
+    cold = at.tune("paged_attention", K1_TUNE, dtype, top_k=len(cands))
     trial_launches = kernels.launch_counts()["ragged_paged_attention"]
-    warm = at.tune("paged_attention", K1_TUNE, "float32", top_k=len(cands))
+    trial_dtypes = {f"{k}:{d}": v for (k, d), v in
+                    kernels.DTYPE_LAUNCHES.items()}
+    warm = at.tune("paged_attention", K1_TUNE, dtype, top_k=len(cands))
     warm_launches = kernels.launch_counts()["ragged_paged_attention"] - \
         trial_launches
     errs, tols = {}, {}
     for c in cands:
-        args = pa._at_inputs(c, K1_TUNE, "float32", torch.device("cuda", 0))
+        args = pa._at_inputs(c, K1_TUNE, dtype, torch.device("cuda", 0))
         got = pa.ragged_paged_attention(*args)
         ref = pa.paged_attention_reference(*args)
         torch.cuda.synchronize()
-        errs[c.page_size] = float((got - ref).abs().max())
-        tols[c.page_size] = TOL["float32"] * float(ref.abs().max())
+        errs[c.page_size] = float((got.float() - ref.float()).abs().max())
+        tols[c.page_size] = TOL[dtype] * float(ref.float().abs().max())
     env = os.environ.pop("MXTPU_SERVE_PAGE_SIZE", None)
     try:
         serve_page = ServeConfig().page_size
@@ -3156,7 +3362,8 @@ def k1_tune_case(at, kernels, torch):
         if env is not None:
             os.environ["MXTPU_SERVE_PAGE_SIZE"] = env
     per_trial = 1 + 5          # time_callable's warmup and runs
-    st = dict(shape=list(K1_TUNE), candidates=len(cands),
+    st = dict(shape=list(K1_TUNE), dtype=dtype, candidates=len(cands),
+              trial_launches_by_dtype=trial_dtypes,
               config=dict(cold.config), cold_trials=cold.trials,
               cold_search_ms=cold.search_ms, trial_launches=trial_launches,
               timings_ms={dict(k)["page_size"]: v
@@ -3170,6 +3377,8 @@ def k1_tune_case(at, kernels, torch):
                 and warm.cache_hit and warm.trials == 0
                 and warm_launches == 0
                 and all(errs[p] <= tols[p] for p in errs)
+                and trial_dtypes == {f"ragged_paged_attention:{dtype}":
+                                     trial_launches}
                 and serve_page == cold.config.page_size)
     return st
 
@@ -3296,18 +3505,28 @@ def norm_tune_case(at, kernels, torch):
     return st
 
 
-def tune_case(dev, n, at, fo, topt, kernels, torch):
+def tune_case(dev, n, at, fo, topt, kernels, torch, dtype="float32"):
+    """Cold and warm ``tune("fused_optimizer", (n,), dtype)``: the trials
+    launch the chunk over a `dtype` leaf with f32 moments (counted under
+    `dtype`); every candidate chunk gives ``CHUNK``'s bits, ``CHUNK``'s
+    within `_opt_err` of the plain version; the next `apply_updates` takes
+    the tuned chunk; timed beside the plain version and torch's fused Adam
+    (over f16 moments for an f16 leaf: its state takes the weight's
+    dtype, another function)."""
+    wdt = getattr(torch, dtype)
     kernels.reset_launch_counts()
-    cold = at.tune("fused_optimizer", (n,), "float32")
+    cold = at.tune("fused_optimizer", (n,), dtype)
     trial_launches = kernels.launch_counts()["fused_optimizer_chunk"]
-    warm = at.tune("fused_optimizer", (n,), "float32")
+    trial_dtypes = {f"{k}:{d}": v for (k, d), v in
+                    kernels.DTYPE_LAUNCHES.items()}
+    warm = at.tune("fused_optimizer", (n,), dtype)
     warm_launches = kernels.launch_counts()["fused_optimizer_chunk"] - \
         trial_launches
     # bits at every candidate against CHUNK's, CHUNK's against the plain
     opt = topt.Adam(learning_rate=1e-3)
     g = torch.Generator(device=dev).manual_seed(13)
-    w0 = {"w": 0.02 * torch.randn(n, generator=g, device=dev)}
-    gr = {"w": 1e-3 * torch.randn(n, generator=g, device=dev)}
+    w0 = {"w": (0.02 * torch.randn(n, generator=g, device=dev)).to(wdt)}
+    gr = {"w": (1e-3 * torch.randn(n, generator=g, device=dev)).to(wdt)}
     s0 = {"w": (1e-4 * torch.randn(n, generator=g, device=dev),
                 1e-8 * torch.rand(n, generator=g, device=dev))}
     hp = {k: torch.full((), v, device=dev) for k, v in (
@@ -3334,7 +3553,7 @@ def tune_case(dev, n, at, fo, topt, kernels, torch):
     kernels.reset_launch_counts()
     fo.apply_updates(opt, {"w": ref_p["w"]}, gr, ref_s, hp, use_kernel=True)
     torch.cuda.synchronize()
-    next_chunk = fo.last_chunk["float32"]
+    next_chunk = fo.last_chunk[dtype]
     next_launches = kernels.launch_counts()["fused_optimizer_chunk"]
     bound_ms, bound_by = _opt_bound("adam", w0)
     # the tuned chunk's launch (CUDA events, L2 flushed) beside the plain
@@ -3346,14 +3565,16 @@ def tune_case(dev, n, at, fo, topt, kernels, torch):
     plain_ms = time_ms(lambda: fo.kernel_plain(opt, tp, gr, ts, hp),
                        iters=5, warm=1)
     steps = [torch.full((), 3.0, device=dev)]
+    lm, lv = (t.to(wdt) for t in ts["w"])
     library_ms = time_ms(lambda: torch._fused_adam_(
-        [tp["w"]], [gr["w"]], [ts["w"][0]], [ts["w"][1]], [], steps,
+        [tp["w"]], [gr["w"]], [lm], [lv], [], steps,
         lr=1e-3, beta1=0.9, beta2=0.999, weight_decay=0.01, eps=1e-8,
         amsgrad=False, maximize=False), iters=10, warm=2)
-    del keep, ref_p, ref_s, w0, gr, s0, tp, ts
+    del keep, ref_p, ref_s, w0, gr, s0, tp, ts, lm, lv
     torch.cuda.empty_cache()
     per_trial = 1 + 5          # time_callable's warmup and runs
-    st = dict(elements=n, bucket=at.shape_bucket((n,))[0],
+    st = dict(elements=n, dtype=dtype, trial_launches_by_dtype=trial_dtypes,
+              bucket=at.shape_bucket((n,))[0],
               config=dict(cold.config), cold_trials=cold.trials,
               cold_search_ms=cold.search_ms,
               trial_launches=trial_launches,
@@ -3369,6 +3590,8 @@ def tune_case(dev, n, at, fo, topt, kernels, torch):
     st["pick_is_least"] = least_pick(cold)
     st["ok"] = (st["pick_is_least"] and cold.trials > 0
                 and trial_launches == per_trial * cold.trials
+                and trial_dtypes == {f"fused_optimizer_chunk:{dtype}":
+                                     trial_launches}
                 and warm.cache_hit and warm.trials == 0
                 and warm_launches == 0 and all(equal.values()) and plain_ok
                 and next_chunk == cold.config.chunk and next_launches == 1)
@@ -3576,13 +3799,13 @@ REMAT_RTOL = 1e-5               # remat vs no remat (JAX's test_models.py:328)
 GPT_RUNS = (("bfloat16", False, "step"), ("float32", False, "step"),
             ("bfloat16", "full", "step"),
             ("bfloat16", "dots_saveable", "step"),
-            ("bfloat16", False, "trainer"))
+            ("bfloat16", False, "trainer"), ("float16", False, "step"))
 # planted faults: every attention built non-causal (read against the bf16
 # oracle at `traj_tol`), and a remat run whose recompute does not put the
 # dropout generators back (read against the bf16 run without remat at
 # REMAT_RTOL)
 GPT_FAULTS = ("attention_not_causal", "remat_without_generator_restore")
-GPT_FLOOR_X = 10     # a bf16 run's limit: this many one-ulp floors
+GPT_FLOOR_X = 10     # a 16-bit run's limit: this many one-ulp floors
 
 
 def gpt_tol(dtype, floor):
@@ -3595,8 +3818,9 @@ def gpt_tol(dtype, floor):
     H100, 1.2e-3 -- over `traj_tol`'s 1e-3 alone).  A kernel and its plain
     version differ in many roundings a step, so bf16 runs are held to the
     larger of `traj_tol` and `GPT_FLOOR_X` floors; the controls show how
-    far above that a wrong kernel lands."""
-    if dtype != "bfloat16":
+    far above that a wrong kernel lands.  f16 weights (no master copy
+    either) take the same rule with f16's own floor."""
+    if dtype not in ("bfloat16", "float16"):
         return traj_tol(dtype, "auto")
     return max(traj_tol(dtype, "auto"), GPT_FLOOR_X * floor)
 
@@ -3698,11 +3922,34 @@ def gpt_train_step(dev, dtype, plain=False, remat=False, entry="step",
         model, Trainer(dict(model.named_parameters()), opt), loss_fn)
 
 
+def _zero_grad_share(step):
+    """Wrap `step`'s forward-and-backward so that its first call records
+    the share of 16-bit gradient elements that are exactly zero (f16's
+    range flushes what a mean loss over 8192 tokens makes small: JAX's
+    step has no loss scaler either).  Returns the dict it fills."""
+    seen = {}
+    inner = step._compute
+
+    def compute(batch):
+        loss, grads = inner(batch)
+        if not seen:
+            g16 = [g for g in grads.values() if g.element_size() == 2]
+            total = sum(g.numel() for g in g16)
+            zeros = sum(int((g == 0).sum()) for g in g16)
+            seen.update(elements=total, zeros=zeros,
+                        share=zeros / total if total else None)
+        return loss, grads
+    step._compute = compute
+    return seen
+
+
 def gpt_run(dev, dtype, plain, batch, remat=False, entry="step",
             fault=None, nudge=False, arch=None):
     """`TRAIN_STEPS` steps of `gpt_train_step` under ``MXTPU_PALLAS=auto``
     (``reference`` for the oracle), counts reset after warmup; returns its
-    stats and the step time."""
+    stats and the step time.  An f16 `TrainStep` run also records the
+    share of f16 gradient elements that are zero after step 1's backward
+    (`_zero_grad_share`, before the timed steps)."""
     import torch
     from mxnet_tpu_torch import kernels
     from mxnet_tpu_torch.ops import flash_attention as fa
@@ -3761,6 +4008,8 @@ def gpt_run(dev, dtype, plain, batch, remat=False, entry="step",
                                          "generator")
             else:
                 warm_s = None
+            zeros = _zero_grad_share(step) if dtype == "float16" and \
+                entry == "step" else None
             kernels.reset_launch_counts()
             losses = []
             for i in range(TRAIN_STEPS):
@@ -3772,6 +4021,8 @@ def gpt_run(dev, dtype, plain, batch, remat=False, entry="step",
             torch.cuda.synchronize()
             step_s = (time.perf_counter() - t0) / (TRAIN_STEPS - 2)
             launches = kernels.launch_counts()
+            by_dtype = {f"{n}:{d}": v for (n, d), v in
+                        sorted(kernels.DTYPE_LAUNCHES.items())}
         peak = torch.cuda.max_memory_allocated() / 1e9
         groups = len({p.dtype for p in model.parameters()})
     finally:
@@ -3779,9 +4030,12 @@ def gpt_run(dev, dtype, plain, batch, remat=False, entry="step",
         fa._flash_fwd_cuda, fa._flash_bwd_cuda = fwd_cuda, bwd_cuda
     del model, step
     torch.cuda.empty_cache()
-    return dict(losses=[float(x) for x in losses], step_ms=step_s * 1e3,
-                warmup_s=warm_s, launches=launches, dtype_groups=groups,
-                peak_mem_gb=peak), step_s
+    st = dict(losses=[float(x) for x in losses], step_ms=step_s * 1e3,
+              warmup_s=warm_s, launches=launches, dtype_launches=by_dtype,
+              dtype_groups=groups, peak_mem_gb=peak)
+    if zeros is not None:
+        st["step1_zero_grad_share"] = zeros
+    return st, step_s
 
 
 def gpt_want_launches(n_groups, layers, remat):
@@ -3800,6 +4054,20 @@ def gpt_want_launches(n_groups, layers, remat):
                 "fused_norm": 2 * layers * again + 1,
                 "fused_optimizer_chunk": n_groups}
     return {k: v * TRAIN_STEPS for k, v in per_step.items()}
+
+
+def gpt_f16_want(layers):
+    """The f16 run's launches by kernel and input dtype over `TRAIN_STEPS`
+    steps (``name:dtype``): flash, cross-entropy and the norm in f16 (the
+    fused norm returns x's dtype, so the residual stream stays f16), the
+    chunk once over the f16 leaves (f32 state) and once over the f32
+    LayerNorm group a step."""
+    want = {f"{k}:float16": v for k, v in
+            gpt_want_launches(2, layers, False).items()
+            if k != "fused_optimizer_chunk"}
+    want.update({"fused_optimizer_chunk:float16": TRAIN_STEPS,
+                 "fused_optimizer_chunk:float32": TRAIN_STEPS})
+    return want
 
 
 def run_gpt(dev, results, card):
@@ -3823,7 +4091,17 @@ def run_gpt(dev, results, card):
                 losses=nst["losses"],
                 trajectory_rel_dev=traj_dev(nst["losses"], st["losses"]))
             print(f"[gpt one ulp {dtype}] {json.dumps(c)}", flush=True)
-        pst, pstep_s = gpt_run(dev, dtype, True, batch, remat, entry)
+        if remat:
+            # remat recomputes the same math, so the plain route with remat
+            # is the plain route without it: a remat run shares the bf16
+            # run's oracle (and is held to that run itself at REMAT_RTOL)
+            base = runs["bfloat16_step_remat_off"]
+            pst = dict(losses=base["plain_losses"], launches={},
+                       step_ms=base["plain_step_ms"],
+                       peak_mem_gb=base["plain_peak_mem_gb"])
+            pstep_s = base["plain_step_ms"] / 1e3
+        else:
+            pst, pstep_s = gpt_run(dev, dtype, True, batch, remat, entry)
         want = gpt_want_launches(st["dtype_groups"], cfg.num_layers,
                                  bool(remat))
         got = {k: st["launches"][k] for k in want}
@@ -3833,6 +4111,11 @@ def run_gpt(dev, results, card):
             problems.append(f"gpt {key}: kernel launches {got} (and "
                             f"{others}), want {want} over {TRAIN_STEPS} "
                             f"steps")
+        if dtype == "float16" and st["dtype_launches"] != \
+                gpt_f16_want(cfg.num_layers):
+            problems.append(f"gpt {key}: launches by dtype "
+                            f"{st['dtype_launches']}, want "
+                            f"{gpt_f16_want(cfg.num_layers)}")
         if any(pst["launches"].values()):
             problems.append(f"gpt {key}: the plain run launched kernels "
                             f"{pst['launches']}")
@@ -3854,6 +4137,14 @@ def run_gpt(dev, results, card):
             st["remat_rel_dev"] = traj_dev(ls, base["losses"])
             st["remat_rtol"] = REMAT_RTOL
             st["no_remat_peak_mem_gb"] = base["peak_mem_gb"]
+        if dtype == "float16":
+            # reported, not gated: what f16 flushes without a loss scaler
+            st["plain_step1_zero_grad_share"] = pst.get(
+                "step1_zero_grad_share")
+            base = runs["bfloat16_step_remat_off"]
+            st.update(bf16_step_ms=base["step_ms"],
+                      bf16_tokens_per_s=base["tokens_per_s"],
+                      bf16_peak_mem_gb=base["peak_mem_gb"])
         runs[key] = st
         print(f"[gpt {key}] {json.dumps(st)}", flush=True)
         print(f"[gpt {key}] {tokens / step_s:.1f} tokens/s, "
@@ -4809,8 +5100,9 @@ def kernel_entries(results):
             and c["case"] == "ln"}
     rep5 = next(c for c in k5 if c["dtype"] == "bfloat16" and
                 c["rows"] == 8192 and c["case"] == "ln")
-    chunk = [c for c in k6 if c["rule"] != "lamb"]
-    lamb = [c for c in k6 if c["rule"] == "lamb"]
+    chunk = [c for c in k6 if c["rule"] != "lamb"
+             and c["dtype"] != "float16"]
+    lamb = [c for c in k6 if c["rule"] == "lamb" and c["dtype"] != "float16"]
     rep7 = next(c for c in chunk if c["dtype"] == "float32" and
                 c["rule"] == "adam")
     rep8 = next(c for c in lamb if c["dtype"] == "bfloat16")
@@ -5015,7 +5307,7 @@ def kernel_entries(results):
             gpt_shape(e, c, pre)
         return band_shape(e, pre, list(wide))
     wide_h = [c for c in k3h if "kv_heads" in c]
-    f16_entries = [
+    f16_entries = f16_rows(results, entry) + [
         f16_entry("flash_attention_fwd", fa_src, f"{fa_py}:284", k3h, rep3h,
                   shapes=(gpt3h,), wide=wide_h),
         f16_entry("flash_attention_bwd", fa_src, f"{fa_py}:489", k3h, rep3h,
@@ -5048,6 +5340,86 @@ def kernel_entries(results):
         *gathers,
         *f16_entries,
     ]
+
+
+def f16_rows(results, entry):
+    """The f16 entries of rows 7-10, 12 and 13 (``..._f16``): K1 with f32
+    queries over an f16 pool at decode C=1 (phase 5b's type 5) as the
+    representative, every other k1_f16 case beside it, launches from the
+    f16 serving run; K2 on f16 activations (int8, M=8, 768->2304), its
+    launches those of the tune phase's ``int8_float16`` search and the
+    call after it, as no serving or training path sends f16 activations
+    to K2; the chunk over GPT-2 small's f16 leaves with f32 state, the
+    f16-state case and the tuner's f16 trial beside it, launches from the
+    gpt phase's f16 run; LAMB's phases over BERT-base's f16 leaves,
+    launches from the optim phase's f16 run."""
+    k1h = results["k1_f16"]
+    k2h = [c for c in results["k2"] if c["dtype"] == "float16"]
+    k6h = [c for c in results["k6"] if c["dtype"] == "float16"]
+    tags = {"float32": "f32", "float16": "f16"}
+
+    def dl(run, key):
+        return (run or {}).get("dtype_launches", {}).get(key, 0)
+    rep1 = next(c for c in k1h if c["dtype"] == "float32" and c["C"] == 1
+                and c["Hkv"] == 12 and c["window"] is None and c["D"] == 64)
+    k1 = entry("ragged_paged_attention_f16",
+               "mxnet_tpu_torch/csrc/paged_attention.cu",
+               "mxnet_tpu/ops/pallas/paged_attention.py:285",
+               dl(results["e2e"].get("float16"),
+                  "ragged_paged_attention:float16"), k1h, rep1)
+    k1.update(dtype="float16", device_ms=rep1["device_ms"],
+              plan=rep1["plan"])
+    for c in k1h:
+        if c is not rep1:
+            tag = (f"q{tags[c['dtype']]}_c{c['C']}_h{c['H']}_hkv{c['Hkv']}"
+                   f"_d{c['D']}_w{c['window'] or 0}")
+            k1.update({f"{tag}_{n}": c[n] for n in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")})
+    rep2 = next(c for c in k2h if c["bits"] == 8 and c["M"] == 8
+                and c["N"] == 2304)
+    tune2 = results["tune"].get("k2_int8_float16", {})
+    k2 = entry("quantized_matmul_f16",
+               "mxnet_tpu_torch/csrc/quantized_matmul.cu",
+               "mxnet_tpu/ops/pallas/quantized_matmul.py:341",
+               sum(tune2.get(k, 0) for k in ("trial_launches",
+                                             "warm_launches",
+                                             "next_launches")), k2h, rep2)
+    k2.update(dtype="float16", launches_from=(
+        "the tune phase: autotune.tune('quantized_matmul', (8, 2304, 768), "
+        "'int8_float16') and the quantized_matmul call after it; no "
+        "serving or training path sends f16 activations to K2"))
+    for c in k2h:
+        if c is not rep2:
+            tag = f"int{c['bits']}_m{c['M']}_n{c['N']}_k{c['K']}"
+            k2.update({f"{tag}_{n}": c[n] for n in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")})
+    gpt_h = results["gpt"].get("float16_step_remat_off")
+    rep7 = next(c for c in k6h if c["rule"] == "adamw"
+                and c["state_dtype"] == "float32")
+    fo_src = "mxnet_tpu_torch/csrc/fused_optimizer.cu"
+    fo_py = "mxnet_tpu/ops/pallas/fused_optimizer.py"
+    k7 = entry("fused_optimizer_chunk_f16", fo_src, f"{fo_py}:220",
+               dl(gpt_h, "fused_optimizer_chunk:float16"),
+               [c for c in k6h if c["rule"] != "lamb"], rep7)
+    k7.update(dtype="float16", state_dtype="float32",
+              library_note=rep7.get("library_note"))
+    st16 = next(c for c in k6h if c["rule"] == "adamw"
+                and c["state_dtype"] == "float16")
+    k7.update({f"f16_state_{n}": st16[n] for n in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")})
+    tune7 = results["tune"].get("gpt_f16", {})
+    k7.update({f"tune_{n}": tune7.get(n) for n in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "trial_launches")})
+    rep8 = next(c for c in k6h if c["rule"] == "lamb")
+    opt_h = results["optim"].get("lamb_step_float16")
+    lamb = []
+    for ph, line in (("a", 307), ("b", 333)):
+        e = entry(f"lamb_phase_{ph}_f16", fo_src, f"{fo_py}:{line}",
+                  dl(opt_h, f"lamb_phase_{ph}:float16"), [rep8], rep8,
+                  ms=f"phase_{ph}_ms")
+        e.update(dtype="float16", plan=rep8[f"phase_{ph}_plan"])
+        lamb.append(e)
+    return [k1, k2, k7, *lamb]
 
 
 def phase_done(results, name, t0):
@@ -5126,7 +5498,7 @@ def main(argv=None) -> int:
         return 1
 
     for name, fn in (("k1", k1_cases), ("k1_int8", k1_int8_cases),
-                     ("k2", k2_cases), ("k3", k3_cases),
+                     ("k1_f16", k1_f16_cases), ("k2", k2_cases), ("k3", k3_cases),
                      ("k4", k4_cases), ("k5", k5_cases), ("k6", k6_cases),
                      ("k7", k7_cases)):
         t_phase = time.perf_counter()

@@ -7,12 +7,13 @@ parameter tree uses the same names.  Nothing of the JAX package is
 imported here: the dict is the interface.
 
 It carries `GPTForCausalLM`, `BertForPretraining` and `TransformerNMT`
-alike, in f32 or bf16, unchanged: each port module's tree carries the
-Gluon names of its JAX counterpart.  A bf16 model keeps its LayerNorm
-gains and biases in f32, as Gluon does, so the dtype check passes leaf by
-leaf.  Build the port's model on
-the device it will run on: the dropout generator of a `BertForPretraining`
-stays on the device it was built for.
+alike, in f32, bf16 or f16, unchanged: each port module's tree carries
+the Gluon names of its JAX counterpart.  A bf16 or f16 model keeps its
+LayerNorm gains and biases in f32, as Gluon does, so the dtype check
+passes leaf by leaf (numpy's float16 arrays pass through as they are).
+Build the port's model on the device it will run on: the dropout
+generator of a `BertForPretraining` stays on the device it was built
+for.
 
 `load_jax_optimizer_states` does the same for a JAX `gluon.Trainer`'s
 optimizer state (``{name: tuple of numpy arrays}``, as its ``_states``

@@ -11,8 +11,8 @@
 //            (:333).
 //
 // What they compute, in f32 whatever the stored types (the f32
-// hyperparameters promote a bf16 leaf, as in JAX), updating weights and
-// optimizer state IN PLACE:
+// hyperparameters promote a bf16 or f16 leaf, as in JAX), updating weights
+// and optimizer state IN PLACE:
 //   g = clip(g * rescale_grad, +-clip_gradient)      (clip when given)
 //   Adam   g += wd*w; m = b1*m + (1-b1)*g; v = b2*v + (1-b2)*g*g;
 //          w -= lr*sqrt(1-b2^t)/(1-b1^t) * m / (sqrt(v) + eps)
@@ -48,18 +48,19 @@
 // sgd.py, lamb.py).  The decay of a stored state (b1*m, b2*v, mu*mom) is a
 // Python float times the state in those rules, a weakly typed scalar that
 // JAX rounds to the state's type before the product, which rounds to it
-// too: a no-op for f32 state, rnd(rnd(b1) * m) for bf16 state.  Where a
-// rule adds a Python float to a stored state, or takes the square root of
-// one (AdaDelta's sqrt(acc_delta + eps)), that is a 16-bit sum and a 16-bit
-// root in JAX, so the kernel rounds both to S as well.  lr, wd,
+// too: a no-op for f32 state, rnd(rnd(b1) * m) for bf16 or f16 state.
+// Where a rule adds a Python float to a stored state, or takes the square
+// root of one (AdaDelta's sqrt(acc_delta + eps)), that is a 16-bit sum and
+// a 16-bit root in JAX, so the kernel rounds both to S as well.  lr, wd,
 // rescale_grad, t, clip_gradient and the skip flag are read from device
 // memory — no host sync per step.  With skip
 // set, every weight and state element is written back as the bits it was
 // read as (a select, so a NaN gradient never reaches an output).
 //
 // What bounds them on the H100: bytes at 3.35 TB/s — Adam reads w, g, m, v
-// and writes w, m, v (28 B an f32 element, 22 B a bf16 one; FTML, with a
-// third state, 36 and 30; SGD and Signum without momentum 12 and 6); LAMB
+// and writes w, m, v (28 B an f32 element, 22 B a bf16 or f16 one over f32
+// state, 16 B over 16-bit state; FTML, with a third state, 36 and 30; SGD
+// and Signum without momentum 12 and 6); LAMB
 // moves 40
 // B an f32 element over its two phases (r goes out and back).  Design,
 // simple first: the chunk kernel is the CUDA form of the TPU's packed
@@ -87,6 +88,7 @@
 // blocks walk the same codes with the same 16-byte steps.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -99,6 +101,7 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
@@ -106,6 +109,11 @@ template <> __device__ __forceinline__ float from_f<float>(float x) {
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
     float x) {
   return __float2bfloat16(x);  // round to nearest even
+}
+// round to nearest even, once; past f16's range +-inf (no saturation), as
+// JAX's .astype(float16) rounds
+template <> __device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);
 }
 // x rounded to S and widened back (identity for f32)
 template <typename S> __device__ __forceinline__ float rnd(float x) {
@@ -127,6 +135,17 @@ template <> struct Bits<__nv_bfloat16> {
   }
   static __device__ __forceinline__ R r(float x) {
     return __bfloat16_as_ushort(__float2bfloat16(x));
+  }
+};
+// f16 is not the top half of an f32 (bf16's << 16 would misread it):
+// widen through the half type
+template <> struct Bits<__half> {
+  using R = unsigned short;
+  static __device__ __forceinline__ float f(R r) {
+    return __half2float(__ushort_as_half(r));
+  }
+  static __device__ __forceinline__ R r(float x) {
+    return __half_as_ushort(__float2half_rn(x));
   }
 };
 template <typename T> union Pack8 {
@@ -627,8 +646,11 @@ Hyper hyper(const void* lr, const void* wd, const void* rg, const void* t,
 
 }  // namespace
 
-// dtype codes: 0 f32, 1 bf16.  Every entry returns the launch's cudaError_t
-// (0 = launched).
+// dtype codes: 0 f32, 1 bf16, 2 f16 (as ops/fused_norm.py numbers them).
+// The weight and state pairs taken: (f32, f32), (f32, bf16), (bf16, f32),
+// (bf16, bf16), (f16, f32) -- 16-bit weights under `TrainStep`'s f32 state
+// -- and (f16, f16) -- the gluon Trainer's state in the weight's dtype.
+// Every entry returns the launch's cudaError_t (0 = launched).
 
 // One launch over a dtype group: table = n_leaves x 6 int64 leaf entries
 // {w, g, s0, s1, s2, n}, then n_blocks int64 block entries; rule: the
@@ -661,6 +683,8 @@ extern "C" int mxt_fused_chunk(const void* table, int n_leaves, int n_blocks,
   else if (w_dtype == 1 && s_dtype == 1)
     MXT_CHUNK(__nv_bfloat16, __nv_bfloat16);
   else if (w_dtype == 0 && s_dtype == 1) MXT_CHUNK(float, __nv_bfloat16);
+  else if (w_dtype == 2 && s_dtype == 0) MXT_CHUNK(__half, float);
+  else if (w_dtype == 2 && s_dtype == 2) MXT_CHUNK(__half, __half);
   else return (int)cudaErrorInvalidValue;
 #undef MXT_CHUNK
   return (int)cudaGetLastError();
@@ -712,6 +736,8 @@ extern "C" int mxt_lamb_phase_a(const void* table, int n_leaves, int n_blocks,
   else if (w_dtype == 1 && s_dtype == 1)
     MXT_LAMB_A(__nv_bfloat16, __nv_bfloat16);
   else if (w_dtype == 0 && s_dtype == 1) MXT_LAMB_A(float, __nv_bfloat16);
+  else if (w_dtype == 2 && s_dtype == 0) MXT_LAMB_A(__half, float);
+  else if (w_dtype == 2 && s_dtype == 2) MXT_LAMB_A(__half, __half);
   else return (int)cudaErrorInvalidValue;
 #undef MXT_LAMB_A
   if (grid_out) *grid_out = (int)gr;
@@ -751,6 +777,7 @@ extern "C" int mxt_lamb_phase_b(const void* table, int n_leaves,
   } while (0)
   if (w_dtype == 0) MXT_LAMB_B(float);
   else if (w_dtype == 1) MXT_LAMB_B(__nv_bfloat16);
+  else if (w_dtype == 2) MXT_LAMB_B(__half);
   else return (int)cudaErrorInvalidValue;
 #undef MXT_LAMB_B
   if (grid_out) *grid_out = (int)gr;

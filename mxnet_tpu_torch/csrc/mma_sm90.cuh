@@ -264,6 +264,9 @@ template <> struct Mma<float> {
   static __device__ __forceinline__ float widen(__nv_bfloat16 f) {
     return __bfloat162float(f);
   }
+  static __device__ __forceinline__ float widen(__half f) {
+    return __half2float(f);
+  }
   static __device__ __forceinline__ float widen(int8_t f) {
     return static_cast<float>(f);
   }
@@ -293,9 +296,10 @@ template <> struct Mma<float> {
     const T* c4 = c0 + 4 * ld;
     set_a(a, c0[0], c0[8], c4[0], c4[8]);
   }
-  // B loads read f32 tiles, or bf16 or int8 tiles widened in registers
-  // (a bf16 value, or an integer in [-127, 127], is exact in TF32: its lo
-  // half is zero)
+  // B loads read f32 tiles, or bf16, f16 or int8 tiles widened in
+  // registers (a bf16 or f16 value -- f16 keeps 10 mantissa bits, as TF32
+  // does -- or an integer in [-127, 127], is exact in TF32: its lo half is
+  // zero)
   template <typename S>
   static __device__ __forceinline__ void b_nrow(B (&b)[2], const S* X,
                                                 int ld, int n0, int k0,

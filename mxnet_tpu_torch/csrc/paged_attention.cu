@@ -20,10 +20,12 @@
 //     saw no key has l == 0 and writes zeros, not NaN.
 //   * Keys at t >= ctx are never read.
 //   * Queries, output and the arithmetic take the query's type; the pool may
-//     be bf16 under f32 queries (a bf16 model's serving step, whose
-//     activations are f32 after the first LayerNorm's f32 gain): K/V rows
-//     load as bf16 and widen to f32 in registers, and everything else is
-//     the f32 route's, as the plain version casts the gathered pool to f32.
+//     be bf16 or f16 under f32 queries (a bf16 or f16 model's serving step,
+//     whose activations are f32 after the first LayerNorm's f32 gain): K/V
+//     rows load as 16-bit values and widen to f32 in registers, and
+//     everything else is the f32 route's, as the plain version casts the
+//     gathered pool to f32.  f16 queries over an f16 pool (JAX's kernel on
+//     f16 inputs) take the bf16 route's code with f16 tiles and products.
 //   * The int8 variant (an int8 pool, `ServeConfig(kv_dtype="int8")`, under
 //     f32 or bf16 queries): each stored vector t of kv head g is k_t =
 //     sk_t * kq_t (and v_t = sv_t * vq_t), int8 rows with one f32 scale a
@@ -70,10 +72,20 @@
 // float atomics, the same bits every call.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "mma_sm90.cuh"   // cp.async, ldmatrix, mma.sync, Mma, arrive_last
+
+// The `types` this library instantiates, a bit per code (below, at the
+// entry).  The build (mxnet_tpu_torch/kernels `SPLITS`) compiles this
+// source twice in parallel with -DMXT_RPA_TYPES: the f32-query types and
+// the 16-bit-query types; an entry given a type its library lacks returns
+// cudaErrorInvalidValue.
+#ifndef MXT_RPA_TYPES
+#define MXT_RPA_TYPES 127
+#endif
 
 namespace {
 
@@ -89,6 +101,7 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_f(int8_t x) {
   return static_cast<float>(x);
 }
@@ -99,6 +112,9 @@ template <> __device__ __forceinline__ float from_f<float>(float x) {
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
     float x) {
   return __float2bfloat16(x);
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);  // nearest even; +-inf past the range
 }
 
 // 16 bytes of a row in shared memory as floats
@@ -116,6 +132,16 @@ __device__ __forceinline__ void load16(float (&f)[8],
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float2 x = __bfloat1622float2(h[i]);
+    f[2 * i] = x.x;
+    f[2 * i + 1] = x.y;
+  }
+}
+__device__ __forceinline__ void load16(float (&f)[8], const __half* p) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const __half2* h = reinterpret_cast<const __half2*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __half22float2(h[i]);
     f[2 * i] = x.x;
     f[2 * i + 1] = x.y;
   }
@@ -711,7 +737,7 @@ cudaError_t launch_type(int D, int rb, const void* q, const void* kp,
 // the types `types` names: 0 both f32, 1 both bf16, 2 f32 q over bf16
 // pools, 3 f32 q over int8 pools, 4 bf16 q over int8 pools, whose f32
 // scale planes k_scales / v_scales (num_pages, ps, Hkv) are given (null
-// otherwise); page_tables (B, maxp),
+// otherwise), 5 f32 q over f16 pools, 6 both f16; page_tables (B, maxp),
 // ctx_lens (B,), start_pos (B,) int32; out (B, H, C, D) in q's type; all
 // contiguous.  window < 0 means no window.  The launch plan: `tile` (the
 // tensor-core variant, row_tile 16) or the few-rows variant (row_tile =
@@ -731,13 +757,17 @@ extern "C" int mxt_ragged_paged_attention(
   cudaGetLastError();  // clear any stale error of this runtime
   if (B == 0 || C == 0) return 0;
   const int rows = (H / Hkv) * C;
+  // the int8 variant's types, and the bytes of a pool and a query element
+  const bool int8_pool = types == 3 || types == 4;
+  const int pool_bytes = types == 0 ? 4 : int8_pool ? 1 : 2;
+  const int q_bytes = types == 1 || types == 4 || types == 6 ? 2 : 4;
   if (D > MAX_D || D < 1 || warps < 1 || warps > MAX_WARPS || ps < 1 ||
       span < 1 || span % ps || nsplit < 1 || nsplit > MAX_SPLITS ||
       row_tile < 1 ||
       (tile ? row_tile != TILE_ROWS : row_tile > 15 || row_tile < rows) ||
       (nsplit > 1 && (ws == nullptr || tickets == nullptr)) || types < 0 ||
-      types > 4 ||
-      (types >= 3 && (k_scales == nullptr || v_scales == nullptr)))
+      types > 6 || !((MXT_RPA_TYPES >> types) & 1) ||
+      (int8_pool && (k_scales == nullptr || v_scales == nullptr)))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.ksc = static_cast<const float*>(k_scales);
@@ -760,8 +790,8 @@ extern "C" int mxt_ragged_paged_attention(
     return bytes % 16 == 0 ? 16 : bytes % 8 == 0 ? 8 : bytes % 4 == 0 ? 4
            : bytes % 2 == 0 ? 2 : 1;
   };
-  p.kpiece = piece(D * (types == 0 ? 4 : types >= 3 ? 1 : 2));
-  p.qpiece = piece(D * (types == 1 || types == 4 ? 2 : 4));
+  p.kpiece = piece(D * pool_bytes);
+  p.qpiece = piece(D * q_bytes);
   p.scale = scale;
   p.row_tile = row_tile;
   p.row_tiles = (rows + row_tile - 1) / row_tile;
@@ -769,21 +799,43 @@ extern "C" int mxt_ragged_paged_attention(
   p.nsplit = nsplit;
   const int rb = tile ? TILE_ROWS : row_tile <= 1 ? 1 : row_tile <= 4 ? 4 : 15;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (types == 1)
-    e = launch_type<__nv_bfloat16, __nv_bfloat16>(D, rb, q, kpool, vpool,
-                                                  out, p, B, warps, s);
-  else if (types == 2)
-    e = launch_type<float, __nv_bfloat16>(D, rb, q, kpool, vpool, out, p, B,
-                                          warps, s);
-  else if (types == 3)
-    e = launch_type<float, int8_t>(D, rb, q, kpool, vpool, out, p, B, warps,
-                                   s);
-  else if (types == 4)
-    e = launch_type<__nv_bfloat16, int8_t>(D, rb, q, kpool, vpool, out, p, B,
-                                           warps, s);
-  else
-    e = launch_type<float, float>(D, rb, q, kpool, vpool, out, p, B, warps,
-                                  s);
-  return (int)e;
+  switch (types) {
+#if MXT_RPA_TYPES & 1
+    case 0:
+      return (int)launch_type<float, float>(D, rb, q, kpool, vpool, out, p,
+                                            B, warps, s);
+#endif
+#if MXT_RPA_TYPES & 2
+    case 1:
+      return (int)launch_type<__nv_bfloat16, __nv_bfloat16>(
+          D, rb, q, kpool, vpool, out, p, B, warps, s);
+#endif
+#if MXT_RPA_TYPES & 4
+    case 2:
+      return (int)launch_type<float, __nv_bfloat16>(D, rb, q, kpool, vpool,
+                                                    out, p, B, warps, s);
+#endif
+#if MXT_RPA_TYPES & 8
+    case 3:
+      return (int)launch_type<float, int8_t>(D, rb, q, kpool, vpool, out, p,
+                                             B, warps, s);
+#endif
+#if MXT_RPA_TYPES & 16
+    case 4:
+      return (int)launch_type<__nv_bfloat16, int8_t>(D, rb, q, kpool, vpool,
+                                                     out, p, B, warps, s);
+#endif
+#if MXT_RPA_TYPES & 32
+    case 5:
+      return (int)launch_type<float, __half>(D, rb, q, kpool, vpool, out, p,
+                                             B, warps, s);
+#endif
+#if MXT_RPA_TYPES & 64
+    case 6:
+      return (int)launch_type<__half, __half>(D, rb, q, kpool, vpool, out, p,
+                                              B, warps, s);
+#endif
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -8,7 +8,7 @@
 // -- byte j holds value 2j in its low nibble and 2j+1 in its high nibble, two's
 // complement.  Accumulation is f32; the per-channel scale multiplies the f32
 // sum once in the epilogue, so the dense weight never exists in device memory.
-// x is f32 or bf16; out has x's type.
+// x is f32, bf16 or f16; out has x's type.
 //
 // What bounds it on the H100, and what the design does about it.  The host
 // picks one of two variants and a split-K factor (`_plan` in
@@ -32,8 +32,9 @@
 //   warps, K in steps of 32; x and weight tiles arrive by 16-byte cp.async
 //   into a three-stage ring in shared memory and the weight is converted
 //   to the operand type in registers.  An int8 or int4 value is exact in bf16
-//   (8 significant bits) and in TF32 (11), so: bf16 x runs mma.sync m16n8k16
-//   bf16 with f32 accumulation, every product exact; f32 x is split into
+//   (8 significant bits), in f16 and in TF32 (11), so: bf16 or f16 x runs
+//   mma.sync m16n8k16 in its own type with f32 accumulation, every product
+//   exact; f32 x is split into
 //   hi + lo, both TF32, and runs two m16n8k8 TF32 mma.syncs a tile (relative
 //   error about 2^-22; plain TF32 would keep three digits).  The grid splits
 //   K wherever the tile grid is under one wave.
@@ -49,9 +50,10 @@
 // edges are masked to zero.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
-#include "mma_sm90.cuh"   // cp.async, mma.sync, arrive_last
+#include "mma_sm90.cuh"   // cp.async, mma.sync, pack2, mma16, arrive_last
 
 namespace {
 
@@ -59,6 +61,7 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
@@ -66,6 +69,28 @@ template <> __device__ __forceinline__ float from_f<float>(float x) {
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
     float x) {
   return __float2bfloat16(x);
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);  // nearest even; +-inf past the range
+}
+
+// four consecutive x values (8 bytes of a 16-bit type) as floats: bf16 is
+// the top half of an f32, f16 is not, so each type widens its own way
+__device__ __forceinline__ float4 widen4(const __nv_bfloat16* src) {
+  const uint2 u = *reinterpret_cast<const uint2*>(src);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+__device__ __forceinline__ float4 widen4(const __half* src) {
+  const uint2 u = *reinterpret_cast<const uint2*>(src);
+  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
+  const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ float4 widen4(const float* src) {
+  return *reinterpret_cast<const float4*>(src);
 }
 
 // value k of weight row `row` (K values; packed rows hold Kp bytes)
@@ -138,16 +163,7 @@ qmm_small(const T* __restrict__ x, const int8_t* __restrict__ q,
       const int m = i / c4, k = 4 * (i - m * c4);
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
       if (m < M && k < klen) {
-        const T* src = x + (size_t)m * K + k0 + k;
-        if (sizeof(T) == 4) {
-          v = *reinterpret_cast<const float4*>(src);
-        } else {
-          const uint2 u = *reinterpret_cast<const uint2*>(src);
-          v.x = __uint_as_float(u.x << 16);
-          v.y = __uint_as_float(u.x & 0xffff0000u);
-          v.z = __uint_as_float(u.y << 16);
-          v.w = __uint_as_float(u.y & 0xffff0000u);
-        }
+        v = widen4(x + (size_t)m * K + k0 + k);
       }
       const int sp = k / SPAN, r = k - sp * SPAN;
       const int ll = r / VPL, j = (r - ll * VPL) / 4;
@@ -247,14 +263,16 @@ constexpr int LG_BM = 64, LG_BN = 64, LG_BK = 32, LG_THREADS = 128;
 constexpr int LG_STAGES = 3;   // tiles in the ring: two loads in flight
 constexpr int LG_BS = 48;    // weight tile row stride, bytes (conflict-free)
 
-// x tile row stride in elements: f32 36 words, bf16 20 words -- the
-// fragment reads of a warp then hit 32 distinct banks
+// x tile row stride in elements: f32 36 words, bf16 and f16 20 words --
+// the fragment reads of a warp then hit 32 distinct banks
 template <typename T> struct XStride { static constexpr int v = 36; };
 template <> struct XStride<__nv_bfloat16> { static constexpr int v = 40; };
+template <> struct XStride<__half> { static constexpr int v = 40; };
 
-// weight values k and k+1 of a row of the smem tile (k even), as a bf16 pair
-template <int BITS>
-__device__ __forceinline__ uint32_t w_pair_bf16(const int8_t* r, int k) {
+// weight values k and k+1 of a row of the smem tile (k even), as a pair of
+// the 16-bit x type T (exact: |value| <= 127 has 7 significant bits)
+template <typename T, int BITS>
+__device__ __forceinline__ uint32_t w_pair(const int8_t* r, int k) {
   float a, b;
   if (BITS == 8) {
     const int h = *reinterpret_cast<const int16_t*>(r + k);
@@ -265,8 +283,7 @@ __device__ __forceinline__ uint32_t w_pair_bf16(const int8_t* r, int k) {
     a = (float)((int)(int8_t)(v << 4) >> 4);
     b = (float)(v >> 4);
   }
-  __nv_bfloat162 p = __floats2bfloat162_rn(a, b);  // .x (low half) = k
-  return *reinterpret_cast<uint32_t*>(&p);
+  return pack2<T>(a, b);  // .x (low half) = k
 }
 
 // weight value k of a row of the smem tile, as TF32 (exact)
@@ -289,7 +306,7 @@ qmm_large(const T* __restrict__ x, const int8_t* __restrict__ q,
           float* __restrict__ ws, unsigned int* __restrict__ counters, int M,
           int N, int K, int Kp, int kc) {
   constexpr int XS = XStride<T>::v;
-  constexpr bool BF = sizeof(T) == 2;
+  constexpr bool B16 = sizeof(T) == 2;   // bf16 or f16 x
   constexpr int WB = LG_BK * BITS / 8;             // weight bytes a tile row
   __shared__ __align__(16) T xs[LG_STAGES][LG_BM][XS];
   __shared__ __align__(16) int8_t wsm[LG_STAGES][LG_BN][LG_BS];
@@ -359,7 +376,7 @@ qmm_large(const T* __restrict__ x, const int8_t* __restrict__ q,
     if (kt + LG_STAGES - 1 < nk)
       load_tile(kt + LG_STAGES - 1, (kt + LG_STAGES - 1) % LG_STAGES);
     cp_async_commit();
-    if (BF) {
+    if constexpr (B16) {
 #pragma unroll
       for (int kk = 0; kk < LG_BK; kk += 16) {
         uint32_t a[2][4], b[4][2];
@@ -375,13 +392,13 @@ qmm_large(const T* __restrict__ x, const int8_t* __restrict__ q,
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt) {
           const int8_t* wr = wsm[buf][wn + nt * 8 + g];
-          b[nt][0] = w_pair_bf16<BITS>(wr, kk + 2 * t);
-          b[nt][1] = w_pair_bf16<BITS>(wr, kk + 2 * t + 8);
+          b[nt][0] = w_pair<T, BITS>(wr, kk + 2 * t);
+          b[nt][1] = w_pair<T, BITS>(wr, kk + 2 * t + 8);
         }
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mt][nt], a[mt], b[nt]);
+          for (int nt = 0; nt < 4; ++nt) mma16<T>(acc[mt][nt], a[mt], b[nt]);
       }
     } else {
 #pragma unroll
@@ -527,7 +544,8 @@ bool aligned16(const void* p) {
 
 }  // namespace
 
-// x (M, K) f32 or bf16 (is_bf16); q int8 (N, K) for bits 8 or packed int4
+// x (M, K) in the type `x_dtype` names (0 f32, 1 bf16, 2 f16, as
+// ops/fused_norm.py numbers them); q int8 (N, K) for bits 8 or packed int4
 // (N, ceil(K/2)) for bits 4; scale (N,) f32; out (M, N) in x's type.  All
 // contiguous; the caller checks shapes.  variant 0 is the small-M stream
 // (M <= 16), 1 the tensor-core tile kernel; kc is the K values a split
@@ -538,12 +556,13 @@ bool aligned16(const void* p) {
 // left zeroed.  Returns the launch's cudaError_t.
 extern "C" int mxt_quantized_matmul(const void* x, const void* q,
                                     const void* scale, void* out, int M,
-                                    int N, int K, int bits, int is_bf16,
+                                    int N, int K, int bits, int x_dtype,
                                     int variant, int kc, void* ws,
                                     void* counters, void* stream) {
   cudaGetLastError();  // clear any stale error of this runtime
   if (M == 0 || N == 0) return 0;
-  if ((bits != 4 && bits != 8) || (variant != 0 && variant != 1) || kc <= 0)
+  if ((bits != 4 && bits != 8) || (variant != 0 && variant != 1) ||
+      kc <= 0 || x_dtype < 0 || x_dtype > 2)
     return (int)cudaErrorInvalidValue;
   Args a;
   a.x = x;
@@ -561,13 +580,16 @@ extern "C" int mxt_quantized_matmul(const void* x, const void* q,
   if (a.S > 1 && (ws == nullptr || counters == nullptr))
     return (int)cudaErrorInvalidValue;
   // 16-byte vectors need aligned weight rows and x rows (8 values a row of
-  // bf16 x is 16 bytes; the small variant stages four at a time)
+  // 16-bit x is 16 bytes; the small variant stages four at a time)
   a.aligned = aligned16(x) && aligned16(q) && a.Kp % 16 == 0 && K % 8 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  if (is_bf16)
+  if (x_dtype == 1)
     e = bits == 8 ? launch<__nv_bfloat16, 8>(a, variant, s)
                   : launch<__nv_bfloat16, 4>(a, variant, s);
+  else if (x_dtype == 2)
+    e = bits == 8 ? launch<__half, 8>(a, variant, s)
+                  : launch<__half, 4>(a, variant, s);
   else
     e = bits == 8 ? launch<float, 8>(a, variant, s)
                   : launch<float, 4>(a, variant, s);

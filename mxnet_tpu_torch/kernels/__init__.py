@@ -6,7 +6,8 @@ includes) is compiled at first use by
 interface, one library per source, all sources compiled in parallel.  A
 source listed in `SPLITS` is compiled once per part instead, each part a
 library of its own built beside the others (the flash kernels, one part
-an input type: their instantiations are the longest build).  The
+an input type; ragged paged attention, one part for f32 queries and one
+for 16-bit ones: their instantiations are the longest builds).  The
 libraries land in ``build/mxnet_tpu_torch/<hash>/`` beside the package
 (``MXTPU_TORCH_BUILD_DIR`` overrides the root), keyed by a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one is
@@ -68,7 +69,11 @@ DTYPE_LAUNCHES: Dict[tuple, int] = {}
 #: into the library ``<source>_<part>``
 SPLITS = {"flash_attention": {"f32": ("-DMXT_FLASH_TYPES=1",),
                               "bf16": ("-DMXT_FLASH_TYPES=2",),
-                              "f16": ("-DMXT_FLASH_TYPES=4",)}}
+                              "f16": ("-DMXT_FLASH_TYPES=4",)},
+          # K1's `types` codes as bits: 0, 2, 3, 5 (f32 queries) and 1, 4,
+          # 6 (bf16 or f16 queries)
+          "paged_attention": {"q32": ("-DMXT_RPA_TYPES=45",),
+                              "q16": ("-DMXT_RPA_TYPES=82",)}}
 
 #: library -> seconds its last build took (the compiler's start to its
 #: output file's last write)

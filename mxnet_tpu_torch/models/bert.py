@@ -6,8 +6,8 @@ positions and token types, the masked-LM head (optionally on the
 module tree carries the JAX package's parameter names
 (``bert.word_embed.weight``, ``bert.layers.<i>.attention.attn_qkv.weight``,
 ``bert.layers.<i>.ffn_norm.gamma``, ``mlm_decoder.weight``, …) and dtypes —
-LayerNorm parameters stay f32 when the model is bf16, as Gluon keeps them —
-so `convert.load_jax_params` fills it name for name.
+LayerNorm parameters stay f32 when the model is bf16 or f16, as Gluon
+keeps them — so `convert.load_jax_params` fills it name for name.
 
 Attention runs through the flash kernels on the card (key padding from
 ``valid_length`` as a compact bias, attention-probs dropout inside the

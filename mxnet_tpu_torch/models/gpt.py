@@ -9,8 +9,8 @@ The module tree carries the JAX package's parameter names
 ``transformer.final_norm.gamma``, ``lm_head.weight``), so
 `convert.load_jax_params` fills it name for name.
 
-LayerNorm parameters stay f32 in a bf16 model, as Gluon keeps them, and
-every norm takes ``layer_norm_eps``.
+LayerNorm parameters stay f32 in a bf16 or f16 model, as Gluon keeps
+them, and every norm takes ``layer_norm_eps``.
 
 ``forward`` gives the causal-LM logits over a whole sequence (the training
 path): the embeddings, each pre-LN block — attention through the causal
@@ -40,12 +40,13 @@ from .layers import (Dense, Dropout, Embedding, FeedForward,
 __all__ = ["GPTConfig", "GPTBlock", "GPTModel", "GPTForCausalLM",
            "gpt_small", "gpt_medium"]
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
 
 
 def torch_dtype(name) -> torch.dtype:
     """The torch dtype of a config dtype name (``"float32"``,
-    ``"bfloat16"``)."""
+    ``"bfloat16"``, ``"float16"``)."""
     if isinstance(name, torch.dtype):
         return name
     try:

@@ -14,7 +14,7 @@ The module tree carries the JAX package's Gluon parameter names
 (``encoder.embed.word_embed.weight``,
 ``decoder.layers.<i>.cross_attention.attn_kv.weight``, ``proj.weight``,
 …), so `convert.load_jax_params` fills it name for name.  LayerNorm
-parameters stay f32 in a bf16 model, as Gluon keeps them.
+parameters stay f32 in a bf16 or f16 model, as Gluon keeps them.
 """
 from __future__ import annotations
 

@@ -26,11 +26,15 @@ kernels and their plain versions (counterpart of
   and each tensor's trust ratio from deterministically reduced norms, over
   the same kind of leaf table, `_lamb_layout`), then phase B (the bounded
   update) once per group too, over phase A's own device table (each
-  launch's grid and path split in `last_lamb_plans`).  The hyperparameters and the skip
-  flag stay on the device.  On
-  a CPU tensor it runs the kernels' plain version, `kernel_plain` (the
-  same math, the same order of operations: LAMB's trust ratio stays f32),
-  and writes the results in place.
+  launch's grid and path split in `last_lamb_plans`).  The kernels take
+  f32, bf16 or f16 weights with f32 state or state in the weight's dtype
+  (`TrainStep` keeps f32 state for 16-bit weights, the gluon `Trainer`
+  the weight's dtype); a float64 or integer leaf raises by name.  Each
+  launch counts under its group's weight dtype
+  (`kernels.DTYPE_LAUNCHES`).  The hyperparameters and the skip flag stay
+  on the device.  On a CPU tensor it runs the kernels' plain version,
+  `kernel_plain` (the same math, the same order of operations: LAMB's
+  trust ratio stays f32), and writes the results in place.
 
 `kernel_route` applies the policy of `ops.policy` (``MXTPU_PALLAS``).  Every
 other fused-safe rule (LARS, DCASGD, LANS, AdaGrad, GroupAdaGrad,
@@ -66,7 +70,8 @@ __all__ = ["apply_updates", "supported", "kernel_supported", "kernel_route",
 
 CHUNK = 8192           # elements of one leaf per block: the static default
 LAMB_CHUNK = 8192      # elements of one leaf per LAMB chunk (both phases)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernels' dtype codes (csrc/fused_optimizer.cu; ops/fused_norm.py's)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: weight dtype name -> elements per block of that dtype group's latest
 #: chunk launch (on the CPU: the chunk the launch would have used)
 last_chunk: Dict[str, int] = {}
@@ -194,10 +199,12 @@ def _kernel_fn(name):
     return f
 
 
-def _launched(name, err, counter):
+def _launched(name, err, counter, dtype):
+    """Raise on a refused launch, else count it under the group's weight
+    dtype (`kernels.count_launch`)."""
     if err:
         raise MXNetError(f"{name} kernel launch failed (cudaError_t {err})")
-    _kernels.LAUNCHES[counter] += 1
+    _kernels.count_launch(counter, dtype)
 
 
 class HpScalarCache:
@@ -256,8 +263,10 @@ def _check_leaf(name, w, g, states, dev):
         if t.device != dev:
             raise MXNetError(f"{name}: {what} is on {t.device}, not {dev}")
         if t.dtype not in _DTYPES or (dt is not None and t.dtype != dt):
-            raise MXNetError(f"{name}: the optimizer kernels take float32 "
-                             f"or bfloat16 tensors, {what} is {t.dtype}")
+            raise MXNetError(f"{name}: the optimizer kernels take float32, "
+                             f"bfloat16 or float16 tensors (the gradient "
+                             f"in the weight's dtype), {what} is "
+                             f"{t.dtype}")
         if t.shape != w.shape:
             raise MXNetError(f"{name}: {what} has shape {tuple(t.shape)}, "
                              f"weight {tuple(w.shape)}")
@@ -323,7 +332,8 @@ def _chunk_cuda(optimizer, rule, names, params, grads, states, hptr, dev,
         _DTYPES[w0.dtype], _DTYPES[s[0].dtype] if s else 0,
         *_chunk_consts(optimizer), *hptr,
         torch.cuda.current_stream(dev).cuda_stream)
-    _launched("fused_optimizer chunk", err, "fused_optimizer_chunk")
+    _launched("fused_optimizer chunk", err, "fused_optimizer_chunk",
+              w0.dtype)
 
 
 class LambLayout(NamedTuple):
@@ -422,11 +432,11 @@ def _lamb_cuda(optimizer, names, params, grads, states, hptr, dev):
             0.0 if lo is None else lo, 0.0 if hi is None else hi,
             int(lo is not None), int(hi is not None), *hptr,
             ctypes.addressof(grid_a), stream)
-        _launched("LAMB phase A", err, "lamb_phase_a")
+        _launched("LAMB phase A", err, "lamb_phase_a", w0.dtype)
         err = phase_b(dev_table.data_ptr(), len(group), n_codes, LAMB_CHUNK,
                       r.data_ptr(), ratio.data_ptr(), wdt, hptr[0], hptr[5],
                       ctypes.addressof(grid_b), stream)
-        _launched("LAMB phase B", err, "lamb_phase_b")
+        _launched("LAMB phase B", err, "lamb_phase_b", w0.dtype)
         vec = sum(1 for row in leaves if row[0] % 16 == 0)
         plans.append(LambPlan(n_codes, grid_a.value, grid_b.value, vec,
                               len(leaves) - vec))

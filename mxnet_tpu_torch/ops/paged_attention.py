@@ -12,15 +12,18 @@ context is the concatenation of the pages its page table names.
   and merges the splits in order, reads only the keys below a slot's
   context length, folds the GQA query heads onto rows so K/V stream once
   per kv head, and keeps an f32 online softmax per row.  Queries and the
-  pool share a dtype, or f32 queries read a bf16 pool (a bf16 model's
-  serving step, whose activations are f32 after the first LayerNorm):
-  K/V then widen to f32 as they load and the rest is the f32 route's.  An
+  pool share a dtype (f32, bf16 or f16), or f32 queries read a bf16 or
+  f16 pool (a 16-bit model's serving step, whose activations are f32
+  after the first LayerNorm): K/V then widen to f32 as they load and the
+  rest is the f32 route's.  An
   int8 pool (``k_scales`` / ``v_scales``: one f32 scale a stored vector,
   ``ServeConfig(kv_dtype="int8")``) launches the kernel's int8 variant
   under f32 or bf16 queries: it reads int8 rows and their scales and
   never writes a dequantized row (the JAX package sends such pools
-  through its gather reference).  It raises on what the kernel does not
-  take; it never falls back.
+  through its gather reference); an int8 pool under f16 queries, which
+  no path makes, raises by name.  It raises on what the kernel does not
+  take; it never falls back.  Each launch counts under its pool's dtype
+  (`kernels.DTYPE_LAUNCHES`).
 - The pool's page size is this kernel's tunable, as in the JAX package:
   `recommended_page_size` is what `serve.ServeConfig` takes when
   ``MXTPU_SERVE_PAGE_SIZE`` is unset.
@@ -87,7 +90,10 @@ def _dense_attend(q, kc, vc, q_pos, ctx_len=None, window=None, scale=None):
         mask &= t_idx < ctx_len[:, None, None, None]
     if window is not None:
         mask &= t_idx >= pos - window
-    s = torch.where(mask, s, MASK_VALUE)
+    # JAX's weakly typed MASK_VALUE takes the scores' dtype: -inf in f16
+    # (the card's torch.where refuses to round a Python -1e30 into f16)
+    s = torch.where(mask, s, torch.tensor(MASK_VALUE, device=s.device)
+                    .to(s.dtype))
     p = torch.softmax(s.float(), dim=-1).to(q.dtype)
     dt = torch.promote_types(p.dtype, vc.dtype)
     ctx = p.reshape(B, Hkv, rep * C, T).to(dt) @ vc.to(dt)
@@ -176,8 +182,8 @@ def _plan(B: int, H: int, Hkv: int, C: int, D: int, ps: int, maxp: int,
     rows = (H // Hkv) * C
     variant = "few" if rows < TILE_ROWS else "tile"
     row_tile = rows if variant == "few" else TILE_ROWS
-    item = 2 if dtype in (torch.bfloat16, "bfloat16") else \
-        1 if dtype in (torch.int8, "int8") else 4
+    item = {"bfloat16": 2, "float16": 2, "int8": 1}.get(
+        autotune.dtype_name(dtype), 4)
     dmax = 64 if D <= 64 else 128 if D <= 128 else 256
     pad = 32 if variant == "few" else 16
     warps = max(1, min(4, RING_BYTES // (2 * 2 * KEY_TILE
@@ -198,30 +204,38 @@ def _plan(B: int, H: int, Hkv: int, C: int, D: int, ps: int, maxp: int,
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_fn = None
+_fns: Dict[str, Any] = {}
 # (pool dtype, query dtype) -> the C entry's `types` code; 3 and 4 are the
 # int8 variant, whose pools carry f32 scale planes
 _TYPES = {(torch.float32, torch.float32): 0,
           (torch.bfloat16, torch.bfloat16): 1,
           (torch.bfloat16, torch.float32): 2,
           (torch.int8, torch.float32): 3,
-          (torch.int8, torch.bfloat16): 4}
+          (torch.int8, torch.bfloat16): 4,
+          (torch.float16, torch.float32): 5,
+          (torch.float16, torch.float16): 6}
+# the library of each query dtype's types (`kernels.SPLITS`)
+_LIBRARY = {torch.float32: "paged_attention_q32",
+            torch.bfloat16: "paged_attention_q16",
+            torch.float16: "paged_attention_q16"}
 # (device index, raw stream) -> (ticket counters, f32 partials workspace)
 _scratch_of: Dict[Any, Tuple[torch.Tensor, torch.Tensor]] = {}
 # operand shapes, dtypes and devices already checked -> their plan
 _checked: Dict[Any, Plan] = {}
 
 
-def _kernel_fn():
-    global _fn
-    if _fn is None:
-        f = _kernels.load("paged_attention").mxt_ragged_paged_attention
+def _kernel_fn(q_dtype):
+    """The C entry of the library that holds `q_dtype`'s types."""
+    name = _LIBRARY[q_dtype]
+    f = _fns.get(name)
+    if f is None:
+        f = _kernels.load(name).mxt_ragged_paged_attention
         f.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                       _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _I, _I,
                       _I, _P, _P, _P]
         f.restype = _I
-        _fn = f
-    return _fn
+        _fns[name] = f
+    return f
 
 
 def _check(q, kpool, vpool, page_tables, ctx_lens, start_pos,
@@ -230,14 +244,20 @@ def _check(q, kpool, vpool, page_tables, ctx_lens, start_pos,
     them (a decode step makes one call a layer with the same key); returns
     the call's plan."""
     B, H, C, D = q.shape
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise MXNetError(f"ragged_paged_attention kernel takes float32 or "
-                         f"bfloat16 queries, got {q.dtype}")
+    if q.dtype not in _LIBRARY:
+        raise MXNetError(f"ragged_paged_attention kernel takes float32, "
+                         f"bfloat16 or float16 queries, got {q.dtype}")
+    if kpool.dtype == torch.int8 and q.dtype == torch.float16:
+        raise MXNetError(
+            "ragged_paged_attention kernel: an int8 pool under float16 "
+            "queries is not taken (no serving path makes it: an f16 "
+            "model's decode step queries in f32)")
     if kpool.dtype != vpool.dtype or (kpool.dtype, q.dtype) not in _TYPES:
         raise MXNetError(
             f"ragged_paged_attention kernel needs pools in the query dtype, "
-            f"a bfloat16 pool under float32 queries, or an int8 pool; got "
-            f"{kpool.dtype}/{vpool.dtype} under {q.dtype}")
+            f"a bfloat16 pool under float32 queries, a float16 pool under "
+            f"float32 queries, or an int8 pool under float32 or bfloat16 "
+            f"queries; got {kpool.dtype}/{vpool.dtype} under {q.dtype}")
     if kpool.dim() != 4 or kpool.shape != vpool.shape or \
             kpool.shape[3] != D:
         raise MXNetError(
@@ -326,7 +346,7 @@ def _rpa_cuda(q, kpool, vpool, page_tables, ctx_lens, start_pos, window,
                                           plan.groups, plan.workspace)
         cnt, ws = cnt.data_ptr(), ws.data_ptr()
     quantized = k_scales is not None
-    err = _kernel_fn()(
+    err = _kernel_fn(q.dtype)(
         q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
         k_scales.data_ptr() if quantized else None,
         v_scales.data_ptr() if quantized else None,
@@ -338,8 +358,8 @@ def _rpa_cuda(q, kpool, vpool, page_tables, ctx_lens, start_pos, window,
     if err:
         raise MXNetError(f"ragged_paged_attention kernel launch failed "
                          f"(cudaError_t {err}, {plan})")
-    _kernels.LAUNCHES["ragged_paged_attention_int8" if quantized
-                      else "ragged_paged_attention"] += 1
+    _kernels.count_launch("ragged_paged_attention_int8" if quantized
+                          else "ragged_paged_attention", kpool.dtype)
     return out
 
 
@@ -427,7 +447,7 @@ def _at_inputs(config, shapes, dtype, device):
     maxp = max(1, -(-ctx // ps))
     n_pages = b * maxp + 1
     rng = np.random.RandomState(0)
-    dt = torch.bfloat16 if "16" in str(dtype) else torch.float32
+    dt = _tune_dtype(dtype)
 
     def seeded(*shape):
         return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
@@ -440,6 +460,13 @@ def _at_inputs(config, shapes, dtype, device):
                       device=device).reshape(b, maxp)
     ctx_lens = torch.full((b,), ctx, dtype=torch.int32, device=device)
     return q, kpool, vpool, pt, ctx_lens, ctx_lens - 1
+
+
+def _tune_dtype(dtype) -> torch.dtype:
+    """The trial's queries and pools: the key's own dtype (f32, bf16 or
+    f16: an f16 key times the f16 pool's instantiation)."""
+    return {"bfloat16": torch.bfloat16, "float16": torch.float16}.get(
+        autotune.dtype_name(dtype), torch.float32)
 
 
 def _at_build(config, shapes, dtype):

@@ -381,6 +381,9 @@ def _plan(M: int, N: int, K: int, bits: int, dtype, sm_count: int,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _fn = None
+# the C entry's x dtype codes (ops/fused_norm.py's numbering); the output
+# takes x's dtype
+_X_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # (device index, raw stream) -> (ticket counters, f32 partials workspace)
 _scratch_of: Dict[Any, Tuple[torch.Tensor, torch.Tensor]] = {}
 # plans already made, keyed by shape, bits, dtype and device, valid for the
@@ -459,9 +462,9 @@ def _qmm_cuda(x2, qt: QuantizedTensor, plan: Optional[Plan] = None):
     M, K = x2.shape
     N = qt.out_features
     dt = x2.dtype
-    if dt is not torch.float32 and dt is not torch.bfloat16:
-        raise MXNetError(f"quantized_matmul kernel takes float32 or "
-                         f"bfloat16 activations, got {dt}")
+    if dt not in _X_DTYPES:
+        raise MXNetError(f"quantized_matmul kernel takes float32, bfloat16 "
+                         f"or float16 activations, got {dt}")
     _check_weight(qt)
     dev = x2.device
     if qt.q.device != dev:
@@ -482,12 +485,12 @@ def _qmm_cuda(x2, qt: QuantizedTensor, plan: Optional[Plan] = None):
         cnt, ws = cnt.data_ptr(), ws.data_ptr()
     err = _kernel_fn()(
         x2.data_ptr(), qt.q.data_ptr(), qt.scale.data_ptr(), out.data_ptr(),
-        M, N, K, qt.bits, dt is torch.bfloat16,
+        M, N, K, qt.bits, _X_DTYPES[dt],
         plan.variant == "large", plan.kc, ws, cnt, stream)
     if err:
         raise MXNetError(f"quantized_matmul kernel launch failed "
                          f"(cudaError_t {err}, {plan})")
-    _kernels.LAUNCHES["quantized_matmul"] += 1
+    _kernels.count_launch("quantized_matmul", dt)
     return out
 
 
@@ -589,8 +592,8 @@ _TUNE_SPLITS = (1, 2, 3, 4, 6, 8, 12, 16)
 
 def _tune_dtype(bits: int, dtype) -> str:
     """The tuner key's dtype: ``int8`` / ``int4`` for f32 activations, as
-    the JAX package keys it, with ``_bfloat16`` appended for bf16 ones
-    (they take other instructions in the tile kernel)."""
+    the JAX package keys it, with ``_bfloat16`` or ``_float16`` appended
+    for 16-bit ones (they take other instructions in the tile kernel)."""
     name = autotune.dtype_name(dtype)
     return f"int{bits}" if name == "float32" else f"int{bits}_{name}"
 
@@ -600,8 +603,15 @@ def _bits_of(dtype) -> int:
 
 
 def _x_dtype(dtype):
-    return torch.bfloat16 if str(dtype).endswith("bfloat16") \
-        else torch.float32
+    """The activations' dtype a tuner key names (`_tune_dtype` read
+    back): ``int8_bfloat16`` -> bf16, ``int8_float16`` -> f16, a bare
+    ``int8`` / ``int4`` -> f32."""
+    name = str(dtype)
+    for suffix, dt in (("_bfloat16", torch.bfloat16),
+                       ("_float16", torch.float16)):
+        if name.endswith(suffix):
+            return dt
+    return torch.float32
 
 
 def _shape3(shapes):

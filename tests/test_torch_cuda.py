@@ -38,16 +38,24 @@ float16: the flash and cross-entropy cases above in f16 too, gradients
 past f16's range stored as inf where the plain versions' casts put them,
 a dtype neither kernel takes refused by name, the loss scaler's check on
 CUDA gradients, and a small BERT's fp16 AMP steps through the `Trainer`
-(f32 and f16 weights) against the plain versions.
+(f32 and f16 weights) against the plain versions; and float16 in the
+other rows: the chunk kernel's nine rules and LAMB's phases over f16
+weights with f32 or f16 state, K1 with f32 or f16 queries over f16 pools
+(types 5 and 6: every split, any head width, two streams), K2 on f16
+activations at every plan, each launch counted under its dtype, a small
+f16 GPT served over an f16 pool and trained through `TrainStep`, and the
+tuner's f16 keys.
 
 Marked ``cuda``: each test skips (with its reason) where no card is
 visible, as on the CPU test machine.  Run them on a machine with an H100
 (which needs no JAX): ``python -m pytest --noconftest
 tests/test_torch_cuda.py -q``.  Tolerances: f32 max-abs
 <= 1e-4 of the output scale (summation order), bf16 <= 2e-2, f16 <= 5e-3
-(three more mantissa bits than bf16); the optimizer
-kernels at atol 2e-6 on f32 (the JAX kernel test's bound), bf16 weights at
-rtol 2**-7 (one bf16 step at most); the row gather and the chunk kernel
+(three more mantissa bits than bf16; f32 queries over an f16 pool at the
+f32 bound, the pool widening exactly); the optimizer
+kernels at atol 2e-6 on f32 (the JAX kernel test's bound), 16-bit values
+at one step of their type (rtol 2**-7 bf16, 2**-10 f16); the row gather
+and the chunk kernel
 at different chunk sizes bit for bit (a copy, or one f32 multiply and a
 cast, on both sides).
 """
@@ -72,7 +80,8 @@ def card():
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2e-2)])
+                                       (torch.bfloat16, 2e-2),
+                                       (torch.float16, 5e-3)])
 @pytest.mark.parametrize("C,Hkv,ps,window", [(1, 4, 16, None),
                                              (8, 2, 8, None),
                                              (8, 1, 24, 5)])
@@ -122,7 +131,8 @@ RPA_SHAPES = [(1, 4, 4), (1, 8, 2), (16, 4, 4), (4, 8, 1)]   # C, H, Hkv
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2e-2)])
+                                       (torch.bfloat16, 2e-2),
+                                       (torch.float16, 5e-3)])
 @pytest.mark.parametrize("C,H,Hkv", RPA_SHAPES)
 @pytest.mark.parametrize("ps,D,maxp", [(8, 64, 40), (24, 128, 14),
                                        (128, 64, 4)])
@@ -170,7 +180,8 @@ def test_paged_attention_every_split_matches_plain(card, dtype, tol, C, H,
                     ref[s, :, :n].float().abs().max()), (pl, s)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("C,H,Hkv", [(1, 12, 12), (16, 12, 3)])
 def test_paged_attention_splits_on_two_streams(card, dtype, C, H, Hkv):
     """Split launches on two streams at once keep their own tickets and
@@ -267,10 +278,14 @@ def test_paged_attention_raises_on_a_head_dim_it_does_not_take(card):
 
 
 # (query dtype, pool dtype, tolerance): each route and f32 queries over a
-# bf16 pool (held to the bf16 tolerance)
+# bf16 pool (held to the bf16 tolerance); f32 queries over an f16 pool
+# (type 5: the pool's values widen exactly, so the f32 arithmetic's 1e-4)
+# and f16 over f16 (type 6)
 RPA_TYPES = [(torch.float32, torch.float32, 1e-4),
              (torch.bfloat16, torch.bfloat16, 2e-2),
-             (torch.float32, torch.bfloat16, 2e-2)]
+             (torch.float32, torch.bfloat16, 2e-2),
+             (torch.float32, torch.float16, 1e-4),
+             (torch.float16, torch.float16, 5e-3)]
 
 
 @pytest.mark.parametrize("qdt,pdt,tol", RPA_TYPES)
@@ -320,18 +335,23 @@ def _qmm_check(out, ref, tol):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2e-2)])
+                                       (torch.bfloat16, 2e-2),
+                                       (torch.float16, 5e-3)])
 @pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("M,N,K", [(8, 96, 64), (37, 70, 33), (8, 96, 33),
                                    (3, 50, 1000), (8, 50257, 768)])
 def test_quantized_matmul_kernel_matches_plain(card, dtype, tol, bits, M, N,
                                                K):
     """Odd shapes (unaligned rows take the scalar path), int4 at K = 33,
-    the tied-head shape; one launch a call."""
+    the tied-head shape; one launch a call, counted under x's dtype, the
+    output in x's dtype."""
     x, qt = _qmm_case(card, dtype, bits, M, N, K)
     kernels.reset_launch_counts()
     out = qm.quantized_matmul(x, qt)
     assert kernels.launch_counts()["quantized_matmul"] == 1
+    assert kernels.DTYPE_LAUNCHES == {
+        ("quantized_matmul", str(dtype)[6:]): 1}
+    assert out.dtype == dtype
     ref = qm.quantized_matmul_reference(x, qt)
     torch.cuda.synchronize()
     _qmm_check(out, ref, tol)
@@ -341,7 +361,8 @@ QMM_SHAPES = [(2304, 768), (768, 768), (3072, 768), (768, 3072)]
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2e-2)])
+                                       (torch.bfloat16, 2e-2),
+                                       (torch.float16, 5e-3)])
 @pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("M", [1, 8, 16, 17, 128])
 def test_quantized_matmul_every_plan_matches_plain(card, dtype, tol, bits,
@@ -395,14 +416,25 @@ def test_quantized_matmul_split_k_on_two_streams(card, variant, M):
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(card):
-    q = torch.zeros(1, 2, 1, 8, device=card, dtype=torch.float16)
-    pool = torch.zeros(2, 8, 2, 8, device=card, dtype=torch.float16)
+    """float64 reaches neither K1 nor K2, and an int8 pool under f16
+    queries (no path makes it) is refused by name: no plain version in
+    their place."""
+    from mxnet_tpu_torch.contrib.quantization import quantize_kv
+    q = torch.zeros(1, 2, 1, 8, device=card, dtype=torch.float64)
+    pool = torch.zeros(2, 8, 2, 8, device=card, dtype=torch.float64)
     i32 = torch.zeros(1, 1, dtype=torch.int32, device=card)
-    with pytest.raises(MXNetError, match="float32 or bfloat16"):
+    with pytest.raises(MXNetError, match="float32, bfloat16 or float16"):
         pa.ragged_paged_attention(q, pool, pool, i32, i32[0], i32[0])
+    (kq, ks), (vq, vs) = quantize_kv(pool.float()), quantize_kv(pool.float())
+    with pytest.raises(MXNetError, match="int8 pool under float16"):
+        pa.ragged_paged_attention(q.half(), kq, vq, i32, i32[0], i32[0],
+                                  k_scales=ks, v_scales=vs)
     qt = qm.quantize_weight(torch.randn(4, 8), 8).to(card)
     with pytest.raises(MXNetError, match="contiguous"):
         qm._qmm_cuda(torch.randn(8, 2, device=card).T, qt)
+    with pytest.raises(MXNetError, match="float32, bfloat16 or float16"):
+        qm.quantized_matmul(torch.randn(8, 8, device=card,
+                                        dtype=torch.float64), qt)
 
 
 def _flash_case(card, dtype, B, H, Lq, Lk, D, bias_kind, causal, rate,
@@ -1247,6 +1279,20 @@ def test_norm_tune_picks_the_least_event_timed_block_rows(card, tmp_path,
                       ms_b[a] <= 1.03 * ms_b[b]), picks
 
 
+# one step of a 16-bit type, relative to the value
+STEP16 = {torch.bfloat16: 2 ** -7, torch.float16: 2 ** -10}
+
+
+def _close16(a, b, atol=2e-6):
+    """`a` within one step of its 16-bit type of `b` (plus `atol`, the
+    fused multiply-adds' f32 residue), or within atol of an f32 `b`."""
+    if a.dtype in STEP16:
+        torch.testing.assert_close(a.float(), b.float(),
+                                   rtol=STEP16[a.dtype], atol=atol)
+    else:
+        torch.testing.assert_close(a, b, rtol=0, atol=atol)
+
+
 OPT_CASES = {"adam": ("Adam", {}), "adamw": ("AdamW", {}),
              "sgd": ("SGD", {}), "sgd_momentum": ("SGD", {"momentum": 0.9}),
              "lamb": ("LAMB", {}),
@@ -1256,7 +1302,8 @@ OPT_CASES = {"adam": ("Adam", {}), "adamw": ("AdamW", {}),
 
 
 @pytest.mark.parametrize("name", sorted(OPT_CASES))
-@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16,
+                                    torch.float16])
 def test_optimizer_kernels_match_plain(card, name, wdtype):
     from mxnet_tpu_torch import optimizer as topt
     from mxnet_tpu_torch.ops import fused_optimizer as fo
@@ -1280,21 +1327,21 @@ def test_optimizer_kernels_match_plain(card, name, wdtype):
     fo.apply_updates(opt, params, grads, states, hp, use_kernel=True)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    groups = 2 if wdtype == torch.bfloat16 else 1
+    groups = 1 if wdtype == torch.float32 else 2
     if cls == "LAMB":
         # phases A and B once per (weight, state) dtype group
         assert counts["lamb_phase_a"] == groups
         assert counts["lamb_phase_b"] == groups
     else:
         assert counts["fused_optimizer_chunk"] == groups
+    # each launch counted under its group's weight dtype
+    names = ("lamb_phase_a", "lamb_phase_b") if cls == "LAMB" else \
+        ("fused_optimizer_chunk",)
+    assert kernels.DTYPE_LAUNCHES == {
+        (k, d): 1 for k in names for d in {str(wdtype)[6:], "float32"}}
     for n in params:
-        w_want, s_want = want_p[n], want_s[n]
-        if params[n].dtype == torch.bfloat16:
-            torch.testing.assert_close(params[n].float(), w_want.float(),
-                                       rtol=2 ** -7, atol=2e-6)
-        else:
-            torch.testing.assert_close(params[n], w_want, rtol=0, atol=2e-6)
-        for a, b in zip(states[n], s_want):
+        _close16(params[n], want_p[n])
+        for a, b in zip(states[n], want_s[n]):
             torch.testing.assert_close(a, b, rtol=0, atol=2e-6)
 
 
@@ -1462,25 +1509,27 @@ def test_moe_train_step_on_the_card(card):
                                rtol=1e-4)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("name", ["adam", "adamw", "sgd_momentum", "lamb"])
-def test_optimizer_kernels_with_16bit_state_match_plain(card, name):
-    """bf16 weights with bf16 state (the `Trainer`'s state of a bf16
-    model): the decay of the state rounds the scalar and the product to
-    bf16 in the kernel as in the plain version; state and weights within
-    one bf16 step, and atol 2e-6 (as above): the kernel fuses a
-    multiply-add the plain version rounds twice, which can flip a bf16
-    rounding or leave an f32 residual where the plain sum cancels to 0."""
+def test_optimizer_kernels_with_16bit_state_match_plain(card, name, dtype):
+    """16-bit weights with state in their dtype (the `Trainer`'s state of
+    a bf16 or f16 model): the decay of the state rounds the scalar and the
+    product to that dtype in the kernel as in the plain version; state and
+    weights within one step of the dtype, and atol 2e-6 (as above): the
+    kernel fuses a multiply-add the plain version rounds twice, which can
+    flip a 16-bit rounding or leave an f32 residual where the plain sum
+    cancels to 0."""
     from mxnet_tpu_torch import optimizer as topt
     from mxnet_tpu_torch.ops import fused_optimizer as fo
     cls, kw = OPT_CASES[name]
     opt = getattr(topt, cls)(learning_rate=0.01, **kw)
     g = torch.Generator().manual_seed(7)
-    params = {n: torch.randn(k, generator=g).to(card, torch.bfloat16)
+    params = {n: torch.randn(k, generator=g).to(card, dtype)
               for n, k in (("a", 70001), ("b", 37))}
-    grads = {n: torch.randn(p.shape, generator=g).to(card, torch.bfloat16)
+    grads = {n: torch.randn(p.shape, generator=g).to(card, dtype)
              for n, p in params.items()}
     states = {n: tuple((0.1 * torch.rand(p.shape, generator=g)).to(
-        card, torch.bfloat16) for _ in opt.create_state(p))
+        card, dtype) for _ in opt.create_state(p))
         for n, p in params.items()}
     hp = {k: torch.tensor(v, device=card) for k, v in (
         ("lr", 0.01), ("wd", 0.01), ("rescale_grad", 0.5), ("t", 3.0))}
@@ -1489,16 +1538,14 @@ def test_optimizer_kernels_with_16bit_state_match_plain(card, name):
     fo.apply_updates(opt, params, grads, states, hp, use_kernel=True)
     torch.cuda.synchronize()
     for n in params:
-        torch.testing.assert_close(params[n].float(), want_p[n].float(),
-                                   rtol=2 ** -7, atol=2e-6)
+        _close16(params[n], want_p[n])
         for a, b in zip(states[n], want_s[n]):
-            assert a.dtype == torch.bfloat16, n
-            torch.testing.assert_close(a.float(), b.float(), rtol=2 ** -7,
-                                       atol=2e-6)
+            assert a.dtype == dtype, n
+            _close16(a, b)
 
 
 # the chunk rules after Adam, AdamW and SGD: (class, kwargs, state slots
-# drawn positive -- the rules take their roots)
+# drawn positive -- the rules take their roots); and all nine
 CHUNK_RULES = {"nag": ("NAG", {}, ()),
                "signum": ("Signum", {"momentum": 0.0, "wd_lh": 0.01}, ()),
                "signum_momentum": ("Signum", {"wd_lh": 0.01}, ()),
@@ -1506,15 +1553,19 @@ CHUNK_RULES = {"nag": ("NAG", {}, ()),
                "adamax": ("Adamax", {}, (1,)),
                "adadelta": ("AdaDelta", {}, (0, 1)),
                "ftml": ("FTML", {}, (0, 1))}
+ALL_CHUNK_RULES = dict(CHUNK_RULES, adam=("Adam", {}, (1,)),
+                       adamw=("AdamW", {}, (1,)), sgd=("SGD", {}, ()),
+                       sgd_momentum=("SGD", {"momentum": 0.9}, ()))
 
 
 def _chunk_tree(card, name, wdtype, sdtype, seed):
     """Leaves of 70001, 1000, 37 and 8 elements (the last f32: a second
-    dtype group for bf16 weights), weights N(0, 1), gradients N(0, 9), the
-    rule's state in `sdtype` (positive where it takes a root, else
-    N(0, 0.01))."""
+    dtype group for 16-bit weights), weights N(0, 1), gradients N(0, 9),
+    the rule's state in `sdtype` (positive where it takes a root, else
+    N(0, 0.01)); the f32 leaf's state stays f32 beside f16 state (no path
+    pairs f32 weights with f16 state)."""
     from mxnet_tpu_torch import optimizer as topt
-    cls, kw, pos = CHUNK_RULES[name]
+    cls, kw, pos = ALL_CHUNK_RULES[name]
     opt = getattr(topt, cls)(learning_rate=0.01, **kw)
     g = torch.Generator().manual_seed(seed)
     sizes = {"a": 70001, "b": 1000, "c": 37, "d": 8}
@@ -1525,7 +1576,9 @@ def _chunk_tree(card, name, wdtype, sdtype, seed):
              for n, p in params.items()}
     states = {n: tuple(
         (torch.rand(p.shape, generator=g) + 0.5 if k in pos
-         else 0.1 * torch.randn(p.shape, generator=g)).to(card, sdtype)
+         else 0.1 * torch.randn(p.shape, generator=g)).to(
+            card, torch.float32 if sdtype == torch.float16 and
+            p.dtype == torch.float32 else sdtype)
         for k, _ in enumerate(opt.create_state(p)))
         for n, p in params.items()}
     hp = {k: torch.tensor(v, device=card) for k, v in (
@@ -1544,6 +1597,21 @@ def test_chunk_rules_match_plain(card, name, wdtype, sdtype):
     within atol 2e-6 and rtol 1e-6 (the kernel fuses multiply-adds the
     plain version rounds twice; FTML's d reaches ~1e3), 16-bit values
     within one bf16 step."""
+    _check_chunk_rule(card, name, wdtype, sdtype)
+
+
+@pytest.mark.parametrize("sdtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("name", sorted(ALL_CHUNK_RULES))
+def test_chunk_rules_over_f16_weights_match_plain(card, name, sdtype):
+    """Every chunk rule over f16 weights with f32 state (`TrainStep`) and
+    with f16 state (the `Trainer`): the kernel's (f16, f32) and (f16, f16)
+    instantiations against `kernel_plain`, one launch per dtype group
+    counted under float16 (and float32 for the f32 leaf), 16-bit values
+    within one f16 step (2**-10 of the value)."""
+    _check_chunk_rule(card, name, torch.float16, sdtype)
+
+
+def _check_chunk_rule(card, name, wdtype, sdtype):
     from mxnet_tpu_torch.ops import fused_optimizer as fo
     opt, params, grads, states, hp = _chunk_tree(card, name, wdtype,
                                                  sdtype, seed=11)
@@ -1560,11 +1628,14 @@ def test_chunk_rules_match_plain(card, name, wdtype, sdtype):
         assert len(got) == 1 + fo._SLOTS[fo._chunk_rule(opt)]
         for a, b in zip(got, want):
             assert a.dtype == b.dtype, n
-            if a.dtype == torch.bfloat16:
-                torch.testing.assert_close(a.float(), b.float(),
-                                           rtol=2 ** -7, atol=2e-6)
+            if a.dtype in STEP16:
+                _close16(a, b)
             else:
                 torch.testing.assert_close(a, b, rtol=1e-6, atol=2e-6)
+    if wdtype == torch.float16:
+        assert kernels.DTYPE_LAUNCHES == {
+            ("fused_optimizer_chunk", "float16"): 1,
+            ("fused_optimizer_chunk", "float32"): 1}
 
 
 @pytest.mark.parametrize("name", sorted(CHUNK_RULES))
@@ -1631,7 +1702,8 @@ def _lamb_hp(card):
     return hp
 
 
-@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16,
+                                    torch.float16])
 @pytest.mark.parametrize("kw", [{}, {"lower_bound": 5.0, "upper_bound": 20.0,
                                      "bias_correction": False}])
 def test_lamb_phase_a_once_per_group_matches_plain(card, wdtype, kw):
@@ -1654,18 +1726,16 @@ def test_lamb_phase_a_once_per_group_matches_plain(card, wdtype, kw):
         fo.apply_updates(opt, p, grads, s, hp, use_kernel=True)
         torch.cuda.synchronize()
         counts = kernels.launch_counts()
-        groups = 2 if wdtype == torch.bfloat16 else 1
+        groups = 1 if wdtype == torch.float32 else 2
         assert counts["lamb_phase_a"] == counts["lamb_phase_b"] == groups
+        assert kernels.DTYPE_LAUNCHES[
+            ("lamb_phase_a", str(wdtype)[6:])] == 1
         runs.append((p, s))
     (p, s), (p2, s2) = runs
     for n in params:
         assert torch.equal(p[n], p2[n]) and all(
             torch.equal(a, b) for a, b in zip(s[n], s2[n])), n
-        if p[n].dtype == torch.bfloat16:
-            torch.testing.assert_close(p[n].float(), want_p[n].float(),
-                                       rtol=2 ** -7, atol=2e-6)
-        else:
-            torch.testing.assert_close(p[n], want_p[n], rtol=0, atol=2e-6)
+        _close16(p[n], want_p[n])
         for a, b in zip(s[n], want_s[n]):
             torch.testing.assert_close(a, b, rtol=0, atol=2e-6)
     # skip: every weight and state bit unchanged (a NaN gradient too)
@@ -1683,7 +1753,8 @@ def _ulps(a, b):
     """Units in the last place between two tensors of one float dtype,
     element by element (the bit patterns as ordered integers)."""
     it, mag = {torch.float32: (torch.int32, 0x7fffffff),
-               torch.bfloat16: (torch.int16, 0x7fff)}[a.dtype]
+               torch.bfloat16: (torch.int16, 0x7fff),
+               torch.float16: (torch.int16, 0x7fff)}[a.dtype]
 
     def ordered(x):
         i = x.contiguous().view(it).long()
@@ -1714,7 +1785,8 @@ def _phase_b_tree(card, wdtype, seed):
     return params, grads, states
 
 
-@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16,
+                                    torch.float16])
 def test_lamb_phase_b_within_one_ulp_of_float64(card, wdtype):
     """Phase B, one launch over the group: each weight within one unit in
     the last place of W of ``w - q * r`` computed on the host in float64
@@ -1760,7 +1832,8 @@ def test_lamb_phase_b_within_one_ulp_of_float64(card, wdtype):
         assert int(_ulps(got, want).max()) <= 1, n
 
 
-@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16,
+                                    torch.float16])
 def test_lamb_skip_keeps_every_weight_bit(card, wdtype):
     """``skip`` with a NaN and an inf in every leaf's gradient (so r holds
     NaNs on every path of phase B): every weight and state bit is kept,
@@ -1777,7 +1850,7 @@ def test_lamb_skip_keeps_every_weight_bit(card, wdtype):
     fo.apply_updates(opt, p, grads, s, _lamb_hp(card), use_kernel=True,
                      skip=torch.tensor(True, device=card))
     torch.cuda.synchronize()
-    groups = 2 if wdtype == torch.bfloat16 else 1
+    groups = 1 if wdtype == torch.float32 else 2
     assert kernels.launch_counts()["lamb_phase_b"] == groups
     for n in params:
         assert int(_ulps(p[n], params[n]).max()) == 0, n
@@ -1785,7 +1858,8 @@ def test_lamb_skip_keeps_every_weight_bit(card, wdtype):
             assert int(_ulps(a, b).max()) == 0, n
 
 
-@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16,
+                                    torch.float16])
 def test_lamb_on_two_streams(card, wdtype):
     """Two updates of two trees enqueued at once on two streams, each with
     its own scratch and tickets (phases A and B once a group each), give
@@ -1871,18 +1945,21 @@ def test_causal_flash_at_gpt_length_matches_plain(card, dtype, tol, rate):
                                      (4, 8, 1)])
 @pytest.mark.parametrize("ps,D,maxp", [(16, 64, 8), (24, 128, 14)])
 @pytest.mark.parametrize("one_page_a_split", [False, True])
+@pytest.mark.parametrize("pdt", [torch.bfloat16, torch.float16])
 def test_paged_attention_f32_queries_over_a_bf16_pool(card, C, H, Hkv, ps, D,
-                                                      maxp, one_page_a_split):
-    """A bf16 model's serving step: f32 queries over a bf16 pool.  K/V
-    widen to f32 as they load and the arithmetic is the f32 route's, so the
-    kernel stays within the f32 tolerance (1e-4 of the output scale) of the
-    plain version, which casts the gathered pool to f32; a query cast to
-    bf16 would land ~1e-2 off."""
+                                                      maxp, one_page_a_split,
+                                                      pdt):
+    """A 16-bit model's serving step: f32 queries over a bf16 pool (type
+    2) or an f16 pool (type 5).  K/V widen to f32 as they load and the
+    arithmetic is the f32 route's, so the kernel stays within the f32
+    tolerance (1e-4 of the output scale) of the plain version, which casts
+    the gathered pool to f32; a query cast to 16 bits would land ~1e-2
+    (bf16) or ~1e-3 (f16) off.  Launches count under the pool's dtype."""
     q, kp, vp, pt, ctx, start = _rpa_inputs(
         card, torch.float32, C, H, Hkv, D, ps, maxp, [0, 3 * ps + 5, 0],
         [C, C, 0])
-    kp, vp = kp.bfloat16(), vp.bfloat16()
-    plan = pa._plan(3, H, Hkv, C, D, ps, maxp, torch.bfloat16,
+    kp, vp = kp.to(pdt), vp.to(pdt)
+    plan = pa._plan(3, H, Hkv, C, D, ps, maxp, pdt,
                     kernels.sm_count(card))
     if one_page_a_split:
         plan = _with_span(plan, ps, maxp * ps, D)
@@ -1894,6 +1971,8 @@ def test_paged_attention_f32_queries_over_a_bf16_pool(card, C, H, Hkv, ps, D,
     ref = pa.paged_attention_reference(q, kp, vp, pt, ctx, start)
     torch.cuda.synchronize()
     assert kernels.launch_counts()["ragged_paged_attention"] == 2
+    assert kernels.DTYPE_LAUNCHES == {
+        ("ragged_paged_attention", str(pdt)[6:]): 2}
     assert out.dtype == torch.float32 and torch.equal(out, again)
     for b in range(2):                              # slot 2 is empty
         err = float((out[b] - ref[b]).abs().max())
@@ -1904,9 +1983,9 @@ def test_paged_attention_f32_queries_over_a_bf16_pool(card, C, H, Hkv, ps, D,
                                   ctx, start)
 
 
-def _gpt_step(card, remat, plain, seed=0):
+def _gpt_step(card, remat, plain, seed=0, dtype="bfloat16"):
     """A 2-layer GPT (hidden 128, D 64, L 256, vocab 1000, dropout 0.1) in
-    bf16 through `TrainStep` with AdamW on the kernel route; ``plain``
+    `dtype` through `TrainStep` with AdamW on the kernel route; ``plain``
     builds the oracle on the plain versions (no launch)."""
     import os
     from mxnet_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
@@ -1920,7 +1999,7 @@ def _gpt_step(card, remat, plain, seed=0):
     from mxnet_tpu_torch.parallel import TrainStep
     cfg = GPTConfig(vocab_size=1000, hidden_size=128, num_layers=2,
                     num_heads=2, intermediate_size=256, max_position=256,
-                    dropout=0.1, dtype="bfloat16", remat=remat)
+                    dropout=0.1, dtype=dtype, remat=remat)
     model = GPTForCausalLM(cfg, device=card, seed=seed)
     xent = softmax_cross_entropy
     if plain:
@@ -2054,6 +2133,9 @@ def test_paged_attention_int8_pool_raises_by_name(card):
     with pytest.raises(MXNetError, match="v_scales must be float32"):
         pa.ragged_paged_attention(*args, k_scales=sc["k_scales"],
                                   v_scales=sc["v_scales"].half())
+    # f16 queries over an int8 pool: no serving path makes them
+    with pytest.raises(MXNetError, match="int8 pool under float16"):
+        pa.ragged_paged_attention(args[0].half(), *args[1:], **sc)
 
 
 @pytest.mark.parametrize("bits", [8, 4])
@@ -2113,6 +2195,103 @@ def test_int8_pool_engine_on_the_card(card, monkeypatch, bits, act):
             assert counts["quantized_matmul"] == 0 if act or not bits \
                 else counts["quantized_matmul"] > 0
     assert outs[False] == outs[True]
+
+
+# ---------------------------------------------------------------------------
+# float16 models: serving over an f16 pool, TrainStep over f16 weights, the
+# tuner's f16 keys
+# ---------------------------------------------------------------------------
+
+def test_f16_engine_on_the_card(card):
+    """A small f16 GPT served over an f16 pool on the card: K1 with f32
+    queries over the f16 pool (type 5) once a layer a fused step, counted
+    under float16, and the plain engine's greedy streams, token for
+    token."""
+    from mxnet_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    from mxnet_tpu_torch.serve import InferenceEngine, ServeConfig
+    cfg = GPTConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                    num_heads=4, intermediate_size=256, max_position=128,
+                    dropout=0.0, dtype="float16")
+    model = GPTForCausalLM(cfg, device=card, seed=0)
+    sc = ServeConfig(max_slots=4, page_size=16, prefill_chunk=16,
+                     max_len=96)
+    prompts = [list(range(3, 3 + n)) for n in (5, 40, 17, 64, 1)]
+    outs = {}
+    for plain in (False, True):
+        eng = InferenceEngine(model, sc, device=card, plain_ops=plain)
+        assert eng.pools.k.dtype == torch.float16
+        kernels.reset_launch_counts()
+        hs = [eng.submit(p, max_new_tokens=12) for p in prompts]
+        eng.run_until_idle()
+        outs[plain] = [h.result(timeout=0) for h in hs]
+        steps = eng.stats()["steps_executed"]
+        if plain:
+            assert not any(kernels.launch_counts().values())
+        else:
+            assert kernels.DTYPE_LAUNCHES == {
+                ("ragged_paged_attention", "float16"): 2 * steps}
+    assert outs[False] == outs[True]
+
+
+def test_f16_gpt_train_step_on_the_card(card):
+    """Three steps of a small f16 GPT through `TrainStep` on the kernel
+    route: f32 optimizer state, the chunk once over the f16 leaves and
+    once over the f32 LayerNorm group a step, flash, cross-entropy and the
+    norm in f16; the trajectory within 1e-3 of the plain oracle's (f16
+    weights without an f32 master copy: rounding apart, as bf16's)."""
+    g = torch.Generator().manual_seed(0)
+    stream = torch.randint(0, 1000, (2, 257), generator=g).to(card)
+    batch = (stream[:, :-1], stream[:, 1:])
+    runs = {}
+    for plain in (False, True):
+        model, step = _gpt_step(card, False, plain, dtype="float16")
+        assert {s.dtype for st in step.opt_state.values() for s in st} == \
+            {torch.float32}
+        assert {str(p.dtype) for p in model.parameters()} == \
+            {"torch.float16", "torch.float32"}
+        step.warmup(*batch)
+        kernels.reset_launch_counts()
+        runs[plain] = [float(step(*batch)) for _ in range(3)]
+        if plain:
+            assert not any(kernels.launch_counts().values())
+        else:
+            assert kernels.DTYPE_LAUNCHES == {
+                ("flash_attention_fwd", "float16"): 6,
+                ("flash_attention_bwd", "float16"): 6,
+                ("softmax_xent_fwd", "float16"): 3,
+                ("softmax_xent_bwd", "float16"): 3,
+                ("fused_norm", "float16"): 15,
+                ("fused_optimizer_chunk", "float16"): 3,
+                ("fused_optimizer_chunk", "float32"): 3}
+    np.testing.assert_allclose(runs[False], runs[True], rtol=1e-3)
+    assert runs[False][-1] < runs[False][0]
+
+
+def test_f16_tuning_keys_launch_the_f16_instantiations(card, tmp_path,
+                                                       monkeypatch):
+    """``tune`` under float16 keys: the chunk's trials launch (f16 leaves,
+    f32 moments), K2's ``int8_float16`` trials launch on f16 activations
+    and K1's page-size trials over an f16 pool, each counted under
+    float16."""
+    from mxnet_tpu_torch.ops import autotune as at
+    monkeypatch.setenv("MXTPU_AUTOTUNE_CACHE", str(tmp_path))
+    at.clear_memory_cache()
+    try:
+        for kind, shape, key, name in (
+                ("fused_optimizer", (300_001,), "float16",
+                 "fused_optimizer_chunk"),
+                ("quantized_matmul", (8, 2304, 768), "int8_float16",
+                 "quantized_matmul"),
+                ("paged_attention", (8, 12, 12, 64, 512), "float16",
+                 "ragged_paged_attention")):
+            kernels.reset_launch_counts()
+            res = at.tune(kind, shape, key)
+            assert res.trials > 0 and not res.cache_hit, kind
+            assert kernels.DTYPE_LAUNCHES.get((name, "float16"), 0) > 0, \
+                (kind, kernels.DTYPE_LAUNCHES)
+            assert set(kernels.DTYPE_LAUNCHES) == {(name, "float16")}, kind
+    finally:
+        at.clear_memory_cache()
 
 
 def test_loss_scaler_sees_inf_and_nan_on_the_card(card):

@@ -9,7 +9,10 @@ B) over the JAX test's leaf zoo (sizes 1000, 37 and 8), with random
 moments: atol 2e-6 on f32 weights and state (the JAX kernel test's own
 bound; summation order of LAMB's norms).  bf16 weights may land one bf16
 step apart where the two f32 results straddle a rounding boundary, so they
-are held to rtol 2**-7 (one bf16 step at most).
+are held to rtol 2**-7 (one bf16 step at most).  f16 leaves (f32 or f16
+state) are held to JAX's reference route bit for bit, but for LAMB's
+kernel route (its f32 trust ratio: one f16 step plus 2**-10 of the
+update).
 """
 import pathlib
 import re
@@ -307,6 +310,136 @@ def test_16bit_state_rounds_the_decay_as_jax(name):
 
 
 # ---------------------------------------------------------------------------
+# float16 leaves: the nine chunk rules and LAMB
+# ---------------------------------------------------------------------------
+
+# the chunk kernel's nine rules (JAX's ``fused_elementwise`` optimizers,
+# SGD and Signum each with and without momentum) and the state slots drawn
+# positive (the rules take their roots)
+CHUNK_RULES = {
+    "adam": ("Adam", dict(learning_rate=0.01, epsilon=1e-6), (1,)),
+    "adamw": ("AdamW", dict(learning_rate=0.01, epsilon=1e-6), (1,)),
+    "sgd": ("SGD", dict(learning_rate=0.01), ()),
+    "sgd_momentum": ("SGD", dict(learning_rate=0.01, momentum=0.9), ()),
+    "nag": ("NAG", dict(learning_rate=0.01, momentum=0.9), ()),
+    "signum": ("Signum", dict(learning_rate=0.01, momentum=0.0,
+                              wd_lh=0.01), ()),
+    "signum_momentum": ("Signum", dict(learning_rate=0.01, momentum=0.9,
+                                       wd_lh=0.01), ()),
+    "adabelief": ("AdaBelief", dict(learning_rate=0.01), (1,)),
+    "adamax": ("Adamax", dict(learning_rate=0.01), (1,)),
+    "adadelta": ("AdaDelta", dict(learning_rate=1.0), (0, 1)),
+    "ftml": ("FTML", dict(learning_rate=0.01), (0, 1)),
+    "lamb": ("LAMB", dict(learning_rate=0.01), (1,)),
+}
+
+
+def _f16_update(name, sdt, seed=4):
+    """JAX's reference route and the port's two routes over the zoo in f16
+    weights and gradients with state in `sdt` (every value an f16 value on
+    both sides): (jax params, jax states, [(use_kernel, port params, port
+    states)], the zoo's weights)."""
+    cls, kw, pos = CHUNK_RULES[name]
+    jo, to = getattr(jopt, cls)(**kw), getattr(topt, cls)(**kw)
+    rng = np.random.RandomState(seed)
+    zoo = {}
+    for n, size in SIZES:
+        w = rng.randn(size).astype(np.float16)
+        g = (3.0 * rng.randn(size)).astype(np.float16)
+        st = tuple(np.asarray(rng.rand(size) + 0.5 if k in pos
+                              else 0.1 * rng.randn(size), np.float16)
+                   for k, _ in enumerate(to.create_state(torch.zeros(size))))
+        zoo[n] = (w, g, st)
+    hp = _hp(None)
+    jp, js = jfo.apply_updates(
+        jo, {n: jnp.asarray(z[0]) for n, z in zoo.items()},
+        {n: jnp.asarray(z[1]) for n, z in zoo.items()},
+        {n: tuple(jnp.asarray(x, sdt) for x in z[2])
+         for n, z in zoo.items()},
+        {k: None if v is None else jnp.float32(v) for k, v in hp.items()},
+        use_kernel=False)
+    runs = []
+    for use_kernel in (True, False):
+        tp, ts = tfo.apply_updates(
+            to, {n: torch.from_numpy(z[0].copy()) for n, z in zoo.items()},
+            {n: torch.from_numpy(z[1].copy()) for n, z in zoo.items()},
+            {n: tuple(torch.from_numpy(x.copy()).to(getattr(torch, sdt))
+                      for x in z[2]) for n, z in zoo.items()},
+            _torch_hp(hp), use_kernel=use_kernel)
+        runs.append((use_kernel, tp, ts))
+    return jp, js, runs, {n: z[0] for n, z in zoo.items()}
+
+
+@pytest.mark.parametrize("sdt", ["float32", "float16"])
+@pytest.mark.parametrize("name", sorted(set(CHUNK_RULES) - {"lamb"}))
+def test_f16_chunk_rules_match_jax_reference_bit_for_bit(name, sdt):
+    """f16 weights with f32 state (`TrainStep`'s ``_master_dtype``) and
+    with f16 state (the `Trainer`'s, JAX's ``multi_precision=False``),
+    every chunk rule: the kernel route's plain version -- what the CUDA
+    chunk kernel is held to on the card -- and the reference route both
+    equal JAX's reference route (``apply_updates(use_kernel=False)``) bit
+    for bit, weights and state, each in its stored dtype.  The decay of an
+    f16 state rounds the scalar and the product to f16, as JAX's weak
+    scalars do; JAX's interpreted chunk kernel is not the reference here
+    (ROADMAP.md C: its interpreter is not bit-faithful in 16 bits)."""
+    jp, js, runs, _ = _f16_update(name, sdt)
+    for use_kernel, tp, ts in runs:
+        for n in tp:
+            assert tp[n].dtype == torch.float16, (use_kernel, n)
+            np.testing.assert_array_equal(tp[n].numpy(), np.asarray(jp[n]),
+                                          err_msg=f"{use_kernel} {n}")
+            assert len(ts[n]) == len(js[n])
+            for a, b in zip(ts[n], js[n]):
+                assert str(a.dtype) == "torch." + str(b.dtype) == \
+                    "torch." + sdt
+                np.testing.assert_array_equal(a.numpy(), np.asarray(b),
+                                              err_msg=f"{use_kernel} {n}")
+
+
+@pytest.mark.parametrize("sdt", ["float32", "float16"])
+def test_f16_lamb_matches_jax_reference(sdt):
+    """LAMB over f16 leaves: the reference route equals JAX's bit for bit
+    (both round the trust ratio to the weight's f16); the kernel route,
+    whose ratio stays f32 as JAX's kernel keeps it, lands within one f16
+    step of the value (2**-10 of it) plus 2**-10 of the update, and its
+    state bit for bit."""
+    jp, js, runs, w0 = _f16_update("lamb", sdt, seed=5)
+    for use_kernel, tp, ts in runs:
+        for n in tp:
+            want = np.asarray(jp[n], np.float32)
+            got = tp[n].float().numpy()
+            assert tp[n].dtype == torch.float16
+            if use_kernel:
+                upd = np.abs(want - w0[n].astype(np.float32))
+                assert np.all(np.abs(got - want) <= 2.0 ** -10 * np.abs(want)
+                              + 2.0 ** -10 * upd + 2.0 ** -24), n
+            else:
+                np.testing.assert_array_equal(got, want, err_msg=n)
+            for a, b in zip(ts[n], js[n]):
+                assert str(a.dtype) == "torch." + sdt
+                np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_the_kernels_take_f16_and_raise_on_f64_by_name():
+    """The CUDA wrappers' leaf check (what a card launch runs first): f32,
+    bf16 and f16 leaves pass; a float64 or an integer leaf, or a gradient
+    in another dtype than its weight, raises `MXNetError` naming the
+    dtypes the kernels take (the card never gets such a leaf)."""
+    from mxnet_tpu_torch.base import MXNetError
+    cpu = torch.device("cpu")
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        w = torch.zeros(8, dtype=dt)
+        tfo._check_leaf("w", w, w.clone(), (torch.zeros(8),), cpu)
+        assert tfo._DTYPES[dt] == {torch.float32: 0, torch.bfloat16: 1,
+                                   torch.float16: 2}[dt]
+    for w, g in ((torch.zeros(8, dtype=torch.float64),) * 2,
+                 (torch.zeros(8, dtype=torch.int32),) * 2,
+                 (torch.zeros(8, dtype=torch.float16), torch.zeros(8))):
+        with pytest.raises(MXNetError, match="float32, bfloat16 or float16"):
+            tfo._check_leaf("w", w, g, (), cpu)
+
+
+# ---------------------------------------------------------------------------
 # LAMB phase A's leaf table (no card needed)
 # ---------------------------------------------------------------------------
 
@@ -331,7 +464,8 @@ def _bert_base_leaves(dtype):
     return out
 
 
-@pytest.mark.parametrize("dtype,n_groups", [("float32", 1), ("bfloat16", 2)])
+@pytest.mark.parametrize("dtype,n_groups", [("float32", 1), ("bfloat16", 2),
+                                            ("float16", 2)])
 def test_lamb_table_covers_every_element_of_bert_base_once(dtype, n_groups):
     """`_lamb_layout` over the groups of BERT-base's real leaves: every
     element of every leaf in exactly one block entry, the r offsets
@@ -481,7 +615,8 @@ def _check_walk(numels, aligned, per_sm=8, sms=132, chunk=tfo.LAMB_CHUNK):
 
 
 @pytest.mark.parametrize("grid", [(8, 132), (5, 132), (1, 7)])
-@pytest.mark.parametrize("dtype,n_groups", [("float32", 1), ("bfloat16", 2)])
+@pytest.mark.parametrize("dtype,n_groups", [("float32", 1), ("bfloat16", 2),
+                                            ("float16", 2)])
 def test_lamb_phase_b_walk_writes_bert_base_once(dtype, n_groups, grid):
     """Phase B's grid-stride walk of each BERT-base group's codes (at the
     H100's 132 SMs with 8 or 5 blocks each, and at 7 blocks): every element

@@ -20,8 +20,10 @@ Tolerances: f32 logits, every gradient of the causal-LM loss, losses and
 weights after three `TrainStep` / five `Trainer` steps at atol/rtol 1e-4
 (a dozen products deep, summation order differs); remat against no remat
 at rtol 1e-5 (JAX's own limit, ``test_models.py:328``; the port
-recomputes the same bits); bf16 logits within 2e-2 of their scale; greedy
-streams token for token.
+recomputes the same bits); bf16 logits within 2e-2 of their scale, f16
+ones within 5e-3; three f16 `TrainStep` steps' losses at rtol 1e-4 and
+weights within two learning rates (see the test); greedy streams token
+for token.
 """
 import contextlib
 
@@ -414,11 +416,13 @@ def test_sampled_generate_without_cache_draws_from_the_generator():
 
 
 # ---------------------------------------------------------------------------
-# the repairs: f32 norms in a bf16 GPT, layer_norm_eps
+# the repairs: f32 norms in a bf16 or f16 GPT, layer_norm_eps
 # ---------------------------------------------------------------------------
 
-def test_bf16_gpt_carries_over_with_f32_layer_norms():
-    jm, tm = _pair("bfloat16")
+def _check_16bit_carry_over(dtype):
+    """A 16-bit JAX GPT carried over by `load_jax_params`: every leaf's
+    dtype and value as JAX keeps it, f32 LayerNorm gains and biases."""
+    jm, tm = _pair(dtype)
     params = _jax_params(jm)
     norms = 0
     for name, p in tm.named_parameters():
@@ -429,7 +433,7 @@ def test_bf16_gpt_carries_over_with_f32_layer_norms():
         norms += name.endswith(("gamma", "beta"))
     assert norms == 2 * (2 * SMALL["num_layers"] + 1)
     assert tm.transformer.final_norm.gamma.dtype == torch.float32
-    assert tm.transformer.word_embed.weight.dtype == torch.bfloat16
+    assert tm.transformer.word_embed.weight.dtype == getattr(torch, dtype)
     assert isinstance(tm.transformer.word_embed, tgpt.Embedding)
     # ids out of range clip to the table, as Gluon's nn.Embedding does
     ids = torch.tensor([[V + 5, -1, 3]])
@@ -437,6 +441,19 @@ def test_bf16_gpt_carries_over_with_f32_layer_norms():
         np.testing.assert_array_equal(
             tm.transformer.word_embed(ids)[0, :2].float().numpy(),
             tm.transformer.word_embed.weight[[V - 1, 0]].float().numpy())
+
+
+def test_bf16_gpt_carries_over_with_f32_layer_norms():
+    _check_16bit_carry_over("bfloat16")
+
+
+def test_f16_gpt_carries_over_with_f32_layer_norms():
+    """`GPTConfig(dtype="float16")`: f16 weights (numpy's float16 arrays
+    carried as they are) beside f32 LayerNorm parameters, as JAX keeps
+    them; an unknown dtype still raises by name."""
+    _check_16bit_carry_over("float16")
+    with pytest.raises(MXNetError, match="unsupported model dtype"):
+        tgpt.torch_dtype("float64")
 
 
 def test_bf16_forward_promotes_as_jax_does(monkeypatch, interpret):
@@ -452,6 +469,61 @@ def test_bf16_forward_promotes_as_jax_does(monkeypatch, interpret):
     assert got.dtype == torch.float32 and want.dtype == np.float32
     want = want.asnumpy()
     assert np.abs(got.numpy() - want).max() <= 2e-2 * np.abs(want).max()
+
+
+def test_f16_forward_promotes_as_jax_does(route):
+    """An f16 GPT's logits take JAX's dtype on each route: f32 after the
+    first LayerNorm's f32 gain on the reference route, x's f16 on the
+    kernel route (the fused norm returns x's dtype); within 5e-3 of their
+    scale (f16 keeps 11 bits; a dozen products deep)."""
+    jm, tm = _pair("float16")
+    ids, _ = _stream()
+    want = jm(mx.np.array(ids))
+    with torch.no_grad():
+        got = tm(torch.from_numpy(ids))
+    dt = "float32" if route == "reference" else "float16"
+    assert str(got.dtype) == "torch." + dt and str(want.dtype) == dt
+    want = want.asnumpy().astype(np.float32)
+    assert np.abs(got.float().numpy() - want).max() <= \
+        5e-3 * np.abs(want).max()
+
+
+def test_three_f16_train_steps_match_jax(route):
+    """Three AdamW steps of the f16 GPT through `TrainStep` against JAX's
+    `make_sharded_train_step` on each route: f32 optimizer state for the
+    f16 weights on both sides (``_master_dtype``; the kernel route runs
+    the chunk kernel over (f16 weights, f32 state) and the f32 LayerNorm
+    group), losses within 1e-4 relative (measured 2.1e-5), every leaf in
+    its dtype, weights within two learning rates: Adam's early steps are
+    about lr each whatever the gradient's size, so a near-zero gradient
+    that f16 rounds to the other sign on one side moves a weight up to
+    2 lr away (measured 3.9e-3 at lr 3e-3, the QKV key bias).  epsilon
+    1e-6 as the f32 test."""
+    jm, tm = _pair("float16")
+    kw = dict(learning_rate=3e-3, wd=0.1, epsilon=1e-6)
+    mesh = make_mesh({"dp": 1}, jax.devices()[:1])
+    jstep = make_sharded_train_step(jm, jopt.AdamW(**kw), _jax_loss, mesh,
+                                    num_model_args=1)
+    tstep = TrainStep(tm, AdamW(**kw), _torch_loss, num_model_args=1)
+    assert {s.dtype for st in tstep.opt_state.values() for s in st} == \
+        {torch.float32}
+    ids, lab = _stream()
+    jl = [float(jstep(mx.np.array(ids), mx.np.array(lab)))
+          for _ in range(3)]
+    tl = [float(tstep(ids, lab)) for _ in range(3)]
+    jstep.sync_params_to_block()
+    assert tstep._fused_opt_kernel == jstep._fused_opt_kernel == \
+        (route == "kernel")
+    np.testing.assert_allclose(tl, jl, rtol=1e-4)
+    assert tl[-1] < tl[0]
+    jp = jm.collect_params()
+    for name, p in tm.named_parameters():
+        want = jp[name].data().asnumpy()
+        assert str(p.dtype) == "torch." + str(want.dtype), name
+        np.testing.assert_allclose(p.detach().float().numpy(),
+                                   want.astype(np.float32), rtol=0,
+                                   atol=2 * kw["learning_rate"],
+                                   err_msg=name)
 
 
 @pytest.mark.parametrize("eps", [1e-3, 0.5])
@@ -524,6 +596,29 @@ def test_bf16_generate_and_engine_streams_match_jax_engine():
     jeng = JEngine(jm, JServeConfig(**BF16_SC))
     teng = InferenceEngine(tm, ServeConfig(**BF16_SC), device="cpu")
     assert teng.pools.k.dtype == torch.bfloat16
+
+    def serve(engine):
+        hs = [engine.submit(p, max_new_tokens=6) for p in prompts]
+        engine.run_until_idle()
+        return [h.result(timeout=0) for h in hs]
+    jout, tout = serve(jeng), serve(teng)
+    assert tout == jout
+    for prompt, got in zip(prompts, tout):
+        gen = tm.generate(torch.tensor([prompt]), 6)
+        assert gen[0].tolist() == got
+
+
+def test_f16_generate_and_engine_streams_match_jax_engine():
+    """f16 serving computes in f32 after the first LayerNorm, over an f16
+    pool (K/V rounded into it as JAX's ``.astype`` rounds): the port's
+    engine streams equal JAX's f16 engine's, and the port's dense-cache
+    `generate` (K/V cast into an f16 cache) equals both.  JAX's own f16
+    dense-cache `generate` raises, as its bf16 one does."""
+    jm, tm = _pair("float16")
+    prompts = [[3, 9, 1, 7, 2], [5], [10, 20, 30, 40, 50, 60, 70]]
+    jeng = JEngine(jm, JServeConfig(**BF16_SC))
+    teng = InferenceEngine(tm, ServeConfig(**BF16_SC), device="cpu")
+    assert teng.pools.k.dtype == torch.float16
 
     def serve(engine):
         hs = [engine.submit(p, max_new_tokens=6) for p in prompts]

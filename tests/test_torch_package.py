@@ -160,6 +160,28 @@ def test_kernel_sources_and_counters():
     assert set(kernels.launch_counts().values()) == {0}
 
 
+def test_split_sources_build_one_library_a_part():
+    """The flash source builds once per input type and K1's once per
+    query width (`kernels.SPLITS`): every K1 `types` code is in exactly
+    one part's bit mask, the part of its query's dtype (`_LIBRARY`)."""
+    import re
+    from mxnet_tpu_torch.ops import paged_attention as pa
+    libs = kernels._libraries()
+    assert {n for n, (src, _) in libs.items()
+            if src == "paged_attention"} == {"paged_attention_q32",
+                                             "paged_attention_q16"}
+    assert {n for n, (src, _) in libs.items()
+            if src == "flash_attention"} == {
+        "flash_attention_f32", "flash_attention_bf16", "flash_attention_f16"}
+    masks = {n: int(re.fullmatch(r"-DMXT_RPA_TYPES=(\d+)", flags[0])[1])
+             for n, (src, flags) in libs.items()
+             if src == "paged_attention"}
+    for (pool, q), code in pa._TYPES.items():
+        owners = [n for n, m in masks.items() if m >> code & 1]
+        assert owners == [pa._LIBRARY[q]], (pool, q, code)
+    assert sum(masks.values()) == 2 ** len(pa._TYPES) - 1
+
+
 def test_dispatch_refuses_other_devices():
     q = torch.zeros(1, 2, 1, 8, device="meta")
     pool = torch.zeros(2, 8, 2, 8, device="meta")

@@ -6,7 +6,9 @@ atol/rtol 1e-5 in float32 — both sides compute the same f32 arithmetic and
 differ only in summation order.  Only valid rows (chunk rows below a slot's
 token count) are compared: padded rows are garbage by contract.  Over an
 int8 pool (the JAX package's `quantize_kv` planes and scales handed to
-both) the references agree within 1e-5 of the output's scale.
+both) the references agree within 1e-5 of the output's scale; over an f16
+pool within 1e-5 of it under f32 queries and 5e-3 under f16 queries (p
+and the products round to f16).
 """
 import numpy as np
 import pytest
@@ -255,6 +257,79 @@ def test_int8_pool_checks_raise_by_name():
         tpa._check(tq_, kq, vq.bfloat16(), tpt, tctx, tst, ks, vs)
 
 
+# f16 pools: f32 queries (an f16 model's serving step, whose activations
+# are f32 after the first LayerNorm: K1 type 5) and f16 queries (JAX's
+# kernel on f16 inputs: type 6)
+F16_CASES = [pytest.param(qdt, C, H, Hkv, window,
+                          id=f"{qdt}-C{C}-H{H}kv{Hkv}-w{window}")
+             for qdt in ("float32", "float16") for C in (1, 5, 8)
+             for (H, Hkv) in ((4, 4), (4, 1)) for window in (None, 3)]
+
+
+@pytest.mark.parametrize("qdt,C,H,Hkv,window", F16_CASES)
+def test_f16_pool_reference_matches_jax(qdt, C, H, Hkv, window,
+                                        monkeypatch):
+    """The plain K1 (the CPU dispatch) over f16 pools against JAX's
+    reference on the same f16 pages: f32 queries read the pages widened
+    to f32 (within 1e-5 of the output's scale: the same f32 arithmetic in
+    another summation order); f16 queries compute as JAX's f16 dense
+    attention does, p rounded to f16 (within 5e-3 of the scale), and the
+    same against JAX's Pallas kernel in interpret mode.  The output takes
+    the query's dtype."""
+    monkeypatch.setenv("MXTPU_PALLAS_INTERPRET", "1")
+    B, D, ps, npages, maxp = 4, 16, 8, 24, 5
+    start = [0, 13, 29, 0]
+    nt = [C, max(1, C - 3), 1, 0]
+    q, kp, vp, pt, ctx, st, nt = _inputs(11, B, H, Hkv, C, D, ps, npages,
+                                         maxp, start, nt)
+    q = q.astype(qdt)
+    kp, vp = kp.astype(np.float16), vp.astype(np.float16)
+    out = tpa.ragged_paged_attention(*_torch(q, kp, vp, pt, ctx, st),
+                                     window=window)
+    assert str(out.dtype) == "torch." + qdt
+    wants = [jpa.paged_attention_reference(*_jax(q, kp, vp, pt, ctx, st),
+                                           window=window)]
+    if qdt == "float16":
+        wants.append(jpa.ragged_paged_attention(
+            *_jax(q, kp, vp, pt, ctx, st), window=window, use_kernel=True))
+    tol = 1e-5 if qdt == "float32" else 5e-3
+    got = out.float().numpy()
+    for want in wants:
+        assert str(want.dtype) == qdt
+        want = np.asarray(want, np.float32)
+        scale = max(float(np.abs(want[b, :, :n]).max())
+                    for b, n in enumerate(nt) if n)
+        for b, n in enumerate(nt):
+            err = np.abs(got[b, :, :n] - want[b, :, :n])
+            assert err.size == 0 or float(err.max()) <= tol * scale
+
+
+def test_f16_types_and_the_int8_pool_under_f16_queries(monkeypatch):
+    """The kernel's checks take f16 pools under f32 queries (type 5) and
+    f16 queries over f16 pools (type 6), each from the library of its
+    query's width; an int8 pool under f16 queries, which no serving path
+    makes, raises by name, as do float64 queries and an f16 pool under
+    bf16 queries."""
+    from mxnet_tpu_torch.base import MXNetError
+    q, kp, vp, pt, ctx, st, _ = _inputs(6, 1, 2, 2, 1, 8, 8, 4, 1, [0], [1])
+    tq_, tk, tv, tpt, tctx, tst = _torch(q, kp, vp, pt, ctx, st)
+    h = torch.float16
+    assert tpa._TYPES[h, torch.float32] == 5 and tpa._TYPES[h, h] == 6
+    assert tpa._LIBRARY[torch.float32] == "paged_attention_q32"
+    assert tpa._LIBRARY[h] == tpa._LIBRARY[torch.bfloat16] == \
+        "paged_attention_q16"
+    monkeypatch.setattr(tpa._kernels, "sm_count", lambda device: 132)
+    for qq, pool in ((tq_, tk.half()), (tq_.half(), tk.half())):
+        assert tpa._check(qq, pool, pool, tpt, tctx, tst).row_tile == 1
+    kq, ks, vq, vs = _torch(*_int8_pools(kp, vp))
+    with pytest.raises(MXNetError, match="int8 pool under float16"):
+        tpa._check(tq_.half(), kq, vq, tpt, tctx, tst, ks, vs)
+    with pytest.raises(MXNetError, match="float32, bfloat16 or float16 q"):
+        tpa._check(tq_.double(), tk.double(), tv.double(), tpt, tctx, tst)
+    with pytest.raises(MXNetError, match="float16 pool under float32"):
+        tpa._check(tq_.bfloat16(), tk.half(), tv.half(), tpt, tctx, tst)
+
+
 def test_head_mismatch_raises():
     from mxnet_tpu_torch.base import MXNetError
     q, kp, vp, pt, ctx, st, _ = _inputs(5, 1, 3, 2, 1, 8, 8, 4, 1, [0], [1])
@@ -302,7 +377,8 @@ def test_plan_split_counts(maxp, ps, split):
 
 
 @pytest.mark.parametrize("ps", [8, 16, 24, 128])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("D", [64, 128, 256])
 def test_plan_spans_are_whole_pages(ps, dtype, D):
     for maxp in (1, 3, 32, 200, 5000):
@@ -339,6 +415,32 @@ def test_plan_of_an_int8_pool(C, H, Hkv, D):
             pf.variant, pf.row_tile, pf.groups)
         assert p8.span % 16 == 0 and p8.split == -(-maxp * 16 // p8.span)
         assert p8.span >= p8.warps * tpa.KEY_TILE or p8.split == 1
+
+
+@pytest.mark.parametrize("D", [24, 64, 256])
+def test_plan_of_an_f16_pool_is_the_bf16_pools(D):
+    """f16 rows are as wide as bf16's: an f16 pool's plan (rings, warps,
+    splits) is the bf16 pool's at every shape, by dtype or by name."""
+    for maxp in (1, 32, 256):
+        for C, H, Hkv in ((1, 12, 12), (5, 12, 3), (16, 12, 3)):
+            args = (8, H, Hkv, C, D, 16, maxp)
+            assert tpa._plan(*args, torch.float16, SMS) == \
+                tpa._plan(*args, torch.bfloat16, SMS) == \
+                tpa._plan(*args, "float16", SMS)
+
+
+def test_f16_tuning_key_times_f16_inputs():
+    """``tune("paged_attention", ..., "float16")`` times K1 over f16 queries
+    and an f16 pool (the JAX package's build turns any 16-bit key into
+    bf16 inputs); "bfloat16" keeps bf16 and "float32" f32."""
+    cfg = at.BlockConfig(page_size=16)
+    for key, want in (("float16", torch.float16),
+                      ("bfloat16", torch.bfloat16),
+                      ("float32", torch.float32),
+                      (torch.float16, torch.float16)):
+        q, kp, vp, *_ = tpa._at_inputs(cfg, (2, 4, 4, 16, 40), key,
+                                       torch.device("cpu"))
+        assert q.dtype == kp.dtype == vp.dtype == want, key
 
 
 def test_plan_is_memoised():

@@ -6,7 +6,8 @@ half to even over the same f32 arithmetic.  The matmul is compared at
 rtol 1e-5 / atol 1e-6 in float32 (same dequantized weight, summation order
 differs).  The int8-activation path (``MXTPU_QUANT_ACT``) must give JAX's
 int8 activations and int32 sums bit for bit, and its outputs within 1e-6
-of their scale.
+of their scale.  f16 activations: the output in f16, within one f16 step
+of JAX's reference.
 """
 import numpy as np
 import pytest
@@ -91,6 +92,48 @@ def test_quantized_matmul_matches_jax_reference(bits, k):
 
 
 @pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("k", [32, 33])
+def test_f16_activations_match_jax_reference(bits, k):
+    """The plain K2 (the CPU dispatch) on f16 activations: the f32
+    product of the f16 values with the dequantized weight, rounded once to
+    f16 -- JAX's reference on the same inputs bit for bit but where the
+    two f32 sums straddle an f16 rounding (one f16 step, 2**-10 of the
+    value) -- and the output in x's f16, as JAX's (its kernel's
+    ``out_shape`` takes x's dtype)."""
+    rng = np.random.RandomState(4)
+    w = _weight(5, 24, k)
+    x = rng.randn(2, 5, k).astype(np.float16)
+    jq = jqm.quantize_weight(jnp.asarray(w), bits)
+    ref = jqm.quantized_matmul_reference(jnp.asarray(x.reshape(10, k)), jq)
+    tq = tqm.quantize_weight(torch.from_numpy(w), bits)
+    kernels.reset_launch_counts()
+    out = tqm.quantized_matmul(torch.from_numpy(x), tq)
+    assert out.dtype == torch.float16 and str(ref.dtype) == "float16"
+    assert kernels.launch_counts()["quantized_matmul"] == 0
+    got = out.reshape(10, 24).float().numpy()
+    want = np.asarray(ref, np.float32)
+    assert np.all(np.abs(got - want) <= 2.0 ** -10 * np.abs(want))
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_f16_tuning_key_round_trips(bits):
+    """The K2 tunable's key for f16 activations is ``int<bits>_float16``
+    and reads back as f16 (a key that does not end in bfloat16 used to
+    tune f32 activations), bf16's and f32's as before; the trial launch
+    builds its x in the key's dtype."""
+    from mxnet_tpu_torch.ops import autotune as at
+    for dt, key in ((torch.float16, f"int{bits}_float16"),
+                    (torch.bfloat16, f"int{bits}_bfloat16"),
+                    (torch.float32, f"int{bits}")):
+        assert tqm._tune_dtype(bits, dt) == key
+        assert tqm._x_dtype(key) == dt
+        assert tqm._bits_of(key) == bits
+    thunk = tqm._build(at.BlockConfig(variant=0, split=1), (8, 24, 32),
+                       f"int{bits}_float16")
+    assert thunk().dtype == torch.float16
+
+
+@pytest.mark.parametrize("bits", [8, 4])
 def test_gather_rows_and_nbytes_match_jax(bits):
     w = _weight(4, 10, 9)
     idx = np.array([[3, 0], [9, 3]], np.int32)
@@ -156,7 +199,8 @@ def test_routing_follows_the_kernel_policy(monkeypatch, mode, on_card):
 GPT2_SHAPES = [(2304, 768), (768, 768), (3072, 768), (768, 3072)]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("M", [1, 8, 16, 17, 128])
 @pytest.mark.parametrize("N,K", GPT2_SHAPES)

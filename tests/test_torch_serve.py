@@ -14,7 +14,10 @@ is initialised from a seed, its parameters are carried into the port with
   logit gap (over int8 K/V) is below 1e-4; the int8 planes after a prefill
   step equal JAX's in at least 99.9% of entries and never off by more than
   one, the scales within 1e-6 relative; pool bytes, page bytes and the auto
-  pool's bonus pages equal.
+  pool's bonus pages equal;
+- an f16 model over an f16 pool: the decode core's hidden state and
+  logits within 5e-3 of their scale, and the engine's streams (dense and
+  int8 weights) token for token against JAX's f16 engine.
 
 Sampled streams cannot match JAX's PRNG: they are held to determinism from
 the engine seed and to the top-k/top-p support.
@@ -48,11 +51,11 @@ VARIANTS = {"mha": {}, "gqa": {"num_kv_heads": 2}, "rope": {"rope": True}}
 _MODELS = {}
 
 
-def _pair(variant):
+def _pair(variant, dtype="float32"):
     """(jax model, port model) with identical weights, cached per variant
-    (built once per test process)."""
-    if variant not in _MODELS:
-        kw = dict(BASE, **VARIANTS[variant])
+    and dtype (built once per test process)."""
+    if (variant, dtype) not in _MODELS:
+        kw = dict(BASE, dtype=dtype, **VARIANTS[variant])
         mx.random.seed(7)
         jm = JGPT(JGPTConfig(**kw))
         jm.initialize(mx.init.Normal(0.2))
@@ -61,8 +64,8 @@ def _pair(variant):
                   for k, p in jm.collect_params().items()}
         tm = GPTForCausalLM(GPTConfig(**kw), device="cpu")
         load_jax_params(tm, params, device="cpu")
-        _MODELS[variant] = (jm, tm)
-    return _MODELS[variant]
+        _MODELS[variant, dtype] = (jm, tm)
+    return _MODELS[variant, dtype]
 
 
 def _jax_generate(jm, prompt, n):
@@ -144,6 +147,100 @@ def test_engine_streams_match_jax_engine_with_eviction(variant, bits):
         # ... and the unbatched dense-cache generate, on both sides
         for prompt, got in zip(PROMPTS, tout):
             assert got == _jax_generate(jm, prompt, 8)
+
+
+def test_f16_decode_core_logits_match_jax_over_an_f16_pool():
+    """An f16 model's decode core on one prefill chunk over an f16 paged
+    pool, as the engine runs it: f32 queries after the first LayerNorm's
+    f32 gain read K/V rounded into the f16 pool, on both sides; the hidden
+    state and the logits f32, within 5e-3 of their scale (f16 pages and
+    f16 weights widened into f32 products)."""
+    from mxnet_tpu.serve import kv_cache as jkv
+    from mxnet_tpu_torch.serve import kv_cache as tkv
+    jm, tm = _pair("gqa", "float16")
+    cfg = jm.cfg
+    Hkv = cfg.num_kv_heads or cfg.num_heads
+    D = cfg.hidden_size // cfg.num_heads
+    tok = np.array([[3, 9, 1, 7, 2, 55, 12], [8, 8, 1, 0, 96, 4, 31]],
+                   np.int32)
+    C = tok.shape[1]
+    pos = np.tile(np.arange(C, dtype=np.int32), (2, 1))
+    tables = np.array([[1, 2], [3, 4]], np.int32)
+    start = np.zeros(2, np.int32)
+    n = np.full(2, C, np.int32)
+    shape = (cfg.num_layers, 5, 4, Hkv, D)
+    jpools = {"k": jnp.zeros(shape, jnp.float16),
+              "v": jnp.zeros(shape, jnp.float16)}
+    jkv_fn = jkv.make_paged_kv_fn(jpools, jnp.asarray(tables),
+                                  jnp.asarray(start), jnp.asarray(n),
+                                  jnp.asarray(n), 4, False)
+    jP = jdecode.extract_decode_weights(jm)
+    jh = jdecode.transformer_step(jP, cfg, jnp.asarray(tok),
+                                  jnp.asarray(pos), jkv_fn)
+    jlog = np.asarray(jdecode.lm_logits(jP, jh))
+    pools = tkv.KVPools(cfg.num_layers, 5, 4, Hkv, D, torch.float16,
+                        torch.device("cpu"))
+    tkv_fn = tkv.make_paged_kv_fn(pools, torch.from_numpy(tables),
+                                  torch.from_numpy(start),
+                                  torch.from_numpy(n), torch.from_numpy(n))
+    tP = decode.extract_decode_weights(tm)
+    with torch.inference_mode():
+        th = decode.transformer_step(tP, tm.cfg, torch.from_numpy(tok),
+                                     torch.from_numpy(pos), tkv_fn)
+        tlog = decode.lm_logits(tP, th)
+    assert pools.k.dtype == torch.float16
+    assert th.dtype == tlog.dtype == torch.float32
+    assert np.asarray(jh).dtype == jlog.dtype == np.float32
+    for got, want in ((th.numpy(), np.asarray(jh)), (tlog.numpy(), jlog)):
+        assert np.abs(got - want).max() <= 5e-3 * np.abs(want).max()
+
+
+def test_f16_pool_write_rounds_as_jax_astype():
+    """The KV write into an f16 pool rounds f32 K/V once, to nearest even,
+    with +-inf past f16's range and no clamp -- JAX's ``.astype(float16)``
+    (numpy's cast, bit for bit), subnormals and halfway ties included."""
+    from mxnet_tpu_torch.serve import kv_cache as tkv
+    from mxnet_tpu_torch.ops.paged_attention import paged_attention_reference
+    rng = np.random.RandomState(3)
+    D, Hkv, C = 8, 2, 3
+    vals = np.concatenate([[7e4, -1e5, 65504.0, 65520.0, 1 + 2.0 ** -11,
+                            1 + 3 * 2.0 ** -11, 3e-8, -6e-8],
+                           rng.randn(Hkv * C * D - 8) * 100])
+    k = vals.astype(np.float32).reshape(1, Hkv, C, D)
+    v = (-k).copy()
+    pools = tkv.KVPools(1, 3, 4, Hkv, D, torch.float16, torch.device("cpu"))
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32)       # noqa: E731
+    kv = tkv.make_paged_kv_fn(pools, i32([[1, 2]]), i32([0]), i32([C]),
+                              i32([C]), attend=paged_attention_reference)
+    q = torch.zeros(1, Hkv, C, D)
+    kv(0, q, torch.from_numpy(k), torch.from_numpy(v))
+    got_k = pools.k[0, 1, :C].permute(1, 0, 2).numpy()
+    got_v = pools.v[0, 1, :C].permute(1, 0, 2).numpy()
+    with np.errstate(over="ignore"):         # inf past the range, as JAX
+        want_k, want_v = k[0].astype(np.float16), v[0].astype(np.float16)
+    np.testing.assert_array_equal(got_k.view(np.uint16),
+                                  want_k.view(np.uint16))
+    np.testing.assert_array_equal(got_v.view(np.uint16),
+                                  want_v.view(np.uint16))
+    assert np.isinf(got_k).sum() == 3
+
+
+@pytest.mark.parametrize("bits", [0, 8])
+def test_f16_engine_streams_match_jax_f16_engine(bits):
+    """An f16 model served over an f16 pool (the pool takes the model's
+    dtype on both sides), dense and with int8 weights, six requests with
+    an eviction: the streams equal JAX's f16 engine's token for token."""
+    jm, tm = _pair("mha", "float16")
+    jeng = JEngine(jm, JServeConfig(quant_bits=bits, **_SC))
+    teng = InferenceEngine(tm, ServeConfig(quant_bits=bits, **_SC),
+                           device="cpu")
+    assert teng.pools.k.dtype == torch.float16
+    assert teng.pools.nbytes() == jeng.pools.nbytes()
+    assert teng._page_nbytes() == jeng._page_nbytes(jeng._kv_dtype)
+    jout, jev = _serve_six(jeng)
+    tout, tev = _serve_six(teng)
+    assert jev >= 1 and tev >= 1
+    assert tout == jout
 
 
 def test_engine_auto_pool_bonus_pages_match_jax():
