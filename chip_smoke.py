@@ -12,8 +12,9 @@ widths (hidden 768, FFN 3072, 8 experts) through `TrainStep` and the gluon
 same with Mistral 7B's attention (RoPE, grouped K/V, a sliding window)
 and with Gemma 2B's (heads of 256 over one kv head, RoPE), serving with
 speculative decoding and the prefix cache plus beam search,
-the Transformer translation model (``transformer_base``), and the BERT-base
-step again under the rest of the optimizer family and its schedulers:
+the Transformer translation model (``transformer_base``), the BERT-base
+step again under the rest of the optimizer family and its schedulers, and
+the Gluon front end (BERT-base fine-tuned, an MLP quantized):
 
 1. prints the card (name and power limit from ``nvidia-smi``) and the
    torch / CUDA versions;
@@ -234,10 +235,16 @@ step again under the rest of the optimizer family and its schedulers:
    each remat run is within 1e-5 of the bf16 run without remat and lower
    in peak memory; two planted faults
    (every attention non-causal; a remat recompute that does not put the
-   dropout generators back) must depart by more than their limits.  Prints
-   tokens/s, step ms, TFLOP/s (``GPTForCausalLM.flops_per_token``: the
-   causal half counted, a mean key span of (L + 1) / 2) and the share of
-   the dense bf16 peak.
+   dropout generators back) must depart by more than their limits.  The
+   f16 run's step 1 is held to its oracle's (`gpt_step1_check`: the
+   update fed the same gradients, exact; the AdamW state in the L2 norm
+   within `gpt_step1_limit`); two f16 controls (`GPT_F16_FAULTS`: every
+   attention non-causal, AdamW without its bias correction) are reported
+   against the f16 trajectory limit and must fail the step-1 check; the
+   f16 model also trains on the reference route (statistics in f16): its
+   losses finite and falling.  Prints tokens/s, step ms, TFLOP/s
+   (``GPTForCausalLM.flops_per_token``: the causal half counted, a mean
+   key span of (L + 1) / 2) and the share of the dense bf16 peak.
 15. (gpt_gqa) the gpt phase's model, batch and optimizer with Mistral 7B's
    attention (Jiang et al. 2023, Table 1: grouped K/V, a one-sided
    sliding window, RoPE) at GPT-2 small's widths and 6 of its 12 layers
@@ -352,6 +359,27 @@ step again under the rest of the optimizer family and its schedulers:
    BERT's and GPT-2's shapes and at D 256 (`FLASH_F16`, f16 `XENT_SHAPES`)
    within 5e-3 of the output scale, beside SDPA and ``cross_entropy`` on
    the f16 inputs.
+21. (gluon) the Gluon front end: ``examples/bert_finetune.py``'s
+   ``BertClassifier`` over ``BertModel(bert_base())`` (full width and
+   depth, seed 0, N(0, 0.02), dropout 0.1), its backbone written by
+   ``save_parameters`` and read back by ``load_parameters`` bit for bit,
+   ``hybridize()``, 8 steps of 32 x 128 (valid_length in [102, 128])
+   under ``autograd.record`` with ``SoftmaxCrossEntropyLoss`` and
+   ``gluon.Trainer(net.collect_params(), "adam")`` with the layer-wise
+   ``lr_mult`` and a warm-up ``PolyScheduler``, ``metric.Accuracy`` and
+   ``metric.F1`` each step (held to numpy on the same predictions);
+   launches a step exact (flash 12 + 12, the norm 25, the cross-entropy
+   1 + 1, no chunk: the per-parameter route); losses and each weight
+   tensor (L2) within `traj_tol` of the same loop on the plain versions.
+   Then ``examples/quantization_int8.py``'s MLP at BERT's FFN widths
+   (768 -> 3072 -> LayerNorm -> 768 -> 2): 20 Adam steps through the
+   ``Trainer`` (the chunk, the norm and the cross-entropy once a step),
+   ``quantize_net`` after 4 calibration batches, naive then entropy: K2 3
+   times a forward, the output within 1e-4 of its scale of the same net on
+   the plain route, the f32 / int8 agreement printed; under
+   ``MXTPU_QUANT_ACT=1`` no K2.  Card cases no other phase has: the
+   cross-entropy at 2 and 3 classes, K2 at the MLP's three products
+   (timed beside cuBLAS and the bound) and at N = 2, K = 16.
 
 Every count is reset just before a run it reports and read just after.
 The last three stdout lines are the ``nvidia-smi`` card line, the
@@ -3806,6 +3834,10 @@ GPT_RUNS = (("bfloat16", False, "step"), ("float32", False, "step"),
 # REMAT_RTOL)
 GPT_FAULTS = ("attention_not_causal", "remat_without_generator_restore")
 GPT_FLOOR_X = 10     # a 16-bit run's limit: this many one-ulp floors
+# the f16 controls, each read against the f16 trajectory limit and by
+# `gpt_step1_check`: the bf16 controls' first fault (a forward fault), and
+# AdamW's update without its bias correction (an update fault)
+GPT_F16_FAULTS = ("attention_not_causal", "adamw_without_bias_correction")
 
 
 def gpt_tol(dtype, floor):
@@ -3855,7 +3887,7 @@ class _TrainerStep:
 
 
 def gpt_train_step(dev, dtype, plain=False, remat=False, entry="step",
-                   fault=None, nudge=False, arch=None):
+                   fault=None, nudge=False, arch=None, route="auto"):
     """`gpt_small` (GPT-2 small, seed 0, dropout 0.1) with the causal-LM
     loss (`gluon.loss.SoftmaxCrossEntropyLoss` over the (8192, V) logits)
     and AdamW lr 3e-4, weight decay 0.1, through `TrainStep` or the gluon
@@ -3868,7 +3900,10 @@ def gpt_train_step(dev, dtype, plain=False, remat=False, entry="step",
     `GPT_FAULTS`.  `nudge` moves one weight element (layer 0's FFN
     up-projection, element 0) by one unit in the last place: how far one
     rounding difference carries over the run.  `arch` adds `gpt_small`
-    arguments (the gpt_gqa phase's RoPE, grouped K/V and window)."""
+    arguments (the gpt_gqa phase's RoPE, grouped K/V and window).
+    ``route="reference"`` builds the step under ``MXTPU_PALLAS=reference``
+    (the model's own norms in the input dtype, the per-leaf update; flash
+    and the cross-entropy keep their kernels)."""
     import torch
     from mxnet_tpu_torch.gluon import Trainer
     from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
@@ -3913,8 +3948,9 @@ def gpt_train_step(dev, dtype, plain=False, remat=False, entry="step",
                     m.window = None
                 else:
                     m.causal = False
-    opt = AdamW(learning_rate=GPT_LR, wd=GPT_WD)
-    with pallas_mode("reference" if plain else "auto"):
+    opt = AdamW(learning_rate=GPT_LR, wd=GPT_WD,
+                correct_bias=fault != "adamw_without_bias_correction")
+    with pallas_mode("reference" if plain else route):
         if entry == "step":
             return model, TrainStep(model, opt, loss_fn, num_model_args=1,
                                     update=kernel_plain if plain else None)
@@ -3943,13 +3979,30 @@ def _zero_grad_share(step):
     return seen
 
 
+def _first_grads(step):
+    """Wrap `step`'s forward-and-backward so that its first call's
+    gradients are kept (on the host) in the dict it returns."""
+    kept = {}
+    inner = step._compute
+
+    def compute(batch):
+        loss, grads = inner(batch)
+        if not kept:
+            kept.update({n: g.detach().cpu() for n, g in grads.items()})
+        return loss, grads
+    step._compute = compute
+    return kept
+
+
 def gpt_run(dev, dtype, plain, batch, remat=False, entry="step",
-            fault=None, nudge=False, arch=None):
-    """`TRAIN_STEPS` steps of `gpt_train_step` under ``MXTPU_PALLAS=auto``
-    (``reference`` for the oracle), counts reset after warmup; returns its
-    stats and the step time.  An f16 `TrainStep` run also records the
-    share of f16 gradient elements that are zero after step 1's backward
-    (`_zero_grad_share`, before the timed steps)."""
+            fault=None, nudge=False, arch=None, route="auto", step1=False):
+    """`TRAIN_STEPS` steps of `gpt_train_step` under ``MXTPU_PALLAS=
+    route`` (``reference`` for the oracle), counts reset after warmup;
+    returns its stats and the step time.  An f16 `TrainStep` run also
+    records the share of f16 gradient elements that are zero after step
+    1's backward (`_zero_grad_share`, before the timed steps).  `step1`
+    keeps, under ``st["_step1"]``, the weights before step 1, the weights
+    and optimizer state after it and its gradients (`gpt_step1_check`)."""
     import torch
     from mxnet_tpu_torch import kernels
     from mxnet_tpu_torch.ops import flash_attention as fa
@@ -3998,8 +4051,8 @@ def gpt_run(dev, dtype, plain, batch, remat=False, entry="step",
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         model, step = gpt_train_step(dev, dtype, plain, remat, entry, fault,
-                                     nudge, arch)
-        with pallas_mode("reference" if plain else "auto"):
+                                     nudge, arch, route)
+        with pallas_mode("reference" if plain else route):
             before = model.generator.get_state()
             if entry == "step":
                 warm_s = step.warmup(*batch)
@@ -4010,11 +4063,22 @@ def gpt_run(dev, dtype, plain, batch, remat=False, entry="step",
                 warm_s = None
             zeros = _zero_grad_share(step) if dtype == "float16" and \
                 entry == "step" else None
+            grads1 = _first_grads(step) if step1 else None
             kernels.reset_launch_counts()
             losses = []
+            snap = None
+            if step1:     # kept on the host: later runs' peaks stay theirs
+                snap = [{n: p.detach().cpu()
+                         for n, p in model.named_parameters()}]
             for i in range(TRAIN_STEPS):
                 losses.append(step.dispatch(*batch) if entry == "trainer"
                               else step.dispatch(*batch).loss)
+                if i == 0 and snap is not None:
+                    snap += [{n: p.detach().cpu()
+                              for n, p in model.named_parameters()},
+                             {n: tuple(t.cpu() for t in st)
+                              for n, st in step.opt_state.items()},
+                             grads1]
                 if i == 1:        # time the steady steps 3..N
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
@@ -4035,7 +4099,84 @@ def gpt_run(dev, dtype, plain, batch, remat=False, entry="step",
               dtype_groups=groups, peak_mem_gb=peak)
     if zeros is not None:
         st["step1_zero_grad_share"] = zeros
+    if snap is not None:
+        st["_step1"] = snap
     return st, step_s
+
+
+def gpt_step1_limit(layers):
+    """`gpt_step1_check`'s limit on step 1's optimizer state against the
+    oracle's: the f16 kernels are each held to f16's tolerance of their
+    output's scale (`TOL`), and a gradient passes two pairs of them a
+    layer (flash attention, the norm), so their departures may add to
+    ``TOL["float16"] * 2 * layers`` (0.12 for GPT-2 small)."""
+    return TOL["float16"] * 2 * layers
+
+
+def gpt_step1_check(got, want, dev, layers):
+    """Step 1 of an f16 run against its plain oracle's, both from the same
+    weights, batch and dropout masks (one step: not chaotic), two ways.
+    (1) The update alone, fed the same gradients, as the optim phase's
+    `_opt_err` holds it: the run's own step-1 gradients through the
+    kernels' plain update (`kernel_plain`, AdamW from zero state at t = 1)
+    against the weights and state the run wrote.  (2) The whole step:
+    each optimizer state slot (AdamW's m and v, which carry step 1's
+    gradients and their squares) over the model, in the L2 norm, within
+    `gpt_step1_limit` of the oracle's norm.  Reported beside them: each
+    slot's worst tensor, element-wise against its own scale (a gradient
+    that is zero up to rounding has no scale to hold it to), and the
+    share of f16 weight elements more than one f16 step off the
+    oracle's.  `got` and `want` are `gpt_run`'s ``_step1`` lists."""
+    import torch
+    from mxnet_tpu_torch.ops.fused_optimizer import kernel_plain
+    from mxnet_tpu_torch.optimizer import AdamW
+    before, wk, sk, gk = got
+    _, wp, sp, _ = want
+    opt = AdamW(learning_rate=GPT_LR, wd=GPT_WD)
+    hp = {k: torch.full((), v, device=dev) for k, v in
+          {"lr": GPT_LR, "wd": GPT_WD, "rescale_grad": 1.0,
+           "t": 1.0}.items()}
+    hp["clip_gradient"] = None
+    old = {n: w.to(dev) for n, w in before.items() if n in gk}
+    zero = {n: tuple(torch.zeros_like(t, device=dev) for t in sk[n])
+            for n in old}
+    want_p, want_s = kernel_plain(opt, old, {n: g.to(dev) for n, g in
+                                             gk.items()}, zero, hp)
+    err, share, upd_ok = _opt_err(
+        {n: wk[n].to(dev) for n in old},
+        {n: tuple(t.to(dev) for t in sk[n]) for n in old},
+        want_p, want_s, old)
+    del old, zero, want_p, want_s
+    slots = max(len(v) for v in sp.values())
+    diff2, norm2 = [0.0] * slots, [0.0] * slots
+    worst = [(0.0, None)] * slots
+    for n in sp:
+        for i, (a, b) in enumerate(zip(sk[n], sp[n])):
+            d = a.double() - b.double()
+            diff2[i] += float((d * d).sum())
+            norm2[i] += float((b.double() ** 2).sum())
+            scale = float(b.double().abs().max())
+            e = float(d.abs().max()) / scale if scale > 0 else \
+                (math.inf if float(d.abs().max()) > 0 else 0.0)
+            if e > worst[i][0]:
+                worst[i] = (e, n)
+    rel = [math.sqrt(d / nn) if nn > 0 else math.inf
+           for d, nn in zip(diff2, norm2)]
+    off = n16 = 0
+    for n, b in wp.items():
+        if b.dtype == torch.float16:
+            d = (wk[n].float() - b.float()).abs()
+            off += int((d > STEP16["float16"] * b.float().abs()
+                        + 2.0 ** -24).sum())
+            n16 += d.numel()
+    lim = gpt_step1_limit(layers)
+    return dict(update_max_abs_err=err, update_f16_mismatch_share=share,
+                update_ok=upd_ok, state_rel_l2=rel, state_limit=lim,
+                state_ok=max(rel) <= lim,
+                state_worst_tensor_rel=[w for w, _ in worst],
+                state_worst_tensor=[n for _, n in worst],
+                weight_off_share=off / n16 if n16 else 0.0,
+                ok=upd_ok and max(rel) <= lim)
 
 
 def gpt_want_launches(n_groups, layers, remat):
@@ -4080,9 +4221,14 @@ def run_gpt(dev, results, card):
     flops = GPTForCausalLM.flops_per_token(cfg, GPT_L) * tokens
     runs, floors = results["gpt"], results["gpt_one_ulp"]
     problems = []        # every run and control is reported before failing
+    step1 = {}           # the f16 kernel run's and its oracle's step 1
     for dtype, remat, entry in GPT_RUNS:
         key = f"{dtype}_{entry}_remat_{remat or 'off'}"
-        st, step_s = gpt_run(dev, dtype, False, batch, remat, entry)
+        f16 = dtype == "float16"
+        st, step_s = gpt_run(dev, dtype, False, batch, remat, entry,
+                             step1=f16)
+        if f16:
+            step1["kernel"] = st.pop("_step1")
         if dtype not in floors:
             # how far one rounding difference carries: the same run with
             # one weight element one unit in the last place away
@@ -4101,7 +4247,15 @@ def run_gpt(dev, results, card):
                        peak_mem_gb=base["plain_peak_mem_gb"])
             pstep_s = base["plain_step_ms"] / 1e3
         else:
-            pst, pstep_s = gpt_run(dev, dtype, True, batch, remat, entry)
+            pst, pstep_s = gpt_run(dev, dtype, True, batch, remat, entry,
+                                   step1=f16)
+        if f16:
+            step1["plain"] = pst.pop("_step1")
+            st["step1_check"] = chk = gpt_step1_check(
+                step1.pop("kernel"), step1["plain"], dev, cfg.num_layers)
+            if not chk["ok"]:
+                problems.append(f"gpt {key}: step 1 off the plain "
+                                f"version's: {json.dumps(chk)}")
         want = gpt_want_launches(st["dtype_groups"], cfg.num_layers,
                                  bool(remat))
         got = {k: st["launches"][k] for k in want}
@@ -4197,8 +4351,53 @@ def run_gpt(dev, results, card):
             problems.append(
                 f"gpt control {fault}: the planted fault departs by only "
                 f"{dev_rel:.3g} <= {tol}; the check cannot see it")
+    gpt_f16_checks(dev, results, batch, cfg, step1["plain"], problems)
     if problems:
         raise AssertionError("; ".join(problems))
+
+
+def gpt_f16_checks(dev, results, batch, cfg, plain1, problems):
+    """The f16 run's controls and its reference route.  Each of
+    `GPT_F16_FAULTS` planted in the f16 run: where its trajectory lands
+    against the f16 limit (`gpt_tol`, 10 f16 floors: reported, as the
+    limit may not see it) and whether `gpt_step1_check` against the sound
+    oracle's step 1 (`plain1`) catches it (gated).  Then the f16 run on
+    the reference route (``MXTPU_PALLAS=reference``: LayerNorm statistics
+    in f16, the per-leaf update): finite, falling, flash and the
+    cross-entropy launched, neither the norm nor the chunk."""
+    runs, floors = results["gpt"], results["gpt_one_ulp"]
+    sound = runs["float16_step_remat_off"]
+    tol = gpt_tol("float16", floors["float16"]["trajectory_rel_dev"])
+    for fault in GPT_F16_FAULTS:
+        st, _ = gpt_run(dev, "float16", False, batch, fault=fault,
+                        step1=True)
+        chk = gpt_step1_check(st.pop("_step1"), plain1, dev,
+                              cfg.num_layers)
+        dev_rel = traj_dev(st["losses"], sound["plain_losses"])
+        results["gpt_controls"][f"float16_{fault}"] = c = dict(
+            losses=st["losses"], trajectory_rel_dev=dev_rel,
+            trajectory_tol=tol, over_tol=dev_rel / tol,
+            caught_by_trajectory=dev_rel > tol, step1=chk,
+            caught_by_step1=not chk["ok"])
+        print(f"[gpt control float16 {fault}] {json.dumps(c)}", flush=True)
+        if not c["caught_by_step1"]:
+            problems.append(f"gpt control float16 {fault}: the step-1 "
+                            f"check cannot see it ({json.dumps(chk)})")
+    st, step_s = gpt_run(dev, "float16", False, batch, route="reference")
+    want = {k: v for k, v in gpt_want_launches(
+        1, cfg.num_layers, False).items()
+        if k not in ("fused_norm", "fused_optimizer_chunk")}
+    got = {k: v for k, v in st["launches"].items() if v}
+    ls = st["losses"]
+    st.update(finite=all(math.isfinite(x) for x in ls),
+              loss_fell=ls[-1] < ls[0],
+              trajectory_rel_dev_vs_kernel_route=traj_dev(
+                  ls, sound["losses"]))
+    runs["float16_step_remat_off_reference_route"] = st
+    print(f"[gpt float16 reference route] {json.dumps(st)}", flush=True)
+    if not st["finite"] or not st["loss_fell"] or got != want:
+        problems.append(f"gpt float16 reference route: losses {ls}, "
+                        f"launches {got} (want {want})")
 
 
 # ---------------------------------------------------------------------------
@@ -5039,6 +5238,419 @@ def run_nmt(dev, results, card):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# gluon: the Gluon front end -- BERT-base fine-tuned through `Block`,
+# `Trainer`, loss and metrics; `quantize_net` over an MLP at BERT's widths
+# ---------------------------------------------------------------------------
+
+GLUON_B, GLUON_L, GLUON_STEPS = 32, 128, 8
+GLUON_LR, GLUON_DECAY = 5e-4, 0.75       # bert_finetune.py:99-106, :114
+# Adam's epsilon: the key third of the QKV bias has an exactly zero
+# gradient (softmax ignores a per-row shift), where epsilon 1e-8 would
+# turn round-off into full steps of random sign between the two runs
+GLUON_EPS = 1e-6
+MLP_B, MLP_STEPS, MLP_CALIB, MLP_LR = 64, 20, 4, 5e-3
+# K2 at the MLP's three products (M, N, K), timed; then the edges no other
+# phase has, checked: N = 2 at K = 16, and quantization_int8.py's first
+# layer (K = 16)
+GLUON_K2 = ((64, 3072, 768), (64, 768, 3072), (64, 2, 768))
+GLUON_K2_EDGES = ((64, 2, 16), (64, 64, 16))
+# the cross-entropy at the fine-tune's and the example's class counts
+GLUON_XENT = (("float32", 32, 2), ("float32", 32, 3), ("float32", 64, 2))
+
+
+def _bert_classifier(cfg, dev):
+    """`examples/bert_finetune.py`'s BertClassifier over the port's
+    `BertModel`, its backbone made on `dev` without a CPU init."""
+    import torch
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.models.bert import BertModel
+
+    class BertClassifier(gluon.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            self.bert = BertModel(cfg)
+            self.dropout = nn.Dropout(cfg.dropout)
+            self.classifier = nn.Dense(2, in_units=cfg.hidden_size)
+
+        def forward(self, ids, token_types, valid_length):
+            _, pooled = self.bert(ids, token_types, valid_length)
+            return self.classifier(self.dropout(pooled))
+
+    class Backbone(gluon.HybridBlock):
+        """The pretrained checkpoint's block: the backbone alone, under
+        the classifier's names."""
+
+        def __init__(self):
+            super().__init__()
+            self.bert = BertModel(cfg)
+
+    with torch.device("meta"):
+        net, pre = BertClassifier(), Backbone()
+    return net.to_empty(device=dev), pre.to_empty(device=dev)
+
+
+def gluon_batches(cfg, seed=0):
+    """`bert_finetune.py`'s synthetic pairs at (32, 128): segment B from
+    the middle, ragged valid_length in [0.8 L, L], the label a marker
+    token at the middle."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(GLUON_STEPS):
+        ids = rng.randint(5, cfg.vocab_size, (GLUON_B, GLUON_L))
+        half = GLUON_L // 2
+        tt = np.zeros((GLUON_B, GLUON_L), np.int32)
+        tt[:, half:] = 1
+        vl = rng.randint(int(0.8 * GLUON_L), GLUON_L + 1, (GLUON_B,))
+        lab = rng.randint(0, 2, (GLUON_B,))
+        ids[:, half] = 3 + lab
+        out.append((ids.astype(np.int32), tt, vl.astype(np.int32),
+                    lab.astype(np.int32)))
+    return out
+
+
+def gluon_finetune(dev, cfg, batches, ckpt, plain=False, saved=None):
+    """The fine-tune loop of `examples/bert_finetune.py` on the card:
+    BERT-base (seed 0, N(0, 0.02)) whose backbone comes back from
+    `ckpt` through `load_parameters`, ``hybridize()``, ``autograd.record``,
+    `SoftmaxCrossEntropyLoss`, `gluon.Trainer(net.collect_params(),
+    "adam")` with the layer-wise ``lr_mult`` and the warm-up
+    `PolyScheduler`, `metric.Accuracy` and `metric.F1` each step.
+    ``plain=True`` is its twin on the plain versions (no launch): the
+    attention's and norms' plain versions and the plain cross-entropy.
+    `saved` (name -> the values written to `ckpt`) is checked bit for bit
+    against what `load_parameters` brought back.  Returns the stats and
+    the net."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import autograd, gluon, initializer, kernels
+    from mxnet_tpu_torch import random as mrandom
+    from mxnet_tpu_torch.gluon import metric
+    from mxnet_tpu_torch.models.layers import FusedSelfAttention, LayerNorm
+    from mxnet_tpu_torch.ops import fused_norm as fn
+    from mxnet_tpu_torch.ops.attention import multi_head_attention_reference
+    from mxnet_tpu_torch.ops.softmax_xent import \
+        softmax_cross_entropy_reference
+    from mxnet_tpu_torch.optimizer import lr_scheduler
+
+    mrandom.seed(0)
+    net, _ = _bert_classifier(cfg, dev)
+    net.initialize(initializer.Normal(0.02), device=dev)
+    net.load_parameters(ckpt, allow_missing=True)
+    params = net.collect_params()
+    bit_equal = None if saved is None else all(
+        torch.equal(params[n].data(), v) for n, v in saved.items())
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    if plain:
+        for m in net.modules():
+            if isinstance(m, FusedSelfAttention):
+                m.attend = multi_head_attention_reference
+            if isinstance(m, LayerNorm):
+                m.norm = fn.fused_layer_norm_reference
+        loss_fn = softmax_cross_entropy_reference
+    for name, p in params.items():
+        if ".layers." in name:
+            p.lr_mult = GLUON_DECAY ** (
+                cfg.num_layers - int(name.split(".layers.")[1].split(".")[0]))
+        elif name.startswith("bert."):
+            p.lr_mult = GLUON_DECAY ** (cfg.num_layers + 1)
+    sched = lr_scheduler.PolyScheduler(
+        max_update=GLUON_STEPS, base_lr=GLUON_LR, final_lr=0.0, pwr=1,
+        warmup_steps=max(1, GLUON_STEPS // 10), warmup_begin_lr=0.0)
+    trainer = gluon.Trainer(params, "adam", {
+        "learning_rate": GLUON_LR, "lr_scheduler": sched,
+        "epsilon": GLUON_EPS})
+    net.hybridize()
+    acc, f1 = metric.Accuracy(), metric.F1()
+    losses, preds, per_step = [], [], []
+    for i, (ids, tt, vl, lab) in enumerate(batches):
+        ids, tt, vl, lab = (torch.from_numpy(a).to(dev)
+                            for a in (ids, tt, vl, lab))
+        if i == 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        kernels.reset_launch_counts()
+        with autograd.record():
+            logits = net(ids, tt, vl)
+            loss = loss_fn(logits, lab)
+        autograd.backward(loss)
+        trainer.step(GLUON_B)
+        per_step.append(kernels.launch_counts())
+        losses.append(float(loss.detach().mean()))
+        acc.update(lab, logits)
+        f1.update(lab, logits)
+        preds.append(logits.detach().argmax(-1).cpu().numpy())
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / (GLUON_STEPS - 2)
+    labels = np.concatenate([b[3] for b in batches])
+    pred = np.concatenate(preds)
+    tp = float(((pred == 1) & (labels == 1)).sum())
+    fp = float(((pred == 1) & (labels == 0)).sum())
+    fneg = float(((pred == 0) & (labels == 1)).sum())
+    prec, rec = tp / max(tp + fp, 1e-12), tp / max(tp + fneg, 1e-12)
+    st = dict(losses=losses, step_ms=step_s * 1e3,
+              launches_per_step=per_step,
+              accuracy=acc.get()[1], f1=f1.get()[1],
+              numpy_accuracy=float((pred == labels).mean()),
+              numpy_f1=2 * prec * rec / max(prec + rec, 1e-12),
+              route="fused" if trainer._uniform_mults() else "per-parameter",
+              tensors=len(params), checkpoint_bit_equal=bit_equal)
+    return st, net
+
+
+def gluon_want(layers):
+    """Launches a fine-tune step: the flash forward and backward once a
+    layer, the norm twice a layer and the embeddings' once, the
+    cross-entropy once each way, no optimizer kernel (the layer-wise
+    ``lr_mult`` takes the per-parameter route, as JAX's Trainer does)."""
+    return {"flash_attention_fwd": layers, "flash_attention_bwd": layers,
+            "fused_norm": 2 * layers + 1, "softmax_xent_fwd": 1,
+            "softmax_xent_bwd": 1}
+
+
+def mlp_data(seed=3):
+    """Gaussian blobs in 768 dimensions, two classes: (train batches,
+    calibration batches, test x, test labels)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    centers = rng.randn(2, 768) * 0.3
+    n = MLP_B * (MLP_STEPS + MLP_CALIB + 2)
+    y = rng.randint(0, 2, n)
+    x = (centers[y] + rng.randn(n, 768)).astype(np.float32)
+    y = y.astype(np.int32)
+    b = [(x[i:i + MLP_B], y[i:i + MLP_B]) for i in range(0, n, MLP_B)]
+    test = (x[-2 * MLP_B:], y[-2 * MLP_B:])
+    return b[:MLP_STEPS], [xb for xb, _ in
+                           b[MLP_STEPS:MLP_STEPS + MLP_CALIB]], test
+
+
+def gluon_mlp(dev, problems, card):
+    """`examples/quantization_int8.py`'s flow at BERT's FFN widths:
+    train the MLP 20 Adam steps through the `Trainer` (row 7 once a step),
+    calibrate on 4 batches ("naive", then "entropy"), `quantize_net` (K2
+    three times a forward, held to `quantized_matmul_reference` by running
+    the same quantized net under ``MXTPU_PALLAS=reference``), then under
+    ``MXTPU_QUANT_ACT=1`` (no K2)."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import autograd, gluon, kernels
+    from mxnet_tpu_torch import random as mrandom
+    from mxnet_tpu_torch.contrib.quantization import quantize_net
+    from mxnet_tpu_torch.gluon import nn
+
+    train, calib, (xt, yt) = mlp_data()
+    mrandom.seed(0)
+    net = nn.HybridSequential()
+    net.add(nn.Dense(3072, in_units=768, activation="relu"), nn.LayerNorm(),
+            nn.Dense(768, activation="relu"), nn.Dense(2))
+    net.initialize(device=dev)
+    net.hybridize()
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": MLP_LR})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    kernels.reset_launch_counts()
+    losses = []
+    for xb, yb in train:
+        xb, yb = torch.from_numpy(xb).to(dev), torch.from_numpy(yb).to(dev)
+        with autograd.record():
+            loss = loss_fn(net(xb), yb)
+        autograd.backward(loss)
+        trainer.step(MLP_B)
+        losses.append(float(loss.detach().mean()))
+    train_launches = kernels.launch_counts()
+    want = {"fused_optimizer_chunk": MLP_STEPS, "fused_norm": MLP_STEPS,
+            "softmax_xent_fwd": MLP_STEPS, "softmax_xent_bwd": MLP_STEPS}
+    got = {k: train_launches[k] for k in want}
+    st = dict(losses=losses, launches=train_launches)
+    print(f"[gluon mlp] losses {losses[0]:.4g} -> {losses[-1]:.4g}, "
+          f"launches {json.dumps(got)} over {MLP_STEPS} steps ({card})",
+          flush=True)
+    if got != want:
+        problems.append(f"gluon mlp: launches {got}, want {want}")
+    if not losses[-1] < losses[0]:
+        problems.append(f"gluon mlp: loss did not fall {losses}")
+    x = torch.from_numpy(xt).to(dev)
+    with torch.no_grad():
+        p32 = net(x).argmax(-1).cpu().numpy()
+    st["fp32_accuracy"] = float((p32 == yt).mean())
+    calib = [torch.from_numpy(c).to(dev) for c in calib]
+    for mode in ("naive", "entropy"):
+        qnet = quantize_net(net, calib_data=calib, calib_mode=mode)
+        kernels.reset_launch_counts()
+        out = qnet(x)
+        torch.cuda.synchronize()
+        k2 = kernels.launch_counts()["quantized_matmul"]
+        with pallas_mode("reference"):
+            ref = qnet(x)
+        err, scale = _scale_err(out, ref)
+        p8 = out.argmax(-1).cpu().numpy()
+        c = dict(k2_launches_per_forward=k2, max_abs_err=err,
+                 out_scale=scale, tol=TOL["float32"] * scale,
+                 int8_accuracy=float((p8 == yt).mean()),
+                 agreement=float((p8 == p32).mean()),
+                 thresholds={k: q.x_amax for k, q in qnet._qmap.items()})
+        if k2 != 3:
+            problems.append(f"gluon quantize_net {mode}: K2 launched {k2} "
+                            f"times a forward, want 3")
+        if not err <= c["tol"]:
+            problems.append(f"gluon quantize_net {mode}: {err:.3g} off the "
+                            f"plain version (limit {c['tol']:.3g})")
+        if mode == "naive":
+            with env(MXTPU_QUANT_ACT="1"):
+                kernels.reset_launch_counts()
+                act = qnet(x)
+                torch.cuda.synchronize()
+                c["act8_k2_launches"] = \
+                    kernels.launch_counts()["quantized_matmul"]
+            pa = act.argmax(-1).cpu().numpy()
+            c["act8_agreement"] = float((pa == p32).mean())
+            c["act8_finite"] = bool(torch.isfinite(act).all())
+            if c["act8_k2_launches"] or not c["act8_finite"]:
+                problems.append(f"gluon quantize_net under MXTPU_QUANT_ACT"
+                                f"=1: K2 launched {c['act8_k2_launches']} "
+                                f"times, finite {c['act8_finite']}")
+        st[f"quantize_{mode}"] = c
+        print(f"[gluon quantize_net {mode}] {json.dumps(c)} ({card})",
+              flush=True)
+    if not np.isfinite(losses).all():
+        problems.append(f"gluon mlp: non-finite loss {losses}")
+    return st
+
+
+def gluon_cases(dev):
+    """The cross-entropy at V = 2 and 3 (`GLUON_XENT`) and K2 at the MLP's
+    products (timed, beside cuBLAS over a dequantized copy and the bound)
+    and at N = 2 and K = 16 (`GLUON_K2_EDGES`)."""
+    import torch
+    from mxnet_tpu_torch.ops import quantized_matmul as qm
+    from mxnet_tpu_torch.ops import softmax_xent as sx
+    g = torch.Generator().manual_seed(21)
+    out = []
+    for dtype, N, V in GLUON_XENT:
+        x = (2.0 * torch.randn(N, V, generator=g)).to(dev)
+        lab = torch.randint(0, V, (N,), generator=g).to(dev, torch.int32)
+        gr = torch.rand(N, generator=g).to(dev)
+        errs, _, _ = _xent_errs(sx, x, lab, gr)
+        out.append(dict(_xent_case(dtype, N, V, errs), kernel="xent"))
+    for (M, N, K), timed in ([(s, True) for s in GLUON_K2] +
+                             [(s, False) for s in GLUON_K2_EDGES]):
+        qt = qm.quantize_weight(torch.randn(N, K, generator=g) * 0.02,
+                                8).to(dev)
+        x = torch.randn(M, K, generator=g).to(dev)
+        got = qm.quantized_matmul(x, qt)
+        ref = qm.quantized_matmul_reference(x, qt)
+        torch.cuda.synchronize()
+        err, scale = _scale_err(got, ref)
+        case = dict(kernel="k2", bits=8, dtype="float32", M=M, N=N, K=K,
+                    plan=dict(qm._tuned_plan(M, N, K, 8, x.dtype,
+                                             x.device)._asdict()),
+                    max_abs_err=err, out_scale=scale,
+                    tol=TOL["float32"] * scale, ok=err <= TOL["float32"] *
+                    scale)
+        if timed:
+            wd = qm.dequantize_weight(qt, x.dtype)
+            case["ms"] = time_ms(lambda: qm.quantized_matmul(x, qt))
+            case["plain_ms"] = time_ms(
+                lambda: qm.quantized_matmul_reference(x, qt))
+            case["library_ms"] = time_ms(lambda: x @ wd.T)
+            case["bound_ms"], case["bound_by"] = bound(
+                x.numel() * 4 + qt.nbytes() + M * N * 4, 2.0 * M * N * K,
+                "tf32x2")
+        out.append(case)
+    return out
+
+
+def run_gluon(dev, results, card):
+    """The gluon phase: the card cases, the BERT-base fine-tune against
+    its plain twin, and the MLP's `quantize_net`.  Every count and time is
+    printed beside the card's name and power limit."""
+    import tempfile
+    import torch
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch import random as mrandom
+    from mxnet_tpu_torch.models import bert_base
+
+    res = results["gluon"]
+    problems = []
+    t_phase = time.perf_counter()
+    res["cases"] = cases = gluon_cases(dev)
+    for c in cases:
+        print(f"[gluon case] {json.dumps(c)} ({card})", flush=True)
+        if not c["ok"]:
+            problems.append(f"gluon case {c}: outside tolerance")
+
+    cfg = bert_base()
+    batches = gluon_batches(cfg)
+    fd, ckpt = tempfile.mkstemp(suffix=".npz")
+    os.close(fd)
+    try:
+        mrandom.seed(0)
+        _, pre = _bert_classifier(cfg, dev)
+        pre.initialize(initializer.Normal(0.02), device=dev)
+        pre.save_parameters(ckpt)
+        saved = {n: p.data() for n, p in pre.collect_params().items()}
+        st, net = gluon_finetune(dev, cfg, batches, ckpt, saved=saved)
+        del pre, saved
+        pst, pnet = gluon_finetune(dev, cfg, batches, ckpt, plain=True)
+    finally:
+        os.remove(ckpt)
+    want = gluon_want(cfg.num_layers)
+    for i, (k, pk) in enumerate(zip(st.pop("launches_per_step"),
+                                    pst.pop("launches_per_step"))):
+        if {n: k[n] for n in want} != want or k["fused_optimizer_chunk"]:
+            problems.append(f"gluon finetune step {i + 1}: launches {k}, "
+                            f"want {want}")
+        if any(pk.values()):
+            problems.append(f"gluon finetune step {i + 1}: the plain twin "
+                            f"launched {pk}")
+    st["launches_per_step"] = want
+    # each tensor's departure from the twin's, relative to the twin's
+    # tensor in the L2 norm (gated), and its largest element's relative to
+    # the tensor's largest (reported: Adam turns round-off in a gradient
+    # that is zero up to rounding, the key third of the QKV bias, into
+    # steps, element by element)
+    pw = pnet.collect_params()
+    rel, elem = {}, {}
+    for n, p in net.collect_params().items():
+        a, b = p.data().detach(), pw[n].data().detach()
+        rel[n] = float((a - b).norm() / b.norm().clamp_min(1e-30))
+        elem[n] = float((a - b).abs().max() /
+                        b.abs().max().clamp_min(1e-30))
+    worst = max(rel, key=rel.get)
+    st.update(weights_rel_dev=rel[worst], weights_rel_dev_tensor=worst,
+              weights_elem_rel_dev=max(elem.values()),
+              weights_elem_rel_dev_tensor=max(elem, key=elem.get))
+    st["plain_losses"] = pst["losses"]
+    st["plain_step_ms"] = pst["step_ms"]
+    st["trajectory_rel_dev"] = traj_dev(st["losses"], pst["losses"])
+    st["tol"] = tol = traj_tol("float32", "auto")
+    del net, pnet, pw
+    torch.cuda.empty_cache()
+    res["finetune"] = st
+    print(f"[gluon finetune] {json.dumps(st)} ({card})", flush=True)
+    if not st["checkpoint_bit_equal"]:
+        problems.append("gluon: the backbone did not come back bit-equal "
+                        "from save_parameters / load_parameters")
+    if st["trajectory_rel_dev"] > tol or st["weights_rel_dev"] > tol:
+        problems.append(f"gluon finetune: {st['trajectory_rel_dev']:.3g} "
+                        f"(losses), {st['weights_rel_dev']:.3g} (weights) "
+                        f"off the plain twin, limit {tol}")
+    if abs(st["accuracy"] - st["numpy_accuracy"]) > 1e-12 or \
+            abs(st["f1"] - st["numpy_f1"]) > 1e-12:
+        problems.append(f"gluon metrics {st['accuracy']}, {st['f1']} vs "
+                        f"numpy {st['numpy_accuracy']}, {st['numpy_f1']}")
+    if not all(math.isfinite(x) for x in st["losses"]):
+        problems.append(f"gluon finetune: non-finite loss {st['losses']}")
+    res["mlp"] = gluon_mlp(dev, problems, card)
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"[gluon] {res['seconds']:.1f} s, fine-tune "
+          f"{st['step_ms']:.2f} ms a step ({card})", flush=True)
+    if problems:
+        raise AssertionError("; ".join(problems))
+
+
 def kernel_entries(results):
     """One entry per ported kernel for the ``kernels`` line: the
     representative main-path case (K1: f32 decode C=1 MHA, no window; K2:
@@ -5476,7 +6088,7 @@ def main(argv=None) -> int:
                "gpt_d256": {}, "gpt_d256_controls": {},
                "gpt_d256_one_ulp": {},
                "spec_prefix": {}, "nmt": {}, "optim": {}, "amp": {},
-               "amp_controls": {}, "amp_one_ulp": {}}
+               "amp_controls": {}, "amp_one_ulp": {}, "gluon": {}}
     failed = []
     t0 = time.perf_counter()
     # build from the checkout's sources, never from a leftover library
@@ -5522,7 +6134,7 @@ def main(argv=None) -> int:
                      ("spec_prefix", run_spec_prefix), ("nmt", run_nmt),
                      ("optim", lambda d, r, c: run_optim(d, r, c,
                                                          fault_builds)),
-                     ("amp", run_amp)):
+                     ("amp", run_amp), ("gluon", run_gluon)):
         t_phase = time.perf_counter()
         try:
             fn(dev, results, card)

@@ -42,15 +42,29 @@ Ported so far (ROADMAP.md), slice by slice:
     MXNet's int8 workflow with calibration (`contrib.quantization`);
 11. mixed precision (`amp`): float16 AMP with its dynamic loss scaler,
     bfloat16 AMP, the `Trainer`'s ``multi_precision`` f32 master copies,
-    and float16 inside the flash-attention and cross-entropy kernels.
+    and float16 inside the flash-attention and cross-entropy kernels;
+12. the Gluon front end: `autograd`, devices (`cpu`, `gpu`), `random`,
+    `initializer` (``init``), `gluon.Block` / `HybridBlock` over
+    ``torch.nn.Module`` with `gluon.Parameter`, the layers of `gluon.nn`,
+    every loss of `gluon.loss` (CTC through `ops.nn.ctc_loss`),
+    `gluon.metric`, `gluon.utils`, and `contrib.quantization.quantize_net`
+    over ``nn.Dense`` through the dequant-matmul kernel.
 """
 from .base import MXNetError  # noqa: F401
-from .device import resolve_device  # noqa: F401
+from . import device  # noqa: F401
+from .device import (  # noqa: F401
+    resolve_device, Device, Context, cpu, gpu, tpu, current_device,
+    current_context, num_gpus)
+from . import autograd, random, initializer  # noqa: F401
+from . import initializer as init  # noqa: F401
 from . import kernels, ops, models, serve, gluon, optimizer, parallel  # noqa: F401,E501
 from . import amp, benchmark, contrib  # noqa: F401
+from .optimizer import lr_scheduler  # noqa: F401
 from .convert import load_jax_optimizer_states, load_jax_params  # noqa: F401
 
-__all__ = ["MXNetError", "resolve_device", "kernels", "ops", "models",
-           "serve", "gluon", "optimizer", "parallel", "amp", "benchmark",
-           "contrib",
-           "load_jax_params", "load_jax_optimizer_states"]
+__all__ = ["MXNetError", "device", "resolve_device", "Device", "Context",
+           "cpu", "gpu", "tpu", "current_device",
+           "current_context", "num_gpus", "autograd", "random",
+           "initializer", "init", "kernels", "ops", "models", "serve",
+           "gluon", "optimizer", "parallel", "amp", "benchmark", "contrib",
+           "lr_scheduler", "load_jax_params", "load_jax_optimizer_states"]

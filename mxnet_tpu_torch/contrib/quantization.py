@@ -17,8 +17,10 @@
   code, copied; its thresholds feed ``InferenceEngine(act_thresholds=)``
   for ``MXTPU_QUANT_ACT=1``.
 
-`QuantizedDense` and `quantize_net` walk Gluon ``Dense`` blocks, which the
-port does not have yet (ROADMAP.md A3): they raise `MXNetError`.
+- `quantize_net` / `QuantizedDense`: MXNet's post-training flow over a
+  Gluon net (`gluon.nn`): each ``Dense`` of its ``Sequential`` containers
+  calibrated, its weight quantized once a channel, its forward through
+  `ops.quantized_matmul.quantized_matmul` (K2 on the card).
 """
 from __future__ import annotations
 
@@ -245,25 +247,128 @@ class LayerCalibrator:
         return out
 
 
-def _needs_dense(what: str) -> MXNetError:
-    return MXNetError(
-        f"{what} walks Gluon Dense blocks, which mxnet_tpu_torch does not "
-        "have yet (ROADMAP.md A3); quantize decode weights with "
-        "serve.decode.quantize_decode_weights or quantize_weight instead")
-
-
 class QuantizedDense:
-    """Inference-only int8 replacement for a Gluon ``Dense`` block: waits
-    for the port's ``Dense`` (ROADMAP.md A3)."""
+    """Inference-only int8 twin of a Gluon ``nn.Dense``: the weight is
+    quantized once, one symmetric scale an output channel
+    (`ops.quantized_matmul.quantize_weight`), and every forward goes
+    through `ops.quantized_matmul.quantized_matmul` -- K2 on the card, the
+    serving engine's kernel.  The calibrated ``x_amax`` rides on the
+    quantized weight as its activation threshold, so under
+    ``MXTPU_QUANT_ACT=1`` the layer takes `int8_act_matmul` instead, as
+    the serving matmuls do."""
 
     def __init__(self, dense, x_amax: float):
-        raise _needs_dense("QuantizedDense")
+        from ..ops.quantized_matmul import quantize_weight
+        self._dense = dense
+        w = dense.weight.data().detach()
+        self.x_amax = float(x_amax)
+        self.qt = quantize_weight(w, 8, act_amax=self.x_amax)
+        self.w_amax = float(w.abs().max())
+
+    def __call__(self, x):
+        from ..ops.quantized_matmul import quantized_matmul
+        if self._dense._flatten and x.dim() > 2:
+            x = x.reshape(x.shape[0], -1)
+        out = quantized_matmul(x, self.qt, act_amax=self.x_amax)
+        if self._dense.bias is not None:
+            out = out + self._dense.bias.data().detach()
+        act = self._dense.act
+        return act(out) if act is not None else out
 
 
 def quantize_net(net, calib_data=None, calib_mode="naive",
                  quantized_dtype="int8", exclude_layers=None,
                  num_calib_batches=None, logger=None):
-    """Post-training INT8 quantization of a Gluon net's ``Dense`` layers:
-    waits for the port's ``Dense`` (ROADMAP.md A3)."""
-    raise _needs_dense("quantize_net")
+    """Post-training int8 quantization of a Gluon net's ``Dense`` layers
+    (MXNet's ``contrib.quantization.quantize_net``).
 
+    The ``Dense`` children of ``Sequential`` / ``HybridSequential``
+    containers (recursively; names in `exclude_layers`, dotted as
+    ``"0"`` or ``"1.0"``, are left out) are found; `calib_data` (batches,
+    or ``(data, label)`` tuples) runs through the f32 net while a
+    `LayerCalibrator` in `calib_mode` ("naive" or "entropy") observes each
+    site's input; then each ``Dense`` gets a `QuantizedDense` at its
+    threshold (1.0 without calibration data).  Returns a callable net
+    that runs the original with the substitutes; the original is left as
+    it is.  A net whose ``forward`` is not a sequential walk needs the
+    substitution by hand, as in the JAX package."""
+    from ..gluon import nn as _nn
+
+    if quantized_dtype != "int8":
+        raise MXNetError("quantize_net supports int8 only")
+    exclude = set(exclude_layers or [])
+    sites = []
+
+    def walk(block, prefix):
+        if not _is_sequential(block):
+            return
+        for name, child in block._child_items():
+            full = f"{prefix}.{name}" if prefix else str(name)
+            if isinstance(child, _nn.Dense) and full not in exclude:
+                sites.append((full, child))
+            else:
+                walk(child, full)
+
+    walk(net, "")
+    if not sites:
+        return net
+    if calib_data is not None:
+        calib = LayerCalibrator(mode=calib_mode)
+        dense = dict(sites)
+        with torch.no_grad():
+            for n, batch in enumerate(calib_data):
+                data = batch[0] if isinstance(batch, (tuple, list)) \
+                    else batch
+                _forward_with_map(net, data, observer=calib.observe,
+                                  sites=dense)
+                if num_calib_batches and n + 1 >= num_calib_batches:
+                    break
+        thresholds = calib.thresholds()
+    else:
+        thresholds = {}
+    return _QuantizedNet(net, {full: QuantizedDense(
+        d, thresholds.get(full, 1.0)) for full, d in sites})
+
+
+def _is_sequential(block):
+    from ..gluon import nn as _nn
+    return isinstance(block, (_nn.Sequential, _nn.HybridSequential))
+
+
+def _forward_with_map(block, x, observer=None, sites=None, qmap=None,
+                      prefix=""):
+    """Run a sequential block tree, observing the inputs of the `sites`
+    and/or running the `qmap` substitutes in their places; any block
+    that is not a ``Sequential`` container runs whole."""
+    if not _is_sequential(block):
+        return block(x)
+    out = x
+    for name, child in block._child_items():
+        full = f"{prefix}.{name}" if prefix else str(name)
+        if sites is not None and full in sites:
+            if observer is not None:
+                observer(full, out)
+            out = sites[full](out)
+        elif qmap is not None and full in qmap:
+            out = qmap[full](out)
+        elif _is_sequential(child):
+            out = _forward_with_map(child, out, observer, sites, qmap, full)
+        else:
+            out = child(out)
+    return out
+
+
+class _QuantizedNet:
+    """The original net run with its ``Dense`` layers swapped for their
+    int8 twins."""
+
+    def __init__(self, net, qmap):
+        self._net = net
+        self._qmap = qmap
+
+    def __call__(self, x):
+        with torch.no_grad():
+            return _forward_with_map(self._net, x, qmap=self._qmap)
+
+    def collect_params(self):
+        return self._net.collect_params()

@@ -29,17 +29,9 @@ import torch
 
 from .base import MXNetError
 from .device import resolve_device
+from .util import to_tensor
 
 __all__ = ["load_jax_params", "load_jax_optimizer_states"]
-
-
-def _tensor(arr) -> torch.Tensor:
-    src = np.asarray(arr)
-    if src.dtype.name == "bfloat16":
-        # numpy has no bfloat16: go through float32, which holds every
-        # bfloat16 value exactly
-        return torch.from_numpy(src.astype(np.float32)).to(torch.bfloat16)
-    return torch.from_numpy(np.ascontiguousarray(src))
 
 
 def load_jax_params(model: torch.nn.Module, params: Dict[str, np.ndarray],
@@ -68,7 +60,7 @@ def load_jax_params(model: torch.nn.Module, params: Dict[str, np.ndarray],
                 f"source, {p.dtype} in the model")
     with torch.no_grad():
         for name, arr in params.items():
-            own[name].copy_(_tensor(arr))
+            own[name].copy_(to_tensor(arr))
     return model.to(dev)
 
 
@@ -87,7 +79,7 @@ def _state_slots(opt, name, st, want, p) -> tuple:
             raise MXNetError(
                 f"load_jax_optimizer_states: {name} state {k} is "
                 f"{shape}, the port's {tuple(ref.shape)}")
-        t = _tensor(arr)
+        t = to_tensor(arr)
         if t.dtype != ref.dtype:
             raise MXNetError(
                 f"load_jax_optimizer_states: {name} state {k} is "

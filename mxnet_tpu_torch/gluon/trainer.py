@@ -39,7 +39,8 @@ and no state, and a clean one divides the scale it used back out through
 Gradients: torch's ``backward`` accumulates where MXNet's
 ``grad_req="write"`` overwrites, so after each update the `Trainer` clears
 (sets to None) the gradients of the parameters it updated, and the next
-``backward`` writes them afresh.  A parameter whose gradient is None (the
+``backward`` writes them afresh; a Gluon parameter under ``"add"`` keeps
+its sum until ``zero_grad``.  A parameter whose gradient is None (the
 loss never reached it) is updated with a zero gradient, as JAX's
 zero-initialised gradient buffer is; ``ignore_stale_grad`` is accepted and,
 as in JAX, changes nothing.
@@ -58,6 +59,7 @@ from ..base import MXNetError
 from .. import optimizer as opt
 from ..ops import fused_optimizer as _fopt
 from ..optimizer.updater import Updater
+from .parameter import Parameter as GluonParameter
 
 __all__ = ["Trainer"]
 
@@ -76,11 +78,15 @@ def _to_device(state, device):
 
 class Trainer:
     """``Trainer(params, optimizer, optimizer_params)``: `params` is a dict
-    of name -> `torch.nn.Parameter` (``dict(model.named_parameters())``;
-    the names key the optimizer state) or a list (keys "0", "1", ...);
-    parameters with ``requires_grad=False`` are not updated (MXNet's
-    ``grad_req="null"``).  `optimizer` is a registered name or an
-    `Optimizer`."""
+    of name -> Gluon `Parameter` (``net.collect_params()``) or name ->
+    ``torch.nn.Parameter`` (``dict(model.named_parameters())``), or a list
+    of either (keys "0", "1", ...); the names key the optimizer state.
+    Parameters with ``grad_req="null"`` (``requires_grad=False``) are not
+    updated; ``"add"`` ones keep their summed gradients across steps
+    until ``zero_grad``.  A parameter's ``lr_mult`` / ``wd_mult`` scale its
+    rate and decay (the per-parameter route), as MXNet's `Trainer` passes
+    its parameters to the optimizer.  `optimizer` is a registered name or
+    an `Optimizer`."""
 
     def __init__(self, params, optimizer, optimizer_params=None,
                  kvstore=None, compression_params=None,
@@ -91,10 +97,14 @@ class Trainer:
             param_dict = {str(i): p for i, p in enumerate(params)}
         else:
             raise MXNetError("params must be a dict or a list of Parameter")
-        for p in param_dict.values():
-            if not isinstance(p, torch.nn.Parameter):
-                raise MXNetError(f"expected torch.nn.Parameter, got "
-                                 f"{type(p)}")
+        reqs = {}
+        for k, p in param_dict.items():
+            if isinstance(p, GluonParameter):
+                reqs[k] = p.grad_req
+            elif isinstance(p, torch.nn.Parameter):
+                reqs[k] = "write" if p.requires_grad else "null"
+            else:
+                raise MXNetError(f"expected a Parameter, got {type(p)}")
         if kvstore not in (None, False):
             raise _unported(f"kvstore={kvstore!r}")
         if update_on_kvstore:
@@ -102,20 +112,47 @@ class Trainer:
         if compression_params:
             raise _unported("gradient compression (compression_params)")
         self._param_dict = param_dict
-        self._param_names: List[str] = [k for k, p in param_dict.items()
-                                        if p.requires_grad]
-        self._params = [param_dict[k] for k in self._param_names]
+        self._param_names: List[str] = [k for k, r in reqs.items()
+                                        if r != "null"]
+        self._keep_grads = {k for k, r in reqs.items() if r == "add"}
+        self._optimizer = opt.create(optimizer, param_idx2name={
+            i: n for i, n in enumerate(self._param_names)},
+            **(optimizer_params or {}))
+        if not self._optimizer.param_dict:
+            # the rate multipliers come from the parameters themselves
+            self._optimizer.param_dict = {
+                n: param_dict[n] for n in self._param_names}
+        self._states: Dict[str, tuple] = {}
+        self._scale = 1.0
+        self._hp_cache = None
+
+    @property
+    def _params(self) -> List[torch.Tensor]:
+        """The tensors of the updated parameters (a Gluon parameter's
+        value is made at its first forward when its shape is deferred)."""
+        return [p.data() if isinstance(p, GluonParameter) else p
+                for p in (self._param_dict[n] for n in self._param_names)]
+
+    @property
+    def _device(self) -> torch.device:
         devs = {p.device for p in self._params}
         if len(devs) > 1:
             raise MXNetError(f"Trainer: parameters on several devices "
                              f"{sorted(map(str, devs))}")
-        self._device = devs.pop() if devs else torch.device("cpu")
-        self._optimizer = opt.create(optimizer, param_idx2name={
-            i: n for i, n in enumerate(self._param_names)},
-            **(optimizer_params or {}))
-        self._states: Dict[str, tuple] = {}
-        self._scale = 1.0
-        self._hp = _fopt.HpScalarCache(self._device)
+        return devs.pop() if devs else torch.device("cpu")
+
+    @property
+    def _hp(self):
+        if self._hp_cache is None:
+            self._hp_cache = _fopt.HpScalarCache(self._device)
+        return self._hp_cache
+
+    def _drop_grads(self, params):
+        """Clear the gradients of the updated parameters (``"add"`` ones
+        keep theirs until ``zero_grad``)."""
+        for n, p in zip(self._param_names, params):
+            if n not in self._keep_grads:
+                p.grad = None
 
     # -- properties ----------------------------------------------------------
     @property
@@ -159,8 +196,7 @@ class Trainer:
             overflow = scaler.has_overflow(self._params)
             scaler.update_scale(overflow)
             if overflow:
-                for p in self._params:
-                    p.grad = None
+                self._drop_grads(self._params)
                 return
         self._optimizer.rescale_grad = self._scale / batch_size / divisor
         try:
@@ -181,25 +217,26 @@ class Trainer:
         if not _already_reduced:
             self._optimizer.rescale_grad = self._scale / batch_size
         self._ensure_states()
+        params = self._params
         grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
-                 for n, p in zip(self._param_names, self._params)}
+                 for n, p in zip(self._param_names, params)}
         if getattr(self._optimizer, "fused_safe", True) and \
                 not self._optimizer.multi_precision and \
                 self._uniform_mults():
             self._fused_update(grads)
         else:
-            for n, p in zip(self._param_names, self._params):
+            for n, p in zip(self._param_names, params):
                 self._states[n] = self._optimizer.update_multi_precision(
                     n, p.detach(), grads[n], self._states[n])
-        for p in self._params:
-            p.grad = None
+        self._drop_grads(params)
 
     def _uniform_mults(self) -> bool:
         o = self._optimizer
-        if o.lr_mult or o.wd_mult or o.param_dict:
+        if o.lr_mult or o.wd_mult:
             return False
         return all(getattr(p, "lr_mult", 1.0) == 1.0 and
-                   getattr(p, "wd_mult", 1.0) == 1.0 for p in self._params)
+                   getattr(p, "wd_mult", 1.0) == 1.0
+                   for p in o.param_dict.values())
 
     # -- the fused whole-tree update ------------------------------------------
     def _fused_update(self, grads):

@@ -43,6 +43,9 @@ from .softmax_xent import softmax_cross_entropy as _xent
 __all__ = ["layer_norm", "layer_norm_residual", "rms_norm",
            "rms_norm_residual", "gelu", "dropout", "embedding",
            "fully_connected", "pick", "softmax_cross_entropy",
+           "activation", "leaky_relu", "elu", "selu", "prelu", "silu",
+           "log_softmax", "batch_norm", "group_norm", "instance_norm",
+           "ctc_loss",
            "resolve_remat_policy", "remat_call", "REMAT_POLICIES"]
 
 
@@ -96,14 +99,17 @@ def gelu(x, approximation="erf"):
     return F.gelu(x)
 
 
-def dropout(x, p=0.5, generator=None, training=True):
+def dropout(x, p=0.5, generator=None, training=True, axes=()):
     """Inverted dropout: keep each element with probability ``1 - p``
     (drawn from `generator`, the device's default when None) and scale it
-    by ``1 / (1 - p)``.  Identity unless `training` and ``p > 0``."""
+    by ``1 / (1 - p)``; the mask is shared along `axes`.  Identity unless
+    `training` and ``p > 0``."""
     if not training or p <= 0.0:
         return x
     (x,) = _amp.cast_inputs("dropout", x)
-    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+    shape = [1 if i in [a % x.dim() for a in axes] else n
+             for i, n in enumerate(x.shape)]
+    keep = torch.rand(shape, generator=generator, device=x.device) \
         < 1.0 - p
     return torch.where(keep, x / (1.0 - p), 0.0).to(x.dtype)
 
@@ -117,11 +123,13 @@ def embedding(ids, weight):
     return F.embedding(idx, weight)
 
 
-def fully_connected(x, weight, bias=None):
-    """``x @ weight.T + bias`` (``npx.fully_connected`` with
-    ``flatten=False``; weight (units, in_units)) in the promoted dtype of
-    the operands."""
+def fully_connected(x, weight, bias=None, flatten=False):
+    """``x @ weight.T + bias`` (``npx.fully_connected``; weight (units,
+    in_units)) in the promoted dtype of the operands; `flatten` first
+    collapses every axis of `x` after the first."""
     x, weight, bias = _amp.cast_inputs("fully_connected", x, weight, bias)
+    if flatten:
+        x = x.reshape(x.shape[0], -1)
     dt = torch.promote_types(x.dtype, weight.dtype)
     if bias is not None:
         dt = torch.promote_types(dt, bias.dtype)
@@ -151,6 +159,163 @@ def softmax_cross_entropy(logits, labels, reduction="none"):
     if reduction == "sum":
         return loss.sum().reshape(1)
     return loss
+
+
+# ---------------------------------------------------------------------------
+# the Gluon layers' ops (``npx.activation`` and its family, the norms past
+# LayerNorm, ``npx.ctc_loss``)
+# ---------------------------------------------------------------------------
+
+_ACTS = {
+    "relu": torch.relu,
+    "sigmoid": torch.sigmoid,
+    "log_sigmoid": F.logsigmoid,
+    "tanh": torch.tanh,
+    "softrelu": F.softplus,
+    "softsign": F.softsign,
+    "mish": lambda x: x * torch.tanh(F.softplus(x)),
+}
+_SELU_SCALE = 1.0507009873554804934193349852946
+_SELU_ALPHA = 1.6732632423543772848170429916717
+
+
+def activation(x, act_type="relu"):
+    """``npx.activation``: relu, sigmoid, log_sigmoid, tanh, softrelu
+    (softplus), softsign or mish."""
+    if act_type not in _ACTS:
+        raise MXNetError(f"unknown activation {act_type!r}")
+    (x,) = _amp.cast_inputs(act_type, x)
+    return _ACTS[act_type](x)
+
+
+def leaky_relu(x, slope=0.25):
+    """``x`` where ``x >= 0``, else ``slope * x``."""
+    (x,) = _amp.cast_inputs("leaky_relu", x)
+    return torch.where(x >= 0, x, slope * x)
+
+
+def elu(x, alpha=1.0):
+    (x,) = _amp.cast_inputs("elu", x)
+    return torch.where(x > 0, x, alpha * torch.expm1(x))
+
+
+def selu(x):
+    """``scale * x`` where ``x >= 0``, else ``(scale * alpha) *
+    expm1(x)``, the product of the constants rounded once (the
+    reference's arithmetic)."""
+    (x,) = _amp.cast_inputs("selu", x)
+    return torch.where(x >= 0, _SELU_SCALE * x,
+                       (_SELU_SCALE * _SELU_ALPHA) * torch.expm1(x))
+
+
+def prelu(x, gamma):
+    """Leaky ReLU with a learned slope, one a channel (axis 1)."""
+    x, gamma = _amp.cast_inputs("prelu", x, gamma)
+    if gamma.dim() == 1 and x.dim() > 1:
+        gamma = gamma.reshape((1, -1) + (1,) * (x.dim() - 2))
+    return torch.where(x >= 0, x, gamma * x)
+
+
+def silu(x):
+    (x,) = _amp.cast_inputs("silu", x)
+    return F.silu(x)
+
+
+def log_softmax(x, axis=-1):
+    (x,) = _amp.cast_inputs("log_softmax", x)
+    return torch.log_softmax(x, dim=axis)
+
+
+def _channel(v, x, axis):
+    shape = [1] * x.dim()
+    shape[axis] = x.shape[axis]
+    return v.reshape(shape)
+
+
+def batch_norm(x, gamma, beta, running_mean, running_var, eps=1e-5,
+               momentum=0.9, fix_gamma=False, use_global_stats=False,
+               axis=1, training=False):
+    """``npx.batch_norm``: in `training` (and not `use_global_stats`)
+    the batch's mean and biased variance normalise `x`, and the running
+    statistics move in place, MXNet's way: ``running = momentum * running
+    + (1 - momentum) * batch`` (not ``F.batch_norm``'s complementary
+    momentum and unbiased variance); otherwise the running statistics
+    normalise.  ``fix_gamma`` uses a gain of ones."""
+    x, gamma, beta = _amp.cast_inputs("batch_norm", x, gamma, beta)
+    axis = axis % x.dim()
+    g = torch.ones_like(gamma) if fix_gamma else gamma
+    if training and not use_global_stats:
+        red = tuple(i for i in range(x.dim()) if i != axis)
+        mean = x.mean(dim=red)
+        var = x.var(dim=red, correction=0)
+        with torch.no_grad():
+            running_mean.copy_(momentum * running_mean +
+                               (1 - momentum) * mean.detach())
+            running_var.copy_(momentum * running_var +
+                              (1 - momentum) * var.detach())
+    else:
+        mean, var = running_mean, running_var
+    y = (x - _channel(mean, x, axis)) * torch.rsqrt(
+        _channel(var, x, axis) + eps)
+    return y * _channel(g, x, axis) + _channel(beta, x, axis)
+
+
+def group_norm(x, gamma, beta, num_groups=1, eps=1e-5):
+    """``npx.group_norm`` over (N, C, ...): statistics per group of
+    ``C / num_groups`` channels."""
+    x, gamma, beta = _amp.cast_inputs("group_norm", x, gamma, beta)
+    n, c = x.shape[0], x.shape[1]
+    xg = x.reshape((n, num_groups, c // num_groups) + tuple(x.shape[2:]))
+    axes = tuple(range(2, xg.dim()))
+    mean = xg.mean(dim=axes, keepdim=True)
+    var = xg.var(dim=axes, keepdim=True, correction=0)
+    y = ((xg - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    return y * _channel(gamma, x, 1) + _channel(beta, x, 1)
+
+
+def instance_norm(x, gamma, beta, eps=1e-5):
+    """``npx.instance_norm`` over (N, C, ...): statistics per sample and
+    channel."""
+    x, gamma, beta = _amp.cast_inputs("instance_norm", x, gamma, beta)
+    axes = tuple(range(2, x.dim()))
+    mean = x.mean(dim=axes, keepdim=True)
+    var = x.var(dim=axes, keepdim=True, correction=0)
+    y = (x - mean) * torch.rsqrt(var + eps)
+    return y * _channel(gamma, x, 1) + _channel(beta, x, 1)
+
+
+def ctc_loss(data, label, data_lengths=None, label_lengths=None,
+             use_data_lengths=False, use_label_lengths=False,
+             blank_label="first"):
+    """``npx.ctc_loss``: the CTC negative log-likelihood of each sequence
+    of `label` (B, L) under the pre-softmax scores `data` (T, B, C).  The
+    blank is class 0 (``"first"``) or C - 1 (``"last"``); a label entry
+    is padding where it is negative or, with `label_lengths`, at or past
+    the sequence's length; `data_lengths` cut each sequence's frames.
+    The JAX package computes it with ``optax.ctc_loss`` over
+    ``log_softmax``; here ``F.ctc_loss`` over ``log_softmax`` (CTC has no
+    TPU kernel), in f32, returned in `data`'s dtype."""
+    (data,) = _amp.cast_inputs("ctc_loss", data)
+    t, b, c = data.shape
+    dev = data.device
+    label = torch.as_tensor(label, device=dev).long()
+    if use_data_lengths and data_lengths is not None:
+        dl = torch.as_tensor(data_lengths, device=dev).long()
+    else:
+        dl = torch.full((b,), t, dtype=torch.long, device=dev)
+    pos = torch.arange(label.shape[1], device=dev)
+    if use_label_lengths and label_lengths is not None:
+        ll = torch.as_tensor(label_lengths, device=dev).long()
+        pad = pos[None, :] >= ll[:, None]
+    else:
+        pad = label < 0
+    lengths = (~pad).sum(dim=1)
+    blank = 0 if blank_label == "first" else c - 1
+    targets = torch.where(pad, 0, label)
+    logp = torch.log_softmax(data.float(), dim=-1)
+    loss = F.ctc_loss(logp, targets, dl, lengths, blank=blank,
+                      reduction="none", zero_infinity=False)
+    return loss.to(data.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -221,10 +221,13 @@ class _SoftmaxXent(torch.autograd.Function):
         return dx, None, None
 
 
-def softmax_cross_entropy(logits, labels):
+def softmax_cross_entropy(logits, labels, block_n=None, block_v=None):
     """Per-row sparse-label cross entropy over (…, V) logits -> loss of the
     labels' shape (f32).  Leading dims are flattened.  A CUDA tensor
-    launches the kernels; a CPU tensor runs the plain versions."""
+    launches the kernels; a CPU tensor runs the plain versions.
+    ``block_n`` / ``block_v`` are the JAX kernel's tile sizes; they are
+    accepted and ignored: the card's plan (`_fwd_plan`) has no tile to
+    set."""
     return _xent(logits, labels, logits.device.type == "cuda")
 
 

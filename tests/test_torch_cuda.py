@@ -44,7 +44,10 @@ weights with f32 or f16 state, K1 with f32 or f16 queries over f16 pools
 (types 5 and 6: every split, any head width, two streams), K2 on f16
 activations at every plan, each launch counted under its dtype, a small
 f16 GPT served over an f16 pool and trained through `TrainStep`, and the
-tuner's f16 keys.
+tuner's f16 keys; and the Gluon front end: the cross-entropy at 2 and 3
+classes, K2 at N = 2 and K = 16, `quantize_net` over ``nn.Dense`` (K2 a
+layer, none under ``MXTPU_QUANT_ACT=1``), and a `gluon.Trainer` over a
+``gluon.nn`` net launching the norm and the chunk.
 
 Marked ``cuda``: each test skips (with its reason) where no card is
 visible, as on the CPU test machine.  Run them on a machine with an H100
@@ -2385,3 +2388,91 @@ def test_fp16_amp_bert_steps_on_the_card(card, weights):
                    k[1] != "float16" for k in launches)
     assert not any(n.startswith(("flash", "softmax")) for n, _ in plaunches)
     assert max(abs(a - b) / abs(b) for a, b in zip(got, want)) <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# the Gluon front end's card cases
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2),
+                                       (torch.float16, 5e-3)])
+@pytest.mark.parametrize("N,V", [(32, 2), (32, 3), (64, 2)])
+def test_softmax_xent_few_classes_match_plain(card, dtype, tol, N, V):
+    """A classifier's logits (BERT fine-tuning's 2 classes, the int8
+    example's 3): one row narrower than a vector."""
+    from mxnet_tpu_torch.ops import softmax_xent as sx
+    g = torch.Generator().manual_seed(5)
+    x = (2 * torch.randn(N, V, generator=g)).to(card, dtype)
+    lab = torch.randint(0, V, (N,), generator=g).to(card, torch.int32)
+    gr = torch.rand(N, generator=g).to(card)
+    lk, sk = sx._xent_fwd_cuda(x, lab)
+    lp, sp = sx.xent_fwd_reference(x, lab)
+    dk = sx._xent_bwd_cuda(x, lab, sk, gr)
+    dp = sx.xent_bwd_reference(x, lab, sp, gr)
+    torch.cuda.synchronize()
+    _qmm_check(lk, lp, 1e-4)
+    _qmm_check(sk, sp, 1e-4)
+    _qmm_check(dk, dp, tol)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("M,N,K", [(64, 2, 16), (64, 64, 16), (64, 2, 768),
+                                   (64, 3, 32)])
+def test_quantized_matmul_gluon_shapes_match_plain(card, bits, M, N, K):
+    """The Gluon MLPs' products: a 2- or 3-class head, a K of 16."""
+    x, qt = _qmm_case(card, torch.float32, bits, M, N, K)
+    kernels.reset_launch_counts()
+    out = qm.quantized_matmul(x, qt)
+    assert kernels.launch_counts()["quantized_matmul"] == 1
+    _qmm_check(out, qm.quantized_matmul_reference(x, qt), 1e-4)
+
+
+def test_quantize_net_launches_k2_per_dense(card, monkeypatch):
+    import mxnet_tpu_torch as tm
+    from mxnet_tpu_torch.contrib.quantization import quantize_net
+    from mxnet_tpu_torch.gluon import nn
+    net = nn.HybridSequential()
+    net.add(nn.Dense(32, in_units=16, activation="relu"), nn.LayerNorm(),
+            nn.Dense(3))
+    net.initialize(device=card)
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn(64, 16, generator=g).to(card)
+    with torch.no_grad():
+        want = net(x)
+    qnet = quantize_net(net, calib_data=[x], calib_mode="naive")
+    kernels.reset_launch_counts()
+    out = qnet(x)
+    assert kernels.launch_counts()["quantized_matmul"] == 2
+    assert kernels.launch_counts()["fused_norm"] == 1
+    monkeypatch.setenv("MXTPU_PALLAS", "reference")
+    _qmm_check(out, qnet(x), 1e-4)
+    monkeypatch.setenv("MXTPU_PALLAS", "auto")
+    monkeypatch.setenv("MXTPU_QUANT_ACT", "1")
+    kernels.reset_launch_counts()
+    act = qnet(x)
+    assert kernels.launch_counts()["quantized_matmul"] == 0
+    assert (act.argmax(-1) == want.argmax(-1)).float().mean() > 0.8
+    assert tm.current_device() == tm.gpu(0)
+
+
+def test_gluon_trainer_launches_the_norm_and_the_chunk(card):
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.gluon import nn
+    net = nn.HybridSequential()
+    net.add(nn.Dense(32, in_units=16, activation="relu"), nn.LayerNorm(),
+            nn.Dense(2))
+    net.initialize(device=card)
+    tr = gluon.Trainer(net.collect_params(), "adam",
+                       {"learning_rate": 1e-3})
+    x = torch.randn(8, 16, device=card)
+    y = torch.randint(0, 2, (8,), device=card)
+    kernels.reset_launch_counts()
+    for _ in range(2):
+        with autograd.record():
+            loss = gluon.loss.SoftmaxCrossEntropyLoss()(net(x), y)
+        autograd.backward(loss)
+        tr.step(8)
+    lc = kernels.launch_counts()
+    assert lc["fused_optimizer_chunk"] == 2 and lc["fused_norm"] == 2
+    assert lc["softmax_xent_fwd"] == 2 and lc["softmax_xent_bwd"] == 2

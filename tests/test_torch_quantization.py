@@ -10,8 +10,10 @@ The same seeded numpy inputs go through both packages:
   of the output's scale;
 - `calib_minmax`, `calib_entropy` and `LayerCalibrator` (naive and entropy,
   below ``max_samples`` so no subsample is drawn) equal;
-- `QuantizedDense` / `quantize_net` raise by name until the port has a
-  Gluon ``Dense`` (ROADMAP.md A3).
+- `QuantizedDense` / `quantize_net` over a Gluon ``Dense`` net: the
+  thresholds equal and the int8 net's output within 1e-6 of its scale
+  (their test keeps the name it had when both raised by name, before the
+  port had ``gluon.nn``).
 """
 import numpy as np
 import pytest
@@ -164,7 +166,35 @@ def test_layer_calibrator_subsample_is_seeded():
 
 
 def test_quantized_dense_and_quantize_net_raise_by_name():
-    with pytest.raises(MXNetError, match="QuantizedDense.*A3"):
-        tq.QuantizedDense(object(), 1.0)
-    with pytest.raises(MXNetError, match="quantize_net.*A3"):
-        tq.quantize_net(object())
+    """Once both raised by name; now they match the JAX package's."""
+    from mxnet_tpu.gluon import nn as jnn
+    import mxnet_tpu_torch as tm
+    from mxnet_tpu_torch.gluon import nn as tnn
+    rng = np.random.RandomState(8)
+    jnet = jnn.HybridSequential()
+    jnet.add(jnn.Dense(12, in_units=10, activation="relu"),
+             jnn.Dense(4, in_units=12))
+    jnet.initialize(mx.init.Normal(0.5))
+    tnet = tnn.HybridSequential()
+    tnet.add(tnn.Dense(12, in_units=10, activation="relu"),
+             tnn.Dense(4, in_units=12))
+    with tm.cpu():
+        tnet.initialize()
+    tnet.load_dict({k: torch.from_numpy(v.data().asnumpy())
+                    for k, v in jnet.collect_params().items()})
+    calib = [rng.randn(6, 10).astype(np.float32) for _ in range(2)]
+    x = rng.randn(5, 10).astype(np.float32)
+    jqn = jq.quantize_net(jnet, calib_data=[mx.np.array(c) for c in calib])
+    tqn = tq.quantize_net(tnet, calib_data=[torch.from_numpy(c)
+                                            for c in calib])
+    for k in ("0", "1"):
+        assert tqn._qmap[k].x_amax == pytest.approx(jqn._qmap[k].x_amax,
+                                                    rel=1e-6)
+    _close(tqn(torch.from_numpy(x)).numpy(),
+           jqn(mx.np.array(x)).asnumpy())
+    jd = jq.QuantizedDense(jnet[1], 2.0)
+    td = tq.QuantizedDense(tnet[1], 2.0)
+    h = rng.randn(5, 12).astype(np.float32)
+    _close(td(torch.from_numpy(h)).numpy(), jd(mx.np.array(h)).asnumpy())
+    np.testing.assert_array_equal(td.qt.scale.numpy(),
+                                  np.asarray(jd.qt.scale))
