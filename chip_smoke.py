@@ -13,8 +13,9 @@ same with Mistral 7B's attention (RoPE, grouped K/V, a sliding window)
 and with Gemma 2B's (heads of 256 over one kv head, RoPE), serving with
 speculative decoding and the prefix cache plus beam search,
 the Transformer translation model (``transformer_base``), the BERT-base
-step again under the rest of the optimizer family and its schedulers, and
-the Gluon front end (BERT-base fine-tuned, an MLP quantized):
+step again under the rest of the optimizer family and its schedulers,
+the Gluon front end (BERT-base fine-tuned, an MLP quantized), and
+``examples/bert_pretraining.py``'s loop under the operations plane:
 
 1. prints the card (name and power limit from ``nvidia-smi``) and the
    torch / CUDA versions;
@@ -380,6 +381,28 @@ the Gluon front end (BERT-base fine-tuned, an MLP quantized):
    ``MXTPU_QUANT_ACT=1`` no K2.  Card cases no other phase has: the
    cross-entropy at 2 and 3 classes, K2 at the MLP's three products
    (timed beside cuBLAS and the bound) and at N = 2, K = 16.
+22. (elastic) ``examples/bert_pretraining.py``'s loop on the port:
+   ``PretrainNet`` over BERT-base in bf16 (full width and depth, seed 0,
+   dropout 0.1 from the model's generator), Adam lr 1e-4 through
+   ``make_train_step``, 8 x 128 with 20 masked positions, 12 seeded
+   batches with a NaN planted in the loss at step 5, health and recovery
+   on (`ELASTIC_*`).  The plane's cost: the 12 steps on a step built with
+   it off and on one built with it on, in turns (off, on, on, off; host
+   clock over steps 3-12), the CUDA kernels a step each way
+   (``torch.profiler``), the FLOPs `tracing.FlopCount` counted at warmup
+   beside `bench_flops_per_step` and the ``mfu_estimate``; the first "on"
+   run is the reference R, and R again from the seed must be bit-equal.
+   Then R under ``ElasticLoop(save_every=4, keep=2, async_save=True)``:
+   step 5's dispatch under ``torch.cuda.set_sync_debug_mode("error")``,
+   its probes reading non-finite gradients and every weight and Adam
+   state bit-equal to step 4's, one tier-1 skip; a real SIGTERM after
+   step 7 (status ``preempted``, checkpoint and resume marker at 7); a
+   fresh step and loop that resume at 7, meet an injected failure at step
+   9 and restore step 8, ending bit-equal to R, the chunk 2 launches a
+   step over the 12 dispatched; the saves' ms from the run journal and
+   the checkpoint's bytes; one byte flipped in the newest checkpoint:
+   quarantined, the restore lands on the one before.  The plane is off
+   again after the phase.
 
 Every count is reset just before a run it reports and read just after.
 The last three stdout lines are the ``nvidia-smi`` card line, the
@@ -5651,6 +5674,348 @@ def run_gluon(dev, results, card):
         raise AssertionError("; ".join(problems))
 
 
+# ---------------------------------------------------------------------------
+# phase elastic: examples/bert_pretraining.py's loop under the operations
+# plane (health probes, the on-device skip, checkpoints, ElasticLoop)
+# ---------------------------------------------------------------------------
+
+ELASTIC_STEPS = 12
+ELASTIC_NAN_STEP = 5      # 1-based: the loss is multiplied by NaN here
+ELASTIC_STOP_STEP = 7     # a real SIGTERM to this process after this step
+ELASTIC_FAIL_STEP = 9     # 1-based: the injected failure (resumed run)
+ELASTIC_SAVE_EVERY = 4
+ELASTIC_KEEP = 2
+ELASTIC_SHAPE = (8, 128, 20)     # batch, sequence, masked positions
+
+
+def elastic_data(dev, vocab):
+    """The reference run's 12 batches (ids, masked positions, labels,
+    flag), made from seeds on the host and moved to the card once; the
+    flag is NaN at `ELASTIC_NAN_STEP`."""
+    import numpy as np
+    import torch
+    B, S, M = ELASTIC_SHAPE
+    out = []
+    for i in range(ELASTIC_STEPS):
+        ids, _, mpos, lab = bert_batch(vocab, B, S, M, seed=100 + i)
+        flag = np.array([np.nan if i + 1 == ELASTIC_NAN_STEP else 1.0],
+                        np.float32)
+        out.append(tuple(torch.from_numpy(a).to(dev)
+                         for a in (ids, mpos, lab, flag)))
+    return out
+
+
+def elastic_step(dev):
+    """``examples/bert_pretraining.py``'s step on the port: its positional
+    adapter ``PretrainNet(ids, masked_positions)`` over
+    ``BertForPretraining(bert_base(dtype="bfloat16"))`` (full width and
+    depth, seed 0, dropout 0.1 from the model's seeded generator), Adam lr
+    1e-4 through `make_train_step` (dp 1), the MLM cross-entropy (the
+    kernel) times the batch's flag; built under ``MXTPU_PALLAS=auto``."""
+    import torch
+    from mxnet_tpu_torch.models import BertForPretraining, bert_base
+    from mxnet_tpu_torch.ops.softmax_xent import softmax_cross_entropy
+    from mxnet_tpu_torch.optimizer import Adam
+    from mxnet_tpu_torch.parallel import make_train_step
+    cfg = bert_base(dtype="bfloat16")
+
+    class PretrainNet(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.model = BertForPretraining(cfg, device=dev, seed=0)
+
+        def forward(self, ids, mpos):
+            return self.model(ids, masked_positions=mpos)
+
+    def loss_fn(out, ids, mpos, lab, flag):
+        return softmax_cross_entropy(out[0], lab).mean() * flag[0]
+
+    with pallas_mode("auto"):
+        return make_train_step(PretrainNet(), Adam(learning_rate=1e-4),
+                               loss_fn, num_model_args=2), cfg
+
+
+def _train_state(step):
+    """Device copies of every weight and optimizer state tensor."""
+    out = {"p:" + n: p.detach().clone() for n, p in step.params.items()}
+    for n in step.diff_names:
+        for i, s in enumerate(step.opt_state[n]):
+            out[f"s:{n}:{i}"] = s.clone()
+    return out
+
+
+def _differ(a, b):
+    """Names whose tensors are not bit-equal."""
+    import torch
+    return sorted(k for k in a if not torch.equal(a[k], b[k]))
+
+
+def _device_kernels(fn):
+    """CUDA kernels `fn` launched, by ``torch.profiler`` (None when the
+    profiler sees no device activity)."""
+    import torch
+    try:
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(1 for e in prof.events()
+                if str(getattr(e, "device_type", "")).endswith("CUDA"))
+        return n or None
+    except Exception:
+        return None
+
+
+def _timed_steps(step, data):
+    """The 12 steps, host clock over steps 3-12 ending in a sync; returns
+    (ms a step, handles)."""
+    import torch
+    hs = []
+    for i, b in enumerate(data):
+        if i == 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        hs.append(step.dispatch(*b))
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / (len(data) - 2), hs
+
+
+def run_elastic(dev, results, card):
+    """Phase elastic (``examples/bert_pretraining.py:95-124`` on the
+    port): the plane's cost (the step with it off and on, in turns), the
+    reference run R twice from the same seed, then R under `ElasticLoop`
+    stopped by a real SIGTERM after step 7 (tier-1 skip at step 5) and
+    resumed by a fresh step and loop that meet an injected failure at step
+    9 (restore from step 8), and a corrupted checkpoint quarantined.
+    Health and recovery are switched on with `health.enable` /
+    `recovery.enable` (the programmatic form of ``MXTPU_HEALTH=1`` /
+    ``MXTPU_RECOVERY=1``, which act at import) and off again at the end."""
+    import signal
+    import tempfile
+    import torch
+    from mxnet_tpu_torch import elastic, health, kernels, recovery
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.utils import CheckpointManager
+
+    out = results["elastic"]
+    root = tempfile.mkdtemp(prefix="mxtpu_elastic_")
+    problems = []
+
+    def check(ok, what):
+        if not ok:
+            problems.append(what)
+            print(f"[elastic] FAILED: {what}", flush=True)
+
+    try:
+        data = elastic_data(dev, 30522)
+
+        # -- the plane's cost: a step built with it off, one with it on,
+        # timed in turns (off, on, on, off); the first "on" run is R --------
+        off, cfg = elastic_step(dev)
+        off.warmup(*data[0])
+        health.enable(crash_dir=os.path.join(root, "crash"))
+        recovery.enable()
+        # the run journal: each checkpoint write's ms, sync or async
+        journal = os.path.join(root, "journal.jsonl")
+        telemetry.enable(journal_path=journal)
+        on, _ = elastic_step(dev)
+        check(on._health_probes and on._skip_nonfinite and
+              not off._health_probes, "the steps' planes")
+        on.warmup(*data[0])
+        off_ms = [_timed_steps(off, data)[0]]
+        kernels.reset_launch_counts()
+        on_ms, hs = _timed_steps(on, data)
+        r_launch = kernels.launch_counts()
+        ref = _train_state(on)
+        probes = [(h.step, float(h.probes["grad_norm"]),
+                   float(h.probes["nonfinite"])) for h in hs]
+        on_ms = [on_ms, _timed_steps(on, data)[0]]
+        off_ms.append(_timed_steps(off, data)[0])
+        off_k = _device_kernels(lambda: off.dispatch(*data[0]))
+        on_k = _device_kernels(lambda: on.dispatch(*data[0]))
+        cost = on.cost_features() or {}
+        mean_on, mean_off = sum(on_ms) / 2, sum(off_ms) / 2
+        mfu = on.mfu_estimate(mean_on / 1e3) or {}
+        B, S, M = ELASTIC_SHAPE
+        bench = bench_flops_per_step(cfg, B, S, M)
+        n_params = sum(p.numel() for p in on.params.values())
+        del on, off, hs
+        torch.cuda.empty_cache()
+        check(probes[ELASTIC_NAN_STEP - 1][2] > 0 and all(
+            p[2] == 0 for p in probes if p[0] != ELASTIC_NAN_STEP),
+            f"the probes' non-finite counts {probes}")
+        cost_row = dict(
+            step_ms_plane_on=on_ms, step_ms_plane_off=off_ms,
+            plane_cost_ms=mean_on - mean_off,
+            kernels_a_step_on=on_k, kernels_a_step_off=off_k,
+            probe_kernels_a_step=(None if on_k is None or off_k is None
+                                  else on_k - off_k),
+            params=n_params, flops_per_step=cost.get("flops"),
+            torch_flops=cost.get("torch_flops"),
+            kernel_flops=cost.get("kernel_flops"),
+            bench_flops_per_step=bench,
+            flops_over_bench=(cost.get("flops") or 0) / bench,
+            mfu_estimate=mfu.get("mfu_estimate"),
+            mfu_peak=mfu.get("peak_flops"), mfu_projected=mfu.get("projected"),
+            r_launches=r_launch, probes=probes)
+        out["cost"] = cost_row
+        print(f"[elastic cost] {json.dumps(cost_row)}", flush=True)
+        print(f"[elastic] {card}: step {on_ms} ms with the plane on, "
+              f"{off_ms} ms off (host clock, steps 3-12; off, on, on, off); "
+              f"{cost_row['probe_kernels_a_step']} more CUDA kernels a step",
+              flush=True)
+        print(f"[elastic] {card}: counted {cost.get('flops')} FLOPs a step "
+              f"(torch {cost.get('torch_flops')}, kernels "
+              f"{cost.get('kernel_flops')}) against bench.py's {bench}; "
+              f"mfu_estimate {mfu.get('mfu_estimate')}", flush=True)
+
+        # -- R again from the seed: bit-equal? --------------------------------
+        step, _ = elastic_step(dev)
+        for b in data:
+            step.dispatch(*b)
+        step.drain()
+        again = _differ(_train_state(step), ref)
+        out["determinism"] = dict(differ_from_r=len(again), names=again[:5])
+        print(f"[elastic] {card}: R twice: {len(again)} tensors differ",
+              flush=True)
+        check(not again, f"R twice differs in {again[:5]}")
+        del step
+        torch.cuda.empty_cache()
+
+        # -- R under ElasticLoop: tier 1 at 5, a real SIGTERM after 7 --------
+        pdir = os.path.join(root, "preempt")
+        step, _ = elastic_step(dev)
+        tier1 = {}
+        calls = []
+
+        def time_save_async(step):        # the snapshot's time to return
+            save_async = step.save_async
+
+            def timed(path):
+                t0 = time.perf_counter()
+                fut = save_async(path)
+                calls.append((time.perf_counter() - t0) * 1e3)
+                return fut
+            step.save_async = timed
+
+        time_save_async(step)
+
+        def run_step(i):
+            if i + 1 != ELASTIC_NAN_STEP:
+                return step.dispatch(*data[i]).loss
+            before = _train_state(step)
+            torch.cuda.set_sync_debug_mode("error")   # no host sync
+            try:
+                h = step.dispatch(*data[i])
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            tier1.update(nonfinite=float(h.probes["nonfinite"]),
+                         changed=_differ(before, _train_state(step)))
+            return h.loss
+
+        def on_step(i, _loss):
+            if i == ELASTIC_STOP_STEP:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        kernels.reset_launch_counts()
+        loop = elastic.ElasticLoop(step, pdir, save_every=ELASTIC_SAVE_EVERY,
+                                   keep=ELASTIC_KEEP, async_save=True,
+                                   watchdog_timeout=300.0)
+        res_p = loop.run(run_step, ELASTIC_STEPS, on_step=on_step)
+        skips = loop.recovery.skips
+        marker = recovery.read_resume_marker(pdir)
+        del step, loop
+        torch.cuda.empty_cache()
+
+        # -- a fresh step and loop resume at 7; a failure at 9 ---------------
+        step, _ = elastic_step(dev)       # as a restarted job builds it
+        time_save_async(step)
+        seen = []
+
+        def resumed(i):
+            seen.append(i)
+            return step.dispatch(*data[i]).loss
+
+        loop = elastic.ElasticLoop(
+            step, pdir, save_every=ELASTIC_SAVE_EVERY, keep=ELASTIC_KEEP,
+            async_save=True,
+            failure_injector=elastic.FailureInjector([ELASTIC_FAIL_STEP - 1]))
+        res_r = loop.run(resumed, ELASTIC_STEPS)
+        launches = kernels.launch_counts()
+        step.drain()
+        resume_diff = _differ(_train_state(step), ref)
+        row = dict(preempt_status=res_p["status"], preempt_step=res_p["step"],
+                   preempt_checkpoint=os.path.basename(
+                       res_p.get("checkpoint") or ""),
+                   marker=marker, skips=skips,
+                   tier1_nonfinite=tier1.get("nonfinite"),
+                   tier1_changed=len(tier1.get("changed", ["?"])),
+                   resume_status=res_r["status"], restores=res_r["restores"],
+                   steps_run=seen, differ_from_r=len(resume_diff),
+                   launches=launches,
+                   on_disk=[s for s, _ in loop.manager.checkpoints()])
+        out["runs"] = {"loop": row}
+        print(f"[elastic loop] {json.dumps(row)}", flush=True)
+        check(tier1.get("nonfinite", 0) > 0 and not tier1.get("changed"),
+              f"tier 1: {tier1}")
+        check(skips == 1, f"{skips} tier-1 skips")
+        check(res_p["status"] == "preempted" and
+              res_p["step"] == ELASTIC_STOP_STEP and marker is not None and
+              marker.get("step") == ELASTIC_STOP_STEP and
+              marker.get("complete"), f"preemption {res_p} {marker}")
+        check(res_r["status"] == "completed" and res_r["restores"] == 1 and
+              seen == list(range(ELASTIC_STOP_STEP, ELASTIC_STEPS)),
+              f"resume {res_r} ran {seen}")
+        check(not resume_diff, f"resumed run differs in {resume_diff[:5]}")
+        # 12 steps dispatched in all, the chunk once per dtype group each
+        check(launches["fused_optimizer_chunk"] == 2 * ELASTIC_STEPS,
+              f"chunk launches {launches}")
+        # the checkpoints' writes, from the journal (sync: the anchor, the
+        # preemption's and the final save; async: the periodic ones)
+        writes = [r for r in telemetry.RunJournal.read(journal)
+                  if r["event"] == "checkpoint_write"]
+        sync_w = [r["ms"] for r in writes if not r["async_save"]]
+        async_w = [r["ms"] for r in writes if r["async_save"]]
+        ckpt_bytes = os.path.getsize(loop.manager.latest()[1])
+        save_row = dict(sync_save_ms=sync_w, async_save_ms=async_w,
+                        async_save_call_ms=calls,
+                        checkpoint_bytes=ckpt_bytes,
+                        checkpoint_bytes_per_param=ckpt_bytes / n_params)
+        out["cost"].update(save_row)
+        print(f"[elastic saves] {json.dumps(save_row)}", flush=True)
+        print(f"[elastic] {card}: saves sync {sync_w} ms, async {async_w} "
+              f"ms in the writer ({calls} ms to return); {ckpt_bytes} bytes "
+              f"a checkpoint ({ckpt_bytes / n_params:.3f} a parameter)",
+              flush=True)
+
+        # -- a corrupted newest checkpoint is quarantined --------------------
+        mgr = CheckpointManager(pdir, keep=ELASTIC_KEEP)
+        newest, path = mgr.latest()
+        with open(path, "r+b") as f:
+            f.seek(os.path.getsize(path) // 2)
+            b = f.read(1)
+            f.seek(-1, os.SEEK_CUR)
+            f.write(bytes([b[0] ^ 0xFF]))
+        got = mgr.restore(step)
+        row = dict(corrupted=newest, restored=got,
+                   quarantined=os.path.exists(path + ".corrupt"))
+        out["runs"]["corrupt"] = row
+        print(f"[elastic corrupt] {json.dumps(row)}", flush=True)
+        check(row["quarantined"] and got == ELASTIC_SAVE_EVERY * (
+            newest // ELASTIC_SAVE_EVERY - 1),
+            f"corruption: {row}")
+        del step, loop
+    finally:
+        recovery.disable()
+        health.disable()
+        telemetry.disable()
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    out["problems"] = problems
+    if problems:
+        raise AssertionError(f"elastic: {problems}")
+
+
 def kernel_entries(results):
     """One entry per ported kernel for the ``kernels`` line: the
     representative main-path case (K1: f32 decode C=1 MHA, no window; K2:
@@ -5668,7 +6033,8 @@ def kernel_entries(results):
     main-path runs (serving for K1/K2, the BERT, MoE and GPT training runs
     for the others); ``gpt_launches`` is the GPT phase's share,
     ``gpt_gqa_launches`` the gpt_gqa phase's, ``nmt_launches`` the nmt
-    phase's training runs', and K1's ``spec_prefix_launches`` the
+    phase's training runs', ``elastic_launches`` the elastic phase's
+    `ElasticLoop` run's, and K1's ``spec_prefix_launches`` the
     spec_prefix phase's engine's.  The flash entries also carry k3's band
     and fold cases and the nmt phase's three attentions, the chunk GPT-2
     small's AdamW and transformer_base's Adam, cross-entropy and the norm
@@ -5734,6 +6100,9 @@ def kernel_entries(results):
     train.update({"optim_" + k: v for k, v in results["optim"].items()
                   if isinstance(v, dict) and "launches" in v
                   and not k.startswith("control_")})
+    elastic_runs = {k: v for k, v in results["elastic"].get(
+        "runs", {}).items() if "launches" in v}
+    train.update({"elastic_" + k: v for k, v in elastic_runs.items()})
     k1_launch = e2e.get("float32", {}).get("launches", {}).get(
         "ragged_paged_attention", 0)
     k2_launch = sum(e2e.get(k, {}).get("launches", {}).get(
@@ -5755,6 +6124,8 @@ def kernel_entries(results):
                     for r in results["gpt_d256"].values()),
                 "nmt_launches": sum(r["launches"].get(name, 0)
                                     for r in nmt_runs),
+                "elastic_launches": sum(r["launches"].get(name, 0)
+                                        for r in elastic_runs.values()),
                 "max_abs_err": max(c["max_abs_err"] for c in cases),
                 "ms": rep[mk], "kernel_ms": rep[mk],
                 "plain_ms": rep[pre + "plain_ms"],
@@ -6088,7 +6459,8 @@ def main(argv=None) -> int:
                "gpt_d256": {}, "gpt_d256_controls": {},
                "gpt_d256_one_ulp": {},
                "spec_prefix": {}, "nmt": {}, "optim": {}, "amp": {},
-               "amp_controls": {}, "amp_one_ulp": {}, "gluon": {}}
+               "amp_controls": {}, "amp_one_ulp": {}, "gluon": {},
+               "elastic": {}}
     failed = []
     t0 = time.perf_counter()
     # build from the checkout's sources, never from a leftover library
@@ -6134,7 +6506,8 @@ def main(argv=None) -> int:
                      ("spec_prefix", run_spec_prefix), ("nmt", run_nmt),
                      ("optim", lambda d, r, c: run_optim(d, r, c,
                                                          fault_builds)),
-                     ("amp", run_amp), ("gluon", run_gluon)):
+                     ("amp", run_amp), ("gluon", run_gluon),
+                     ("elastic", run_elastic)):
         t_phase = time.perf_counter()
         try:
             fn(dev, results, card)

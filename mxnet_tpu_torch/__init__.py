@@ -48,7 +48,14 @@ Ported so far (ROADMAP.md), slice by slice:
     ``torch.nn.Module`` with `gluon.Parameter`, the layers of `gluon.nn`,
     every loss of `gluon.loss` (CTC through `ops.nn.ctc_loss`),
     `gluon.metric`, `gluon.utils`, and `contrib.quantization.quantize_net`
-    over ``nn.Dense`` through the dequant-matmul kernel.
+    over ``nn.Dense`` through the dequant-matmul kernel;
+13. the operations plane on the training path: `resilience` (fault
+    points, ``MXTPU_FAULT_SPEC``), `telemetry`, `tracing`, `health`
+    (``MXTPU_HEALTH``: probes, anomaly rules, hang watchdog, crash
+    bundles), `recovery` (``MXTPU_RECOVERY``: the on-device non-finite
+    skip, rollback, budgets), `utils.CheckpointManager`, `elastic`
+    (`ElasticLoop`) and `profiler`, with `TrainStep`'s probes, skip and
+    ``save`` / ``save_async`` / ``load``.
 """
 from .base import MXNetError  # noqa: F401
 from . import device  # noqa: F401
@@ -59,6 +66,8 @@ from . import autograd, random, initializer  # noqa: F401
 from . import initializer as init  # noqa: F401
 from . import kernels, ops, models, serve, gluon, optimizer, parallel  # noqa: F401,E501
 from . import amp, benchmark, contrib  # noqa: F401
+from . import resilience, telemetry, tracing, health, recovery  # noqa: F401
+from . import elastic, profiler, utils  # noqa: F401
 from .optimizer import lr_scheduler  # noqa: F401
 from .convert import load_jax_optimizer_states, load_jax_params  # noqa: F401
 
@@ -67,4 +76,6 @@ __all__ = ["MXNetError", "device", "resolve_device", "Device", "Context",
            "current_context", "num_gpus", "autograd", "random",
            "initializer", "init", "kernels", "ops", "models", "serve",
            "gluon", "optimizer", "parallel", "amp", "benchmark", "contrib",
+           "resilience", "telemetry", "tracing", "health", "recovery",
+           "elastic", "profiler", "utils",
            "lr_scheduler", "load_jax_params", "load_jax_optimizer_states"]

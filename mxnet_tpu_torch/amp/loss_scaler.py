@@ -1,8 +1,10 @@
 """Dynamic loss scaler (counterpart of ``mxnet_tpu/amp/loss_scaler.py``;
 parity: `python/mxnet/amp/loss_scaler.py`).
 
-JAX's scaler also reports each scale to its training-health monitor; that
-hook is not ported (ROADMAP.md, A14).
+With `health` enabled, every scale the scaler settles on (`update_scale`,
+`backoff`) goes to the training-health monitor, whose
+``loss_scale_collapse`` rule watches it; `recovery.RecoveryPolicy` calls
+`backoff` on a tier-1 skip.
 """
 from __future__ import annotations
 
@@ -57,12 +59,14 @@ class LossScaler:
 
     def backoff(self, factor=None) -> float:
         """Immediately shrink the scale (floored at 1.0) outside the
-        normal per-step `update_scale` cadence, and start a fresh overflow
-        window; returns the new scale."""
+        normal per-step `update_scale` cadence — the recovery policy's
+        tier-1 remediation — and start a fresh overflow window; returns
+        the new scale."""
         f = self._scale_factor if factor is None else factor
         self.loss_scale = max(self.loss_scale / f, 1.0)
         self._last_rescale_iter = self._iter
         self._overflows_since_rescale = 0
+        _note_health(self.loss_scale)
         return self.loss_scale
 
     def update_scale(self, overflow: bool):
@@ -88,3 +92,14 @@ class LossScaler:
             self.loss_scale *= self._scale_factor
             self._last_rescale_iter = self._iter
         self._iter += 1
+        _note_health(self.loss_scale)
+
+
+def _note_health(scale: float) -> None:
+    """Hand the scale to the health monitor (one module lookup when
+    health is off)."""
+    from .. import health as _health
+    if _health.enabled():
+        mon = _health.monitor()
+        if mon is not None:
+            mon.note_loss_scale(scale)

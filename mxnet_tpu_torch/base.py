@@ -10,11 +10,19 @@ from __future__ import annotations
 import os
 from typing import Dict, Optional
 
-__all__ = ["MXNetError", "getenv_bool", "getenv_int", "Registry"]
+__all__ = ["MXNetError", "SuspectedHostLoss", "getenv_bool", "getenv_int",
+           "Registry"]
 
 
 class MXNetError(RuntimeError):
     """Error raised by the framework (parity: dmlc::Error / MXNetError)."""
+
+
+class SuspectedHostLoss(MXNetError):
+    """A bounded multi-process coordination round (flag sync, step
+    consensus) timed out: the most likely cause is a peer that died or was
+    preempted mid-collective.  Subclasses `MXNetError` so die-and-restart
+    handling still applies, but carries the diagnosis."""
 
 
 def getenv_bool(name: str, default: bool = False) -> bool:

@@ -24,10 +24,11 @@ JAX), ``quantized_matmul`` (K2's variant and split-K factor,
 ``MXTPU_SERVE_PAGE_SIZE`` is unset), ``flash_attention`` (the flash
 forward's block_q and block_k, `ops.flash_attention.resolve_blocks`) and
 ``fused_norm`` (the norm kernel's rows a block,
-`ops.fused_norm.resolve_block_rows`).  The
-telemetry counters and the tracing attribution of JAX's ``tune()`` wait
-for the operations-plane slice
-(ROADMAP.md A14).
+`ops.fused_norm.resolve_block_rows`).  With `telemetry` enabled, `tune()`
+counts ``autotune_hits`` / ``autotune_misses``, observes
+``autotune_search_ms`` and journals an ``autotune`` event, as JAX's does;
+a search also records the winner's roofline and measured time with
+`tracing.CostAccountant.record_features` (key ``autotune/<op>/<key>``).
 """
 from __future__ import annotations
 
@@ -336,10 +337,16 @@ def tune(op: str, shapes: Sequence[int], dtype="float32", warmup: int = 1,
         raise MXNetError(f"unknown tunable op {op!r}; registered: "
                          f"{sorted(_REGISTRY)}")
     tunable = _REGISTRY[op]
+    from .. import telemetry as _tele
     kind = device_kind()
     key = _key(op, shapes, dtype, kind)
     hit = cached_config(op, shapes, dtype)
     if hit is not None:
+        if _tele.enabled():
+            _tele.counter(
+                "autotune_hits",
+                "tune() calls served from the persisted/in-memory "
+                "config cache (zero timed trials)").inc()
         return TuneResult(hit, True, "memory", 0, 0.0, {})
 
     t0 = time.perf_counter()
@@ -367,6 +374,14 @@ def tune(op: str, shapes: Sequence[int], dtype="float32", warmup: int = 1,
             best, best_ms = cfg, ms
     search_ms = (time.perf_counter() - t0) * 1e3
     if not timings:
+        # every survivor failed: nothing is pinned, the key stays cold
+        if _tele.enabled():
+            _tele.counter(
+                "autotune_misses",
+                "tune() calls that ran a timed search").inc()
+            _tele.event("autotune", op=op, key=key, config=None,
+                        trials=0, failed=True,
+                        search_ms=round(search_ms, 2))
         return TuneResult(best, False, "search", 0, search_ms, {})
     global _GEN
     with _LOCK:
@@ -376,5 +391,28 @@ def tune(op: str, shapes: Sequence[int], dtype="float32", warmup: int = 1,
     _disk_store(op, key, best, extra={"dtype": dtype_name(dtype),
                                       "device_kind": kind,
                                       "median_ms": round(best_ms, 4)})
+    # performance attribution (tracing): the winner's analytic roofline
+    # beside its measured time, one labeled row per tuned key
+    try:
+        from .. import tracing as _trace
+        rf = tunable.roofline(best, shapes, dtype)
+        _trace.account().record_features(
+            f"autotune/{op}/{key}",
+            {"flops": float(rf.get("flops", 0.0)),
+             "bytes_accessed": float(rf.get("bytes", 0.0))},
+            kind="autotune_trial", op=op, config=dict(best),
+            measured_ms=round(best_ms, 4), source="roofline")
+    except Exception:   # attribution must never fail a search
+        pass
+    if _tele.enabled():
+        _tele.counter(
+            "autotune_misses",
+            "tune() calls that ran a timed search").inc()
+        _tele.histogram(
+            "autotune_search_ms",
+            "Wall time of one autotune search (prune + timed trials)"
+        ).observe(search_ms)
+        _tele.event("autotune", op=op, key=key, config=dict(best),
+                    trials=len(timings), search_ms=round(search_ms, 2))
     return TuneResult(best, False, "search", len(timings), search_ms,
                       timings)

@@ -47,6 +47,7 @@ import torch
 
 from ..base import MXNetError
 from .. import kernels as _kernels
+from .. import tracing as _tracing
 from . import autotune
 
 __all__ = ["flash_attention", "flash_attention_reference",
@@ -696,6 +697,10 @@ class _FlashAttention(torch.autograd.Function):
             o, lse = _flash_fwd_cuda(q, k, v, bias3, seed, scale, causal,
                                      rate, per_head, per_row, plan, window,
                                      window_symmetric, lq)
+            # the products' FLOPs, for a counting `tracing.FlopCount`
+            # (which cannot see into the kernel): QK^T and PV
+            _tracing.note_kernel_flops("flash_attention_fwd",
+                                       4 * q.numel() * k.shape[2])
         else:
             o, lse = flash_fwd_reference(q, k, v, bias3, seed, scale, causal,
                                          rate, per_head, per_row, window,
@@ -715,6 +720,9 @@ class _FlashAttention(torch.autograd.Function):
                                          g.contiguous(), scale, causal, rate,
                                          per_head, per_row, None, window,
                                          window_symmetric, lq)
+            # the recomputed QK^T and the four gradient products
+            _tracing.note_kernel_flops("flash_attention_bwd",
+                                       10 * q.numel() * k.shape[2])
         else:
             dq, dk, dv = flash_bwd_reference(q, k, v, bias3, seed, o, lse, g,
                                              scale, causal, rate, per_head,

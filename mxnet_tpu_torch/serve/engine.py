@@ -38,8 +38,9 @@ at the thresholds of ``act_thresholds`` (a
 
 Features still raising `MXNetError` until their slice (ROADMAP.md queue
 A): ``tp > 1`` and ``role != "both"`` (A12, A15), export and
-`adopt_executables` (A16).  QoS, tracing and telemetry (A14, A15) are not
-ported.
+`adopt_executables` (A16).  The serving side of QoS, tracing and
+telemetry (A14 part 2, A15) is not ported; the `telemetry`, `tracing` and
+`health` modules themselves are (A14 part 1, on the training path).
 """
 from __future__ import annotations
 

@@ -25,8 +25,9 @@ the step's per-position argmax accepts the run of drafts that match it,
 and the write cursor rolls back past the rest (`_trim_pages`).  Greedy
 streams stay those of one-token decode.
 
-QoS, the traffic journal, tracing, telemetry, disaggregated handoff and
-fleet salvage wait for later slices (ROADMAP.md queue A: A14, A15).
+QoS, the traffic journal, the scheduler's tracing and telemetry,
+disaggregated handoff and fleet salvage wait for later slices (ROADMAP.md
+queue A: A14 part 2, A15).
 """
 from __future__ import annotations
 

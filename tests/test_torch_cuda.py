@@ -47,7 +47,11 @@ f16 GPT served over an f16 pool and trained through `TrainStep`, and the
 tuner's f16 keys; and the Gluon front end: the cross-entropy at 2 and 3
 classes, K2 at N = 2 and K = 16, `quantize_net` over ``nn.Dense`` (K2 a
 layer, none under ``MXTPU_QUANT_ACT=1``), and a `gluon.Trainer` over a
-``gluon.nn`` net launching the norm and the chunk.
+``gluon.nn`` net launching the norm and the chunk; and the operations
+plane: a `TrainStep` under health and recovery whose own skip flag (one NaN
+planted in a gradient) keeps every weight and state bit through the chunk
+and LAMB kernels with no host sync, and its ``save_async`` / ``load``
+round trip, dropout generator included, bit-equal.
 
 Marked ``cuda``: each test skips (with its reason) where no card is
 visible, as on the CPU test machine.  Run them on a machine with an H100
@@ -2476,3 +2480,127 @@ def test_gluon_trainer_launches_the_norm_and_the_chunk(card):
     lc = kernels.launch_counts()
     assert lc["fused_optimizer_chunk"] == 2 and lc["fused_norm"] == 2
     assert lc["softmax_xent_fwd"] == 2 and lc["softmax_xent_bwd"] == 2
+
+
+# ---------------------------------------------------------------------------
+# the operations plane on the card: the step's own skip flag, checkpoints
+# ---------------------------------------------------------------------------
+
+def _plane_step(card, opt_name, monkeypatch, dropout=0.0):
+    """A 2-layer BERT (hidden 64) `TrainStep` on the card under health and
+    recovery; a hook plants one NaN in the first layer's FFN bias gradient
+    while ``poison[0]`` is set."""
+    from mxnet_tpu_torch import health, recovery
+    from mxnet_tpu_torch import optimizer as topt
+    from mxnet_tpu_torch.models import bert as tb
+    from mxnet_tpu_torch.ops import softmax_cross_entropy
+    from mxnet_tpu_torch.parallel import TrainStep
+
+    monkeypatch.setenv("MXTPU_PALLAS", "auto")
+    health.enable(crash_dir=None)
+    recovery.enable()
+    cfg = tb.BertConfig(vocab_size=128, hidden_size=64, num_layers=2,
+                        num_heads=4, intermediate_size=128, max_position=32,
+                        dropout=dropout, dtype="bfloat16")
+
+    class Bench(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.model = tb.BertForPretraining(cfg, device=card, seed=5)
+
+        def forward(self, ids, vl, mp):
+            return self.model(ids, valid_length=vl, masked_positions=mp)
+
+    net = Bench()
+    poison = [False]
+    target = dict(net.named_parameters())[
+        "model.bert.layers.0.ffn_intermediate.bias"]
+    # made here: writing one element from the host inside the step would
+    # itself be the host sync the test forbids
+    nan_at_3 = torch.zeros_like(target)
+    nan_at_3.view(-1)[3] = float("nan")
+
+    def plant(g):
+        return g + nan_at_3 if poison[0] else g
+
+    target.register_hook(plant)
+    opt = getattr(topt, opt_name)(learning_rate=1e-3)
+    step = TrainStep(net, opt,
+                     lambda out, ids, vl, mp, lab:
+                     softmax_cross_entropy(out[0], lab).mean(),
+                     num_model_args=3)
+    rng = np.random.RandomState(0)
+    batch = (torch.from_numpy(rng.randint(0, 128, (4, 32)).astype(np.int32)),
+             torch.full((4,), 32, dtype=torch.int32),
+             torch.from_numpy(np.sort(rng.rand(4, 32).argsort(1)[:, :5], 1)
+                              .astype(np.int32)),
+             torch.from_numpy(rng.randint(0, 128, (4, 5)).astype(np.int32)))
+    return step, tuple(b.to(card) for b in batch), poison
+
+
+@pytest.fixture
+def plane_off():
+    from mxnet_tpu_torch import health, recovery, telemetry
+    yield
+    recovery.disable()
+    health.disable()
+    telemetry.disable()
+
+
+@pytest.mark.parametrize("opt_name,kernel", [("Adam", "fused_optimizer_chunk"),
+                                             ("LAMB", "lamb_phase_b")])
+def test_step_computed_skip_keeps_weights_and_state_bit_exact(
+        card, monkeypatch, plane_off, opt_name, kernel):
+    step, batch, poison = _plane_step(card, opt_name, monkeypatch)
+    assert step._fused_opt_kernel and step._skip_nonfinite
+    step.dispatch(*batch)
+    torch.cuda.synchronize()
+    before = {n: p.detach().clone() for n, p in step.params.items()}
+    state = {n: [s.clone() for s in step.opt_state[n]]
+             for n in step.diff_names}
+    poison[0] = True
+    kernels.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")   # no host sync in the step
+    try:
+        h = step.dispatch(*batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert kernels.launch_counts()[kernel] >= 1
+    assert float(h.probes["nonfinite"]) == 1.0
+    assert not np.isfinite(float(h.probes["grad_norm"]))
+    torch.cuda.synchronize()
+    for n, p in step.params.items():
+        assert torch.equal(p, before[n]), n
+    for n in step.diff_names:
+        for a, b in zip(step.opt_state[n], state[n]):
+            assert torch.equal(a, b), n
+    poison[0] = False
+    step.dispatch(*batch)
+    torch.cuda.synchronize()
+    assert any(not torch.equal(p, before[n])
+               for n, p in step.params.items())
+
+
+def test_cuda_train_step_save_load_round_trip(card, monkeypatch, plane_off,
+                                              tmp_path):
+    step, batch, _ = _plane_step(card, "Adam", monkeypatch, dropout=0.1)
+    for _ in range(2):
+        step.dispatch(*batch)
+    path = str(tmp_path / "ck.npz")
+    step.save_async(path).result(timeout=60)
+    saved = {n: p.detach().clone() for n, p in step.params.items()}
+    first = [float(step.dispatch(*batch).loss) for _ in range(2)]
+    after = {n: p.detach().clone() for n, p in step.params.items()}
+    state = {n: [s.clone() for s in step.opt_state[n]]
+             for n in step.diff_names}
+    step.load(path)
+    assert step._t == 2
+    for n, p in step.params.items():
+        assert torch.equal(p, saved[n]), n
+    again = [float(step.dispatch(*batch).loss) for _ in range(2)]
+    assert first == again                 # the dropout generator came back
+    for n, p in step.params.items():
+        assert torch.equal(p, after[n]), n
+    for n in step.diff_names:
+        for a, b in zip(step.opt_state[n], state[n]):
+            assert torch.equal(a, b), n

@@ -37,7 +37,11 @@ def test_import_leaves_no_jax_and_no_jax_package():
             "mxnet_tpu_torch.parallel.train, mxnet_tpu_torch.parallel.moe, "
             "mxnet_tpu_torch.ops.moe_dispatch, mxnet_tpu_torch.ops.autotune, "
             "mxnet_tpu_torch.gluon.trainer, mxnet_tpu_torch.benchmark, "
-            "mxnet_tpu_torch.optimizer.updater\n"
+            "mxnet_tpu_torch.optimizer.updater, mxnet_tpu_torch.resilience, "
+            "mxnet_tpu_torch.telemetry, mxnet_tpu_torch.tracing, "
+            "mxnet_tpu_torch.health, mxnet_tpu_torch.recovery, "
+            "mxnet_tpu_torch.elastic, mxnet_tpu_torch.profiler, "
+            "mxnet_tpu_torch.utils.checkpoint\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu')]\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
