@@ -120,8 +120,9 @@ the Gluon front end (BERT-base fine-tuned, an MLP quantized), and
    timed (also device-only, and the host µs a call) against
    ``F.layer_norm`` / ``F.rms_norm`` with the parameters cast to x's
    dtype, and at (8192, 768) LayerNorm at every block_rows of JAX's menu;
-9. (k6) the optimizer kernels over BERT-base's real parameter list (159
-   tensors, 133.6 M elements; f32 model: one dtype group, bf16 model: bf16
+9. (k6) the optimizer kernels over BERT-base's real parameter list at
+   `OPTIM_LAYERS` of its 12 layers (every leaf shape of the model, 63
+   tensors, 76.8 M elements; f32 model: one dtype group, bf16 model: bf16
    weights and f32 LayerNorm parameters) — the multi-tensor chunk for Adam,
    AdamW, SGD with momentum, NAG, Signum with and without momentum,
    AdaBelief, Adamax, AdaDelta and FTML (its three state slots), LAMB
@@ -361,9 +362,10 @@ the Gluon front end (BERT-base fine-tuned, an MLP quantized), and
    within 5e-3 of the output scale, beside SDPA and ``cross_entropy`` on
    the f16 inputs.
 21. (gluon) the Gluon front end: ``examples/bert_finetune.py``'s
-   ``BertClassifier`` over ``BertModel(bert_base())`` (full width and
-   depth, seed 0, N(0, 0.02), dropout 0.1), its backbone written by
-   ``save_parameters`` and read back by ``load_parameters`` bit for bit,
+   ``BertClassifier`` with ``BertModel(bert_base())`` as its direct child
+   ``bert`` (full width and depth, seed 0, N(0, 0.02), dropout 0.1), the
+   backbone a ``BertModel`` written by ``save_parameters`` and read back
+   by ``net.bert.load_parameters`` bit for bit,
    ``hybridize()``, 8 steps of 32 x 128 (valid_length in [102, 128])
    under ``autograd.record`` with ``SoftmaxCrossEntropyLoss`` and
    ``gluon.Trainer(net.collect_params(), "adam")`` with the layer-wise
@@ -381,7 +383,28 @@ the Gluon front end (BERT-base fine-tuned, an MLP quantized), and
    ``MXTPU_QUANT_ACT=1`` no K2.  Card cases no other phase has: the
    cross-entropy at 2 and 3 classes, K2 at the MLP's three products
    (timed beside cuBLAS and the bound) and at N = 2, K = 16.
-22. (elastic) ``examples/bert_pretraining.py``'s loop on the port:
+22. (gluon_gpt) the models as Gluon blocks, through the Gluon calls of
+   ``examples/gpt_generation.py`` and ``examples/serve_gpt.py`` (torch
+   tensors for ``mx.np`` arrays): (a) the example as written, both its
+   configurations (V 64, hidden 64, 2 layers; classic, and RoPE with 2 kv
+   heads and window 8): ``GPTForCausalLM(cfg)``, ``initialize()``, the
+   first call, 120 Adam steps at 3e-3 of 8 x 24 grammar tokens through
+   ``gluon.Trainer(model.collect_params())`` under ``autograd.record``,
+   then greedy (rule accuracy > 0.6), sampled and 4-beam decodes; (b)
+   ``gpt_small(dropout=0.1, dtype="bfloat16")`` (124 M, no cut) built and
+   trained the same way, Adam 1e-4 over 20 batches of 8 x 1024 grammar
+   tokens, against its plain twin (`_plain_twin`, the plain loss and
+   update) within `gpt_tol`, step 1 by `gpt_step1_check` at bf16's
+   limit, launches a step exact (flash 12 + 12, the norm 25, the
+   cross-entropy 1 + 1, the chunk 2), greedy and 4-beam decodes equal to
+   the twin's over the trained weights, and ``save_parameters`` into a
+   fresh model, ``initialize()``, ``load_parameters``: logits bit-equal;
+   (c) ``examples/serve_gpt.py``'s engine (2 slots, 6 pages of 4) over
+   that Block: its six prompts, at least one eviction, every stream equal
+   to an unbatched ``generate`` (near ties of the plain path aside), K1
+   12 times a fused step.  The example's telemetry snapshot waits for
+   ROADMAP.md A14 part 2.
+23. (elastic) ``examples/bert_pretraining.py``'s loop on the port:
    ``PretrainNet`` over BERT-base in bf16 (full width and depth, seed 0,
    dropout 0.1 from the model's generator), Adam lr 1e-4 through
    ``make_train_step``, 8 x 128 with 20 masked positions, 12 seeded
@@ -1855,12 +1878,21 @@ CHUNK_RULE_NAMES = ("Adam", "AdamW", "SGD", "NAG", "Signum", "AdaBelief",
                     "Adamax", "AdaDelta", "FTML")
 
 
-def bert_leaves(dtype):
+def bert_leaves(dtype, layers=None):
     """(name, shape, dtype) of every parameter of BERT-base for
-    pretraining in `dtype` (LayerNorm parameters stay f32)."""
+    pretraining in `dtype` (LayerNorm parameters stay f32), at `layers` of
+    its 12 layers where given."""
     from mxnet_tpu_torch.models import BertForPretraining, bert_base
-    m = BertForPretraining(bert_base(dtype=dtype), device="cpu", seed=0)
+    cfg = bert_base(dtype=dtype) if layers is None else \
+        bert_base(dtype=dtype, num_layers=layers)
+    m = BertForPretraining(cfg, device="cpu", seed=0)
     return [(n, tuple(p.shape), p.dtype) for n, p in m.named_parameters()]
+
+
+def bert_optim_leaves(dtype):
+    """`bert_leaves` at the optim phase's depth, `OPTIM_LAYERS`: every
+    leaf shape of the full model, a third of its layers."""
+    return bert_leaves(dtype, OPTIM_LAYERS)
 
 
 def nmt_leaves(dtype):
@@ -1883,7 +1915,7 @@ def gpt_leaves(dtype):
 # k6's parameter lists and the rules over each: BERT-base under every rule,
 # GPT-2 small under the gpt phases' AdamW, transformer_base under the nmt
 # phase's Adam
-OPT_MODELS = (("bert_base", bert_leaves, None),
+OPT_MODELS = (("bert_base", bert_optim_leaves, None),
               ("gpt_small", gpt_leaves, ("adamw",)),
               ("transformer_base", nmt_leaves, ("adam",)))
 # k6's f16 cases, (model, leaves, rule, state dtype): GPT-2 small's f16
@@ -1892,7 +1924,7 @@ OPT_MODELS = (("bert_base", bert_leaves, None),
 # under LAMB (the optim phase's f16 run)
 OPT_F16 = (("gpt_small", gpt_leaves, "adamw", "float32"),
            ("gpt_small", gpt_leaves, "adamw", "float16"),
-           ("bert_base", bert_leaves, "lamb", "float32"))
+           ("bert_base", bert_optim_leaves, "lamb", "float32"))
 # one step of each 16-bit type, relative to the value
 STEP16 = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
 
@@ -2280,9 +2312,8 @@ def bert_train_step(dev, dtype, plain=False, opt="Adam", route="auto",
     or every LayerNorm on the norm kernel's RMS branch."""
     import torch
     from mxnet_tpu_torch import optimizer as topt
-    from mxnet_tpu_torch.models.layers import FusedSelfAttention, LayerNorm
-    from mxnet_tpu_torch.ops.attention import multi_head_attention_reference
-    from mxnet_tpu_torch.ops.fused_norm import fused_layer_norm_reference
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.models.layers import _plain_twin
     from mxnet_tpu_torch.ops.fused_optimizer import kernel_plain
     from mxnet_tpu_torch.ops.softmax_xent import (
         softmax_cross_entropy, softmax_cross_entropy_reference)
@@ -2291,11 +2322,7 @@ def bert_train_step(dev, dtype, plain=False, opt="Adam", route="auto",
     bench = bert_bench(dev, dtype)
     xent = softmax_cross_entropy
     if plain:
-        for m in bench.modules():
-            if isinstance(m, FusedSelfAttention):
-                m.attend = multi_head_attention_reference
-            if isinstance(m, LayerNorm) and route != "reference":
-                m.norm = fused_layer_norm_reference
+        _plain_twin(bench, norms=route != "reference")
         xent = softmax_cross_entropy_reference
     optimizer = getattr(topt, opt)(learning_rate=OPT_LR[opt])
     update = None
@@ -2305,8 +2332,8 @@ def bert_train_step(dev, dtype, plain=False, opt="Adam", route="auto",
         optimizer = topt.AdamW(learning_rate=OPT_LR[opt], correct_bias=False)
     elif fault == "layernorm_as_rmsnorm":
         for m in bench.modules():
-            if isinstance(m, LayerNorm):
-                m.norm = _layernorm_as_rmsnorm
+            if isinstance(m, nn.LayerNorm):
+                m._norm = _layernorm_as_rmsnorm
 
     def loss_fn(out, ids, vl, mp, lab):
         return xent(out[0], lab).mean()
@@ -2483,10 +2510,9 @@ def amp_run(dev, run, plain, batch, nudge=False, fault=None):
     place of the AMP dtype (the one-ulp floor); `fault` plants
     `AMP_FAULTS`.  Returns the run's stats and its step time."""
     import torch
-    from mxnet_tpu_torch import amp, kernels
+    from mxnet_tpu_torch import amp, autograd, kernels
     from mxnet_tpu_torch.gluon import Trainer
-    from mxnet_tpu_torch.models.layers import FusedSelfAttention, LayerNorm
-    from mxnet_tpu_torch.ops.attention import multi_head_attention_reference
+    from mxnet_tpu_torch.models.layers import _plain_twin
     from mxnet_tpu_torch.ops.fused_optimizer import kernel_plain
     from mxnet_tpu_torch.ops.softmax_xent import (
         softmax_cross_entropy, softmax_cross_entropy_reference)
@@ -2503,7 +2529,7 @@ def amp_run(dev, run, plain, batch, nudge=False, fault=None):
         if w_dt == "float16":
             amp.convert_hybrid_block(bench, "float16")
         if nudge:
-            w = bench.model.bert.layers[0].ffn_intermediate.weight
+            w = bench.model.bert.layers[0].ffn_intermediate.weight.data()
             with torch.no_grad():
                 x = w.view(-1)[:1]
                 h = x.to(getattr(torch, amp_dt))
@@ -2511,11 +2537,7 @@ def amp_run(dev, run, plain, batch, nudge=False, fault=None):
                 x.copy_(h)
         xent = softmax_cross_entropy
         if plain:
-            for m in bench.modules():
-                if isinstance(m, FusedSelfAttention):
-                    m.attend = multi_head_attention_reference
-                if isinstance(m, LayerNorm):
-                    m.norm = _amp_norm_reference
+            _plain_twin(bench, norm=_amp_norm_reference)
             xent = softmax_cross_entropy_reference
         losses, scales, skipped = [], [], []
         if entry == "step":
@@ -2528,7 +2550,7 @@ def amp_run(dev, run, plain, batch, nudge=False, fault=None):
             step.warmup(*batch)
             trainer = None
         else:
-            trainer = Trainer(dict(bench.named_parameters()), "adam",
+            trainer = Trainer(bench.model.collect_params(), "adam",
                               {"learning_rate": AMP_LR,
                                "multi_precision": entry == "trainer_mp"})
             amp.init_trainer(trainer)
@@ -2542,7 +2564,8 @@ def amp_run(dev, run, plain, batch, nudge=False, fault=None):
                 if trainer is None:
                     losses.append(step.dispatch(*batch).loss)
                 else:
-                    loss = xent(bench(ids, vl, mp)[0], lab).mean()
+                    with autograd.record():
+                        loss = xent(bench(ids, vl, mp)[0], lab).mean()
                     losses.append(loss.detach())
                     if i == AMP_POISON_STEP:
                         loss = loss * math.inf
@@ -2560,7 +2583,7 @@ def amp_run(dev, run, plain, batch, nudge=False, fault=None):
         launches = kernels.launch_counts()
         by_dtype = {f"{n}:{d}": v
                     for (n, d), v in sorted(kernels.DTYPE_LAUNCHES.items())}
-        params = dict(bench.named_parameters())
+        params = dict(bench.model.named_parameters())
         dtypes = sorted({str(p.dtype)[6:] for p in params.values()})
         masters = None
         if trainer is not None and entry == "trainer_mp":
@@ -2726,9 +2749,9 @@ OPTIM_PER_LEAF_STEPS = 3
 # LAMB over an f16 BERT-base (f16 weights, f32 LayerNorm parameters, f32
 # state: `TrainStep`'s `_master_dtype`): phases A and B over (f16, f32)
 OPTIM_F16 = ("lamb", "LAMB", {}, 1e-3)
-# the phase's BERT-base runs keep its widths and cut its depth to 4 of 12
-# layers, for the smoke's time limit; k6 holds every rule over the
-# 12-layer model's 133.6 M elements
+# the phase's BERT-base runs, and k6's BERT-base leaves, keep its widths
+# and cut its depth to 4 of 12 layers, for the smoke's time limit (every
+# leaf shape stays; the train phase updates the 12-layer model)
 OPTIM_LAYERS = 4
 # planted faults in the chunk kernel's math, each a mutation of the
 # kernel's own source built into a library of its own: (rule, entry,
@@ -3731,7 +3754,7 @@ def moe_run(dev, dtype, entry, plain, batch, fault=None):
                 step.warmup(x, y)
                 fused = step._fused_opt_kernel
             else:
-                trainer = Trainer(dict(layer.named_parameters()), opt)
+                trainer = Trainer(layer.collect_params(), opt)
                 fused = None
 
             def one():
@@ -3893,17 +3916,18 @@ def gpt_batch(dev, vocab, seed=0):
 
 class _TrainerStep:
     """The gluon `Trainer` loop behind `TrainStep`'s ``dispatch``: forward
-    on the first `num_model_args` batch arguments, the mean loss,
-    ``loss.backward()``, ``trainer.step(1)``."""
+    on the first `num_model_args` batch arguments and the mean loss inside
+    ``autograd.record()``, ``loss.backward()``, ``trainer.step(1)``."""
 
     def __init__(self, model, trainer, loss_fn, num_model_args=1):
         self.model, self.trainer, self.loss_fn = model, trainer, loss_fn
         self.num_model_args = num_model_args
 
     def dispatch(self, *batch):
-        self.model.train()
-        out = self.model(*batch[:self.num_model_args])
-        loss = self.loss_fn(out, *batch)
+        from mxnet_tpu_torch import autograd
+        with autograd.record():
+            out = self.model(*batch[:self.num_model_args])
+            loss = self.loss_fn(out, *batch)
         loss.backward()
         self.trainer.step(1)
         return loss.detach()
@@ -3931,9 +3955,8 @@ def gpt_train_step(dev, dtype, plain=False, remat=False, entry="step",
     from mxnet_tpu_torch.gluon import Trainer
     from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
     from mxnet_tpu_torch.models import GPTForCausalLM, gpt_small
-    from mxnet_tpu_torch.models.layers import FusedSelfAttention, LayerNorm
-    from mxnet_tpu_torch.ops import fused_norm as fn
-    from mxnet_tpu_torch.ops.attention import multi_head_attention_reference
+    from mxnet_tpu_torch.models.layers import (FusedSelfAttention,
+                                               _plain_twin)
     from mxnet_tpu_torch.ops.fused_optimizer import kernel_plain
     from mxnet_tpu_torch.ops.softmax_xent import \
         softmax_cross_entropy_reference
@@ -3943,7 +3966,7 @@ def gpt_train_step(dev, dtype, plain=False, remat=False, entry="step",
     cfg = gpt_small(dtype=dtype, remat=remat, **(arch or {}))
     model = GPTForCausalLM(cfg, device=dev, seed=0)
     if nudge:
-        w = model.transformer.layers[0].ffn.ffn_intermediate.weight
+        w = model.transformer.layers[0].ffn.ffn_intermediate.weight.data()
         bits = torch.int16 if w.element_size() == 2 else torch.int32
         with torch.no_grad():
             w.view(-1)[:1].view(bits).add_(1)
@@ -3954,12 +3977,7 @@ def gpt_train_step(dev, dtype, plain=False, remat=False, entry="step",
         return ce(out.reshape(-1, V), lab.reshape(-1)).mean()
 
     if plain:
-        for m in model.modules():
-            if isinstance(m, FusedSelfAttention):
-                m.attend = multi_head_attention_reference
-            if isinstance(m, LayerNorm):
-                m.norm = fn.fused_layer_norm_reference
-                m.norm_residual = fn.fused_layer_norm_residual_reference
+        _plain_twin(model)
 
         def loss_fn(out, ids, lab):     # noqa: F811 - the oracle's loss
             return softmax_cross_entropy_reference(
@@ -3978,7 +3996,7 @@ def gpt_train_step(dev, dtype, plain=False, remat=False, entry="step",
             return model, TrainStep(model, opt, loss_fn, num_model_args=1,
                                     update=kernel_plain if plain else None)
     return model, _TrainerStep(
-        model, Trainer(dict(model.named_parameters()), opt), loss_fn)
+        model, Trainer(model.collect_params(), opt), loss_fn)
 
 
 def _zero_grad_share(step):
@@ -4127,16 +4145,17 @@ def gpt_run(dev, dtype, plain, batch, remat=False, entry="step",
     return st, step_s
 
 
-def gpt_step1_limit(layers):
+def gpt_step1_limit(layers, dtype="float16"):
     """`gpt_step1_check`'s limit on step 1's optimizer state against the
-    oracle's: the f16 kernels are each held to f16's tolerance of their
-    output's scale (`TOL`), and a gradient passes two pairs of them a
-    layer (flash attention, the norm), so their departures may add to
-    ``TOL["float16"] * 2 * layers`` (0.12 for GPT-2 small)."""
-    return TOL["float16"] * 2 * layers
+    oracle's: the 16-bit kernels are each held to their dtype's tolerance
+    of their output's scale (`TOL`), and a gradient passes two pairs of
+    them a layer (flash attention, the norm), so their departures may add
+    to ``TOL[dtype] * 2 * layers`` (0.12 for an f16 GPT-2 small)."""
+    return TOL[dtype] * 2 * layers
 
 
-def gpt_step1_check(got, want, dev, layers):
+def gpt_step1_check(got, want, dev, layers, opt=None, hp_vals=None,
+                    dtype="float16"):
     """Step 1 of an f16 run against its plain oracle's, both from the same
     weights, batch and dropout masks (one step: not chaotic), two ways.
     (1) The update alone, fed the same gradients, as the optim phase's
@@ -4148,17 +4167,21 @@ def gpt_step1_check(got, want, dev, layers):
     `gpt_step1_limit` of the oracle's norm.  Reported beside them: each
     slot's worst tensor, element-wise against its own scale (a gradient
     that is zero up to rounding has no scale to hold it to), and the
-    share of f16 weight elements more than one f16 step off the
-    oracle's.  `got` and `want` are `gpt_run`'s ``_step1`` lists."""
+    share of `dtype` weight elements more than one step of it off the
+    oracle's.  `got` and `want` are `gpt_run`'s ``_step1`` lists; `opt`
+    and `hp_vals` the run's rule and step-1 hyperparameters (default the
+    gpt phase's AdamW).  The gluon_gpt phase holds its bf16 `Trainer` run
+    to the same check, with bf16's tolerance."""
     import torch
     from mxnet_tpu_torch.ops.fused_optimizer import kernel_plain
     from mxnet_tpu_torch.optimizer import AdamW
     before, wk, sk, gk = got
     _, wp, sp, _ = want
-    opt = AdamW(learning_rate=GPT_LR, wd=GPT_WD)
-    hp = {k: torch.full((), v, device=dev) for k, v in
-          {"lr": GPT_LR, "wd": GPT_WD, "rescale_grad": 1.0,
-           "t": 1.0}.items()}
+    if opt is None:
+        opt = AdamW(learning_rate=GPT_LR, wd=GPT_WD)
+        hp_vals = {"lr": GPT_LR, "wd": GPT_WD, "rescale_grad": 1.0,
+                   "t": 1.0}
+    hp = {k: torch.full((), v, device=dev) for k, v in hp_vals.items()}
     hp["clip_gradient"] = None
     old = {n: w.to(dev) for n, w in before.items() if n in gk}
     zero = {n: tuple(torch.zeros_like(t, device=dev) for t in sk[n])
@@ -4187,12 +4210,12 @@ def gpt_step1_check(got, want, dev, layers):
            for d, nn in zip(diff2, norm2)]
     off = n16 = 0
     for n, b in wp.items():
-        if b.dtype == torch.float16:
+        if b.dtype == getattr(torch, dtype):
             d = (wk[n].float() - b.float()).abs()
-            off += int((d > STEP16["float16"] * b.float().abs()
+            off += int((d > STEP16[dtype] * b.float().abs()
                         + 2.0 ** -24).sum())
             n16 += d.numel()
-    lim = gpt_step1_limit(layers)
+    lim = gpt_step1_limit(layers, dtype)
     return dict(update_max_abs_err=err, update_f16_mismatch_share=share,
                 update_ok=upd_ok, state_rel_l2=rel, state_limit=lim,
                 state_ok=max(rel) <= lim,
@@ -5044,10 +5067,7 @@ def nmt_model(dev, dtype, plain=False, fault=None):
     swaps in the plain versions (attention, norms) so the model launches
     no kernel; `fault` plants one of `NMT_FAULTS`."""
     from mxnet_tpu_torch.models import TransformerNMT, transformer_base
-    from mxnet_tpu_torch.models.layers import FusedSelfAttention, LayerNorm
-    from mxnet_tpu_torch.models.transformer import _CrossAttention
-    from mxnet_tpu_torch.ops import fused_norm as fn
-    from mxnet_tpu_torch.ops.attention import multi_head_attention_reference
+    from mxnet_tpu_torch.models.layers import _plain_twin
 
     model = TransformerNMT(transformer_base(dtype=dtype), device=dev,
                            seed=0)
@@ -5055,11 +5075,7 @@ def nmt_model(dev, dtype, plain=False, fault=None):
         for layer in model.decoder.layers:
             layer.attention.causal = False
     if plain:
-        for m in model.modules():
-            if isinstance(m, (FusedSelfAttention, _CrossAttention)):
-                m.attend = multi_head_attention_reference
-            if isinstance(m, LayerNorm):
-                m.norm = fn.fused_layer_norm_reference
+        _plain_twin(model)
     return model
 
 
@@ -5083,7 +5099,7 @@ def nmt_run(dev, dtype, plain, batch, nudge=False, fault=None):
     torch.cuda.reset_peak_memory_stats()
     model = nmt_model(dev, dtype, plain, fault)
     if nudge:
-        w = model.encoder.layers[0].ffn.ffn_intermediate.weight
+        w = model.encoder.layers[0].ffn.ffn_intermediate.weight.data()
         bits = torch.int16 if w.element_size() == 2 else torch.int32
         with torch.no_grad():
             w.view(-1)[:1].view(bits).add_(1)
@@ -5282,10 +5298,10 @@ GLUON_K2_EDGES = ((64, 2, 16), (64, 64, 16))
 GLUON_XENT = (("float32", 32, 2), ("float32", 32, 3), ("float32", 64, 2))
 
 
-def _bert_classifier(cfg, dev):
-    """`examples/bert_finetune.py`'s BertClassifier over the port's
-    `BertModel`, its backbone made on `dev` without a CPU init."""
-    import torch
+def _bert_classifier(cfg):
+    """`examples/bert_finetune.py`'s BertClassifier: the port's
+    `BertModel` as its direct child ``bert``, then dropout and a dense
+    head; its parameters wait for ``initialize()``, as in Gluon."""
     from mxnet_tpu_torch import gluon
     from mxnet_tpu_torch.gluon import nn
     from mxnet_tpu_torch.models.bert import BertModel
@@ -5301,17 +5317,7 @@ def _bert_classifier(cfg, dev):
             _, pooled = self.bert(ids, token_types, valid_length)
             return self.classifier(self.dropout(pooled))
 
-    class Backbone(gluon.HybridBlock):
-        """The pretrained checkpoint's block: the backbone alone, under
-        the classifier's names."""
-
-        def __init__(self):
-            super().__init__()
-            self.bert = BertModel(cfg)
-
-    with torch.device("meta"):
-        net, pre = BertClassifier(), Backbone()
-    return net.to_empty(device=dev), pre.to_empty(device=dev)
+    return BertClassifier()
 
 
 def gluon_batches(cfg, seed=0):
@@ -5337,7 +5343,7 @@ def gluon_batches(cfg, seed=0):
 def gluon_finetune(dev, cfg, batches, ckpt, plain=False, saved=None):
     """The fine-tune loop of `examples/bert_finetune.py` on the card:
     BERT-base (seed 0, N(0, 0.02)) whose backbone comes back from
-    `ckpt` through `load_parameters`, ``hybridize()``, ``autograd.record``,
+    `ckpt` through ``net.bert.load_parameters``, ``hybridize()``, ``autograd.record``,
     `SoftmaxCrossEntropyLoss`, `gluon.Trainer(net.collect_params(),
     "adam")` with the layer-wise ``lr_mult`` and the warm-up
     `PolyScheduler`, `metric.Accuracy` and `metric.F1` each step.
@@ -5351,27 +5357,22 @@ def gluon_finetune(dev, cfg, batches, ckpt, plain=False, saved=None):
     from mxnet_tpu_torch import autograd, gluon, initializer, kernels
     from mxnet_tpu_torch import random as mrandom
     from mxnet_tpu_torch.gluon import metric
-    from mxnet_tpu_torch.models.layers import FusedSelfAttention, LayerNorm
-    from mxnet_tpu_torch.ops import fused_norm as fn
-    from mxnet_tpu_torch.ops.attention import multi_head_attention_reference
+    from mxnet_tpu_torch.models.layers import _plain_twin
     from mxnet_tpu_torch.ops.softmax_xent import \
         softmax_cross_entropy_reference
     from mxnet_tpu_torch.optimizer import lr_scheduler
 
     mrandom.seed(0)
-    net, _ = _bert_classifier(cfg, dev)
+    net = _bert_classifier(cfg)
     net.initialize(initializer.Normal(0.02), device=dev)
-    net.load_parameters(ckpt, allow_missing=True)
+    net.bert.load_parameters(ckpt)
     params = net.collect_params()
+    backbone = net.bert.collect_params()
     bit_equal = None if saved is None else all(
-        torch.equal(params[n].data(), v) for n, v in saved.items())
+        torch.equal(backbone[n].data(), v) for n, v in saved.items())
     loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
     if plain:
-        for m in net.modules():
-            if isinstance(m, FusedSelfAttention):
-                m.attend = multi_head_attention_reference
-            if isinstance(m, LayerNorm):
-                m.norm = fn.fused_layer_norm_reference
+        _plain_twin(net)
         loss_fn = softmax_cross_entropy_reference
     for name, p in params.items():
         if ".layers." in name:
@@ -5594,6 +5595,7 @@ def run_gluon(dev, results, card):
     from mxnet_tpu_torch import initializer
     from mxnet_tpu_torch import random as mrandom
     from mxnet_tpu_torch.models import bert_base
+    from mxnet_tpu_torch.models.bert import BertModel
 
     res = results["gluon"]
     problems = []
@@ -5609,8 +5611,9 @@ def run_gluon(dev, results, card):
     fd, ckpt = tempfile.mkstemp(suffix=".npz")
     os.close(fd)
     try:
+        # the "pretrained" backbone, saved as the example saves it
         mrandom.seed(0)
-        _, pre = _bert_classifier(cfg, dev)
+        pre = BertModel(cfg)
         pre.initialize(initializer.Normal(0.02), device=dev)
         pre.save_parameters(ckpt)
         saved = {n: p.data() for n, p in pre.collect_params().items()}
@@ -5670,6 +5673,345 @@ def run_gluon(dev, results, card):
     res["seconds"] = time.perf_counter() - t_phase
     print(f"[gluon] {res['seconds']:.1f} s, fine-tune "
           f"{st['step_ms']:.2f} ms a step ({card})", flush=True)
+    if problems:
+        raise AssertionError("; ".join(problems))
+
+
+# ---------------------------------------------------------------------------
+# phase gluon_gpt: the Gluon calls of examples/gpt_generation.py and
+# examples/serve_gpt.py on the port's GPT blocks
+# ---------------------------------------------------------------------------
+
+GGPT_V, GGPT_SEQ, GGPT_STEPS, GGPT_LR = 64, 24, 120, 3e-3   # the example's
+GGPT_CONFIGS = (("classic", {}),
+                ("modern", dict(rope=True, num_kv_heads=2, window=8)))
+GGPT_ACCURACY = 0.6              # the example's own assertion
+GGPT_B, GGPT_L, GGPT_FULL_LR = 8, 1024, 1e-4     # GPT-2 small's runs
+GGPT_NEW = 16                    # generated tokens, from 2 prompts of 4
+GGPT_SERVE = dict(max_slots=2, page_size=4, num_pages=6, prefill_chunk=4,
+                  max_len=20)    # examples/serve_gpt.py's pool
+GGPT_SERVE_LENS, GGPT_SERVE_NEW, GGPT_SERVE_SEED = (3, 9, 5, 12, 2, 7), 8, 11
+
+
+def grammar_batch(rng, batch, seq, vocab):
+    """`examples/gpt_generation.py`'s ``synthetic_batch``: the Markov
+    grammar next = cur * 3 + 1 (mod V) with p 0.9, else a random token."""
+    import numpy as np
+    ids = np.empty((batch, seq), np.int64)
+    ids[:, 0] = rng.randint(0, vocab, batch)
+    for t in range(1, seq):
+        follow = (ids[:, t - 1] * 3 + 1) % vocab
+        noise = rng.randint(0, vocab, batch)
+        ids[:, t] = np.where(rng.rand(batch) < 0.9, follow, noise)
+    return ids.astype(np.int32)
+
+
+def rule_accuracy(tokens, vocab):
+    """`examples/gpt_generation.py`'s share of generated transitions that
+    follow the grammar."""
+    import numpy as np
+    t = np.asarray(tokens)
+    return float((t[:, 1:] == (t[:, :-1] * 3 + 1) % vocab).mean())
+
+
+def gluon_gpt_train(model, dev, steps, rng, batch, seq, lr, plain=False,
+                    step1=False):
+    """The example's ``train`` on the card: `gluon.Trainer(model.
+    collect_params(), "adam")`, ``hybridize()``, the forward and the mean
+    `SoftmaxCrossEntropyLoss` over the shifted logits inside
+    ``autograd.record()``, ``loss.backward()``, ``trainer.step(1)``, on
+    `steps` grammar batches drawn from `rng` (a numpy ``RandomState``).  ``plain=True`` is the twin
+    (`_plain_twin` applied by the caller): the loss's and the update's
+    plain versions.  `step1` keeps the weights before step 1, its
+    gradients, and the weights and state after it (`gpt_step1_check`).
+    Returns (losses, launches, seconds a step over steps 3.., step-1
+    record)."""
+    import torch
+    from mxnet_tpu_torch import autograd, gluon, kernels
+    from mxnet_tpu_torch.ops.softmax_xent import \
+        softmax_cross_entropy_reference
+    V = model.cfg.vocab_size
+    trainer = gluon.Trainer(model.collect_params(), "adam",
+                            {"learning_rate": lr})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    if plain:
+        loss_fn = softmax_cross_entropy_reference
+    model.hybridize()
+    params = model.collect_params()
+    batches = [torch.from_numpy(grammar_batch(rng, batch, seq, V)).to(dev)
+               for _ in range(steps)]
+    losses, rec = [], None
+    host = lambda t: t.detach().to("cpu", copy=True)      # noqa: E731
+    before = {n: host(p.data()) for n, p in params.items()} \
+        if step1 else None
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with plain_trainer_update() if plain else contextlib.nullcontext():
+        for i, ids in enumerate(batches):
+            if i == 2:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            with autograd.record():
+                logits = model(ids)
+                loss = loss_fn(logits[:, :-1].reshape(-1, V),
+                               ids[:, 1:].reshape(-1)).mean()
+            loss.backward()
+            if step1 and i == 0:
+                rec = [before, None, None,
+                       {n: host(p.data().grad) for n, p in params.items()}]
+            trainer.step(1)
+            if step1 and i == 0:
+                rec[1] = {n: host(p.data()) for n, p in params.items()}
+                rec[2] = {n: tuple(host(t) for t in trainer._states[n])
+                          for n in params}
+            losses.append(loss.detach())
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / max(1, steps - 2)
+    return [float(x) for x in losses], kernels.launch_counts(), step_s, rec
+
+
+def gluon_gpt_example(dev, name, extra, rng, problems, card):
+    """Part (a): `examples/gpt_generation.py`'s run, as written, for one
+    of its two configurations: ``GPTForCausalLM(cfg)`` on the card,
+    ``initialize()``, the first call, 120 steps of its loop, then greedy
+    (held to its rule-accuracy assertion), sampled and beam decodes;
+    `rng` is the example's one ``RandomState(0)``, shared by both."""
+    import torch
+    from mxnet_tpu_torch.models import GPTConfig, GPTForCausalLM
+
+    cfg = GPTConfig(vocab_size=GGPT_V, hidden_size=64, num_layers=2,
+                    num_heads=4, intermediate_size=128, max_position=64,
+                    dropout=0.0, **extra)
+    model = GPTForCausalLM(cfg)
+    model.initialize()
+    prompt = torch.from_numpy(grammar_batch(rng, 2, 4, GGPT_V)).to(dev)
+    model(prompt)
+    t0 = time.perf_counter()
+    losses, launches, step_s, _ = gluon_gpt_train(
+        model, dev, GGPT_STEPS, rng, 8, GGPT_SEQ, GGPT_LR)
+    train_s = time.perf_counter() - t0
+    plen = prompt.shape[1]
+    greedy = model.generate(prompt, max_new_tokens=GGPT_NEW).cpu().numpy()
+    acc = rule_accuracy(greedy[:, plen - 1:], GGPT_V)
+    sampled = model.generate(prompt, max_new_tokens=GGPT_NEW, greedy=False,
+                             temperature=0.8, top_k=8, top_p=0.95)
+    beam = model.generate(prompt, max_new_tokens=GGPT_NEW, num_beams=4,
+                          eos_token_id=GGPT_V - 1)
+    st = dict(losses=losses[::20] + losses[-1:], train_s=train_s,
+              step_ms=step_s * 1e3, launches=launches,
+              rule_accuracy=acc, greedy=greedy[0].tolist(),
+              sampled=sampled[0].tolist(), beam=beam[0].tolist())
+    print(f"[gluon_gpt {name}] {json.dumps(st)} ({card})", flush=True)
+    if not acc > GGPT_ACCURACY:
+        problems.append(f"gluon_gpt {name}: greedy decode did not learn "
+                        f"the grammar ({acc} <= {GGPT_ACCURACY})")
+    for k in ("flash_attention_fwd", "flash_attention_bwd", "fused_norm",
+              "softmax_xent_fwd", "fused_optimizer_chunk"):
+        if not launches.get(k):
+            problems.append(f"gluon_gpt {name}: {k} never launched "
+                            f"({launches})")
+    return st
+
+
+def gluon_gpt_want(layers):
+    """Launches a step of the full-width bf16 `Trainer` run, the gpt
+    phase's bf16 `Trainer` run's: flash 12 + 12, the norm 25 (12 of them
+    with the residual), the cross-entropy 1 + 1, the chunk twice (the bf16
+    leaves and the f32 LayerNorm group)."""
+    return {k: v // TRAIN_STEPS for k, v in
+            gpt_want_launches(2, layers, False).items()}
+
+
+def gluon_gpt_full(dev, results, problems, card):
+    """Part (b): GPT-2 small (124 M parameters, bf16, dropout 0.1, no
+    cut) built and trained as the example builds and trains its model,
+    with Adam at `GGPT_FULL_LR` over `TRAIN_STEPS` grammar batches of
+    8 x 1024, against its plain twin (`_plain_twin`, the plain loss, the
+    kernels' plain update) from the same seed and batches; then greedy
+    and 4-beam `generate`, and the `save_parameters` / `load_parameters`
+    round trip into a fresh model.  Returns the trained model."""
+    import tempfile
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import random as mrandom
+    from mxnet_tpu_torch.models import GPTForCausalLM, gpt_small
+    from mxnet_tpu_torch.models.layers import _plain_twin
+    from mxnet_tpu_torch.optimizer import Adam
+
+    res = results["gluon_gpt"]
+    cfg = gpt_small(dropout=0.1, dtype="bfloat16")
+    layers = cfg.num_layers
+    runs = {}
+    for plain in (False, True):
+        torch.cuda.empty_cache()
+        mrandom.seed(0)
+        model = GPTForCausalLM(cfg)
+        model.initialize()
+        if plain:
+            _plain_twin(model)
+        prompt = torch.from_numpy(grammar_batch(
+            np.random.RandomState(1), 2, 4, cfg.vocab_size)).to(dev)
+        model(prompt)
+        with pallas_mode("auto"):
+            runs[plain] = (model, prompt) + gluon_gpt_train(
+                model, dev, TRAIN_STEPS, np.random.RandomState(2), GGPT_B,
+                GGPT_L, GGPT_FULL_LR, plain=plain, step1=True)
+    (model, prompt, losses, launches, step_s, rec) = runs[False]
+    (twin, _, plosses, plaunches, pstep_s, prec) = runs[True]
+    floor = results["gpt_one_ulp"].get("bfloat16", {}).get(
+        "trajectory_rel_dev")
+    if floor is None:
+        raise AssertionError("gluon_gpt: the gpt phase's bf16 one-ulp floor "
+                             "is missing (that phase failed first)")
+    tol = gpt_tol("bfloat16", floor)
+    dev_rel = traj_dev(losses, plosses)
+    want = {k: v * TRAIN_STEPS for k, v in gluon_gpt_want(layers).items()}
+    got = {k: launches.get(k, 0) for k in want}
+    others = {k: v for k, v in launches.items() if k not in want and v}
+    hp = {"lr": GGPT_FULL_LR, "wd": 0.0, "rescale_grad": 1.0, "t": 1.0}
+    chk = gpt_step1_check(rec, prec, dev, layers,
+                          Adam(learning_rate=GGPT_FULL_LR), hp, "bfloat16")
+    tokens = GGPT_B * (GGPT_L - 1)
+    st = dict(losses=losses, plain_losses=plosses, trajectory_rel_dev=dev_rel,
+              trajectory_tol=tol, one_ulp_floor=floor, step_ms=step_s * 1e3,
+              plain_step_ms=pstep_s * 1e3, tokens_per_s=tokens / step_s,
+              launches=launches, launches_per_step=gluon_gpt_want(layers),
+              step1_check=chk,
+              parameters=sum(p.data().numel()
+                             for p in model.collect_params().values()))
+    if got != want or others:
+        problems.append(f"gluon_gpt full: launches {got} (and {others}), "
+                        f"want {want} over {TRAIN_STEPS} steps")
+    if any(plaunches.values()):
+        problems.append(f"gluon_gpt full: the plain twin launched "
+                        f"{plaunches}")
+    if not all(math.isfinite(x) for x in losses) or dev_rel > tol:
+        problems.append(f"gluon_gpt full: loss trajectory departs from the "
+                        f"twin's by {dev_rel:.3g} > {tol:.3g} ({losses} vs "
+                        f"{plosses})")
+    if not chk["ok"]:
+        problems.append(f"gluon_gpt full: step 1 off the twin's: "
+                        f"{json.dumps(chk)}")
+    if not losses[-1] < losses[0]:
+        problems.append(f"gluon_gpt full: loss did not fall {losses}")
+
+    # the round trip: a fresh model, initialize(), load_parameters
+    fd, ckpt = tempfile.mkstemp(suffix=".npz")
+    os.close(fd)
+    try:
+        model.save_parameters(ckpt)
+        fresh = GPTForCausalLM(cfg, seed=1)
+        fresh.initialize()
+        fresh.load_parameters(ckpt)
+        twin.load_parameters(ckpt)
+    finally:
+        os.remove(ckpt)
+    with torch.no_grad():
+        st["round_trip_bit_equal"] = bool(torch.equal(model(prompt),
+                                                      fresh(prompt)))
+    del fresh
+    if not st["round_trip_bit_equal"]:
+        problems.append("gluon_gpt full: logits after save_parameters / "
+                        "load_parameters are not bit-equal")
+    # decodes over the trained weights, the twin holding the same ones
+    gen = {}
+    for key, kw in (("greedy", {}),
+                    ("beam", dict(num_beams=4, eos_token_id=GGPT_V - 1))):
+        a = model.generate(prompt, max_new_tokens=GGPT_NEW, **kw).tolist()
+        b = twin.generate(prompt, max_new_tokens=GGPT_NEW, **kw).tolist()
+        gen[key] = a
+        if a != b:
+            problems.append(f"gluon_gpt full {key}: {a} vs the twin's {b}")
+    gen["sampled"] = model.generate(
+        prompt, max_new_tokens=GGPT_NEW, greedy=False, temperature=0.8,
+        top_k=8, top_p=0.95).tolist()
+    st["generate"] = gen
+    del twin, runs
+    torch.cuda.empty_cache()
+    res["full"] = st
+    print(f"[gluon_gpt full] {json.dumps(st)} ({card})", flush=True)
+    print(f"[gluon_gpt full] {st['step_ms']:.2f} ms a step "
+          f"({st['tokens_per_s']:.0f} tokens/s), the twin "
+          f"{st['plain_step_ms']:.2f} ms; trajectory vs twin {dev_rel:.3g} "
+          f"(limit {tol:.3g}) ({card})", flush=True)
+    return model
+
+
+def gluon_gpt_serve(dev, model, results, problems, card):
+    """Part (c): `examples/serve_gpt.py`'s engine over the trained Block:
+    its pool (5 allocatable pages of 4, so two overlapping decodes must
+    evict), its six prompts (seed 11), 8 new tokens each; every stream
+    equal to an unbatched greedy `generate` of the same Block (a stream
+    may part only at a near tie of the plain path, `compare_streams`), at
+    least one eviction, and K1 once a layer a fused step.  The example's
+    telemetry snapshot waits for A14 part 2: the port's scheduler
+    telemetry is not ported and raises by name."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import kernels
+    from mxnet_tpu_torch.serve import InferenceEngine, ServeConfig
+    from mxnet_tpu_torch.serve.decode import extract_decode_weights
+
+    cfg = model.cfg
+    rng = np.random.RandomState(GGPT_SERVE_SEED)
+    prompts = [rng.randint(0, cfg.vocab_size, n).tolist()
+               for n in GGPT_SERVE_LENS]
+    refs = [model.generate(torch.tensor([p], dtype=torch.int32),
+                           max_new_tokens=GGPT_SERVE_NEW)[0].tolist()
+            for p in prompts]
+    eng = InferenceEngine(model, ServeConfig(**GGPT_SERVE))
+    warm_s = eng.warmup()
+    streams = {i: [] for i in range(len(prompts))}
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    handles = [eng.submit(p, max_new_tokens=GGPT_SERVE_NEW,
+                          on_token=lambda t, r, i=i: streams[i].append(t))
+               for i, p in enumerate(prompts)]
+    steps = eng.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = [h.result(timeout=0) for h in handles]
+    launches = kernels.launch_counts()
+    near = compare_streams(got, refs, extract_decode_weights(model), cfg,
+                           "gluon_gpt serve")
+    evictions = sum(h.evictions for h in handles)
+    st = dict(steps=steps, wall_s=wall, warmup_s=warm_s,
+              evictions=evictions, near_ties=near, launches=launches,
+              streams=got)
+    results["gluon_gpt"]["serve"] = st
+    print(f"[gluon_gpt serve] {json.dumps(st)} ({card})", flush=True)
+    if evictions < 1:
+        problems.append("gluon_gpt serve: page pressure forced no eviction")
+    for i, (h, s) in enumerate(zip(got, streams.values())):
+        if s != h[len(prompts[i]):]:
+            problems.append(f"gluon_gpt serve: request {i}'s streamed tokens "
+                            f"{s} differ from its result {h}")
+    k1 = launches.get("ragged_paged_attention", 0)
+    if k1 != cfg.num_layers * steps:
+        problems.append(f"gluon_gpt serve: K1 launched {k1} times over "
+                        f"{steps} steps, want {cfg.num_layers} a step")
+
+
+def run_gluon_gpt(dev, results, card):
+    """The gluon_gpt phase: (a) `examples/gpt_generation.py` at its own
+    size, both configurations; (b) GPT-2 small at full width through the
+    same Gluon calls, against its plain twin; (c) `examples/serve_gpt.py`'s
+    engine over the trained Block.  Torch tensors stand where the examples
+    use ``mx.np`` arrays (the NDArray facade is ROADMAP.md A2)."""
+    import numpy as np
+    from mxnet_tpu_torch import random as mrandom
+    res = results["gluon_gpt"]
+    problems = []
+    t0 = time.perf_counter()
+    mrandom.seed(0)
+    rng = np.random.RandomState(0)
+    res["example"] = {name: gluon_gpt_example(dev, name, extra, rng,
+                                              problems, card)
+                      for name, extra in GGPT_CONFIGS}
+    model = gluon_gpt_full(dev, results, problems, card)
+    gluon_gpt_serve(dev, model, results, problems, card)
+    res["seconds"] = time.perf_counter() - t0
+    print(f"[gluon_gpt] {res['seconds']:.1f} s ({card})", flush=True)
     if problems:
         raise AssertionError("; ".join(problems))
 
@@ -6022,7 +6364,8 @@ def kernel_entries(results):
     int8 f32 M=8 768->2304; flash: f32 with the padding bias and dropout
     0.1, as the BERT step calls it; cross-entropy: f32 (1280, 30522); the
     fused norm: bf16 LayerNorm at (8192, 768), the step's own; the chunk:
-    Adam over the f32 BERT-base model; LAMB: the bf16 model, each phase's
+    Adam over the f32 BERT-base model at `OPTIM_LAYERS` layers; LAMB: the
+    bf16 model, each phase's
     device time over all tensors, beside the plain LAMB update (both
     phases) and no library call) and the largest error over every case;
     the flash forward's entry also carries its bf16 case.
@@ -6034,7 +6377,9 @@ def kernel_entries(results):
     for the others); ``gpt_launches`` is the GPT phase's share,
     ``gpt_gqa_launches`` the gpt_gqa phase's, ``nmt_launches`` the nmt
     phase's training runs', ``elastic_launches`` the elastic phase's
-    `ElasticLoop` run's, and K1's ``spec_prefix_launches`` the
+    `ElasticLoop` run's, ``gluon_gpt_launches`` the gluon_gpt phase's
+    (the example's two runs, GPT-2 small's `Trainer` run and the engine
+    over it), and K1's ``spec_prefix_launches`` the
     spec_prefix phase's engine's.  The flash entries also carry k3's band
     and fold cases and the nmt phase's three attentions, the chunk GPT-2
     small's AdamW and transformer_base's Adam, cross-entropy and the norm
@@ -6102,6 +6447,10 @@ def kernel_entries(results):
                   and not k.startswith("control_")})
     elastic_runs = {k: v for k, v in results["elastic"].get(
         "runs", {}).items() if "launches" in v}
+    ggpt = results.get("gluon_gpt", {})
+    gluon_gpt_runs = [r for r in list(ggpt.get("example", {}).values())
+                      + [ggpt.get("full", {}), ggpt.get("serve", {})]
+                      if "launches" in r]
     train.update({"elastic_" + k: v for k, v in elastic_runs.items()})
     k1_launch = e2e.get("float32", {}).get("launches", {}).get(
         "ragged_paged_attention", 0)
@@ -6126,6 +6475,8 @@ def kernel_entries(results):
                                     for r in nmt_runs),
                 "elastic_launches": sum(r["launches"].get(name, 0)
                                         for r in elastic_runs.values()),
+                "gluon_gpt_launches": sum(r["launches"].get(name, 0)
+                                          for r in gluon_gpt_runs),
                 "max_abs_err": max(c["max_abs_err"] for c in cases),
                 "ms": rep[mk], "kernel_ms": rep[mk],
                 "plain_ms": rep[pre + "plain_ms"],
@@ -6460,7 +6811,7 @@ def main(argv=None) -> int:
                "gpt_d256_one_ulp": {},
                "spec_prefix": {}, "nmt": {}, "optim": {}, "amp": {},
                "amp_controls": {}, "amp_one_ulp": {}, "gluon": {},
-               "elastic": {}}
+               "gluon_gpt": {}, "elastic": {}}
     failed = []
     t0 = time.perf_counter()
     # build from the checkout's sources, never from a leftover library
@@ -6507,6 +6858,7 @@ def main(argv=None) -> int:
                      ("optim", lambda d, r, c: run_optim(d, r, c,
                                                          fault_builds)),
                      ("amp", run_amp), ("gluon", run_gluon),
+                     ("gluon_gpt", run_gluon_gpt),
                      ("elastic", run_elastic)):
         t_phase = time.perf_counter()
         try:

@@ -186,8 +186,20 @@ def convert_hybrid_block(block, target_dtype="bfloat16",
     """Cast every float parameter (and float buffer) of the `nn.Module`
     `block` to the AMP dtype in place, as JAX's ``Block.cast`` casts every
     `Parameter`; returns `block`.  The parameter objects stay the same, so
-    a `Trainer` built before or after sees them."""
-    return block.to(_dtype(target_dtype))
+    a `Trainer` built before or after sees them; each Gluon `Parameter`
+    takes the dtype of its new value (one not initialized yet, the AMP
+    dtype if it is a float)."""
+    from ..gluon.block import Block
+    dt = _dtype(target_dtype)
+    block.to(dt)
+    for m in block.modules():
+        if isinstance(m, Block):
+            for p in m._reg_params.values():
+                if p._data is not None:
+                    p.dtype = p._data.dtype
+                elif p.dtype.is_floating_point:
+                    p.dtype = dt
+    return block
 
 
 def _needs_symbol(what):

@@ -22,6 +22,7 @@ port's `gluon.Trainer`, so a run started in JAX continues in the port.
 """
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -29,6 +30,8 @@ import torch
 
 from .base import MXNetError
 from .device import resolve_device
+from .gluon.block import Block
+from .gluon.parameter import Parameter
 from .util import to_tensor
 
 __all__ = ["load_jax_params", "load_jax_optimizer_states"]
@@ -36,12 +39,15 @@ __all__ = ["load_jax_params", "load_jax_optimizer_states"]
 
 def load_jax_params(model: torch.nn.Module, params: Dict[str, np.ndarray],
                     device=None) -> torch.nn.Module:
-    """Copy `params` into `model` name for name, then place the model on
-    `device` (the card unless ``device="cpu"``).  Raises `MXNetError` on a
-    missing or extra name, or a shape or dtype that differs; nothing is
-    copied unless every entry checks out.  Returns `model`."""
+    """Copy `params` into `model` name for name (its Gluon
+    `collect_params()` names; a parameter not initialized yet takes the
+    value as it comes), then place the model on `device` (the card unless
+    ``device="cpu"``).  Raises `MXNetError` on a missing or extra name, or
+    a shape or dtype that differs; nothing is copied unless every entry
+    checks out.  Returns `model`."""
     dev = resolve_device(device)
-    own = dict(model.named_parameters())
+    own = OrderedDict()
+    _leaves(model, own, "")
     missing = sorted(set(own) - set(params))
     extra = sorted(set(params) - set(own))
     if missing or extra:
@@ -60,8 +66,29 @@ def load_jax_params(model: torch.nn.Module, params: Dict[str, np.ndarray],
                 f"source, {p.dtype} in the model")
     with torch.no_grad():
         for name, arr in params.items():
-            own[name].copy_(to_tensor(arr))
+            p = own[name]
+            if isinstance(p, Parameter):
+                if p._data is None:
+                    p._install(to_tensor(arr).clone())
+                    continue
+                p = p._data
+            p.copy_(to_tensor(arr))
     return model.to(dev)
+
+
+def _leaves(module, out, prefix):
+    """`module`'s parameters by dotted name: a Gluon block's `Parameter`s
+    (initialized or not), a plain module's tensors."""
+    if isinstance(module, Block):
+        for name, p in module._reg_params.items():
+            out[prefix + name] = p
+    else:
+        for name, t in module._parameters.items():
+            if t is not None:
+                out[prefix + name] = t
+    for cname, child in module._modules.items():
+        if child is not None:
+            _leaves(child, out, prefix + cname + ".")
 
 
 def _state_slots(opt, name, st, want, p) -> tuple:

@@ -6,9 +6,10 @@ its tensor appears in the module's ``_parameters``; a child `Block` or
 plain ``torch.nn.Module`` is a torch submodule.  So `collect_params`
 gives the JAX package's dotted names (own parameters first, then the
 children's in registration order), and they equal torch's
-``named_parameters()``: a plain module child such as the port's
-`models.BertModel` contributes its parameters under its module path
-(`Parameter.adopt`).
+``named_parameters()``: a plain ``torch.nn.Module`` child a user puts
+inside a block contributes its parameters under its module path
+(`Parameter.adopt`); the port's models are blocks throughout and need no
+adoption.
 
 Calling a block: its plain torch children follow MXNet's global training
 flag (`autograd.is_training`, on inside ``autograd.record()``), deferred

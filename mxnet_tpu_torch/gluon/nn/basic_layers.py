@@ -4,9 +4,16 @@
 Each layer computes what its JAX counterpart's ``npx`` op computes, through
 the port's `ops.nn`: `Dense` is ``fully_connected`` (``flatten=True`` by
 default, as JAX's), `LayerNorm` and `RMSNorm` go through the fused-norm
-dispatcher (the norm kernel on the card), `Dropout` draws its mask from
-`random.generator` and is on only under `autograd.is_training`, and
-`BatchNorm` keeps MXNet's running statistics (`ops.nn.batch_norm`).
+dispatcher (the norm kernel on the card), `Dropout` draws its mask from its
+`generator` (by default `random.generator` of the input's device) and is on
+only under `autograd.is_training`, and `BatchNorm` keeps MXNet's running
+statistics (`ops.nn.batch_norm`).
+
+`LayerNorm` keeps the function it normalises the last axis with in
+``_norm`` (`ops.nn.layer_norm`) and the pre-LN residual step a GPT block
+calls in ``_norm_residual`` (`ops.nn.layer_norm_residual`); `RMSNorm` its
+``_norm`` (`ops.nn.rms_norm`).  A model's plain twin swaps them for the
+fused norm's plain versions (`models.layers`).
 """
 from __future__ import annotations
 
@@ -119,13 +126,22 @@ class Dense(HybridBlock):
 
 
 class Dropout(HybridBlock):
+    """Inverted dropout, on only under `autograd.is_training`.  The mask
+    is drawn from the ``generator`` attribute, a ``torch.Generator`` on
+    the input's device (None, the default: `random.generator` of that
+    device); a model gives every dropout of its tree one seeded generator
+    (`models.layers.attach_generator`)."""
+
     def __init__(self, rate, axes=(), **kwargs):
         super().__init__(**kwargs)
         self._rate = rate
         self._axes = axes
+        self.generator = None
 
     def forward(self, x):
-        return F.dropout(x, self._rate, generator=_rng.generator(x.device),
+        gen = self.generator if self.generator is not None \
+            else _rng.generator(x.device)
+        return F.dropout(x, self._rate, generator=gen,
                          training=_ag.is_training(), axes=self._axes)
 
     def extra_repr(self):
@@ -235,6 +251,8 @@ class LayerNorm(_Norm):
                          in_channels, **kwargs)
         self._axis = axis
         self._epsilon = epsilon
+        self._norm = F.layer_norm
+        self._norm_residual = F.layer_norm_residual
 
     def infer_shape(self, x, *args):
         c = x.shape[self._axis % x.dim()]
@@ -242,13 +260,17 @@ class LayerNorm(_Norm):
         self.beta.shape = (c,)
 
     def forward(self, x):
+        axis = self._axis % x.dim()
         c = self.gamma.shape[0] if self.gamma.shape else 0
-        if c and x.shape[self._axis % x.dim()] != c:
+        if c and x.shape[axis] != c:
             raise MXNetError(
                 f"LayerNorm: input axis {self._axis} has size "
-                f"{x.shape[self._axis % x.dim()]}, expected {c}")
-        return F.layer_norm(x, self.gamma.data(), self.beta.data(),
-                            axis=self._axis, eps=self._epsilon)
+                f"{x.shape[axis]}, expected {c}")
+        if axis != x.dim() - 1:
+            return F.layer_norm(x, self.gamma.data(), self.beta.data(),
+                                axis=axis, eps=self._epsilon)
+        return self._norm(x, self.gamma.data(), self.beta.data(),
+                          eps=self._epsilon)
 
     def extra_repr(self):
         return f"axis={self._axis}, eps={self._epsilon}"
@@ -261,6 +283,7 @@ class RMSNorm(HybridBlock):
                  in_channels=0, **kwargs):
         super().__init__(**kwargs)
         self._epsilon = epsilon
+        self._norm = F.rms_norm
         self.gamma = Parameter("gamma", shape=(in_channels,)
                                if in_channels else (0,),
                                init=gamma_initializer,
@@ -274,7 +297,7 @@ class RMSNorm(HybridBlock):
         if c and x.shape[-1] != c:
             raise MXNetError(f"RMSNorm: input last axis has size "
                              f"{x.shape[-1]}, expected {c}")
-        return F.rms_norm(x, self.gamma.data(), eps=self._epsilon)
+        return self._norm(x, self.gamma.data(), eps=self._epsilon)
 
 
 class GroupNorm(_Norm):

@@ -12,14 +12,15 @@ first call (``allow_deferred_init``).
 afresh; torch alone would add to it), ``"add"`` (backward passes sum until
 `zero_grad`) or ``"null"`` (no gradient: ``requires_grad=False``).
 ``lr_mult`` / ``wd_mult`` reach the optimizer through the `Trainer`.
-A parameter of a plain ``torch.nn.Module`` inside a Gluon block (the
-port's model layers) is adopted on `Block.collect_params` under its
-module path: the same tensor, with ``lr_mult`` and ``grad_req`` of its
-own, filled by the block's ``initialize()`` like any other.
+A parameter of a plain ``torch.nn.Module`` inside a Gluon block is
+adopted on `Block.collect_params` under its module path: the same tensor,
+with ``lr_mult`` and ``grad_req`` of its own, filled by the block's
+``initialize()`` like any other.
 Row-sparse storage (``row_sparse_data``) waits for ROADMAP.md A16.
 """
 from __future__ import annotations
 
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -76,7 +77,10 @@ class Parameter:
         self._data: Optional[torch.nn.Parameter] = None
         self._deferred_init = None      # (init, device, default_init)
         self._structure_key = None
-        self._owners = []               # (module, attribute) holding it
+        # (weak reference to a module, attribute) holding it: weak, so a
+        # block and its parameters form no reference cycle and are freed
+        # on their last reference, not at the next garbage collection
+        self._owners = []
         self._pending_init = False      # adopted: initialize() fills it
 
     # -- adoption of a plain module's parameter -----------------------------
@@ -95,23 +99,36 @@ class Parameter:
             tensor._gluon_parameter = p
         return p
 
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        state["_owners"] = [(m, a) for m, a in self._live_owners()]
+        return state
+
     def __setstate__(self, state):
         # an unpickled value's write hook is inert (`autograd._WriteHook`):
         # arm a live one
+        owners = state.pop("_owners", [])
         self.__dict__.update(state)
+        self._owners = [(weakref.ref(m), a) for m, a in owners]
         if self._data is not None:
             _ag.set_grad_req(self._data, self._grad_req)
 
+    def _live_owners(self):
+        for ref, attr in self._owners:
+            m = ref()
+            if m is not None:
+                yield m, attr
+
     def _attach(self, module, attr):
-        self._owners.append((module, attr))
+        self._owners.append((weakref.ref(module), attr))
         module._parameters[attr] = self._data
 
     def _detach(self, module, attr):
-        self._owners = [(m, a) for m, a in self._owners
-                        if not (m is module and a == attr)]
+        self._owners = [(r, a) for r, a in self._owners
+                        if not (r() is module and a == attr)]
 
     def _sync_owners(self):
-        for m, attr in self._owners:
+        for m, attr in self._live_owners():
             m._parameters[attr] = self._data
 
     # -- identity -----------------------------------------------------------
@@ -192,10 +209,16 @@ class Parameter:
         else:
             data = torch.zeros(self._shape, dtype=self.dtype, device=dev)
             initializer(self._name, data)
-            self._data = torch.nn.Parameter(data)
-            _ag.set_grad_req(self._data, self._grad_req)
-            self._data._gluon_parameter = self
-            self._sync_owners()
+            self._install(data)
+        self._pending_init = False
+        self._deferred_init = None
+
+    def _install(self, value: torch.Tensor) -> None:
+        """Make `value` (this parameter's shape and dtype, on the device
+        it is to live on) the value of an uninitialized parameter."""
+        self._data = torch.nn.Parameter(value)
+        _ag.set_grad_req(self._data, self._grad_req)
+        self._sync_owners()
         self._pending_init = False
         self._deferred_init = None
 
@@ -267,12 +290,8 @@ class Parameter:
             if self._deferred_init is not None:
                 self._finish_deferred_init()
             else:
-                self._data = torch.nn.Parameter(
-                    val.detach().to(as_torch_device(None),
-                                    self.dtype).clone())
-                _ag.set_grad_req(self._data, self._grad_req)
-                self._data._gluon_parameter = self
-                self._sync_owners()
+                self._install(val.detach().to(as_torch_device(None),
+                                              self.dtype).clone())
                 return
         with torch.no_grad():
             self._data.copy_(val.to(self._data.device, self._data.dtype))

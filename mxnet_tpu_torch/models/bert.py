@@ -2,12 +2,14 @@
 
 A post-LN encoder over the shared fused-QKV attention (`layers`), learned
 positions and token types, the masked-LM head (optionally on the
-``masked_positions`` slots only) and the next-sentence classifier.  The
-module tree carries the JAX package's parameter names
-(``bert.word_embed.weight``, ``bert.layers.<i>.attention.attn_qkv.weight``,
+``masked_positions`` slots only) and the next-sentence classifier, as
+Gluon `HybridBlock`s built from `gluon.nn`.  The tree carries the JAX
+package's parameter names (``bert.word_embed.weight``,
+``bert.layers.<i>.attention.attn_qkv.weight``,
 ``bert.layers.<i>.ffn_norm.gamma``, ``mlm_decoder.weight``, …) and dtypes —
 LayerNorm parameters stay f32 when the model is bf16 or f16, as Gluon
-keeps them — so `convert.load_jax_params` fills it name for name.
+keeps them — so `load_parameters` and `convert.load_jax_params` fill it
+name for name.
 
 Attention runs through the flash kernels on the card (key padding from
 ``valid_length`` as a compact bias, attention-probs dropout inside the
@@ -19,16 +21,17 @@ layer in the backward pass (`ops.nn.remat_call`).
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from ..device import resolve_device
+from ..gluon import nn
+from ..gluon.block import HybridBlock
 from ..ops import nn as F
 from .gpt import torch_dtype
-from .layers import (Dense, Dropout, Embedding, FusedSelfAttention,
-                     LayerNorm, attach_generator, check_max_position)
+from .layers import (FusedSelfAttention, _seeded_fill, attach_generator,
+                     check_max_position)
 
-__all__ = ["BertConfig", "BertModel", "BertForPretraining", "bert_base",
-           "bert_large"]
+__all__ = ["BertConfig", "BertSelfAttention", "BertLayer", "BertModel",
+           "BertForPretraining", "bert_base", "bert_large"]
 
 
 class BertConfig:
@@ -69,7 +72,27 @@ def bert_large(**kwargs):
     return BertConfig(**cfg)
 
 
-class BertLayer(nn.Module):
+class BertSelfAttention(FusedSelfAttention):
+    """The shared fused-QKV attention under BERT's older surface (JAX's
+    shim): built from a `BertConfig` or from `FusedSelfAttention`'s own
+    arguments, called with ``attn_mask=`` or ``mask=``."""
+
+    def __init__(self, cfg_or_hidden, *args, **kwargs):
+        if isinstance(cfg_or_hidden, BertConfig):
+            cfg = cfg_or_hidden
+            super().__init__(cfg.hidden_size, cfg.num_heads,
+                             dropout=cfg.dropout,
+                             dtype=torch_dtype(cfg.dtype),
+                             window=cfg.window)
+        else:
+            super().__init__(cfg_or_hidden, *args, **kwargs)
+
+    def forward(self, x, attn_mask=None, mask=None):
+        return super().forward(x, mask=mask if mask is not None
+                               else attn_mask)
+
+
+class BertLayer(HybridBlock):
     """Post-LN block: LN(x + attn(x)); LN(x + dropout(ffn(x)))."""
 
     def __init__(self, cfg: BertConfig):
@@ -79,11 +102,13 @@ class BertLayer(nn.Module):
         self.attention = FusedSelfAttention(h, cfg.num_heads,
                                             dropout=cfg.dropout, dtype=dt,
                                             window=cfg.window)
-        self.attn_norm = LayerNorm(h, eps=eps)
-        self.ffn_intermediate = Dense(h, cfg.intermediate_size, dtype=dt)
-        self.ffn_output = Dense(cfg.intermediate_size, h, dtype=dt)
-        self.ffn_norm = LayerNorm(h, eps=eps)
-        self.dropout = Dropout(cfg.dropout)
+        self.attn_norm = nn.LayerNorm(epsilon=eps, in_channels=h)
+        self.ffn_intermediate = nn.Dense(cfg.intermediate_size, in_units=h,
+                                         flatten=False, dtype=dt)
+        self.ffn_output = nn.Dense(h, in_units=cfg.intermediate_size,
+                                   flatten=False, dtype=dt)
+        self.ffn_norm = nn.LayerNorm(epsilon=eps, in_channels=h)
+        self.dropout = nn.Dropout(cfg.dropout)
 
     def forward(self, x, attn_mask=None):
         x = self.attn_norm(x + self.attention(x, attn_mask))
@@ -92,25 +117,33 @@ class BertLayer(nn.Module):
         return self.ffn_norm(x + y)
 
 
-class BertModel(nn.Module):
+class BertModel(HybridBlock):
+    """The encoder: embeddings, `num_layers` `BertLayer`s (a
+    ``HybridSequential``) and the tanh pooler.  Built on its own its
+    parameters wait for ``initialize()``, as in Gluon."""
+
     def __init__(self, cfg: BertConfig):
         super().__init__()
         dt = torch_dtype(cfg.dtype)
         self.cfg = cfg
         h = cfg.hidden_size
-        self.word_embed = Embedding(cfg.vocab_size, h, dtype=dt)
-        self.token_type_embed = Embedding(cfg.type_vocab_size, h, dtype=dt)
-        self.position_embed = Embedding(cfg.max_position, h, dtype=dt)
-        self.embed_norm = LayerNorm(h, eps=cfg.layer_norm_eps)
-        self.embed_dropout = Dropout(cfg.dropout)
-        self.layers = nn.ModuleList(BertLayer(cfg)
-                                    for _ in range(cfg.num_layers))
-        self.pooler = Dense(h, h, dtype=dt)
+        self.word_embed = nn.Embedding(cfg.vocab_size, h, dtype=dt)
+        self.token_type_embed = nn.Embedding(cfg.type_vocab_size, h,
+                                             dtype=dt)
+        self.position_embed = nn.Embedding(cfg.max_position, h, dtype=dt)
+        self.embed_norm = nn.LayerNorm(epsilon=cfg.layer_norm_eps,
+                                       in_channels=h)
+        self.embed_dropout = nn.Dropout(cfg.dropout)
+        self.layers = nn.HybridSequential()
+        for _ in range(cfg.num_layers):
+            self.layers.add(BertLayer(cfg))
+        self.pooler = nn.Dense(h, in_units=h, activation="tanh",
+                               flatten=False, dtype=dt)
 
     def forward(self, input_ids, token_types=None, valid_length=None):
         b, l = input_ids.shape
         check_max_position(l, self.cfg.max_position)
-        dev = self.word_embed.weight.device
+        dev = self.word_embed.weight.data().device
         pos = torch.arange(l, device=dev)
         x = self.word_embed(input_ids) + self.position_embed(pos.reshape(1, l))
         if token_types is not None:
@@ -125,20 +158,21 @@ class BertModel(nn.Module):
         for layer in self.layers:
             x = F.remat_call(layer, x, mask, policy=policy) if remat_on \
                 else layer(x, mask)
-        pooled = torch.tanh(self.pooler(x[:, 0]))
-        return x, pooled
+        return x, self.pooler(x[:, 0])
 
 
-class BertForPretraining(nn.Module):
+class BertForPretraining(HybridBlock):
     """MLM + NSP heads (GluonNLP BERTForPretrain parity).
 
     With `masked_positions` ((batch, num_masked) indices) the MLM head runs
-    on those slots only.  Built on `device` (the card unless
-    ``device="cpu"``) with weights drawn from `seed` — N(0, 0.02) for
-    matrices and embeddings, zero biases, unit LayerNorm gains, on the CPU
-    generator so a seed gives the same weights on every device — and one
-    dropout generator on `device`, also seeded from `seed`, shared by every
-    dropout (hidden and attention)."""
+    on those slots only.  Construction initializes it, as
+    `GPTForCausalLM`'s does: weights drawn on `device` (the card unless
+    ``device="cpu"``) from `seed` -- N(0, 0.02) for matrices and
+    embeddings, zero biases, unit LayerNorm gains, on the CPU generator so
+    a seed gives the same weights on every device -- and one dropout
+    generator on `device`, also seeded from `seed`, shared by every
+    dropout (hidden and attention); ``initialize()`` after it is a no-op
+    unless ``force_reinit=True``."""
 
     def __init__(self, cfg: BertConfig, device=None, seed: int = 0):
         super().__init__()
@@ -146,33 +180,24 @@ class BertForPretraining(nn.Module):
         self.cfg = cfg
         dt = torch_dtype(cfg.dtype)
         h = cfg.hidden_size
-        with torch.device("meta"):
-            self.bert = BertModel(cfg)
-            self.mlm_dense = Dense(h, h, dtype=dt)
-            self.mlm_norm = LayerNorm(h, eps=cfg.layer_norm_eps)
-            self.mlm_decoder = Dense(h, cfg.vocab_size, dtype=dt)
-            self.nsp_classifier = Dense(h, 2, dtype=dt)
-        self.to_empty(device="cpu")
-        self.reset_parameters(seed)
-        self.to(dev)
+        self.bert = BertModel(cfg)
+        self.mlm_dense = nn.Dense(h, in_units=h, flatten=False, dtype=dt)
+        self.mlm_norm = nn.LayerNorm(epsilon=cfg.layer_norm_eps,
+                                     in_channels=h)
+        self.mlm_decoder = nn.Dense(cfg.vocab_size, in_units=h,
+                                    flatten=False, dtype=dt)
+        self.nsp_classifier = nn.Dense(2, in_units=h, dtype=dt)
+        _seeded_fill(self, seed, dev)
         self.generator = torch.Generator(device=dev).manual_seed(int(seed))
         attach_generator(self, self.generator)
 
     @property
     def device(self) -> torch.device:
-        return self.bert.word_embed.weight.device
+        return self.bert.word_embed.weight.data().device
 
-    @torch.no_grad()
     def reset_parameters(self, seed: int = 0) -> None:
-        gen = torch.Generator(device="cpu").manual_seed(int(seed))
-        for name, p in self.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf == "gamma":
-                p.fill_(1.0)
-            elif leaf in ("beta", "bias"):
-                p.zero_()
-            else:
-                p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+        """Draw every weight again from `seed`, as the constructor does."""
+        _seeded_fill(self, seed, self.device)
 
     def forward(self, input_ids, token_types=None, valid_length=None,
                 masked_positions=None):

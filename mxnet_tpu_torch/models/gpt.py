@@ -3,11 +3,13 @@
 
 A pre-LN transformer with a fused-QKV projection, learned positions (or
 RoPE), optional GQA and sliding window, and tied embeddings by default.
-The module tree carries the JAX package's parameter names
-(``transformer.word_embed.weight``,
+Every class is a Gluon `HybridBlock` built from `gluon.nn` layers (the
+``layers`` stack a ``HybridSequential``), with the JAX package's parameter
+names (``transformer.word_embed.weight``,
 ``transformer.layers.<i>.attention.attn_qkv.weight``, …,
 ``transformer.final_norm.gamma``, ``lm_head.weight``), so
-`convert.load_jax_params` fills it name for name.
+`collect_params`, `load_parameters` and `convert.load_jax_params` carry
+weights across name for name.
 
 LayerNorm parameters stay f32 in a bf16 or f16 model, as Gluon keeps
 them, and every norm takes ``layer_norm_eps``.
@@ -28,14 +30,15 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-from torch import nn
 
+from .. import autograd as _ag
 from ..base import MXNetError
 from ..device import resolve_device
+from ..gluon import nn
+from ..gluon.block import HybridBlock
 from ..ops import nn as F
-from .layers import (Dense, Dropout, Embedding, FeedForward,
-                     FusedSelfAttention, LayerNorm, attach_generator,
-                     check_max_position)
+from .layers import (FeedForward, FusedSelfAttention, _seeded_fill,
+                     attach_generator, check_max_position)
 
 __all__ = ["GPTConfig", "GPTBlock", "GPTModel", "GPTForCausalLM",
            "gpt_small", "gpt_medium"]
@@ -109,20 +112,20 @@ def gpt_medium(**kwargs):
     return GPTConfig(**cfg)
 
 
-class GPTBlock(nn.Module):
+class GPTBlock(HybridBlock):
     """Pre-LN block (GPT-2 style): x + attn(ln(x)); x + ffn(ln(x))."""
 
     def __init__(self, cfg: GPTConfig):
         super().__init__()
         dt = torch_dtype(cfg.dtype)
         h, eps = cfg.hidden_size, cfg.layer_norm_eps
-        self.attn_norm = LayerNorm(h, eps=eps)
+        self.attn_norm = nn.LayerNorm(epsilon=eps, in_channels=h)
         self.attention = FusedSelfAttention(
             h, cfg.num_heads, dropout=cfg.dropout, causal=True, dtype=dt,
             window=cfg.window,
             rope_theta=cfg.rope_theta if cfg.rope else None,
             num_kv_heads=cfg.num_kv_heads)
-        self.ffn_norm = LayerNorm(h, eps=eps)
+        self.ffn_norm = nn.LayerNorm(epsilon=eps, in_channels=h)
         self.ffn = FeedForward(h, cfg.intermediate_size,
                                dropout=cfg.dropout, dtype=dt)
 
@@ -130,24 +133,28 @@ class GPTBlock(nn.Module):
         # the residual add fused into the second norm: s = x + attn_out
         # and ffn_norm(s) in one pass
         att = self.attention(self.attn_norm(x))
-        normed, s = self.ffn_norm.residual(att, x)
+        ln = self.ffn_norm
+        normed, s = ln._norm_residual(att, x, ln.gamma.data(),
+                                      ln.beta.data(), eps=ln._epsilon)
         return s + self.ffn(normed)
 
 
-class GPTModel(nn.Module):
+class GPTModel(HybridBlock):
     def __init__(self, cfg: GPTConfig):
         super().__init__()
         dt = torch_dtype(cfg.dtype)
         self.cfg = cfg
-        self.word_embed = Embedding(cfg.vocab_size, cfg.hidden_size,
-                                    dtype=dt)
+        self.word_embed = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
+                                       dtype=dt)
         if not cfg.rope:
-            self.position_embed = Embedding(cfg.max_position,
-                                            cfg.hidden_size, dtype=dt)
-        self.embed_dropout = Dropout(cfg.dropout)
-        self.layers = nn.ModuleList(GPTBlock(cfg)
-                                    for _ in range(cfg.num_layers))
-        self.final_norm = LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+            self.position_embed = nn.Embedding(cfg.max_position,
+                                               cfg.hidden_size, dtype=dt)
+        self.embed_dropout = nn.Dropout(cfg.dropout)
+        self.layers = nn.HybridSequential()
+        for _ in range(cfg.num_layers):
+            self.layers.add(GPTBlock(cfg))
+        self.final_norm = nn.LayerNorm(epsilon=cfg.layer_norm_eps,
+                                       in_channels=cfg.hidden_size)
 
     def forward(self, input_ids):
         b, l = input_ids.shape
@@ -196,48 +203,43 @@ def _filter_logits(logits, top_k=0, top_p=1.0):
     return logits
 
 
-class GPTForCausalLM(nn.Module):
+class GPTForCausalLM(HybridBlock):
     """Next-token LM head; with `tie_embeddings` the decoder reuses the
     input embedding matrix (GPT-2 parity).
 
-    Built on `device` (the card unless ``device="cpu"``) with weights drawn
-    from `seed`: N(0, 0.02) for matrices and embeddings, zero biases,
-    unit LayerNorm gains — on the CPU generator, so a seed gives the same
-    weights on every device — and one dropout generator on `device`, also
-    seeded from `seed`, shared by every dropout (embedding, hidden and
-    attention)."""
+    Construction initializes it: the weights are drawn on `device` (the
+    card unless ``device="cpu"``) from `seed` -- N(0, 0.02) for matrices
+    and embeddings, zero biases, unit LayerNorm gains, on the CPU
+    generator, so a seed gives the same weights on every device -- and
+    one dropout generator on `device`, also seeded from `seed`, is shared
+    by every dropout (embedding, hidden and attention).  So Gluon's
+    ``initialize()`` after it is a no-op, as on any initialized block, and
+    ``initialize(init, force_reinit=True)`` redraws every parameter as
+    JAX's does (its own initializer, else `init`, else ``Uniform()``) from
+    the port's generators (`random.seed`).  `collect_params`,
+    `save_parameters` / `load_parameters` (the JAX ``.npz``), `cast`,
+    `hybridize` and the hooks work as on any Gluon block."""
 
     def __init__(self, cfg: GPTConfig, device=None, seed: int = 0):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
-        with torch.device("meta"):
-            self.transformer = GPTModel(cfg)
-            if not cfg.tie_embeddings:
-                self.lm_head = Dense(cfg.hidden_size, cfg.vocab_size,
-                                     bias=False,
-                                     dtype=torch_dtype(cfg.dtype))
-        self.to_empty(device="cpu")
-        self.reset_parameters(seed)
-        self.to(dev)
+        self.transformer = GPTModel(cfg)
+        if not cfg.tie_embeddings:
+            self.lm_head = nn.Dense(cfg.vocab_size, in_units=cfg.hidden_size,
+                                    use_bias=False, flatten=False,
+                                    dtype=torch_dtype(cfg.dtype))
+        _seeded_fill(self, seed, dev)
         self.generator = torch.Generator(device=dev).manual_seed(int(seed))
         attach_generator(self, self.generator)
 
     @property
     def device(self) -> torch.device:
-        return self.transformer.word_embed.weight.device
+        return self.transformer.word_embed.weight.data().device
 
-    @torch.no_grad()
     def reset_parameters(self, seed: int = 0) -> None:
-        gen = torch.Generator(device="cpu").manual_seed(int(seed))
-        for name, p in self.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf == "gamma":
-                p.fill_(1.0)
-            elif leaf in ("beta", "bias"):
-                p.zero_()
-            else:
-                p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+        """Draw every weight again from `seed`, as the constructor does."""
+        _seeded_fill(self, seed, self.device)
 
     def forward(self, input_ids):
         """Causal-LM logits (B, L, V) of token ids (B, L); the tied head
@@ -245,7 +247,8 @@ class GPTForCausalLM(nn.Module):
         table, as ``np.matmul`` does."""
         x = self.transformer(input_ids)
         if self.cfg.tie_embeddings:
-            return F.fully_connected(x, self.transformer.word_embed.weight)
+            return F.fully_connected(
+                x, self.transformer.word_embed.weight.data())
         return self.lm_head(x)
 
     @staticmethod
@@ -317,15 +320,11 @@ class GPTForCausalLM(nn.Module):
                                      generator=generator)[:, 0]
 
         if not use_cache:
-            was_training = self.training
-            self.eval()
-            try:
-                ids = prompt
+            ids = prompt
+            with _ag.predict_mode():
                 for _ in range(max_new_tokens):
                     nxt = pick(self(ids)[:, -1]).to(torch.int32)
                     ids = torch.cat([ids, nxt[:, None]], dim=1)
-            finally:
-                self.train(was_training)
             return ids
         from ..serve.decode import (dense_kv_fn, extract_decode_weights,
                                     lm_logits, transformer_step)

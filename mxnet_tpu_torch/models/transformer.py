@@ -10,23 +10,25 @@ runs through `ops.multi_head_attention`, so on the card all three reach
 the flash kernels; the norms reach the fused norm kernel and the loss of
 `ops.softmax_cross_entropy` the cross-entropy kernels.
 
-The module tree carries the JAX package's Gluon parameter names
-(``encoder.embed.word_embed.weight``,
+Every class is a Gluon `HybridBlock` built from `gluon.nn` with the JAX
+package's parameter names (``encoder.embed.word_embed.weight``,
 ``decoder.layers.<i>.cross_attention.attn_kv.weight``, ``proj.weight``,
-…), so `convert.load_jax_params` fills it name for name.  LayerNorm
+…), so `load_parameters` and `convert.load_jax_params` fill it name for
+name.  LayerNorm
 parameters stay f32 in a bf16 or f16 model, as Gluon keeps them.
 """
 from __future__ import annotations
 
 import torch
-from torch import nn
 
+from .. import autograd as _ag
 from ..device import resolve_device
+from ..gluon import nn
+from ..gluon.block import HybridBlock
 from ..ops.attention import multi_head_attention
 from .gpt import torch_dtype
-from .layers import (Dense, Dropout, Embedding, FeedForward,
-                     FusedSelfAttention, LayerNorm, attach_generator,
-                     check_max_position)
+from .layers import (FeedForward, FusedSelfAttention, _seeded_fill,
+                     attach_generator, check_max_position)
 
 __all__ = ["TransformerConfig", "TransformerEncoder", "TransformerDecoder",
            "TransformerNMT", "transformer_base"]
@@ -55,41 +57,41 @@ def transformer_base(**kwargs):
     return TransformerConfig(**kwargs)
 
 
-class _CrossAttention(nn.Module):
+class _CrossAttention(HybridBlock):
     """Cross-attention over encoder memory: separate query and key/value
-    projections, no attention-probs dropout (as JAX).  ``attend`` is
-    `multi_head_attention`; an oracle swaps in
-    `multi_head_attention_reference`."""
+    projections, no attention-probs dropout (as JAX).  ``_attend`` is
+    `multi_head_attention` (a plain twin's `multi_head_attention_reference`,
+    `layers._plain_twin`)."""
 
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
         dt = torch_dtype(cfg.dtype)
         h = cfg.hidden_size
         self.num_heads = cfg.num_heads
-        self.attend = multi_head_attention
-        self.attn_query = Dense(h, h, dtype=dt)
-        self.attn_kv = Dense(h, 2 * h, dtype=dt)
-        self.attn_proj = Dense(h, h, dtype=dt)
-        self.dropout = Dropout(cfg.dropout)
+        self._attend = multi_head_attention
+        self.attn_query = nn.Dense(h, in_units=h, flatten=False, dtype=dt)
+        self.attn_kv = nn.Dense(2 * h, in_units=h, flatten=False, dtype=dt)
+        self.attn_proj = nn.Dense(h, in_units=h, flatten=False, dtype=dt)
+        self.dropout = nn.Dropout(cfg.dropout)
 
     def forward(self, x, memory, mask=None):
         q = self.attn_query(x)
         kv = self.attn_kv(memory)
         h = kv.shape[-1] // 2
-        ctx = self.attend(q, kv[..., :h], kv[..., h:], self.num_heads,
-                          mask=mask)
+        ctx = self._attend(q, kv[..., :h], kv[..., h:], self.num_heads,
+                           mask=mask)
         return self.dropout(self.attn_proj(ctx))
 
 
-class _EncoderLayer(nn.Module):
+class _EncoderLayer(HybridBlock):
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
         dt = torch_dtype(cfg.dtype)
         h, eps = cfg.hidden_size, cfg.layer_norm_eps
-        self.attn_norm = LayerNorm(h, eps=eps)
+        self.attn_norm = nn.LayerNorm(epsilon=eps, in_channels=h)
         self.attention = FusedSelfAttention(h, cfg.num_heads,
                                             dropout=cfg.dropout, dtype=dt)
-        self.ffn_norm = LayerNorm(h, eps=eps)
+        self.ffn_norm = nn.LayerNorm(epsilon=eps, in_channels=h)
         self.ffn = FeedForward(h, cfg.intermediate_size,
                                dropout=cfg.dropout, activation="relu",
                                dtype=dt)
@@ -99,18 +101,18 @@ class _EncoderLayer(nn.Module):
         return x + self.ffn(self.ffn_norm(x))
 
 
-class _DecoderLayer(nn.Module):
+class _DecoderLayer(HybridBlock):
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
         dt = torch_dtype(cfg.dtype)
         h, eps = cfg.hidden_size, cfg.layer_norm_eps
-        self.attn_norm = LayerNorm(h, eps=eps)
+        self.attn_norm = nn.LayerNorm(epsilon=eps, in_channels=h)
         self.attention = FusedSelfAttention(h, cfg.num_heads,
                                             dropout=cfg.dropout, causal=True,
                                             dtype=dt)
-        self.cross_norm = LayerNorm(h, eps=eps)
+        self.cross_norm = nn.LayerNorm(epsilon=eps, in_channels=h)
         self.cross_attention = _CrossAttention(cfg)
-        self.ffn_norm = LayerNorm(h, eps=eps)
+        self.ffn_norm = nn.LayerNorm(epsilon=eps, in_channels=h)
         self.ffn = FeedForward(h, cfg.intermediate_size,
                                dropout=cfg.dropout, activation="relu",
                                dtype=dt)
@@ -122,7 +124,7 @@ class _DecoderLayer(nn.Module):
         return x + self.ffn(self.ffn_norm(x))
 
 
-class _Embedding(nn.Module):
+class _Embedding(HybridBlock):
     """Token embedding scaled by sqrt(hidden) plus learned positions."""
 
     def __init__(self, cfg: TransformerConfig, vocab: int):
@@ -130,10 +132,10 @@ class _Embedding(nn.Module):
         dt = torch_dtype(cfg.dtype)
         self.scale = float(cfg.hidden_size) ** 0.5
         self._max_position = cfg.max_position
-        self.word_embed = Embedding(vocab, cfg.hidden_size, dtype=dt)
-        self.position_embed = Embedding(cfg.max_position, cfg.hidden_size,
-                                        dtype=dt)
-        self.dropout = Dropout(cfg.dropout)
+        self.word_embed = nn.Embedding(vocab, cfg.hidden_size, dtype=dt)
+        self.position_embed = nn.Embedding(cfg.max_position,
+                                           cfg.hidden_size, dtype=dt)
+        self.dropout = nn.Dropout(cfg.dropout)
 
     def forward(self, ids):
         b, l = ids.shape
@@ -143,13 +145,15 @@ class _Embedding(nn.Module):
         return self.dropout(x)
 
 
-class TransformerEncoder(nn.Module):
+class TransformerEncoder(HybridBlock):
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
         self.embed = _Embedding(cfg, cfg.src_vocab_size)
-        self.layers = nn.ModuleList(_EncoderLayer(cfg)
-                                    for _ in range(cfg.num_layers))
-        self.final_norm = LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        self.layers = nn.HybridSequential()
+        for _ in range(cfg.num_layers):
+            self.layers.add(_EncoderLayer(cfg))
+        self.final_norm = nn.LayerNorm(epsilon=cfg.layer_norm_eps,
+                                       in_channels=cfg.hidden_size)
 
     def forward(self, src_ids, src_valid_length=None):
         """(memory (B, L, E), mask): the mask is (B, 1, 1, L) boolean,
@@ -166,13 +170,15 @@ class TransformerEncoder(nn.Module):
         return self.final_norm(x), mask
 
 
-class TransformerDecoder(nn.Module):
+class TransformerDecoder(HybridBlock):
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
         self.embed = _Embedding(cfg, cfg.tgt_vocab_size)
-        self.layers = nn.ModuleList(_DecoderLayer(cfg)
-                                    for _ in range(cfg.num_layers))
-        self.final_norm = LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        self.layers = nn.HybridSequential()
+        for _ in range(cfg.num_layers):
+            self.layers.add(_DecoderLayer(cfg))
+        self.final_norm = nn.LayerNorm(epsilon=cfg.layer_norm_eps,
+                                       in_channels=cfg.hidden_size)
 
     def forward(self, tgt_ids, memory, memory_mask=None):
         x = self.embed(tgt_ids)
@@ -181,45 +187,37 @@ class TransformerDecoder(nn.Module):
         return self.final_norm(x)
 
 
-class TransformerNMT(nn.Module):
+class TransformerNMT(HybridBlock):
     """Full seq2seq model: encoder + causal decoder + projection.
 
-    Built on `device` (the card unless ``device="cpu"``) with weights drawn
-    from `seed` — N(0, 0.02) for matrices and embeddings, zero biases,
-    unit LayerNorm gains, on the CPU generator so a seed gives the same
-    weights on every device — and one dropout generator on `device`, also
-    seeded from `seed`, shared by every dropout."""
+    Construction initializes it, as `GPTForCausalLM`'s does: weights drawn
+    on `device` (the card unless ``device="cpu"``) from `seed` — N(0,
+    0.02) for matrices and embeddings, zero biases, unit LayerNorm gains,
+    on the CPU generator so a seed gives the same weights on every device
+    — and one dropout generator on `device`, also seeded from `seed`,
+    shared by every dropout; ``initialize()`` after it is a no-op unless
+    ``force_reinit=True``."""
 
     def __init__(self, cfg: TransformerConfig, device=None, seed: int = 0):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
-        with torch.device("meta"):
-            self.encoder = TransformerEncoder(cfg)
-            self.decoder = TransformerDecoder(cfg)
-            self.proj = Dense(cfg.hidden_size, cfg.tgt_vocab_size,
-                              bias=False, dtype=torch_dtype(cfg.dtype))
-        self.to_empty(device="cpu")
-        self.reset_parameters(seed)
-        self.to(dev)
+        self.encoder = TransformerEncoder(cfg)
+        self.decoder = TransformerDecoder(cfg)
+        self.proj = nn.Dense(cfg.tgt_vocab_size, in_units=cfg.hidden_size,
+                             use_bias=False, flatten=False,
+                             dtype=torch_dtype(cfg.dtype))
+        _seeded_fill(self, seed, dev)
         self.generator = torch.Generator(device=dev).manual_seed(int(seed))
         attach_generator(self, self.generator)
 
     @property
     def device(self) -> torch.device:
-        return self.proj.weight.device
+        return self.proj.weight.data().device
 
-    @torch.no_grad()
     def reset_parameters(self, seed: int = 0) -> None:
-        gen = torch.Generator(device="cpu").manual_seed(int(seed))
-        for name, p in self.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf == "gamma":
-                p.fill_(1.0)
-            elif leaf in ("beta", "bias"):
-                p.zero_()
-            else:
-                p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+        """Draw every weight again from `seed`, as the constructor does."""
+        _seeded_fill(self, seed, self.device)
 
     def forward(self, src_ids, tgt_ids, src_valid_length=None):
         """Logits (B, Lt, tgt_vocab) of the target given the source."""
@@ -233,9 +231,7 @@ class TransformerNMT(nn.Module):
         off), as JAX's eager ``greedy_translate``: (B, <= max_len) int32
         ids starting with `bos_id`; a finished row keeps emitting
         `eos_id`, and the loop stops once every row has finished."""
-        was_training = self.training
-        self.eval()
-        try:
+        with _ag.predict_mode():
             src = torch.as_tensor(src_ids, device=self.device)
             memory, mask = self.encoder(src, src_valid_length)
             b = src.shape[0]
@@ -251,5 +247,3 @@ class TransformerNMT(nn.Module):
                 if bool(finished.all()):
                     break
             return tgt
-        finally:
-            self.train(was_training)

@@ -457,21 +457,21 @@ def rms_norm_residual(x, residual, gamma, eps=1e-6,
 
 def fused_layer_norm_reference(x, gamma, beta, eps=1e-5):
     """The kernel route of `fused_layer_norm` on the plain version, on any
-    device, with no kernel launched — what an oracle `models.layers.
-    LayerNorm` calls in place of ``ops.nn.layer_norm``."""
+    device, with no kernel launched — what a plain twin's
+    `gluon.nn.LayerNorm` calls in place of ``ops.nn.layer_norm``."""
     return _kernel_route(x, None, gamma, beta, eps, False, False)
 
 
 def fused_layer_norm_residual_reference(x, residual, gamma, beta, eps=1e-5):
     """The kernel route of `layer_norm_residual` on the plain version, on
-    any device, with no kernel launched — an oracle `models.layers.
-    LayerNorm`'s ``norm_residual``.  Returns ``(y, s)``."""
+    any device, with no kernel launched — a plain twin's
+    `gluon.nn.LayerNorm` ``_norm_residual``.  Returns ``(y, s)``."""
     return _kernel_route(x, residual, gamma, beta, eps, False, False)
 
 
 def fused_rms_norm_reference(x, gamma, eps=1e-6):
     """The kernel route of `fused_rms_norm` on the plain version, on any
-    device (an oracle `models.layers.RMSNorm`'s ``norm``)."""
+    device (a plain twin's `gluon.nn.RMSNorm` ``_norm``)."""
     return _kernel_route(x, None, gamma, None, eps, True, False)
 
 

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from torch.utils import checkpoint as _ckpt
 
 from .. import amp as _amp
+from .. import autograd as _ag
 from ..base import MXNetError
 
 from . import fused_norm as _fnorm
@@ -371,7 +372,7 @@ def resolve_remat_policy(value, env_override: bool = True):
 
 def _generators_of(fn):
     """The explicit dropout generators a module call draws from."""
-    from ..models.layers import Dropout
+    from ..gluon.nn import Dropout
     if not isinstance(fn, torch.nn.Module):
         return []
     gens = {id(m.generator): m.generator for m in fn.modules()
@@ -406,14 +407,38 @@ def _generator_contexts(generators):
     return forward(), recompute()
 
 
+def _mode_contexts():
+    """(forward, recompute) context managers for a checkpoint: the
+    recompute runs under the training flag (`autograd.is_training`) the
+    forward saw, wherever the backward pass is called from."""
+    seen = []
+
+    @contextlib.contextmanager
+    def forward():
+        seen[:] = [_ag.is_training()]
+        yield
+
+    @contextlib.contextmanager
+    def recompute():
+        prev = _ag.set_training(seen[0])
+        try:
+            yield
+        finally:
+            _ag.set_training(prev)
+
+    return forward(), recompute()
+
+
 def _context_fn(policy, generators):
     gen_fwd, gen_rec = _generator_contexts(generators)
+    mode_fwd, mode_rec = _mode_contexts()
+    fwd, rec = _both(mode_fwd, gen_fwd), _both(mode_rec, gen_rec)
     saved = REMAT_POLICIES[policy] if policy is not None else None
     if saved is None:
-        return gen_fwd, gen_rec
+        return fwd, rec
     ops = [getattr(torch.ops.aten, n).default for n in saved]
     sac_fwd, sac_rec = _ckpt.create_selective_checkpoint_contexts(ops)
-    return _both(gen_fwd, sac_fwd), _both(gen_rec, sac_rec)
+    return _both(fwd, sac_fwd), _both(rec, sac_rec)
 
 
 @contextlib.contextmanager
@@ -443,7 +468,9 @@ def remat_call(fn, *args, policy=None):
     draws its kernel seed from its output dropout's) is taken at entry and
     put back for the recompute, so the recompute draws the forward's masks
     and seeds; each generator is then left where the first forward left
-    it."""
+    it.  The recompute also runs under the training flag the forward saw,
+    so a Gluon block recomputed by a ``backward()`` outside ``record()``
+    keeps its dropout."""
     if isinstance(policy, str):
         enabled, policy = resolve_remat_policy(policy, env_override=False)
         if not enabled:

@@ -28,10 +28,12 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 
 from ..base import MXNetError
 from ..device import resolve_device
+from ..gluon.block import HybridBlock
+from ..gluon.parameter import Parameter
+from ..models.layers import _seeded_fill
 from ..ops import moe_dispatch as _moed
 from ..ops.policy import pallas_mode
 
@@ -106,17 +108,19 @@ def switch_moe(x, router_w, w_up, w_down, capacity_factor=1.25,
     return out.reshape(b, l, h), aux_loss
 
 
-class MoEFeedForward(nn.Module):
-    """Routed FFN layer: parameters ``router`` (E, H), ``expert_up``
-    (E, I, H) and ``expert_down`` (E, H, I), named as the JAX layer's
-    ``collect_params()`` so `load_jax_params` carries them across.
-    `forward` returns ``(out, aux_loss)``; add the aux loss to the training
-    loss scaled by e.g. 0.01 (Switch Transformer's alpha).
+class MoEFeedForward(HybridBlock):
+    """Routed FFN layer, a Gluon `HybridBlock`: parameters ``router``
+    (E, H), ``expert_up`` (E, I, H) and ``expert_down`` (E, H, I), named as
+    the JAX layer's ``collect_params()`` so `load_parameters` and
+    `load_jax_params` carry them across.  `forward` returns ``(out,
+    aux_loss)``; add the aux loss to the training loss scaled by e.g. 0.01
+    (Switch Transformer's alpha).
 
-    Built on `device` (the card unless ``device="cpu"``) with weights drawn
-    as JAX's ``initialize()`` draws them — uniform in [-0.07, 0.07] — from a
-    CPU generator seeded with `seed`, so a seed gives the same weights on
-    every device."""
+    Construction initializes it on `device` (the card unless
+    ``device="cpu"``) with weights drawn as JAX's ``initialize()`` draws
+    them — uniform in [-0.07, 0.07] — from a CPU generator seeded with
+    `seed`, so a seed gives the same weights on every device;
+    ``initialize()`` after it is a no-op unless ``force_reinit=True``."""
 
     def __init__(self, hidden_size: int, intermediate_size: int,
                  num_experts: int, capacity_factor: float = 1.25,
@@ -126,27 +130,30 @@ class MoEFeedForward(nn.Module):
         if num_experts < 2:
             raise MXNetError("MoEFeedForward needs num_experts >= 2")
         dev = resolve_device(device)
-        dt = getattr(torch, str(dtype).replace("torch.", ""))
         self._cf = capacity_factor
         self._act = activation
         e, h, i = num_experts, hidden_size, intermediate_size
-        self.router = nn.Parameter(torch.empty((e, h), dtype=dt))
-        self.expert_up = nn.Parameter(torch.empty((e, i, h), dtype=dt))
-        self.expert_down = nn.Parameter(torch.empty((e, h, i), dtype=dt))
-        self.reset_parameters(seed)
-        self.to(dev)
+        self.router = Parameter("router", shape=(e, h), dtype=dtype)
+        self.expert_up = Parameter("expert_up", shape=(e, i, h),
+                                   dtype=dtype)
+        self.expert_down = Parameter("expert_down", shape=(e, h, i),
+                                     dtype=dtype)
+        self._fill(seed, dev)
 
     @property
     def device(self) -> torch.device:
-        return self.router.device
+        return self.router.data().device
 
-    @torch.no_grad()
+    def _fill(self, seed, dev, scale=0.07):
+        _seeded_fill(self, seed, dev, draw=lambda shape, g: (
+            2.0 * torch.rand(shape, generator=g, dtype=torch.float32)
+            - 1.0) * scale)
+
     def reset_parameters(self, seed: int = 0, scale: float = 0.07) -> None:
-        gen = torch.Generator(device="cpu").manual_seed(int(seed))
-        for p in (self.router, self.expert_up, self.expert_down):
-            u = torch.rand(p.shape, generator=gen, dtype=torch.float32)
-            p.copy_((2.0 * u - 1.0) * scale)
+        """Draw every weight again from `seed`, as the constructor does."""
+        self._fill(seed, self.device, scale)
 
     def forward(self, x):
-        return switch_moe(x, self.router, self.expert_up, self.expert_down,
-                          capacity_factor=self._cf, activation=self._act)
+        return switch_moe(x, self.router.data(), self.expert_up.data(),
+                          self.expert_down.data(), capacity_factor=self._cf,
+                          activation=self._act)

@@ -83,6 +83,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .. import autograd as _ag
 from .. import health as _health
 from .. import kernels
 from .. import profiler as _profiler
@@ -90,7 +91,7 @@ from .. import recovery as _recovery
 from .. import telemetry as _tele
 from .. import tracing as _trace
 from ..base import MXNetError
-from ..models.layers import Dropout
+from ..gluon.nn import Dropout
 from ..ops.fused_optimizer import (HpScalarCache, apply_updates,
                                    kernel_route, supported)
 from ..optimizer import DCASGD
@@ -227,8 +228,15 @@ class TrainStep:
             for n, p, g in zip(self.diff_names, diff, grads)}
 
     def _compute(self, batch):
-        """(loss, grads) of one step, over `grad_accum` microbatches."""
+        """(loss, grads) of one step, over `grad_accum` microbatches, in
+        training mode (dropout on), as JAX's step runs its forward with
+        ``training=True``: a Gluon block takes its mode from
+        `autograd.is_training`, which is off outside ``record()``."""
         self.model.train()
+        with _ag.train_mode():
+            return self._compute_in_train_mode(batch)
+
+    def _compute_in_train_mode(self, batch):
         k = self.grad_accum
         if k == 1:
             return self._loss_and_grads(batch)

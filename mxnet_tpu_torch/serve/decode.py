@@ -39,11 +39,11 @@ __all__ = ["extract_decode_weights", "transformer_step", "lm_logits",
 
 def extract_decode_weights(model) -> dict:
     """Plain-dict view of a ``GPTForCausalLM``'s decoder weights (tensors
-    share storage with the module's parameters)."""
+    share storage with the block's Gluon parameters)."""
     t = model.transformer
 
     def w(p):
-        return p.detach()
+        return p.data().detach()
 
     layers = []
     for blk in t.layers:

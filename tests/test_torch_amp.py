@@ -51,7 +51,7 @@ from mxnet_tpu_torch.amp import lists as tlists
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.gluon import Trainer
 from mxnet_tpu_torch.models import bert as tbert
-from mxnet_tpu_torch.models.layers import Dense
+from mxnet_tpu_torch.gluon import nn as tnn
 from mxnet_tpu_torch.ops import nn as tF
 from mxnet_tpu_torch.optimizer import create as tcreate
 
@@ -343,7 +343,7 @@ def test_fp16_trainer_overflow_drill_matches_jax():
     mx.random.seed(3)
     jnet = jnn.Dense(2, in_units=3)
     jnet.initialize()
-    tnet = Dense(3, 2)
+    tnet = tnn.Dense(2, in_units=3)
     load_jax_params(tnet, {k: p.data().asnumpy() for k, p in
                            jnet.collect_params().items()}, device="cpu")
     jtr = jgluon.Trainer(jnet.collect_params(), "sgd",
@@ -352,7 +352,7 @@ def test_fp16_trainer_overflow_drill_matches_jax():
                   {"learning_rate": 0.1})
     jamp.init_trainer(jtr)
     tamp.init_trainer(ttr)
-    w0 = _np(tnet.weight)
+    w0 = _np(tnet.weight.data())
     x = np.ones((2, 3), np.float32)
     scales, applied = [], None
     for step in range(5):
@@ -372,20 +372,20 @@ def test_fp16_trainer_overflow_drill_matches_jax():
             loss = (loss * 1e38) * 1e38
         with tamp.scale_loss(loss, ttr) as scaled:
             scaled.backward()
-        before = _np(tnet.weight)
+        before = _np(tnet.weight.data())
         ttr.step(2)
-        np.testing.assert_array_equal(_np(tnet.weight),
+        np.testing.assert_array_equal(_np(tnet.weight.data()),
                                       jnet.weight.data().asnumpy())
-        np.testing.assert_array_equal(_np(tnet.bias),
+        np.testing.assert_array_equal(_np(tnet.bias.data()),
                                       jnet.bias.data().asnumpy())
         assert ttr._amp_loss_scaler.loss_scale == \
             jtr._amp_loss_scaler.loss_scale
         scales.append(ttr._amp_loss_scaler.loss_scale)
-        if not np.array_equal(_np(tnet.weight), before):
+        if not np.array_equal(_np(tnet.weight.data()), before):
             applied = step
             break
     assert scales[0] == 2.0 ** 15 and applied == 2, (scales, applied)
-    np.testing.assert_allclose(_np(tnet.weight), w0 - 0.1, rtol=1e-3)
+    np.testing.assert_allclose(_np(tnet.weight.data()), w0 - 0.1, rtol=1e-3)
 
 
 def test_scale_loss_and_unscale_match_jax():
@@ -397,7 +397,7 @@ def test_scale_loss_and_unscale_match_jax():
     mx.random.seed(5)
     jnet = jnn.Dense(2, in_units=3)
     jnet.initialize()
-    tnet = Dense(3, 2)
+    tnet = tnn.Dense(2, in_units=3)
     load_jax_params(tnet, {k: p.data().asnumpy() for k, p in
                            jnet.collect_params().items()}, device="cpu")
     jtr = jgluon.Trainer(jnet.collect_params(), "sgd",
@@ -430,7 +430,7 @@ def test_scale_loss_and_unscale_match_jax():
 
 def test_trainer_accepts_multi_precision_and_the_scaler():
     tamp.init("float16")
-    net = Dense(3, 2)
+    net = tnn.Dense(2, in_units=3).initialize(device="cpu")
     tr = Trainer(dict(net.named_parameters()), "adam",
                  {"learning_rate": 0.1, "multi_precision": True})
     tamp.init_trainer(tr)
@@ -482,7 +482,7 @@ def _mp_models(wdt):
     mx.random.seed(9)
     jm = jnn.Dense(4, in_units=6)
     jm.initialize(mx.init.Normal(0.3))
-    tm = Dense(6, 4)
+    tm = tnn.Dense(4, in_units=6)
     load_jax_params(tm, {k: p.data().asnumpy() for k, p in
                          jm.collect_params().items()}, device="cpu")
     jm.cast(wdt)
@@ -521,7 +521,7 @@ def _jax_mp_step(jm, tr, i):
 
 def _port_mp_step(tm, tr, i):
     x, y = _mp_data(i)
-    out = tm(torch.from_numpy(x).to(tm.weight.dtype))
+    out = tm(torch.from_numpy(x).to(tm.weight.data().dtype))
     loss = ((out.float() - torch.from_numpy(y)) ** 2).mean()
     loss.backward()
     params = dict(tm.named_parameters())
@@ -583,7 +583,7 @@ def test_multi_precision_states_round_trip(tmp_path):
     tr2 = Trainer(dict(tm.named_parameters()), opt,
                   dict(kw, multi_precision=True))
     tr2.load_states(f)
-    assert tr2._optimizer._is_mp_state(tm.weight, tr2._states["weight"])
+    assert tr2._optimizer._is_mp_state(tm.weight.data(), tr2._states["weight"])
     _port_mp_step(tm, tr2, 2)
     for n, p in tm.named_parameters():
         assert torch.equal(p.detach(), after[n]), n

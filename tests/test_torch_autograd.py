@@ -25,7 +25,6 @@ import mxnet_tpu_torch as tm
 from mxnet_tpu_torch import autograd as tag
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.gluon import HybridBlock, nn as tnn
-from mxnet_tpu_torch.models.layers import Dropout as PlainDropout
 
 torch.set_num_threads(1)
 
@@ -124,7 +123,7 @@ def test_plain_module_children_follow_the_training_flag():
     class Net(HybridBlock):
         def __init__(self):
             super().__init__()
-            self.drop = PlainDropout(0.5)
+            self.drop = torch.nn.Dropout(0.5)
 
         def forward(self, x):
             return self.drop(x)

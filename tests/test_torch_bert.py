@@ -19,8 +19,10 @@ from mxnet_tpu import numpy_extension as npx
 from mxnet_tpu.models import bert as jbert
 from mxnet_tpu.models import layers as jlayers
 
+from mxnet_tpu_torch import autograd as tautograd
 from mxnet_tpu_torch import load_jax_params
 from mxnet_tpu_torch.base import MXNetError
+from mxnet_tpu_torch.gluon import nn as tgnn
 from mxnet_tpu_torch.models import bert as tbert
 from mxnet_tpu_torch.models import layers as tlayers
 from mxnet_tpu_torch.ops import nn as tnn
@@ -196,13 +198,13 @@ def test_dropout_is_seeded_and_off_in_eval():
               masked_positions=torch.from_numpy(mp))
     a = tbert.BertForPretraining(cfg, device="cpu", seed=3)
     b = tbert.BertForPretraining(cfg, device="cpu", seed=3)
-    assert torch.equal(a(*args, **kw)[0], b(*args, **kw)[0])
-    assert not torch.equal(a(*args, **kw)[0], a(*args, **kw)[0])
-    a.eval()
+    with tautograd.train_mode():
+        assert torch.equal(a(*args, **kw)[0], b(*args, **kw)[0])
+        assert not torch.equal(a(*args, **kw)[0], a(*args, **kw)[0])
     assert torch.equal(a(*args, **kw)[0], a(*args, **kw)[0])
     assert a.generator is not None and all(
         m.generator is a.generator for m in a.modules()
-        if isinstance(m, tlayers.Dropout))
+        if isinstance(m, tgnn.Dropout))
 
 
 def test_parameter_names_follow_the_jax_tree():

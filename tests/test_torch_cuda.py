@@ -51,7 +51,10 @@ layer, none under ``MXTPU_QUANT_ACT=1``), and a `gluon.Trainer` over a
 plane: a `TrainStep` under health and recovery whose own skip flag (one NaN
 planted in a gradient) keeps every weight and state bit through the chunk
 and LAMB kernels with no host sync, and its ``save_async`` / ``load``
-round trip, dropout generator included, bit-equal.
+round trip, dropout generator included, bit-equal; and the models as
+Gluon blocks: `examples/gpt_generation.py`'s loop on its two GPTs (the
+launches a step, the plain twin's losses, the `save_parameters` round
+trip) and `examples/serve_gpt.py`'s engine over a Block.
 
 Marked ``cuda``: each test skips (with its reason) where no card is
 visible, as on the CPU test machine.  Run them on a machine with an H100
@@ -984,9 +987,9 @@ def test_windowed_bert_on_the_card_matches_the_plain_attention(card):
     card, against the same model whose attention runs the plain versions
     (`multi_head_attention_reference`, i.e. `flash_attention_reference`)
     from the same seed: the band and the padding inside one kernel."""
+    from mxnet_tpu_torch import autograd
     from mxnet_tpu_torch.models import bert as tbert
-    from mxnet_tpu_torch.models.layers import FusedSelfAttention
-    from mxnet_tpu_torch.ops.attention import multi_head_attention_reference
+    from mxnet_tpu_torch.models.layers import _plain_twin
     cfg = tbert.BertConfig(vocab_size=1000, hidden_size=256, num_layers=2,
                            num_heads=4, intermediate_size=512,
                            max_position=128, dropout=0.1, window=32)
@@ -997,12 +1000,10 @@ def test_windowed_bert_on_the_card_matches_the_plain_attention(card):
     for plain in (False, True):
         m = tbert.BertForPretraining(cfg, device=card, seed=3)
         if plain:
-            for mod in m.modules():
-                if isinstance(mod, FusedSelfAttention):
-                    mod.attend = multi_head_attention_reference
-        m.train()
+            _plain_twin(m, norms=False)
         kernels.reset_launch_counts()
-        mlm, nsp = m(ids, valid_length=vl)
+        with autograd.train_mode():
+            mlm, nsp = m(ids, valid_length=vl)
         (mlm.float().square().mean() + nsp.float().sum()).backward()
         counts = kernels.launch_counts()
         assert counts["flash_attention_fwd"] == (0 if plain else 2)
@@ -1996,9 +1997,7 @@ def _gpt_step(card, remat, plain, seed=0, dtype="bfloat16"):
     builds the oracle on the plain versions (no launch)."""
     import os
     from mxnet_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
-    from mxnet_tpu_torch.models.layers import FusedSelfAttention, LayerNorm
-    from mxnet_tpu_torch.ops import fused_norm as fn
-    from mxnet_tpu_torch.ops.attention import multi_head_attention_reference
+    from mxnet_tpu_torch.models.layers import _plain_twin
     from mxnet_tpu_torch.ops.fused_optimizer import kernel_plain
     from mxnet_tpu_torch.ops.softmax_xent import (
         softmax_cross_entropy, softmax_cross_entropy_reference)
@@ -2010,12 +2009,7 @@ def _gpt_step(card, remat, plain, seed=0, dtype="bfloat16"):
     model = GPTForCausalLM(cfg, device=card, seed=seed)
     xent = softmax_cross_entropy
     if plain:
-        for m in model.modules():
-            if isinstance(m, FusedSelfAttention):
-                m.attend = multi_head_attention_reference
-            if isinstance(m, LayerNorm):
-                m.norm = fn.fused_layer_norm_reference
-                m.norm_residual = fn.fused_layer_norm_residual_reference
+        _plain_twin(model)
         xent = softmax_cross_entropy_reference
 
     def loss_fn(out, ids, lab):
@@ -2328,12 +2322,11 @@ def test_fp16_amp_bert_steps_on_the_card(card, weights):
     the same loop on the plain versions within 1e-3, a poisoned step is
     skipped on both, and the weights keep their dtype."""
     import math
-    from mxnet_tpu_torch import amp
+    from mxnet_tpu_torch import amp, autograd
     from mxnet_tpu_torch.gluon import Trainer
     from mxnet_tpu_torch.models import bert as tb
-    from mxnet_tpu_torch.models.layers import FusedSelfAttention, LayerNorm
+    from mxnet_tpu_torch.models.layers import _plain_twin
     from mxnet_tpu_torch.ops import softmax_xent as sx
-    from mxnet_tpu_torch.ops.attention import multi_head_attention_reference
     from mxnet_tpu_torch.ops.fused_norm import fused_layer_norm_reference
     cfg = tb.BertConfig(vocab_size=1000, hidden_size=128, num_layers=2,
                         num_heads=2, intermediate_size=256, max_position=64,
@@ -2357,19 +2350,16 @@ def test_fp16_amp_bert_steps_on_the_card(card, weights):
         xent = sx.softmax_cross_entropy
         if plain:
             xent = sx.softmax_cross_entropy_reference
-            for m in model.modules():
-                if isinstance(m, FusedSelfAttention):
-                    m.attend = multi_head_attention_reference
-                if isinstance(m, LayerNorm):
-                    m.norm = norm_ref
-        tr = Trainer(dict(model.named_parameters()), "adam",
+            _plain_twin(model, norm=norm_ref)
+        tr = Trainer(model.collect_params(), "adam",
                      {"learning_rate": 1e-3,
                       "multi_precision": weights == "float16"})
         amp.init_trainer(tr)
         kernels.reset_launch_counts()
         losses = []
         for i in range(3):
-            loss = xent(model(ids, None, vl, mp)[0], lab).mean()
+            with autograd.train_mode():
+                loss = xent(model(ids, None, vl, mp)[0], lab).mean()
             losses.append(float(loss))
             with amp.scale_loss(loss * math.inf if i == 1 else loss,
                                 tr) as scaled:
@@ -2604,3 +2594,108 @@ def test_cuda_train_step_save_load_round_trip(card, monkeypatch, plane_off,
     for n in step.diff_names:
         for a, b in zip(step.opt_state[n], state[n]):
             assert torch.equal(a, b), n
+
+
+# ---------------------------------------------------------------------------
+# the models as Gluon blocks: examples/gpt_generation.py's and
+# examples/serve_gpt.py's calls on the card
+# ---------------------------------------------------------------------------
+
+def _example_gpt(card, **extra):
+    from mxnet_tpu_torch.models import GPTConfig, GPTForCausalLM
+    cfg = GPTConfig(vocab_size=64, hidden_size=64, num_layers=2,
+                    num_heads=4, intermediate_size=128, max_position=64,
+                    dropout=0.0, **extra)
+    model = GPTForCausalLM(cfg, device=card)
+    model.initialize()
+    return model
+
+
+@pytest.mark.parametrize("extra", [{}, dict(rope=True, num_kv_heads=2,
+                                            window=8)],
+                         ids=["classic", "modern"])
+def test_gluon_gpt_example_steps_on_the_card(card, extra, tmp_path):
+    """Three steps of `examples/gpt_generation.py`'s loop on its model
+    (``gluon.Trainer(model.collect_params(), "adam")``, ``record()``,
+    ``backward()``, ``step(1)``): each step launches flash 2 + 2, the
+    norm 5, the cross-entropy 1 + 1 and the chunk once (f32: one dtype
+    group), and the same loop on the plain twin (`_plain_twin`, the plain
+    loss and update) gives the same losses within 1e-4; the trained
+    weights come back bit-equal through `save_parameters` into a fresh
+    model."""
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.models import GPTForCausalLM
+    from mxnet_tpu_torch.models.layers import _plain_twin
+    from mxnet_tpu_torch.ops import fused_optimizer as fo
+    from mxnet_tpu_torch.ops.softmax_xent import \
+        softmax_cross_entropy_reference
+    g = torch.Generator().manual_seed(0)
+    batches = [torch.randint(0, 64, (8, 24), generator=g).to(card)
+               for _ in range(3)]
+    runs = {}
+    for plain in (False, True):
+        model = _example_gpt(card, **extra)
+        loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+        if plain:
+            _plain_twin(model)
+            loss_fn = softmax_cross_entropy_reference
+        tr = gluon.Trainer(model.collect_params(), "adam",
+                           {"learning_rate": 3e-3})
+        model.hybridize()
+        real = fo.apply_updates
+        if plain:
+            fo.apply_updates = lambda opt, p, gr, s, hp, skip=None, \
+                use_kernel=False: fo.kernel_plain(opt, p, gr, s, hp, skip)
+        losses, counts = [], []
+        try:
+            for ids in batches:
+                kernels.reset_launch_counts()
+                with autograd.record():
+                    logits = model(ids)
+                    loss = loss_fn(logits[:, :-1].reshape(-1, 64),
+                                   ids[:, 1:].reshape(-1)).mean()
+                loss.backward()
+                tr.step(1)
+                torch.cuda.synchronize()
+                counts.append(kernels.launch_counts())
+                losses.append(float(loss))
+        finally:
+            fo.apply_updates = real
+        runs[plain] = (model, losses, counts)
+    model, losses, counts = runs[False]
+    want = {"flash_attention_fwd": 2, "flash_attention_bwd": 2,
+            "fused_norm": 5, "softmax_xent_fwd": 1, "softmax_xent_bwd": 1,
+            "fused_optimizer_chunk": 1}
+    for c in counts:
+        assert {k: c[k] for k in want} == want
+    assert not any(v for c in runs[True][2] for v in c.values())
+    np.testing.assert_allclose(losses, runs[True][1], rtol=1e-4)
+    path = str(tmp_path / "gpt.npz")
+    model.save_parameters(path)
+    fresh = GPTForCausalLM(model.cfg, device=card, seed=1)
+    fresh.initialize()
+    fresh.load_parameters(path)
+    with torch.no_grad():
+        assert torch.equal(model(batches[0]), fresh(batches[0]))
+
+
+def test_gluon_gpt_serves_as_the_example_on_the_card(card):
+    """`examples/serve_gpt.py`'s engine over a port Block: its pool forces
+    an eviction, every stream equals an unbatched greedy `generate`, and
+    K1 runs once a layer a fused step."""
+    from mxnet_tpu_torch.serve import InferenceEngine, ServeConfig
+    model = _example_gpt(card)
+    rng = np.random.RandomState(11)
+    prompts = [rng.randint(0, 64, n).tolist() for n in (3, 9, 5, 12, 2, 7)]
+    refs = [model.generate(torch.tensor([p], dtype=torch.int32),
+                           max_new_tokens=8)[0].tolist() for p in prompts]
+    eng = InferenceEngine(model, ServeConfig(
+        max_slots=2, page_size=4, num_pages=6, prefill_chunk=4,
+        max_len=20), device=card)
+    eng.warmup()
+    kernels.reset_launch_counts()
+    handles = [eng.submit(p, max_new_tokens=8) for p in prompts]
+    steps = eng.run_until_idle()
+    assert [h.result(timeout=0) for h in handles] == refs
+    assert sum(h.evictions for h in handles) >= 1
+    assert kernels.launch_counts()["ragged_paged_attention"] == 2 * steps

@@ -350,14 +350,15 @@ def test_attention_dropout_is_seeded_by_the_generator():
 def test_reference_entries_equal_the_dispatch(entry):
     """The oracle entries (`flash_attention_reference`,
     `multi_head_attention_reference`, and a `FusedSelfAttention` whose
-    ``attend`` is swapped for the latter) compute what the CPU dispatch
+    ``_attend`` is swapped for the latter) compute what the CPU dispatch
     computes, dropout masks and gradients included."""
+    from mxnet_tpu_torch import autograd as tag
     from mxnet_tpu_torch.models.layers import FusedSelfAttention
     rng, q, k, v, g = _inputs(10)
     bias = torch.from_numpy(_bias(_padding_mask(rng, 2, 16)))
     x = torch.from_numpy(rng.randn(2, 16, 32).astype(np.float32))
     torch.manual_seed(0)
-    layer = FusedSelfAttention(32, 4, dropout=0.2)
+    layer = FusedSelfAttention(32, 4, dropout=0.2).initialize(device="cpu")
 
     def run(ref):
         ins = [torch.tensor(a, requires_grad=True) for a in (q, k, v)]
@@ -374,11 +375,12 @@ def test_reference_entries_equal_the_dispatch(entry):
                      dropout_p=0.3, training=True,
                      generator=torch.Generator().manual_seed(11))
         else:
-            layer.attend = tattn.multi_head_attention_reference if ref \
+            layer._attend = tattn.multi_head_attention_reference if ref \
                 else tattn.multi_head_attention
             layer.dropout.generator = torch.Generator().manual_seed(11)
             ins = [x.clone().requires_grad_()]
-            out = layer(ins[0], (bias == 0.0).float()[:, None, None, :])
+            with tag.train_mode():
+                out = layer(ins[0], (bias == 0.0).float()[:, None, None, :])
         out.backward(torch.ones_like(out))
         return [out.detach()] + [t.grad for t in ins]
     for a, b in zip(run(False), run(True)):

@@ -22,7 +22,7 @@ from mxnet_tpu.gluon import nn as jnn
 from mxnet_tpu.ops.pallas import fused_norm as jfn
 
 from mxnet_tpu_torch.base import MXNetError
-from mxnet_tpu_torch.models.layers import LayerNorm, RMSNorm
+from mxnet_tpu_torch.gluon import nn as tgnn
 from mxnet_tpu_torch.ops import fused_norm as tfn
 from mxnet_tpu_torch.ops import nn as tnn
 
@@ -181,7 +181,7 @@ def test_nn_entry_points_and_rmsnorm_match_npx():
     _close(tnn.layer_norm(tx, tg, tb), npx.layer_norm(jx, jg, jb), 1e-5)
     blk = jnn.RMSNorm(in_channels=32)
     blk.initialize()
-    tblk = RMSNorm(32)
+    tblk = tgnn.RMSNorm(in_channels=32).initialize(device="cpu")
     _close(tblk(tx), blk(mx.np.array(x)).asnumpy(), 1e-5)
     for fn, args in ((tnn.rms_norm, (tx, tg)),
                      (tnn.layer_norm_residual, (tx, tr, tg, tb))):
@@ -202,13 +202,14 @@ def test_ops_layer_norm_over_any_axis_matches_npx(axis):
 
 
 def test_layers_check_in_channels_and_swap_their_norm():
-    ln, rn = LayerNorm(8), RMSNorm(8)
+    ln = tgnn.LayerNorm(in_channels=8).initialize(device="cpu")
+    rn = tgnn.RMSNorm(in_channels=8).initialize(device="cpu")
     for m in (ln, rn):
         with pytest.raises(MXNetError, match="expected 8"):
             m(torch.zeros(2, 7))
     x = torch.randn(3, 8, dtype=torch.bfloat16)
-    ln.norm = tfn.fused_layer_norm_reference
-    rn.norm = tfn.fused_rms_norm_reference
+    ln._norm = tfn.fused_layer_norm_reference
+    rn._norm = tfn.fused_rms_norm_reference
     # the plain kernel route on any device and under any policy: x's dtype
     assert ln(x).dtype == rn(x).dtype == torch.bfloat16
 

@@ -47,9 +47,11 @@ from mxnet_tpu.serve import ServeConfig as JServeConfig
 from mxnet_tpu.serve import decode as jdecode
 from mxnet_tpu.serve import kv_cache as jkv
 
+from mxnet_tpu_torch import autograd as tautograd
 from mxnet_tpu_torch import load_jax_params
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.gluon import Trainer
+from mxnet_tpu_torch.gluon import nn as tgnn
 from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
 from mxnet_tpu_torch.models import bert as tbert
 from mxnet_tpu_torch.models import gpt as tgpt
@@ -272,11 +274,11 @@ def _bert(remat):
 
 def _loss_and_grads(model):
     ids, lab = (torch.from_numpy(a) for a in _stream())
-    model.train()
-    if isinstance(model, tgpt.GPTForCausalLM):
-        out = model(ids)
-    else:
-        out = model(ids, valid_length=torch.tensor([12, 7, 12, 9]))[0]
+    with tautograd.train_mode():
+        if isinstance(model, tgpt.GPTForCausalLM):
+            out = model(ids)
+        else:
+            out = model(ids, valid_length=torch.tensor([12, 7, 12, 9]))[0]
     loss = softmax_cross_entropy(out.reshape(-1, V), lab.reshape(-1)).mean()
     params = [p for p in model.parameters()]
     return loss.detach(), torch.autograd.grad(loss, params,
@@ -434,13 +436,14 @@ def _check_16bit_carry_over(dtype):
     assert norms == 2 * (2 * SMALL["num_layers"] + 1)
     assert tm.transformer.final_norm.gamma.dtype == torch.float32
     assert tm.transformer.word_embed.weight.dtype == getattr(torch, dtype)
-    assert isinstance(tm.transformer.word_embed, tgpt.Embedding)
+    assert isinstance(tm.transformer.word_embed, tgnn.Embedding)
     # ids out of range clip to the table, as Gluon's nn.Embedding does
     ids = torch.tensor([[V + 5, -1, 3]])
     with torch.no_grad():
         np.testing.assert_array_equal(
             tm.transformer.word_embed(ids)[0, :2].float().numpy(),
-            tm.transformer.word_embed.weight[[V - 1, 0]].float().numpy())
+            tm.transformer.word_embed.weight.data()[[V - 1, 0]].float()
+            .numpy())
 
 
 def test_bf16_gpt_carries_over_with_f32_layer_norms():
@@ -529,9 +532,9 @@ def test_three_f16_train_steps_match_jax(route):
 @pytest.mark.parametrize("eps", [1e-3, 0.5])
 def test_layer_norm_eps_reaches_every_norm(route, eps):
     jm, tm = _pair(layer_norm_eps=eps)
-    norms = [m for m in tm.modules() if isinstance(m, tgpt.LayerNorm)]
+    norms = [m for m in tm.modules() if isinstance(m, tgnn.LayerNorm)]
     assert len(norms) == 2 * SMALL["num_layers"] + 1
-    assert all(m.eps == eps for m in norms)
+    assert all(m._epsilon == eps for m in norms)
     ids, _ = _stream()
     want = jm(mx.np.array(ids)).asnumpy()
     with torch.no_grad():

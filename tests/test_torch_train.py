@@ -329,7 +329,7 @@ def test_bf16_weights_keep_f32_moments():
         assert p.dtype == before[n].dtype
         m, v = step.opt_state[n]
         assert m.dtype == v.dtype == torch.float32, n
-    w = tm.model.bert.layers[0].attention.attn_qkv.weight
+    w = tm.model.bert.layers[0].attention.attn_qkv.weight.data()
     assert w.dtype == torch.bfloat16
     assert not torch.equal(w, before[
         "model.bert.layers.0.attention.attn_qkv.weight"])

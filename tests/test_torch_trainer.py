@@ -35,7 +35,7 @@ from mxnet_tpu_torch import load_jax_optimizer_states, load_jax_params
 from mxnet_tpu_torch.amp import LossScaler
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.gluon import Trainer
-from mxnet_tpu_torch.models.layers import Dense
+from mxnet_tpu_torch.gluon import nn as tnn
 from mxnet_tpu_torch.optimizer import Adam
 from mxnet_tpu_torch.optimizer import lr_scheduler as tsched
 from mxnet_tpu_torch.parallel import MoEFeedForward
@@ -81,8 +81,10 @@ class MLP(torch.nn.Module):
 
     def __init__(self):
         super().__init__()
-        self.add_module("0", Dense(16, 32))
-        self.add_module("1", Dense(32, 8))
+        self.add_module("0", tnn.Dense(32, in_units=16, flatten=False))
+        self.add_module("1", tnn.Dense(8, in_units=32, flatten=False))
+        for layer in self.children():
+            layer.initialize(device="cpu")
 
     def forward(self, x):
         return getattr(self, "1")(torch.relu(getattr(self, "0")(x)))
@@ -269,7 +271,8 @@ def test_a_jax_run_continues_in_the_port(name):
     if name == "ftml":
         assert all(len(st) == 3 for st in tr._states.values())
     if name == "dcasgd":       # JAX made the 0-d momentum the weight's shape
-        assert all(st[0].shape == tm.get_parameter(n).shape
+        own = dict(tm.named_parameters())
+        assert all(st[0].shape == own[n].shape
                    for n, st in tr._states.items())
     if name in ("signum", "lars"):
         assert all(st == () for st in tr._states.values())
@@ -334,7 +337,7 @@ def test_unported_options_raise():
     tr.step(1)
     assert tr._amp_loss_scaler.loss_scale == 4.0
     tr = Trainer(params, "adam", {})
-    w0 = m.get_submodule("0").weight
+    w0 = m.get_submodule("0").weight.data()
     w0.grad = torch.zeros_like(w0).to_sparse()
     with pytest.raises(MXNetError, match="sparse"):
         tr.step(1)

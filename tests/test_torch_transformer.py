@@ -32,8 +32,10 @@ from mxnet_tpu.models import transformer as jnmt
 from mxnet_tpu.ops.pallas.softmax_xent import softmax_cross_entropy as jxent
 from mxnet_tpu.parallel import make_mesh, make_sharded_train_step
 
+from mxnet_tpu_torch import autograd as tautograd
 from mxnet_tpu_torch import load_jax_params
 from mxnet_tpu_torch.base import MXNetError
+from mxnet_tpu_torch.gluon import nn as tgnn
 from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
 from mxnet_tpu_torch.models import TransformerNMT, transformer_base
 from mxnet_tpu_torch.models import transformer as tnmt
@@ -246,7 +248,7 @@ def test_max_position_guard_and_dropout_generator():
     with pytest.raises(MXNetError, match="max_position"):
         tm(src, src[:, :4])
     gens = {id(m.generator) for m in tm.modules()
-            if isinstance(m, tnmt.Dropout)}
+            if isinstance(m, tgnn.Dropout)}
     assert gens == {id(tm.generator)}
     # a seed gives the same weights; dropout draws from the generator
     again = TransformerNMT(cfg, device="cpu", seed=4)
@@ -255,8 +257,7 @@ def test_max_position_guard_and_dropout_generator():
     s = torch.randint(0, SV, (2, 6), generator=torch.Generator()
                       .manual_seed(0)).to(torch.int32)
     t = s[:, :5] % TV
-    tm.train()
-    a = tm(s, t)
-    again.train()
-    b = again(s, t)
+    with tautograd.train_mode():
+        a = tm(s, t)
+        b = again(s, t)
     assert torch.equal(a, b)
