@@ -8,13 +8,16 @@ main paths: serving at full GPT-2-small width and depth (12 layers,
 hidden 768, vocab 50257, seeded random weights), the BERT-base pretraining
 step at full width and depth, Switch-MoE training at switch-base-8's
 widths (hidden 768, FFN 3072, 8 experts) through `TrainStep` and the gluon
-`Trainer`, GPT-2-small causal-LM training at full width and depth, the
+`Trainer`, GPT-2-small causal-LM training at full width (6 of its 12
+layers), the
 same with Mistral 7B's attention (RoPE, grouped K/V, a sliding window)
 and with Gemma 2B's (heads of 256 over one kv head, RoPE), serving with
 speculative decoding and the prefix cache plus beam search,
 the Transformer translation model (``transformer_base``), the BERT-base
 step again under the rest of the optimizer family and its schedulers,
-the Gluon front end (BERT-base fine-tuned, an MLP quantized), and
+the Gluon front end (BERT-base fine-tuned, an MLP quantized) and the
+models as Gluon blocks, all through the examples' ``mx.np`` code, the
+tensor front end's kernel-routed ``npx`` ops, and
 ``examples/bert_pretraining.py``'s loop under the operations plane:
 
 1. prints the card (name and power limit from ``nvidia-smi``) and the
@@ -215,9 +218,10 @@ the Gluon front end (BERT-base fine-tuned, an MLP quantized), and
    counted per step, the loss falls, and a planted fault (combine without
    the gate) must depart by more than the limit.  Prints tokens/s, step ms, TFLOP/s
    of the expert products and the share of the dense peak.
-14. (gpt) ``gpt_small()`` (GPT-2 small: vocab 50257, hidden 768, 12
-   layers, 12 heads, FFN 3072, 1024 positions, tied head, 124 M
-   parameters; seed 0, dropout 0.1) on a seeded (8, 1025) token stream
+14. (gpt) ``gpt_small(num_layers=GPT_LAYERS)`` (GPT-2 small's widths:
+   vocab 50257, hidden 768, 12 heads, FFN 3072, 1024 positions, tied
+   head; 6 of its 12 layers, 82 M parameters; seed 0, dropout 0.1) on a
+   seeded (8, 1025) token stream
    (inputs ``[:, :-1]``, labels ``[:, 1:]``), the causal-LM loss
    (``gluon.loss.SoftmaxCrossEntropyLoss`` over the (8192, 50257) logits),
    AdamW lr 3e-4 weight decay 0.1, 20 steps on the default kernel route:
@@ -229,8 +233,8 @@ the Gluon front end (BERT-base fine-tuned, an MLP quantized), and
    float16, the chunk once under float16 and once under float32 a step;
    the share of f16 gradient elements that are zero after step 1's
    backward reported for the run and its oracle).  Launches a
-   step are exact (flash forward 12, 24 under remat; backward 12;
-   cross-entropy 1 + 1; fused norm 25, 49 under remat; the chunk once per
+   step are exact (flash forward 6, 12 under remat; backward 6;
+   cross-entropy 1 + 1; fused norm 13, 25 under remat; the chunk once per
    dtype group); each trajectory is held against the same run on the plain
    versions (`traj_tol`; a remat run shares the bf16 run's oracle, the
    plain math being the same with or without remat), the loss falls,
@@ -361,7 +365,9 @@ the Gluon front end (BERT-base fine-tuned, an MLP quantized), and
    BERT's and GPT-2's shapes and at D 256 (`FLASH_F16`, f16 `XENT_SHAPES`)
    within 5e-3 of the output scale, beside SDPA and ``cross_entropy`` on
    the f16 inputs.
-21. (gluon) the Gluon front end: ``examples/bert_finetune.py``'s
+21. (gluon) the Gluon front end, through the examples' ``mx.np`` code as
+   written (``mx.np.array`` batches, ``loss.backward()`` on the per-sample
+   loss, ``.asnumpy()`` reads): ``examples/bert_finetune.py``'s
    ``BertClassifier`` with ``BertModel(bert_base())`` as its direct child
    ``bert`` (full width and depth, seed 0, N(0, 0.02), dropout 0.1), the
    backbone a ``BertModel`` written by ``save_parameters`` and read back
@@ -384,8 +390,8 @@ the Gluon front end (BERT-base fine-tuned, an MLP quantized), and
    cross-entropy at 2 and 3 classes, K2 at the MLP's three products
    (timed beside cuBLAS and the bound) and at N = 2, K = 16.
 22. (gluon_gpt) the models as Gluon blocks, through the Gluon calls of
-   ``examples/gpt_generation.py`` and ``examples/serve_gpt.py`` (torch
-   tensors for ``mx.np`` arrays): (a) the example as written, both its
+   ``examples/gpt_generation.py`` and ``examples/serve_gpt.py`` and their
+   ``mx.np`` code as written: (a) the example as written, both its
    configurations (V 64, hidden 64, 2 layers; classic, and RoPE with 2 kv
    heads and window 8): ``GPTForCausalLM(cfg)``, ``initialize()``, the
    first call, 120 Adam steps at 3e-3 of 8 x 24 grammar tokens through
@@ -394,17 +400,36 @@ the Gluon front end (BERT-base fine-tuned, an MLP quantized), and
    ``gpt_small(dropout=0.1, dtype="bfloat16")`` (124 M, no cut) built and
    trained the same way, Adam 1e-4 over 20 batches of 8 x 1024 grammar
    tokens, against its plain twin (`_plain_twin`, the plain loss and
-   update) within `gpt_tol`, step 1 by `gpt_step1_check` at bf16's
+   update) within `gpt_tol` (the gpt phase's bf16 one-ulp floor, measured
+   at that phase's depth), step 1 by `gpt_step1_check` at bf16's
    limit, launches a step exact (flash 12 + 12, the norm 25, the
    cross-entropy 1 + 1, the chunk 2), greedy and 4-beam decodes equal to
    the twin's over the trained weights, and ``save_parameters`` into a
    fresh model, ``initialize()``, ``load_parameters``: logits bit-equal;
+   the same 20 steps again fed raw tensors in place of the arrays (the
+   loop before the array front end), from the same seed and batches: the
+   largest loss difference and bit equality printed, the losses
+   bit-equal (so within `gpt_tol`), the launches equal;
    (c) ``examples/serve_gpt.py``'s engine (2 slots, 6 pages of 4) over
    that Block: its six prompts, at least one eviction, every stream equal
    to an unbatched ``generate`` (near ties of the plain path aside), K1
    12 times a fused step.  The example's telemetry snapshot waits for
    ROADMAP.md A14 part 2.
-23. (elastic) ``examples/bert_pretraining.py``'s loop on the port:
+23. (np) the tensor front end on the card: ``npx.layer_norm``,
+   ``layer_norm_residual`` and ``rms_norm`` on 8 x 1024 x 768,
+   ``npx.softmax_cross_entropy`` on (8192, 50257) logits,
+   ``npx.multi_head_attention`` at GPT-2 small's (8 x 1024 x 768, 12
+   heads, causal) and gpt_gqa's (3 kv heads, window 256, RoPE), f32 and
+   bf16, forward and backward through ``attach_grad`` / ``record`` /
+   ``backward``, each against its plain version on the same inputs within
+   ``TOL`` with its launches exact (the norm once, the cross-entropy and
+   flash kernels once each way); a two-layer MLP (768 -> 3072 -> 10)
+   written in ``mx.np`` alone (``np.dot``, ``np.maximum``,
+   ``npx.log_softmax``, ``npx.pick``, 20 steps of SGD over ``w.grad``)
+   against the same program on raw tensors within f32's ``TOL``; the
+   front end's host µs an op (``a + b`` on arrays and ``np.add``) beside
+   the bare torch op over the same 1000 calls.
+24. (elastic) ``examples/bert_pretraining.py``'s loop on the port:
    ``PretrainNet`` over BERT-base in bf16 (full width and depth, seed 0,
    dropout 0.1 from the model's generator), Adam lr 1e-4 through
    ``make_train_step``, 8 x 128 with 20 masked positions, 12 seeded
@@ -3862,10 +3887,15 @@ def run_moe(dev, results, card):
 
 
 # ---------------------------------------------------------------------------
-# phase 14: GPT-2-small causal-LM training at full width and depth
+# phase 14: GPT-2-small causal-LM training at full width
 # ---------------------------------------------------------------------------
 
 GPT_B, GPT_L = 8, 1024          # sequences x tokens a step
+# the gpt phase keeps GPT-2 small's widths and cuts its depth to 6 of 12
+# layers, for the smoke's time limit (launch counts, oracles, one-ulp
+# floors and faults follow the model's depth; train_profile.py and
+# gluon_cost.py time the 12-layer model, and gluon_gpt trains it)
+GPT_LAYERS = 6
 GPT_LR, GPT_WD = 3e-4, 0.1      # AdamW
 REMAT_RTOL = 1e-5               # remat vs no remat (JAX's test_models.py:328)
 # (weights, remat, entry point): TrainStep in bf16 and f32 without remat,
@@ -4261,7 +4291,8 @@ def run_gpt(dev, results, card):
     import torch
     from mxnet_tpu_torch.models import GPTForCausalLM, gpt_small
 
-    cfg = gpt_small()
+    cfg = gpt_small(num_layers=GPT_LAYERS)
+    depth = dict(num_layers=cfg.num_layers)
     batch = gpt_batch(dev, cfg.vocab_size)
     tokens = GPT_B * GPT_L
     flops = GPTForCausalLM.flops_per_token(cfg, GPT_L) * tokens
@@ -4272,13 +4303,14 @@ def run_gpt(dev, results, card):
         key = f"{dtype}_{entry}_remat_{remat or 'off'}"
         f16 = dtype == "float16"
         st, step_s = gpt_run(dev, dtype, False, batch, remat, entry,
-                             step1=f16)
+                             arch=depth, step1=f16)
         if f16:
             step1["kernel"] = st.pop("_step1")
         if dtype not in floors:
             # how far one rounding difference carries: the same run with
             # one weight element one unit in the last place away
-            nst, _ = gpt_run(dev, dtype, False, batch, nudge=True)
+            nst, _ = gpt_run(dev, dtype, False, batch, nudge=True,
+                             arch=depth)
             floors[dtype] = c = dict(
                 losses=nst["losses"],
                 trajectory_rel_dev=traj_dev(nst["losses"], st["losses"]))
@@ -4294,7 +4326,7 @@ def run_gpt(dev, results, card):
             pstep_s = base["plain_step_ms"] / 1e3
         else:
             pst, pstep_s = gpt_run(dev, dtype, True, batch, remat, entry,
-                                   step1=f16)
+                                   arch=depth, step1=f16)
         if f16:
             step1["plain"] = pst.pop("_step1")
             st["step1_check"] = chk = gpt_step1_check(
@@ -4380,7 +4412,8 @@ def run_gpt(dev, results, card):
     for fault in GPT_FAULTS:
         remat = "full" if fault == "remat_without_generator_restore" \
             else False
-        st, _ = gpt_run(dev, "bfloat16", False, batch, remat, "step", fault)
+        st, _ = gpt_run(dev, "bfloat16", False, batch, remat, "step", fault,
+                        arch=depth)
         if remat:
             ref = runs["bfloat16_step_remat_off"]["losses"]
             tol = REMAT_RTOL
@@ -4412,11 +4445,12 @@ def gpt_f16_checks(dev, results, batch, cfg, plain1, problems):
     in f16, the per-leaf update): finite, falling, flash and the
     cross-entropy launched, neither the norm nor the chunk."""
     runs, floors = results["gpt"], results["gpt_one_ulp"]
+    depth = dict(num_layers=cfg.num_layers)
     sound = runs["float16_step_remat_off"]
     tol = gpt_tol("float16", floors["float16"]["trajectory_rel_dev"])
     for fault in GPT_F16_FAULTS:
         st, _ = gpt_run(dev, "float16", False, batch, fault=fault,
-                        step1=True)
+                        arch=depth, step1=True)
         chk = gpt_step1_check(st.pop("_step1"), plain1, dev,
                               cfg.num_layers)
         dev_rel = traj_dev(st["losses"], sound["plain_losses"])
@@ -4429,7 +4463,8 @@ def gpt_f16_checks(dev, results, batch, cfg, plain1, problems):
         if not c["caught_by_step1"]:
             problems.append(f"gpt control float16 {fault}: the step-1 "
                             f"check cannot see it ({json.dumps(chk)})")
-    st, step_s = gpt_run(dev, "float16", False, batch, route="reference")
+    st, step_s = gpt_run(dev, "float16", False, batch, arch=depth,
+                         route="reference")
     want = {k: v for k, v in gpt_want_launches(
         1, cfg.num_layers, False).items()
         if k not in ("fused_norm", "fused_optimizer_chunk")}
@@ -5352,12 +5387,15 @@ def gluon_finetune(dev, cfg, batches, ckpt, plain=False, saved=None):
     `saved` (name -> the values written to `ckpt`) is checked bit for bit
     against what `load_parameters` brought back.  Returns the stats and
     the net."""
+    import functools
     import numpy as np
     import torch
+    import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import autograd, gluon, initializer, kernels
     from mxnet_tpu_torch import random as mrandom
     from mxnet_tpu_torch.gluon import metric
     from mxnet_tpu_torch.models.layers import _plain_twin
+    from mxnet_tpu_torch.ndarray.ndarray import apply
     from mxnet_tpu_torch.ops.softmax_xent import \
         softmax_cross_entropy_reference
     from mxnet_tpu_torch.optimizer import lr_scheduler
@@ -5373,7 +5411,7 @@ def gluon_finetune(dev, cfg, batches, ckpt, plain=False, saved=None):
     loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
     if plain:
         _plain_twin(net)
-        loss_fn = softmax_cross_entropy_reference
+        loss_fn = functools.partial(apply, softmax_cross_entropy_reference)
     for name, p in params.items():
         if ".layers." in name:
             p.lr_mult = GLUON_DECAY ** (
@@ -5390,8 +5428,11 @@ def gluon_finetune(dev, cfg, batches, ckpt, plain=False, saved=None):
     acc, f1 = metric.Accuracy(), metric.F1()
     losses, preds, per_step = [], [], []
     for i, (ids, tt, vl, lab) in enumerate(batches):
-        ids, tt, vl, lab = (torch.from_numpy(a).to(dev)
-                            for a in (ids, tt, vl, lab))
+        # the example's batch: mx.np arrays on the current device
+        ids, tt, vl, lab = (mx.np.array(ids, dtype="int32"),
+                            mx.np.array(tt, dtype="int32"),
+                            mx.np.array(vl, dtype="int32"),
+                            mx.np.array(lab))
         if i == 2:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -5399,13 +5440,13 @@ def gluon_finetune(dev, cfg, batches, ckpt, plain=False, saved=None):
         with autograd.record():
             logits = net(ids, tt, vl)
             loss = loss_fn(logits, lab)
-        autograd.backward(loss)
+        loss.backward()
         trainer.step(GLUON_B)
         per_step.append(kernels.launch_counts())
-        losses.append(float(loss.detach().mean()))
+        losses.append(float(loss.mean().asnumpy()))
         acc.update(lab, logits)
         f1.update(lab, logits)
-        preds.append(logits.detach().argmax(-1).cpu().numpy())
+        preds.append(logits.asnumpy().argmax(1))
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / (GLUON_STEPS - 2)
     labels = np.concatenate([b[3] for b in batches])
@@ -5459,6 +5500,7 @@ def gluon_mlp(dev, problems, card):
     ``MXTPU_QUANT_ACT=1`` (no K2)."""
     import numpy as np
     import torch
+    import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import autograd, gluon, kernels
     from mxnet_tpu_torch import random as mrandom
     from mxnet_tpu_torch.contrib.quantization import quantize_net
@@ -5477,12 +5519,12 @@ def gluon_mlp(dev, problems, card):
     kernels.reset_launch_counts()
     losses = []
     for xb, yb in train:
-        xb, yb = torch.from_numpy(xb).to(dev), torch.from_numpy(yb).to(dev)
+        xb, yb = mx.np.array(xb), mx.np.array(yb)
         with autograd.record():
             loss = loss_fn(net(xb), yb)
-        autograd.backward(loss)
+        loss.backward()
         trainer.step(MLP_B)
-        losses.append(float(loss.detach().mean()))
+        losses.append(float(loss.mean().asnumpy()))
     train_launches = kernels.launch_counts()
     want = {"fused_optimizer_chunk": MLP_STEPS, "fused_norm": MLP_STEPS,
             "softmax_xent_fwd": MLP_STEPS, "softmax_xent_bwd": MLP_STEPS}
@@ -5495,11 +5537,10 @@ def gluon_mlp(dev, problems, card):
         problems.append(f"gluon mlp: launches {got}, want {want}")
     if not losses[-1] < losses[0]:
         problems.append(f"gluon mlp: loss did not fall {losses}")
-    x = torch.from_numpy(xt).to(dev)
-    with torch.no_grad():
-        p32 = net(x).argmax(-1).cpu().numpy()
+    x = mx.np.array(xt)
+    p32 = net(x).asnumpy().argmax(-1)
     st["fp32_accuracy"] = float((p32 == yt).mean())
-    calib = [torch.from_numpy(c).to(dev) for c in calib]
+    calib = [mx.np.array(c) for c in calib]
     for mode in ("naive", "entropy"):
         qnet = quantize_net(net, calib_data=calib, calib_mode=mode)
         kernels.reset_launch_counts()
@@ -5508,8 +5549,8 @@ def gluon_mlp(dev, problems, card):
         k2 = kernels.launch_counts()["quantized_matmul"]
         with pallas_mode("reference"):
             ref = qnet(x)
-        err, scale = _scale_err(out, ref)
-        p8 = out.argmax(-1).cpu().numpy()
+        err, scale = _scale_err(out._data, ref._data)
+        p8 = out.asnumpy().argmax(-1)
         c = dict(k2_launches_per_forward=k2, max_abs_err=err,
                  out_scale=scale, tol=TOL["float32"] * scale,
                  int8_accuracy=float((p8 == yt).mean()),
@@ -5528,9 +5569,9 @@ def gluon_mlp(dev, problems, card):
                 torch.cuda.synchronize()
                 c["act8_k2_launches"] = \
                     kernels.launch_counts()["quantized_matmul"]
-            pa = act.argmax(-1).cpu().numpy()
+            pa = act.asnumpy().argmax(-1)
             c["act8_agreement"] = float((pa == p32).mean())
-            c["act8_finite"] = bool(torch.isfinite(act).all())
+            c["act8_finite"] = bool(mx.np.isfinite(act).all())
             if c["act8_k2_launches"] or not c["act8_finite"]:
                 problems.append(f"gluon quantize_net under MXTPU_QUANT_ACT"
                                 f"=1: K2 launched {c['act8_k2_launches']} "
@@ -5715,19 +5756,23 @@ def rule_accuracy(tokens, vocab):
 
 
 def gluon_gpt_train(model, dev, steps, rng, batch, seq, lr, plain=False,
-                    step1=False):
-    """The example's ``train`` on the card: `gluon.Trainer(model.
-    collect_params(), "adam")`, ``hybridize()``, the forward and the mean
-    `SoftmaxCrossEntropyLoss` over the shifted logits inside
-    ``autograd.record()``, ``loss.backward()``, ``trainer.step(1)``, on
-    `steps` grammar batches drawn from `rng` (a numpy ``RandomState``).  ``plain=True`` is the twin
-    (`_plain_twin` applied by the caller): the loss's and the update's
-    plain versions.  `step1` keeps the weights before step 1, its
-    gradients, and the weights and state after it (`gpt_step1_check`).
-    Returns (losses, launches, seconds a step over steps 3.., step-1
-    record)."""
+                    step1=False, raw=False):
+    """The example's ``train`` on the card, as written: `gluon.Trainer(
+    model.collect_params(), "adam")`, ``hybridize()``, ``mx.np.array``
+    batches, the forward and the mean `SoftmaxCrossEntropyLoss` over the
+    shifted logits inside ``autograd.record()``, ``loss.backward()``,
+    ``trainer.step(1)``, on `steps` grammar batches drawn from `rng` (a
+    numpy ``RandomState``).  ``plain=True`` is the twin (`_plain_twin`
+    applied by the caller): the loss's and the update's plain versions.
+    ``raw=True`` runs the same loop on torch tensors in place of the
+    arrays.  `step1` keeps the weights before step 1, its gradients, and
+    the weights and state after it (`gpt_step1_check`).  Returns (losses,
+    launches, seconds a step over steps 3.., step-1 record)."""
+    import functools
     import torch
+    import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import autograd, gluon, kernels
+    from mxnet_tpu_torch.ndarray.ndarray import apply
     from mxnet_tpu_torch.ops.softmax_xent import \
         softmax_cross_entropy_reference
     V = model.cfg.vocab_size
@@ -5735,10 +5780,11 @@ def gluon_gpt_train(model, dev, steps, rng, batch, seq, lr, plain=False,
                             {"learning_rate": lr})
     loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
     if plain:
-        loss_fn = softmax_cross_entropy_reference
+        loss_fn = functools.partial(apply, softmax_cross_entropy_reference)
     model.hybridize()
     params = model.collect_params()
-    batches = [torch.from_numpy(grammar_batch(rng, batch, seq, V)).to(dev)
+    make = (lambda a: torch.from_numpy(a).to(dev)) if raw else mx.np.array
+    batches = [make(grammar_batch(rng, batch, seq, V))
                for _ in range(steps)]
     losses, rec = [], None
     host = lambda t: t.detach().to("cpu", copy=True)      # noqa: E731
@@ -5776,7 +5822,7 @@ def gluon_gpt_example(dev, name, extra, rng, problems, card):
     ``initialize()``, the first call, 120 steps of its loop, then greedy
     (held to its rule-accuracy assertion), sampled and beam decodes;
     `rng` is the example's one ``RandomState(0)``, shared by both."""
-    import torch
+    import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.models import GPTConfig, GPTForCausalLM
 
     cfg = GPTConfig(vocab_size=GGPT_V, hidden_size=64, num_layers=2,
@@ -5784,14 +5830,14 @@ def gluon_gpt_example(dev, name, extra, rng, problems, card):
                     dropout=0.0, **extra)
     model = GPTForCausalLM(cfg)
     model.initialize()
-    prompt = torch.from_numpy(grammar_batch(rng, 2, 4, GGPT_V)).to(dev)
+    prompt = mx.np.array(grammar_batch(rng, 2, 4, GGPT_V))
     model(prompt)
     t0 = time.perf_counter()
     losses, launches, step_s, _ = gluon_gpt_train(
         model, dev, GGPT_STEPS, rng, 8, GGPT_SEQ, GGPT_LR)
     train_s = time.perf_counter() - t0
     plen = prompt.shape[1]
-    greedy = model.generate(prompt, max_new_tokens=GGPT_NEW).cpu().numpy()
+    greedy = model.generate(prompt, max_new_tokens=GGPT_NEW).asnumpy()
     acc = rule_accuracy(greedy[:, plen - 1:], GGPT_V)
     sampled = model.generate(prompt, max_new_tokens=GGPT_NEW, greedy=False,
                              temperature=0.8, top_k=8, top_p=0.95)
@@ -5800,7 +5846,8 @@ def gluon_gpt_example(dev, name, extra, rng, problems, card):
     st = dict(losses=losses[::20] + losses[-1:], train_s=train_s,
               step_ms=step_s * 1e3, launches=launches,
               rule_accuracy=acc, greedy=greedy[0].tolist(),
-              sampled=sampled[0].tolist(), beam=beam[0].tolist())
+              sampled=sampled.asnumpy()[0].tolist(),
+              beam=beam.asnumpy()[0].tolist())
     print(f"[gluon_gpt {name}] {json.dumps(st)} ({card})", flush=True)
     if not acc > GGPT_ACCURACY:
         problems.append(f"gluon_gpt {name}: greedy decode did not learn "
@@ -5833,6 +5880,7 @@ def gluon_gpt_full(dev, results, problems, card):
     import tempfile
     import numpy as np
     import torch
+    import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import random as mrandom
     from mxnet_tpu_torch.models import GPTForCausalLM, gpt_small
     from mxnet_tpu_torch.models.layers import _plain_twin
@@ -5842,22 +5890,29 @@ def gluon_gpt_full(dev, results, problems, card):
     cfg = gpt_small(dropout=0.1, dtype="bfloat16")
     layers = cfg.num_layers
     runs = {}
-    for plain in (False, True):
+    # the arrays' run, its plain twin, then the arrays' run again on raw
+    # tensors (the loop before the array front end), same seed and batches
+    for key, plain, raw in (("array", False, False), ("plain", True, False),
+                            ("raw", False, True)):
         torch.cuda.empty_cache()
         mrandom.seed(0)
         model = GPTForCausalLM(cfg)
         model.initialize()
         if plain:
             _plain_twin(model)
-        prompt = torch.from_numpy(grammar_batch(
-            np.random.RandomState(1), 2, 4, cfg.vocab_size)).to(dev)
+        prompt = mx.np.array(grammar_batch(
+            np.random.RandomState(1), 2, 4, cfg.vocab_size))
         model(prompt)
         with pallas_mode("auto"):
-            runs[plain] = (model, prompt) + gluon_gpt_train(
+            runs[key] = (model, prompt) + gluon_gpt_train(
                 model, dev, TRAIN_STEPS, np.random.RandomState(2), GGPT_B,
-                GGPT_L, GGPT_FULL_LR, plain=plain, step1=True)
-    (model, prompt, losses, launches, step_s, rec) = runs[False]
-    (twin, _, plosses, plaunches, pstep_s, prec) = runs[True]
+                GGPT_L, GGPT_FULL_LR, plain=plain, step1=not raw, raw=raw)
+        if raw:
+            del model
+            runs["raw"] = runs["raw"][2:]
+    (model, prompt, losses, launches, step_s, rec) = runs["array"]
+    (twin, _, plosses, plaunches, pstep_s, prec) = runs["plain"]
+    rlosses, rlaunches, rstep_s, _ = runs["raw"]
     floor = results["gpt_one_ulp"].get("bfloat16", {}).get(
         "trajectory_rel_dev")
     if floor is None:
@@ -5872,9 +5927,14 @@ def gluon_gpt_full(dev, results, problems, card):
     chk = gpt_step1_check(rec, prec, dev, layers,
                           Adam(learning_rate=GGPT_FULL_LR), hp, "bfloat16")
     tokens = GGPT_B * (GGPT_L - 1)
+    raw_diff = max(abs(a - b) for a, b in zip(losses, rlosses))
+    raw_dev = traj_dev(losses, rlosses)
     st = dict(losses=losses, plain_losses=plosses, trajectory_rel_dev=dev_rel,
               trajectory_tol=tol, one_ulp_floor=floor, step_ms=step_s * 1e3,
               plain_step_ms=pstep_s * 1e3, tokens_per_s=tokens / step_s,
+              raw_losses=rlosses, raw_step_ms=rstep_s * 1e3,
+              raw_max_loss_diff=raw_diff, raw_trajectory_rel_dev=raw_dev,
+              raw_bit_equal=losses == rlosses, raw_launches=rlaunches,
               launches=launches, launches_per_step=gluon_gpt_want(layers),
               step1_check=chk,
               parameters=sum(p.data().numel()
@@ -5894,6 +5954,16 @@ def gluon_gpt_full(dev, results, problems, card):
                         f"{json.dumps(chk)}")
     if not losses[-1] < losses[0]:
         problems.append(f"gluon_gpt full: loss did not fall {losses}")
+    print(f"[gluon_gpt full] arrays against raw tensors: largest loss "
+          f"difference {raw_diff:.3g}, bit-equal {losses == rlosses}, "
+          f"trajectory {raw_dev:.3g} (limit {tol:.3g}); {step_s * 1e3:.2f} "
+          f"against {rstep_s * 1e3:.2f} ms a step ({card})", flush=True)
+    # the two runs share every kernel, seed and batch: bit-equal losses
+    if raw_dev > tol or rlaunches != launches or losses != rlosses:
+        problems.append(f"gluon_gpt full: the arrays' run departs from the "
+                        f"raw tensors' by {raw_dev:.3g} (limit {tol:.3g}, "
+                        f"bit-equal {losses == rlosses}) or launched "
+                        f"{launches} against {rlaunches}")
 
     # the round trip: a fresh model, initialize(), load_parameters
     fd, ckpt = tempfile.mkstemp(suffix=".npz")
@@ -5906,9 +5976,8 @@ def gluon_gpt_full(dev, results, problems, card):
         twin.load_parameters(ckpt)
     finally:
         os.remove(ckpt)
-    with torch.no_grad():
-        st["round_trip_bit_equal"] = bool(torch.equal(model(prompt),
-                                                      fresh(prompt)))
+    st["round_trip_bit_equal"] = bool(mx.np.array_equal(model(prompt),
+                                                       fresh(prompt)))
     del fresh
     if not st["round_trip_bit_equal"]:
         problems.append("gluon_gpt full: logits after save_parameters / "
@@ -5948,6 +6017,7 @@ def gluon_gpt_serve(dev, model, results, problems, card):
     telemetry is not ported and raises by name."""
     import numpy as np
     import torch
+    import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import kernels
     from mxnet_tpu_torch.serve import InferenceEngine, ServeConfig
     from mxnet_tpu_torch.serve.decode import extract_decode_weights
@@ -5956,7 +6026,7 @@ def gluon_gpt_serve(dev, model, results, problems, card):
     rng = np.random.RandomState(GGPT_SERVE_SEED)
     prompts = [rng.randint(0, cfg.vocab_size, n).tolist()
                for n in GGPT_SERVE_LENS]
-    refs = [model.generate(torch.tensor([p], dtype=torch.int32),
+    refs = [model.generate(mx.np.array([p], dtype="int32"),
                            max_new_tokens=GGPT_SERVE_NEW)[0].tolist()
             for p in prompts]
     eng = InferenceEngine(model, ServeConfig(**GGPT_SERVE))
@@ -5996,8 +6066,8 @@ def run_gluon_gpt(dev, results, card):
     """The gluon_gpt phase: (a) `examples/gpt_generation.py` at its own
     size, both configurations; (b) GPT-2 small at full width through the
     same Gluon calls, against its plain twin; (c) `examples/serve_gpt.py`'s
-    engine over the trained Block.  Torch tensors stand where the examples
-    use ``mx.np`` arrays (the NDArray facade is ROADMAP.md A2)."""
+    engine over the trained Block.  Each runs the examples' ``mx.np`` code
+    as written (arrays in, ``loss.backward()``, ``.asnumpy()`` reads)."""
     import numpy as np
     from mxnet_tpu_torch import random as mrandom
     res = results["gluon_gpt"]
@@ -6012,6 +6082,235 @@ def run_gluon_gpt(dev, results, card):
     gluon_gpt_serve(dev, model, results, problems, card)
     res["seconds"] = time.perf_counter() - t0
     print(f"[gluon_gpt] {res['seconds']:.1f} s ({card})", flush=True)
+    if problems:
+        raise AssertionError("; ".join(problems))
+
+
+# ---------------------------------------------------------------------------
+# phase np: the tensor front end (mx.np, mx.npx) on the card
+# ---------------------------------------------------------------------------
+
+NP_ROWS, NP_H = (8, 1024), 768          # GPT-2 small's activations
+NP_XENT = (8192, 50257)                 # the gpt phase's logits
+NP_GQA = dict(num_kv_heads=3, window=256, rope_theta=10000.0)  # gpt_gqa's
+NP_MLP = (64, 768, 3072, 10)            # batch, in, hidden, classes
+NP_MLP_STEPS, NP_MLP_LR = 20, 0.05
+NP_HOST_CALLS = 1000
+
+
+def np_kernel_cases(dev):
+    """The kernel-routed ``npx`` ops at GPT-2 small's widths, forward and
+    backward through ``attach_grad`` / ``record`` / ``backward``, each
+    against its plain version on the same inputs (tensors, the plain
+    function by name, ``torch.autograd.grad``): ``(name, dtype, npx call,
+    plain call, arrays, launches one forward and backward must make)``."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import fused_norm as fn
+    from mxnet_tpu_torch.ops.attention import multi_head_attention_reference
+    from mxnet_tpu_torch.ops.softmax_xent import \
+        softmax_cross_entropy_reference
+    npx = mx.npx
+    g = torch.Generator().manual_seed(25)
+    norm, xent = {"fused_norm": 1}, {"softmax_xent_fwd": 1,
+                                     "softmax_xent_bwd": 1}
+    flash = {"flash_attention_fwd": 1, "flash_attention_bwd": 1}
+
+    def rnd(*shape, dtype="float32", scale=1.0):
+        return (scale * torch.randn(*shape, generator=g)).to(
+            dev, getattr(torch, dtype))
+
+    out = []
+    for dt in ("float32", "bfloat16"):
+        x = rnd(*NP_ROWS, NP_H, dtype=dt)
+        r = rnd(*NP_ROWS, NP_H, dtype=dt)
+        gam = 1 + rnd(NP_H, scale=0.1)
+        bet = rnd(NP_H, scale=0.1)
+        out.append(("layer_norm", dt,
+                    lambda a, b, c: npx.layer_norm(a, b, c),
+                    fn.fused_layer_norm_reference, (x, gam, bet), norm))
+        out.append(("layer_norm_residual", dt,
+                    lambda a, b, c, d: npx.layer_norm_residual(a, b, c, d),
+                    fn.fused_layer_norm_residual_reference,
+                    (x, r, gam, bet), norm))
+        out.append(("rms_norm", dt, lambda a, b: npx.rms_norm(a, b),
+                    fn.fused_rms_norm_reference, (x, gam), norm))
+        logits = rnd(*NP_XENT, dtype=dt, scale=2.0)
+        labels = torch.randint(0, NP_XENT[1], (NP_XENT[0],),
+                               generator=g).to(dev, torch.int32)
+        out.append(("softmax_cross_entropy", dt,
+                    lambda a, b: npx.softmax_cross_entropy(a, b),
+                    softmax_cross_entropy_reference, (logits, labels), xent))
+        q, k, v = (rnd(*NP_ROWS, NP_H, dtype=dt) for _ in range(3))
+        out.append(("multi_head_attention", dt,
+                    lambda a, b, c: npx.multi_head_attention(
+                        a, b, c, 12, causal=True),
+                    lambda a, b, c: multi_head_attention_reference(
+                        a, b, c, 12, causal=True, training=True),
+                    (q, k, v), flash))
+        kv = NP_GQA["num_kv_heads"] * NP_H // 12
+        kg, vg = rnd(*NP_ROWS, kv, dtype=dt), rnd(*NP_ROWS, kv, dtype=dt)
+        out.append(("gqa_attention", dt,
+                    lambda a, b, c: npx.multi_head_attention(
+                        a, b, c, 12, causal=True, **NP_GQA),
+                    lambda a, b, c: multi_head_attention_reference(
+                        a, b, c, 12, causal=True, training=True, **NP_GQA),
+                    (q, kg, vg), flash))
+    return out
+
+
+def _np_case(dev, name, dt, npx_fn, plain_fn, args, want):
+    """One `np_kernel_cases` entry: the arrays' forward and backward (the
+    head a seeded weighting of every output), its launches, and each
+    output and gradient against the plain version's."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, kernels
+    g = torch.Generator(device=dev).manual_seed(7)
+    arrs = [mx.np.asarray(a.clone()) for a in args]
+    for a in arrs:
+        if a._data.is_floating_point():
+            a.attach_grad()
+    kernels.reset_launch_counts()
+    with autograd.record():
+        outs = npx_fn(*arrs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        ws = [mx.np.asarray(torch.rand(o.shape, generator=g, device=dev,
+                                       dtype=o._data.dtype)) for o in outs]
+        head = sum((o * w).sum() for o, w in zip(outs, ws))
+    head.backward()
+    torch.cuda.synchronize()
+    got = {k: v for k, v in kernels.launch_counts().items() if v}
+    leaves = [a.clone().requires_grad_(a.is_floating_point()) for a in args]
+    pouts = plain_fn(*leaves)
+    pouts = pouts if isinstance(pouts, tuple) else (pouts,)
+    phead = sum((o * w._data).sum() for o, w in zip(pouts, ws))
+    diff = [t for t in leaves if t.requires_grad]
+    pgrads = torch.autograd.grad(phead, diff)
+    errs = []
+    for o, po in zip(outs, pouts):
+        errs.append(_scale_err(o._data, po.detach()))
+    grads = [a.grad._data for a in arrs if a._data.is_floating_point()]
+    for gr, pg in zip(grads, pgrads):
+        errs.append(_scale_err(gr, pg))
+    tol = TOL[dt]
+    worst = max(e / max(s, 1e-30) for e, s in errs)
+    c = dict(case=name, dtype=dt, launches=got, want=want,
+             max_rel_err=worst, tol=tol,
+             max_abs_err=max(e for e, _ in errs),
+             ok=got == want and worst <= tol)
+    return c
+
+
+def np_mlp(dev, arrays):
+    """A two-layer MLP (768 -> 3072 -> 10) written in ``mx.np`` alone:
+    ``np.dot``, ``np.maximum``, ``npx.log_softmax``, ``npx.pick``, 20 steps
+    of hand-written SGD over ``w.grad`` (``arrays=True``); or the same
+    program on raw tensors.  Returns the losses and the final weights."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    B, D, H, C = NP_MLP
+    rng = np.random.RandomState(31)
+    init = [rng.randn(D, H).astype(np.float32) * 0.03,
+            np.zeros(H, np.float32),
+            rng.randn(H, C).astype(np.float32) * 0.03,
+            np.zeros(C, np.float32)]
+    data = [(rng.randn(B, D).astype(np.float32),
+             rng.randint(0, C, B).astype(np.int32))
+            for _ in range(NP_MLP_STEPS)]
+    losses = []
+    if arrays:
+        npx = mx.npx
+        params = [mx.np.array(p) for p in init]
+        for p in params:
+            p.attach_grad()
+        for xb, yb in data:
+            x, y = mx.np.array(xb), mx.np.array(yb)
+            with autograd.record():
+                h = mx.np.maximum(mx.np.dot(x, params[0]) + params[1], 0)
+                logp = npx.log_softmax(mx.np.dot(h, params[2]) + params[3])
+                loss = -npx.pick(logp, y).mean()
+            loss.backward()
+            for p in params:
+                p[:] = p - NP_MLP_LR * p.grad
+            losses.append(float(loss))
+        return losses, [p._data for p in params]
+    params = [torch.from_numpy(p).to(dev).requires_grad_() for p in init]
+    for xb, yb in data:
+        x = torch.from_numpy(xb).to(dev)
+        y = torch.from_numpy(yb).to(dev)
+        h = torch.maximum(x @ params[0] + params[1], torch.tensor(0.0,
+                                                                device=dev))
+        logp = torch.log_softmax(h @ params[2] + params[3], dim=-1)
+        loss = -torch.gather(logp, -1, y.long()[:, None])[:, 0].mean()
+        grads = torch.autograd.grad(loss, params)
+        with torch.no_grad():
+            for p, gr in zip(params, grads):
+                p.sub_(NP_MLP_LR * gr)
+        losses.append(float(loss))
+    return losses, [p.detach() for p in params]
+
+
+def np_host_cost(dev):
+    """Mean host µs of one ``mx.np`` binary op (``a + b`` and ``np.add``)
+    against the bare torch op on the same tensors, over the same
+    `NP_HOST_CALLS` calls, enqueued behind a device sleep."""
+    import torch
+    import mxnet_tpu_torch as mx
+    ta = torch.randn(1024, device=dev)
+    tb = torch.randn(1024, device=dev)
+    a, b = mx.np.asarray(ta), mx.np.asarray(tb)
+    out = {}
+    for key, fn in (("torch", lambda: ta + tb), ("np_operator", lambda: a + b),
+                    ("np_add", lambda: mx.np.add(a, b)),
+                    ("torch_again", lambda: ta + tb)):
+        out[key + "_us"] = host_us(fn, iters=NP_HOST_CALLS)
+    out["facade_us"] = out["np_operator_us"] - min(out["torch_us"],
+                                                   out["torch_again_us"])
+    return out
+
+
+def run_np(dev, results, card):
+    """The np phase: the kernel-routed ``npx`` ops at GPT-2 small's widths
+    through arrays, each against its plain version with its launches
+    exact; an MLP written in ``mx.np`` alone against the same program on
+    raw tensors; the front end's host cost an op."""
+    import torch
+    res = results["np"]
+    problems = []
+    t0 = time.perf_counter()
+    res["cases"] = []
+    for case in np_kernel_cases(dev):
+        c = _np_case(dev, *case)
+        res["cases"].append(c)
+        print(f"[np case] {json.dumps(c)} ({card})", flush=True)
+        if not c["ok"]:
+            problems.append(f"np {c['case']} {c['dtype']}: launches "
+                            f"{c['launches']} (want {c['want']}), "
+                            f"{c['max_rel_err']:.3g} off the plain version "
+                            f"(limit {c['tol']})")
+        torch.cuda.empty_cache()
+    losses, weights = np_mlp(dev, arrays=True)
+    plosses, pweights = np_mlp(dev, arrays=False)
+    wdev = max(float((a - b).norm() / b.norm()) for a, b in
+               zip(weights, pweights))
+    st = dict(losses=losses, raw_losses=plosses,
+              trajectory_rel_dev=traj_dev(losses, plosses),
+              weights_rel_dev=wdev, tol=TOL["float32"],
+              bit_equal=losses == plosses)
+    res["mlp"] = st
+    print(f"[np mlp] {json.dumps(st)} ({card})", flush=True)
+    if st["trajectory_rel_dev"] > TOL["float32"] or wdev > TOL["float32"] \
+            or not losses[-1] < losses[0]:
+        problems.append(f"np mlp: {st['trajectory_rel_dev']:.3g} (losses), "
+                        f"{wdev:.3g} (weights) off the raw tensors' run, "
+                        f"limit {TOL['float32']}; losses {losses}")
+    res["host"] = np_host_cost(dev)
+    print(f"[np host] {json.dumps(res['host'])} ({card})", flush=True)
+    res["seconds"] = time.perf_counter() - t0
+    print(f"[np] {res['seconds']:.1f} s ({card})", flush=True)
     if problems:
         raise AssertionError("; ".join(problems))
 
@@ -6811,7 +7110,7 @@ def main(argv=None) -> int:
                "gpt_d256_one_ulp": {},
                "spec_prefix": {}, "nmt": {}, "optim": {}, "amp": {},
                "amp_controls": {}, "amp_one_ulp": {}, "gluon": {},
-               "gluon_gpt": {}, "elastic": {}}
+               "gluon_gpt": {}, "np": {}, "elastic": {}}
     failed = []
     t0 = time.perf_counter()
     # build from the checkout's sources, never from a leftover library
@@ -6858,7 +7157,7 @@ def main(argv=None) -> int:
                      ("optim", lambda d, r, c: run_optim(d, r, c,
                                                          fault_builds)),
                      ("amp", run_amp), ("gluon", run_gluon),
-                     ("gluon_gpt", run_gluon_gpt),
+                     ("gluon_gpt", run_gluon_gpt), ("np", run_np),
                      ("elastic", run_elastic)):
         t_phase = time.perf_counter()
         try:

@@ -16,7 +16,12 @@ prefill_chunk=16)``, 8 slots decoding after 128-token prompts).  Each
 tree's own ``chip_smoke.py`` builds its step, so each side runs its own
 models.  A measurement is the wall time a step over `WINDOW` steps after
 warmup (the device synchronised at both ends), taken `REPEATS` times in
-the process; the per-tree spread is over every window of every turn.
+the process; the per-tree spread is over every window of every turn.  A
+tree with the ``mx.np`` front end also times the array facade: the
+gluon_gpt phase's bf16 `Trainer` step (GPT-2 small, 8 x 1024, dropout
+0.1, Adam through ``Trainer(collect_params())``, ``loss.backward()``) fed
+``mx.np`` arrays against the same step fed raw tensors, in turns in one
+process (raw, arrays, arrays, raw, `REPEATS` times).
 Prints every window and a summary line per measurement.  Needs a CUDA
 card.
 """
@@ -34,17 +39,19 @@ WINDOW, REPEATS = 10, 3
 SERVE_SC = dict(max_slots=8, max_len=512, page_size=16, prefill_chunk=16)
 
 
+def _window(fn, sync):
+    """Wall time a call over `WINDOW` calls of `fn`, ms."""
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(WINDOW):
+        fn()
+    sync()
+    return (time.perf_counter() - t0) * 1e3 / WINDOW
+
+
 def _windows(fn, sync):
     """`REPEATS` wall times a call over `WINDOW` calls of `fn`, ms."""
-    out = []
-    for _ in range(REPEATS):
-        sync()
-        t0 = time.perf_counter()
-        for _ in range(WINDOW):
-            fn()
-        sync()
-        out.append((time.perf_counter() - t0) * 1e3 / WINDOW)
-    return out
+    return [_window(fn, sync) for _ in range(REPEATS)]
 
 
 def worker(path):
@@ -93,7 +100,52 @@ def worker(path):
     for _ in range(20):        # past every prefill chunk: decode only
         eng.step()
     res["serve_f32_decode_step_ms"] = _windows(eng.step, sync)
+    del eng, model
+    torch.cuda.empty_cache()
+    import mxnet_tpu_torch
+    if hasattr(mxnet_tpu_torch, "np"):
+        res.update(facade(cs, dev, sync))
     print("GLUON_COST " + json.dumps(res), flush=True)
+
+
+def facade(cs, dev, sync):
+    """The gluon_gpt bf16 `Trainer` step fed arrays against raw tensors,
+    in turns: ``{"facade_raw_step_ms": [...], "facade_array_step_ms":
+    [...]}``."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.models import GPTForCausalLM, gpt_small
+    mx.random.seed(0)
+    model = GPTForCausalLM(gpt_small(dropout=0.1, dtype="bfloat16"))
+    model.initialize()
+    V = model.cfg.vocab_size
+    trainer = gluon.Trainer(model.collect_params(), "adam",
+                            {"learning_rate": 1e-4})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    ids_np = cs.grammar_batch(np.random.RandomState(2), 8, 1024, V)
+    feeds = {"raw": torch.from_numpy(ids_np).to(dev),
+             "array": mx.np.array(ids_np)}
+
+    def step(ids):
+        with autograd.record():
+            logits = model(ids)
+            loss = loss_fn(logits[:, :-1].reshape(-1, V),
+                           ids[:, 1:].reshape(-1)).mean()
+        loss.backward()
+        trainer.step(1)
+
+    with cs.pallas_mode("auto"):
+        for key in ("raw", "array"):
+            for _ in range(3):
+                step(feeds[key])
+        out = {"facade_raw_step_ms": [], "facade_array_step_ms": []}
+        for _ in range(REPEATS):
+            for key in ("raw", "array", "array", "raw"):
+                out[f"facade_{key}_step_ms"].append(
+                    _window(lambda k=key: step(feeds[k]), sync))
+    return out
 
 
 def main(argv=None) -> int:
@@ -130,9 +182,12 @@ def main(argv=None) -> int:
         print(json.dumps(r), flush=True)
     summary = {}
     for key in ("gpt_bf16_step_ms", "bert_bf16_adam_step_ms",
-                "serve_f32_decode_step_ms"):
+                "serve_f32_decode_step_ms", "facade_raw_step_ms",
+                "facade_array_step_ms"):
         for name in trees:
-            xs = [x for r in runs if r["tree"] == name for x in r[key]]
+            xs = [x for r in runs if r["tree"] == name for x in r.get(key, [])]
+            if not xs:
+                continue
             summary[f"{key}:{name}"] = dict(
                 mean=sum(xs) / len(xs), min=min(xs), max=max(xs))
     print("SUMMARY " + json.dumps(summary), flush=True)

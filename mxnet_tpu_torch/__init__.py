@@ -55,7 +55,12 @@ Ported so far (ROADMAP.md), slice by slice:
     bundles), `recovery` (``MXTPU_RECOVERY``: the on-device non-finite
     skip, rollback, budgets), `utils.CheckpointManager`, `elastic`
     (`ElasticLoop`) and `profiler`, with `TrainStep`'s probes, skip and
-    ``save`` / ``save_async`` / ``load``.
+    ``save`` / ``save_async`` / ``load``;
+14. the tensor front end: `ndarray` (``NDArray``) over a torch tensor,
+    `numpy` (``np``), `numpy_extension` (``npx``) — whose norm,
+    cross-entropy and attention ops reach the kernels — and `nd`, with
+    `engine`, `runtime`, `dlpack` and `util`'s NumPy-semantics switches;
+    the Gluon, model and training entry points take and return arrays.
 """
 from .base import MXNetError  # noqa: F401
 from . import device  # noqa: F401
@@ -63,11 +68,23 @@ from .device import (  # noqa: F401
     resolve_device, Device, Context, cpu, gpu, tpu, current_device,
     current_context, num_gpus)
 from . import autograd, random, initializer  # noqa: F401
+from . import ndarray  # noqa: F401
+from . import ndarray as nd  # noqa: F401
+from .ndarray.ndarray import NDArray  # noqa: F401
+from . import numpy  # noqa: F401
+from . import numpy as np  # noqa: F401
 from . import initializer as init  # noqa: F401
 from . import kernels, ops, models, serve, gluon, optimizer, parallel  # noqa: F401,E501
 from . import amp, benchmark, contrib  # noqa: F401
 from . import resilience, telemetry, tracing, health, recovery  # noqa: F401
 from . import elastic, profiler, utils  # noqa: F401
+from . import numpy_extension  # noqa: F401
+from . import numpy_extension as npx  # noqa: F401
+from . import engine, runtime, dlpack, util  # noqa: F401
+from .util import (  # noqa: F401
+    np_shape, np_array, use_np, use_np_shape, use_np_array,
+    use_np_default_dtype, set_np, reset_np, set_np_shape, is_np_shape,
+    is_np_array)
 from .optimizer import lr_scheduler  # noqa: F401
 from .convert import load_jax_optimizer_states, load_jax_params  # noqa: F401
 
@@ -77,5 +94,10 @@ __all__ = ["MXNetError", "device", "resolve_device", "Device", "Context",
            "initializer", "init", "kernels", "ops", "models", "serve",
            "gluon", "optimizer", "parallel", "amp", "benchmark", "contrib",
            "resilience", "telemetry", "tracing", "health", "recovery",
-           "elastic", "profiler", "utils",
+           "elastic", "profiler", "utils", "ndarray", "nd", "NDArray",
+           "numpy", "np", "numpy_extension", "npx", "engine", "runtime",
+           "dlpack", "util", "np_shape", "np_array", "use_np",
+           "use_np_shape", "use_np_array", "use_np_default_dtype",
+           "set_np", "reset_np", "set_np_shape", "is_np_shape",
+           "is_np_array",
            "lr_scheduler", "load_jax_params", "load_jax_optimizer_states"]

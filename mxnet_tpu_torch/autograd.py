@@ -97,8 +97,16 @@ def predict_mode():
 
 
 def _tensor(v):
-    """The tensor behind a variable (a Gluon `Parameter` or a tensor)."""
+    """The tensor behind a variable (a Gluon `Parameter`, an ``mx.np``
+    array or a tensor)."""
+    if _is_array(v):
+        return v._data
     return v.data() if hasattr(v, "data") and callable(v.data) else v
+
+
+def _is_array(v) -> bool:
+    from .ndarray.ndarray import ndarray
+    return isinstance(v, ndarray)
 
 
 class _WriteHook:
@@ -139,8 +147,10 @@ def set_grad_req(t: torch.Tensor, req: str) -> None:
 def mark_variables(variables, gradients, grad_reqs="write"):
     """Mark tensors as variables: each starts with `gradients`' buffer as
     its ``.grad`` and takes the gradient request in `grad_reqs`."""
-    if torch.is_tensor(variables):
+    if torch.is_tensor(variables) or _is_array(variables):
         variables, gradients = [variables], [gradients]
+    variables = [_tensor(v) for v in variables]
+    gradients = [_tensor(g) for g in gradients]
     if isinstance(grad_reqs, str):
         grad_reqs = [grad_reqs] * len(variables)
     for v, g, r in zip(variables, gradients, grad_reqs):
@@ -159,12 +169,24 @@ def _head_grads(heads, head_grads):
 
 def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
     """Gradients of `heads` into the ``.grad`` of every variable they
-    depend on (a non-scalar head takes a gradient of ones)."""
-    if torch.is_tensor(heads):
+    depend on (a non-scalar head takes a gradient of ones).  Heads may be
+    ``mx.np`` arrays; an array that was not recorded adds nothing, as in
+    the JAX package."""
+    if torch.is_tensor(heads) or _is_array(heads):
         heads = [heads]
         if head_grads is not None and not isinstance(head_grads,
                                                      (list, tuple)):
             head_grads = [head_grads]
+    if any(_is_array(h) for h in heads):
+        keep = [i for i, h in enumerate(heads)
+                if not _is_array(h) or h._data.requires_grad]
+        heads = [_tensor(heads[i]) for i in keep]
+        if head_grads is not None:
+            head_grads = [_tensor(head_grads[i]) for i in keep]
+        if not heads:
+            return
+    elif isinstance(head_grads, (list, tuple)):
+        head_grads = [_tensor(g) for g in head_grads]
     torch.autograd.backward(list(heads), _head_grads(heads, head_grads),
                             retain_graph=retain_graph)
 
@@ -175,8 +197,13 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
     `Parameter`s), returned and not written to ``.grad``.
     ``create_graph=True`` records them for a higher-order gradient."""
     single = not isinstance(variables, (list, tuple))
-    if torch.is_tensor(heads):
+    if torch.is_tensor(heads) or _is_array(heads):
         heads = [heads]
+    arrays = any(_is_array(v) for v in ([variables] if single
+                                        else variables))
+    heads = [_tensor(h) for h in heads]
+    if isinstance(head_grads, (list, tuple)):
+        head_grads = [_tensor(g) for g in head_grads]
     vs = [_tensor(v) for v in ([variables] if single else variables)]
     if retain_graph is None:
         retain_graph = create_graph
@@ -187,6 +214,9 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
                                   create_graph=create_graph)
     except RuntimeError as e:
         raise MXNetError(f"grad: {e}") from e
+    if arrays:
+        from .ndarray.ndarray import wrap
+        out = [wrap(g) for g in out]
     return out[0] if single else list(out)
 
 

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..base import MXNetError
+from ..ndarray.ndarray import accepts_ndarray, as_tensor
 
 __all__ = [
     "quantize", "dequantize", "requantize", "quantized_fully_connected",
@@ -284,13 +285,14 @@ def quantize_net(net, calib_data=None, calib_mode="naive",
 
     The ``Dense`` children of ``Sequential`` / ``HybridSequential``
     containers (recursively; names in `exclude_layers`, dotted as
-    ``"0"`` or ``"1.0"``, are left out) are found; `calib_data` (batches,
-    or ``(data, label)`` tuples) runs through the f32 net while a
-    `LayerCalibrator` in `calib_mode` ("naive" or "entropy") observes each
-    site's input; then each ``Dense`` gets a `QuantizedDense` at its
-    threshold (1.0 without calibration data).  Returns a callable net
-    that runs the original with the substitutes; the original is left as
-    it is.  A net whose ``forward`` is not a sequential walk needs the
+    ``"0"`` or ``"1.0"``, are left out) are found; `calib_data` (batches
+    of tensors or ``mx.np`` arrays, or ``(data, label)`` tuples) runs
+    through the f32 net while a `LayerCalibrator` in `calib_mode`
+    ("naive" or "entropy") observes each site's input; then each
+    ``Dense`` gets a `QuantizedDense` at its threshold (1.0 without
+    calibration data).  Returns a callable net (tensors in and out, or
+    arrays) that runs the original with the substitutes; the original is
+    left as it is.  A net whose ``forward`` is not a sequential walk needs the
     substitution by hand, as in the JAX package."""
     from ..gluon import nn as _nn
 
@@ -317,8 +319,8 @@ def quantize_net(net, calib_data=None, calib_mode="naive",
         dense = dict(sites)
         with torch.no_grad():
             for n, batch in enumerate(calib_data):
-                data = batch[0] if isinstance(batch, (tuple, list)) \
-                    else batch
+                data = as_tensor(batch[0] if isinstance(
+                    batch, (tuple, list)) else batch)
                 _forward_with_map(net, data, observer=calib.observe,
                                   sites=dense)
                 if num_calib_batches and n + 1 >= num_calib_batches:
@@ -366,6 +368,7 @@ class _QuantizedNet:
         self._net = net
         self._qmap = qmap
 
+    @accepts_ndarray
     def __call__(self, x):
         with torch.no_grad():
             return _forward_with_map(self._net, x, qmap=self._qmap)

@@ -38,6 +38,7 @@ import torch
 from ..base import MXNetError
 from .. import autograd as _ag
 from .. import random as _rng
+from ..ndarray.ndarray import accepts_ndarray
 from ..util import load_arrays, save_arrays
 from .parameter import Parameter, DeferredInitializationError
 
@@ -290,7 +291,13 @@ class Block(torch.nn.Module):
             for p in deferred:
                 p._finish_deferred_init()
 
+    @accepts_ndarray
     def __call__(self, *args, **kwargs):
+        """Run `forward`.  Given an `ndarray` among the arguments (inside
+        tuples, lists and dicts too), the block unwraps them all and its
+        `forward` sees plain tensors; its tensor results come back as
+        arrays, recorded only inside ``autograd.record()`` (MXNet's rule:
+        outside it the call runs under ``torch.no_grad()``)."""
         flag = _ag.is_training()
         if self.training != flag:
             self.train(flag)

@@ -2,8 +2,9 @@
 parity with MXNet's ``python/mxnet/gluon/metric.py``).
 
 The metrics are host code over numpy, as in the JAX package: `update`
-takes ``torch.Tensor``s on either device (copied to the host; 16-bit
-values widened to f32) or numpy arrays, and `get` returns Python floats.
+takes ``mx.np`` arrays or ``torch.Tensor``s on either device (copied to
+the host; 16-bit values widened to f32) or numpy arrays, and `get` returns
+Python floats.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import numpy as _onp
 import torch
 
 from ..base import Registry
+from ..ndarray.ndarray import ndarray as _ndarray
 
 __all__ = [
     "EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy", "F1",
@@ -25,7 +27,12 @@ __all__ = [
 _registry: Registry = Registry("metric")
 
 
+_ARRAYS = (torch.Tensor, _onp.ndarray, _ndarray)
+
+
 def _to_np(x):
+    if isinstance(x, _ndarray):
+        return x.asnumpy()
     if torch.is_tensor(x):
         x = x.detach()
         if x.dtype in (torch.bfloat16, torch.float16):
@@ -114,9 +121,9 @@ class CompositeEvalMetric(EvalMetric):
 
 
 def _as_lists(labels, preds):
-    if isinstance(labels, (torch.Tensor, _onp.ndarray)):
+    if isinstance(labels, _ARRAYS):
         labels = [labels]
-    if isinstance(preds, (torch.Tensor, _onp.ndarray)):
+    if isinstance(preds, _ARRAYS):
         preds = [preds]
     return labels, preds
 
@@ -361,7 +368,7 @@ class Loss(EvalMetric):
         super().__init__(name, **kwargs)
 
     def update(self, _, preds):
-        if isinstance(preds, (torch.Tensor, _onp.ndarray)):
+        if isinstance(preds, _ARRAYS):
             preds = [preds]
         for pred in preds:
             loss = float(_to_np(pred).sum())

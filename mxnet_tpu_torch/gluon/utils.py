@@ -1,5 +1,6 @@
 """Gluon utilities (counterpart of ``mxnet_tpu/gluon/utils.py``):
-`split_data`, `split_and_load` and `clip_global_norm` on tensors.
+`split_data`, `split_and_load` and `clip_global_norm` on tensors and on
+``mx.np`` arrays (given arrays, they return arrays).
 `download` raises: the port's models take seeded random weights and the
 card's machine has no network."""
 from __future__ import annotations
@@ -14,11 +15,13 @@ import torch
 
 from ..base import MXNetError
 from ..device import as_torch_device
+from ..ndarray.ndarray import accepts_ndarray, ndarray
 
 __all__ = ["split_data", "split_and_load", "clip_global_norm",
            "check_sha1", "download", "replace_file"]
 
 
+@accepts_ndarray
 def split_data(data, num_slice: int, batch_axis=0, even_split=True):
     """`num_slice` slices along `batch_axis`; uneven sizes split as
     ``numpy.array_split`` does (the first slices one row longer)."""
@@ -30,6 +33,7 @@ def split_data(data, num_slice: int, batch_axis=0, even_split=True):
     return list(torch.tensor_split(data, num_slice, dim=batch_axis))
 
 
+@accepts_ndarray
 def split_and_load(data, ctx_list=None, device_list=None, batch_axis=0,
                    even_split=True):
     """`split_data` over the devices, each slice moved to its device."""
@@ -45,7 +49,8 @@ def clip_global_norm(arrays: List[torch.Tensor], max_norm: float,
                      check_isfinite=True) -> float:
     """Scale `arrays` in place so that their joint L2 norm is at most
     `max_norm`; returns the norm before scaling (a non-finite norm warns
-    and scales nothing)."""
+    and scales nothing).  ``mx.np`` arrays are scaled in place too."""
+    arrays = [a._data if isinstance(a, ndarray) else a for a in arrays]
     total = sum(float((a.detach().float() ** 2).sum()) for a in arrays)
     norm = math.sqrt(total)
     if check_isfinite and not math.isfinite(norm):

@@ -36,6 +36,7 @@ from ..base import MXNetError
 from ..device import resolve_device
 from ..gluon import nn
 from ..gluon.block import HybridBlock
+from ..ndarray.ndarray import accepts_ndarray
 from ..ops import nn as F
 from .layers import (FeedForward, FusedSelfAttention, _seeded_fill,
                      attach_generator, check_max_position)
@@ -272,14 +273,16 @@ class GPTForCausalLM(HybridBlock):
                         + (seq_len - ww) * (ww + 1)) / seq_len
         return 6 * (l * per_layer + head) + 12 * l * h * avg_span
 
+    @accepts_ndarray
     @torch.inference_mode()
     def generate(self, input_ids, max_new_tokens=20, temperature=1.0,
                  greedy=True, use_cache=True, num_beams=1,
                  eos_token_id=None, top_k=0, top_p=1.0,
                  generator: Optional[torch.Generator] = None):
         """Autoregressive decode: prompt (B, L) -> (B, L + max_new_tokens)
-        int32 token ids on the model's device; the parameters are JAX's,
-        in JAX's order, and `generator` last.
+        int32 token ids on the model's device (an ``mx.np`` array in, an
+        array out); the parameters are JAX's, in JAX's order, and
+        `generator` last.
 
         Runs the dense-cache decode core one position at a time, prompt
         included, exactly as the JAX ``_generate_cached`` scan does (so a

@@ -25,6 +25,7 @@ from .. import autograd as _ag
 from ..device import resolve_device
 from ..gluon import nn
 from ..gluon.block import HybridBlock
+from ..ndarray.ndarray import accepts_ndarray
 from ..ops.attention import multi_head_attention
 from .gpt import torch_dtype
 from .layers import (FeedForward, FusedSelfAttention, _seeded_fill,
@@ -224,6 +225,7 @@ class TransformerNMT(HybridBlock):
         memory, mask = self.encoder(src_ids, src_valid_length)
         return self.proj(self.decoder(tgt_ids, memory, mask))
 
+    @accepts_ndarray
     @torch.inference_mode()
     def greedy_translate(self, src_ids, bos_id=1, eos_id=2, max_len=32,
                          src_valid_length=None):

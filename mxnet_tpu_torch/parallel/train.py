@@ -92,6 +92,7 @@ from .. import telemetry as _tele
 from .. import tracing as _trace
 from ..base import MXNetError
 from ..gluon.nn import Dropout
+from ..ndarray.ndarray import ndarray as _ndarray, wrap as _wrap
 from ..ops.fused_optimizer import (HpScalarCache, apply_updates,
                                    kernel_route, supported)
 from ..optimizer import DCASGD
@@ -211,7 +212,9 @@ class TrainStep:
     def _prepare_batch(self, batch):
         out = []
         for b in batch:
-            if isinstance(b, np.ndarray):
+            if isinstance(b, _ndarray):
+                b = b._data
+            elif isinstance(b, np.ndarray):
                 b = torch.from_numpy(np.ascontiguousarray(b))
             out.append(torch.as_tensor(b, device=self.device))
         return tuple(out)
@@ -606,8 +609,12 @@ class TrainStep:
             g.set_state(st.to(torch.uint8))
 
     def __call__(self, *batch):
-        """Run one step; returns the loss as an f32 device scalar."""
-        return self.dispatch(*batch).loss
+        """Run one step; returns the loss as an f32 device scalar (an
+        ``mx.np`` array when the batch came as arrays)."""
+        loss = self.dispatch(*batch).loss
+        if any(isinstance(b, _ndarray) for b in batch):
+            return _wrap(loss)
+        return loss
 
 
 def make_train_step(model, optimizer, loss_fn, num_model_args=None,

@@ -41,7 +41,11 @@ def test_import_leaves_no_jax_and_no_jax_package():
             "mxnet_tpu_torch.telemetry, mxnet_tpu_torch.tracing, "
             "mxnet_tpu_torch.health, mxnet_tpu_torch.recovery, "
             "mxnet_tpu_torch.elastic, mxnet_tpu_torch.profiler, "
-            "mxnet_tpu_torch.utils.checkpoint\n"
+            "mxnet_tpu_torch.utils.checkpoint, mxnet_tpu_torch.ndarray, "
+            "mxnet_tpu_torch.numpy, mxnet_tpu_torch.numpy.random, "
+            "mxnet_tpu_torch.numpy_extension, mxnet_tpu_torch.engine, "
+            "mxnet_tpu_torch.runtime, mxnet_tpu_torch.dlpack, "
+            "mxnet_tpu_torch.utils.config\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu')]\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
