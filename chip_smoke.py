@@ -17,8 +17,10 @@ the Transformer translation model (``transformer_base``), the BERT-base
 step again under the rest of the optimizer family and its schedulers,
 the Gluon front end (BERT-base fine-tuned, an MLP quantized) and the
 models as Gluon blocks, all through the examples' ``mx.np`` code, the
-tensor front end's kernel-routed ``npx`` ops, and
-``examples/bert_pretraining.py``'s loop under the operations plane:
+tensor front end's kernel-routed ``npx`` ops,
+``examples/bert_pretraining.py``'s loop under the operations plane fed by
+the data plane (record shards, the pipeline, the device prefetcher), and
+``examples/gluon/mnist.py`` and ``house_prices.py`` as written:
 
 1. prints the card (name and power limit from ``nvidia-smi``) and the
    torch / CUDA versions;
@@ -433,24 +435,50 @@ tensor front end's kernel-routed ``npx`` ops, and
    ``PretrainNet`` over BERT-base in bf16 (full width and depth, seed 0,
    dropout 0.1 from the model's generator), Adam lr 1e-4 through
    ``make_train_step``, 8 x 128 with 20 masked positions, 12 seeded
-   batches with a NaN planted in the loss at step 5, health and recovery
-   on (`ELASTIC_*`).  The plane's cost: the 12 steps on a step built with
-   it off and on one built with it on, in turns (off, on, on, off; host
-   clock over steps 3-12), the CUDA kernels a step each way
+   batches (96 samples written with ``MXIndexedRecordIO`` into 3 record
+   shards, read by ``ShardedRecordDataset`` -> ``DataPipeline(batch_size=8,
+   seed=0, shuffle=True)``; the native reader in use) with a NaN planted
+   in the loss at step 5 by a flag keyed on the step, health and recovery
+   on (`ELASTIC_*`).  The pipeline's 12 batches equal, bit for bit, the
+   plain reference's (``EpochOrder(96, 0)`` over the host samples).  The
+   plane's cost: the 12 steps on a step built with it off and on one
+   built with it on, fed those batches as a list, in turns (off, on, on,
+   off; host clock over steps 3-12), the CUDA kernels a step each way
    (``torch.profiler``), the FLOPs `tracing.FlopCount` counted at warmup
    beside `bench_flops_per_step` and the ``mfu_estimate``; the first "on"
-   run is the reference R, and R again from the seed must be bit-equal.
-   Then R under ``ElasticLoop(save_every=4, keep=2, async_save=True)``:
-   step 5's dispatch under ``torch.cuda.set_sync_debug_mode("error")``,
-   its probes reading non-finite gradients and every weight and Adam
-   state bit-equal to step 4's, one tier-1 skip; a real SIGTERM after
-   step 7 (status ``preempted``, checkpoint and resume marker at 7); a
-   fresh step and loop that resume at 7, meet an injected failure at step
-   9 and restore step 8, ending bit-equal to R, the chunk 2 launches a
-   step over the 12 dispatched; the saves' ms from the run journal and
-   the checkpoint's bytes; one byte flipped in the newest checkpoint:
-   quarantined, the restore lands on the one before.  The plane is off
-   again after the phase.
+   run is the reference R.  R again from the seed fed by the
+   ``DevicePrefetcher`` must be bit-equal to R in losses and state; its
+   step ms beside the list-fed step's in turns, with the prefetcher's
+   ``stats()``; ``torch.profiler`` over prefetcher-fed steps: every batch's
+   host->device copies from pinned memory on a stream no kernel ran on.
+   Then R under ``ElasticLoop(save_every=4, keep=2, async_save=True,
+   pipeline=, prefetcher=, data_reset=)``: step 5's dispatch under
+   ``torch.cuda.set_sync_debug_mode("error")``, its probes reading
+   non-finite gradients and every weight and Adam state bit-equal to step
+   4's, one tier-1 skip; a real SIGTERM after step 7 (status
+   ``preempted``, checkpoint and resume marker at 7, its manifest's
+   ``data_pipeline`` at batch 7); a fresh step, pipeline, prefetcher and
+   loop that resume at 7, meet an injected failure at step 9 and restore
+   step 8, every step trained on its own batch, ending bit-equal to R,
+   the chunk 2 launches a step over the 12 dispatched; the saves' ms from
+   the run journal and the checkpoint's bytes; one byte flipped in the
+   newest checkpoint: quarantined, the restore lands on the one before.
+   The plane is off again after the phase.
+25. (data) ``examples/gluon/mnist.py`` as written, as-is with
+   ``--epochs 1`` (``vision.MNIST``'s seeded stand-in through
+   ``transform_first(ToTensor())``, 600 steps; training accuracy above
+   `DATA_MNIST_ACC`) and with ``--synthetic`` (63 steps; the last epoch's
+   accuracy above the first's), then ``examples/gluon/house_prices.py``
+   as written (5 folds x 30 epochs of Adam; the 5-fold rmse(log) finite
+   and below the fold means'), each with the optimizer chunk (and the
+   cross-entropy forward and backward for MNIST) launched once a step;
+   ``mxnet_tpu``'s names resolve to the port for them
+   (`port_as_mxnet_tpu`).  Then the example's MNIST ``DataLoader`` with 2
+   worker processes and with 2 threads: the first `DATA_POOL_BATCHES`
+   batches bit-equal to the serial loader's on the card, and no worker
+   holding a CUDA context while the pool lives (``nvidia-smi
+   --query-compute-apps``).  k3 times `K3_TIME_ITERS` calls a median (30
+   before this phase came in) to pay for it.
 
 Every count is reset just before a run it reports and read just after.
 The last three stdout lines are the ``nvidia-smi`` card line, the
@@ -525,9 +553,23 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 
 SLEEP_CYCLES = 400_000    # ~0.2 ms of device time at the H100's clocks
+TIME_ITERS = 30           # calls `time_ms` takes the median of by default
+K3_TIME_ITERS = 10        # k3's (the smoke's longest timing phase) since the
+#                           data phase came in: its cases and gates stay
 
 
-def time_ms(fn, iters=30, warm=3, device_only=False):
+@contextlib.contextmanager
+def timing_iters(n):
+    """`time_ms`'s default number of timed calls is `n` inside the block."""
+    global TIME_ITERS
+    old, TIME_ITERS = TIME_ITERS, n
+    try:
+        yield
+    finally:
+        TIME_ITERS = old
+
+
+def time_ms(fn, iters=None, warm=3, device_only=False):
     """Median time of one call (CUDA events around each call), with the
     50 MB L2 flushed before each: the serving loop finds weights and K/V
     pages cold, so a timing that reuses warm inputs would flatter.  The
@@ -535,8 +577,10 @@ def time_ms(fn, iters=30, warm=3, device_only=False):
     call whose host time outlasts the flush (~80 us) shows that excess too.
     ``device_only`` sleeps the card after the flush, long enough that the
     host has enqueued the call before the start event runs: the events
-    then time the device's work alone."""
+    then time the device's work alone.  `iters` calls are timed
+    (`TIME_ITERS` when None)."""
     import torch
+    iters = TIME_ITERS if iters is None else iters
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
     for _ in range(warm):
         fn()
@@ -6329,21 +6373,85 @@ ELASTIC_KEEP = 2
 ELASTIC_SHAPE = (8, 128, 20)     # batch, sequence, masked positions
 
 
-def elastic_data(dev, vocab):
-    """The reference run's 12 batches (ids, masked positions, labels,
-    flag), made from seeds on the host and moved to the card once; the
-    flag is NaN at `ELASTIC_NAN_STEP`."""
+ELASTIC_SHARDS = 3        # record shards the 96 samples are written into
+ELASTIC_DEPTH = 2         # the device prefetcher's depth
+
+
+def elastic_records(root, vocab):
+    """The reference run's 96 samples (12 seeded batches of
+    `ELASTIC_SHAPE`; sample j of batch i at position 8 i + j), written with
+    `MXIndexedRecordIO` into `ELASTIC_SHARDS` shards under `root`, a record
+    a sample's ids, masked positions and labels as int32.  Returns the
+    shards' glob and the samples, (96, 168) int32."""
     import numpy as np
-    import torch
+    from mxnet_tpu_torch.recordio import MXIndexedRecordIO
     B, S, M = ELASTIC_SHAPE
-    out = []
+    rows = []
     for i in range(ELASTIC_STEPS):
         ids, _, mpos, lab = bert_batch(vocab, B, S, M, seed=100 + i)
-        flag = np.array([np.nan if i + 1 == ELASTIC_NAN_STEP else 1.0],
-                        np.float32)
-        out.append(tuple(torch.from_numpy(a).to(dev)
-                         for a in (ids, mpos, lab, flag)))
-    return out
+        rows.append(np.concatenate([ids, mpos, lab], axis=1))
+    samples = np.concatenate(rows).astype(np.int32)
+    per = len(samples) // ELASTIC_SHARDS
+    for s in range(ELASTIC_SHARDS):
+        w = MXIndexedRecordIO(os.path.join(root, f"part-{s}.idx"),
+                              os.path.join(root, f"part-{s}.rec"), "w")
+        for k in range(per):
+            w.write_idx(k, samples[s * per + k].tobytes())
+        w.close()
+    return os.path.join(root, "part-*.rec"), samples
+
+
+def elastic_split(rows):
+    """The pipeline's batchify: records -> (ids, masked positions,
+    labels), each a contiguous int32 array."""
+    import numpy as np
+    _, S, M = ELASTIC_SHAPE
+    a = np.stack(rows)
+    return (np.ascontiguousarray(a[:, :S]),
+            np.ascontiguousarray(a[:, S:S + M]),
+            np.ascontiguousarray(a[:, S + M:]))
+
+
+def _int32_record(raw):
+    import numpy as np
+    return np.frombuffer(raw, np.int32)
+
+
+def elastic_pipeline(pattern):
+    """``ShardedRecordDataset`` over the shards -> ``DataPipeline(
+    batch_size=8, seed=0, shuffle=True)``."""
+    from mxnet_tpu_torch.data import DataPipeline, ShardedRecordDataset
+    return DataPipeline(ShardedRecordDataset(pattern, decode=_int32_record),
+                        batch_size=ELASTIC_SHAPE[0], seed=0, shuffle=True,
+                        batchify=elastic_split)
+
+
+def elastic_oracle(samples):
+    """The plain reference: batch k's rows straight from
+    ``EpochOrder(96, 0).index(0, 8 k + r)`` over the host samples."""
+    from mxnet_tpu_torch.data import EpochOrder
+    B = ELASTIC_SHAPE[0]
+    order = EpochOrder(len(samples), 0)
+    return [elastic_split([samples[order.index(0, B * k + r)]
+                           for r in range(B)])
+            for k in range(ELASTIC_STEPS)]
+
+
+def elastic_flags(dev):
+    """The loss's flag a step, on the card: NaN at `ELASTIC_NAN_STEP`
+    (keyed on the step, not stored in the records), else 1."""
+    import torch
+    return [torch.tensor([math.nan if i + 1 == ELASTIC_NAN_STEP else 1.0],
+                         dtype=torch.float32, device=dev)
+            for i in range(ELASTIC_STEPS)]
+
+
+def elastic_prefetched(pipe, flags):
+    """A `DevicePrefetcher` over `pipe` and the step's batches it feeds,
+    (ids, masked positions, labels, flag)."""
+    from mxnet_tpu_torch.parallel import DevicePrefetcher
+    pf = DevicePrefetcher(pipe, depth=ELASTIC_DEPTH)
+    return pf, ((*b, flags[i]) for i, b in zip(range(ELASTIC_STEPS), pf))
 
 
 def elastic_step(dev):
@@ -6408,8 +6516,9 @@ def _device_kernels(fn):
 
 
 def _timed_steps(step, data):
-    """The 12 steps, host clock over steps 3-12 ending in a sync; returns
-    (ms a step, handles)."""
+    """The 12 steps of `data` (a list, or the prefetcher's stream), host
+    clock over steps 3-12 ending in a sync; returns (ms a step,
+    handles)."""
     import torch
     hs = []
     for i, b in enumerate(data):
@@ -6418,21 +6527,87 @@ def _timed_steps(step, data):
             t0 = time.perf_counter()
         hs.append(step.dispatch(*b))
     torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / (len(data) - 2), hs
+    return (time.perf_counter() - t0) * 1e3 / (len(hs) - 2), hs
+
+
+def _losses(hs):
+    """The run's losses as f32 bit patterns (step 5's NaN compares equal
+    to itself only so)."""
+    import torch
+    return torch.stack([h.loss.float() for h in hs]).view(torch.int32)
+
+
+def _prefetch_copies(step, pattern, flags, steps=4):
+    """``torch.profiler`` over `steps` steps fed by a fresh pipeline and
+    prefetcher: the host->device copies the trace recorded on streams
+    where no kernel ran (the prefetcher's) and on the kernels' streams,
+    by whether they read pinned memory; None where the profiler saw no
+    device activity."""
+    import tempfile
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            pf, stream = elastic_prefetched(elastic_pipeline(pattern), flags)
+            for i, b in zip(range(steps), stream):
+                step.dispatch(*b)
+            torch.cuda.synchronize()
+            pf.close()
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    except Exception as e:      # a profiler that cannot trace the card
+        return {"error": f"{type(e).__name__}: {e}"}
+    finally:
+        if os.path.exists(path):
+            os.unlink(path)
+    kernel_streams = {e.get("args", {}).get("stream") for e in events
+                      if e.get("cat") == "kernel"}
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"
+              and "HtoD" in e.get("name", "")]
+    if not kernel_streams or not copies:
+        return None
+    row = {"kernel_streams": sorted(x for x in kernel_streams
+                                    if x is not None)}
+    for where, own in (("own_stream", True), ("kernel_stream", False)):
+        mine = [e for e in copies
+                if (e.get("args", {}).get("stream") not in kernel_streams)
+                == own]
+        row[where] = dict(
+            pinned=sum("Pinned" in e["name"] for e in mine),
+            pageable=sum("Pinned" not in e["name"] for e in mine),
+            bytes=sum(int(e.get("args", {}).get("bytes", 0)) for e in mine),
+            streams=sorted({e.get("args", {}).get("stream") for e in mine}))
+    row["batches"] = steps
+    return row
 
 
 def run_elastic(dev, results, card):
     """Phase elastic (``examples/bert_pretraining.py:95-124`` on the
-    port): the plane's cost (the step with it off and on, in turns), the
-    reference run R twice from the same seed, then R under `ElasticLoop`
-    stopped by a real SIGTERM after step 7 (tier-1 skip at step 5) and
-    resumed by a fresh step and loop that meet an injected failure at step
-    9 (restore from step 8), and a corrupted checkpoint quarantined.
+    port), fed by the data plane: the 96 samples in 3 record shards, read
+    by `ShardedRecordDataset` -> `DataPipeline` -> `DevicePrefetcher`.
+    (a) the pipeline's 12 batches against the plain reference (the epoch
+    order over the host samples), bit for bit, and the native record
+    reader in use; the plane's cost (the step with it off and on, in
+    turns) fed the reference batches as a list, the first "on" run being
+    R; (b) R again from the seed fed by the prefetcher, bit-equal to R in
+    losses and state, timed in turns with the list-fed step; (c) R under
+    `ElasticLoop(pipeline=, prefetcher=, data_reset=)` stopped by a real
+    SIGTERM after step 7 (tier-1 skip at step 5), resumed by a fresh step,
+    pipeline, prefetcher and loop that meet an injected failure at step 9
+    (restore from step 8), every step on its own batch, the end bit-equal
+    to R, the manifests carrying ``data_pipeline``; a corrupted checkpoint
+    quarantined; (d) ``torch.profiler`` over prefetcher-fed steps: the
+    host->device copies on a stream of their own, from pinned memory.
     Health and recovery are switched on with `health.enable` /
     `recovery.enable` (the programmatic form of ``MXTPU_HEALTH=1`` /
     ``MXTPU_RECOVERY=1``, which act at import) and off again at the end."""
     import signal
     import tempfile
+    import numpy as np
     import torch
     from mxnet_tpu_torch import elastic, health, kernels, recovery
     from mxnet_tpu_torch import telemetry
@@ -6448,7 +6623,30 @@ def run_elastic(dev, results, card):
             print(f"[elastic] FAILED: {what}", flush=True)
 
     try:
-        data = elastic_data(dev, 30522)
+        # -- (a) the records, the pipeline against the plain reference ------
+        shard_dir = os.path.join(root, "shards")
+        os.makedirs(shard_dir)
+        pattern, samples = elastic_records(shard_dir, 30522)
+        oracle = elastic_oracle(samples)
+        pipe = elastic_pipeline(pattern)
+        host = [next(pipe) for _ in range(ELASTIC_STEPS)]
+        differ = [k for k, (hb, ob) in enumerate(zip(host, oracle))
+                  if not all(np.array_equal(x, y) for x, y in zip(hb, ob))]
+        native = [r._native for r in pipe.source._readers if r is not None]
+        out["pipeline"] = dict(batches=len(host), differ_from_oracle=differ,
+                               native_reader=native,
+                               shards=pipe.source.num_shards,
+                               read_counts=pipe.source.read_counts,
+                               state=pipe.state())
+        print(f"[elastic pipeline] {json.dumps(out['pipeline'])}",
+              flush=True)
+        check(not differ, f"pipeline batches {differ} differ from the "
+                          "epoch order's")
+        check(native and all(native), f"native record reader {native}")
+        pipe.close()
+        flags = elastic_flags(dev)
+        data = [tuple(torch.from_numpy(a).to(dev) for a in b) + (flags[i],)
+                for i, b in enumerate(oracle)]
 
         # -- the plane's cost: a step built with it off, one with it on,
         # timed in turns (off, on, on, off); the first "on" run is R --------
@@ -6463,24 +6661,41 @@ def run_elastic(dev, results, card):
         check(on._health_probes and on._skip_nonfinite and
               not off._health_probes, "the steps' planes")
         on.warmup(*data[0])
+        # (b) R from the seed again, fed by the prefetcher
+        fed, _ = elastic_step(dev)
+        fed.warmup(*data[0])
         off_ms = [_timed_steps(off, data)[0]]
         kernels.reset_launch_counts()
         on_ms, hs = _timed_steps(on, data)
         r_launch = kernels.launch_counts()
         ref = _train_state(on)
+        r_losses = _losses(hs)
         probes = [(h.step, float(h.probes["grad_norm"]),
                    float(h.probes["nonfinite"])) for h in hs]
+        pf, stream = elastic_prefetched(elastic_pipeline(pattern), flags)
+        pf_ms, phs = _timed_steps(fed, stream)
+        pf_stats = [pf.stats()]
+        pf.close()
+        fed.drain()
+        fed_diff = _differ(_train_state(fed), ref)
+        fed_losses = _losses(phs)
         on_ms = [on_ms, _timed_steps(on, data)[0]]
+        pf, stream = elastic_prefetched(elastic_pipeline(pattern), flags)
+        pf_ms = [pf_ms, _timed_steps(fed, stream)[0]]
+        pf_stats.append(pf.stats())
+        pf.close()
         off_ms.append(_timed_steps(off, data)[0])
         off_k = _device_kernels(lambda: off.dispatch(*data[0]))
         on_k = _device_kernels(lambda: on.dispatch(*data[0]))
+        # (d) the prefetcher's copies under the profiler
+        copies = _prefetch_copies(fed, pattern, flags)
         cost = on.cost_features() or {}
         mean_on, mean_off = sum(on_ms) / 2, sum(off_ms) / 2
         mfu = on.mfu_estimate(mean_on / 1e3) or {}
         B, S, M = ELASTIC_SHAPE
         bench = bench_flops_per_step(cfg, B, S, M)
         n_params = sum(p.numel() for p in on.params.values())
-        del on, off, hs
+        del on, off, fed, hs, phs
         torch.cuda.empty_cache()
         check(probes[ELASTIC_NAN_STEP - 1][2] > 0 and all(
             p[2] == 0 for p in probes if p[0] != ELASTIC_NAN_STEP),
@@ -6488,6 +6703,9 @@ def run_elastic(dev, results, card):
         cost_row = dict(
             step_ms_plane_on=on_ms, step_ms_plane_off=off_ms,
             plane_cost_ms=mean_on - mean_off,
+            step_ms_prefetched=pf_ms,
+            prefetch_cost_ms=sum(pf_ms) / 2 - mean_on,
+            prefetch_stats=pf_stats,
             kernels_a_step_on=on_k, kernels_a_step_off=off_k,
             probe_kernels_a_step=(None if on_k is None or off_k is None
                                   else on_k - off_k),
@@ -6505,29 +6723,44 @@ def run_elastic(dev, results, card):
               f"{off_ms} ms off (host clock, steps 3-12; off, on, on, off); "
               f"{cost_row['probe_kernels_a_step']} more CUDA kernels a step",
               flush=True)
+        print(f"[elastic] {card}: fed by the prefetcher {pf_ms} ms a step "
+              f"against {on_ms} fed by the list (in turns: list, "
+              f"prefetcher, list, prefetcher); stats {pf_stats}", flush=True)
         print(f"[elastic] {card}: counted {cost.get('flops')} FLOPs a step "
               f"(torch {cost.get('torch_flops')}, kernels "
               f"{cost.get('kernel_flops')}) against bench.py's {bench}; "
               f"mfu_estimate {mfu.get('mfu_estimate')}", flush=True)
 
-        # -- R again from the seed: bit-equal? --------------------------------
-        step, _ = elastic_step(dev)
-        for b in data:
-            step.dispatch(*b)
-        step.drain()
-        again = _differ(_train_state(step), ref)
-        out["determinism"] = dict(differ_from_r=len(again), names=again[:5])
-        print(f"[elastic] {card}: R twice: {len(again)} tensors differ",
+        # -- (b) R fed by the prefetcher: bit-equal to R fed by the list -----
+        out["determinism"] = dict(
+            prefetched_differ_from_r=len(fed_diff), names=fed_diff[:5],
+            losses_equal=bool(torch.equal(fed_losses, r_losses)),
+            losses=r_losses.view(torch.float32).tolist())
+        print(f"[elastic] {card}: R fed by the prefetcher: "
+              f"{len(fed_diff)} tensors differ from R fed by the list; "
+              f"losses equal {out['determinism']['losses_equal']}",
               flush=True)
-        check(not again, f"R twice differs in {again[:5]}")
-        del step
-        torch.cuda.empty_cache()
+        check(not fed_diff, f"the prefetcher-fed R differs in "
+                            f"{fed_diff[:5]}")
+        check(out["determinism"]["losses_equal"],
+              "the prefetcher-fed R's losses differ from R's")
+        # -- (d) the copies' stream and memory -------------------------------
+        out["prefetch_copies"] = copies
+        print(f"[elastic prefetch copies] {json.dumps(copies)}", flush=True)
+        if copies is not None and "error" not in copies:
+            # the trace need not hold every copy (21 of a window's 21 in
+            # one call, 9 in another): the gate is where they ran and
+            # from what memory, not how many were recorded
+            own = copies["own_stream"]
+            check(own["pinned"] > 0 and not own["pageable"],
+                  f"the prefetcher's copies: {copies}")
 
-        # -- R under ElasticLoop: tier 1 at 5, a real SIGTERM after 7 --------
+        # -- (c) R under ElasticLoop: tier 1 at 5, a real SIGTERM after 7 ----
         pdir = os.path.join(root, "preempt")
         step, _ = elastic_step(dev)
         tier1 = {}
         calls = []
+        seen = []
 
         def time_save_async(step):        # the snapshot's time to return
             save_async = step.save_async
@@ -6539,15 +6772,41 @@ def run_elastic(dev, results, card):
                 return fut
             step.save_async = timed
 
+        def fed_loop(step, injector=None):
+            """A loop over a fresh pipeline and prefetcher, as a (re)started
+            job builds them; `data_reset` rebuilds the prefetcher after
+            each restore and, at a fresh start, rewinds what the first
+            window pulled ahead."""
+            pipe = elastic_pipeline(pattern)
+
+            def data_reset(at):
+                if pipe.state()["batch"] != at:
+                    pipe.load_state(pipe.state_at(at))
+                return elastic_prefetched(pipe, flags)[0]
+
+            loop = elastic.ElasticLoop(
+                step, pdir, save_every=ELASTIC_SAVE_EVERY, keep=ELASTIC_KEEP,
+                async_save=True, watchdog_timeout=300.0, pipeline=pipe,
+                prefetcher=elastic_prefetched(pipe, flags)[0],
+                data_reset=data_reset, failure_injector=injector)
+
+            def batch(i):
+                b = next(loop.prefetcher)
+                seen.append((i, b))
+                return (*b, flags[i])
+            return loop, batch
+
         time_save_async(step)
+        loop, batch = fed_loop(step)
 
         def run_step(i):
+            b = batch(i)
             if i + 1 != ELASTIC_NAN_STEP:
-                return step.dispatch(*data[i]).loss
+                return step.dispatch(*b).loss
             before = _train_state(step)
             torch.cuda.set_sync_debug_mode("error")   # no host sync
             try:
-                h = step.dispatch(*data[i])
+                h = step.dispatch(*b)
             finally:
                 torch.cuda.set_sync_debug_mode(0)
             tier1.update(nonfinite=float(h.probes["nonfinite"]),
@@ -6559,32 +6818,32 @@ def run_elastic(dev, results, card):
                 os.kill(os.getpid(), signal.SIGTERM)
 
         kernels.reset_launch_counts()
-        loop = elastic.ElasticLoop(step, pdir, save_every=ELASTIC_SAVE_EVERY,
-                                   keep=ELASTIC_KEEP, async_save=True,
-                                   watchdog_timeout=300.0)
         res_p = loop.run(run_step, ELASTIC_STEPS, on_step=on_step)
         skips = loop.recovery.skips
         marker = recovery.read_resume_marker(pdir)
+        marker_state = (loop.manager.pipeline_state(marker["checkpoint"])
+                        if marker and marker.get("checkpoint") else None)
         del step, loop
         torch.cuda.empty_cache()
 
         # -- a fresh step and loop resume at 7; a failure at 9 ---------------
         step, _ = elastic_step(dev)       # as a restarted job builds it
         time_save_async(step)
-        seen = []
+        steps_run = []
+        loop, batch = fed_loop(step, elastic.FailureInjector(
+            [ELASTIC_FAIL_STEP - 1]))
 
         def resumed(i):
-            seen.append(i)
-            return step.dispatch(*data[i]).loss
+            steps_run.append(i)
+            return step.dispatch(*batch(i)).loss
 
-        loop = elastic.ElasticLoop(
-            step, pdir, save_every=ELASTIC_SAVE_EVERY, keep=ELASTIC_KEEP,
-            async_save=True,
-            failure_injector=elastic.FailureInjector([ELASTIC_FAIL_STEP - 1]))
         res_r = loop.run(resumed, ELASTIC_STEPS)
         launches = kernels.launch_counts()
         step.drain()
         resume_diff = _differ(_train_state(step), ref)
+        final_state = loop.manager.pipeline_state(loop.manager.latest()[1])
+        wrong = [i for i, b in seen
+                 if not all(torch.equal(x, y) for x, y in zip(b, data[i]))]
         row = dict(preempt_status=res_p["status"], preempt_step=res_p["step"],
                    preempt_checkpoint=os.path.basename(
                        res_p.get("checkpoint") or ""),
@@ -6592,9 +6851,14 @@ def run_elastic(dev, results, card):
                    tier1_nonfinite=tier1.get("nonfinite"),
                    tier1_changed=len(tier1.get("changed", ["?"])),
                    resume_status=res_r["status"], restores=res_r["restores"],
-                   steps_run=seen, differ_from_r=len(resume_diff),
+                   steps_run=steps_run, differ_from_r=len(resume_diff),
+                   batches_seen=[i for i, _ in seen], wrong_batches=wrong,
+                   marker_data_pipeline=marker_state,
+                   final_data_pipeline=final_state,
+                   prefetch_stats=loop.prefetcher.stats(),
                    launches=launches,
                    on_disk=[s for s, _ in loop.manager.checkpoints()])
+        loop.prefetcher.close()
         out["runs"] = {"loop": row}
         print(f"[elastic loop] {json.dumps(row)}", flush=True)
         check(tier1.get("nonfinite", 0) > 0 and not tier1.get("changed"),
@@ -6605,9 +6869,15 @@ def run_elastic(dev, results, card):
               marker.get("step") == ELASTIC_STOP_STEP and
               marker.get("complete"), f"preemption {res_p} {marker}")
         check(res_r["status"] == "completed" and res_r["restores"] == 1 and
-              seen == list(range(ELASTIC_STOP_STEP, ELASTIC_STEPS)),
-              f"resume {res_r} ran {seen}")
+              steps_run == list(range(ELASTIC_STOP_STEP, ELASTIC_STEPS)),
+              f"resume {res_r} ran {steps_run}")
         check(not resume_diff, f"resumed run differs in {resume_diff[:5]}")
+        check(not wrong, f"steps {wrong} trained on another batch")
+        check(marker_state is not None and
+              marker_state.get("batch") == ELASTIC_STOP_STEP and
+              final_state is not None and
+              final_state.get("batch") == ELASTIC_STEPS,
+              f"manifests' data_pipeline {marker_state} {final_state}")
         # 12 steps dispatched in all, the chunk once per dtype group each
         check(launches["fused_optimizer_chunk"] == 2 * ELASTIC_STEPS,
               f"chunk launches {launches}")
@@ -6657,6 +6927,232 @@ def run_elastic(dev, results, card):
         raise AssertionError(f"elastic: {problems}")
 
 
+# ---------------------------------------------------------------------------
+# phase data: examples/gluon/mnist.py and house_prices.py as written, fed by
+# gluon.data on the card, and the DataLoader's worker pools
+# ---------------------------------------------------------------------------
+
+DATA_MNIST_ACC = 0.5      # mnist.py as-is, one epoch: its training accuracy
+DATA_POOL_BATCHES = 120   # (c) compares the first 120 of MNIST's 600 batches
+DATA_BUDGET_S = 45.0      # the phase's budget (reported beside its seconds)
+
+
+@contextlib.contextmanager
+def port_as_mxnet_tpu():
+    """Inside the block the examples' ``import mxnet_tpu`` names resolve to
+    the port's modules: an example runs as written, and nothing of the
+    JAX package is loaded."""
+    import mxnet_tpu_torch as mx
+    alias = {"mxnet_tpu": mx, "mxnet_tpu.autograd": mx.autograd,
+             "mxnet_tpu.gluon": mx.gluon, "mxnet_tpu.gluon.nn": mx.gluon.nn}
+    saved = {k: sys.modules.get(k) for k in alias}
+    sys.modules.update(alias)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
+
+
+def run_example(rel, argv):
+    """``python examples/<rel> <argv>`` as written, in this process with
+    the port under its imports; returns (its stdout, the launches it made,
+    its seconds)."""
+    import io
+    import runpy
+    import torch
+    from mxnet_tpu_torch import kernels
+    path = os.path.join(HERE, "examples", rel)
+    buf = io.StringIO()
+    saved = sys.argv, list(sys.path)
+    sys.argv = [path, *argv]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with port_as_mxnet_tpu(), contextlib.redirect_stdout(buf):
+            runpy.run_path(path, run_name="__main__")
+        torch.cuda.synchronize()
+    finally:
+        sys.argv, sys.path[:] = saved
+    sec = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    for line in buf.getvalue().splitlines():
+        print(f"[data {rel}] {line}", flush=True)
+    return buf.getvalue(), launches, sec
+
+
+def house_prices_baseline():
+    """The 5-fold average rmse(log) of predicting each fold's mean training
+    price, over ``examples/gluon/house_prices.py``'s own data and folds:
+    the plain reference its model must beat."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    n, d, k = 1000, 16, 5
+    x = rng.randn(n, d).astype("float32")
+    w = rng.rand(d).astype("float32")
+    y = np.exp(x @ w * 0.3 + 1.0).astype("float32")
+    fold, errs = n // k, []
+    for i in range(k):
+        lo, hi = i * fold, (i + 1) * fold
+        mean = np.concatenate([y[:lo], y[hi:]]).mean()
+        errs.append(float(np.sqrt(((np.log(mean) - np.log(y[lo:hi])) ** 2)
+                                  .mean())))
+    return sum(errs) / k
+
+
+def cuda_apps():
+    """PIDs holding a CUDA context on the card, by ``nvidia-smi``."""
+    try:
+        r = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                            "--format=csv,noheader"], capture_output=True,
+                           text=True, timeout=60)
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"nvidia-smi unavailable ({e})"
+    return [int(t) for t in r.stdout.split() if t.strip().isdigit()]
+
+
+def loader_batches(loader, n, on_first=None):
+    """The first `n` batches of `loader` as tensors; `on_first` runs after
+    the first arrives (the pool's workers are alive then)."""
+    out = []
+    for b in loader:
+        out.append(tuple(a._data for a in b))
+        if len(out) == 1 and on_first is not None:
+            on_first()
+        if len(out) == n:
+            break
+    return out
+
+
+def run_data(dev, results, card):
+    """Phase data: (a) ``examples/gluon/mnist.py`` as written, as-is with
+    ``--epochs 1`` (`vision.MNIST` with ``transform_first(ToTensor())``,
+    the seeded stand-in: 600 steps, training accuracy above
+    `DATA_MNIST_ACC`) and with ``--synthetic`` (3 epochs of 21 steps, the
+    last epoch's accuracy above the first's), each launching the chunk
+    (SGD) and the cross-entropy forward and backward once a step; (b)
+    ``examples/gluon/house_prices.py`` as written (5 folds x 30 epochs of
+    13 Adam steps): its 5-fold average rmse(log) finite and below the
+    fold means' (`house_prices_baseline`), the chunk once a step; (c) the
+    example's MNIST loader with 2 worker processes and with 2 threads,
+    its first `DATA_POOL_BATCHES` batches bit-equal to the serial
+    loader's on the card, no worker holding a CUDA context while the
+    pool lives (``nvidia-smi --query-compute-apps``)."""
+    import re
+    import torch
+    import mxnet_tpu_torch as mx
+
+    out = results["data"]
+    problems = []
+    t0 = time.perf_counter()
+
+    def check(ok, what):
+        if not ok:
+            problems.append(what)
+            print(f"[data] FAILED: {what}", flush=True)
+
+    def want_once_a_step(launches, steps, names, what):
+        got = {k: launches.get(k) for k in names}
+        check(all(v == steps for v in got.values()),
+              f"{what}: launches {got}, want {steps} each")
+
+    # -- (a) mnist.py, as-is and --synthetic --------------------------------
+    runs = {}
+    for name, argv, steps in (("mnist", ["--epochs", "1"], 600),
+                              ("mnist_synthetic", ["--synthetic"], 63)):
+        text, launches, sec = run_example("gluon/mnist.py", argv)
+        accs = [float(a) for a in
+                re.findall(r"Epoch \d+: accuracy=([0-9.]+)", text)]
+        val = re.findall(r"Validation: accuracy=([0-9.]+)", text)
+        runs[name] = dict(argv=argv, seconds=sec, steps=steps,
+                          train_accuracy=accs,
+                          validation_accuracy=float(val[-1]) if val else None,
+                          launches=launches)
+        print(f"[data {name}] {json.dumps(runs[name])} ({card})", flush=True)
+        want_once_a_step(launches, steps, ("fused_optimizer_chunk",
+                                           "softmax_xent_fwd",
+                                           "softmax_xent_bwd"), name)
+    acc = runs["mnist"]["train_accuracy"]
+    check(acc and acc[-1] > DATA_MNIST_ACC,
+          f"mnist.py: training accuracy {acc} not above {DATA_MNIST_ACC}")
+    acc = runs["mnist_synthetic"]["train_accuracy"]
+    check(len(acc) == 3 and acc[-1] > acc[0],
+          f"mnist.py --synthetic: accuracy {acc} did not rise")
+
+    # -- (b) house_prices.py ------------------------------------------------
+    text, launches, sec = run_example("gluon/house_prices.py", [])
+    avg = re.findall(r"5-fold average rmse\(log\): ([-+0-9.eEnaif]+)", text)
+    avg = float(avg[-1]) if avg else math.nan
+    base = house_prices_baseline()
+    steps = 5 * 30 * math.ceil(800 / 64)
+    runs["house_prices"] = dict(seconds=sec, steps=steps, rmse_log=avg,
+                                baseline_rmse_log=base, launches=launches)
+    print(f"[data house_prices] {json.dumps(runs['house_prices'])} "
+          f"({card})", flush=True)
+    check(math.isfinite(avg) and avg < base,
+          f"house_prices.py: rmse(log) {avg} not below the fold means' "
+          f"{base}")
+    want_once_a_step(launches, steps, ("fused_optimizer_chunk",),
+                     "house_prices")
+    out["runs"] = runs
+
+    # -- (c) the example's loader over worker processes and threads ---------
+    t_c = time.perf_counter()
+    T = mx.gluon.data.vision.transforms
+    ds = mx.gluon.data.vision.MNIST(train=True).transform_first(T.ToTensor())
+    DL = mx.gluon.data.DataLoader
+    n = DATA_POOL_BATCHES
+    pools, seen = {}, {}
+    t1 = time.perf_counter()
+    serial = loader_batches(DL(ds, batch_size=100, shuffle=True), n)
+    pools["serial_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    threads = loader_batches(DL(ds, batch_size=100, shuffle=True,
+                                num_workers=2), n)
+    pools["threads_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    procs = DL(ds, batch_size=100, shuffle=True, num_workers=2,
+               thread_pool=False)
+
+    def probe():
+        seen["apps"] = cuda_apps()
+        seen["workers"] = [w.proc.pid for w in procs._proc_pool._workers]
+
+    processes = loader_batches(procs, n, on_first=probe)
+    pools["processes_s"] = time.perf_counter() - t1
+    del procs
+    for name, got in (("threads", threads), ("processes", processes)):
+        pools[name + "_equal"] = len(got) == len(serial) == n and all(
+            torch.equal(x, y) for a, b in zip(got, serial)
+            for x, y in zip(a, b))
+        pools[name + "_on_card"] = all(x.device == dev for b in got
+                                       for x in b)
+    apps, workers = seen.get("apps"), seen.get("workers", [])
+    pools.update(batches=n, smoke_pid=os.getpid(), worker_pids=workers,
+                 cuda_apps=apps, seconds=time.perf_counter() - t_c)
+    out["pools"] = pools
+    print(f"[data pools] {json.dumps(pools)} ({card})", flush=True)
+    for name in ("threads", "processes"):
+        check(pools[name + "_equal"], f"the {name} pool's batches differ "
+                                      "from the serial loader's")
+        check(pools[name + "_on_card"], f"the {name} pool's batches left "
+                                        "the card")
+    check(isinstance(apps, list) and len(workers) == 2 and
+          not set(workers) & set(apps) and len(apps) <= 1,
+          f"CUDA contexts while the workers lived: {apps} "
+          f"(workers {workers}, the smoke {os.getpid()})")
+    out["seconds"] = time.perf_counter() - t0
+    out["budget_s"] = DATA_BUDGET_S
+    print(f"[data] {out['seconds']:.1f} s (budget {DATA_BUDGET_S:.0f} s; "
+          f"{card})", flush=True)
+    out["problems"] = problems
+    if problems:
+        raise AssertionError(f"data: {problems}")
+
+
 def kernel_entries(results):
     """One entry per ported kernel for the ``kernels`` line: the
     representative main-path case (K1: f32 decode C=1 MHA, no window; K2:
@@ -6676,7 +7172,8 @@ def kernel_entries(results):
     for the others); ``gpt_launches`` is the GPT phase's share,
     ``gpt_gqa_launches`` the gpt_gqa phase's, ``nmt_launches`` the nmt
     phase's training runs', ``elastic_launches`` the elastic phase's
-    `ElasticLoop` run's, ``gluon_gpt_launches`` the gluon_gpt phase's
+    `ElasticLoop` run's, ``data_launches`` the data phase's (the two
+    examples' three runs), ``gluon_gpt_launches`` the gluon_gpt phase's
     (the example's two runs, GPT-2 small's `Trainer` run and the engine
     over it), and K1's ``spec_prefix_launches`` the
     spec_prefix phase's engine's.  The flash entries also carry k3's band
@@ -6751,6 +7248,9 @@ def kernel_entries(results):
                       + [ggpt.get("full", {}), ggpt.get("serve", {})]
                       if "launches" in r]
     train.update({"elastic_" + k: v for k, v in elastic_runs.items()})
+    data_runs = {k: v for k, v in results.get("data", {}).get(
+        "runs", {}).items() if "launches" in v}
+    train.update({"data_" + k: v for k, v in data_runs.items()})
     k1_launch = e2e.get("float32", {}).get("launches", {}).get(
         "ragged_paged_attention", 0)
     k2_launch = sum(e2e.get(k, {}).get("launches", {}).get(
@@ -6776,6 +7276,8 @@ def kernel_entries(results):
                                         for r in elastic_runs.values()),
                 "gluon_gpt_launches": sum(r["launches"].get(name, 0)
                                           for r in gluon_gpt_runs),
+                "data_launches": sum(r["launches"].get(name, 0)
+                                     for r in data_runs.values()),
                 "max_abs_err": max(c["max_abs_err"] for c in cases),
                 "ms": rep[mk], "kernel_ms": rep[mk],
                 "plain_ms": rep[pre + "plain_ms"],
@@ -7110,7 +7612,7 @@ def main(argv=None) -> int:
                "gpt_d256_one_ulp": {},
                "spec_prefix": {}, "nmt": {}, "optim": {}, "amp": {},
                "amp_controls": {}, "amp_one_ulp": {}, "gluon": {},
-               "gluon_gpt": {}, "np": {}, "elastic": {}}
+               "gluon_gpt": {}, "np": {}, "elastic": {}, "data": {}}
     failed = []
     t0 = time.perf_counter()
     # build from the checkout's sources, never from a leftover library
@@ -7137,7 +7639,8 @@ def main(argv=None) -> int:
                      ("k7", k7_cases)):
         t_phase = time.perf_counter()
         try:
-            results[name] = fn(dev)
+            with timing_iters(K3_TIME_ITERS if name == "k3" else TIME_ITERS):
+                results[name] = fn(dev)
             for c in results[name]:
                 print(f"[{name}] {json.dumps(c)}", flush=True)
             bad = [c for c in results[name] if not c["ok"]]
@@ -7158,7 +7661,7 @@ def main(argv=None) -> int:
                                                          fault_builds)),
                      ("amp", run_amp), ("gluon", run_gluon),
                      ("gluon_gpt", run_gluon_gpt), ("np", run_np),
-                     ("elastic", run_elastic)):
+                     ("elastic", run_elastic), ("data", run_data)):
         t_phase = time.perf_counter()
         try:
             fn(dev, results, card)

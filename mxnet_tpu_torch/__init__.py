@@ -60,7 +60,14 @@ Ported so far (ROADMAP.md), slice by slice:
     `numpy` (``np``), `numpy_extension` (``npx``) — whose norm,
     cross-entropy and attention ops reach the kernels — and `nd`, with
     `engine`, `runtime`, `dlpack` and `util`'s NumPy-semantics switches;
-    the Gluon, model and training entry points take and return arrays.
+    the Gluon, model and training entry points take and return arrays;
+15. the data plane: `recordio` (with the native reader, `_native`),
+    `data` (the deterministic, checkpointable `DataPipeline` over record
+    shards), `gluon.data` (datasets, samplers, batchify, the
+    `DataLoader` with thread or process workers, `vision`'s MNIST /
+    CIFAR and transforms) and `parallel.DevicePrefetcher`, wired into
+    `ElasticLoop` and `CheckpointManager`.  `io` (the 1.x iterators)
+    waits for ROADMAP.md A13 part 2 and `image` for A11.
 """
 from .base import MXNetError  # noqa: F401
 from . import device  # noqa: F401
@@ -81,12 +88,17 @@ from . import elastic, profiler, utils  # noqa: F401
 from . import numpy_extension  # noqa: F401
 from . import numpy_extension as npx  # noqa: F401
 from . import engine, runtime, dlpack, util  # noqa: F401
+from . import recordio, data  # noqa: F401
 from .util import (  # noqa: F401
     np_shape, np_array, use_np, use_np_shape, use_np_array,
     use_np_default_dtype, set_np, reset_np, set_np_shape, is_np_shape,
     is_np_array)
 from .optimizer import lr_scheduler  # noqa: F401
 from .convert import load_jax_optimizer_states, load_jax_params  # noqa: F401
+from .base import UnportedModule as _Unported
+
+io = _Unported("mx.io", "A13 part 2")
+image = _Unported("mx.image", "A11")
 
 __all__ = ["MXNetError", "device", "resolve_device", "Device", "Context",
            "cpu", "gpu", "tpu", "current_device",
@@ -96,7 +108,8 @@ __all__ = ["MXNetError", "device", "resolve_device", "Device", "Context",
            "resilience", "telemetry", "tracing", "health", "recovery",
            "elastic", "profiler", "utils", "ndarray", "nd", "NDArray",
            "numpy", "np", "numpy_extension", "npx", "engine", "runtime",
-           "dlpack", "util", "np_shape", "np_array", "use_np",
+           "dlpack", "util", "recordio", "data", "io", "image",
+           "np_shape", "np_array", "use_np",
            "use_np_shape", "use_np_array", "use_np_default_dtype",
            "set_np", "reset_np", "set_np_shape", "is_np_shape",
            "is_np_array",

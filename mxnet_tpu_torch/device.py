@@ -12,6 +12,13 @@ CPU numbers under a device name.
 ``with mx.cpu():`` makes it the current device, which a Gluon
 ``initialize()`` with no device uses (the card by default).  ``tpu()``
 raises: this port runs on NVIDIA cards.
+
+The scope is per thread (JAX's default device is per process): a thread
+the framework starts for a caller (a `DataLoader` worker, the device
+prefetcher) enters the device that was current where it was built.  A
+process that must never touch the card (a spawned `DataLoader` worker)
+calls `pin_process_cpu` first: its default is then the CPU, and arrays
+unpickled there are rebuilt on the CPU whatever device they left.
 """
 from __future__ import annotations
 
@@ -23,7 +30,11 @@ import torch
 from .base import MXNetError
 
 __all__ = ["resolve_device", "Device", "Context", "cpu", "gpu", "tpu",
-           "current_device", "current_context", "num_gpus"]
+           "current_device", "current_context", "num_gpus",
+           "pin_process_cpu", "process_pinned_cpu"]
+
+# set once, in a process that must stay off the card (`pin_process_cpu`)
+_PROCESS_CPU = False
 
 
 def resolve_device(device=None) -> torch.device:
@@ -125,9 +136,25 @@ def tpu(device_id: int = 0) -> Device:
 
 def current_device() -> Device:
     """The innermost ``with Device(...)`` scope's device, else ``gpu(0)``
-    (the card; `resolve_device` raises on it when there is none)."""
+    (the card; `resolve_device` raises on it when there is none) — or
+    ``cpu(0)`` in a process pinned by `pin_process_cpu`."""
     stack = getattr(Device._local, "stack", None)
-    return stack[-1] if stack else Device("gpu", 0)
+    if stack:
+        return stack[-1]
+    return Device("cpu" if _PROCESS_CPU else "gpu", 0)
+
+
+def pin_process_cpu() -> None:
+    """Make the CPU this process's default device for good, before
+    anything is unpickled: a spawned `DataLoader` worker calls it so that
+    no array, transform or batch in it ever opens a CUDA context (the
+    counterpart of JAX's worker pinning ``jax_platforms`` to ``cpu``)."""
+    global _PROCESS_CPU
+    _PROCESS_CPU = True
+
+
+def process_pinned_cpu() -> bool:
+    return _PROCESS_CPU
 
 
 current_context = current_device

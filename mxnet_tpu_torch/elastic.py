@@ -17,10 +17,13 @@ the whole job.  On a card the failure model is simpler to cover:
 
 `ElasticLoop` composes these around any step callable and any checkpoint
 target exposing ``save(path)``/``load(path)`` (canonically
-`parallel.TrainStep`, via `utils.CheckpointManager`).  The mesh
-reformation (``mesh_controller=``, A12) and the data pipeline and device
-prefetcher (``pipeline=``, ``prefetcher=``, A13) are not ported: passing
-one raises `MXNetError` naming its ROADMAP.md item.
+`parallel.TrainStep`, via `utils.CheckpointManager`), and couples the
+input stream to it: a `data.DataPipeline` (``pipeline=``) rides every
+checkpoint and is seeked by every restore, and a
+`parallel.DevicePrefetcher` (``prefetcher=``) is closed around each seek
+and rebuilt by ``data_reset=``.  The mesh reformation
+(``mesh_controller=``, A12) is not ported: passing one raises
+`MXNetError` naming its ROADMAP.md item.
 
 Usage::
 
@@ -425,10 +428,21 @@ class ElasticLoop:
     the default policy when the env var is set; pass ``recovery=False``
     to opt out explicitly.
 
-    `data_reset` (optional) is called after every restore with the
-    resumed step: rebuild whatever feeds the loop.  `pipeline`,
-    `prefetcher` (A13) and `mesh_controller` (A12) are not ported and
-    raise `MXNetError`.
+    `pipeline` (optional): a `data.DataPipeline` — attaching it couples
+    the input stream to the checkpoint manager (`attach_pipeline`): every
+    manifest carries the stream position and every restore — initial
+    resume, preemption marker, tier-2 rollback, step-failure retry —
+    O(1)-seeks the stream instead of replaying it.  Pair with
+    `data_reset`, called after every restore with the resumed step:
+    rebuild whatever wraps the (already re-seeked) pipeline — the loop
+    closes the old `prefetcher` first, and adopts the hook's return value
+    as the new one when it returns a prefetcher.
+
+    `prefetcher` (optional): a `DevicePrefetcher` the preemption path
+    cancels and the rollback path fast-forwards (`data_skip` overrides
+    the per-step fast-forward hook).
+
+    `mesh_controller` (A12) is not ported and raises `MXNetError`.
     """
 
     def __init__(self, target, directory: str, save_every: int = 100,
@@ -447,13 +461,6 @@ class ElasticLoop:
                 "ElasticLoop(mesh_controller=...): elastic mesh "
                 "reformation (parallel.elastic_mesh) is not ported yet "
                 "(ROADMAP.md A12)")
-        for name, val in (("pipeline", pipeline),
-                          ("prefetcher", prefetcher)):
-            if val is not None:
-                raise MXNetError(
-                    f"ElasticLoop({name}=...): the data pipeline and the "
-                    f"device prefetcher are not ported yet (ROADMAP.md "
-                    f"A13)")
         self.target = target
         self.manager = CheckpointManager(directory, keep=keep)
         self.save_every = save_every
@@ -472,8 +479,31 @@ class ElasticLoop:
         if recovery is None and _recovery.enabled():
             recovery = _recovery.RecoveryPolicy()
         self.recovery = recovery or None   # False -> None
+        self.prefetcher = prefetcher
         self.preempt_grace = preempt_grace
+        self.pipeline = pipeline
         self.data_reset = data_reset
+        if pipeline is not None:
+            # checkpoints now carry the stream position; every restore
+            # below seeks instead of replaying (docs/data.md)
+            self.manager.attach_pipeline(pipeline)
+            if prefetcher is not None and data_reset is None:
+                # every restore quiesces the prefetcher before the seek;
+                # without a rebuild hook the loop would run on from a
+                # permanently dead window — refuse up front, not at the
+                # first post-restore next()
+                raise MXNetError(
+                    "ElasticLoop(pipeline=..., prefetcher=...) needs "
+                    "data_reset= too: restores close the prefetch window "
+                    "around the pipeline seek, and the hook rebuilds it "
+                    "(return the new DevicePrefetcher) — docs/data.md")
+        if data_skip is None and (prefetcher is not None
+                                  or pipeline is not None):
+            # reads self.prefetcher/self.pipeline at CALL time: after a
+            # restore the data_reset hook may have swapped the
+            # prefetcher, and skipping on the closed old one would drop
+            # nothing while reporting the poison batch skipped
+            data_skip = self._default_data_skip
         self.data_skip = data_skip
         # step ids (1-based, = the monitor's/journal's step-id space) the
         # post-rollback replay fast-forwards over.  The spaces stay
@@ -484,13 +514,38 @@ class ElasticLoop:
 
     _deferred_failures = 0
 
+    def _default_data_skip(self, _step: int) -> None:
+        """Poison fast-forward: drop one batch from the CURRENT
+        prefetcher (it may have been rebuilt since construction), else
+        advance the pipeline directly."""
+        if self.prefetcher is not None:
+            self.prefetcher.skip(1)
+        elif self.pipeline is not None:
+            self.pipeline.skip_batches(1)
+
+    def _quiesce_data(self) -> None:
+        """Stop the prefetch thread before a restore re-seeks the
+        attached pipeline: a producer pulling batches concurrently with
+        `load_state` would interleave pre- and post-seek reads.  Buffered
+        batches are dropped by design — the seek makes them reachable
+        again in O(1), which is the whole point."""
+        if self.pipeline is not None and self.prefetcher is not None:
+            try:
+                self.prefetcher.close()
+            except Exception:
+                _log.exception("elastic: prefetcher quiesce failed")
+
     def _reset_data(self, step: int) -> None:
-        """After a restore landed on `step`: let the owner rebuild whatever
-        feeds the loop."""
+        """After a restore landed on `step`: let the owner rebuild
+        whatever wraps the (already re-seeked) pipeline.  A hook that
+        returns a `DevicePrefetcher` becomes the loop's new one (the old
+        window was dropped by `_quiesce_data`)."""
         if self.data_reset is None:
             return
         try:
-            self.data_reset(step)
+            pf = self.data_reset(step)
+            if pf is not None:
+                self.prefetcher = pf
         except Exception:
             _log.exception("elastic: data_reset hook failed at step %d "
                            "(continuing with the current data path)", step)
@@ -532,6 +587,7 @@ class ElasticLoop:
         is present: a marker naming a complete emergency checkpoint pins
         the resume to exactly that step (the marker is cleared either
         way — it describes one preemption, not a standing instruction)."""
+        self._quiesce_data()
         marker = _recovery.read_resume_marker(self.manager.directory)
         if marker is not None:
             _recovery.clear_resume_marker(self.manager.directory)
@@ -578,6 +634,7 @@ class ElasticLoop:
                 _log.exception("elastic: in-flight drain before rollback "
                                "failed")
         self._drain_async_tolerant()
+        self._quiesce_data()
         multi = _recovery._process_group() is not None
         if multi:
             cand = self.manager.newest_healthy()
@@ -679,7 +736,8 @@ class ElasticLoop:
                         if preempted:
                             self._drain_async_tolerant()
                             info = guard.emergency_checkpoint(
-                                target=self.target, step=i)
+                                target=self.target, step=i,
+                                prefetcher=self.prefetcher)
                             _log.warning(
                                 "elastic: preempted at step %d; %s "
                                 "checkpoint %s written", i,
@@ -757,6 +815,7 @@ class ElasticLoop:
                                     f"elastic: step {i} failed after "
                                     f"{self.max_restores} restores") from e
                             self._drain_async_tolerant()
+                            self._quiesce_data()
                             rollback = self.manager.restore(self.target)
                             self._reset_data(rollback)
                             _log.warning(

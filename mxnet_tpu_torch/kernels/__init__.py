@@ -148,12 +148,19 @@ def _libraries() -> Dict[str, tuple]:
     return out
 
 
+def _build_root() -> str:
+    """The port's build root: ``MXTPU_TORCH_BUILD_DIR``, else
+    ``build/mxnet_tpu_torch/`` beside the package (the kernels and the
+    native record reader build under it, never in the package)."""
+    return os.environ.get("MXTPU_TORCH_BUILD_DIR") or os.path.join(
+        os.path.dirname(_PKG), "build", "mxnet_tpu_torch")
+
+
 def _build_dir() -> str:
     """The libraries' directory, keyed by the flags and every file under
     ``csrc/`` (sources and the headers they include), so an edited header
     rebuilds too."""
-    root = os.environ.get("MXTPU_TORCH_BUILD_DIR") or os.path.join(
-        os.path.dirname(_PKG), "build", "mxnet_tpu_torch")
+    root = _build_root()
     h = hashlib.sha256((" ".join(NVCC_FLAGS) + repr(SPLITS)).encode())
     for name in sorted(f for f in os.listdir(CSRC)
                        if f.endswith((".cu", ".cuh"))):

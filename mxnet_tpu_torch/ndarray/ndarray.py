@@ -43,7 +43,7 @@ import torch
 
 from .. import autograd as _ag
 from ..base import MXNetError, check_x64_dtype
-from ..device import Device, resolve_device
+from ..device import Device, process_pinned_cpu, resolve_device
 
 __all__ = ["ndarray", "NDArray", "bfloat16", "from_torch", "as_tensor",
            "to_torch_dtype", "to_np_dtype", "apply", "apply_entry",
@@ -894,8 +894,12 @@ NDArray = ndarray   # MXNet 1.x's name
 
 
 def _rebuild(a, dtype, device_type):
+    """Unpickle: the array on the device type it left, except in a process
+    pinned to the CPU (`device.pin_process_cpu`), where it stays there."""
     t = torch.from_numpy(a)
     if dtype == "bfloat16":
         t = t.to(torch.bfloat16)
+    if process_pinned_cpu():
+        device_type = "cpu"
     return wrap(t.to(device_type))
 

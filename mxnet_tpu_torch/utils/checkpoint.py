@@ -71,17 +71,70 @@ class CheckpointManager:
         # final paths owned by an in-flight save_async: _prune must not
         # reap them mid-write (they get reaped by a later prune instead)
         self._pending_async: set = set()
+        self._pipeline = None
         os.makedirs(directory, exist_ok=True)
 
     # -- data pipeline attachment ---------------------------------------
     def attach_pipeline(self, pipeline) -> None:
-        """JAX couples a `data.DataPipeline` to the manager (its state
-        rides every manifest and every restore seeks it).  The data
-        pipeline is not ported: raises `MXNetError` naming the item."""
-        raise MXNetError(
-            "CheckpointManager.attach_pipeline: the data pipeline "
-            "(gluon/data, mxnet_tpu/data) is not ported yet (ROADMAP.md "
-            "A13)")
+        """Couple a `data.DataPipeline` to this manager: every manifest
+        written from now on embeds the pipeline's state as of the saved
+        step (``data_pipeline`` key), and every successful restore
+        O(1)-seeks the pipeline back to that position — the input stream
+        and the model state move as ONE checkpointed unit, which is what
+        turns rollback/preemption/elastic replay from O(n)
+        ``prefetcher.skip()`` into a seek (docs/data.md)."""
+        self._pipeline = pipeline
+
+    def _pipeline_state(self, step: int):
+        """Pipeline state to stamp into the manifest for a save at
+        `step`.  Prefers the per-batch snapshot aligned with the step
+        (exact even when a DevicePrefetcher has pulled the stream ahead
+        of the consumer); falls back to the newest state with a warning
+        when the ring no longer covers it."""
+        if self._pipeline is None:
+            return None
+        try:
+            state = self._pipeline.state_at(step)
+            if state is None:
+                state = self._pipeline.state()
+                if state.get("batch") != step:
+                    _log.warning(
+                        "checkpoint at step %d: data-pipeline snapshot "
+                        "ring no longer covers that batch (have batch "
+                        "%s); storing the newest state — resume may "
+                        "re-deliver up to the prefetch depth of batches",
+                        step, state.get("batch"))
+            return state
+        except Exception:
+            _log.exception("checkpoint: reading data-pipeline state "
+                           "failed; manifest will carry none")
+            return None
+
+    def _apply_pipeline(self, path: str) -> None:
+        """After a successful target load: seek the attached pipeline to
+        the manifest's data state.  A manifest without one (pre-data
+        checkpoint, or written by a manager with no pipeline attached)
+        leaves the pipeline where it is — loudly."""
+        if self._pipeline is None:
+            return
+        state = (self._manifest_meta(path) or {}).get("data_pipeline")
+        if state is None:
+            _log.warning(
+                "checkpoint %s carries no data-pipeline state; the input "
+                "stream position is NOT restored (resume will re-read "
+                "from the pipeline's current position)", path)
+            return
+        try:
+            self._pipeline.load_state(state)
+            _log.info("restored data pipeline to batch %s (epoch %s, "
+                      "offset %s)", state.get("batch"), state.get("epoch"),
+                      state.get("offset"))
+        except Exception as e:
+            raise MXNetError(
+                f"checkpoint {path} restored but its data-pipeline state "
+                f"did not apply ({e}); the model and input stream would "
+                "disagree — fix the pipeline construction (same seed, "
+                "same mixture, same packing) or detach it") from e
 
     def pipeline_state(self, path: str) -> Optional[dict]:
         """The ``data_pipeline`` state stored in `path`'s manifest, or
@@ -173,7 +226,8 @@ class CheckpointManager:
         except Exception:
             return None
 
-    def _write_manifest(self, path: str, step: int, target=None) -> None:
+    def _write_manifest(self, path: str, step: int,
+                        target=None, pipeline_state=None) -> None:
         """Manifest sidecar for `path` (atomic: tmp + rename). Written
         AFTER the checkpoint rename: a crash in between leaves a valid
         checkpoint that merely verifies as legacy/unmanifested."""
@@ -183,6 +237,12 @@ class CheckpointManager:
         health = self._health_tag(step)
         if health is not None:
             meta["health"] = health
+        if pipeline_state is not None:
+            # the input-stream position travels WITH the weights: restore
+            # seeks the data pipeline to exactly this state (O(1), no
+            # replay) so model and data never disagree about "where we
+            # are" after rollback / preemption
+            meta["data_pipeline"] = pipeline_state
         # topology descriptor (mesh axis sizes at save time), when the
         # target has one: purely informational — checkpoints store
         # logical values, but the save-time layout lets restore announce
@@ -261,6 +321,11 @@ class CheckpointManager:
         self.wait_async()
         final = self._path(step)
         t0 = time.perf_counter()
+        # capture the data-stream position BEFORE the (possibly slow)
+        # target write: the state must describe the step being saved,
+        # not wherever a background prefetcher pulled the stream to
+        # while the weights serialized
+        pstate = self._pipeline_state(step)
         fd, tmp = tempfile.mkstemp(dir=self.directory,
                                    prefix=f".{self.prefix}-tmp")
         os.close(fd)
@@ -271,7 +336,7 @@ class CheckpointManager:
         finally:
             if os.path.exists(tmp):
                 os.unlink(tmp)
-        self._write_manifest(final, step, target)
+        self._write_manifest(final, step, target, pipeline_state=pstate)
         self._prune()
         self._note_write(final, step, time.perf_counter() - t0)
         return final
@@ -321,6 +386,10 @@ class CheckpointManager:
                                    prefix=f".{self.prefix}-atmp")
         os.close(fd)
         t0 = time.perf_counter()
+        # synchronous snapshot, async write: by the time the background
+        # writer finishes, the pipeline has moved on — the state must be
+        # the one aligned with `step` at the moment the save was ordered
+        pstate = self._pipeline_state(step)
         self._pending_async.add(final)
         inner = target.save_async(tmp)
 
@@ -330,7 +399,8 @@ class CheckpointManager:
             try:
                 f.result()
                 os.replace(tmp, final)
-                self._write_manifest(final, step, target)
+                self._write_manifest(final, step, target,
+                                     pipeline_state=pstate)
                 self._pending_async.discard(final)
                 self._prune()
                 self._note_write(final, step, time.perf_counter() - t0,
@@ -400,6 +470,7 @@ class CheckpointManager:
                                  f"{reason}")
             fault_point("ckpt_read")
             target.load(path)
+            self._apply_pipeline(path)
             self._note_topology_change(path, target)
             self._note_restore(path, step, time.perf_counter() - t0)
             return step
@@ -467,6 +538,7 @@ class CheckpointManager:
                             "restore: fell back to checkpoint at step %d "
                             "after quarantining %d newer corrupt "
                             "checkpoint(s)", s, len(failures))
+                    self._apply_pipeline(path)
                     self._note_topology_change(path, target)
                     self._note_restore(path, s, time.perf_counter() - t0,
                                        fallbacks=len(failures))

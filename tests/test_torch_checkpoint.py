@@ -8,7 +8,11 @@ written by the port's loads into JAX's step, with every parameter, every
 optimizer state tensor and the step count bit-equal.  The RNG stays per
 package: JAX's ``meta:rng_key`` is ignored by the port, and the port's
 dropout generators (``meta:torch_generator:<i>``) by JAX; the port's own
-round trip restores them, bf16 weights included.  (The crossing runs in
+round trip restores them, bf16 weights included.  With a data pipeline
+attached, a manifest carries the pipeline's state as of the saved step
+(``data_pipeline``, from its state ring even when a prefetcher pulled the
+stream ahead), equal to JAX's manager's for the same stream, and a restore
+seeks the pipeline there.  (The crossing runs in
 ``tests/test_torch_elastic.py``, beside the other case that builds JAX's
 step, so one worker compiles it.)"""
 import json
@@ -107,8 +111,6 @@ def test_explicit_step_and_all_corrupt_raise(tmp_path):
         m.restore(Target(), step=3)
     with pytest.raises(MXNetError, match="failed to restore"):
         m.restore(Target())
-    with pytest.raises(MXNetError, match="A13"):
-        m.attach_pipeline(object())
 
 
 def test_healthy_only_restore_skips_unhealthy_tags(tmp_path):
@@ -160,3 +162,58 @@ def test_port_round_trip_bf16_with_dropout_generators(tmp_path,
     with np.load(path) as z:
         assert any(k.startswith("__bf16__p:") for k in z.files)
         assert "meta:torch_generator:0" in z.files
+
+
+def _pipelines(tmp_path):
+    """The same 5-batch stream in both packages, over one record file."""
+    import mxnet_tpu.data as jdata
+    import mxnet_tpu_torch.data as tdata
+    from mxnet_tpu_torch import recordio
+    w = recordio.MXIndexedRecordIO(str(tmp_path / "r.idx"),
+                                   str(tmp_path / "r.rec"), "w")
+    for k in range(20):
+        w.write_idx(k, np.arange(k, k + 3, dtype=np.int32).tobytes())
+    w.close()
+    pattern = str(tmp_path / "r.rec")
+    return [pkg.DataPipeline(pkg.ShardedRecordDataset(pattern), batch_size=4,
+                             seed=2) for pkg in (tdata, jdata)]
+
+
+def test_manifests_carry_the_pipeline_state_of_the_saved_step(tmp_path):
+    tp, jp = _pipelines(tmp_path)
+    metas = []
+    for pipe, mgr_cls, d in ((tp, TManager, "t"), (jp, JManager, "j")):
+        m = mgr_cls(str(tmp_path / d), keep=3)
+        m.attach_pipeline(pipe)
+        for _ in range(4):          # a prefetcher pulled 4 batches...
+            next(pipe)
+        m.save(Target(2.0), 2)      # ...while training is at step 2
+        metas.append(m.pipeline_state(m.latest()[1]))
+    assert metas[0] == metas[1] and metas[0]["batch"] == 2
+    # a restore seeks the pipeline back to the saved step's next batch
+    m = TManager(str(tmp_path / "j"), keep=3)     # JAX's checkpoint
+    tp2, jp2 = _pipelines(tmp_path)
+    next(jp2)
+    next(jp2)
+    want = next(jp2)
+    m.attach_pipeline(tp2)
+    assert m.restore(Target()) == 2
+    np.testing.assert_array_equal(next(tp2), want)
+
+
+def test_a_manifest_without_pipeline_state_leaves_the_stream(tmp_path):
+    tp, _ = _pipelines(tmp_path)
+    TManager(str(tmp_path / "c"), keep=2).save(Target(1.0), 3)
+    m = TManager(str(tmp_path / "c"), keep=2)
+    m.attach_pipeline(tp)
+    next(tp)
+    assert m.restore(Target()) == 3 and tp.state()["batch"] == 1
+    # a state that does not fit the pipeline raises instead
+    m2 = TManager(str(tmp_path / "d"), keep=2)
+    m2.attach_pipeline(tp)
+    m2.save(Target(1.0), 1)
+    other = _pipelines(tmp_path)[0]
+    other.seed = 99
+    m2.attach_pipeline(other)
+    with pytest.raises(MXNetError, match="data-pipeline state"):
+        m2.restore(Target(), step=1)

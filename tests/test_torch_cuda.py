@@ -54,7 +54,13 @@ and LAMB kernels with no host sync, and its ``save_async`` / ``load``
 round trip, dropout generator included, bit-equal; and the models as
 Gluon blocks: `examples/gpt_generation.py`'s loop on its two GPTs (the
 launches a step, the plain twin's losses, the `save_parameters` round
-trip) and `examples/serve_gpt.py`'s engine over a Block.
+trip) and `examples/serve_gpt.py`'s engine over a Block; and the data
+plane: the device prefetcher copying on a stream of its own from pinned
+memory, each batch read right after ``next()`` correct while a long kernel
+is queued on the consumer's stream and the batch is freed at once (the
+event wait and ``record_stream``), and a `DataLoader` over arrays on the
+card whose two worker processes rebuild them on the CPU and never open a
+CUDA context.
 
 Marked ``cuda``: each test skips (with its reason) where no card is
 visible, as on the CPU test machine.  Run them on a machine with an H100
@@ -2699,3 +2705,116 @@ def test_gluon_gpt_serves_as_the_example_on_the_card(card):
     assert [h.result(timeout=0) for h in handles] == refs
     assert sum(h.evictions for h in handles) >= 1
     assert kernels.launch_counts()["ragged_paged_attention"] == 2 * steps
+
+
+def test_prefetcher_copies_on_its_own_stream_under_a_busy_consumer(card):
+    """Each batch is copied on the prefetcher's own stream from pinned
+    memory; read right after ``next()``, behind a long kernel queued on
+    the consumer's stream, and freed at once, it still holds its values:
+    the consumer's stream waits on the copy's event, and the freed buffer
+    is not reused by a later copy before the consumer's reads ran."""
+    from mxnet_tpu_torch.parallel import DevicePrefetcher
+    rng = np.random.RandomState(0)
+    src = [rng.randn(512, 1024).astype(np.float32) for _ in range(12)]
+    want = [torch.from_numpy(x).to(card).mul(2).sum() for x in src]
+    torch.cuda.synchronize()
+    pf = DevicePrefetcher(iter(src), depth=2)
+    assert pf.stream is not None
+    assert pf.stream.stream_id != torch.cuda.current_stream().stream_id
+    got = []
+    for _ in src:
+        torch.cuda._sleep(4_000_000)        # ~2 ms queued on the consumer
+        b = next(pf)
+        assert b.device.type == "cuda" and b.dtype == torch.float32
+        got.append(b.mul(2).sum())
+        del b                               # freed while still to be read
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
+    stats = pf.stats()
+    assert stats["batches"] == len(src) and stats["depth"] == 2
+
+
+def test_prefetcher_copies_come_from_pinned_memory(card):
+    """Under ``torch.profiler`` the prefetched batches' host->device
+    copies run from pinned memory on a stream no kernel ran on (the trace
+    need not record every copy: the check is where and from what memory
+    they ran)."""
+    import json
+    import tempfile
+    from mxnet_tpu_torch.parallel import DevicePrefetcher
+    src = [(np.full((64, 64), i, np.float32), np.arange(8, dtype=np.int32))
+           for i in range(4)]
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        pf = DevicePrefetcher(iter(src), depth=2)
+        sums = [x.sum() + y.sum() for x, y in pf]
+        torch.cuda.synchronize()
+    with tempfile.NamedTemporaryFile(suffix=".json") as f:
+        prof.export_chrome_trace(f.name)
+        events = json.load(open(f.name)).get("traceEvents", [])
+    kernels_at = {e.get("args", {}).get("stream") for e in events
+                  if e.get("cat") == "kernel"}
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"
+              and "HtoD" in e.get("name", "")]
+    if not kernels_at or not copies:
+        pytest.skip("the profiler saw no device activity here")
+    mine = [e for e in copies
+            if e.get("args", {}).get("stream") not in kernels_at]
+    assert mine and all("Pinned" in e["name"] for e in mine)
+    assert [float(v) for v in sums] == [float(64 * 64 * i + 28)
+                                        for i in range(4)]
+
+
+def test_dataloader_workers_open_no_cuda_context(card):
+    """A `DataLoader` over arrays on the card with two worker processes:
+    the workers rebuild the arrays on the CPU (pinned before unpickling),
+    never initialise CUDA, hold no context while they live, and the
+    batches land on the card equal to the serial loader's."""
+    import os
+    import subprocess
+    import sys
+    import mxnet_tpu_torch as mx
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_data_common as common
+
+    x = mx.np.array(np.arange(40, dtype=np.float32).reshape(10, 4))
+    y = mx.np.array(np.arange(10, dtype=np.int32))
+    assert x.device == mx.gpu(0)
+    ds = mx.gluon.data.ArrayDataset(x, y)
+    serial = list(mx.gluon.data.DataLoader(ds, batch_size=3))
+    dl = mx.gluon.data.DataLoader(ds, batch_size=3, num_workers=2,
+                                  thread_pool=False)
+    got, apps = [], None
+    for b in dl:
+        if apps is None:
+            r = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                                "--format=csv,noheader"],
+                               capture_output=True, text=True, timeout=60)
+            apps = {int(t) for t in r.stdout.split() if t.isdigit()}
+            pids = {w.proc.pid for w in dl._proc_pool._workers}
+        got.append(b)
+    del dl
+    assert not apps & pids and len(apps) <= 1
+    assert len(got) == len(serial) == 4
+    for (a, b), (c, d) in zip(got, serial):
+        assert a.device == mx.gpu(0) and torch.equal(a._data, c._data)
+        assert torch.equal(b._data, d._data)
+    probe = mx.gluon.data.DataLoader(common.DeviceProbe(), batch_size=2,
+                                     num_workers=2, thread_pool=False)
+    rows = np.concatenate([b[0].asnumpy() for b in probe])
+    del probe
+    assert rows[:, 0].all() and not rows[:, 1].any()
+
+
+def test_to_tensor_divides_on_the_card_as_on_the_cpu(card):
+    """`ToTensor` on the card gives the CPU's bits (a worker process makes
+    its batches on the CPU, the serial loader on the card)."""
+    import mxnet_tpu_torch as mx
+    T = mx.gluon.data.vision.transforms
+    img = np.arange(256 * 3, dtype=np.uint8).reshape(16, 16, 3)
+    on_card = T.ToTensor()(mx.np.array(img)).asnumpy()
+    with mx.cpu():
+        on_cpu = T.ToTensor()(mx.np.array(img)).asnumpy()
+    np.testing.assert_array_equal(on_card, on_cpu)

@@ -28,6 +28,7 @@ from torch_plane_common import (  # noqa: F401 — clean_plane is autouse
     jax_params, jax_step, jelastic, telastic, torch_params,
     torch_step)
 
+import mxnet_tpu_torch as tm
 from mxnet_tpu_torch.base import MXNetError
 
 
@@ -220,12 +221,203 @@ def test_emergency_checkpoint_writes_marker_and_resumes(tmp_path):
     assert recovery.read_resume_marker(str(tmp_path)) is None
 
 
-@pytest.mark.parametrize("kw,item", [("mesh_controller", "A12"),
-                                     ("pipeline", "A13"),
-                                     ("prefetcher", "A13")])
+@pytest.mark.parametrize("kw,item", [("mesh_controller", "A12")])
 def test_unported_parts_raise_naming_their_item(tmp_path, kw, item):
     with pytest.raises(MXNetError, match=item):
         telastic.ElasticLoop(Counter(), str(tmp_path), **{kw: object()})
+
+
+# ---------------------------------------------------------------------------
+# the loop fed by the data plane: record shards -> DataPipeline ->
+# DevicePrefetcher, stopped, resumed and failed over
+# ---------------------------------------------------------------------------
+
+def _decode(raw):
+    return np.frombuffer(raw, np.float32)
+
+
+@pytest.fixture
+def shards(tmp_path):
+    """30 samples of 7 float32 (6 inputs, 1 target) in 3 record shards."""
+    from mxnet_tpu_torch import recordio
+    rng = np.random.RandomState(0)
+    samples = rng.randn(30, 7).astype(np.float32)
+    for s in range(3):
+        w = recordio.MXIndexedRecordIO(str(tmp_path / f"s{s}.idx"),
+                                       str(tmp_path / f"s{s}.rec"), "w")
+        for k in range(10):
+            w.write_idx(k, samples[10 * s + k].tobytes())
+        w.close()
+    return str(tmp_path / "s*.rec"), samples
+
+
+def _oracle(samples, n=12, batch=4, seed=3):
+    """Batch k of the stream, straight from the epoch order."""
+    from mxnet_tpu_torch.data import EpochOrder
+    order = EpochOrder(len(samples), seed)
+    return [samples[[order.index(*divmod(batch * k + r, len(samples)))
+                     for r in range(batch)]] for k in range(n)]
+
+
+class NumpyModel(Counter):
+    """A target whose state folds in every batch it trains on."""
+
+    def __init__(self):
+        self.state = np.zeros(7)
+
+    def train(self, b):
+        self.state = self.state * 0.5 + np.asarray(b, np.float64).sum(0)
+
+
+class LinearModel:
+    """A small model: `Linear(6, 1)` with SGD through the port's
+    `TrainStep` on the CPU, fed (inputs, target) columns of a batch."""
+
+    def __init__(self):
+        from mxnet_tpu_torch.optimizer import SGD
+        from mxnet_tpu_torch.parallel import make_train_step
+        torch.manual_seed(0)
+        self.step = make_train_step(
+            torch.nn.Linear(6, 1), SGD(learning_rate=0.05),
+            lambda out, x, y: ((out - y) ** 2).mean(), num_model_args=1)
+
+    def train(self, b):
+        b = torch.as_tensor(np.asarray(b))
+        return self.step.dispatch(b[:, :6], b[:, 6:]).loss
+
+    @property
+    def state(self):
+        return np.concatenate([p.detach().numpy().ravel()
+                               for p in self.step.params.values()])
+
+    def save(self, path):
+        self.step.save(path)
+
+    def load(self, path):
+        self.step.load(path)
+
+    def drain(self, timeout=None):
+        return self.step.drain(timeout)
+
+
+def _data_loop(monkeypatch, tmp, el, data, pf, pattern, model_cls,
+               stop_after=5, fail_at=8):
+    """Loop A stops after `stop_after` steps; loop B (fresh model,
+    pipeline and prefetcher, as a restarted job builds them) resumes and
+    meets a failure at step `fail_at`.  Returns both results, the
+    (step, batch) pairs each step trained on, the final model and the
+    newest manifest's pipeline state."""
+    log = GuardLog(monkeypatch, el)
+    seen = []
+
+    def build():
+        pipe = data.DataPipeline(data.ShardedRecordDataset(
+            pattern, decode=_decode), batch_size=4, seed=3)
+
+        def data_reset(step):
+            if pipe.state()["batch"] != step:
+                # a fresh start: rewind what the first window pulled
+                pipe.load_state(pipe.state_at(step))
+            return pf.DevicePrefetcher(pipe, depth=2)
+        return pipe, pf.DevicePrefetcher(pipe, depth=2), data_reset
+
+    def run(model, injector=None, on_step=None):
+        pipe, first, reset = build()
+        loop = el.ElasticLoop(model, tmp, save_every=3, keep=2,
+                              pipeline=pipe, prefetcher=first,
+                              data_reset=reset,
+                              failure_injector=injector)
+
+        def step_fn(i):
+            b = np.asarray(next(loop.prefetcher))
+            seen.append((i, b.copy()))
+            return model.train(b)
+        return loop, loop.run(step_fn, 12, on_step=on_step)
+
+    def on_step(i, _loss):
+        if i == stop_after:
+            log.stop()
+
+    with tm.cpu():
+        _, out_a = run(model_cls(), on_step=on_step)
+        model = model_cls()
+        loop, out_b = run(model, injector=el.FailureInjector([fail_at]))
+    manifest = loop.manager.pipeline_state(loop.manager.latest()[1])
+    return out_a, out_b, seen, model, manifest
+
+
+def test_pipeline_fed_loop_stops_restores_and_replays_the_batches(
+        monkeypatch, tmp_path, shards):
+    """A small model (`Linear` through `TrainStep`) trained by the loop
+    from record shards through the pipeline and the prefetcher: stopped
+    after step 5, resumed by a fresh job, failed at step 8 and restored
+    from step 6 — every step trains on the stream's own batch and the
+    final weights are bit-equal to an uninterrupted run's."""
+    import mxnet_tpu_torch.data as tdata
+    import mxnet_tpu_torch.parallel.prefetch as tpf
+    pattern, samples = shards
+    oracle = _oracle(samples)
+    out_a, out_b, seen, model, manifest = _data_loop(
+        monkeypatch, str(tmp_path / "ck"), telastic, tdata, tpf, pattern,
+        LinearModel)
+    assert out_a["status"] == "preempted" and out_a["step"] == 5
+    assert out_b["status"] == "completed" and out_b["restores"] == 1
+    assert [i for i, _ in seen] == [0, 1, 2, 3, 4, 5, 6, 7, 6, 7, 8, 9,
+                                    10, 11]
+    for i, b in seen:
+        np.testing.assert_array_equal(b, oracle[i], err_msg=f"step {i}")
+    ref = LinearModel()
+    for b in oracle:
+        ref.train(b)
+    np.testing.assert_array_equal(model.state, ref.state)
+    assert manifest["batch"] == 12
+
+
+def test_pipeline_fed_loop_matches_jax(monkeypatch, tmp_path, shards):
+    """The same scenario in both packages (a NumPy model): the same
+    statuses, the same batches at every step, the same final state and
+    the same ``data_pipeline`` manifest state."""
+    import mxnet_tpu.data as jdata
+    import mxnet_tpu.parallel.prefetch as jpf
+    import mxnet_tpu_torch.data as tdata
+    import mxnet_tpu_torch.parallel.prefetch as tpf
+    pattern, _ = shards
+    got = []
+    for el, data, pf, d in ((telastic, tdata, tpf, "t"),
+                            (jelastic, jdata, jpf, "j")):
+        out_a, out_b, seen, model, manifest = _data_loop(
+            monkeypatch, str(tmp_path / d), el, data, pf, pattern,
+            NumpyModel)
+        got.append(((out_a["status"], out_a["step"]),
+                    (out_b["status"], out_b["step"], out_b["restores"]),
+                    seen, model.state, manifest))
+    t, j = got
+    assert t[0] == j[0] and t[1] == j[1] and t[4] == j[4]
+    assert [i for i, _ in t[2]] == [i for i, _ in j[2]]
+    for (_, a), (_, b) in zip(t[2], j[2]):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(t[3], j[3])
+
+
+def test_a_pipeline_with_a_prefetcher_needs_data_reset(tmp_path, shards):
+    import mxnet_tpu_torch.data as tdata
+    import mxnet_tpu_torch.parallel.prefetch as tpf
+    pattern, _ = shards
+    with tm.cpu():
+        pipe = tdata.DataPipeline(tdata.ShardedRecordDataset(
+            pattern, decode=_decode), batch_size=4, seed=3)
+        pf = tpf.DevicePrefetcher(pipe)
+    with pytest.raises(MXNetError, match="data_reset"):
+        telastic.ElasticLoop(Counter(), str(tmp_path / "x"), pipeline=pipe,
+                             prefetcher=pf)
+    pf.close()
+    # a pipeline alone is enough: the poison fast-forward skips a batch
+    pipe = tdata.DataPipeline(tdata.ShardedRecordDataset(
+        pattern, decode=_decode), batch_size=4, seed=3)
+    loop = telastic.ElasticLoop(Counter(), str(tmp_path / "y"),
+                                pipeline=pipe)
+    loop.data_skip(1)
+    assert pipe.state()["batch"] == 1
 
 
 def test_watchdog_fires_on_silence_and_not_on_activity():

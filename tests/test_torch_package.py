@@ -45,7 +45,21 @@ def test_import_leaves_no_jax_and_no_jax_package():
             "mxnet_tpu_torch.numpy, mxnet_tpu_torch.numpy.random, "
             "mxnet_tpu_torch.numpy_extension, mxnet_tpu_torch.engine, "
             "mxnet_tpu_torch.runtime, mxnet_tpu_torch.dlpack, "
-            "mxnet_tpu_torch.utils.config\n"
+            "mxnet_tpu_torch.utils.config, mxnet_tpu_torch.recordio, "
+            "mxnet_tpu_torch._native, mxnet_tpu_torch.data, "
+            "mxnet_tpu_torch.data.order, mxnet_tpu_torch.data.packing, "
+            "mxnet_tpu_torch.data.mixture, mxnet_tpu_torch.data.sharded, "
+            "mxnet_tpu_torch.data.pipeline, mxnet_tpu_torch.gluon.data, "
+            "mxnet_tpu_torch.gluon.data.dataset, "
+            "mxnet_tpu_torch.gluon.data.sampler, "
+            "mxnet_tpu_torch.gluon.data.batchify, "
+            "mxnet_tpu_torch.gluon.data.dataloader, "
+            "mxnet_tpu_torch.gluon.data._mp_loader, "
+            "mxnet_tpu_torch.gluon.data.vision, "
+            "mxnet_tpu_torch.gluon.data.vision.datasets, "
+            "mxnet_tpu_torch.gluon.data.vision.transforms, "
+            "mxnet_tpu_torch.parallel.prefetch\n"
+            "assert mxnet_tpu_torch._native.available()\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu')]\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
