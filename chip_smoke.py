@@ -20,7 +20,9 @@ models as Gluon blocks, all through the examples' ``mx.np`` code, the
 tensor front end's kernel-routed ``npx`` ops,
 ``examples/bert_pretraining.py``'s loop under the operations plane fed by
 the data plane (record shards, the pipeline, the device prefetcher), and
-``examples/gluon/mnist.py`` and ``house_prices.py`` as written:
+``examples/gluon/mnist.py`` and ``house_prices.py`` as written, and
+ResNet-50 v1 at full width with the convolution examples and the 1.x
+iterators:
 
 1. prints the card (name and power limit from ``nvidia-smi``) and the
    torch / CUDA versions;
@@ -322,7 +324,8 @@ the data plane (record shards, the pipeline, the device prefetcher), and
 19. (optim) the train phase's BERT-base step (full width, 4 of its 12
    layers, `OPTIM_LAYERS`; the default route) under the chunk kernel's six
    new rules (`OPTIM_RULES`: NAG, Signum with and without momentum,
-   AdaBelief, Adamax, AdaDelta, FTML), 20 steps each through ``TrainStep``
+   AdaBelief, Adamax, AdaDelta, FTML), `OPTIM_STEPS` (10) steps each
+   through ``TrainStep``
    in bf16 and f32, and NAG and AdaDelta through the gluon ``Trainer``
    (bf16 model, bf16 state) under a ``CosineScheduler`` with linear warmup,
    the rate each step used recorded beside the scheduler's. Each run is
@@ -479,6 +482,30 @@ the data plane (record shards, the pipeline, the device prefetcher), and
    holding a CUDA context while the pool lives (``nvidia-smi
    --query-compute-apps``).  k3 times `K3_TIME_ITERS` calls a median (30
    before this phase came in) to pay for it.
+26. (vision) convolution through the Gluon calls of
+   ``examples/gluon/image_classification.py``: (a) ResNet-50 v1 (the
+   Gluon zoo's ``resnet50_v1(classes=1000)``, full width and depth,
+   Xavier from seed 0, f32, cuDNN deterministic) trained `VISION_STEPS`
+   steps at 32 x 3 x 224 x 224 through ``autograd.record``,
+   ``SoftmaxCrossEntropyLoss`` and ``Trainer(net.collect_params(),
+   "nag")`` (lr 0.05, momentum 0.9, wd 1e-4): the cross-entropy forward
+   and backward and the chunk once a step; against the plain twin
+   (``MXTPU_PALLAS=reference``, the reference cross-entropy) the weights
+   and BatchNorm statistics after step 1 within 1e-5 (L2, relative), the
+   first two losses within 1e-4, the ten within 1e-4 or 10 one-ulp floors
+   measured in the same call (the run is chaotic: its loss climbs from
+   ln(1000)); then scored in predict mode on BatchNorm's running
+   statistics, 4 images' logits within 1e-4 of the same state's on the
+   CPU; untraced images/s of a step and of scoring; (b)
+   ``resnet18_v1(classes=10)`` with the same weights on the card and the
+   CPU, logits within 1e-4 (TF32 off); (c)
+   ``examples/gluon/image_classification.py`` (3 epochs:
+   `VISION_IC_EPOCHS`), ``super_resolution.py`` and
+   ``cnn_text_classification.py`` as written, each loss falling, their
+   kernels once a step; (d) ``mx.io.NDArrayIter`` and ``MNISTIter`` over
+   ``tests/fixtures/mnist`` feeding a LeNet on the card, their batches
+   equal to the same iterators' on the CPU.  The optim phase runs
+   `OPTIM_STEPS` (10) steps a run, not 20, to pay for it.
 
 Every count is reset just before a run it reports and read just after.
 The last three stdout lines are the ``nvidia-smi`` card line, the
@@ -2815,6 +2842,10 @@ OPTIM_PER_LEAF = (("nadam", "Nadam", {}, 1e-4, "trainer"),
                   ("ftrl", "Ftrl", {}, 1e-2, "step"),
                   ("lans", "LANS", {}, 1e-3, "step"))
 OPTIM_PER_LEAF_STEPS = 3
+# the phase's steps a run (the train phase's `TRAIN_STEPS` until the vision
+# phase came in): every case and gate stays; the controls' faults are
+# caught at step 1
+OPTIM_STEPS = 10
 # LAMB over an f16 BERT-base (f16 weights, f32 LayerNorm parameters, f32
 # state: `TrainStep`'s `_master_dtype`): phases A and B over (f16, f32)
 OPTIM_F16 = ("lamb", "LAMB", {}, 1e-3)
@@ -2908,16 +2939,16 @@ def plain_trainer_update():
 
 def optim_sched(lr):
     """The Trainer runs' schedule: cosine from `lr` to lr / 10 over
-    `TRAIN_STEPS` updates, after `OPTIM_WARMUP` of linear warmup from
+    `OPTIM_STEPS` updates, after `OPTIM_WARMUP` of linear warmup from
     lr / 10."""
     from mxnet_tpu_torch.optimizer import CosineScheduler
-    return CosineScheduler(max_update=TRAIN_STEPS, base_lr=lr,
+    return CosineScheduler(max_update=OPTIM_STEPS, base_lr=lr,
                            final_lr=lr / 10, warmup_steps=OPTIM_WARMUP,
                            warmup_begin_lr=lr / 10)
 
 
 def optim_run(dev, dtype, rule, batch, entry="step", plain=False,
-              steps=TRAIN_STEPS, lib=None, sched=False):
+              steps=OPTIM_STEPS, lib=None, sched=False):
     """`steps` steps of the BERT-base pretraining step (`bert_bench` at
     `OPTIM_LAYERS` layers, the mean MLM cross-entropy) with `rule` (a
     ``(class, kwargs, lr)``) through `TrainStep` or the gluon `Trainer` on
@@ -3013,7 +3044,7 @@ def _optim_compare(st, pst, before, after, pafter, tol):
     return ok and dev_rel <= tol
 
 
-def optim_want(n_groups, layers, steps=TRAIN_STEPS, chunk=True,
+def optim_want(n_groups, layers, steps=OPTIM_STEPS, chunk=True,
                opt="Adam"):
     """Exact launches of `steps` kernel-route BERT steps: the train
     phase's counts, the chunk (LAMB: phases A and B) once per dtype group
@@ -3128,7 +3159,7 @@ def run_optim(dev, results, card, fault_builds):
     st, _, before, after = optim_run(dev, "float16", (cls, kw, lr), batch)
     pst, _, _, pafter = optim_run(dev, "float16", (cls, kw, lr), batch,
                                   plain=True)
-    want_d = {f"lamb_phase_{p}:{d}": TRAIN_STEPS for p in "ab"
+    want_d = {f"lamb_phase_{p}:{d}": OPTIM_STEPS for p in "ab"
               for d in ("float16", "float32")}
     if st["dtype_launches"] != want_d or st["state_dtypes"] != ["float32"]:
         problems.append(f"optim {name}: launches by dtype "
@@ -6944,7 +6975,10 @@ def port_as_mxnet_tpu():
     JAX package is loaded."""
     import mxnet_tpu_torch as mx
     alias = {"mxnet_tpu": mx, "mxnet_tpu.autograd": mx.autograd,
-             "mxnet_tpu.gluon": mx.gluon, "mxnet_tpu.gluon.nn": mx.gluon.nn}
+             "mxnet_tpu.gluon": mx.gluon, "mxnet_tpu.gluon.nn": mx.gluon.nn,
+             "mxnet_tpu.gluon.model_zoo": mx.gluon.model_zoo,
+             "mxnet_tpu.gluon.model_zoo.vision": mx.gluon.model_zoo.vision,
+             "mxnet_tpu.io": mx.io}
     saved = {k: sys.modules.get(k) for k in alias}
     sys.modules.update(alias)
     try:
@@ -6957,10 +6991,10 @@ def port_as_mxnet_tpu():
                 sys.modules[k] = v
 
 
-def run_example(rel, argv):
+def run_example(rel, argv, tag="data"):
     """``python examples/<rel> <argv>`` as written, in this process with
     the port under its imports; returns (its stdout, the launches it made,
-    its seconds)."""
+    its seconds); its lines are printed under ``[tag rel]``."""
     import io
     import runpy
     import torch
@@ -6980,7 +7014,7 @@ def run_example(rel, argv):
     sec = time.perf_counter() - t0
     launches = kernels.launch_counts()
     for line in buf.getvalue().splitlines():
-        print(f"[data {rel}] {line}", flush=True)
+        print(f"[{tag} {rel}] {line}", flush=True)
     return buf.getvalue(), launches, sec
 
 
@@ -7153,6 +7187,441 @@ def run_data(dev, results, card):
         raise AssertionError(f"data: {problems}")
 
 
+# ---------------------------------------------------------------------------
+# phase vision: ResNet-50 v1 trained through the Gluon Trainer against its
+# plain twin, resnet18 on the card against the CPU, the convolution
+# examples as written, and the 1.x iterators feeding the card
+# ---------------------------------------------------------------------------
+
+VISION_B, VISION_HW, VISION_CLASSES = 32, 224, 1000   # BASELINE.md:17-46
+VISION_STEPS = 10
+VISION_LR = dict(learning_rate=0.05, momentum=0.9, wd=1e-4)
+VISION_FLOOR_X = 10     # the limit, in one-ulp floors, if the run is chaotic
+VISION_SCORE_ITERS = 10
+VISION_CPU_IMAGES = 4   # scored on the CPU too, from the trained state
+VISION_BUDGET_S = 90.0
+# examples/gluon/image_classification.py's epochs: its loss first rises
+# (lr 0.05 on random labels; the JAX package's run does the same) and
+# falls from the second epoch, so it runs 3 epochs, not its default 1
+VISION_IC_EPOCHS = 3
+
+
+def vision_batches(dev, n, seed=0):
+    """`n` seeded (images, labels) batches of `VISION_B` x 3 x 224 x 224
+    in [0, 1) and labels in [0, 1000), as ``mx.np`` arrays on `dev`."""
+    import torch
+    import mxnet_tpu_torch as mx
+    g = torch.Generator().manual_seed(seed)
+    return [(mx.np.array(torch.rand(VISION_B, 3, VISION_HW, VISION_HW,
+                                    generator=g), device=dev),
+             mx.np.array(torch.randint(0, VISION_CLASSES, (VISION_B,),
+                                       generator=g).float(), device=dev))
+            for _ in range(n)]
+
+
+def resnet50(dev, weights=None):
+    """`vision.resnet50_v1(classes=1000)` on `dev`, Xavier from seed 0
+    (shapes from one call on a 1 x 3 x 224 x 224 input), or `weights`
+    (name -> tensor) copied in."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    mx.random.seed(0)
+    net = vision.resnet50_v1(classes=VISION_CLASSES)
+    net.initialize(mx.init.Xavier(), device=dev)
+    with torch.no_grad():
+        net(torch.zeros(1, 3, VISION_HW, VISION_HW, device=dev))
+    if weights is not None:
+        with torch.no_grad():
+            for k, p in net.collect_params().items():
+                p.data().copy_(weights[k])
+    return net
+
+
+def vision_train(net, batches, plain=False):
+    """`VISION_STEPS` steps of ``examples/gluon/image_classification.py``'s
+    loop (``autograd.record`` -> `SoftmaxCrossEntropyLoss` ->
+    ``loss.backward()`` -> ``Trainer(net.collect_params(), "nag")``),
+    each step's launches and mean loss, and (second) the weights and
+    BatchNorm statistics after step 1; ``plain=True`` on the plain
+    versions (the reference cross-entropy, ``MXTPU_PALLAS=reference``)."""
+    import functools
+    import torch
+    from mxnet_tpu_torch import autograd, gluon, kernels
+    from mxnet_tpu_torch.ndarray.ndarray import apply
+    from mxnet_tpu_torch.ops.softmax_xent import \
+        softmax_cross_entropy_reference
+    loss_fn = functools.partial(apply, softmax_cross_entropy_reference) \
+        if plain else gluon.loss.SoftmaxCrossEntropyLoss()
+    with pallas_mode("reference" if plain else "auto"):
+        trainer = gluon.Trainer(net.collect_params(), "nag",
+                                dict(VISION_LR))
+        losses, per_step = [], []
+        for i, (x, y) in enumerate(batches[:VISION_STEPS]):
+            if i == 2:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            kernels.reset_launch_counts()
+            with autograd.record():
+                loss = loss_fn(net(x), y)
+            loss.backward()
+            trainer.step(VISION_B)
+            per_step.append(kernels.launch_counts())
+            losses.append(float(loss.mean().asnumpy()))
+            if i == 0:
+                step1 = {k: p.data().detach().clone()
+                         for k, p in net.collect_params().items()}
+        torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / (VISION_STEPS - 2) * 1e3
+    return dict(losses=losses, step_ms=step_ms,
+                images_per_s=VISION_B / step_ms * 1e3,
+                launches_per_step=per_step,
+                launches={k: sum(s[k] for s in per_step)
+                          for k in per_step[0]}), step1
+
+
+def vision_step1_err(got, want):
+    """Two runs' weights and BatchNorm statistics after step 1 (the same
+    weights and batch on both sides, the kernels and their plain versions
+    apart): the L2 norm of the difference over every tensor relative to
+    the L2 norm of `want`'s, and the tensor with the largest difference
+    relative to its own scale, with that.  The ResNet's convolutions that
+    feed a BatchNorm carry a bias whose gradient is zero in exact
+    arithmetic, so after step 1 those biases hold round-off, which the
+    kernels and the plain versions round differently: a tensor's own
+    scale is no yardstick for them, the whole model's is."""
+    diff = sum(float(((got[k] - w).double() ** 2).sum())
+               for k, w in want.items())
+    norm = sum(float((w.double() ** 2).sum()) for w in want.values())
+    worst = max(want, key=lambda k: float((got[k] - want[k]).abs().max()) /
+                max(float(want[k].abs().max()), 1e-30))
+    rel = float((got[worst] - want[worst]).abs().max()) / max(
+        float(want[worst].abs().max()), 1e-30)
+    return math.sqrt(diff / norm), worst, rel
+
+
+def vision_score(net, batches):
+    """Predict-mode logits of every batch (BatchNorm on its running
+    statistics) and the untraced images/s of a scoring pass."""
+    import torch
+    outs = [net(x)._data for x, _ in batches]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(VISION_SCORE_ITERS):
+        net(batches[i % len(batches)][0])
+    torch.cuda.synchronize()
+    sec = (time.perf_counter() - t0) / VISION_SCORE_ITERS
+    return outs, VISION_B / sec
+
+
+def lenet():
+    from mxnet_tpu_torch.gluon import nn
+    net = nn.HybridSequential()
+    net.add(nn.Conv2D(6, 5, padding=2, activation="relu"), nn.MaxPool2D(2),
+            nn.Conv2D(16, 5, activation="relu"), nn.MaxPool2D(2),
+            nn.Dense(120, activation="relu"), nn.Dense(84, activation="relu"),
+            nn.Dense(10))
+    return net
+
+
+def iterator_batches(make, dev):
+    """Every batch of the iterator `make()` builds under `dev`'s scope, as
+    (data, label) tensors."""
+    import mxnet_tpu_torch as mx
+    with mx.Device(dev):
+        return [(b.data[0]._data, b.label[0]._data) for b in make()]
+
+
+def run_vision(dev, results, card):
+    """Phase vision: (a) ResNet-50 v1 (He et al. 2016, Table 1; the Gluon
+    zoo's `resnet50_v1(classes=1000)`, full width and depth, Xavier from
+    seed 0, f32, cuDNN deterministic) trained `VISION_STEPS` steps at 32 x
+    3 x 224 x 224 as ``examples/gluon/image_classification.py`` trains
+    (NAG lr 0.05, momentum 0.9, wd 1e-4), rows 5 and 6 and the chunk
+    kernel (row 7, NAG) once a step; against its plain twin (the
+    reference cross-entropy and update) the weights after step 1 within
+    `OPT_RTOL` (`vision_step1_err`), the first two losses within 1e-4 and
+    all ten within 1e-4 or `VISION_FLOOR_X` one-ulp floors (the run with
+    one weight element one f32 ulp away) where that is larger; then
+    scored in predict mode (BatchNorm on its running statistics: finite,
+    not the train-mode logits, the first images' logits within 1e-4 of
+    the same weights and statistics on the CPU), the untraced images/s of
+    a training step and of scoring printed; (b) resnet18_v1(classes=10) at 2
+    x 3 x 32 x 32 with the same weights on the card and the CPU: logits
+    within 1e-4 (TF32 off); (c) ``examples/gluon/image_classification.py``
+    (3 epochs, its default model and synthetic set), ``super_resolution.py``
+    and ``cnn_text_classification.py`` as written, each loss falling, the
+    launches recorded and once a step; (d) `io.NDArrayIter` and
+    `io.MNISTIter` over ``tests/fixtures/mnist`` feeding a LeNet (Conv2D,
+    MaxPool2D, Dense) through the `Trainer` one epoch each, their batches
+    on the card equal to the same iterators' batches on the CPU."""
+    import re
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, kernels
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    out = results["vision"]
+    problems = []
+    runs = out["runs"] = {}
+    t0 = time.perf_counter()
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+
+    def check(ok, what):
+        if not ok:
+            problems.append(what)
+            print(f"[vision] FAILED: {what}", flush=True)
+
+    def want_once_a_step(launches, steps, names, what):
+        got = {k: launches.get(k) for k in names}
+        check(all(v == steps for v in got.values()),
+              f"{what}: launches {got}, want {steps} each")
+
+    try:
+        # -- (a) ResNet-50 v1 at full width against its plain twin ---------
+        t_a = time.perf_counter()
+        batches = vision_batches(dev, VISION_STEPS)
+        net = resnet50(dev)
+        w0 = {k: p.data().detach().clone()
+              for k, p in net.collect_params().items()}
+        st, step1 = vision_train(net, batches)
+        twin = resnet50(dev, w0)
+        pst, pstep1 = vision_train(twin, batches, plain=True)
+        step1_err, worst, worst_rel = vision_step1_err(step1, pstep1)
+        del step1, pstep1
+        nudged = resnet50(dev, w0)
+        with torch.no_grad():
+            w = nudged.features[0].weight.data()
+            w.view(-1)[0] = torch.nextafter(w.view(-1)[0],
+                                            w.new_tensor(math.inf))
+        fst, _ = vision_train(nudged, batches)
+        del nudged
+        floor = traj_dev(fst["losses"], st["losses"])
+        tol = max(traj_tol("float32", "auto"), VISION_FLOOR_X * floor)
+        dev_rel = traj_dev(st["losses"], pst["losses"])
+        dev2 = traj_dev(st["losses"][:2], pst["losses"][:2])
+        per_step = [{k: s[k] for k in ("softmax_xent_fwd",
+                                       "softmax_xent_bwd",
+                                       "fused_optimizer_chunk")}
+                    for s in st["launches_per_step"]]
+        plain_opt = sum(s[k] for s in pst["launches_per_step"]
+                        for k in s)
+        del twin
+        scores, score_ips = vision_score(net, batches)
+        # the trained net's weights and running statistics on the CPU:
+        # its predict-mode logits of the first images (TF32 off)
+        host = resnet50(torch.device("cpu"), {
+            k: p.data().detach().cpu()
+            for k, p in net.collect_params().items()})
+        x4 = batches[0][0]._data[:VISION_CPU_IMAGES]
+        cpu_logits = host(x4.cpu()).detach()
+        rel = float((scores[0][:VISION_CPU_IMAGES].cpu() -
+                     cpu_logits).abs().max()) / max(
+            1.0, float(cpu_logits.abs().max()))
+        del host
+        rv_moved = float((net.features[1].running_var.data() - 1).abs()
+                         .max())
+        with autograd.train_mode():     # batch statistics (and a move)
+            train_logits = net(batches[0][0])._data
+        a = dict(model="resnet50_v1", classes=VISION_CLASSES,
+                 batch=[VISION_B, 3, VISION_HW, VISION_HW],
+                 steps=VISION_STEPS, optimizer=dict(VISION_LR, rule="nag"),
+                 tensors=len(w0), parameters=sum(int(t.numel())
+                                                 for t in w0.values()),
+                 losses=st["losses"], plain_losses=pst["losses"],
+                 one_ulp_losses=fst["losses"], one_ulp_floor=floor,
+                 trajectory_rel_dev=dev_rel, trajectory_tol=tol,
+                 first_two_rel_dev=dev2, step1_rel_l2=step1_err,
+                 step1_worst_tensor=worst, step1_worst_rel=worst_rel,
+                 step_ms=st["step_ms"], train_images_per_s=st["images_per_s"],
+                 plain_step_ms=pst["step_ms"],
+                 score_images_per_s=score_ips,
+                 predict_vs_cpu_rel=rel, launches=st["launches"],
+                 launches_per_step=per_step[0], plain_launches=plain_opt,
+                 running_var_moved=rv_moved,
+                 predict_differs_from_train=not torch.allclose(
+                     scores[0], train_logits),
+                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                 seconds=time.perf_counter() - t_a)
+        runs["resnet50_v1"] = dict(launches=st["launches"])
+        out["resnet50"] = a
+        print(f"[vision resnet50_v1] {json.dumps(a)}", flush=True)
+        print(f"[vision resnet50_v1] training {st['images_per_s']:.1f} "
+              f"images/s ({st['step_ms']:.2f} ms a step), scoring "
+              f"{score_ips:.1f} images/s, untraced ({card})", flush=True)
+        check(all(s == {"softmax_xent_fwd": 1, "softmax_xent_bwd": 1,
+                        "fused_optimizer_chunk": 1} for s in per_step),
+              f"resnet50: launches a step {per_step}, want rows 5, 6 and "
+              "the chunk once each")
+        check(plain_opt == 0, f"resnet50: the plain twin launched "
+                              f"{plain_opt} kernels")
+        check(step1_err <= OPT_RTOL and dev2 <= traj_tol("float32", "auto"),
+              f"resnet50 step 1: weights {step1_err:.3g} (L2, relative) "
+              f"from the twin's (limit {OPT_RTOL}), first two losses "
+              f"{dev2:.3g} apart")
+        check(all(math.isfinite(x) for x in st["losses"]) and
+              dev_rel <= tol, f"resnet50: losses {st['losses']} depart "
+                              f"{dev_rel:.3g} from the twin's "
+                              f"{pst['losses']} (limit {tol:.3g})")
+        check(all(bool(torch.isfinite(s).all()) and
+                  tuple(s.shape) == (VISION_B, VISION_CLASSES)
+                  for s in scores) and rel <= 1e-4,
+              f"resnet50 scoring: finite {VISION_B} x {VISION_CLASSES} "
+              f"logits, the CPU's within 1e-4 of their scale (got "
+              f"{rel:.3g})")
+        check(a["predict_differs_from_train"] and a["running_var_moved"] > 0,
+              "resnet50 scoring: BatchNorm did not read moved running "
+              "statistics")
+        del net, scores, train_logits, batches, w0
+        torch.cuda.empty_cache()
+
+        # -- (b) resnet18_v1 on the card against the CPU -------------------
+        cpu = torch.device("cpu")
+        nets = []
+        for _ in range(2):
+            mx.random.seed(0)
+            n = vision.resnet18_v1(classes=10)
+            n.initialize(mx.init.Xavier(), device=cpu)
+            n(torch.zeros(1, 3, 32, 32))
+            nets.append(n)
+        nets[1].load_dict({k: p.data() for k, p in
+                           nets[0].collect_params().items()})
+        nets[1].reset_device(dev)
+        x = torch.rand(2, 3, 32, 32, generator=torch.Generator()
+                       .manual_seed(1))
+        on_card = nets[1](x.to(dev)).detach().cpu()
+        on_cpu = nets[0](x).detach()
+        err = float((on_card - on_cpu).abs().max())
+        out["resnet18_card_vs_cpu"] = dict(max_abs_err=err, tol=1e-4,
+                                           logits_max=float(
+                                               on_cpu.abs().max()))
+        print(f"[vision resnet18] card vs CPU {err:.3g}", flush=True)
+        check(err <= 1e-4 * max(1.0, float(on_cpu.abs().max())),
+              f"resnet18_v1: card logits {err:.3g} from the CPU's")
+        del nets
+
+        # -- (c) the convolution examples as written -----------------------
+        losses = []
+
+        def hook(module, args, result):
+            if isinstance(module, gluon.loss.Loss):
+                t = result._data if hasattr(result, "_data") else result
+                losses.append(float(t.detach().float().mean()))
+        handle = torch.nn.modules.module.register_module_forward_hook(hook)
+        try:
+            examples = {}
+            for name, rel, argv, steps, want in (
+                    ("image_classification", "gluon/image_classification.py",
+                     ["--epochs", str(VISION_IC_EPOCHS)],
+                     VISION_IC_EPOCHS * 8,
+                     ("fused_optimizer_chunk", "softmax_xent_fwd",
+                      "softmax_xent_bwd")),
+                    ("super_resolution", "gluon/super_resolution.py", [],
+                     5 * 8, ("fused_optimizer_chunk",)),
+                    ("cnn_text_classification", "cnn_text_classification.py",
+                     [], 120, ("fused_optimizer_chunk", "softmax_xent_fwd",
+                               "softmax_xent_bwd"))):
+                losses.clear()
+                text, launches, sec = run_example(rel, argv, tag="vision")
+                ls = list(losses)
+                e = dict(argv=argv, seconds=sec, steps=steps,
+                         launches=launches, losses_seen=len(ls))
+                if name == "image_classification":
+                    per = len(ls) // VISION_IC_EPOCHS
+                    first = sum(ls[:per]) / per
+                    last = sum(ls[-per:]) / per
+                    e.update(accuracy=[float(v) for v in re.findall(
+                        r"accuracy=([0-9.]+)", text)])
+                elif name == "super_resolution":
+                    ep = [float(v) for v in re.findall(
+                        r"avg loss ([0-9.eE+-]+)", text)]
+                    first, last = (ep[0], ep[-1]) if ep else (0.0, math.nan)
+                    e.update(epoch_losses=ep, psnr=[float(v) for v in
+                                                   re.findall(
+                                                       r"psnr ([0-9.]+)",
+                                                       text)])
+                else:
+                    m = re.findall(r"loss ([0-9.]+) -> ([0-9.]+); held-out "
+                                   r"accuracy ([0-9.]+)", text)
+                    first, last, acc = (float(v) for v in m[-1]) if m else \
+                        (0.0, math.nan, 0.0)
+                    e.update(held_out_accuracy=acc,
+                             ok_line="TEXT-CNN EXAMPLE OK" in text)
+                e.update(first_loss=first, last_loss=last)
+                examples[name] = e
+                runs[name] = dict(launches=launches)
+                print(f"[vision {name}] {json.dumps(e)} ({card})",
+                      flush=True)
+                check(math.isfinite(last) and last < first,
+                      f"{rel}: loss did not fall ({first} -> {last})")
+                want_once_a_step(launches, steps, want, rel)
+        finally:
+            handle.remove()
+        out["examples"] = examples
+
+        # -- (d) the 1.x iterators feeding a LeNet on the card ------------
+        root = os.path.join(HERE, "tests", "fixtures", "mnist")
+        images = os.path.join(root, "train-images-idx3-ubyte.gz")
+        labels = os.path.join(root, "train-labels-idx1-ubyte.gz")
+        from mxnet_tpu_torch.io.image_record import _read_idx_ubyte
+        arr = _read_idx_ubyte(images).astype(np.float32)[:, None] / 255.0
+        lab = _read_idx_ubyte(labels).astype(np.float32)
+        makers = {
+            "ndarray_iter": lambda: (np.random.seed(0), mx.io.NDArrayIter(
+                arr, lab, batch_size=10, shuffle=True))[1],
+            "mnist_iter": lambda: mx.io.MNISTIter(images, labels,
+                                                  batch_size=10, seed=0)}
+        iters = {}
+        for name, make in makers.items():
+            card_b = iterator_batches(make, dev)
+            cpu_b = iterator_batches(make, cpu)
+            equal = len(card_b) == len(cpu_b) == 5 and all(
+                torch.equal(a.cpu(), b) for x, y in zip(card_b, cpu_b)
+                for a, b in zip(x, y))
+            on_card = all(t.device == dev for b in card_b for t in b)
+            mx.random.seed(0)
+            net = lenet()
+            net.initialize(mx.init.Xavier(), device=dev)
+            tr = gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": 0.1, "momentum": 0.9})
+            loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+            kernels.reset_launch_counts()
+            ls = []
+            with mx.Device(dev):
+                for b in make():
+                    with autograd.record():
+                        loss = loss_fn(net(b.data[0]), b.label[0])
+                    loss.backward()
+                    tr.step(10)
+                    ls.append(float(loss.mean().asnumpy()))
+            launches = kernels.launch_counts()
+            iters[name] = dict(batches=len(card_b), equal_to_cpu=equal,
+                               on_card=on_card, losses=ls,
+                               launches=launches)
+            runs["lenet_" + name] = dict(launches=launches)
+            print(f"[vision {name}] {json.dumps(iters[name])}", flush=True)
+            check(equal and on_card, f"{name}: card batches differ from "
+                                     "the CPU's or left the card")
+            check(all(math.isfinite(v) for v in ls),
+                  f"{name}: LeNet losses {ls}")
+            want_once_a_step(launches, len(ls), (
+                "fused_optimizer_chunk", "softmax_xent_fwd",
+                "softmax_xent_bwd"), f"{name} LeNet")
+        out["iterators"] = iters
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    out["seconds"] = time.perf_counter() - t0
+    out["budget_s"] = VISION_BUDGET_S
+    print(f"[vision] {out['seconds']:.1f} s (budget "
+          f"{VISION_BUDGET_S:.0f} s; {card})", flush=True)
+    out["problems"] = problems
+    if problems:
+        raise AssertionError(f"vision: {problems}")
+
+
 def kernel_entries(results):
     """One entry per ported kernel for the ``kernels`` line: the
     representative main-path case (K1: f32 decode C=1 MHA, no window; K2:
@@ -7173,7 +7642,9 @@ def kernel_entries(results):
     ``gpt_gqa_launches`` the gpt_gqa phase's, ``nmt_launches`` the nmt
     phase's training runs', ``elastic_launches`` the elastic phase's
     `ElasticLoop` run's, ``data_launches`` the data phase's (the two
-    examples' three runs), ``gluon_gpt_launches`` the gluon_gpt phase's
+    examples' three runs), ``vision_launches`` the vision phase's
+    (ResNet-50's run, the three examples, the two LeNet runs),
+    ``gluon_gpt_launches`` the gluon_gpt phase's
     (the example's two runs, GPT-2 small's `Trainer` run and the engine
     over it), and K1's ``spec_prefix_launches`` the
     spec_prefix phase's engine's.  The flash entries also carry k3's band
@@ -7251,6 +7722,9 @@ def kernel_entries(results):
     data_runs = {k: v for k, v in results.get("data", {}).get(
         "runs", {}).items() if "launches" in v}
     train.update({"data_" + k: v for k, v in data_runs.items()})
+    vision_runs = {k: v for k, v in results.get("vision", {}).get(
+        "runs", {}).items() if "launches" in v}
+    train.update({"vision_" + k: v for k, v in vision_runs.items()})
     k1_launch = e2e.get("float32", {}).get("launches", {}).get(
         "ragged_paged_attention", 0)
     k2_launch = sum(e2e.get(k, {}).get("launches", {}).get(
@@ -7278,6 +7752,8 @@ def kernel_entries(results):
                                           for r in gluon_gpt_runs),
                 "data_launches": sum(r["launches"].get(name, 0)
                                      for r in data_runs.values()),
+                "vision_launches": sum(r["launches"].get(name, 0)
+                                       for r in vision_runs.values()),
                 "max_abs_err": max(c["max_abs_err"] for c in cases),
                 "ms": rep[mk], "kernel_ms": rep[mk],
                 "plain_ms": rep[pre + "plain_ms"],
@@ -7612,7 +8088,8 @@ def main(argv=None) -> int:
                "gpt_d256_one_ulp": {},
                "spec_prefix": {}, "nmt": {}, "optim": {}, "amp": {},
                "amp_controls": {}, "amp_one_ulp": {}, "gluon": {},
-               "gluon_gpt": {}, "np": {}, "elastic": {}, "data": {}}
+               "gluon_gpt": {}, "np": {}, "elastic": {}, "data": {},
+               "vision": {}}
     failed = []
     t0 = time.perf_counter()
     # build from the checkout's sources, never from a leftover library
@@ -7661,7 +8138,8 @@ def main(argv=None) -> int:
                                                          fault_builds)),
                      ("amp", run_amp), ("gluon", run_gluon),
                      ("gluon_gpt", run_gluon_gpt), ("np", run_np),
-                     ("elastic", run_elastic), ("data", run_data)):
+                     ("elastic", run_elastic), ("data", run_data),
+                     ("vision", run_vision)):
         t_phase = time.perf_counter()
         try:
             fn(dev, results, card)

@@ -66,8 +66,14 @@ Ported so far (ROADMAP.md), slice by slice:
     shards), `gluon.data` (datasets, samplers, batchify, the
     `DataLoader` with thread or process workers, `vision`'s MNIST /
     CIFAR and transforms) and `parallel.DevicePrefetcher`, wired into
-    `ElasticLoop` and `CheckpointManager`.  `io` (the 1.x iterators)
-    waits for ROADMAP.md A13 part 2 and `image` for A11.
+    `ElasticLoop` and `CheckpointManager`;
+16. convolution and vision: `npx.convolution`, `deconvolution`,
+    `pooling` and the spatial ops (`ops.spatial`), `gluon.nn`'s
+    convolution and pooling layers, `gluon.model_zoo.vision` (ResNet v1 /
+    v2, AlexNet, VGG, SqueezeNet, MobileNet v1 / v2, DenseNet,
+    Inception-v3) and `io` (MXNet's 1.x iterators, `ImageRecordIter` and
+    `MNISTIter` among them).  `image` (the host image codec) waits for
+    ROADMAP.md A11 part 2.
 """
 from .base import MXNetError  # noqa: F401
 from . import device  # noqa: F401
@@ -88,7 +94,7 @@ from . import elastic, profiler, utils  # noqa: F401
 from . import numpy_extension  # noqa: F401
 from . import numpy_extension as npx  # noqa: F401
 from . import engine, runtime, dlpack, util  # noqa: F401
-from . import recordio, data  # noqa: F401
+from . import recordio, data, io  # noqa: F401
 from .util import (  # noqa: F401
     np_shape, np_array, use_np, use_np_shape, use_np_array,
     use_np_default_dtype, set_np, reset_np, set_np_shape, is_np_shape,
@@ -97,8 +103,7 @@ from .optimizer import lr_scheduler  # noqa: F401
 from .convert import load_jax_optimizer_states, load_jax_params  # noqa: F401
 from .base import UnportedModule as _Unported
 
-io = _Unported("mx.io", "A13 part 2")
-image = _Unported("mx.image", "A11")
+image = _Unported("mx.image", "A11 part 2")
 
 __all__ = ["MXNetError", "device", "resolve_device", "Device", "Context",
            "cpu", "gpu", "tpu", "current_device",

@@ -13,7 +13,10 @@ LayerNorm gains and biases in f32, as Gluon does, so the dtype check
 passes leaf by leaf (numpy's float16 arrays pass through as they are).
 Build the port's model on the device it will run on: the dropout
 generator of a `BertForPretraining` stays on the device it was built
-for.
+for.  The model zoo's nets (a ResNet with BatchNorm's running mean and
+variance among its parameters) load before their first call: a
+parameter whose shape is still deferred takes the source's, where the
+entries it knows agree.
 
 `load_jax_optimizer_states` does the same for a JAX `gluon.Trainer`'s
 optimizer state (``{name: tuple of numpy arrays}``, as its ``_states``
@@ -56,7 +59,7 @@ def load_jax_params(model: torch.nn.Module, params: Dict[str, np.ndarray],
             f"{missing or 'none'}, extra {extra or 'none'}")
     for name, arr in params.items():
         p = own[name]
-        if tuple(arr.shape) != tuple(p.shape):
+        if not _shape_fits(p, arr.shape):
             raise MXNetError(
                 f"load_jax_params: {name} is {tuple(arr.shape)} in the "
                 f"source, {tuple(p.shape)} in the model")
@@ -69,11 +72,24 @@ def load_jax_params(model: torch.nn.Module, params: Dict[str, np.ndarray],
             p = own[name]
             if isinstance(p, Parameter):
                 if p._data is None:
+                    p.shape = tuple(arr.shape)
                     p._install(to_tensor(arr).clone())
                     continue
                 p = p._data
             p.copy_(to_tensor(arr))
     return model.to(dev)
+
+
+def _shape_fits(p, shape) -> bool:
+    """`shape` is `p`'s, or, for a Gluon parameter not made yet, agrees
+    with every entry of its shape that is known (a convolution's deferred
+    ``in_channels`` is 0 until the first call)."""
+    want = tuple(p.shape)
+    if want == tuple(shape):
+        return True
+    return isinstance(p, Parameter) and p._data is None and \
+        len(want) == len(shape) and all(
+            w in (0, -1) or w == n for w, n in zip(want, shape))
 
 
 def _leaves(module, out, prefix):

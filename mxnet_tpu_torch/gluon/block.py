@@ -28,6 +28,7 @@ A16.
 """
 from __future__ import annotations
 
+import functools
 import re
 import warnings
 from collections import OrderedDict
@@ -38,7 +39,7 @@ import torch
 from ..base import MXNetError
 from .. import autograd as _ag
 from .. import random as _rng
-from ..ndarray.ndarray import accepts_ndarray
+from ..ndarray.ndarray import _wrap_out, apply_entry, has_ndarray, unwrap
 from ..util import load_arrays, save_arrays
 from .parameter import Parameter, DeferredInitializationError
 
@@ -133,12 +134,14 @@ class Block(torch.nn.Module):
         return out
 
     def _check_container_with_block(self):
+        children = {id(c) for c in self._modules.values()}
+
         def _find(data):
             if isinstance(data, (list, tuple)):
                 return any(_find(e) for e in data)
             if isinstance(data, dict):
                 return any(_find(v) for v in data.values())
-            return isinstance(data, Block)
+            return isinstance(data, Block) and id(data) not in children
 
         for k, v in self.__dict__.items():
             if isinstance(v, (list, tuple, dict)) and not k.startswith("_") \
@@ -291,18 +294,30 @@ class Block(torch.nn.Module):
             for p in deferred:
                 p._finish_deferred_init()
 
-    @accepts_ndarray
     def __call__(self, *args, **kwargs):
         """Run `forward`.  Given an `ndarray` among the arguments (inside
-        tuples, lists and dicts too), the block unwraps them all and its
-        `forward` sees plain tensors; its tensor results come back as
-        arrays, recorded only inside ``autograd.record()`` (MXNet's rule:
-        outside it the call runs under ``torch.no_grad()``)."""
+        tuples, lists and dicts too), the call is recorded only inside
+        ``autograd.record()`` (MXNet's rule: outside it the call runs under
+        ``torch.no_grad()``) and its results come back as arrays.  The
+        port's own blocks and models unwrap the arrays, so their `forward`
+        sees plain tensors; a `forward` written outside the port (a user's
+        block, an example's) sees the arrays it was given, as in MXNet,
+        and its child blocks take and return arrays."""
+        if has_ndarray(args) or (kwargs and has_ndarray(kwargs)):
+            return apply_entry(functools.partial(
+                self._call, _forward_takes_arrays(type(self))), *args,
+                **kwargs)
+        return self._call(False, *args, **kwargs)
+
+    def _call(self, arrays, *args, **kwargs):
         flag = _ag.is_training()
         if self.training != flag:
             self.train(flag)
         self._maybe_infer_shapes(*args)
-        return super().__call__(*args, **kwargs)
+        if not arrays:
+            return super().__call__(*args, **kwargs)
+        return unwrap(super().__call__(*_wrap_out(args),
+                                       **_wrap_out(kwargs)))
 
     def forward(self, *args, **kwargs):
         raise NotImplementedError
@@ -317,6 +332,20 @@ class Block(torch.nn.Module):
             lines.append(f"  {name}: {p.shape} "
                          f"{str(p.dtype).replace('torch.', '')}")
         print("\n".join(lines))
+
+
+_TAKES_ARRAYS: Dict[type, bool] = {}
+
+
+def _forward_takes_arrays(cls) -> bool:
+    """Whether `cls.forward` was written outside the port (a user's or an
+    example's block, in MXNet's ``mx.np`` idiom): such a forward is given
+    arrays where the caller passed arrays."""
+    got = _TAKES_ARRAYS.get(cls)
+    if got is None:
+        mod = getattr(cls.forward, "__module__", None) or ""
+        got = _TAKES_ARRAYS[cls] = mod.split(".")[0] != "mxnet_tpu_torch"
+    return got
 
 
 def _collect(module, out, prefix):

@@ -10,7 +10,7 @@ seeded synthetic stand-in with the right shapes and cardinality —
 bit-equal to the JAX package's, so the examples run end to end anywhere.
 A sample is ``(mx.np array on the current device, int label)``.  The
 image-file and image-record datasets decode with the image codec, which
-is not ported yet: they raise `MXNetError` naming ROADMAP.md A11.
+is not ported yet: they raise `MXNetError` naming ROADMAP.md A11 part 2.
 """
 from __future__ import annotations
 
@@ -159,10 +159,11 @@ def _needs_codec(name):
         def __init__(self, *args, **kwargs):
             raise MXNetError(
                 f"gluon.data.vision.{name} decodes images with the image "
-                "codec (mx.image), which is not ported yet (ROADMAP.md A11)")
+                "codec (mx.image), which is not ported yet (ROADMAP.md A11 "
+                "part 2)")
     _ImageDataset.__name__ = _ImageDataset.__qualname__ = name
     _ImageDataset.__doc__ = ("Not ported yet: decodes images with mx.image; "
-                             "raises `MXNetError` (ROADMAP.md A11).")
+                             "raises `MXNetError` (ROADMAP.md A11 part 2).")
     return _ImageDataset
 
 

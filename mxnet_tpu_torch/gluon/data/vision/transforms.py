@@ -8,7 +8,7 @@ the result comes back as an array on the input's device.  `ToTensor`
 converts to CHW float32 scaled to [0, 1].  The transforms that resize,
 crop or jitter colours call the image codec and augmenters (`mx.image`),
 which are not ported yet: they raise `MXNetError` naming ROADMAP.md A11
-when constructed.
+part 2 when constructed.
 """
 from __future__ import annotations
 
@@ -106,7 +106,7 @@ class RandomFlipTopBottom(Block):
 
 class CropResize(HybridBlock):
     """Crop the window (x, y, width, height); resizing it afterwards
-    (`size`) needs the image codec (ROADMAP.md A11) and raises."""
+    (`size`) needs the image codec (ROADMAP.md A11 part 2) and raises."""
 
     def __init__(self, x, y, width, height, size=None, interpolation=1):
         super().__init__()
@@ -211,7 +211,8 @@ class RandomRotation(Block):
 def _no_codec(name):
     raise MXNetError(
         f"gluon.data.vision.transforms.{name} calls the image codec and "
-        "augmenters (mx.image), which are not ported yet (ROADMAP.md A11)")
+        "augmenters (mx.image), which are not ported yet (ROADMAP.md A11 "
+        "part 2)")
 
 
 def _needs_codec(name):
@@ -220,7 +221,7 @@ def _needs_codec(name):
             _no_codec(name)
     _ImageTransform.__name__ = _ImageTransform.__qualname__ = name
     _ImageTransform.__doc__ = ("Not ported yet: calls mx.image; raises "
-                               "`MXNetError` (ROADMAP.md A11).")
+                               "`MXNetError` (ROADMAP.md A11 part 2).")
     return _ImageTransform
 
 

@@ -10,7 +10,7 @@ list (`LEGACY_NAMES`) raises `MXNetError` naming ROADMAP.md A16 rather
 than give NumPy's semantics quietly, except `zeros`, `ones`, `empty` and
 `full`, whose 1.x forms are NumPy's with ``ctx`` and a float32 default.
 ``nd.sparse``, ``nd.random``, ``nd.op`` and ``nd.contrib`` wait for A16,
-``nd.image`` for A11.
+``nd.image`` for A11 part 2.
 """
 from .ndarray import NDArray, ndarray, from_torch  # noqa: F401
 from ..base import MXNetError, UnportedModule, unported
@@ -153,4 +153,4 @@ sparse = UnportedModule("mx.nd.sparse", "A16")
 random = UnportedModule("mx.nd.random", "A16")
 op = UnportedModule("mx.nd.op", "A16")
 contrib = UnportedModule("mx.nd.contrib", "A16")
-image = UnportedModule("mx.nd.image", "A11")
+image = UnportedModule("mx.nd.image", "A11 part 2")

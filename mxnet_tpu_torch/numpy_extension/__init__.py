@@ -10,11 +10,12 @@ the flash kernels (the plain versions on a CPU tensor).  The rest are
 torch bodies with the JAX package's semantics.  Autograd is torch's: an op
 is recorded inside ``autograd.record()``.
 
-Not here yet, each raising `MXNetError` by name: convolution, pooling and
-the image / spatial ops (ROADMAP.md A11), ``rnn``, ``custom`` and
-``intgemm_fully_connected`` (A16).  ``foreach``, ``while_loop`` and
-``cond`` run eagerly (the blocks are not captured; a captured step comes
-with A8).
+Convolution, pooling and the spatial ops run torch's convolutions and
+pooling (cuDNN on the card) and `ops.spatial`.  Not here yet, each
+raising `MXNetError` by name: ``npx.image`` (ROADMAP.md A11 part 2),
+``rnn``, ``custom`` and ``intgemm_fully_connected`` (A16).  ``foreach``,
+``while_loop`` and ``cond`` run eagerly (the blocks are not captured; a
+captured step comes with A8).
 """
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ from ..numpy import random  # noqa: F401
 from ..numpy.random import bernoulli, normal_n, uniform_n  # noqa: F401
 from ..ops import attention as _att
 from ..ops import nn as _nn
+from ..ops import spatial as _sp
 from ..ops.nn import remat_call as _remat_call
 from ..ops.nn import resolve_remat_policy  # noqa: F401
 from ..util import (is_np_array, is_np_shape, reset_np,  # noqa: F401
@@ -71,15 +73,10 @@ __all__ = [
 ]
 
 #: the npx names the port raises on, with their ROADMAP.md items
-UNPORTED = {n: "A11" for n in (
-    "convolution", "deconvolution", "pooling", "grid_generator",
-    "bilinear_sampler", "spatial_transformer", "correlation", "im2col",
-    "col2im", "deformable_convolution")}
-UNPORTED.update({n: "A16" for n in ("rnn", "custom",
-                                    "intgemm_fully_connected")})
+UNPORTED = {n: "A16" for n in ("rnn", "custom", "intgemm_fully_connected")}
 for _n, _item in UNPORTED.items():
     globals()[_n] = unported(f"mx.npx.{_n}", _item)
-image = UnportedModule("mx.npx.image", "A11")
+image = UnportedModule("mx.npx.image", "A11 part 2")
 
 
 def tpu(device_id=0):
@@ -324,6 +321,81 @@ def l2_normalization(data, eps=1e-10, mode="instance"):
             axes = tuple(range(2, x.dim()))
         return x / torch.sqrt((x * x).sum(dim=axes, keepdim=True) + eps)
     return apply(fn, data)
+
+
+# ---------------------------------------------------------------------------
+# convolution, pooling and the spatial ops
+# ---------------------------------------------------------------------------
+
+def convolution(data, weight, bias=None, kernel=None, stride=None,
+                dilate=None, pad=None, num_filter=0, num_group=1,
+                no_bias=False, layout=None, **kwargs):
+    """N-D convolution over NC(D)HW, weight (num_filter, in / num_group,
+    *kernel) (`ops.nn.convolution`)."""
+    return apply(lambda x, w, b: _nn.convolution(
+        x, w, b, kernel, stride, dilate, pad, num_filter, num_group,
+        no_bias or b is None, layout), data, weight, bias)
+
+
+def deconvolution(data, weight, bias=None, kernel=None, stride=None,
+                  dilate=None, pad=None, adj=None, num_filter=0,
+                  num_group=1, no_bias=True, layout=None,
+                  target_shape=None, **kwargs):
+    """Transposed convolution, weight (in, num_filter / num_group,
+    *kernel) (`ops.nn.deconvolution`)."""
+    return apply(lambda x, w, b: _nn.deconvolution(
+        x, w, b, kernel, stride, dilate, pad, adj, num_filter, num_group,
+        no_bias or b is None, layout, target_shape), data, weight, bias)
+
+
+def pooling(data, kernel=None, stride=None, pad=None, pool_type="max",
+            global_pool=False, pooling_convention="valid",
+            count_include_pad=True, p_value=2, layout=None, **kwargs):
+    """Max, average, sum or Lp pooling over NC* (`ops.nn.pooling`)."""
+    return apply(lambda x: _nn.pooling(
+        x, kernel, stride, pad, pool_type, global_pool, pooling_convention,
+        count_include_pad, p_value, layout), data)
+
+
+def grid_generator(data, transform_type="affine", target_shape=(0, 0)):
+    return apply(lambda d: _sp.grid_generator(d, transform_type,
+                                              target_shape), data)
+
+
+def bilinear_sampler(data, grid):
+    return apply(_sp.bilinear_sample, data, grid)
+
+
+def spatial_transformer(data, loc, target_shape=None,
+                        transform_type="affine", sampler_type="bilinear"):
+    return apply(lambda d, lc: _sp.spatial_transformer(
+        d, lc, target_shape, transform_type, sampler_type), data, loc)
+
+
+def correlation(data1, data2, kernel_size=1, max_displacement=1, stride1=1,
+                stride2=1, pad_size=0, is_multiply=True):
+    return apply(lambda a, b: _sp.correlation(
+        a, b, kernel_size, max_displacement, stride1, stride2, pad_size,
+        is_multiply), data1, data2)
+
+
+def im2col(data, kernel, stride=(1, 1), dilate=(1, 1), pad=(0, 0)):
+    return apply(lambda d: _sp.im2col(d, kernel, stride, dilate, pad), data)
+
+
+def col2im(data, output_size, kernel, stride=(1, 1), dilate=(1, 1),
+           pad=(0, 0)):
+    return apply(lambda c: _sp.col2im(c, output_size, kernel, stride,
+                                      dilate, pad), data)
+
+
+def deformable_convolution(data, offset, weight, bias=None, kernel=(3, 3),
+                           stride=(1, 1), dilate=(1, 1), pad=(0, 0),
+                           num_filter=None, num_group=1,
+                           num_deformable_group=1):
+    return apply(lambda d, o, w, b: _sp.deformable_convolution(
+        d, o, w, b, kernel, stride, dilate, pad, num_filter, num_group,
+        num_deformable_group), data, offset, weight, bias)
 
 
 # ---------------------------------------------------------------------------

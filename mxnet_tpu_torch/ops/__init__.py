@@ -7,7 +7,8 @@ dequant-matmul, the MoE dispatch and combine); `autotune` picks and keeps
 block sizes.  ``ops.quantized_matmul`` names the module; its
 dispatcher of the same name is ``ops.quantized_matmul.quantized_matmul``
 (likewise ``ops.flash_attention`` and ``ops.softmax_xent``).  ``ops.nn``
-holds the ``numpy_extension`` ops of the training path."""
+holds the ``numpy_extension`` ops of the training path, convolution and
+pooling among them; ``ops.spatial`` the spatial and warping ops."""
 from .paged_attention import (  # noqa: F401
     ragged_paged_attention, paged_attention_reference, gather_pages,
     MASK_VALUE)
@@ -21,7 +22,7 @@ from .attention import (  # noqa: F401
     reference_attention, band_bias)
 from .softmax_xent import softmax_cross_entropy  # noqa: F401
 from . import policy, autotune, fused_norm, fused_optimizer, nn  # noqa: F401
-from . import moe_dispatch  # noqa: F401
+from . import moe_dispatch, spatial  # noqa: F401
 
 __all__ = ["ragged_paged_attention", "paged_attention_reference",
            "gather_pages", "MASK_VALUE", "QuantizedTensor",
@@ -32,4 +33,4 @@ __all__ = ["ragged_paged_attention", "paged_attention_reference",
            "rope_rotate", "multi_head_attention",
            "dot_product_attention", "reference_attention", "band_bias",
            "softmax_cross_entropy", "policy", "autotune", "fused_norm",
-           "fused_optimizer", "moe_dispatch", "nn"]
+           "fused_optimizer", "moe_dispatch", "nn", "spatial"]

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import math
 import os
 
 import torch
@@ -46,7 +47,7 @@ __all__ = ["layer_norm", "layer_norm_residual", "rms_norm",
            "fully_connected", "pick", "softmax_cross_entropy",
            "activation", "leaky_relu", "elu", "selu", "prelu", "silu",
            "log_softmax", "batch_norm", "group_norm", "instance_norm",
-           "ctc_loss",
+           "ctc_loss", "convolution", "deconvolution", "pooling",
            "resolve_remat_policy", "remat_call", "REMAT_POLICIES"]
 
 
@@ -160,6 +161,156 @@ def softmax_cross_entropy(logits, labels, reduction="none"):
     if reduction == "sum":
         return loss.sum().reshape(1)
     return loss
+
+
+# ---------------------------------------------------------------------------
+# convolution and pooling (``npx.convolution`` / ``deconvolution`` /
+# ``pooling``): no TPU kernel computes them; JAX runs
+# ``lax.conv_general_dilated`` and ``lax.reduce_window``, the port torch's
+# convolutions (cuDNN on the card) and pooling over a tensor it pads first
+# ---------------------------------------------------------------------------
+
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+_DECONV = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+def _tuplize(v, n):
+    """`v` (an int, a 1-tuple or an n-tuple) as an n-tuple."""
+    if isinstance(v, int):
+        return (v,) * n
+    t = tuple(int(e) for e in v)
+    return t * n if len(t) == 1 else t
+
+
+def _promoted(*ts):
+    dt = ts[0].dtype
+    for t in ts[1:]:
+        if t is not None:
+            dt = torch.promote_types(dt, t.dtype)
+    return [None if t is None else t.to(dt) for t in ts]
+
+
+def convolution(data, weight, bias=None, kernel=None, stride=None,
+                dilate=None, pad=None, num_filter=0, num_group=1,
+                no_bias=False, layout=None):
+    """N-D convolution over NC(D)HW `data` with a (num_filter, in /
+    num_group, *kernel) `weight` (``npx.convolution``): symmetric `pad`,
+    `stride`, `dilate`, `num_group` groups; `kernel`, `num_filter` and
+    `layout` are read from the weight and the input, as JAX does."""
+    data, weight, bias = _amp.cast_inputs("convolution", data, weight,
+                                          bias)
+    nd = data.dim() - 2
+    b = None if no_bias else bias
+    data, weight, b = _promoted(data, weight, b)
+    return _CONV[nd](data, weight, b, stride=_tuplize(stride or 1, nd),
+                     padding=_tuplize(pad or 0, nd),
+                     dilation=_tuplize(dilate or 1, nd), groups=num_group)
+
+
+def deconvolution(data, weight, bias=None, kernel=None, stride=None,
+                  dilate=None, pad=None, adj=None, num_filter=0,
+                  num_group=1, no_bias=True, layout=None,
+                  target_shape=None):
+    """Transposed convolution (``npx.deconvolution``), weight (in,
+    num_filter / num_group, *kernel) as torch takes it: output size
+    ``(in - 1) * stride - 2 * pad + dilate * (k - 1) + 1 + adj``.  The
+    full transposed convolution is cropped to it (torch's own padding
+    refuses an ``adj`` past the stride and the dilation, and a pad past
+    the kernel's reach); outputs past the full one are zeros, then the
+    bias.  `target_shape` is accepted and ignored, as in JAX."""
+    data, weight, bias = _amp.cast_inputs("deconvolution", data, weight,
+                                          bias)
+    nd = data.dim() - 2
+    stride = _tuplize(stride or 1, nd)
+    dilate = _tuplize(dilate or 1, nd)
+    pad = _tuplize(pad or 0, nd)
+    adj = _tuplize(adj or 0, nd)
+    b = None if no_bias else bias
+    data, weight, b = _promoted(data, weight, b)
+    full = _DECONV[nd](data, weight, None, stride=stride, groups=num_group,
+                       dilation=dilate)
+    grow, sl = [], [slice(None), slice(None)]
+    for i, (a, p, s, d, k) in enumerate(zip(adj, pad, stride, dilate,
+                                            weight.shape[2:])):
+        grow = [0, max(0, a - p)] + grow
+        n = (data.shape[2 + i] - 1) * s - 2 * p + d * (k - 1) + 1 + a
+        sl.append(slice(p, p + n))
+    out = (F.pad(full, grow) if any(grow) else full)[tuple(sl)]
+    return out if b is None else out + b.reshape((-1,) + (1,) * nd)
+
+
+def _window_sum(x, kernel, stride):
+    """The sum of each window of `x` (no padding): an average with a
+    divisor of one, 1-D windows through the 2-D call."""
+    nd = x.dim() - 2
+    if nd == 1:
+        return F.avg_pool2d(x.unsqueeze(2), (1,) + kernel, (1,) + stride,
+                            divisor_override=1).squeeze(2)
+    fn = F.avg_pool2d if nd == 2 else F.avg_pool3d
+    return fn(x, kernel, stride, divisor_override=1)
+
+
+_MAXPOOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+
+
+def pooling(data, kernel=None, stride=None, pad=None, pool_type="max",
+            global_pool=False, pooling_convention="valid",
+            count_include_pad=True, p_value=2, layout=None):
+    """Pooling over NC* `data` (``npx.pooling``): ``max``, ``avg``,
+    ``sum`` and ``lp`` (``|x| ** p`` summed, then the p-th root), each
+    global or windowed.  JAX's padding is applied first and the padded
+    tensor pooled without torch's own: -inf for max (any pad), zeros
+    otherwise; ``pooling_convention="full"`` pads the right further so the
+    last window that starts inside fits (torch's ``ceil_mode`` would drop
+    a window that starts in the padding); ``avg`` divides by the kernel's
+    size with `count_include_pad` (the extra right padding too), else by
+    the count of real elements.  A max window's gradient goes to its first
+    largest element, as ``lax.reduce_window``'s does; a global max shares
+    it among ties, as ``jnp.max``'s does."""
+    (data,) = _amp.cast_inputs(
+        "global_pool" if global_pool else {"max": "max_pool",
+                                           "lp": "lp_pool"}.get(
+            pool_type, "avg_pool"), data)
+    nd = data.dim() - 2
+    if global_pool:
+        axes = tuple(range(2, 2 + nd))
+        if pool_type == "max":
+            return data.amax(dim=axes, keepdim=True)
+        if pool_type == "avg":
+            return data.mean(dim=axes, keepdim=True)
+        return data.abs().pow(p_value).sum(dim=axes, keepdim=True).pow(
+            1.0 / p_value)
+    kernel = _tuplize(kernel, nd)
+    stride = _tuplize(stride or 1, nd)
+    pad = _tuplize(pad or 0, nd)
+    right = list(pad)
+    if pooling_convention == "full":
+        for i in range(nd):
+            size = data.shape[2 + i] + 2 * pad[i]
+            out = math.ceil((size - kernel[i]) / stride[i]) + 1
+            right[i] += max(0, (out - 1) * stride[i] + kernel[i] - size)
+    widths = []
+    for p, r in reversed(list(zip(pad, right))):
+        widths += [p, r]
+    if pool_type == "max":
+        x = F.pad(data, widths, value=-math.inf) if any(widths) else data
+        return _MAXPOOL[nd](x, kernel, stride)
+    if pool_type not in ("avg", "sum", "lp"):
+        raise MXNetError(f"unknown pool_type {pool_type}")
+    x = data.abs().pow(p_value) if pool_type == "lp" else data
+    s = _window_sum(F.pad(x, widths) if any(widths) else x, kernel, stride)
+    if pool_type == "lp":
+        return s.pow(1.0 / p_value)
+    if pool_type == "sum":
+        return s
+    if count_include_pad:
+        return s / float(math.prod(kernel))
+    ones = torch.ones((1, 1) + tuple(data.shape[2:]), dtype=data.dtype,
+                      device=data.device)
+    cnt = _window_sum(F.pad(ones, widths) if any(widths) else ones, kernel,
+                      stride)
+    return s / cnt
 
 
 # ---------------------------------------------------------------------------

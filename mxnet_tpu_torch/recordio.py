@@ -10,8 +10,8 @@ codec + background-thread read-ahead (parity: dmlc recordio and
 `src/io/iter_prefetcher.h`); this module uses it when the library builds
 and falls back to pure Python otherwise (``self._native`` says which).  A
 file written by either package, on either path, is read by the other.
-`pack_img` / `unpack_img` need the image codec, which is not ported yet
-(ROADMAP.md A11): they raise `MXNetError`.
+`pack_img` / `unpack_img` encode and decode through OpenCV, else PIL
+(the codecs of `io.ImageRecordIter`).
 """
 from __future__ import annotations
 
@@ -291,12 +291,44 @@ class MXPrefetchedRecordIO:
 
 
 def pack_img(header: IRHeader, img, quality=95, img_fmt=".jpg"):
-    raise MXNetError("recordio.pack_img needs the image codec (mx.image), "
-                     "which is not ported yet (ROADMAP.md A11); encode the "
-                     "image yourself and use pack()")
+    """Encode `img` (HWC uint8 RGB, as `unpack_img` gives it back, or HW /
+    HW1 grey) as `img_fmt` and pack it under `header`: OpenCV first
+    (`quality` is JPEG's quality, or PNG's compression level clamped to
+0-9), then PIL."""
+    from .io.image_record import _codecs
+    arr = _onp.asarray(img.asnumpy() if hasattr(img, "asnumpy") else img)
+    if arr.ndim == 3 and arr.shape[2] == 1:
+        arr = arr[:, :, 0]
+    arr = _onp.ascontiguousarray(arr.astype(_onp.uint8))
+    fmt = img_fmt.lower()
+    cv2, pil = _codecs()
+    if cv2 is not None:
+        params = {".jpg": [cv2.IMWRITE_JPEG_QUALITY, quality],
+                  ".jpeg": [cv2.IMWRITE_JPEG_QUALITY, quality],
+                  ".png": [cv2.IMWRITE_PNG_COMPRESSION,
+                           min(max(quality, 0), 9)]}
+        bgr = arr[:, :, ::-1] if arr.ndim == 3 else arr
+        ok, buf = cv2.imencode(img_fmt, _onp.ascontiguousarray(bgr),
+                               params.get(fmt, []))
+        if not ok:
+            raise MXNetError(f"failed to encode an image as {img_fmt}")
+        return pack(header, buf.tobytes())
+    if pil is None:
+        raise MXNetError("no image codec available (cv2/PIL)")
+    import io
+    out = io.BytesIO()
+    kind = "JPEG" if fmt in (".jpg", ".jpeg") else fmt.lstrip(".").upper()
+    pil.fromarray(arr).save(out, format=kind, **(
+        {"quality": quality} if kind == "JPEG" else {}))
+    return pack(header, out.getvalue())
 
 
 def unpack_img(s: bytes, iscolor=1):
-    raise MXNetError("recordio.unpack_img needs the image codec "
-                     "(mx.image), which is not ported yet (ROADMAP.md "
-                     "A11); use unpack() and decode the bytes yourself")
+    """The record's header and its image decoded as an HWC uint8 RGB
+    `mx.np` array on the current device, as the JAX package's
+    ``unpack_img`` gives it (which takes `iscolor` and ignores it);
+    OpenCV first, then PIL."""
+    from .io.image_record import _decode_jpeg
+    from .numpy import array
+    header, buf = unpack(s)
+    return header, array(_decode_jpeg(buf).copy(), dtype="uint8")

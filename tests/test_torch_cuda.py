@@ -2818,3 +2818,233 @@ def test_to_tensor_divides_on_the_card_as_on_the_cpu(card):
     with mx.cpu():
         on_cpu = T.ToTensor()(mx.np.array(img)).asnumpy()
     np.testing.assert_array_equal(on_card, on_cpu)
+
+
+# ---------------------------------------------------------------------------
+# convolution, pooling, the spatial ops, the vision zoo and the iterators:
+# each on the card equal to its CPU result (cuDNN against the CPU's
+# convolutions, TF32 off)
+# ---------------------------------------------------------------------------
+
+def _vision_close(got, want, tol=1e-4):
+    scale = max(1.0, float(want.abs().max()))
+    assert got.shape == want.shape
+    assert float((got.cpu() - want).abs().max()) <= tol * scale
+
+
+def _on_both(card, fn, *arrays):
+    """`fn` over `arrays` (numpy) on the card and on the CPU, recorded:
+    (output, gradients of sum(out ** 2)) on each."""
+    outs = []
+    for dev in (card, torch.device("cpu")):
+        ts = [torch.tensor(a, device=dev, requires_grad=a.dtype ==
+                           np.float32) for a in arrays]
+        out = fn(*ts)
+        (out * out).sum().backward()
+        outs.append((out.detach(), [t.grad for t in ts
+                                    if t.requires_grad]))
+    return outs
+
+
+def _u32(*shape, seed=0):
+    return np.random.RandomState(seed).uniform(-1, 1, shape).astype(
+        np.float32)
+
+
+VISION_OPS = {
+    "conv2d_groups": (lambda x, w, b: _nn_ops().convolution(
+        x, w, b, stride=(2, 1), dilate=(1, 2), pad=(1, 2), num_group=2),
+        [(2, 4, 15, 17), (6, 2, 3, 3), (6,)]),
+    "conv1d": (lambda x, w, b: _nn_ops().convolution(x, w, b, stride=2,
+                                                     pad=1, dilate=2),
+               [(2, 4, 31), (6, 4, 3), (6,)]),
+    "conv3d": (lambda x, w, b: _nn_ops().convolution(x, w, b, pad=1),
+               [(1, 2, 6, 7, 5), (3, 2, 2, 3, 2), (3,)]),
+    "deconv2d": (lambda x, w, b: _nn_ops().deconvolution(
+        x, w, b, stride=(2, 3), pad=(1, 0), adj=(1, 2), num_group=2,
+        no_bias=False), [(2, 4, 9, 7), (4, 3, 3, 2), (6,)]),
+    "deconv2d_adj_past_stride": (lambda x, w, b: _nn_ops().deconvolution(
+        x, w, b, stride=(2, 2), dilate=(1, 2), pad=(1, 1), adj=(3, 1),
+        num_group=2, no_bias=False), [(2, 4, 9, 7), (4, 3, 3, 2), (6,)]),
+    "maxpool_full": (lambda x: _nn_ops().pooling(
+        x, kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+        pooling_convention="full"), [(2, 3, 16, 16)]),
+    "avgpool_real_count": (lambda x: _nn_ops().pooling(
+        x, kernel=(3, 2), stride=(2, 2), pad=(1, 1), pool_type="avg",
+        count_include_pad=False), [(2, 3, 16, 16)]),
+    "lp_pool_1d": (lambda x: _nn_ops().pooling(
+        x, kernel=(4,), stride=(3,), pool_type="lp", p_value=3),
+        [(2, 3, 20)]),
+    "sum_pool_3d": (lambda x: _nn_ops().pooling(
+        x, kernel=(2, 3, 2), stride=(2, 2, 3), pad=(1, 1, 0),
+        pool_type="sum"), [(1, 2, 6, 5, 7)]),
+    "global_max": (lambda x: _nn_ops().pooling(x, global_pool=True),
+                   [(2, 3, 7, 9)]),
+    "bilinear_sampler": (lambda x, g: _spatial().bilinear_sample(x, g),
+                         [(2, 3, 9, 11), (2, 2, 6, 7)]),
+    "spatial_transformer": (lambda x, loc: _spatial().spatial_transformer(
+        x, loc * 0.5, (7, 8)), [(2, 3, 9, 11), (2, 6)]),
+    "grid_generator_warp": (lambda f: _spatial().grid_generator(
+        f, "warp"), [(2, 2, 5, 6)]),
+    "correlation": (lambda a, b: _spatial().correlation(
+        a, b, kernel_size=3, max_displacement=2, stride2=2, pad_size=2),
+        [(2, 3, 9, 11), (2, 3, 9, 11)]),
+    "im2col": (lambda x: _spatial().im2col(x, (3, 2), (2, 1), (1, 2),
+                                           (1, 1)), [(2, 3, 9, 11)]),
+    "col2im": (lambda c: _spatial().col2im(c, (9, 11), (3, 2), (2, 1),
+                                           (1, 2), (1, 1)),
+               [(2, 18, 55)]),
+    "deformable_convolution": (lambda x, o, w, b:
+                               _spatial().deformable_convolution(
+                                   x, o * 1.5, w, b, (3, 3), pad=(1, 1),
+                                   num_deformable_group=2),
+                               [(2, 4, 9, 11), (2, 36, 9, 11),
+                                (5, 4, 3, 3), (5,)]),
+}
+
+
+def _nn_ops():
+    from mxnet_tpu_torch.ops import nn
+    return nn
+
+
+def _spatial():
+    from mxnet_tpu_torch.ops import spatial
+    return spatial
+
+
+@pytest.mark.parametrize("name", sorted(VISION_OPS))
+def test_vision_ops_on_the_card_equal_the_cpu(card, monkeypatch, name):
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    fn, shapes = VISION_OPS[name]
+    arrays = [_u32(*s, seed=i) for i, s in enumerate(shapes)]
+    (got, ggrads), (want, wgrads) = _on_both(card, fn, *arrays)
+    assert got.device.type == "cuda"
+    _vision_close(got, want)
+    for g, w in zip(ggrads, wgrads):
+        _vision_close(g, w)
+
+
+VISION_LAYERS = {
+    "conv2d": (lambda nn: nn.Conv2D(8, 3, strides=2, padding=1,
+                                    activation="relu"), (2, 3, 17, 17)),
+    "conv3d_transpose": (lambda nn: nn.Conv3DTranspose(2, 2, strides=2),
+                         (1, 3, 4, 5, 3)),
+    "maxpool2d_nhwc": (lambda nn: nn.MaxPool2D(3, 2, 1, layout="NHWC",
+                                               ceil_mode=True),
+                       (2, 9, 9, 3)),
+    "global_avg1d": (lambda nn: nn.GlobalAvgPool1D(), (2, 3, 11)),
+    "reflection_pad": (lambda nn: nn.ReflectionPad2D(2), (2, 3, 7, 8)),
+    "pixel_shuffle2d": (lambda nn: nn.PixelShuffle2D((2, 3)),
+                        (2, 12, 5, 6)),
+    "deformable": (lambda nn: nn.DeformableConvolution(4),
+                   (2, 3, 9, 9)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(VISION_LAYERS))
+def test_vision_layers_on_the_card_equal_the_cpu(card, monkeypatch, name):
+    import mxnet_tpu_torch as mx
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    make, shape = VISION_LAYERS[name]
+    x = _u32(*shape, seed=3)
+    nets = {}
+    for dev in ("cpu", "card"):
+        torch.manual_seed(0)
+        net = make(mx.gluon.nn)
+        net.initialize(mx.init.Xavier(), device="cpu")
+        net(torch.from_numpy(x))
+        if dev == "card":
+            net.reset_device(mx.gpu(0))
+            net.load_dict({k: p.data() for k, p in
+                           nets["cpu"].collect_params().items()})
+        nets[dev] = net
+    outs = {}
+    for dev, net in nets.items():
+        t = torch.tensor(x, device=card if dev == "card" else "cpu",
+                         requires_grad=True)
+        with mx.autograd.record():
+            out = net(t)
+        (out * out).sum().backward()
+        outs[dev] = (out.detach(), t.grad, {k: p.grad() for k, p in
+                                            net.collect_params().items()})
+    got, want = outs["card"], outs["cpu"]
+    _vision_close(got[0], want[0])
+    _vision_close(got[1], want[1])
+    for k, g in got[2].items():
+        _vision_close(g, want[2][k])
+
+
+def test_resnet18_on_the_card_equals_the_cpu_and_trains(card, monkeypatch):
+    """resnet18_v1's logits on the card equal the CPU's (predict mode, 2 x
+    3 x 32 x 32); one NAG `Trainer` step at 2 x 3 x 128 x 128 (the
+    last stage's BatchNorm then sees 32 values a channel) gives the CPU's
+    loss and weights, launching the cross-entropy forward and backward and
+    the chunk kernel once each."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    nets = {}
+    for dev in ("cpu", "card"):
+        net = vision.resnet18_v1(classes=10)
+        net.initialize(mx.init.Xavier(), device="cpu")
+        net(torch.zeros(1, 3, 32, 32))
+        if dev == "card":
+            net.load_dict({k: p.data() for k, p in
+                           nets["cpu"].collect_params().items()})
+            net.reset_device(mx.gpu(0))
+        nets[dev] = net
+    x = _u32(2, 3, 32, 32, seed=4)
+    _vision_close(nets["card"](torch.tensor(x, device=card)),
+                  nets["cpu"](torch.from_numpy(x)))
+    big = _u32(2, 3, 128, 128, seed=5)
+    y = np.array([3, 7], np.float32)
+    res = {}
+    for dev, net in nets.items():
+        d = card if dev == "card" else torch.device("cpu")
+        tr = mx.gluon.Trainer(net.collect_params(), "nag",
+                              {"learning_rate": 0.05, "momentum": 0.9,
+                               "wd": 1e-4})
+        kernels.reset_launch_counts()
+        with mx.autograd.record():
+            loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()(
+                net(torch.tensor(big, device=d)), torch.tensor(y, device=d))
+        mx.autograd.backward(loss)
+        tr.step(2)
+        res[dev] = (loss.detach(), kernels.launch_counts())
+    assert {k: res["card"][1][k] for k in (
+        "softmax_xent_fwd", "softmax_xent_bwd", "fused_optimizer_chunk")} \
+        == {"softmax_xent_fwd": 1, "softmax_xent_bwd": 1,
+            "fused_optimizer_chunk": 1}
+    _vision_close(res["card"][0], res["cpu"][0])
+    cpu = nets["cpu"].collect_params()
+    for k, p in nets["card"].collect_params().items():
+        _vision_close(p.data().detach(), cpu[k].data().detach(), tol=1e-3)
+
+
+def test_iterators_feed_the_card(card):
+    """`NDArrayIter` and `MNISTIter` batches land on the card equal to the
+    same iterators' batches on the CPU."""
+    import os
+    import mxnet_tpu_torch as mx
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "fixtures", "mnist")
+    data = _u32(10, 3, 4, seed=6)
+
+    def batches():
+        np.random.seed(1)
+        it = mx.io.NDArrayIter(data, np.arange(10, dtype=np.float32), 4,
+                               shuffle=True)
+        mn = mx.io.MNISTIter(os.path.join(root, "train-images-idx3-ubyte.gz"),
+                             os.path.join(root, "train-labels-idx1-ubyte.gz"),
+                             batch_size=8, seed=2)
+        return [b.data + b.label for b in list(it) + list(mn)]
+    on_card = batches()
+    with mx.cpu():
+        on_cpu = batches()
+    assert len(on_card) == len(on_cpu) == 3 + 6
+    for a, b in zip(on_card, on_cpu):
+        for x, y in zip(a, b):
+            assert x.device == mx.gpu(0) and y.device == mx.cpu()
+            assert torch.equal(x._data.cpu(), y._data)

@@ -507,12 +507,19 @@ class _Seen(tm.gluon.HybridBlock):
 
 
 def test_block_unwraps_arrays_and_wraps_results():
+    """The port's own blocks unwrap arrays (their forward sees tensors); a
+    forward written outside the port sees the arrays it was given, as in
+    MXNet; results come back as arrays."""
     with tm.cpu():
         net = _Seen()
         net.initialize()
+        inner = []
+        net.dense.register_forward_pre_hook(
+            lambda block, args: inner.append(type(args[0])))
         x = tm.np.array(_np(22, (2, 4)))
         out, rest = net(x, extra=[x])
-        assert net.seen[-1] == (torch.Tensor, list)
+        assert net.seen[-1] == (tm.np.ndarray, list)
+        assert inner[-1] is torch.Tensor
         assert isinstance(out, tm.np.ndarray)
         assert isinstance(rest["twice"], tm.np.ndarray)
         tout, trest = net(x._data)            # tensors in: tensors out

@@ -9,8 +9,10 @@ own tests run it, and the port's plain versions, at the 1e-5 of
 ``test_torch_flash_attention.py``; every other op at 1e-6 (elementwise)
 or 1e-5.  Values and, for the differentiable ops, the gradients of
 ``sum(out ** 2)`` are compared.  The ops the port raises on are listed
-(ROADMAP.md A11 and A16), and every name of JAX's ``npx.__all__`` is held
-to be either ported with a case here or raising by name.
+(ROADMAP.md A16; ``npx.image`` A11 part 2), and every name of JAX's
+``npx.__all__`` is held to be either ported with a case here (or, for
+convolution, pooling and the spatial ops, in ``test_torch_conv.py`` and
+``test_torch_spatial.py``) or raising by name.
 """
 import functools
 
@@ -353,12 +355,12 @@ def test_session_utilities():
 
 
 #: the npx names the port raises on, with their ROADMAP.md items
-UNPORTED = {"convolution": "A11", "deconvolution": "A11", "pooling": "A11",
-            "grid_generator": "A11", "bilinear_sampler": "A11",
-            "spatial_transformer": "A11", "correlation": "A11",
-            "im2col": "A11", "col2im": "A11",
-            "deformable_convolution": "A11", "rnn": "A16",
-            "custom": "A16", "intgemm_fully_connected": "A16"}
+UNPORTED = {"rnn": "A16", "custom": "A16", "intgemm_fully_connected": "A16"}
+#: held against JAX in tests/test_torch_conv.py and test_torch_spatial.py
+CONV_AND_SPATIAL = {"convolution", "deconvolution", "pooling",
+                    "grid_generator", "bilinear_sampler",
+                    "spatial_transformer", "correlation", "im2col",
+                    "col2im", "deformable_convolution"}
 
 
 def test_every_jax_npx_name_is_ported_with_a_case_or_raises_by_name():
@@ -370,7 +372,7 @@ def test_every_jax_npx_name_is_ported_with_a_case_or_raises_by_name():
         "from_numpy", "from_dlpack", "to_dlpack_for_read",
         "to_dlpack_for_write", "bernoulli", "normal_n", "uniform_n",
         "constraint_check", "remat_call", "resolve_remat_policy",
-        "amp_multicast"}
+        "amp_multicast"} | CONV_AND_SPATIAL
     names = set(jnpx.__all__) - {"image"}
     missing = sorted(names - set(UNPORTED) - tested)
     assert not missing, f"ported without a parity case: {missing}"
@@ -378,7 +380,7 @@ def test_every_jax_npx_name_is_ported_with_a_case_or_raises_by_name():
     for name, item in UNPORTED.items():
         with pytest.raises(MXNetError, match=item):
             getattr(tm.npx, name)(None)
-    with pytest.raises(MXNetError, match="A11"):
+    with pytest.raises(MXNetError, match="A11 part 2"):
         tm.npx.image.resize
 
 

@@ -58,7 +58,14 @@ def test_import_leaves_no_jax_and_no_jax_package():
             "mxnet_tpu_torch.gluon.data.vision, "
             "mxnet_tpu_torch.gluon.data.vision.datasets, "
             "mxnet_tpu_torch.gluon.data.vision.transforms, "
-            "mxnet_tpu_torch.parallel.prefetch\n"
+            "mxnet_tpu_torch.parallel.prefetch, mxnet_tpu_torch.ops.spatial, "
+            "mxnet_tpu_torch.gluon.nn.conv_layers, "
+            "mxnet_tpu_torch.gluon.model_zoo, "
+            "mxnet_tpu_torch.gluon.model_zoo.model_store, "
+            "mxnet_tpu_torch.gluon.model_zoo.vision, "
+            "mxnet_tpu_torch.gluon.model_zoo.vision.resnet, "
+            "mxnet_tpu_torch.gluon.model_zoo.vision.others, "
+            "mxnet_tpu_torch.io, mxnet_tpu_torch.io.image_record\n"
             "assert mxnet_tpu_torch._native.available()\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu')]\n"

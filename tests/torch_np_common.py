@@ -70,3 +70,27 @@ def want(results, key):
     if isinstance(got, Exception):
         raise got
     return got
+
+
+def run_npx(pkg, name, args, kwargs, inputs, grad):
+    """``pkg.npx.<name>(*args, **kwargs)``, each string argument that names
+    an entry of `inputs` (numpy arrays) made an array of `pkg`; with
+    `grad`, recorded, and the gradients of ``sum(out ** 2)`` with respect
+    to every float32 input returned beside the output."""
+    def arg(a):
+        if isinstance(a, str) and a in inputs:
+            return pkg.np.array(inputs[a])
+        return a
+    a = [arg(v) for v in args]
+    kw = {k: arg(v) for k, v in kwargs.items()}
+    if not grad:
+        return getattr(pkg.npx, name)(*a, **kw), []
+    leaves = [v for v in a + list(kw.values())
+              if hasattr(v, "attach_grad") and str(v.dtype) == "float32"]
+    for v in leaves:
+        v.attach_grad()
+    with pkg.autograd.record():
+        out = getattr(pkg.npx, name)(*a, **kw)
+        head = (out * out).sum()
+    head.backward()
+    return out, [v.grad for v in leaves]

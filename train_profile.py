@@ -4,7 +4,8 @@ training step, or with ``--gpt`` a GPT-2-small causal-LM step, or with
 ``--gpt-gqa`` the gpt_gqa phase's step, or with ``--gpt-d256`` the
 gpt_d256 phase's — of the PyTorch port spends its time, on the card.
 
-    python3 train_profile.py [--moe | --gpt | --gpt-gqa | --gpt-d256]
+    python3 train_profile.py [--moe | --gpt | --gpt-gqa | --gpt-d256 |
+                              --resnet50]
                              [--out chiprun_out/train_profile.json]
 
 Builds full-width BERT-base (seeded random weights) and wraps it in
@@ -28,8 +29,13 @@ its own.  With ``--gpt`` the runs are ``chip_smoke.py``'s gpt phase —
 AdamW lr 3e-4, the default kernel route — through ``TrainStep`` in bf16
 and f32 without remat; ``--gpt-gqa`` the same with ``chip_smoke.py``'s
 ``GQA_ARCH`` (RoPE, 3 kv heads, window 256), ``--gpt-d256`` with its
-``D256_ARCH`` (RoPE, 3 heads of 256 over one kv head).  Needs a CUDA
-card.
+``D256_ARCH`` (RoPE, 3 heads of 256 over one kv head).  With
+``--resnet50`` the run is ``chip_smoke.py``'s vision phase's step —
+``resnet50_v1(classes=1000)`` on 32 x 3 x 224 x 224, f32, TF32 off,
+cuDNN deterministic, ``autograd.record`` -> ``SoftmaxCrossEntropyLoss`` ->
+``loss.backward()`` -> ``Trainer(net.collect_params(), "nag")`` — and
+cuDNN's convolutions and the pools are classes of their own.  Needs a
+CUDA card.
 """
 from __future__ import annotations
 
@@ -51,6 +57,9 @@ CLASSES = (("flash_fwd", ("flash_fwd_kernel",)),
            ("norm", ("norm_kernel",)),
            ("optimizer", ("chunk_kernel", "lamb_a_kernel", "lamb_b_kernel")),
            ("moe_gather", ("gather_rows_kernel",)),
+           ("conv", ("conv", "cudnn", "fprop", "dgrad", "wgrad",
+                     "winograd")),
+           ("pool", ("pool",)),
            ("gemm", ("gemm", "sgemm", "cutlass", "cublas", "nvjet")))
 
 
@@ -119,6 +128,22 @@ class TrainerStep:
         return loss.detach()
 
 
+class VisionStep:
+    """One step of ``examples/gluon/image_classification.py``'s loop
+    behind `TrainStep`'s ``dispatch``."""
+
+    def __init__(self, net, trainer, loss_fn):
+        self.net, self.trainer, self.loss_fn = net, trainer, loss_fn
+
+    def dispatch(self, x, y):
+        from mxnet_tpu_torch import autograd
+        with autograd.record():
+            loss = self.loss_fn(self.net(x), y)
+        loss.backward()
+        self.trainer.step(x.shape[0])
+        return loss
+
+
 def moe_step(dev, dtype, entry):
     """The MoE layer of chip_smoke's moe phase behind `entry`."""
     from chip_smoke import MOE_CF, MOE_E, MOE_H, MOE_I, moe_loss
@@ -147,6 +172,8 @@ def main(argv=None) -> int:
                     help="profile the gpt_gqa phase's step instead")
     ap.add_argument("--gpt-d256", action="store_true",
                     help="profile the gpt_d256 phase's step instead")
+    ap.add_argument("--resnet50", action="store_true",
+                    help="profile the vision phase's ResNet-50 step")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -173,6 +200,24 @@ def main(argv=None) -> int:
             print(f"[{key}] {json.dumps(res)}", flush=True)
             del step
             torch.cuda.empty_cache()
+    if args.resnet50:
+        from chip_smoke import VISION_LR, resnet50, vision_batches
+        from mxnet_tpu_torch import gluon
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        x, y = vision_batches(dev, 1)[0]
+        with pallas_mode("auto"):
+            net = resnet50(dev)
+            step = VisionStep(net, gluon.Trainer(
+                net.collect_params(), "nag", dict(VISION_LR)),
+                gluon.loss.SoftmaxCrossEntropyLoss())
+            for _ in range(3):
+                step.dispatch(x, y)
+            out["resnet50_v1_float32_nag"] = res = profile_steps(
+                step, (x, y), 5)
+        print(f"[resnet50_v1_float32_nag] {json.dumps(res)}", flush=True)
+        del step, net
+        torch.cuda.empty_cache()
     gpt = args.gpt or args.gpt_gqa or args.gpt_d256
     tag, arch = (("_gqa", GQA_ARCH) if args.gpt_gqa else
                  ("_d256", D256_ARCH) if args.gpt_d256 else ("", None))
@@ -189,7 +234,8 @@ def main(argv=None) -> int:
         del step
         torch.cuda.empty_cache()
     batch = tuple(torch.from_numpy(a).to(dev) for a in bert_batch(30522))
-    for dtype, opt, route in () if args.moe or gpt else RUNS:
+    for dtype, opt, route in () if args.moe or gpt or args.resnet50 \
+            else RUNS:
         key = f"{dtype}_{opt.lower()}_{route}"
         with pallas_mode(route):
             step = bert_train_step(dev, dtype, opt=opt, route=route)
